@@ -1,0 +1,132 @@
+"""FitSnap facade: scrape -> compute -> fit -> output, on one torch device.
+
+Counterpart of `fitsnap_tpu/fitsnap.py` with the same factories and stage
+methods: `FitSnap(input, arglist, device).scrape_configs()`,
+`.process_configs()`, `.perform_fit()`, `.write_output()`.  This slice
+takes the JSON scraper, the LAMMPSSNAP calculator, the SVD solver and SNAP
+output; any other choice raises NotImplementedError naming its ROADMAP item.
+"""
+
+import time
+
+import numpy as np
+
+from fitsnap_tpu_torch.config import Config
+from fitsnap_tpu_torch.utils.torchsetup import resolve_device, setup_precision
+
+_LATER = "{} {} is not ported to fitsnap_tpu_torch yet (ROADMAP.md, {})"
+
+
+def _scraper_factory(config):
+    name = config.sections["SCRAPER"].scraper.upper()
+    if name == "JSON":
+        from fitsnap_tpu_torch.scrapers.json_scraper import JsonScraper
+        return JsonScraper(name, config)
+    raise NotImplementedError(_LATER.format(
+        "scraper", name, "queue 1: XYZ/VASP/ASE scrapers"))
+
+
+def _calculator_factory(config, device):
+    name = config.sections["CALCULATOR"].calculator.upper()
+    if config.sections["CALCULATOR"].nonlinear:
+        raise NotImplementedError(_LATER.format(
+            "nonlinear calculator", name, "queue 1: NN solver"))
+    if name == "LAMMPSSNAP":
+        from fitsnap_tpu_torch.calculators.snap import SnapCalculator
+        return SnapCalculator(name, config, device)
+    item = {"LAMMPSPACE": "queue 1: ACE",
+            "LAMMPSCUSTOM": "queue 1: custom"}.get(name, "queue 1")
+    raise NotImplementedError(_LATER.format("calculator", name, item))
+
+
+def _solver_factory(config):
+    name = config.sections["SOLVER"].solver.upper()
+    if name == "SVD":
+        from fitsnap_tpu_torch.solvers.svd import SVD
+        return SVD(name, config)
+    item = {"TENSORFLOWSVD": "queue 1: TfSVD / TpuSVD",
+            "TPUSVD": "queue 1: TfSVD / TpuSVD",
+            "SCALAPACK": "queue 1: TfSVD / TpuSVD",
+            "PYTORCH": "queue 1: NN solver", "NETWORK": "queue 1: NN solver",
+            "JAX": "queue 1: NN solver"}.get(
+        name, "queue 1: the other linear solvers")
+    raise NotImplementedError(_LATER.format("solver", name, item))
+
+
+def _output_factory(config):
+    style = config.sections["OUTFILE"].output_style.upper()
+    if style == "SNAP":
+        from fitsnap_tpu_torch.io.outputs.snap_output import SnapOutput
+        return SnapOutput(style, config)
+    item = {"PACE": "queue 1: ACE"}.get(style, "queue 1: custom")
+    raise NotImplementedError(_LATER.format("output style", style, item))
+
+
+class FitSnap:
+    """One fit.  `device` is `cuda` unless the caller asks for `cpu`
+    (here or with `--device cpu` in `arglist`); without a CUDA device the
+    default raises."""
+
+    def __init__(self, input=None, arglist=None, device=None):
+        setup_precision()
+        self.config = Config(input, arglist or [])
+        self.device = resolve_device(
+            device if device is not None else self.config.args.device)
+        from fitsnap_tpu_torch.io.screen import init_output
+        init_output(self.config.args)
+        self.scraper = _scraper_factory(self.config)
+        self.calculator = _calculator_factory(self.config, self.device)
+        self.solver = _solver_factory(self.config)
+        self.output = _output_factory(self.config)
+        self.data = None
+        self.a = self.b = self.w = None
+        self.fs_dict = None
+        self.fit = None
+        self.timings = {}
+
+    # ---------------- pipeline stages ----------------
+
+    def scrape_configs(self, delete_scraper: bool = False):
+        t0 = time.time()
+        self.scraper.scrape_groups()
+        self.scraper.divvy_up_configs()
+        self.data = self.scraper.scrape_configs()
+        self.timings["scrape"] = time.time() - t0
+        if delete_scraper:
+            self.scraper = None
+        return self.data
+
+    def process_configs(self, data=None, delete_data: bool = False):
+        t0 = time.time()
+        data = data if data is not None else self.data
+        self.a, self.b, self.w, self.fs_dict = \
+            self.calculator.process_configs(data)
+        self.timings["process"] = time.time() - t0
+        extras = self.config.sections["EXTRAS"]
+        outfile = self.config.sections["OUTFILE"]
+        if extras.dump_a:
+            np.save(outfile.descriptor_file, self.a)
+        if extras.dump_b:
+            np.save(outfile.truth_file, self.b)
+        if extras.dump_w:
+            np.save(outfile.weights_file, self.w)
+        if delete_data:
+            self.data = None
+
+    def perform_fit(self):
+        t0 = time.time()
+        if not self.config.args.perform_fit:
+            pass
+        elif self.config.sections["EXTRAS"].only_test:
+            self.fit = self.output.read_fit()
+            self.solver.fit = self.fit
+        else:
+            self.solver.perform_fit(self.a, self.b, self.w, self.fs_dict)
+            self.fit = self.solver.fit
+        self.solver.error_analysis(self.a, self.b, self.w, self.fs_dict)
+        self.timings["fit"] = time.time() - t0
+
+    def write_output(self):
+        t0 = time.time()
+        self.output.output(self.solver.fit, self.solver.errors)
+        self.timings["output"] = time.time() - t0

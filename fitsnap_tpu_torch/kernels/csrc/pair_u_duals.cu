@@ -1,0 +1,302 @@
+// K1 pair_u_duals: the weighted Wigner-U expansion of every neighbor pair,
+// its three displacement tangents, and the neighbor sum utot.
+//
+// Replaces fitsnap_tpu/ops/snap.py `_ck_prologue` + `_pair_wu_duals` +
+// `_utot_from_wu` (the TPU form: jax.jvp of the prologue, an unrolled
+// monomial product chain, and a dense (n_mono, 2U) change-of-basis GEMM).
+//
+// Bound on the H100: bytes.  Per pair the kernel writes 4 x 2U doubles
+// (wu and the three rows of J, 8.96 KB at twojmax 6) against about 20
+// kflop of FP64 work, far below the card's flop/byte balance.
+//
+// Design: one block per atom, one thread per U column.  The block walks its
+// neighbors in tiles of TILE pairs.  For a tile, TILE threads evaluate the
+// Cayley-Klein prologue with forward-mode dual numbers (value + 3 tangents)
+// into shared memory; the block then builds the monomial chain of
+// ops/mono.py level by level (one degree at a time, parents always of lower
+// degree) for the 4 streams in shared memory, and finally each thread applies
+// its column of the change of basis L.  L is 99% zeros (1835 nonzeros of
+// 210 x 280 at twojmax 6), so it is read as a column-CSR table through the
+// read-only cache instead of as a dense 470 KB matrix.  Monomials never reach
+// device memory; utot is summed in registers in neighbor order, so it is
+// deterministic.
+#include <math.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int TILE = 4;  // neighbor pairs per block iteration
+
+struct Dual {
+  double v;
+  double d[3];
+};
+
+__device__ __forceinline__ Dual dconst(double v) {
+  Dual r;
+  r.v = v;
+  r.d[0] = r.d[1] = r.d[2] = 0.0;
+  return r;
+}
+
+__device__ __forceinline__ Dual operator+(Dual a, Dual b) {
+  Dual r;
+  r.v = a.v + b.v;
+  for (int c = 0; c < 3; ++c) r.d[c] = a.d[c] + b.d[c];
+  return r;
+}
+
+__device__ __forceinline__ Dual operator-(Dual a, Dual b) {
+  Dual r;
+  r.v = a.v - b.v;
+  for (int c = 0; c < 3; ++c) r.d[c] = a.d[c] - b.d[c];
+  return r;
+}
+
+__device__ __forceinline__ Dual operator-(Dual a) {
+  Dual r;
+  r.v = -a.v;
+  for (int c = 0; c < 3; ++c) r.d[c] = -a.d[c];
+  return r;
+}
+
+__device__ __forceinline__ Dual operator*(Dual a, Dual b) {
+  Dual r;
+  r.v = a.v * b.v;
+  for (int c = 0; c < 3; ++c) r.d[c] = a.d[c] * b.v + a.v * b.d[c];
+  return r;
+}
+
+__device__ __forceinline__ Dual operator+(Dual a, double s) {
+  a.v += s;
+  return a;
+}
+
+__device__ __forceinline__ Dual operator-(Dual a, double s) {
+  a.v -= s;
+  return a;
+}
+
+__device__ __forceinline__ Dual operator*(Dual a, double s) {
+  Dual r;
+  r.v = a.v * s;
+  for (int c = 0; c < 3; ++c) r.d[c] = a.d[c] * s;
+  return r;
+}
+
+__device__ __forceinline__ Dual operator*(double s, Dual a) { return a * s; }
+
+__device__ __forceinline__ Dual operator/(Dual a, double s) {
+  Dual r;
+  r.v = a.v / s;
+  for (int c = 0; c < 3; ++c) r.d[c] = a.d[c] / s;
+  return r;
+}
+
+__device__ __forceinline__ Dual operator/(Dual a, Dual b) {
+  Dual r;
+  r.v = a.v / b.v;
+  for (int c = 0; c < 3; ++c) r.d[c] = a.d[c] / b.v - a.v * b.d[c] / (b.v * b.v);
+  return r;
+}
+
+__device__ __forceinline__ Dual dsqrt(Dual a) {
+  Dual r;
+  r.v = sqrt(a.v);
+  for (int c = 0; c < 3; ++c) r.d[c] = a.d[c] * (0.5 / r.v);
+  return r;
+}
+
+__device__ __forceinline__ Dual dtan(Dual a) {
+  Dual r;
+  r.v = tan(a.v);
+  for (int c = 0; c < 3; ++c) r.d[c] = a.d[c] * (1.0 + r.v * r.v);
+  return r;
+}
+
+__device__ __forceinline__ Dual dcos(Dual a) {
+  double s, co;
+  sincos(a.v, &s, &co);
+  Dual r;
+  r.v = co;
+  for (int c = 0; c < 3; ++c) r.d[c] = -s * a.d[c];
+  return r;
+}
+
+struct Scalars {
+  double rcutfac, rfac0, rmin0;
+  int switchflag, switchinnerflag;
+};
+
+// Cayley-Klein parameters (ar, ai, br, bi) and switching weight w of one
+// pair, each with its tangents along the three displacement axes.  elem is
+// (nelem, 4): radelem, wj, sinner, dinner.  A masked pair takes the safe
+// displacement (1, 0, 0), zero tangents and weight 0.
+__device__ void prologue(double dx, double dy, double dz, bool valid, int ie,
+                         int je, const double* __restrict__ elem,
+                         const Scalars& s, Dual out[5]) {
+  const double one = valid ? 1.0 : 0.0;
+  if (!valid) {
+    dx = 1.0;
+    dy = 0.0;
+    dz = 0.0;
+  }
+  Dual x = dconst(dx), y = dconst(dy), z = dconst(dz);
+  x.d[0] = one;
+  y.d[1] = one;
+  z.d[2] = one;
+  const Dual r = dsqrt(x * x + y * y + z * z);
+  const double rcutij = (elem[ie * 4] + elem[je * 4]) * s.rcutfac;
+  const Dual theta0 = (r - s.rmin0) * (s.rfac0 * M_PI) / (rcutij - s.rmin0);
+  const Dual z0 = r / dtan(theta0);
+  const Dual r0inv = dconst(1.0) / dsqrt(r * r + z0 * z0);
+  out[0] = r0inv * z0;
+  out[1] = -(r0inv * z);
+  out[2] = r0inv * y;
+  out[3] = -(r0inv * x);
+
+  Dual sfac = dconst(1.0);
+  if (s.switchflag) {
+    const double rscale = M_PI / (rcutij - s.rmin0);
+    if (r.v <= s.rmin0) {
+      sfac = dconst(1.0);
+    } else if (r.v > rcutij) {
+      sfac = dconst(0.0);
+    } else {
+      sfac = 0.5 * (dcos((r - s.rmin0) * rscale) + 1.0);
+    }
+  }
+  if (s.switchinnerflag) {
+    const double sin_ij = 0.5 * (elem[ie * 4 + 2] + elem[je * 4 + 2]);
+    const double din_ij = 0.5 * (elem[ie * 4 + 3] + elem[je * 4 + 3]);
+    Dual arg = (r - sin_ij) * (0.5 * M_PI) / din_ij;
+    if (arg.v < -0.5 * M_PI) arg = dconst(-0.5 * M_PI);
+    if (arg.v > 0.5 * M_PI) arg = dconst(0.5 * M_PI);
+    Dual inner = 0.5 * (dconst(1.0) - dcos(arg + 0.5 * M_PI));
+    if (r.v >= sin_ij + din_ij) inner = dconst(1.0);
+    if (r.v <= sin_ij - din_ij) inner = dconst(0.0);
+    sfac = sfac * inner;
+  }
+  out[4] = valid ? sfac * elem[je * 4 + 1] : dconst(0.0);
+}
+
+__global__ void pair_u_duals_kernel(
+    const double* __restrict__ disp, const int* __restrict__ jelem,
+    const unsigned char* __restrict__ mask, const int* __restrict__ ielem,
+    const double* __restrict__ elem, Scalars s, long long natoms, int K,
+    const int* __restrict__ parent, const int* __restrict__ var,
+    const int* __restrict__ levels, int nlevels, int n_mono,
+    const int* __restrict__ l_ptr, const int* __restrict__ l_row,
+    const double* __restrict__ l_val, int two_u,
+    const double* __restrict__ selfvec, double* __restrict__ wu,
+    double* __restrict__ J, double* __restrict__ ut) {
+  extern __shared__ double mono[];        // [TILE][4][n_mono]
+  __shared__ double sv[TILE][4][4];       // (ar, ai, br, bi) x (value, tangents)
+  __shared__ double sw[TILE][4];          // w x (value, tangents)
+  const long long a = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int ie = ielem[a];
+  const long long stream_stride = natoms * K * two_u;  // one row of J
+  double acc = 0.0;
+
+  for (int k0 = 0; k0 < K; k0 += TILE) {
+    if (tid < TILE) {
+      const int k = k0 + tid;
+      Dual out[5];
+      if (k < K) {
+        const long long pk = a * K + k;
+        prologue(disp[pk * 3], disp[pk * 3 + 1], disp[pk * 3 + 2],
+                 mask[pk] != 0, ie, jelem[pk], elem, s, out);
+      } else {
+        prologue(1.0, 0.0, 0.0, false, ie, 0, elem, s, out);
+      }
+      for (int v = 0; v < 4; ++v) {
+        sv[tid][v][0] = out[v].v;
+        for (int c = 0; c < 3; ++c) sv[tid][v][1 + c] = out[v].d[c];
+      }
+      sw[tid][0] = out[4].v;
+      for (int c = 0; c < 3; ++c) sw[tid][1 + c] = out[4].d[c];
+      double* m = mono + tid * 4 * n_mono;
+      m[0] = 1.0;
+      m[n_mono] = m[2 * n_mono] = m[3 * n_mono] = 0.0;
+    }
+    __syncthreads();
+
+    // monomial chain, one degree level at a time (levels[l]..levels[l+1])
+    for (int l = 1; l < nlevels; ++l) {
+      const int m0 = levels[l];
+      const int nl = levels[l + 1] - m0;
+      for (int idx = tid; idx < TILE * nl; idx += blockDim.x) {
+        const int p = idx / nl;
+        const int mi = m0 + idx % nl;
+        const int pa = parent[mi];
+        const int vi = var[mi];
+        double* m = mono + p * 4 * n_mono;
+        const double xv = sv[p][vi][0];
+        const double mp = m[pa];
+        for (int c = 0; c < 3; ++c)
+          m[(1 + c) * n_mono + mi] =
+              m[(1 + c) * n_mono + pa] * xv + mp * sv[p][vi][1 + c];
+        m[mi] = mp * xv;
+      }
+      __syncthreads();
+    }
+
+    // change of basis: thread tid owns U column tid
+    if (tid < two_u) {
+      const int q0 = l_ptr[tid];
+      const int q1 = l_ptr[tid + 1];
+      for (int p = 0; p < TILE && k0 + p < K; ++p) {
+        const double* m = mono + p * 4 * n_mono;
+        double u = 0.0, t0 = 0.0, t1 = 0.0, t2 = 0.0;
+        for (int q = q0; q < q1; ++q) {
+          const int row = l_row[q];
+          const double c = l_val[q];
+          u += c * m[row];
+          t0 += c * m[n_mono + row];
+          t1 += c * m[2 * n_mono + row];
+          t2 += c * m[3 * n_mono + row];
+        }
+        const double wp = sw[p][0];
+        const long long out = (a * K + k0 + p) * two_u + tid;
+        const double wuv = wp * u;
+        wu[out] = wuv;
+        J[out] = wp * t0 + sw[p][1] * u;
+        J[stream_stride + out] = wp * t1 + sw[p][2] * u;
+        J[2 * stream_stride + out] = wp * t2 + sw[p][3] * u;
+        acc += wuv;
+      }
+    }
+    __syncthreads();
+  }
+  if (tid < two_u) ut[a * two_u + tid] = acc + selfvec[tid];
+}
+
+}  // namespace
+
+// disp (N, K, 3) f64, jelem (N, K) i32, mask (N, K) u8, ielem (N,) i32,
+// elem (nelem, 4) f64; monomial plan parent/var (n_mono,) i32 and levels
+// (nlevels + 1,) i32; L as column CSR l_ptr (2U + 1,), l_row, l_val;
+// selfvec (2U,).  Writes wu (N, K, 2U), J (3, N, K, 2U), ut (N, 2U).
+extern "C" int pair_u_duals(
+    const double* disp, const int* jelem, const unsigned char* mask,
+    const int* ielem, const double* elem, double rcutfac, double rfac0,
+    double rmin0, int switchflag, int switchinnerflag, long long natoms,
+    int K, const int* parent, const int* var, const int* levels, int nlevels,
+    int n_mono, const int* l_ptr, const int* l_row, const double* l_val,
+    int two_u, const double* selfvec, double* wu, double* J, double* ut,
+    void* stream) {
+  const Scalars s{rcutfac, rfac0, rmin0, switchflag, switchinnerflag};
+  const int threads = ((two_u + 31) / 32) * 32;
+  const size_t smem = sizeof(double) * TILE * 4 * n_mono;
+  const int err = fs_allow_smem(pair_u_duals_kernel, smem);
+  if (err) return err;
+  if (natoms > 0) {
+    pair_u_duals_kernel<<<static_cast<unsigned>(natoms), threads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+        disp, jelem, mask, ielem, elem, s, natoms, K, parent, var, levels,
+        nlevels, n_mono, l_ptr, l_row, l_val, two_u, selfvec, wu, J, ut);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,434 @@
+"""SNAP bispectrum descriptors and their pair jacobian, in plain PyTorch.
+
+Counterpart of `fitsnap_tpu/ops/snap.py` for the single-channel linear path.
+A config is a padded (A, K) block of atoms x neighbors; complex values are
+carried as (real, imag) pairs with the same flat layouts as the JAX package,
+so every intermediate can be compared with its JAX twin element by element.
+
+The functions here are the plain versions: they run on any device and are
+what the CPU takes.  `descriptors_with_jacobian` composes the four kernels
+of `fitsnap_tpu_torch.kernels.snap_kernels` (K1 pair U duals, K2 z-lists,
+K3 dB/dD); their wrappers launch the hand-written CUDA kernels for CUDA
+tensors and fall to these plain versions only for CPU tensors.
+
+chemflag and quadraticflag are not ported yet (ROADMAP.md, queue 1,
+"quadratic/chemflag").
+"""
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from fitsnap_tpu_torch.ops.cg import build_snap_plan, rootpq_tables, sym_signs
+from fitsnap_tpu_torch.ops.mono import mono_plan
+
+_NOT_PORTED = ("{} is not ported to fitsnap_tpu_torch yet "
+               "(ROADMAP.md, queue 1: quadratic/chemflag)")
+
+
+@dataclass
+class SnapParams:
+    """SNAP hyperparameters and plan tables, as tensors on one device.
+
+    Scalars stay Python numbers; every table is a tensor on `device`.
+    """
+
+    twojmax: int
+    u_len: int
+    ntriples: int
+    rcutfac: float
+    rfac0: float
+    rmin0: float
+    switchflag: bool
+    switchinnerflag: bool
+    bzeroflag: bool
+    wself: float
+    device: torch.device
+    radelem: torch.Tensor            # (nelem,) f64
+    wj: torch.Tensor                 # (nelem,) f64
+    sinner: Optional[torch.Tensor]   # (nelem,) f64 or None
+    dinner: Optional[torch.Tensor]
+    elem: torch.Tensor               # (nelem, 4): radelem, wj, sinner, dinner
+    # trilinear B plan (recursion oracle)
+    i1: torch.Tensor
+    i2: torch.Tensor
+    i3: torch.Tensor
+    mmat: torch.Tensor               # (nterms_base, ntriples)
+    bzero: torch.Tensor              # (ntriples,)
+    self_idx: torch.Tensor           # (ndiag,) long: real diagonal of U
+    selfvec: torch.Tensor            # (2U,) f64: wself on the real diagonal
+    # y-list plan: dB/dutot gathered from the z-lists
+    y_src: torch.Tensor              # (3, W, U) int32 into the flat z layout
+    y_fac: torch.Tensor              # (3, W, U) f64
+    # z-list as a compact term list, CSR over the flat z output index
+    nz: int
+    z_ptr: torch.Tensor              # (nz+1,) int32
+    z_i1: torch.Tensor               # (nterms,) int32 into u (first factor)
+    z_i2: torch.Tensor               # (nterms,) int32 into u (second factor)
+    z_c: torch.Tensor                # (nterms,) f64 CG*CG coefficient
+    z_out: torch.Tensor              # (nterms,) long: output index of each term
+    # monomial change of basis (ops/mono.py)
+    mono_parent: torch.Tensor        # (n_mono,) int32
+    mono_var: torch.Tensor           # (n_mono,) int32
+    mono_levels: tuple               # degree-level boundaries into the monomials
+    mono_levels_t: torch.Tensor      # the same boundaries, int32
+    L: torch.Tensor                  # (n_mono, 2U) f64 dense
+    l_ptr: torch.Tensor              # (2U+1,) int32: CSR of L by column
+    l_row: torch.Tensor              # (nnz,) int32
+    l_val: torch.Tensor              # (nnz,) f64
+
+
+def z_term_list(z_groups, D):
+    """Compact (out, i1, i2, coef) z-list terms from the padded TPU tables.
+
+    `z_groups` are the grouped term GEMM tables of `cg.build_snap_plan`
+    (gi1, gi2 (Tg, P) and M (Tg, P, D*D)), in z-triple order.  Each nonzero
+    of M becomes one term of the flat output index t * D*D + column, so the
+    layout equals `_compute_zcat`'s and `y_src` indexes it unchanged.
+    Returns numpy arrays sorted by output index.
+    """
+    outs, a1, a2, cs = [], [], [], []
+    t0 = 0
+    for g in z_groups:
+        gi1, gi2, M = (np.asarray(g["gi1"]), np.asarray(g["gi2"]),
+                       np.asarray(g["M"]))
+        ti, k, col = np.nonzero(M)
+        outs.append((t0 + ti) * D * D + col)
+        a1.append(gi1[ti, k])
+        a2.append(gi2[ti, k])
+        cs.append(M[ti, k, col])
+        t0 += M.shape[0]
+    out = np.concatenate(outs)
+    order = np.argsort(out, kind="stable")
+    return (out[order].astype(np.int64), np.concatenate(a1)[order],
+            np.concatenate(a2)[order], np.concatenate(cs)[order], t0 * D * D)
+
+
+def _csr_by_column(L):
+    """CSR of a dense (rows, cols) matrix by column: (ptr, row, val)."""
+    col_major = np.asarray(L).T
+    cols, rows = np.nonzero(col_major)
+    ptr = np.zeros(col_major.shape[0] + 1, np.int64)
+    np.add.at(ptr, cols + 1, 1)
+    return np.cumsum(ptr), rows, col_major[cols, rows]
+
+
+def params_from_arrays(d: dict, device) -> SnapParams:
+    """Build `SnapParams` from host numpy arrays (see `convert.py`).
+
+    Keys: twojmax, rcutfac, rfac0, rmin0, switchflag, switchinnerflag,
+    bzeroflag, wself, radelem, wj, sinner, dinner (or None), and the plan
+    arrays i1, i2, i3, mmat, bzero, self_idx, y_src, y_fac, z_dense.
+    """
+    device = torch.device(device)
+    f64, i32 = torch.float64, torch.int32
+
+    def t(x, dtype=f64):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    twojmax = int(d["twojmax"])
+    y_src = np.asarray(d["y_src"])
+    u_len = y_src.shape[2]
+    exps, parent, var, L = mono_plan(twojmax)
+    deg = np.asarray(exps).sum(1)
+    levels = tuple(int(x) for x in np.searchsorted(deg, np.arange(twojmax + 2)))
+    l_ptr, l_row, l_val = _csr_by_column(L)
+    z_out, z_i1, z_i2, z_c, nz = z_term_list(d["z_dense"]["groups"],
+                                             int(d["z_dense"]["D"]))
+    z_ptr = np.searchsorted(z_out, np.arange(nz + 1))
+    self_idx = np.asarray(d["self_idx"], np.int64)
+    selfvec = np.zeros(2 * u_len)
+    selfvec[self_idx] = float(d["wself"])
+    sw_in = bool(d["switchinnerflag"])
+    nelem = len(np.atleast_1d(d["radelem"]))
+    inner = [d["sinner"], d["dinner"]] if sw_in else [np.zeros(nelem)] * 2
+    elem = np.stack([np.atleast_1d(np.asarray(x, np.float64))
+                     for x in [d["radelem"], d["wj"]] + inner], 1)
+    return SnapParams(
+        twojmax=twojmax, u_len=u_len, ntriples=y_src.shape[1],
+        rcutfac=float(d["rcutfac"]), rfac0=float(d["rfac0"]),
+        rmin0=float(d["rmin0"]), switchflag=bool(d["switchflag"]),
+        switchinnerflag=sw_in, bzeroflag=bool(d["bzeroflag"]),
+        wself=float(d["wself"]), device=device,
+        radelem=t(d["radelem"]), wj=t(d["wj"]),
+        sinner=t(d["sinner"]) if sw_in else None,
+        dinner=t(d["dinner"]) if sw_in else None, elem=t(elem),
+        i1=t(d["i1"], torch.long), i2=t(d["i2"], torch.long),
+        i3=t(d["i3"], torch.long), mmat=t(d["mmat"]), bzero=t(d["bzero"]),
+        self_idx=t(self_idx, torch.long), selfvec=t(selfvec),
+        y_src=t(y_src, i32), y_fac=t(d["y_fac"]),
+        nz=int(nz), z_ptr=t(z_ptr, i32), z_i1=t(z_i1, i32),
+        z_i2=t(z_i2, i32), z_c=t(z_c), z_out=t(z_out, torch.long),
+        mono_parent=t(parent, i32), mono_var=t(var, i32),
+        mono_levels=levels, mono_levels_t=t(levels, i32), L=t(L), l_ptr=t(l_ptr, i32),
+        l_row=t(l_row, i32), l_val=t(l_val),
+    )
+
+
+def make_params(section, device) -> SnapParams:
+    """Build SnapParams from a BISPECTRUM config section on `device`."""
+    if section.chemflag:
+        raise NotImplementedError(_NOT_PORTED.format("chemflag"))
+    if section.quadraticflag:
+        raise NotImplementedError(_NOT_PORTED.format("quadraticflag"))
+    twojmax = int(max(int(t) for t in section.twojmax))
+    plan = build_snap_plan(
+        twojmax=twojmax, nelements=section.numtypes, chemflag=False,
+        bnormflag=bool(section.bnormflag), bzeroflag=bool(section.bzeroflag),
+        wselfallflag=bool(section.wselfallflag), quadraticflag=False)
+    sw_in = bool(section.switchinnerflag)
+    d = {name: getattr(plan, name) for name in (
+        "i1", "i2", "i3", "mmat", "bzero", "self_idx", "y_src", "y_fac",
+        "z_dense", "bzeroflag")}
+    d.update(
+        twojmax=twojmax, rcutfac=float(section.rcutfac),
+        rfac0=float(section.rfac0), rmin0=float(section.rmin0),
+        switchflag=bool(section.switchflag), switchinnerflag=sw_in,
+        wself=1.0,
+        wj=[float(x) for x in section.wj],
+        radelem=[float(x) for x in section.radelem],
+        sinner=[float(x) for x in section.sinner.split()] if sw_in else None,
+        dinner=[float(x) for x in section.dinner.split()] if sw_in else None)
+    return params_from_arrays(d, device)
+
+
+# ---------------------------------------------------------------------------
+# Scalar prologue and the recursion oracle
+# ---------------------------------------------------------------------------
+
+
+def compute_sfac(r, rcutij, rmin0, switchflag, sinnerij=None, dinnerij=None,
+                 switchinnerflag=False):
+    """LAMMPS SNA switching function (outer cosine ramp, optional inner)."""
+    if switchflag:
+        rscale = math.pi / (rcutij - rmin0)
+        ramp = 0.5 * (torch.cos((r - rmin0) * rscale) + 1.0)
+        sfac = torch.where(r <= rmin0, torch.ones_like(r),
+                           torch.where(r > rcutij, torch.zeros_like(r), ramp))
+    else:
+        sfac = torch.ones_like(r)
+    if switchinnerflag:
+        arg = torch.clamp((r - sinnerij) * (0.5 * math.pi) / dinnerij,
+                          -0.5 * math.pi, 0.5 * math.pi)
+        inner = 0.5 * (1.0 - torch.cos(0.5 * math.pi + arg))
+        inner = torch.where(r >= sinnerij + dinnerij, torch.ones_like(r),
+                            inner)
+        inner = torch.where(r <= sinnerij - dinnerij, torch.zeros_like(r),
+                            inner)
+        sfac = sfac * inner
+    return sfac
+
+
+def _ck_prologue(disp, jelem, mask, ielem, p: SnapParams):
+    """Per-pair Cayley-Klein parameters and switching weight.
+
+    Returns (ar, ai, br, bi, w), each (A, K).  Masked pairs get the safe
+    displacement (1, 0, 0) and weight 0.
+    """
+    safe = torch.where(mask[..., None], disp,
+                       disp.new_tensor([1.0, 0.0, 0.0]))
+    x, y, z = safe[..., 0], safe[..., 1], safe[..., 2]
+    r = torch.sqrt(x * x + y * y + z * z)
+    rcutij = (p.radelem[ielem][:, None] + p.radelem[jelem]) * p.rcutfac
+    theta0 = (r - p.rmin0) * (p.rfac0 * math.pi) / (rcutij - p.rmin0)
+    z0 = r / torch.tan(theta0)
+    r0inv = 1.0 / torch.sqrt(r * r + z0 * z0)
+    ar, ai = r0inv * z0, -r0inv * z
+    br, bi = r0inv * y, -r0inv * x
+    sinnerij = dinnerij = None
+    if p.switchinnerflag:
+        sinnerij = 0.5 * (p.sinner[ielem][:, None] + p.sinner[jelem])
+        dinnerij = 0.5 * (p.dinner[ielem][:, None] + p.dinner[jelem])
+    sfac = compute_sfac(r, rcutij, p.rmin0, p.switchflag,
+                        sinnerij, dinnerij, p.switchinnerflag)
+    w = torch.where(mask, sfac * p.wj[jelem], torch.zeros_like(r))
+    return ar, ai, br, bi, w
+
+
+def compute_ulist(ar, ai, br, bi, twojmax):
+    """Wigner-U expansion per pair via the LAMMPS two-term recursion.
+
+    Returns a list over j of (ur, ui), each (..., j+1, j+1) indexed [mb, ma].
+    """
+    dtype, device = ar.dtype, ar.device
+    tables = rootpq_tables(twojmax)
+    signs = sym_signs(twojmax)
+    batch = ar.shape
+    u = [(torch.ones(batch + (1, 1), dtype=dtype, device=device),
+          torch.zeros(batch + (1, 1), dtype=dtype, device=device))]
+    arx, aix = ar[..., None, None], ai[..., None, None]
+    brx, bix = br[..., None, None], bi[..., None, None]
+    pad = torch.nn.functional.pad
+    for j in range(1, twojmax + 1):
+        pr, pi = u[j - 1]
+        # a-term source: prev at [mb, ma]; b-term source: prev at [mb, ma-1]
+        pr_a, pi_a = pad(pr, (0, 1, 0, 1)), pad(pi, (0, 1, 0, 1))
+        pr_b, pi_b = pad(pr, (1, 0, 0, 1)), pad(pi, (1, 0, 0, 1))
+        ca, cb = (torch.as_tensor(c, dtype=dtype, device=device)
+                  for c in tables[j - 1])
+        ta_r = arx * pr_a + aix * pi_a
+        ta_i = arx * pi_a - aix * pr_a
+        tb_r = brx * pr_b + bix * pi_b
+        tb_i = brx * pi_b - bix * pr_b
+        half_r = ca * ta_r - cb * tb_r
+        half_i = ca * ta_i - cb * tb_i
+        # symmetry completion: u[j-mb, j-ma] = (-1)^(ma+mb) conj(u[mb, ma])
+        sign = torch.as_tensor(signs[j - 1], dtype=dtype, device=device)
+        sym_r = sign * half_r.flip(-1, -2)
+        sym_i = -sign * half_i.flip(-1, -2)
+        mb = torch.arange(j + 1, device=device)[:, None]
+        low = (2 * mb <= j).expand(j + 1, j + 1)
+        u.append((torch.where(low, half_r, sym_r),
+                  torch.where(low, half_i, sym_i)))
+    return u
+
+
+def flatten_ulist(u):
+    """Concatenate per-j U blocks into a flat (..., U) vector pair."""
+    ur = torch.cat([x[0].flatten(-2) for x in u], -1)
+    ui = torch.cat([x[1].flatten(-2) for x in u], -1)
+    return ur, ui
+
+
+def compute_utot(disp, jelem, mask, ielem, p: SnapParams):
+    """Neighbor-summed U expansion by the recursion: (utot_r, utot_i) (A, U)."""
+    ar, ai, br, bi, w = _ck_prologue(disp, jelem, mask, ielem, p)
+    ur, ui = flatten_ulist(compute_ulist(ar, ai, br, bi, p.twojmax))
+    utr = torch.einsum("ak,aku->au", w, ur) + p.selfvec[None, :p.u_len]
+    uti = torch.einsum("ak,aku->au", w, ui)
+    return utr, uti
+
+
+def bispectrum_from_utot(utr, uti, p: SnapParams):
+    """Trilinear CG contraction: utot -> per-atom bispectrum B (A, W)."""
+    a_r, a_i = utr[:, p.i1], uti[:, p.i1]
+    b_r, b_i = utr[:, p.i2], uti[:, p.i2]
+    c_r, c_i = utr[:, p.i3], uti[:, p.i3]
+    ab_r = a_r * b_r - a_i * b_i
+    ab_i = a_r * b_i + a_i * b_r
+    re = ab_r * c_r + ab_i * c_i               # Re[(u1*u2) * conj(u3)]
+    B = re @ p.mmat
+    if p.bzeroflag:
+        B = B - p.bzero[None, :]
+    return B
+
+
+def atom_descriptors(disp, jelem, mask, ielem, p: SnapParams):
+    """Per-atom SNAP descriptors by the recursion (the independent oracle)."""
+    utr, uti = compute_utot(disp, jelem, mask, ielem, p)
+    return bispectrum_from_utot(utr, uti, p)
+
+
+# ---------------------------------------------------------------------------
+# Factorized derivatives: dB/dD = dB/dutot . d(utot)/dD  (plain versions)
+# ---------------------------------------------------------------------------
+
+
+def _prologue_duals(disp, jelem, mask, ielem, p: SnapParams):
+    """Prologue values and their 3 displacement tangents.
+
+    Returns (vals (5, A, K), tans (3, 5, A, K)) for (ar, ai, br, bi, w).
+    """
+    def scal(d):
+        return torch.stack(_ck_prologue(d, jelem, mask, ielem, p))
+
+    eye = torch.eye(3, dtype=disp.dtype, device=disp.device)
+    tg = eye[:, None, None, :].expand((3,) + disp.shape)
+    vals = scal(disp)
+    tans = torch.func.vmap(
+        lambda t: torch.func.jvp(scal, (disp,), (t,))[1])(tg)
+    return vals, tans
+
+
+def _pair_wu_duals(disp, jelem, mask, ielem, p: SnapParams):
+    """Weighted per-pair U expansion with its displacement tangents.
+
+    Returns (wu (A, K, 2U), J (3, A, K, 2U)).  The monomial chain of
+    `ops/mono.py` runs level by level (monomials of one degree at a time)
+    and the dense change of basis L maps it to U.
+    """
+    vals, tans = _prologue_duals(disp, jelem, mask, ielem, p)
+    v = vals[:4].permute(1, 2, 0)                    # (A, K, 4)
+    vt = tans[:, :4].permute(0, 2, 3, 1)             # (3, A, K, 4)
+    wp, wt = vals[4], tans[:, 4]
+    n_mono = p.mono_parent.shape[0]
+    M = disp.new_zeros(disp.shape[:2] + (n_mono,))
+    Mt = disp.new_zeros((3,) + disp.shape[:2] + (n_mono,))
+    M[..., 0] = 1.0
+    lv = p.mono_levels
+    for s, e in zip(lv[1:-1], lv[2:]):
+        pa, vi = p.mono_parent[s:e], p.mono_var[s:e]
+        Mt[..., s:e] = Mt[..., pa] * v[..., vi][None] + M[..., pa][None] * vt[..., vi]
+        M[..., s:e] = M[..., pa] * v[..., vi]
+    U = M @ p.L
+    Ut = Mt @ p.L
+    wu = wp[..., None] * U
+    J = wp[None, ..., None] * Ut + wt[..., None] * U[None]
+    return wu, J
+
+
+def _utot_from_wu(wu, p: SnapParams):
+    """Sum pair contributions and the self term into (A, 2U)."""
+    return wu.sum(dim=1) + p.selfvec[None, :]
+
+
+def _compute_zcat_pair(u1r, u1i, u2r, u2i, p: SnapParams):
+    """z-lists of u1 with u2: sum over the compact CG*CG term list.
+
+    Returns (z_r, z_i), each (A, nz) in the flat layout `y_src` indexes.
+    """
+    a_r, a_i = u1r[:, p.z_i1.long()], u1i[:, p.z_i1.long()]
+    b_r, b_i = u2r[:, p.z_i2.long()], u2i[:, p.z_i2.long()]
+    pr = (a_r * b_r - a_i * b_i) * p.z_c
+    pi = (a_r * b_i + a_i * b_r) * p.z_c
+    zr = u1r.new_zeros((u1r.shape[0], p.nz)).index_add_(1, p.z_out, pr)
+    zi = u1r.new_zeros((u1r.shape[0], p.nz)).index_add_(1, p.z_out, pi)
+    return zr, zi
+
+
+def _compute_zcat(ut, p: SnapParams):
+    """Flattened z-lists of utot (A, 2U) with itself: (z_r, z_i) (A, nz)."""
+    U = p.u_len
+    return _compute_zcat_pair(ut[:, :U], ut[:, U:], ut[:, :U], ut[:, U:], p)
+
+
+def _dbdu_ylist(ut, p: SnapParams, zcat=None):
+    """Analytic dB/dutot (A, W, 2U) from the three y-layers of the z-lists."""
+    z_r, z_i = zcat if zcat is not None else _compute_zcat(ut, p)
+    y_r = sum(p.y_fac[layer] * z_r[:, p.y_src[layer]] for layer in range(3))
+    y_i = sum(p.y_fac[layer] * z_i[:, p.y_src[layer]] for layer in range(3))
+    return torch.cat([y_r, y_i], dim=-1)
+
+
+def _bispectrum_from_zcat(ut, zcat, p: SnapParams):
+    """B as the contraction of utot with the fac-0 y-layer, minus bzero."""
+    z_r, z_i = zcat
+    U = p.u_len
+    src0, fac0 = p.y_src[0], p.y_fac[0]
+    B = (torch.einsum("au,atu->at", ut[:, :U], fac0 * z_r[:, src0])
+         + torch.einsum("au,atu->at", ut[:, U:], fac0 * z_i[:, src0]))
+    if p.bzeroflag:
+        B = B - p.bzero[None, :]
+    return B
+
+
+def descriptors_with_jacobian(disp, jelem, mask, ielem, p: SnapParams,
+                              plain=False):
+    """Per-atom descriptors and their per-pair gradients.
+
+    Returns B (A, W) and dBdD (A, W, K, 3) = d B[a] / d disp[a, k, c].
+    The three steps are the kernels K1-K3; `plain=True` runs their plain
+    versions on any device (the reference the kernels are checked against).
+    """
+    from fitsnap_tpu_torch.kernels import snap_kernels as sk
+
+    if plain:
+        wu, J, ut = sk.pair_u_duals_plain(disp, jelem, mask, ielem, p)
+        z_r, z_i = sk.zlist_plain(ut, p)
+        return sk.dbdd_plain(ut, z_r, z_i, J, p)
+    wu, J, ut = sk.pair_u_duals(disp, jelem, mask, ielem, p)
+    z_r, z_i = sk.zlist(ut, p)
+    return sk.dbdd(ut, z_r, z_i, J, p)

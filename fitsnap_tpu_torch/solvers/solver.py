@@ -1,0 +1,147 @@
+"""Solver base: weight application, error analysis, coefficient reshaping.
+
+Counterpart of `fitsnap_tpu/solvers/solver.py`.  The grouped error table
+(ncount/mae/rmse/rsq, unweighted and weighted, `*ALL` plus per group) has
+the same index structure, Group / Weighting / Testing / Subsystem, and the
+same numbers; it is computed with numpy and kept in a small `ErrorTable`
+instead of a pandas DataFrame.
+"""
+
+import numpy as np
+
+_COLUMNS = ("ncount", "mae", "rmse", "rsq")
+_INDEX_NAMES = ("Group", "Weighting", "Testing", "Subsystem")
+
+
+class ErrorTable:
+    """Grouped fit errors.
+
+    `index` is a list of (Group, Weighting, Testing, Subsystem) tuples and
+    `values` an (n, 4) array of ncount, mae, rmse, rsq, row by row in the
+    order of the JAX package's table.
+    """
+
+    columns = _COLUMNS
+    index_names = _INDEX_NAMES
+
+    def __init__(self, index, values):
+        self.index = list(index)
+        self.values = np.asarray(values, np.float64).reshape(-1, 4)
+
+    def __len__(self):
+        return len(self.index)
+
+    def to_markdown(self):
+        head = "| " + " | ".join(_INDEX_NAMES + _COLUMNS) + " |"
+        rule = "|" + "|".join([":---"] * 4 + ["---:"] * 4) + "|"
+        lines = [head, rule]
+        for key, v in zip(self.index, self.values):
+            nums = [str(int(v[0]))] + [f"{x:.8g}" for x in v[1:]]
+            lines.append("| " + " | ".join(list(key) + nums) + " |")
+        return "\n".join(lines) + "\n"
+
+    def to_csv(self, sep=","):
+        lines = [sep.join(_INDEX_NAMES + _COLUMNS)]
+        for key, v in zip(self.index, self.values):
+            nums = [str(int(v[0]))] + [f"{x:.8f}" for x in v[1:]]
+            lines.append(sep.join(list(key) + nums))
+        return "\n".join(lines) + "\n"
+
+
+def _group_errors(truths, preds, weights):
+    """(unweighted, weighted) [ncount, mae, rmse, rsq] of one row group."""
+    res = truths - preds
+    mae = np.mean(abs(res))
+    ssr = np.square(res).sum()
+    n = len(truths)
+    rmse = np.sqrt(ssr / n)
+    rsq = 1 - ssr / np.sum(np.square(truths - (truths / n).sum()))
+    w_res = weights * res
+    w_mae = np.mean(abs(w_res))
+    w_ssr = np.square(w_res).sum()
+    w_n = np.count_nonzero(weights)
+    w_rmse = np.sqrt(w_ssr / w_n) if w_n else 0.0
+    wt = weights * truths
+    w_rsq = 1 - w_ssr / np.sum(np.square(wt - (wt / w_n).sum())) \
+        if w_n else 0.0
+    return [n, mae, rmse, rsq], [w_n, w_mae, w_rmse, w_rsq]
+
+
+def error_table(truths, preds, weights, groups, testing, row_types):
+    """Grouped error table over the rows of a fit.
+
+    Rows are grouped by (Testing, Row_Type) for `*ALL` and by (Group,
+    Testing, Row_Type) per group; the table lists `*ALL` first, then the
+    groups, each sorted by (Weighting, Testing, Subsystem) with Training
+    before Testing.
+    """
+    groups = np.asarray(groups, object)
+    testing = np.asarray(testing, bool)
+    row_types = np.asarray(row_types, object)
+    index, values = [], []
+
+    def add(group, sel_rows):
+        keys = sorted({(bool(t), str(r)) for t, r in
+                       zip(testing[sel_rows], row_types[sel_rows])})
+        stats = {}
+        for t, r in keys:
+            sel = sel_rows & (testing == t) & (row_types == r)
+            stats[(t, r)] = _group_errors(truths[sel], preds[sel],
+                                          weights[sel])
+        for wi, wname in enumerate(("Unweighted", "weighted")):
+            for t, r in keys:
+                index.append((group, wname, "Testing" if t else "Training",
+                              r))
+                values.append(stats[(t, r)][wi])
+
+    everything = np.ones(len(truths), bool)
+    add("*ALL", everything)
+    for g in sorted(set(groups.tolist())):
+        add(str(g), groups == g)
+    return ErrorTable(index, values)
+
+
+class Solver:
+    def __init__(self, name, config, linear=True):
+        self.config = config
+        self.name = name
+        self.fit = None
+        self.errors = []
+        self.linear = linear
+
+    def perform_fit(self, a, b, w, fs_dict):
+        raise NotImplementedError
+
+    @staticmethod
+    def prepare_data(a, b, w, fs_dict):
+        """Apply weights and the training mask."""
+        if fs_dict is not None:
+            training = np.array([not t for t in fs_dict["Testing"]])
+        else:
+            training = np.ones(a.shape[0], bool)
+        wt = w[training]
+        return wt[:, None] * a[training], wt * b[training]
+
+    def _offset(self):
+        """Insert the zero constant-offset coefficient per type when
+        bzeroflag=1 (reference `solver.py:78`)."""
+        num_types = self.config.sections["BISPECTRUM"].numtypes
+        ncoeff = self.config.sections["BISPECTRUM"].ncoeff
+        fit = self.fit.reshape(num_types, ncoeff)
+        fit = np.concatenate([np.zeros((num_types, 1)), fit], axis=1)
+        self.fit = fit.reshape(-1)
+
+    def error_analysis(self, a, b, w, fs_dict):
+        self.errors = []
+        if self.config.sections["EXTRAS"].dump_dataframe:
+            raise NotImplementedError(
+                "dump_dataframe writes a pandas DataFrame, which "
+                "fitsnap_tpu_torch does not use (ROADMAP.md, queue 1: tools)")
+        if self.fit is None:
+            return
+        self.errors = error_table(
+            np.asarray(b), a @ self.fit, np.asarray(w), fs_dict["Groups"],
+            fs_dict["Testing"], fs_dict["Row_Type"])
+        if (self.config.sections["CALCULATOR"].calculator == "LAMMPSSNAP"
+                and self.config.sections["BISPECTRUM"].bzeroflag):
+            self._offset()

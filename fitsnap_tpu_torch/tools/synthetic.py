@@ -1,0 +1,207 @@
+"""Synthetic Ta-shaped training sets in FitSNAP JSON, made from a seed.
+
+The Ta_Linear_JCP2014 training set (363 configs, 15,213 rows) is not in
+the repository, so the port's end-to-end checks fit a stand-in with the same
+shapes: bcc / fcc / A15 volume scans and strained cells of 2-8 atoms (cells
+of 3.3 A edge, so an atom meets its own periodic images within the 4.8 A
+cutoff), jittered supercells of 32-128 atoms, and liquid-like 100-atom
+cells with a 2.0 A minimum distance, in groups named and weighted as the Ta
+example's, some with test fractions.
+
+`write_dataset` writes zero truths; callers that fit it first compute their
+truths (for example A @ beta_true + the reference potential) and rewrite
+the files with `config_json`.
+"""
+
+import json
+from pathlib import Path
+
+import numpy as np
+
+BCC = np.array([[0.0, 0.0, 0.0], [0.5, 0.5, 0.5]])
+FCC = np.array([[0.0, 0.0, 0.0], [0.5, 0.5, 0.0], [0.5, 0.0, 0.5],
+                [0.0, 0.5, 0.5]])
+A15 = np.array([[0.0, 0.0, 0.0], [0.5, 0.5, 0.5], [0.25, 0.0, 0.5],
+                [0.75, 0.0, 0.5], [0.5, 0.25, 0.0], [0.5, 0.75, 0.0],
+                [0.0, 0.5, 0.25], [0.0, 0.5, 0.75]])
+LATTICE = {"BCC": (BCC, 3.32), "FCC": (FCC, 4.22), "A15": (A15, 5.27)}
+
+# group: (training fraction, testing fraction, eweight, fweight, vweight)
+TA_GROUPS = {
+    "Volume_BCC": (1.0, 0.0, 1.0, 1e-9, 1e-9),
+    "Volume_FCC": (0.8, 0.2, 1.0, 1e-9, 1e-9),
+    "Volume_A15": (1.0, 0.0, 1.0, 1e-9, 1e-9),
+    "Elastic_BCC": (0.8, 0.2, 1e-8, 1e-8, 1e-4),
+    "Elastic_FCC": (1.0, 0.0, 1e-9, 1e-9, 1e-9),
+    "Displaced_BCC": (0.8, 0.2, 100.0, 1.0, 1e-8),
+    "Displaced_FCC": (1.0, 0.0, 100.0, 1.0, 1e-8),
+    "Displaced_A15": (1.0, 0.0, 100.0, 1.0, 1e-8),
+    "Compressed_BCC": (1.0, 0.0, 100.0, 1.0, 1e-8),
+    "Liquid": (0.75, 0.25, 467.0, 1.0, 1e-8),
+}
+
+
+def supercell(basis, a, reps):
+    """Cubic supercell: (positions (n, 3), cell rows (3, 3))."""
+    grid = np.stack(np.meshgrid(*[np.arange(r) for r in reps],
+                                indexing="ij"), -1).reshape(-1, 3)
+    frac = (grid[:, None, :] + basis[None]).reshape(-1, 3) / np.asarray(reps)
+    cell = np.diag(np.asarray(reps, float) * a)
+    return frac @ cell, cell
+
+
+def strained(cell, rng, amp):
+    """Cell rows times a random lower-triangular strain: the rows stay
+    lower-triangular, so the column cell is upper-triangular (the scraper's
+    fast path)."""
+    eps = np.tril(rng.uniform(-amp, amp, (3, 3)))
+    return cell @ (np.eye(3) + eps)
+
+
+def liquid(rng, natoms, density, dmin):
+    """Random periodic positions at `density` (atoms/A^3) with no two atoms
+    closer than `dmin`."""
+    edge = (natoms / density) ** (1.0 / 3.0)
+    pos = []
+    while len(pos) < natoms:
+        x = rng.uniform(0.0, edge, 3)
+        if pos:
+            d = np.asarray(pos) - x
+            d -= edge * np.round(d / edge)
+            if (np.einsum("ij,ij->i", d, d) < dmin * dmin).any():
+                continue
+        pos.append(x)
+    return np.asarray(pos), np.eye(3) * edge
+
+
+def ta_configs(seed, counts=None):
+    """{group: [(positions, cell rows)]} of a Ta-shaped set.
+
+    `counts` scales each group's number of configs ({group: n}); the
+    default is the full set of about 360 configs.
+    """
+    rng = np.random.default_rng(seed)
+    full = {"Volume_BCC": 35, "Volume_FCC": 35, "Volume_A15": 35,
+            "Elastic_BCC": 50, "Elastic_FCC": 50, "Displaced_BCC": 45,
+            "Displaced_FCC": 45, "Displaced_A15": 30, "Compressed_BCC": 16,
+            "Liquid": 16}
+    counts = full if counts is None else counts
+    out = {}
+    for group, n in counts.items():
+        kind, lat = group.split("_")[0], group.split("_")[-1]
+        confs = []
+        for i in range(n):
+            if kind == "Volume":
+                basis, a = LATTICE[lat]
+                scale = 0.78 + 0.5 * i / max(n - 1, 1)
+                pos, cell = supercell(basis, a * scale, (1, 1, 1))
+            elif kind == "Elastic":
+                basis, a = LATTICE[lat]
+                pos, cell0 = supercell(basis, a, (1, 1, 1))
+                cell = strained(cell0, rng, 0.04)
+                pos = pos @ np.linalg.solve(cell0, cell)
+            elif kind == "Displaced":
+                basis, a = LATTICE[lat]
+                reps = {"BCC": (3, 3, 3), "FCC": (2, 2, 2), "A15": (2, 2, 2)}
+                pos, cell = supercell(basis, a, reps[lat])
+                pos = pos + rng.normal(0.0, 0.12, pos.shape)
+            elif kind == "Compressed":
+                pos, cell = supercell(BCC, rng.uniform(2.70, 2.76), (4, 4, 4))
+                pos = pos + rng.normal(0.0, 0.05, pos.shape)
+            else:  # Liquid
+                pos, cell = liquid(rng, 100, 0.0556, 2.0)
+            confs.append((pos, cell))
+        out[group] = confs
+    return out
+
+
+def config_json(pos, cell, energy=0.0, forces=None, stress=None, types=None):
+    """FitSNAP JSON text of one config (cell rows = lattice vectors); the
+    atoms are Ta unless `types` names them."""
+    n = len(pos)
+    forces = np.zeros((n, 3)) if forces is None else forces
+    stress = np.zeros((3, 3)) if stress is None else stress
+    data = {"Positions": np.asarray(pos).tolist(),
+            "Lattice": np.asarray(cell).tolist(),
+            "AtomTypes": list(types) if types is not None else ["Ta"] * n,
+            "NumAtoms": n,
+            "Energy": float(energy),
+            "Forces": np.asarray(forces).tolist(),
+            "Stress": np.asarray(stress).tolist(),
+            "PositionsStyle": "angstrom", "LatticeStyle": "angstrom",
+            "EnergyStyle": "electronvolt", "ForcesStyle": "electronvoltperangstrom",
+            "StressStyle": "bar"}
+    return json.dumps({"Dataset": {"Data": [data]}})
+
+
+def write_dataset(root, configs):
+    """Write {group: [(pos, cell)]} as root/<group>/<group>_<i>.json with
+    zero truths; returns {(group, file name): (pos, cell)}."""
+    files = {}
+    for group, confs in configs.items():
+        (Path(root) / group).mkdir(parents=True, exist_ok=True)
+        for i, (pos, cell) in enumerate(confs):
+            name = f"{group}_{i}.json"
+            (Path(root) / group / name).write_text(config_json(pos, cell))
+            files[(group, name)] = (pos, cell)
+    return files
+
+
+def ta_settings(datapath, groups=None):
+    """Input sections of the Ta_Linear_JCP2014 example for `datapath`."""
+    groups = TA_GROUPS if groups is None else groups
+    table = {g: " ".join(str(v) for v in TA_GROUPS[g]) for g in groups}
+    return {
+        "BISPECTRUM": {
+            "numTypes": 1, "twojmax": 6, "rcutfac": 4.67637,
+            "rfac0": 0.99363, "rmin0": 0.0, "wj": 1.0, "radelem": 0.5,
+            "type": "Ta", "wselfallflag": 0, "chemflag": 0, "bzeroflag": 0,
+            "quadraticflag": 0},
+        "CALCULATOR": {"calculator": "LAMMPSSNAP", "energy": 1, "force": 1,
+                       "stress": 1},
+        "ESHIFT": {"Ta": 0.0},
+        "SOLVER": {"solver": "SVD", "compute_testerrs": 1},
+        "SCRAPER": {"scraper": "JSON"},
+        "PATH": {"dataPath": str(datapath)},
+        "OUTFILE": {"metrics": "Ta_metrics.md", "potential": "Ta_pot"},
+        "REFERENCE": {
+            "units": "metal", "atom_style": "atomic",
+            "pair_style": "hybrid/overlay zero 10.0 zbl 4.0 4.8",
+            "pair_coeff1": "* * zero", "pair_coeff2": "* * zbl 73 73"},
+        "GROUPS": dict({
+            "group_sections": "name training_size testing_size eweight "
+                              "fweight vweight",
+            "group_types": "str float float float float float",
+            "smartweights": 0, "random_sampling": 0}, **table),
+        "EXTRAS": {}, "MEMORY": {},
+    }
+
+
+def write_ini(path, settings):
+    """Write input sections as an INI file."""
+    lines = []
+    for sec, kv in settings.items():
+        lines.append(f"[{sec}]")
+        lines += [f"{k} = {v}" for k, v in kv.items()]
+        lines.append("")
+    Path(path).write_text("\n".join(lines))
+
+
+def truths_from_rows(a, b0, beta, natoms):
+    """Per-config (energy, forces, stress) whose rows equal a @ beta.
+
+    a, b0: the rows and right-hand side of the configs computed with zero
+    truths (b0 is minus the reference potential); natoms: atom counts in
+    row order (energy, 3 n force, 6 stress rows per config).
+    """
+    t = a @ beta - b0
+    out, row = [], 0
+    for n in natoms:
+        e = t[row] * n
+        f = t[row + 1:row + 1 + 3 * n].reshape(n, 3)
+        v = t[row + 1 + 3 * n:row + 7 + 3 * n]
+        s = np.array([[v[0], v[5], v[4]], [v[5], v[1], v[3]],
+                      [v[4], v[3], v[2]]])
+        out.append((e, f, s))
+        row += 7 + 3 * n
+    return out
