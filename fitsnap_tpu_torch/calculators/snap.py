@@ -3,7 +3,8 @@
 Counterpart of `fitsnap_tpu/calculators/snap.py`.  Neighbor lists and their
 reverse tables are built on the host; configs are padded to (A, K) shapes,
 grouped into shape buckets, and each chunk of a bucket goes through the rows
-function as one batch of C configs on the device.  The rows function is
+function as one batch of C configs on the device.  The rows function
+(`snap_rows`, shared with the streamed fit of `parallel/fit.py`) is
 `_rows_fn.one_config` of the JAX package with the config axis written out:
 descriptors and their pair jacobian (kernels K1-K3), energy columns, force
 and virial rows through the row-scatter kernel K4, and the reference
@@ -38,6 +39,71 @@ def _pad_to(x, buckets):
         if x <= b:
             return b
     return ((int(x) + 127) // 128) * 128
+
+
+def chunk_size(a_pad, k_pad, ncoeff):
+    """Configs per device batch at one (A, K) shape: the per-pair jacobian
+    G (A*K*ncoeff*3 doubles per config) stays near 256 MB, as in the JAX
+    package, and at most 32 configs or 1024 atom slots go in one batch."""
+    g_bytes = a_pad * k_pad * ncoeff * 3 * 8
+    return int(min(32, max(1, 1024 // a_pad),
+                   max(1, (1 << 30) // (4 * g_bytes))))
+
+
+def pair_masks(params, disp, jidx, mask, types):
+    """Neighbor elements (C, A, K) int32 and the SNAP pair mask: the pairs
+    inside the per-element-pair SNAP cutoff (`mask` holds every pair inside
+    the largest cutoff, the reference potential's too)."""
+    C, A, K = mask.shape
+    jelem = torch.gather(types, 1, jidx.long().reshape(C, A * K))
+    jelem = jelem.reshape(C, A, K)
+    rcutij = (params.radelem[types][:, :, None]
+              + params.radelem[jelem]) * params.rcutfac
+    r2 = torch.sum(disp * disp, -1)
+    return jelem, mask & (r2 < rcutij * rcutij)
+
+
+def snap_rows(params, numtypes, refspec, disp, jidx, mask, rev, types,
+              natoms, cell, plain=False):
+    """Energy columns, force/virial rows and reference values of a batch.
+
+    The rows of `FitSnap` (`SnapCalculator.rows`) and of the streamed fit
+    (`parallel/fit.py`).  disp (C, A, K, 3) f64; jidx, mask (C, A, K); rev
+    (C, A, R) int32 reverse neighbor table (flat slots i*K + k); types
+    (C, A) int32; natoms (C,); cell (C, 3, 3).  All on one device.
+    `plain=True` runs the kernels' plain versions (the reference the kernels
+    are checked against on the card).  blank2J is not applied here.
+    """
+    T = numtypes
+    C, A, K = mask.shape
+    dtp = disp.dtype
+    jelem, smask = pair_masks(params, disp, jidx, mask, types)
+    real = (torch.arange(A, device=disp.device)[None, :]
+            < natoms[:, None]).to(dtp)
+
+    B, G = descriptors_with_jacobian(
+        disp.reshape(C * A, K, 3), jelem.reshape(C * A, K),
+        smask.reshape(C * A, K), types.reshape(C * A), params, plain=plain)
+    W0 = B.shape[1]
+    B = B.reshape(C, A, W0) * real[..., None]
+    G = G.reshape(C, A, W0, K, 3) * real[..., None, None, None]
+
+    oh = torch.nn.functional.one_hot(types.long(), T).to(dtp) \
+        * real[..., None]
+    e_cols = torch.einsum("cat,caw->ctw", oh, B).reshape(C, T * W0)
+
+    scatter = sk.pair_scatter_rows_plain if plain else sk.pair_scatter_rows
+    force, vir = scatter(G, disp, smask, rev, types, T)
+    force_rows = force.reshape(C, A, 3, T * W0)
+    vol = cell[:, 0, 0] * cell[:, 1, 1] * cell[:, 2, 2]
+    scale = (TOBAR / vol)[:, None]
+    virial_rows = vir.reshape(C, 6, T * W0) * scale[..., None]
+
+    re, rf, rv = reference_eav(disp, jidx, mask, rev, types, refspec,
+                               plain=plain)
+    return {"e_cols": e_cols, "force_rows": force_rows,
+            "virial_rows": virial_rows,
+            "ref_e": re, "ref_f": rf, "ref_v": rv * scale}
 
 
 @dataclass
@@ -139,57 +205,10 @@ class SnapCalculator:
 
     # ---------------- device function ----------------
 
-    def pair_masks(self, disp, jidx, mask, types):
-        """Neighbor elements (C, A, K) int32 and the SNAP pair mask: the
-        pairs inside the per-element-pair SNAP cutoff (`mask` holds every
-        pair inside the largest cutoff, the reference potential's too)."""
-        p = self.params
-        C, A, K = mask.shape
-        jelem = torch.gather(types, 1, jidx.long().reshape(C, A * K))
-        jelem = jelem.reshape(C, A, K)
-        rcutij = (p.radelem[types][:, :, None] + p.radelem[jelem]) * p.rcutfac
-        r2 = torch.sum(disp * disp, -1)
-        return jelem, mask & (r2 < rcutij * rcutij)
-
     def rows(self, disp, jidx, mask, rev, types, natoms, cell, plain=False):
-        """Energy columns, force/virial rows and reference values of a batch.
-
-        disp (C, A, K, 3) f64; jidx, mask (C, A, K); rev (C, A, R) int32;
-        types (C, A) int32; natoms (C,); cell (C, 3, 3).  All on one device.
-        `plain=True` runs the kernels' plain versions (the reference the
-        kernels are checked against on the card).
-        """
-        p = self.params
-        T = self.numtypes
-        C, A, K = mask.shape
-        dtp = disp.dtype
-        jelem, smask = self.pair_masks(disp, jidx, mask, types)
-        real = (torch.arange(A, device=disp.device)[None, :]
-                < natoms[:, None]).to(dtp)
-
-        B, G = descriptors_with_jacobian(
-            disp.reshape(C * A, K, 3), jelem.reshape(C * A, K),
-            smask.reshape(C * A, K), types.reshape(C * A), p, plain=plain)
-        W0 = B.shape[1]
-        B = B.reshape(C, A, W0) * real[..., None]
-        G = G.reshape(C, A, W0, K, 3) * real[..., None, None, None]
-
-        oh = torch.nn.functional.one_hot(types.long(), T).to(dtp) \
-            * real[..., None]
-        e_cols = torch.einsum("cat,caw->ctw", oh, B).reshape(C, T * W0)
-
-        scatter = sk.pair_scatter_rows_plain if plain else sk.pair_scatter_rows
-        force, vir = scatter(G, disp, smask, rev, types, T)
-        force_rows = force.reshape(C, A, 3, T * W0)
-        vol = cell[:, 0, 0] * cell[:, 1, 1] * cell[:, 2, 2]
-        scale = (TOBAR / vol)[:, None]
-        virial_rows = vir.reshape(C, 6, T * W0) * scale[..., None]
-
-        re, rf, rv = reference_eav(disp, jidx, mask, rev, types,
-                                   self.refspec, plain=plain)
-        return {"e_cols": e_cols, "force_rows": force_rows,
-                "virial_rows": virial_rows,
-                "ref_e": re, "ref_f": rf, "ref_v": rv * scale}
+        """`snap_rows` of a batch with this calculator's model."""
+        return snap_rows(self.params, self.numtypes, self.refspec, disp,
+                         jidx, mask, rev, types, natoms, cell, plain=plain)
 
     def process_single(self, data, plain=False):
         """Per-config rows (a, b, w) for library mode."""
@@ -222,12 +241,8 @@ class SnapCalculator:
             return torch.from_numpy(x).to(dev)
 
         for (a_pad, k_pad), idxs in buckets.items():
-            # budget the chunk by the dominant G tensor (A*K*width*3 doubles
-            # per config), as the JAX package does
-            width = self.sec.ncoeff
-            g_bytes = a_pad * k_pad * width * 3 * 8
-            chunk = int(min(32, max(1, 1024 // a_pad),
-                            max(1, (1 << 30) // (4 * g_bytes)), len(idxs)))
+            chunk = min(chunk_size(a_pad, k_pad, self.sec.ncoeff),
+                        len(idxs))
             for c0 in range(0, len(idxs), chunk):
                 ids = idxs[c0:c0 + chunk]
                 n = len(ids)

@@ -3,8 +3,9 @@
 Counterpart of `fitsnap_tpu/fitsnap.py` with the same factories and stage
 methods: `FitSnap(input, arglist, device).scrape_configs()`,
 `.process_configs()`, `.perform_fit()`, `.write_output()`.  This slice
-takes the JSON scraper, the LAMMPSSNAP calculator, the SVD solver and SNAP
-output; any other choice raises NotImplementedError naming its ROADMAP item.
+takes the JSON scraper, the LAMMPSSNAP calculator, the SVD, TPUSVD /
+SCALAPACK and TENSORFLOWSVD solvers and SNAP output; any other choice raises
+NotImplementedError naming its ROADMAP item.
 """
 
 import time
@@ -39,15 +40,18 @@ def _calculator_factory(config, device):
     raise NotImplementedError(_LATER.format("calculator", name, item))
 
 
-def _solver_factory(config):
+def _solver_factory(config, device):
     name = config.sections["SOLVER"].solver.upper()
     if name == "SVD":
         from fitsnap_tpu_torch.solvers.svd import SVD
         return SVD(name, config)
-    item = {"TENSORFLOWSVD": "queue 1: TfSVD / TpuSVD",
-            "TPUSVD": "queue 1: TfSVD / TpuSVD",
-            "SCALAPACK": "queue 1: TfSVD / TpuSVD",
-            "PYTORCH": "queue 1: NN solver", "NETWORK": "queue 1: NN solver",
+    if name == "TENSORFLOWSVD":
+        from fitsnap_tpu_torch.solvers.svd import TfSVD
+        return TfSVD(name, config, device)
+    if name in ("TPUSVD", "SCALAPACK"):
+        from fitsnap_tpu_torch.solvers.tpu_svd import TpuSVD
+        return TpuSVD(name, config, device)
+    item = {"PYTORCH": "queue 1: NN solver", "NETWORK": "queue 1: NN solver",
             "JAX": "queue 1: NN solver"}.get(
         name, "queue 1: the other linear solvers")
     raise NotImplementedError(_LATER.format("solver", name, item))
@@ -76,7 +80,7 @@ class FitSnap:
         init_output(self.config.args)
         self.scraper = _scraper_factory(self.config)
         self.calculator = _calculator_factory(self.config, self.device)
-        self.solver = _solver_factory(self.config)
+        self.solver = _solver_factory(self.config, self.device)
         self.output = _output_factory(self.config)
         self.data = None
         self.a = self.b = self.w = None

@@ -23,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "fitsnap_tpu_torch"
-SOURCES = ("pair_u_duals", "zlist", "dbdd", "pair_scatter")
+SOURCES = ("pair_u_duals", "zlist", "dbdd", "pair_scatter", "zbl_pair",
+           "device_neighbors", "normal_contrib")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

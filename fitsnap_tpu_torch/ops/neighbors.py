@@ -76,7 +76,7 @@ def host_neighbors(pos, cell, natoms, cutoff, a_pad=None, k_pad=None):
     return disp, jidx, mask, kmax
 
 
-def count_neighbors_np(pos, cell, natoms, cutoff) -> int:
+def count_neighbors(pos, cell, natoms, cutoff) -> int:
     """Max neighbor count for one config."""
     _, d2 = _candidate_d2(pos, cell, natoms, cutoff)
     counts = (d2 < cutoff * cutoff).sum(axis=(1, 2))

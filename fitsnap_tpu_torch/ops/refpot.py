@@ -1,8 +1,9 @@
 """Reference (subtracted) potentials in PyTorch: `zero`, `zbl`, `hybrid/overlay`.
 
-Counterpart of `fitsnap_tpu/ops/refpot.py`.  The per-pair energy is plain
-torch; dE/dD comes from `torch.autograd.grad`, and the force scatter and
-virial run through the row-scatter kernel K4 with a gradient of width 1.
+Counterpart of `fitsnap_tpu/ops/refpot.py`.  The ZBL pair energy and its
+gradient dE/dD come in closed form from kernel K5 (`zbl_pair_grad`); the
+force scatter and virial run through the row-scatter kernel K4 with a
+gradient of width 1.
 
 ZBL follows LAMMPS `pair_style zbl` (metal units): universal screening
 function plus a C1-smooth switching polynomial between the inner and outer
@@ -22,8 +23,8 @@ from fitsnap_tpu_torch.kernels import snap_kernels as sk
 # LAMMPS pair_zbl constants (metal units)
 _PZBL = 0.23
 _A0 = 0.46850
-_C = np.array([0.02817, 0.28022, 0.50986, 0.18175])
-_D = np.array([0.20162, 0.40290, 0.94229, 3.19980])
+_C = np.array(sk.ZBL_C)
+_D = np.array(sk.ZBL_D)
 _QQR2E = 14.399645  # eV*A
 
 _NOT_PORTED = ("reference pair style {} is not ported to fitsnap_tpu_torch "
@@ -98,25 +99,14 @@ def build_zbl(cut_inner, cut_outer, pair_z, ntypes):
     return ZblParams(cut_inner, cut_outer, zi, zj, sw3, sw4, sw5, active)
 
 
-def zbl_pair_energy(r, ti, tj, p: ZblParams):
-    """Smooth-switched ZBL pair energy (elementwise over padded pairs)."""
-    def tab(x):
-        return torch.as_tensor(x, dtype=r.dtype, device=r.device)[ti, tj]
-
-    zi, zj = tab(p.zi), tab(p.zj)
-    a = _A0 / (zi ** _PZBL + zj ** _PZBL)
-    pre = _QQR2E * zi * zj
-    x = r / a
-    c = torch.as_tensor(_C, dtype=r.dtype, device=r.device)
-    d = torch.as_tensor(_D, dtype=r.dtype, device=r.device)
-    phi = torch.sum(c * torch.exp(-d * x[..., None]), dim=-1)
-    e = pre / r * phi
-    e = e + tab(p.sw5)
-    t = r - p.cut_inner
-    esw = t * t * t * (tab(p.sw3) + tab(p.sw4) * t)
-    e = e + torch.where(r > p.cut_inner, esw, torch.zeros_like(esw))
-    active = torch.as_tensor(p.active, device=r.device)[ti, tj]
-    return torch.where((r < p.cut_outer) & active, e, torch.zeros_like(e))
+def zbl_table(p: ZblParams, device):
+    """(T, T, 6) float64 rows (pre, a, sw3, sw4, sw5, active) per type pair:
+    the prefactor qqr2e Zi Zj, the screening length and the switching
+    coefficients that K5 reads."""
+    a = _A0 / np.where(p.active, p.zi ** _PZBL + p.zj ** _PZBL, 1.0)
+    table = np.stack([_QQR2E * p.zi * p.zj, a, p.sw3, p.sw4, p.sw5,
+                      p.active.astype(np.float64)], -1)
+    return torch.as_tensor(table, dtype=torch.float64, device=device)
 
 
 @dataclass(frozen=True)
@@ -240,9 +230,9 @@ def reference_eav(disp, jidx, mask, rev, types, spec: RefSpec, plain=False):
     jidx, mask (C, A, K); rev (C, A, R) reverse neighbor table; types (C, A)
     int32.  Returns energy (C,), forces (C, A, 3) and virial (C, 6) ordered
     (xx, yy, zz, yz, xz, xy), W_ab = -sum D_a dE/dD_b.  `plain=True` runs the
-    scatter's plain version on any device.
+    plain versions of K5 and K4 on any device.
     """
-    C, A, K = mask.shape
+    C, A = mask.shape[:2]
     if spec.coul is not None:
         raise NotImplementedError(_NOT_PORTED.format("coul/cut"))
     if spec.spin is not None:
@@ -252,19 +242,11 @@ def reference_eav(disp, jidx, mask, rev, types, spec: RefSpec, plain=False):
         return (disp.new_zeros(C), disp.new_zeros((C, A, 3)),
                 disp.new_zeros((C, 6)))
 
-    ti = types.long()[:, :, None].expand(C, A, K)
-    tj = torch.gather(types.long(), 1, jidx.long().reshape(C, A * K))
-    tj = tj.reshape(C, A, K)
-    d = disp.detach().requires_grad_(True)
-    with torch.enable_grad():
-        safe = torch.where(mask[..., None], d, d.new_tensor([1.0, 0.0, 0.0]))
-        r = torch.sqrt(torch.sum(safe * safe, -1))
-        e = zbl_pair_energy(r, ti, tj, spec.zbl)
-        e = torch.where(mask, e, torch.zeros_like(e))
-        energy = 0.5 * e.sum(dim=(1, 2))
-        g, = torch.autograd.grad(energy.sum(), d)
+    table = zbl_table(spec.zbl, disp.device)
+    zbl = sk.zbl_pair_grad_plain if plain else sk.zbl_pair_grad
+    g, energy = zbl(disp, jidx, mask, types, table, spec.zbl.cut_inner,
+                    spec.zbl.cut_outer)
     scatter = sk.pair_scatter_rows_plain if plain else sk.pair_scatter_rows
     zeros = torch.zeros_like(types)
-    force, virial = scatter(g[:, :, None].contiguous(), disp, mask, rev,
-                            zeros, 1)
-    return energy.detach(), force.reshape(C, A, 3), virial.reshape(C, 6)
+    force, virial = scatter(g[:, :, None], disp, mask, rev, zeros, 1)
+    return energy, force.reshape(C, A, 3), virial.reshape(C, 6)

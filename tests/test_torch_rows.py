@@ -144,7 +144,7 @@ def test_host_neighbors_match_jax(index):
         ref = jneighbors.host_neighbors(pos, cols, len(pos), 4.8, *pad)
         for x, y in zip(port[:3], ref[:3]):
             np.testing.assert_array_equal(x, y)
-        assert port[3] == ref[3] == neighbors.count_neighbors_np(
+        assert port[3] == ref[3] == neighbors.count_neighbors(
             pos, cols, len(pos), 4.8)
 
 
