@@ -36,11 +36,32 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    (w A_plain)^T (w A_plain) and (w A_plain)^T (w b) to 1e-10 of their
    largest magnitude, the direct solve is within 100 cond^2 eps and the
    refined one within 100 cond eps of beta_true, and the MAE sums equal the
-   host's from A_plain and b to 1e-10 relative.
+   host's from A_plain and b to 1e-10 relative;
+6. ACE data: the same configs with the Ta_PACE [ACE] section (ranks 1-6,
+   68 labels, 39 A-slots, 1,540 product terms, bzeroflag 0) and truths
+   A_plain @ beta_true plus ZBL, A_plain from the plain ACE path;
+7. ACE kernels: K13 (ace_pair_basis) and K14 (ace_b_dbdd) against their
+   plain versions at the Ta_PACE plan on the first Compressed_BCC chunk
+   and at an InP_PACE-shaped two-element plan (344 labels, 99 A-slots,
+   an inner cutoff on the In-P bond) on 8 seeded zincblende cells of 64
+   atoms, and K7 in the ACE layout (two leading constant columns) on the
+   latter's rows, measured as in phase 3;
+8. ACE FitSnap and streamed paths, as phases 4 and 5 with
+   `calculator = LAMMPSPACE`, PACE output and `kernel=ace_kernel(plan)`.
+   The weighted design matrix is too ill-conditioned (cond about 1e16)
+   for beta_true to be a check, so the predictions must hold to the
+   truths: the weighted residual within 10x what the solver's cutoff can
+   leave (lstsq at rcond 1e-13: 1e-13 sigma_max |beta| / |w b|; the
+   streamed NormalSolver: sqrt(10 eps) sigma_max |d beta| / |w b| of the
+   column-equilibrated matrix, direct and refined), and each row type's
+   largest error within 1e-6 of its largest truth.  K13, K14, K4 and K5
+   must launch on the FitSnap path, and K7, K8 and K8r too on the
+   streamed one.
 
-The line before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}.  Without a CUDA device, or run where the
-package is missing, it exits non-zero and prints no result.
+The line before the last is the kernel table as JSON (launches per path,
+each path's counts set to 0 just before it and read just after); the last
+line is {"ok": true, "device": {...}}.  Without a CUDA device, or run where
+the package is missing, it exits non-zero and prints no result.
 """
 
 import argparse
@@ -52,6 +73,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -81,10 +103,31 @@ SOURCES = {
                          "fitsnap_tpu/parallel/fit.py:69"),
     "reverse_table": ("fitsnap_tpu_torch/kernels/csrc/device_neighbors.cu",
                       "fitsnap_tpu/parallel/fit.py:276"),
+    "ace_pair_basis": ("fitsnap_tpu_torch/kernels/csrc/ace_pair_basis.cu",
+                       "fitsnap_tpu/ops/ace.py:589"),
+    "ace_b_dbdd": ("fitsnap_tpu_torch/kernels/csrc/ace_b_dbdd.cu",
+                   "fitsnap_tpu/ops/ace.py:706"),
 }
 FITSNAP_KERNELS = ("pair_u_duals", "zlist", "dbdd", "pair_scatter_rows",
                    "zbl_pair_grad")
+STREAM_KERNELS = ("normal_contrib", "device_neighbors", "reverse_table")
+ACE_KERNELS = ("ace_pair_basis", "ace_b_dbdd", "pair_scatter_rows",
+               "zbl_pair_grad")
+# the kernels each path must launch
+PATH_KERNELS = {"fitsnap": FITSNAP_KERNELS,
+                "streamed": FITSNAP_KERNELS + STREAM_KERNELS,
+                "ace_fitsnap": ACE_KERNELS,
+                "ace_streamed": ACE_KERNELS + STREAM_KERNELS}
 FLAGS = {"energy": True, "force": True, "stress": True}
+# the InP_PACE example's shape (two elements, ranks 1-4: 344 labels, 99
+# A-slots, 2,136 product terms) with an inner cutoff on the In-P bond
+INP_SHAPE = dict(numtypes=2, ranks=[1, 2, 3, 4], lmax=[1, 2, 2, 1],
+                 nmax=[22, 3, 2, 1], lmin=[0, 0, 1, 1], nmaxbase=22,
+                 rcutfac=[5.5] * 4, lmbda=[3.0] * 4,
+                 rcinner=[0.0, 2.4, 2.4, 0.0],
+                 drcinner=[0.01, 0.5, 0.5, 0.01], b_basis="minsub")
+SVD_RCOND = 1e-13           # singular-value cutoff of solvers/svd.SVD
+PRED_RTOL = 1e-6            # ACE predictions vs truths, per row type
 
 
 def card_line():
@@ -163,13 +206,67 @@ def rel_err(out, ref):
     return worst_abs, worst_rel
 
 
+def reset_launches():
+    from fitsnap_tpu_torch.kernels import ace_kernels as ak
+    from fitsnap_tpu_torch.kernels import snap_kernels as sk
+
+    sk.reset_launches()
+    ak.reset_launches()
+
+
+def launches():
+    """{kernel wrapper: launches since the last reset}, every kernel."""
+    from fitsnap_tpu_torch.kernels import ace_kernels as ak
+    from fitsnap_tpu_torch.kernels import snap_kernels as sk
+
+    return dict(sk.launches(), **ak.launches())
+
+
+def check_launched(counts, path):
+    missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the {path} path: "
+                             f"{missing}")
+
+
+def record(rows, name, out, ref, kernel, plain_ms, nbytes, flops,
+           library_ms, wrapper=None, shape=None):
+    """Hold a kernel's outputs to its plain version's, time it, and add its
+    row to `rows`.  `kernel` is (a call of the wrapper, repetitions to
+    time); `wrapper` names the kernel when the row is one of several
+    shapes of it."""
+    err_abs, err_rel = rel_err(out, ref)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    ms = timed(*kernel)
+    dev_ms = device_time(*kernel)
+    print(f"{name}: max_abs_err={err_abs:.3e} max_rel_err={err_rel:.3e}"
+          f" ms={ms:.4f} device_ms={dev_ms} plain_ms={plain_ms:.4f}"
+          f" bound_ms={b_ms:.4f} ({b_by}) library_ms={library_ms}",
+          flush=True)
+    if not err_rel <= KERNEL_RTOL:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version ({err_rel:.3e} > {KERNEL_RTOL})")
+    wrapper = wrapper or name
+    src, replaces = SOURCES[wrapper]
+    row = {"name": name, "kernel": wrapper, "route": "cuda", "source": src,
+           "replaces": replaces, "max_abs_err": err_abs,
+           "max_rel_err": err_rel, "ms": ms, "device_ms": dev_ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": library_ms}
+    if shape:
+        row["shape"] = shape
+    rows.append(row)
+
+
 # ---------------------------------------------------------------------------
 # data
 # ---------------------------------------------------------------------------
 
 
-def make_dataset(tmp, seed, device):
-    """Write the synthetic set with truths A_plain @ beta_true + ZBL.
+def make_dataset(tmp, seed, device, kind="snap"):
+    """Write the synthetic set with truths A_plain @ beta_true + ZBL, for
+    the SNAP model (`kind="snap"`, the Ta_Linear_JCP2014 sections) or the
+    ACE one ("ace", the Ta_PACE section).
 
     Returns (input file, the FitSnap that computed A_plain, its scraped
     data, A_plain, beta_true, seconds of the plain path on the card)."""
@@ -177,10 +274,13 @@ def make_dataset(tmp, seed, device):
     from fitsnap_tpu_torch import FitSnap
     from fitsnap_tpu_torch.tools import synthetic
 
-    root = Path(tmp) / "JSON"
+    folder, settings, beta_seed = {
+        "snap": ("JSON", synthetic.ta_settings, seed + 1),
+        "ace": ("ACE_JSON", synthetic.ace_settings, seed + 3)}[kind]
+    root = Path(tmp) / folder
     files = synthetic.write_dataset(root, synthetic.ta_configs(seed))
-    ini = Path(tmp) / "Ta-example.in"
-    synthetic.write_ini(ini, synthetic.ta_settings(root))
+    ini = Path(tmp) / f"Ta-{kind}.in"
+    synthetic.write_ini(ini, settings(root))
 
     fs0 = FitSnap(str(ini), arglist=["--overwrite"], device=device)
     data = fs0.scrape_configs()
@@ -188,7 +288,7 @@ def make_dataset(tmp, seed, device):
     a, b0, _, _ = fs0.calculator.process_configs(data, plain=True)
     torch.cuda.synchronize()
     t_plain = time.time() - t0
-    rng = np.random.default_rng(seed + 1)
+    rng = np.random.default_rng(beta_seed)
     beta = rng.normal(size=a.shape[1])
     natoms = [d["NumAtoms"] for d in data]
     for d, (e, f, s) in zip(data, synthetic.truths_from_rows(
@@ -230,26 +330,6 @@ def kernel_checks(calc, data):
           f"{p.twojmax} float64", flush=True)
     rows = []
 
-    def record(name, out, ref, kernel, plain_ms, nbytes, flops, library_ms):
-        """`kernel` is (a call of the wrapper, repetitions to time)."""
-        err_abs, err_rel = rel_err(out, ref)
-        b_ms, b_by = bound_ms(nbytes, flops)
-        ms = timed(*kernel)
-        dev_ms = device_time(*kernel)
-        print(f"{name}: max_abs_err={err_abs:.3e} max_rel_err={err_rel:.3e}"
-              f" ms={ms:.4f} device_ms={dev_ms} plain_ms={plain_ms:.4f}"
-              f" bound_ms={b_ms:.4f} ({b_by}) library_ms={library_ms}",
-              flush=True)
-        if not err_rel <= KERNEL_RTOL:
-            raise AssertionError(f"{name}: kernel disagrees with its plain "
-                                 f"version ({err_rel:.3e} > {KERNEL_RTOL})")
-        src, replaces = SOURCES[name]
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "max_abs_err": err_abs,
-                     "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": library_ms})
-
     # K1
     out = sk.pair_u_duals(*k1_in, p)
     ref = sk.pair_u_duals_plain(*k1_in, p)
@@ -258,7 +338,7 @@ def kernel_checks(calc, data):
     k1_flops = npairs * ((n_mono - 1) * 10 + nnz_l * 8 + 2 * U * 11 + 600)
     k1_bytes = N * K * (3 * 8 + 4 + 1) + N * 4 + 4 * N * K * 2 * U * 8 \
         + N * 2 * U * 8
-    record("pair_u_duals", out, ref,
+    record(rows, "pair_u_duals", out, ref,
            (lambda: sk.pair_u_duals(*k1_in, p), 10),
            timed(lambda: sk.pair_u_duals_plain(*k1_in, p), 3),
            k1_bytes, k1_flops, None)
@@ -284,7 +364,7 @@ def kernel_checks(calc, data):
     def bmm_groups():
         return [(torch.bmm(pr, M), torch.bmm(pi, M)) for pr, pi, M in dense]
 
-    record("zlist", out, ref, (lambda: sk.zlist(ut, p), 20),
+    record(rows, "zlist", out, ref, (lambda: sk.zlist(ut, p), 20),
            timed(lambda: sk.zlist_plain(ut, p), 5),
            N * 2 * U * 8 + 2 * N * p.nz * 8, N * nterms * 10,
            timed(bmm_groups, 20))
@@ -298,7 +378,7 @@ def kernel_checks(calc, data):
     k3_flops = N * W * U * 16 + npairs * W * 3 * 2 * U * 2
     k3_bytes = (N * 2 * U + 2 * N * p.nz + 3 * N * K * 2 * U + N * W
                 + N * W * K * 3) * 8
-    record("dbdd", out, ref, (lambda: sk.dbdd(ut, z_r, z_i, J, p), 10),
+    record(rows, "dbdd", out, ref, (lambda: sk.dbdd(ut, z_r, z_i, J, p), 10),
            timed(lambda: sk.dbdd_plain(ut, z_r, z_i, J, p), 3),
            k3_bytes, k3_flops,
            timed(lambda: torch.einsum("awu,caku->awkc", dbdu, J), 10))
@@ -319,7 +399,7 @@ def kernel_checks(calc, data):
     k4_bytes = (G.numel() + disp.numel() + C * A * 3 * T * W
                 + C * 6 * T * W) * 8 + smask.numel() + rev.numel() * 4 \
         + types.numel() * 4
-    record("pair_scatter_rows", out, ref,
+    record(rows, "pair_scatter_rows", out, ref,
            (lambda: sk.pair_scatter_rows(*k4_args), 20),
            timed(lambda: sk.pair_scatter_rows_plain(*k4_args), 5),
            k4_bytes, npairs * W * (3 * 2 + 6 * 2),
@@ -333,7 +413,7 @@ def kernel_checks(calc, data):
     out = sk.zbl_pair_grad(*k5_args)
     ref = sk.zbl_pair_grad_plain(*k5_args)
     nlisted = int(mask.sum().item())
-    record("zbl_pair_grad", out, ref,
+    record(rows, "zbl_pair_grad", out, ref,
            (lambda: sk.zbl_pair_grad(*k5_args), 20),
            timed(lambda: sk.zbl_pair_grad_plain(*k5_args), 5),
            C * A * K * (24 + 4 + 1 + 24) + C * A * 4 + C * 8 + table.numel()
@@ -353,7 +433,7 @@ def kernel_checks(calc, data):
                              "its plain version")
     print(f"device_neighbors: S={S} candidates/atom={S * A} listed="
           f"{int(out[2].sum().item())} (host lists {nlisted})", flush=True)
-    record("device_neighbors", out[:1], ref[:1],
+    record(rows, "device_neighbors", out[:1], ref[:1],
            (lambda: sk.device_neighbors(*k8_args), 20),
            timed(lambda: sk.device_neighbors_plain(*k8_args), 3),
            C * A * 3 * 8 * 2 + C * S * 3 * 8 * 2 + C * 4
@@ -366,7 +446,7 @@ def kernel_checks(calc, data):
         raise AssertionError("reverse_table differs from its plain version "
                              "or dropped entries")
     # the function needs O(A K) integer work, so its bound is its bytes
-    record("reverse_table", [x.double() for x in out],
+    record(rows, "reverse_table", [x.double() for x in out],
            [x.double() for x in ref],
            (lambda: sk.reverse_table(njidx, nmask), 20),
            timed(lambda: sk.reverse_table_plain(njidx, nmask), 5),
@@ -393,7 +473,7 @@ def kernel_checks(calc, data):
     aw = (a_full * wrow[..., None]).reshape(-1, a_full.shape[2])
     nrow, Wf = aw.shape
     Wr = rows_in["e_cols"].shape[1]
-    record("normal_contrib", out[:2], ref[:2],
+    record(rows, "normal_contrib", out[:2], ref[:2],
            (lambda: sk.normal_contrib(*k7_args), 20),
            timed(lambda: sk.normal_contrib_plain(*k7_args), 5),
            C * (1 + 3 * A + 6) * Wr * 8 + 3 * C * (1 + 3 * A + 6) * 8
@@ -404,19 +484,230 @@ def kernel_checks(calc, data):
     return rows
 
 
+def inp_chunk(seed, plan, device, configs=8):
+    """A seeded two-element chunk: `configs` jittered zincblende InP cells
+    of 64 atoms (In on the fcc sites, type 0; P on the shifted ones, type
+    1), with host neighbor lists at the plan's largest cutoff.  Returns
+    (disp, jidx, mask, rev, types, natoms, cell) on `device`, as the rows
+    functions take them."""
+    import torch
+    from fitsnap_tpu_torch.kernels import snap_kernels as sk
+    from fitsnap_tpu_torch.ops.neighbors import host_neighbors
+    from fitsnap_tpu_torch.tools import synthetic
+
+    rng = np.random.default_rng(seed + 5)
+    basis = np.concatenate([synthetic.FCC, synthetic.FCC + 0.25])
+    cutoff = float(np.max(plan.rcut))
+    cells, lists = [], []
+    for _ in range(configs):
+        pos, cell = synthetic.supercell(basis, rng.uniform(5.75, 5.95),
+                                        (2, 2, 2))
+        pos = pos + rng.normal(0.0, 0.15, pos.shape)
+        cells.append(cell)
+        lists.append(host_neighbors(pos, cell, len(pos), cutoff))
+    A = len(lists[0][0])
+    K = -(-max(kc for *_, kc in lists) // 8) * 8
+    disp = np.zeros((configs, A, K, 3))
+    jidx = np.zeros((configs, A, K), np.int32)
+    mask = np.zeros((configs, A, K), bool)
+    for c, (d, j, m, kc) in enumerate(lists):
+        disp[c, :, :kc], jidx[c, :, :kc], mask[c, :, :kc] = d, j, m
+    types = np.tile(np.repeat([0, 1], 4), A // 8).astype(np.int32)
+
+    def put(x):
+        return torch.as_tensor(x, device=device)
+
+    jidx, mask = put(jidx), put(mask)
+    rev, dropped = sk.reverse_table_plain(jidx, mask)
+    if int(dropped.sum().item()):
+        raise AssertionError("InP chunk: reverse table dropped entries")
+    return (put(disp), jidx, mask, rev,
+            put(np.broadcast_to(types, (configs, A)).copy()),
+            put(np.full(configs, A, np.int32)), put(np.stack(cells)))
+
+
+def ace_pair_checks(rows, plan, disp, jelem, smask, types, shape):
+    """K13 and K14 against their plain versions on one chunk."""
+    import torch
+    from fitsnap_tpu_torch.kernels import ace_kernels as ak
+    from fitsnap_tpu_torch.ops import ace as ops
+
+    C, A, K = smask.shape
+    N = C * A
+    nA, nl, nrad = plan.nA, len(plan.labels), plan.nradbase
+    ny, R = (plan.lmax + 1) ** 2, plan.rank_max
+    k13_in = (disp.reshape(N, K, 3), jelem.reshape(N, K),
+              smask.reshape(N, K), types.reshape(N))
+    npairs = int(smask.sum().item())
+    tabs = ak.kernel_tables(plan)
+    print(f"ACE kernel inputs ({shape}): C={C} A={A} K={K} pairs={npairs} "
+          f"labels={nl} A-slots={nA} terms={len(plan.t_coef)} rank={R} "
+          f"dB/dA entries={tabs.nE} float64", flush=True)
+    suffix = "" if shape == "Ta_PACE" else f"@{shape}"
+
+    # K13: per live pair the radial recursion (about 20 flops per n) and
+    # the Ylm recursion with its gradient (about 60 per (l, m)), then 16 per
+    # A-slot (phi and three tangents, re and im)
+    out = ak.ace_pair_basis(*k13_in, plan)
+    ref = ak.ace_pair_basis_plain(*k13_in, plan)
+    record(rows, "ace_pair_basis" + suffix, out, ref,
+           (lambda: ak.ace_pair_basis(*k13_in, plan), 10),
+           timed(lambda: ak.ace_pair_basis_plain(*k13_in, plan), 3),
+           N * K * (24 + 4 + 1) + N * 4 + N * 2 * nA * 8
+           + 3 * N * K * 2 * nA * 8 + nA * 16,
+           npairs * (20 * nrad + 60 * ny + 16 * nA), None,
+           wrapper="ace_pair_basis", shape=shape)
+    A_, Jp = ref
+    ielem = k13_in[3]
+    del out
+
+    # K14: work of the labels whose central element is the atom's: per term
+    # R - 1 complex products (6 flops) and its coefficient (2), per
+    # contribution to dB/dA the cofactor's R - 2 products and 4, per live
+    # pair, label entry and direction 4 (re and im multiply-adds)
+    out = ak.ace_b_dbdd(A_, Jp, ielem, plan)
+    ref = ak.ace_b_dbdd_plain(A_, Jp, ielem, plan)
+    mu0 = np.asarray(plan.t_mu0)
+    n_terms = np.diff(tabs.lab_t)
+    n_entries = np.diff(tabs.lab_e)
+    n_contrib = tabs.e_c[tabs.lab_e[1:]] - tabs.e_c[tabs.lab_e[:-1]]
+    flops = 0
+    per_atom_pairs = smask.reshape(N, K).sum(1).cpu().numpy()
+    elems = ielem.cpu().numpy()
+    for e in range(plan.numtypes):
+        live = mu0 == e
+        atoms = int((elems == e).sum())
+        pairs = int(per_atom_pairs[elems == e].sum())
+        flops += atoms * (int(n_terms[live].sum()) * (6 * (R - 1) + 2)
+                          + int(n_contrib[live].sum()) * (6 * max(R - 2, 0)
+                                                          + 4))
+        flops += pairs * int(n_entries[live].sum()) * 3 * 4
+    _, dbda = ops.ace_b_and_dbda(A_[:, :nA], A_[:, nA:], plan)
+    table_bytes = (len(plan.t_coef) * (R * 4 + 8) + nl * 4 * 3
+                   + tabs.nE * 8 + tabs.nC * 4 + (plan.numtypes + 1) * 4)
+    record(rows, "ace_b_dbdd" + suffix, out, ref,
+           (lambda: ak.ace_b_dbdd(A_, Jp, ielem, plan), 10),
+           timed(lambda: ak.ace_b_dbdd_plain(A_, Jp, ielem, plan), 3),
+           N * 2 * nA * 8 + 3 * N * K * 2 * nA * 8 + N * 4 + N * nl * 8
+           + N * nl * K * 3 * 8 + table_bytes, flops,
+           timed(lambda: torch.einsum("alp,cakp->alkc", dbda, Jp), 10),
+           wrapper="ace_b_dbdd", shape=shape)
+    del out, ref, dbda
+
+
+def ace_kernel_checks(calc, data, seed):
+    """K13 and K14 vs plain at the Ta_PACE plan on the first Compressed_BCC
+    chunk (8 x 128 x 64) and at the InP-shaped plan on a seeded two-element
+    chunk (8 x 64 atoms), and K7 in the ACE layout (two leading constant
+    columns) on the rows of the latter."""
+    import torch
+    from fitsnap_tpu_torch.calculators.ace import _within_rcut, ace_rows
+    from fitsnap_tpu_torch.kernels import snap_kernels as sk
+    from fitsnap_tpu_torch.ops.ace import build_ace_plan
+    from fitsnap_tpu_torch.ops.refpot import RefSpec
+
+    rows = []
+    chunk = [d for d in data if d["Group"] == "Compressed_BCC"][:8]
+    packed, buckets = calc.host_preprocess(chunk)
+    _, (disp, jidx, mask, _, types, _, _) = next(iter(
+        calc.batches(packed, buckets)))
+    dev = disp.device
+    jelem, inside = _within_rcut(disp, jidx, types, calc.plan)
+    ace_pair_checks(rows, calc.plan, disp, jelem, mask & inside, types,
+                    "Ta_PACE")
+    del disp, jidx, mask, jelem, inside
+    torch.cuda.empty_cache()
+
+    plan = build_ace_plan(SimpleNamespace(**INP_SHAPE))
+    batch = inp_chunk(seed, plan, dev)
+    disp, jidx, mask, rev, types, natoms, cell = batch
+    jelem, inside = _within_rcut(disp, jidx, types, plan)
+    smask = mask & inside
+    r = torch.sqrt((disp * disp).sum(-1))
+    mixed = smask & (jelem != types[:, :, None])
+    ramp = int((mixed & (r > 1.9) & (r < 2.4)).sum().item())
+    print(f"InP chunk: {ramp} In-P pairs inside the inner ramp "
+          f"[1.9, 2.4] A", flush=True)
+    if not ramp:
+        raise AssertionError("InP chunk: no pair inside the inner ramp")
+    del r, mixed
+    ace_pair_checks(rows, plan, disp, jelem, smask, types, "InP_shape")
+
+    # K7 in the ACE layout on the chunk's plain rows, with seeded truths
+    # and weights
+    rows_in = ace_rows(plan, RefSpec(), *batch, plain=True)
+    C, A = types.shape
+    g = torch.Generator(device="cpu").manual_seed(seed + 6)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, dtype=torch.float64).to(dev)
+
+    truths = (rnd(C), rnd(C, A, 3), rnd(C, 6))
+    weights = (rnd(C).abs(), rnd(C).abs(), rnd(C).abs())
+    T = plan.numtypes
+    k7_args = (rows_in, truths, weights, natoms, types, T, True, FLAGS)
+    out = sk.normal_contrib(*k7_args, None, True, "ace")
+    ref = sk.normal_contrib_plain(*k7_args, None, True, "ace")
+    Wf = ref[1].shape[0]
+    coeff = torch.linspace(-1.0, 1.0, Wf, dtype=torch.float64, device=dev)
+    res = sk.normal_contrib(*k7_args, coeff, False, "ace")[1]
+    res_ref = sk.normal_contrib_plain(*k7_args, coeff, False, "ace")[1]
+    _, res_err = rel_err([res], [res_ref])
+    if not (res_err <= KERNEL_RTOL and out[2].item() == ref[2].item()):
+        raise AssertionError(f"normal_contrib (ACE layout): residual mode "
+                             f"{res_err:.3e} or nrows differs")
+    a_full, _ = sk.full_rows(rows_in, truths, natoms, types, T, True, "ace")
+    wrow = sk.row_weights(weights, natoms, A, FLAGS)
+    aw = (a_full * wrow[..., None]).reshape(-1, Wf)
+    nrow = aw.shape[0]
+    Wr = rows_in["e_cols"].shape[1]
+    record(rows, "normal_contrib@ace", out[:2], ref[:2],
+           (lambda: sk.normal_contrib(*k7_args, None, True, "ace"), 20),
+           timed(lambda: sk.normal_contrib_plain(*k7_args, None, True,
+                                                 "ace"), 5),
+           C * (1 + 3 * A + 6) * Wr * 8 + 3 * C * (1 + 3 * A + 6) * 8
+           + 3 * C * 8 + C * 4 + C * A * 4 + (Wf * Wf + Wf + 1) * 8,
+           nrow * (2 * Wf * Wf + 2 * Wf),
+           timed(lambda: torch.mm(aw.T, aw), 20),
+           wrapper="normal_contrib", shape=f"ACE layout, width {Wf}")
+    torch.cuda.synchronize()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # FitSnap path
 # ---------------------------------------------------------------------------
 
 
-def main_path(ini, a_plain, beta, device):
+def prediction_errors(a, x, b, row_type):
+    """max |a x - b| / max |b| per row type."""
+    res = np.abs(a @ x - b)
+    return {k: float(res[row_type == k].max() / np.abs(b[row_type == k]).max())
+            for k in ("Energy", "Force", "Stress")}
+
+
+def check_predictions(tag, aw, bw, x, limit, per_type):
+    """Weighted residual of x within `limit`, and each row type within
+    PRED_RTOL; returns the weighted residual."""
+    resid = np.linalg.norm(aw @ x - bw) / np.linalg.norm(bw)
+    worst = max(per_type.values())
+    if not (np.isfinite(x).all() and resid <= limit and worst <= PRED_RTOL):
+        raise AssertionError(
+            f"{tag}: predictions miss the truths: weighted residual "
+            f"{resid:.3e} (limit {limit:.3e}), per row type {per_type} "
+            f"(limit {PRED_RTOL})")
+    return float(resid)
+
+
+def main_path(ini, a_plain, beta, device, kind="snap"):
     """Drive FitSnap on the card; returns (the FitSnap, launch counts,
-    timings, checks)."""
+    timings, checks).  SNAP ("snap"): the fit must recover beta_true.  ACE
+    ("ace"), whose weighted design matrix is too ill-conditioned for that:
+    the predictions must hold to the truths."""
     import torch
     from fitsnap_tpu_torch import FitSnap
-    from fitsnap_tpu_torch.kernels import snap_kernels as sk
 
-    sk.reset_launches()
+    reset_launches()
     t0 = time.time()
     fs = FitSnap(str(ini), arglist=["--overwrite"], device=device)
     fs.scrape_configs()
@@ -425,12 +716,9 @@ def main_path(ini, a_plain, beta, device):
     fs.write_output()
     torch.cuda.synchronize()
     wall = time.time() - t0
-    counts = sk.launches()
+    counts = launches()
 
-    missing = [k for k in FITSNAP_KERNELS if counts[k] == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the FitSnap path: "
-                             f"{missing}")
+    check_launched(counts, "fitsnap" if kind == "snap" else "ace_fitsnap")
     if fs.a.shape != a_plain.shape:
         raise AssertionError(f"A shape {fs.a.shape} != {a_plain.shape}")
     col_scale = np.maximum(np.abs(a_plain).max(0), 1e-300)
@@ -442,30 +730,51 @@ def main_path(ini, a_plain, beta, device):
     bw = fs.w[train] * fs.b[train]
     sv = np.linalg.svd(aw, compute_uv=False)
     cond = sv[0] / sv[-1]
-    beta_tol = 100 * cond * EPS64
-    beta_err = np.abs(fs.fit - beta).max() / np.abs(beta).max()
-    if not (np.isfinite(fs.fit).all() and beta_err <= beta_tol):
-        raise AssertionError(f"fit misses beta_true: {beta_err:.3e} > "
-                             f"{beta_tol:.3e} (cond {cond:.3e})")
-    # the truths are A @ beta_true, so the weighted residual is rounding
-    resid = np.linalg.norm(aw @ fs.fit - bw) / np.linalg.norm(bw)
-    if not resid <= RESID_RTOL:
-        raise AssertionError(f"weighted residual {resid:.3e} > {RESID_RTOL}")
+    checks = {"rows": int(fs.a.shape[0]), "width": int(fs.a.shape[1]),
+              "configs": len(set(fs.fs_dict["Configs"])),
+              "a_rel_err": float(a_err), "cond_weighted_a": float(cond)}
     pot = fs.config.sections["OUTFILE"].potential_name
-    coeff_lines = Path(pot + ".snapcoeff").read_text().splitlines()
-    n_coeff = int(coeff_lines[2].split()[1])
-    if n_coeff != a_plain.shape[1]:
-        raise AssertionError(f".snapcoeff lists {n_coeff} coefficients")
+    if kind == "snap":
+        beta_tol = 100 * cond * EPS64
+        beta_err = np.abs(fs.fit - beta).max() / np.abs(beta).max()
+        if not (np.isfinite(fs.fit).all() and beta_err <= beta_tol):
+            raise AssertionError(f"fit misses beta_true: {beta_err:.3e} > "
+                                 f"{beta_tol:.3e} (cond {cond:.3e})")
+        # the truths are A @ beta_true, so the weighted residual is rounding
+        resid = np.linalg.norm(aw @ fs.fit - bw) / np.linalg.norm(bw)
+        if not resid <= RESID_RTOL:
+            raise AssertionError(f"weighted residual {resid:.3e} > "
+                                 f"{RESID_RTOL}")
+        coeff_lines = Path(pot + ".snapcoeff").read_text().splitlines()
+        n_coeff = int(coeff_lines[2].split()[1])
+        if n_coeff != a_plain.shape[1]:
+            raise AssertionError(f".snapcoeff lists {n_coeff} coefficients")
+        checks.update(beta_rel_err=float(beta_err), beta_tol=float(beta_tol),
+                      resid_rel=float(resid))
+    else:
+        # truths = A_plain beta_true; lstsq at rcond SVD_RCOND drops
+        # directions whose part of w b is at most rcond sigma_max |beta|
+        limit = 10 * SVD_RCOND * sv[0] * np.linalg.norm(beta) \
+            / np.linalg.norm(bw)
+        per_type = prediction_errors(fs.a, fs.fit, fs.b,
+                                     np.asarray(fs.fs_dict["Row_Type"]))
+        resid = check_predictions("FitSnap", aw, bw, fs.fit, limit, per_type)
+        text = Path(pot + ".acecoeff").read_text()
+        sec = fs.config.sections["ACE"]
+        if not (text.count("#  mu0=") == len(fs.calculator.plan.labels)
+                and text.count("#  const") == (0 if sec.bzeroflag
+                                               else sec.numtypes)
+                and "E0: [" in Path(pot + ".yace").read_text()
+                and Path(pot + ".mod").exists()):
+            raise AssertionError("the .acecoeff, .yace or .mod is wrong")
+        checks.update(resid_rel=resid, resid_limit=float(limit),
+                      pred_rel_err=per_type)
     # rsq is -inf by definition for a row group with constant truths, so
     # only ncount, mae and rmse must be finite
     errs = fs.solver.errors
     if not (len(errs) and np.isfinite(errs.values[:, :3]).all()):
         raise AssertionError("empty or non-finite error table")
-    checks = {"rows": int(fs.a.shape[0]), "width": int(fs.a.shape[1]),
-              "configs": len(set(fs.fs_dict["Configs"])),
-              "a_rel_err": float(a_err), "cond_weighted_a": float(cond),
-              "beta_rel_err": float(beta_err), "beta_tol": float(beta_tol),
-              "resid_rel": float(resid), "wall_s": wall}
+    checks["wall_s"] = wall
     return fs, counts, dict(fs.timings), checks
 
 
@@ -474,29 +783,29 @@ def main_path(ini, a_plain, beta, device):
 # ---------------------------------------------------------------------------
 
 
-def streamed_path(fs, a_plain, beta, seed, device):
-    """Drive parallel/fit.py on `device` over FitSnap's configs; returns
-    (launch counts, timings, checks)."""
+def streamed_path(fs, a_plain, beta, seed, device, kind="snap"):
+    """Drive parallel/fit.py on `device` over FitSnap's configs, with the
+    SNAP model ("snap") or, through `ace_kernel`, the ACE one ("ace");
+    returns (launch counts, timings, checks)."""
     import torch
     from fitsnap_tpu_torch.calculators.snap import chunk_size
-    from fitsnap_tpu_torch.kernels import snap_kernels as sk
     from fitsnap_tpu_torch.parallel import fit
 
     calc = fs.calculator
-    sk.reset_launches()
+    reset_launches()
     t = {}
     t0 = time.time()
     packed = [calc._pack(d) for d in fs.data]
     groups = fit.plan_shift_groups(packed, calc.cutoff)
     runs = []
     for g in groups:
-        per = chunk_size(g["a_pad"], g["k_pad"], calc.sec.ncoeff)
+        per = chunk_size(g["a_pad"], g["k_pad"], calc.desc_width())
         chunks = -(-len(g["configs"]) // per)
         batch = fit.pack_batch_pos(g["configs"], g["a_pad"], chunks * per,
                                    g["s_table"], np.float64, chunks=chunks)
         runs.append(({"cutoff": calc.cutoff, "k_pad": g["k_pad"]}, batch))
-        print(f"streamed group: {len(g['configs'])} configs -> {chunks} x "
-              f"{per}, a_pad={g['a_pad']} k_pad={g['k_pad']} "
+        print(f"streamed group ({kind}): {len(g['configs'])} configs -> "
+              f"{chunks} x {per}, a_pad={g['a_pad']} k_pad={g['k_pad']} "
               f"S={len(g['s_table'])}", flush=True)
     t["pack"] = time.time() - t0
     t0 = time.time()
@@ -504,13 +813,19 @@ def streamed_path(fs, a_plain, beta, seed, device):
     torch.cuda.synchronize()
     t["upload"] = time.time() - t0
 
-    model = (calc.params, calc.numtypes, FLAGS, device)
-    steps = [fit.build_step_fn(*model, refspec=calc.refspec, neighbors=nb,
-                               accumulate=True) for nb, _ in runs]
-    residuals = [fit.build_residual_fn(*model, refspec=calc.refspec,
-                                       neighbors=nb) for nb, _ in runs]
-    evals = [fit.build_eval_fn(*model, refspec=calc.refspec, neighbors=nb)
+    if kind == "snap":
+        model, kw = (calc.params, calc.numtypes, FLAGS, device), {}
+    else:
+        model = (None, calc.numtypes, FLAGS, device)
+        kw = {"kernel": fit.ace_kernel(calc.plan),
+              "const_mode": False if calc.sec.bzeroflag
+              else ("ace", calc.numtypes)}
+    kw["refspec"] = calc.refspec
+    steps = [fit.build_step_fn(*model, neighbors=nb, accumulate=True, **kw)
              for nb, _ in runs]
+    residuals = [fit.build_residual_fn(*model, neighbors=nb, **kw)
+                 for nb, _ in runs]
+    evals = [fit.build_eval_fn(*model, neighbors=nb, **kw) for nb, _ in runs]
 
     def one_pass(_=None):
         acc = steps[0][1]()
@@ -537,7 +852,7 @@ def streamed_path(fs, a_plain, beta, seed, device):
         t["device_ms_per_pass"] = sum(kernel_ms.values())
         t["device_busy_share"] = t["device_ms_per_pass"] / 1e3 \
             / t["steady_pass"]
-    print("streamed pass device time by kernel (ms): " + (json.dumps(
+    print(f"streamed pass ({kind}) device time by kernel (ms): " + (json.dumps(
         {k: round(v, 3) for k, v in list(kernel_ms.items())[:12]})
         if kernel_ms else "not measured (no device time in the trace)"),
         flush=True)
@@ -554,13 +869,10 @@ def streamed_path(fs, a_plain, beta, seed, device):
     t["eval"] = time.time() - t0
     cse, cne, csf, cnf = evaluate(x_check)
     torch.cuda.synchronize()
-    counts = sk.launches()
+    counts = launches()
     t["rows_per_s"] = nrows / t["steady_pass"]
 
-    missing = [k for k, v in counts.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the streamed "
-                             f"path: {missing}")
+    check_launched(counts, "streamed" if kind == "snap" else "ace_streamed")
     if nrows != a_plain.shape[0]:
         raise AssertionError(f"nrows {nrows} != {a_plain.shape[0]}")
     aw = fs.w[:, None] * a_plain
@@ -574,15 +886,39 @@ def streamed_path(fs, a_plain, beta, seed, device):
                              f"AtA {ata_err:.3e}, Atb {atb_err:.3e}")
     sv = np.linalg.svd(aw, compute_uv=False)
     cond = sv[0] / sv[-1]
-    scale = np.abs(beta).max()
-    err_direct = np.abs(x_direct - beta).max() / scale
-    err_ref = np.abs(x_ref - beta).max() / scale
-    tol_direct, tol_ref = 100 * cond ** 2 * EPS64, 100 * cond * EPS64
-    if not (err_direct <= tol_direct and err_ref <= tol_ref):
-        raise AssertionError(
-            f"streamed fit misses beta_true: direct {err_direct:.3e} "
-            f"(limit {tol_direct:.3e}), refined {err_ref:.3e} (limit "
-            f"{tol_ref:.3e}), cond {cond:.3e}")
+    checks = {"groups": len(groups), "nrows": nrows,
+              "ata_rel_err": float(ata_err), "atb_rel_err": float(atb_err),
+              "cond_weighted_a_all": float(cond)}
+    if kind == "snap":
+        scale = np.abs(beta).max()
+        err_direct = np.abs(x_direct - beta).max() / scale
+        err_ref = np.abs(x_ref - beta).max() / scale
+        tol_direct, tol_ref = 100 * cond ** 2 * EPS64, 100 * cond * EPS64
+        if not (err_direct <= tol_direct and err_ref <= tol_ref):
+            raise AssertionError(
+                f"streamed fit misses beta_true: direct {err_direct:.3e} "
+                f"(limit {tol_direct:.3e}), refined {err_ref:.3e} (limit "
+                f"{tol_ref:.3e}), cond {cond:.3e}")
+        checks.update(beta_direct_rel_err=float(err_direct),
+                      beta_direct_tol=float(tol_direct),
+                      beta_refined_rel_err=float(err_ref),
+                      beta_refined_tol=float(tol_ref))
+    else:
+        # NormalSolver equilibrates the columns (norms d) and drops
+        # eigenvalues below 10 eps of the largest: singular values below
+        # sqrt(10 eps) of the largest, whose part of w b is at most that
+        # times |d beta|; rounding in A^T A moves the kept ones by as much
+        d = np.sqrt(np.clip(np.diag(ata_host), 1e-300, None))
+        sn = np.linalg.svd(aw / d, compute_uv=False)
+        limit = 10 * np.sqrt(10 * EPS64) * sn[0] \
+            * np.linalg.norm(d * beta) / np.linalg.norm(bw)
+        rtype = np.asarray(fs.fs_dict["Row_Type"])
+        for tag, x in (("direct", x_direct), ("refined", x_ref)):
+            per_type = prediction_errors(a_plain, x, fs.b, rtype)
+            checks[f"resid_rel_{tag}"] = check_predictions(
+                f"streamed {tag}", aw, bw, x, limit, per_type)
+            checks[f"pred_rel_err_{tag}"] = per_type
+        checks["resid_limit"] = float(limit)
     rtype = np.asarray(fs.fs_dict["Row_Type"])
     res = np.abs(a_plain @ x_check - fs.b)
     host = (res[rtype == "Energy"].sum(), (rtype == "Energy").sum(),
@@ -591,15 +927,8 @@ def streamed_path(fs, a_plain, beta, seed, device):
     if not (cne == host[1] and cnf == host[3] and mae_err <= MAE_RTOL):
         raise AssertionError(f"MAE sums differ from the host's: "
                              f"{(cse, cne, csf, cnf)} vs {host}")
-    checks = {"groups": len(groups), "nrows": nrows,
-              "ata_rel_err": float(ata_err), "atb_rel_err": float(atb_err),
-              "cond_weighted_a_all": float(cond),
-              "beta_direct_rel_err": float(err_direct),
-              "beta_direct_tol": float(tol_direct),
-              "beta_refined_rel_err": float(err_ref),
-              "beta_refined_tol": float(tol_ref),
-              "energy_mae": se / ne, "force_mae": sf / nf,
-              "mae_rel_err_at_check": float(mae_err)}
+    checks.update(energy_mae=se / ne, force_mae=sf / nf,
+                  mae_rel_err_at_check=float(mae_err))
     return counts, t, checks
 
 
@@ -635,36 +964,45 @@ def main():
                     print(f"  {name}: {line.strip()}", flush=True)
 
     cwd = os.getcwd()
+    paths = {}
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
-            t0 = time.time()
-            ini, fs0, data, a_plain, beta, t_plain = make_dataset(
-                tmp, args.seed, "cuda")
-            print(f"data: {len(data)} configs, A {a_plain.shape}, plain "
-                  f"path on the card {t_plain:.2f} s, set-up "
-                  f"{time.time() - t0:.2f} s", flush=True)
-            kernels = kernel_checks(fs0.calculator, data)
-            del fs0
-            torch.cuda.empty_cache()
-            fs, counts, timings, checks = main_path(ini, a_plain, beta,
-                                                    "cuda")
-            s_counts, s_times, s_checks = streamed_path(fs, a_plain, beta,
-                                                        args.seed, "cuda")
+            kernels = []
+            for kind in ("snap", "ace"):
+                t0 = time.time()
+                ini, fs0, data, a_plain, beta, t_plain = make_dataset(
+                    tmp, args.seed, "cuda", kind)
+                print(f"data ({kind}): {len(data)} configs, A "
+                      f"{a_plain.shape}, plain path on the card "
+                      f"{t_plain:.2f} s, set-up {time.time() - t0:.2f} s",
+                      flush=True)
+                kernels += (kernel_checks(fs0.calculator, data)
+                            if kind == "snap" else
+                            ace_kernel_checks(fs0.calculator, data, args.seed))
+                del fs0, data
+                torch.cuda.empty_cache()
+                fs, *fitsnap = main_path(ini, a_plain, beta, "cuda", kind)
+                streamed = streamed_path(fs, a_plain, beta, args.seed,
+                                         "cuda", kind)
+                prefix = "" if kind == "snap" else "ace_"
+                paths[prefix + "fitsnap"] = fitsnap
+                paths[prefix + "streamed"] = streamed
+                del fs, a_plain
+                torch.cuda.empty_cache()
         finally:
             os.chdir(cwd)
-    print("FitSnap path stage timings: " + " ".join(
-        f"{k}={v:.3f}s" for k, v in timings.items()), flush=True)
-    print("FitSnap path checks: " + json.dumps(checks), flush=True)
-    print("streamed path timings: " + " ".join(
-        f"{k}={v:.4f}" + ("s" if k in ("pack", "upload", "first_pass",
-                                       "steady_pass", "solve", "refine",
-                                       "eval") else "")
-        for k, v in s_times.items()), flush=True)
-    print("streamed path checks: " + json.dumps(s_checks), flush=True)
+    seconds = ("pack", "upload", "first_pass", "steady_pass", "solve",
+               "refine", "eval")
+    for path, (_, times, checks) in paths.items():
+        print(f"{path} path timings: " + " ".join(
+            f"{k}={v:.4f}" + ("s" if k in seconds or "fitsnap" in path
+                              else "") for k, v in times.items()),
+            flush=True)
+        print(f"{path} path checks: " + json.dumps(checks), flush=True)
     for row in kernels:
-        by_path = {"fitsnap": counts[row["name"]],
-                   "streamed": s_counts[row["name"]]}
+        by_path = {path: counts[row["kernel"]]
+                   for path, (counts, _, _) in paths.items()}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
     print(json.dumps({"kernels": kernels}), flush=True)

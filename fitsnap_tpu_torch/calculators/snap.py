@@ -168,6 +168,10 @@ class SnapCalculator:
                                        sec.numtypes)
         self.cutoff = max(self.snap_cutoff, self.refspec.max_cutoff)
 
+    def desc_width(self):
+        """Descriptor columns per atom (the width of B and dB/dD)."""
+        return self.sec.ncoeff
+
     def get_width(self):
         sec = self.sec
         w = sec.ncoeff * sec.numtypes
@@ -241,7 +245,7 @@ class SnapCalculator:
             return torch.from_numpy(x).to(dev)
 
         for (a_pad, k_pad), idxs in buckets.items():
-            chunk = min(chunk_size(a_pad, k_pad, self.sec.ncoeff),
+            chunk = min(chunk_size(a_pad, k_pad, self.desc_width()),
                         len(idxs))
             for c0 in range(0, len(idxs), chunk):
                 ids = idxs[c0:c0 + chunk]
@@ -270,12 +274,25 @@ class SnapCalculator:
                             put(rev), put(types), put(nat),
                             put(cell).to(DTYPE))
 
+    def _expand(self, block, counts_frac=None):
+        """(..., raw_width) -> (..., width): insert per-type leading column
+        when bzeroflag=0, apply blank2J (`lammps_snap.py:455`)."""
+        sec = self.sec
+        blank2j = np.asarray(sec.blank2J, np.float64)
+        if sec.bzeroflag:
+            return block * blank2j
+        shp = block.shape[:-1]
+        blk = block.reshape(shp + (self.numtypes, sec.ncoeff))
+        lead = np.zeros(shp + (self.numtypes, 1))
+        if counts_frac is not None:
+            lead = lead + counts_frac[..., None]
+        out = np.concatenate([lead, blk], axis=-1)
+        return out.reshape(shp + (self.get_width(),)) * blank2j
+
     def _assemble(self, packed, results):
         dtype = np.float64
         calc = self.config.sections["CALCULATOR"]
-        sec = self.sec
         width = self.get_width()
-        blank2j = np.asarray(sec.blank2J, dtype)
         total = 0
         for pc in packed:
             total += ((1 if calc.energy else 0)
@@ -287,19 +304,7 @@ class SnapCalculator:
         fs = {"Groups": [], "Configs": [], "Row_Type": [], "Atom_I": [],
               "Atom_Type": [], "Testing": []}
 
-        def expand(block, counts_frac=None):
-            """(..., raw_width) -> (..., width): insert per-type leading
-            column when bzeroflag=0, apply blank2J (`lammps_snap.py:455`)."""
-            if sec.bzeroflag:
-                return block * blank2j
-            shp = block.shape[:-1]
-            blk = block.reshape(shp + (self.numtypes, sec.ncoeff))
-            lead = np.zeros(shp + (self.numtypes, 1), dtype)
-            if counts_frac is not None:
-                lead = lead + counts_frac[..., None]
-            out = np.concatenate([lead, blk], axis=-1)
-            return out.reshape(shp + (width,)) * blank2j
-
+        expand = self._expand
         row = 0
         for pc, res in zip(packed, results):
             d = pc.data

@@ -9,8 +9,13 @@ identical tables.
 import numpy as np
 import torch
 
+from fitsnap_tpu_torch.ops.ace import AcePlan
 from fitsnap_tpu_torch.ops.snap import SnapParams, params_from_arrays
 
+ACE_PLAN_FIELDS = ("numtypes", "nradbase", "nmax_per_l", "lmax", "rcut",
+                   "lmbda", "rcinner", "drcinner", "labels", "a_index", "nA",
+                   "t_fact", "t_coef", "t_label", "t_mu0", "rank_max", "mmat",
+                   "radial", "ylm", "spline_delta")
 PLAN_FIELDS = ("i1", "i2", "i3", "mmat", "bzero", "self_idx", "y_src",
                "y_fac", "z_dense", "bzeroflag", "twojmax")
 PARAM_FIELDS = ("radelem", "wj", "rcutfac", "rfac0", "rmin0", "switchflag",
@@ -30,6 +35,26 @@ def snap_params_from_numpy(d: dict, device="cpu") -> SnapParams:
     if missing:
         raise KeyError(f"snap_params_from_numpy: missing {missing}")
     return params_from_arrays(d, device)
+
+
+def ace_plan_from_numpy(d: dict) -> AcePlan:
+    """The port's AcePlan from the fields of a JAX `AcePlan` in `d`
+    (ACE_PLAN_FIELDS: arrays as numpy arrays, labels and a_index as lists
+    and dicts).  Its device tables are built at first use."""
+    missing = [k for k in ACE_PLAN_FIELDS if k not in d]
+    if missing:
+        raise KeyError(f"ace_plan_from_numpy: missing {missing}")
+    f = {k: d[k] for k in ACE_PLAN_FIELDS}
+    for k in ("rcut", "lmbda", "rcinner", "drcinner", "t_coef", "mmat"):
+        f[k] = np.array(f[k], np.float64)
+    for k in ("t_fact", "t_label", "t_mu0"):
+        f[k] = np.array(f[k], np.int32)
+    f["labels"] = [(int(mu0), tuple(mus), tuple(ns), tuple(ls), tuple(Ls))
+                   for mu0, mus, ns, ls, Ls in f["labels"]]
+    f["a_index"] = {tuple(int(v) for v in k): int(i)
+                    for k, i in dict(f["a_index"]).items()}
+    f["nmax_per_l"] = dict(f["nmax_per_l"])
+    return AcePlan(**f)
 
 
 def coeffs_from_numpy(coeffs, device="cpu") -> torch.Tensor:

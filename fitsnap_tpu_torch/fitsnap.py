@@ -2,10 +2,10 @@
 
 Counterpart of `fitsnap_tpu/fitsnap.py` with the same factories and stage
 methods: `FitSnap(input, arglist, device).scrape_configs()`,
-`.process_configs()`, `.perform_fit()`, `.write_output()`.  This slice
-takes the JSON scraper, the LAMMPSSNAP calculator, the SVD, TPUSVD /
-SCALAPACK and TENSORFLOWSVD solvers and SNAP output; any other choice raises
-NotImplementedError naming its ROADMAP item.
+`.process_configs()`, `.perform_fit()`, `.write_output()`.  The port takes
+the JSON scraper, the LAMMPSSNAP and LAMMPSPACE calculators, the SVD,
+TPUSVD / SCALAPACK and TENSORFLOWSVD solvers and SNAP and PACE output; any
+other choice raises NotImplementedError naming its ROADMAP item.
 """
 
 import time
@@ -35,8 +35,10 @@ def _calculator_factory(config, device):
     if name == "LAMMPSSNAP":
         from fitsnap_tpu_torch.calculators.snap import SnapCalculator
         return SnapCalculator(name, config, device)
-    item = {"LAMMPSPACE": "queue 1: ACE",
-            "LAMMPSCUSTOM": "queue 1: custom"}.get(name, "queue 1")
+    if name == "LAMMPSPACE":
+        from fitsnap_tpu_torch.calculators.ace import AceCalculator
+        return AceCalculator(name, config, device)
+    item = {"LAMMPSCUSTOM": "queue 1: custom"}.get(name, "queue 1")
     raise NotImplementedError(_LATER.format("calculator", name, item))
 
 
@@ -62,8 +64,11 @@ def _output_factory(config):
     if style == "SNAP":
         from fitsnap_tpu_torch.io.outputs.snap_output import SnapOutput
         return SnapOutput(style, config)
-    item = {"PACE": "queue 1: ACE"}.get(style, "queue 1: custom")
-    raise NotImplementedError(_LATER.format("output style", style, item))
+    if style == "PACE":
+        from fitsnap_tpu_torch.io.outputs.pace_output import PaceOutput
+        return PaceOutput(style, config)
+    raise NotImplementedError(_LATER.format("output style", style,
+                                            "queue 1: custom"))
 
 
 class FitSnap:

@@ -5,9 +5,11 @@
 //   energy row  a = e_cols[c] / n_c        b = (E_c - Eref_c) / n_c
 //   force rows  a = force_rows[c, i, d]    b = F[c, i, d] - Fref[c, i, d]
 //   virial rows a = virial_rows[c, v]      b = S6[c, v] - Vref[c, v]
-// with n_c = max(natoms, 1).  With constant columns (bzeroflag 0) each type
-// block of the row gains a leading column: the type's atom fraction on the
-// energy row, 0 elsewhere.  Row weights: eweight on the energy row, fweight
+// with n_c = max(natoms, 1).  With constant columns (bzeroflag 0) the row
+// gains one column per type: the type's atom fraction on the energy row, 0
+// elsewhere.  In the SNAP layout (const_cols 1) each type block of the raw
+// row leads with its type's column; in the ACE layout (const_cols 2, one
+// block of element-resolved labels) the T columns lead the row.  Row weights: eweight on the energy row, fweight
 // on the force rows of real atoms, vweight on the virial rows, each times
 // live = (natoms > 0) and 0 for a row kind that the flags leave out.  Then
 //   AtA += sum_rows (w a)(w a)^T,  Atb += sum_rows (w a)(w b),
@@ -15,8 +17,8 @@
 // and in the residual mode (coeff given) b is replaced by b - a . coeff.
 //
 // Replaces fitsnap_tpu/parallel/fit.py `config_normal_contrib` (the
-// constant columns, the reference subtraction and the accumulation at
-// :288-364).
+// constant columns of both layouts at :288-313, the reference subtraction
+// and the accumulation at :315-364).
 //
 // Bound on the H100: bytes.  Every row (W doubles) is read once; the
 // 2 W^2 flops per row are well under the FP64 rate for that traffic at the
@@ -52,6 +54,7 @@ struct RowArgs {
   const int* types;              // (C, A)
   const double* coeff;           // (W,) or null
   int C, A, T, Wr, W, const_cols, fe, ff, fs, with_ata, ntiles;
+  // const_cols: 0 none, 1 SNAP layout, 2 ACE layout
 };
 
 __global__ void contrib_tile_kernel(RowArgs p, double* __restrict__ partial) {
@@ -69,7 +72,7 @@ __global__ void contrib_tile_kernel(RowArgs p, double* __restrict__ partial) {
   const double live = na > 0 ? 1.0 : 0.0;
   const double nat = static_cast<double>(na > 1 ? na : 1);
   const int tid = threadIdx.x;
-  const int nco = p.const_cols ? p.Wr / p.T : 0;   // raw columns per type
+  const int nco = p.const_cols == 1 ? p.Wr / p.T : 0;  // raw cols per type
 
   if (p.const_cols && r0 == 0) {
     for (int t = tid; t < p.T; t += NC_THREADS) {
@@ -86,13 +89,19 @@ __global__ void contrib_tile_kernel(RowArgs p, double* __restrict__ partial) {
     double v = 0.0;
     if (r < nrow) {
       int raw = col;
+      int type = 0;                 // the type of a leading column
       bool lead = false;
-      if (p.const_cols) {
+      if (p.const_cols == 1) {
+        type = col / (nco + 1);
         lead = col % (nco + 1) == 0;
-        raw = (col / (nco + 1)) * nco + col % (nco + 1) - 1;
+        raw = type * nco + col % (nco + 1) - 1;
+      } else if (p.const_cols == 2) {
+        type = col;
+        lead = col < p.T;
+        raw = col - p.T;
       }
       if (r == 0) {
-        v = lead ? scount[col / (nco + 1)]
+        v = lead ? scount[type]
                  : p.e_cols[static_cast<long long>(c) * p.Wr + raw] / nat;
       } else if (!lead && r <= 3 * A) {
         v = p.force_rows[(static_cast<long long>(c) * 3 * A + r - 1) * p.Wr +

@@ -16,83 +16,31 @@ kernel for tensors on a CUDA device, and raises for anything else.  Every
 launch adds one to the wrapper's `launches` count.
 """
 
-import ctypes
-
 import torch
 
-from fitsnap_tpu_torch.kernels.build import load
+from fitsnap_tpu_torch.kernels import launch as kl
+from fitsnap_tpu_torch.kernels.launch import (SMEM_LIMIT as _SMEM_LIMIT,
+                                              check as _check,
+                                              launch as _launch,
+                                              on_cpu as _on_cpu, ptr as _ptr)
 from fitsnap_tpu_torch.ops import snap as ops
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_LL = ctypes.c_longlong
-_D = ctypes.c_double
-
-_ARGTYPES = {
-    "pair_u_duals": [_P, _P, _P, _P, _P, _D, _D, _D, _I, _I, _LL, _I,
-                     _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P],
-    "zlist": [_P, _LL, _I, _P, _P, _P, _P, _I, _P, _P, _P],
-    "dbdd": [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P, _P, _P],
-    "pair_scatter_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
-                          _P, _P],
-    "zbl_pair_grad": [_P] * 5 + [_I] * 4 + [_D, _D] + [_P] * 4,
-    "device_neighbors": [_P] * 5 + [_I] * 4 + [_D] + [_P] * 4,
-    "reverse_table": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
-    "normal_contrib": [_P] * 15 + [_I] * 10 + [_P] * 5,
-}
-_LIBRARY = {"pair_u_duals": "pair_u_duals", "zlist": "zlist", "dbdd": "dbdd",
-            "pair_scatter_rows": "pair_scatter",
-            "zbl_pair_grad": "zbl_pair",
-            "device_neighbors": "device_neighbors",
-            "reverse_table": "device_neighbors",
-            "normal_contrib": "normal_contrib"}
-_SMEM_LIMIT = 232448   # bytes of shared memory one H100 block can use
-
-
-def _fn(name):
-    lib = load(_LIBRARY[name])
-    fn = getattr(lib, name)
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
-    return lib, fn
-
-
-def _on_cpu(*tensors):
-    """True when the inputs lie on the CPU; raises unless they lie on one
-    CUDA device."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"kernel inputs on several devices: {devices}")
-    dev = devices.pop()
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    return False
-
-
-def _check(t, name, dtype, shape):
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: tensor must be contiguous")
-
-
-def _launch(name, device, *args):
-    lib, fn = _fn(name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc}: "
-                           f"{lib.fs_error_string(rc).decode()}")
-
-
-def _ptr(t):
-    return t.data_ptr()
+_P, _I, _LL, _D = kl.P, kl.I, kl.LL, kl.D
+kl.register("pair_u_duals", "pair_u_duals",
+            [_P] * 5 + [_D] * 3 + [_I, _I, _LL, _I] + [_P] * 3 + [_I, _I]
+            + [_P] * 3 + [_I] + [_P] * 5)
+kl.register("zlist", "zlist", [_P, _LL, _I] + [_P] * 4 + [_I] + [_P] * 3)
+kl.register("dbdd", "dbdd", [_P] * 7 + [_LL] + [_I] * 4 + [_P] * 3)
+kl.register("pair_scatter_rows", "pair_scatter",
+            [_P] * 5 + [_I] * 6 + [_P] * 3)
+kl.register("zbl_pair_grad", "zbl_pair",
+            [_P] * 5 + [_I] * 4 + [_D, _D] + [_P] * 4)
+kl.register("device_neighbors", "device_neighbors",
+            [_P] * 5 + [_I] * 4 + [_D] + [_P] * 4)
+kl.register("reverse_table", "device_neighbors",
+            [_P, _P] + [_I] * 4 + [_P] * 3)
+kl.register("normal_contrib", "normal_contrib",
+            [_P] * 15 + [_I] * 10 + [_P] * 5)
 
 
 # ---------------------------------------------------------------------------
@@ -473,13 +421,17 @@ reverse_table.launches = 0
 _NC_TILE = 64   # rows per tile of csrc/normal_contrib.cu
 
 
-def full_rows(rows, truths, natoms, types, numtypes, const_cols):
+def full_rows(rows, truths, natoms, types, numtypes, const_cols,
+              layout="snap"):
     """Full rows (C, 1 + 3A + 6, W) and right-hand sides (C, 1 + 3A + 6).
 
     rows: the rows function's dict (e_cols, force_rows, virial_rows, ref_e,
     ref_f, ref_v); truths: (energy (C,), forces (C, A, 3), stress6 (C, 6)).
-    With `const_cols`, every type block gains a leading column: the type's
-    atom fraction on the energy row, zero on the force and virial rows.
+    With `const_cols`, the rows gain one constant column per type: the
+    type's atom fraction on the energy row, zero on the force and virial
+    rows.  In the "snap" layout each of the `numtypes` blocks of the raw
+    width leads with its type's column; in the "ace" layout (one block of
+    element-resolved labels) the `numtypes` columns lead the row.
     """
     energy, forces, stress6 = truths
     C, A = types.shape
@@ -490,6 +442,8 @@ def full_rows(rows, truths, natoms, types, numtypes, const_cols):
     e_row = rows["e_cols"] / nat[:, None]
     f_rows = rows["force_rows"].reshape(C, 3 * A, -1)
     v_rows = rows["virial_rows"]
+    if layout not in ("snap", "ace"):
+        raise ValueError(f"unknown constant-column layout {layout!r}")
     if const_cols:
         T = numtypes
         counts = (torch.nn.functional.one_hot(types.long(), T).to(dt)
@@ -497,6 +451,8 @@ def full_rows(rows, truths, natoms, types, numtypes, const_cols):
 
         def lead(block, first):
             shp = block.shape[:-1]
+            if layout == "ace":
+                return torch.cat([first.reshape(shp + (T,)), block], -1)
             return torch.cat([first.reshape(shp + (T, 1)),
                               block.reshape(shp + (T, -1))], -1) \
                 .reshape(shp + (-1,))
@@ -532,13 +488,16 @@ def row_weights(weights, natoms, num_atoms, flags):
 
 
 def normal_contrib_plain(rows, truths, weights, natoms, types, numtypes,
-                         const_cols, flags, coeff=None, with_ata=True):
+                         const_cols, flags, coeff=None, with_ata=True,
+                         layout="snap"):
     """Plain K7: (AtA (W, W), Atb (W,), nrows ()) of a batch, float64.
 
-    rows, truths: as for `full_rows`; weights, flags: as for `row_weights`.
-    With `coeff`, b is replaced by the residual b - a . coeff.
+    rows, truths, const_cols, layout: as for `full_rows`; weights, flags:
+    as for `row_weights`.  With `coeff`, b is replaced by the residual
+    b - a . coeff.
     """
-    a, b = full_rows(rows, truths, natoms, types, numtypes, const_cols)
+    a, b = full_rows(rows, truths, natoms, types, numtypes, const_cols,
+                     layout)
     A = types.shape[1]
     w = row_weights(weights, natoms, A, flags)
     if coeff is not None:
@@ -554,7 +513,8 @@ def normal_contrib_plain(rows, truths, weights, natoms, types, numtypes,
 
 
 def normal_contrib(rows, truths, weights, natoms, types, numtypes,
-                   const_cols, flags, coeff=None, with_ata=True):
+                   const_cols, flags, coeff=None, with_ata=True,
+                   layout="snap"):
     """K7 on the card; same arguments and outputs as the plain version
     (natoms and types int32)."""
     tensors = [rows[k] for k in ("e_cols", "force_rows", "virial_rows",
@@ -565,7 +525,9 @@ def normal_contrib(rows, truths, weights, natoms, types, numtypes,
     if _on_cpu(*tensors):
         return normal_contrib_plain(rows, truths, weights, natoms, types,
                                     numtypes, const_cols, flags, coeff,
-                                    with_ata)
+                                    with_ata, layout)
+    if layout not in ("snap", "ace"):
+        raise ValueError(f"unknown constant-column layout {layout!r}")
     C, A = types.shape
     T = numtypes
     Wr = rows["e_cols"].shape[1]
@@ -593,7 +555,8 @@ def normal_contrib(rows, truths, weights, natoms, types, numtypes,
     nrows = torch.empty((), dtype=torch.float64, device=dev)
     _launch("normal_contrib", dev, *[_ptr(t) for t in tensors[:14]],
             _ptr(coeff) if coeff is not None else None, C, A, T, Wr, W,
-            int(bool(const_cols)), int(bool(flags["energy"])),
+            0 if not const_cols else (2 if layout == "ace" else 1),
+            int(bool(flags["energy"])),
             int(bool(flags["force"])), int(bool(flags["stress"])),
             int(bool(with_ata)), _ptr(partial), _ptr(AtA), _ptr(Atb),
             _ptr(nrows))

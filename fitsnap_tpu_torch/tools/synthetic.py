@@ -177,6 +177,28 @@ def ta_settings(datapath, groups=None):
     }
 
 
+def ace_settings(datapath, groups=None):
+    """Input sections of a Ta_PACE-shaped ACE fit for `datapath`.
+
+    The [ACE] section holds the Ta_PACE example's hyperparameters (ranks
+    1-6, lmax 1 2 2 2 1 1, nmax 22 2 2 2 1 1, lmin 1, nmaxbase 22, rcutfac
+    4.604694451, lambda 3.059235105; b_basis minsub, whose labels equal
+    the example's shipped coupling table: 68 labels, 39 A-slots, 1,540
+    product terms) with the section's default bzeroflag 0, so the constant
+    column is on the path; the rest is `ta_settings`' (groups, ZBL 4.0-4.8 for
+    Z = 73, energy/force/stress rows), with PACE output.
+    """
+    s = ta_settings(datapath, groups)
+    del s["BISPECTRUM"]
+    s["ACE"] = {"numTypes": 1, "type": "Ta", "ranks": "1 2 3 4 5 6",
+                "lmax": "1 2 2 2 1 1", "nmax": "22 2 2 2 1 1", "lmin": 1,
+                "nmaxbase": 22, "rcutfac": 4.604694451,
+                "lambda": 3.059235105, "b_basis": "minsub"}
+    s["CALCULATOR"]["calculator"] = "LAMMPSPACE"
+    s["OUTFILE"]["output_style"] = "PACE"
+    return s
+
+
 def write_ini(path, settings):
     """Write input sections as an INI file."""
     lines = []

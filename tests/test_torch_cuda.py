@@ -1,5 +1,5 @@
-"""The CUDA kernels K1-K5, K7, K8 and K8r against their plain versions on
-the card.
+"""The CUDA kernels K1-K5, K7, K8, K8r, K13 and K14 against their plain
+versions on the card.
 
 Needs an NVIDIA GPU and nvcc (the kernels are built at first use); skipped
 elsewhere.  The machine with the card has no JAX, which the suite's
@@ -15,7 +15,11 @@ K8: a 2-atom cell whose atoms meet their own images, a 5-atom cell with a
 padded atom, and a padded config (natoms 0).  Tolerance: 1e-11 relative to
 the largest magnitude of each output (the kernels sum in another order
 than the plain versions, at float64); K8's mask and jidx and K8r's table
-exactly.
+exactly.  K13 and K14 run on 12 atoms x 40 neighbor slots for a
+one-element plan (ranks 1-4, lmax up to 2) and a two-element plan with an
+inner cutoff on the mixed bonds, with masked pairs, pairs past the cutoff
+and an empty atom; K7 also in the ACE layout (two leading constant
+columns).
 """
 
 from types import SimpleNamespace
@@ -24,7 +28,9 @@ import numpy as np
 import pytest
 import torch
 
+from fitsnap_tpu_torch.kernels import ace_kernels as ak
 from fitsnap_tpu_torch.kernels import snap_kernels as sk
+from fitsnap_tpu_torch.ops.ace import build_ace_plan
 from fitsnap_tpu_torch.ops.neighbors import (count_neighbors, host_neighbors,
                                              required_shifts,
                                              reverse_neighbors, shift_table)
@@ -206,19 +212,67 @@ def test_k5_k7_match_plain(cuda):
     truths = (dev(C), dev(C, A, 3), dev(C, 6))
     weights = (dev(C).abs(), dev(C).abs(), dev(C).abs())
     coeff = dev(T * Wr + T)
-    for const_cols, flags, x in (
-            (True, {"energy": 1, "force": 1, "stress": 1}, None),
-            (True, {"energy": 1, "force": 1, "stress": 1}, coeff),
-            (False, {"energy": 1, "force": 0, "stress": 1}, None)):
+    for const_cols, flags, x, layout in (
+            (True, {"energy": 1, "force": 1, "stress": 1}, None, "snap"),
+            (True, {"energy": 1, "force": 1, "stress": 1}, coeff, "snap"),
+            (False, {"energy": 1, "force": 0, "stress": 1}, None, "snap"),
+            (True, {"energy": 1, "force": 1, "stress": 1}, None, "ace"),
+            (True, {"energy": 1, "force": 1, "stress": 0}, coeff, "ace")):
         c = x if const_cols else None
         sk.reset_launches()
         out = sk.normal_contrib(rows, truths, weights, natoms, types, T,
-                                const_cols, flags, c, c is None)
+                                const_cols, flags, c, c is None, layout)
         ref = sk.normal_contrib_plain(rows, truths, weights, natoms, types,
-                                      T, const_cols, flags, c, c is None)
+                                      T, const_cols, flags, c, c is None,
+                                      layout)
         torch.cuda.synchronize()
         assert sk.launches()["normal_contrib"] == 1
         assert rel_err(out[1:2], ref[1:2]) <= RTOL
         if c is None:
             assert rel_err(out[:1], ref[:1]) <= RTOL
         assert out[2].item() == ref[2].item()
+
+
+ACE_CASES = {
+    "one_element": dict(numtypes=1, ranks=[1, 2, 3, 4], nmax=[8, 2, 2, 1],
+                        lmax=[1, 2, 2, 1], lmin=[1, 1, 1, 1], nmaxbase=8,
+                        rcutfac=[4.6], lmbda=[3.06], rcinner=[0.0],
+                        drcinner=[0.01]),
+    "two_elements": dict(numtypes=2, ranks=[1, 2, 3, 4], nmax=[6, 3, 2, 1],
+                         lmax=[1, 2, 2, 1], lmin=[0, 0, 1, 1], nmaxbase=6,
+                         rcutfac=[4.5, 4.2, 4.2, 4.0],
+                         lmbda=[3.0, 2.8, 2.8, 2.5],
+                         rcinner=[0.0, 1.4, 1.4, 0.0],
+                         drcinner=[0.01, 0.4, 0.4, 0.01]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ACE_CASES))
+def test_k13_k14_match_plain(cuda, name):
+    spec = ACE_CASES[name]
+    plan = build_ace_plan(SimpleNamespace(b_basis="minsub", **spec))
+    N, K, nel = 12, 40, spec["numtypes"]
+    rng = np.random.default_rng(7)
+    d = rng.normal(size=(N, K, 3))
+    d *= rng.uniform(0.9, 5.0, (N, K, 1)) / np.linalg.norm(d, axis=-1,
+                                                          keepdims=True)
+    mask = rng.uniform(size=(N, K)) < 0.85
+    mask[-1] = False
+    args = (torch.as_tensor(d, device=cuda),
+            torch.as_tensor(rng.integers(0, nel, (N, K)), dtype=torch.int32,
+                            device=cuda),
+            torch.as_tensor(mask, device=cuda),
+            torch.as_tensor(rng.integers(0, nel, N), dtype=torch.int32,
+                            device=cuda))
+    ak.reset_launches()
+    A, Jp = ak.ace_pair_basis(*args, plan)
+    ref = ak.ace_pair_basis_plain(*args, plan)
+    out14 = ak.ace_b_dbdd(ref[0], ref[1], args[3], plan)
+    ref14 = ak.ace_b_dbdd_plain(ref[0], ref[1], args[3], plan)
+    torch.cuda.synchronize()
+    assert ak.launches() == {"ace_pair_basis": 1, "ace_b_dbdd": 1}
+    assert rel_err((A, Jp), ref) <= RTOL
+    assert rel_err(out14, ref14) <= RTOL
+    assert (A[:, 0] == 1).all() and (Jp[..., 0] == 0).all()
+    dead = ~args[2]
+    assert (Jp[:, dead] == 0).all() and torch.isfinite(Jp).all()

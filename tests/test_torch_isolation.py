@@ -6,8 +6,9 @@
   `device="cpu"` or `--device cpu` runs on the CPU.
 - Each kernel wrapper takes its plain version for CPU tensors (launching
   nothing) and raises for a device that is neither CPU nor CUDA.
-- `kernels/csrc/` holds one CUDA source for each of K1-K5, K7 and K8 (K8r
-  shares K8's), each naming the JAX function it replaces, built for sm_90a.
+- `kernels/csrc/` holds one CUDA source for each of K1-K5, K7, K8 (K8r
+  shares K8's), K13 and K14, each naming the JAX function it replaces,
+  built for sm_90a.
 - `FitSnap` fits on the CPU with every linear solver the port registers.
 - `chip_smoke.py` exits non-zero and prints no result without a card.
 """
@@ -51,7 +52,11 @@ def all_modules():
 
 def test_imports_neither_jax_nor_fitsnap_tpu():
     mods = all_modules()
-    assert "fitsnap_tpu_torch.kernels.snap_kernels" in mods
+    assert {"fitsnap_tpu_torch.kernels.snap_kernels",
+            "fitsnap_tpu_torch.kernels.ace_kernels",
+            "fitsnap_tpu_torch.ops.ace", "fitsnap_tpu_torch.ops.ace_ref_basis",
+            "fitsnap_tpu_torch.calculators.ace",
+            "fitsnap_tpu_torch.io.outputs.pace_output"} <= set(mods)
     proc = run_python(f"""
         import importlib, json, sys
         for name in {mods!r}:
@@ -255,6 +260,8 @@ def test_device_solvers_fit_on_cpu(tmp_path, solver):
     ("zbl_pair", "reference_eav"),
     ("device_neighbors", "parallel/fit.py `device_neighbors`"),
     ("normal_contrib", "config_normal_contrib"),
+    ("ace_pair_basis", "`ace_pair_phi`"),
+    ("ace_b_dbdd", "`ace_b_and_dbda`"),
 ])
 def test_cuda_source_per_kernel(source, replaces):
     path = build.CSRC / f"{source}.cu"

@@ -522,12 +522,19 @@ def test_float32_batch_is_refused(stream, packer):
 
 
 def test_ace_and_const_mode_raise():
-    with pytest.raises(NotImplementedError, match="queue 4"):
+    """A descriptor kernel other than `ace_kernel(plan)`, the ACE constant
+    columns without it, and the SNAP constant layout with it are refused
+    (ACE itself runs: tests/test_torch_ace.py)."""
+    with pytest.raises(TypeError, match="ace_kernel"):
         fit.build_step_fn(None, 1, FLAGS, device="cpu",
                           kernel=lambda *a: None)
-    with pytest.raises(NotImplementedError, match="queue 4"):
+    with pytest.raises(ValueError, match="ace_kernel"):
         fit.build_residual_fn(None, 1, FLAGS, device="cpu",
                               const_mode=("ace", 1))
+    plan = SimpleNamespace(labels=[None] * 5)
+    with pytest.raises(ValueError, match="does not go with an ACE kernel"):
+        fit.build_step_fn(None, 2, FLAGS, device="cpu",
+                          kernel=fit.ace_kernel(plan), const_mode="snap")
 
 
 # ---------------------------------------------------------------------------
