@@ -17,7 +17,9 @@ ACE_PLAN_FIELDS = ("numtypes", "nradbase", "nmax_per_l", "lmax", "rcut",
                    "t_fact", "t_coef", "t_label", "t_mu0", "rank_max", "mmat",
                    "radial", "ylm", "spline_delta")
 PLAN_FIELDS = ("i1", "i2", "i3", "mmat", "bzero", "self_idx", "y_src",
-               "y_fac", "z_dense", "bzeroflag", "twojmax")
+               "y_fac", "z_dense", "bzeroflag", "twojmax", "nelements",
+               "chemflag", "wselfallflag", "quadraticflag", "nb_base", "iq1",
+               "iq2", "qcoef")
 PARAM_FIELDS = ("radelem", "wj", "rcutfac", "rfac0", "rmin0", "switchflag",
                 "switchinnerflag", "sinner", "dinner", "wself")
 
@@ -27,9 +29,9 @@ def snap_params_from_numpy(d: dict, device="cpu") -> SnapParams:
 
     `d` holds PARAM_FIELDS (radelem, wj as arrays; sinner, dinner as arrays
     or None) and PLAN_FIELDS (i1, i2, i3, mmat, bzero, self_idx, y_src,
-    y_fac, the z_dense dict of grouped term tables, bzeroflag, twojmax).
-    Only the single-channel linear plan is taken: chemflag and
-    quadraticflag are not ported yet.
+    y_fac, the z_dense dict of grouped term tables, bzeroflag, twojmax, and
+    the chemflag / quadraticflag fields: nelements, chemflag, wselfallflag,
+    quadraticflag, nb_base, iq1, iq2, qcoef).
     """
     missing = [k for k in PLAN_FIELDS + PARAM_FIELDS if k not in d]
     if missing:

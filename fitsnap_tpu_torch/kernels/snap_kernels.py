@@ -2,15 +2,18 @@
 PyTorch versions beside them.
 
 | kernel | source | replaces (fitsnap_tpu) |
-| K1 pair_u_duals | csrc/pair_u_duals.cu | ops/snap.py _ck_prologue, _pair_wu_duals, _utot_from_wu |
-| K2 zlist | csrc/zlist.cu | ops/snap.py _compute_zcat_pair |
-| K3 dbdd | csrc/dbdd.cu | ops/snap.py _dbdu_ylist + the contractions at :956-971 |
+| K1 pair_u_duals (_chem) | csrc/pair_u_duals.cu | ops/snap.py _ck_prologue, _pair_wu_duals, _utot_from_wu |
+| K2 zlist (_chem) | csrc/zlist.cu | ops/snap.py _compute_zcat_pair (channel pairs :1005-1010) |
+| K3 dbdd (_chem) | csrc/dbdd.cu | ops/snap.py _dbdu_ylist, _chem_b_and_dbdu + the contractions at :956-982 |
+| K6q quad_chain | csrc/quad_chain.cu | ops/snap.py _quad_chain |
 | K4 pair_scatter_rows | csrc/pair_scatter.cu | calculators/snap.py:326-343, ops/refpot.py:295-302 |
 | K5 zbl_pair_grad | csrc/zbl_pair.cu | ops/refpot.py reference_eav (vjp), zbl_pair_energy |
 | K7 normal_contrib | csrc/normal_contrib.cu | parallel/fit.py config_normal_contrib (:288-364) |
 | K8 device_neighbors | csrc/device_neighbors.cu | parallel/fit.py device_neighbors |
 | K8r reverse_table | csrc/device_neighbors.cu | the index role of the one-hot (A, K, A) matmuls |
 
+K1-K3 each have a one-channel wrapper and a chemflag one (`_chem`, utot in
+element channels); the two share a source and count their launches apart.
 Each wrapper takes its plain version for tensors on the CPU, launches its
 kernel for tensors on a CUDA device, and raises for anything else.  Every
 launch adds one to the wrapper's `launches` count.
@@ -28,9 +31,11 @@ from fitsnap_tpu_torch.ops import snap as ops
 _P, _I, _LL, _D = kl.P, kl.I, kl.LL, kl.D
 kl.register("pair_u_duals", "pair_u_duals",
             [_P] * 5 + [_D] * 3 + [_I, _I, _LL, _I] + [_P] * 3 + [_I, _I]
-            + [_P] * 3 + [_I] + [_P] * 5)
-kl.register("zlist", "zlist", [_P, _LL, _I] + [_P] * 4 + [_I] + [_P] * 3)
-kl.register("dbdd", "dbdd", [_P] * 7 + [_LL] + [_I] * 4 + [_P] * 3)
+            + [_P] * 3 + [_I] * 3 + [_P] * 5)
+kl.register("zlist", "zlist", [_P, _LL, _I, _I] + [_P] * 4 + [_I] + [_P] * 3)
+kl.register("dbdd", "dbdd", [_P] * 10 + [_LL] + [_I] * 6 + [_P] * 3)
+kl.register("quad_chain", "quad_chain", [_P] * 5 + [_LL] + [_I] * 3
+            + [_P] * 3)
 kl.register("pair_scatter_rows", "pair_scatter",
             [_P] * 5 + [_I] * 6 + [_P] * 3)
 kl.register("zbl_pair_grad", "zbl_pair",
@@ -48,21 +53,34 @@ kl.register("normal_contrib", "normal_contrib",
 # ---------------------------------------------------------------------------
 
 
+def _channels(p, chem, name):
+    """Refuse a plan whose channel count is not the wrapper's mode."""
+    if (p.nchem > 1) != chem:
+        other = name[:-len("_chem")] if chem else name + "_chem"
+        raise ValueError(f"{name}: the plan has {p.nchem} utot channel(s); "
+                         f"use {other}")
+
+
 def pair_u_duals_plain(disp, jelem, mask, ielem, p):
-    """Plain K1: (wu (N, K, 2U), J (3, N, K, 2U), ut (N, 2U))."""
+    """Plain K1, both modes: (wu (N, K, 2U), J (3, N, K, 2U), ut (N,
+    nchem*2U))."""
     wu, J = ops._pair_wu_duals(disp, jelem, mask, ielem, p)
-    return wu, J, ops._utot_from_wu(wu, p)
+    return wu, J, ops._utot_from_wu(wu, jelem, ielem, p)
 
 
-def pair_u_duals(disp, jelem, mask, ielem, p):
-    """K1 on the card: disp (N, K, 3) f64, jelem (N, K) i32, mask (N, K)
-    bool, ielem (N,) i32.  Same outputs as `pair_u_duals_plain`."""
-    if _on_cpu(disp, jelem, mask, ielem):
-        return pair_u_duals_plain(disp, jelem, mask, ielem, p)
+_K1_THREADS = 640   # threads (U columns) of a block of csrc/pair_u_duals.cu
+_K1_CHEM = 4        # utot channels it is compiled for
+
+
+def _pair_u_duals_launch(disp, jelem, mask, ielem, p):
     N, K = mask.shape
     two_u = 2 * p.u_len
-    if two_u > 1024:
-        raise ValueError(f"pair_u_duals: 2U = {two_u} exceeds one block")
+    if two_u > _K1_THREADS:
+        raise ValueError(f"pair_u_duals: 2U = {two_u} exceeds the "
+                         f"{_K1_THREADS} columns of a block (twojmax <= 8)")
+    if p.nchem > _K1_CHEM:
+        raise ValueError(f"pair_u_duals_chem: {p.nchem} element channels; "
+                         f"the kernel takes at most {_K1_CHEM}")
     _check(disp, "disp", torch.float64, (N, K, 3))
     _check(jelem, "jelem", torch.int32, (N, K))
     _check(mask, "mask", torch.bool, (N, K))
@@ -70,20 +88,44 @@ def pair_u_duals(disp, jelem, mask, ielem, p):
     dev = disp.device
     wu = torch.empty((N, K, two_u), dtype=torch.float64, device=dev)
     J = torch.empty((3, N, K, two_u), dtype=torch.float64, device=dev)
-    ut = torch.empty((N, two_u), dtype=torch.float64, device=dev)
+    ut = torch.empty((N, p.nchem * two_u), dtype=torch.float64, device=dev)
     _launch("pair_u_duals", dev,
             _ptr(disp), _ptr(jelem), _ptr(mask), _ptr(ielem), _ptr(p.elem),
             p.rcutfac, p.rfac0, p.rmin0, int(p.switchflag),
             int(p.switchinnerflag), N, K, _ptr(p.mono_parent),
             _ptr(p.mono_var), _ptr(p.mono_levels_t),
             len(p.mono_levels) - 1, p.mono_parent.shape[0],
-            _ptr(p.l_ptr), _ptr(p.l_row), _ptr(p.l_val), two_u,
-            _ptr(p.selfvec), _ptr(wu), _ptr(J), _ptr(ut))
-    pair_u_duals.launches += 1
+            _ptr(p.l_ptr), _ptr(p.l_row), _ptr(p.l_val), two_u, p.nchem,
+            int(p.wselfallflag), _ptr(p.selfvec), _ptr(wu), _ptr(J), _ptr(ut))
     return wu, J, ut
 
 
+def pair_u_duals(disp, jelem, mask, ielem, p):
+    """K1 on the card, one channel: disp (N, K, 3) f64, jelem (N, K) i32,
+    mask (N, K) bool, ielem (N,) i32.  Same outputs as
+    `pair_u_duals_plain`."""
+    if _on_cpu(disp, jelem, mask, ielem):
+        return pair_u_duals_plain(disp, jelem, mask, ielem, p)
+    _channels(p, False, "pair_u_duals")
+    out = _pair_u_duals_launch(disp, jelem, mask, ielem, p)
+    pair_u_duals.launches += 1
+    return out
+
+
+def pair_u_duals_chem(disp, jelem, mask, ielem, p):
+    """K1 on the card, chemflag mode: each neighbor summed into the utot
+    channel of its element; ut (N, nchem*2U).  Arguments as
+    `pair_u_duals`."""
+    if _on_cpu(disp, jelem, mask, ielem):
+        return pair_u_duals_plain(disp, jelem, mask, ielem, p)
+    _channels(p, True, "pair_u_duals_chem")
+    out = _pair_u_duals_launch(disp, jelem, mask, ielem, p)
+    pair_u_duals_chem.launches += 1
+    return out
+
+
 pair_u_duals.launches = 0
+pair_u_duals_chem.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -96,27 +138,69 @@ def zlist_plain(ut, p):
     return ops._compute_zcat(ut, p)
 
 
+def zlist_chem_plain(ut, p):
+    """Plain K2, chemflag mode: (z_r, z_i), each (N, nchem^2, nz), pair
+    ea*nchem + eb the z-list of channel ea with channel eb."""
+    return ops._compute_zcat_chem(ut, p)
+
+
+def _zlist_launch(ut, p):
+    N, nc = ut.shape[0], p.nchem
+    _check(ut, "ut", torch.float64, (N, nc * 2 * p.u_len))
+    zr = torch.empty((N, nc * nc, p.nz), dtype=torch.float64,
+                     device=ut.device)
+    zi = torch.empty_like(zr)
+    _launch("zlist", ut.device, _ptr(ut), N, 2 * p.u_len, nc, _ptr(p.z_ptr),
+            _ptr(p.z_i1), _ptr(p.z_i2), _ptr(p.z_c), p.nz, _ptr(zr),
+            _ptr(zi))
+    return zr, zi
+
+
 def zlist(ut, p):
     """K2 on the card: ut (N, 2U) f64 -> (z_r, z_i) (N, nz)."""
     if _on_cpu(ut):
         return zlist_plain(ut, p)
-    N = ut.shape[0]
-    _check(ut, "ut", torch.float64, (N, 2 * p.u_len))
-    zr = torch.empty((N, p.nz), dtype=torch.float64, device=ut.device)
-    zi = torch.empty_like(zr)
-    _launch("zlist", ut.device, _ptr(ut), N, 2 * p.u_len, _ptr(p.z_ptr),
-            _ptr(p.z_i1), _ptr(p.z_i2), _ptr(p.z_c), p.nz, _ptr(zr),
-            _ptr(zi))
+    _channels(p, False, "zlist")
+    zr, zi = _zlist_launch(ut, p)
     zlist.launches += 1
-    return zr, zi
+    return zr[:, 0], zi[:, 0]
+
+
+def zlist_chem(ut, p):
+    """K2 on the card, chemflag mode: ut (N, nchem*2U) f64 -> (z_r, z_i)
+    (N, nchem^2, nz), every ordered channel pair in one launch."""
+    if _on_cpu(ut):
+        return zlist_chem_plain(ut, p)
+    _channels(p, True, "zlist_chem")
+    out = _zlist_launch(ut, p)
+    zlist_chem.launches += 1
+    return out
 
 
 zlist.launches = 0
+zlist_chem.launches = 0
 
 
 # ---------------------------------------------------------------------------
 # K3: dB/dutot, B and the pair jacobian dB/dD
 # ---------------------------------------------------------------------------
+
+_K3_KT = 8   # neighbors per J tile of csrc/dbdd.cu
+
+
+def dbdd_tiles(p):
+    """(rows of W per block, blocks per atom) of csrc/dbdd.cu: the y rows
+    (nchem x 2U doubles each) beside a J tile (3 x 8 rows of 2U + 1
+    doubles) in one block's shared memory, W split into the fewest tiles,
+    balanced."""
+    two_u = 2 * p.u_len
+    jtile = 8 * 3 * _K3_KT * (two_u + 1)
+    fit = (_SMEM_LIMIT - jtile) // (8 * p.nchem * two_u)
+    if fit < 1:
+        raise ValueError(f"dbdd: one y row ({p.nchem} x {two_u} doubles) "
+                         f"and a J tile exceed one block's shared memory")
+    ntiles = -(-p.nb_base // fit)
+    return -(-p.nb_base // ntiles), ntiles
 
 
 def dbdd_plain(ut, z_r, z_i, J, p):
@@ -127,31 +211,98 @@ def dbdd_plain(ut, z_r, z_i, J, p):
     return B, torch.einsum("awu,caku->awkc", dBdu, J)
 
 
-def dbdd(ut, z_r, z_i, J, p):
-    """K3 on the card: ut (N, 2U), z_r, z_i (N, nz), J (3, N, K, 2U)."""
-    if _on_cpu(ut, z_r, z_i, J):
-        return dbdd_plain(ut, z_r, z_i, J, p)
+def dbdd_chem_plain(ut, z_r, z_i, J, jelem, p):
+    """Plain K3, chemflag mode: (B (N, W), dBdD (N, W, K, 3)) with
+    dBdD[a, w, k] = dB/dutot[a, w, jelem[a, k]] . J[:, a, k], one channel's
+    pairs at a time (the JAX form's one-hot einsum, without its
+    (N, W, K, 2U) intermediate)."""
+    B, dBdu = ops._chem_b_and_dbdu(ut, p, (z_r, z_i))
+    dBdD = sum(torch.einsum("awu,caku->awkc", dBdu[:, :, n],
+                            J * (jelem == n).to(J.dtype)[None, :, :, None])
+               for n in range(p.nchem))
+    return B, dBdD
+
+
+def _dbdd_launch(ut, z_r, z_i, J, jelem, p):
     N, K = J.shape[1], J.shape[2]
-    U, W = p.u_len, p.ntriples
-    _check(ut, "ut", torch.float64, (N, 2 * U))
-    _check(z_r, "z_r", torch.float64, (N, p.nz))
-    _check(z_i, "z_i", torch.float64, (N, p.nz))
+    U, W, nc = p.u_len, p.nb_base, p.nchem
+    _check(ut, "ut", torch.float64, (N, nc * 2 * U))
+    zshape = (N, nc * nc, p.nz) if nc > 1 else (N, p.nz)
+    _check(z_r, "z_r", torch.float64, zshape)
+    _check(z_i, "z_i", torch.float64, zshape)
     _check(J, "J", torch.float64, (3, N, K, 2 * U))
-    smem = 8 * (W + 24) * 2 * U
-    if smem > 232448:
-        raise ValueError(f"dbdd: {smem} bytes of shared memory per block")
+    if jelem is not None:
+        _check(jelem, "jelem", torch.int32, (N, K))
+    wt, _ = dbdd_tiles(p)
     dev = ut.device
     bzero = p.bzero if p.bzeroflag else torch.zeros_like(p.bzero)
     B = torch.empty((N, W), dtype=torch.float64, device=dev)
     dBdD = torch.empty((N, W, K, 3), dtype=torch.float64, device=dev)
     _launch("dbdd", dev, _ptr(ut), _ptr(z_r), _ptr(z_i), _ptr(J),
-            _ptr(p.y_src), _ptr(p.y_fac), _ptr(bzero), N, K, W, U, p.nz,
-            _ptr(B), _ptr(dBdD))
-    dbdd.launches += 1
+            _ptr(jelem) if jelem is not None else None, _ptr(p.y_src),
+            _ptr(p.y_fac), _ptr(p.blk_chan), _ptr(p.blk_pair), _ptr(bzero),
+            N, K, p.ntriples, U, p.nz, nc, wt, _ptr(B), _ptr(dBdD))
     return B, dBdD
 
 
+def dbdd(ut, z_r, z_i, J, p):
+    """K3 on the card: ut (N, 2U), z_r, z_i (N, nz), J (3, N, K, 2U)."""
+    if _on_cpu(ut, z_r, z_i, J):
+        return dbdd_plain(ut, z_r, z_i, J, p)
+    _channels(p, False, "dbdd")
+    out = _dbdd_launch(ut, z_r, z_i, J, None, p)
+    dbdd.launches += 1
+    return out
+
+
+def dbdd_chem(ut, z_r, z_i, J, jelem, p):
+    """K3 on the card, chemflag mode: ut (N, nchem*2U), z_r, z_i (N,
+    nchem^2, nz), J (3, N, K, 2U), jelem (N, K) int32 (the neighbors'
+    elements, their utot channels)."""
+    if _on_cpu(ut, z_r, z_i, J, jelem):
+        return dbdd_chem_plain(ut, z_r, z_i, J, jelem, p)
+    _channels(p, True, "dbdd_chem")
+    out = _dbdd_launch(ut, z_r, z_i, J, jelem, p)
+    dbdd_chem.launches += 1
+    return out
+
+
 dbdd.launches = 0
+dbdd_chem.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6q: the quadratic columns by the product rule
+# ---------------------------------------------------------------------------
+
+
+def quad_chain_plain(B, dBdD, p):
+    """Plain K6q: (B_ext (N, W + nq), dBdD_ext (N, W + nq, K, 3))."""
+    return ops._quad_chain(B, dBdD, p)
+
+
+def quad_chain(B, dBdD, p):
+    """K6q on the card: B (N, W), dBdD (N, W, K, 3) f64, W = nb_base."""
+    if _on_cpu(B, dBdD):
+        return quad_chain_plain(B, dBdD, p)
+    N, W, K = dBdD.shape[:3]
+    if not p.quadraticflag or W != p.nb_base:
+        raise ValueError(f"quad_chain: width {W} is not the plan's base "
+                         f"width {p.nb_base} with quadraticflag")
+    _check(B, "B", torch.float64, (N, W))
+    _check(dBdD, "dBdD", torch.float64, (N, W, K, 3))
+    nq = p.iq1.shape[0]
+    dev = B.device
+    Bx = torch.empty((N, W + nq), dtype=torch.float64, device=dev)
+    dBx = torch.empty((N, W + nq, K, 3), dtype=torch.float64, device=dev)
+    _launch("quad_chain", dev, _ptr(B), _ptr(dBdD), _ptr(p.iq1),
+            _ptr(p.iq2), _ptr(p.qcoef), N, W, nq, K * 3, _ptr(Bx),
+            _ptr(dBx))
+    quad_chain.launches += 1
+    return Bx, dBx
+
+
+quad_chain.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -545,7 +696,10 @@ def normal_contrib(rows, truths, weights, natoms, types, numtypes,
         _check(coeff, "coeff", torch.float64, (W,))
     if 8 * (_NC_TILE * W + 2 * _NC_TILE + T) > _SMEM_LIMIT:
         raise ValueError(f"normal_contrib: width {W} exceeds one block's "
-                         f"shared memory")
+                         f"shared memory (a tile of {_NC_TILE} rows); the "
+                         f"kernel does not tile AᵀA yet, so the streamed fit "
+                         f"of wider models (quadratic SNAP at twojmax 8, "
+                         f"chemflag InP) runs through FitSnap only")
     dev = types.device
     ntiles = -(-(7 + 3 * A) // _NC_TILE)
     partial = torch.empty((C * ntiles, W * W + W), dtype=torch.float64,
@@ -567,7 +721,8 @@ def normal_contrib(rows, truths, weights, natoms, types, numtypes,
 normal_contrib.launches = 0
 
 KERNELS = (pair_u_duals, zlist, dbdd, pair_scatter_rows, zbl_pair_grad,
-           normal_contrib, device_neighbors, reverse_table)
+           normal_contrib, device_neighbors, reverse_table, pair_u_duals_chem,
+           zlist_chem, dbdd_chem, quad_chain)
 
 
 def reset_launches():

@@ -1,18 +1,18 @@
 """SNAP bispectrum descriptors and their pair jacobian, in plain PyTorch.
 
-Counterpart of `fitsnap_tpu/ops/snap.py` for the single-channel linear path.
-A config is a padded (A, K) block of atoms x neighbors; complex values are
-carried as (real, imag) pairs with the same flat layouts as the JAX package,
-so every intermediate can be compared with its JAX twin element by element.
+Counterpart of `fitsnap_tpu/ops/snap.py` for the linear path: one element
+channel or explicit multi-element channels (chemflag), with or without the
+quadratic extension (quadraticflag).  A config is a padded (A, K) block of
+atoms x neighbors; complex values are carried as (real, imag) pairs with the
+same flat layouts as the JAX package, so every intermediate can be compared
+with its JAX twin element by element.
 
 The functions here are the plain versions: they run on any device and are
-what the CPU takes.  `descriptors_with_jacobian` composes the four kernels
-of `fitsnap_tpu_torch.kernels.snap_kernels` (K1 pair U duals, K2 z-lists,
-K3 dB/dD); their wrappers launch the hand-written CUDA kernels for CUDA
-tensors and fall to these plain versions only for CPU tensors.
-
-chemflag and quadraticflag are not ported yet (ROADMAP.md, queue 1,
-"quadratic/chemflag").
+what the CPU takes.  `descriptors_with_jacobian` composes the kernels of
+`fitsnap_tpu_torch.kernels.snap_kernels` (K1 pair U duals, K2 z-lists, K3
+dB/dD, each with a chemflag mode, and K6q the quadratic product rule);
+their wrappers launch the hand-written CUDA kernels for CUDA tensors and
+fall to these plain versions only for CPU tensors.
 """
 
 import math
@@ -24,9 +24,6 @@ import torch
 
 from fitsnap_tpu_torch.ops.cg import build_snap_plan, rootpq_tables, sym_signs
 from fitsnap_tpu_torch.ops.mono import mono_plan
-
-_NOT_PORTED = ("{} is not ported to fitsnap_tpu_torch yet "
-               "(ROADMAP.md, queue 1: quadratic/chemflag)")
 
 
 @dataclass
@@ -52,17 +49,27 @@ class SnapParams:
     sinner: Optional[torch.Tensor]   # (nelem,) f64 or None
     dinner: Optional[torch.Tensor]
     elem: torch.Tensor               # (nelem, 4): radelem, wj, sinner, dinner
+    # element channels (chemflag) and the quadratic extension
+    nchem: int                       # channels of utot: nelements or 1
+    wselfallflag: bool               # self term in every channel
+    nb_base: int                     # columns before the quadratic ones
+    quadraticflag: bool
+    iq1: torch.Tensor                # (nq,) int32: first factor of each product
+    iq2: torch.Tensor                # (nq,) int32: second factor
+    qcoef: torch.Tensor              # (nq,) f64: 0.5 on the diagonal, else 1
+    blk_chan: torch.Tensor           # (nchem^3, 3) int32: channel of each y-layer
+    blk_pair: torch.Tensor           # (nchem^3, 3) int32: z channel pair it reads
     # trilinear B plan (recursion oracle)
     i1: torch.Tensor
     i2: torch.Tensor
     i3: torch.Tensor
     mmat: torch.Tensor               # (nterms_base, ntriples)
-    bzero: torch.Tensor              # (ntriples,)
+    bzero: torch.Tensor              # (nb_base,)
     self_idx: torch.Tensor           # (ndiag,) long: real diagonal of U
     selfvec: torch.Tensor            # (2U,) f64: wself on the real diagonal
     # y-list plan: dB/dutot gathered from the z-lists
-    y_src: torch.Tensor              # (3, W, U) int32 into the flat z layout
-    y_fac: torch.Tensor              # (3, W, U) f64
+    y_src: torch.Tensor              # (3, ntriples, U) int32 into the flat z layout
+    y_fac: torch.Tensor              # (3, ntriples, U) f64
     # z-list as a compact term list, CSR over the flat z output index
     nz: int
     z_ptr: torch.Tensor              # (nz+1,) int32
@@ -121,7 +128,9 @@ def params_from_arrays(d: dict, device) -> SnapParams:
 
     Keys: twojmax, rcutfac, rfac0, rmin0, switchflag, switchinnerflag,
     bzeroflag, wself, radelem, wj, sinner, dinner (or None), and the plan
-    arrays i1, i2, i3, mmat, bzero, self_idx, y_src, y_fac, z_dense.
+    fields i1, i2, i3, mmat, bzero, self_idx, y_src, y_fac, z_dense,
+    nelements, chemflag, wselfallflag, quadraticflag, nb_base, iq1, iq2,
+    qcoef.
     """
     device = torch.device(device)
     f64, i32 = torch.float64, torch.int32
@@ -144,6 +153,14 @@ def params_from_arrays(d: dict, device) -> SnapParams:
     selfvec[self_idx] = float(d["wself"])
     sw_in = bool(d["switchinnerflag"])
     nelem = len(np.atleast_1d(d["radelem"]))
+    nchem = int(d["nelements"]) if d["chemflag"] else 1
+    # block (e1, e2, e3) of the chemflag columns: y-layer 0 reads z^(e1,e2)
+    # into channel e3, layer 1 z^(e3,e2) into e1, layer 2 z^(e3,e1) into e2
+    blocks = [(e1, e2, e3) for e1 in range(nchem) for e2 in range(nchem)
+              for e3 in range(nchem)]
+    blk_chan = [(e3, e1, e2) for e1, e2, e3 in blocks]
+    blk_pair = [(e1 * nchem + e2, e3 * nchem + e2, e3 * nchem + e1)
+                for e1, e2, e3 in blocks]
     inner = [d["sinner"], d["dinner"]] if sw_in else [np.zeros(nelem)] * 2
     elem = np.stack([np.atleast_1d(np.asarray(x, np.float64))
                      for x in [d["radelem"], d["wj"]] + inner], 1)
@@ -153,6 +170,11 @@ def params_from_arrays(d: dict, device) -> SnapParams:
         rmin0=float(d["rmin0"]), switchflag=bool(d["switchflag"]),
         switchinnerflag=sw_in, bzeroflag=bool(d["bzeroflag"]),
         wself=float(d["wself"]), device=device,
+        nchem=nchem, wselfallflag=bool(d["wselfallflag"]),
+        nb_base=int(d["nb_base"]), quadraticflag=bool(d["quadraticflag"]),
+        iq1=t(d["iq1"], i32), iq2=t(d["iq2"], i32),
+        qcoef=t(d["qcoef"]), blk_chan=t(blk_chan, i32),
+        blk_pair=t(blk_pair, i32),
         radelem=t(d["radelem"]), wj=t(d["wj"]),
         sinner=t(d["sinner"]) if sw_in else None,
         dinner=t(d["dinner"]) if sw_in else None, elem=t(elem),
@@ -170,19 +192,18 @@ def params_from_arrays(d: dict, device) -> SnapParams:
 
 def make_params(section, device) -> SnapParams:
     """Build SnapParams from a BISPECTRUM config section on `device`."""
-    if section.chemflag:
-        raise NotImplementedError(_NOT_PORTED.format("chemflag"))
-    if section.quadraticflag:
-        raise NotImplementedError(_NOT_PORTED.format("quadraticflag"))
     twojmax = int(max(int(t) for t in section.twojmax))
     plan = build_snap_plan(
-        twojmax=twojmax, nelements=section.numtypes, chemflag=False,
-        bnormflag=bool(section.bnormflag), bzeroflag=bool(section.bzeroflag),
-        wselfallflag=bool(section.wselfallflag), quadraticflag=False)
+        twojmax=twojmax, nelements=section.numtypes,
+        chemflag=bool(section.chemflag), bnormflag=bool(section.bnormflag),
+        bzeroflag=bool(section.bzeroflag),
+        wselfallflag=bool(section.wselfallflag),
+        quadraticflag=bool(section.quadraticflag))
     sw_in = bool(section.switchinnerflag)
     d = {name: getattr(plan, name) for name in (
         "i1", "i2", "i3", "mmat", "bzero", "self_idx", "y_src", "y_fac",
-        "z_dense", "bzeroflag")}
+        "z_dense", "bzeroflag", "nelements", "chemflag", "wselfallflag",
+        "quadraticflag", "nb_base", "iq1", "iq2", "qcoef")}
     d.update(
         twojmax=twojmax, rcutfac=float(section.rcutfac),
         rfac0=float(section.rfac0), rmin0=float(section.rmin0),
@@ -293,33 +314,64 @@ def flatten_ulist(u):
     return ur, ui
 
 
+def _channel_self(ielem, p: SnapParams, dtype):
+    """Self term of every atom over the element channels: (A, nchem, 2U).
+
+    wself on the real diagonal of U, in every channel under wselfallflag
+    and in the atom's own channel otherwise (JAX `ops/snap.py:779-787`)."""
+    if p.nchem == 1 or p.wselfallflag:
+        on = torch.ones((ielem.shape[0], p.nchem), dtype=dtype,
+                        device=ielem.device)
+    else:
+        on = torch.nn.functional.one_hot(ielem.long(), p.nchem).to(dtype)
+    return on[:, :, None] * p.selfvec[None, None, :]
+
+
 def compute_utot(disp, jelem, mask, ielem, p: SnapParams):
-    """Neighbor-summed U expansion by the recursion: (utot_r, utot_i) (A, U)."""
+    """Neighbor-summed U expansion by the recursion: (utot_r, utot_i), each
+    (A, nchem*U) with channel-major columns."""
     ar, ai, br, bi, w = _ck_prologue(disp, jelem, mask, ielem, p)
     ur, ui = flatten_ulist(compute_ulist(ar, ai, br, bi, p.twojmax))
-    utr = torch.einsum("ak,aku->au", w, ur) + p.selfvec[None, :p.u_len]
-    uti = torch.einsum("ak,aku->au", w, ui)
-    return utr, uti
+    A, U = ur.shape[0], p.u_len
+    if p.nchem == 1:
+        chan = w[..., None]
+    else:
+        chan = torch.nn.functional.one_hot(jelem.long(), p.nchem).to(
+            w.dtype) * w[..., None]
+    self_term = _channel_self(ielem, p, w.dtype)[..., :U]
+    utr = torch.einsum("akc,aku->acu", chan, ur) + self_term
+    uti = torch.einsum("akc,aku->acu", chan, ui)
+    return utr.reshape(A, -1), uti.reshape(A, -1)
 
 
 def bispectrum_from_utot(utr, uti, p: SnapParams):
-    """Trilinear CG contraction: utot -> per-atom bispectrum B (A, W)."""
+    """Trilinear CG contraction: utot (A, nchem*U) -> per-atom bispectrum B
+    (A, nb_base), before the quadratic extension."""
     a_r, a_i = utr[:, p.i1], uti[:, p.i1]
     b_r, b_i = utr[:, p.i2], uti[:, p.i2]
     c_r, c_i = utr[:, p.i3], uti[:, p.i3]
     ab_r = a_r * b_r - a_i * b_i
     ab_i = a_r * b_i + a_i * b_r
     re = ab_r * c_r + ab_i * c_i               # Re[(u1*u2) * conj(u3)]
-    B = re @ p.mmat
+    A = re.shape[0]
+    B = (re.reshape(A, p.nchem ** 3, -1) @ p.mmat).reshape(A, p.nb_base)
     if p.bzeroflag:
         B = B - p.bzero[None, :]
     return B
 
 
+def _quad_extend(B, p: SnapParams):
+    """B with its quadratic columns qcoef * B[iq1] * B[iq2] appended."""
+    if not p.quadraticflag:
+        return B
+    return torch.cat([B, B[:, p.iq1] * B[:, p.iq2] * p.qcoef], 1)
+
+
 def atom_descriptors(disp, jelem, mask, ielem, p: SnapParams):
-    """Per-atom SNAP descriptors by the recursion (the independent oracle)."""
+    """Per-atom SNAP descriptors by the recursion (the independent oracle),
+    with the quadratic extension: (A, ncoeff)."""
     utr, uti = compute_utot(disp, jelem, mask, ielem, p)
-    return bispectrum_from_utot(utr, uti, p)
+    return _quad_extend(bispectrum_from_utot(utr, uti, p), p)
 
 
 # ---------------------------------------------------------------------------
@@ -370,9 +422,15 @@ def _pair_wu_duals(disp, jelem, mask, ielem, p: SnapParams):
     return wu, J
 
 
-def _utot_from_wu(wu, p: SnapParams):
-    """Sum pair contributions and the self term into (A, 2U)."""
-    return wu.sum(dim=1) + p.selfvec[None, :]
+def _utot_from_wu(wu, jelem, ielem, p: SnapParams):
+    """Sum pair contributions and the self term into (A, nchem*2U), channel
+    major (chem, real|imag U): under chemflag each neighbor goes into the
+    channel of its element."""
+    if p.nchem == 1:
+        return wu.sum(dim=1) + p.selfvec[None, :]
+    oh = torch.nn.functional.one_hot(jelem.long(), p.nchem).to(wu.dtype)
+    ut = torch.einsum("akc,aku->acu", oh, wu)
+    return (ut + _channel_self(ielem, p, wu.dtype)).reshape(wu.shape[0], -1)
 
 
 def _compute_zcat_pair(u1r, u1i, u2r, u2i, p: SnapParams):
@@ -415,20 +473,110 @@ def _bispectrum_from_zcat(ut, zcat, p: SnapParams):
     return B
 
 
+def _compute_zcat_chem(ut, p: SnapParams):
+    """z-lists of every ordered channel pair of utot (A, nchem*2U):
+    (z_r, z_i), each (A, nchem^2, nz); pair ea*nchem + eb is the z-list of
+    u_ea with u_eb."""
+    A, U, nc = ut.shape[0], p.u_len, p.nchem
+    uc = ut.reshape(A, nc, 2, U)
+    pairs = [_compute_zcat_pair(uc[:, ea, 0], uc[:, ea, 1], uc[:, eb, 0],
+                                uc[:, eb, 1], p)
+             for ea in range(nc) for eb in range(nc)]
+    return (torch.stack([z[0] for z in pairs], 1),
+            torch.stack([z[1] for z in pairs], 1))
+
+
+def _chem_b_and_dbdu(ut, p: SnapParams, zcat=None):
+    """chemflag (explicit multi-element) descriptors and the analytic
+    dB/dutot from the channel-paired z-lists.
+
+    ut (A, nchem*2U).  Returns (B (A, nb_base), dBdu (A, nb_base, nchem,
+    2U)).  Columns are blocks (e1, e2, e3) in loop order, each with the
+    ntriples base triples; block (e1, e2, e3) reads z^(e1,e2) into channel
+    e3, z^(e3,e2) into e1 and z^(e3,e1) into e2, and its B is u_e3 against
+    the fac-0 layer of z^(e1,e2).
+    """
+    A, U, nc = ut.shape[0], p.u_len, p.nchem
+    uc = ut.reshape(A, nc, 2, U)
+    z_r, z_i = zcat if zcat is not None else _compute_zcat_chem(ut, p)
+    s0, s1, s2 = p.y_src
+    f0, f1, f2 = p.y_fac
+    zeros = ut.new_zeros((A, p.ntriples, U))
+    blocks_y, blocks_b = [], []
+    for e1 in range(nc):
+        for e2 in range(nc):
+            for e3 in range(nc):
+                z0r, z0i = z_r[:, e1 * nc + e2], z_i[:, e1 * nc + e2]
+                z1r, z1i = z_r[:, e3 * nc + e2], z_i[:, e3 * nc + e2]
+                z2r, z2i = z_r[:, e3 * nc + e1], z_i[:, e3 * nc + e1]
+                chans = []
+                for c in range(nc):
+                    yr, yi = zeros, zeros
+                    if c == e3:
+                        yr = yr + f0 * z0r[:, s0]
+                        yi = yi + f0 * z0i[:, s0]
+                    if c == e1:
+                        yr = yr + f1 * z1r[:, s1]
+                        yi = yi + f1 * z1i[:, s1]
+                    if c == e2:
+                        yr = yr + f2 * z2r[:, s2]
+                        yi = yi + f2 * z2i[:, s2]
+                    chans.append(torch.cat([yr, yi], -1))
+                blocks_y.append(torch.stack(chans, 2))
+                blocks_b.append(
+                    torch.einsum("au,atu->at", uc[:, e3, 0], f0 * z0r[:, s0])
+                    + torch.einsum("au,atu->at", uc[:, e3, 1],
+                                   f0 * z0i[:, s0]))
+    B = torch.cat(blocks_b, 1)
+    if p.bzeroflag:
+        B = B - p.bzero[None, :]
+    return B, torch.cat(blocks_y, 1)
+
+
+def _quad_chain(B, dBdx, p: SnapParams):
+    """Quadratic extension of descriptors and their jacobian by the
+    product rule: B (A, W), dBdx (A, W, ...) with any trailing axes.
+    Returns (B_ext (A, W + nq), dBdx_ext (A, W + nq, ...)), base columns
+    first; column W + q is qcoef * B[iq1] * B[iq2]."""
+    qc = p.qcoef
+    tail = (None,) * (dBdx.ndim - 2)
+    q = B[:, p.iq1] * B[:, p.iq2] * qc
+    b1 = B[(slice(None), p.iq1) + tail]
+    b2 = B[(slice(None), p.iq2) + tail]
+    dq = qc[(None, slice(None)) + tail] * (b1 * dBdx[:, p.iq2]
+                                           + b2 * dBdx[:, p.iq1])
+    return torch.cat([B, q], 1), torch.cat([dBdx, dq], 1)
+
+
 def descriptors_with_jacobian(disp, jelem, mask, ielem, p: SnapParams,
                               plain=False):
     """Per-atom descriptors and their per-pair gradients.
 
-    Returns B (A, W) and dBdD (A, W, K, 3) = d B[a] / d disp[a, k, c].
-    The three steps are the kernels K1-K3; `plain=True` runs their plain
-    versions on any device (the reference the kernels are checked against).
+    Returns B (A, W) and dBdD (A, W, K, 3) = d B[a] / d disp[a, k, c], W the
+    descriptor width (nb_base, plus the quadratic columns).  The steps are
+    the kernels K1-K3 (their chemflag modes under chemflag), then K6q for
+    the quadratic columns: the pair tangents are contracted at the base
+    width first, so the (A, W, 2U) quadratic dB/dutot never exists.
+    `plain=True` runs the plain versions on any device (the reference the
+    kernels are checked against).
     """
     from fitsnap_tpu_torch.kernels import snap_kernels as sk
 
-    if plain:
-        wu, J, ut = sk.pair_u_duals_plain(disp, jelem, mask, ielem, p)
-        z_r, z_i = sk.zlist_plain(ut, p)
-        return sk.dbdd_plain(ut, z_r, z_i, J, p)
-    wu, J, ut = sk.pair_u_duals(disp, jelem, mask, ielem, p)
-    z_r, z_i = sk.zlist(ut, p)
-    return sk.dbdd(ut, z_r, z_i, J, p)
+    if p.nchem == 1:
+        k1, k2, k3, k6 = ((sk.pair_u_duals_plain, sk.zlist_plain,
+                           sk.dbdd_plain, sk.quad_chain_plain) if plain else
+                          (sk.pair_u_duals, sk.zlist, sk.dbdd, sk.quad_chain))
+        wu, J, ut = k1(disp, jelem, mask, ielem, p)
+        z_r, z_i = k2(ut, p)
+        B, dBdD = k3(ut, z_r, z_i, J, p)
+    else:
+        k1, k2, k3, k6 = ((sk.pair_u_duals_plain, sk.zlist_chem_plain,
+                           sk.dbdd_chem_plain, sk.quad_chain_plain) if plain
+                          else (sk.pair_u_duals_chem, sk.zlist_chem,
+                                sk.dbdd_chem, sk.quad_chain))
+        wu, J, ut = k1(disp, jelem, mask, ielem, p)
+        z_r, z_i = k2(ut, p)
+        B, dBdD = k3(ut, z_r, z_i, J, jelem, p)
+    if p.quadraticflag:
+        B, dBdD = k6(B, dBdD, p)
+    return B, dBdD

@@ -1,4 +1,4 @@
-"""Synthetic Ta-shaped training sets in FitSNAP JSON, made from a seed.
+"""Synthetic training sets in FitSNAP JSON, made from a seed.
 
 The Ta_Linear_JCP2014 training set (363 configs, 15,213 rows) is not in
 the repository, so the port's end-to-end checks fit a stand-in with the same
@@ -6,7 +6,17 @@ shapes: bcc / fcc / A15 volume scans and strained cells of 2-8 atoms (cells
 of 3.3 A edge, so an atom meets its own periodic images within the 4.8 A
 cutoff), jittered supercells of 32-128 atoms, and liquid-like 100-atom
 cells with a 2.0 A minimum distance, in groups named and weighted as the Ta
-example's, some with test fractions.
+example's, some with test fractions.  `ta_settings` holds the
+Ta_Linear_JCP2014 sections, `quadratic_settings` the same with twojmax 8
+and quadraticflag (the Ta_Quadratic_JCP2018 model's width, 1,596
+coefficients), `ace_settings` a Ta_PACE-shaped [ACE] section.
+
+The InP_JPCA2020 set is not in the repository either: `inp_configs` makes
+zincblende In/P cells (8-atom volume and strain scans, displaced 64- and
+216-atom supercells, 64-atom cells with antisite defects, so the mix of
+elements varies), and `inp_settings` the example's explicit multi-element
+model (chemflag, two elements, wselfallflag, bnormflag, bzeroflag 1,
+per-element ESHIFT, ZBL 4.0-4.2 for Z = 49 / 15).
 
 `write_dataset` writes zero truths; callers that fit it first compute their
 truths (for example A @ beta_true + the reference potential) and rewrite
@@ -25,6 +35,8 @@ A15 = np.array([[0.0, 0.0, 0.0], [0.5, 0.5, 0.5], [0.25, 0.0, 0.5],
                 [0.75, 0.0, 0.5], [0.5, 0.25, 0.0], [0.5, 0.75, 0.0],
                 [0.0, 0.5, 0.25], [0.0, 0.5, 0.75]])
 LATTICE = {"BCC": (BCC, 3.32), "FCC": (FCC, 4.22), "A15": (A15, 5.27)}
+ZINCBLENDE = np.concatenate([FCC, FCC + 0.25])   # 4 In sites, then 4 P
+INP_A = 5.87
 
 # group: (training fraction, testing fraction, eweight, fweight, vweight)
 TA_GROUPS = {
@@ -38,6 +50,13 @@ TA_GROUPS = {
     "Displaced_A15": (1.0, 0.0, 100.0, 1.0, 1e-8),
     "Compressed_BCC": (1.0, 0.0, 100.0, 1.0, 1e-8),
     "Liquid": (0.75, 0.25, 467.0, 1.0, 1e-8),
+}
+INP_GROUPS = {
+    "Volume_ZB": (1.0, 0.0, 100.0, 1e-9, 1e-9),
+    "Strain_ZB": (0.8, 0.2, 1e-8, 1e-8, 1e-4),
+    "Displaced_ZB64": (0.8, 0.2, 100.0, 1.0, 1e-8),
+    "Displaced_ZB216": (1.0, 0.0, 100.0, 1.0, 1e-8),
+    "Antisite_ZB64": (1.0, 0.0, 100.0, 1.0, 1e-8),
 }
 
 
@@ -115,6 +134,44 @@ def ta_configs(seed, counts=None):
     return out
 
 
+def inp_configs(seed, counts=None):
+    """{group: [(positions, cell rows, element names)]} of an InP-shaped set.
+
+    Zincblende cells (In on the fcc sites, P on the sites shifted by a/4,
+    a = 5.87 A): 8-atom volume scans (0.9-1.1 a) and strained cells, 64-
+    and 216-atom supercells jittered by 0.1 A, and 64-atom cells with 1-3
+    antisite defects (an In site taken by P or a P site by In).  `counts`
+    gives each group's size ({group: n}); the default is 200 configs.
+    """
+    rng = np.random.default_rng(seed)
+    full = {"Volume_ZB": 40, "Strain_ZB": 60, "Displaced_ZB64": 60,
+            "Displaced_ZB216": 16, "Antisite_ZB64": 24}
+    counts = full if counts is None else counts
+    out = {}
+    for group, n in counts.items():
+        confs = []
+        for i in range(n):
+            if group == "Volume_ZB":
+                scale = 0.9 + 0.2 * i / max(n - 1, 1)
+                pos, cell = supercell(ZINCBLENDE, INP_A * scale, (1, 1, 1))
+            elif group == "Strain_ZB":
+                pos, cell0 = supercell(ZINCBLENDE, INP_A, (1, 1, 1))
+                cell = strained(cell0, rng, 0.04)
+                pos = pos @ np.linalg.solve(cell0, cell)
+            else:
+                reps = (3, 3, 3) if group == "Displaced_ZB216" else (2, 2, 2)
+                pos, cell = supercell(ZINCBLENDE, INP_A, reps)
+                pos = pos + rng.normal(0.0, 0.1, pos.shape)
+            names = np.array(["In", "P"])[
+                np.tile(np.repeat([0, 1], 4), len(pos) // 8)]
+            if group == "Antisite_ZB64":
+                flip = rng.choice(len(pos), rng.integers(1, 4), replace=False)
+                names[flip] = np.where(names[flip] == "In", "P", "In")
+            confs.append((pos, cell, list(names)))
+        out[group] = confs
+    return out
+
+
 def config_json(pos, cell, energy=0.0, forces=None, stress=None, types=None):
     """FitSNAP JSON text of one config (cell rows = lattice vectors); the
     atoms are Ta unless `types` names them."""
@@ -135,15 +192,17 @@ def config_json(pos, cell, energy=0.0, forces=None, stress=None, types=None):
 
 
 def write_dataset(root, configs):
-    """Write {group: [(pos, cell)]} as root/<group>/<group>_<i>.json with
-    zero truths; returns {(group, file name): (pos, cell)}."""
+    """Write {group: [(pos, cell) or (pos, cell, element names)]} as
+    root/<group>/<group>_<i>.json with zero truths (Ta atoms where no names
+    are given); returns {(group, file name): the config's tuple}."""
     files = {}
     for group, confs in configs.items():
         (Path(root) / group).mkdir(parents=True, exist_ok=True)
-        for i, (pos, cell) in enumerate(confs):
+        for i, conf in enumerate(confs):
             name = f"{group}_{i}.json"
-            (Path(root) / group / name).write_text(config_json(pos, cell))
-            files[(group, name)] = (pos, cell)
+            (Path(root) / group / name).write_text(config_json(
+                conf[0], conf[1], types=conf[2] if len(conf) > 2 else None))
+            files[(group, name)] = conf
     return files
 
 
@@ -175,6 +234,44 @@ def ta_settings(datapath, groups=None):
             "smartweights": 0, "random_sampling": 0}, **table),
         "EXTRAS": {}, "MEMORY": {},
     }
+
+
+def quadratic_settings(datapath, groups=None):
+    """`ta_settings` with the Ta_Quadratic_JCP2018 model's width: twojmax 8
+    and quadraticflag 1 (55 base + 1,540 quadratic descriptor columns, with
+    bzeroflag 0 1,596 coefficients).  The other values are the
+    Ta_Linear_JCP2014 example's."""
+    s = ta_settings(datapath, groups)
+    s["BISPECTRUM"].update(twojmax=8, quadraticflag=1)
+    s["OUTFILE"]["potential"] = "Ta_quad_pot"
+    return s
+
+
+def inp_settings(datapath, groups=None):
+    """Input sections of the InP_JPCA2020 example's explicit multi-element
+    SNAP model for `datapath`: BISPECTRUM (two elements, twojmax 6,
+    rcutfac 1.0, radelem 3.812 / 3.829, wj 1 / 0.9293, chemflag,
+    wselfallflag, bnormflag, bzeroflag 1: 2 x 240 columns, 482
+    coefficients), ESHIFT and the ZBL REFERENCE as the example sets them;
+    the groups are `inp_configs`'."""
+    groups = INP_GROUPS if groups is None else groups
+    table = {g: " ".join(str(v) for v in INP_GROUPS[g]) for g in groups}
+    s = ta_settings(datapath, groups=[])
+    s["BISPECTRUM"] = {
+        "numTypes": 2, "twojmax": "6 6", "rcutfac": 1.0, "rfac0": 0.99363,
+        "rmin0": 0.0, "wj": "1.0 0.9293160905266721",
+        "radelem": "3.812045629514403 3.829453817954964", "type": "In P",
+        "wselfallflag": 1, "chemflag": 1, "bnormflag": 1, "bzeroflag": 1,
+        "quadraticflag": 0}
+    s["ESHIFT"] = {"In": -1.65967588701534, "P": 4.38159549501534}
+    s["REFERENCE"] = {
+        "units": "metal", "atom_style": "atomic",
+        "pair_style": "hybrid/overlay zero 10.0 zbl 4.0 4.2",
+        "pair_coeff1": "* * zero", "pair_coeff2": "1 1 zbl 49 49",
+        "pair_coeff3": "1 2 zbl 49 15", "pair_coeff4": "2 2 zbl 15 15"}
+    s["OUTFILE"] = {"metrics": "InP_metrics.md", "potential": "InP_pot"}
+    s["GROUPS"].update(table)
+    return s
 
 
 def ace_settings(datapath, groups=None):

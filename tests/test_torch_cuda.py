@@ -1,5 +1,5 @@
-"""The CUDA kernels K1-K5, K7, K8, K8r, K13 and K14 against their plain
-versions on the card.
+"""The CUDA kernels K1-K5, K6q, K7, K8, K8r, K13 and K14 (and the
+chemflag modes of K1-K3) against their plain versions on the card.
 
 Needs an NVIDIA GPU and nvcc (the kernels are built at first use); skipped
 elsewhere.  The machine with the card has no JAX, which the suite's
@@ -19,7 +19,11 @@ exactly.  K13 and K14 run on 12 atoms x 40 neighbor slots for a
 one-element plan (ranks 1-4, lmax up to 2) and a two-element plan with an
 inner cutoff on the mixed bonds, with masked pairs, pairs past the cutoff
 and an empty atom; K7 also in the ACE layout (two leading constant
-columns).
+columns), and refuses rows wider than one block's shared memory holds.
+quadraticflag and chemflag: K1-K3 with K3 in three W tiles and K6q at
+twojmax 8; the chemflag modes of K1-K3 with two elements at twojmax 4
+(wselfallflag 0 and 1, bnormflag) and, with K6q, quadratic x chemflag at
+twojmax 2.
 """
 
 from types import SimpleNamespace
@@ -101,6 +105,97 @@ def test_k1_k3_match_plain(cuda, name):
         "pair_u_duals": 1, "zlist": 1, "dbdd": 1}
     for out, ref in ((k1, ref1), (k2, ref2), (k3, ref3)):
         assert rel_err(out, ref) <= RTOL
+
+
+FLAG_CASES = {
+    "quadratic_tj8": dict(twojmax=["8"], numtypes=1, wj=["1.0"],
+                          radelem=["0.5"], bzeroflag=0, switchinnerflag=0,
+                          quadraticflag=1),
+    "chem_tj4_wself0": dict(twojmax=["4", "4"], numtypes=2,
+                            wj=["1.0", "0.93"], radelem=["0.5", "0.45"],
+                            bzeroflag=1, switchinnerflag=0, chemflag=1,
+                            bnormflag=1),
+    "chem_tj4_wself1": dict(twojmax=["4", "4"], numtypes=2,
+                            wj=["1.0", "0.93"], radelem=["0.5", "0.45"],
+                            bzeroflag=1, switchinnerflag=0, chemflag=1,
+                            bnormflag=1, wselfallflag=1),
+    "quadratic_chem_tj2": dict(twojmax=["2", "2"], numtypes=2,
+                               wj=["1.0", "0.93"], radelem=["0.5", "0.45"],
+                               bzeroflag=1, switchinnerflag=0, chemflag=1,
+                               quadraticflag=1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FLAG_CASES))
+def test_flag_kernels_match_plain(cuda, name):
+    """The kernels of the quadratic and chemflag paths on one block of 12
+    atoms x 40 slots, each against its plain version on the same inputs."""
+    spec = FLAG_CASES[name]
+    p = make_params(section(spec), cuda)
+    N, K = 12, 40
+    rng = np.random.default_rng(8)
+    d = rng.normal(size=(N, K, 3))
+    d *= rng.uniform(1.2, 4.9, (N, K, 1)) / np.linalg.norm(d, axis=-1,
+                                                          keepdims=True)
+    mask = rng.uniform(size=(N, K)) < 0.85
+    mask[-1] = False
+    nel = spec["numtypes"]
+    args = (torch.as_tensor(d, device=cuda),
+            torch.as_tensor(rng.integers(0, nel, (N, K)), dtype=torch.int32,
+                            device=cuda),
+            torch.as_tensor(mask, device=cuda),
+            torch.as_tensor(rng.integers(0, nel, N), dtype=torch.int32,
+                            device=cuda))
+    chem = p.nchem > 1
+    sk.reset_launches()
+    k1 = (sk.pair_u_duals_chem if chem else sk.pair_u_duals)(*args, p)
+    ref1 = sk.pair_u_duals_plain(*args, p)
+    wu, J, ut = ref1
+    if chem:
+        k2 = sk.zlist_chem(ut, p)
+        ref2 = sk.zlist_chem_plain(ut, p)
+        k3 = sk.dbdd_chem(ut, *ref2, J, args[1], p)
+        ref3 = sk.dbdd_chem_plain(ut, *ref2, J, args[1], p)
+    else:
+        k2 = sk.zlist(ut, p)
+        ref2 = sk.zlist_plain(ut, p)
+        k3 = sk.dbdd(ut, *ref2, J, p)
+        ref3 = sk.dbdd_plain(ut, *ref2, J, p)
+    pairs = [(k1, ref1), (k2, ref2), (k3, ref3)]
+    if p.quadraticflag:
+        pairs.append((sk.quad_chain(*ref3, p), sk.quad_chain_plain(*ref3, p)))
+    torch.cuda.synchronize()
+    suffix = "_chem" if chem else ""
+    want = {f"pair_u_duals{suffix}": 1, f"zlist{suffix}": 1,
+            f"dbdd{suffix}": 1}
+    if p.quadraticflag:
+        want["quad_chain"] = 1
+    assert {k: v for k, v in sk.launches().items() if v} == want
+    if name == "quadratic_tj8":
+        assert sk.dbdd_tiles(p) == (19, 3)
+    for out, ref in pairs:
+        assert rel_err(out, ref) <= RTOL
+
+
+def test_k7_refuses_rows_wider_than_a_block(cuda):
+    """K7 is not tiled over AᵀA: the InP width (480) is refused loudly."""
+    C, A, T, Wr = 1, 2, 2, 240
+    z = torch.zeros
+    rows = {"e_cols": z((C, T * Wr), dtype=torch.float64, device=cuda),
+            "force_rows": z((C, A, 3, T * Wr), dtype=torch.float64,
+                            device=cuda),
+            "virial_rows": z((C, 6, T * Wr), dtype=torch.float64,
+                             device=cuda),
+            "ref_e": z((C,), dtype=torch.float64, device=cuda),
+            "ref_f": z((C, A, 3), dtype=torch.float64, device=cuda),
+            "ref_v": z((C, 6), dtype=torch.float64, device=cuda)}
+    truths = (rows["ref_e"], rows["ref_f"], rows["ref_v"])
+    weights = (rows["ref_e"],) * 3
+    natoms = torch.full((C,), A, dtype=torch.int32, device=cuda)
+    types = torch.zeros((C, A), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="width 480"):
+        sk.normal_contrib(rows, truths, weights, natoms, types, T, False,
+                          {"energy": 1, "force": 1, "stress": 1})
 
 
 def test_k4_matches_plain(cuda):

@@ -6,9 +6,10 @@
   `device="cpu"` or `--device cpu` runs on the CPU.
 - Each kernel wrapper takes its plain version for CPU tensors (launching
   nothing) and raises for a device that is neither CPU nor CUDA.
-- `kernels/csrc/` holds one CUDA source for each of K1-K5, K7, K8 (K8r
-  shares K8's), K13 and K14, each naming the JAX function it replaces,
-  built for sm_90a.
+- `kernels/csrc/` holds one CUDA source for each of K1-K5, K6q, K7, K8
+  (K8r shares K8's), K13 and K14, each naming the JAX function it
+  replaces, built for sm_90a; the chemflag modes of K1-K3 share their
+  sources.
 - `FitSnap` fits on the CPU with every linear solver the port registers.
 - `chip_smoke.py` exits non-zero and prints no result without a card.
 """
@@ -153,7 +154,8 @@ def test_wrappers_take_plain_version_on_cpu():
     assert set(sk.launches()) == {"pair_u_duals", "zlist", "dbdd",
                                   "pair_scatter_rows", "zbl_pair_grad",
                                   "normal_contrib", "device_neighbors",
-                                  "reverse_table"}
+                                  "reverse_table", "pair_u_duals_chem",
+                                  "zlist_chem", "dbdd_chem", "quad_chain"}
     assert set(sk.launches().values()) == {0}
 
 
@@ -214,6 +216,62 @@ def test_new_wrappers_plain_on_cpu_and_raise_on_meta(name):
         _new_kernel_calls("meta")[name]()
 
 
+def _flag_kernel_calls(device):
+    """A call of each of the chemflag modes of K1-K3 and of K6q on small
+    inputs on `device`, with a two-element chemflag plan and a quadratic
+    one (twojmax 2)."""
+    from types import SimpleNamespace
+
+    from fitsnap_tpu_torch.ops.snap import make_params
+
+    def section(**flags):
+        base = dict(twojmax=["2", "2"], numtypes=2, wj=["1.0", "0.9"],
+                    radelem=["0.5", "0.45"], rcutfac=4.6, rfac0=0.99,
+                    rmin0=0.0, chemflag=0, quadraticflag=0, bnormflag=0,
+                    wselfallflag=0, bzeroflag=1, switchflag=1,
+                    switchinnerflag=0, sinner=None, dinner=None)
+        return SimpleNamespace(**dict(base, **flags))
+
+    pc = make_params(section(chemflag=1), device)
+    pq = make_params(section(quadraticflag=1), device)
+    rng = np.random.default_rng(3)
+    N, K, U = 2, 4, pc.u_len
+
+    def t(x, dtype=torch.float64):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    disp = t(rng.normal(size=(N, K, 3)) + 2.0)
+    jelem = t(rng.integers(0, 2, (N, K)), torch.int32)
+    mask = t(np.ones((N, K)), torch.bool)
+    ielem = t([0, 1], torch.int32)
+    ut = t(rng.normal(size=(N, 2 * 2 * U)))
+    z = t(rng.normal(size=(N, 4, pc.nz)))
+    J = t(rng.normal(size=(3, N, K, 2 * U)))
+    W = pq.nb_base
+    return {
+        "pair_u_duals_chem": lambda: sk.pair_u_duals_chem(
+            disp, jelem, mask, ielem, pc),
+        "zlist_chem": lambda: sk.zlist_chem(ut, pc),
+        "dbdd_chem": lambda: sk.dbdd_chem(ut, z, z, J, jelem, pc),
+        "quad_chain": lambda: sk.quad_chain(
+            t(rng.normal(size=(N, W))), t(rng.normal(size=(N, W, K, 3))),
+            pq),
+    }
+
+
+@pytest.mark.parametrize("name", ["pair_u_duals_chem", "zlist_chem",
+                                  "dbdd_chem", "quad_chain"])
+def test_flag_wrappers_plain_on_cpu_and_raise_on_meta(name):
+    """The chemflag modes of K1-K3 and K6q run their plain version for CPU
+    tensors without counting a launch, and refuse a `meta` tensor."""
+    sk.reset_launches()
+    out = _flag_kernel_calls("cpu")[name]()
+    assert all(torch.isfinite(x).all() for x in out)
+    assert sk.launches()[name] == 0
+    with pytest.raises(ValueError, match="no kernel for device"):
+        _flag_kernel_calls("meta")[name]()
+
+
 @pytest.mark.parametrize("solver", ["TPUSVD", "SCALAPACK", "TENSORFLOWSVD"])
 def test_device_solvers_fit_on_cpu(tmp_path, solver):
     """`FitSnap` with each device solver fits on `device="cpu"`, and its
@@ -256,6 +314,10 @@ def test_device_solvers_fit_on_cpu(tmp_path, solver):
     ("pair_u_duals", "_pair_wu_duals"),
     ("zlist", "_compute_zcat_pair"),
     ("dbdd", "_dbdu_ylist"),
+    ("dbdd", "_chem_b_and_dbdu"),
+    ("zlist", "_chem_b_and_dbdu"),
+    ("pair_u_duals", "_utot_from_wu"),
+    ("quad_chain", "_quad_chain"),
     ("pair_scatter", "calculators/snap.py"),
     ("zbl_pair", "reference_eav"),
     ("device_neighbors", "parallel/fit.py `device_neighbors`"),

@@ -110,7 +110,9 @@ def test_pair_wu_duals(case):
 
 
 def test_utot_from_wu(case):
-    ut = tsnap._utot_from_wu(torch.from_numpy(case["ref"]["wu"]), case["p"])
+    _, jelem, _, ielem = case["targs"]
+    ut = tsnap._utot_from_wu(torch.from_numpy(case["ref"]["wu"]), jelem,
+                             ielem, case["p"])
     close(ut, case["ref"]["ut"])
 
 
