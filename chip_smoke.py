@@ -81,7 +81,25 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    phase 8, each row type's largest error within max(1e-6, 100 cond_kept
    eps) of its largest truth, cond_kept over the singular values lstsq
    keeps.  The streamed fit is not run at these widths (K7 refuses rows
-   wider than one block's shared memory holds).
+   wider than one block's shared memory holds);
+12. NN path (precompute mode), on the Ta set of phase 2 with
+   `synthetic.nn_settings` (nonlinear 1, [PYTORCH] layer_sizes num_desc 64
+   64 1, batch size 4, 10 epochs): launch counts set to 0, then
+   FitSnap(device="cuda") -> scrape -> process -> perform_fit ->
+   write_output, the counts read just after; it fails unless K1-K5, K12
+   and K12T launched, the last epoch's train loss is below the first's and
+   the `.pt`, `.mliap.descriptor`, `.mod` and metrics files are written.
+   Then K12 and K12T against their plain versions at the largest bucket
+   with a minibatch of 4 (1e-11; timed on rotating copies of the inputs,
+   more than four L2 sizes, so that G is read from HBM, and once more on
+   one repeated input, which L2 holds), the loss gradient with respect to every
+   MLP parameter through `NnForce` against autograd through K12's plain
+   version (1e-10), central-difference forces (h = 1e-4, host lists and
+   K1-K3 on the card at each displaced position) of the trained model
+   against its K12 forces on three atoms of two configs (the JAX package's
+   bar, 1e-5), the `.pt`'s per-atom energies on one config against
+   `evaluate_bucket`'s (1e-10), and a profiler split of one epoch (K12 /
+   K12T, the rest of the card's kernels, idle).
 
 The line before the last is the kernel table as JSON (launches per path,
 each path's counts set to 0 just before it and read just after); the last
@@ -90,6 +108,7 @@ the package is missing, it exits non-zero and prints no result.
 """
 
 import argparse
+import itertools
 import json
 import os
 import re
@@ -103,6 +122,7 @@ from types import SimpleNamespace
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 bandwidth (NVIDIA data sheet)
+L2_BYTES = 50 << 20         # H100 SXM L2 cache (NVIDIA data sheet)
 FP64_FLOPS = 67e12          # H100 SXM FP64 tensor-core peak (NVIDIA data sheet)
 KERNEL_RTOL = 1e-11         # kernel vs plain, relative to the largest |value|
 A_RTOL = 1e-10              # main-path A vs plain A, per column
@@ -140,6 +160,10 @@ SOURCES = {
                   "fitsnap_tpu/ops/snap.py:992"),
     "quad_chain": ("fitsnap_tpu_torch/kernels/csrc/quad_chain.cu",
                    "fitsnap_tpu/ops/snap.py:1097"),
+    "nn_force": ("fitsnap_tpu_torch/kernels/csrc/nn_force.cu",
+                 "fitsnap_tpu/solvers/network.py:720"),
+    "nn_force_t": ("fitsnap_tpu_torch/kernels/csrc/nn_force.cu",
+                   "fitsnap_tpu/solvers/network.py:720"),
 }
 FITSNAP_KERNELS = ("pair_u_duals", "zlist", "dbdd", "pair_scatter_rows",
                    "zbl_pair_grad")
@@ -149,13 +173,15 @@ ACE_KERNELS = ("ace_pair_basis", "ace_b_dbdd", "pair_scatter_rows",
 QUAD_KERNELS = FITSNAP_KERNELS + ("quad_chain",)
 CHEM_KERNELS = ("pair_u_duals_chem", "zlist_chem", "dbdd_chem",
                 "pair_scatter_rows", "zbl_pair_grad")
+NN_KERNELS = FITSNAP_KERNELS + ("nn_force", "nn_force_t")
 # the kernels each path must launch
 PATH_KERNELS = {"fitsnap": FITSNAP_KERNELS,
                 "streamed": FITSNAP_KERNELS + STREAM_KERNELS,
                 "ace_fitsnap": ACE_KERNELS,
                 "ace_streamed": ACE_KERNELS + STREAM_KERNELS,
                 "quadratic_fitsnap": QUAD_KERNELS,
-                "chem_fitsnap": CHEM_KERNELS}
+                "chem_fitsnap": CHEM_KERNELS,
+                "nn_fitsnap": NN_KERNELS}
 # FitSnap path of each data set
 FITSNAP_PATH = {"snap": "fitsnap", "ace": "ace_fitsnap",
                 "quadratic": "quadratic_fitsnap", "inp": "chem_fitsnap"}
@@ -170,6 +196,10 @@ INP_SHAPE = dict(numtypes=2, ranks=[1, 2, 3, 4], lmax=[1, 2, 2, 1],
 SVD_RCOND = 1e-13           # singular-value cutoff of solvers/svd.SVD
 PRED_RTOL = 1e-6            # predictions vs truths, per row type
 BETA_COND = 4.5e7           # beta_true is a check where 100 cond eps <= 1e-6
+GRAD_RTOL = 1e-10           # NN loss gradient through NnForce vs plain K12
+FD_H = 1e-4                 # central-difference step of the NN force check
+FD_BAR = 1e-5               # the JAX package's NN FD-force bar (README.md)
+PT_RTOL = 1e-10             # exported .pt energies vs evaluate_bucket
 
 
 def card_line():
@@ -250,18 +280,21 @@ def rel_err(out, ref):
 
 def reset_launches():
     from fitsnap_tpu_torch.kernels import ace_kernels as ak
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
     from fitsnap_tpu_torch.kernels import snap_kernels as sk
 
     sk.reset_launches()
     ak.reset_launches()
+    nk.reset_launches()
 
 
 def launches():
     """{kernel wrapper: launches since the last reset}, every kernel."""
     from fitsnap_tpu_torch.kernels import ace_kernels as ak
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
     from fitsnap_tpu_torch.kernels import snap_kernels as sk
 
-    return dict(sk.launches(), **ak.launches())
+    return dict(sk.launches(), **ak.launches(), **nk.launches())
 
 
 def check_launched(counts, path):
@@ -1121,6 +1154,260 @@ def streamed_path(fs, a_plain, beta, seed, device, kind="snap"):
     return counts, t, checks
 
 
+# ---------------------------------------------------------------------------
+# NN path (precompute mode)
+# ---------------------------------------------------------------------------
+
+
+def nn_path(tmp, device):
+    """Drive the NN fit through FitSnap on the card on the Ta set of phase
+    2; returns (the FitSnap, launch counts, timings, checks)."""
+    import torch
+    from fitsnap_tpu_torch import FitSnap
+    from fitsnap_tpu_torch.tools import synthetic
+
+    ini = Path(tmp) / "nn.in"
+    synthetic.write_ini(ini, synthetic.nn_settings(Path(tmp) / "JSON"))
+    reset_launches()
+    t0 = time.time()
+    fs = FitSnap(str(ini), arglist=["--overwrite"], device=device)
+    fs.scrape_configs()
+    fs.process_configs()
+    fs.perform_fit()
+    fs.write_output()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = launches()
+    check_launched(counts, "nn_fitsnap")
+
+    sol = fs.solver
+    hist = np.array(sol.history)
+    print("nn loss curve (epoch, train, validation): "
+          + json.dumps(hist.tolist()), flush=True)
+    print("nn seconds per epoch: " + json.dumps(sol.epoch_times), flush=True)
+    if not (np.isfinite(hist).all() and hist[-1, 1] < hist[0, 1]):
+        raise AssertionError(f"NN train loss did not fall: {hist[:, 1]}")
+    written = ["Ta_nn.pt", "Ta_nn_pot.mliap.descriptor", "Ta_nn_pot.mod",
+               "Ta_nn_metrics.md", "loss_vs_epochs.dat"]
+    missing = [f for f in written if not Path(f).stat().st_size]
+    errs = sol.errors
+    if missing or not (len(errs) and np.isfinite(errs.values).all()):
+        raise AssertionError(f"NN outputs missing {missing} or the error "
+                             f"table is empty or not finite")
+    checks = {"configs": len(fs.data),
+              "buckets": {str(b["shape"]): len(b["groups"])
+                          for b in sol.buckets},
+              "train_loss_first": hist[0, 1], "train_loss_last": hist[-1, 1],
+              "val_loss_last": hist[-1, 2],
+              "g_bytes": sum(b["G"].numel() * 8 for b in sol.buckets),
+              "errors": {f"{g}/{t}": dict(zip(errs.columns, map(float, v)))
+                         for (g, t), v in zip(errs.index, errs.values)
+                         if g == "*ALL"}}
+    times = dict(fs.timings, wall=wall,
+                 epoch_first=sol.epoch_times[0],
+                 epoch_mean_rest=float(np.mean(sol.epoch_times[1:])))
+    return fs, counts, times, checks
+
+
+def nn_batch(sol, n=4):
+    """A minibatch of the first n configs of the largest bucket, with the
+    trained model's dE/dB (K12's input)."""
+    import torch
+
+    bi = int(np.argmax([np.prod(b["shape"]) for b in sol.buckets]))
+    batch = sol._gather(sol.buckets[bi],
+                        np.arange(min(n, len(sol.buckets[bi]["groups"]))))
+    x = ((batch["B"] - sol.mean) / sol.std).requires_grad_(True)
+    e = (sol.model(x, batch["types"]) * batch["real"].to(x.dtype)).sum()
+    dEdB = (torch.autograd.grad(e, x)[0] / sol.std).contiguous()
+    return batch, dEdB
+
+
+def rotating(fn, args):
+    """fn over copies of `args` in turn, enough copies that each call's
+    inputs were last touched more than four L2 sizes of reads earlier: the
+    kernel reads them from HBM, as its bytes bound assumes."""
+    nbytes = sum(t.numel() * t.element_size() for t in args)
+    copies = [tuple(t.clone() for t in args)
+              for _ in range(-(-4 * L2_BYTES // nbytes) + 1)]
+    nxt = itertools.cycle(copies).__next__
+    return lambda: fn(*nxt())
+
+
+def nn_kernel_checks(fs):
+    """K12 and K12T against their plain versions on a minibatch of 4 at
+    the largest bucket, and the loss gradient through NnForce against
+    autograd through K12's plain version."""
+    import torch
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+    from fitsnap_tpu_torch.solvers import network as tnet
+
+    sol = fs.solver
+    batch, dEdB = nn_batch(sol)
+    G, jidx, rev = batch["G"], batch["jidx"], batch["rev"]
+    N, A, W, K, _ = G.shape
+    R = rev.shape[2]
+    print(f"nn kernel inputs: N={N} A={A} W={W} K={K} R={R} pairs="
+          f"{int((rev >= 0).sum().item())} float64", flush=True)
+    # timed on rotating copies of the inputs, so that G comes from HBM as
+    # the bound assumes; `device_ms_l2` is the call on one repeated input,
+    # which L2 holds, as it holds a minibatch just gathered in training
+    rows = []
+    args = (dEdB, G, jidx, rev)
+    out = nk.nn_force(*args)
+    ref = nk.nn_force_plain(*args)
+    g_bytes = G.numel() * 8
+    record(rows, "nn_force", [out], [ref], (rotating(nk.nn_force, args), 20),
+           timed(rotating(nk.nn_force_plain, args), 10),
+           g_bytes + dEdB.numel() * 8 + rev.numel() * 4 + N * A * 3 * 8,
+           2 * G.numel() + N * A * (K + R) * 3, None)
+    rows[-1]["device_ms_l2"] = device_time(lambda: nk.nn_force(*args), 20)
+    gF = ((ref - batch["f_target"])
+          * batch["real"][..., None].to(ref.dtype)).contiguous()
+    args = (gF, G, jidx)
+    out = nk.nn_force_t(*args)
+    ref = nk.nn_force_t_plain(*args)
+    record(rows, "nn_force_t", [out], [ref],
+           (rotating(nk.nn_force_t, args), 20),
+           timed(rotating(nk.nn_force_t_plain, args), 10),
+           g_bytes + gF.numel() * 8 + jidx.numel() * 4 + dEdB.numel() * 8,
+           2 * G.numel() + N * A * K * 3, None)
+    rows[-1]["device_ms_l2"] = device_time(lambda: nk.nn_force_t(*args), 20)
+
+    # the parameter gradient of the training loss: NnForce (K12, backward
+    # K12T) against autograd through the plain K12
+    leaves = list(sol.model.parameters())
+
+    def grads():
+        return torch.autograd.grad(sol._loss(sol.model, batch, train=True),
+                                   leaves)
+
+    out = grads()
+    cls = tnet.NnForce
+    tnet.NnForce = SimpleNamespace(apply=nk.nn_force_plain)
+    try:
+        ref = grads()
+    finally:
+        tnet.NnForce = cls
+    _, grad_err = rel_err(out, ref)
+    print(f"nn loss gradient through NnForce vs plain autograd: "
+          f"{grad_err:.3e} (limit {GRAD_RTOL})", flush=True)
+    if not grad_err <= GRAD_RTOL:
+        raise AssertionError(f"NN loss gradient through NnForce differs "
+                             f"from the plain one: {grad_err:.3e}")
+    return rows, {"grad_rel_err": grad_err}
+
+
+def nn_model_eval(sol, calc, pos, cell, types):
+    """Energy and K12 forces of one config: host lists, then K1-K3 and the
+    MLP on the card."""
+    import torch
+    from fitsnap_tpu_torch.calculators.snap import pair_masks
+    from fitsnap_tpu_torch.ops.neighbors import (host_neighbors,
+                                                 reverse_neighbors)
+    from fitsnap_tpu_torch.ops.snap import descriptors_with_jacobian
+
+    n = len(pos)
+    disp, jidx, mask, _ = host_neighbors(pos, cell, n, calc.cutoff)
+    rev = reverse_neighbors(jidx, mask, n)
+
+    def put(x):
+        return torch.as_tensor(x, device=calc.device)[None]
+
+    types = put(np.asarray(types, np.int32))
+    disp, jidx, mask = put(disp), put(jidx), put(mask)
+    jelem, smask = pair_masks(calc.params, disp, jidx, mask, types)
+    K = mask.shape[2]
+    B, G = descriptors_with_jacobian(disp[0], jelem[0], smask[0], types[0],
+                                     calc.params)
+    batch = {"B": B[None], "G": G.reshape(1, n, -1, K, 3),
+             "types": torch.zeros_like(types),
+             "real": torch.ones((1, n), dtype=torch.bool,
+                                device=calc.device),
+             "nat": torch.tensor([n], device=calc.device),
+             "jidx": jidx, "rev": put(rev)}
+    e, f = sol._forward_batch(sol.model, batch)
+    return float(e[0]) * n, f[0].cpu().numpy()
+
+
+def nn_fd_check(fs):
+    """Central-difference forces of the trained model against its K12
+    forces on three atoms of two configs (a displaced 54-atom bcc cell and
+    a 100-atom liquid-like one)."""
+    sol, calc = fs.solver, fs.calculator
+    worst = []
+    for group in ("Displaced_BCC", "Liquid"):
+        d = [x for x in fs.data if x["Group"] == group][0]
+        pos = np.asarray(d["Positions"], float)
+        cell = np.asarray(d["Lattice"], float)
+        types = [calc.type_mapping[t] - 1 for t in d["AtomTypes"]]
+        _, f0 = nn_model_eval(sol, calc, pos, cell, types)
+        for a in (0, len(pos) // 2, len(pos) - 1):
+            for c in range(3):
+                pp, pm = pos.copy(), pos.copy()
+                pp[a, c] += FD_H
+                pm[a, c] -= FD_H
+                ep, _ = nn_model_eval(sol, calc, pp, cell, types)
+                em, _ = nn_model_eval(sol, calc, pm, cell, types)
+                worst.append(abs(-(ep - em) / (2 * FD_H) - f0[a, c]))
+    err = float(np.max(worst))
+    print(f"nn FD forces (h={FD_H}): max error {err:.3e}, mean "
+          f"{float(np.mean(worst)):.3e} (bar {FD_BAR})", flush=True)
+    if not err < FD_BAR:
+        raise AssertionError(f"NN FD forces miss the bar: {err:.3e}")
+    return {"fd_max_err": err, "fd_mean_err": float(np.mean(worst)),
+            "fd_bar": FD_BAR}
+
+
+def nn_export_check(fs):
+    """The written .pt's per-atom energies on one config against the
+    model's and evaluate_bucket's."""
+    import torch
+
+    sol = fs.solver
+    ds = sol.buckets[-1]
+    nat = int(ds["nat_host"][0])
+    B = ds["B"][0, :nat]
+    model = torch.load("Ta_nn.pt", weights_only=False)
+    beta, energy = np.zeros(tuple(B.shape)), np.zeros(nat)
+    model(np.zeros(nat, np.int32), B.cpu().numpy().copy(), beta, energy)
+    with torch.no_grad():
+        atoms = sol.model((B - sol.mean) / sol.std,
+                          torch.zeros(nat, dtype=torch.int32,
+                                      device=B.device)).cpu().numpy()
+    e, _ = sol.evaluate_bucket(ds)
+    err = max(np.abs(energy - atoms).max() / np.abs(atoms).max(),
+              abs(energy.sum() / nat - e[0]) / abs(e[0]))
+    print(f"nn exported .pt vs the model: {err:.3e} (limit {PT_RTOL})",
+          flush=True)
+    if not err <= PT_RTOL:
+        raise AssertionError(f"the exported .pt disagrees: {err:.3e}")
+    return {"pt_rel_err": float(err)}
+
+
+def nn_epoch_profile(fs, epoch_s):
+    """Device time of one training epoch by kernel (torch.profiler), split
+    into K12 / K12T, the other kernels (MLP, its double backward, gathers,
+    Adam), and its share of `epoch_s`, the unprofiled epoch's seconds."""
+    net = fs.solver.net
+    epochs = net.num_epochs
+    net.num_epochs = 1
+    try:
+        kernels = profile_kernels(lambda: fs.solver.perform_fit())
+    finally:
+        net.num_epochs = epochs
+    if not kernels:
+        return {"epoch_profile": "not measured (no device time)"}
+    ours = sum(v for k, v in kernels.items() if k.startswith("nn_"))
+    total = sum(kernels.values())
+    print("nn epoch device time by kernel (ms): " + json.dumps(
+        {k: round(v, 3) for k, v in list(kernels.items())[:12]}),
+        flush=True)
+    return {"epoch_device_ms": total, "epoch_k12_ms": ours,
+            "epoch_other_kernels_ms": total - ours,
+            "device_busy_share": total / 1e3 / epoch_s}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1196,6 +1483,15 @@ def main():
                 paths[FITSNAP_PATH[kind]] = fitsnap
                 del fs, a_plain
                 torch.cuda.empty_cache()
+            # the NN fit on the Ta set of phase 2
+            fs, counts, times, checks = nn_path(tmp, "cuda")
+            rows, grad = nn_kernel_checks(fs)
+            kernels += rows
+            checks.update(grad, **nn_fd_check(fs), **nn_export_check(fs))
+            checks.update(nn_epoch_profile(fs, times["epoch_mean_rest"]))
+            paths["nn_fitsnap"] = (counts, times, checks)
+            del fs
+            torch.cuda.empty_cache()
         finally:
             os.chdir(cwd)
     seconds = ("pack", "upload", "first_pass", "steady_pass", "solve",

@@ -26,7 +26,6 @@ from fitsnap_tpu_torch.kernels import snap_kernels as sk
 from fitsnap_tpu_torch.ops.neighbors import host_neighbors, reverse_neighbors
 from fitsnap_tpu_torch.ops.refpot import parse_reference, reference_eav
 from fitsnap_tpu_torch.ops.snap import descriptors_with_jacobian, make_params
-from fitsnap_tpu_torch.utils.torchsetup import DTYPE
 
 TOBAR = 1.6021765e6
 
@@ -39,6 +38,41 @@ def _pad_to(x, buckets):
         if x <= b:
             return b
     return ((int(x) + 127) // 128) * 128
+
+
+NN_PROGRAMS = 4   # shape buckets the NN solver coalesces a data set into
+
+
+def coalesce_shape_buckets(buckets):
+    """Merge (a_pad, k_pad) shape buckets into <= NN_PROGRAMS covering
+    shapes, greedily picking the merge that adds the least padded work
+    (n * a_pad * k_pad proxy).
+
+    The JAX package's function (`calculators/snap.py:47`) with its default
+    cap of 4 as a constant: the buckets decide which configs share an NN
+    minibatch, so the two packages must form the same index lists.
+    Returns the same {(a_pad, k_pad): [config indices]} mapping.
+    """
+    items = [{"a": a, "k": k, "idxs": list(v)}
+             for (a, k), v in sorted(buckets.items())]
+
+    def cost(it, a=None, k=None):
+        return len(it["idxs"]) * (a or it["a"]) * (k or it["k"])
+
+    while len(items) > NN_PROGRAMS:
+        best = None
+        for i, s in enumerate(items):
+            for j, d in enumerate(items):
+                if i == j:
+                    continue
+                a, k = max(s["a"], d["a"]), max(s["k"], d["k"])
+                added = cost(s, a, k) + cost(d, a, k) - cost(s) - cost(d)
+                if best is None or added < best[0]:
+                    best = (added, i, j, a, k)
+        _, i, j, a, k = best
+        items[j] = {"a": a, "k": k, "idxs": items[j]["idxs"] + items[i]["idxs"]}
+        del items[i]
+    return {(it["a"], it["k"]): it["idxs"] for it in items}
 
 
 def chunk_size(a_pad, k_pad, ncoeff):
@@ -63,6 +97,23 @@ def pair_masks(params, disp, jidx, mask, types):
     return jelem, mask & (r2 < rcutij * rcutij)
 
 
+def _batch_descriptors(params, disp, jidx, mask, types, natoms, plain):
+    """B (C, A, W) and dB/dD (C, A, W, K, 3) of a batch, zero on padded
+    atoms and on pairs outside the SNAP mask; with that mask (C, A, K) and
+    the real-atom mask (C, A) as floats."""
+    C, A, K = mask.shape
+    jelem, smask = pair_masks(params, disp, jidx, mask, types)
+    real = (torch.arange(A, device=disp.device)[None, :]
+            < natoms[:, None]).to(disp.dtype)
+    B, G = descriptors_with_jacobian(
+        disp.reshape(C * A, K, 3), jelem.reshape(C * A, K),
+        smask.reshape(C * A, K), types.reshape(C * A), params, plain=plain)
+    W = B.shape[1]
+    return (B.reshape(C, A, W) * real[..., None],
+            G.reshape(C, A, W, K, 3) * real[..., None, None, None], smask,
+            real)
+
+
 def snap_rows(params, numtypes, refspec, disp, jidx, mask, rev, types,
               natoms, cell, plain=False):
     """Energy columns, force/virial rows and reference values of a batch.
@@ -76,19 +127,10 @@ def snap_rows(params, numtypes, refspec, disp, jidx, mask, rev, types,
     """
     T = numtypes
     C, A, K = mask.shape
-    dtp = disp.dtype
-    jelem, smask = pair_masks(params, disp, jidx, mask, types)
-    real = (torch.arange(A, device=disp.device)[None, :]
-            < natoms[:, None]).to(dtp)
-
-    B, G = descriptors_with_jacobian(
-        disp.reshape(C * A, K, 3), jelem.reshape(C * A, K),
-        smask.reshape(C * A, K), types.reshape(C * A), params, plain=plain)
-    W0 = B.shape[1]
-    B = B.reshape(C, A, W0) * real[..., None]
-    G = G.reshape(C, A, W0, K, 3) * real[..., None, None, None]
-
-    oh = torch.nn.functional.one_hot(types.long(), T).to(dtp) \
+    B, G, smask, real = _batch_descriptors(params, disp, jidx, mask, types,
+                                           natoms, plain)
+    W0 = B.shape[2]
+    oh = torch.nn.functional.one_hot(types.long(), T).to(disp.dtype) \
         * real[..., None]
     e_cols = torch.einsum("cat,caw->ctw", oh, B).reshape(C, T * W0)
 
@@ -104,6 +146,53 @@ def snap_rows(params, numtypes, refspec, disp, jidx, mask, rev, types,
     return {"e_cols": e_cols, "force_rows": force_rows,
             "virial_rows": virial_rows,
             "ref_e": re, "ref_f": rf, "ref_v": rv * scale}
+
+
+def nn_prep(params, refspec, disp, jidx, mask, rev, types, natoms):
+    """Per-atom descriptors B (C, A, W), their pair jacobian G (C, A, W, K,
+    3), and the reference potential's energy (C,) and forces (C, A, 3) of a
+    batch: the NN solver's training inputs.
+
+    The JAX package's `SnapCalculator.nn_prep_fn` with the config axis
+    written out: the SNAP pair mask, then K1-K3 (their chemflag modes, and
+    K6q under quadraticflag), then the reference potential (K5 + K4).  B and
+    G are zero on padded atoms, and G on every pair outside the SNAP mask,
+    so the force contraction may run over all neighbor slots.  Arguments as
+    `snap_rows`'."""
+    B, G, _, _ = _batch_descriptors(params, disp, jidx, mask, types, natoms,
+                                    plain=False)
+    re, rf, _ = reference_eav(disp, jidx, mask, rev, types, refspec)
+    return B, G, re, rf
+
+
+def pack_bucket(packed, ids, a_pad, k_pad):
+    """Host arrays of configs `ids` padded to (a_pad, k_pad): disp (n, A, K,
+    3) f64, jidx (n, A, K) i32, mask (n, A, K), rev (n, A, R) i32 (slots
+    remapped to a*k_pad + k, R the largest in-degree, at least 1), cell
+    (n, 3, 3) f64, types (n, A) i32, natoms (n,) i64: the arguments of
+    `snap_rows` and `nn_prep`, in their order."""
+    n = len(ids)
+    R = max(1, max(packed[i].rev.shape[1] for i in ids))
+    disp = np.zeros((n, a_pad, k_pad, 3))
+    jidx = np.zeros((n, a_pad, k_pad), np.int32)
+    mask = np.zeros((n, a_pad, k_pad), bool)
+    rev = np.full((n, a_pad, R), -1, np.int32)
+    cell = np.zeros((n, 3, 3))
+    types = np.zeros((n, a_pad), np.int32)
+    nat = np.zeros((n,), np.int64)
+    for j, i in enumerate(ids):
+        pc = packed[i]
+        na, kc = pc.natoms, pc.kcount
+        disp[j, :na, :kc] = pc.disp[:, :kc]
+        jidx[j, :na, :kc] = pc.jidx[:, :kc]
+        mask[j, :na, :kc] = pc.mask[:, :kc]
+        r = pc.rev
+        rev[j, :na, :r.shape[1]] = np.where(
+            r < 0, -1, (r // max(kc, 1)) * k_pad + r % max(kc, 1))
+        cell[j] = pc.cell
+        types[j, :na] = pc.types
+        nat[j] = na
+    return disp, jidx, mask, rev, types, nat, cell
 
 
 @dataclass
@@ -214,6 +303,11 @@ class SnapCalculator:
         return snap_rows(self.params, self.numtypes, self.refspec, disp,
                          jidx, mask, rev, types, natoms, cell, plain=plain)
 
+    def nn_prep(self, disp, jidx, mask, rev, types, natoms):
+        """`nn_prep` of a batch with this calculator's model."""
+        return nn_prep(self.params, self.refspec, disp, jidx, mask, rev,
+                       types, natoms)
+
     def process_single(self, data, plain=False):
         """Per-config rows (a, b, w) for library mode."""
         a, b, w, _ = self.process_configs([data], plain=plain)
@@ -240,39 +334,14 @@ class SnapCalculator:
         """Yield (config indices, rows() arguments on the device) for every
         chunk of every shape bucket."""
         dev = self.device
-
-        def put(x):
-            return torch.from_numpy(x).to(dev)
-
         for (a_pad, k_pad), idxs in buckets.items():
             chunk = min(chunk_size(a_pad, k_pad, self.desc_width()),
                         len(idxs))
             for c0 in range(0, len(idxs), chunk):
                 ids = idxs[c0:c0 + chunk]
-                n = len(ids)
-                R = max(1, max(packed[i].rev.shape[1] for i in ids))
-                disp = np.zeros((n, a_pad, k_pad, 3))
-                jidx = np.zeros((n, a_pad, k_pad), np.int32)
-                mask = np.zeros((n, a_pad, k_pad), bool)
-                rev = np.full((n, a_pad, R), -1, np.int32)
-                cell = np.zeros((n, 3, 3))
-                types = np.zeros((n, a_pad), np.int32)
-                nat = np.zeros((n,), np.int64)
-                for j, i in enumerate(ids):
-                    pc = packed[i]
-                    na, kc = pc.natoms, pc.kcount
-                    disp[j, :na, :kc] = pc.disp[:, :kc]
-                    jidx[j, :na, :kc] = pc.jidx[:, :kc]
-                    mask[j, :na, :kc] = pc.mask[:, :kc]
-                    r = pc.rev
-                    rev[j, :na, :r.shape[1]] = np.where(
-                        r < 0, -1, (r // max(kc, 1)) * k_pad + r % max(kc, 1))
-                    cell[j] = pc.cell
-                    types[j, :na] = pc.types
-                    nat[j] = na
-                yield ids, (put(disp).to(DTYPE), put(jidx), put(mask),
-                            put(rev), put(types), put(nat),
-                            put(cell).to(DTYPE))
+                arrays = pack_bucket(packed, ids, a_pad, k_pad)
+                yield ids, tuple(torch.from_numpy(x).to(dev)
+                                 for x in arrays)
 
     def _expand(self, block, counts_frac=None):
         """(..., raw_width) -> (..., width): insert per-type leading column

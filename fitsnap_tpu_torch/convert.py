@@ -1,14 +1,15 @@
 """Carry state of the JAX package across as plain numpy arrays.
 
 The port imports nothing of `fitsnap_tpu`; a caller that has both (the
-parity tests) reads the fields of a JAX `SnapParams` and its `SnapPlan` as
-numpy arrays and hands them over here, so that both packages compute from
-identical tables.
+parity tests) reads the fields of a JAX `SnapParams` and its `SnapPlan`, or
+the layers of a JAX MLP, as numpy arrays and hands them over here, so that
+both packages compute from identical tables and weights.
 """
 
 import numpy as np
 import torch
 
+from fitsnap_tpu_torch.models.mlp import params_to_numpy
 from fitsnap_tpu_torch.ops.ace import AcePlan
 from fitsnap_tpu_torch.ops.snap import SnapParams, params_from_arrays
 
@@ -63,3 +64,19 @@ def coeffs_from_numpy(coeffs, device="cpu") -> torch.Tensor:
     """A fitted coefficient vector as a float64 tensor on `device`."""
     return torch.as_tensor(np.asarray(coeffs, np.float64),
                            device=torch.device(device))
+
+
+def mlp_params_from_numpy(params, device="cpu"):
+    """MLP parameters [(W (nelem, nin, nout), b (nelem, nout)), ...] given
+    as numpy arrays (a JAX MLP's, `[(np.asarray(w), np.asarray(b)) ...]`)
+    as float64 tensors on `device`, the port's layout."""
+    dev = torch.device(device)
+    return [(torch.as_tensor(np.asarray(w, np.float64), device=dev),
+             torch.as_tensor(np.asarray(b, np.float64), device=dev))
+            for w, b in params]
+
+
+def mlp_params_to_numpy(params):
+    """The port's MLP parameters as float64 numpy arrays, the layout the JAX
+    package's `atom_energies` and its saved states take."""
+    return params_to_numpy(params)

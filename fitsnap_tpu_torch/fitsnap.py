@@ -4,8 +4,10 @@ Counterpart of `fitsnap_tpu/fitsnap.py` with the same factories and stage
 methods: `FitSnap(input, arglist, device).scrape_configs()`,
 `.process_configs()`, `.perform_fit()`, `.write_output()`.  The port takes
 the JSON scraper, the LAMMPSSNAP and LAMMPSPACE calculators, the SVD,
-TPUSVD / SCALAPACK and TENSORFLOWSVD solvers and SNAP and PACE output; any
-other choice raises NotImplementedError naming its ROADMAP item.
+TPUSVD / SCALAPACK and TENSORFLOWSVD solvers, the NN solver (PYTORCH /
+NETWORK / JAX) on LAMMPSSNAP descriptors in its precompute mode, and SNAP
+and PACE output; any other choice raises NotImplementedError naming its
+ROADMAP item.
 """
 
 import time
@@ -29,16 +31,17 @@ def _scraper_factory(config):
 
 def _calculator_factory(config, device):
     name = config.sections["CALCULATOR"].calculator.upper()
-    if config.sections["CALCULATOR"].nonlinear:
+    if config.sections["CALCULATOR"].nonlinear and name == "LAMMPSPACE":
         raise NotImplementedError(_LATER.format(
-            "nonlinear calculator", name, "queue 1: NN solver"))
+            "nonlinear calculator", name, "queue 8: ACE nonlinear"))
     if name == "LAMMPSSNAP":
         from fitsnap_tpu_torch.calculators.snap import SnapCalculator
         return SnapCalculator(name, config, device)
     if name == "LAMMPSPACE":
         from fitsnap_tpu_torch.calculators.ace import AceCalculator
         return AceCalculator(name, config, device)
-    item = {"LAMMPSCUSTOM": "queue 1: custom"}.get(name, "queue 1")
+    item = {"LAMMPSCUSTOM": "queue 9: custom pairwise NN"}.get(name,
+                                                                "queue 1")
     raise NotImplementedError(_LATER.format("calculator", name, item))
 
 
@@ -53,10 +56,11 @@ def _solver_factory(config, device):
     if name in ("TPUSVD", "SCALAPACK"):
         from fitsnap_tpu_torch.solvers.tpu_svd import TpuSVD
         return TpuSVD(name, config, device)
-    item = {"PYTORCH": "queue 1: NN solver", "NETWORK": "queue 1: NN solver",
-            "JAX": "queue 1: NN solver"}.get(
-        name, "queue 1: the other linear solvers")
-    raise NotImplementedError(_LATER.format("solver", name, item))
+    if name in ("PYTORCH", "NETWORK", "JAX"):
+        from fitsnap_tpu_torch.solvers.network import NetworkSolver
+        return NetworkSolver(name, config, device)
+    raise NotImplementedError(_LATER.format(
+        "solver", name, "queue 5: the other linear solvers"))
 
 
 def _output_factory(config):
@@ -108,6 +112,14 @@ class FitSnap:
     def process_configs(self, data=None, delete_data: bool = False):
         t0 = time.time()
         data = data if data is not None else self.data
+        if self.config.sections["CALCULATOR"].nonlinear:
+            # NN path: per-atom descriptors and their pair jacobian stay on
+            # the device; no A matrix is formed
+            self.solver.prepare_dataset(self.calculator, data)
+            self.timings["process"] = time.time() - t0
+            if delete_data:
+                self.data = None
+            return
         self.a, self.b, self.w, self.fs_dict = \
             self.calculator.process_configs(data)
         self.timings["process"] = time.time() - t0
@@ -129,6 +141,9 @@ class FitSnap:
         elif self.config.sections["EXTRAS"].only_test:
             self.fit = self.output.read_fit()
             self.solver.fit = self.fit
+        elif self.config.sections["CALCULATOR"].nonlinear:
+            self.solver.perform_fit(calculator=self.calculator,
+                                    data=self.data)
         else:
             self.solver.perform_fit(self.a, self.b, self.w, self.fs_dict)
             self.fit = self.solver.fit

@@ -1,7 +1,7 @@
 """SNAP potential file writers (.snapcoeff / .snapparam / .mod) + metrics.
 
-Copy of `fitsnap_tpu/io/outputs/snap_output.py` for the linear path; the
-ML-IAP (NN) writers come with the NN solver (ROADMAP.md, queue 1).
+Copy of `fitsnap_tpu/io/outputs/snap_output.py`: the linear writers and,
+for a nonlinear (NN) fit, the ML-IAP descriptor and pair-style files.
 
 File formats match reference `fitsnap3lib/io/outputs/snap.py` so the emitted
 potentials drop into LAMMPS (`pair_style snap`) unchanged and metric files
@@ -19,8 +19,80 @@ class SnapOutput:
         self.name = name
 
     def output(self, coeffs, errors):
+        if self.config.sections["CALCULATOR"].nonlinear:
+            self.write_nn(errors)
+            return
         self.write_lammps(coeffs)
         self.write_errors(errors)
+
+    def write_nn(self, errors):
+        """Nonlinear outputs: ML-IAP descriptor + pair-style include files
+        (reference `io/outputs/snap.py:67`); the network itself is the `.pt`
+        the solver exports."""
+        pot = self.config.sections["OUTFILE"].potential_name
+        if pot:
+            with open(pot + ".mliap.descriptor", "wt") as f:
+                f.write(self._mliap_string())
+            with open(pot + ".mod", "wt") as f:
+                f.write(self._mliap_mod())
+        self.write_errors(errors)
+
+    def _mliap_string(self):
+        sec = self.config.sections["BISPECTRUM"]
+        ref = self.config.sections["REFERENCE"]
+        out = "# required\n"
+        out += f"rcutfac {sec.rcutfac}\n"
+        out += f"twojmax {max(sec.twojmax)}\n\n"
+        out += "#elements\n"
+        out += f"nelems {sec.numtypes}\n"
+        out += "elems " + " ".join(sec.types) + "\n"
+        out += "radelems " + " ".join(str(r) for r in sec.radelem) + "\n"
+        out += "welems " + " ".join(str(w) for w in sec.wj) + "\n"
+        if sec.switchinnerflag:
+            out += f"sinnerelems {sec.sinner}\n"
+            out += f"dinnerelems {sec.dinner}\n"
+        out += "\n\n# optional\n"
+        out += f"rfac0 {sec.rfac0}\n"
+        out += f"rmin0 {sec.rmin0}\n"
+        out += f"switchinnerflag {sec.switchinnerflag}\n"
+        out += f"bzeroflag {sec.bzeroflag}\n\n"
+        out += f"# fitsnap_tpu_torch generated Hash: {self.config.hash}\n"
+        out += f"# units {ref.units}\n# atom_style {ref.atom_style}\n"
+        out += "\n".join("# " + s for s in ref.lmp_pairdecl) + "\n"
+        return out
+
+    def _mliap_mod(self):
+        ref = self.config.sections["REFERENCE"]
+        sec = self.config.sections["BISPECTRUM"]
+        snap_filename = self.config.sections["OUTFILE"].potential_name \
+            .split("/")[-1]
+        pt_filename = "FitTorch_Pytorch.pt"
+        for name in ("PYTORCH", "NETWORK", "JAX"):
+            if name in self.config.sections:
+                pt_filename = self.config.sections[name].output_file \
+                    .split("/")[-1]
+                break
+        if not pt_filename.endswith(".pt"):
+            pt_filename += ".pt"
+        ps = ref.lmp_pairdecl[0]
+        out = f"# fitsnap_tpu_torch generated Hash: {self.config.hash}\n"
+        if "hybrid" in ps:
+            if "zero" in ps.split():
+                sp = ps.split()
+                zi = sp.index("zero")
+                del sp[zi]
+                del sp[zi]
+                ps = " ".join(sp)
+            out += ps + (f" mliap model mliappy {pt_filename} descriptor "
+                         f"sna {snap_filename}.mliap.descriptor\n")
+            for pc in ref.lmp_pairdecl[1:]:
+                out += f"{pc}\n" if "zero" not in pc else ""
+            out += "pair_coeff * * mliap " + " ".join(sec.types)
+        else:
+            out += (f"pair_style mliap model mliappy {pt_filename} "
+                    f"descriptor sna {snap_filename}.mliap.descriptor\n")
+            out += "pair_coeff * * " + " ".join(sec.types)
+        return out
 
     # ---------------- potential files ----------------
 

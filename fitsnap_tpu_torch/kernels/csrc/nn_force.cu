@@ -1,0 +1,138 @@
+// K12 nn_force and its transpose K12T nn_force_t: the force contraction of
+// the NN solver's precompute mode.
+//
+// K12: from dE/dB (N, A, W) and the stored descriptor jacobian
+// G = dB/dD (N, A, W, K, 3) of a minibatch,
+//   fpair[n, a, k, c] = sum_w dEdB[n, a, w] G[n, a, w, k, c]
+//   F[n, m, c]        = sum_k fpair[n, m, k, c] - sum_r fpair[n, rev[n, m, r], c]
+// where rev (N, A, R) lists, per destination atom m, the flat slots a*K + k
+// whose neighbor is m (increasing, padded with -1).
+// K12T: the transpose, the cotangent of dE/dB from that of F,
+//   g[n, a, w] = sum_{k, c} (gF[n, a, c] - gF[n, jidx[n, a, k], c])
+//                           G[n, a, w, k, c].
+//
+// Replaces fitsnap_tpu/solvers/network.py `_forward_batch` (:720-742): the
+// einsum "naw,nawkc->nakc" and the O(A^2 K) one-hot scatter
+// -(scat - sum_k fpair), with the same code in `_forward_batch_cached`
+// (:811-816); K12T is what JAX's autodiff takes through both for the force
+// loss's gradient.
+//
+// Bound on the H100: bytes.  G is read once (about 2 flops per element);
+// everything else is a few percent of it.
+//
+// Design: no atomics, every sum in a fixed order, so a run repeats bit for
+// bit.  K12 is two launches, as K8/K8r are: the contraction, one block per
+// atom (n, a) with a thread per (k, c) walking down w (G's (K, 3) rows for
+// one w are contiguous, so a warp reads consecutive doubles), into an
+// (N, A, K, 3) scratch; then the gather through rev, one thread per
+// (n, m, c), as K4 finds a pair's source.  K12T: one block per atom; the
+// differences gF[a] - gF[jidx] go to shared memory once, then one warp per
+// w runs down G's (K, 3) row and reduces with shuffles in a fixed order.
+#include "common.cuh"
+
+namespace {
+
+constexpr int PAIR_THREADS = 128;
+constexpr int GATHER_THREADS = 128;
+constexpr int T_THREADS = 256;
+constexpr int WARPS = T_THREADS / 32;
+
+__global__ void nn_fpair_kernel(const double* __restrict__ dedb,
+                                const double* __restrict__ G, int W, int K,
+                                double* __restrict__ fpair) {
+  const long long atom = blockIdx.x;         // n * A + a
+  const int row = 3 * K;
+  const double* g = G + atom * W * row;
+  const double* d = dedb + atom * W;
+  for (int j = threadIdx.x; j < row; j += blockDim.x) {
+    double acc = 0.0;
+    for (int w = 0; w < W; ++w) acc += d[w] * g[static_cast<long long>(w) * row + j];
+    fpair[atom * row + j] = acc;
+  }
+}
+
+__global__ void nn_gather_kernel(const double* __restrict__ fpair,
+                                 const int* __restrict__ rev, int A, int K,
+                                 int R, long long total,
+                                 double* __restrict__ force) {
+  const long long idx = blockIdx.x * static_cast<long long>(blockDim.x)
+                        + threadIdx.x;
+  if (idx >= total) return;
+  const long long m = idx / 3;               // n * A + local atom
+  const int c = static_cast<int>(idx % 3);
+  const long long first = (m / A) * A;       // first atom of its config
+  double own = 0.0;
+  for (int k = 0; k < K; ++k) own += fpair[(m * K + k) * 3 + c];
+  double scat = 0.0;
+  for (int r = 0; r < R; ++r) {
+    const int slot = rev[m * R + r];
+    if (slot < 0) break;
+    scat += fpair[(first * K + slot) * 3 + c];
+  }
+  force[idx] = own - scat;
+}
+
+__global__ void nn_force_t_kernel(const double* __restrict__ gF,
+                                  const double* __restrict__ G,
+                                  const int* __restrict__ jidx, int A, int W,
+                                  int K, double* __restrict__ out) {
+  extern __shared__ double gd[];             // (K, 3)
+  const long long atom = blockIdx.x;
+  const long long first = (atom / A) * A;
+  const int row = 3 * K;
+  for (int j = threadIdx.x; j < row; j += blockDim.x) {
+    const int k = j / 3;
+    const int c = j % 3;
+    const long long src = first + jidx[atom * K + k];
+    gd[j] = gF[atom * 3 + c] - gF[src * 3 + c];
+  }
+  __syncthreads();
+  const int lane = threadIdx.x % 32;
+  const double* g = G + atom * W * row;
+  for (int w = threadIdx.x / 32; w < W; w += WARPS) {
+    const double* gw = g + static_cast<long long>(w) * row;
+    double acc = 0.0;
+    for (int j = lane; j < row; j += 32) acc += gd[j] * gw[j];
+    for (int off = 16; off > 0; off /= 2)
+      acc += __shfl_down_sync(0xffffffffu, acc, off);
+    if (lane == 0) out[atom * W + w] = acc;
+  }
+}
+
+}  // namespace
+
+// dedb (N, A, W), G (N, A, W, K, 3), rev (N, A, R) i32; fpair (N, A, K, 3)
+// scratch.  Writes force (N, A, 3).
+extern "C" int nn_force(const double* dedb, const double* G, const int* rev,
+                        int N, int A, int W, int K, int R, double* fpair,
+                        double* force, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long atoms = static_cast<long long>(N) * A;
+  if (atoms == 0) return 0;
+  nn_fpair_kernel<<<static_cast<unsigned>(atoms), PAIR_THREADS, 0, st>>>(
+      dedb, G, W, K, fpair);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const long long total = atoms * 3;
+  const unsigned blocks =
+      static_cast<unsigned>((total + GATHER_THREADS - 1) / GATHER_THREADS);
+  nn_gather_kernel<<<blocks, GATHER_THREADS, 0, st>>>(fpair, rev, A, K, R,
+                                                      total, force);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// gF (N, A, 3), G (N, A, W, K, 3), jidx (N, A, K) i32.  Writes out
+// (N, A, W).
+extern "C" int nn_force_t(const double* gF, const double* G, const int* jidx,
+                          int N, int A, int W, int K, double* out,
+                          void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long atoms = static_cast<long long>(N) * A;
+  if (atoms == 0) return 0;
+  const size_t smem = static_cast<size_t>(3) * K * sizeof(double);
+  const int err = fs_allow_smem(nn_force_t_kernel, smem);
+  if (err) return err;
+  nn_force_t_kernel<<<static_cast<unsigned>(atoms), T_THREADS, smem, st>>>(
+      gF, G, jidx, A, W, K, out);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,582 @@
+"""Neural-network solver (PyTorch), replacing the reference's PYTORCH /
+NETWORK / JAX solvers, in the precompute mode.
+
+Counterpart of `fitsnap_tpu/solvers/network.py` with `dgrad_mode =
+precompute`: per-atom descriptors B and their per-pair gradients G = dB/dD
+are computed on the device once (`calculators/snap.nn_prep`: kernels K1-K5,
+K6q and the chemflag modes under their flags), in shape buckets of configs
+padded to one (atoms, neighbor slots) shape.  Training is a per-epoch loop
+of minibatch steps: per-element MLP energies (`models/mlp.py`), dE/dB by
+autograd with `create_graph`, forces through the kernel K12 (`NnForce`,
+whose backward K12T carries the force residual back into the MLP's double
+backward), the weighted MSE loss, and Adam as optax's `scale_by_adam` with
+the learning rate applied outside it.
+
+The minibatch plan, the validation split, the `e_mean` bias shift, the
+warm start, best-validation tracking and the plateau scheduler are the JAX
+package's, so both packages follow the same loss trajectory from the same
+initial parameters.  The JAX package's epoch blocks and chunked programs
+only arrange TPU dispatch (they compute the same trajectory), and are not
+copied.  The cached and OTF modes, PAS and the custom pairwise NN raise
+naming their ROADMAP.md items.
+"""
+
+import time
+
+import numpy as np
+import torch
+
+from fitsnap_tpu_torch.convert import mlp_params_from_numpy
+from fitsnap_tpu_torch.io.screen import info, screen
+from fitsnap_tpu_torch.kernels.nn_kernels import NnForce, nn_force
+from fitsnap_tpu_torch.models.mlp import (PerElementMLP, init_mlp,
+                                          load_params, params_to_numpy,
+                                          save_params)
+from fitsnap_tpu_torch.solvers.solver import (NN_COLUMNS, NN_INDEX_NAMES,
+                                              ErrorTable, Solver)
+from fitsnap_tpu_torch.utils.torchsetup import DTYPE, resolve_device
+
+_LATER = "{} is not ported to fitsnap_tpu_torch yet (ROADMAP.md, queue {})"
+_CACHED = "3: the cached analytic-force and OTF modes, kernels K9-K11"
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+_BATCH_KEYS = ("B", "G", "types", "real", "nat", "jidx", "rev", "e_target",
+               "f_target", "ew", "fw")
+
+
+def _net_section(config):
+    for name in ("PYTORCH", "NETWORK", "JAX"):
+        if name in config.sections:
+            return config.sections[name]
+    raise ValueError("NN solver requires a PYTORCH/NETWORK/JAX section")
+
+
+def _plateau_step_host(sched, metric, *, factor, patience, threshold,
+                       lr_min, eps=1e-8):
+    """One ReduceLROnPlateau update (torch semantics: mode=min,
+    threshold_mode=abs, cooldown=0); sched = (lr, best, bad epochs).  A
+    metric improves iff it beats the best by more than `threshold`; after
+    `patience` epochs without improvement the LR is multiplied by `factor`
+    (floored at `lr_min`, skipped below `eps`) and the count resets."""
+    lr, best, bad = sched
+    improved = metric < best - threshold
+    best = metric if improved else best
+    bad = 0 if improved else bad + 1
+    trip = bad > patience
+    new_lr = max(lr * factor, lr_min)
+    if trip and (lr - new_lr > eps):
+        lr = new_lr
+    if trip:
+        bad = 0
+    return (lr, best, bad)
+
+
+class Adam:
+    """optax.scale_by_adam (b1 0.9, b2 0.999, eps 1e-8, eps_root 0) with
+    the update p + (-lr) u, as the JAX package applies its learning rate
+    outside the transform.  State: count, mu and nu per parameter, saved as
+    optax's flat leaf list (count, mu leaves, nu leaves)."""
+
+    def __init__(self, params):
+        self.count = 0
+        self.mu = [torch.zeros_like(p) for p in params]
+        self.nu = [torch.zeros_like(p) for p in params]
+
+    @torch.no_grad()
+    def step(self, params, grads, lr):
+        self.count += 1
+        c1 = 1 - ADAM_B1 ** self.count
+        c2 = 1 - ADAM_B2 ** self.count
+        for i, (p, g) in enumerate(zip(params, grads)):
+            self.mu[i] = (1 - ADAM_B1) * g + ADAM_B1 * self.mu[i]
+            self.nu[i] = (1 - ADAM_B2) * (g ** 2) + ADAM_B2 * self.nu[i]
+            u = (self.mu[i] / c1) / (torch.sqrt(self.nu[i] / c2) + ADAM_EPS)
+            p.copy_(p + (-lr) * u)
+
+    def clone(self):
+        other = Adam([])
+        other.count = self.count
+        other.mu = [m.clone() for m in self.mu]
+        other.nu = [v.clone() for v in self.nu]
+        return other
+
+    def leaves(self):
+        return ([np.asarray(self.count, np.int32)]
+                + [m.cpu().numpy() for m in self.mu]
+                + [v.cpu().numpy() for v in self.nu])
+
+    def load(self, stored, what):
+        want = self.leaves()
+        stored = list(stored)
+        if len(stored) != len(want) or any(
+                np.shape(a) != np.shape(b) for a, b in zip(stored, want)):
+            raise ValueError(
+                f"save_state_input {what!r} optimizer state does not match "
+                "this fit's optimizer (shape mismatch)")
+        n = len(self.mu)
+        self.count = int(np.asarray(stored[0]))
+        dev = self.mu[0].device
+        self.mu = [torch.as_tensor(np.asarray(a, np.float64), device=dev)
+                   for a in stored[1:1 + n]]
+        self.nu = [torch.as_tensor(np.asarray(a, np.float64), device=dev)
+                   for a in stored[1 + n:]]
+
+
+class NetworkSolver(Solver):
+    def __init__(self, name, config, device=None):
+        super().__init__(name, config, linear=False)
+        self.device = resolve_device(device)
+        self.net = _net_section(config)
+        if "CUSTOM" in config.sections:
+            raise NotImplementedError(_LATER.format(
+                "The custom pairwise NN", "9: custom pairwise NN"))
+        if config.sections["CALCULATOR"].per_atom_scalar:
+            raise NotImplementedError(_LATER.format(
+                "Per-atom scalar (PAS) fitting", "10: PAS"))
+        self.buckets = None     # list of per-bucket dataset dicts
+        self.mean = None
+        self.std = None
+        self.model = None
+        self.history = []
+        self.lr_history = np.zeros(0)
+        self.final_lr = None
+        self.epoch_times = []
+
+    # ------------- data -------------
+
+    def prepare_dataset(self, calculator, data):
+        """Descriptors and their pair jacobian of every config on the
+        device, in coalesced shape buckets, with the reference-subtracted
+        targets and the descriptor standardization."""
+        from fitsnap_tpu_torch.calculators.snap import (
+            chunk_size, coalesce_shape_buckets, pack_bucket)
+
+        mode = self.net.dgrad_mode
+        if mode in ("cached", "otf"):
+            raise NotImplementedError(_LATER.format(
+                f"dgrad_mode={mode}", _CACHED))
+        packed, shape_buckets = calculator.host_preprocess(data)
+        shape_buckets = coalesce_shape_buckets(shape_buckets)
+        width = calculator.desc_width()
+        if mode == "auto":
+            # the JAX package would pick the cached mode for linear SNAP;
+            # both compute the same forces (tests/test_nn.py holds them to
+            # each other), and precompute is the mode the port has
+            g_bytes = sum(len(v) * a * k * width * 3 * 8
+                          for (a, k), v in shape_buckets.items())
+            if self.device.type == "cuda":
+                free = torch.cuda.mem_get_info(self.device)[0]
+                if g_bytes > free:
+                    raise NotImplementedError(
+                        f"dgrad_mode=auto: the stored dB/dD needs "
+                        f"{g_bytes / 1e9:.2f} GB, more than the "
+                        f"{free / 1e9:.2f} GB free on {self.device}; "
+                        + _LATER.format("The cached mode", _CACHED))
+            screen(f"dgrad_mode=auto -> precompute (dB/dD "
+                   f"{g_bytes / 1e9:.3f} GB on {self.device})")
+
+        dev = self.device
+        self.buckets = []
+        sum_b = sumsq_b = None
+        count = 0
+        for (a_pad, k_pad), idxs in sorted(shape_buckets.items()):
+            n = len(idxs)
+            arrays = pack_bucket(packed, idxs, a_pad, k_pad)
+            disp, jidx, mask, rev, types, nat, _ = arrays
+            datas = [packed[i].data for i in idxs]
+            e_t = np.array([d["Energy"] for d in datas], np.float64)
+            f_t = np.zeros((n, a_pad, 3))
+            for j, d in enumerate(datas):
+                f_t[j, :nat[j]] = d["Forces"]
+            chunk = min(chunk_size(a_pad, k_pad, width), n)
+            outs = []
+            for c0 in range(0, n, chunk):
+                outs.append(calculator.nn_prep(*[
+                    torch.from_numpy(x[c0:c0 + chunk]).to(dev)
+                    for x in arrays[:6]]))
+            B, G, re, rf = (torch.cat(x) for x in zip(*outs))
+            del outs
+            natd = torch.from_numpy(nat).to(dev)
+            e_target = (torch.from_numpy(e_t).to(dev) - re) \
+                / torch.clamp(natd, min=1)
+            f_target = torch.from_numpy(f_t).to(dev) - rf
+            real = torch.arange(a_pad, device=dev)[None, :] < natd[:, None]
+            Bm = B * real[..., None]
+            sb = Bm.sum((0, 1)).cpu().numpy()
+            ssq = (Bm * Bm).sum((0, 1)).cpu().numpy()
+            sum_b = sb if sum_b is None else sum_b + sb
+            sumsq_b = ssq if sumsq_b is None else sumsq_b + ssq
+            count += int(real.sum())
+            self.buckets.append({
+                "B": B, "G": G,
+                "jidx": torch.from_numpy(jidx).to(dev),
+                "rev": torch.from_numpy(rev).to(dev),
+                "types": torch.from_numpy(types).to(dev),
+                "nat": natd, "real": real,
+                "e_target": e_target, "f_target": f_target,
+                "ew": torch.tensor([d.get("eweight", 1.0) for d in datas],
+                                   dtype=DTYPE, device=dev),
+                "fw": torch.tensor([d.get("fweight", 1.0) for d in datas],
+                                   dtype=DTYPE, device=dev),
+                "test": np.array([bool(d["test_bool"]) for d in datas]),
+                "groups": [d["Group"] for d in datas],
+                "files": [str(d.get("File", "")) for d in datas],
+                "nat_host": nat, "shape": (a_pad, k_pad),
+            })
+        mean = sum_b / count
+        var = sumsq_b / count - mean ** 2
+        std = np.sqrt(np.clip(var, 0, None))
+        std[std < 1e-8] = 1.0
+        self.mean = torch.as_tensor(mean, dtype=DTYPE, device=dev)
+        self.std = torch.as_tensor(std, dtype=DTYPE, device=dev)
+        return self.buckets
+
+    # ------------- model -------------
+
+    def _forward_batch(self, model, batch, train=False):
+        """Per-atom-normalized energies and forces of one gathered batch
+        under `model` (a `PerElementMLP`).  With `train`, dE/dB keeps its
+        graph and the forces go through `NnForce`, so the loss's parameter
+        gradient holds the force term."""
+        B = batch["B"]
+        real = batch["real"].to(B.dtype)
+        nat = torch.clamp(batch["nat"], min=1).to(B.dtype)
+        x = ((B - self.mean) / self.std).requires_grad_(True)
+        with torch.enable_grad():
+            e = (model(x, batch["types"]) * real).sum(1)
+            dEdx, = torch.autograd.grad(e.sum(), x, create_graph=train)
+        dEdB = dEdx / self.std
+        if train:
+            forces = NnForce.apply(dEdB, batch["G"], batch["jidx"],
+                                   batch["rev"])
+        else:
+            e, dEdB = e.detach(), dEdB.detach()
+            forces = nn_force(dEdB, batch["G"], batch["jidx"], batch["rev"])
+        return e / nat, forces
+
+    def _loss(self, model, batch, train=False):
+        """Weighted MSE loss of one minibatch (JAX `_loss`, one device)."""
+        net = self.net
+        e_pred, f_pred = self._forward_batch(model, batch, train)
+        real = batch["real"].to(e_pred.dtype)
+        live = (batch["nat"] > 0).to(e_pred.dtype)
+        nfc = torch.clamp((real.sum(1) * 3 * live).sum(), min=1.0)
+        ne = torch.clamp(live.sum(), min=1.0)
+        e_res = (e_pred - batch["e_target"]) * live
+        f_res = (f_pred - batch["f_target"]) * real[..., None] \
+            * live[:, None, None]
+        if net.global_weight_bool:
+            return (net.energy_weight * torch.sum(e_res ** 2) / ne
+                    + net.force_weight * torch.sum(f_res ** 2) / nfc)
+        return (torch.sum(batch["ew"] * e_res ** 2) / ne
+                + torch.sum(batch["fw"][:, None, None] * f_res ** 2) / nfc)
+
+    def _gather(self, ds, idx):
+        idx = torch.as_tensor(np.asarray(idx), dtype=torch.long,
+                              device=self.device)
+        return {k: ds[k].index_select(0, idx) for k in _BATCH_KEYS}
+
+    # ------------- training -------------
+
+    def perform_fit(self, a=None, b=None, w=None, fs_dict=None,
+                    calculator=None, data=None):
+        if self.buckets is None:
+            assert calculator is not None and data is not None, \
+                "NetworkSolver needs (calculator, data) or prepare_dataset()"
+            self.prepare_dataset(calculator, data)
+        net = self.net
+        dev = self.device
+        nelem_net = (self.config.sections["BISPECTRUM"].numtypes
+                     if net.multi_element_option == 2 else 1)
+        if net.multi_element_option != 2:
+            for ds in self.buckets:
+                ds["types"] = torch.zeros_like(ds["types"])
+        seed = 13 if net.manual_seed_flag else int(time.time()) % 2 ** 31
+        params = init_mlp(net.layer_sizes, nelem_net,
+                          torch.Generator().manual_seed(seed), dev)
+        warm_start = net.save_state_input and net.save_state_input != "None"
+        warm_opt = None
+        if warm_start:
+            params, warm_opt = self._warm_start(net, params)
+        # start the output bias at the mean per-atom energy target
+        e_mean = float(np.mean(np.concatenate(
+            [ds["e_target"].cpu().numpy() for ds in self.buckets])))
+        if not warm_start:
+            w_last, b_last = params[-1]
+            params[-1] = (w_last, b_last + e_mean)
+        model = PerElementMLP(params)
+        leaves = list(model.parameters())
+        adam = Adam(leaves)
+        if warm_opt is not None:
+            adam.load(warm_opt, net.save_state_input)
+        sched_on = bool(getattr(net, "lr_plateau_flag", False))
+
+        # per-bucket train/val indices and the minibatch plan of every
+        # epoch, drawn in the JAX package's order
+        rng = np.random.default_rng(13)
+        bs = net.batch_size
+        train_sets, val_sets = [], []
+        for ds in self.buckets:
+            tr = np.where(~ds["test"])[0]
+            va = np.where(ds["test"])[0]
+            if net.training_fraction < 1.0 and len(va) == 0:
+                ntr = int(len(tr) * net.training_fraction)
+                va = tr[ntr:]
+                tr = tr[:ntr]
+            train_sets.append(tr)
+            val_sets.append(va)
+        E = net.num_epochs
+        train_perms, tkeys = [], []
+        for bi, tr in enumerate(train_sets):
+            if len(tr) == 0:
+                continue
+            # the JAX package's np.resize wrap of a set smaller than the
+            # minibatch fires only with more devices than examples; on one
+            # device the minibatch is min(batch_size, len)
+            bsz = min(bs, len(tr))
+            nst = (len(tr) - bsz) // bsz + 1
+            train_perms.append(np.stack([
+                (rng.permutation(tr) if net.shuffle_flag else np.asarray(tr))
+                [:nst * bsz].reshape(nst, bsz) for _ in range(E)]))
+            tkeys.append(bi)
+        val_plans, vkeys = [], []
+        for bi, va in enumerate(val_sets):
+            if len(va) == 0:
+                continue
+            bsz = min(bs, len(va))
+            nst = (len(va) - bsz) // bsz + 1
+            val_plans.append(np.asarray(va)[:nst * bsz].reshape(nst, bsz))
+            vkeys.append(bi)
+
+        sched = (float(net.learning_rate), np.inf, 0)
+        best_val = np.inf
+        best_leaves = [p.detach().clone() for p in leaves]
+        best_opt = adam.clone()
+        tls, vls, lrs = np.zeros(E), np.zeros(E), np.zeros(E)
+        self.epoch_times = []
+        for e in range(E):
+            t0 = time.time()
+            lr = sched[0]
+            tl_sum = torch.zeros((), dtype=DTYPE, device=dev)
+            tn = 0
+            for slot, bi in enumerate(tkeys):
+                losses = []
+                for idx in train_perms[slot][e]:
+                    batch = self._gather(self.buckets[bi], idx)
+                    loss = self._loss(model, batch, train=True)
+                    grads = torch.autograd.grad(loss, leaves)
+                    adam.step(leaves, grads, lr)
+                    losses.append(loss.detach())
+                tl_sum = tl_sum + torch.stack(losses).sum()
+                tn += len(losses)
+            tl = float(tl_sum / max(tn, 1))
+            if vkeys:
+                vl_sum = torch.zeros((), dtype=DTYPE, device=dev)
+                vn = 0
+                for slot, bi in enumerate(vkeys):
+                    vl_b = [self._loss(model,
+                                       self._gather(self.buckets[bi], idx))
+                            for idx in val_plans[slot]]
+                    vl_sum = vl_sum + torch.stack(vl_b).sum()
+                    vn += len(vl_b)
+                vl = float(vl_sum / max(vn, 1))
+            else:
+                vl = tl
+            if vl <= best_val:
+                # torch parameters change in place: keep copies
+                best_val = vl
+                best_leaves = [p.detach().clone() for p in leaves]
+                best_opt = adam.clone()
+            if sched_on:
+                sched = _plateau_step_host(
+                    sched, vl, factor=net.lr_plateau_factor,
+                    patience=net.lr_plateau_patience,
+                    threshold=net.lr_plateau_threshold, lr_min=net.lr_min)
+            tls[e], vls[e], lrs[e] = tl, vl, sched[0]
+            self.epoch_times.append(time.time() - t0)
+        self.final_lr = float(sched[0])
+        self.lr_history = lrs
+        self._log_lr_reductions(net)
+        self.history = [(e, float(tls[e]), float(vls[e])) for e in range(E)]
+        with torch.no_grad():
+            for p, q in zip(leaves, best_leaves):
+                p.copy_(q)
+        self.model = model
+        self.fit = None  # nonlinear: no coefficient vector
+        return self._finalize_fit(best_opt, net, nelem_net)
+
+    def _warm_start(self, net, params):
+        """Parameters, standardization and Adam leaves of a saved state,
+        checked against this fit's shapes and settings."""
+        loaded, meta = load_params(net.save_state_input)
+        got = [(tuple(w.shape), tuple(b.shape)) for w, b in loaded]
+        want = [(tuple(w.shape), tuple(b.shape)) for w, b in params]
+        if got != want:
+            raise ValueError(
+                f"save_state_input {net.save_state_input!r} has layer "
+                f"shapes {got}, but this fit needs {want} "
+                f"(layer_sizes/multi_element_option mismatch)")
+        if meta.get("layer_sizes") is not None and \
+                list(meta["layer_sizes"]) != list(net.layer_sizes):
+            raise ValueError(
+                f"save_state_input {net.save_state_input!r} was trained "
+                f"with layer_sizes={meta['layer_sizes']}, this fit uses "
+                f"{net.layer_sizes}")
+        if meta.get("multi_element_option") not in (
+                None, net.multi_element_option):
+            raise ValueError(
+                f"save_state_input {net.save_state_input!r} was trained "
+                f"with multi_element_option="
+                f"{meta['multi_element_option']}, this fit uses "
+                f"{net.multi_element_option}")
+
+        params = mlp_params_from_numpy(loaded, self.device)
+        # the saved weights were trained against the saving fit's
+        # descriptor standardization: restore it
+        if meta.get("mean") is not None and self.mean is not None:
+            m, s = np.asarray(meta["mean"]), np.asarray(meta["std"])
+            if m.shape != tuple(self.mean.shape):
+                raise ValueError(
+                    f"save_state_input {net.save_state_input!r} has "
+                    f"descriptor mean of width {m.shape}, this fit "
+                    f"computes {tuple(self.mean.shape)}")
+            self.mean, self.std = (torch.as_tensor(x, dtype=DTYPE,
+                                                   device=self.device)
+                                   for x in (m, s))
+        return params, meta.get("opt_state")
+
+    def _log_lr_reductions(self, net):
+        """Make scheduler action visible in run output: the reference's
+        effective trajectory is constant-LR (it never steps its scheduler),
+        so any reduction here is a deliberate divergence the user opted
+        into with lr_plateau_flag=1."""
+        if self.lr_history.size and self.final_lr is not None \
+                and self.final_lr < float(net.learning_rate) * (1 - 1e-12):
+            first = int(np.argmax(
+                self.lr_history < float(net.learning_rate) * (1 - 1e-12)))
+            info(f"ReduceLROnPlateau: lr {float(net.learning_rate):g} -> "
+                 f"{self.final_lr:g} (first reduction at epoch {first}; "
+                 "the reference never steps its scheduler)")
+
+    def _finalize_fit(self, best_opt, net, nelem_net):
+        with open("loss_vs_epochs.dat", "w") as f:
+            for e, tl, vl in self.history:
+                f.write(f"{e} {tl:.8e} {vl:.8e}\n")
+        mean, std = self.mean.cpu().numpy(), self.std.cpu().numpy()
+        if net.save_state_output and net.save_state_output != "None":
+            save_params(net.save_state_output, self.model.params, {
+                "layer_sizes": net.layer_sizes, "mean": mean, "std": std,
+                "multi_element_option": net.multi_element_option,
+                # Adam moments at the best-val epoch (the saved params)
+                "opt_state": best_opt.leaves(),
+            })
+        if net.output_file and net.output_file != "None":
+            # LAMMPS ML-IAP deployment module (reference
+            # `lib/neural_networks/pytorch.py:250`)
+            from fitsnap_tpu_torch.io.export_torch import export_mliap
+            out = net.output_file
+            if not out.endswith(".pt"):
+                out += ".pt"
+            export_mliap(out, params_to_numpy(self.model.params), mean, std,
+                         nelem_net)
+        return self.model
+
+    # ------------- evaluation / errors -------------
+
+    def evaluate_bucket(self, ds):
+        """Per-atom energies (n,) and forces (n, A, 3) of every config in
+        one bucket, as numpy arrays, 32 configs at a time."""
+        n = int(ds["nat"].shape[0])
+        es, fs = [], []
+        for c0 in range(0, n, 32):
+            e, f = self._forward_batch(
+                self.model, self._gather(ds, np.arange(c0, min(c0 + 32, n))))
+            es.append(e)
+            fs.append(f)
+        return torch.cat(es).cpu().numpy(), torch.cat(fs).cpu().numpy()
+
+    def _dump_details(self):
+        """Per-config and per-atom prediction files (reference
+        solver.py:210-298 NN dumps, consumed by tools/nn_tools.py)."""
+        extras = self.config.sections["EXTRAS"]
+        outfile = self.config.sections["OUTFILE"]
+        fhc = open(outfile.perconfig_file, "w") if extras.dump_perconfig \
+            else None
+        fha = open(outfile.peratom_file, "w") if extras.dump_peratom \
+            else None
+        if fhc:
+            fhc.write("Filename Group Natoms Energy_Truth Energy_Pred "
+                      "Testing_Bool\n")
+        if fha:
+            fha.write("Filename Group AtomID Type Fx_Truth Fy_Truth "
+                      "Fz_Truth Fx_Pred Fy_Pred Fz_Pred Testing_Bool\n")
+        for ds in self.buckets:
+            e_pred, f_pred = self.evaluate_bucket(ds)
+            e_t = ds["e_target"].cpu().numpy()
+            f_t = ds["f_target"].cpu().numpy()
+            types = ds["types"].cpu().numpy()
+            nat = ds["nat_host"]
+            for i, g in enumerate(ds["groups"]):
+                fn = ds["files"][i]
+                tb = int(ds["test"][i])
+                na = int(nat[i])
+                if fhc:
+                    fhc.write(f"{fn} {g} {na} {e_t[i]:.10e} "
+                              f"{e_pred[i]:.10e} {tb}\n")
+                if fha:
+                    for k in range(na):
+                        ft = f_t[i, k]
+                        fp = f_pred[i, k]
+                        fha.write(
+                            f"{fn} {g} {k} {types[i, k] + 1} "
+                            f"{ft[0]:.10e} {ft[1]:.10e} {ft[2]:.10e} "
+                            f"{fp[0]:.10e} {fp[1]:.10e} {fp[2]:.10e} "
+                            f"{tb}\n")
+        if fhc:
+            fhc.close()
+        if fha:
+            fha.close()
+
+    def error_analysis(self, a=None, b=None, w=None, fs_dict=None):
+        """Energy and force errors per (Group, Testing) and over all
+        groups, as the JAX package's NN table."""
+        if self.model is None or self.buckets is None:
+            self.errors = []
+            return
+        extras = self.config.sections["EXTRAS"]
+        if extras.dump_perconfig or extras.dump_peratom:
+            self._dump_details()
+        rows_e, rows_f = {}, {}
+        for ds in self.buckets:
+            e_pred, f_pred = self.evaluate_bucket(ds)
+            e_t = ds["e_target"].cpu().numpy()
+            f_t = ds["f_target"].cpu().numpy()
+            realm = ds["real"].cpu().numpy()
+            for i, g in enumerate(ds["groups"]):
+                label = "Testing" if ds["test"][i] else "Training"
+                rows_e.setdefault((g, label), []).append(
+                    e_pred[i] - e_t[i])
+                rows_f.setdefault((g, label), []).append(
+                    (f_pred[i] - f_t[i])[realm[i]])
+        index, values = [], []
+        keys = sorted(rows_e) + [("*ALL", "Training"), ("*ALL", "Testing")]
+        for g, label in keys:
+            if g == "*ALL":
+                e_res = np.concatenate(
+                    [np.atleast_1d(v) for (gg, ll), vs in rows_e.items()
+                     if ll == label for v in vs] or [np.zeros(0)])
+                f_res = np.concatenate(
+                    [v.reshape(-1) for (gg, ll), vs in rows_f.items()
+                     if ll == label for v in vs] or [np.zeros(0)])
+            else:
+                e_res = np.array(rows_e[(g, label)])
+                f_res = np.concatenate(
+                    [v.reshape(-1) for v in rows_f[(g, label)]])
+            if e_res.size == 0:
+                continue
+            index.append((g, label))
+            values.append([
+                e_res.size, np.abs(e_res).mean(),
+                np.sqrt((e_res ** 2).mean()), f_res.size,
+                np.abs(f_res).mean() if f_res.size else 0.0,
+                np.sqrt((f_res ** 2).mean()) if f_res.size else 0.0])
+        self.errors = ErrorTable(index, values, NN_INDEX_NAMES, NN_COLUMNS)

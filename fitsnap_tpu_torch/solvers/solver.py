@@ -11,40 +11,49 @@ import numpy as np
 
 _COLUMNS = ("ncount", "mae", "rmse", "rsq")
 _INDEX_NAMES = ("Group", "Weighting", "Testing", "Subsystem")
+NN_COLUMNS = ("ncount_E", "mae_E", "rmse_E", "ncount_F", "mae_F", "rmse_F")
+NN_INDEX_NAMES = ("Group", "Testing")
 
 
 class ErrorTable:
     """Grouped fit errors.
 
-    `index` is a list of (Group, Weighting, Testing, Subsystem) tuples and
-    `values` an (n, 4) array of ncount, mae, rmse, rsq, row by row in the
-    order of the JAX package's table.
+    `index` is a list of tuples of `index_names` and `values` an (n,
+    len(columns)) array, row by row in the order of the JAX package's
+    table.  The linear table's index is (Group, Weighting, Testing,
+    Subsystem) and its columns ncount, mae, rmse, rsq; the NN solver's are
+    NN_INDEX_NAMES and NN_COLUMNS.  Columns named ncount* are counts.
     """
 
-    columns = _COLUMNS
-    index_names = _INDEX_NAMES
-
-    def __init__(self, index, values):
+    def __init__(self, index, values, index_names=_INDEX_NAMES,
+                 columns=_COLUMNS):
         self.index = list(index)
-        self.values = np.asarray(values, np.float64).reshape(-1, 4)
+        self.index_names = tuple(index_names)
+        self.columns = tuple(columns)
+        self.values = np.asarray(values, np.float64).reshape(
+            -1, len(self.columns))
 
     def __len__(self):
         return len(self.index)
 
+    def _cells(self, v, fmt):
+        return [str(int(x)) if c.startswith("ncount") else fmt.format(x)
+                for c, x in zip(self.columns, v)]
+
     def to_markdown(self):
-        head = "| " + " | ".join(_INDEX_NAMES + _COLUMNS) + " |"
-        rule = "|" + "|".join([":---"] * 4 + ["---:"] * 4) + "|"
+        head = "| " + " | ".join(self.index_names + self.columns) + " |"
+        rule = "|" + "|".join([":---"] * len(self.index_names)
+                              + ["---:"] * len(self.columns)) + "|"
         lines = [head, rule]
         for key, v in zip(self.index, self.values):
-            nums = [str(int(v[0]))] + [f"{x:.8g}" for x in v[1:]]
-            lines.append("| " + " | ".join(list(key) + nums) + " |")
+            lines.append("| " + " | ".join(
+                list(key) + self._cells(v, "{:.8g}")) + " |")
         return "\n".join(lines) + "\n"
 
     def to_csv(self, sep=","):
-        lines = [sep.join(_INDEX_NAMES + _COLUMNS)]
+        lines = [sep.join(self.index_names + self.columns)]
         for key, v in zip(self.index, self.values):
-            nums = [str(int(v[0]))] + [f"{x:.8f}" for x in v[1:]]
-            lines.append(sep.join(list(key) + nums))
+            lines.append(sep.join(list(key) + self._cells(v, "{:.8f}")))
         return "\n".join(lines) + "\n"
 
 

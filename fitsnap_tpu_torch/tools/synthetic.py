@@ -9,7 +9,9 @@ cells with a 2.0 A minimum distance, in groups named and weighted as the Ta
 example's, some with test fractions.  `ta_settings` holds the
 Ta_Linear_JCP2014 sections, `quadratic_settings` the same with twojmax 8
 and quadraticflag (the Ta_Quadratic_JCP2018 model's width, 1,596
-coefficients), `ace_settings` a Ta_PACE-shaped [ACE] section.
+coefficients), `nn_settings` the same for the NN solver (a per-atom MLP
+of widths 64 64 1 on the 30 descriptors), `ace_settings` a Ta_PACE-shaped
+[ACE] section.
 
 The InP_JPCA2020 set is not in the repository either: `inp_configs` makes
 zincblende In/P cells (8-atom volume and strain scans, displaced 64- and
@@ -244,6 +246,24 @@ def quadratic_settings(datapath, groups=None):
     s = ta_settings(datapath, groups)
     s["BISPECTRUM"].update(twojmax=8, quadraticflag=1)
     s["OUTFILE"]["potential"] = "Ta_quad_pot"
+    return s
+
+
+def nn_settings(datapath, groups=None):
+    """`ta_settings` for the NN solver: nonlinear 1 and a [PYTORCH] section
+    with the config default layer_sizes `num_desc 64 64 1`, batch_size 4,
+    multi_element_option 1, manual_seed_flag 1, dgrad_mode precompute,
+    energy_weight 1e-2 and force_weight 1.0 (the JAX package's NN tests'
+    weights), 10 epochs at the default learning rate 1e-4."""
+    s = ta_settings(datapath, groups)
+    s["CALCULATOR"]["nonlinear"] = 1
+    s["SOLVER"] = {"solver": "PYTORCH"}
+    s["PYTORCH"] = {"layer_sizes": "num_desc 64 64 1", "batch_size": 4,
+                    "num_epochs": 10, "energy_weight": 1e-2,
+                    "force_weight": 1.0, "multi_element_option": 1,
+                    "manual_seed_flag": 1, "dgrad_mode": "precompute",
+                    "output_file": "Ta_nn.pt"}
+    s["OUTFILE"] = {"metrics": "Ta_nn_metrics.md", "potential": "Ta_nn_pot"}
     return s
 
 

@@ -1,5 +1,5 @@
-"""The CUDA kernels K1-K5, K6q, K7, K8, K8r, K13 and K14 (and the
-chemflag modes of K1-K3) against their plain versions on the card.
+"""The CUDA kernels K1-K5, K6q, K7, K8, K8r, K12, K12T, K13 and K14 (and
+the chemflag modes of K1-K3) against their plain versions on the card.
 
 Needs an NVIDIA GPU and nvcc (the kernels are built at first use); skipped
 elsewhere.  The machine with the card has no JAX, which the suite's
@@ -23,7 +23,10 @@ columns), and refuses rows wider than one block's shared memory holds.
 quadraticflag and chemflag: K1-K3 with K3 in three W tiles and K6q at
 twojmax 8; the chemflag modes of K1-K3 with two elements at twojmax 4
 (wselfallflag 0 and 1, bnormflag) and, with K6q, quadratic x chemflag at
-twojmax 2.
+twojmax 2.  K12 and K12T on two small periodic cells with a padded atom
+(and twice, to show a run repeats bit for bit), and the gradient of a
+force loss with respect to MLP parameters through `NnForce` against
+autograd through K12's plain version, 1e-10.
 """
 
 from types import SimpleNamespace
@@ -231,6 +234,82 @@ def test_k4_matches_plain(cuda):
     torch.cuda.synchronize()
     assert sk.launches()["pair_scatter_rows"] == 1
     assert rel_err(out, ref) <= RTOL
+
+
+def nn_batch(device):
+    """A K12 minibatch: two small periodic cells (self images repeated in
+    the reverse table) and a padded atom, G zero off the listed pairs."""
+    rng = np.random.default_rng(9)
+    cfgs = []
+    for na, edge in ((2, 3.3), (5, 5.0)):
+        pos = rng.uniform(0, edge, (na, 3))
+        _, jidx, mask, kmax = host_neighbors(pos, np.eye(3) * edge, na, 4.8)
+        cfgs.append((jidx, mask, kmax, reverse_neighbors(jidx, mask, na),
+                     na))
+    N, A, W = 2, 6, 7
+    K = max(c[2] for c in cfgs)
+    R = max(c[3].shape[1] for c in cfgs)
+    jidx = np.zeros((N, A, K), np.int32)
+    msk = np.zeros((N, A, K), bool)
+    rev = np.full((N, A, R), -1, np.int32)
+    for c, (ji, m, km, rv, na) in enumerate(cfgs):
+        jidx[c, :na, :km] = ji
+        msk[c, :na, :km] = m
+        rev[c, :na, :rv.shape[1]] = np.where(rv < 0, -1,
+                                             rv // km * K + rv % km)
+    G = rng.normal(size=(N, A, W, K, 3)) * msk[:, :, None, :, None]
+    return [torch.as_tensor(x, device=device)
+            for x in (rng.normal(size=(N, A, W)), G, jidx, rev,
+                      rng.normal(size=(N, A, 3)))]
+
+
+def test_k12_k12t_match_plain(cuda):
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+
+    dEdB, G, jidx, rev, gF = nn_batch(cuda)
+    nk.reset_launches()
+    out = nk.nn_force(dEdB, G, jidx, rev)
+    out_t = nk.nn_force_t(gF, G, jidx)
+    torch.cuda.synchronize()
+    assert nk.launches() == {"nn_force": 1, "nn_force_t": 1}
+    assert rel_err([out], [nk.nn_force_plain(dEdB, G, jidx, rev)]) <= RTOL
+    assert rel_err([out_t], [nk.nn_force_t_plain(gF, G, jidx)]) <= RTOL
+    # a run repeats bit for bit (fixed-order sums, no atomics)
+    assert torch.equal(out, nk.nn_force(dEdB, G, jidx, rev))
+    assert torch.equal(out_t, nk.nn_force_t(gF, G, jidx))
+
+
+def test_nn_force_gradient_matches_plain_autograd(cuda):
+    """The gradient of a force loss with respect to MLP parameters, through
+    NnForce (K12, backward K12T) and through autograd of the plain K12."""
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+    from fitsnap_tpu_torch.models.mlp import atom_energies
+
+    _, G, jidx, rev, target = nn_batch(cuda)
+    N, A, W = G.shape[:3]
+    rng = np.random.default_rng(10)
+    x0 = torch.as_tensor(rng.normal(size=(N, A, W)), device=cuda)
+    params = [(torch.as_tensor(rng.normal(size=(1, a, b)) / np.sqrt(a),
+                               device=cuda).requires_grad_(True),
+               torch.as_tensor(rng.normal(size=(1, b)), device=cuda)
+               .requires_grad_(True))
+              for a, b in ((W, 5), (5, 1))]
+    leaves = [t for wb in params for t in wb]
+
+    def grads(force):
+        x = x0.clone().requires_grad_(True)
+        e = atom_energies(params, x, torch.zeros((N, A), dtype=torch.int32,
+                                                 device=cuda)).sum()
+        dedx, = torch.autograd.grad(e, x, create_graph=True)
+        loss = ((force(dedx) - target) ** 2).sum() + e ** 2
+        return torch.autograd.grad(loss, leaves)
+
+    nk.reset_launches()
+    out = grads(lambda d: nk.NnForce.apply(d, G, jidx, rev))
+    torch.cuda.synchronize()
+    assert nk.launches() == {"nn_force": 1, "nn_force_t": 1}
+    ref = grads(lambda d: nk.nn_force_plain(d, G, jidx, rev))
+    assert rel_err(out, ref) <= 1e-10
 
 
 def streamed_batch(device):

@@ -7,9 +7,9 @@
 - Each kernel wrapper takes its plain version for CPU tensors (launching
   nothing) and raises for a device that is neither CPU nor CUDA.
 - `kernels/csrc/` holds one CUDA source for each of K1-K5, K6q, K7, K8
-  (K8r shares K8's), K13 and K14, each naming the JAX function it
-  replaces, built for sm_90a; the chemflag modes of K1-K3 share their
-  sources.
+  (K8r shares K8's), K12 (K12T shares it), K13 and K14, each naming the JAX
+  function it replaces, built for sm_90a; the chemflag modes of K1-K3
+  share their sources.
 - `FitSnap` fits on the CPU with every linear solver the port registers.
 - `chip_smoke.py` exits non-zero and prints no result without a card.
 """
@@ -57,7 +57,11 @@ def test_imports_neither_jax_nor_fitsnap_tpu():
             "fitsnap_tpu_torch.kernels.ace_kernels",
             "fitsnap_tpu_torch.ops.ace", "fitsnap_tpu_torch.ops.ace_ref_basis",
             "fitsnap_tpu_torch.calculators.ace",
-            "fitsnap_tpu_torch.io.outputs.pace_output"} <= set(mods)
+            "fitsnap_tpu_torch.io.outputs.pace_output",
+            "fitsnap_tpu_torch.kernels.nn_kernels",
+            "fitsnap_tpu_torch.models.mlp",
+            "fitsnap_tpu_torch.solvers.network",
+            "fitsnap_tpu_torch.io.export_torch"} <= set(mods)
     proc = run_python(f"""
         import importlib, json, sys
         for name in {mods!r}:
@@ -272,6 +276,41 @@ def test_flag_wrappers_plain_on_cpu_and_raise_on_meta(name):
         _flag_kernel_calls("meta")[name]()
 
 
+def _nn_kernel_calls(device):
+    """A call of K12 and of K12T on small inputs on `device`."""
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+
+    rng = np.random.default_rng(5)
+    N, A, W, K = 2, 3, 4, 2
+
+    def t(x, dtype=torch.float64):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    G = t(rng.normal(size=(N, A, W, K, 3)))
+    jidx = t(rng.integers(0, A, (N, A, K)), torch.int32)
+    rev = t(np.full((N, A, 1), -1), torch.int32)
+    return {
+        "nn_force": lambda: nk.nn_force(t(rng.normal(size=(N, A, W))), G,
+                                        jidx, rev),
+        "nn_force_t": lambda: nk.nn_force_t(t(rng.normal(size=(N, A, 3))),
+                                            G, jidx),
+    }
+
+
+@pytest.mark.parametrize("name", ["nn_force", "nn_force_t"])
+def test_nn_wrappers_plain_on_cpu_and_raise_on_meta(name):
+    """K12 and K12T run their plain version for CPU tensors without
+    counting a launch, and refuse a `meta` tensor."""
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+
+    nk.reset_launches()
+    out = _nn_kernel_calls("cpu")[name]()
+    assert torch.isfinite(out).all()
+    assert nk.launches() == {"nn_force": 0, "nn_force_t": 0}
+    with pytest.raises(ValueError, match="no kernel for device"):
+        _nn_kernel_calls("meta")[name]()
+
+
 @pytest.mark.parametrize("solver", ["TPUSVD", "SCALAPACK", "TENSORFLOWSVD"])
 def test_device_solvers_fit_on_cpu(tmp_path, solver):
     """`FitSnap` with each device solver fits on `device="cpu"`, and its
@@ -324,6 +363,7 @@ def test_device_solvers_fit_on_cpu(tmp_path, solver):
     ("normal_contrib", "config_normal_contrib"),
     ("ace_pair_basis", "`ace_pair_phi`"),
     ("ace_b_dbdd", "`ace_b_and_dbda`"),
+    ("nn_force", "`_forward_batch`"),
 ])
 def test_cuda_source_per_kernel(source, replaces):
     path = build.CSRC / f"{source}.cu"
@@ -332,6 +372,42 @@ def test_cuda_source_per_kernel(source, replaces):
     assert "__global__" in text and 'extern "C"' in text
     assert replaces in text and "Bound on the H100" in text
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+def _c_entry_points():
+    """{entry point: ctypes argument types} parsed from the sources'
+    `extern "C" int` functions (their stream argument included)."""
+    import re
+
+    from fitsnap_tpu_torch.kernels import launch as kl
+
+    kinds = {"int": kl.I, "long long": kl.LL, "double": kl.D}
+    out = {}
+    for name in build.SOURCES:
+        text = (build.CSRC / f"{name}.cu").read_text()
+        for fn, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            types = []
+            for arg in args.split(","):
+                arg = arg.replace("const", "").strip()
+                base = arg.rsplit(" ", 1)[0].strip()
+                types.append(kl.P if "*" in arg else kinds[base])
+            out[fn] = types
+    return out
+
+
+def test_registered_argtypes_match_the_c_signatures():
+    """Every registered entry point passes exactly the C function's
+    arguments, a pointer-sized one for each pointer and the stream (an int
+    in place of a pointer would cut it to 32 bits)."""
+    from fitsnap_tpu_torch.kernels import ace_kernels  # noqa: F401
+    from fitsnap_tpu_torch.kernels import launch as kl
+    from fitsnap_tpu_torch.kernels import nn_kernels  # noqa: F401
+
+    c = _c_entry_points()
+    assert set(kl._ENTRY) <= set(c)
+    for name, (library, argtypes) in kl._ENTRY.items():
+        assert library in build.SOURCES
+        assert argtypes == c[name], name
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
