@@ -99,7 +99,23 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    against its K12 forces on three atoms of two configs (the JAX package's
    bar, 1e-5), the `.pt`'s per-atom energies on one config against
    `evaluate_bucket`'s (1e-10), and a profiler split of one epoch (K12 /
-   K12T, the rest of the card's kernels, idle).
+   K12T, the rest of the card's kernels, idle);
+13. NN path in the cached mode (the JAX package's default for SNAP
+   networks), on the same set with `nn_settings(..., dgrad_mode="cached")`
+   and its 10 epochs: launch counts set to 0, then FitSnap(device="cuda")
+   -> scrape -> process -> perform_fit -> write_output, the counts read
+   just after; it fails unless K4, K5, K8, K8r, K2, K9, K10, K10T, K11,
+   K11T and the force gather launched, K1, K3 and K12's contraction did not,
+   no bucket holds dB/dD, the last epoch's train loss is below the first's
+   and the four files are written.  Then K9, K10, K10T, K11, K11T and the
+   gather against their plain versions at the largest bucket with a
+   minibatch of 4 (1e-11; timed on rotating copies of the inputs, as K12),
+   the loss gradient through `NnCachedForce` against autograd through the
+   plain versions (1e-10), the trained model's energies and forces on that
+   minibatch against the precompute path's (K1-K3's dB/dD, then K12;
+   1e-9), central-difference forces (device neighbor lists, K9 and the
+   cached forward at each displaced position) on three atoms of two configs
+   (1e-5), and a profiler split of one epoch.
 
 The line before the last is the kernel table as JSON (launches per path,
 each path's counts set to 0 just before it and read just after); the last
@@ -164,6 +180,18 @@ SOURCES = {
                  "fitsnap_tpu/solvers/network.py:720"),
     "nn_force_t": ("fitsnap_tpu_torch/kernels/csrc/nn_force.cu",
                    "fitsnap_tpu/solvers/network.py:720"),
+    "nn_pair_gather": ("fitsnap_tpu_torch/kernels/csrc/nn_force.cu",
+                       "fitsnap_tpu/solvers/network.py:811"),
+    "nn_ut_b": ("fitsnap_tpu_torch/kernels/csrc/nn_grid.cu",
+                "fitsnap_tpu/ops/snap.py:352"),
+    "nn_dedu_vg": ("fitsnap_tpu_torch/kernels/csrc/nn_dedu.cu",
+                   "fitsnap_tpu/ops/snap.py:471"),
+    "nn_dedu_vg_t": ("fitsnap_tpu_torch/kernels/csrc/nn_dedu.cu",
+                     "fitsnap_tpu/ops/snap.py:471"),
+    "nn_pair_force": ("fitsnap_tpu_torch/kernels/csrc/nn_grid.cu",
+                      "fitsnap_tpu/ops/snap.py:507"),
+    "nn_pair_force_t": ("fitsnap_tpu_torch/kernels/csrc/nn_grid.cu",
+                        "fitsnap_tpu/ops/snap.py:544"),
 }
 FITSNAP_KERNELS = ("pair_u_duals", "zlist", "dbdd", "pair_scatter_rows",
                    "zbl_pair_grad")
@@ -174,6 +202,12 @@ QUAD_KERNELS = FITSNAP_KERNELS + ("quad_chain",)
 CHEM_KERNELS = ("pair_u_duals_chem", "zlist_chem", "dbdd_chem",
                 "pair_scatter_rows", "zbl_pair_grad")
 NN_KERNELS = FITSNAP_KERNELS + ("nn_force", "nn_force_t")
+NN_CACHED_KERNELS = ("pair_scatter_rows", "zbl_pair_grad", "device_neighbors",
+                     "reverse_table", "zlist", "nn_ut_b", "nn_dedu_vg",
+                     "nn_dedu_vg_t", "nn_pair_force", "nn_pair_force_t",
+                     "nn_pair_gather")
+# kernels the cached mode must not launch (K1, K3 and K12's contraction)
+NN_CACHED_ABSENT = ("pair_u_duals", "dbdd", "nn_force")
 # the kernels each path must launch
 PATH_KERNELS = {"fitsnap": FITSNAP_KERNELS,
                 "streamed": FITSNAP_KERNELS + STREAM_KERNELS,
@@ -181,7 +215,8 @@ PATH_KERNELS = {"fitsnap": FITSNAP_KERNELS,
                 "ace_streamed": ACE_KERNELS + STREAM_KERNELS,
                 "quadratic_fitsnap": QUAD_KERNELS,
                 "chem_fitsnap": CHEM_KERNELS,
-                "nn_fitsnap": NN_KERNELS}
+                "nn_fitsnap": NN_KERNELS,
+                "nn_cached_fitsnap": NN_CACHED_KERNELS}
 # FitSnap path of each data set
 FITSNAP_PATH = {"snap": "fitsnap", "ace": "ace_fitsnap",
                 "quadratic": "quadratic_fitsnap", "inp": "chem_fitsnap"}
@@ -200,6 +235,9 @@ GRAD_RTOL = 1e-10           # NN loss gradient through NnForce vs plain K12
 FD_H = 1e-4                 # central-difference step of the NN force check
 FD_BAR = 1e-5               # the JAX package's NN FD-force bar (README.md)
 PT_RTOL = 1e-10             # exported .pt energies vs evaluate_bucket
+CROSS_RTOL = 1e-9           # NN cached vs precompute energies and forces
+NN_FILES = ["Ta_nn.pt", "Ta_nn_pot.mliap.descriptor", "Ta_nn_pot.mod",
+            "Ta_nn_metrics.md", "loss_vs_epochs.dat"]
 
 
 def card_line():
@@ -1159,15 +1197,19 @@ def streamed_path(fs, a_plain, beta, seed, device, kind="snap"):
 # ---------------------------------------------------------------------------
 
 
-def nn_path(tmp, device):
+def nn_path(tmp, device, mode="precompute"):
     """Drive the NN fit through FitSnap on the card on the Ta set of phase
-    2; returns (the FitSnap, launch counts, timings, checks)."""
+    2 in `mode` (precompute or cached); returns (the FitSnap, launch
+    counts, timings, checks)."""
     import torch
     from fitsnap_tpu_torch import FitSnap
     from fitsnap_tpu_torch.tools import synthetic
 
-    ini = Path(tmp) / "nn.in"
-    synthetic.write_ini(ini, synthetic.nn_settings(Path(tmp) / "JSON"))
+    ini = Path(tmp) / f"nn_{mode}.in"
+    synthetic.write_ini(ini, synthetic.nn_settings(Path(tmp) / "JSON",
+                                                   dgrad_mode=mode))
+    for name in NN_FILES:
+        Path(name).unlink(missing_ok=True)
     reset_launches()
     t0 = time.time()
     fs = FitSnap(str(ini), arglist=["--overwrite"], device=device)
@@ -1178,18 +1220,24 @@ def nn_path(tmp, device):
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = launches()
-    check_launched(counts, "nn_fitsnap")
-
     sol = fs.solver
+    if mode == "cached":
+        check_launched(counts, "nn_cached_fitsnap")
+        stray = {k: counts[k] for k in NN_CACHED_ABSENT if counts[k]}
+        if stray or not sol.cached or any("G" in b for b in sol.buckets):
+            raise AssertionError(f"the cached NN path launched {stray} or "
+                                 f"stored dB/dD")
+    else:
+        check_launched(counts, "nn_fitsnap")
+
     hist = np.array(sol.history)
     print("nn loss curve (epoch, train, validation): "
           + json.dumps(hist.tolist()), flush=True)
     print("nn seconds per epoch: " + json.dumps(sol.epoch_times), flush=True)
     if not (np.isfinite(hist).all() and hist[-1, 1] < hist[0, 1]):
         raise AssertionError(f"NN train loss did not fall: {hist[:, 1]}")
-    written = ["Ta_nn.pt", "Ta_nn_pot.mliap.descriptor", "Ta_nn_pot.mod",
-               "Ta_nn_metrics.md", "loss_vs_epochs.dat"]
-    missing = [f for f in written if not Path(f).stat().st_size]
+    missing = [f for f in NN_FILES
+               if not (Path(f).exists() and Path(f).stat().st_size)]
     errs = sol.errors
     if missing or not (len(errs) and np.isfinite(errs.values).all()):
         raise AssertionError(f"NN outputs missing {missing} or the error "
@@ -1199,7 +1247,12 @@ def nn_path(tmp, device):
                           for b in sol.buckets},
               "train_loss_first": hist[0, 1], "train_loss_last": hist[-1, 1],
               "val_loss_last": hist[-1, 2],
-              "g_bytes": sum(b["G"].numel() * 8 for b in sol.buckets),
+              "g_bytes": sum(b["G"].numel() * 8 for b in sol.buckets
+                             if "G" in b),
+              "cached_bytes": sum(b[k].numel() * b[k].element_size()
+                                  for b in sol.buckets if "ut" in b
+                                  for k in ("disp", "jidx", "mask", "rev",
+                                            "ut", "B")),
               "errors": {f"{g}/{t}": dict(zip(errs.columns, map(float, v)))
                          for (g, t), v in zip(errs.index, errs.values)
                          if g == "*ALL"}}
@@ -1387,7 +1440,8 @@ def nn_export_check(fs):
 
 def nn_epoch_profile(fs, epoch_s):
     """Device time of one training epoch by kernel (torch.profiler), split
-    into K12 / K12T, the other kernels (MLP, its double backward, gathers,
+    into the port's kernels (K12 / K12T; cached: K2, K10, K10T, K11, K11T
+    and the gather), the other kernels (MLP, its double backward, gathers,
     Adam), and its share of `epoch_s`, the unprofiled epoch's seconds."""
     net = fs.solver.net
     epochs = net.num_epochs
@@ -1398,7 +1452,8 @@ def nn_epoch_profile(fs, epoch_s):
         net.num_epochs = epochs
     if not kernels:
         return {"epoch_profile": "not measured (no device time)"}
-    ours = sum(v for k, v in kernels.items() if k.startswith("nn_"))
+    ours = sum(v for k, v in kernels.items()
+               if k.startswith(("nn_", "zlist")))
     total = sum(kernels.values())
     print("nn epoch device time by kernel (ms): " + json.dumps(
         {k: round(v, 3) for k, v in list(kernels.items())[:12]}),
@@ -1406,6 +1461,232 @@ def nn_epoch_profile(fs, epoch_s):
     return {"epoch_device_ms": total, "epoch_k12_ms": ours,
             "epoch_other_kernels_ms": total - ours,
             "device_busy_share": total / 1e3 / epoch_s}
+
+
+def nn_cached_batch(sol, n=4):
+    """A minibatch of the first n configs of the cached mode's largest
+    bucket, with the trained model's dE/dB (N*A, W) and the pair-kernel
+    inputs flat over the (N*A) atoms."""
+    import torch
+
+    bi = int(np.argmax([np.prod(b["shape"]) for b in sol.buckets]))
+    batch = sol._gather(sol.buckets[bi],
+                        np.arange(min(n, len(sol.buckets[bi]["groups"]))))
+    N, A, K = batch["jidx"].shape
+    B = batch["B"]
+    x = ((B - sol.mean) / sol.std).reshape(N * A, -1).requires_grad_(True)
+    e = (sol.model(x, batch["elem"].reshape(-1))
+         * batch["real"].reshape(-1).to(x.dtype)).sum()
+    dEdB = (torch.autograd.grad(e, x)[0] / sol.std).contiguous()
+    jelem, smask = sol._kit["pair"](batch["disp"], batch["jidx"],
+                                    batch["mask"], batch["types"])
+    block = (batch["disp"].reshape(N * A, K, 3), jelem.reshape(N * A, K),
+             smask.reshape(N * A, K), batch["types"].reshape(N * A))
+    return batch, dEdB, block
+
+
+def nn_cached_kernel_checks(fs):
+    """K9, K10, K10T, K11, K11T and the force gather against their plain
+    versions on a minibatch of 4 at the cached mode's largest bucket, and
+    the loss gradient through NnCachedForce against autograd through the
+    plain versions."""
+    import torch
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+    from fitsnap_tpu_torch.kernels import snap_kernels as sk
+    from fitsnap_tpu_torch.ops.snap import nn_tables
+    from fitsnap_tpu_torch.solvers import network as tnet
+
+    sol = fs.solver
+    p = sol._snap
+    tb = nn_tables(p)
+    batch, dEdB, block = nn_cached_batch(sol)
+    N, A, K = batch["jidx"].shape
+    M, n_t, W, U = N * A, tb.n_t, p.ntriples, p.u_len
+    rev = batch["rev"]
+    pairs = int(block[2].sum().item())
+    print(f"nn cached kernel inputs: N={N} A={A} K={K} W={W} 2U={2 * U} "
+          f"n_t={n_t} live pairs={pairs} float64", flush=True)
+    nlg, ny = tb.lgc_val.numel(), tb.yu_fac.numel()
+    nterms = tb.bt_c.numel()
+    pair_in = M * K * (3 * 8 + 4 + 1) + M * 4        # disp, jelem, mask, ielem
+    rows = []
+
+    def lg_mm(x, transpose=False):
+        """torch.mm with the dense Lg: the basis change alone, as the
+        yardstick of one library call (no one call computes a whole
+        kernel's function)."""
+        Lg = tb.Lg2.T.contiguous() if transpose else tb.Lg2
+        return timed(rotating(lambda y: torch.mm(y, Lg), (x,)), 20)
+
+    # K9: per live pair about 3 n_t^2 flops of accumulation and 600 of
+    # prologue and powers; per atom 2 per Lg entry and 12 per B term
+    ut, B = nk.nn_ut_b_plain(*block, sol._snap)
+    record(rows, "nn_ut_b", list(nk.nn_ut_b(*block, p)), [ut, B],
+           (rotating(lambda *a: nk.nn_ut_b(*a, p), block), 20),
+           timed(rotating(lambda *a: nk.nn_ut_b_plain(*a, p), block), 5),
+           pair_in + M * (2 * U + W) * 8,
+           pairs * (3 * n_t * n_t + 600) + M * (2 * nlg + 12 * nterms), None)
+    rows[-1]["lg_mm_ms"] = lg_mm(torch.zeros((M, n_t * n_t),
+                                             dtype=torch.float64,
+                                             device=ut.device) + 1.0)
+    z = sk.zlist(batch["ut"].reshape(M, -1), p)
+
+    # K10: 5 flops per y entry, 2 per Lg entry, per atom
+    args = (dEdB,) + tuple(z)
+    vg = nk.nn_dedu_vg_plain(*args, p)
+    record(rows, "nn_dedu_vg", [nk.nn_dedu_vg(*args, p)], [vg],
+           (rotating(lambda *a: nk.nn_dedu_vg(*a, p), args), 20),
+           timed(rotating(lambda *a: nk.nn_dedu_vg_plain(*a, p), args), 5),
+           M * (W + 2 * p.nz + n_t * n_t) * 8, M * (5 * ny + 2 * nlg), None)
+    rows[-1]["lg_mm_ms"] = lg_mm(torch.ones((M, 2 * U), dtype=torch.float64,
+                                            device=vg.device), True)
+
+    # K11: per live pair 8 n_t^2 flops (four bilinear forms) and 600
+    args = (vg,) + block
+    g = nk.nn_pair_force_plain(*args, p)
+    record(rows, "nn_pair_force", [nk.nn_pair_force(*args, p)], [g],
+           (rotating(lambda *a: nk.nn_pair_force(*a, p), args), 20),
+           timed(rotating(lambda *a: nk.nn_pair_force_plain(*a, p), args), 5),
+           pair_in + M * n_t * n_t * 8 + M * K * 3 * 8,
+           pairs * (8 * n_t * n_t + 600), None)
+
+    # the gather: one add per slot and component
+    args = (g.reshape(N, A, K, 3), rev)
+    F = nk.nn_pair_gather_plain(*args)
+    record(rows, "nn_pair_gather", [nk.nn_pair_gather(*args)], [F],
+           (rotating(nk.nn_pair_gather, args), 20),
+           timed(rotating(nk.nn_pair_gather_plain, args), 10),
+           M * K * 3 * 8 + rev.numel() * 4 + M * 3 * 8,
+           M * 3 * (K + rev.shape[2]), None)
+
+    # K11T on the force residual: per live pair 4 n_t^2 flops and 600
+    gF = ((F - batch["f_target"])
+          * batch["real"][..., None].to(F.dtype)).contiguous()
+    args = (gF, batch["jidx"]) + block
+    vgc = nk.nn_pair_force_t_plain(*args, p)
+    record(rows, "nn_pair_force_t", [nk.nn_pair_force_t(*args, p)], [vgc],
+           (rotating(lambda *a: nk.nn_pair_force_t(*a, p), args), 20),
+           timed(rotating(lambda *a: nk.nn_pair_force_t_plain(*a, p), args),
+                 5),
+           M * 3 * 8 + M * K * 4 + pair_in + M * n_t * n_t * 8,
+           pairs * (4 * n_t * n_t + 600), None)
+
+    # K10T: 2 flops per Lg entry, 5 per y entry, per atom
+    args = (vgc,) + tuple(z)
+    ref = nk.nn_dedu_vg_t_plain(*args, p)
+    record(rows, "nn_dedu_vg_t", [nk.nn_dedu_vg_t(*args, p)], [ref],
+           (rotating(lambda *a: nk.nn_dedu_vg_t(*a, p), args), 20),
+           timed(rotating(lambda *a: nk.nn_dedu_vg_t_plain(*a, p), args), 5),
+           M * (n_t * n_t + 2 * p.nz + W) * 8, M * (2 * nlg + 5 * ny), None)
+    rows[-1]["lg_mm_ms"] = lg_mm(vgc.reshape(M, -1))
+
+    # the loss gradient: NnCachedForce against autograd through the plain
+    # versions
+    leaves = list(sol.model.parameters())
+
+    def grads():
+        return torch.autograd.grad(sol._loss(sol.model, batch, train=True),
+                                   leaves)
+
+    def plain(dEdB, ut, disp, jidx, jelem, mask, ielem, rev, p):
+        vg = nk.nn_dedu_vg_plain(dEdB, *sk.zlist_plain(ut, p), p)
+        g = nk.nn_pair_force_plain(vg, disp, jelem, mask, ielem, p)
+        return nk.nn_pair_gather_plain(g.reshape(jidx.shape + (3,)), rev)
+
+    out = grads()
+    cls = tnet.NnCachedForce
+    tnet.NnCachedForce = SimpleNamespace(apply=plain)
+    try:
+        ref = grads()
+    finally:
+        tnet.NnCachedForce = cls
+    _, grad_err = rel_err(out, ref)
+    print(f"nn cached loss gradient through NnCachedForce vs plain "
+          f"autograd: {grad_err:.3e} (limit {GRAD_RTOL})", flush=True)
+    if not grad_err <= GRAD_RTOL:
+        raise AssertionError(f"NN cached loss gradient differs from the "
+                             f"plain one: {grad_err:.3e}")
+    return rows, {"grad_rel_err": grad_err}
+
+
+def nn_cross_mode_check(fs):
+    """The trained cached model's energies and forces on a minibatch of 4
+    (the largest bucket) against the precompute path's on the same configs
+    and lists: B and dB/dD from K1-K3 (`nn_prep`), forces through K12."""
+    sol, calc = fs.solver, fs.calculator
+    batch, _, _ = nn_cached_batch(sol)
+    e, f = sol._forward_batch_cached(sol.model, batch)
+    B, G, _, _ = calc.nn_prep(batch["disp"], batch["jidx"], batch["mask"],
+                              batch["rev"], batch["types"], batch["nat"])
+    pre = {"B": B, "G": G, "types": batch["elem"], "real": batch["real"],
+           "nat": batch["nat"], "jidx": batch["jidx"], "rev": batch["rev"]}
+    e_pre, f_pre = sol._forward_batch(sol.model, pre)
+    _, b_err = rel_err([batch["B"]], [B])
+    _, err = rel_err([e, f], [e_pre, f_pre])
+    print(f"nn cached vs precompute on one minibatch: B {b_err:.3e}, "
+          f"energies and forces {err:.3e} (limit {CROSS_RTOL})", flush=True)
+    if not (err <= CROSS_RTOL and b_err <= CROSS_RTOL):
+        raise AssertionError(f"NN cached and precompute modes disagree: "
+                             f"B {b_err:.3e}, E/F {err:.3e}")
+    return {"cross_mode_rel_err": err, "cross_mode_b_rel_err": b_err}
+
+
+def nn_cached_eval(sol, calc, pos, cell, types):
+    """Energy and cached-mode forces of one config: device neighbor lists
+    (K8, K8r), K9, then the cached forward (K2, K10, K11, the gather)."""
+    import torch
+    from fitsnap_tpu_torch.calculators.snap import PackedConfig
+    from fitsnap_tpu_torch.kernels import snap_kernels as sk
+    from fitsnap_tpu_torch.ops.neighbors import (count_neighbors,
+                                                 required_shifts, shift_table)
+    from fitsnap_tpu_torch.parallel.fit import pack_batch_pos
+
+    n = len(pos)
+    s_table = tuple(map(tuple, shift_table(required_shifts(cell,
+                                                           calc.cutoff))))
+    k_pad = min(count_neighbors(pos, cell, n, calc.cutoff), n * len(s_table))
+    pc = PackedConfig(pos=pos, cell=cell, types=np.asarray(types, np.int32),
+                      natoms=n, data={})
+    ph, pl, sh, sl, t, nat = (torch.from_numpy(x[0]).to(calc.device)
+                              for x in pack_batch_pos([pc], n, 1,
+                                                      s_table)[:6])
+    disp, jidx, mask = sk.device_neighbors(ph, pl, sh, sl, nat, calc.cutoff,
+                                           k_pad)
+    rev, _ = sk.reverse_table(jidx, mask)
+    ut, B = sol._kit["utb"](disp, jidx, mask, t, nat)
+    batch = {"B": B, "ut": ut, "disp": disp, "jidx": jidx, "mask": mask,
+             "rev": rev, "types": t, "elem": torch.zeros_like(t),
+             "real": torch.ones_like(t, dtype=torch.bool), "nat": nat}
+    e, f = sol._forward_batch_cached(sol.model, batch)
+    return float(e[0]) * n, f[0].cpu().numpy()
+
+
+def nn_cached_fd_check(fs):
+    """Central-difference forces of the trained cached model against its
+    forces on three atoms of two configs (as `nn_fd_check`)."""
+    sol, calc = fs.solver, fs.calculator
+    worst = []
+    for group in ("Displaced_BCC", "Liquid"):
+        d = [x for x in fs.data if x["Group"] == group][0]
+        pos = np.asarray(d["Positions"], float)
+        cell = np.asarray(d["Lattice"], float)
+        types = [calc.type_mapping[t] - 1 for t in d["AtomTypes"]]
+        _, f0 = nn_cached_eval(sol, calc, pos, cell, types)
+        for a in (0, len(pos) // 2, len(pos) - 1):
+            for c in range(3):
+                pp, pm = pos.copy(), pos.copy()
+                pp[a, c] += FD_H
+                pm[a, c] -= FD_H
+                ep, _ = nn_cached_eval(sol, calc, pp, cell, types)
+                em, _ = nn_cached_eval(sol, calc, pm, cell, types)
+                worst.append(abs(-(ep - em) / (2 * FD_H) - f0[a, c]))
+    err = float(np.max(worst))
+    print(f"nn cached FD forces (h={FD_H}): max error {err:.3e}, mean "
+          f"{float(np.mean(worst)):.3e} (bar {FD_BAR})", flush=True)
+    if not err < FD_BAR:
+        raise AssertionError(f"NN cached FD forces miss the bar: {err:.3e}")
+    return {"fd_max_err": err, "fd_mean_err": float(np.mean(worst)),
+            "fd_bar": FD_BAR}
 
 
 def main():
@@ -1490,6 +1771,16 @@ def main():
             checks.update(grad, **nn_fd_check(fs), **nn_export_check(fs))
             checks.update(nn_epoch_profile(fs, times["epoch_mean_rest"]))
             paths["nn_fitsnap"] = (counts, times, checks)
+            del fs
+            torch.cuda.empty_cache()
+            # the NN fit in the cached mode on the same set
+            fs, counts, times, checks = nn_path(tmp, "cuda", "cached")
+            rows, grad = nn_cached_kernel_checks(fs)
+            kernels += rows
+            checks.update(grad, **nn_cross_mode_check(fs),
+                          **nn_cached_fd_check(fs))
+            checks.update(nn_epoch_profile(fs, times["epoch_mean_rest"]))
+            paths["nn_cached_fitsnap"] = (counts, times, checks)
             del fs
             torch.cuda.empty_cache()
         finally:

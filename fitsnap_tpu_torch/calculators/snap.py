@@ -22,10 +22,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from fitsnap_tpu_torch.kernels import nn_kernels as nk
 from fitsnap_tpu_torch.kernels import snap_kernels as sk
 from fitsnap_tpu_torch.ops.neighbors import host_neighbors, reverse_neighbors
 from fitsnap_tpu_torch.ops.refpot import parse_reference, reference_eav
-from fitsnap_tpu_torch.ops.snap import descriptors_with_jacobian, make_params
+from fitsnap_tpu_torch.ops.snap import (_quad_extend,
+                                        descriptors_with_jacobian,
+                                        make_params)
 
 TOBAR = 1.6021765e6
 
@@ -163,6 +166,68 @@ def nn_prep(params, refspec, disp, jidx, mask, rev, types, natoms):
                                     plain=False)
     re, rf, _ = reference_eav(disp, jidx, mask, rev, types, refspec)
     return B, G, re, rf
+
+
+def nn_analytic(params):
+    """The NN cached mode's kit (JAX `SnapCalculator.nn_analytic_fns`), or
+    None for chemflag and quadraticflag, which it does not cover.  Batches
+    carry the config axis C first, as `snap_rows`'.  Roles:
+
+      utb(disp, jidx, mask, types, natoms) -> (ut (C, A, 2U), B (C, A, W)):
+          the cached per-atom state, K9 (B zero on padded atoms);
+      dEdu_vg(dEdB (M, W), ut (M, 2U)) -> vg (M, n_t, n_t): the grid
+          cotangent of M atoms, K2 then K10;
+      pair(disp, jidx, mask, types) -> (jelem, smask) (C, A, K): what the
+          pair kernels need of a config (the grid tensors themselves are
+          never stored);
+      force(vg (C*A, n_t, n_t), disp, pair, types) -> dE/ddisp (C, A, K,
+          3): K11.
+    """
+    if params.chemflag or params.quadraticflag:
+        return None
+
+    def pair(disp, jidx, mask, types):
+        return pair_masks(params, disp, jidx, mask, types)
+
+    def flat(disp, pair_, types):
+        C, A, K = pair_[0].shape
+        return (disp.reshape(C * A, K, 3), pair_[0].reshape(C * A, K),
+                pair_[1].reshape(C * A, K), types.reshape(C * A))
+
+    def utb(disp, jidx, mask, types, natoms):
+        C, A, _ = mask.shape
+        ut, B = nk.nn_ut_b(*flat(disp, pair(disp, jidx, mask, types), types),
+                           params)
+        real = (torch.arange(A, device=disp.device)[None, :]
+                < natoms[:, None]).to(B.dtype)
+        return ut.reshape(C, A, -1), B.reshape(C, A, -1) * real[..., None]
+
+    def dEdu_vg(dEdB, ut):
+        return nk.nn_dedu_vg(dEdB, *sk.zlist(ut, params), params)
+
+    def force(vg, disp, pair_, types):
+        return nk.nn_pair_force(vg, *flat(disp, pair_, types),
+                                params).reshape(disp.shape)
+
+    return {"utb": utb, "dEdu_vg": dEdu_vg, "pair": pair, "force": force}
+
+
+def nn_desc(params, disp, jidx, mask, types, natoms):
+    """Per-atom descriptors B (C, A, W) of a batch, zero on padded atoms:
+    JAX `SnapCalculator.nn_desc_fn` on the pair grid (K9's B, with the
+    quadratic columns appended under quadraticflag).  One element channel:
+    K9 has no chemflag mode."""
+    if params.nchem > 1:
+        raise NotImplementedError(
+            "nn_desc: the pair-grid descriptor kernel K9 takes one element "
+            "channel (ROADMAP.md: \"The NN solver's OTF mode\")")
+    C, A, K = mask.shape
+    jelem, smask = pair_masks(params, disp, jidx, mask, types)
+    _, B = nk.nn_ut_b(disp.reshape(C * A, K, 3), jelem.reshape(C * A, K),
+                      smask.reshape(C * A, K), types.reshape(C * A), params)
+    real = (torch.arange(A, device=disp.device)[None, :]
+            < natoms[:, None]).to(B.dtype)
+    return _quad_extend(B, params).reshape(C, A, -1) * real[..., None]
 
 
 def pack_bucket(packed, ids, a_pad, k_pad):
@@ -307,6 +372,16 @@ class SnapCalculator:
         """`nn_prep` of a batch with this calculator's model."""
         return nn_prep(self.params, self.refspec, disp, jidx, mask, rev,
                        types, natoms)
+
+    def nn_analytic(self):
+        """`nn_analytic` of this calculator's model (None where the cached
+        mode does not apply)."""
+        self._maybe_refresh()
+        return nn_analytic(self.params)
+
+    def nn_desc(self, disp, jidx, mask, types, natoms):
+        """`nn_desc` of a batch with this calculator's model."""
+        return nn_desc(self.params, disp, jidx, mask, types, natoms)
 
     def process_single(self, data, plain=False):
         """Per-config rows (a, b, w) for library mode."""

@@ -5,9 +5,9 @@ methods: `FitSnap(input, arglist, device).scrape_configs()`,
 `.process_configs()`, `.perform_fit()`, `.write_output()`.  The port takes
 the JSON scraper, the LAMMPSSNAP and LAMMPSPACE calculators, the SVD,
 TPUSVD / SCALAPACK and TENSORFLOWSVD solvers, the NN solver (PYTORCH /
-NETWORK / JAX) on LAMMPSSNAP descriptors in its precompute mode, and SNAP
-and PACE output; any other choice raises NotImplementedError naming its
-ROADMAP item.
+NETWORK / JAX) on LAMMPSSNAP descriptors in its cached and precompute
+modes, and SNAP and PACE output; any other choice raises
+NotImplementedError naming its ROADMAP item by title.
 """
 
 import time
@@ -17,7 +17,7 @@ import numpy as np
 from fitsnap_tpu_torch.config import Config
 from fitsnap_tpu_torch.utils.torchsetup import resolve_device, setup_precision
 
-_LATER = "{} {} is not ported to fitsnap_tpu_torch yet (ROADMAP.md, {})"
+_LATER = '{} {} is not ported to fitsnap_tpu_torch yet (ROADMAP.md: "{}")'
 
 
 def _scraper_factory(config):
@@ -26,22 +26,22 @@ def _scraper_factory(config):
         from fitsnap_tpu_torch.scrapers.json_scraper import JsonScraper
         return JsonScraper(name, config)
     raise NotImplementedError(_LATER.format(
-        "scraper", name, "queue 1: XYZ/VASP/ASE scrapers"))
+        "scraper", name, "Host copies"))
 
 
 def _calculator_factory(config, device):
     name = config.sections["CALCULATOR"].calculator.upper()
     if config.sections["CALCULATOR"].nonlinear and name == "LAMMPSPACE":
         raise NotImplementedError(_LATER.format(
-            "nonlinear calculator", name, "queue 8: ACE nonlinear"))
+            "nonlinear calculator", name, "ACE splines and nonlinear ACE"))
     if name == "LAMMPSSNAP":
         from fitsnap_tpu_torch.calculators.snap import SnapCalculator
         return SnapCalculator(name, config, device)
     if name == "LAMMPSPACE":
         from fitsnap_tpu_torch.calculators.ace import AceCalculator
         return AceCalculator(name, config, device)
-    item = {"LAMMPSCUSTOM": "queue 9: custom pairwise NN"}.get(name,
-                                                                "queue 1")
+    item = {"LAMMPSCUSTOM": "Custom pairwise NN"}.get(name,
+                                                      "Modules to port")
     raise NotImplementedError(_LATER.format("calculator", name, item))
 
 
@@ -60,7 +60,7 @@ def _solver_factory(config, device):
         from fitsnap_tpu_torch.solvers.network import NetworkSolver
         return NetworkSolver(name, config, device)
     raise NotImplementedError(_LATER.format(
-        "solver", name, "queue 5: the other linear solvers"))
+        "solver", name, "Host copies"))
 
 
 def _output_factory(config):
@@ -72,7 +72,7 @@ def _output_factory(config):
         from fitsnap_tpu_torch.io.outputs.pace_output import PaceOutput
         return PaceOutput(style, config)
     raise NotImplementedError(_LATER.format("output style", style,
-                                            "queue 1: custom"))
+                                            "Custom pairwise NN"))
 
 
 class FitSnap:

@@ -2,9 +2,9 @@
 
 Copy of `fitsnap_tpu/io/export_torch.py` for the per-atom MLP (the
 pairwise `PairNNWrapper` comes with the custom pairwise NN, ROADMAP.md
-queue 9).  The saved `.pt` is a module whose `forward(elems, descriptors,
-beta, energy)` fills per-atom energies and betas (dE/dB) for `pair_style
-mliap model mliappy`.  Descriptor standardization is folded into the first
+"Custom pairwise NN").  The saved `.pt` is a module whose
+`forward(elems, descriptors, beta, energy)` fills per-atom energies and
+betas (dE/dB) for `pair_style mliap model mliappy`.  Descriptor standardization is folded into the first
 linear layer so LAMMPS can feed raw descriptors.  The activation is the
 training's softplus (`models.mlp.softplus`), not `torch.nn.Softplus`, which
 is the identity above 20 (about 2e-9 off there), so the module computes the

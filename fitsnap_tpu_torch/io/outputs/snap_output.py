@@ -223,6 +223,6 @@ class SnapOutput:
         else:
             raise NotImplementedError(
                 f"metrics style {style} is not ported to fitsnap_tpu_torch "
-                "yet (ROADMAP.md, queue 1: tools)")
+                'yet (ROADMAP.md: "Host copies")')
         with open(fname, "wt") as f:
             f.write(text)

@@ -1,33 +1,37 @@
-// K12 nn_force and its transpose K12T nn_force_t: the force contraction of
-// the NN solver's precompute mode.
+// K12 nn_force, its transpose K12T nn_force_t, and the force gather
+// nn_pair_gather: the force contraction of the NN solver's precompute mode
+// and the scatter of pair gradients into forces that the cached mode shares.
 //
 // K12: from dE/dB (N, A, W) and the stored descriptor jacobian
-// G = dB/dD (N, A, W, K, 3) of a minibatch,
-//   fpair[n, a, k, c] = sum_w dEdB[n, a, w] G[n, a, w, k, c]
-//   F[n, m, c]        = sum_k fpair[n, m, k, c] - sum_r fpair[n, rev[n, m, r], c]
+// G = dB/dD (N, A, W, K, 3) of a minibatch, the pair gradients
+//   fpair[n, a, k, c] = sum_w dEdB[n, a, w] G[n, a, w, k, c].
+// nn_pair_gather: forces from pair gradients g (N, A, K, 3), fpair here or
+// K11's dE/ddisp in the cached mode,
+//   F[n, m, c] = sum_k g[n, m, k, c] - sum_r g[n, rev[n, m, r], c]
 // where rev (N, A, R) lists, per destination atom m, the flat slots a*K + k
 // whose neighbor is m (increasing, padded with -1).
-// K12T: the transpose, the cotangent of dE/dB from that of F,
+// K12T: the transpose of both, the cotangent of dE/dB from that of F,
 //   g[n, a, w] = sum_{k, c} (gF[n, a, c] - gF[n, jidx[n, a, k], c])
 //                           G[n, a, w, k, c].
 //
 // Replaces fitsnap_tpu/solvers/network.py `_forward_batch` (:720-742): the
 // einsum "naw,nawkc->nakc" and the O(A^2 K) one-hot scatter
-// -(scat - sum_k fpair), with the same code in `_forward_batch_cached`
+// -(scat - sum_k fpair), with the same scatter in `_forward_batch_cached`
 // (:811-816); K12T is what JAX's autodiff takes through both for the force
 // loss's gradient.
 //
 // Bound on the H100: bytes.  G is read once (about 2 flops per element);
-// everything else is a few percent of it.
+// everything else is a few percent of it.  The gather reads g once.
 //
 // Design: no atomics, every sum in a fixed order, so a run repeats bit for
 // bit.  K12 is two launches, as K8/K8r are: the contraction, one block per
 // atom (n, a) with a thread per (k, c) walking down w (G's (K, 3) rows for
 // one w are contiguous, so a warp reads consecutive doubles), into an
-// (N, A, K, 3) scratch; then the gather through rev, one thread per
-// (n, m, c), as K4 finds a pair's source.  K12T: one block per atom; the
-// differences gF[a] - gF[jidx] go to shared memory once, then one warp per
-// w runs down G's (K, 3) row and reduces with shuffles in a fixed order.
+// (N, A, K, 3) scratch; then the gather through rev (nn_pair_gather), one
+// thread per (n, m, c), as K4 finds a pair's source.  K12T: one block per
+// atom; the differences gF[a] - gF[jidx] go to shared memory once, then one
+// warp per w runs down G's (K, 3) row and reduces with shuffles in a fixed
+// order.
 #include "common.cuh"
 
 namespace {
@@ -101,23 +105,29 @@ __global__ void nn_force_t_kernel(const double* __restrict__ gF,
 
 }  // namespace
 
-// dedb (N, A, W), G (N, A, W, K, 3), rev (N, A, R) i32; fpair (N, A, K, 3)
-// scratch.  Writes force (N, A, 3).
-extern "C" int nn_force(const double* dedb, const double* G, const int* rev,
-                        int N, int A, int W, int K, int R, double* fpair,
-                        double* force, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+// dedb (N, A, W), G (N, A, W, K, 3).  Writes fpair (N, A, K, 3).
+extern "C" int nn_force(const double* dedb, const double* G, int N, int A,
+                        int W, int K, double* fpair, void* stream) {
   const long long atoms = static_cast<long long>(N) * A;
-  if (atoms == 0) return 0;
-  nn_fpair_kernel<<<static_cast<unsigned>(atoms), PAIR_THREADS, 0, st>>>(
-      dedb, G, W, K, fpair);
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  const long long total = atoms * 3;
-  const unsigned blocks =
-      static_cast<unsigned>((total + GATHER_THREADS - 1) / GATHER_THREADS);
-  nn_gather_kernel<<<blocks, GATHER_THREADS, 0, st>>>(fpair, rev, A, K, R,
-                                                      total, force);
+  if (atoms > 0) {
+    nn_fpair_kernel<<<static_cast<unsigned>(atoms), PAIR_THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(dedb, G, W, K,
+                                                           fpair);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// g (N, A, K, 3), rev (N, A, R) i32.  Writes force (N, A, 3).
+extern "C" int nn_pair_gather(const double* g, const int* rev, int N, int A,
+                              int K, int R, double* force, void* stream) {
+  const long long total = static_cast<long long>(N) * A * 3;
+  if (total > 0) {
+    const unsigned blocks =
+        static_cast<unsigned>((total + GATHER_THREADS - 1) / GATHER_THREADS);
+    nn_gather_kernel<<<blocks, GATHER_THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(g, rev, A, K, R,
+                                                            total, force);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,38 +4,71 @@ versions beside them.
 | kernel | source | replaces (fitsnap_tpu) |
 | K12 nn_force | csrc/nn_force.cu | solvers/network.py _forward_batch (:737-741) |
 | K12T nn_force_t | csrc/nn_force.cu | its transpose (autodiff of the same lines) |
+| nn_pair_gather | csrc/nn_force.cu | the force scatter of _forward_batch (:739-741) and _forward_batch_cached (:811-816) |
+| K9 nn_ut_b | csrc/nn_grid.cu | ops/snap.py compute_utot_mono, _grid_tensors, nn_ut_b |
+| K10 nn_dedu_vg | csrc/nn_dedu.cu | ops/snap.py nn_dEdu, nn_vg |
+| K10T nn_dedu_vg_t | csrc/nn_dedu.cu | their transpose |
+| K11 nn_pair_force | csrc/nn_grid.cu | ops/snap.py nn_grid_pair, nn_pair_force |
+| K11T nn_pair_force_t | csrc/nn_grid.cu | their transpose, with the gather's |
 
-`NnForce` is the autograd function of the pair: forward K12, backward
-K12T; G, jidx and rev take no gradient.  Each wrapper takes its plain
-version for tensors on the CPU, launches its kernel for tensors on a CUDA
-device, and raises for anything else.  Every launch adds one to the
-wrapper's `launches` count.
+`NnForce` is the precompute mode's autograd function (forward K12, backward
+K12T; G, jidx and rev take no gradient).  `NnCachedForce` is the cached
+mode's (forward: K2 z-lists of the cached ut, K10, K11, the gather;
+backward: K11T, then K10T on the z-lists the forward formed).  Each wrapper
+takes its plain version for tensors on the CPU, launches its kernel for
+tensors on a CUDA device, and raises for anything else.  Every launch adds
+one to the wrapper's `launches` count.
 """
 
 import torch
 
 from fitsnap_tpu_torch.kernels import launch as kl
+from fitsnap_tpu_torch.kernels import snap_kernels as sk
 from fitsnap_tpu_torch.kernels.launch import (check as _check,
                                               launch as _launch,
                                               on_cpu as _on_cpu, ptr as _ptr)
+from fitsnap_tpu_torch.ops import snap as ops
 
-_P, _I = kl.P, kl.I
-kl.register("nn_force", "nn_force", [_P] * 3 + [_I] * 5 + [_P] * 3)
+_P, _I, _LL, _D = kl.P, kl.I, kl.LL, kl.D
+kl.register("nn_force", "nn_force", [_P] * 2 + [_I] * 4 + [_P] * 2)
+kl.register("nn_pair_gather", "nn_force", [_P] * 2 + [_I] * 4 + [_P] * 2)
 kl.register("nn_force_t", "nn_force", [_P] * 3 + [_I] * 4 + [_P] * 2)
+_PAIRS = [_D] * 3 + [_I] * 2 + [_LL]    # prologue scalars, pair count
+kl.register("nn_ut_b", "nn_grid", [_P] * 5 + _PAIRS + [_I] * 2 + [_P] * 5
+            + [_I] + [_P] * 6 + [_I] + [_P] * 4)
+kl.register("nn_pair_force", "nn_grid", [_P] * 6 + _PAIRS + [_I] * 2
+            + [_P] * 4)
+kl.register("nn_pair_force_t", "nn_grid", [_P] * 7 + _PAIRS + [_I] * 3
+            + [_P] * 4)
+kl.register("nn_dedu_vg", "nn_dedu", [_P] * 3 + [_LL] + [_I] * 3 + [_P] * 4
+            + [_I] + [_P] * 5)
+kl.register("nn_dedu_vg_t", "nn_dedu", [_P] * 3 + [_LL] + [_I] * 3
+            + [_P] * 3 + [_I] + [_P] * 6)
+
+
+# ---------------------------------------------------------------------------
+# K12, K12T and the force gather
+# ---------------------------------------------------------------------------
+
+
+def nn_pair_gather_plain(g, rev):
+    """Plain force gather: F (N, A, 3) from pair gradients g (N, A, K, 3)
+    and the reverse table rev (N, A, R) of flat slots a*K + k (-1 padded):
+    F[m] = sum_k g[m, k] - sum over the slots whose neighbor is m."""
+    N, A, K, _ = g.shape
+    R = rev.shape[2]
+    flat = torch.cat([g.reshape(N, A * K, 3), g.new_zeros((N, 1, 3))], 1)
+    idx = torch.where(rev < 0, A * K, rev).long().reshape(N, A * R, 1)
+    scat = torch.gather(flat, 1, idx.expand(N, A * R, 3))
+    return g.sum(2) - scat.reshape(N, A, R, 3).sum(2)
 
 
 def nn_force_plain(dEdB, G, jidx, rev):
     """Plain K12: forces F (N, A, 3) from dE/dB (N, A, W), G (N, A, W, K,
-    3) and the reverse table rev (N, A, R) of flat slots a*K + k (-1
-    padded); jidx is not read (rev carries the neighbor map)."""
-    N, A, W, K, _ = G.shape
-    R = rev.shape[2]
-    fpair = torch.einsum("naw,nawkc->nakc", dEdB, G)
-    flat = torch.cat([fpair.reshape(N, A * K, 3),
-                      fpair.new_zeros((N, 1, 3))], 1)
-    idx = torch.where(rev < 0, A * K, rev).long().reshape(N, A * R, 1)
-    scat = torch.gather(flat, 1, idx.expand(N, A * R, 3))
-    return fpair.sum(2) - scat.reshape(N, A, R, 3).sum(2)
+    3) and the reverse table rev (N, A, R); jidx is not read (rev carries
+    the neighbor map)."""
+    return nn_pair_gather_plain(torch.einsum("naw,nawkc->nakc", dEdB, G),
+                                rev)
 
 
 def nn_force_t_plain(gF, G, jidx):
@@ -55,20 +88,33 @@ def _check_pairs(G, jidx_or_rev, name):
     return N, A, W, K
 
 
+def nn_pair_gather(g, rev):
+    """The force gather on the card; same arguments and output as the plain
+    version."""
+    if _on_cpu(g, rev):
+        return nn_pair_gather_plain(g, rev)
+    N, A, K, _ = g.shape
+    _check(g, "g", torch.float64, (N, A, K, 3))
+    _check(rev, "rev", torch.int32, (N, A, rev.shape[2]))
+    force = torch.empty((N, A, 3), dtype=torch.float64, device=g.device)
+    _launch("nn_pair_gather", g.device, _ptr(g), _ptr(rev), N, A, K,
+            rev.shape[2], _ptr(force))
+    nn_pair_gather.launches += 1
+    return force
+
+
 def nn_force(dEdB, G, jidx, rev):
-    """K12 on the card; same arguments and output as the plain version."""
+    """K12 on the card: the contraction, then `nn_pair_gather`; same
+    arguments and output as the plain version."""
     if _on_cpu(dEdB, G, jidx, rev):
         return nn_force_plain(dEdB, G, jidx, rev)
     N, A, W, K = _check_pairs(G, rev, "rev")
     _check(dEdB, "dEdB", torch.float64, (N, A, W))
-    R = rev.shape[2]
-    dev = G.device
-    fpair = torch.empty((N, A, K, 3), dtype=torch.float64, device=dev)
-    force = torch.empty((N, A, 3), dtype=torch.float64, device=dev)
-    _launch("nn_force", dev, _ptr(dEdB), _ptr(G), _ptr(rev), N, A, W, K, R,
-            _ptr(fpair), _ptr(force))
+    fpair = torch.empty((N, A, K, 3), dtype=torch.float64, device=G.device)
+    _launch("nn_force", G.device, _ptr(dEdB), _ptr(G), N, A, W, K,
+            _ptr(fpair))
     nn_force.launches += 1
-    return force
+    return nn_pair_gather(fpair, rev)
 
 
 def nn_force_t(gF, G, jidx):
@@ -83,10 +129,6 @@ def nn_force_t(gF, G, jidx):
             _ptr(out))
     nn_force_t.launches += 1
     return out
-
-
-nn_force.launches = 0
-nn_force_t.launches = 0
 
 
 class NnForce(torch.autograd.Function):
@@ -104,7 +146,211 @@ class NnForce(torch.autograd.Function):
         return nn_force_t(gF.contiguous(), G, jidx), None, None, None
 
 
-KERNELS = (nn_force, nn_force_t)
+# ---------------------------------------------------------------------------
+# K9, K10, K11 and their transposes: the cached mode
+# ---------------------------------------------------------------------------
+
+
+def _one_channel(p, name):
+    if p.nchem != 1:
+        raise ValueError(f"{name}: the pair-grid kernels take one element "
+                         f"channel (the plan has {p.nchem})")
+    return ops.nn_tables(p)
+
+
+def _check_block(disp, jelem, mask, ielem):
+    N, K = mask.shape
+    _check(disp, "disp", torch.float64, (N, K, 3))
+    _check(jelem, "jelem", torch.int32, (N, K))
+    _check(mask, "mask", torch.bool, (N, K))
+    _check(ielem, "ielem", torch.int32, (N,))
+    return N, K
+
+
+def _prologue_args(p):
+    return (_ptr(p.elem), p.rcutfac, p.rfac0, p.rmin0, int(p.switchflag),
+            int(p.switchinnerflag))
+
+
+def nn_ut_b_plain(disp, jelem, mask, ielem, p):
+    """Plain K9: (ut (N, 2U), B (N, W)) of atoms with neighbor slots disp
+    (N, K, 3), jelem (N, K), mask (N, K), ielem (N,)."""
+    return ops.nn_ut_b(disp, jelem, mask, ielem, p)
+
+
+def nn_ut_b(disp, jelem, mask, ielem, p):
+    """K9 on the card; same arguments and outputs as the plain version
+    (jelem, ielem int32, mask bool).  B holds the base descriptors also
+    under quadraticflag."""
+    if _on_cpu(disp, jelem, mask, ielem):
+        return nn_ut_b_plain(disp, jelem, mask, ielem, p)
+    tb = _one_channel(p, "nn_ut_b")
+    N, K = _check_block(disp, jelem, mask, ielem)
+    two_u, W, dev = 2 * p.u_len, p.ntriples, disp.device
+    ut = torch.empty((N, two_u), dtype=torch.float64, device=dev)
+    B = torch.empty((N, W), dtype=torch.float64, device=dev)
+    _launch("nn_ut_b", dev, _ptr(disp), _ptr(jelem), _ptr(mask), _ptr(ielem),
+            *_prologue_args(p), N, K, tb.n_t, _ptr(tb.pidx), _ptr(tb.qidx),
+            _ptr(tb.lgc_ptr), _ptr(tb.lgc_row), _ptr(tb.lgc_val), two_u,
+            _ptr(p.selfvec), _ptr(tb.bt_ptr), _ptr(tb.bt_i1), _ptr(tb.bt_i2),
+            _ptr(tb.bt_i3), _ptr(tb.bt_c), W,
+            _ptr(p.bzero) if p.bzeroflag else None, _ptr(ut), _ptr(B))
+    nn_ut_b.launches += 1
+    return ut, B
+
+
+def nn_dedu_vg_plain(dEdB, z_r, z_i, p):
+    """Plain K10: the grid cotangent vg (N, n_t, n_t) from dE/dB (N, W) and
+    the z-lists (N, nz) of the atoms' ut."""
+    return ops.nn_vg(ops.nn_dEdu(dEdB, None, p, (z_r, z_i)), p)
+
+
+def _check_z(z_r, z_i, N, p):
+    _check(z_r, "z_r", torch.float64, (N, p.nz))
+    _check(z_i, "z_i", torch.float64, (N, p.nz))
+
+
+def nn_dedu_vg(dEdB, z_r, z_i, p):
+    """K10 on the card; same arguments and output as the plain version."""
+    if _on_cpu(dEdB, z_r, z_i):
+        return nn_dedu_vg_plain(dEdB, z_r, z_i, p)
+    tb = _one_channel(p, "nn_dedu_vg")
+    N, W = dEdB.shape
+    _check(dEdB, "dEdB", torch.float64, (N, p.ntriples))
+    _check_z(z_r, z_i, N, p)
+    vg = torch.empty((N, tb.n_t, tb.n_t), dtype=torch.float64,
+                     device=dEdB.device)
+    _launch("nn_dedu_vg", dEdB.device, _ptr(dEdB), _ptr(z_r), _ptr(z_i), N,
+            W, p.nz, 2 * p.u_len, _ptr(tb.yu_ptr), _ptr(tb.yu_t),
+            _ptr(tb.yu_src), _ptr(tb.yu_fac), tb.n_t ** 2, _ptr(tb.lgr_ptr),
+            _ptr(tb.lgr_col), _ptr(tb.lgr_val), _ptr(vg))
+    nn_dedu_vg.launches += 1
+    return vg
+
+
+def nn_dedu_vg_t_plain(vgc, z_r, z_i, p):
+    """Plain K10T: the cotangent of dE/dB (N, W) from that of vg (N, n_t,
+    n_t), through the same block plan."""
+    tb = ops.nn_tables(p)
+    N, U = vgc.shape[0], p.u_len
+    du = vgc.reshape(N, -1) @ tb.Lg2
+    out = vgc.new_zeros((N, p.ntriples))
+    for c0, c1, ts, src_b, fac_b in tb.yblocks:
+        out = out.index_add(1, ts, (
+            torch.einsum("atu,au->at", fac_b * z_r[:, src_b], du[:, c0:c1])
+            + torch.einsum("atu,au->at", fac_b * z_i[:, src_b],
+                           du[:, U + c0:U + c1])))
+    return out
+
+
+def nn_dedu_vg_t(vgc, z_r, z_i, p):
+    """K10T on the card; same arguments and output as the plain version."""
+    if _on_cpu(vgc, z_r, z_i):
+        return nn_dedu_vg_t_plain(vgc, z_r, z_i, p)
+    tb = _one_channel(p, "nn_dedu_vg_t")
+    N = vgc.shape[0]
+    _check(vgc, "vgc", torch.float64, (N, tb.n_t, tb.n_t))
+    _check_z(z_r, z_i, N, p)
+    out = torch.empty((N, p.ntriples), dtype=torch.float64,
+                      device=vgc.device)
+    _launch("nn_dedu_vg_t", vgc.device, _ptr(vgc), _ptr(z_r), _ptr(z_i), N,
+            p.ntriples, p.nz, 2 * p.u_len, _ptr(tb.lgc_ptr),
+            _ptr(tb.lgc_row), _ptr(tb.lgc_val), tb.n_t ** 2,
+            _ptr(tb.yt_ptr), _ptr(tb.yt_u), _ptr(tb.yt_src),
+            _ptr(tb.yt_fac), _ptr(out))
+    nn_dedu_vg_t.launches += 1
+    return out
+
+
+def nn_pair_force_plain(vg, disp, jelem, mask, ielem, p):
+    """Plain K11: dE/ddisp g (N, K, 3) from the grid cotangent vg (N, n_t,
+    n_t) and the atoms' neighbor slots (as `nn_ut_b_plain`'s)."""
+    return ops.nn_pair_force(vg, ops.nn_grid_pair(disp, jelem, mask, ielem,
+                                                  p))
+
+
+def nn_pair_force(vg, disp, jelem, mask, ielem, p):
+    """K11 on the card; same arguments and output as the plain version."""
+    if _on_cpu(vg, disp, jelem, mask, ielem):
+        return nn_pair_force_plain(vg, disp, jelem, mask, ielem, p)
+    tb = _one_channel(p, "nn_pair_force")
+    N, K = _check_block(disp, jelem, mask, ielem)
+    _check(vg, "vg", torch.float64, (N, tb.n_t, tb.n_t))
+    g = torch.empty((N, K, 3), dtype=torch.float64, device=disp.device)
+    _launch("nn_pair_force", disp.device, _ptr(vg), _ptr(disp), _ptr(jelem),
+            _ptr(mask), _ptr(ielem), *_prologue_args(p), N, K, tb.n_t,
+            _ptr(tb.pidx), _ptr(tb.qidx), _ptr(g))
+    nn_pair_force.launches += 1
+    return g
+
+
+def nn_pair_force_t_plain(gF, jidx, disp, jelem, mask, ielem, p):
+    """Plain K11T: the cotangent of vg (N*A, n_t, n_t) from that of the
+    forces gF (N, A, 3), through the force gather (jidx (N, A, K)) and K11;
+    the neighbor slots are flat (N*A, K) as K11's."""
+    N, A, K = jidx.shape
+    gj = torch.gather(gF, 1, jidx.long().reshape(N, A * K, 1)
+                      .expand(N, A * K, 3)).reshape(N, A, K, 3)
+    gh = (gF[:, :, None, :] - gj).reshape(N * A, K, 3)
+    T1, T2, T1t, T2t, wp, wt = ops.nn_grid_pair(disp, jelem, mask, ielem, p)
+    s = torch.einsum("akc,cak->ak", gh, wt)
+    h = gh * wp[..., None]
+    X = s[..., None] * T2 + torch.einsum("akc,cake->ake", h, T2t)
+    Y = torch.einsum("akc,cakd->akd", h, T1t)
+    return (torch.einsum("akd,ake->ade", T1, X)
+            + torch.einsum("akd,ake->ade", Y, T2))
+
+
+def nn_pair_force_t(gF, jidx, disp, jelem, mask, ielem, p):
+    """K11T on the card; same arguments and output as the plain version."""
+    if _on_cpu(gF, jidx, disp, jelem, mask, ielem):
+        return nn_pair_force_t_plain(gF, jidx, disp, jelem, mask, ielem, p)
+    tb = _one_channel(p, "nn_pair_force_t")
+    N, A, K = jidx.shape
+    _check_block(disp, jelem, mask, ielem)
+    _check(jidx, "jidx", torch.int32, (N, A, K))
+    _check(gF, "gF", torch.float64, (N, A, 3))
+    _check(mask, "mask", torch.bool, (N * A, K))
+    vgc = torch.empty((N * A, tb.n_t, tb.n_t), dtype=torch.float64,
+                      device=disp.device)
+    _launch("nn_pair_force_t", disp.device, _ptr(gF), _ptr(jidx), _ptr(disp),
+            _ptr(jelem), _ptr(mask), _ptr(ielem), *_prologue_args(p), N * A,
+            A, K, tb.n_t, _ptr(tb.pidx), _ptr(tb.qidx), _ptr(vgc))
+    nn_pair_force_t.launches += 1
+    return vgc
+
+
+class NnCachedForce(torch.autograd.Function):
+    """Forces (N, A, 3) of the cached mode from dE/dB (N*A, W): K2's
+    z-lists of the cached ut (N*A, 2U), K10, K11 on the neighbor slots
+    (disp (N*A, K, 3), jelem, mask (N*A, K), ielem (N*A,)), then the gather
+    through rev (N, A, R).  F is linear in dE/dB: its backward is K11T
+    (with the gather's transpose through jidx (N, A, K)), then K10T on the
+    forward's z-lists.  Only dE/dB takes a gradient."""
+
+    @staticmethod
+    def forward(ctx, dEdB, ut, disp, jidx, jelem, mask, ielem, rev, p):
+        N, A, K = jidx.shape
+        z_r, z_i = sk.zlist(ut, p)
+        vg = nn_dedu_vg(dEdB.contiguous(), z_r, z_i, p)
+        g = nn_pair_force(vg, disp, jelem, mask, ielem, p)
+        ctx.save_for_backward(z_r, z_i, disp, jidx, jelem, mask, ielem)
+        ctx.p = p
+        return nn_pair_gather(g.reshape(N, A, K, 3), rev)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gF):
+        z_r, z_i, disp, jidx, jelem, mask, ielem = ctx.saved_tensors
+        vgc = nn_pair_force_t(gF.contiguous(), jidx, disp, jelem, mask,
+                              ielem, ctx.p)
+        return (nn_dedu_vg_t(vgc, z_r, z_i, ctx.p),) + (None,) * 8
+
+
+KERNELS = (nn_force, nn_force_t, nn_pair_gather, nn_ut_b, nn_dedu_vg,
+           nn_dedu_vg_t, nn_pair_force, nn_pair_force_t)
+for _k in KERNELS:
+    _k.launches = 0
 
 
 def reset_launches():

@@ -431,7 +431,8 @@ def _no_spline(plan):
     if plan.spline_delta:
         raise NotImplementedError(
             "ACE spline radials (spline_delta) are not ported to "
-            "fitsnap_tpu_torch yet (ROADMAP.md: ACE spline radials)")
+            'fitsnap_tpu_torch yet (ROADMAP.md: "ACE splines and '
+            'nonlinear ACE")')
 
 
 def chebexpcos_basis(r, rcut, lmbda, nradbase, variant="v0"):

@@ -10,7 +10,7 @@ function plus a C1-smooth switching polynomial between the inner and outer
 cutoffs, with the constant shift sw5 making E(outer) = 0.
 
 `coul/cut` and `spin/exchange/biquadratic` parse but are not ported yet
-(ROADMAP.md, queue 1: coul/spin references).
+(ROADMAP.md: "coul/cut and spin references").
 """
 
 from dataclasses import dataclass
@@ -28,7 +28,7 @@ _D = np.array(sk.ZBL_D)
 _QQR2E = 14.399645  # eV*A
 
 _NOT_PORTED = ("reference pair style {} is not ported to fitsnap_tpu_torch "
-               "yet (ROADMAP.md, queue 1: coul/spin references)")
+               'yet (ROADMAP.md: "coul/cut and spin references")')
 
 
 def _e_zbl_np(r, zi, zj):

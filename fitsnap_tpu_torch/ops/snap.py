@@ -50,6 +50,7 @@ class SnapParams:
     dinner: Optional[torch.Tensor]
     elem: torch.Tensor               # (nelem, 4): radelem, wj, sinner, dinner
     # element channels (chemflag) and the quadratic extension
+    chemflag: bool                   # explicit multi-element descriptors
     nchem: int                       # channels of utot: nelements or 1
     wselfallflag: bool               # self term in every channel
     nb_base: int                     # columns before the quadratic ones
@@ -86,6 +87,9 @@ class SnapParams:
     l_ptr: torch.Tensor              # (2U+1,) int32: CSR of L by column
     l_row: torch.Tensor              # (nnz,) int32
     l_val: torch.Tensor              # (nnz,) f64
+    # pair-grid tables of the NN cached mode, built at first use
+    # (`nn_tables`)
+    nn: Optional["NnTables"] = None
 
 
 def z_term_list(z_groups, D):
@@ -170,7 +174,8 @@ def params_from_arrays(d: dict, device) -> SnapParams:
         rmin0=float(d["rmin0"]), switchflag=bool(d["switchflag"]),
         switchinnerflag=sw_in, bzeroflag=bool(d["bzeroflag"]),
         wself=float(d["wself"]), device=device,
-        nchem=nchem, wselfallflag=bool(d["wselfallflag"]),
+        chemflag=bool(d["chemflag"]), nchem=nchem,
+        wselfallflag=bool(d["wselfallflag"]),
         nb_base=int(d["nb_base"]), quadraticflag=bool(d["quadraticflag"]),
         iq1=t(d["iq1"], i32), iq2=t(d["iq2"], i32),
         qcoef=t(d["qcoef"]), blk_chan=t(blk_chan, i32),
@@ -580,3 +585,277 @@ def descriptors_with_jacobian(disp, jelem, mask, ielem, p: SnapParams,
     if p.quadraticflag:
         B, dBdD = k6(B, dBdD, p)
     return B, dBdD
+
+
+# ---------------------------------------------------------------------------
+# Monomial pair-grid path and the analytic-force NN kit (cached mode)
+#
+# Every monomial ar^p ai^q br^r bi^s of the U expansion factors on the pair
+# grid as T1[(p, q)] * T2[(r, s)], so utot of an atom is the neighbor sum
+# wg = sum_k w T1 (x) T2 mapped once through the change of basis Lg.  The NN
+# solver's cached mode keeps ut and B per atom (positions never move during
+# training) and, per step, takes dE/dB back to the grid (nn_dEdu, nn_vg) and
+# to the pairs (nn_grid_pair, nn_pair_force).  These are the plain versions
+# of kernels K9-K11 (`kernels/nn_kernels.py`) and the CPU path.
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class NnTables:
+    """Pair-grid tables of one plan on its device (`nn_tables`).
+
+    T1[d] = ar^pidx[d] ai^qidx[d] (T2 the same in br, bi) over the n_t
+    exponent pairs of degree <= twojmax.  Lg2 (n_t^2, 2U) maps the grid to
+    utot: dense for the plain versions, as CSR by column (K9, K10T) and by
+    row (K10) for the kernels.  `yblocks` is `_y_block_plan`; its nonzero
+    entries (t, u, src, fac) are listed by U column (K10) and by descriptor
+    (K10T).  The B term list (i1, i2, i3, coefficient) by descriptor is
+    K9's (one channel only)."""
+
+    n_t: int
+    pidx: torch.Tensor      # (n_t,) int32
+    qidx: torch.Tensor      # (n_t,) int32
+    Lg2: torch.Tensor       # (n_t^2, 2U) f64
+    lgc_ptr: torch.Tensor   # (2U+1,) int32: Lg2 by column
+    lgc_row: torch.Tensor
+    lgc_val: torch.Tensor
+    lgr_ptr: torch.Tensor   # (n_t^2+1,) int32: Lg2 by row
+    lgr_col: torch.Tensor
+    lgr_val: torch.Tensor
+    yblocks: list           # [(c0, c1, ts, src_b, fac_b)], tensors
+    yu_ptr: torch.Tensor    # (U+1,) int32: y entries of each u
+    yu_t: torch.Tensor
+    yu_src: torch.Tensor
+    yu_fac: torch.Tensor
+    yt_ptr: torch.Tensor    # (W+1,) int32: y entries of each descriptor
+    yt_u: torch.Tensor
+    yt_src: torch.Tensor
+    yt_fac: torch.Tensor
+    bt_ptr: Optional[torch.Tensor]   # (W+1,) int32: B terms of each t
+    bt_i1: Optional[torch.Tensor]
+    bt_i2: Optional[torch.Tensor]
+    bt_i3: Optional[torch.Tensor]
+    bt_c: Optional[torch.Tensor]
+
+
+def _y_block_plan(p: SnapParams):
+    """Host block structure of the y-list contraction (JAX `ops/snap.py`
+    `_y_block_plan`): each (layer, triple) touches one (j+1)^2 u-block, so
+    src and fac are kept on the nonzero blocks only.  Returns numpy
+    [(c0, c1, ts, src_b, fac_b)]."""
+    srcs = p.y_src.cpu().numpy()
+    facs = p.y_fac.cpu().numpy()
+    offs = list(np.cumsum([0] + [(j + 1) ** 2 for j in range(p.twojmax + 1)]))
+    out = []
+    for lay in range(3):
+        by_j = {}
+        for t in range(facs.shape[1]):
+            nz = np.nonzero(facs[lay, t])[0]
+            if len(nz) == 0:
+                continue
+            j = next(jj for jj in range(len(offs) - 1)
+                     if offs[jj] <= nz[0] < offs[jj + 1])
+            assert nz[-1] < offs[j + 1], "y_fac straddles u-blocks"
+            by_j.setdefault(j, []).append(t)
+        for j, ts in sorted(by_j.items()):
+            ts = np.array(ts, np.int64)
+            c0, c1 = int(offs[j]), int(offs[j + 1])
+            out.append((c0, c1, ts, srcs[lay][ts][:, c0:c1],
+                        facs[lay][ts][:, c0:c1]))
+    return out
+
+
+def _csr(keys, nkeys, *cols):
+    """CSR of entries grouped by `keys` (stable): (ptr, *cols sorted)."""
+    keys = np.asarray(keys, np.int64)
+    order = np.argsort(keys, kind="stable")
+    ptr = np.searchsorted(keys[order], np.arange(nkeys + 1))
+    return (ptr,) + tuple(np.asarray(c)[order] for c in cols)
+
+
+def nn_tables(p: SnapParams) -> NnTables:
+    """The pair-grid tables of `p`, built once and kept on it."""
+    if p.nn is not None:
+        return p.nn
+    from fitsnap_tpu_torch.ops.mono import grid_plan
+
+    dev, f64, i32 = p.device, torch.float64, torch.int32
+
+    def t(x, dtype=i32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    pidx, qidx, Lg = grid_plan(p.twojmax)
+    n_t = len(pidx)
+    Lg2 = Lg.reshape(n_t * n_t, -1)
+    rows, cols = np.nonzero(Lg2)
+    vals = Lg2[rows, cols]
+    lgc = _csr(cols, Lg2.shape[1], rows, vals)
+    lgr = _csr(rows, Lg2.shape[0], cols, vals)
+    blocks = _y_block_plan(p)
+    ent = [(tt, c0 + uu, src[ti, uu], fac[ti, uu])
+           for c0, c1, ts, src, fac in blocks
+           for ti, tt in enumerate(ts) for uu in range(c1 - c0)
+           if fac[ti, uu] != 0]
+    et, eu, es, ef = (np.array(x) for x in zip(*ent))
+    yu = _csr(eu, p.u_len, et, es, ef)
+    yt = _csr(et, p.ntriples, eu, es, ef)
+    bt = [None] * 5
+    if p.nchem == 1:
+        mmat = p.mmat.cpu().numpy()
+        ks, ts = np.nonzero(mmat)
+        ptr, k_s, c_s = _csr(ts, mmat.shape[1], ks, mmat[ks, ts])
+        bt = [t(ptr)] + [t(getattr(p, n).cpu().numpy()[k_s])
+                         for n in ("i1", "i2", "i3")] + [t(c_s, f64)]
+    p.nn = NnTables(
+        n_t=n_t, pidx=t(pidx), qidx=t(qidx), Lg2=t(Lg2, f64),
+        lgc_ptr=t(lgc[0]), lgc_row=t(lgc[1]), lgc_val=t(lgc[2], f64),
+        lgr_ptr=t(lgr[0]), lgr_col=t(lgr[1]), lgr_val=t(lgr[2], f64),
+        yblocks=[(c0, c1, t(ts, torch.long), t(src, torch.long), t(fac, f64))
+                 for c0, c1, ts, src, fac in blocks],
+        yu_ptr=t(yu[0]), yu_t=t(yu[1]), yu_src=t(yu[2]),
+        yu_fac=t(yu[3], f64),
+        yt_ptr=t(yt[0]), yt_u=t(yt[1]), yt_src=t(yt[2]),
+        yt_fac=t(yt[3], f64),
+        bt_ptr=bt[0], bt_i1=bt[1], bt_i2=bt[2], bt_i3=bt[3], bt_c=bt[4])
+    return p.nn
+
+
+def _powers(x, n):
+    """(..., n+1) powers x^0..x^n by a running product."""
+    ones = torch.ones_like(x)[..., None]
+    rep = x[..., None].expand(x.shape + (n,))
+    return torch.cumprod(torch.cat([ones, rep], -1), -1)
+
+
+def _powers_tan(P, xt):
+    """Tangent of `_powers`: d(x^k) = k x^(k-1) dx, from the power table.
+
+    P: (..., n+1); xt: tangent stack (T, ...).  Returns (T, ..., n+1)."""
+    shifted = torch.cat([torch.zeros_like(P[..., :1]), P[..., :-1]], -1)
+    k = torch.arange(P.shape[-1], dtype=P.dtype, device=P.device)
+    return k * shifted[None] * xt[..., None]
+
+
+def _exp_onehot(idx, n, dtype):
+    """(n+1, n_t) selection matrix: column i picks power idx[i]."""
+    return (torch.arange(n + 1, device=idx.device)[:, None]
+            == idx[None, :]).to(dtype)
+
+
+def _grid_tensors(ar, ai, br, bi, twojmax, pidx, qidx):
+    """Pair-grid factors T1[(p, q)] = ar^p ai^q, T2[(r, s)] = br^r bi^s.
+
+    Returns (raw, proj, T1, T2): raw = the (..., twojmax+1) power tables,
+    proj = their (..., n_t) projections on the grid's exponents."""
+    dtype = ar.dtype
+    Ep = _exp_onehot(pidx, twojmax, dtype)
+    Eq = _exp_onehot(qidx, twojmax, dtype)
+    Pa, Pai = _powers(ar, twojmax), _powers(ai, twojmax)
+    Pb, Pbi = _powers(br, twojmax), _powers(bi, twojmax)
+    PaE, PaiE = Pa @ Ep, Pai @ Eq
+    PbE, PbiE = Pb @ Ep, Pbi @ Eq
+    return ((Pa, Pai, Pb, Pbi), (PaE, PaiE, PbE, PbiE),
+            PaE * PaiE, PbE * PbiE)
+
+
+def compute_utot_mono(disp, jelem, mask, ielem, p: SnapParams):
+    """`compute_utot` on the pair grid: ut = (sum_k w T1 (x) T2) . Lg plus
+    the self term.  Returns (utot_r, utot_i), each (A, nchem*U), as
+    `compute_utot` (element channels under chemflag)."""
+    tb = nn_tables(p)
+    A, U, n_t = disp.shape[0], p.u_len, tb.n_t
+    ar, ai, br, bi, w = _ck_prologue(disp, jelem, mask, ielem, p)
+    _, _, T1, T2 = _grid_tensors(ar, ai, br, bi, p.twojmax, tb.pidx,
+                                 tb.qidx)
+    if p.nchem == 1:
+        wg = torch.einsum("ak,akd,ake->ade", w, T1, T2)
+        ut = wg.reshape(A, n_t * n_t) @ tb.Lg2
+        return ut[:, :U] + p.selfvec[None, :U], ut[:, U:]
+    chan = torch.nn.functional.one_hot(jelem.long(), p.nchem).to(
+        w.dtype) * w[..., None]
+    wg = torch.einsum("akc,akd,ake->acde", chan, T1, T2)
+    ut = wg.reshape(A, p.nchem, n_t * n_t) @ tb.Lg2
+    ut = ut + _channel_self(ielem, p, w.dtype)
+    return ut[..., :U].reshape(A, -1), ut[..., U:].reshape(A, -1)
+
+
+def atom_descriptors_fast(disp, jelem, mask, ielem, p: SnapParams):
+    """`atom_descriptors` on the pair grid (with the quadratic columns)."""
+    utr, uti = compute_utot_mono(disp, jelem, mask, ielem, p)
+    return _quad_extend(bispectrum_from_utot(utr, uti, p), p)
+
+
+def nn_ut_b(disp, jelem, mask, ielem, p: SnapParams):
+    """Per-atom (ut (A, 2U), B (A, W)): the cached atom-side state of the
+    NN cached mode (one channel, base descriptors).  Plain K9."""
+    utr, uti = compute_utot_mono(disp, jelem, mask, ielem, p)
+    return torch.cat([utr, uti], -1), bispectrum_from_utot(utr, uti, p)
+
+
+def nn_dEdu(dEdB, ut, p: SnapParams, zcat=None):
+    """dE/dutot (A, 2U) from dE/dB (A, W): the z-lists of ut (or `zcat`)
+    contracted with dE/dB through the block-restricted y plan."""
+    z_r, z_i = zcat if zcat is not None else _compute_zcat(ut, p)
+    A, U = dEdB.shape[0], p.u_len
+    der = dEdB.new_zeros((A, U))
+    dei = dEdB.new_zeros((A, U))
+    for c0, c1, ts, src_b, fac_b in nn_tables(p).yblocks:
+        wb = dEdB[:, ts, None] * fac_b[None]
+        der[:, c0:c1] += torch.einsum("atu,atu->au", wb, z_r[:, src_b])
+        dei[:, c0:c1] += torch.einsum("atu,atu->au", wb, z_i[:, src_b])
+    return torch.cat([der, dei], -1)
+
+
+def nn_vg(dEdu, p: SnapParams):
+    """dE/dutot -> the pair-grid cotangent vg (A, n_t, n_t)."""
+    tb = nn_tables(p)
+    return (dEdu @ tb.Lg2.T).reshape(dEdu.shape[0], tb.n_t, tb.n_t)
+
+
+def nn_grid_pair(disp, jelem, mask, ielem, p: SnapParams):
+    """Per-pair grid tensors and their displacement tangents.
+
+    Returns (T1, T2 (A, K, n_t), T1t, T2t (3, A, K, n_t), wp (A, K), wt
+    (3, A, K)); the prologue's tangents are `_prologue_duals`'."""
+    tb = nn_tables(p)
+    vals, tans = _prologue_duals(disp, jelem, mask, ielem, p)
+    raw, proj, T1, T2 = _grid_tensors(vals[0], vals[1], vals[2], vals[3],
+                                      p.twojmax, tb.pidx, tb.qidx)
+    Pa, Pai, Pb, Pbi = raw
+    PaE, PaiE, PbE, PbiE = proj
+    Ep = _exp_onehot(tb.pidx, p.twojmax, disp.dtype)
+    Eq = _exp_onehot(tb.qidx, p.twojmax, disp.dtype)
+    PatE = _powers_tan(Pa, tans[:, 0]) @ Ep
+    PaitE = _powers_tan(Pai, tans[:, 1]) @ Eq
+    PbtE = _powers_tan(Pb, tans[:, 2]) @ Ep
+    PbitE = _powers_tan(Pbi, tans[:, 3]) @ Eq
+    T1t = PatE * PaiE[None] + PaE[None] * PaitE
+    T2t = PbtE * PbiE[None] + PbE[None] * PbitE
+    return T1, T2, T1t, T2t, vals[4], tans[:, 4]
+
+
+def nn_pair_force(vg, grid):
+    """dE/ddisp (A, K, 3) from the grid cotangent vg (A, n_t, n_t):
+    g = wp sum_m Mt v + wt sum_m M v, evaluated on the grid."""
+    T1, T2, T1t, T2t, wp, wt = grid
+    tmp = torch.einsum("akd,ade->ake", T1, vg)
+    sp = torch.einsum("ake,ake->ak", tmp, T2)
+    st = (torch.einsum("cake,ake->cak",
+                       torch.einsum("cakd,ade->cake", T1t, vg), T2)
+          + torch.einsum("ake,cake->cak", tmp, T2t))
+    g = wp[None] * st + wt * sp[None]
+    return g.permute(1, 2, 0)
+
+
+def snap_nn_parts(disp, jelem, mask, ielem, p: SnapParams):
+    """(B, ut, grid) of one block of atoms: the kit composed, for tests."""
+    assert p.nchem == 1 and not p.quadraticflag, \
+        "the analytic NN path covers the one-channel base descriptors"
+    ut, B = nn_ut_b(disp, jelem, mask, ielem, p)
+    return B, ut, nn_grid_pair(disp, jelem, mask, ielem, p)
+
+
+def nn_pair_grad(dEdB, parts, p: SnapParams):
+    """dE/ddisp (A, K, 3) from dE/dB and `snap_nn_parts` (test oracle)."""
+    _, ut, grid = parts
+    return nn_pair_force(nn_vg(nn_dEdu(dEdB, ut, p), p), grid)

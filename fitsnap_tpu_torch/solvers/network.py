@@ -1,24 +1,32 @@
 """Neural-network solver (PyTorch), replacing the reference's PYTORCH /
-NETWORK / JAX solvers, in the precompute mode.
+NETWORK / JAX solvers, in the cached and precompute modes.
 
-Counterpart of `fitsnap_tpu/solvers/network.py` with `dgrad_mode =
-precompute`: per-atom descriptors B and their per-pair gradients G = dB/dD
-are computed on the device once (`calculators/snap.nn_prep`: kernels K1-K5,
-K6q and the chemflag modes under their flags), in shape buckets of configs
-padded to one (atoms, neighbor slots) shape.  Training is a per-epoch loop
-of minibatch steps: per-element MLP energies (`models/mlp.py`), dE/dB by
-autograd with `create_graph`, forces through the kernel K12 (`NnForce`,
-whose backward K12T carries the force residual back into the MLP's double
-backward), the weighted MSE loss, and Adam as optax's `scale_by_adam` with
-the learning rate applied outside it.
+Counterpart of `fitsnap_tpu/solvers/network.py`.  `dgrad_mode = cached`
+(what `auto` picks for linear SNAP, as in the JAX package): positions go to
+the device in the buckets of `parallel/fit.plan_pos_buckets`, and one pass
+builds the neighbor lists (K8), their reverse table (K8r), the per-atom ut
+and B (K9, `calculators/snap.nn_analytic`) and the reference potential (K5 +
+K4); the buckets keep those, no dB/dD.  Each step takes dE/dB back to the
+pairs analytically (`NnCachedForce`: K2 z-lists of the cached ut, K10, K11
+and the force gather; backward K11T and K10T).  `dgrad_mode = precompute`
+(chemflag and quadraticflag, or asked for): per-atom descriptors B and their
+per-pair gradients G = dB/dD are computed on the device once
+(`calculators/snap.nn_prep`: kernels K1-K5, K6q and the chemflag modes under
+their flags), in shape buckets of configs padded to one (atoms, neighbor
+slots) shape, and the forces go through K12 (`NnForce`, backward K12T).
+Training is a per-epoch loop of minibatch steps: per-element MLP energies
+(`models/mlp.py`), dE/dB by autograd with `create_graph`, the forces (whose
+backward carries the force residual into the MLP's double backward), the
+weighted MSE loss, and Adam as optax's `scale_by_adam` with the learning
+rate applied outside it.
 
 The minibatch plan, the validation split, the `e_mean` bias shift, the
 warm start, best-validation tracking and the plateau scheduler are the JAX
 package's, so both packages follow the same loss trajectory from the same
 initial parameters.  The JAX package's epoch blocks and chunked programs
 only arrange TPU dispatch (they compute the same trajectory), and are not
-copied.  The cached and OTF modes, PAS and the custom pairwise NN raise
-naming their ROADMAP.md items.
+copied.  The OTF mode, PAS and the custom pairwise NN raise naming their
+ROADMAP.md items.
 """
 
 import time
@@ -28,7 +36,8 @@ import torch
 
 from fitsnap_tpu_torch.convert import mlp_params_from_numpy
 from fitsnap_tpu_torch.io.screen import info, screen
-from fitsnap_tpu_torch.kernels.nn_kernels import NnForce, nn_force
+from fitsnap_tpu_torch.kernels.nn_kernels import (NnCachedForce, NnForce,
+                                                  nn_force, nn_pair_gather)
 from fitsnap_tpu_torch.models.mlp import (PerElementMLP, init_mlp,
                                           load_params, params_to_numpy,
                                           save_params)
@@ -36,11 +45,24 @@ from fitsnap_tpu_torch.solvers.solver import (NN_COLUMNS, NN_INDEX_NAMES,
                                               ErrorTable, Solver)
 from fitsnap_tpu_torch.utils.torchsetup import DTYPE, resolve_device
 
-_LATER = "{} is not ported to fitsnap_tpu_torch yet (ROADMAP.md, queue {})"
-_CACHED = "3: the cached analytic-force and OTF modes, kernels K9-K11"
+_LATER = '{} is not ported to fitsnap_tpu_torch yet (ROADMAP.md: "{}")'
+_OTF = "The NN solver's OTF mode"
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 _BATCH_KEYS = ("B", "G", "types", "real", "nat", "jidx", "rev", "e_target",
                "f_target", "ew", "fw")
+# the cached mode's buckets: "types" holds the atoms' element (the
+# descriptor side's), "elem" the network index (zeroed unless
+# multi_element_option is 2)
+_BATCH_KEYS_CACHED = ("disp", "jidx", "mask", "rev", "ut", "B", "types",
+                      "elem", "real", "nat", "e_target", "f_target", "ew",
+                      "fw")
+# dgrad_mode = auto (the JAX package's defaults): the cached mode while its
+# neighbor and per-atom cache stays within NEIGH_LIMIT bytes, else the
+# stored dB/dD within G_LIMIT
+NEIGH_LIMIT = 4 << 30
+G_LIMIT = 2 << 30
+MAX_PROGRAMS = 10           # plan_pos_buckets' cap on the cached buckets
+CACHED_PAIRS = 390_000      # the cached mode's pair slots per minibatch
 
 
 def _net_section(config):
@@ -128,14 +150,17 @@ class NetworkSolver(Solver):
         self.net = _net_section(config)
         if "CUSTOM" in config.sections:
             raise NotImplementedError(_LATER.format(
-                "The custom pairwise NN", "9: custom pairwise NN"))
+                "The custom pairwise NN", "Custom pairwise NN"))
         if config.sections["CALCULATOR"].per_atom_scalar:
             raise NotImplementedError(_LATER.format(
-                "Per-atom scalar (PAS) fitting", "10: PAS"))
+                "Per-atom scalar (PAS) fitting", "PAS"))
         self.buckets = None     # list of per-bucket dataset dicts
         self.mean = None
         self.std = None
         self.model = None
+        self.cached = False     # dgrad_mode resolved to cached
+        self._kit = None        # calculators/snap.nn_analytic of the fit
+        self._snap = None       # its SnapParams
         self.history = []
         self.lr_history = np.zeros(0)
         self.final_lr = None
@@ -144,35 +169,60 @@ class NetworkSolver(Solver):
     # ------------- data -------------
 
     def prepare_dataset(self, calculator, data):
-        """Descriptors and their pair jacobian of every config on the
-        device, in coalesced shape buckets, with the reference-subtracted
-        targets and the descriptor standardization."""
+        """The training set on the device, with the reference-subtracted
+        targets and the descriptor standardization, in the mode
+        `dgrad_mode` resolves to (JAX `prepare_dataset`): `auto` takes the
+        cached mode for linear SNAP while its cache stays within
+        NEIGH_LIMIT, else precompute while dB/dD stays within G_LIMIT."""
         from fitsnap_tpu_torch.calculators.snap import (
             chunk_size, coalesce_shape_buckets, pack_bucket)
+        from fitsnap_tpu_torch.parallel.fit import plan_pos_buckets
 
         mode = self.net.dgrad_mode
-        if mode in ("cached", "otf"):
-            raise NotImplementedError(_LATER.format(
-                f"dgrad_mode={mode}", _CACHED))
+        self.cached = False
+        if mode == "otf":
+            raise NotImplementedError(_LATER.format("dgrad_mode=otf", _OTF))
+        if mode in ("auto", "cached"):
+            packed = [calculator._pack(d) for d in data]
+            pos_groups = plan_pos_buckets(packed, calculator.cutoff,
+                                          max_programs=MAX_PROGRAMS)
+            kit = calculator.nn_analytic()
+            if mode == "auto":
+                # pairs: disp + jidx + mask; atoms: the cached ut and B
+                neigh_bytes = sum(
+                    len(g["configs"]) * g["a_pad"]
+                    * (min(g["k_pad"], g["a_pad"] * len(g["s_table"]))
+                       * (3 * 8 + 5) + 2600) for g in pos_groups)
+                g_bytes = sum(len(g["configs"]) * g["a_pad"] * g["k_pad"]
+                              * calculator.get_width() * 3 * 8
+                              for g in pos_groups)
+                if kit is not None and neigh_bytes <= NEIGH_LIMIT:
+                    mode = "cached"
+                elif g_bytes <= G_LIMIT:
+                    mode = "precompute"
+                else:
+                    raise NotImplementedError(
+                        f"dgrad_mode=auto: the cached mode does not apply "
+                        f"and the stored dB/dD would take "
+                        f"{g_bytes / 1e9:.2f} GB, which the JAX package "
+                        f"trains in its OTF mode; "
+                        + _LATER.format("The OTF mode", _OTF))
+                screen(f"dgrad_mode=auto -> {mode} (neighbor cache "
+                       f"{neigh_bytes / 1e9:.3f} GB, dB/dD "
+                       f"{g_bytes / 1e9:.3f} GB)")
+            if mode == "cached":
+                if kit is None:
+                    raise NotImplementedError(
+                        "dgrad_mode=cached covers linear SNAP, not chemflag "
+                        "or quadraticflag; the JAX package falls back to "
+                        "its OTF mode there, and "
+                        + _LATER.format("the OTF mode", _OTF))
+                self.cached = True
+                self._kit, self._snap = kit, calculator.params
+                return self._prepare_cached(calculator, pos_groups)
         packed, shape_buckets = calculator.host_preprocess(data)
         shape_buckets = coalesce_shape_buckets(shape_buckets)
         width = calculator.desc_width()
-        if mode == "auto":
-            # the JAX package would pick the cached mode for linear SNAP;
-            # both compute the same forces (tests/test_nn.py holds them to
-            # each other), and precompute is the mode the port has
-            g_bytes = sum(len(v) * a * k * width * 3 * 8
-                          for (a, k), v in shape_buckets.items())
-            if self.device.type == "cuda":
-                free = torch.cuda.mem_get_info(self.device)[0]
-                if g_bytes > free:
-                    raise NotImplementedError(
-                        f"dgrad_mode=auto: the stored dB/dD needs "
-                        f"{g_bytes / 1e9:.2f} GB, more than the "
-                        f"{free / 1e9:.2f} GB free on {self.device}; "
-                        + _LATER.format("The cached mode", _CACHED))
-            screen(f"dgrad_mode=auto -> precompute (dB/dD "
-                   f"{g_bytes / 1e9:.3f} GB on {self.device})")
 
         dev = self.device
         self.buckets = []
@@ -222,12 +272,78 @@ class NetworkSolver(Solver):
                 "files": [str(d.get("File", "")) for d in datas],
                 "nat_host": nat, "shape": (a_pad, k_pad),
             })
+        self._standardize(sum_b, sumsq_b, count)
+        return self.buckets
+
+    def _standardize(self, sum_b, sumsq_b, count):
         mean = sum_b / count
         var = sumsq_b / count - mean ** 2
         std = np.sqrt(np.clip(var, 0, None))
         std[std < 1e-8] = 1.0
-        self.mean = torch.as_tensor(mean, dtype=DTYPE, device=dev)
-        self.std = torch.as_tensor(std, dtype=DTYPE, device=dev)
+        self.mean = torch.as_tensor(mean, dtype=DTYPE, device=self.device)
+        self.std = torch.as_tensor(std, dtype=DTYPE, device=self.device)
+
+    def _prepare_cached(self, calculator, pos_groups):
+        """The cached mode's buckets (JAX `_prepare_otf(cache=True)` on one
+        device).  Per bucket of `plan_pos_buckets` the positions go to the
+        device (`pack_batch_pos`, float64), and per chunk of configs K8
+        builds the neighbor lists, K8r their reverse table, K9 the per-atom
+        ut and B, and K5 + K4 the reference potential; the stats pass forms
+        the targets and the standardization over real atoms.  A bucket
+        keeps disp, jidx, mask, rev, ut and B, not the positions (they never
+        move in training)."""
+        from fitsnap_tpu_torch.kernels import snap_kernels as sk
+        from fitsnap_tpu_torch.ops.refpot import reference_eav
+        from fitsnap_tpu_torch.parallel.fit import (_check_dropped,
+                                                    pack_batch_pos)
+
+        dev = self.device
+        cutoff = float(calculator.cutoff)
+        self.buckets = []
+        sum_b = sumsq_b = None
+        count = 0
+        for g in pos_groups:
+            cfgs, a_pad, s_table = g["configs"], g["a_pad"], g["s_table"]
+            n, S = len(cfgs), len(s_table)
+            k_pad = int(min(g["k_pad"], a_pad * S))
+            ph, pl, sh, sl, types, nat, _, e_t, f_t, _, ew, fw, _ = (
+                torch.from_numpy(x[0]).to(dev)
+                for x in pack_batch_pos(cfgs, a_pad, n, s_table))
+            # bound the (A, S, A) neighbor-candidate transient
+            chunk = int(min(32, max(1, (1 << 26) // (a_pad * S * a_pad)), n))
+            outs = []
+            for c0 in range(0, n, chunk):
+                c = slice(c0, c0 + chunk)
+                disp, jidx, mask = sk.device_neighbors(
+                    ph[c], pl[c], sh[c], sl[c], nat[c], cutoff, k_pad)
+                rev, dropped = sk.reverse_table(jidx, mask)
+                ut, B = self._kit["utb"](disp, jidx, mask, types[c], nat[c])
+                re, rf, _ = reference_eav(disp, jidx, mask, rev, types[c],
+                                          calculator.refspec)
+                outs.append((disp, jidx, mask, rev, ut, B, re, rf, dropped))
+            disp, jidx, mask, rev, ut, B, re, rf, dropped = (
+                torch.cat(x) for x in zip(*outs))
+            del outs
+            _check_dropped(dropped)
+            real = torch.arange(a_pad, device=dev)[None, :] < nat[:, None]
+            Bm = B * real[..., None]
+            sb = Bm.sum((0, 1)).cpu().numpy()
+            ssq = (Bm * Bm).sum((0, 1)).cpu().numpy()
+            sum_b = sb if sum_b is None else sum_b + sb
+            sumsq_b = ssq if sumsq_b is None else sumsq_b + ssq
+            count += int(real.sum())
+            self.buckets.append({
+                "disp": disp, "jidx": jidx, "mask": mask, "rev": rev,
+                "ut": ut, "B": B, "types": types, "elem": types.clone(),
+                "nat": nat, "real": real,
+                "e_target": (e_t - re) / torch.clamp(nat, min=1),
+                "f_target": f_t - rf, "ew": ew, "fw": fw,
+                "test": np.array([bool(pc.data["test_bool"]) for pc in cfgs]),
+                "groups": [pc.data["Group"] for pc in cfgs],
+                "files": [str(pc.data.get("File", "")) for pc in cfgs],
+                "nat_host": nat.cpu().numpy(), "shape": (a_pad, k_pad),
+            })
+        self._standardize(sum_b, sumsq_b, count)
         return self.buckets
 
     # ------------- model -------------
@@ -253,10 +369,46 @@ class NetworkSolver(Solver):
             forces = nn_force(dEdB, batch["G"], batch["jidx"], batch["rev"])
         return e / nat, forces
 
+    def _forward_batch_cached(self, model, batch, train=False):
+        """The cached mode's energies and forces of one gathered batch (JAX
+        `_forward_batch_cached`): the MLP on the cached B over the flattened
+        (configs x atoms) axis, then dE/dB taken to the pairs and gathered
+        into forces (K2, K10, K11 and the gather; with `train`, through
+        `NnCachedForce`, whose backward K11T, K10T carries the force term
+        into the loss's parameter gradient)."""
+        kit = self._kit
+        B = batch["B"]
+        N, A, W = B.shape
+        real = batch["real"].to(B.dtype).reshape(-1)
+        nat = torch.clamp(batch["nat"], min=1).to(B.dtype)
+        x = ((B - self.mean) / self.std).reshape(N * A, W).requires_grad_(True)
+        with torch.enable_grad():
+            e = (model(x, batch["elem"].reshape(-1)) * real).reshape(N, A) \
+                .sum(1)
+            dEdx, = torch.autograd.grad(e.sum(), x, create_graph=train)
+        dEdB = dEdx / self.std
+        ut = batch["ut"].reshape(N * A, -1)
+        disp, types = batch["disp"], batch["types"]
+        pair = kit["pair"](disp, batch["jidx"], batch["mask"], types)
+        if train:
+            K = disp.shape[2]
+            jelem, smask = pair
+            forces = NnCachedForce.apply(
+                dEdB, ut, disp.reshape(N * A, K, 3), batch["jidx"],
+                jelem.reshape(N * A, K), smask.reshape(N * A, K),
+                types.reshape(N * A), batch["rev"], self._snap)
+        else:
+            e, dEdB = e.detach(), dEdB.detach()
+            g = kit["force"](kit["dEdu_vg"](dEdB, ut), disp, pair, types)
+            forces = nn_pair_gather(g, batch["rev"])
+        return e / nat, forces
+
     def _loss(self, model, batch, train=False):
         """Weighted MSE loss of one minibatch (JAX `_loss`, one device)."""
         net = self.net
-        e_pred, f_pred = self._forward_batch(model, batch, train)
+        fwd = self._forward_batch_cached if self.cached \
+            else self._forward_batch
+        e_pred, f_pred = fwd(model, batch, train)
         real = batch["real"].to(e_pred.dtype)
         live = (batch["nat"] > 0).to(e_pred.dtype)
         nfc = torch.clamp((real.sum(1) * 3 * live).sum(), min=1.0)
@@ -273,7 +425,8 @@ class NetworkSolver(Solver):
     def _gather(self, ds, idx):
         idx = torch.as_tensor(np.asarray(idx), dtype=torch.long,
                               device=self.device)
-        return {k: ds[k].index_select(0, idx) for k in _BATCH_KEYS}
+        keys = _BATCH_KEYS_CACHED if self.cached else _BATCH_KEYS
+        return {k: ds[k].index_select(0, idx) for k in keys}
 
     # ------------- training -------------
 
@@ -289,7 +442,10 @@ class NetworkSolver(Solver):
                      if net.multi_element_option == 2 else 1)
         if net.multi_element_option != 2:
             for ds in self.buckets:
-                ds["types"] = torch.zeros_like(ds["types"])
+                # cached buckets carry the network index apart ("elem"):
+                # the descriptor side needs the true atom types
+                key = "elem" if "elem" in ds else "types"
+                ds[key] = torch.zeros_like(ds[key])
         seed = 13 if net.manual_seed_flag else int(time.time()) % 2 ** 31
         params = init_mlp(net.layer_sizes, nelem_net,
                           torch.Generator().manual_seed(seed), dev)
@@ -324,15 +480,23 @@ class NetworkSolver(Solver):
                 tr = tr[:ntr]
             train_sets.append(tr)
             val_sets.append(va)
+        def plan_bsz(n, ds):
+            """The minibatch size: min(batch_size, n), and in the cached
+            mode at most CACHED_PAIRS pair slots (JAX `_plan_bsz`).  The
+            JAX package's np.resize wrap of a set smaller than the
+            minibatch fires only with more devices than examples."""
+            bsz = min(bs, n)
+            if self.cached:
+                a_pad, k_pad = ds["shape"]
+                bsz = min(bsz, max(1, CACHED_PAIRS // (a_pad * k_pad)))
+            return bsz
+
         E = net.num_epochs
         train_perms, tkeys = [], []
         for bi, tr in enumerate(train_sets):
             if len(tr) == 0:
                 continue
-            # the JAX package's np.resize wrap of a set smaller than the
-            # minibatch fires only with more devices than examples; on one
-            # device the minibatch is min(batch_size, len)
-            bsz = min(bs, len(tr))
+            bsz = plan_bsz(len(tr), self.buckets[bi])
             nst = (len(tr) - bsz) // bsz + 1
             train_perms.append(np.stack([
                 (rng.permutation(tr) if net.shuffle_flag else np.asarray(tr))
@@ -342,7 +506,7 @@ class NetworkSolver(Solver):
         for bi, va in enumerate(val_sets):
             if len(va) == 0:
                 continue
-            bsz = min(bs, len(va))
+            bsz = plan_bsz(len(va), self.buckets[bi])
             nst = (len(va) - bsz) // bsz + 1
             val_plans.append(np.asarray(va)[:nst * bsz].reshape(nst, bsz))
             vkeys.append(bi)
@@ -486,10 +650,12 @@ class NetworkSolver(Solver):
         """Per-atom energies (n,) and forces (n, A, 3) of every config in
         one bucket, as numpy arrays, 32 configs at a time."""
         n = int(ds["nat"].shape[0])
+        fwd = self._forward_batch_cached if self.cached \
+            else self._forward_batch
         es, fs = [], []
         for c0 in range(0, n, 32):
-            e, f = self._forward_batch(
-                self.model, self._gather(ds, np.arange(c0, min(c0 + 32, n))))
+            e, f = fwd(self.model,
+                       self._gather(ds, np.arange(c0, min(c0 + 32, n))))
             es.append(e)
             fs.append(f)
         return torch.cat(es).cpu().numpy(), torch.cat(fs).cpu().numpy()

@@ -145,7 +145,7 @@ class Solver:
         if self.config.sections["EXTRAS"].dump_dataframe:
             raise NotImplementedError(
                 "dump_dataframe writes a pandas DataFrame, which "
-                "fitsnap_tpu_torch does not use (ROADMAP.md, queue 1: tools)")
+                'fitsnap_tpu_torch does not use (ROADMAP.md: "Host copies")')
         if self.fit is None:
             return
         self.errors = error_table(

@@ -5,7 +5,7 @@ The weighted rows go to the device, AtA and Atb are formed there
 (`torch.matmul`, as the JAX package leaves them to XLA) and come back for
 the host float64 `NormalSolver` (column equilibration and an eigh
 pseudo-inverse).  Sharding the rows over several cards waits for
-multi-GPU (ROADMAP.md, queue 8).
+multi-GPU (ROADMAP.md "Multi-GPU").
 """
 
 import numpy as np

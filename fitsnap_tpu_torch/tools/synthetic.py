@@ -249,19 +249,20 @@ def quadratic_settings(datapath, groups=None):
     return s
 
 
-def nn_settings(datapath, groups=None):
+def nn_settings(datapath, groups=None, dgrad_mode="precompute"):
     """`ta_settings` for the NN solver: nonlinear 1 and a [PYTORCH] section
     with the config default layer_sizes `num_desc 64 64 1`, batch_size 4,
-    multi_element_option 1, manual_seed_flag 1, dgrad_mode precompute,
-    energy_weight 1e-2 and force_weight 1.0 (the JAX package's NN tests'
-    weights), 10 epochs at the default learning rate 1e-4."""
+    multi_element_option 1, manual_seed_flag 1, `dgrad_mode` (precompute
+    unless given), energy_weight 1e-2 and force_weight 1.0 (the JAX
+    package's NN tests' weights), 10 epochs at the default learning rate
+    1e-4."""
     s = ta_settings(datapath, groups)
     s["CALCULATOR"]["nonlinear"] = 1
     s["SOLVER"] = {"solver": "PYTORCH"}
     s["PYTORCH"] = {"layer_sizes": "num_desc 64 64 1", "batch_size": 4,
                     "num_epochs": 10, "energy_weight": 1e-2,
                     "force_weight": 1.0, "multi_element_option": 1,
-                    "manual_seed_flag": 1, "dgrad_mode": "precompute",
+                    "manual_seed_flag": 1, "dgrad_mode": dgrad_mode,
                     "output_file": "Ta_nn.pt"}
     s["OUTFILE"] = {"metrics": "Ta_nn_metrics.md", "potential": "Ta_nn_pot"}
     return s

@@ -1,5 +1,6 @@
-"""The CUDA kernels K1-K5, K6q, K7, K8, K8r, K12, K12T, K13 and K14 (and
-the chemflag modes of K1-K3) against their plain versions on the card.
+"""The CUDA kernels K1-K5, K6q, K7, K8, K8r, K9-K11 (with K10T and K11T),
+K12, K12T, K13 and K14 (and the chemflag modes of K1-K3) against their
+plain versions on the card.
 
 Needs an NVIDIA GPU and nvcc (the kernels are built at first use); skipped
 elsewhere.  The machine with the card has no JAX, which the suite's
@@ -26,7 +27,11 @@ twojmax 8; the chemflag modes of K1-K3 with two elements at twojmax 4
 twojmax 2.  K12 and K12T on two small periodic cells with a padded atom
 (and twice, to show a run repeats bit for bit), and the gradient of a
 force loss with respect to MLP parameters through `NnForce` against
-autograd through K12's plain version, 1e-10.
+autograd through K12's plain version, 1e-10.  K9, K10, K10T, K11, K11T and
+the force gather on two configs of 6 atoms x 40 slots (the two CASES
+plans; a self image, masked pairs, a padded atom), each once and bit for
+bit from run to run; the force-loss gradient through `NnCachedForce`
+against autograd through the plain versions, 1e-10.
 """
 
 from types import SimpleNamespace
@@ -236,6 +241,11 @@ def test_k4_matches_plain(cuda):
     assert rel_err(out, ref) <= RTOL
 
 
+def launched(module):
+    """{kernel: launches} of a wrapper module, the kernels launched only."""
+    return {k: v for k, v in module.launches().items() if v}
+
+
 def nn_batch(device):
     """A K12 minibatch: two small periodic cells (self images repeated in
     the reverse table) and a padded atom, G zero off the listed pairs."""
@@ -271,7 +281,8 @@ def test_k12_k12t_match_plain(cuda):
     out = nk.nn_force(dEdB, G, jidx, rev)
     out_t = nk.nn_force_t(gF, G, jidx)
     torch.cuda.synchronize()
-    assert nk.launches() == {"nn_force": 1, "nn_force_t": 1}
+    assert launched(nk) == {"nn_force": 1, "nn_pair_gather": 1,
+                            "nn_force_t": 1}
     assert rel_err([out], [nk.nn_force_plain(dEdB, G, jidx, rev)]) <= RTOL
     assert rel_err([out_t], [nk.nn_force_t_plain(gF, G, jidx)]) <= RTOL
     # a run repeats bit for bit (fixed-order sums, no atomics)
@@ -307,9 +318,133 @@ def test_nn_force_gradient_matches_plain_autograd(cuda):
     nk.reset_launches()
     out = grads(lambda d: nk.NnForce.apply(d, G, jidx, rev))
     torch.cuda.synchronize()
-    assert nk.launches() == {"nn_force": 1, "nn_force_t": 1}
+    assert launched(nk) == {"nn_force": 1, "nn_pair_gather": 1,
+                            "nn_force_t": 1}
     ref = grads(lambda d: nk.nn_force_plain(d, G, jidx, rev))
     assert rel_err(out, ref) <= 1e-10
+
+
+def grid_block(spec, device, nconf=2, A=6, K=40):
+    """Inputs of the pair-grid kernels K9-K11: nconf configs of A atoms x K
+    neighbor slots, flat (nconf*A, K) as K1's (a self image, masked pairs,
+    a padded atom), with neighbor indices jidx (nconf, A, K) inside each
+    config and their reverse table rev (nconf, A, R)."""
+    p = make_params(section(spec), device)
+    N = nconf * A
+    rng = np.random.default_rng(12)
+    d = rng.normal(size=(N, K, 3))
+    d *= rng.uniform(1.2, 4.9, (N, K, 1)) / np.linalg.norm(d, axis=-1,
+                                                          keepdims=True)
+    d[0, 1] = [3.3, 0.0, 0.0]
+    mask = rng.uniform(size=(N, K)) < 0.85
+    mask[-1] = False
+    nel = spec["numtypes"]
+    jidx = rng.integers(0, A, (nconf, A, K))
+    slots = [[np.flatnonzero((jidx[c] == m).ravel() & mask.reshape(
+        nconf, A * K)[c]) for m in range(A)] for c in range(nconf)]
+    R = max(len(x) for row in slots for x in row)
+    rev = np.full((nconf, A, R), -1)
+    for c, row in enumerate(slots):
+        for m, x in enumerate(row):
+            rev[c, m, :len(x)] = x
+
+    def t(x, dtype=None):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    block = (t(d), t(rng.integers(0, nel, (N, K)), torch.int32), t(mask),
+             t(rng.integers(0, nel, N), torch.int32))
+    return p, block, t(jidx, torch.int32), t(rev, torch.int32)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_k9_k10_k11_match_plain(cuda, name):
+    """K9, K10, K10T, K11, K11T and the force gather against their plain
+    versions, each launched once, and bit for bit from run to run."""
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+    from fitsnap_tpu_torch.ops.snap import nn_tables
+
+    p, block, jidx, rev = grid_block(CASES[name], cuda)
+    N, K = block[2].shape
+    n_t = nn_tables(p).n_t
+    nconf, A = jidx.shape[:2]
+    rng = np.random.default_rng(13)
+
+    def t(*shape):
+        return torch.as_tensor(rng.normal(size=shape), device=cuda)
+
+    ut = nk.nn_ut_b_plain(*block, p)[0]
+    z = sk.zlist_plain(ut, p)
+    dEdB, vgc, vg, gF = (t(N, p.ntriples), t(N, n_t, n_t), t(N, n_t, n_t),
+                         t(nconf, A, 3))
+    g = t(nconf, A, K, 3)
+    calls = {
+        "nn_ut_b": (lambda: nk.nn_ut_b(*block, p),
+                    lambda: nk.nn_ut_b_plain(*block, p)),
+        "nn_dedu_vg": (lambda: [nk.nn_dedu_vg(dEdB, *z, p)],
+                       lambda: [nk.nn_dedu_vg_plain(dEdB, *z, p)]),
+        "nn_dedu_vg_t": (lambda: [nk.nn_dedu_vg_t(vgc, *z, p)],
+                         lambda: [nk.nn_dedu_vg_t_plain(vgc, *z, p)]),
+        "nn_pair_force": (lambda: [nk.nn_pair_force(vg, *block, p)],
+                          lambda: [nk.nn_pair_force_plain(vg, *block, p)]),
+        "nn_pair_force_t": (
+            lambda: [nk.nn_pair_force_t(gF, jidx, *block, p)],
+            lambda: [nk.nn_pair_force_t_plain(gF, jidx, *block, p)]),
+        "nn_pair_gather": (lambda: [nk.nn_pair_gather(g, rev)],
+                           lambda: [nk.nn_pair_gather_plain(g, rev)]),
+    }
+    nk.reset_launches()
+    outs = {k: kernel() for k, (kernel, _) in calls.items()}
+    torch.cuda.synchronize()
+    assert launched(nk) == {k: 1 for k in calls}
+    for k, (kernel, plain) in calls.items():
+        assert rel_err(outs[k], plain()) <= RTOL, k
+        assert all(torch.equal(a, b) for a, b in zip(outs[k], kernel())), k
+
+
+def test_nn_cached_force_gradient_matches_plain_autograd(cuda):
+    """The gradient of a force loss with respect to MLP parameters through
+    NnCachedForce (K2, K10, K11, the gather; backward K11T, K10T) and
+    through autograd of the plain versions."""
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+    from fitsnap_tpu_torch.models.mlp import atom_energies
+
+    p, block, jidx, rev = grid_block(CASES["tj6"], cuda)
+    nconf, A, K = jidx.shape
+    N, W = nconf * A, p.ntriples
+    ut = nk.nn_ut_b_plain(*block, p)[0]
+    rng = np.random.default_rng(14)
+    x0 = torch.as_tensor(rng.normal(size=(N, W)), device=cuda)
+    target = torch.as_tensor(rng.normal(size=(nconf, A, 3)), device=cuda)
+    params = [(torch.as_tensor(rng.normal(size=(1, a, b)) / np.sqrt(a),
+                               device=cuda).requires_grad_(True),
+               torch.as_tensor(rng.normal(size=(1, b)), device=cuda)
+               .requires_grad_(True))
+              for a, b in ((W, 5), (5, 1))]
+    leaves = [t for wb in params for t in wb]
+
+    def grads(force):
+        x = x0.clone().requires_grad_(True)
+        e = atom_energies(params, x, torch.zeros(N, dtype=torch.int32,
+                                                 device=cuda)).sum()
+        dedx, = torch.autograd.grad(e, x, create_graph=True)
+        loss = ((force(dedx) - target) ** 2).sum() + e ** 2
+        return torch.autograd.grad(loss, leaves)
+
+    def plain(d):
+        vg = nk.nn_dedu_vg_plain(d, *sk.zlist_plain(ut, p), p)
+        g = nk.nn_pair_force_plain(vg, *block, p)
+        return nk.nn_pair_gather_plain(g.reshape(nconf, A, K, 3), rev)
+
+    sk.reset_launches()
+    nk.reset_launches()
+    out = grads(lambda d: nk.NnCachedForce.apply(d, ut, block[0], jidx,
+                                                 *block[1:], rev, p))
+    torch.cuda.synchronize()
+    assert launched(sk) == {"zlist": 1}
+    assert launched(nk) == {"nn_dedu_vg": 1, "nn_pair_force": 1,
+                            "nn_pair_gather": 1, "nn_pair_force_t": 1,
+                            "nn_dedu_vg_t": 1}
+    assert rel_err(out, grads(plain)) <= 1e-10
 
 
 def streamed_batch(device):

@@ -7,9 +7,10 @@
 - Each kernel wrapper takes its plain version for CPU tensors (launching
   nothing) and raises for a device that is neither CPU nor CUDA.
 - `kernels/csrc/` holds one CUDA source for each of K1-K5, K6q, K7, K8
-  (K8r shares K8's), K12 (K12T shares it), K13 and K14, each naming the JAX
-  function it replaces, built for sm_90a; the chemflag modes of K1-K3
-  share their sources.
+  (K8r shares K8's), K12 (K12T and the force gather share it), K13, K14,
+  K9 with K11 and K11T (`nn_grid.cu`) and K10 with K10T (`nn_dedu.cu`),
+  each naming the JAX function it replaces, built for sm_90a; the chemflag
+  modes of K1-K3 share their sources.
 - `FitSnap` fits on the CPU with every linear solver the port registers.
 - `chip_smoke.py` exits non-zero and prints no result without a card.
 """
@@ -277,8 +278,12 @@ def test_flag_wrappers_plain_on_cpu_and_raise_on_meta(name):
 
 
 def _nn_kernel_calls(device):
-    """A call of K12 and of K12T on small inputs on `device`."""
+    """A call of K12, K12T, the force gather, K9, K10, K10T, K11 and K11T on
+    small inputs on `device` (the pair-grid kernels at twojmax 2)."""
+    from types import SimpleNamespace
+
     from fitsnap_tpu_torch.kernels import nn_kernels as nk
+    from fitsnap_tpu_torch.ops.snap import make_params, nn_tables
 
     rng = np.random.default_rng(5)
     N, A, W, K = 2, 3, 4, 2
@@ -289,24 +294,50 @@ def _nn_kernel_calls(device):
     G = t(rng.normal(size=(N, A, W, K, 3)))
     jidx = t(rng.integers(0, A, (N, A, K)), torch.int32)
     rev = t(np.full((N, A, 1), -1), torch.int32)
+    p = make_params(SimpleNamespace(
+        twojmax=["2"], numtypes=1, wj=["1.0"], radelem=["0.5"], rcutfac=4.6,
+        rfac0=0.99, rmin0=0.0, chemflag=0, quadraticflag=0, bnormflag=0,
+        wselfallflag=0, bzeroflag=1, switchflag=1, switchinnerflag=0,
+        sinner=None, dinner=None), "cpu")
+    n_t, M = nn_tables(p).n_t, N * A
+    block = (t(rng.normal(size=(M, K, 3)) + 1.5),
+             t(np.zeros((M, K)), torch.int32), t(np.ones((M, K)), torch.bool),
+             t(np.zeros(M), torch.int32))
+    z = (t(rng.normal(size=(M, p.nz))),) * 2
+    vg = t(rng.normal(size=(M, n_t, n_t)))
     return {
         "nn_force": lambda: nk.nn_force(t(rng.normal(size=(N, A, W))), G,
                                         jidx, rev),
         "nn_force_t": lambda: nk.nn_force_t(t(rng.normal(size=(N, A, 3))),
                                             G, jidx),
+        "nn_pair_gather": lambda: nk.nn_pair_gather(
+            t(rng.normal(size=(N, A, K, 3))), rev),
+        "nn_ut_b": lambda: nk.nn_ut_b(*block, p)[1],
+        "nn_dedu_vg": lambda: nk.nn_dedu_vg(
+            t(rng.normal(size=(M, p.ntriples))), *z, p),
+        "nn_dedu_vg_t": lambda: nk.nn_dedu_vg_t(vg, *z, p),
+        "nn_pair_force": lambda: nk.nn_pair_force(vg, *block, p),
+        "nn_pair_force_t": lambda: nk.nn_pair_force_t(
+            t(rng.normal(size=(N, A, 3))), jidx, *block, p),
     }
 
 
-@pytest.mark.parametrize("name", ["nn_force", "nn_force_t"])
+@pytest.mark.parametrize("name", ["nn_force", "nn_force_t", "nn_pair_gather",
+                                  "nn_ut_b", "nn_dedu_vg", "nn_dedu_vg_t",
+                                  "nn_pair_force", "nn_pair_force_t"])
 def test_nn_wrappers_plain_on_cpu_and_raise_on_meta(name):
-    """K12 and K12T run their plain version for CPU tensors without
-    counting a launch, and refuse a `meta` tensor."""
+    """K12, K12T, the force gather, K9, K10, K10T, K11 and K11T run their
+    plain version for CPU tensors without counting a launch, and refuse a
+    `meta` tensor."""
     from fitsnap_tpu_torch.kernels import nn_kernels as nk
 
     nk.reset_launches()
     out = _nn_kernel_calls("cpu")[name]()
     assert torch.isfinite(out).all()
-    assert nk.launches() == {"nn_force": 0, "nn_force_t": 0}
+    assert nk.launches() == dict.fromkeys(
+        ["nn_force", "nn_force_t", "nn_pair_gather", "nn_ut_b",
+         "nn_dedu_vg", "nn_dedu_vg_t", "nn_pair_force", "nn_pair_force_t"],
+        0)
     with pytest.raises(ValueError, match="no kernel for device"):
         _nn_kernel_calls("meta")[name]()
 
@@ -364,6 +395,10 @@ def test_device_solvers_fit_on_cpu(tmp_path, solver):
     ("ace_pair_basis", "`ace_pair_phi`"),
     ("ace_b_dbdd", "`ace_b_and_dbda`"),
     ("nn_force", "`_forward_batch`"),
+    ("nn_force", "`_forward_batch_cached`"),
+    ("nn_grid", "`compute_utot_mono`"),
+    ("nn_grid", "`nn_pair_force`"),
+    ("nn_dedu", "`nn_dEdu`"),
 ])
 def test_cuda_source_per_kernel(source, replaces):
     path = build.CSRC / f"{source}.cu"

@@ -24,7 +24,8 @@ both.  Checks, with their tolerances:
 - one Adam step against optax's `scale_by_adam` with the learning rate
   applied outside it, 1e-14; the plateau scheduler against the JAX one,
   exactly;
-- the modes the port does not have raise naming their ROADMAP.md item.
+- the modes the port does not have raise naming their ROADMAP.md item
+  by title.
 """
 
 import os
@@ -410,21 +411,31 @@ def test_plateau_step_equals_jax():
 
 
 def test_modes_the_port_lacks_raise(prepared, tmp_path):
+    """The OTF mode, the cached mode under chemflag (where the JAX package
+    falls back to OTF), PAS and nonlinear ACE raise, naming their ROADMAP.md
+    items by title."""
     port, _ = prepared
-    for mode in ("cached", "otf"):
-        solver = tnet.NetworkSolver("PYTORCH", port.config, "cpu")
-        solver.net = SimpleNamespace(dgrad_mode=mode)
-        with pytest.raises(NotImplementedError, match="queue 3"):
-            solver.prepare_dataset(None, [])
+    otf = "The NN solver's OTF mode"
+    solver = tnet.NetworkSolver("PYTORCH", port.config, "cpu")
+    solver.net = SimpleNamespace(dgrad_mode="otf")
+    with pytest.raises(NotImplementedError, match=otf):
+        solver.prepare_dataset(None, [])
+    s = ta_nn_settings(tmp_path)
+    s["BISPECTRUM"]["chemflag"] = 1
+    s["PYTORCH"]["dgrad_mode"] = "cached"
+    chem = FitSnap(s, arglist=["--overwrite"], device="cpu")
+    with pytest.raises(NotImplementedError, match=otf):
+        chem.solver.prepare_dataset(chem.calculator, [])
     s = ta_nn_settings(tmp_path)
     s["CALCULATOR"]["per_atom_scalar"] = 1
     s["CALCULATOR"]["energy"] = s["CALCULATOR"]["force"] = 0
     s["CALCULATOR"]["stress"] = 0
-    with pytest.raises(NotImplementedError, match="queue 10"):
+    with pytest.raises(NotImplementedError, match='"PAS"'):
         FitSnap(s, arglist=["--overwrite"], device="cpu")
     a = synthetic.ace_settings(tmp_path)
     a["CALCULATOR"]["nonlinear"] = 1
     a["SOLVER"] = {"solver": "PYTORCH"}
     a["PYTORCH"] = {}
-    with pytest.raises(NotImplementedError, match="queue 8"):
+    with pytest.raises(NotImplementedError,
+                       match="ACE splines and nonlinear ACE"):
         FitSnap(a, arglist=["--overwrite"], device="cpu")

@@ -27,7 +27,8 @@ runs on both sides.  Checks:
   < 1e-4, as `tests/test_nn.py`;
 - multi_element_option 2 (a network per element) on InP-shaped cells
   with chemflag: two epochs' losses and predictions within 1e-10;
-- `dgrad_mode = auto` resolves to precompute and says so;
+- `dgrad_mode = auto` resolves to precompute where the cached mode's kit
+  does not apply (quadraticflag) and says so;
 - `python -m fitsnap_tpu_torch nn.in --overwrite --device cpu` writes the
   `.pt`, `.mliap.descriptor`, `.mod` and metrics files.
 """
@@ -304,16 +305,20 @@ def test_fd_forces(fits):
 
 
 def test_dgrad_auto_resolves_to_precompute(fits, capsys):
+    """`auto` resolves to precompute where the cached mode's kit does not
+    apply (here quadraticflag; `tests/test_torch_nn_cached.py` holds every
+    resolution to the JAX package's) and says so; the buckets are the
+    precompute fit's."""
     fs = fits["port"]
-    solver = tnet.NetworkSolver("PYTORCH", fs.config, "cpu")
-    old = solver.net.dgrad_mode
-    try:
-        solver.net.dgrad_mode = "auto"
-        solver.prepare_dataset(fs.calculator, fs.data)
-    finally:
-        solver.net.dgrad_mode = old
+    s = dict(fits["settings"])
+    s["BISPECTRUM"] = dict(s["BISPECTRUM"], quadraticflag=1)
+    s["PYTORCH"] = dict(s["PYTORCH"], dgrad_mode="auto")
+    quad = FitSnap(s, arglist=["--overwrite"], device="cpu")
+    assert quad.calculator.nn_analytic() is None
+    quad.solver.prepare_dataset(quad.calculator, fs.data)
     assert "dgrad_mode=auto -> precompute" in capsys.readouterr().out
-    assert len(solver.buckets) == len(fs.solver.buckets)
+    assert not quad.solver.cached
+    assert len(quad.solver.buckets) == len(fs.solver.buckets)
 
 
 def test_cli_nn_fit_on_cpu(fits, tmp_path):

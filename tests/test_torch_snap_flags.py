@@ -12,7 +12,9 @@ fitsnap_tpu_torch against fitsnap_tpu (CPU, float64).
   columns, A = 8, K = 16: its JAX compile takes about 30 s), chemflag at
   twojmax 4 with two elements and bnormflag (wselfallflag 0 and 1), and
   quadratic x chemflag at twojmax 2 on the inputs of
-  `tests/test_snap_oracle.py:165-176`.
+  `tests/test_snap_oracle.py:165-176`; on the same inputs the pair-grid
+  descriptors `atom_descriptors_fast` (element channels, quadratic
+  columns).
 - On CPU tensors the chemflag and K6q wrappers return their plain
   versions' results and launch nothing.
 - At the published widths (Ta_Quadratic 1,596 columns, InP 480) the
@@ -221,6 +223,14 @@ def test_atom_descriptors_oracle(case):
     if "B_oracle" in case["ref"]:
         close(Bo, case["ref"]["B_oracle"])
     close(Bo, case["ref"]["B"], rtol=1e-11)
+
+
+def test_atom_descriptors_fast(case):
+    """The pair-grid descriptors (`compute_utot_mono`, element channels
+    under chemflag, the quadratic columns) agree with the JAX package's
+    factorized B."""
+    close(tsnap.atom_descriptors_fast(*case["targs"], case["p"]),
+          case["ref"]["B"])
 
 
 def test_chem_b_and_dbdu(case):
