@@ -115,7 +115,24 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    minibatch against the precompute path's (K1-K3's dB/dD, then K12;
    1e-9), central-difference forces (device neighbor lists, K9 and the
    cached forward at each displaced position) on three atoms of two configs
-   (1e-5), and a profiler split of one epoch.
+   (1e-5), and a profiler split of one epoch;
+14. the custom pairwise NN (calculator LAMMPSCUSTOM) on the same set with
+   `synthetic.custom_settings` (31 Bessel / Gaussian 3-body pair
+   descriptors at cutoff 5.0, `num_desc 64 64 1`, batch 4, 10 epochs, the
+   raw energies and forces): launch counts set to 0, then
+   FitSnap(device="cuda") -> scrape -> process -> perform_fit ->
+   write_output, the counts read just after; it fails unless K15, K15V,
+   K15T and the force gather launched, the last epoch's train loss is
+   below the first's and the `.pt`, metrics and loss files are written.
+   Then K15, K15V and K15T (with the gather's transpose, as in training)
+   against their plain versions on the largest minibatch (4 x 128 x 64;
+   1e-11; timed on rotating copies of the inputs), the loss gradient
+   through `PairDescForce` against plain double autograd through the
+   plain descriptors on the card (1e-10), central-difference forces (host
+   lists and K15 at each displaced position) on three atoms of two configs
+   (1e-5), the `.pt`'s per-atom energies and dE/drij on one config against
+   the trained model's (the JAX package's 1e-7: standardization is folded
+   into layer 1), and a profiler split of one epoch.
 
 The line before the last is the kernel table as JSON (launches per path,
 each path's counts set to 0 just before it and read just after); the last
@@ -140,6 +157,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 bandwidth (NVIDIA data sheet)
 L2_BYTES = 50 << 20         # H100 SXM L2 cache (NVIDIA data sheet)
 FP64_FLOPS = 67e12          # H100 SXM FP64 tensor-core peak (NVIDIA data sheet)
+EXP_OPS = 20                # operations of one f64 exp (a software routine)
 KERNEL_RTOL = 1e-11         # kernel vs plain, relative to the largest |value|
 A_RTOL = 1e-10              # main-path A vs plain A, per column
 RESID_RTOL = 1e-10          # weighted fit residual, relative to |w b|
@@ -192,6 +210,12 @@ SOURCES = {
                       "fitsnap_tpu/ops/snap.py:507"),
     "nn_pair_force_t": ("fitsnap_tpu_torch/kernels/csrc/nn_grid.cu",
                         "fitsnap_tpu/ops/snap.py:544"),
+    "pair_desc": ("fitsnap_tpu_torch/kernels/csrc/pair_desc.cu",
+                  "fitsnap_tpu/ops/custom_desc.py:67"),
+    "pair_desc_vjp": ("fitsnap_tpu_torch/kernels/csrc/pair_desc.cu",
+                      "fitsnap_tpu/solvers/network.py:707"),
+    "pair_desc_jvp": ("fitsnap_tpu_torch/kernels/csrc/pair_desc.cu",
+                      "fitsnap_tpu/solvers/network.py:707"),
 }
 FITSNAP_KERNELS = ("pair_u_duals", "zlist", "dbdd", "pair_scatter_rows",
                    "zbl_pair_grad")
@@ -208,6 +232,8 @@ NN_CACHED_KERNELS = ("pair_scatter_rows", "zbl_pair_grad", "device_neighbors",
                      "nn_pair_gather")
 # kernels the cached mode must not launch (K1, K3 and K12's contraction)
 NN_CACHED_ABSENT = ("pair_u_duals", "dbdd", "nn_force")
+CUSTOM_KERNELS = ("pair_desc", "pair_desc_vjp", "pair_desc_jvp",
+                  "nn_pair_gather")
 # the kernels each path must launch
 PATH_KERNELS = {"fitsnap": FITSNAP_KERNELS,
                 "streamed": FITSNAP_KERNELS + STREAM_KERNELS,
@@ -216,7 +242,8 @@ PATH_KERNELS = {"fitsnap": FITSNAP_KERNELS,
                 "quadratic_fitsnap": QUAD_KERNELS,
                 "chem_fitsnap": CHEM_KERNELS,
                 "nn_fitsnap": NN_KERNELS,
-                "nn_cached_fitsnap": NN_CACHED_KERNELS}
+                "nn_cached_fitsnap": NN_CACHED_KERNELS,
+                "custom_fitsnap": CUSTOM_KERNELS}
 # FitSnap path of each data set
 FITSNAP_PATH = {"snap": "fitsnap", "ace": "ace_fitsnap",
                 "quadratic": "quadratic_fitsnap", "inp": "chem_fitsnap"}
@@ -238,6 +265,13 @@ PT_RTOL = 1e-10             # exported .pt energies vs evaluate_bucket
 CROSS_RTOL = 1e-9           # NN cached vs precompute energies and forces
 NN_FILES = ["Ta_nn.pt", "Ta_nn_pot.mliap.descriptor", "Ta_nn_pot.mod",
             "Ta_nn_metrics.md", "loss_vs_epochs.dat"]
+CUSTOM_FILES = ["Ta_custom.pt", "Ta_custom_metrics.md", "loss_vs_epochs.dat"]
+PAIR_PT_RTOL = 1e-7         # pairwise .pt vs the model (the JAX test's bar)
+# operations of one (j, k) pair's Gaussian term in K15, K15V, K15T: the
+# exp, the square and the weighted sums (K15V: both legs' sums; K15T: the
+# cosine tangent)
+GAUSS_OPS = {"pair_desc": EXP_OPS + 4, "pair_desc_vjp": EXP_OPS + 10,
+             "pair_desc_jvp": EXP_OPS + 8}
 
 
 def card_line():
@@ -318,21 +352,25 @@ def rel_err(out, ref):
 
 def reset_launches():
     from fitsnap_tpu_torch.kernels import ace_kernels as ak
+    from fitsnap_tpu_torch.kernels import custom_kernels as ck
     from fitsnap_tpu_torch.kernels import nn_kernels as nk
     from fitsnap_tpu_torch.kernels import snap_kernels as sk
 
     sk.reset_launches()
     ak.reset_launches()
     nk.reset_launches()
+    ck.reset_launches()
 
 
 def launches():
     """{kernel wrapper: launches since the last reset}, every kernel."""
     from fitsnap_tpu_torch.kernels import ace_kernels as ak
+    from fitsnap_tpu_torch.kernels import custom_kernels as ck
     from fitsnap_tpu_torch.kernels import nn_kernels as nk
     from fitsnap_tpu_torch.kernels import snap_kernels as sk
 
-    return dict(sk.launches(), **ak.launches(), **nk.launches())
+    return dict(sk.launches(), **ak.launches(), **nk.launches(),
+                **ck.launches())
 
 
 def check_launched(counts, path):
@@ -1199,16 +1237,19 @@ def streamed_path(fs, a_plain, beta, seed, device, kind="snap"):
 
 def nn_path(tmp, device, mode="precompute"):
     """Drive the NN fit through FitSnap on the card on the Ta set of phase
-    2 in `mode` (precompute or cached); returns (the FitSnap, launch
-    counts, timings, checks)."""
+    2 in `mode` (precompute, cached, or custom: the pairwise NN); returns
+    (the FitSnap, launch counts, timings, checks)."""
     import torch
     from fitsnap_tpu_torch import FitSnap
     from fitsnap_tpu_torch.tools import synthetic
 
     ini = Path(tmp) / f"nn_{mode}.in"
-    synthetic.write_ini(ini, synthetic.nn_settings(Path(tmp) / "JSON",
-                                                   dgrad_mode=mode))
-    for name in NN_FILES:
+    data = Path(tmp) / "JSON"
+    files = CUSTOM_FILES if mode == "custom" else NN_FILES
+    synthetic.write_ini(ini, synthetic.custom_settings(data)
+                        if mode == "custom" else
+                        synthetic.nn_settings(data, dgrad_mode=mode))
+    for name in files:
         Path(name).unlink(missing_ok=True)
     reset_launches()
     t0 = time.time()
@@ -1221,7 +1262,9 @@ def nn_path(tmp, device, mode="precompute"):
     wall = time.time() - t0
     counts = launches()
     sol = fs.solver
-    if mode == "cached":
+    if mode == "custom":
+        check_launched(counts, "custom_fitsnap")
+    elif mode == "cached":
         check_launched(counts, "nn_cached_fitsnap")
         stray = {k: counts[k] for k in NN_CACHED_ABSENT if counts[k]}
         if stray or not sol.cached or any("G" in b for b in sol.buckets):
@@ -1236,7 +1279,7 @@ def nn_path(tmp, device, mode="precompute"):
     print("nn seconds per epoch: " + json.dumps(sol.epoch_times), flush=True)
     if not (np.isfinite(hist).all() and hist[-1, 1] < hist[0, 1]):
         raise AssertionError(f"NN train loss did not fall: {hist[:, 1]}")
-    missing = [f for f in NN_FILES
+    missing = [f for f in files
                if not (Path(f).exists() and Path(f).stat().st_size)]
     errs = sol.errors
     if missing or not (len(errs) and np.isfinite(errs.values).all()):
@@ -1253,6 +1296,9 @@ def nn_path(tmp, device, mode="precompute"):
                                   for b in sol.buckets if "ut" in b
                                   for k in ("disp", "jidx", "mask", "rev",
                                             "ut", "B")),
+              "pair_bytes": sum(b[k].numel() * b[k].element_size()
+                                for b in sol.buckets if mode == "custom"
+                                for k in ("disp", "jidx", "mask", "rev")),
               "errors": {f"{g}/{t}": dict(zip(errs.columns, map(float, v)))
                          for (g, t), v in zip(errs.index, errs.values)
                          if g == "*ALL"}}
@@ -1441,7 +1487,8 @@ def nn_export_check(fs):
 def nn_epoch_profile(fs, epoch_s):
     """Device time of one training epoch by kernel (torch.profiler), split
     into the port's kernels (K12 / K12T; cached: K2, K10, K10T, K11, K11T
-    and the gather), the other kernels (MLP, its double backward, gathers,
+    and the gather; pairwise: K15, K15V, K15T and the gather), the other
+    kernels (MLP, its double backward, gathers,
     Adam), and its share of `epoch_s`, the unprofiled epoch's seconds."""
     net = fs.solver.net
     epochs = net.num_epochs
@@ -1453,12 +1500,12 @@ def nn_epoch_profile(fs, epoch_s):
     if not kernels:
         return {"epoch_profile": "not measured (no device time)"}
     ours = sum(v for k, v in kernels.items()
-               if k.startswith(("nn_", "zlist")))
+               if k.startswith(("nn_", "zlist", "pair_desc")))
     total = sum(kernels.values())
     print("nn epoch device time by kernel (ms): " + json.dumps(
         {k: round(v, 3) for k, v in list(kernels.items())[:12]}),
         flush=True)
-    return {"epoch_device_ms": total, "epoch_k12_ms": ours,
+    return {"epoch_device_ms": total, "epoch_port_kernels_ms": ours,
             "epoch_other_kernels_ms": total - ours,
             "device_busy_share": total / 1e3 / epoch_s}
 
@@ -1689,6 +1736,220 @@ def nn_cached_fd_check(fs):
             "fd_bar": FD_BAR}
 
 
+def custom_batch(sol, n=4):
+    """A minibatch of the first n configs of the pairwise mode's largest
+    bucket, with the trained model's g_desc = dE/d(descriptor) and e_env,
+    K15V's inputs as in training."""
+    import torch
+    from fitsnap_tpu_torch.kernels import custom_kernels as ck
+
+    bi = int(np.argmax([np.prod(b["shape"]) for b in sol.buckets]))
+    batch = sol._gather(sol.buckets[bi],
+                        np.arange(min(n, len(sol.buckets[bi]["groups"]))))
+    sec = sol._custom
+    disp, mask = batch["disp"], batch["mask"]
+    N, A, K, _ = disp.shape
+    D = sec.num_radial + sec.num_3body
+    desc, fc = ck.pair_desc(disp, mask, sec.cutoff, sec.num_radial,
+                            sec.num_3body)
+    x = ((desc - sol.mean) / sol.std).reshape(-1, D).requires_grad_(True)
+    elem = torch.zeros(x.shape[0], dtype=torch.int32, device=x.device)
+    e_pair = sol.model(x, elem).reshape(N, A, K)
+    dedx, = torch.autograd.grad((e_pair * fc).sum(), x)
+    g_desc = (dedx / sol.std).reshape(N, A, K, D).contiguous()
+    e_env = (e_pair * mask.to(e_pair.dtype)).detach().contiguous()
+    return batch, g_desc, e_env
+
+
+def custom_kernel_checks(fs):
+    """K15, K15V and K15T against their plain versions on a minibatch of 4
+    at the pairwise mode's largest bucket, and the loss gradient through
+    PairDescForce against plain double autograd through the plain
+    descriptors."""
+    import torch
+    from fitsnap_tpu_torch.kernels import custom_kernels as ck
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+    from fitsnap_tpu_torch.ops import custom_desc as ops
+
+    sol = fs.solver
+    sec = sol._custom
+    shape = (sec.cutoff, sec.num_radial, sec.num_3body)
+    R, M = sec.num_radial, sec.num_3body
+    batch, g_desc, e_env = custom_batch(sol)
+    disp, mask, jidx = batch["disp"], batch["mask"], batch["jidx"]
+    N, A, K, _ = disp.shape
+    live = mask.sum(-1).to(torch.float64)
+    terms = float((live * live).sum())          # (j, k) pairs, diagonal in
+    pairs = int(mask.sum())
+    slots = N * A * K
+    print(f"custom kernel inputs: N={N} A={A} K={K} live pairs={pairs} "
+          f"(j, k) terms={terms:.0f} x M={M} float64", flush=True)
+    gF = ((nk.nn_pair_gather(ck.pair_desc_vjp(g_desc, e_env, disp, mask,
+                                               *shape), batch["rev"])
+           - batch["f_target"])
+          * batch["real"][..., None].to(torch.float64)).contiguous()
+    in_bytes = slots * (3 * 8 + 1)              # disp, mask
+    calls = {
+        "pair_desc": ((disp, mask), lambda d, m: ck.pair_desc(d, m, *shape),
+                      lambda d, m: ck.pair_desc_plain(d, m, *shape),
+                      in_bytes + slots * (R + M + 1) * 8),
+        "pair_desc_vjp": (
+            (g_desc, e_env, disp, mask),
+            lambda g, e, d, m: (ck.pair_desc_vjp(g, e, d, m, *shape),),
+            lambda g, e, d, m: (ck.pair_desc_vjp_plain(g, e, d, m, *shape),),
+            in_bytes + slots * (R + M + 1 + 3) * 8),
+        "pair_desc_jvp": (
+            (gF, disp, mask, jidx),
+            lambda f, d, m, j: ck.pair_desc_jvp(f, d, m, *shape, jidx=j),
+            lambda f, d, m, j: ck.pair_desc_jvp_plain(f, d, m, *shape,
+                                                      jidx=j),
+            in_bytes + gF.numel() * 8 + slots * 4
+            + slots * (R + M + 1) * 8),
+    }
+    rows = []
+    for name, (args, kernel, plain, nbytes) in calls.items():
+        out, ref = kernel(*args), plain(*args)
+        flops = terms * M * GAUSS_OPS[name] + pairs * R * (EXP_OPS + 8)
+        record(rows, name, list(out), list(ref),
+               (rotating(kernel, args), 20), timed(rotating(plain, args), 5),
+               nbytes, flops, None)
+        rows[-1]["device_ms_l2"] = device_time(lambda: kernel(*args), 20)
+
+    # the parameter gradient of the training loss: PairDescForce (K15V and
+    # the gather, backward K15T) against double autograd through the plain
+    # descriptors
+    leaves = list(sol.model.parameters())
+
+    def plain_forward(model, b, train=False):
+        d = b["disp"].clone().requires_grad_(True)
+        desc = ops.pair_descriptors(d, b["mask"], *shape)
+        x = ((desc - sol.mean) / sol.std).reshape(-1, R + M)
+        elem = torch.zeros(x.shape[0], dtype=torch.int32, device=x.device)
+        e = (model(x, elem).reshape(N, A, K)
+             * ops.envelope(d, b["mask"], sec.cutoff)).sum((1, 2))
+        g, = torch.autograd.grad(e.sum(), d, create_graph=True)
+        nat = torch.clamp(b["nat"], min=1).to(e.dtype)
+        return e / nat, nk.nn_pair_gather_plain(g, b["rev"])
+
+    def grads():
+        return torch.autograd.grad(sol._loss(sol.model, batch, train=True),
+                                   leaves)
+
+    out = grads()
+    sol._forward_pairwise = plain_forward
+    try:
+        ref = grads()
+    finally:
+        del sol._forward_pairwise
+    _, grad_err = rel_err(out, ref)
+    print(f"custom loss gradient through PairDescForce vs plain double "
+          f"autograd: {grad_err:.3e} (limit {GRAD_RTOL})", flush=True)
+    if not grad_err <= GRAD_RTOL:
+        raise AssertionError(f"pairwise loss gradient through PairDescForce "
+                             f"differs from the plain one: {grad_err:.3e}")
+    return rows, {"grad_rel_err": grad_err, "live_pairs": pairs,
+                  "pair_terms": terms}
+
+
+def custom_lists(calc, pos, cell):
+    """Host neighbor lists of one config and its reverse table."""
+    from fitsnap_tpu_torch.ops.neighbors import (host_neighbors,
+                                                 reverse_neighbors)
+
+    n = len(pos)
+    disp, jidx, mask, _ = host_neighbors(pos, cell, n, calc.cutoff)
+    return disp, jidx, mask, reverse_neighbors(jidx, mask, n)
+
+
+def custom_eval(sol, calc, pos, cell, types):
+    """Energy and forces of one config under the pairwise model: host lists,
+    then K15, the MLP, K15V and the gather on the card."""
+    import torch
+
+    n = len(pos)
+    disp, jidx, mask, rev = custom_lists(calc, pos, cell)
+
+    def put(x):
+        return torch.as_tensor(x, device=sol.device)[None]
+
+    batch = {"disp": put(disp), "jidx": put(jidx), "mask": put(mask),
+             "rev": put(rev),
+             "types": torch.zeros((1, n), dtype=torch.int32,
+                                  device=sol.device),
+             "nat": torch.tensor([n], device=sol.device)}
+    e, f = sol._forward_pairwise(sol.model, batch)
+    return float(e[0]) * n, f[0].cpu().numpy()
+
+
+def custom_fd_check(fs):
+    """Central-difference forces of the trained pairwise model against its
+    forces on three atoms of two configs (as `nn_fd_check`)."""
+    sol, calc = fs.solver, fs.calculator
+    worst = []
+    for group in ("Displaced_BCC", "Liquid"):
+        d = [x for x in fs.data if x["Group"] == group][0]
+        pos = np.asarray(d["Positions"], float)
+        cell = np.asarray(d["Lattice"], float)
+        types = [calc.type_mapping[t] - 1 for t in d["AtomTypes"]]
+        _, f0 = custom_eval(sol, calc, pos, cell, types)
+        for a in (0, len(pos) // 2, len(pos) - 1):
+            for c in range(3):
+                pp, pm = pos.copy(), pos.copy()
+                pp[a, c] += FD_H
+                pm[a, c] -= FD_H
+                ep, _ = custom_eval(sol, calc, pp, cell, types)
+                em, _ = custom_eval(sol, calc, pm, cell, types)
+                worst.append(abs(-(ep - em) / (2 * FD_H) - f0[a, c]))
+    err = float(np.max(worst))
+    print(f"custom FD forces (h={FD_H}): max error {err:.3e}, mean "
+          f"{float(np.mean(worst)):.3e} (bar {FD_BAR})", flush=True)
+    if not err < FD_BAR:
+        raise AssertionError(f"pairwise FD forces miss the bar: {err:.3e}")
+    return {"fd_max_err": err, "fd_mean_err": float(np.mean(worst)),
+            "fd_bar": FD_BAR}
+
+
+def custom_export_check(fs):
+    """The written .pt's per-atom energies and dE/drij on one config (a
+    displaced 54-atom bcc cell) against the trained model's."""
+    import torch
+    from fitsnap_tpu_torch.kernels import custom_kernels as ck
+
+    sol, calc = fs.solver, fs.calculator
+    sec = sol._custom
+    d = [x for x in fs.data if x["Group"] == "Displaced_BCC"][0]
+    pos = np.asarray(d["Positions"], float)
+    n = len(pos)
+    disp, jidx, mask, _ = custom_lists(calc, pos,
+                                       np.asarray(d["Lattice"], float))
+    module = torch.load("Ta_custom.pt", weights_only=False)
+    ii, _ = np.nonzero(mask)
+    rij = np.ascontiguousarray(disp[mask], np.float64)
+    beta, energy = np.zeros_like(rij), np.zeros(n)
+    jj = jidx[mask].astype(np.int64)
+    module(np.zeros(n, np.int32), None, beta, energy, rij,
+           ii.astype(np.int64), jj, ii.astype(np.int64), jj)
+    dt = torch.as_tensor(disp, device=sol.device).requires_grad_(True)
+    mt = torch.as_tensor(mask, device=sol.device)
+    desc, fc = ck.pair_desc_plain(dt, mt, sec.cutoff, sec.num_radial,
+                                  sec.num_3body)
+    x = ((desc - sol.mean) / sol.std).reshape(-1, desc.shape[-1])
+    e_pair = sol.model(x, torch.zeros(x.shape[0], dtype=torch.int32,
+                                      device=x.device)).reshape(mask.shape)
+    atoms = (e_pair * fc).sum(1)
+    g, = torch.autograd.grad(atoms.sum(), dt)
+    atoms = atoms.detach().cpu().numpy()
+    g = g.cpu().numpy()[mask]
+    err = max(np.abs(energy - atoms).max() / np.abs(atoms).max(),
+              np.abs(beta - g).max() / np.abs(g).max())
+    print(f"custom exported .pt vs the model: {err:.3e} (limit "
+          f"{PAIR_PT_RTOL})", flush=True)
+    if not err <= PAIR_PT_RTOL:
+        raise AssertionError(f"the exported pairwise .pt disagrees: "
+                             f"{err:.3e}")
+    return {"pt_rel_err": float(err)}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1781,6 +2042,16 @@ def main():
                           **nn_cached_fd_check(fs))
             checks.update(nn_epoch_profile(fs, times["epoch_mean_rest"]))
             paths["nn_cached_fitsnap"] = (counts, times, checks)
+            del fs
+            torch.cuda.empty_cache()
+            # the custom pairwise NN on the same set
+            fs, counts, times, checks = nn_path(tmp, "cuda", "custom")
+            rows, grad = custom_kernel_checks(fs)
+            kernels += rows
+            checks.update(grad, **custom_fd_check(fs),
+                          **custom_export_check(fs))
+            checks.update(nn_epoch_profile(fs, times["epoch_mean_rest"]))
+            paths["custom_fitsnap"] = (counts, times, checks)
             del fs
             torch.cuda.empty_cache()
         finally:

@@ -3,11 +3,12 @@
 Counterpart of `fitsnap_tpu/fitsnap.py` with the same factories and stage
 methods: `FitSnap(input, arglist, device).scrape_configs()`,
 `.process_configs()`, `.perform_fit()`, `.write_output()`.  The port takes
-the JSON scraper, the LAMMPSSNAP and LAMMPSPACE calculators, the SVD,
-TPUSVD / SCALAPACK and TENSORFLOWSVD solvers, the NN solver (PYTORCH /
-NETWORK / JAX) on LAMMPSSNAP descriptors in its cached and precompute
-modes, and SNAP and PACE output; any other choice raises
-NotImplementedError naming its ROADMAP item by title.
+the JSON scraper, the LAMMPSSNAP, LAMMPSPACE and LAMMPSCUSTOM calculators,
+the SVD, TPUSVD / SCALAPACK and TENSORFLOWSVD solvers, the NN solver
+(PYTORCH / NETWORK / JAX) on LAMMPSSNAP descriptors in its cached and
+precompute modes and as the custom pairwise NN on LAMMPSCUSTOM, and SNAP,
+PACE and CUSTOM output; any other choice raises NotImplementedError naming
+its ROADMAP item by title.
 """
 
 import time
@@ -40,9 +41,11 @@ def _calculator_factory(config, device):
     if name == "LAMMPSPACE":
         from fitsnap_tpu_torch.calculators.ace import AceCalculator
         return AceCalculator(name, config, device)
-    item = {"LAMMPSCUSTOM": "Custom pairwise NN"}.get(name,
-                                                      "Modules to port")
-    raise NotImplementedError(_LATER.format("calculator", name, item))
+    if name == "LAMMPSCUSTOM":
+        from fitsnap_tpu_torch.calculators.custom import CustomCalculator
+        return CustomCalculator(name, config)
+    raise NotImplementedError(_LATER.format("calculator", name,
+                                            "Modules to port"))
 
 
 def _solver_factory(config, device):
@@ -71,8 +74,11 @@ def _output_factory(config):
     if style == "PACE":
         from fitsnap_tpu_torch.io.outputs.pace_output import PaceOutput
         return PaceOutput(style, config)
+    if style == "CUSTOM":
+        from fitsnap_tpu_torch.io.outputs.custom_output import CustomOutput
+        return CustomOutput(style, config)
     raise NotImplementedError(_LATER.format("output style", style,
-                                            "Custom pairwise NN"))
+                                            "Modules to port"))
 
 
 class FitSnap:

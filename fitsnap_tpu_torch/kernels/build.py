@@ -25,7 +25,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "fitsnap_tpu_torch"
 SOURCES = ("pair_u_duals", "zlist", "dbdd", "quad_chain", "pair_scatter",
            "zbl_pair", "device_neighbors", "normal_contrib",
-           "ace_pair_basis", "ace_b_dbdd", "nn_force", "nn_grid", "nn_dedu")
+           "ace_pair_basis", "ace_b_dbdd", "nn_force", "nn_grid", "nn_dedu",
+           "pair_desc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -1,5 +1,6 @@
 """Neural-network solver (PyTorch), replacing the reference's PYTORCH /
-NETWORK / JAX solvers, in the cached and precompute modes.
+NETWORK / JAX solvers, in the cached and precompute modes and as the
+custom pairwise NN.
 
 Counterpart of `fitsnap_tpu/solvers/network.py`.  `dgrad_mode = cached`
 (what `auto` picks for linear SNAP, as in the JAX package): positions go to
@@ -14,6 +15,13 @@ per-pair gradients G = dB/dD are computed on the device once
 (`calculators/snap.nn_prep`: kernels K1-K5, K6q and the chemflag modes under
 their flags), in shape buckets of configs padded to one (atoms, neighbor
 slots) shape, and the forces go through K12 (`NnForce`, backward K12T).
+The custom pairwise NN (a [CUSTOM] section, calculator LAMMPSCUSTOM) takes
+precedence over `dgrad_mode`, as in the JAX package: its buckets keep the
+host neighbor lists (disp, jidx, mask, rev) on the device, and each step
+computes the 31 Bessel / Gaussian 3-body pair descriptors with K15, runs
+the MLP per pair (atom i's element), and takes the forces through
+`PairDescForce` (K15V and the gather; backward K15T).  It fits the raw
+energies and forces (no reference potential is subtracted).
 Training is a per-epoch loop of minibatch steps: per-element MLP energies
 (`models/mlp.py`), dE/dB by autograd with `create_graph`, the forces (whose
 backward carries the force residual into the MLP's double backward), the
@@ -25,8 +33,7 @@ warm start, best-validation tracking and the plateau scheduler are the JAX
 package's, so both packages follow the same loss trajectory from the same
 initial parameters.  The JAX package's epoch blocks and chunked programs
 only arrange TPU dispatch (they compute the same trajectory), and are not
-copied.  The OTF mode, PAS and the custom pairwise NN raise naming their
-ROADMAP.md items.
+copied.  The OTF mode and PAS raise naming their ROADMAP.md items.
 """
 
 import time
@@ -36,6 +43,9 @@ import torch
 
 from fitsnap_tpu_torch.convert import mlp_params_from_numpy
 from fitsnap_tpu_torch.io.screen import info, screen
+from fitsnap_tpu_torch.kernels.custom_kernels import (PairDescForce,
+                                                      pair_desc,
+                                                      pair_desc_vjp)
 from fitsnap_tpu_torch.kernels.nn_kernels import (NnCachedForce, NnForce,
                                                   nn_force, nn_pair_gather)
 from fitsnap_tpu_torch.models.mlp import (PerElementMLP, init_mlp,
@@ -56,6 +66,9 @@ _BATCH_KEYS = ("B", "G", "types", "real", "nat", "jidx", "rev", "e_target",
 _BATCH_KEYS_CACHED = ("disp", "jidx", "mask", "rev", "ut", "B", "types",
                       "elem", "real", "nat", "e_target", "f_target", "ew",
                       "fw")
+# the pairwise mode's buckets: host neighbor lists, no descriptors
+_BATCH_KEYS_PW = ("disp", "jidx", "mask", "rev", "types", "real", "nat",
+                  "e_target", "f_target", "ew", "fw")
 # dgrad_mode = auto (the JAX package's defaults): the cached mode while its
 # neighbor and per-atom cache stays within NEIGH_LIMIT bytes, else the
 # stored dB/dD within G_LIMIT
@@ -63,6 +76,29 @@ NEIGH_LIMIT = 4 << 30
 G_LIMIT = 2 << 30
 MAX_PROGRAMS = 10           # plan_pos_buckets' cap on the cached buckets
 CACHED_PAIRS = 390_000      # the cached mode's pair slots per minibatch
+PAIR_CHUNK = 1 << 20        # pair slots per K15 call of the pairwise stats
+
+
+def _truths(datas, nat, a_pad):
+    """Energies (n,) and forces (n, a_pad, 3) of a bucket's configs."""
+    e_t = np.array([d["Energy"] for d in datas], np.float64)
+    f_t = np.zeros((len(datas), a_pad, 3))
+    for j, d in enumerate(datas):
+        f_t[j, :nat[j]] = d["Forces"]
+    return e_t, f_t
+
+
+def _config_meta(datas, dev):
+    """A bucket's per-config weights, test flags, groups and files."""
+    return {
+        "ew": torch.tensor([d.get("eweight", 1.0) for d in datas],
+                           dtype=DTYPE, device=dev),
+        "fw": torch.tensor([d.get("fweight", 1.0) for d in datas],
+                           dtype=DTYPE, device=dev),
+        "test": np.array([bool(d["test_bool"]) for d in datas]),
+        "groups": [d["Group"] for d in datas],
+        "files": [str(d.get("File", "")) for d in datas],
+    }
 
 
 def _net_section(config):
@@ -148,9 +184,8 @@ class NetworkSolver(Solver):
         super().__init__(name, config, linear=False)
         self.device = resolve_device(device)
         self.net = _net_section(config)
-        if "CUSTOM" in config.sections:
-            raise NotImplementedError(_LATER.format(
-                "The custom pairwise NN", "Custom pairwise NN"))
+        # the custom pairwise NN (takes precedence over dgrad_mode)
+        self.pairwise = "CUSTOM" in config.sections
         if config.sections["CALCULATOR"].per_atom_scalar:
             raise NotImplementedError(_LATER.format(
                 "Per-atom scalar (PAS) fitting", "PAS"))
@@ -161,6 +196,7 @@ class NetworkSolver(Solver):
         self.cached = False     # dgrad_mode resolved to cached
         self._kit = None        # calculators/snap.nn_analytic of the fit
         self._snap = None       # its SnapParams
+        self._custom = None     # the pairwise mode's [CUSTOM] section
         self.history = []
         self.lr_history = np.zeros(0)
         self.final_lr = None
@@ -173,13 +209,17 @@ class NetworkSolver(Solver):
         targets and the descriptor standardization, in the mode
         `dgrad_mode` resolves to (JAX `prepare_dataset`): `auto` takes the
         cached mode for linear SNAP while its cache stays within
-        NEIGH_LIMIT, else precompute while dB/dD stays within G_LIMIT."""
+        NEIGH_LIMIT, else precompute while dB/dD stays within G_LIMIT.  A
+        [CUSTOM] section takes the pairwise mode whatever `dgrad_mode`
+        says."""
         from fitsnap_tpu_torch.calculators.snap import (
             chunk_size, coalesce_shape_buckets, pack_bucket)
         from fitsnap_tpu_torch.parallel.fit import plan_pos_buckets
 
-        mode = self.net.dgrad_mode
         self.cached = False
+        if self.pairwise:
+            return self._prepare_pairwise(calculator, data)
+        mode = self.net.dgrad_mode
         if mode == "otf":
             raise NotImplementedError(_LATER.format("dgrad_mode=otf", _OTF))
         if mode in ("auto", "cached"):
@@ -233,10 +273,7 @@ class NetworkSolver(Solver):
             arrays = pack_bucket(packed, idxs, a_pad, k_pad)
             disp, jidx, mask, rev, types, nat, _ = arrays
             datas = [packed[i].data for i in idxs]
-            e_t = np.array([d["Energy"] for d in datas], np.float64)
-            f_t = np.zeros((n, a_pad, 3))
-            for j, d in enumerate(datas):
-                f_t[j, :nat[j]] = d["Forces"]
+            e_t, f_t = _truths(datas, nat, a_pad)
             chunk = min(chunk_size(a_pad, k_pad, width), n)
             outs = []
             for c0 in range(0, n, chunk):
@@ -263,14 +300,8 @@ class NetworkSolver(Solver):
                 "types": torch.from_numpy(types).to(dev),
                 "nat": natd, "real": real,
                 "e_target": e_target, "f_target": f_target,
-                "ew": torch.tensor([d.get("eweight", 1.0) for d in datas],
-                                   dtype=DTYPE, device=dev),
-                "fw": torch.tensor([d.get("fweight", 1.0) for d in datas],
-                                   dtype=DTYPE, device=dev),
-                "test": np.array([bool(d["test_bool"]) for d in datas]),
-                "groups": [d["Group"] for d in datas],
-                "files": [str(d.get("File", "")) for d in datas],
                 "nat_host": nat, "shape": (a_pad, k_pad),
+                **_config_meta(datas, dev),
             })
         self._standardize(sum_b, sumsq_b, count)
         return self.buckets
@@ -346,6 +377,57 @@ class NetworkSolver(Solver):
         self._standardize(sum_b, sumsq_b, count)
         return self.buckets
 
+    def _prepare_pairwise(self, calculator, data):
+        """The pairwise mode's buckets (JAX `_prepare_pairwise`): per shape
+        bucket the host neighbor lists, with their reverse tables, go to the
+        device, with the raw per-atom energy and force targets (no
+        reference potential is subtracted); the standardization sums over
+        the live pairs' descriptors run K15 on the device, PAIR_CHUNK slots
+        at a time."""
+        from fitsnap_tpu_torch.calculators.snap import (coalesce_shape_buckets,
+                                                        pack_bucket)
+
+        packed, shape_buckets = calculator.host_preprocess(data)
+        shape_buckets = coalesce_shape_buckets(shape_buckets)
+        sec = self._custom = calculator.sec
+        dev = self.device
+        self.buckets = []
+        sum_b = sumsq_b = 0.0
+        count = 0
+        for (a_pad, k_pad), idxs in sorted(shape_buckets.items()):
+            n = len(idxs)
+            disp, jidx, mask, rev, types, nat, _ = pack_bucket(
+                packed, idxs, a_pad, k_pad)
+            datas = [packed[i].data for i in idxs]
+            e_t, f_t = _truths(datas, nat, a_pad)
+            disp = torch.from_numpy(disp).to(dev)
+            mask = torch.from_numpy(mask).to(dev)
+            chunk = max(1, PAIR_CHUNK // (a_pad * k_pad))
+            for c0 in range(0, n, chunk):
+                desc, _ = pair_desc(disp[c0:c0 + chunk], mask[c0:c0 + chunk],
+                                    sec.cutoff, sec.num_radial,
+                                    sec.num_3body)
+                sum_b = sum_b + desc.sum((0, 1, 2)).cpu().numpy()
+                sumsq_b = sumsq_b + (desc * desc).sum((0, 1, 2)).cpu().numpy()
+            count += int(mask.sum())
+            natd = torch.from_numpy(nat).to(dev)
+            self.buckets.append({
+                "disp": disp, "mask": mask,
+                "jidx": torch.from_numpy(jidx).to(dev),
+                "rev": torch.from_numpy(rev).to(dev),
+                "types": torch.from_numpy(types).to(dev),
+                "nat": natd,
+                "real": torch.arange(a_pad, device=dev)[None, :]
+                < natd[:, None],
+                "e_target": torch.from_numpy(e_t).to(dev)
+                / torch.clamp(natd, min=1),
+                "f_target": torch.from_numpy(f_t).to(dev),
+                "nat_host": nat, "shape": (a_pad, k_pad),
+                **_config_meta(datas, dev),
+            })
+        self._standardize(sum_b, sumsq_b, count)
+        return self.buckets
+
     # ------------- model -------------
 
     def _forward_batch(self, model, batch, train=False):
@@ -403,12 +485,51 @@ class NetworkSolver(Solver):
             forces = nn_pair_gather(g, batch["rev"])
         return e / nat, forces
 
+    def _forward_pairwise(self, model, batch, train=False):
+        """The pairwise mode's energies and forces of one gathered batch
+        (JAX `_forward_pairwise`): K15's pair descriptors and envelope fc,
+        the MLP per pair with atom i's element over the flattened (configs
+        x atoms x slots) axis, the energy sum of e_pair fc over live pairs,
+        and the forces from dE/d(descriptor) and the pair energies through
+        K15V and the gather (with `train`, through `PairDescForce`, whose
+        backward K15T carries the force term into the loss's parameter
+        gradient)."""
+        sec = self._custom
+        R, M = sec.num_radial, sec.num_3body
+        disp, mask = batch["disp"], batch["mask"]
+        N, A, K, _ = disp.shape
+        desc, fc = pair_desc(disp, mask, sec.cutoff, R, M)
+        nat = torch.clamp(batch["nat"], min=1).to(desc.dtype)
+        x = ((desc - self.mean) / self.std).reshape(N * A * K, R + M) \
+            .requires_grad_(True)
+        elem = batch["types"][:, :, None].expand(N, A, K).reshape(-1)
+        with torch.enable_grad():
+            e_pair = model(x, elem).reshape(N, A, K)
+            e = (e_pair * fc).sum((1, 2))
+            dEdx, = torch.autograd.grad(e.sum(), x, create_graph=train)
+        g_desc = (dEdx / self.std).reshape(N, A, K, R + M)
+        e_env = e_pair * mask.to(e_pair.dtype)
+        if train:
+            forces = PairDescForce.apply(g_desc, e_env, disp, mask,
+                                         batch["jidx"], batch["rev"],
+                                         sec.cutoff, R, M)
+        else:
+            e = e.detach()
+            g = pair_desc_vjp(g_desc.detach().contiguous(),
+                              e_env.detach().contiguous(), disp, mask,
+                              sec.cutoff, R, M)
+            forces = nn_pair_gather(g, batch["rev"])
+        return e / nat, forces
+
+    def _forward(self):
+        return (self._forward_pairwise if self.pairwise
+                else self._forward_batch_cached if self.cached
+                else self._forward_batch)
+
     def _loss(self, model, batch, train=False):
         """Weighted MSE loss of one minibatch (JAX `_loss`, one device)."""
         net = self.net
-        fwd = self._forward_batch_cached if self.cached \
-            else self._forward_batch
-        e_pred, f_pred = fwd(model, batch, train)
+        e_pred, f_pred = self._forward()(model, batch, train)
         real = batch["real"].to(e_pred.dtype)
         live = (batch["nat"] > 0).to(e_pred.dtype)
         nfc = torch.clamp((real.sum(1) * 3 * live).sum(), min=1.0)
@@ -425,7 +546,8 @@ class NetworkSolver(Solver):
     def _gather(self, ds, idx):
         idx = torch.as_tensor(np.asarray(idx), dtype=torch.long,
                               device=self.device)
-        keys = _BATCH_KEYS_CACHED if self.cached else _BATCH_KEYS
+        keys = (_BATCH_KEYS_PW if self.pairwise
+                else _BATCH_KEYS_CACHED if self.cached else _BATCH_KEYS)
         return {k: ds[k].index_select(0, idx) for k in keys}
 
     # ------------- training -------------
@@ -438,8 +560,10 @@ class NetworkSolver(Solver):
             self.prepare_dataset(calculator, data)
         net = self.net
         dev = self.device
-        nelem_net = (self.config.sections["BISPECTRUM"].numtypes
-                     if net.multi_element_option == 2 else 1)
+        sections = self.config.sections
+        desc_sec = (sections.get("BISPECTRUM") or sections.get("ACE")
+                    or sections.get("CUSTOM"))
+        nelem_net = desc_sec.numtypes if net.multi_element_option == 2 else 1
         if net.multi_element_option != 2:
             for ds in self.buckets:
                 # cached buckets carry the network index apart ("elem"):
@@ -456,6 +580,11 @@ class NetworkSolver(Solver):
         # start the output bias at the mean per-atom energy target
         e_mean = float(np.mean(np.concatenate(
             [ds["e_target"].cpu().numpy() for ds in self.buckets])))
+        if self.pairwise:
+            # pairwise models sum per-pair energies: scale by pairs per atom
+            pairs = sum(float(ds["mask"].sum()) for ds in self.buckets)
+            atoms = sum(float(ds["nat_host"].sum()) for ds in self.buckets)
+            e_mean = e_mean / max(pairs / max(atoms, 1.0), 1.0)
         if not warm_start:
             w_last, b_last = params[-1]
             params[-1] = (w_last, b_last + e_mean)
@@ -635,13 +764,20 @@ class NetworkSolver(Solver):
             })
         if net.output_file and net.output_file != "None":
             # LAMMPS ML-IAP deployment module (reference
-            # `lib/neural_networks/pytorch.py:250`)
-            from fitsnap_tpu_torch.io.export_torch import export_mliap
+            # `lib/neural_networks/pytorch.py:250`; pairwise: `pairwise.py:226`
+            # -> `write.py:189 PairNN`)
+            from fitsnap_tpu_torch.io.export_torch import (export_mliap,
+                                                           export_pairnn)
             out = net.output_file
             if not out.endswith(".pt"):
                 out += ".pt"
-            export_mliap(out, params_to_numpy(self.model.params), mean, std,
-                         nelem_net)
+            params = params_to_numpy(self.model.params)
+            if self.pairwise:
+                sec = self._custom
+                export_pairnn(out, params, mean, std, sec.cutoff,
+                              sec.num_radial, sec.num_3body, nelem_net)
+            else:
+                export_mliap(out, params, mean, std, nelem_net)
         return self.model
 
     # ------------- evaluation / errors -------------
@@ -650,8 +786,7 @@ class NetworkSolver(Solver):
         """Per-atom energies (n,) and forces (n, A, 3) of every config in
         one bucket, as numpy arrays, 32 configs at a time."""
         n = int(ds["nat"].shape[0])
-        fwd = self._forward_batch_cached if self.cached \
-            else self._forward_batch
+        fwd = self._forward()
         es, fs = [], []
         for c0 in range(0, n, 32):
             e, f = fwd(self.model,

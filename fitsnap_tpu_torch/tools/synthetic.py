@@ -10,8 +10,9 @@ example's, some with test fractions.  `ta_settings` holds the
 Ta_Linear_JCP2014 sections, `quadratic_settings` the same with twojmax 8
 and quadraticflag (the Ta_Quadratic_JCP2018 model's width, 1,596
 coefficients), `nn_settings` the same for the NN solver (a per-atom MLP
-of widths 64 64 1 on the 30 descriptors), `ace_settings` a Ta_PACE-shaped
-[ACE] section.
+of widths 64 64 1 on the 30 descriptors), `custom_settings` the custom
+pairwise NN on the 31 Bessel / Gaussian 3-body pair descriptors,
+`ace_settings` a Ta_PACE-shaped [ACE] section.
 
 The InP_JPCA2020 set is not in the repository either: `inp_configs` makes
 zincblende In/P cells (8-atom volume and strain scans, displaced 64- and
@@ -265,6 +266,36 @@ def nn_settings(datapath, groups=None, dgrad_mode="precompute"):
                     "manual_seed_flag": 1, "dgrad_mode": dgrad_mode,
                     "output_file": "Ta_nn.pt"}
     s["OUTFILE"] = {"metrics": "Ta_nn_metrics.md", "potential": "Ta_nn_pot"}
+    return s
+
+
+def custom_settings(datapath, groups=None, multi_element=False):
+    """The custom pairwise NN (calculator LAMMPSCUSTOM, nonlinear 1) for
+    `datapath`: a [CUSTOM] section at the config defaults (num_radial 8,
+    num_3body 23, cutoff 5.0: 31 pair descriptors) with type Ta, the
+    [PYTORCH] section of `nn_settings` (`num_desc 64 64 1`, batch 4, 10
+    epochs, seed 13, output_file) and CUSTOM output, on `ta_configs`'
+    groups.  With `multi_element`, the two-element variant for
+    `inp_configs`: types In and P, `inp_settings`' groups, ESHIFT and ZBL
+    reference, and multi_element_option 2 (a network per element)."""
+    if multi_element:
+        s = inp_settings(datapath, groups)
+        s["PYTORCH"] = nn_settings(datapath, [])["PYTORCH"]
+        s["PYTORCH"]["multi_element_option"] = 2
+        custom = {"numTypes": 2, "type": "In P"}
+        name = "InP_custom"
+    else:
+        s = nn_settings(datapath, groups)
+        custom = {"numTypes": 1, "type": "Ta"}
+        name = "Ta_custom"
+    del s["BISPECTRUM"], s["PYTORCH"]["dgrad_mode"]
+    s["CUSTOM"] = dict(custom, num_radial=8, num_3body=23, cutoff=5.0)
+    s["CALCULATOR"] = {"calculator": "LAMMPSCUSTOM", "energy": 1, "force": 1,
+                       "stress": 0, "nonlinear": 1}
+    s["SOLVER"] = {"solver": "PYTORCH"}
+    s["PYTORCH"]["output_file"] = f"{name}.pt"
+    s["OUTFILE"] = {"metrics": f"{name}_metrics.md", "potential": name,
+                    "output_style": "CUSTOM"}
     return s
 
 

@@ -31,7 +31,13 @@ autograd through K12's plain version, 1e-10.  K9, K10, K10T, K11, K11T and
 the force gather on two configs of 6 atoms x 40 slots (the two CASES
 plans; a self image, masked pairs, a padded atom), each once and bit for
 bit from run to run; the force-loss gradient through `NnCachedForce`
-against autograd through the plain versions, 1e-10.
+against autograd through the plain versions, 1e-10.  K15, K15V and K15T
+(the custom pairwise NN's descriptors, their VJP and its transpose, also
+through the force gather's transpose) on two periodic cells with pairs
+past the cutoff and on the radial ramp and live slots masked mid-row, on
+4 atoms of 512 slots, and on one slot per atom: dead slots exactly 0,
+bit for bit from run to run; the loss gradient through `PairDescForce`
+against double autograd through the plain descriptors, 1e-10.
 """
 
 from types import SimpleNamespace
@@ -585,3 +591,148 @@ def test_k13_k14_match_plain(cuda, name):
     assert (A[:, 0] == 1).all() and (Jp[..., 0] == 0).all()
     dead = ~args[2]
     assert (Jp[:, dead] == 0).all() and torch.isfinite(Jp).all()
+
+
+# ---------------------------------------------------------------------------
+# K15, K15V, K15T: the custom pairwise NN's descriptor kernels
+# ---------------------------------------------------------------------------
+
+CUTOFF, NRAD, N3B = 5.0, 8, 23
+
+
+def custom_block(name, device):
+    """Inputs of K15, K15V and K15T: disp (N, A, K, 3), mask, jidx, rev
+    and random cotangents.  "cells": two periodic cells of 6 atoms (one
+    padded atom) with lists to 5.5 A, so pairs at r >= the 5.0 cutoff and
+    on the 3.5-5.0 ramp occur, and a few live slots masked out of the
+    middle of a row; "k512": 4 atoms of 512 slots, about 380 live at
+    random directions and radii 1.5-5.5 A; "k1": one slot per atom."""
+    rng = np.random.default_rng({"cells": 31, "k512": 32, "k1": 33}[name])
+    if name == "cells":
+        cfgs = []
+        for na, edge in ((6, 5.2), (5, 6.0)):
+            pos = rng.uniform(0, edge, (na, 3))
+            disp, jidx, mask, kmax = host_neighbors(
+                pos, np.eye(3) * edge, na, 5.5)
+            cfgs.append((disp, jidx, mask, kmax, na))
+        N, A = 2, 6
+        K = max(c[3] for c in cfgs)
+        disp = np.zeros((N, A, K, 3))
+        jidx = np.zeros((N, A, K), np.int32)
+        mask = np.zeros((N, A, K), bool)
+        for c, (d, ji, m, km, na) in enumerate(cfgs):
+            disp[c, :na, :km], jidx[c, :na, :km] = d, ji
+            mask[c, :na, :km] = m
+        mask[0, 1, 2] = mask[1, 3, 0] = False
+    else:
+        N, A, K = 1, 4, 512 if name == "k512" else 1
+        u = rng.normal(size=(N, A, K, 3))
+        disp = u / np.linalg.norm(u, axis=-1, keepdims=True) \
+            * rng.uniform(1.5, 5.5, (N, A, K, 1))
+        mask = rng.random((N, A, K)) < 0.75
+        mask[0, -1] = False
+        jidx = rng.integers(0, A, (N, A, K)).astype(np.int32)
+    rev = np.full((N, A, 1), -1, np.int32)
+    if name == "cells":
+        rows = []
+        for c in range(N):
+            rows.append(reverse_neighbors(jidx[c], mask[c], A))
+        R = max(r.shape[1] for r in rows)
+        rev = np.full((N, A, R), -1, np.int32)
+        for c, r in enumerate(rows):
+            rev[c, :, :r.shape[1]] = r
+    D = NRAD + N3B
+    return [torch.as_tensor(x, device=device) for x in (
+        disp, mask, jidx, rev, rng.normal(size=(N, A, K, D)),
+        rng.normal(size=(N, A, K)), rng.normal(size=(N, A, K, 3)),
+        rng.normal(size=(N, A, 3)))]
+
+
+@pytest.mark.parametrize("name", ["cells", "k512", "k1"])
+def test_k15_k15v_k15t_match_plain(cuda, name):
+    """K15's descriptors and envelope, K15V's pair gradient and K15T's
+    tangent (given h, and from force cotangents through jidx) against
+    their plain versions; dead slots exactly zero; runs repeat bit for
+    bit."""
+    from fitsnap_tpu_torch.kernels import custom_kernels as ck
+
+    disp, mask, jidx, _, gd, ee, h, gF = custom_block(name, cuda)
+    args = (CUTOFF, NRAD, N3B)
+    ck.reset_launches()
+    desc, fc = ck.pair_desc(disp, mask, *args)
+    g = ck.pair_desc_vjp(gd, ee, disp, mask, *args)
+    jh = ck.pair_desc_jvp(h, disp, mask, *args)
+    jg = ck.pair_desc_jvp(gF, disp, mask, *args, jidx=jidx)
+    torch.cuda.synchronize()
+    assert launched(ck) == {"pair_desc": 1, "pair_desc_vjp": 1,
+                            "pair_desc_jvp": 2}
+    assert rel_err([desc, fc], ck.pair_desc_plain(disp, mask, *args)) <= RTOL
+    assert rel_err([g], [ck.pair_desc_vjp_plain(gd, ee, disp, mask, *args)]) \
+        <= RTOL
+    assert rel_err(jh, ck.pair_desc_jvp_plain(h, disp, mask, *args)) <= RTOL
+    assert rel_err(jg, ck.pair_desc_jvp_plain(gF, disp, mask, *args,
+                                              jidx=jidx)) <= RTOL
+    dead = ~mask
+    for out in (desc, fc, g, *jh, *jg):
+        assert (out[dead] == 0).all()
+    assert torch.equal(desc, ck.pair_desc(disp, mask, *args)[0])
+    assert torch.equal(g, ck.pair_desc_vjp(gd, ee, disp, mask, *args))
+    assert torch.equal(jg[0], ck.pair_desc_jvp(gF, disp, mask, *args,
+                                               jidx=jidx)[0])
+
+
+def test_pair_desc_force_gradient_matches_plain_autograd(cuda):
+    """The gradient of a force-and-energy loss with respect to MLP
+    parameters through PairDescForce (K15V and the gather; backward K15T)
+    against plain double autograd through the plain descriptors."""
+    from fitsnap_tpu_torch.kernels import custom_kernels as ck
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+    from fitsnap_tpu_torch.models.mlp import atom_energies
+    from fitsnap_tpu_torch.ops import custom_desc as ops
+
+    disp, mask, jidx, rev, *_, target = custom_block("cells", cuda)
+    N, A, K, _ = disp.shape
+    D = NRAD + N3B
+    rng = np.random.default_rng(34)
+    mean = torch.as_tensor(rng.normal(size=D) * 0.1, device=cuda)
+    std = torch.as_tensor(rng.uniform(0.5, 1.5, D), device=cuda)
+    params = [(torch.as_tensor(rng.normal(size=(1, a, b)) / np.sqrt(a),
+                               device=cuda).requires_grad_(True),
+               torch.as_tensor(rng.normal(size=(1, b)), device=cuda)
+               .requires_grad_(True))
+              for a, b in ((D, 6), (6, 1))]
+    leaves = [t for wb in params for t in wb]
+    elem = torch.zeros(N * A * K, dtype=torch.int32, device=cuda)
+
+    def loss(e, forces):
+        return ((forces - target) ** 2).sum() + e ** 2
+
+    def kernel_grads():
+        desc, fc = ck.pair_desc(disp, mask, CUTOFF, NRAD, N3B)
+        x = ((desc - mean) / std).reshape(-1, D).requires_grad_(True)
+        e_pair = atom_energies(params, x, elem).reshape(N, A, K)
+        e = (e_pair * fc).sum()
+        dedx, = torch.autograd.grad(e, x, create_graph=True)
+        forces = ck.PairDescForce.apply(
+            (dedx / std).reshape(N, A, K, D), e_pair * mask, disp, mask,
+            jidx, rev, CUTOFF, NRAD, N3B)
+        return torch.autograd.grad(loss(e, forces), leaves)
+
+    def plain_grads():
+        d = disp.clone().requires_grad_(True)
+        desc = ops.pair_descriptors(d, mask, CUTOFF, NRAD, N3B)
+        x = ((desc - mean) / std).reshape(-1, D)
+        e_pair = atom_energies(params, x, elem).reshape(N, A, K)
+        e = (e_pair * ops.envelope(d, mask, CUTOFF)).sum()
+        g, = torch.autograd.grad(e, d, create_graph=True)
+        return torch.autograd.grad(
+            loss(e, nk.nn_pair_gather_plain(g, rev)), leaves)
+
+    ck.reset_launches()
+    nk.reset_launches()
+    out = kernel_grads()
+    torch.cuda.synchronize()
+    assert launched(ck) == {"pair_desc": 1, "pair_desc_vjp": 1,
+                            "pair_desc_jvp": 1}
+    assert launched(nk) == {"nn_pair_gather": 1}
+    assert rel_err(out, plain_grads()) <= 1e-10

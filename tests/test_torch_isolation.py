@@ -8,9 +8,10 @@
   nothing) and raises for a device that is neither CPU nor CUDA.
 - `kernels/csrc/` holds one CUDA source for each of K1-K5, K6q, K7, K8
   (K8r shares K8's), K12 (K12T and the force gather share it), K13, K14,
-  K9 with K11 and K11T (`nn_grid.cu`) and K10 with K10T (`nn_dedu.cu`),
-  each naming the JAX function it replaces, built for sm_90a; the chemflag
-  modes of K1-K3 share their sources.
+  K9 with K11 and K11T (`nn_grid.cu`), K10 with K10T (`nn_dedu.cu`) and
+  K15 with K15V and K15T (`pair_desc.cu`), each naming the JAX function it
+  replaces, built for sm_90a; the chemflag modes of K1-K3 share their
+  sources.
 - `FitSnap` fits on the CPU with every linear solver the port registers.
 - `chip_smoke.py` exits non-zero and prints no result without a card.
 """
@@ -62,7 +63,11 @@ def test_imports_neither_jax_nor_fitsnap_tpu():
             "fitsnap_tpu_torch.kernels.nn_kernels",
             "fitsnap_tpu_torch.models.mlp",
             "fitsnap_tpu_torch.solvers.network",
-            "fitsnap_tpu_torch.io.export_torch"} <= set(mods)
+            "fitsnap_tpu_torch.io.export_torch",
+            "fitsnap_tpu_torch.ops.custom_desc",
+            "fitsnap_tpu_torch.kernels.custom_kernels",
+            "fitsnap_tpu_torch.calculators.custom",
+            "fitsnap_tpu_torch.io.outputs.custom_output"} <= set(mods)
     proc = run_python(f"""
         import importlib, json, sys
         for name in {mods!r}:
@@ -399,6 +404,8 @@ def test_device_solvers_fit_on_cpu(tmp_path, solver):
     ("nn_grid", "`compute_utot_mono`"),
     ("nn_grid", "`nn_pair_force`"),
     ("nn_dedu", "`nn_dEdu`"),
+    ("pair_desc", "`pair_descriptors`"),
+    ("pair_desc", "`_forward_pairwise`"),
 ])
 def test_cuda_source_per_kernel(source, replaces):
     path = build.CSRC / f"{source}.cu"
@@ -435,6 +442,7 @@ def test_registered_argtypes_match_the_c_signatures():
     arguments, a pointer-sized one for each pointer and the stream (an int
     in place of a pointer would cut it to 32 bits)."""
     from fitsnap_tpu_torch.kernels import ace_kernels  # noqa: F401
+    from fitsnap_tpu_torch.kernels import custom_kernels  # noqa: F401
     from fitsnap_tpu_torch.kernels import launch as kl
     from fitsnap_tpu_torch.kernels import nn_kernels  # noqa: F401
 
