@@ -15,11 +15,13 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
 3. kernels: each of K1-K5, K7, K8 and K8r against its plain PyTorch
    version on the card at the main paths' Ta shapes (one chunk of 8
    compressed 128-atom bcc cells, 64 neighbor slots, twojmax 6, float64;
-   K8 and K8r on that chunk's positions batch), failing above 1e-11
+   K4 also as the ZBL reference calls it, width 1 and one type block; K8
+   and K8r on that chunk's positions batch), failing above 1e-11
    relative error (K8's mask and jidx and K8r's table must be equal); kernel,
    plain and library-call times with CUDA events, the kernel's device time
-   from a torch.profiler trace (events between launches also count the
-   host's launch overhead, which exceeds the small kernels' run time), and
+   (and K4's and K7's library call's) from a torch.profiler trace (events
+   between launches also count the host's launch overhead, which exceeds
+   the small kernels' run time), and
    the least time the card could take (bytes over 3.35 TB/s, float64
    operations over 67 T/s, the larger; K8r's by its bytes alone);
 4. FitSnap path: launch counts set to 0, then FitSnap(device="cuda") ->
@@ -70,7 +72,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    tiles, K6q (quad_chain) and K4 at width 1,595; at the InP model on the
    main path's first Displaced_ZB64 chunk the chemflag modes of K1, K2 and
    K3 (utot in two element channels, four channel-pair z-lists, seven W
-   tiles of the channel-resolved y-list);
+   tiles of the channel-resolved y-list) and K4 at width 240; at both, K7
+   on that chunk's rows with seeded truths and weights (width 1,596 with
+   one constant column; 480 without), direct and residual;
 11. quadratic and chemflag FitSnap paths, as phase 4 (launch counts set to
    0 just before, read just after): K1-K3, K6q, K4, K5 must launch on the
    first, the chemflag K1-K3 with K4 and K5 on the second; A equal to the
@@ -80,8 +84,17 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    must hold to the truths: the weighted residual within the ACE limit of
    phase 8, each row type's largest error within max(1e-6, 100 cond_kept
    eps) of its largest truth, cond_kept over the singular values lstsq
-   keeps.  The streamed fit is not run at these widths (K7 refuses rows
-   wider than one block's shared memory holds);
+   keeps.  Then the streamed fit of each, as phase 5 (counts set to 0 just
+   before, read just after; K7, K8 and K8r must launch too): the quadratic
+   set's Compressed_BCC group (16 cells of 128 atoms, 1,596 columns), all
+   of the InP set (480 columns); AtA / Atb against the host's to 1e-10,
+   beta_true where cond <= 4.5e7 (phase 5's limits), else the predictions
+   with phase 8's streamed residual limit and each row type within
+   max(1e-6, 100 cond_kept eps, 2 e_kept), cond_kept over the singular
+   values NormalSolver keeps (those of the equilibrated weighted A above
+   sqrt(10 eps) of the largest), e_kept that type's error of the host's SVD
+   solve that keeps the same directions, direct and refined; as a control,
+   the same solve of AtA and Atb rounded to float32 must fail these checks;
 12. NN path (precompute mode), on the Ta set of phase 2 with
    `synthetic.nn_settings` (nonlinear 1, [PYTORCH] layer_sizes num_desc 64
    64 1, batch size 4, 10 epochs): launch counts set to 0, then
@@ -240,13 +253,20 @@ PATH_KERNELS = {"fitsnap": FITSNAP_KERNELS,
                 "ace_fitsnap": ACE_KERNELS,
                 "ace_streamed": ACE_KERNELS + STREAM_KERNELS,
                 "quadratic_fitsnap": QUAD_KERNELS,
+                "quadratic_streamed": QUAD_KERNELS + STREAM_KERNELS,
                 "chem_fitsnap": CHEM_KERNELS,
+                "chem_streamed": CHEM_KERNELS + STREAM_KERNELS,
                 "nn_fitsnap": NN_KERNELS,
                 "nn_cached_fitsnap": NN_CACHED_KERNELS,
                 "custom_fitsnap": CUSTOM_KERNELS}
-# FitSnap path of each data set
+# FitSnap and streamed paths of each data set
 FITSNAP_PATH = {"snap": "fitsnap", "ace": "ace_fitsnap",
                 "quadratic": "quadratic_fitsnap", "inp": "chem_fitsnap"}
+STREAM_PATH = {"snap": "streamed", "ace": "ace_streamed",
+               "quadratic": "quadratic_streamed", "inp": "chem_streamed"}
+# the groups the streamed fit runs of each set (None: all of them)
+STREAM_GROUPS = {"snap": None, "ace": None, "quadratic": ["Compressed_BCC"],
+                 "inp": None}
 FLAGS = {"energy": True, "force": True, "stress": True}
 # the InP_PACE example's shape (two elements, ranks 1-4: 344 labels, 99
 # A-slots, 2,136 product terms) with an inner cutoff on the In-P bond
@@ -257,6 +277,9 @@ INP_SHAPE = dict(numtypes=2, ranks=[1, 2, 3, 4], lmax=[1, 2, 2, 1],
                  drcinner=[0.01, 0.5, 0.5, 0.01], b_basis="minsub")
 SVD_RCOND = 1e-13           # singular-value cutoff of solvers/svd.SVD
 PRED_RTOL = 1e-6            # predictions vs truths, per row type
+# streamed fits vs the host's SVD solve keeping NormalSolver's directions,
+# per row type: the card's read at most 1.104x it (PERF.md)
+KEPT_FACTOR = 2.0
 BETA_COND = 4.5e7           # beta_true is a check where 100 cond eps <= 1e-6
 GRAD_RTOL = 1e-10           # NN loss gradient through NnForce vs plain K12
 FD_H = 1e-4                 # central-difference step of the NN force check
@@ -381,19 +404,24 @@ def check_launched(counts, path):
 
 
 def record(rows, name, out, ref, kernel, plain_ms, nbytes, flops,
-           library_ms, wrapper=None, shape=None):
+           library_ms, wrapper=None, shape=None, library=None):
     """Hold a kernel's outputs to its plain version's, time it, and add its
     row to `rows`.  `kernel` is (a call of the wrapper, repetitions to
     time); `wrapper` names the kernel when the row is one of several
-    shapes of it."""
+    shapes of it; `library`, a call of the library function, is timed
+    here, by CUDA events (in place of `library_ms`) and by device time."""
     err_abs, err_rel = rel_err(out, ref)
     b_ms, b_by = bound_ms(nbytes, flops)
     ms = timed(*kernel)
     dev_ms = device_time(*kernel)
+    lib_dev_ms = None
+    if library:
+        library_ms = timed(library, 20)
+        lib_dev_ms = device_time(library, 20)
     print(f"{name}: max_abs_err={err_abs:.3e} max_rel_err={err_rel:.3e}"
           f" ms={ms:.4f} device_ms={dev_ms} plain_ms={plain_ms:.4f}"
-          f" bound_ms={b_ms:.4f} ({b_by}) library_ms={library_ms}",
-          flush=True)
+          f" bound_ms={b_ms:.4f} ({b_by}) library_ms={library_ms}"
+          f" library_device_ms={lib_dev_ms}", flush=True)
     if not err_rel <= KERNEL_RTOL:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version ({err_rel:.3e} > {KERNEL_RTOL})")
@@ -404,6 +432,8 @@ def record(rows, name, out, ref, kernel, plain_ms, nbytes, flops,
            "max_rel_err": err_rel, "ms": ms, "device_ms": dev_ms,
            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": library_ms}
+    if library:
+        row["library_device_ms"] = lib_dev_ms
     if shape:
         row["shape"] = shape
     rows.append(row)
@@ -610,14 +640,15 @@ def descriptor_checks(rows, p, k1_in, shape=None):
     return B, G
 
 
-def scatter_check(rows, args, smask, G, T, shape=None):
+def scatter_check(rows, args, smask, G, T, shape=None, types=None):
     """K4 against its plain version on one chunk's per-pair gradients G
     (N, X, K, 3), with index_add_ of the neighbor scatter as library
-    call."""
+    call; `types` replaces the chunk's (the ZBL call passes all zeros)."""
     import torch
     from fitsnap_tpu_torch.kernels import snap_kernels as sk
 
-    disp, jidx, mask, rev, types, natoms, cell = args
+    disp, jidx, mask, rev, chunk_types, natoms, cell = args
+    types = chunk_types if types is None else types
     C, A, K = mask.shape
     N, X = C * A, G.shape[1]
     npairs = int(smask.sum().item())
@@ -638,12 +669,75 @@ def scatter_check(rows, args, smask, G, T, shape=None):
            ref, (lambda: sk.pair_scatter_rows(*k4_args), 20),
            timed(lambda: sk.pair_scatter_rows_plain(*k4_args), 5),
            k4_bytes, npairs * X * (3 * 2 + 6 * 2),
-           timed(lambda: scat.index_add_(0, dest, g_rows), 20),
-           wrapper="pair_scatter_rows",
-           shape=f"{shape}, width {X}" if shape else None)
+           None, wrapper="pair_scatter_rows",
+           shape=f"{shape}, width {X}" if shape else None,
+           library=lambda: scat.index_add_(0, dest, g_rows))
     del G, g_rows, scat, out, ref
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+
+
+def normal_check(rows, rows_in, truths, weights, natoms, types, T, const,
+                 layout="snap", shape=None):
+    """K7 against its plain version on one chunk's rows, direct and in the
+    residual mode (at seeded coefficients), with torch.mm(Awᵀ, Aw) of the
+    weighted full rows as library call; the row is named
+    `normal_contrib@shape` when a shape is given."""
+    import torch
+    from fitsnap_tpu_torch.kernels import snap_kernels as sk
+
+    k7_args = (rows_in, truths, weights, natoms, types, T, const, FLAGS)
+    out = sk.normal_contrib(*k7_args, None, True, layout)
+    ref = sk.normal_contrib_plain(*k7_args, None, True, layout)
+    Wf = ref[1].shape[0]
+    coeff = torch.linspace(-1.0, 1.0, Wf, dtype=torch.float64,
+                           device=types.device)
+    res = sk.normal_contrib(*k7_args, coeff, False, layout)
+    res_ref = sk.normal_contrib_plain(*k7_args, coeff, False, layout)
+    _, res_err = rel_err(res[1:2], res_ref[1:2])
+    print(f"normal_contrib ({layout} layout, width {Wf}): residual mode "
+          f"max_rel_err={res_err:.3e}", flush=True)
+    if not (res_err <= KERNEL_RTOL and out[2].item() == ref[2].item()
+            and res[2].item() == ref[2].item() and not res[0].any()):
+        raise AssertionError(f"normal_contrib ({layout} layout, width "
+                             f"{Wf}): residual mode {res_err:.3e}, nrows "
+                             f"or AtA differs")
+    a_full, _ = sk.full_rows(rows_in, truths, natoms, types, T, const,
+                             layout)
+    C, A = types.shape
+    wrow = sk.row_weights(weights, natoms, A, FLAGS)
+    aw = (a_full * wrow[..., None]).reshape(-1, Wf)
+    nrow = aw.shape[0]
+    Wr = rows_in["e_cols"].shape[1]
+    # AtA is symmetric: its upper triangle, Wf (Wf + 1) / 2 multiply-adds a
+    # row, and Atb's Wf; the bytes count the full AtA written
+    record(rows, "normal_contrib" + (f"@{shape}" if shape else ""),
+           out[:2], ref[:2],
+           (lambda: sk.normal_contrib(*k7_args, None, True, layout), 20),
+           timed(lambda: sk.normal_contrib_plain(*k7_args, None, True,
+                                                 layout), 5),
+           C * (1 + 3 * A + 6) * Wr * 8 + 3 * C * (1 + 3 * A + 6) * 8
+           + 3 * C * 8 + C * 4 + C * A * 4 + (Wf * Wf + Wf + 1) * 8,
+           nrow * (Wf * (Wf + 1) + 2 * Wf), None, wrapper="normal_contrib",
+           shape=f"{shape}, {layout} layout, width {Wf}" if shape else None,
+           library=lambda: torch.mm(aw.T, aw))
+    del out, ref, res, res_ref, a_full, aw
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def seeded_truths(seed, C, A, device):
+    """Seeded truths (energy, forces, stress6) and weights of C configs."""
+    import torch
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g,
+                           dtype=torch.float64).to(device)
+
+    return ((rnd(C), rnd(C, A, 3), rnd(C, 6)),
+            (rnd(C).abs(), rnd(C).abs(), rnd(C).abs()))
 
 
 def kernel_checks(calc, data):
@@ -679,6 +773,10 @@ def kernel_checks(calc, data):
            timed(lambda: sk.zbl_pair_grad_plain(*k5_args), 5),
            C * A * K * (24 + 4 + 1 + 24) + C * A * 4 + C * 8 + table.numel()
            * 8, nlisted * 120, None)
+    # K4 as the ZBL reference calls it: width 1, one type block, every
+    # listed pair
+    g_zbl = ref[0].reshape(C * A, 1, K, 3)
+    scatter_check(rows, args, mask, g_zbl, 1, "ZBL", torch.zeros_like(types))
 
     # K8 and K8r on the chunk's positions batch
     s_table = fit.batch_shift_table([pc.cell for pc in packed], calc.cutoff)
@@ -718,30 +816,7 @@ def kernel_checks(calc, data):
     rows_in = calc.rows(*args)
     truths, weights = pos_batch[7:10], pos_batch[10:13]
     truths, weights = [x[0] for x in truths], [x[0] for x in weights]
-    k7_args = (rows_in, truths, weights, nat32, types, T, True, FLAGS)
-    out = sk.normal_contrib(*k7_args)
-    ref = sk.normal_contrib_plain(*k7_args)
-    coeff = torch.linspace(-1.0, 1.0, ref[1].shape[0], dtype=torch.float64,
-                           device=disp.device)
-    res = sk.normal_contrib(*k7_args, coeff, False)[1]
-    res_ref = sk.normal_contrib_plain(*k7_args, coeff, False)[1]
-    _, res_err = rel_err([res], [res_ref])
-    if not (res_err <= KERNEL_RTOL and out[2].item() == ref[2].item()):
-        raise AssertionError(f"normal_contrib: residual mode {res_err:.3e} "
-                             f"or nrows differs")
-    a_full, _ = sk.full_rows(rows_in, truths, nat32, types, T, True)
-    wrow = sk.row_weights(weights, nat32, A, FLAGS)
-    aw = (a_full * wrow[..., None]).reshape(-1, a_full.shape[2])
-    nrow, Wf = aw.shape
-    Wr = rows_in["e_cols"].shape[1]
-    record(rows, "normal_contrib", out[:2], ref[:2],
-           (lambda: sk.normal_contrib(*k7_args), 20),
-           timed(lambda: sk.normal_contrib_plain(*k7_args), 5),
-           C * (1 + 3 * A + 6) * Wr * 8 + 3 * C * (1 + 3 * A + 6) * 8
-           + 3 * C * 8 + C * 4 + C * A * 4 + (Wf * Wf + Wf + 1) * 8,
-           nrow * (2 * Wf * Wf + 2 * Wf),
-           timed(lambda: torch.mm(aw.T, aw), 20))
-    torch.cuda.synchronize()
+    normal_check(rows, rows_in, truths, weights, nat32, types, T, True)
     return rows
 
 
@@ -898,47 +973,18 @@ def ace_kernel_checks(calc, data, seed):
     # and weights
     rows_in = ace_rows(plan, RefSpec(), *batch, plain=True)
     C, A = types.shape
-    g = torch.Generator(device="cpu").manual_seed(seed + 6)
-
-    def rnd(*shape):
-        return torch.randn(shape, generator=g, dtype=torch.float64).to(dev)
-
-    truths = (rnd(C), rnd(C, A, 3), rnd(C, 6))
-    weights = (rnd(C).abs(), rnd(C).abs(), rnd(C).abs())
-    T = plan.numtypes
-    k7_args = (rows_in, truths, weights, natoms, types, T, True, FLAGS)
-    out = sk.normal_contrib(*k7_args, None, True, "ace")
-    ref = sk.normal_contrib_plain(*k7_args, None, True, "ace")
-    Wf = ref[1].shape[0]
-    coeff = torch.linspace(-1.0, 1.0, Wf, dtype=torch.float64, device=dev)
-    res = sk.normal_contrib(*k7_args, coeff, False, "ace")[1]
-    res_ref = sk.normal_contrib_plain(*k7_args, coeff, False, "ace")[1]
-    _, res_err = rel_err([res], [res_ref])
-    if not (res_err <= KERNEL_RTOL and out[2].item() == ref[2].item()):
-        raise AssertionError(f"normal_contrib (ACE layout): residual mode "
-                             f"{res_err:.3e} or nrows differs")
-    a_full, _ = sk.full_rows(rows_in, truths, natoms, types, T, True, "ace")
-    wrow = sk.row_weights(weights, natoms, A, FLAGS)
-    aw = (a_full * wrow[..., None]).reshape(-1, Wf)
-    nrow = aw.shape[0]
-    Wr = rows_in["e_cols"].shape[1]
-    record(rows, "normal_contrib@ace", out[:2], ref[:2],
-           (lambda: sk.normal_contrib(*k7_args, None, True, "ace"), 20),
-           timed(lambda: sk.normal_contrib_plain(*k7_args, None, True,
-                                                 "ace"), 5),
-           C * (1 + 3 * A + 6) * Wr * 8 + 3 * C * (1 + 3 * A + 6) * 8
-           + 3 * C * 8 + C * 4 + C * A * 4 + (Wf * Wf + Wf + 1) * 8,
-           nrow * (2 * Wf * Wf + 2 * Wf),
-           timed(lambda: torch.mm(aw.T, aw), 20),
-           wrapper="normal_contrib", shape=f"ACE layout, width {Wf}")
-    torch.cuda.synchronize()
+    truths, weights = seeded_truths(seed + 6, C, A, dev)
+    normal_check(rows, rows_in, truths, weights, natoms, types,
+                 plan.numtypes, True, "ace", "ace")
     return rows
 
 
-def flag_kernel_checks(calc, data, kind):
+def flag_kernel_checks(calc, data, kind, seed):
     """The kernels of the quadratic ("quadratic") or chemflag ("inp") path
     against their plain versions on the main path's first chunk of a group
-    (Compressed_BCC, Displaced_ZB64): K1-K3 (chemflag modes), K6q, K4."""
+    (Compressed_BCC, Displaced_ZB64): K1-K3 (chemflag modes), K6q, K4, and
+    K7 on the chunk's rows."""
+    import torch
     from fitsnap_tpu_torch.kernels import snap_kernels as sk
 
     group = {"quadratic": "Compressed_BCC", "inp": "Displaced_ZB64"}[kind]
@@ -954,6 +1000,13 @@ def flag_kernel_checks(calc, data, kind):
     rows = []
     B, G = descriptor_checks(rows, p, k1_in, shape)
     scatter_check(rows, args, smask, G, calc.numtypes, shape)
+    del B, G
+    # K7 on the chunk's rows (the streamed fit's width), seeded truths
+    rows_in = calc.rows(*args)
+    natoms, types = args[5].to(torch.int32), args[4]
+    truths, weights = seeded_truths(seed + 9, C, A, types.device)
+    normal_check(rows, rows_in, truths, weights, natoms, types,
+                 calc.numtypes, not calc.sec.bzeroflag, "snap", shape)
     return rows
 
 
@@ -971,14 +1024,17 @@ def prediction_errors(a, x, b, row_type):
 
 def check_predictions(tag, aw, bw, x, limit, per_type, pred_limit=PRED_RTOL):
     """Weighted residual of x within `limit`, and each row type within
-    `pred_limit`; returns the weighted residual."""
+    `pred_limit` (one value, or one per row type); returns the weighted
+    residual."""
     resid = np.linalg.norm(aw @ x - bw) / np.linalg.norm(bw)
-    worst = max(per_type.values())
-    if not (np.isfinite(x).all() and resid <= limit and worst <= pred_limit):
+    lim = pred_limit if isinstance(pred_limit, dict) \
+        else dict.fromkeys(per_type, pred_limit)
+    if not (np.isfinite(x).all() and resid <= limit
+            and all(per_type[k] <= lim[k] for k in per_type)):
         raise AssertionError(
             f"{tag}: predictions miss the truths: weighted residual "
             f"{resid:.3e} (limit {limit:.3e}), per row type {per_type} "
-            f"(limit {pred_limit:.3e})")
+            f"(limit {lim})")
     return float(resid)
 
 
@@ -1082,21 +1138,28 @@ def main_path(ini, a_plain, beta, device, kind="snap"):
 
 
 def streamed_path(fs, a_plain, beta, seed, device, kind="snap"):
-    """Drive parallel/fit.py on `device` over FitSnap's configs, with the
-    SNAP model ("snap") or, through `ace_kernel`, the ACE one ("ace");
+    """Drive parallel/fit.py on `device` over FitSnap's configs of the
+    kind's STREAM_GROUPS, with the SNAP model of the set ("snap",
+    "quadratic", "inp") or, through `ace_kernel`, the ACE one ("ace");
     returns (launch counts, timings, checks)."""
     import torch
     from fitsnap_tpu_torch.calculators.snap import chunk_size
     from fitsnap_tpu_torch.parallel import fit
 
     calc = fs.calculator
+    groups = STREAM_GROUPS[kind]
+    data = [d for d in fs.data if groups is None or d["Group"] in groups]
+    sel = np.ones(len(fs.b), bool) if groups is None \
+        else np.isin(np.asarray(fs.fs_dict["Groups"]), groups)
+    a_plain, w_rows, b_rows = a_plain[sel], fs.w[sel], fs.b[sel]
+    rtype = np.asarray(fs.fs_dict["Row_Type"])[sel]
     reset_launches()
     t = {}
     t0 = time.time()
-    packed = [calc._pack(d) for d in fs.data]
-    groups = fit.plan_shift_groups(packed, calc.cutoff)
+    packed = [calc._pack(d) for d in data]
+    shape_groups = fit.plan_shift_groups(packed, calc.cutoff)
     runs = []
-    for g in groups:
+    for g in shape_groups:
         per = chunk_size(g["a_pad"], g["k_pad"], calc.desc_width())
         chunks = -(-len(g["configs"]) // per)
         batch = fit.pack_batch_pos(g["configs"], g["a_pad"], chunks * per,
@@ -1111,7 +1174,7 @@ def streamed_path(fs, a_plain, beta, seed, device, kind="snap"):
     torch.cuda.synchronize()
     t["upload"] = time.time() - t0
 
-    if kind == "snap":
+    if kind != "ace":
         model, kw = (calc.params, calc.numtypes, FLAGS, device), {}
     else:
         model = (None, calc.numtypes, FLAGS, device)
@@ -1170,11 +1233,11 @@ def streamed_path(fs, a_plain, beta, seed, device, kind="snap"):
     counts = launches()
     t["rows_per_s"] = nrows / t["steady_pass"]
 
-    check_launched(counts, "streamed" if kind == "snap" else "ace_streamed")
+    check_launched(counts, STREAM_PATH[kind])
     if nrows != a_plain.shape[0]:
         raise AssertionError(f"nrows {nrows} != {a_plain.shape[0]}")
-    aw = fs.w[:, None] * a_plain
-    bw = fs.w * fs.b
+    aw = w_rows[:, None] * a_plain
+    bw = w_rows * b_rows
     ata_host, atb_host = aw.T @ aw, aw.T @ bw
     ata_err = np.abs(AtA.reshape(ata_host.shape) - ata_host).max() \
         / np.abs(ata_host).max()
@@ -1184,10 +1247,11 @@ def streamed_path(fs, a_plain, beta, seed, device, kind="snap"):
                              f"AtA {ata_err:.3e}, Atb {atb_err:.3e}")
     sv = np.linalg.svd(aw, compute_uv=False)
     cond = sv[0] / sv[-1]
-    checks = {"groups": len(groups), "nrows": nrows,
+    checks = {"configs": len(data), "shape_groups": len(runs),
+              "width": int(a_plain.shape[1]), "nrows": nrows,
               "ata_rel_err": float(ata_err), "atb_rel_err": float(atb_err),
               "cond_weighted_a_all": float(cond)}
-    if kind == "snap":
+    if kind == "snap" or (kind != "ace" and cond <= BETA_COND):
         scale = np.abs(beta).max()
         err_direct = np.abs(x_direct - beta).max() / scale
         err_ref = np.abs(x_ref - beta).max() / scale
@@ -1207,18 +1271,54 @@ def streamed_path(fs, a_plain, beta, seed, device, kind="snap"):
         # sqrt(10 eps) of the largest, whose part of w b is at most that
         # times |d beta|; rounding in A^T A moves the kept ones by as much
         d = np.sqrt(np.clip(np.diag(ata_host), 1e-300, None))
-        sn = np.linalg.svd(aw / d, compute_uv=False)
+        if kind == "ace":
+            sn = np.linalg.svd(aw / d, compute_uv=False)
+        else:
+            u, sn, vt = np.linalg.svd(aw / d, full_matrices=False)
         limit = 10 * np.sqrt(10 * EPS64) * sn[0] \
             * np.linalg.norm(d * beta) / np.linalg.norm(bw)
-        rtype = np.asarray(fs.fs_dict["Row_Type"])
-        for tag, x in (("direct", x_direct), ("refined", x_ref)):
-            per_type = prediction_errors(a_plain, x, fs.b, rtype)
+        pred_limit = PRED_RTOL
+        if kind != "ace":
+            # phase 11's limit over the singular values NormalSolver keeps
+            # (those of the equilibrated matrix above sqrt(10 eps) of the
+            # largest); the truths may also reach into the directions it
+            # drops, so no solve that keeps the same directions does better
+            # than the host's SVD solve that does (e_kept): each row type
+            # is held to the larger of the two, e_kept times KEPT_FACTOR
+            kept = sn >= np.sqrt(10 * EPS64) * sn[0]
+            cond_kept = sn[kept][0] / sn[kept][-1]
+            x_kept = vt[kept].T @ ((u[:, kept].T @ bw) / sn[kept]) / d
+            kept_err = prediction_errors(a_plain, x_kept, b_rows, rtype)
+            pred_limit = {k: max(PRED_RTOL, 100 * cond_kept * EPS64,
+                                 KEPT_FACTOR * v)
+                          for k, v in kept_err.items()}
+            checks.update(cond_kept=float(cond_kept),
+                          pred_rel_err_kept_svd=kept_err)
+            del u, vt
+        fits = [("direct", x_direct), ("refined", x_ref)]
+        for tag, x in fits:
+            per_type = prediction_errors(a_plain, x, b_rows, rtype)
             checks[f"resid_rel_{tag}"] = check_predictions(
-                f"streamed {tag}", aw, bw, x, limit, per_type)
+                f"streamed {tag}", aw, bw, x, limit, per_type, pred_limit)
             checks[f"pred_rel_err_{tag}"] = per_type
+        if kind != "ace":
+            # control: the same solve on AtA and Atb rounded to float32
+            # (what a float32 accumulation would deliver) must fail
+            x32 = fit.NormalSolver(np.asarray(AtA, np.float32)).solve(
+                np.asarray(Atb, np.float32))
+            per_type = prediction_errors(a_plain, x32, b_rows, rtype)
+            checks["pred_rel_err_f32_control"] = per_type
+            try:
+                check_predictions("float32 control", aw, bw, x32, limit,
+                                  per_type, pred_limit)
+            except AssertionError:
+                pass
+            else:
+                raise AssertionError(f"the float32 control passed the "
+                                     f"streamed checks: {per_type}")
+        checks["pred_limit"] = pred_limit
         checks["resid_limit"] = float(limit)
-    rtype = np.asarray(fs.fs_dict["Row_Type"])
-    res = np.abs(a_plain @ x_check - fs.b)
+    res = np.abs(a_plain @ x_check - b_rows)
     host = (res[rtype == "Energy"].sum(), (rtype == "Energy").sum(),
             res[rtype == "Force"].sum(), (rtype == "Force").sum())
     mae_err = max(abs(cse - host[0]) / host[0], abs(csf - host[2]) / host[2])
@@ -2003,13 +2103,12 @@ def main():
                 fs, *fitsnap = main_path(ini, a_plain, beta, "cuda", kind)
                 streamed = streamed_path(fs, a_plain, beta, args.seed,
                                          "cuda", kind)
-                prefix = "" if kind == "snap" else "ace_"
-                paths[prefix + "fitsnap"] = fitsnap
-                paths[prefix + "streamed"] = streamed
+                paths[FITSNAP_PATH[kind]] = fitsnap
+                paths[STREAM_PATH[kind]] = streamed
                 del fs, a_plain
                 torch.cuda.empty_cache()
-            # quadratic SNAP and chemflag: kernels, then FitSnap (the
-            # streamed fit's K7 does not take rows this wide)
+            # quadratic SNAP and chemflag: kernels, FitSnap, then the
+            # streamed fit
             for kind in ("quadratic", "inp"):
                 t0 = time.time()
                 ini, fs0, data, a_plain, beta, t_plain = make_dataset(
@@ -2018,11 +2117,14 @@ def main():
                       f"{a_plain.shape}, plain path on the card "
                       f"{t_plain:.2f} s, set-up {time.time() - t0:.2f} s",
                       flush=True)
-                kernels += flag_kernel_checks(fs0.calculator, data, kind)
+                kernels += flag_kernel_checks(fs0.calculator, data, kind,
+                                              args.seed)
                 del fs0, data
                 torch.cuda.empty_cache()
                 fs, *fitsnap = main_path(ini, a_plain, beta, "cuda", kind)
                 paths[FITSNAP_PATH[kind]] = fitsnap
+                paths[STREAM_PATH[kind]] = streamed_path(
+                    fs, a_plain, beta, args.seed, "cuda", kind)
                 del fs, a_plain
                 torch.cuda.empty_cache()
             # the NN fit on the Ta set of phase 2

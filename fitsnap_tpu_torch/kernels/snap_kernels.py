@@ -37,7 +37,7 @@ kl.register("dbdd", "dbdd", [_P] * 10 + [_LL] + [_I] * 6 + [_P] * 3)
 kl.register("quad_chain", "quad_chain", [_P] * 5 + [_LL] + [_I] * 3
             + [_P] * 3)
 kl.register("pair_scatter_rows", "pair_scatter",
-            [_P] * 5 + [_I] * 6 + [_P] * 3)
+            [_P] * 5 + [_I] * 7 + [_P] * 4)
 kl.register("zbl_pair_grad", "zbl_pair",
             [_P] * 5 + [_I] * 4 + [_D, _D] + [_P] * 4)
 kl.register("device_neighbors", "device_neighbors",
@@ -45,7 +45,7 @@ kl.register("device_neighbors", "device_neighbors",
 kl.register("reverse_table", "device_neighbors",
             [_P, _P] + [_I] * 4 + [_P] * 3)
 kl.register("normal_contrib", "normal_contrib",
-            [_P] * 15 + [_I] * 10 + [_P] * 5)
+            [_P] * 15 + [_I] * 14 + [_P] * 6)
 
 
 # ---------------------------------------------------------------------------
@@ -338,6 +338,16 @@ def pair_scatter_rows_plain(g, disp, vmask, rev, types, ntypes):
     return force.contiguous(), vir[:, list(pa), list(pb)].contiguous()
 
 
+def pair_scatter_tile(X, K):
+    """K4's x-tile: the columns of g one block takes, a power of two up to
+    16 (csrc/pair_scatter.cu XT_MAX) whose own rows (XT x 3K doubles) stay
+    within 24 KB of shared memory."""
+    xt = 16 if X >= 16 else 1 << max(0, X - 1).bit_length()
+    while xt > 1 and xt * 24 * K > 24 * 1024:
+        xt //= 2
+    return xt
+
+
 def pair_scatter_rows(g, disp, vmask, rev, types, ntypes):
     """K4 on the card; same arguments and outputs as the plain version."""
     if _on_cpu(g, disp, vmask, rev, types):
@@ -353,9 +363,10 @@ def pair_scatter_rows(g, disp, vmask, rev, types, ntypes):
     force = torch.empty((C, A, 3, ntypes, X), dtype=torch.float64,
                         device=dev)
     virial = torch.empty((C, 6, ntypes, X), dtype=torch.float64, device=dev)
+    vpart = torch.empty((C, A, 6, X), dtype=torch.float64, device=dev)
     _launch("pair_scatter_rows", dev, _ptr(g), _ptr(disp), _ptr(vmask),
-            _ptr(rev), _ptr(types), C, A, X, K, R, ntypes, _ptr(force),
-            _ptr(virial))
+            _ptr(rev), _ptr(types), C, A, X, K, R, ntypes,
+            pair_scatter_tile(X, K), _ptr(vpart), _ptr(force), _ptr(virial))
     pair_scatter_rows.launches += 1
     return force, virial
 
@@ -569,7 +580,23 @@ reverse_table.launches = 0
 # K7: weighted normal equations of a batch
 # ---------------------------------------------------------------------------
 
-_NC_TILE = 64   # rows per tile of csrc/normal_contrib.cu
+_NC_TILE = 64          # edge of an output tile of csrc/normal_contrib.cu
+_NC_CHUNK = 16         # rows of one staged chunk there (KC)
+_NC_SLAB = 8           # chunks of a slab at the least
+_NC_BLOCKS = 2 * 132   # blocks that fill the card: two on each of 132 SMs
+
+
+def normal_contrib_plan(C, A, W, with_ata=True):
+    """K7's tile plan for C configs of A atom slots and full width W:
+    (output tiles, row slabs, rows per slab).  The tiles cover the upper
+    triangle of the (W + 1)^2 Gram matrix (with `with_ata`; else only its
+    last column); the rows split into slabs until about `_NC_BLOCKS` blocks
+    run, each slab at least `_NC_SLAB` chunks of `_NC_CHUNK` rows."""
+    nt = -(-(W + 1) // _NC_TILE)
+    ntiles = nt * (nt + 1) // 2 if with_ata else nt
+    chunks = -(-C * (7 + 3 * A) // _NC_CHUNK)
+    nslab = max(1, min(-(-_NC_BLOCKS // ntiles), chunks // _NC_SLAB))
+    return ntiles, nslab, -(-chunks // nslab) * _NC_CHUNK
 
 
 def full_rows(rows, truths, natoms, types, numtypes, const_cols,
@@ -694,17 +721,22 @@ def normal_contrib(rows, truths, weights, natoms, types, numtypes,
     _check(types, "types", torch.int32, (C, A))
     if coeff is not None:
         _check(coeff, "coeff", torch.float64, (W,))
-    if 8 * (_NC_TILE * W + 2 * _NC_TILE + T) > _SMEM_LIMIT:
-        raise ValueError(f"normal_contrib: width {W} exceeds one block's "
-                         f"shared memory (a tile of {_NC_TILE} rows); the "
-                         f"kernel does not tile AᵀA yet, so the streamed fit "
-                         f"of wider models (quadratic SNAP at twojmax 8, "
-                         f"chemflag InP) runs through FitSnap only")
     dev = types.device
-    ntiles = -(-(7 + 3 * A) // _NC_TILE)
-    partial = torch.empty((C * ntiles, W * W + W), dtype=torch.float64,
-                          device=dev)
-    AtA = torch.empty((W, W), dtype=torch.float64, device=dev)
+    ntiles, nslab, slab_rows = normal_contrib_plan(C, A, W, with_ata)
+    nt = -(-(W + 1) // _NC_TILE)
+    if nslab * slab_rows * nt * _NC_TILE >= 1 << 31:
+        raise ValueError(f"normal_contrib: {C} configs of {A} atoms at width "
+                         f"{W} exceed 2^31 row entries; pass fewer configs "
+                         f"per chunk")
+    # the weighted augmented rows, padded to whole slabs and tiles
+    aw = torch.empty((nslab * slab_rows, nt * _NC_TILE), dtype=torch.float64,
+                     device=dev)
+    # the slabs' partial tiles (with one slab the tiles go out directly)
+    partial = torch.empty((ntiles * nslab if nslab > 1 else 0, _NC_TILE,
+                           _NC_TILE), dtype=torch.float64, device=dev)
+    # without AtA the kernel writes Atb only, and AtA is zero
+    AtA = (torch.empty if with_ata else torch.zeros)(
+        (W, W), dtype=torch.float64, device=dev)
     Atb = torch.empty((W,), dtype=torch.float64, device=dev)
     nrows = torch.empty((), dtype=torch.float64, device=dev)
     _launch("normal_contrib", dev, *[_ptr(t) for t in tensors[:14]],
@@ -712,8 +744,8 @@ def normal_contrib(rows, truths, weights, natoms, types, numtypes,
             0 if not const_cols else (2 if layout == "ace" else 1),
             int(bool(flags["energy"])),
             int(bool(flags["force"])), int(bool(flags["stress"])),
-            int(bool(with_ata)), _ptr(partial), _ptr(AtA), _ptr(Atb),
-            _ptr(nrows))
+            int(bool(with_ata)), _NC_TILE, ntiles, nslab, slab_rows,
+            _ptr(aw), _ptr(partial), _ptr(AtA), _ptr(Atb), _ptr(nrows))
     normal_contrib.launches += 1
     return AtA, Atb, nrows
 

@@ -184,9 +184,13 @@ def _model(params, numtypes, kernel, const_mode):
                              f"kernel=ace_kernel(plan)")
         const = not params.bzeroflag if const_mode is None \
             else bool(const_mode)
+        # a type block is the plan's descriptor row: nb_base columns
+        # (nchem^3 blocks of triples under chemflag), then the quadratic
+        # products, as the JAX function takes it from e_row's width
+        nq = params.iq1.shape[0] if params.quadraticflag else 0
         m = SimpleNamespace(rows=partial(snap_rows, params, numtypes),
                             T=numtypes, const=const, layout="snap",
-                            W=numtypes * params.ntriples)
+                            W=numtypes * (params.nb_base + nq))
     elif isinstance(kernel, partial) and kernel.func is ace_rows:
         if const_mode in (None, False):
             T, const = numtypes, False

@@ -20,7 +20,10 @@ exactly.  K13 and K14 run on 12 atoms x 40 neighbor slots for a
 one-element plan (ranks 1-4, lmax up to 2) and a two-element plan with an
 inner cutoff on the mixed bonds, with masked pairs, pairs past the cutoff
 and an empty atom; K7 also in the ACE layout (two leading constant
-columns), and refuses rows wider than one block's shared memory holds.
+columns), and at the widths its output is tiled over (480 and 1,596, both
+layouts, direct and residual, with a padded and a one-atom config), bit for
+bit from run to run.  K4 with one to three source types at widths 1, 4,
+37 (not a multiple of its x-tile) and 600, bit for bit from run to run.
 quadraticflag and chemflag: K1-K3 with K3 in three W tiles and K6q at
 twojmax 8; the chemflag modes of K1-K3 with two elements at twojmax 4
 (wselfallflag 0 and 1, bnormflag) and, with K6q, quadratic x chemflag at
@@ -191,30 +194,77 @@ def test_flag_kernels_match_plain(cuda, name):
         assert rel_err(out, ref) <= RTOL
 
 
-def test_k7_refuses_rows_wider_than_a_block(cuda):
-    """K7 is not tiled over AᵀA: the InP width (480) is refused loudly."""
-    C, A, T, Wr = 1, 2, 2, 240
-    z = torch.zeros
-    rows = {"e_cols": z((C, T * Wr), dtype=torch.float64, device=cuda),
-            "force_rows": z((C, A, 3, T * Wr), dtype=torch.float64,
-                            device=cuda),
-            "virial_rows": z((C, 6, T * Wr), dtype=torch.float64,
-                             device=cuda),
-            "ref_e": z((C,), dtype=torch.float64, device=cuda),
-            "ref_f": z((C, A, 3), dtype=torch.float64, device=cuda),
-            "ref_v": z((C, 6), dtype=torch.float64, device=cuda)}
-    truths = (rows["ref_e"], rows["ref_f"], rows["ref_v"])
-    weights = (rows["ref_e"],) * 3
-    natoms = torch.full((C,), A, dtype=torch.int32, device=cuda)
-    types = torch.zeros((C, A), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="width 480"):
-        sk.normal_contrib(rows, truths, weights, natoms, types, T, False,
-                          {"energy": 1, "force": 1, "stress": 1})
+# (full width, layout, constant columns, types): the InP chemflag width
+# (480, no constant columns), the quadratic SNAP width (1,596: 1,595 raw and
+# one constant column), and the ACE layout at both widths
+K7_WIDE = {"inp480_snap": (480, "snap", False, 2),
+           "w480_ace": (480, "ace", True, 2),
+           "quad1596_snap": (1596, "snap", True, 1),
+           "w1596_ace": (1596, "ace", True, 3)}
 
 
-def test_k4_matches_plain(cuda):
+def k7_batch(device, W, const_cols, T, seed=5):
+    """Rows of four configs of 5 atom slots: full, padded (natoms 0), one
+    atom, and one padded atom slot; random rows, truths and weights."""
+    rng = np.random.default_rng(seed)
+    C, A = 4, 5
+    Wr = W - (T if const_cols else 0)
+
+    def dev(*shape):
+        return torch.as_tensor(rng.normal(size=shape), device=device)
+
+    rows = {"e_cols": dev(C, Wr), "force_rows": dev(C, A, 3, Wr),
+            "virial_rows": dev(C, 6, Wr), "ref_e": dev(C),
+            "ref_f": dev(C, A, 3), "ref_v": dev(C, 6)}
+    truths = (dev(C), dev(C, A, 3), dev(C, 6))
+    weights = (dev(C).abs(), dev(C).abs(), dev(C).abs())
+    natoms = torch.as_tensor([A, 0, 1, A - 1], dtype=torch.int32,
+                             device=device)
+    types = torch.as_tensor(rng.integers(0, T, (C, A)), dtype=torch.int32,
+                            device=device)
+    return rows, truths, weights, natoms, types, dev(W)
+
+
+@pytest.mark.parametrize("mode", ["direct", "residual"])
+@pytest.mark.parametrize("name", sorted(K7_WIDE))
+def test_k7_wide_rows_match_plain(cuda, name, mode):
+    """K7 at the widths one block cannot hold whole (its output tiled over
+    column blocks), both layouts, direct and residual, with a padded and a
+    one-atom config; two launches give the same bits."""
+    W, layout, const_cols, T = K7_WIDE[name]
+    rows, truths, weights, natoms, types, coeff = k7_batch(
+        cuda, W, const_cols, T)
+    c = coeff if mode == "residual" else None
+    args = (rows, truths, weights, natoms, types, T, const_cols,
+            {"energy": 1, "force": 1, "stress": 1}, c, c is None, layout)
+    sk.reset_launches()
+    out = sk.normal_contrib(*args)
+    again = sk.normal_contrib(*args)
+    ref = sk.normal_contrib_plain(*args)
+    torch.cuda.synchronize()
+    assert sk.launches()["normal_contrib"] == 2
+    assert out[0].shape == (W, W) and out[1].shape == (W,)
+    assert rel_err(out[1:2], ref[1:2]) <= RTOL
+    if c is None:
+        assert rel_err(out[:1], ref[:1]) <= RTOL
+    else:
+        assert not out[0].any()
+    assert out[2].item() == ref[2].item()
+    assert all(torch.equal(x, y) for x, y in zip(out, again))
+
+
+# (feature columns X, types T): the SNAP and ZBL widths with one to three
+# source types, a width that is not a multiple of K4's x-tile, and a wide one
+K4_CASES = {"x4_t2": (4, 2), "x1_t1": (1, 1), "x1_t3": (1, 3),
+            "x37_t3": (37, 3), "x600_t1": (600, 1), "x600_t2": (600, 2)}
+
+
+@pytest.mark.parametrize("name", sorted(K4_CASES))
+def test_k4_matches_plain(cuda, name):
     """Row scatter over real neighbor lists of two small periodic cells
-    (self images repeated in the reverse table), two source types."""
+    (self images repeated in the reverse table), with one to three source
+    types; two launches give the same bits."""
+    X, T = K4_CASES[name]
     rng = np.random.default_rng(3)
     cfgs = []
     for na, edge in ((2, 3.3), (5, 5.0)):
@@ -223,7 +273,7 @@ def test_k4_matches_plain(cuda):
                                                 4.8)
         cfgs.append((disp, jidx, mask, kmax,
                      reverse_neighbors(jidx, mask, na), na))
-    C, A, X, T = 2, 6, 4, 2
+    C, A = 2, 6
     K = max(c[3] for c in cfgs)
     R = max(c[4].shape[1] for c in cfgs)
     disp = np.zeros((C, A, K, 3))
@@ -236,15 +286,19 @@ def test_k4_matches_plain(cuda):
         rev[c, :na, :rv.shape[1]] = np.where(rv < 0, -1,
                                              rv // km * K + rv % km)
         types[c, :na] = rng.integers(0, T, na)
+    # atom 0 of the small cell is its own neighbor through several images
+    assert ((rev[0, 0] >= 0) & (rev[0, 0] // K == 0)).sum() >= 2
     g = rng.normal(size=(C, A, X, K, 3)) * msk[:, :, None, :, None]
     args = [torch.as_tensor(x, device=cuda)
             for x in (g, disp, msk, rev, types)]
     sk.reset_launches()
     out = sk.pair_scatter_rows(*args, T)
+    again = sk.pair_scatter_rows(*args, T)
     ref = sk.pair_scatter_rows_plain(*args, T)
     torch.cuda.synchronize()
-    assert sk.launches()["pair_scatter_rows"] == 1
+    assert sk.launches()["pair_scatter_rows"] == 2
     assert rel_err(out, ref) <= RTOL
+    assert all(torch.equal(x, y) for x, y in zip(out, again))
 
 
 def launched(module):

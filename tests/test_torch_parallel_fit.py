@@ -25,6 +25,9 @@ CPU):
   nrows exact,
   `fit_refined` coefficients within 1e-10, `build_eval_fn` MAE sums at the
   same coefficients within 1e-12 relative;
+- the streamed step under chemflag (six 8-atom InP cells, two elements)
+  and quadraticflag (the six Ta cells), twojmax 4: the system sized as
+  the model's width, AtA and Atb within 1e-12 relative, nrows exact;
 - `TpuSVD` and `TfSVD`: coefficients within 1e-10 on a seeded weighted
   system;
 - a float32 batch (the packers default to float64) is refused by
@@ -449,6 +452,84 @@ def test_eval_fn_matches_jax(stream):
     assert (ne, nf) == (jne, jnf) == (6.0, 3 * (3 * 2 + 3 * 16))
     assert abs(se - jse) <= RTOL * jse
     assert abs(sf - jsf) <= RTOL * jsf
+
+
+def write_inp_configs(root):
+    """Three volume-scaled and three strained 8-atom zincblende InP cells
+    with seeded truths."""
+    rng = np.random.default_rng(23)
+    confs = synthetic.inp_configs(7, {"Volume_ZB": 3, "Strain_ZB": 3})
+    for group, cells in confs.items():
+        (root / group).mkdir()
+        for i, (pos, cell, names) in enumerate(cells):
+            n = len(pos)
+            st = rng.normal(0.0, 2e3, (3, 3))
+            (root / group / f"{group}_{i}.json").write_text(
+                synthetic.config_json(
+                    pos, cell, energy=-3.5 * n + rng.normal(0.0, 0.5),
+                    forces=rng.normal(0.0, 0.3, (n, 3)),
+                    stress=0.5 * (st + st.T), types=names))
+
+
+def flag_settings(name, data):
+    """Explicit multi-element SNAP (the InP example's chemflag model) or
+    quadratic SNAP (the Ta set's), both at twojmax 4."""
+    if name == "chemflag":
+        write_inp_configs(data)
+        s = synthetic.inp_settings(data, groups=["Volume_ZB", "Strain_ZB"])
+        s["BISPECTRUM"]["twojmax"] = "4 4"
+    else:
+        write_stream_configs(data)
+        s = stream_settings(data)
+        s["BISPECTRUM"].update(twojmax=4, quadraticflag=1)
+    return s
+
+
+@pytest.fixture(scope="module", params=["chemflag", "quadratic"])
+def flag_stream(request, tmp_path_factory):
+    """The streamed step of each package on six configs of the model, with
+    device neighbor lists, in two chunks."""
+    root = tmp_path_factory.mktemp(request.param)
+    data = root / "JSON"
+    data.mkdir()
+    s = flag_settings(request.param, data)
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        fs = FitSnap(s, arglist=["--overwrite"], device="cpu")
+        jfs = JaxFitSnap(s, arglist=["--overwrite"])
+        fs.scrape_configs()
+        jfs.scrape_configs()
+    finally:
+        os.chdir(cwd)
+    calc, jcalc = fs.calculator, jfs.calculator
+    packed = [calc._pack(d) for d in fs.data]
+    g = fit.plan_pos_buckets(packed, calc.cutoff, max_programs=1)[0]
+    batch = fit.pack_batch_pos(g["configs"], g["a_pad"], 6, g["s_table"],
+                               np.float64, chunks=2)
+    nb = {"cutoff": calc.cutoff, "k_pad": g["k_pad"]}
+    T = calc.numtypes
+    step = fit.build_step_fn(calc.params, T, FLAGS, device="cpu",
+                             refspec=calc.refspec, neighbors=nb)
+    jstep = jfit.build_step_fn(jcalc.params, T, FLAGS, jfit.make_mesh(1),
+                               refspec=jcalc.refspec, neighbors=nb)
+    return {"width": calc.get_width(), "natoms": [pc.natoms for pc in packed],
+            "step": step(batch), "jstep": jstep(batch)}
+
+
+def test_step_fn_flags_match_jax(flag_stream):
+    """build_step_fn under chemflag (two elements, 2 x 112 columns) and
+    quadraticflag (14 + 105 columns and one constant) sizes its system as
+    the model's width and equals the JAX streamed step."""
+    AtA, Atb, nrows = flag_stream["step"]
+    jAtA, jAtb, jn = flag_stream["jstep"]
+    W = flag_stream["width"]
+    assert W in (224, 120)
+    assert AtA.shape == (W * W,) and Atb.shape == (W,)
+    assert rel(AtA, jAtA) <= RTOL
+    assert rel(Atb, jAtb) <= RTOL
+    assert nrows == float(np.asarray(jn)) \
+        == sum(1 + 3 * n + 6 for n in flag_stream["natoms"])
 
 
 @pytest.mark.parametrize("mode", ["reference", "residual"])
