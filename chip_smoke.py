@@ -19,9 +19,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    and K8r on that chunk's positions batch), failing above 1e-11
    relative error (K8's mask and jidx and K8r's table must be equal); kernel,
    plain and library-call times with CUDA events, the kernel's device time
-   (and K4's and K7's library call's) from a torch.profiler trace (events
-   between launches also count the host's launch overhead, which exceeds
-   the small kernels' run time), and
+   (and K3's, K4's, K7's and K14's library call's) from a torch.profiler
+   trace (events between launches also count the host's launch overhead,
+   which exceeds the small kernels' run time), and
    the least time the card could take (bytes over 3.35 TB/s, float64
    operations over 67 T/s, the larger; K8r's by its bytes alone);
 4. FitSnap path: launch counts set to 0, then FitSnap(device="cuda") ->
@@ -68,13 +68,14 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    480 columns), truths from the plain path;
 10. quadratic and chemflag kernels, measured as in phase 3: at the quadratic
    model on the first Compressed_BCC config (the main path's chunk there:
-   1 x 128 atoms x 64 slots) K1 and K2 at twojmax 8, K3 in its three W
+   1 x 128 atoms x 64 slots) K1 and K2 at twojmax 8, K3 in its W
    tiles, K6q (quad_chain) and K4 at width 1,595; at the InP model on the
    main path's first Displaced_ZB64 chunk the chemflag modes of K1, K2 and
-   K3 (utot in two element channels, four channel-pair z-lists, seven W
-   tiles of the channel-resolved y-list) and K4 at width 240; at both, K7
-   on that chunk's rows with seeded truths and weights (width 1,596 with
-   one constant column; 480 without), direct and residual;
+   K3 (utot in two element channels, four channel-pair z-lists, W tiles
+   of the channel-resolved y-list, one pass per channel) and K4 at width
+   240; at both, K7 on that chunk's rows with seeded truths and weights
+   (width 1,596 with one constant column; 480 without), direct and
+   residual;
 11. quadratic and chemflag FitSnap paths, as phase 4 (launch counts set to
    0 just before, read just after): K1-K3, K6q, K4, K5 must launch on the
    first, the chemflag K1-K3 with K4 and K5 on the second; A equal to the
@@ -512,6 +513,27 @@ def snap_chunk(calc, data, group, configs=None):
     return packed, args, k1_in, smask
 
 
+def k3_operations(p, k1_in):
+    """K3's FP64 operations on these inputs, from y's nonzero entries (the
+    plan's nonzero y_fac): per atom and row, 4 a nonzero layer-0 factor (B)
+    and 4 a nonzero factor of any layer (the y build); per live pair and
+    row, 12 a u with a nonzero factor in a layer of the pair's channel (re
+    and im, three directions, a multiply-add each).  One channel: every
+    live pair is in channel 0."""
+    N = k1_in[2].shape[0]
+    nc = p.nchem
+    nz = p.y_fac.cpu().numpy() != 0                       # (3, ntrip, U)
+    chan = p.blk_chan.cpu().numpy()                       # (nc^3, 3)
+    mask = k1_in[2].cpu().numpy()
+    jel = k1_in[1].cpu().numpy() if nc > 1 else np.zeros_like(mask, int)
+    flops = N * nc ** 3 * 4 * (int(nz[0].sum()) + int(nz.sum()))
+    for ch in range(nc):
+        targets = sum(int((nz & (chan[b] == ch)[:, None, None]).any(0).sum())
+                      for b in range(nc ** 3))
+        flops += int((mask & (jel == ch)).sum()) * targets * 12
+    return flops
+
+
 def descriptor_checks(rows, p, k1_in, shape=None):
     """K1, K2 and K3 (their chemflag modes when the plan has element
     channels) and K6q (quadraticflag) against their plain versions on one
@@ -593,10 +615,11 @@ def descriptor_checks(rows, p, k1_in, shape=None):
         # (N, W, 2U, K) is the einsum's intermediate when it contracts
         # left to right
         inter = N * W * 2 * U * K * 8
-        library = (timed(lambda: torch.einsum("awnu,akn,caku->awkc", dbdu,
-                                              oh, J), 3)
-                   if inter < torch.cuda.mem_get_info()[0] // 2 else None)
-        if library is None:
+        library = None
+        if inter < torch.cuda.mem_get_info()[0] // 2:
+            def library():
+                return torch.einsum("awnu,akn,caku->awkc", dbdu, oh, J)
+        else:
             print(f"dbdd_chem library call not timed: its {inter / 1e9:.1f}"
                   f" GB intermediate exceeds half the free memory",
                   flush=True)
@@ -608,15 +631,19 @@ def descriptor_checks(rows, p, k1_in, shape=None):
             return sk.dbdd_plain(ut, z_r, z_i, J, p)
 
         dbdu = ops._dbdu_ylist(ut, p, (z_r, z_i))
-        library = timed(lambda: torch.einsum("awu,caku->awkc", dbdu, J), 10)
+
+        def library():
+            return torch.einsum("awu,caku->awkc", dbdu, J)
     out, ref = k3(), k3_plain()
-    k3_flops = N * W * U * 16 + npairs * W * 3 * 2 * U * 2
+    pad = ~k1_in[2]
+    if not (out[1].permute(0, 2, 1, 3)[pad] == 0).all():
+        raise AssertionError(f"{name('dbdd')}: padding slots not exactly 0")
+    k3_flops = k3_operations(p, k1_in)
     k3_bytes = (N * nc * 2 * U + 2 * N * nc * nc * p.nz + 3 * N * K * 2 * U
                 + N * W + N * W * K * 3) * 8 + (N * K * 4 if chem else 0)
-    ntiles = sk.dbdd_tiles(p)[1]
     record(rows, name("dbdd") + at, out, ref, (k3, 10), timed(k3_plain, 3),
-           k3_bytes, k3_flops, library, wrapper=name("dbdd"),
-           shape=f"{shape}, {ntiles} W tiles" if shape else None)
+           k3_bytes, k3_flops, None, wrapper=name("dbdd"), shape=shape,
+           library=library)
     B, G = ref
     del out, dbdu, J
     torch.cuda.empty_cache()
@@ -906,7 +933,8 @@ def ace_pair_checks(rows, plan, disp, jelem, smask, types, shape):
     mu0 = np.asarray(plan.t_mu0)
     n_terms = np.diff(tabs.lab_t)
     n_entries = np.diff(tabs.lab_e)
-    n_contrib = tabs.e_c[tabs.lab_e[1:]] - tabs.e_c[tabs.lab_e[:-1]]
+    fact = np.asarray(plan.t_fact)
+    n_contrib = np.add.reduceat((fact != 0).sum(1), tabs.lab_t[:-1])
     flops = 0
     per_atom_pairs = smask.reshape(N, K).sum(1).cpu().numpy()
     elems = ielem.cpu().numpy()
@@ -919,15 +947,17 @@ def ace_pair_checks(rows, plan, disp, jelem, smask, types, shape):
                                                           + 4))
         flops += pairs * int(n_entries[live].sum()) * 3 * 4
     _, dbda = ops.ace_b_and_dbda(A_[:, :nA], A_[:, nA:], plan)
-    table_bytes = (len(plan.t_coef) * (R * 4 + 8) + nl * 4 * 3
-                   + tabs.nE * 8 + tabs.nC * 4 + (plan.numtypes + 1) * 4)
+    table_bytes = (len(plan.t_coef) * (R * 4 + 8) + (nl + 1) * 4 * 2
+                   + tabs.nE * 4 + (plan.numtypes + 1) * 4)
+    if not (out[1].permute(0, 2, 1, 3)[~smask.reshape(N, K)] == 0).all():
+        raise AssertionError("ace_b_dbdd: padding slots not exactly 0")
     record(rows, "ace_b_dbdd" + suffix, out, ref,
            (lambda: ak.ace_b_dbdd(A_, Jp, ielem, plan), 10),
            timed(lambda: ak.ace_b_dbdd_plain(A_, Jp, ielem, plan), 3),
            N * 2 * nA * 8 + 3 * N * K * 2 * nA * 8 + N * 4 + N * nl * 8
-           + N * nl * K * 3 * 8 + table_bytes, flops,
-           timed(lambda: torch.einsum("alp,cakp->alkc", dbda, Jp), 10),
-           wrapper="ace_b_dbdd", shape=shape)
+           + N * nl * K * 3 * 8 + table_bytes, flops, None,
+           wrapper="ace_b_dbdd", shape=shape,
+           library=lambda: torch.einsum("alp,cakp->alkc", dbda, Jp))
     del out, ref, dbda
 
 
@@ -992,11 +1022,10 @@ def flag_kernel_checks(calc, data, kind, seed):
     _, args, k1_in, smask = snap_chunk(calc, data, group)
     C, A, K = smask.shape
     p = calc.params
-    wt, ntiles = sk.dbdd_tiles(p)
     print(f"{shape} kernel inputs: C={C} A={A} K={K} pairs="
           f"{int(smask.sum().item())} twojmax={p.twojmax} channels="
           f"{p.nchem} base width={p.nb_base} width={calc.desc_width()} "
-          f"K3 tiles={ntiles} x {wt} rows float64", flush=True)
+          f"float64", flush=True)
     rows = []
     B, G = descriptor_checks(rows, p, k1_in, shape)
     scatter_check(rows, args, smask, G, calc.numtypes, shape)

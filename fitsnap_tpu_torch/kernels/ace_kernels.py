@@ -3,7 +3,7 @@ PyTorch versions beside them.
 
 | kernel | source | replaces (fitsnap_tpu) |
 | K13 ace_pair_basis | csrc/ace_pair_basis.cu | ops/ace.py ace_pair_phi (with chebexpcos_basis, sph_harm), ace_a_basis, the jvp of ace_descriptors_with_jacobian |
-| K14 ace_b_dbdd | csrc/ace_b_dbdd.cu | ops/ace.py ace_b_and_dbda, the einsum and live mask of ace_descriptors_with_jacobian |
+| K14 ace_b_dbdd | csrc/ace_b_dbdd.cu (+ atom_gemm.cuh) | ops/ace.py ace_b_and_dbda, the einsum and live mask of ace_descriptors_with_jacobian |
 
 As in `kernels/snap_kernels.py`, each wrapper takes its plain version for
 tensors on the CPU, launches its kernel for tensors on a CUDA device, and
@@ -23,25 +23,25 @@ from fitsnap_tpu_torch.ops import ace as ops
 
 _LMAX = 6        # largest l of csrc/ace_pair_basis.cu
 _K13_TILE = 16   # neighbors per tile of csrc/ace_pair_basis.cu
-_K14_TILE = 8    # neighbors per Jp tile of csrc/ace_b_dbdd.cu
 
 kl.register("ace_pair_basis", "ace_pair_basis",
             [kl.P] * 8 + [kl.I, kl.I, kl.P, kl.I, kl.I, kl.I, kl.LL, kl.I]
             + [kl.P] * 3)
 kl.register("ace_b_dbdd", "ace_b_dbdd",
-            [kl.P] * 12 + [kl.I] * 5 + [kl.LL, kl.I] + [kl.P] * 3)
+            [kl.P] * 12 + [kl.I] * 4 + [kl.LL] + [kl.I] * 4 + [kl.P] * 3)
 
 
 def kernel_tables(plan):
     """Host-built tables of the two kernels (numpy, kept on the plan).
 
     slot (nA, 4): `ops.ace.slot_table`; lab_t (nl + 1): the terms of label
-    l, whose rows of t_fact are sorted by label; the compact dB/dA: lab_e
-    (nl + 1) the entries of label l, e_slot the A-slot of each entry (the
-    distinct slots of the label's terms in increasing order, slot 0 left
-    out), e_c (nE + 1) the contributions of each entry, c_tr = term * R +
-    factor in increasing order; el_e (numtypes + 1) the entries of the
-    labels of central element e (labels are sorted by element).
+    l, whose rows of t_fact are sorted by label; the nonzero entries of
+    dB/dA: lab_e (nl + 1) the entries of label l, e_slot the A-slot of each
+    entry (the distinct slots of the label's terms in increasing order,
+    slot 0, the padding factor's, where Jp is zero, left out), e_lab its
+    label, e_c (nE + 1) its contributions, c_tr = term * R + factor in
+    increasing order; el_l (numtypes + 1) the labels of central element e
+    (labels are sorted by element).
     """
     tabs = plan.tables.get("kernel_tables")
     if tabs is not None:
@@ -57,7 +57,7 @@ def kernel_tables(plan):
         raise ValueError("ACE plan: labels are not sorted by element")
     el_l = np.searchsorted(mu0, np.arange(plan.numtypes + 1))
     fact = np.asarray(plan.t_fact, np.int64)
-    lab_e, e_slot, e_c, c_tr = [0], [], [0], []
+    lab_e, e_slot, e_lab, e_c, c_tr = [0], [], [], [0], []
     for li in range(nl):
         by_slot = {}
         for t in range(lab_t[li], lab_t[li + 1]):
@@ -66,16 +66,44 @@ def kernel_tables(plan):
                     by_slot.setdefault(int(fact[t, r]), []).append(t * R + r)
         for s in sorted(by_slot):
             e_slot.append(s)
+            e_lab.append(li)
             c_tr += by_slot[s]
             e_c.append(len(c_tr))
         lab_e.append(len(e_slot))
-    lab_e = np.asarray(lab_e, np.int32)
+
+    def i32(x):
+        return np.asarray(x, np.int32)
+
     tabs = SimpleNamespace(
-        slot=slot, lab_t=lab_t, lab_e=lab_e, el_e=lab_e[el_l],
-        e_slot=np.asarray(e_slot, np.int32), e_c=np.asarray(e_c, np.int32),
-        c_tr=np.asarray(c_tr, np.int32), nE=len(e_slot), nC=len(c_tr))
+        slot=slot, lab_t=lab_t, lab_e=i32(lab_e), e_slot=i32(e_slot),
+        e_lab=i32(e_lab), e_c=i32(e_c), c_tr=i32(c_tr), el_l=i32(el_l),
+        nE=len(e_slot), nC=len(c_tr))
     plan.tables["kernel_tables"] = tabs
     return tabs
+
+
+def ace_b_dbdd_tiles(plan):
+    """(labels per block, blocks per atom, scratch terms) of
+    csrc/ace_b_dbdd.cu: the dense dB/dA rows of the element with the most
+    labels (2 nA + pad doubles each) beside A and a scratch for the terms
+    of a segment of labels (cofactors, values, factor slots, entries and
+    contributions), two blocks an SM where they fit; the scratch holds the
+    most terms of a label and the product's epilogue stage at least, and
+    fills the rest of that budget."""
+    tabs = kernel_tables(plan)
+    R = plan.rank_max
+    per_term = 8 * (2 * R + 1) + 4 * 5 * R
+    row_bytes = 8 * kl.ag_ldl(2 * plan.nA)
+    fixed = 16 * plan.nA + 4 * 36
+    seg = max(int(np.diff(tabs.lab_t).max()),
+              -(-kl.AG_STAGE_BYTES // (8 * (2 * R + 1))))
+    mt, tiles = kl.row_plan(int(np.diff(tabs.el_l).max()), row_bytes,
+                            fixed + seg * per_term, "ace_b_dbdd")
+    limit = (kl.SMEM_PAIR if mt * row_bytes + fixed + seg * per_term
+             <= kl.SMEM_PAIR else kl.SMEM_LIMIT)
+    seg = max(seg, min(len(plan.t_coef),
+                       (limit - mt * row_bytes - fixed) // per_term))
+    return mt, tiles, seg
 
 
 def _device_tables(plan, device):
@@ -90,11 +118,10 @@ def _device_tables(plan, device):
 
         tabs = SimpleNamespace(
             slot=i32(h.slot), lab_t=i32(h.lab_t), lab_e=i32(h.lab_e),
-            e_slot=i32(h.e_slot), e_c=i32(h.e_c), c_tr=i32(h.c_tr),
-            el_e=i32(h.el_e), fact=i32(plan.t_fact), mu0=i32(plan.t_mu0),
+            e_slot=i32(h.e_slot), e_lab=i32(h.e_lab), e_c=i32(h.e_c),
+            c_tr=i32(h.c_tr), el_l=i32(h.el_l), fact=i32(plan.t_fact),
             coef=torch.as_tensor(np.asarray(plan.t_coef, np.float64),
-                                 device=device),
-            nE=h.nE)
+                                 device=device))
         plan.tables[key] = tabs
     return tabs
 
@@ -188,18 +215,15 @@ def ace_b_dbdd(A, Jp, ielem, plan):
     kl.check(ielem, "ielem", torch.int32, (N,))
     dev = A.device
     tabs = _device_tables(plan, dev)
-    smem = 8 * (2 * nA + 2 * tabs.nE + 3 * _K14_TILE * 2 * nA)
-    if smem > kl.SMEM_LIMIT:
-        raise ValueError(f"ace_b_dbdd: {smem} bytes of shared memory per "
-                         f"block")
+    mt, ntiles, seg = ace_b_dbdd_tiles(plan)
     B = torch.empty((N, nl), dtype=torch.float64, device=dev)
     dBdD = torch.empty((N, nl, K, 3), dtype=torch.float64, device=dev)
     kl.launch("ace_b_dbdd", dev, kl.ptr(A), kl.ptr(Jp), kl.ptr(ielem),
-              kl.ptr(tabs.mu0), kl.ptr(tabs.fact), kl.ptr(tabs.coef),
-              kl.ptr(tabs.lab_t), kl.ptr(tabs.lab_e),
-              kl.ptr(tabs.e_slot), kl.ptr(tabs.e_c), kl.ptr(tabs.c_tr),
-              kl.ptr(tabs.el_e), plan.numtypes, plan.rank_max, nl, nA,
-               tabs.nE, N, K, kl.ptr(B), kl.ptr(dBdD))
+              kl.ptr(tabs.fact), kl.ptr(tabs.coef), kl.ptr(tabs.lab_t),
+              kl.ptr(tabs.lab_e), kl.ptr(tabs.e_slot), kl.ptr(tabs.e_lab),
+              kl.ptr(tabs.e_c), kl.ptr(tabs.c_tr), kl.ptr(tabs.el_l),
+              plan.numtypes, plan.rank_max, nl, nA, N, K, mt, ntiles,
+              seg, kl.ptr(B), kl.ptr(dBdD))
     ace_b_dbdd.launches += 1
     return B, dBdD
 

@@ -3,7 +3,7 @@
 //   dBdD[a, w, k, c] = sum_u y[a, w, ch(a, k), u] * J[c, a, k, u],
 // where ch(a, k) is the utot channel of neighbor k: 0 with one channel, the
 // neighbor's element in the chemflag mode (nc > 1 channels, y resolved by
-// channel).
+// channel; a neighbor whose element is no channel gets zeros).
 //
 // Replaces fitsnap_tpu/ops/snap.py `_dbdu_ylist` and the contractions of
 // `descriptors_with_jacobian` (the Bbase einsums and
@@ -11,154 +11,241 @@
 // `_chem_b_and_dbdu` (ops/snap.py:992-1058) and the contraction
 // einsum("awnu,akn,caku->awkc") at :981-982.
 //
-// Bound on the H100: bytes.  The kernel must read J (3 x K x 2U doubles per
-// atom, 430 KB at K = 64, twojmax 6) once; its FP64 work is 2 flops per J
-// element per descriptor column (60 per J double at W = 30), which the
-// card's FP64 rate covers faster than HBM delivers J.
+// Bound on the H100: bytes, in all three modes.  The kernel must read J
+// (3 x K x 2U doubles per atom, 430 KB at K = 64, twojmax 6) once and
+// write dB/dD; its FP64 work, counted over y's nonzero entries (a row holds
+// only the u levels of its triple's three layers and, in the chemflag mode,
+// only the layers of the neighbor's channel), is 20 flops per J double at
+// twojmax 6, 31 at twojmax 8 and 96 with InP's two channels (dense: 60,
+// 110, 480), under the 160 a double that the FP64 tensor cores (67 T/s) do
+// in the time HBM (3.35 TB/s) delivers one.
 //
-// Design: one block per (atom, W-tile).  A column w of block (e1, e2, e3)
-// (w = block * ntriples + t; one block (0, 0, 0) with one channel) gathers
-// its y rows from z with y_src / y_fac, layer l reading z channel pair
-// blk_pair[block][l] into channel blk_chan[block][l].  The tile's y rows
-// (WT x nc x 2U doubles) sit in shared memory beside a J tile of KT
-// neighbors (3 x KT rows of 2U doubles), so a y-list larger than a block's
-// 227 KB (360 KB at twojmax 8) is split over tiles of W: 3 tiles of 19 rows
-// at twojmax 8, 7 of 35 rows with the two channels of InP at twojmax 6.
-// The 24 threads that share a y row read the tile's 24 J rows, stored in
-// their order (neighbor, direction) and padded to 2U + 1 doubles: with
-// 2U = 280 an unpadded stride put the 16 rows a half-warp reads on 2 of the
-// 16 double-wide bank groups (an 8-way conflict); 16 consecutive rows of an
-// odd stride fall on 16 different ones.  Every tile of an
-// atom streams the atom's J with coalesced loads; the tiles of one atom have
-// neighbouring block indices, so they run together and the later tiles' J
-// reads hit in L2 (an atom's J is 876 KB at twojmax 8, K = 64).  Each thread
-// computes whole dot products in a fixed order: deterministic.
-#include "common.cuh"
+// Design: the per-atom product of atom_gemm.cuh, L = the atom's y rows.
+// One block per (atom, tile of W), W split evenly over the tiles of at most
+// MT (16 or 32) rows, planned by the wrapper (`dbdd_tiles`) so that two
+// blocks share an SM where one channel's y rows (MT x 2U doubles) and the
+// product's epilogue stage fit half its shared memory: one tile of 30 rows at twojmax 6, four of 14 at
+// twojmax 8, eight of 30 with InP's two channels; the tiles of an atom have
+// neighbouring block indices, so their J reads after the first hit L2.
+//   1. y rows and the zero-block flags are cleared; warp 0 lists the
+//      neighbors of channel ch by ballot, in slot order (one channel: all
+//      of them), and those of no channel;
+//   2. a warp per row forms B (first pass only: the fac-0 layer of the
+//      row's channel against utot, lanes over u, a fixed butterfly), then
+//      writes the row's nonzero y entries for channel ch from the host's
+//      compact target list (the (triple, u) with a nonzero y_fac, each with
+//      its three layers' sources and factors, summed in layer order as the
+//      plain version does) and flags the (row tile, k-step) blocks it
+//      touches;
+//   3. the product runs over the columns (neighbor, direction) of channel
+//      ch's neighbors only, so a neighbor meets its own channel's y rows
+//      alone, skipping zero blocks; 1-3 repeat per channel;
+//   4. the neighbors of no channel get zeros.
+// Padding slots carry J = 0 and come out exactly 0.  No atomics: the
+// output repeats bit for bit.
+#include "atom_gemm.cuh"
 
 namespace {
 
-constexpr int KT = 8;  // neighbors per J tile
+struct Args {
+  const double* ut;          // (N, nc 2U)
+  const double* zr;          // (N, nc^2, nz)
+  const double* zi;
+  const double* J;           // (3, N, K, 2U)
+  const int* jelem;          // (N, K), read when nc > 1
+  const int* tg_ptr;         // (ntrip + 1,) targets of triple t
+  const int* tg_u;           // (nT,) u of each target
+  const int* tg_src;         // (nT, 3) z index of each layer
+  const double* tg_fac;      // (nT, 3) factor of each layer (0: none)
+  const int* y_src;          // (3, ntrip, U): layer 0 forms B
+  const double* y_fac;
+  const int* blk_chan;       // (nc^3, 3) channel of each layer
+  const int* blk_pair;       // (nc^3, 3) z channel pair it reads
+  const double* bzero;       // (W,)
+  int W, ntrip, U, nz, nc, K, MT, ntiles;
+  long long N;
+};
 
-__global__ void dbdd_kernel(const double* __restrict__ ut,
-                            const double* __restrict__ zr,
-                            const double* __restrict__ zi,
-                            const double* __restrict__ J,
-                            const int* __restrict__ jelem,
-                            const int* __restrict__ y_src,
-                            const double* __restrict__ y_fac,
-                            const int* __restrict__ blk_chan,
-                            const int* __restrict__ blk_pair,
-                            const double* __restrict__ bzero, int W,
-                            int ntrip, int U, int nz, int nc, int K, int WT,
-                            int ntiles, double* __restrict__ B,
-                            double* __restrict__ dBdD) {
-  extern __shared__ double smem[];
-  const int two_u = 2 * U;
-  const long long a = blockIdx.x / ntiles;
-  const int w0 = (blockIdx.x % ntiles) * WT;
-  const int wt = min(WT, W - w0);
-  const long long natoms = gridDim.x / ntiles;
-  const int jrow = two_u + 1;              // padded J tile row
-  double* y = smem;                        // [wt][nc][2U]
-  double* jt = smem + WT * nc * two_u;     // [KT][3][2U + 1]
+template <int IW>
+__global__ void __launch_bounds__(AG_THREADS, 2)
+    dbdd_kernel(Args p, double* __restrict__ B, double* __restrict__ dBdD) {
+  extern __shared__ __align__(16) double smem[];
+  const int two_u = 2 * p.U;
+  const int ldl = ag_ldl(two_u);
+  const int nks = ldl / 8;                   // k-steps of a y row
+  double* y = smem;                          // [MT][ldl]
+  double* stage = y + p.MT * ldl;            // [AG_STAGE]
+  int* slot = reinterpret_cast<int*>(stage + AG_STAGE);  // [K]
+  int* none = slot + p.K;                    // [K] neighbors of no channel
+  int* count = none + p.K;                   // [2]
+  unsigned char* nzf = reinterpret_cast<unsigned char*>(count + 2);
   const int tid = threadIdx.x;
-  const long long zrow = static_cast<long long>(nc) * nc * nz;
-  const double* za_r = zr + a * zrow;
-  const double* za_i = zi + a * zrow;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long a = blockIdx.x / p.ntiles;
+  const int per = (p.W + p.ntiles - 1) / p.ntiles;   // <= MT
+  const int w0 = (blockIdx.x % p.ntiles) * per;
+  const int rows = min(per, p.W - w0);
+  const long long zrow = static_cast<long long>(p.nc) * p.nc * p.nz;
+  const double* za_r = p.zr + a * zrow;
+  const double* za_i = p.zi + a * zrow;
+  const int* jel = p.nc > 1 ? p.jelem + a * p.K : nullptr;
 
-  for (int idx = tid; idx < wt * nc * U; idx += blockDim.x) {
-    const int wl = idx / (nc * U);
-    const int ch = (idx / U) % nc;
-    const int u = idx % U;
-    const int w = w0 + wl;
-    const int blk = w / ntrip;
-    const int t = w % ntrip;
-    double yr = 0.0, yi = 0.0;
-    for (int layer = 0; layer < 3; ++layer) {
-      if (blk_chan[blk * 3 + layer] != ch) continue;
-      const int q = (layer * ntrip + t) * U + u;
-      const double f = y_fac[q];
-      const long long src =
-          static_cast<long long>(blk_pair[blk * 3 + layer]) * nz + y_src[q];
-      yr += f * za_r[src];
-      yi += f * za_i[src];
-    }
-    double* yw = y + (wl * nc + ch) * two_u;
-    yw[u] = yr;
-    yw[U + u] = yi;
-  }
+  for (int idx = tid; idx < p.MT * ldl / 2; idx += AG_THREADS)
+    reinterpret_cast<double2*>(y)[idx] = make_double2(0.0, 0.0);
 
-  // B_w = Re[conj(utot of channel blk_chan[block][0]) . z] over the fac-0
-  // layer, minus bzero
-  for (int wl = tid; wl < wt; wl += blockDim.x) {
-    const int w = w0 + wl;
-    const int blk = w / ntrip;
-    const int t = w % ntrip;
-    const double* ua = ut + (a * nc + blk_chan[blk * 3]) * two_u;
-    const long long zoff = static_cast<long long>(blk_pair[blk * 3]) * nz;
-    double br = 0.0, bi = 0.0;
-    for (int u = 0; u < U; ++u) {
-      const double f = y_fac[t * U + u];
-      const long long src = zoff + y_src[t * U + u];
-      br += ua[u] * (f * za_r[src]);
-      bi += ua[U + u] * (f * za_i[src]);
-    }
-    B[a * W + w] = (br + bi) - bzero[w];
-  }
-  __syncthreads();
-
-  const long long jstride = natoms * K * two_u;  // one row c of J
-  for (int k0 = 0; k0 < K; k0 += KT) {
-    for (int idx = tid; idx < 3 * KT * two_u; idx += blockDim.x) {
-      const int row = idx / two_u;             // kk * 3 + c
-      const int u = idx % two_u;
-      const int k = k0 + row / 3;
-      jt[row * jrow + u] =
-          k < K ? J[(row % 3) * jstride + (a * K + k) * two_u + u] : 0.0;
-    }
-    __syncthreads();
-    for (int idx = tid; idx < wt * KT * 3; idx += blockDim.x) {
-      const int wl = idx / (KT * 3);
-      const int kk = (idx / 3) % KT;
-      const int c = idx % 3;
-      const int k = k0 + kk;
-      if (k < K) {
-        const int ch = nc > 1 ? jelem[a * K + k] : 0;
-        const double* yw = y + (wl * nc + ch) * two_u;
-        const double* jr = jt + (kk * 3 + c) * jrow;
-        double s = 0.0;
-        for (int u = 0; u < two_u; ++u) s += yw[u] * jr[u];
-        dBdD[((a * W + w0 + wl) * K + k) * 3 + c] = s;
+  AtomGemm g{y, ldl, rows, nzf, p.J + a * p.K * two_u, p.N * p.K * two_u,
+             two_u, slot, 0, dBdD + (a * p.W + w0) * p.K * 3, 3LL * p.K,
+             stage};
+  for (int ch = 0; ch < p.nc; ++ch) {
+    // 1.
+    for (int idx = tid; idx < IW * nks; idx += AG_THREADS) nzf[idx] = 0;
+    if (warp == 0) {
+      int n = 0, nn = 0;
+      for (int k0 = 0; k0 < p.K; k0 += 32) {
+        const int k = k0 + lane;
+        const int e = k < p.K ? (p.nc > 1 ? jel[k] : 0) : -1;
+        const unsigned below = (1u << lane) - 1u;
+        const unsigned in = __ballot_sync(0xffffffffu, e == ch);
+        if (e == ch) slot[n + __popc(in & below)] = k;
+        n += __popc(in);
+        if (ch == 0) {
+          const bool out = k < p.K && (e < 0 || e >= p.nc);
+          const unsigned bad = __ballot_sync(0xffffffffu, out);
+          if (out) none[nn + __popc(bad & below)] = k;
+          nn += __popc(bad);
+        }
+      }
+      if (lane == 0) {
+        count[0] = n;
+        if (ch == 0) count[1] = nn;
       }
     }
     __syncthreads();
+    g.ncols = 3 * count[0];
+
+    // 2.
+    for (int r = warp; r < rows; r += AG_THREADS / 32) {
+      const int w = w0 + r;
+      const int blk = w / p.ntrip;
+      const int t = w % p.ntrip;
+      if (ch == 0) {
+        const double* ua = p.ut + (a * p.nc + p.blk_chan[blk * 3]) * two_u;
+        const long long zoff =
+            static_cast<long long>(p.blk_pair[blk * 3]) * p.nz;
+        // four u a lane at a time: their loads are in flight together
+        double s = 0.0;
+        for (int u0 = lane; u0 < p.U; u0 += 128) {
+          double f[4];
+          long long src[4];
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int u = min(u0 + 32 * k, p.U - 1);
+            f[k] = u0 + 32 * k < p.U ? p.y_fac[t * p.U + u] : 0.0;
+            src[k] = zoff + p.y_src[t * p.U + u];
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int u = min(u0 + 32 * k, p.U - 1);
+            s += ua[u] * (f[k] * za_r[src[k]]) +
+                 ua[p.U + u] * (f[k] * za_i[src[k]]);
+          }
+        }
+        for (int off = 16; off > 0; off >>= 1)
+          s += __shfl_xor_sync(0xffffffffu, s, off);
+        if (lane == 0) B[a * p.W + w] = s - p.bzero[w];
+      }
+      if (g.ncols == 0) continue;
+      int chan[3];
+      long long pair[3];
+#pragma unroll
+      for (int l = 0; l < 3; ++l) {
+        chan[l] = p.blk_chan[blk * 3 + l];
+        pair[l] = static_cast<long long>(p.blk_pair[blk * 3 + l]) * p.nz;
+      }
+      double* yw = y + r * ldl;
+      const int q1 = p.tg_ptr[t + 1];
+      // two targets a lane at a time: their loads are in flight together
+      for (int q0 = p.tg_ptr[t] + lane; q0 < q1; q0 += 64) {
+        double yr[2] = {0.0, 0.0}, yi[2] = {0.0, 0.0};
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int q = min(q0 + 32 * k, q1 - 1);
+#pragma unroll
+          for (int l = 0; l < 3; ++l) {
+            if (chan[l] != ch) continue;
+            const double f = p.tg_fac[q * 3 + l];
+            const long long src = pair[l] + p.tg_src[q * 3 + l];
+            yr[k] += f * za_r[src];
+            yi[k] += f * za_i[src];
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          if (q0 + 32 * k >= q1) break;
+          const int u = p.tg_u[q0 + 32 * k];
+          yw[u] = yr[k];
+          yw[p.U + u] = yi[k];
+          if (yr[k] != 0.0) nzf[r / 16 * nks + u / 8] = 1;
+          if (yi[k] != 0.0) nzf[r / 16 * nks + (p.U + u) / 8] = 1;
+        }
+      }
+    }
+
+    // 3.
+    if (g.ncols > 0)
+      ag_run<IW>(g);
+    else
+      __syncthreads();     // count is rewritten by the next pass
   }
+
+  // 4.
+  const int nbad = count[1];
+  for (int idx = tid; idx < rows * nbad * 3; idx += AG_THREADS) {
+    const int r = idx / (nbad * 3);
+    const int k = none[(idx / 3) % nbad];
+    dBdD[((a * p.W + w0 + r) * p.K + k) * 3 + idx % 3] = 0.0;
+  }
+}
+
+template <int IW>
+int launch(const Args& p, size_t smem, double* B, double* dBdD,
+           cudaStream_t stream) {
+  const int err = fs_allow_smem(dbdd_kernel<IW>, smem);
+  if (err) return err;
+  if (p.N > 0)
+    dbdd_kernel<IW><<<static_cast<unsigned>(p.N * p.ntiles), AG_THREADS,
+                      smem, stream>>>(p, B, dBdD);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // ut (N, nc * 2U), zr, zi (N, nc * nc, nz), J (3, N, K, 2U) f64; jelem
-// (N, K) i32, read only when nc > 1; y plan y_src (3, ntrip, U) i32 and
-// y_fac (3, ntrip, U) f64; blk_chan, blk_pair (nc^3, 3) i32; bzero (W,) f64
-// (zeros when bzeroflag is 0), W = nc^3 * ntrip.  WT rows of W per block.
-// Writes B (N, W) and dBdD (N, W, K, 3).
+// (N, K) i32, read only when nc > 1; compact y targets tg_ptr (ntrip + 1),
+// tg_u (nT,), tg_src (nT, 3) i32, tg_fac (nT, 3) f64; y_src (3, ntrip, U)
+// i32 and y_fac (3, ntrip, U) f64 (layer 0 forms B); blk_chan, blk_pair
+// (nc^3, 3) i32; bzero (W,) f64 (zeros when bzeroflag is 0), W = nc^3 *
+// ntrip.  W split evenly over ntiles blocks per atom of at most MT rows
+// (16 or 32).  Writes B (N, W) and dBdD (N, W, K, 3).
 extern "C" int dbdd(const double* ut, const double* zr, const double* zi,
-                    const double* J, const int* jelem, const int* y_src,
-                    const double* y_fac, const int* blk_chan,
-                    const int* blk_pair, const double* bzero,
-                    long long natoms, int K, int ntrip, int U, int nz, int nc,
-                    int WT, double* B, double* dBdD, void* stream) {
+                    const double* J, const int* jelem, const int* tg_ptr,
+                    const int* tg_u, const int* tg_src, const double* tg_fac,
+                    const int* y_src, const double* y_fac,
+                    const int* blk_chan, const int* blk_pair,
+                    const double* bzero, long long natoms, int K, int ntrip,
+                    int U, int nz, int nc, int MT, int ntiles, double* B,
+                    double* dBdD, void* stream) {
   const int W = nc * nc * nc * ntrip;
-  const int ntiles = (W + WT - 1) / WT;
-  const size_t smem = sizeof(double) * (static_cast<size_t>(WT) * nc * 2 * U
-                                        + 3 * KT * (2 * U + 1));
-  const int err = fs_allow_smem(dbdd_kernel, smem);
-  if (err) return err;
-  if (natoms > 0) {
-    dbdd_kernel<<<static_cast<unsigned>(natoms * ntiles), 256, smem,
-                  static_cast<cudaStream_t>(stream)>>>(
-        ut, zr, zi, J, jelem, y_src, y_fac, blk_chan, blk_pair, bzero, W,
-        ntrip, U, nz, nc, K, WT, ntiles, B, dBdD);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const Args p{ut, zr, zi, J, jelem, tg_ptr, tg_u, tg_src, tg_fac, y_src,
+               y_fac, blk_chan, blk_pair, bzero, W, ntrip, U, nz, nc, K, MT,
+               ntiles, natoms};
+  const int ldl = ag_ldl(2 * U);
+  const size_t smem = sizeof(double) * (MT * ldl + AG_STAGE) +
+                      sizeof(int) * (2 * static_cast<size_t>(K) + 2) +
+                      MT / 16 * (ldl / 8);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (MT == 16) return launch<1>(p, smem, B, dBdD, s);
+  if (MT == 32) return launch<2>(p, smem, B, dBdD, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -45,7 +45,7 @@
 //      sums the slabs' partials in slab order and writes the same.
 // Without AtA (the residual pass) only the tiles of the last column run.
 // No atomics: the output repeats bit for bit from run to run.
-#include "common.cuh"
+#include "atom_gemm.cuh"  // mma_f64, cp_async16
 
 namespace {
 
@@ -196,17 +196,6 @@ __global__ void contrib_resid_kernel(const double* __restrict__ coeff,
   if (lane == 0) row[W] -= dot;
 }
 
-// D += A B on the FP64 tensor cores, A 16 x 8 (row), B 8 x 8 (col).  With
-// g = lane / 4 and t = lane % 4: a[2h + s] = A[g + 8 s][t + 4 h], b[h] =
-// B[t + 4 h][g], c[2 s + i] = D[g + 8 s][2 t + i].
-__device__ __forceinline__ void mma_f64(double (&c)[4], const double (&a)[4],
-                                        const double (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
-      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
-}
-
 // The (ti, tj) of output tile u: the upper triangle in row order, or with
 // only_last the tiles (u, nT - 1) of the last column.
 __device__ __forceinline__ void tile_of(int u, int nT, bool only_last,
@@ -238,12 +227,6 @@ __device__ __forceinline__ void put(int W, int with_ata, int ti, int tj,
     ata[static_cast<long long>(pr) * W + qc] = v;
     if (ti != tj) ata[static_cast<long long>(qc) * W + pr] = v;
   }
-}
-
-__device__ __forceinline__ void cp_async16(double* dst, const double* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
 }
 
 // Pass 2: one (upper tile, slab) per block, blockIdx.x = tile * nslab +

@@ -20,8 +20,31 @@ LL = ctypes.c_longlong
 D = ctypes.c_double
 
 SMEM_LIMIT = 232448   # bytes of shared memory one H100 block can use
+SMEM_PAIR = 233472 // 2 - 1024   # bytes a block can use, two blocks an SM
+AG_STAGE_BYTES = 8 * 128 * 8     # csrc/atom_gemm.cuh's epilogue stage
 
 _ENTRY = {}           # entry point -> (library, argtypes)
+
+
+def ag_ldl(inner):
+    """Row stride (doubles) of an L operand of csrc/atom_gemm.cuh."""
+    return -(-inner // 16) * 16 + 4
+
+
+def row_plan(rows, row_bytes, fixed_bytes, name):
+    """(rows per block, blocks) of a per-atom product of
+    csrc/atom_gemm.cuh: blocks of 32 rows, else 16 (IW <= 2), whose L rows
+    and `fixed_bytes` fit two blocks an SM, else one; the kernels split the
+    rows evenly over the blocks, so the rows per block are rounded to 16
+    from that share."""
+    for limit in (SMEM_PAIR, SMEM_LIMIT):
+        for mt in (32, 16):
+            if mt * row_bytes + fixed_bytes <= limit:
+                tiles = -(-rows // mt)
+                per = -(-rows // tiles)
+                return -(-per // 16) * 16, tiles
+    raise ValueError(f"{name}: 16 rows of {row_bytes} bytes exceed a "
+                     f"block's shared memory")
 
 
 def register(name, library, argtypes):

@@ -4,7 +4,7 @@ PyTorch versions beside them.
 | kernel | source | replaces (fitsnap_tpu) |
 | K1 pair_u_duals (_chem) | csrc/pair_u_duals.cu | ops/snap.py _ck_prologue, _pair_wu_duals, _utot_from_wu |
 | K2 zlist (_chem) | csrc/zlist.cu | ops/snap.py _compute_zcat_pair (channel pairs :1005-1010) |
-| K3 dbdd (_chem) | csrc/dbdd.cu | ops/snap.py _dbdu_ylist, _chem_b_and_dbdu + the contractions at :956-982 |
+| K3 dbdd (_chem) | csrc/dbdd.cu (+ atom_gemm.cuh) | ops/snap.py _dbdu_ylist, _chem_b_and_dbdu + the contractions at :956-982 |
 | K6q quad_chain | csrc/quad_chain.cu | ops/snap.py _quad_chain |
 | K4 pair_scatter_rows | csrc/pair_scatter.cu | calculators/snap.py:326-343, ops/refpot.py:295-302 |
 | K5 zbl_pair_grad | csrc/zbl_pair.cu | ops/refpot.py reference_eav (vjp), zbl_pair_energy |
@@ -19,6 +19,9 @@ kernel for tensors on a CUDA device, and raises for anything else.  Every
 launch adds one to the wrapper's `launches` count.
 """
 
+from types import SimpleNamespace
+
+import numpy as np
 import torch
 
 from fitsnap_tpu_torch.kernels import launch as kl
@@ -33,7 +36,7 @@ kl.register("pair_u_duals", "pair_u_duals",
             [_P] * 5 + [_D] * 3 + [_I, _I, _LL, _I] + [_P] * 3 + [_I, _I]
             + [_P] * 3 + [_I] * 3 + [_P] * 5)
 kl.register("zlist", "zlist", [_P, _LL, _I, _I] + [_P] * 4 + [_I] + [_P] * 3)
-kl.register("dbdd", "dbdd", [_P] * 10 + [_LL] + [_I] * 6 + [_P] * 3)
+kl.register("dbdd", "dbdd", [_P] * 14 + [_LL] + [_I] * 7 + [_P] * 3)
 kl.register("quad_chain", "quad_chain", [_P] * 5 + [_LL] + [_I] * 3
             + [_P] * 3)
 kl.register("pair_scatter_rows", "pair_scatter",
@@ -185,22 +188,38 @@ zlist_chem.launches = 0
 # K3: dB/dutot, B and the pair jacobian dB/dD
 # ---------------------------------------------------------------------------
 
-_K3_KT = 8   # neighbors per J tile of csrc/dbdd.cu
+def dbdd_tiles(p, K=64):
+    """(rows of W per block, blocks per atom) of csrc/dbdd.cu at K neighbor
+    slots: one channel's y rows (2U + pad doubles each) beside the neighbor
+    lists, the zero-block flags and the product's epilogue stage, two
+    blocks an SM where they fit."""
+    ldl = kl.ag_ldl(2 * p.u_len)
+    return kl.row_plan(p.nb_base, 8 * ldl, kl.AG_STAGE_BYTES
+                       + 4 * (2 * K + 2) + 2 * ldl // 8, "dbdd")
 
 
-def dbdd_tiles(p):
-    """(rows of W per block, blocks per atom) of csrc/dbdd.cu: the y rows
-    (nchem x 2U doubles each) beside a J tile (3 x 8 rows of 2U + 1
-    doubles) in one block's shared memory, W split into the fewest tiles,
-    balanced."""
-    two_u = 2 * p.u_len
-    jtile = 8 * 3 * _K3_KT * (two_u + 1)
-    fit = (_SMEM_LIMIT - jtile) // (8 * p.nchem * two_u)
-    if fit < 1:
-        raise ValueError(f"dbdd: one y row ({p.nchem} x {two_u} doubles) "
-                         f"and a J tile exceed one block's shared memory")
-    ntiles = -(-p.nb_base // fit)
-    return -(-p.nb_base // ntiles), ntiles
+def dbdd_tables(p):
+    """K3's compact y targets, cached on the plan: the (triple t, u) whose
+    y_fac is nonzero in some layer, sorted by (t, u): tg_ptr (ntrip + 1)
+    the targets of triple t, tg_u (nT,) their u, tg_src (nT, 3) and tg_fac
+    (nT, 3) each layer's y_src and y_fac there (factor 0 for a layer that
+    adds nothing).  y[w, u] (one channel; the layers of the row's channel
+    in the chemflag mode) is the layer-order sum of tg_fac * z[tg_src]."""
+    if p.k3 is not None:
+        return p.k3
+    src = p.y_src.cpu().numpy()
+    fac = p.y_fac.cpu().numpy()
+    t, u = np.nonzero((fac != 0).any(axis=0))
+    i32 = torch.int32
+    p.k3 = SimpleNamespace(
+        tg_ptr=torch.as_tensor(np.searchsorted(t, np.arange(p.ntriples + 1)),
+                               dtype=i32, device=p.device),
+        tg_u=torch.as_tensor(u, dtype=i32, device=p.device),
+        tg_src=torch.as_tensor(np.ascontiguousarray(src[:, t, u].T),
+                               dtype=i32, device=p.device),
+        tg_fac=torch.as_tensor(np.ascontiguousarray(fac[:, t, u].T),
+                               device=p.device))
+    return p.k3
 
 
 def dbdd_plain(ut, z_r, z_i, J, p):
@@ -233,15 +252,17 @@ def _dbdd_launch(ut, z_r, z_i, J, jelem, p):
     _check(J, "J", torch.float64, (3, N, K, 2 * U))
     if jelem is not None:
         _check(jelem, "jelem", torch.int32, (N, K))
-    wt, _ = dbdd_tiles(p)
+    mt, tiles = dbdd_tiles(p, K)
+    tg = dbdd_tables(p)
     dev = ut.device
     bzero = p.bzero if p.bzeroflag else torch.zeros_like(p.bzero)
     B = torch.empty((N, W), dtype=torch.float64, device=dev)
     dBdD = torch.empty((N, W, K, 3), dtype=torch.float64, device=dev)
     _launch("dbdd", dev, _ptr(ut), _ptr(z_r), _ptr(z_i), _ptr(J),
-            _ptr(jelem) if jelem is not None else None, _ptr(p.y_src),
+            _ptr(jelem) if jelem is not None else None, _ptr(tg.tg_ptr),
+            _ptr(tg.tg_u), _ptr(tg.tg_src), _ptr(tg.tg_fac), _ptr(p.y_src),
             _ptr(p.y_fac), _ptr(p.blk_chan), _ptr(p.blk_pair), _ptr(bzero),
-            N, K, p.ntriples, U, p.nz, nc, wt, _ptr(B), _ptr(dBdD))
+            N, K, p.ntriples, U, p.nz, nc, mt, tiles, _ptr(B), _ptr(dBdD))
     return B, dBdD
 
 

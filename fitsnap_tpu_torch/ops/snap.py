@@ -90,6 +90,9 @@ class SnapParams:
     # pair-grid tables of the NN cached mode, built at first use
     # (`nn_tables`)
     nn: Optional["NnTables"] = None
+    # compact y targets of K3, built at first use
+    # (`kernels.snap_kernels.dbdd_tables`)
+    k3: Optional[object] = None
 
 
 def z_term_list(z_groups, D):

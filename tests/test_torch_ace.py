@@ -16,8 +16,10 @@ cutoffs and an inner cutoff on the mixed bonds.
   ramp, and an atom's own periodic image, the JAX plan carried across
   through `convert.ace_plan_from_numpy`: within 1e-12 relative to each
   array's largest magnitude (the packages sum in other orders);
-- the compact dB/dA tables that K14 reads (`kernel_tables`), emulated in
-  numpy, give the dense dB/dA and dB/dD of the plain version to 1e-12;
+- the tables that K14 reads (`kernel_tables`: terms, entries and their
+  contributions per label, labels per element), with its per-term
+  cofactors emulated in numpy, give the dense dB/dA, B and dB/dD of the
+  plain version to 1e-12;
 - K7's plain version in the ACE layout (nelem 2 leading constant columns)
   through `parallel.fit.config_normal_contrib(kernel=ace_kernel(plan),
   const_mode=("ace", 2))` against JAX's, direct and residual: AtA and Atb
@@ -216,11 +218,13 @@ def test_other_conventions_match_jax(cases, radial, ylm):
 
 @pytest.mark.parametrize("name", sorted(PLANS))
 def test_kernel_tables_give_dense_dbda(cases, name):
-    """K14's compact dB/dA (entries per label, contributions per entry),
-    emulated in numpy from `kernel_tables`, equals the plain dense dB/dA
-    on every slot but the padding slot 0, where the tangents are zero; the
-    entries of element e, the only ones K14 computes for its atoms, are
-    those of the labels with central element e."""
+    """K14's dense dB/dA rows, emulated in numpy as the kernel forms them
+    from `kernel_tables` (each term's prefix and suffix products once,
+    coef x each factor's cofactor; then each entry the sum of its (term,
+    factor) contributions, written at its label's row and A-slot), equal
+    the plain dense dB/dA on every slot but the padding slot 0, where the
+    tangents are zero, and the terms' values summed per label equal B;
+    `el_l` gives the labels of each central element."""
     _, plan, inputs = cases[name]
     A, Jp = ak.ace_pair_basis_plain(*(t(x) for x in inputs), plan)
     assert (Jp[..., 0] == 0).all() and (Jp[..., plan.nA] == 0).all()
@@ -230,29 +234,37 @@ def test_kernel_tables_give_dense_dbda(cases, name):
     a = A.numpy()
     z = a[:, :nA] + 1j * a[:, nA:]
     fact, coef = np.asarray(plan.t_fact), np.asarray(plan.t_coef)
+    f = z[:, fact]                                   # (atoms, terms, R)
+    ones = np.ones(f.shape[:2] + (1,))
+    pre = np.cumprod(np.concatenate([ones, f], 2), axis=2)
+    suf = np.cumprod(np.concatenate([f, ones], 2)[:, :, ::-1],
+                     axis=2)[:, :, ::-1]
+    cof = (coef[:, None] * pre[:, :, :R] * suf[:, :, 1:]).reshape(len(z),
+                                                                  -1)
     dense = np.zeros(dBdA.shape)
-    for li in range(len(plan.labels)):
-        for e in range(tabs.lab_e[li], tabs.lab_e[li + 1]):
-            s = tabs.e_slot[e]
-            tot = np.zeros(len(z), complex)
-            for q in range(tabs.e_c[e], tabs.e_c[e + 1]):
-                tt, r = divmod(int(tabs.c_tr[q]), R)
-                assert fact[tt, r] == s
-                cof = np.prod(z[:, np.delete(fact[tt], r)], axis=1)
-                tot += coef[tt] * cof
-            dense[:, li, s] = tot.real
-            dense[:, li, nA + s] = -tot.imag
+    for e in range(tabs.nE):
+        li, s = tabs.e_lab[e], tabs.e_slot[e]
+        assert tabs.lab_e[li] <= e < tabs.lab_e[li + 1]
+        q = tabs.c_tr[tabs.e_c[e]:tabs.e_c[e + 1]]
+        assert (fact.ravel()[q] == s).all() and (np.diff(q) > 0).all()
+        tot = cof[:, q].sum(axis=1)
+        dense[:, li, s] = tot.real
+        dense[:, li, nA + s] = -tot.imag
     ref = dBdA.numpy().copy()
     ref[..., 0] = ref[..., nA] = 0.0
     assert rel(dense, ref) <= RTOL
+    val = (coef * pre[:, :, R]).real
+    bsum = np.stack([val[:, tabs.lab_t[li]:tabs.lab_t[li + 1]].sum(1)
+                     for li in range(len(plan.labels))], 1)
+    assert rel(bsum, B) <= RTOL
     assert tabs.lab_t[-1] == len(coef) and tabs.nC <= len(coef) * R
-    assert tabs.el_e[0] == 0 and tabs.el_e[-1] == tabs.nE
-    entry_label = np.repeat(np.arange(len(plan.labels)), np.diff(tabs.lab_e))
-    entry_elem = np.repeat(np.arange(plan.numtypes), np.diff(tabs.el_e))
-    np.testing.assert_array_equal(np.asarray(plan.t_mu0)[entry_label],
-                                  entry_elem)
+    assert tabs.nE == tabs.lab_e[-1]
+    mu0 = np.asarray(plan.t_mu0)
+    assert tabs.el_l[0] == 0 and tabs.el_l[-1] == len(plan.labels)
+    for e in range(plan.numtypes):
+        assert (mu0[tabs.el_l[e]:tabs.el_l[e + 1]] == e).all()
     _, dBdD = ak.ace_b_dbdd_plain(A, Jp, t(inputs[3]), plan)
-    live = np.asarray(plan.t_mu0)[None, :] == inputs[3][:, None]
+    live = mu0[None, :] == inputs[3][:, None]
     emu = np.einsum("alp,cakp->alkc", dense, Jp.numpy()) \
         * live[:, :, None, None]
     assert rel(emu, dBdD) <= RTOL

@@ -24,11 +24,16 @@ columns), and at the widths its output is tiled over (480 and 1,596, both
 layouts, direct and residual, with a padded and a one-atom config), bit for
 bit from run to run.  K4 with one to three source types at widths 1, 4,
 37 (not a multiple of its x-tile) and 600, bit for bit from run to run.
-quadraticflag and chemflag: K1-K3 with K3 in three W tiles and K6q at
+quadraticflag and chemflag: K1-K3 with K3 in four W tiles and K6q at
 twojmax 8; the chemflag modes of K1-K3 with two elements at twojmax 4
 (wselfallflag 0 and 1, bnormflag) and, with K6q, quadratic x chemflag at
-twojmax 2.  K12 and K12T on two small periodic cells with a padded atom
-(and twice, to show a run repeats bit for bit), and the gradient of a
+twojmax 2.  K3 at the edges of its tiles (W = 5 and 55, K = 13, 19, 21,
+37, three channels, every neighbor in one channel, neighbors of no
+channel, an atom with every slot masked) and K14 where an element's labels
+need several tiles (the InP_PACE shape, K = 21, atoms whose element is out
+of range): padding slots exactly 0, bit for bit from run to run.  K12
+and K12T on two small periodic cells with a padded atom (and twice, to
+show a run repeats bit for bit), and the gradient of a
 force loss with respect to MLP parameters through `NnForce` against
 autograd through K12's plain version, 1e-10.  K9, K10, K10T, K11, K11T and
 the force gather on two configs of 6 atoms x 40 slots (the two CASES
@@ -189,9 +194,121 @@ def test_flag_kernels_match_plain(cuda, name):
         want["quad_chain"] = 1
     assert {k: v for k, v in sk.launches().items() if v} == want
     if name == "quadratic_tj8":
-        assert sk.dbdd_tiles(p) == (19, 3)
+        assert sk.dbdd_tiles(p, K) == (16, 4)
     for out, ref in pairs:
         assert rel_err(out, ref) <= RTOL
+
+
+# K3's tile edges: (section, K, neighbor elements): W = 5 (twojmax 2, one
+# row tile of 16) and 55 (twojmax 8, four tiles of 16), K not a multiple of
+# 8, three channels (W = 135, five tiles), every neighbor in one channel,
+# and neighbors whose element is no channel ("none": -1 and 2 of two)
+K3_EDGES = {
+    "tj2_K13": (dict(twojmax=["2"], numtypes=1, wj=["1.0"],
+                     radelem=["0.5"], bzeroflag=0, switchinnerflag=0), 13,
+                "random"),
+    "tj8_K37": (FLAG_CASES["quadratic_tj8"], 37, "random"),
+    "chem3_tj2_K21": (dict(twojmax=["2"] * 3, numtypes=3,
+                           wj=["1.0", "0.93", "0.8"],
+                           radelem=["0.5", "0.45", "0.4"], bzeroflag=1,
+                           switchinnerflag=0, chemflag=1), 21, "random"),
+    "chem_tj4_one_channel": (FLAG_CASES["chem_tj4_wself1"], 24, "ones"),
+    "chem_tj4_none": (FLAG_CASES["chem_tj4_wself0"], 19, "none"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(K3_EDGES))
+def test_k3_tile_edges_match_plain(cuda, name):
+    """K3 at the edges of its tiles against its plain version: 7 atoms, the
+    last with every slot masked; padding slots and neighbors of no channel
+    exactly 0, and a second run bit for bit."""
+    spec, K, kind = K3_EDGES[name]
+    p = make_params(section(spec), cuda)
+    N, nel = 7, spec["numtypes"]
+    rng = np.random.default_rng(11)
+    d = rng.normal(size=(N, K, 3))
+    d *= rng.uniform(1.2, 4.9, (N, K, 1)) / np.linalg.norm(d, axis=-1,
+                                                          keepdims=True)
+    mask = rng.uniform(size=(N, K)) < 0.8
+    mask[-1] = False
+    jel = rng.integers(0, nel, (N, K))
+    if kind == "ones":
+        jel[:] = 1
+    dev = [torch.as_tensor(x, device=cuda) for x in (d, mask)]
+    args = (dev[0], torch.as_tensor(jel, dtype=torch.int32, device=cuda),
+            dev[1], torch.as_tensor(rng.integers(0, nel, N),
+                                    dtype=torch.int32, device=cuda))
+    _, J, ut = sk.pair_u_duals_plain(*args, p)
+    chem = p.nchem > 1
+    z = (sk.zlist_chem_plain if chem else sk.zlist_plain)(ut, p)
+    jelem = args[1]
+    if kind == "none":
+        jelem = jelem.clone()
+        jelem[:, ::5] = -1
+        jelem[:, 1::7] = 2
+    sk.reset_launches()
+    if chem:
+        outs = [sk.dbdd_chem(ut, *z, J, jelem, p) for _ in range(2)]
+        ref = sk.dbdd_chem_plain(ut, *z, J, jelem, p)
+    else:
+        outs = [sk.dbdd(ut, *z, J, p) for _ in range(2)]
+        ref = sk.dbdd_plain(ut, *z, J, p)
+    torch.cuda.synchronize()
+    assert sum(sk.launches().values()) == 2
+    assert rel_err(outs[0], ref) <= RTOL
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    G = outs[0][1]
+    assert (G.permute(0, 2, 1, 3)[~args[2]] == 0).all()
+    if kind == "none":
+        dead = (jelem < 0) | (jelem >= p.nchem)
+        assert dead.any() and (G.permute(0, 2, 1, 3)[dead] == 0).all()
+    if kind == "ones":
+        assert ref[1].abs().max() > 0
+
+
+# the InP_PACE shape (two elements of 172 labels, several label tiles of
+# K14) with an inner cutoff on the In-P bond
+ACE_INP = dict(numtypes=2, ranks=[1, 2, 3, 4], lmax=[1, 2, 2, 1],
+               nmax=[22, 3, 2, 1], lmin=[0, 0, 1, 1], nmaxbase=22,
+               rcutfac=[5.5] * 4, lmbda=[3.0] * 4,
+               rcinner=[0.0, 2.4, 2.4, 0.0],
+               drcinner=[0.01, 0.5, 0.5, 0.01])
+
+
+def test_k14_tile_edges_match_plain(cuda):
+    """K14 against its plain version where the labels of an element need
+    several tiles, at K = 21 (not a multiple of 8), with atoms whose element
+    is out of range (-1, 2: all outputs exactly 0) and an atom with every
+    slot masked; a second run bit for bit."""
+    plan = build_ace_plan(SimpleNamespace(b_basis="minsub", **ACE_INP))
+    N, K = 9, 21
+    assert ak.ace_b_dbdd_tiles(plan)[1] > 1
+    rng = np.random.default_rng(12)
+    d = rng.normal(size=(N, K, 3))
+    d *= rng.uniform(1.5, 5.4, (N, K, 1)) / np.linalg.norm(d, axis=-1,
+                                                          keepdims=True)
+    mask = rng.uniform(size=(N, K)) < 0.85
+    mask[-1] = False
+    ielem = rng.integers(0, 2, N)
+    args = (torch.as_tensor(d, device=cuda),
+            torch.as_tensor(rng.integers(0, 2, (N, K)), dtype=torch.int32,
+                            device=cuda),
+            torch.as_tensor(mask, device=cuda),
+            torch.as_tensor(ielem, dtype=torch.int32, device=cuda))
+    A, Jp = ak.ace_pair_basis_plain(*args, plan)
+    ielem[[1, 4]] = [-1, 2]
+    ie = torch.as_tensor(ielem, dtype=torch.int32, device=cuda)
+    ak.reset_launches()
+    outs = [ak.ace_b_dbdd(A, Jp, ie, plan) for _ in range(2)]
+    ref = ak.ace_b_dbdd_plain(A, Jp, ie, plan)
+    torch.cuda.synchronize()
+    assert ak.launches()["ace_b_dbdd"] == 2
+    assert rel_err(outs[0], ref) <= RTOL
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    B, G = outs[0]
+    assert (B[[1, 4]] == 0).all() and (G[[1, 4]] == 0).all()
+    assert (G.permute(0, 2, 1, 3)[~args[2]] == 0).all()
+    assert ref[1][0].abs().max() > 0
 
 
 # (full width, layout, constant columns, types): the InP chemflag width

@@ -19,7 +19,8 @@ fitsnap_tpu_torch against fitsnap_tpu (CPU, float64).
   versions' results and launch nothing.
 - At the published widths (Ta_Quadratic 1,596 columns, InP 480) the
   calculators' row width and blank2J equal the JAX package's, and K3's W
-  tiles are those its source describes.
+  tiles are those its source describes; K3's compact y targets rebuild
+  the y-list of the JAX package (the plain version at twojmax 8).
 
 Tolerance: 1e-12 relative to the largest magnitude of each array (the two
 packages sum in different orders at float64).
@@ -37,6 +38,7 @@ from fitsnap_tpu.ops.cg import build_snap_plan as jax_plan
 from fitsnap_tpu_torch.config import Config
 from fitsnap_tpu_torch.convert import (PARAM_FIELDS, PLAN_FIELDS,
                                        snap_params_from_numpy)
+from fitsnap_tpu_torch.kernels import launch as kl
 from fitsnap_tpu_torch.kernels import snap_kernels as sk
 from fitsnap_tpu_torch.ops import snap as tsnap
 from fitsnap_tpu_torch.ops.cg import build_snap_plan
@@ -297,12 +299,61 @@ def test_quad_chain(name):
 
 
 def test_dbdd_tiles():
-    """K3's W tiles: one tile at twojmax 6, three of 19 rows at twojmax 8,
-    seven of 35 rows with the two channels of InP at twojmax 6."""
+    """K3's W tiles at 64 neighbor slots (rows 16 or 32, blocks per atom),
+    each within half a card SM's shared memory so that two blocks share an
+    SM: one tile of 32 rows at twojmax 6, four of 16 at twojmax 8, eight
+    of 32 with the two channels of InP at twojmax 6."""
     jp8 = jax_params(DESCRIPTORS["quadratic_tj8"][0])
     jp6 = jax_params(dict(twojmax=6, nelements=1))
     inp = jax_params(dict(twojmax=6, nelements=2, chemflag=True,
                           bnormflag=True, wselfallflag=True))
-    assert sk.dbdd_tiles(port_params(jp6)) == (30, 1)
-    assert sk.dbdd_tiles(port_params(jp8)) == (19, 3)
-    assert sk.dbdd_tiles(port_params(inp)) == (35, 7)
+    assert sk.dbdd_tiles(port_params(jp6)) == (32, 1)
+    assert sk.dbdd_tiles(port_params(jp8)) == (16, 4)
+    assert sk.dbdd_tiles(port_params(inp)) == (32, 8)
+    for jp in (jp6, jp8, inp):
+        p = port_params(jp)
+        mt, tiles = sk.dbdd_tiles(p)
+        assert mt * tiles >= p.nb_base > mt * (tiles - 1)
+        ldl = kl.ag_ldl(2 * p.u_len)
+        smem = (8 * mt * ldl + kl.AG_STAGE_BYTES + 4 * (2 * 64 + 2)
+                + mt // 16 * (ldl // 8))
+        assert smem <= kl.SMEM_PAIR
+
+
+def test_dbdd_tables_give_ylist(case):
+    """K3's compact y targets (`dbdd_tables`), emulated in numpy as the
+    kernel reads them (per row and channel, the layer-order sum of
+    factor x z over the layers of that channel), give the y-list of the
+    JAX package's `_chem_b_and_dbdu` (one channel with one element), or of
+    the plain `_dbdu_ylist` at twojmax 8, to 1e-12; every nonzero y_fac is
+    a target."""
+    p, ref = case["p"], case["ref"]
+    tg = sk.dbdd_tables(p)
+    ptr, tu = tg.tg_ptr.numpy(), tg.tg_u.numpy()
+    src, fac = tg.tg_src.numpy(), tg.tg_fac.numpy()
+    yfac = p.y_fac.numpy()
+    assert len(tu) == int((yfac != 0).any(axis=0).sum())
+    ut = torch.from_numpy(ref["ut"])
+    nc, U, T = p.nchem, p.u_len, p.ntriples
+    if case["chem"]:
+        zr, zi = (z.numpy() for z in tsnap._compute_zcat_chem(ut, p))
+    else:
+        zr, zi = (z.numpy()[:, None] for z in tsnap._compute_zcat(ut, p))
+    chan, pair = p.blk_chan.numpy(), p.blk_pair.numpy()
+    y = np.zeros((len(ut), p.nb_base, nc, 2 * U))
+    for w in range(p.nb_base):
+        blk, tt = divmod(w, T)
+        q = np.arange(ptr[tt], ptr[tt + 1])
+        for ch in range(nc):
+            yr = yi = 0.0
+            for lay in range(3):
+                if chan[blk, lay] == ch:
+                    s = src[q, lay]
+                    yr = yr + fac[q, lay] * zr[:, pair[blk, lay], s]
+                    yi = yi + fac[q, lay] * zi[:, pair[blk, lay], s]
+            y[:, w, ch, tu[q]] = yr
+            y[:, w, ch, U + tu[q]] = yi
+    if "dbdu_chem" in ref:
+        close(y, ref["dbdu_chem"][:, :p.nb_base])
+    else:
+        close(y[:, :, 0], tsnap._dbdu_ylist(ut, p))
