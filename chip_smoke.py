@@ -534,6 +534,21 @@ def k3_operations(p, k1_in):
     return flops
 
 
+def k1_operations(p, npairs):
+    """K1's FP64 operations on `npairs` live pairs: a prologue (about 600),
+    the monomials of degree <= twojmax (3 multiplies each), 2 an entry of
+    the change of basis L and of its four partials L_v (L_v has a nonzero
+    for each nonzero of L in a monomial holding the variable v), and 34 a
+    column (the three tangents, J and w U)."""
+    from fitsnap_tpu_torch.ops.mono import mono_plan
+
+    exps, _, _, L = mono_plan(p.twojmax)
+    nz = L != 0
+    entries = int(nz.sum()) + sum(int(nz[np.asarray(exps)[:, v] > 0].sum())
+                                  for v in range(4))
+    return npairs * (600 + 3 * L.shape[0] + 2 * entries + 34 * L.shape[1])
+
+
 def descriptor_checks(rows, p, k1_in, shape=None):
     """K1, K2 and K3 (their chemflag modes when the plan has element
     channels) and K6q (quadraticflag) against their plain versions on one
@@ -554,23 +569,26 @@ def descriptor_checks(rows, p, k1_in, shape=None):
     def name(kernel):
         return kernel + sfx if kernel != "quad_chain" else kernel
 
-    # K1: per live pair the prologue (about 600 flops), the monomial chain
-    # with tangents (10 per monomial), the change of basis (8 per nonzero of
-    # L) and the outputs (11 per U column)
+    # K1: per live pair the prologue (about 600 flops), the monomials
+    # (`k1_operations`), the change of basis and its four partials (an FMA
+    # an entry) and each column's epilogue; the bytes are its inputs, J
+    # and utot
     k1 = getattr(sk, "pair_u_duals" + sfx)
     out = k1(*k1_in, p)
     ref = sk.pair_u_duals_plain(*k1_in, p)
-    k1_flops = npairs * ((p.mono_parent.shape[0] - 1) * 10
-                         + p.l_val.shape[0] * 8 + 2 * U * 11 + 600)
-    k1_bytes = N * K * (3 * 8 + 4 + 1) + N * 4 + 4 * N * K * 2 * U * 8 \
+    # J is the output before last (the utot sums last)
+    if not (out[-2].permute(1, 2, 0, 3)[~k1_in[2]] == 0).all():
+        raise AssertionError(f"{name('pair_u_duals')}: padding slots not "
+                             f"exactly 0")
+    k1_bytes = N * K * (3 * 8 + 4 + 1) + N * 4 + 3 * N * K * 2 * U * 8 \
         + N * nc * 2 * U * 8
     record(rows, name("pair_u_duals") + at, out, ref,
            (lambda: k1(*k1_in, p), 10),
            timed(lambda: sk.pair_u_duals_plain(*k1_in, p), 3),
-           k1_bytes, k1_flops, None, wrapper=name("pair_u_duals"),
-           shape=shape)
-    wu, J, ut = ref
-    del out, wu
+           k1_bytes, k1_operations(p, npairs), None,
+           wrapper=name("pair_u_duals"), shape=shape)
+    J, ut = ref[-2:]
+    del out, ref
 
     # K2 (every ordered channel pair in one launch), with torch.bmm over the
     # TPU path's dense term GEMMs as library call for one channel
@@ -593,6 +611,12 @@ def descriptor_checks(rows, p, k1_in, shape=None):
         library = timed(lambda: [(torch.bmm(pr, M), torch.bmm(pi, M))
                                  for pr, pi, M in dense], 20)
         del dense
+    z_ptr = p.z_ptr.cpu().numpy()
+    empty = torch.as_tensor(np.nonzero(z_ptr[1:] == z_ptr[:-1])[0],
+                            device=ut.device)
+    if not all((z[..., empty] == 0).all() for z in out):
+        raise AssertionError(f"{name('zlist')}: outputs without terms not "
+                             f"exactly 0")
     record(rows, name("zlist") + at, out, ref, (lambda: k2(ut, p), 20),
            timed(lambda: k2_plain(ut, p), 5),
            N * nc * 2 * U * 8 + 2 * N * nc * nc * p.nz * 8,

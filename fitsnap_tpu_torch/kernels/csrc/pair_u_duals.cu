@@ -1,31 +1,66 @@
-// K1 pair_u_duals: the weighted Wigner-U expansion of every neighbor pair,
-// its three displacement tangents, and the neighbor sum utot.  In the
-// chemflag mode (nc > 1 element channels) each neighbor is summed into the
-// channel of its element, and the self term goes into every channel under
-// wselfallflag, else into the atom's own (fitsnap_tpu/ops/snap.py:769-787).
+// K1 pair_u_duals: the Wigner-U expansion of every neighbor pair, its three
+// displacement tangents weighted into the pair jacobian
+//   J[c, a, k, u] = d(w U[u]) / d disp[a, k, c],
+// and the neighbor sum utot.  In the chemflag mode (nc > 1 element channels)
+// each neighbor is summed into the channel of its element, and the self term
+// goes into every channel under wselfallflag, else into the atom's own
+// (fitsnap_tpu/ops/snap.py:769-787).
 //
 // Replaces fitsnap_tpu/ops/snap.py `_ck_prologue` + `_pair_wu_duals` +
 // `_utot_from_wu` (the TPU form: jax.jvp of the prologue, an unrolled
 // monomial product chain, and a dense (n_mono, 2U) change-of-basis GEMM).
+// The weighted expansion wu itself is not an output: no caller reads it.
 //
-// Bound on the H100: bytes.  Per pair the kernel writes 4 x 2U doubles
-// (wu and the three rows of J, 8.96 KB at twojmax 6) against about 20
-// kflop of FP64 work, far below the card's flop/byte balance.
+// Bound on the H100: bytes.  Per pair the kernel writes the 3 x 2U doubles
+// of J (6.7 KB at twojmax 6), against about 13 kflop of FP64 work.
 //
-// Design: one block per atom, one thread per U column.  The block walks its
-// neighbors in tiles of TILE pairs.  For a tile, TILE threads evaluate the
-// Cayley-Klein prologue with forward-mode dual numbers (value + 3 tangents)
-// into shared memory; the block then builds the monomial chain of
-// ops/mono.py level by level (one degree at a time, parents always of lower
-// degree) for the 4 streams in shared memory, and finally each thread applies
-// its column of the change of basis L.  L is 99% zeros (1835 nonzeros of
-// 210 x 280 at twojmax 6), so it is read as a column-CSR table through the
-// read-only cache instead of as a dense 470 KB matrix.  Monomials never reach
-// device memory; utot is summed in registers in neighbor order (one
-// register per channel: the kernel is compiled for 1 to MAX_CHEM channels),
-// so it is deterministic.  A block holds at most MAX_THREADS threads, one
-// per U column (2U <= 640: twojmax <= 8), which keeps the kernel within
-// the 96 registers a thread may have at that block size.
+// Design.  U = L M, M the monomials ar^p ai^q br^r bi^s of degree <= twojmax
+// (ops/mono.py), and L is block-diagonal by degree: a column of level j reads
+// degree-j monomials only.  The tangents go through the partials
+//   dU/dv = L_v M,   L_v[m, u] = (e_v(m) + 1) L[m + e_v, u],
+// which read the degree j - 1 monomials, so that the four prologue variables'
+// tangents are applied per column (Ut_c = sum_v dv/dx_c dU/dv) and the
+// monomials are values only.  utot is L applied once to the weighted
+// monomial sum W[m] = sum_k w_k M_k[m], summed over the neighbors in
+// neighbor order.  The host lists each column's nonzeros of L and of the
+// four L_v (`snap_kernels.pair_u_tables`).
+//   * A block is (atom, split).  A split is a range of column chunks (at
+//     most 4 columns, starting at an even column where it can) in level
+//     order, the host's cut of the columns into equal shares of entries
+//     where the chunk of atoms is small, so that the grid fills the card;
+//     the split's window holds the monomials its columns read.
+//   * The atom's live slots are listed by ballot, in slot order; the block
+//     walks them in tiles of 32 pairs, one pair a lane.  Warp 0 evaluates
+//     the tile's prologue (forward-mode duals, prologue.cuh) and the powers
+//     of ar, ai, br, bi a pair a lane into shared memory; every warp then
+//     forms a share of the window's monomials (products of 4 powers),
+//     [monomial][pair], and the block adds the tile's pairs into W, a
+//     thread a monomial, pair by pair.  W's channels are the window rows'
+//     last columns (row stride (32 + nc) | 1: odd, so that a warp reads a
+//     row or a column without bank conflicts).
+//   * The warps take the split's chunks in turn, in column order (warp w
+//     the chunks 8 r + w), so that they sweep the J rows together.  The
+//     host lays a chunk's entries out by column and accumulator as steps
+//     of 4 entries (the last padded with zero coefficients), each entry of
+//     a step in its own slot, so that a step is 4 independent FMA chains,
+//     behind a header (the chunk's columns and the runs' ends); a step is
+//     40 bytes (4 coefficients, 4 16-bit window offsets).  A warp
+//     prefetches its next chunk with cp.async into the other half of its
+//     double buffer while it works on the current one; each step goes to
+//     every lane as five 8-byte broadcasts (4 coefficients, the offsets),
+//     and each lane applies it to its pair: 4 conflict-free shared loads
+//     and 4 FMAs.  An accumulator is its slots' sums, (s0 + s1) + (s2 +
+//     s3).  Each lane forms J for its pair and the chunk's columns in
+//     registers and stores its row segments directly, 16 bytes a store
+//     where the columns are aligned (a chunk starts at an even column where
+//     it can).  A chunk holds a bounded number of entries (the host's cap),
+//     so that it fits a buffer half.
+//   * Masked slots get J = 0 rows (zero stores over the split's column
+//     runs, a warp a slot).  utot = the U entries of each column applied to
+//     W (a lane a channel), plus the self term.
+// Any twojmax and any channel count: the host raises the split count until a
+// window fits a block's shared memory.  No atomics: the output repeats bit
+// for bit.
 #include <math.h>
 
 #include "common.cuh"
@@ -33,152 +68,354 @@
 
 namespace {
 
-constexpr int TILE = 4;           // neighbor pairs per block iteration
-constexpr int MAX_CHEM = 4;       // utot channels of the chemflag mode
-constexpr int MAX_THREADS = 640;  // threads (U columns) of a block
+constexpr int NW = 8;         // warps of a block
+constexpr int TP = 32;        // pairs of a tile, one a lane
+constexpr int CW = 4;         // most columns of a chunk
+constexpr int NPRO = 20;      // prologue doubles a pair (see below)
+constexpr int STEP = 5;       // doubles of a step: 4 coefficients, 4 offsets
+constexpr int HDR = 12;       // doubles of a chunk's header (24 ints)
 
-template <int NC>
-__global__ void __launch_bounds__(MAX_THREADS) pair_u_duals_kernel(
+// Host tables of one split plan (`snap_kernels.pair_u_tables`).
+struct Plan {
+  const double* blob;   // chunks: a header of 24 ints (first column,
+                        // columns, two unused, then the step ends of the
+                        // 4 x 5 (column, accumulator) runs, accumulators
+                        // U, dU/dar, dU/dai, dU/dbr, dU/dbi), then steps of
+                        // STEP doubles (coefficients c[4], then the window
+                        // offsets, slot * row stride, as 4 uint16), padded
+                        // to an even number of doubles
+  const int2* loc;      // (nchunks,): first double and doubles of a chunk,
+                        // by (split, warp)
+  const int* cw_ptr;    // (S * NW + 1,): chunks of (split, warp)
+  const int* win_ptr;   // (S + 1,): window slots of each split
+  const int* win_exp;   // exponents p | q << 8 | r << 16 | s << 24
+  const int* zr_ptr;    // (S + 1,): column runs of each split
+  const int2* zruns;    // [u0, u1)
+  int max_win, max_wch, bufd;  // sizes of the shared buffers
+};
+
+// Row stride of the window: the tile's pairs, W's channels, odd.
+__host__ __device__ __forceinline__ int row_stride(int nc) {
+  return (TP + nc) | 1;
+}
+
+// Doubles of the window, even so that the buffers after it are 16-byte
+// aligned.
+__host__ __device__ __forceinline__ long long window_size(int max_win,
+                                                         int nc) {
+  return (static_cast<long long>(max_win) * row_stride(nc) + 1) & ~1LL;
+}
+
+__device__ __forceinline__ void cp16(double* dst, const double* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Sum of steps [st, st1) applied to the window column x (the lane's pair,
+// or a channel of W): 4 chains, (s0 + s1) + (s2 + s3).
+__device__ __forceinline__ double run_sum(const double* b, int st, int st1,
+                                          const double* x) {
+  double s0 = 0.0, s1 = 0.0, s2 = 0.0, s3 = 0.0;
+#pragma unroll 2
+  for (; st < st1; ++st) {
+    const double* r = b + st * STEP;
+    const unsigned long long o = __double_as_longlong(r[4]);
+    s0 += r[0] * x[o & 0xffff];
+    s1 += r[1] * x[(o >> 16) & 0xffff];
+    s2 += r[2] * x[(o >> 32) & 0xffff];
+    s3 += r[3] * x[o >> 48];
+  }
+  return (s0 + s1) + (s2 + s3);
+}
+
+__global__ void __launch_bounds__(NW * 32, 2) pair_u_duals_kernel(
     const double* __restrict__ disp, const int* __restrict__ jelem,
     const unsigned char* __restrict__ mask, const int* __restrict__ ielem,
     const double* __restrict__ elem, Scalars s, long long natoms, int K,
-    const int* __restrict__ parent, const int* __restrict__ var,
-    const int* __restrict__ levels, int nlevels, int n_mono,
-    const int* __restrict__ l_ptr, const int* __restrict__ l_row,
-    const double* __restrict__ l_val, int two_u, int wselfall,
-    const double* __restrict__ selfvec, double* __restrict__ wu,
-    double* __restrict__ J, double* __restrict__ ut) {
-  extern __shared__ double mono[];        // [TILE][4][n_mono]
-  __shared__ double sv[TILE][4][4];       // (ar, ai, br, bi) x (value, tangents)
-  __shared__ double sw[TILE][4];          // w x (value, tangents)
-  __shared__ int sch[TILE];               // utot channel of each pair
-  const long long a = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int ie = ielem[a];
-  const long long stream_stride = natoms * K * two_u;  // one row of J
-  double acc[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) acc[c] = 0.0;
+    Plan pl, int twojmax, int two_u, int nc, int wselfall,
+    const double* __restrict__ selfvec, double* __restrict__ J,
+    double* __restrict__ ut) {
+  extern __shared__ double smem[];
+  const int ms = row_stride(nc);
+  // [max_win][ms]: the tile's pairs' monomials, then W's channels
+  double* M = smem;
+  double* W = M + TP;
+  // [NPRO][TP]: ar, ai, br, bi; w; dw/dx_c (3); dv/dx_c (v * 3 + c, 12)
+  double* pro = M + window_size(pl.max_win, nc);
+  double* pw = pro + NPRO * TP;     // [4][twojmax + 1][TP]: the powers
+  double* sbuf = pw + 4 * (twojmax + 1) * TP;        // [NW][2][bufd]
+  int2* sloc = reinterpret_cast<int2*>(sbuf + 2 * NW * pl.bufd);
+  int* swin = reinterpret_cast<int*>(sloc + NW * pl.max_wch);  // [max_win]
+  int* slots = swin + pl.max_win;                    // [K]
+  int* tch = slots + K;                              // [TP] pair channels
+  int* cnt = tch + TP;                               // live slots
 
-  for (int k0 = 0; k0 < K; k0 += TILE) {
-    if (tid < TILE) {
-      const int k = k0 + tid;
+  const long long a = blockIdx.x;
+  const int sp = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ie = ielem[a];
+  const long long rows = natoms * K;  // J rows of one direction
+
+  // live slots first in slot order, masked ones from the end
+  if (warp == 0) {
+    int nl = 0, nm = 0;
+    for (int k0 = 0; k0 < K; k0 += 32) {
+      const int k = k0 + lane;
+      const bool live = k < K && mask[a * K + k] != 0;
+      const bool dead = k < K && !live;
+      const unsigned bl = __ballot_sync(0xffffffffu, live);
+      const unsigned bd = __ballot_sync(0xffffffffu, dead);
+      const unsigned below = (1u << lane) - 1u;
+      if (live) slots[nl + __popc(bl & below)] = k;
+      if (dead) slots[K - 1 - (nm + __popc(bd & below))] = k;
+      nl += __popc(bl);
+      nm += __popc(bd);
+    }
+    if (lane == 0) cnt[0] = nl;
+  }
+  const int w0 = pl.win_ptr[sp];
+  const int nwin = pl.win_ptr[sp + 1] - w0;
+  for (int i = threadIdx.x; i < nwin; i += blockDim.x) {
+    swin[i] = pl.win_exp[w0 + i];
+    for (int e = 0; e < nc; ++e) W[i * ms + e] = 0.0;
+  }
+  const int c0 = pl.cw_ptr[sp * NW + warp];
+  const int nch = pl.cw_ptr[sp * NW + warp + 1] - c0;
+  int2* loc = sloc + warp * pl.max_wch;
+  for (int i = lane; i < nch; i += 32) loc[i] = pl.loc[c0 + i];
+  __syncthreads();
+  const int nlive = cnt[0];
+
+  // masked slots: zero rows over the split's columns
+  for (int r = pl.zr_ptr[sp]; r < pl.zr_ptr[sp + 1]; ++r) {
+    const int2 run = pl.zruns[r];
+    for (int mi = warp; mi < K - nlive; mi += NW) {
+      const long long base = a * K + slots[K - 1 - mi];
+      for (int u = run.x + lane; u < run.y; u += 32)
+        for (int c = 0; c < 3; ++c) J[(c * rows + base) * two_u + u] = 0.0;
+    }
+  }
+
+  double* buf = sbuf + warp * 2 * pl.bufd;
+  // chunk k of the warp into buffer half k & 1
+  auto fetch = [&](int k) {
+    const int2 l = loc[k];
+    const double* src = pl.blob + l.x;
+    double* dst = buf + (k & 1) * pl.bufd;
+    for (int i = lane; i < l.y / 2; i += 32) cp16(dst + 2 * i, src + 2 * i);
+    cp_commit();
+  };
+  const double* Ml = M + lane;
+  for (int t0 = 0; t0 < nlive; t0 += TP) {
+    const int np = min(TP, nlive - t0);
+    if (warp == 0) {
       Dual out[5];
-      if (k < K) {
-        const long long pk = a * K + k;
-        prologue(disp[pk * 3], disp[pk * 3 + 1], disp[pk * 3 + 2],
-                 mask[pk] != 0, ie, jelem[pk], elem, s, out);
-        sch[tid] = NC > 1 ? jelem[pk] : 0;
+      int chn = -1;
+      if (lane < np) {
+        const long long pk = a * K + slots[t0 + lane];
+        chn = jelem[pk];
+        prologue(disp[pk * 3], disp[pk * 3 + 1], disp[pk * 3 + 2], true, ie,
+                 chn, elem, s, out);
       } else {
         prologue(1.0, 0.0, 0.0, false, ie, 0, elem, s, out);
-        sch[tid] = 0;
       }
       for (int v = 0; v < 4; ++v) {
-        sv[tid][v][0] = out[v].v;
-        for (int c = 0; c < 3; ++c) sv[tid][v][1 + c] = out[v].d[c];
-      }
-      sw[tid][0] = out[4].v;
-      for (int c = 0; c < 3; ++c) sw[tid][1 + c] = out[4].d[c];
-      double* m = mono + tid * 4 * n_mono;
-      m[0] = 1.0;
-      m[n_mono] = m[2 * n_mono] = m[3 * n_mono] = 0.0;
-    }
-    __syncthreads();
-
-    // monomial chain, one degree level at a time (levels[l]..levels[l+1])
-    for (int l = 1; l < nlevels; ++l) {
-      const int m0 = levels[l];
-      const int nl = levels[l + 1] - m0;
-      for (int idx = tid; idx < TILE * nl; idx += blockDim.x) {
-        const int p = idx / nl;
-        const int mi = m0 + idx % nl;
-        const int pa = parent[mi];
-        const int vi = var[mi];
-        double* m = mono + p * 4 * n_mono;
-        const double xv = sv[p][vi][0];
-        const double mp = m[pa];
+        pro[v * TP + lane] = out[v].v;
         for (int c = 0; c < 3; ++c)
-          m[(1 + c) * n_mono + mi] =
-              m[(1 + c) * n_mono + pa] * xv + mp * sv[p][vi][1 + c];
-        m[mi] = mp * xv;
+          pro[(8 + v * 3 + c) * TP + lane] = out[v].d[c];
       }
-      __syncthreads();
-    }
-
-    // change of basis: thread tid owns U column tid
-    if (tid < two_u) {
-      const int q0 = l_ptr[tid];
-      const int q1 = l_ptr[tid + 1];
-      for (int p = 0; p < TILE && k0 + p < K; ++p) {
-        const double* m = mono + p * 4 * n_mono;
-        double u = 0.0, t0 = 0.0, t1 = 0.0, t2 = 0.0;
-        for (int q = q0; q < q1; ++q) {
-          const int row = l_row[q];
-          const double c = l_val[q];
-          u += c * m[row];
-          t0 += c * m[n_mono + row];
-          t1 += c * m[2 * n_mono + row];
-          t2 += c * m[3 * n_mono + row];
-        }
-        const double wp = sw[p][0];
-        const long long out = (a * K + k0 + p) * two_u + tid;
-        const double wuv = wp * u;
-        wu[out] = wuv;
-        J[out] = wp * t0 + sw[p][1] * u;
-        J[stream_stride + out] = wp * t1 + sw[p][2] * u;
-        J[2 * stream_stride + out] = wp * t2 + sw[p][3] * u;
-        const int ch = sch[p];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          if (c == ch) acc[c] += wuv;
+      pro[4 * TP + lane] = out[4].v;
+      for (int c = 0; c < 3; ++c) pro[(5 + c) * TP + lane] = out[4].d[c];
+      tch[lane] = nc == 1 ? 0 : chn;
+      for (int v = 0; v < 4; ++v) {
+        double x = 1.0;
+        for (int e = 0; e <= twojmax; ++e) {
+          pw[(v * (twojmax + 1) + e) * TP + lane] = x;
+          x *= out[v].v;
         }
       }
     }
     __syncthreads();
-  }
-  if (tid < two_u) {
+    const double w = pro[4 * TP + lane];
+    double wt[3], dv[4][3];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const bool self = NC == 1 || wselfall || c == ie;
-      ut[(a * NC + c) * two_u + tid] = acc[c] + (self ? selfvec[tid] : 0.0);
+    for (int c = 0; c < 3; ++c) {
+      wt[c] = pro[(5 + c) * TP + lane];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) dv[v][c] = pro[(8 + v * 3 + c) * TP + lane];
     }
+    {
+      const double* pl0 = pw + lane;
+      const double* pl1 = pl0 + (twojmax + 1) * TP;
+      const double* pl2 = pl1 + (twojmax + 1) * TP;
+      const double* pl3 = pl2 + (twojmax + 1) * TP;
+      for (int i = warp; i < nwin; i += NW) {
+        const int e = swin[i];
+        M[i * ms + lane] = pl0[(e & 255) * TP] * pl1[((e >> 8) & 255) * TP] *
+                           pl2[((e >> 16) & 255) * TP] * pl3[(e >> 24) * TP];
+      }
+    }
+    __syncthreads();
+    // W += the tile's pairs, in neighbor order, a thread a monomial
+    for (int i = threadIdx.x; i < nwin; i += blockDim.x) {
+      const double* mi = M + i * ms;
+      double* wi = W + i * ms;
+      if (nc == 1) {
+        double v = wi[0];
+        for (int p = 0; p < np; ++p) v += pro[4 * TP + p] * mi[p];
+        wi[0] = v;
+      } else {
+        for (int p = 0; p < np; ++p) {
+          const int e = tch[p];
+          if (e >= 0 && e < nc) wi[e] += pro[4 * TP + p] * mi[p];
+        }
+      }
+    }
+
+    if (nch > 0) fetch(0);
+    for (int k = 0; k < nch; ++k) {
+      if (k + 1 < nch) {
+        fetch(k + 1);
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
+      }
+      __syncwarp();
+      const double* hb = buf + (k & 1) * pl.bufd;
+      const int* m = reinterpret_cast<const int*>(hb);
+      const double* b = hb + HDR;
+      const int col0 = m[0], ncols = m[1];
+      double jv[3][CW];
+      int st = 0;
+#pragma unroll
+      for (int cc = 0; cc < CW; ++cc) {
+        if (cc >= ncols) break;
+        double col[5];
+#pragma unroll
+        for (int g = 0; g < 5; ++g) {
+          const int st1 = m[4 + cc * 5 + g];
+          col[g] = run_sum(b, st, st1, Ml);
+          st = st1;
+        }
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const double tan = dv[0][c] * col[1] + dv[1][c] * col[2] +
+                             dv[2][c] * col[3] + dv[3][c] * col[4];
+          jv[c][cc] = w * tan + wt[c] * col[0];
+        }
+      }
+      // the lane's row segments, 16 bytes a store where aligned
+      if (lane < np) {
+        const long long kk = a * K + slots[t0 + lane];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          double* row = J + (c * rows + kk) * two_u + col0;
+          if ((col0 & 1) == 0) {
+#pragma unroll
+            for (int cc = 0; cc < CW; cc += 2) {
+              if (cc + 1 < ncols)
+                *reinterpret_cast<double2*>(row + cc) =
+                    make_double2(jv[c][cc], jv[c][cc + 1]);
+              else if (cc < ncols)
+                row[cc] = jv[c][cc];
+            }
+          } else {
+            row[0] = jv[c][0];
+#pragma unroll
+            for (int cc = 1; cc < CW; cc += 2) {
+              if (cc + 1 < ncols)
+                *reinterpret_cast<double2*>(row + cc) =
+                    make_double2(jv[c][cc], jv[c][cc + 1]);
+              else if (cc < ncols)
+                row[cc] = jv[c][cc];
+            }
+          }
+        }
+      }
+      __syncwarp();
+    }
+    __syncthreads();
   }
+
+  // utot: each column's U entries applied to W, a lane a channel
+  for (int k = 0; k < nch; ++k) {
+    fetch(k);
+    cp_wait<0>();
+    __syncwarp();
+    const double* hb = buf + (k & 1) * pl.bufd;
+    const int* m = reinterpret_cast<const int*>(hb);
+    for (int cc = 0; cc < m[1]; ++cc) {
+      const int u = m[0] + cc;
+      const int st = cc == 0 ? 0 : m[4 + cc * 5 - 1];
+      for (int e = lane; e < nc; e += 32) {
+        const bool self = nc == 1 || wselfall || e == ie;
+        ut[(a * nc + e) * two_u + u] =
+            run_sum(hb + HDR, st, m[4 + cc * 5], W + e) +
+            (self ? selfvec[u] : 0.0);
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// Shared memory of one block: the window, the tile's prologue and powers,
+// the warps' double buffers, the warps' chunk locations, the window's
+// exponents, the slot lists (`snap_kernels.pair_u_smem`).
+long long pair_u_duals_smem(const Plan& pl, int twojmax, int nc, int K) {
+  return static_cast<long long>(sizeof(double)) *
+             (window_size(pl.max_win, nc) + NPRO * TP +
+              4LL * (twojmax + 1) * TP + 2LL * NW * pl.bufd) +
+         static_cast<long long>(sizeof(int)) *
+             (2 * NW * pl.max_wch + pl.max_win + K + TP + 1);
 }
 
 }  // namespace
 
 // disp (N, K, 3) f64, jelem (N, K) i32, mask (N, K) u8, ielem (N,) i32,
-// elem (nelem, 4) f64; monomial plan parent/var (n_mono,) i32 and levels
-// (nlevels + 1,) i32; L as column CSR l_ptr (2U + 1,), l_row, l_val; nc
-// element channels of utot (1, or nelements under chemflag, at most
-// MAX_CHEM) and wselfallflag; selfvec (2U,), 2U <= MAX_THREADS.  Writes wu
-// (N, K, 2U), J (3, N, K, 2U), ut (N, nc * 2U).
+// elem (nelem, 4) f64; the split plan of `snap_kernels.pair_u_tables`
+// (nsplit splits; the largest window max_win slots, max_wch chunks of a
+// warp, and bufd doubles a buffer half); twojmax (the largest exponent of
+// a monomial); nc element channels of utot and
+// wselfallflag; selfvec (2U,).  Writes J (3, N, K, 2U) and ut (N, nc * 2U).
 extern "C" int pair_u_duals(
     const double* disp, const int* jelem, const unsigned char* mask,
     const int* ielem, const double* elem, double rcutfac, double rfac0,
     double rmin0, int switchflag, int switchinnerflag, long long natoms,
-    int K, const int* parent, const int* var, const int* levels, int nlevels,
-    int n_mono, const int* l_ptr, const int* l_row, const double* l_val,
-    int two_u, int nc, int wselfall, const double* selfvec, double* wu,
-    double* J, double* ut, void* stream) {
+    int K, const double* blob, const int* loc, const int* cw_ptr,
+    const int* win_ptr, const int* win_exp, const int* zr_ptr,
+    const int* zruns, int nsplit, int max_win, int max_wch, int bufd,
+    int twojmax, int two_u, int nc, int wselfall, const double* selfvec,
+    double* J,
+    double* ut, void* stream) {
   const Scalars s{rcutfac, rfac0, rmin0, switchflag, switchinnerflag};
-  const int threads = ((two_u + 31) / 32) * 32;
-  if (threads > MAX_THREADS) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = nc == 1   ? pair_u_duals_kernel<1>
-                : nc == 2 ? pair_u_duals_kernel<2>
-                : nc == 3 ? pair_u_duals_kernel<3>
-                : nc == 4 ? pair_u_duals_kernel<MAX_CHEM>
-                          : nullptr;
-  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(double) * TILE * 4 * n_mono;
-  const int err = fs_allow_smem(kernel, smem);
+  const Plan pl{blob,    reinterpret_cast<const int2*>(loc),
+                cw_ptr,  win_ptr,
+                win_exp, zr_ptr,
+                reinterpret_cast<const int2*>(zruns),
+                max_win, max_wch,
+                bufd};
+  const long long smem = pair_u_duals_smem(pl, twojmax, nc, K);
+  if (nsplit < 1 || nsplit > 65535 || bufd % 2 || smem > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = fs_allow_smem(pair_u_duals_kernel, smem);
   if (err) return err;
   if (natoms > 0) {
-    kernel<<<static_cast<unsigned>(natoms), threads, smem,
-             static_cast<cudaStream_t>(stream)>>>(
-        disp, jelem, mask, ielem, elem, s, natoms, K, parent, var, levels,
-        nlevels, n_mono, l_ptr, l_row, l_val, two_u, wselfall, selfvec, wu,
-        J, ut);
+    const dim3 grid(static_cast<unsigned>(natoms),
+                    static_cast<unsigned>(nsplit));
+    pair_u_duals_kernel<<<grid, NW * 32, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+        disp, jelem, mask, ielem, elem, s, natoms, K, pl, twojmax, two_u, nc,
+        wselfall, selfvec, J, ut);
   }
   return static_cast<int>(cudaGetLastError());
 }

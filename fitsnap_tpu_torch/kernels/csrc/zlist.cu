@@ -8,72 +8,143 @@
 // and the channel-pair loop of `_chem_b_and_dbdu`, ops/snap.py:1005-1010).
 // The TPU form gathers padded term lists and reduces them with (A, P) x
 // (P, D^2) GEMMs against a dense M that is mostly zeros; here the host folds
-// M into a compact term list (13,868 terms over 3,136 outputs at twojmax 6),
-// sorted by output and indexed by a CSR pointer.
+// M into a compact term list (13,868 terms over 3,136 outputs at twojmax 6).
 //
-// Bound on the H100: bytes at small batches (the z outputs, 2 x nc^2 x 3136
-// doubles per atom at twojmax 6, against one nc x 2U row of input); the term
-// work is about 110 kflop per atom and channel pair.
+// Bound on the H100: bytes (the z outputs, 2 x nc^2 x 3136 doubles per atom
+// at twojmax 6, against one nc x 2U row of input); the term work is about
+// 110 kflop per atom and channel pair.
 //
-// Design: one block per atom.  The atom's utot row (nc x 2U doubles) is
-// staged in shared memory; each thread owns z outputs and sums their terms in
-// term order, reading the term table through the read-only cache (it is the
-// same for every atom and channel pair, so it stays in L1/L2).  No atomics:
-// deterministic.
+// Design (host schedule `snap_kernels.zlist_tables`).  Only 1,388 of the
+// 3,136 outputs have a term at twojmax 6 (4,367 of 10,125 at twojmax 8);
+// the rest are structurally zero and get plain zero stores.  The outputs
+// with terms are sorted by term count and dealt to warps 32 at a time, so
+// that the lanes of a warp sum nearly equal counts; each group's terms are
+// packed lane-interleaved as 16-byte records (coefficient, i1, i2), padded
+// with zero terms to the group's longest.
+//   * A block is (atom group, segment).  It stages the utot rows of its
+//     atoms (8 with one channel, fewer with more) in shared memory; every
+//     record a lane reads (4 in flight ahead of use) is applied to each
+//     (atom, channel pair) of the block from registers, 8 at a time. 
+//   * The segments (the grid's second axis, sized to fill the card) take
+//     the groups round-robin and an equal share of the zero outputs.
+// Each output's terms are summed in the host's term order.  No atomics: the
+// output repeats bit for bit.
 #include "common.cuh"
 
 namespace {
 
-__global__ void zlist_kernel(const double* __restrict__ ut, int two_u, int nc,
-                             const int* __restrict__ z_ptr,
-                             const int* __restrict__ z_i1,
-                             const int* __restrict__ z_i2,
-                             const double* __restrict__ z_c, int nz,
-                             double* __restrict__ zr,
-                             double* __restrict__ zi) {
-  extern __shared__ double su[];  // [nc][2U]: real | imag per channel
-  const long long a = blockIdx.x;
+constexpr int NW = 8;   // warps of a block
+constexpr int CB = 8;   // (atom, channel pair) combinations a pass
+constexpr int PF = 4;   // records a lane keeps in flight
+
+__global__ void __launch_bounds__(NW * 32) zlist_kernel(
+    const double* __restrict__ ut, long long natoms, int two_u, int nc,
+    int ab, const double2* __restrict__ rec, const int2* __restrict__ grp,
+    const int* __restrict__ grp_out, int ngrp, const int* __restrict__ zo,
+    int nzero, int nz, double* __restrict__ zr, double* __restrict__ zi) {
+  extern __shared__ double su[];  // [ab][nc][2U]: real | imag per channel
+  const long long a0 = static_cast<long long>(blockIdx.x) * ab;
+  const int sg = blockIdx.y, nseg = gridDim.y;
   const int U = two_u / 2;
   const int row = nc * two_u;
-  const long long nout = static_cast<long long>(nc) * nc * nz;
-  for (int i = threadIdx.x; i < row; i += blockDim.x) su[i] = ut[a * row + i];
+  const int nat = static_cast<int>(min(static_cast<long long>(ab),
+                                       natoms - a0));
+  for (int i = threadIdx.x; i < ab * row; i += blockDim.x)
+    su[i] = i < nat * row ? ut[a0 * row + i] : 0.0;
   __syncthreads();
-  for (int o = threadIdx.x; o < nout; o += blockDim.x) {
-    const int pair = o / nz;
-    const int oz = o % nz;
-    const double* u1 = su + (pair / nc) * two_u;
-    const double* u2 = su + (pair % nc) * two_u;
-    double sr = 0.0, si = 0.0;
-    const int q1 = z_ptr[oz + 1];
-    for (int q = z_ptr[oz]; q < q1; ++q) {
-      const int i1 = z_i1[q];
-      const int i2 = z_i2[q];
-      const double c = z_c[q];
-      const double ar = u1[i1], ai = u1[U + i1];
-      const double br = u2[i2], bi = u2[U + i2];
-      sr += (ar * br - ai * bi) * c;
-      si += (ar * bi + ai * br) * c;
+  const int npair = nc * nc;
+  const long long out0 = a0 * npair;  // first (atom, channel pair) row
+
+  // the segment's share of the structurally zero outputs
+  const int z0 = static_cast<int>(static_cast<long long>(nzero) * sg / nseg);
+  const int nzs =
+      static_cast<int>(static_cast<long long>(nzero) * (sg + 1) / nseg) - z0;
+  for (int i = threadIdx.x; i < nat * npair * nzs; i += blockDim.x) {
+    const long long o = (out0 + i / nzs) * nz + zo[z0 + i % nzs];
+    zr[o] = 0.0;
+    zi[o] = 0.0;
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ncomb = nat * npair;
+  for (int g = sg * NW + warp; g < ngrp; g += nseg * NW) {
+    const int2 gb = grp[g];  // first record, terms of the group
+    const int o = grp_out[g * 32 + lane];
+    const double2* rp = rec + gb.x + lane;
+    for (int cb0 = 0; cb0 < ncomb; cb0 += CB) {
+      int off1[CB], off2[CB];
+#pragma unroll
+      for (int i = 0; i < CB; ++i) {
+        const int cb = min(cb0 + i, ncomb - 1);
+        const int at = cb / npair, pr = cb % npair;
+        off1[i] = (at * nc + pr / nc) * two_u;
+        off2[i] = (at * nc + pr % nc) * two_u;
+      }
+      double sr[CB], si[CB];
+#pragma unroll
+      for (int i = 0; i < CB; ++i) sr[i] = si[i] = 0.0;
+      // records PF ahead in registers
+      double2 ring[PF];
+#pragma unroll
+      for (int j = 0; j < PF; ++j)
+        ring[j] = j < gb.y ? rp[j * 32] : make_double2(0.0, 0.0);
+      for (int q0 = 0; q0 < gb.y; q0 += PF) {
+#pragma unroll
+        for (int j = 0; j < PF; ++j) {
+          const int q = q0 + j;
+          if (q >= gb.y) break;
+          const double2 r = ring[j];
+          if (q + PF < gb.y) ring[j] = rp[(q + PF) * 32];
+          const long long b = __double_as_longlong(r.y);
+          const int i1 = static_cast<int>(b & 0xffffffffLL);
+          const int i2 = static_cast<int>(b >> 32);
+          const double c = r.x;
+#pragma unroll
+          for (int i = 0; i < CB; ++i) {
+            const double ar = su[off1[i] + i1], ai = su[off1[i] + U + i1];
+            const double br = su[off2[i] + i2], bi = su[off2[i] + U + i2];
+            sr[i] += (ar * br - ai * bi) * c;
+            si[i] += (ar * bi + ai * br) * c;
+          }
+        }
+      }
+      if (o >= 0) {
+#pragma unroll
+        for (int i = 0; i < CB; ++i) {
+          if (cb0 + i < ncomb) {
+            const long long idx = (out0 + cb0 + i) * nz + o;
+            zr[idx] = sr[i];
+            zi[idx] = si[i];
+          }
+        }
+      }
     }
-    zr[a * nout + o] = sr;
-    zi[a * nout + o] = si;
   }
 }
 
 }  // namespace
 
-// ut (N, nc * 2U) f64; term table z_ptr (nz + 1,), z_i1, z_i2 (nterms,) i32
-// and z_c (nterms,) f64.  Writes zr, zi (N, nc * nc, nz).
+// ut (N, nc * 2U) f64; the schedule of `snap_kernels.zlist_tables`: rec
+// (R, 2) f64 records (coefficient; i1 | i2 << 32 as bits), grp (ngrp, 2)
+// i32 (first record, terms), grp_out (ngrp * 32,) i32 (-1: no output), zo
+// (nzero,) i32 the outputs without terms; ab atoms a block, nseg segments.
+// Writes zr, zi (N, nc * nc, nz).
 extern "C" int zlist(const double* ut, long long natoms, int two_u, int nc,
-                     const int* z_ptr, const int* z_i1, const int* z_i2,
-                     const double* z_c, int nz, double* zr, double* zi,
-                     void* stream) {
-  const size_t smem = sizeof(double) * nc * two_u;
+                     int ab, int nseg, const double* rec, const int* grp,
+                     const int* grp_out, int ngrp, const int* zo, int nzero,
+                     int nz, double* zr, double* zi, void* stream) {
+  const size_t smem = sizeof(double) * ab * nc * two_u;
+  if (ab < 1 || nseg < 1 || nseg > 65535 || smem > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int err = fs_allow_smem(zlist_kernel, smem);
   if (err) return err;
   if (natoms > 0) {
-    zlist_kernel<<<static_cast<unsigned>(natoms), 256, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
-        ut, two_u, nc, z_ptr, z_i1, z_i2, z_c, nz, zr, zi);
+    const dim3 grid(static_cast<unsigned>((natoms + ab - 1) / ab),
+                    static_cast<unsigned>(nseg));
+    zlist_kernel<<<grid, NW * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+        ut, natoms, two_u, nc, ab, reinterpret_cast<const double2*>(rec),
+        reinterpret_cast<const int2*>(grp), grp_out, ngrp, zo, nzero, nz, zr,
+        zi);
   }
   return static_cast<int>(cudaGetLastError());
 }

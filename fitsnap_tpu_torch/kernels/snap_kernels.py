@@ -30,12 +30,14 @@ from fitsnap_tpu_torch.kernels.launch import (SMEM_LIMIT as _SMEM_LIMIT,
                                               launch as _launch,
                                               on_cpu as _on_cpu, ptr as _ptr)
 from fitsnap_tpu_torch.ops import snap as ops
+from fitsnap_tpu_torch.ops.mono import mono_blocks, mono_plan
 
 _P, _I, _LL, _D = kl.P, kl.I, kl.LL, kl.D
 kl.register("pair_u_duals", "pair_u_duals",
-            [_P] * 5 + [_D] * 3 + [_I, _I, _LL, _I] + [_P] * 3 + [_I, _I]
-            + [_P] * 3 + [_I] * 3 + [_P] * 5)
-kl.register("zlist", "zlist", [_P, _LL, _I, _I] + [_P] * 4 + [_I] + [_P] * 3)
+            [_P] * 5 + [_D] * 3 + [_I, _I, _LL, _I] + [_P] * 7 + [_I] * 8
+            + [_P] * 4)
+kl.register("zlist", "zlist", [_P, _LL] + [_I] * 4 + [_P] * 3 + [_I, _P]
+            + [_I] * 2 + [_P] * 3)
 kl.register("dbdd", "dbdd", [_P] * 14 + [_LL] + [_I] * 7 + [_P] * 3)
 kl.register("quad_chain", "quad_chain", [_P] * 5 + [_LL] + [_I] * 3
             + [_P] * 3)
@@ -65,42 +67,243 @@ def _channels(p, chem, name):
 
 
 def pair_u_duals_plain(disp, jelem, mask, ielem, p):
-    """Plain K1, both modes: (wu (N, K, 2U), J (3, N, K, 2U), ut (N,
-    nchem*2U))."""
+    """Plain K1, both modes: (J (3, N, K, 2U), ut (N, nchem*2U))."""
     wu, J = ops._pair_wu_duals(disp, jelem, mask, ielem, p)
-    return wu, J, ops._utot_from_wu(wu, jelem, ielem, p)
+    return J, ops._utot_from_wu(wu, jelem, ielem, p)
 
 
-_K1_THREADS = 640   # threads (U columns) of a block of csrc/pair_u_duals.cu
-_K1_CHEM = 4        # utot channels it is compiled for
+# block shape of csrc/pair_u_duals.cu: warps, pairs of a tile, most columns
+# of a chunk, prologue doubles a pair
+_K1_WARPS, _K1_TILE, _K1_CW, _K1_PRO = 8, 32, 4, 20
+
+
+def _k1_row_stride(nc):
+    """Row stride (doubles) of K1's window: the tile's pairs, then the nc
+    channels of the weighted monomial sums, odd."""
+    return (_K1_TILE + nc) | 1
+
+
+def _k1_columns(p):
+    """K1's change of basis by column, cached on the plan: the monomial
+    exponents (n_mono, 4), the degree blocks (`mono_blocks`), and for each
+    (column,
+    accumulator) its nonzeros (monomial, coefficient) in monomial order,
+    accumulators U = L M and dU/dv = L_v M (v = ar, ai, br, bi) with
+    L_v[m, u] = (e_v(m) + 1) L[m + e_v, u]; e_ptr (2U * 5 + 1) their CSR."""
+    if p.k1 is not None:
+        return p.k1["columns"]
+    exps, _, _, L = mono_plan(p.twojmax)
+    exps = np.asarray(exps)
+    index = {tuple(e): i for i, e in enumerate(exps)}
+    mats = [L]
+    for v in range(4):
+        Lv = np.zeros_like(L)
+        for m in np.nonzero(exps[:, v])[0]:
+            e = exps[m].copy()
+            e[v] -= 1
+            Lv[index[tuple(e)]] = exps[m, v] * L[m]
+        mats.append(Lv)
+    stack = np.stack(mats, 1).transpose(2, 1, 0)     # (2U, 5, n_mono)
+    col, acc, mono = np.nonzero(stack)
+    counts = np.bincount(col * 5 + acc, minlength=stack.shape[0] * 5)
+    cols = SimpleNamespace(
+        exps=exps, blocks=mono_blocks(p.twojmax)[0], mono=mono,
+        coef=stack[col, acc, mono],
+        e_ptr=np.concatenate([[0], np.cumsum(counts)]))
+    p.k1 = {"columns": cols}
+    return cols
+
+
+_K1_ENT_CAP = 96   # entries of a chunk (more only for a column alone)
+
+
+def _k1_chunks(p):
+    """K1's column chunks in level order, a level's real columns and then
+    its imaginary ones: (first column, columns), at most 4 columns (3 from
+    an odd column, so that the next chunk starts even) and `_K1_ENT_CAP`
+    entries unless one column alone holds more; cached on the plan."""
+    cols = _k1_columns(p)
+    if "chunks" in p.k1:
+        return p.k1["chunks"]
+    per_col = np.diff(cols.e_ptr).reshape(-1, 5).sum(1)
+    U = p.u_len
+    chunks = []
+    for _, _, c0, c1 in cols.blocks:
+        for lo, hi in ((c0, c1), (U + c0, U + c1)):
+            u = lo
+            while u < hi:
+                n = 1
+                while (n < _K1_CW - u % 2 and u + n < hi
+                       and per_col[u:u + n + 1].sum() <= _K1_ENT_CAP):
+                    n += 1
+                if u + n < hi and (u + n) % 2 and n > 1:
+                    n -= 1
+                chunks.append((u, n))
+                u += n
+    p.k1["chunks"] = chunks
+    return chunks
+
+
+def _k1_steps(cols, u, n):
+    """A chunk's steps (`pair_u_tables`): (coefficients (steps, 4), window
+    monomials (steps, 4), -1 where a slot has no entry, and the step ends
+    of the 4 x 5 (column, accumulator) runs).  A run's entries fill its
+    steps in order, 4 a step; the last step is padded."""
+    coef, mono, ends = [], [], []
+    for cc in range(_K1_CW):
+        for g in range(5):
+            if cc < n:
+                q = np.arange(cols.e_ptr[5 * (u + cc) + g],
+                              cols.e_ptr[5 * (u + cc) + g + 1])
+                depth = -(-len(q) // _K1_CW)
+                c = np.zeros(depth * _K1_CW)
+                m = np.full(depth * _K1_CW, -1, np.int64)
+                c[:len(q)] = cols.coef[q]
+                m[:len(q)] = cols.mono[q]
+                coef.append(c.reshape(-1, _K1_CW))
+                mono.append(m.reshape(-1, _K1_CW))
+            ends.append(sum(len(x) for x in coef))
+    return np.concatenate(coef), np.concatenate(mono), ends
+
+
+def pair_u_tables(p, nsplit):
+    """K1's plan with `nsplit` splits, cached on the plan: the chunks
+    (`_k1_chunks`) cut into `nsplit` contiguous ranges of about equal
+    entries; a split's window lists the monomials its columns read, and
+    warp w of a block takes the split's chunks 8 r + w.  A chunk is a
+    header of 24 ints (first column, columns, two unused, the step ends of
+    its 20 (column, accumulator) runs; accumulators U, dU/dar, dU/dai,
+    dU/dbr, dU/dbi), then its steps of 4 entries (`_k1_steps`): 4
+    coefficients and the 4 window offsets slot * `_k1_row_stride` as
+    uint16 in one double (an empty slot has coefficient 0 and offset 0), 5
+    doubles a step, the chunk padded to an even number of doubles.  Tensors
+    on the plan's device: blob (f64, the chunks), loc (n, 2) i32 (first
+    double and doubles of each chunk) by (split, warp), cw_ptr (nsplit * 8
+    + 1); win_ptr, win_exp (p | q << 8 | r << 16 | s << 24); zr_ptr, zruns
+    (n, 2) each split's column runs [u0, u1); and the sizes of the kernel's
+    buffers: the largest window, chunks of a warp, and doubles of a
+    chunk."""
+    cols = _k1_columns(p)
+    if nsplit in p.k1:
+        return p.k1[nsplit]
+    chunks = _k1_chunks(p)
+    if not 1 <= nsplit <= len(chunks):
+        raise ValueError(f"pair_u_duals: {nsplit} splits of "
+                         f"{len(chunks)} chunks")
+    per_col = np.diff(cols.e_ptr).reshape(-1, 5).sum(1)
+    weight = np.array([per_col[u:u + n].sum() + 16 * n for u, n in chunks],
+                      np.float64)
+    mid = np.cumsum(weight) - weight / 2
+    split = np.minimum((mid * nsplit / weight.sum()).astype(np.int64),
+                       nsplit - 1)
+    ms = _k1_row_stride(p.nchem)
+    pieces, loc, cw_ptr, win_ptr, win_exp = [], [], [0], [0], []
+    zr_ptr, zruns = [0], []
+    size = max_win = max_wch = max_len = 0
+    for s in range(nsplit):
+        mine = [chunks[i] for i in np.nonzero(split == s)[0]]
+        ucols = [u + i for u, n in mine for i in range(n)]
+        sel = np.concatenate([np.arange(cols.e_ptr[5 * u],
+                                        cols.e_ptr[5 * u + 5])
+                              for u in ucols] + [np.zeros(0, np.int64)])
+        window = np.unique(cols.mono[sel])
+        slot = np.zeros(cols.exps.shape[0], np.int64)
+        slot[window] = np.arange(len(window))
+        e = cols.exps[window]
+        win_exp.extend(e[:, 0] | e[:, 1] << 8 | e[:, 2] << 16 | e[:, 3] << 24)
+        win_ptr.append(len(win_exp))
+        max_win = max(max_win, len(window))
+        by_warp = [[] for _ in range(_K1_WARPS)]
+        for k, (u, n) in enumerate(mine):
+            c, m, ends = _k1_steps(cols, u, n)
+            head = np.array([u, n, 0, 0, *ends], np.int32)
+            off = np.where(m < 0, 0, slot[np.maximum(m, 0)]) * ms
+            if off.max(initial=0) > 0xffff:
+                raise ValueError(f"pair_u_duals: window offset {off.max()} "
+                                 f"exceeds 16 bits")
+            steps = np.zeros((len(c), 5))
+            steps[:, :4] = c
+            steps[:, 4] = off.astype(np.uint16).view(np.float64)[:, 0]
+            piece = np.concatenate([head.view(np.float64), steps.reshape(-1),
+                                    np.zeros(len(c) % 2)])
+            by_warp[k % _K1_WARPS].append((size, len(piece)))
+            pieces.append(piece)
+            size += len(piece)
+            max_len = max(max_len, len(piece))
+        for lst in by_warp:
+            loc.extend(lst)
+            cw_ptr.append(len(loc))
+            max_wch = max(max_wch, len(lst))
+        for u in sorted(ucols):
+            if len(zruns) > zr_ptr[-1] and zruns[-1][1] == u:
+                zruns[-1][1] = u + 1
+            else:
+                zruns.append([u, u + 1])
+        zr_ptr.append(len(zruns))
+
+    def t(x, width=None):
+        x = np.asarray(x, np.int64).astype(np.int32)
+        return torch.as_tensor(x if width is None else x.reshape(-1, width),
+                               device=p.device)
+
+    plan = SimpleNamespace(
+        blob=torch.as_tensor(np.concatenate(pieces), device=p.device),
+        loc=t(loc, 2), cw_ptr=t(cw_ptr), win_ptr=t(win_ptr),
+        win_exp=t(win_exp), zr_ptr=t(zr_ptr), zruns=t(zruns, 2),
+        nsplit=nsplit, max_win=max_win, max_wch=max_wch, bufd=max_len,
+        twojmax=p.twojmax)
+    p.k1[nsplit] = plan
+    return plan
+
+
+def pair_u_smem(plan, nc, K):
+    """Bytes of shared memory of a K1 block (csrc/pair_u_duals.cu)."""
+    return 8 * ((plan.max_win * _k1_row_stride(nc) + 1) // 2 * 2
+                + _K1_PRO * _K1_TILE + 4 * (plan.twojmax + 1) * _K1_TILE
+                + 2 * _K1_WARPS * plan.bufd) \
+        + 4 * (2 * _K1_WARPS * plan.max_wch + plan.max_win + K
+               + _K1_TILE + 1)
+
+
+def pair_u_split_count(p, N, K, sms):
+    """Splits of K1 at N atoms on a card of `sms` SMs: the fewest (a power
+    of two) whose window fits a block's shared memory and that give a block
+    to every other SM (or an eighth of the chunks to a split); raises when
+    no split count fits."""
+    nchunks = len(_k1_chunks(p))
+    counts = [1 << i for i in range(nchunks.bit_length())
+              if 1 << i <= nchunks]
+    for s in counts:
+        if pair_u_smem(pair_u_tables(p, s), p.nchem, K) <= _SMEM_LIMIT and (
+                2 * N * s >= sms or 8 * s > nchunks):
+            return s
+    raise ValueError(f"pair_u_duals: no split of the {nchunks} column "
+                     f"chunks fits a block's shared memory at K = {K}, "
+                     f"{p.nchem} channel(s)")
 
 
 def _pair_u_duals_launch(disp, jelem, mask, ielem, p):
     N, K = mask.shape
     two_u = 2 * p.u_len
-    if two_u > _K1_THREADS:
-        raise ValueError(f"pair_u_duals: 2U = {two_u} exceeds the "
-                         f"{_K1_THREADS} columns of a block (twojmax <= 8)")
-    if p.nchem > _K1_CHEM:
-        raise ValueError(f"pair_u_duals_chem: {p.nchem} element channels; "
-                         f"the kernel takes at most {_K1_CHEM}")
     _check(disp, "disp", torch.float64, (N, K, 3))
     _check(jelem, "jelem", torch.int32, (N, K))
     _check(mask, "mask", torch.bool, (N, K))
     _check(ielem, "ielem", torch.int32, (N,))
     dev = disp.device
-    wu = torch.empty((N, K, two_u), dtype=torch.float64, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    pl = pair_u_tables(p, pair_u_split_count(p, N, K, sms))
     J = torch.empty((3, N, K, two_u), dtype=torch.float64, device=dev)
     ut = torch.empty((N, p.nchem * two_u), dtype=torch.float64, device=dev)
     _launch("pair_u_duals", dev,
             _ptr(disp), _ptr(jelem), _ptr(mask), _ptr(ielem), _ptr(p.elem),
             p.rcutfac, p.rfac0, p.rmin0, int(p.switchflag),
-            int(p.switchinnerflag), N, K, _ptr(p.mono_parent),
-            _ptr(p.mono_var), _ptr(p.mono_levels_t),
-            len(p.mono_levels) - 1, p.mono_parent.shape[0],
-            _ptr(p.l_ptr), _ptr(p.l_row), _ptr(p.l_val), two_u, p.nchem,
-            int(p.wselfallflag), _ptr(p.selfvec), _ptr(wu), _ptr(J), _ptr(ut))
-    return wu, J, ut
+            int(p.switchinnerflag), N, K, _ptr(pl.blob), _ptr(pl.loc),
+            _ptr(pl.cw_ptr), _ptr(pl.win_ptr), _ptr(pl.win_exp),
+            _ptr(pl.zr_ptr), _ptr(pl.zruns), pl.nsplit, pl.max_win,
+            pl.max_wch, pl.bufd, p.twojmax, two_u, p.nchem,
+            int(p.wselfallflag),
+            _ptr(p.selfvec), _ptr(J), _ptr(ut))
+    return J, ut
 
 
 def pair_u_duals(disp, jelem, mask, ielem, p):
@@ -147,15 +350,72 @@ def zlist_chem_plain(ut, p):
     return ops._compute_zcat_chem(ut, p)
 
 
+_K2_WARPS, _K2_COMBOS = 8, 8   # csrc/zlist.cu: warps, combinations a pass
+
+
+def zlist_tables(p):
+    """K2's schedule, cached on the plan (numpy): the outputs with terms
+    sorted by term count (most first, then by index) in groups of 32, one
+    output a lane (-1 past the end): grp_out (G * 32); each group's terms
+    lane-interleaved, term q of lane l at record first + 32 q + l, padded
+    with zero terms to the group's count: rec (R, 4) i32 (the coefficient's
+    two words, i1, i2), grp (G, 2) (first record, count); zo the outputs
+    without terms, in order."""
+    if p.k2 is not None:
+        return p.k2
+    out = p.z_out.cpu().numpy()
+    ptr = p.z_ptr.cpu().numpy().astype(np.int64)
+    i1, i2 = p.z_i1.cpu().numpy(), p.z_i2.cpu().numpy()
+    coef = p.z_c.cpu().numpy()
+    count = np.bincount(out, minlength=p.nz)
+    live = np.nonzero(count)[0]
+    order = live[np.lexsort((live, -count[live]))]
+    G = -(-len(order) // 32)
+    grp_out = np.full(G * 32, -1, np.int64)
+    grp_out[:len(order)] = order
+    grp, terms = [], []
+    first = 0
+    for g in range(G):
+        lanes = grp_out[g * 32:(g + 1) * 32]
+        n = np.where(lanes >= 0, count[np.maximum(lanes, 0)], 0)
+        q = np.arange(n.max())[:, None]
+        idx = np.where(q < n[None, :], ptr[np.maximum(lanes, 0)] + q, -1)
+        terms.append(idx.reshape(-1))
+        grp.append((first, n.max()))
+        first += idx.size
+    terms = np.concatenate(terms)
+    pad = terms < 0
+    rec = np.zeros((terms.size, 2), np.int64)
+    rec[:, 0] = np.where(pad, 0.0, coef[terms]).view(np.int64)
+    rec[:, 1] = (np.where(pad, 0, i1[terms]).astype(np.int64)
+                 | np.where(pad, 0, i2[terms]).astype(np.int64) << 32)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.int64).astype(np.int32),
+                               device=p.device)
+
+    p.k2 = SimpleNamespace(
+        rec=torch.as_tensor(rec.view(np.int32).reshape(-1, 4),
+                            device=p.device),
+        grp=t(np.array(grp).reshape(-1, 2)), grp_out=t(grp_out),
+        zo=t(np.nonzero(count == 0)[0]))
+    return p.k2
+
+
 def _zlist_launch(ut, p):
     N, nc = ut.shape[0], p.nchem
     _check(ut, "ut", torch.float64, (N, nc * 2 * p.u_len))
+    tb = zlist_tables(p)
+    ab = max(1, _K2_COMBOS // (nc * nc))
+    G = tb.grp.shape[0]
+    sms = torch.cuda.get_device_properties(ut.device).multi_processor_count
+    nseg = max(1, min(G // _K2_WARPS, -(-4 * sms // -(-N // ab))))
     zr = torch.empty((N, nc * nc, p.nz), dtype=torch.float64,
                      device=ut.device)
     zi = torch.empty_like(zr)
-    _launch("zlist", ut.device, _ptr(ut), N, 2 * p.u_len, nc, _ptr(p.z_ptr),
-            _ptr(p.z_i1), _ptr(p.z_i2), _ptr(p.z_c), p.nz, _ptr(zr),
-            _ptr(zi))
+    _launch("zlist", ut.device, _ptr(ut), N, 2 * p.u_len, nc, ab, nseg,
+            _ptr(tb.rec), _ptr(tb.grp), _ptr(tb.grp_out), G, _ptr(tb.zo),
+            tb.zo.shape[0], p.nz, _ptr(zr), _ptr(zi))
     return zr, zi
 
 

@@ -82,16 +82,15 @@ class SnapParams:
     mono_parent: torch.Tensor        # (n_mono,) int32
     mono_var: torch.Tensor           # (n_mono,) int32
     mono_levels: tuple               # degree-level boundaries into the monomials
-    mono_levels_t: torch.Tensor      # the same boundaries, int32
     L: torch.Tensor                  # (n_mono, 2U) f64 dense
-    l_ptr: torch.Tensor              # (2U+1,) int32: CSR of L by column
-    l_row: torch.Tensor              # (nnz,) int32
-    l_val: torch.Tensor              # (nnz,) f64
     # pair-grid tables of the NN cached mode, built at first use
     # (`nn_tables`)
     nn: Optional["NnTables"] = None
-    # compact y targets of K3, built at first use
-    # (`kernels.snap_kernels.dbdd_tables`)
+    # K1's column entries and split plans, K2's term schedule and K3's
+    # compact y targets, built at first use (`kernels.snap_kernels`
+    # `pair_u_tables`, `zlist_tables`, `dbdd_tables`)
+    k1: Optional[dict] = None
+    k2: Optional[object] = None
     k3: Optional[object] = None
 
 
@@ -121,15 +120,6 @@ def z_term_list(z_groups, D):
             np.concatenate(a2)[order], np.concatenate(cs)[order], t0 * D * D)
 
 
-def _csr_by_column(L):
-    """CSR of a dense (rows, cols) matrix by column: (ptr, row, val)."""
-    col_major = np.asarray(L).T
-    cols, rows = np.nonzero(col_major)
-    ptr = np.zeros(col_major.shape[0] + 1, np.int64)
-    np.add.at(ptr, cols + 1, 1)
-    return np.cumsum(ptr), rows, col_major[cols, rows]
-
-
 def params_from_arrays(d: dict, device) -> SnapParams:
     """Build `SnapParams` from host numpy arrays (see `convert.py`).
 
@@ -151,7 +141,6 @@ def params_from_arrays(d: dict, device) -> SnapParams:
     exps, parent, var, L = mono_plan(twojmax)
     deg = np.asarray(exps).sum(1)
     levels = tuple(int(x) for x in np.searchsorted(deg, np.arange(twojmax + 2)))
-    l_ptr, l_row, l_val = _csr_by_column(L)
     z_out, z_i1, z_i2, z_c, nz = z_term_list(d["z_dense"]["groups"],
                                              int(d["z_dense"]["D"]))
     z_ptr = np.searchsorted(z_out, np.arange(nz + 1))
@@ -193,8 +182,7 @@ def params_from_arrays(d: dict, device) -> SnapParams:
         nz=int(nz), z_ptr=t(z_ptr, i32), z_i1=t(z_i1, i32),
         z_i2=t(z_i2, i32), z_c=t(z_c), z_out=t(z_out, torch.long),
         mono_parent=t(parent, i32), mono_var=t(var, i32),
-        mono_levels=levels, mono_levels_t=t(levels, i32), L=t(L), l_ptr=t(l_ptr, i32),
-        l_row=t(l_row, i32), l_val=t(l_val),
+        mono_levels=levels, L=t(L),
     )
 
 
@@ -574,7 +562,7 @@ def descriptors_with_jacobian(disp, jelem, mask, ielem, p: SnapParams,
         k1, k2, k3, k6 = ((sk.pair_u_duals_plain, sk.zlist_plain,
                            sk.dbdd_plain, sk.quad_chain_plain) if plain else
                           (sk.pair_u_duals, sk.zlist, sk.dbdd, sk.quad_chain))
-        wu, J, ut = k1(disp, jelem, mask, ielem, p)
+        J, ut = k1(disp, jelem, mask, ielem, p)
         z_r, z_i = k2(ut, p)
         B, dBdD = k3(ut, z_r, z_i, J, p)
     else:
@@ -582,7 +570,7 @@ def descriptors_with_jacobian(disp, jelem, mask, ielem, p: SnapParams,
                            sk.dbdd_chem_plain, sk.quad_chain_plain) if plain
                           else (sk.pair_u_duals_chem, sk.zlist_chem,
                                 sk.dbdd_chem, sk.quad_chain))
-        wu, J, ut = k1(disp, jelem, mask, ielem, p)
+        J, ut = k1(disp, jelem, mask, ielem, p)
         z_r, z_i = k2(ut, p)
         B, dBdD = k3(ut, z_r, z_i, J, jelem, p)
     if p.quadraticflag:

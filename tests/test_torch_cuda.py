@@ -25,7 +25,11 @@ layouts, direct and residual, with a padded and a one-atom config), bit for
 bit from run to run.  K4 with one to three source types at widths 1, 4,
 37 (not a multiple of its x-tile) and 600, bit for bit from run to run.
 quadraticflag and chemflag: K1-K3 with K3 in four W tiles and K6q at
-twojmax 8; the chemflag modes of K1-K3 with two elements at twojmax 4
+twojmax 8; K1-K3 past K1's former caps, at twojmax 10 and with five
+chemflag channels at twojmax 2 (J of masked slots and z outputs without
+terms exactly 0, bit for bit from run to run, and
+`descriptors_with_jacobian` against its plain path); the chemflag modes of
+K1-K3 with two elements at twojmax 4
 (wselfallflag 0 and 1, bnormflag) and, with K6q, quadratic x chemflag at
 twojmax 2.  K3 at the edges of its tiles (W = 5 and 55, K = 13, 19, 21,
 37, three channels, every neighbor in one channel, neighbors of no
@@ -117,11 +121,11 @@ def test_k1_k3_match_plain(cuda, name):
     sk.reset_launches()
     k1 = sk.pair_u_duals(*args, p)
     ref1 = sk.pair_u_duals_plain(*args, p)
-    ut = ref1[2]
+    J, ut = ref1
     k2 = sk.zlist(ut, p)
     ref2 = sk.zlist_plain(ut, p)
-    k3 = sk.dbdd(ut, *ref2, ref1[1], p)
-    ref3 = sk.dbdd_plain(ut, *ref2, ref1[1], p)
+    k3 = sk.dbdd(ut, *ref2, J, p)
+    ref3 = sk.dbdd_plain(ut, *ref2, J, p)
     torch.cuda.synchronize()
     assert {k: v for k, v in sk.launches().items() if v} == {
         "pair_u_duals": 1, "zlist": 1, "dbdd": 1}
@@ -172,7 +176,7 @@ def test_flag_kernels_match_plain(cuda, name):
     sk.reset_launches()
     k1 = (sk.pair_u_duals_chem if chem else sk.pair_u_duals)(*args, p)
     ref1 = sk.pair_u_duals_plain(*args, p)
-    wu, J, ut = ref1
+    J, ut = ref1
     if chem:
         k2 = sk.zlist_chem(ut, p)
         ref2 = sk.zlist_chem_plain(ut, p)
@@ -197,6 +201,72 @@ def test_flag_kernels_match_plain(cuda, name):
         assert sk.dbdd_tiles(p, K) == (16, 4)
     for out, ref in pairs:
         assert rel_err(out, ref) <= RTOL
+
+
+# K1's lifted caps: 2U = 1,012 columns (twojmax 10, several splits) and five
+# element channels
+CAP_CASES = {
+    "tj10": dict(twojmax=["10"], numtypes=1, wj=["1.0"], radelem=["0.5"],
+                 bzeroflag=1, switchinnerflag=0),
+    "chem5_tj2": dict(twojmax=["2"] * 5, numtypes=5,
+                      wj=["1.0", "0.93", "0.8", "0.75", "0.6"],
+                      radelem=["0.5", "0.45", "0.4", "0.48", "0.42"],
+                      bzeroflag=1, switchinnerflag=0, chemflag=1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CAP_CASES))
+def test_k1_caps_lifted_match_plain(cuda, name):
+    """K1, K2 and K3 beyond K1's old caps (twojmax 10; five channels) on 12
+    atoms x 40 slots, each against its plain version on the same inputs;
+    J of masked slots and z outputs without terms exactly 0, a second run
+    bit for bit, and `descriptors_with_jacobian` against `plain=True`."""
+    from fitsnap_tpu_torch.ops.snap import descriptors_with_jacobian
+
+    spec = CAP_CASES[name]
+    p = make_params(section(spec), cuda)
+    N, K, nel = 12, 40, spec["numtypes"]
+    rng = np.random.default_rng(12)
+    d = rng.normal(size=(N, K, 3))
+    d *= rng.uniform(1.2, 4.4, (N, K, 1)) / np.linalg.norm(d, axis=-1,
+                                                          keepdims=True)
+    mask = rng.uniform(size=(N, K)) < 0.85
+    mask[-1] = False
+    args = (torch.as_tensor(d, device=cuda),
+            torch.as_tensor(rng.integers(0, nel, (N, K)), dtype=torch.int32,
+                            device=cuda),
+            torch.as_tensor(mask, device=cuda),
+            torch.as_tensor(rng.integers(0, nel, N), dtype=torch.int32,
+                            device=cuda))
+    chem = p.nchem > 1
+    k1w = sk.pair_u_duals_chem if chem else sk.pair_u_duals
+    k2w = sk.zlist_chem if chem else sk.zlist
+    sk.reset_launches()
+    k1 = [k1w(*args, p) for _ in range(2)]
+    ref1 = sk.pair_u_duals_plain(*args, p)
+    J, ut = ref1
+    k2 = [k2w(ut, p) for _ in range(2)]
+    ref2 = (sk.zlist_chem_plain if chem else sk.zlist_plain)(ut, p)
+    if chem:
+        k3 = sk.dbdd_chem(ut, *ref2, J, args[1], p)
+        ref3 = sk.dbdd_chem_plain(ut, *ref2, J, args[1], p)
+    else:
+        k3 = sk.dbdd(ut, *ref2, J, p)
+        ref3 = sk.dbdd_plain(ut, *ref2, J, p)
+    torch.cuda.synchronize()
+    suffix = "_chem" if chem else ""
+    assert {k: v for k, v in sk.launches().items() if v} == {
+        f"pair_u_duals{suffix}": 2, f"zlist{suffix}": 2, f"dbdd{suffix}": 1}
+    for out, ref in ((k1[0], ref1), (k2[0], ref2), (k3, ref3)):
+        assert rel_err(out, ref) <= RTOL
+    for outs in (k1, k2):
+        assert all(torch.equal(a, b) for a, b in zip(*outs))
+    assert (k1[0][0].permute(1, 2, 0, 3)[~args[2]] == 0).all()
+    zero = sk.zlist_tables(p).zo.long()
+    assert all((z.reshape(N, -1, p.nz)[..., zero] == 0).all() for z in k2[0])
+    out = descriptors_with_jacobian(*args, p)
+    ref = descriptors_with_jacobian(*args, p, plain=True)
+    assert rel_err(out, ref) <= RTOL
 
 
 # K3's tile edges: (section, K, neighbor elements): W = 5 (twojmax 2, one
@@ -238,7 +308,7 @@ def test_k3_tile_edges_match_plain(cuda, name):
     args = (dev[0], torch.as_tensor(jel, dtype=torch.int32, device=cuda),
             dev[1], torch.as_tensor(rng.integers(0, nel, N),
                                     dtype=torch.int32, device=cuda))
-    _, J, ut = sk.pair_u_duals_plain(*args, p)
+    J, ut = sk.pair_u_duals_plain(*args, p)
     chem = p.nchem > 1
     z = (sk.zlist_chem_plain if chem else sk.zlist_plain)(ut, p)
     jelem = args[1]

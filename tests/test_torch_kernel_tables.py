@@ -1,0 +1,413 @@
+"""The host tables of K1 (pair_u_duals) and K2 (zlist) against the JAX
+package's plan (CPU, float64).
+
+- K1's column entries rebuild, exactly, the change of basis L of the JAX
+  package's numpy-only `fitsnap_tpu/ops/mono.py:mono_plan` and its four
+  partials L_v[m, u] = (e_v(m) + 1) L[m + e_v, u], at twojmax 2, 6 and 10;
+  each split plan covers every column once, in chunks of at most 4, and
+  its steps, read through the splits' windows, rebuild the same matrices.
+- K2's schedule rebuilds, exactly, the z terms of the JAX package's plan
+  (`fitsnap_tpu/ops/cg.build_snap_plan`'s grouped term tables) at twojmax
+  2, 6 and 10: the same (output, i1, i2, coefficient) terms, the zero
+  outputs those without a term, groups of equal-ish term counts.
+- The kernels' schedules, run in numpy over these tables (the arithmetic
+  of csrc/pair_u_duals.cu and csrc/zlist.cu), agree with the plain twins
+  at twojmax 2 and 6, one channel and chemflag, at 1e-12; and the plain
+  twins agree with the JAX functions at 1e-12 (relative to the largest
+  magnitude of each array: the packages sum in different orders).
+"""
+
+from functools import lru_cache
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fitsnap_tpu.ops import mono as jmono
+from fitsnap_tpu.ops import snap as jsnap
+from fitsnap_tpu.ops.cg import build_snap_plan
+from fitsnap_tpu_torch.convert import (PARAM_FIELDS, PLAN_FIELDS,
+                                       snap_params_from_numpy)
+from fitsnap_tpu_torch.kernels import snap_kernels as sk
+from fitsnap_tpu_torch.ops import snap as tsnap
+
+RTOL = 1e-12
+
+
+def close(port, ref, rtol=RTOL):
+    port = np.asarray(port.cpu() if torch.is_tensor(port) else port)
+    ref = np.asarray(ref)
+    assert port.shape == ref.shape
+    err = np.abs(port - ref).max() / max(np.abs(ref).max(), 1e-300)
+    assert err <= rtol, f"relative error {err:.3e}"
+
+
+@lru_cache(maxsize=None)
+def plans(twojmax, nelem=1, chem=False):
+    """(JAX SnapParams, the port's SnapParams on the CPU)."""
+    plan = build_snap_plan(twojmax=twojmax, nelements=nelem, chemflag=chem,
+                           bzeroflag=True, wselfallflag=False)
+    jp = jsnap.SnapParams(
+        plan=plan, rcutfac=4.6, rfac0=0.99, rmin0=0.0, switchflag=True,
+        switchinnerflag=False, wj=np.array([1.0, 0.93, 0.8][:nelem]),
+        radelem=np.array([0.5, 0.45, 0.4][:nelem]))
+    d = {k: getattr(plan, k) for k in PLAN_FIELDS}
+    d.update({k: getattr(jp, k) for k in PARAM_FIELDS})
+    return jp, snap_params_from_numpy(d, "cpu")
+
+
+def block(seed, nelem, A=6, K=40):
+    """(disp, jelem, mask, ielem): masked pairs, an atom with every slot
+    masked, and an atom with more than one tile (32) of live pairs."""
+    rng = np.random.default_rng(seed)
+    disp = rng.normal(size=(A, K, 3))
+    disp *= rng.uniform(1.2, 4.4, (A, K, 1)) / np.linalg.norm(
+        disp, axis=-1, keepdims=True)
+    mask = rng.uniform(size=(A, K)) < 0.7
+    mask[0] = True
+    mask[-1] = False
+    jelem = rng.integers(0, nelem, (A, K)).astype(np.int32)
+    ielem = rng.integers(0, nelem, A).astype(np.int32)
+    return disp, jelem, mask, ielem
+
+
+def f64(words):
+    """The doubles stored in (n, 2) int32 words."""
+    return np.ascontiguousarray(words).view(np.float64)[:, 0]
+
+
+def numpy_tables(pl, p):
+    t = {k: getattr(pl, k).numpy() for k in (
+        "blob", "loc", "cw_ptr", "win_ptr", "win_exp", "zr_ptr", "zruns")}
+    t["row_stride"] = sk._k1_row_stride(p.nchem)
+    return t
+
+
+def chunk_steps(t, k):
+    """(first column, columns, the header's unused pair, [(column
+    of the chunk, accumulator, coefficients (4,), window slots (4,),
+    offsets modulo the row stride) per step]) of chunk row k."""
+    first, size = t["loc"][k]
+    piece = t["blob"][first:first + size]
+    u0, n, sc, ncr, *ends = piece[:12].view(np.int32)
+    assert size == 12 + 5 * ends[-1] + ends[-1] % 2
+    st = piece[12:12 + 5 * ends[-1]].reshape(-1, 5)
+    offs = np.ascontiguousarray(st[:, 4]).view(np.uint16).reshape(-1, 4)
+    offs = offs.astype(np.int64)
+    run = np.searchsorted(np.asarray(ends), np.arange(ends[-1]), "right")
+    ms = t["row_stride"]
+    return u0, n, (sc, ncr), list(zip(run // 5, run % 5, st[:, :4],
+                                      offs // ms, offs % ms))
+
+
+def column_levels(p):
+    """The degree level j of every U column (real, then imaginary)."""
+    U = p.u_len
+    level = np.zeros(2 * U, np.int64)
+    for j, (_, _, c0, c1) in enumerate(sk._k1_columns(p).blocks):
+        level[c0:c1] = level[U + c0:U + c1] = j
+    return level
+
+
+def unpack(win_exp):
+    return np.stack([(win_exp >> s) & 255 for s in (0, 8, 16, 24)], 1)
+
+
+# ---------------------------------------------------------------------------
+# K1
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("twojmax", [2, 6, 10])
+def test_k1_entries_rebuild_the_jax_change_of_basis(twojmax):
+    _, p = plans(twojmax)
+    exps, _, _, L = jmono.mono_plan(twojmax)
+    exps = np.asarray(exps)
+    index = {tuple(e): i for i, e in enumerate(exps)}
+    want = [L]
+    for v in range(4):
+        Lv = np.zeros_like(L)
+        for m, e in enumerate(exps):
+            e = e.copy()
+            e[v] += 1
+            if tuple(e) in index:
+                Lv[m] = e[v] * L[index[tuple(e)]]
+        want.append(Lv)
+    cols = sk._k1_columns(p)
+    n_mono, two_u = L.shape
+    got = np.zeros((5, n_mono, two_u))
+    deg = exps.sum(1)
+    level = column_levels(p)
+    for u in range(two_u):
+        for acc in range(5):
+            q = slice(cols.e_ptr[5 * u + acc], cols.e_ptr[5 * u + acc + 1])
+            m = cols.mono[q]
+            assert (np.diff(m) > 0).all()
+            assert (deg[m] == level[u] - (acc > 0)).all()
+            got[acc, m, u] = cols.coef[q]
+    assert np.array_equal(got, np.stack(want))
+    assert np.array_equal(cols.exps, exps)
+
+
+@pytest.mark.parametrize("twojmax,nsplit", [(2, 1), (2, 3), (6, 1), (6, 4),
+                                            (10, 2), (10, 8)])
+def test_k1_split_plan_rebuilds_the_change_of_basis(twojmax, nsplit):
+    """Every column in one chunk of at most 4 columns; the splits' steps,
+    read through their windows, rebuild L and its partials exactly; empty
+    slots carry coefficient 0 at offset 0."""
+    _, p = plans(twojmax)
+    cols = sk._k1_columns(p)
+    t = numpy_tables(sk.pair_u_tables(p, nsplit), p)
+    n_mono, two_u = cols.exps.shape[0], 2 * p.u_len
+    assert len(t["cw_ptr"]) == nsplit * sk._K1_WARPS + 1
+    got = np.zeros((5, n_mono, two_u))
+    seen = np.zeros(two_u, int)
+    index = {tuple(e): i for i, e in enumerate(cols.exps)}
+    all_chunks = sk._k1_chunks(p)
+    level = column_levels(p)
+    for s in range(nsplit):
+        win = unpack(t["win_exp"][t["win_ptr"][s]:t["win_ptr"][s + 1]])
+        mono = np.array([index[tuple(e)] for e in win], np.int64)
+        split_cols, rounds = [], {}
+        for w in range(8):
+            for r, k in enumerate(range(t["cw_ptr"][s * 8 + w],
+                                        t["cw_ptr"][s * 8 + w + 1])):
+                u0, n, head, steps = chunk_steps(t, k)
+                assert 1 <= n <= 4 - u0 % 2 and head == (0, 0)
+                assert len(set(level[u0:u0 + n])) == 1
+                split_cols.extend(range(u0, u0 + n))
+                rounds.setdefault(r, []).append((w, u0, n))
+                for cc, acc, coef, slot, rem in steps:
+                    assert (rem == 0).all() and cc < n
+                    for q in range(4):
+                        if coef[q] == 0:
+                            assert slot[q] == 0
+                            continue
+                        u = u0 + cc
+                        assert got[acc, mono[slot[q]], u] == 0
+                        got[acc, mono[slot[q]], u] = coef[q]
+        # warp w takes the split's chunks 8 r + w, in order
+        order = [(u, n) for r in sorted(rounds) for _, u, n in rounds[r]]
+        first = all_chunks.index(order[0])
+        assert order == all_chunks[first:first + len(order)]
+        for r, chunks in rounds.items():
+            assert [w for w, *_ in chunks] == list(range(len(chunks)))
+        seen[split_cols] += 1
+        runs = t["zruns"][t["zr_ptr"][s]:t["zr_ptr"][s + 1]]
+        assert sorted(split_cols) == [u for a, b in runs
+                                      for u in range(a, b)]
+    assert (seen == 1).all()
+    dense = np.zeros((5, n_mono, two_u))
+    col, acc = np.divmod(np.repeat(np.arange(two_u * 5),
+                                   np.diff(cols.e_ptr)), 5)
+    dense[acc, cols.mono, col] = cols.coef
+    assert np.array_equal(got, dense)
+
+
+def test_k1_split_count_fits_shared_memory():
+    """At twojmax 10 one split's window (all 1,001 monomials) exceeds a
+    block's shared memory, so the plan takes more; a large chunk of atoms
+    takes one split at twojmax 6."""
+    _, p10 = plans(10)
+    s = sk.pair_u_split_count(p10, 12, 40, 132)
+    assert s > 1
+    assert sk.pair_u_smem(sk.pair_u_tables(p10, s), 5, 40) <= 232448
+    assert sk.pair_u_smem(sk.pair_u_tables(p10, 1), 1, 40) > 232448
+    _, p6 = plans(6)
+    assert sk.pair_u_split_count(p6, 1024, 64, 132) == 1
+    assert sk.pair_u_split_count(p6, 16, 64, 132) > 1
+
+
+def emulate_k1(p, args, nsplit):
+    """csrc/pair_u_duals.cu's arithmetic over `pair_u_tables`: windowed
+    monomials, each run's 4 slot sums in step order, (s0 + s1) + (s2 +
+    s3), J; utot as the U entries applied to the channels' weighted
+    monomial sums."""
+    t = numpy_tables(sk.pair_u_tables(p, nsplit), p)
+    vals, tans = (x.numpy() for x in tsnap._prologue_duals(*args, p))
+    mask = args[2].numpy()
+    N, K = mask.shape
+    nc, two_u = p.nchem, 2 * p.u_len
+    chan = args[1].numpy() if nc > 1 else np.zeros((N, K), int)
+    J = np.full((3, N, K, two_u), np.nan)
+    ut = np.zeros((N, nc, two_u))
+    w = vals[4]
+    for s in range(nsplit):
+        e = unpack(t["win_exp"][t["win_ptr"][s]:t["win_ptr"][s + 1]])
+        M = np.prod([vals[v][None] ** e[:, v, None, None] for v in range(4)],
+                    0)
+        for k in range(t["cw_ptr"][s * 8], t["cw_ptr"][s * 8 + 8]):
+            u0, n, _, steps = chunk_steps(t, k)
+            slot_acc = np.zeros((4, 5, 4, N, K))
+            for cc, acc, coef, slot, _ in steps:
+                for q in range(4):
+                    slot_acc[cc, acc, q] += coef[q] * M[slot[q]]
+            for cc in range(n):
+                sa = slot_acc[cc]
+                acc = (sa[:, 0] + sa[:, 1]) + (sa[:, 2] + sa[:, 3])
+                tan = sum(tans[:, v] * acc[1 + v] for v in range(4))
+                J[..., u0 + cc] = np.where(mask, w * tan
+                                           + tans[:, 4] * acc[0], 0.0)
+        # utot: the U entries applied to W[m] = sum_k w_k M_k[m], by channel
+        Wm = np.stack([(np.where(mask & (chan == ch), w, 0.0)[None]
+                        * M).sum(-1) for ch in range(nc)], -1)
+        for k in range(t["cw_ptr"][s * 8], t["cw_ptr"][s * 8 + 8]):
+            u0, n, _, steps = chunk_steps(t, k)
+            for cc, acc, coef, slot, _ in steps:
+                if acc == 0:
+                    ut[:, :, u0 + cc] += (coef[:, None, None]
+                                          * Wm[slot]).sum(0)
+    self = tsnap._channel_self(args[3], p, torch.float64).numpy()
+    return J, (ut + self).reshape(N, -1)
+
+
+@pytest.mark.parametrize("twojmax,nelem,chem,nsplit", [
+    (2, 1, False, 1), (2, 1, False, 3), (6, 1, False, 1), (6, 1, False, 4),
+    (2, 3, True, 2), (4, 2, True, 1)])
+def test_k1_schedule_matches_plain(twojmax, nelem, chem, nsplit):
+    _, p = plans(twojmax, nelem, chem)
+    args = tuple(torch.from_numpy(x) for x in block(3, nelem))
+    J, ut = emulate_k1(p, args, nsplit)
+    J0, ut0 = sk.pair_u_duals_plain(*args, p)
+    close(J, J0)
+    close(ut, ut0)
+    assert (J.transpose(1, 2, 0, 3)[~args[2].numpy()] == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# K2
+# ---------------------------------------------------------------------------
+
+
+def jax_z_terms(twojmax):
+    """(out, i1, i2, coefficient) of every nonzero of the JAX plan's grouped
+    z term tables, and the number of outputs."""
+    zd = build_snap_plan(twojmax=twojmax).z_dense
+    D = int(zd["D"])
+    rows, t0 = [], 0
+    for g in zd["groups"]:
+        gi1, gi2, M = (np.asarray(g[k]) for k in ("gi1", "gi2", "M"))
+        ti, k, col = np.nonzero(M)
+        rows.append(np.stack([(t0 + ti) * D * D + col, gi1[ti, k],
+                              gi2[ti, k], M[ti, k, col]], 1))
+        t0 += M.shape[0]
+    return np.concatenate(rows), t0 * D * D
+
+
+def schedule_terms(tb):
+    rec = tb.rec.numpy()
+    grp, grp_out = tb.grp.numpy(), tb.grp_out.numpy()
+    rows = []
+    for g, (first, count) in enumerate(grp):
+        for lane in range(32):
+            o = grp_out[32 * g + lane]
+            q = first + 32 * np.arange(count) + lane
+            c = f64(rec[q, :2])
+            if o < 0:
+                assert (c == 0).all()
+                continue
+            live = c != 0
+            assert live[:live.sum()].all()   # padding after the terms
+            rows.append(np.stack([np.full(live.sum(), o), rec[q, 2][live],
+                                  rec[q, 3][live], c[live]], 1))
+    return np.concatenate(rows)
+
+
+@pytest.mark.parametrize("twojmax", [2, 6, 10])
+def test_k2_schedule_rebuilds_the_jax_z_terms(twojmax):
+    _, p = plans(twojmax)
+    tb = sk.zlist_tables(p)
+    ref, nz = jax_z_terms(twojmax)
+    got = schedule_terms(tb)
+    order = np.lexsort(ref.T[::-1])
+    assert np.array_equal(got[np.lexsort(got.T[::-1])], ref[order])
+    assert p.nz == nz
+    count = np.bincount(ref[:, 0].astype(int), minlength=nz)
+    assert np.array_equal(tb.zo.numpy(), np.nonzero(count == 0)[0])
+    grp_out = tb.grp_out.numpy()
+    assert sorted(grp_out[grp_out >= 0]) == list(np.nonzero(count)[0])
+    counts = count[np.maximum(grp_out, 0)] * (grp_out >= 0)
+    assert (np.diff(counts[grp_out >= 0]) <= 0).all()
+    assert np.array_equal(tb.grp.numpy()[:, 1],
+                          counts.reshape(-1, 32).max(1))
+
+
+def emulate_k2(p, ut):
+    """csrc/zlist.cu's arithmetic over `zlist_tables`, every ordered
+    channel pair: (zr, zi) (N, nchem^2, nz)."""
+    tb = sk.zlist_tables(p)
+    rec = tb.rec.numpy()
+    c, i1, i2 = f64(rec[:, :2]), rec[:, 2], rec[:, 3]
+    N, nc, U = ut.shape[0], p.nchem, p.u_len
+    uc = ut.numpy().reshape(N, nc, 2, U)
+    zr = np.full((N, nc * nc, p.nz), np.nan)
+    zi = zr.copy()
+    zr[:, :, tb.zo.numpy()] = zi[:, :, tb.zo.numpy()] = 0.0
+    for g, (first, count) in enumerate(tb.grp.numpy()):
+        for lane in range(32):
+            o = tb.grp_out[32 * g + lane].item()
+            if o < 0:
+                continue
+            q = first + 32 * np.arange(count) + lane
+            for pr in range(nc * nc):
+                a, b = uc[:, pr // nc][..., i1[q]], uc[:, pr % nc][..., i2[q]]
+                zr[:, pr, o] = ((a[:, 0] * b[:, 0] - a[:, 1] * b[:, 1])
+                                * c[q]).sum(1)
+                zi[:, pr, o] = ((a[:, 0] * b[:, 1] + a[:, 1] * b[:, 0])
+                                * c[q]).sum(1)
+    return zr, zi
+
+
+@pytest.mark.parametrize("twojmax,nelem,chem", [(2, 1, False), (6, 1, False),
+                                                (2, 3, True), (4, 2, True)])
+def test_k2_schedule_matches_plain(twojmax, nelem, chem):
+    _, p = plans(twojmax, nelem, chem)
+    args = tuple(torch.from_numpy(x) for x in block(5, nelem))
+    ut = sk.pair_u_duals_plain(*args, p)[1]
+    zr, zi = emulate_k2(p, ut)
+    if chem:
+        ref = sk.zlist_chem_plain(ut, p)
+    else:
+        ref = sk.zlist_plain(ut, p)
+        zr, zi = zr[:, 0], zi[:, 0]
+    close(zr, ref[0])
+    close(zi, ref[1])
+
+
+# ---------------------------------------------------------------------------
+# the plain twins against the JAX functions
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("twojmax,nelem,chem", [(2, 1, False), (6, 1, False),
+                                                (4, 2, True)])
+def test_plain_twins_match_jax(twojmax, nelem, chem):
+    jp, p = plans(twojmax, nelem, chem)
+    x = block(7, nelem, A=4, K=12)
+    targs = tuple(torch.from_numpy(v) for v in x)
+
+    def reference(disp, jelem, mask, ielem):
+        wu, J = jsnap._pair_wu_duals(disp, jelem, mask, ielem, jp)
+        ut = jsnap._utot_from_wu(wu, jelem, ielem, jp)
+        if chem:
+            U = jp.plan.u_len
+            uc = ut.reshape(ut.shape[0], nelem, 2, U)
+            z = [jsnap._compute_zcat_pair(uc[:, a, 0], uc[:, a, 1],
+                                          uc[:, b, 0], uc[:, b, 1], jp.plan)
+                 for a in range(nelem) for b in range(nelem)]
+            zr = jnp.stack([v[0] for v in z], 1)
+            zi = jnp.stack([v[1] for v in z], 1)
+        else:
+            zr, zi = jsnap._compute_zcat(ut, jp.plan)
+        return J, ut, zr, zi
+
+    J, ut, zr, zi = (np.array(v) for v in jax.jit(reference)(
+        *(jnp.asarray(v) for v in x)))
+    J0, ut0 = sk.pair_u_duals_plain(*targs, p)
+    close(J0, J)
+    close(ut0, ut)
+    z0 = (sk.zlist_chem_plain if chem else sk.zlist_plain)(ut0, p)
+    close(z0[0], zr)
+    close(z0[1], zi)

@@ -257,9 +257,10 @@ def test_wrappers_take_plain_on_cpu(case):
     sk.reset_launches()
     p, targs = case["p"], case["targs"]
     jelem = targs[1]
-    wu, J, ut = (sk.pair_u_duals_chem if case["chem"] else sk.pair_u_duals)(
+    J, ut = (sk.pair_u_duals_chem if case["chem"] else sk.pair_u_duals)(
         *targs, p)
-    assert torch.equal(ut, sk.pair_u_duals_plain(*targs, p)[2])
+    J0, ut0 = sk.pair_u_duals_plain(*targs, p)
+    assert torch.equal(J, J0) and torch.equal(ut, ut0)
     if case["chem"]:
         z = sk.zlist_chem(ut, p)
         assert all(torch.equal(a, b) for a, b in zip(
