@@ -139,14 +139,21 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    K15T and the force gather launched, the last epoch's train loss is
    below the first's and the `.pt`, metrics and loss files are written.
    Then K15, K15V and K15T (with the gather's transpose, as in training)
-   against their plain versions on the largest minibatch (4 x 128 x 64;
-   1e-11; timed on rotating copies of the inputs), the loss gradient
+   against their plain versions on the largest minibatch (4 x 128 x 64)
+   and on a minibatch of the (8, 64) bucket, the set's most common (4 x 8
+   x 64; 1e-11; timed on rotating copies of the inputs; K15's outputs'
+   digests printed, to compare builds bit for bit), the loss gradient
    through `PairDescForce` against plain double autograd through the
    plain descriptors on the card (1e-10), central-difference forces (host
    lists and K15 at each displaced position) on three atoms of two configs
    (1e-5), the `.pt`'s per-atom energies and dE/drij on one config against
    the trained model's (the JAX package's 1e-7: standardization is folded
    into layer 1), and a profiler split of one epoch.
+
+Each NN phase's profiler split prints the port's kernels' launches in the
+profiled epoch beside their device ms.  Rows of kernels whose work is f64
+arithmetic outside the tensor cores (K9-K11T, K15-K15T) also carry
+`bound_ms_fp64_vector`, their bound at the FP64 vector rate.
 
 The line before the last is the kernel table as JSON (launches per path,
 each path's counts set to 0 just before it and read just after); the last
@@ -171,6 +178,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 bandwidth (NVIDIA data sheet)
 L2_BYTES = 50 << 20         # H100 SXM L2 cache (NVIDIA data sheet)
 FP64_FLOPS = 67e12          # H100 SXM FP64 tensor-core peak (NVIDIA data sheet)
+FP64_VECTOR_FLOPS = 34e12   # H100 SXM FP64 off the tensor cores (data sheet)
 EXP_OPS = 20                # operations of one f64 exp (a software routine)
 KERNEL_RTOL = 1e-11         # kernel vs plain, relative to the largest |value|
 A_RTOL = 1e-10              # main-path A vs plain A, per column
@@ -290,12 +298,25 @@ CROSS_RTOL = 1e-9           # NN cached vs precompute energies and forces
 NN_FILES = ["Ta_nn.pt", "Ta_nn_pot.mliap.descriptor", "Ta_nn_pot.mod",
             "Ta_nn_metrics.md", "loss_vs_epochs.dat"]
 CUSTOM_FILES = ["Ta_custom.pt", "Ta_custom_metrics.md", "loss_vs_epochs.dat"]
+# the pairwise set's most common bucket (205 of its 357 configs)
+SMALL_BUCKET = (8, 64)
 PAIR_PT_RTOL = 1e-7         # pairwise .pt vs the model (the JAX test's bar)
-# operations of one (j, k) pair's Gaussian term in K15, K15V, K15T: the
+# operations of one (j, k) pair's Gaussian column in K15, K15V, K15T: the
 # exp, the square and the weighted sums (K15V: both legs' sums; K15T: the
 # cosine tangent)
 GAUSS_OPS = {"pair_desc": EXP_OPS + 4, "pair_desc_vjp": EXP_OPS + 10,
              "pair_desc_jvp": EXP_OPS + 8}
+# K15V and K15T form the Gaussians by recurrence (csrc/pair_desc.cu): per
+# (j, k) pair and chunk of RECUR_MC columns an anchor of two exps and 4
+# operations (the square, its scaling, the ratio's exponent); per column
+# the two products of the recurrence and the weighted sums (K15V: the
+# offset, its product with G and three FMAs; K15T: two FMAs)
+RECUR_MC = 8
+ANCHOR_OPS = 2 * EXP_OPS + 4
+RECUR_COL_OPS = {"pair_desc_vjp": 10, "pair_desc_jvp": 6}
+# the profiler's kernel name of a wrapper, where it is not <wrapper>_kernel
+KERNEL_FN = {"nn_force": "nn_fpair_kernel",
+             "nn_pair_gather": "nn_gather_kernel"}
 
 
 def card_line():
@@ -405,12 +426,15 @@ def check_launched(counts, path):
 
 
 def record(rows, name, out, ref, kernel, plain_ms, nbytes, flops,
-           library_ms, wrapper=None, shape=None, library=None):
+           library_ms, wrapper=None, shape=None, library=None,
+           vector=False):
     """Hold a kernel's outputs to its plain version's, time it, and add its
     row to `rows`.  `kernel` is (a call of the wrapper, repetitions to
     time); `wrapper` names the kernel when the row is one of several
     shapes of it; `library`, a call of the library function, is timed
-    here, by CUDA events (in place of `library_ms`) and by device time."""
+    here, by CUDA events (in place of `library_ms`) and by device time;
+    `vector` adds the bound at the FP64 vector rate (work that cannot use
+    the tensor cores)."""
     err_abs, err_rel = rel_err(out, ref)
     b_ms, b_by = bound_ms(nbytes, flops)
     ms = timed(*kernel)
@@ -437,6 +461,9 @@ def record(rows, name, out, ref, kernel, plain_ms, nbytes, flops,
         row["library_device_ms"] = lib_dev_ms
     if shape:
         row["shape"] = shape
+    if vector:
+        row["bound_ms_fp64_vector"] = max(nbytes / HBM_BYTES_PER_S,
+                                          flops / FP64_VECTOR_FLOPS) * 1e3
     rows.append(row)
 
 
@@ -1642,25 +1669,35 @@ def nn_epoch_profile(fs, epoch_s):
     into the port's kernels (K12 / K12T; cached: K2, K10, K10T, K11, K11T
     and the gather; pairwise: K15, K15V, K15T and the gather), the other
     kernels (MLP, its double backward, gathers,
-    Adam), and its share of `epoch_s`, the unprofiled epoch's seconds."""
+    Adam), and its share of `epoch_s`, the unprofiled epoch's seconds;
+    prints each port kernel's launches in the epoch beside its device ms."""
     net = fs.solver.net
     epochs = net.num_epochs
     net.num_epochs = 1
+    reset_launches()
     try:
         kernels = profile_kernels(lambda: fs.solver.perform_fit())
     finally:
         net.num_epochs = epochs
+    counts = {k: v for k, v in launches().items() if v}
     if not kernels:
-        return {"epoch_profile": "not measured (no device time)"}
+        return {"epoch_profile": "not measured (no device time)",
+                "epoch_launches": counts}
     ours = sum(v for k, v in kernels.items()
                if k.startswith(("nn_", "zlist", "pair_desc")))
     total = sum(kernels.values())
     print("nn epoch device time by kernel (ms): " + json.dumps(
         {k: round(v, 3) for k, v in list(kernels.items())[:12]}),
         flush=True)
+    port = {k: {"launches": n,
+                "device_ms": kernels.get(KERNEL_FN.get(k, f"{k}_kernel"))}
+            for k, n in counts.items()}
+    print("nn epoch port kernels (launches, device ms): " + json.dumps(port),
+          flush=True)
     return {"epoch_device_ms": total, "epoch_port_kernels_ms": ours,
             "epoch_other_kernels_ms": total - ours,
-            "device_busy_share": total / 1e3 / epoch_s}
+            "device_busy_share": total / 1e3 / epoch_s,
+            "epoch_port_kernels": port}
 
 
 def nn_cached_batch(sol, n=4):
@@ -1725,7 +1762,8 @@ def nn_cached_kernel_checks(fs):
            (rotating(lambda *a: nk.nn_ut_b(*a, p), block), 20),
            timed(rotating(lambda *a: nk.nn_ut_b_plain(*a, p), block), 5),
            pair_in + M * (2 * U + W) * 8,
-           pairs * (3 * n_t * n_t + 600) + M * (2 * nlg + 12 * nterms), None)
+           pairs * (3 * n_t * n_t + 600) + M * (2 * nlg + 12 * nterms), None,
+           vector=True)
     rows[-1]["lg_mm_ms"] = lg_mm(torch.zeros((M, n_t * n_t),
                                              dtype=torch.float64,
                                              device=ut.device) + 1.0)
@@ -1737,7 +1775,8 @@ def nn_cached_kernel_checks(fs):
     record(rows, "nn_dedu_vg", [nk.nn_dedu_vg(*args, p)], [vg],
            (rotating(lambda *a: nk.nn_dedu_vg(*a, p), args), 20),
            timed(rotating(lambda *a: nk.nn_dedu_vg_plain(*a, p), args), 5),
-           M * (W + 2 * p.nz + n_t * n_t) * 8, M * (5 * ny + 2 * nlg), None)
+           M * (W + 2 * p.nz + n_t * n_t) * 8, M * (5 * ny + 2 * nlg), None,
+           vector=True)
     rows[-1]["lg_mm_ms"] = lg_mm(torch.ones((M, 2 * U), dtype=torch.float64,
                                             device=vg.device), True)
 
@@ -1748,7 +1787,7 @@ def nn_cached_kernel_checks(fs):
            (rotating(lambda *a: nk.nn_pair_force(*a, p), args), 20),
            timed(rotating(lambda *a: nk.nn_pair_force_plain(*a, p), args), 5),
            pair_in + M * n_t * n_t * 8 + M * K * 3 * 8,
-           pairs * (8 * n_t * n_t + 600), None)
+           pairs * (8 * n_t * n_t + 600), None, vector=True)
 
     # the gather: one add per slot and component
     args = (g.reshape(N, A, K, 3), rev)
@@ -1769,7 +1808,7 @@ def nn_cached_kernel_checks(fs):
            timed(rotating(lambda *a: nk.nn_pair_force_t_plain(*a, p), args),
                  5),
            M * 3 * 8 + M * K * 4 + pair_in + M * n_t * n_t * 8,
-           pairs * (4 * n_t * n_t + 600), None)
+           pairs * (4 * n_t * n_t + 600), None, vector=True)
 
     # K10T: 2 flops per Lg entry, 5 per y entry, per atom
     args = (vgc,) + tuple(z)
@@ -1777,7 +1816,8 @@ def nn_cached_kernel_checks(fs):
     record(rows, "nn_dedu_vg_t", [nk.nn_dedu_vg_t(*args, p)], [ref],
            (rotating(lambda *a: nk.nn_dedu_vg_t(*a, p), args), 20),
            timed(rotating(lambda *a: nk.nn_dedu_vg_t_plain(*a, p), args), 5),
-           M * (n_t * n_t + 2 * p.nz + W) * 8, M * (2 * nlg + 5 * ny), None)
+           M * (n_t * n_t + 2 * p.nz + W) * 8, M * (2 * nlg + 5 * ny), None,
+           vector=True)
     rows[-1]["lg_mm_ms"] = lg_mm(vgc.reshape(M, -1))
 
     # the loss gradient: NnCachedForce against autograd through the plain
@@ -1889,14 +1929,16 @@ def nn_cached_fd_check(fs):
             "fd_bar": FD_BAR}
 
 
-def custom_batch(sol, n=4):
-    """A minibatch of the first n configs of the pairwise mode's largest
-    bucket, with the trained model's g_desc = dE/d(descriptor) and e_env,
-    K15V's inputs as in training."""
+def custom_batch(sol, n=4, shape=None):
+    """A minibatch of the first n configs of the pairwise mode's bucket of
+    `shape` (None: the largest), with the trained model's g_desc =
+    dE/d(descriptor) and e_env, K15V's inputs as in training."""
     import torch
     from fitsnap_tpu_torch.kernels import custom_kernels as ck
 
-    bi = int(np.argmax([np.prod(b["shape"]) for b in sol.buckets]))
+    shapes = [tuple(b["shape"]) for b in sol.buckets]
+    bi = (int(np.argmax([np.prod(b) for b in shapes])) if shape is None
+          else shapes.index(tuple(shape)))
     batch = sol._gather(sol.buckets[bi],
                         np.arange(min(n, len(sol.buckets[bi]["groups"]))))
     sec = sol._custom
@@ -1914,21 +1956,21 @@ def custom_batch(sol, n=4):
     return batch, g_desc, e_env
 
 
-def custom_kernel_checks(fs):
+def custom_kernel_rows(rows, sol, shape=None):
     """K15, K15V and K15T against their plain versions on a minibatch of 4
-    at the pairwise mode's largest bucket, and the loss gradient through
-    PairDescForce against plain double autograd through the plain
-    descriptors."""
+    of the bucket of `shape` (None: the largest; its rows keep the
+    kernels' names, another shape's are named `<kernel>@<shape>`).
+    Returns the minibatch."""
+    import hashlib
+
     import torch
     from fitsnap_tpu_torch.kernels import custom_kernels as ck
     from fitsnap_tpu_torch.kernels import nn_kernels as nk
-    from fitsnap_tpu_torch.ops import custom_desc as ops
 
-    sol = fs.solver
     sec = sol._custom
-    shape = (sec.cutoff, sec.num_radial, sec.num_3body)
+    args3 = (sec.cutoff, sec.num_radial, sec.num_3body)
     R, M = sec.num_radial, sec.num_3body
-    batch, g_desc, e_env = custom_batch(sol)
+    batch, g_desc, e_env = custom_batch(sol, shape=shape)
     disp, mask, jidx = batch["disp"], batch["mask"], batch["jidx"]
     N, A, K, _ = disp.shape
     live = mask.sum(-1).to(torch.float64)
@@ -1938,35 +1980,69 @@ def custom_kernel_checks(fs):
     print(f"custom kernel inputs: N={N} A={A} K={K} live pairs={pairs} "
           f"(j, k) terms={terms:.0f} x M={M} float64", flush=True)
     gF = ((nk.nn_pair_gather(ck.pair_desc_vjp(g_desc, e_env, disp, mask,
-                                               *shape), batch["rev"])
+                                               *args3), batch["rev"])
            - batch["f_target"])
           * batch["real"][..., None].to(torch.float64)).contiguous()
     in_bytes = slots * (3 * 8 + 1)              # disp, mask
     calls = {
-        "pair_desc": ((disp, mask), lambda d, m: ck.pair_desc(d, m, *shape),
-                      lambda d, m: ck.pair_desc_plain(d, m, *shape),
+        "pair_desc": ((disp, mask), lambda d, m: ck.pair_desc(d, m, *args3),
+                      lambda d, m: ck.pair_desc_plain(d, m, *args3),
                       in_bytes + slots * (R + M + 1) * 8),
         "pair_desc_vjp": (
             (g_desc, e_env, disp, mask),
-            lambda g, e, d, m: (ck.pair_desc_vjp(g, e, d, m, *shape),),
-            lambda g, e, d, m: (ck.pair_desc_vjp_plain(g, e, d, m, *shape),),
+            lambda g, e, d, m: (ck.pair_desc_vjp(g, e, d, m, *args3),),
+            lambda g, e, d, m: (ck.pair_desc_vjp_plain(g, e, d, m, *args3),),
             in_bytes + slots * (R + M + 1 + 3) * 8),
         "pair_desc_jvp": (
             (gF, disp, mask, jidx),
-            lambda f, d, m, j: ck.pair_desc_jvp(f, d, m, *shape, jidx=j),
-            lambda f, d, m, j: ck.pair_desc_jvp_plain(f, d, m, *shape,
+            lambda f, d, m, j: ck.pair_desc_jvp(f, d, m, *args3, jidx=j),
+            lambda f, d, m, j: ck.pair_desc_jvp_plain(f, d, m, *args3,
                                                       jidx=j),
             in_bytes + gF.numel() * 8 + slots * 4
             + slots * (R + M + 1) * 8),
     }
-    rows = []
+    tag = "" if shape is None else f"@{tuple(shape)}"
+    chunks = -(-M // (1 if M <= 2 else RECUR_MC))
     for name, (args, kernel, plain, nbytes) in calls.items():
         out, ref = kernel(*args), plain(*args)
-        flops = terms * M * GAUSS_OPS[name] + pairs * R * (EXP_OPS + 8)
-        record(rows, name, list(out), list(ref),
+        radial = pairs * R * (EXP_OPS + 8)
+        old = terms * M * GAUSS_OPS[name] + radial
+        flops = old if name == "pair_desc" else \
+            terms * (chunks * ANCHOR_OPS + M * RECUR_COL_OPS[name]) + radial
+        record(rows, name + tag, list(out), list(ref),
                (rotating(kernel, args), 20), timed(rotating(plain, args), 5),
-               nbytes, flops, None)
+               nbytes, flops, None, wrapper=name,
+               shape=[N, A, K], vector=True)
         rows[-1]["device_ms_l2"] = device_time(lambda: kernel(*args), 20)
+        if name != "pair_desc":
+            # the bound when every Gaussian costs its own exp
+            rows[-1]["bound_ms_one_exp"] = bound_ms(nbytes, old)[0]
+        else:
+            digest = hashlib.sha256(b"".join(
+                t.cpu().numpy().tobytes() for t in out)).hexdigest()[:16]
+            print(f"pair_desc{tag} outputs' digest: {digest}", flush=True)
+    return batch
+
+
+def custom_kernel_checks(fs):
+    """K15, K15V and K15T against their plain versions on a minibatch of 4
+    at the pairwise mode's largest bucket and at its (8, 64) bucket, and
+    the loss gradient through PairDescForce against plain double autograd
+    through the plain descriptors on the largest."""
+    import torch
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+    from fitsnap_tpu_torch.ops import custom_desc as ops
+
+    sol = fs.solver
+    sec = sol._custom
+    shape = (sec.cutoff, sec.num_radial, sec.num_3body)
+    R, M = sec.num_radial, sec.num_3body
+    rows = []
+    batch = custom_kernel_rows(rows, sol)
+    custom_kernel_rows(rows, sol, SMALL_BUCKET)
+    N, A, K = batch["mask"].shape
+    terms = float((batch["mask"].sum(-1).to(torch.float64) ** 2).sum())
+    pairs = int(batch["mask"].sum())
 
     # the parameter gradient of the training loss: PairDescForce (K15V and
     # the gather, backward K15T) against double autograd through the plain

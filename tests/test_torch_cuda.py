@@ -47,9 +47,12 @@ against autograd through the plain versions, 1e-10.  K15, K15V and K15T
 (the custom pairwise NN's descriptors, their VJP and its transpose, also
 through the force gather's transpose) on two periodic cells with pairs
 past the cutoff and on the radial ramp and live slots masked mid-row, on
-4 atoms of 512 slots, and on one slot per atom: dead slots exactly 0,
-bit for bit from run to run; the loss gradient through `PairDescForce`
-against double autograd through the plain descriptors, 1e-10.
+4 atoms of 512 slots, on one slot per atom, on the two cells with 1, 2 and
+6 Gaussian columns (the edges of K15V's and K15T's Gaussian recurrence)
+and on a minibatch shaped like the pairwise set's (8, 64) bucket (4 x 8
+atoms x 64 slots, about 58 live): dead slots exactly 0, bit for bit from
+run to run; the loss gradient through `PairDescForce` against double
+autograd through the plain descriptors, 1e-10.
 """
 
 from types import SimpleNamespace
@@ -841,14 +844,17 @@ def test_k13_k14_match_plain(cuda, name):
 CUTOFF, NRAD, N3B = 5.0, 8, 23
 
 
-def custom_block(name, device):
+def custom_block(name, device, num_3body=N3B):
     """Inputs of K15, K15V and K15T: disp (N, A, K, 3), mask, jidx, rev
-    and random cotangents.  "cells": two periodic cells of 6 atoms (one
-    padded atom) with lists to 5.5 A, so pairs at r >= the 5.0 cutoff and
-    on the 3.5-5.0 ramp occur, and a few live slots masked out of the
-    middle of a row; "k512": 4 atoms of 512 slots, about 380 live at
-    random directions and radii 1.5-5.5 A; "k1": one slot per atom."""
-    rng = np.random.default_rng({"cells": 31, "k512": 32, "k1": 33}[name])
+    and random cotangents of NRAD + num_3body columns.  "cells": two
+    periodic cells of 6 atoms (one padded atom) with lists to 5.5 A, so
+    pairs at r >= the 5.0 cutoff and on the 3.5-5.0 ramp occur, and a few
+    live slots masked out of the middle of a row; "k512": 4 atoms of 512
+    slots, about 380 live at random directions and radii 1.5-5.5 A; "k1":
+    one slot per atom; "b864": 4 x 8 atoms of 64 slots, about 58 live (the
+    pairwise set's (8, 64) bucket at batch 4)."""
+    rng = np.random.default_rng({"cells": 31, "k512": 32, "k1": 33,
+                                 "b864": 35}[name])
     if name == "cells":
         cfgs = []
         for na, edge in ((6, 5.2), (5, 6.0)):
@@ -866,11 +872,12 @@ def custom_block(name, device):
             mask[c, :na, :km] = m
         mask[0, 1, 2] = mask[1, 3, 0] = False
     else:
-        N, A, K = 1, 4, 512 if name == "k512" else 1
+        N, A, K = {"k512": (1, 4, 512), "k1": (1, 4, 1),
+                   "b864": (4, 8, 64)}[name]
         u = rng.normal(size=(N, A, K, 3))
         disp = u / np.linalg.norm(u, axis=-1, keepdims=True) \
             * rng.uniform(1.5, 5.5, (N, A, K, 1))
-        mask = rng.random((N, A, K)) < 0.75
+        mask = rng.random((N, A, K)) < (0.9 if name == "b864" else 0.75)
         mask[0, -1] = False
         jidx = rng.integers(0, A, (N, A, K)).astype(np.int32)
     rev = np.full((N, A, 1), -1, np.int32)
@@ -882,14 +889,21 @@ def custom_block(name, device):
         rev = np.full((N, A, R), -1, np.int32)
         for c, r in enumerate(rows):
             rev[c, :, :r.shape[1]] = r
-    D = NRAD + N3B
+    D = NRAD + num_3body
     return [torch.as_tensor(x, device=device) for x in (
         disp, mask, jidx, rev, rng.normal(size=(N, A, K, D)),
         rng.normal(size=(N, A, K)), rng.normal(size=(N, A, K, 3)),
         rng.normal(size=(N, A, 3)))]
 
 
-@pytest.mark.parametrize("name", ["cells", "k512", "k1"])
+# case: (block, Gaussian columns)
+K15_CASES = {"cells": ("cells", N3B), "k512": ("k512", N3B),
+             "k1": ("k1", N3B), "cells-m1": ("cells", 1),
+             "cells-m2": ("cells", 2), "cells-m6": ("cells", 6),
+             "b864": ("b864", N3B)}
+
+
+@pytest.mark.parametrize("name", list(K15_CASES))
 def test_k15_k15v_k15t_match_plain(cuda, name):
     """K15's descriptors and envelope, K15V's pair gradient and K15T's
     tangent (given h, and from force cotangents through jidx) against
@@ -897,8 +911,9 @@ def test_k15_k15v_k15t_match_plain(cuda, name):
     bit."""
     from fitsnap_tpu_torch.kernels import custom_kernels as ck
 
-    disp, mask, jidx, _, gd, ee, h, gF = custom_block(name, cuda)
-    args = (CUTOFF, NRAD, N3B)
+    block, num_3body = K15_CASES[name]
+    disp, mask, jidx, _, gd, ee, h, gF = custom_block(block, cuda, num_3body)
+    args = (CUTOFF, NRAD, num_3body)
     ck.reset_launches()
     desc, fc = ck.pair_desc(disp, mask, *args)
     g = ck.pair_desc_vjp(gd, ee, disp, mask, *args)
@@ -920,6 +935,7 @@ def test_k15_k15v_k15t_match_plain(cuda, name):
     assert torch.equal(g, ck.pair_desc_vjp(gd, ee, disp, mask, *args))
     assert torch.equal(jg[0], ck.pair_desc_jvp(gF, disp, mask, *args,
                                                jidx=jidx)[0])
+    assert torch.equal(jh[0], ck.pair_desc_jvp(h, disp, mask, *args)[0])
 
 
 def test_pair_desc_force_gradient_matches_plain_autograd(cuda):

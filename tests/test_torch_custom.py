@@ -21,7 +21,11 @@ largest magnitude:
 - `PairDescForce`'s MLP-parameter gradient of a force-and-energy loss
   against plain double autograd through the plain descriptors;
 - the wrappers take their plain versions for CPU tensors without counting
-  a launch, and refuse a `meta` tensor.
+  a launch, and refuse a `meta` tensor;
+- the Gaussian recurrence of K15V and K15T (`csrc/pair_desc.cu`'s note),
+  evaluated in numpy, against exp(-eta (x - mu)^2) with the JAX
+  package's centres and against its derivative, to the note's 4e-14
+  relative, for M = 1, 2, 6, 23 and 64 over x in [-2, 2].
 """
 
 import jax
@@ -38,6 +42,7 @@ from fitsnap_tpu_torch.models.mlp import atom_energies
 from fitsnap_tpu_torch.ops import custom_desc as tdesc
 
 TOL = 1e-12
+RECUR_TOL = 4e-14          # the recurrence's bound (csrc/pair_desc.cu)
 CUTOFF = 5.0
 WIDTHS = {"full": (8, 23), "narrow": (4, 6), "k1": (8, 23)}
 
@@ -319,3 +324,46 @@ def test_wrappers_plain_on_cpu_and_raise_on_meta(name):
         ["pair_desc", "pair_desc_vjp", "pair_desc_jvp"], 0)
     with pytest.raises(ValueError, match="no kernel for device"):
         _kernel_calls("meta")[name]()
+
+
+def recurrence_gaussians(x, mu):
+    """G_m(x) and G'_m(x) (len(x), M) by K15V's and K15T's chunk recurrence,
+    step for step as `csrc/pair_desc.cu` states it: chunks of 8 columns
+    (one column for M <= 2), each anchored by G = exp(-eta x0^2) and rho =
+    exp(a x0 - b) at x0 = x - mu[m0], then G *= rho, rho *= q, with delta =
+    2 / (M - 1), a = 2 eta delta, b = eta delta^2, q = exp(-2 b), and G' =
+    -2 eta (x - mu_m) G."""
+    M = len(mu)
+    mc = 1 if M <= 2 else 8
+    d = 2.0 / (M - 1) if M > 2 else 0.0
+    a, b = 2.0 * tdesc.ETA * d, tdesc.ETA * d * d
+    q = np.exp(-2.0 * b)
+    G, Gp = np.empty((len(x), M)), np.empty((len(x), M))
+    for m0 in range(0, M, mc):
+        x0 = x - mu[m0]
+        g, rho = np.exp(-tdesc.ETA * (x0 * x0)), np.exp(a * x0 - b)
+        for m in range(m0, min(m0 + mc, M)):
+            G[:, m] = g
+            Gp[:, m] = -2.0 * tdesc.ETA * (x - mu[m]) * g
+            g, rho = g * rho, rho * q
+    return G, Gp
+
+
+@pytest.mark.parametrize("M", [1, 2, 6, 23, 64])
+def test_gaussian_recurrence_equals_exp(M):
+    """The kernels' Gaussians by recurrence against the JAX package's
+    exp(-eta (x - mu)^2) (`g3b_basis`, mu = jnp.linspace(-1, 1, M)) and
+    its derivative in x, element by element, to RECUR_TOL relative, for
+    x over [-2, 2] (the cosines' [-1, 1] and beyond)."""
+    x = np.concatenate([np.linspace(-2.0, 2.0, 40001), [0.0, -1.0, 1.0]])
+    mu = np.asarray(jnp.linspace(-1.0, 1.0, M).astype(jnp.float64))
+    G, Gp = recurrence_gaussians(x, mu)
+    diff = jnp.asarray(x)[:, None] - jnp.asarray(mu)
+    gauss = jnp.exp(-jdesc.ETA * diff ** 2)
+    ref = np.asarray(gauss)
+    dref = np.asarray(-2.0 * jdesc.ETA * diff * gauss)
+    assert ref.min() > 0.0
+    assert np.max(np.abs(G - ref) / ref) <= RECUR_TOL
+    live = dref != 0.0
+    assert np.max(np.abs(Gp - dref)[live] / np.abs(dref[live])) <= RECUR_TOL
+    assert (Gp[~live] == 0.0).all()
