@@ -306,14 +306,20 @@ PAIR_PT_RTOL = 1e-7         # pairwise .pt vs the model (the JAX test's bar)
 # cosine tangent)
 GAUSS_OPS = {"pair_desc": EXP_OPS + 4, "pair_desc_vjp": EXP_OPS + 10,
              "pair_desc_jvp": EXP_OPS + 8}
-# K15V and K15T form the Gaussians by recurrence (csrc/pair_desc.cu): per
-# (j, k) pair and chunk of RECUR_MC columns an anchor of two exps and 4
-# operations (the square, its scaling, the ratio's exponent); per column
-# the two products of the recurrence and the weighted sums (K15V: the
-# offset, its product with G and three FMAs; K15T: two FMAs)
+# K15V's and K15T's work by the Gaussian recurrence (csrc/pair_desc.cu),
+# as the function needs it: a pair's Gaussians depend only on its cosine,
+# so each unordered live pair (s, o), s != o, needs per chunk of RECUR_MC
+# columns one anchor of two exps and 4 operations (the square, its
+# scaling, the ratio's exponent) and per column the two products of the
+# recurrence and the weighted sums of both sides (K15V: the offset and its
+# product with G once, three FMAs a side; K15T: two FMAs a side).  The
+# diagonal's cosine is 0, its Gaussians a constant table: one FMA a column
+# (K15V's Q, K15T's fc3' a term).  An FMA counts 2.
 RECUR_MC = 8
 ANCHOR_OPS = 2 * EXP_OPS + 4
-RECUR_COL_OPS = {"pair_desc_vjp": 10, "pair_desc_jvp": 6}
+RECUR_PAIR_OPS = {"pair_desc_vjp": 2 + 2 + 2 * 3 * 2,
+                  "pair_desc_jvp": 2 + 2 * 2 * 2}
+DIAG_COL_OPS = 2
 # the profiler's kernel name of a wrapper, where it is not <wrapper>_kernel
 KERNEL_FN = {"nn_force": "nn_fpair_kernel",
              "nn_pair_gather": "nn_gather_kernel"}
@@ -2003,12 +2009,14 @@ def custom_kernel_rows(rows, sol, shape=None):
     }
     tag = "" if shape is None else f"@{tuple(shape)}"
     chunks = -(-M // (1 if M <= 2 else RECUR_MC))
+    unordered = (terms - pairs) / 2             # s != o, each pair once
     for name, (args, kernel, plain, nbytes) in calls.items():
         out, ref = kernel(*args), plain(*args)
         radial = pairs * R * (EXP_OPS + 8)
         old = terms * M * GAUSS_OPS[name] + radial
         flops = old if name == "pair_desc" else \
-            terms * (chunks * ANCHOR_OPS + M * RECUR_COL_OPS[name]) + radial
+            unordered * (chunks * ANCHOR_OPS + M * RECUR_PAIR_OPS[name]) \
+            + pairs * M * DIAG_COL_OPS + radial
         record(rows, name + tag, list(out), list(ref),
                (rotating(kernel, args), 20), timed(rotating(plain, args), 5),
                nbytes, flops, None, wrapper=name,

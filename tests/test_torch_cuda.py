@@ -50,7 +50,9 @@ past the cutoff and on the radial ramp and live slots masked mid-row, on
 4 atoms of 512 slots, on one slot per atom, on the two cells with 1, 2 and
 6 Gaussian columns (the edges of K15V's and K15T's Gaussian recurrence)
 and on a minibatch shaped like the pairwise set's (8, 64) bucket (4 x 8
-atoms x 64 slots, about 58 live): dead slots exactly 0, bit for bit from
+atoms x 64 slots, about 58 live); K15V and K15T also in their wide launch
+shape (more atoms than SMs: 160 atoms of 512 slots, 4 x 64 atoms of 64
+slots, with 23, 1 and 2 columns): dead slots exactly 0, bit for bit from
 run to run; the loss gradient through `PairDescForce` against double
 autograd through the plain descriptors, 1e-10.
 """
@@ -852,9 +854,11 @@ def custom_block(name, device, num_3body=N3B):
     live slots masked out of the middle of a row; "k512": 4 atoms of 512
     slots, about 380 live at random directions and radii 1.5-5.5 A; "k1":
     one slot per atom; "b864": 4 x 8 atoms of 64 slots, about 58 live (the
-    pairwise set's (8, 64) bucket at batch 4)."""
+    pairwise set's (8, 64) bucket at batch 4); "k512w": 160 atoms of 512
+    slots, about 380 live, and "b464": 4 x 64 atoms of 64 slots, about 58
+    live (more atoms than an H100 has SMs)."""
     rng = np.random.default_rng({"cells": 31, "k512": 32, "k1": 33,
-                                 "b864": 35}[name])
+                                 "b864": 35, "k512w": 36, "b464": 37}[name])
     if name == "cells":
         cfgs = []
         for na, edge in ((6, 5.2), (5, 6.0)):
@@ -873,11 +877,12 @@ def custom_block(name, device, num_3body=N3B):
         mask[0, 1, 2] = mask[1, 3, 0] = False
     else:
         N, A, K = {"k512": (1, 4, 512), "k1": (1, 4, 1),
-                   "b864": (4, 8, 64)}[name]
+                   "b864": (4, 8, 64), "k512w": (1, 160, 512),
+                   "b464": (4, 64, 64)}[name]
         u = rng.normal(size=(N, A, K, 3))
         disp = u / np.linalg.norm(u, axis=-1, keepdims=True) \
             * rng.uniform(1.5, 5.5, (N, A, K, 1))
-        mask = rng.random((N, A, K)) < (0.9 if name == "b864" else 0.75)
+        mask = rng.random((N, A, K)) < (0.9 if K == 64 else 0.75)
         mask[0, -1] = False
         jidx = rng.integers(0, A, (N, A, K)).astype(np.int32)
     rev = np.full((N, A, 1), -1, np.int32)
@@ -932,6 +937,63 @@ def test_k15_k15v_k15t_match_plain(cuda, name):
     for out in (desc, fc, g, *jh, *jg):
         assert (out[dead] == 0).all()
     assert torch.equal(desc, ck.pair_desc(disp, mask, *args)[0])
+    assert torch.equal(g, ck.pair_desc_vjp(gd, ee, disp, mask, *args))
+    assert torch.equal(jg[0], ck.pair_desc_jvp(gF, disp, mask, *args,
+                                               jidx=jidx)[0])
+    assert torch.equal(jh[0], ck.pair_desc_jvp(h, disp, mask, *args)[0])
+
+
+def plain_by_atoms(fn, tensors, step):
+    """fn over slices of `step` atoms (axis 1) of the (N, A, ...) tensors,
+    joined along that axis: the plain versions hold (K, K, M) tensors of
+    every atom they take."""
+    A = tensors[0].shape[1]
+    parts = [fn(*(t[:, a:a + step] for t in tensors))
+             for a in range(0, A, step)]
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts, 1)
+    return tuple(torch.cat(p, 1) for p in zip(*parts))
+
+
+# case: (block, Gaussian columns), each block with more atoms than SMs
+K15_WIDE_CASES = {f"{b}-m{m}": (b, m) for b in ("k512w", "b464")
+                  for m in (N3B, 1, 2)}
+
+
+@pytest.mark.parametrize("name", list(K15_WIDE_CASES))
+def test_k15v_k15t_wide_shape_match_plain(cuda, name):
+    """K15V's pair gradient and K15T's tangent (given h, and from force
+    cotangents through jidx) in their wide launch shape, taken when the
+    launch has more atoms than the card has SMs, against their plain
+    versions: at K = 512 (more items and sum slots than threads) and at 64
+    slots, with 23, 1 and 2 Gaussian columns; dead slots exactly zero;
+    runs repeat bit for bit."""
+    from fitsnap_tpu_torch.kernels import custom_kernels as ck
+
+    block, num_3body = K15_WIDE_CASES[name]
+    disp, mask, jidx, _, gd, ee, h, gF = custom_block(block, cuda, num_3body)
+    N, A, K = mask.shape
+    assert N * A > torch.cuda.get_device_properties(0).multi_processor_count
+    args = (CUTOFF, NRAD, num_3body)
+    ck.reset_launches()
+    g = ck.pair_desc_vjp(gd, ee, disp, mask, *args)
+    jh = ck.pair_desc_jvp(h, disp, mask, *args)
+    jg = ck.pair_desc_jvp(gF, disp, mask, *args, jidx=jidx)
+    torch.cuda.synchronize()
+    assert launched(ck) == {"pair_desc_vjp": 1, "pair_desc_jvp": 2}
+
+    def plain(fn, *tensors):
+        return plain_by_atoms(lambda *t: fn(*t, *args), tensors,
+                              max(1, 4096 // K))
+
+    assert rel_err([g], [plain(ck.pair_desc_vjp_plain, gd, ee, disp, mask)]) \
+        <= RTOL
+    assert rel_err(jh, plain(ck.pair_desc_jvp_plain, h, disp, mask)) <= RTOL
+    assert rel_err(jg, plain(ck.pair_desc_jvp_plain, ck._gather_t(gF, jidx),
+                             disp, mask)) <= RTOL
+    dead = ~mask
+    for out in (g, *jh, *jg):
+        assert (out[dead] == 0).all()
     assert torch.equal(g, ck.pair_desc_vjp(gd, ee, disp, mask, *args))
     assert torch.equal(jg[0], ck.pair_desc_jvp(gF, disp, mask, *args,
                                                jidx=jidx)[0])
