@@ -23,7 +23,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    trace (events between launches also count the host's launch overhead,
    which exceeds the small kernels' run time), and
    the least time the card could take (bytes over 3.35 TB/s, float64
-   operations over 67 T/s, the larger; K8r's by its bytes alone);
+   operations over 67 T/s, the larger; K8r's by its bytes alone; K8r
+   also beside `torch.sort(stable=True)` of the masked destinations, the
+   order alone);
 4. FitSnap path: launch counts set to 0, then FitSnap(device="cuda") ->
    scrape_configs -> process_configs -> perform_fit -> write_output, the
    counts read just after.  It fails unless K1-K5 launched, the A matrix
@@ -47,7 +49,8 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    and at an InP_PACE-shaped two-element plan (344 labels, 99 A-slots,
    an inner cutoff on the In-P bond) on 8 seeded zincblende cells of 64
    atoms, and K7 in the ACE layout (two leading constant columns) on the
-   latter's rows, measured as in phase 3;
+   latter's rows, and K8r on the latter's host lists, measured as in
+   phase 3;
 8. ACE FitSnap and streamed paths, as phases 4 and 5 with
    `calculator = LAMMPSPACE`, PACE output and `kernel=ace_kernel(plan)`.
    The weighted design matrix is too ill-conditioned (cond about 1e16)
@@ -123,7 +126,8 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    no bucket holds dB/dD, the last epoch's train loss is below the first's
    and the four files are written.  Then K9, K10, K10T, K11, K11T and the
    gather against their plain versions at the largest bucket with a
-   minibatch of 4 (1e-11; timed on rotating copies of the inputs, as K12),
+   minibatch of 4 (1e-11; timed on rotating copies of the inputs, as K12;
+   the gather beside `index_add_` of the neighbor scatter),
    the loss gradient through `NnCachedForce` against autograd through the
    plain versions (1e-10), the trained model's energies and forces on that
    minibatch against the precompute path's (K1-K3's dB/dD, then K12;
@@ -301,23 +305,25 @@ CUSTOM_FILES = ["Ta_custom.pt", "Ta_custom_metrics.md", "loss_vs_epochs.dat"]
 # the pairwise set's most common bucket (205 of its 357 configs)
 SMALL_BUCKET = (8, 64)
 PAIR_PT_RTOL = 1e-7         # pairwise .pt vs the model (the JAX test's bar)
-# operations of one (j, k) pair's Gaussian column in K15, K15V, K15T: the
-# exp, the square and the weighted sums (K15V: both legs' sums; K15T: the
-# cosine tangent)
+# operations of one (j, k) pair's Gaussian column in K15, K15V, K15T when
+# each Gaussian costs its own exp: the exp, the square and the weighted
+# sums (K15V: both legs' sums; K15T: the cosine tangent)
 GAUSS_OPS = {"pair_desc": EXP_OPS + 4, "pair_desc_vjp": EXP_OPS + 10,
              "pair_desc_jvp": EXP_OPS + 8}
-# K15V's and K15T's work by the Gaussian recurrence (csrc/pair_desc.cu),
-# as the function needs it: a pair's Gaussians depend only on its cosine,
-# so each unordered live pair (s, o), s != o, needs per chunk of RECUR_MC
-# columns one anchor of two exps and 4 operations (the square, its
-# scaling, the ratio's exponent) and per column the two products of the
-# recurrence and the weighted sums of both sides (K15V: the offset and its
-# product with G once, three FMAs a side; K15T: two FMAs a side).  The
-# diagonal's cosine is 0, its Gaussians a constant table: one FMA a column
-# (K15V's Q, K15T's fc3' a term).  An FMA counts 2.
+# The work of K15, K15V and K15T by the Gaussian recurrence
+# (csrc/pair_desc.cu), as the function needs it: a pair's Gaussians depend
+# only on its cosine, so each unordered live pair (s, o), s != o, needs per
+# chunk of RECUR_MC columns one anchor of two exps and 4 operations (the
+# square, its scaling, the ratio's exponent) and per column the two
+# products of the recurrence and the weighted sums of both sides (K15: one
+# FMA a side; K15V: the offset and its product with G once, three FMAs a
+# side; K15T: two FMAs a side).  The diagonal's cosine is 0, its Gaussians
+# a constant table: one FMA a column (K15's fc3 term, K15V's Q, K15T's
+# fc3' a term).  An FMA counts 2.
 RECUR_MC = 8
 ANCHOR_OPS = 2 * EXP_OPS + 4
-RECUR_PAIR_OPS = {"pair_desc_vjp": 2 + 2 + 2 * 3 * 2,
+RECUR_PAIR_OPS = {"pair_desc": 2 + 2 * 2,
+                  "pair_desc_vjp": 2 + 2 + 2 * 3 * 2,
                   "pair_desc_jvp": 2 + 2 * 2 * 2}
 DIAG_COL_OPS = 2
 # the profiler's kernel name of a wrapper, where it is not <wrapper>_kernel
@@ -882,18 +888,7 @@ def kernel_checks(calc, data):
            C * A * 3 * 8 * 2 + C * S * 3 * 8 * 2 + C * 4
            + C * A * K * (24 + 4 + 1), C * S * A * A * 11, None)
     _, njidx, nmask = out
-    out = sk.reverse_table(njidx, nmask)
-    ref = sk.reverse_table_plain(njidx, nmask)
-    if not (torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
-            and int(out[1].sum().item()) == 0):
-        raise AssertionError("reverse_table differs from its plain version "
-                             "or dropped entries")
-    # the function needs O(A K) integer work, so its bound is its bytes
-    record(rows, "reverse_table", [x.double() for x in out],
-           [x.double() for x in ref],
-           (lambda: sk.reverse_table(njidx, nmask), 20),
-           timed(lambda: sk.reverse_table_plain(njidx, nmask), 5),
-           C * A * K * (4 + 1 + 4) + C * 4, 0, None)
+    reverse_check(rows, njidx, nmask)
     del out, ref
 
     # K7 on the chunk's rows, with the truths and weights of the batch
@@ -902,6 +897,40 @@ def kernel_checks(calc, data):
     truths, weights = [x[0] for x in truths], [x[0] for x in weights]
     normal_check(rows, rows_in, truths, weights, nat32, types, T, True)
     return rows
+
+
+def reverse_check(rows, jidx, mask, shape=None):
+    """K8r against its plain version (equal, nothing dropped) on one
+    chunk's lists; beside it `torch.sort(stable=True)` of the masked
+    destinations, which gives the table's order but not the padded table
+    (no one PyTorch call does)."""
+    import torch
+    from fitsnap_tpu_torch.kernels import snap_kernels as sk
+
+    C, A, K = mask.shape
+    out = sk.reverse_table(jidx, mask)
+    ref = sk.reverse_table_plain(jidx, mask)
+    if not (torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+            and int(out[1].sum().item()) == 0):
+        raise AssertionError("reverse_table differs from its plain version "
+                             "or dropped entries")
+    # the function needs O(A K) integer work, so its bound is its bytes
+    record(rows, "reverse_table" + (f"@{shape}" if shape else ""),
+           [x.double() for x in out], [x.double() for x in ref],
+           (lambda: sk.reverse_table(jidx, mask), 20),
+           timed(lambda: sk.reverse_table_plain(jidx, mask), 5),
+           C * A * K * (4 + 1 + 4) + C * 4, 0, None,
+           wrapper="reverse_table", shape=[C, A, K])
+    dest = torch.where(mask, jidx, A).reshape(C, A * K)
+
+    def order():
+        return torch.sort(dest, dim=1, stable=True)
+
+    rows[-1]["sort_ms"] = timed(order, 20)
+    rows[-1]["sort_device_ms"] = device_time(order, 20)
+    print(f"reverse_table{'@' + shape if shape else ''}: torch.sort "
+          f"(stable) of the masked destinations ms={rows[-1]['sort_ms']:.4f}"
+          f" device_ms={rows[-1]['sort_device_ms']}", flush=True)
 
 
 def inp_chunk(seed, plan, device, configs=8):
@@ -1055,6 +1084,9 @@ def ace_kernel_checks(calc, data, seed):
         raise AssertionError("InP chunk: no pair inside the inner ramp")
     del r, mixed
     ace_pair_checks(rows, plan, disp, jelem, smask, types, "InP_shape")
+
+    # K8r on the chunk's host lists
+    reverse_check(rows, jidx, mask, "InP_shape")
 
     # K7 in the ACE layout on the chunk's plain rows, with seeded truths
     # and weights
@@ -1300,7 +1332,7 @@ def streamed_path(fs, a_plain, beta, seed, device, kind="snap"):
         t["device_busy_share"] = t["device_ms_per_pass"] / 1e3 \
             / t["steady_pass"]
     print(f"streamed pass ({kind}) device time by kernel (ms): " + (json.dumps(
-        {k: round(v, 3) for k, v in list(kernel_ms.items())[:12]})
+        {k: round(v, 4) for k, v in kernel_ms.items()})
         if kernel_ms else "not measured (no device time in the trace)"),
         flush=True)
     t0 = time.time()
@@ -1798,11 +1830,19 @@ def nn_cached_kernel_checks(fs):
     # the gather: one add per slot and component
     args = (g.reshape(N, A, K, 3), rev)
     F = nk.nn_pair_gather_plain(*args)
+    # library call: index_add_ of the neighbor scatter into (N A, 3), as
+    # K4's rows have it, on rotating copies as the gather
+    mask = batch["mask"]
+    dest = (torch.arange(N, device=mask.device)[:, None, None] * A
+            + batch["jidx"].long())[mask]
+    scat = torch.zeros((N * A, 3), dtype=g.dtype, device=g.device)
     record(rows, "nn_pair_gather", [nk.nn_pair_gather(*args)], [F],
            (rotating(nk.nn_pair_gather, args), 20),
            timed(rotating(nk.nn_pair_gather_plain, args), 10),
            M * K * 3 * 8 + rev.numel() * 4 + M * 3 * 8,
-           M * 3 * (K + rev.shape[2]), None)
+           M * 3 * (K + rev.shape[2]), None,
+           library=rotating(lambda d, gr: scat.index_add_(0, d, gr),
+                            (dest, args[0][mask])))
 
     # K11T on the force residual: per live pair 4 n_t^2 flops and 600
     gF = ((F - batch["f_target"])
@@ -2014,18 +2054,17 @@ def custom_kernel_rows(rows, sol, shape=None):
         out, ref = kernel(*args), plain(*args)
         radial = pairs * R * (EXP_OPS + 8)
         old = terms * M * GAUSS_OPS[name] + radial
-        flops = old if name == "pair_desc" else \
-            unordered * (chunks * ANCHOR_OPS + M * RECUR_PAIR_OPS[name]) \
+        flops = unordered * (chunks * ANCHOR_OPS
+                             + M * RECUR_PAIR_OPS[name]) \
             + pairs * M * DIAG_COL_OPS + radial
         record(rows, name + tag, list(out), list(ref),
                (rotating(kernel, args), 20), timed(rotating(plain, args), 5),
                nbytes, flops, None, wrapper=name,
                shape=[N, A, K], vector=True)
         rows[-1]["device_ms_l2"] = device_time(lambda: kernel(*args), 20)
-        if name != "pair_desc":
-            # the bound when every Gaussian costs its own exp
-            rows[-1]["bound_ms_one_exp"] = bound_ms(nbytes, old)[0]
-        else:
+        # the bound when every Gaussian costs its own exp
+        rows[-1]["bound_ms_one_exp"] = bound_ms(nbytes, old)[0]
+        if name == "pair_desc":
             digest = hashlib.sha256(b"".join(
                 t.cpu().numpy().tobytes() for t in out)).hexdigest()[:16]
             print(f"pair_desc{tag} outputs' digest: {digest}", flush=True)

@@ -26,9 +26,10 @@
 //
 // Bound on the H100: K8 evaluates S * A^2 candidate distances per config
 // (11 flops each) and writes 29 B per slot; at the Ta shapes (S = 27,
-// A = 128, K = 64) the two least times are about equal.  K8r compares
-// A * A * K slot indices per config against 9 B per slot of lists and table,
-// and is bound by the bytes.
+// A = 128, K = 64) the two least times are about equal.  K8r needs O(A K)
+// integer work per config against 9 B per slot of lists and table, and is
+// bound by the bytes: 0.6 MB at 8 x 128 x 64, well under a microsecond, so
+// its real floor is one launch's fixed latency.
 //
 // Design.  K8: one block per (config, atom i).  The candidate distances go
 // to shared memory (8 B each) and the valid ones are listed (4 B each);
@@ -38,12 +39,31 @@
 // order, ((pos_j + svec) - pos_i) per component, then x, y, z left to right,
 // so no FMA contraction changes its rounding and the order of near ties
 // matches the plain version.  The block's candidates must fit in shared
-// memory (the wrapper checks).  K8r: one warp per (config, atom n) scans
-// the slots in order with a ballot and a prefix count.  No floating-point
-// atomics: both are deterministic.
+// memory (the wrapper checks).
+//
+// K8r places each slot by counting: the column of slot s = i K + k in row
+// n = jidx[i, k] is the number of earlier live slots of its config with the
+// same destination.  A block owns a range of at most RV_DEST destination
+// rows of one config, the ranges sized so that about two blocks an SM run
+// (a small batch still spreads over the card; one range a config once the
+// batch alone fills it).  It reads the config's slots in chunks of
+// RV_CHUNK, 16 consecutive slots a thread, and lists those that point into
+// its range in slot order (a block-wide exclusive scan of the threads'
+// counts gives each its place in the list).  Warp w then walks the list
+// for rows w, w + RV_WARPS, ... of the range, 32 entries a step: a ballot
+// of the entries of its row and a count of the earlier lanes give each
+// entry its column, the row's count so far carried across steps and
+// chunks.  Entries past R are not written; the block pads its rows with -1
+// from their counts and adds what fell past R to `dropped`.  Only integer
+// counts, each row's in slot order, and no floating-point atomics in
+// either kernel: the table is exact and deterministic.  Each block reads
+// its config's 5 B a slot once, from L2 for all but the first: the reads
+// are A K per (config, range), the ranges a config about 2 x SMs / C.
 #include "common.cuh"
 
 #include <math_constants.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -146,30 +166,132 @@ __global__ void neighbors_kernel(const double* __restrict__ pos_hi,
   }
 }
 
-__global__ void reverse_kernel(const int* __restrict__ jidx,
-                               const unsigned char* __restrict__ mask, int A,
-                               int K, int R, int* __restrict__ rev,
-                               int* __restrict__ dropped) {
-  const long long cn = blockIdx.x;           // c * A + n
-  const long long c = cn / A;
-  const int n = static_cast<int>(cn % A);
+constexpr int RV_THREADS = 256;
+constexpr int RV_WARPS = RV_THREADS / 32;
+constexpr int RV_PER = 16;                      // slots a thread reads a chunk
+constexpr int RV_CHUNK = RV_THREADS * RV_PER;   // slots a chunk
+constexpr int RV_DEST = 32;                     // destinations a block, at most
+
+__global__ void __launch_bounds__(RV_THREADS)
+reverse_kernel(const int* __restrict__ jidx,
+               const unsigned char* __restrict__ mask, int A, int K, int R,
+               int DR, int nranges, int* __restrict__ rev,
+               int* __restrict__ dropped) {
+  __shared__ int list[RV_CHUNK];             // the chunk's hits, in slot order
+  __shared__ unsigned char lrow[RV_CHUNK];   // each hit's row in the range
+  __shared__ int run[RV_DEST];               // each row's entries so far
+  __shared__ int wsum[RV_WARPS + 1];
+  const long long b = blockIdx.x;
+  const int range = static_cast<int>(b % nranges);
+  const long long c = b / nranges;
+  const int d0 = range * DR, nd = min(A, d0 + DR) - d0;
   const int* jc = jidx + c * A * K;
   const unsigned char* mc = mask + c * A * K;
-  const int lane = threadIdx.x;
-  const int total = A * K;
-  int count = 0;
-  for (int base = 0; base < total; base += 32) {
-    const int slot = base + lane;
-    const bool hit = slot < total && mc[slot] && jc[slot] == n;
-    const unsigned bal = __ballot_sync(0xffffffffu, hit);
-    if (hit) {
-      const int pos = count + __popc(bal & ((1u << lane) - 1u));
-      if (pos < R) rev[cn * R + pos] = slot;
+  const int nslot = A * K;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid < nd) run[tid] = 0;
+  const bool vec = nslot % RV_PER == 0
+                   && (reinterpret_cast<size_t>(jidx) & 15) == 0
+                   && (reinterpret_cast<size_t>(mask) & 15) == 0;
+
+  for (int base = 0; base < nslot; base += RV_CHUNK) {
+    // this thread's slots [s0, s0 + RV_PER) that point into the range:
+    // their rows in it (-1 for the others)
+    const int s0 = base + tid * RV_PER;
+    int row[RV_PER];
+    if (vec) {
+      const int4* j4 = reinterpret_cast<const int4*>(jc + s0);
+      const uint4 m = s0 < nslot ? *reinterpret_cast<const uint4*>(mc + s0)
+                                 : make_uint4(0, 0, 0, 0);
+      const unsigned mw[4] = {m.x, m.y, m.z, m.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int4 j = mw[q] ? j4[q] : make_int4(-1, -1, -1, -1);
+        const int jj[4] = {j.x, j.y, j.z, j.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int d = jj[e] - d0;
+          row[4 * q + e] = ((mw[q] >> (8 * e)) & 0xffu) && d >= 0 && d < nd
+                               ? d : -1;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < RV_PER; ++q) {
+        const int s = s0 + q;
+        const int d = s < nslot && mc[s] ? jc[s] - d0 : -1;
+        row[q] = d >= 0 && d < nd ? d : -1;
+      }
     }
-    count += __popc(bal);
+    int cnt = 0;
+#pragma unroll
+    for (int q = 0; q < RV_PER; ++q) cnt += row[q] >= 0;
+    // list them in slot order: an exclusive scan of the counts
+    int incl = cnt;
+    for (int off = 1; off < 32; off *= 2) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += v;
+    }
+    if (lane == 31) wsum[warp] = incl;
+    __syncthreads();
+    if (tid == 0) {
+      int acc = 0;
+      for (int w = 0; w < RV_WARPS; ++w) {
+        const int v = wsum[w];
+        wsum[w] = acc;
+        acc += v;
+      }
+      wsum[RV_WARPS] = acc;
+    }
+    __syncthreads();
+    int at = wsum[warp] + incl - cnt;
+    const int nhit = wsum[RV_WARPS];
+#pragma unroll
+    for (int q = 0; q < RV_PER; ++q) {
+      if (row[q] >= 0) {
+        list[at] = s0 + q;
+        lrow[at] = static_cast<unsigned char>(row[q]);
+        ++at;
+      }
+    }
+    __syncthreads();
+
+    // warp w places the hits of rows w, w + RV_WARPS, ... of the range, in
+    // list order: a ballot and a count a step of 32 hits
+    for (int d = warp; d < nd; d += RV_WARPS) {
+      int col0 = run[d];
+      for (int e0 = 0; e0 < nhit; e0 += 32) {
+        const int e = e0 + lane;
+        const bool mine = e < nhit && lrow[e] == d;
+        const unsigned bal = __ballot_sync(0xffffffffu, mine);
+        if (mine) {
+          const int col = col0 + __popc(bal & ((1u << lane) - 1u));
+          if (col < R) rev[(c * A + d0 + d) * R + col] = list[e];
+        }
+        col0 += __popc(bal);
+      }
+      if (lane == 0) run[d] = col0;
+    }
   }
-  for (int r = count + lane; r < R; r += 32) rev[cn * R + r] = -1;
-  if (lane == 0 && count > R) atomicAdd(dropped + c, count - R);
+  __syncthreads();
+
+  // pad the range's rows; count what fell past R
+  for (int i = tid; i < nd * R; i += RV_THREADS) {
+    const int d = i / R;
+    if (i - d * R >= run[d]) rev[(c * A + d0) * R + i] = -1;
+  }
+  if (tid < nd && run[tid] > R) atomicAdd(dropped + c, run[tid] - R);
+}
+
+// The SMs of the current device (0 if it cannot be read).
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev)
+      != cudaSuccess) {
+    return 0;
+  }
+  return n;
 }
 
 }  // namespace
@@ -201,11 +323,17 @@ extern "C" int device_neighbors(const double* pos_hi, const double* pos_lo,
 extern "C" int reverse_table(const int* jidx, const unsigned char* mask,
                              int C, int A, int K, int R, int* rev,
                              int* dropped, void* stream) {
-  const long long blocks = static_cast<long long>(C) * A;
-  if (blocks > 0) {
-    reverse_kernel<<<static_cast<unsigned>(blocks), 32, 0,
-                     static_cast<cudaStream_t>(stream)>>>(jidx, mask, A, K,
-                                                          R, rev, dropped);
-  }
+  if (C == 0 || A == 0) return 0;
+  // destinations a block: about two blocks an SM over the launch, at most
+  // RV_DEST
+  const long long fill = 2LL * std::max(1, sm_count());
+  const long long per = (static_cast<long long>(C) * A + fill - 1) / fill;
+  const int DR = static_cast<int>(
+      std::min<long long>(std::min(A, RV_DEST), std::max(1LL, per)));
+  const int nranges = (A + DR - 1) / DR;
+  const long long blocks = static_cast<long long>(C) * nranges;
+  reverse_kernel<<<static_cast<unsigned>(blocks), RV_THREADS, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      jidx, mask, A, K, R, DR, nranges, rev, dropped);
   return static_cast<int>(cudaGetLastError());
 }

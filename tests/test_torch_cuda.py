@@ -13,7 +13,11 @@ bzeroflag and the inner switching function; blocks with masked pairs, a
 padded atom and an atom that is its own neighbor through a periodic image.
 K5, K7, K8 and K8r run on one batch of three configs built on the card by
 K8: a 2-atom cell whose atoms meet their own images, a 5-atom cell with a
-padded atom, and a padded config (natoms 0).  Tolerance: 1e-11 relative to
+padded atom, and a padded config (natoms 0).  K8r also on seeded lists
+with destinations repeated within rows, a truncated table (rows past the
+width, entries dropped and counted), 37 atoms of 13 slots, 2 configs of
+600 atoms x 128 slots and one of 5,000 atoms x 8 slots, each twice, bit
+for bit.  Tolerance: 1e-11 relative to
 the largest magnitude of each output (the kernels sum in another order
 than the plain versions, at float64); K8's mask and jidx and K8r's table
 exactly.  K13 and K14 run on 12 atoms x 40 neighbor slots for a
@@ -48,9 +52,9 @@ against autograd through the plain versions, 1e-10.  K15, K15V and K15T
 through the force gather's transpose) on two periodic cells with pairs
 past the cutoff and on the radial ramp and live slots masked mid-row, on
 4 atoms of 512 slots, on one slot per atom, on the two cells with 1, 2 and
-6 Gaussian columns (the edges of K15V's and K15T's Gaussian recurrence)
+6 Gaussian columns (the edges of the kernels' Gaussian recurrence)
 and on a minibatch shaped like the pairwise set's (8, 64) bucket (4 x 8
-atoms x 64 slots, about 58 live); K15V and K15T also in their wide launch
+atoms x 64 slots, about 58 live); all three also in their wide launch
 shape (more atoms than SMs: 160 atoms of 512 slots, 4 x 64 atoms of 64
 slots, with 23, 1 and 2 columns): dead slots exactly 0, bit for bit from
 run to run; the loss gradient through `PairDescForce` against double
@@ -744,6 +748,52 @@ def test_k8_k8r_match_plain(cuda):
     assert own[:2].any()                  # an atom meets its own image
 
 
+def k8r_lists(name):
+    """Seeded lists (jidx, mask) of K8r's cases, each slot column a
+    permutation of the atoms unless said otherwise: "repeats",
+    destinations repeated within rows (each row's first slots copied to
+    later ones); "truncated", half the slots pointing at one of three
+    atoms, whose rows overflow the width K; "a37", 37 atoms of 13 slots
+    (neither a multiple of 32, nor a slot count that the kernel's 16-slot
+    loads divide); "a600", two configs of 600 atoms x 128 slots (a config
+    larger than one block's shared memory); "a5000", one config of 5,000
+    atoms x 8 slots (many blocks of destination rows)."""
+    rng = np.random.default_rng({"repeats": 50, "truncated": 51, "a37": 52,
+                                 "a600": 53, "a5000": 54}[name])
+    C, A, K = {"repeats": (3, 64, 40), "truncated": (2, 40, 16),
+               "a37": (5, 37, 13), "a600": (2, 600, 128),
+               "a5000": (1, 5000, 8)}[name]
+    # a permutation of the atoms per (config, slot column): no atom is the
+    # destination of more than K slots
+    jidx = np.argsort(rng.random((C, K, A)), -1).transpose(0, 2, 1)
+    if name == "repeats":
+        jidx[:, :, K // 2:] = jidx[:, :, :K - K // 2]
+    if name == "truncated":
+        jidx = np.where(rng.random((C, A, K)) < 0.5,
+                        rng.integers(0, 3, (C, A, K)), jidx)
+    mask = rng.random((C, A, K)) < 0.8
+    mask[:, -1] = False                   # a padded atom
+    return (torch.as_tensor(np.ascontiguousarray(jidx, np.int32)).cuda(),
+            torch.as_tensor(mask).cuda())
+
+
+@pytest.mark.parametrize("name", ["repeats", "truncated", "a37", "a600",
+                                  "a5000"])
+def test_k8r_matches_plain(cuda, name):
+    """K8r's table and dropped counts equal its plain version's, bit for
+    bit from run to run."""
+    jidx, mask = k8r_lists(name)
+    sk.reset_launches()
+    rev, dropped = sk.reverse_table(jidx, mask)
+    again = sk.reverse_table(jidx, mask)
+    ref = sk.reverse_table_plain(jidx, mask)
+    torch.cuda.synchronize()
+    assert sk.launches()["reverse_table"] == 2
+    assert torch.equal(rev, ref[0]) and torch.equal(dropped, ref[1])
+    assert torch.equal(again[0], rev) and torch.equal(again[1], dropped)
+    assert (int(dropped.sum()) > 0) == (name == "truncated")
+
+
 def test_k5_k7_match_plain(cuda):
     """ZBL gradient and the normal equations (direct and residual) on rows
     made from random per-pair gradients of the K8 batch."""
@@ -936,7 +986,8 @@ def test_k15_k15v_k15t_match_plain(cuda, name):
     dead = ~mask
     for out in (desc, fc, g, *jh, *jg):
         assert (out[dead] == 0).all()
-    assert torch.equal(desc, ck.pair_desc(disp, mask, *args)[0])
+    again = ck.pair_desc(disp, mask, *args)
+    assert torch.equal(desc, again[0]) and torch.equal(fc, again[1])
     assert torch.equal(g, ck.pair_desc_vjp(gd, ee, disp, mask, *args))
     assert torch.equal(jg[0], ck.pair_desc_jvp(gF, disp, mask, *args,
                                                jidx=jidx)[0])
@@ -962,12 +1013,12 @@ K15_WIDE_CASES = {f"{b}-m{m}": (b, m) for b in ("k512w", "b464")
 
 @pytest.mark.parametrize("name", list(K15_WIDE_CASES))
 def test_k15v_k15t_wide_shape_match_plain(cuda, name):
-    """K15V's pair gradient and K15T's tangent (given h, and from force
-    cotangents through jidx) in their wide launch shape, taken when the
-    launch has more atoms than the card has SMs, against their plain
-    versions: at K = 512 (more items and sum slots than threads) and at 64
-    slots, with 23, 1 and 2 Gaussian columns; dead slots exactly zero;
-    runs repeat bit for bit."""
+    """K15's descriptors and envelope, K15V's pair gradient and K15T's
+    tangent (given h, and from force cotangents through jidx) in their
+    wide launch shape, taken when the launch has more atoms than the card
+    has SMs, against their plain versions: at K = 512 (more items and sum
+    slots than threads) and at 64 slots, with 23, 1 and 2 Gaussian
+    columns; dead slots exactly zero; runs repeat bit for bit."""
     from fitsnap_tpu_torch.kernels import custom_kernels as ck
 
     block, num_3body = K15_WIDE_CASES[name]
@@ -976,24 +1027,30 @@ def test_k15v_k15t_wide_shape_match_plain(cuda, name):
     assert N * A > torch.cuda.get_device_properties(0).multi_processor_count
     args = (CUTOFF, NRAD, num_3body)
     ck.reset_launches()
+    desc, fc = ck.pair_desc(disp, mask, *args)
     g = ck.pair_desc_vjp(gd, ee, disp, mask, *args)
     jh = ck.pair_desc_jvp(h, disp, mask, *args)
     jg = ck.pair_desc_jvp(gF, disp, mask, *args, jidx=jidx)
     torch.cuda.synchronize()
-    assert launched(ck) == {"pair_desc_vjp": 1, "pair_desc_jvp": 2}
+    assert launched(ck) == {"pair_desc": 1, "pair_desc_vjp": 1,
+                            "pair_desc_jvp": 2}
 
     def plain(fn, *tensors):
         return plain_by_atoms(lambda *t: fn(*t, *args), tensors,
                               max(1, 4096 // K))
 
+    assert rel_err([desc, fc], plain(ck.pair_desc_plain, disp, mask)) \
+        <= RTOL
     assert rel_err([g], [plain(ck.pair_desc_vjp_plain, gd, ee, disp, mask)]) \
         <= RTOL
     assert rel_err(jh, plain(ck.pair_desc_jvp_plain, h, disp, mask)) <= RTOL
     assert rel_err(jg, plain(ck.pair_desc_jvp_plain, ck._gather_t(gF, jidx),
                              disp, mask)) <= RTOL
     dead = ~mask
-    for out in (g, *jh, *jg):
+    for out in (desc, fc, g, *jh, *jg):
         assert (out[dead] == 0).all()
+    again = ck.pair_desc(disp, mask, *args)
+    assert torch.equal(desc, again[0]) and torch.equal(fc, again[1])
     assert torch.equal(g, ck.pair_desc_vjp(gd, ee, disp, mask, *args))
     assert torch.equal(jg[0], ck.pair_desc_jvp(gF, disp, mask, *args,
                                                jidx=jidx)[0])

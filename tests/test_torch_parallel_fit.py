@@ -12,7 +12,10 @@ CPU):
   within 1e-12 A, on four random triclinic cells with padded atoms; on a
   perfect bcc supercell, where distances tie, each atom's set of
   displacements rounded to 1e-8;
-- K8r `reverse_table`: equal to the host `reverse_neighbors`;
+- K8r `reverse_table`: equal to the host `reverse_neighbors`; its plain
+  version equal to `reverse_neighbors` and to a loop over the slots on
+  seeded lists with padded atoms, destinations repeated within a row and
+  rows fuller than the table (entries past it dropped and counted);
 - K5 through `reference_eav`: the ZBL energy, forces and virial within
   1e-12 of the largest magnitude, with pairs from 1.5 A to past 4.8 A, one
   and two types;
@@ -256,6 +259,51 @@ def test_reverse_table_matches_host(index):
     want = np.full((len(pos), k_pad), -1, np.int32)
     want[:na, :ref.shape[1]] = ref
     np.testing.assert_array_equal(rev[0].numpy(), want)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_reverse_table_plain_matches_host_and_loop(seed):
+    """K8r's plain version, the function its kernel must equal, against
+    the host `reverse_neighbors` and a loop over the slots: seeded lists
+    of a few configs with padded atoms (rows masked out, never a
+    destination), destinations repeated within a row, and rows fuller
+    than the table's width K (entries past K dropped and counted)."""
+    rng = np.random.default_rng(40 + seed)
+    C, A, K = 3, int(rng.integers(5, 40)), int(rng.integers(2, 12))
+    natoms = rng.integers(1, A + 1, C)
+    natoms[0] = A
+    jidx = np.zeros((C, A, K), np.int32)
+    mask = np.zeros((C, A, K), bool)
+    for c, na in enumerate(natoms):
+        # a few favoured destinations, so rows repeat them and some rows
+        # of the table overflow
+        hot = rng.integers(0, na, 3)
+        pick = rng.integers(0, na, (na, K))
+        jidx[c, :na] = np.where(rng.random((na, K)) < 0.3,
+                                hot[rng.integers(0, 3, (na, K))], pick)
+        mask[c, :na] = rng.random((na, K)) < 0.8
+    rev, dropped = sk.reverse_table_plain(t(jidx), t(mask))
+    rev, dropped = rev.numpy(), dropped.numpy()
+    assert rev.shape == (C, A, K) and rev.dtype == np.int32
+    repeats = [len(set(j[m])) < m.sum() for j, m in
+               zip(jidx.reshape(-1, K), mask.reshape(-1, K))]
+    assert any(repeats) and dropped.sum() > 0
+
+    for c, na in enumerate(natoms):
+        want = np.full((A, K), -1, np.int32)
+        lost = 0
+        for n in range(A):
+            entries = [s for s in range(A * K)
+                       if mask[c].flat[s] and jidx[c].flat[s] == n]
+            want[n, :min(K, len(entries))] = entries[:K]
+            lost += max(0, len(entries) - K)
+        np.testing.assert_array_equal(rev[c], want)
+        assert int(dropped[c]) == lost
+        host = neighbors.reverse_neighbors(jidx[c], mask[c], int(na))
+        width = min(K, host.shape[1])
+        np.testing.assert_array_equal(rev[c, :na, :width], host[:, :width])
+        assert (rev[c, na:] == -1).all()
+        assert (rev[c, :na, host.shape[1]:] == -1).all()
 
 
 # ---------------------------------------------------------------------------
