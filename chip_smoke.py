@@ -126,10 +126,13 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    no bucket holds dB/dD, the last epoch's train loss is below the first's
    and the four files are written.  Then K9, K10, K10T, K11, K11T and the
    gather against their plain versions at the largest bucket with a
-   minibatch of 4 (1e-11; timed on rotating copies of the inputs, as K12;
-   the gather beside `index_add_` of the neighbor scatter),
-   the loss gradient through `NnCachedForce` against autograd through the
-   plain versions (1e-10), the trained model's energies and forces on that
+   minibatch of 4 (4 x 128 x 64; 1e-11; timed on rotating copies of the
+   inputs, as K12; the gather beside `index_add_` of the neighbor scatter
+   alone, its library call, and, printed as context, the whole gather in
+   PyTorch: g.sum(2), then `index_add_`), K11T also at the smallest bucket
+   (4 x 8 x 64), the digests of K9's outputs and of K11's on a seeded grid
+   cotangent (to compare builds bit for bit), the loss gradient through
+   `NnCachedForce` against autograd through the plain versions (1e-10), the trained model's energies and forces on that
    minibatch against the precompute path's (K1-K3's dB/dD, then K12;
    1e-9), central-difference forces (device neighbor lists, K9 and the
    cached forward at each displaced position) on three atoms of two configs
@@ -146,7 +149,11 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    against their plain versions on the largest minibatch (4 x 128 x 64)
    and on a minibatch of the (8, 64) bucket, the set's most common (4 x 8
    x 64; 1e-11; timed on rotating copies of the inputs; K15's outputs'
-   digests printed, to compare builds bit for bit), the loss gradient
+   digests printed, to compare builds bit for bit), the force gather on
+   that small minibatch's lists with seeded pair gradients (its cells are
+   symmetric: K15V's gradients give forces that cancel to rounding), timed
+   as in phase 13 with its `index_add_` and the whole gather in PyTorch,
+   the loss gradient
    through `PairDescForce` against plain double autograd through the
    plain descriptors on the card (1e-10), central-difference forces (host
    lists and K15 at each displaced position) on three atoms of two configs
@@ -155,7 +162,8 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    into layer 1), and a profiler split of one epoch.
 
 Each NN phase's profiler split prints the port's kernels' launches in the
-profiled epoch beside their device ms.  Rows of kernels whose work is f64
+profiled epoch beside their device ms (the cached epoch's K11T and gather
+among them).  Rows of kernels whose work is f64
 arithmetic outside the tensor cores (K9-K11T, K15-K15T) also carry
 `bound_ms_fp64_vector`, their bound at the FP64 vector rate.
 
@@ -1738,13 +1746,13 @@ def nn_epoch_profile(fs, epoch_s):
             "epoch_port_kernels": port}
 
 
-def nn_cached_batch(sol, n=4):
+def nn_cached_batch(sol, n=4, pick=np.argmax):
     """A minibatch of the first n configs of the cached mode's largest
-    bucket, with the trained model's dE/dB (N*A, W) and the pair-kernel
-    inputs flat over the (N*A) atoms."""
+    bucket (pick=np.argmin: its smallest), with the trained model's dE/dB
+    (N*A, W) and the pair-kernel inputs flat over the (N*A) atoms."""
     import torch
 
-    bi = int(np.argmax([np.prod(b["shape"]) for b in sol.buckets]))
+    bi = int(pick([np.prod(b["shape"]) for b in sol.buckets]))
     batch = sol._gather(sol.buckets[bi],
                         np.arange(min(n, len(sol.buckets[bi]["groups"]))))
     N, A, K = batch["jidx"].shape
@@ -1758,6 +1766,86 @@ def nn_cached_batch(sol, n=4):
     block = (batch["disp"].reshape(N * A, K, 3), jelem.reshape(N * A, K),
              smask.reshape(N * A, K), batch["types"].reshape(N * A))
     return batch, dEdB, block
+
+
+def digest(tensors):
+    """First 16 hex digits of the sha256 of tensors' bytes: equal digests
+    mean equal outputs, bit for bit."""
+    import hashlib
+
+    return hashlib.sha256(b"".join(t.cpu().numpy().tobytes()
+                                   for t in tensors)).hexdigest()[:16]
+
+
+def gather_row(rows, g, rev, jidx, mask, tag=""):
+    """The force gather against its plain version on pair gradients g (N,
+    A, K, 3) with the reverse table rev and the lists jidx, mask (N, A, K),
+    timed on rotating copies, beside `index_add_` of the neighbor scatter
+    alone as its library call; also prints, as context, the whole gather in
+    PyTorch: g.sum(2), then `index_add_` of the scatter (two calls)."""
+    import torch
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+
+    N, A, K, _ = g.shape
+    args = (g, rev)
+    F = nk.nn_pair_gather_plain(*args)
+    # index_add_ of the neighbor scatter into (N A, 3), as K4's rows have it
+    dest = (torch.arange(N, device=g.device)[:, None, None] * A
+            + jidx.long())[mask]
+    scat = torch.zeros((N * A, 3), dtype=g.dtype, device=g.device)
+    # one add per slot and component
+    record(rows, "nn_pair_gather" + tag, [nk.nn_pair_gather(*args)], [F],
+           (rotating(nk.nn_pair_gather, args), 20),
+           timed(rotating(nk.nn_pair_gather_plain, args), 10),
+           N * A * K * 3 * 8 + rev.numel() * 4 + N * A * 3 * 8,
+           N * A * 3 * (K + rev.shape[2]), None, wrapper="nn_pair_gather",
+           shape=[N, A, K],
+           library=rotating(lambda d, gr: scat.index_add_(0, d, gr),
+                            (dest, g[mask])))
+
+    def whole(gg, d, gr):
+        return gg.sum(2).reshape(N * A, 3).index_add_(0, d, gr, alpha=-1.0)
+
+    err = rel_err([whole(g, dest, g[mask]).reshape(N, A, 3)], [F])[1]
+    call = rotating(whole, (g, dest, g[mask]))
+    print(f"nn_pair_gather{tag} in PyTorch (g.sum(2), then index_add_; two "
+          f"calls): ms={timed(call, 20):.4f} device_ms="
+          f"{device_time(call, 20)} max_rel_err={err:.3e}", flush=True)
+
+
+def k11t_small_row(rows, sol):
+    """K11T against its plain version on a minibatch of 4 at the cached
+    mode's smallest bucket, on the force residual of the plain forward."""
+    import torch
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+    from fitsnap_tpu_torch.kernels import snap_kernels as sk
+    from fitsnap_tpu_torch.ops.snap import nn_tables
+
+    p = sol._snap
+    n_t = nn_tables(p).n_t
+    batch, dEdB, block = nn_cached_batch(sol, pick=np.argmin)
+    N, A, K = batch["jidx"].shape
+    M = N * A
+    vg = nk.nn_dedu_vg_plain(dEdB, *sk.zlist_plain(
+        batch["ut"].reshape(M, -1), p), p)
+    F = nk.nn_pair_gather_plain(
+        nk.nn_pair_force_plain(vg, *block, p).reshape(N, A, K, 3),
+        batch["rev"])
+    gF = ((F - batch["f_target"])
+          * batch["real"][..., None].to(F.dtype)).contiguous()
+    args = (gF, batch["jidx"]) + block
+    pairs = int(block[2].sum().item())
+    pair_in = M * K * (3 * 8 + 4 + 1) + M * 4
+    print(f"nn cached smallest bucket: N={N} A={A} K={K} live pairs={pairs}",
+          flush=True)
+    record(rows, f"nn_pair_force_t@{(A, K)}",
+           [nk.nn_pair_force_t(*args, p)], [nk.nn_pair_force_t_plain(*args, p)],
+           (rotating(lambda *a: nk.nn_pair_force_t(*a, p), args), 20),
+           timed(rotating(lambda *a: nk.nn_pair_force_t_plain(*a, p), args),
+                 5),
+           M * 3 * 8 + M * K * 4 + pair_in + M * n_t * n_t * 8,
+           pairs * (4 * n_t * n_t + 600), None, wrapper="nn_pair_force_t",
+           shape=[N, A, K], vector=True)
 
 
 def nn_cached_kernel_checks(fs):
@@ -1827,22 +1915,16 @@ def nn_cached_kernel_checks(fs):
            pair_in + M * n_t * n_t * 8 + M * K * 3 * 8,
            pairs * (8 * n_t * n_t + 600), None, vector=True)
 
-    # the gather: one add per slot and component
-    args = (g.reshape(N, A, K, 3), rev)
-    F = nk.nn_pair_gather_plain(*args)
-    # library call: index_add_ of the neighbor scatter into (N A, 3), as
-    # K4's rows have it, on rotating copies as the gather
-    mask = batch["mask"]
-    dest = (torch.arange(N, device=mask.device)[:, None, None] * A
-            + batch["jidx"].long())[mask]
-    scat = torch.zeros((N * A, 3), dtype=g.dtype, device=g.device)
-    record(rows, "nn_pair_gather", [nk.nn_pair_gather(*args)], [F],
-           (rotating(nk.nn_pair_gather, args), 20),
-           timed(rotating(nk.nn_pair_gather_plain, args), 10),
-           M * K * 3 * 8 + rev.numel() * 4 + M * 3 * 8,
-           M * 3 * (K + rev.shape[2]), None,
-           library=rotating(lambda d, gr: scat.index_add_(0, d, gr),
-                            (dest, args[0][mask])))
+    # the gather, on K11's pair gradients
+    F = nk.nn_pair_gather_plain(g.reshape(N, A, K, 3), rev)
+    gather_row(rows, g.reshape(N, A, K, 3), rev, batch["jidx"], batch["mask"])
+    # K9's and K11's outputs (K11 on a seeded vg, which training does not
+    # touch), to compare builds bit for bit
+    vg_seeded = torch.as_tensor(np.random.default_rng(0).normal(
+        size=(M, n_t, n_t)), device=vg.device)
+    print(f"nn_ut_b outputs' digest: {digest(nk.nn_ut_b(*block, p))}; "
+          f"nn_pair_force outputs' digest (seeded vg): "
+          f"{digest([nk.nn_pair_force(vg_seeded, *block, p)])}", flush=True)
 
     # K11T on the force residual: per live pair 4 n_t^2 flops and 600
     gF = ((F - batch["f_target"])
@@ -1854,7 +1936,9 @@ def nn_cached_kernel_checks(fs):
            timed(rotating(lambda *a: nk.nn_pair_force_t_plain(*a, p), args),
                  5),
            M * 3 * 8 + M * K * 4 + pair_in + M * n_t * n_t * 8,
-           pairs * (4 * n_t * n_t + 600), None, vector=True)
+           pairs * (4 * n_t * n_t + 600), None, wrapper="nn_pair_force_t",
+           shape=[N, A, K], vector=True)
+    k11t_small_row(rows, sol)
 
     # K10T: 2 flops per Lg entry, 5 per y entry, per atom
     args = (vgc,) + tuple(z)
@@ -2005,10 +2089,8 @@ def custom_batch(sol, n=4, shape=None):
 def custom_kernel_rows(rows, sol, shape=None):
     """K15, K15V and K15T against their plain versions on a minibatch of 4
     of the bucket of `shape` (None: the largest; its rows keep the
-    kernels' names, another shape's are named `<kernel>@<shape>`).
-    Returns the minibatch."""
-    import hashlib
-
+    kernels' names, another shape's are named `<kernel>@<shape>` and add
+    the force gather's row).  Returns the minibatch."""
     import torch
     from fitsnap_tpu_torch.kernels import custom_kernels as ck
     from fitsnap_tpu_torch.kernels import nn_kernels as nk
@@ -2065,9 +2147,15 @@ def custom_kernel_rows(rows, sol, shape=None):
         # the bound when every Gaussian costs its own exp
         rows[-1]["bound_ms_one_exp"] = bound_ms(nbytes, old)[0]
         if name == "pair_desc":
-            digest = hashlib.sha256(b"".join(
-                t.cpu().numpy().tobytes() for t in out)).hexdigest()[:16]
-            print(f"pair_desc{tag} outputs' digest: {digest}", flush=True)
+            print(f"pair_desc{tag} outputs' digest: {digest(out)}",
+                  flush=True)
+    if shape is not None:
+        # the gather on the minibatch's lists, with seeded pair gradients
+        # (zero on masked slots): the set's small cells are symmetric, so
+        # their forces from K15V's gradients cancel to rounding
+        g = torch.as_tensor(np.random.default_rng(0).normal(
+            size=(N, A, K, 3)), device=disp.device) * mask[..., None]
+        gather_row(rows, g.contiguous(), batch["rev"], jidx, mask, tag)
     return batch
 
 

@@ -27,17 +27,28 @@
 // bit.  K12 is two launches, as K8/K8r are: the contraction, one block per
 // atom (n, a) with a thread per (k, c) walking down w (G's (K, 3) rows for
 // one w are contiguous, so a warp reads consecutive doubles), into an
-// (N, A, K, 3) scratch; then the gather through rev (nn_pair_gather), one
-// thread per (n, m, c), as K4 finds a pair's source.  K12T: one block per
-// atom; the differences gF[a] - gF[jidx] go to shared memory once, then one
-// warp per w runs down G's (K, 3) row and reduces with shuffles in a fixed
-// order.
+// (N, A, K, 3) scratch; then the gather (nn_pair_gather).  K12T: one block
+// per atom; the differences gF[a] - gF[jidx] go to shared memory once, then
+// one warp per w runs down G's (K, 3) row and reduces with shuffles in a
+// fixed order.
+//
+// The gather: its bytes take 0.28 us at the NN minibatch, so its time is the
+// chain of dependent loads, which the design keeps to two round trips.  One
+// warp per destination atom, GATHER_WARPS atoms a block (the 512 atoms of a
+// 4 x 128 x 64 minibatch fill 128 blocks).  The lanes read the atom's own row
+// of 3K doubles coalesced, three loads a lane per 96 doubles (so each lane's
+// three loads hit the three components, in a fixed rotation, and no row
+// needs 16-byte alignment), and its R reverse entries in parallel (lane r
+// takes r, r + 32, ...; a -1 adds nothing; the first 32 are read before the
+// own row): rev with the own row, then the sources' g.  Each lane subtracts
+// its scatter sums from its own sums; the warp adds the three components
+// with an xor butterfly, a fixed tree.
 #include "common.cuh"
 
 namespace {
 
 constexpr int PAIR_THREADS = 128;
-constexpr int GATHER_THREADS = 128;
+constexpr int GATHER_WARPS = 4;      // atoms a block of the gather
 constexpr int T_THREADS = 256;
 constexpr int WARPS = T_THREADS / 32;
 
@@ -55,25 +66,46 @@ __global__ void nn_fpair_kernel(const double* __restrict__ dedb,
   }
 }
 
-__global__ void nn_gather_kernel(const double* __restrict__ fpair,
-                                 const int* __restrict__ rev, int A, int K,
-                                 int R, long long total,
-                                 double* __restrict__ force) {
-  const long long idx = blockIdx.x * static_cast<long long>(blockDim.x)
-                        + threadIdx.x;
-  if (idx >= total) return;
-  const long long m = idx / 3;               // n * A + local atom
-  const int c = static_cast<int>(idx % 3);
-  const long long first = (m / A) * A;       // first atom of its config
-  double own = 0.0;
-  for (int k = 0; k < K; ++k) own += fpair[(m * K + k) * 3 + c];
-  double scat = 0.0;
-  for (int r = 0; r < R; ++r) {
-    const int slot = rev[m * R + r];
-    if (slot < 0) break;
-    scat += fpair[(first * K + slot) * 3 + c];
+__global__ void __launch_bounds__(GATHER_WARPS * 32) nn_gather_kernel(
+    const double* __restrict__ g, const int* __restrict__ rev,
+    long long atoms, int A, int K, int R, double* __restrict__ force) {
+  const long long m = blockIdx.x * static_cast<long long>(GATHER_WARPS)
+                      + threadIdx.x / 32;        // n * A + local atom
+  if (m >= atoms) return;                        // the whole warp
+  const int lane = threadIdx.x % 32;
+  const int n = 3 * K;
+  const double* row = g + m * n;
+  // the slots whose neighbor is m, flat a * K + k within m's config; the
+  // first 32 are read before the own row, so that both loads are in flight
+  const int* rv = rev + m * R;
+  int slot = lane < R ? rv[lane] : -1;
+  // own sums: row[i], i = lane + 32 j, has component (lane + 2 j) % 3, so
+  // o[0], o[1], o[2] take components lane % 3, (lane + 2) % 3, (lane + 1) % 3
+  double o[3] = {0.0, 0.0, 0.0};
+  for (int i = lane; i < n; i += 96) {
+    o[0] += row[i];
+    if (i + 32 < n) o[1] += row[i + 32];
+    if (i + 64 < n) o[2] += row[i + 64];
   }
-  force[idx] = own - scat;
+  const double* cfg = g + (m / A) * A * n;
+  double sc[3] = {0.0, 0.0, 0.0};
+  for (int r = lane; r < R; r += 32) {
+    if (r > lane) slot = rv[r];
+    if (slot >= 0) {
+      const double* src = cfg + 3LL * slot;
+      for (int c = 0; c < 3; ++c) sc[c] += src[c];
+    }
+  }
+  const int c0 = lane % 3;
+  double v[3];
+  for (int c = 0; c < 3; ++c) {
+    // o[j] holds component (c0 + 2 j) % 3: j = 2 (c - c0) mod 3
+    const int j = (2 * (c - c0) + 6) % 3;
+    v[c] = (j == 0 ? o[0] : j == 1 ? o[1] : o[2]) - sc[c];
+  }
+  for (int off = 16; off > 0; off /= 2)
+    for (int c = 0; c < 3; ++c) v[c] += __shfl_xor_sync(0xffffffffu, v[c], off);
+  if (lane < 3) force[m * 3 + lane] = lane == 0 ? v[0] : lane == 1 ? v[1] : v[2];
 }
 
 __global__ void nn_force_t_kernel(const double* __restrict__ gF,
@@ -120,13 +152,13 @@ extern "C" int nn_force(const double* dedb, const double* G, int N, int A,
 // g (N, A, K, 3), rev (N, A, R) i32.  Writes force (N, A, 3).
 extern "C" int nn_pair_gather(const double* g, const int* rev, int N, int A,
                               int K, int R, double* force, void* stream) {
-  const long long total = static_cast<long long>(N) * A * 3;
-  if (total > 0) {
+  const long long atoms = static_cast<long long>(N) * A;
+  if (atoms > 0) {
     const unsigned blocks =
-        static_cast<unsigned>((total + GATHER_THREADS - 1) / GATHER_THREADS);
-    nn_gather_kernel<<<blocks, GATHER_THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(g, rev, A, K, R,
-                                                            total, force);
+        static_cast<unsigned>((atoms + GATHER_WARPS - 1) / GATHER_WARPS);
+    nn_gather_kernel<<<blocks, GATHER_WARPS * 32, 0,
+                       static_cast<cudaStream_t>(stream)>>>(g, rev, atoms, A,
+                                                            K, R, force);
   }
   return static_cast<int>(cudaGetLastError());
 }

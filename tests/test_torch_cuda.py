@@ -47,7 +47,13 @@ autograd through K12's plain version, 1e-10.  K9, K10, K10T, K11, K11T and
 the force gather on two configs of 6 atoms x 40 slots (the two CASES
 plans; a self image, masked pairs, a padded atom), each once and bit for
 bit from run to run; the force-loss gradient through `NnCachedForce`
-against autograd through the plain versions, 1e-10.  K15, K15V and K15T
+against autograd through the plain versions, 1e-10.  The force gather at
+its edges (rows of 3 x 41 doubles, an atom no one neighbors, R = 1, R = 60
+> 32 and > K, 640 atoms) and K11T at twojmax 6, 8, 10 and 12, with 200
+slots (more than one round of prologues), 640 atoms and 2 atoms, a masked
+hole before live slots and a masked-in pair past the SNAP cutoff, each
+once, bit for bit from run to run (K11T: the padded atom's grid exactly
+0).  K15, K15V and K15T
 (the custom pairwise NN's descriptors, their VJP and its transpose, also
 through the force gather's transpose) on two periodic cells with pairs
 past the cutoff and on the radial ramp and live slots masked mid-row, on
@@ -701,6 +707,101 @@ def test_nn_cached_force_gradient_matches_plain_autograd(cuda):
                             "nn_pair_gather": 1, "nn_pair_force_t": 1,
                             "nn_dedu_vg_t": 1}
     assert rel_err(out, grads(plain)) <= 1e-10
+
+
+# The force gather at its edges: (nconf, A, K) and how the lists are drawn.
+# k41: rows of 3 x 41 doubles (not 16-byte aligned) and an atom no one
+# neighbors (its rev row all -1); r1: each atom the neighbor of one slot
+# (R = 1); r60: every slot's neighbor is atom 0 (R = 60 > 32 and > K = 20;
+# atoms 1 and 2 have rows all -1); wide: 640 atoms (more than 4 x 132).
+GATHER_CASES = {"k41": (2, 6, 41), "r1": (2, 7, 1), "r60": (1, 3, 20),
+                "wide": (5, 128, 16)}
+
+
+def gather_block(name, device):
+    """Pair gradients g (nconf, A, K, 3) and the reverse table rev (nconf,
+    A, R) of seeded lists with masked slots (r1, r60: none), rows of rev
+    increasing and padded with -1."""
+    nconf, A, K = GATHER_CASES[name]
+    rng = np.random.default_rng(21)
+    jidx = rng.integers(0, A, (nconf, A, K))
+    mask = rng.uniform(size=(nconf, A, K)) < 0.8
+    if name == "k41":
+        jidx[0][jidx[0] == 5] = 4
+    elif name == "r1":
+        jidx[:] = (np.arange(A)[None, :, None] + 1) % A
+        mask[:] = True
+    elif name == "r60":
+        jidx[:] = 0
+        mask[:] = True
+    slots = [[np.flatnonzero((jidx[c] == m).ravel() & mask[c].ravel())
+              for m in range(A)] for c in range(nconf)]
+    R = max(len(x) for row in slots for x in row)
+    rev = np.full((nconf, A, R), -1)
+    for c, row in enumerate(slots):
+        for m, x in enumerate(row):
+            rev[c, m, :len(x)] = x
+    return (torch.as_tensor(rng.normal(size=(nconf, A, K, 3)), device=device),
+            torch.as_tensor(rev, dtype=torch.int32, device=device))
+
+
+@pytest.mark.parametrize("name", list(GATHER_CASES))
+def test_gather_edges_match_plain(cuda, name):
+    """The force gather against its plain version, launched once, and bit
+    for bit from run to run."""
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+
+    g, rev = gather_block(name, cuda)
+    R = {"k41": None, "r1": 1, "r60": 60, "wide": None}[name]
+    assert R is None or rev.shape[2] == R
+    nk.reset_launches()
+    out = nk.nn_pair_gather(g, rev)
+    torch.cuda.synchronize()
+    assert launched(nk) == {"nn_pair_gather": 1}
+    assert rel_err([out], [nk.nn_pair_gather_plain(g, rev)]) <= RTOL
+    assert torch.equal(out, nk.nn_pair_gather(g, rev))
+
+
+# K11T at its edges: (CASES-like spec, nconf, A, K).  twojmax 6, 8, 10 and
+# 12 (n_t 28, 45, 66, 91; from twojmax 10 the kernel takes more than 256
+# threads, its second launch shape); 200 slots (more than 128 masked pairs:
+# two rounds of prologues); 640 atoms (wide) and 2 (narrow).
+K11T_CASES = {
+    "tj6": (CASES["tj6"], 2, 6, 40),
+    "tj8": (dict(CASES["tj6"], twojmax=["8"]), 2, 6, 40),
+    "tj10": (dict(CASES["tj6"], twojmax=["10"]), 2, 6, 40),
+    "tj12": (dict(CASES["tj6"], twojmax=["12"]), 1, 4, 24),
+    "tj6_k200": (CASES["tj6"], 2, 3, 200),
+    "tj6_wide": (CASES["tj6"], 4, 160, 16),
+    "tj6_narrow": (CASES["tj6"], 1, 2, 40),
+}
+
+
+@pytest.mark.parametrize("name", list(K11T_CASES))
+def test_k11t_edges_match_plain(cuda, name):
+    """K11T against its plain version on grid_block's lists (a padded
+    atom, random masked holes) with a masked hole before live pairs and a
+    masked-in pair past the SNAP cutoff (zero weight), launched once, the
+    padded atom's grid exactly 0, and bit for bit from run to run."""
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+
+    spec, nconf, A, K = K11T_CASES[name]
+    p, block, jidx, _ = grid_block(spec, cuda, nconf, A, K)
+    disp, _, mask, _ = block
+    mask[0, 3] = False
+    mask[0, 4] = True
+    disp[0, 5] = torch.tensor([0.0, 5.5, 0.0], dtype=disp.dtype)
+    mask[0, 5] = True
+    gF = torch.as_tensor(np.random.default_rng(15).normal(size=(nconf, A, 3)),
+                         device=cuda)
+    nk.reset_launches()
+    out = nk.nn_pair_force_t(gF, jidx, *block, p)
+    torch.cuda.synchronize()
+    assert launched(nk) == {"nn_pair_force_t": 1}
+    assert rel_err([out], [nk.nn_pair_force_t_plain(gF, jidx, *block, p)]) \
+        <= RTOL
+    assert not out[-1].any()
+    assert torch.equal(out, nk.nn_pair_force_t(gF, jidx, *block, p))
 
 
 def streamed_batch(device):

@@ -14,7 +14,10 @@ with their tolerances (relative to the largest magnitude):
   `nn_dEdu`, `nn_vg`, `nn_grid_pair`, `nn_pair_force`, `nn_pair_grad`,
   `atom_descriptors_fast`;
 - K10T's and K11T's plain versions against `jax.vjp` of the JAX
-  functions (K11T through the force scatter), 1e-12;
+  functions (K11T through the force scatter), 1e-12; K11T's also at
+  twojmax 8 on 4 x 12 slots with a padded atom and a masked hole, and the
+  force gather's against the JAX one-hot scatter on an atom no one
+  neighbors, R > K and one-atom configs, 1e-12;
 - the cached buckets of both packages' `prepare_dataset` (the small Ta
   set of `tests/test_torch_nn.py`): shapes and configs exactly, disp, ut,
   B, targets and standardization 1e-12; `_forward_batch_cached` and
@@ -45,12 +48,14 @@ import torch
 
 import fitsnap_tpu.solvers.network as jnet
 from fitsnap_tpu.fitsnap import FitSnap as JaxFitSnap
+from fitsnap_tpu.ops.cg import build_snap_plan
 from fitsnap_tpu.ops import snap as jsnap
 from fitsnap_tpu_torch import FitSnap
 from fitsnap_tpu_torch.convert import mlp_params_from_numpy
 from fitsnap_tpu_torch.kernels import nn_kernels as nk
 from fitsnap_tpu_torch.kernels import snap_kernels as sk
 from fitsnap_tpu_torch.models.mlp import PerElementMLP
+from fitsnap_tpu_torch.ops.neighbors import reverse_neighbors
 from fitsnap_tpu_torch.ops import snap as tsnap
 from fitsnap_tpu_torch.solvers import network as tnet
 from fitsnap_tpu_torch.tools import synthetic
@@ -148,6 +153,86 @@ def test_k10t_k11t_plain_equal_jax_vjp(kit):
     out = nk.nn_pair_force_t_plain(torch.as_tensor(gF)[None],
                                    torch.as_tensor(jidx)[None], *kit.tt, p)
     assert rel(out, np.asarray(vjp(jnp.asarray(gF))[0])) <= TOL
+
+
+def test_k11t_plain_equals_jax_vjp_twojmax8():
+    """K11T's plain version against `jax.vjp` of the JAX pair force and the
+    one-hot force scatter at twojmax 8 (n_t 45), on one config of 4 atoms
+    x 12 slots: masked tails, a masked hole between live slots, a padded
+    atom."""
+    jp = jsnap.SnapParams(
+        plan=build_snap_plan(twojmax=8, nelements=1, bzeroflag=False),
+        rcutfac=4.67637, rfac0=0.99363, rmin0=0.0, switchflag=True,
+        switchinnerflag=False, wj=np.array([1.0]), radelem=np.array([0.5]),
+        sinner=None, dinner=None)
+    p = port_params(jp)
+    A, K = 4, 12
+    rng = np.random.default_rng(31)
+    disp = rng.normal(size=(A, K, 3))
+    disp *= rng.uniform(1.0, 4.9, (A, K, 1)) / np.linalg.norm(
+        disp, axis=-1, keepdims=True)
+    mask = np.arange(K)[None, :] < rng.integers(6, K + 1, (A, 1))
+    mask[0, 2] = False
+    mask[-1] = False
+    block = (disp, np.zeros((A, K), np.int32), mask, np.zeros(A, np.int32))
+    jidx = rng.integers(0, A, (A, K)).astype(np.int32)
+    gF = rng.normal(size=(A, 3))
+    grid_j = jsnap.nn_grid_pair(*(jnp.asarray(x) for x in block), jp)
+
+    def forces(vg):
+        g = jsnap.nn_pair_force(vg, grid_j)
+        oj = jax.nn.one_hot(jnp.asarray(jidx), A, dtype=g.dtype)
+        return -(jnp.einsum("akm,akc->mc", oj, g) - g.sum(1))
+
+    n_t = tsnap.nn_tables(p).n_t
+    _, vjp = jax.vjp(forces, jnp.asarray(rng.normal(size=(A, n_t, n_t))))
+    out = nk.nn_pair_force_t_plain(
+        torch.as_tensor(gF)[None], torch.as_tensor(jidx)[None],
+        *(torch.as_tensor(x) for x in block), p)
+    assert rel(out, np.asarray(vjp(jnp.asarray(gF))[0])) <= TOL
+    assert not out[-1].any()
+
+
+# (configs, atoms, slots): lonely, an atom that no one neighbors; r_gt_k,
+# every slot's neighbor is atom 0 (R = 12 > K = 3); one_atom, configs of one
+# atom, each its own neighbor through periodic images
+GATHER_EDGES = {"lonely": (2, 5, 6), "r_gt_k": (1, 4, 3),
+                "one_atom": (3, 1, 5)}
+
+
+@pytest.mark.parametrize("name", list(GATHER_EDGES))
+def test_gather_plain_equals_jax_scatter(name):
+    """The force gather's plain version (through the reverse table) against
+    the JAX package's one-hot scatter -(einsum(one_hot(jidx), g) -
+    g.sum(2)), g zero on masked slots as the callers give it; 1e-12 of the
+    larger of |F| and |g|."""
+    N, A, K = GATHER_EDGES[name]
+    rng = np.random.default_rng(32)
+    jidx = rng.integers(0, A, (N, A, K))
+    mask = rng.uniform(size=(N, A, K)) < 0.75
+    if name == "lonely":
+        jidx[jidx == A - 1] = 0
+    elif name == "r_gt_k":
+        jidx[:] = 0
+        mask[:] = True
+    g = rng.normal(size=(N, A, K, 3)) * mask[..., None]
+    revs = [reverse_neighbors(jidx[c], mask[c], A) for c in range(N)]
+    R = max(r.shape[1] for r in revs)
+    rev = np.full((N, A, R), -1, np.int32)
+    for c, r in enumerate(revs):
+        rev[c, :, :r.shape[1]] = r
+    if name == "lonely":
+        assert (rev[:, -1] < 0).all()
+    elif name == "r_gt_k":
+        assert R == A * K > K
+    oj = jax.nn.one_hot(jnp.asarray(jidx), A, dtype=jnp.float64)
+    ref = -(jnp.einsum("nakm,nakc->nmc", oj, jnp.asarray(g))
+            - jnp.asarray(g).sum(2))
+    out = nk.nn_pair_gather_plain(torch.as_tensor(g), torch.as_tensor(rev))
+    # a one-atom config's force is 0 (its pairs cancel), so the scale is
+    # the larger of the forces' and the pair gradients'
+    scale = max(np.abs(np.asarray(ref)).max(), np.abs(g).max())
+    assert np.abs(out.numpy() - np.asarray(ref)).max() <= TOL * scale
 
 
 # ---------------------------------------------------------------------------
