@@ -129,9 +129,11 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    minibatch of 4 (4 x 128 x 64; 1e-11; timed on rotating copies of the
    inputs, as K12; the gather beside `index_add_` of the neighbor scatter
    alone, its library call, and, printed as context, the whole gather in
-   PyTorch: g.sum(2), then `index_add_`), K11T also at the smallest bucket
-   (4 x 8 x 64), the digests of K9's outputs and of K11's on a seeded grid
-   cotangent (to compare builds bit for bit), the loss gradient through
+   PyTorch: g.sum(2), then `index_add_`), K11, K11T and K10T also at the
+   smallest bucket (4 x 8 x 64), the digests of K9's outputs, of K11's on a
+   seeded grid cotangent and of K11T's on a seeded force cotangent (to
+   compare builds bit for bit; K10's and K10T's bounds count the z entries
+   the y tables reference, the least they must read), the loss gradient through
    `NnCachedForce` against autograd through the plain versions (1e-10), the trained model's energies and forces on that
    minibatch against the precompute path's (K1-K3's dB/dD, then K12;
    1e-9), central-difference forces (device neighbor lists, K9 and the
@@ -1813,39 +1815,62 @@ def gather_row(rows, g, rev, jidx, mask, tag=""):
           f"{device_time(call, 20)} max_rel_err={err:.3e}", flush=True)
 
 
-def k11t_small_row(rows, sol):
-    """K11T against its plain version on a minibatch of 4 at the cached
-    mode's smallest bucket, on the force residual of the plain forward."""
+def referenced_z(tb):
+    """The number of z entries the y tables reference (of each atom's nz):
+    what K10 and K10T must read."""
+    return len(np.unique(tb.yt_src.cpu().numpy()))
+
+
+def cached_small_rows(rows, sol):
+    """K11, K11T and K10T against their plain versions on a minibatch of 4
+    at the cached mode's smallest bucket: K11 on the plain K10's grid
+    cotangent, K11T on the force residual of the plain forward, K10T on the
+    plain K11T's grid cotangent."""
     import torch
     from fitsnap_tpu_torch.kernels import nn_kernels as nk
     from fitsnap_tpu_torch.kernels import snap_kernels as sk
     from fitsnap_tpu_torch.ops.snap import nn_tables
 
     p = sol._snap
-    n_t = nn_tables(p).n_t
+    tb = nn_tables(p)
+    n_t, W = tb.n_t, p.ntriples
     batch, dEdB, block = nn_cached_batch(sol, pick=np.argmin)
     N, A, K = batch["jidx"].shape
     M = N * A
-    vg = nk.nn_dedu_vg_plain(dEdB, *sk.zlist_plain(
-        batch["ut"].reshape(M, -1), p), p)
-    F = nk.nn_pair_gather_plain(
-        nk.nn_pair_force_plain(vg, *block, p).reshape(N, A, K, 3),
-        batch["rev"])
-    gF = ((F - batch["f_target"])
-          * batch["real"][..., None].to(F.dtype)).contiguous()
-    args = (gF, batch["jidx"]) + block
+    z = sk.zlist_plain(batch["ut"].reshape(M, -1), p)
+    vg = nk.nn_dedu_vg_plain(dEdB, *z, p)
     pairs = int(block[2].sum().item())
     pair_in = M * K * (3 * 8 + 4 + 1) + M * 4
     print(f"nn cached smallest bucket: N={N} A={A} K={K} live pairs={pairs}",
           flush=True)
-    record(rows, f"nn_pair_force_t@{(A, K)}",
-           [nk.nn_pair_force_t(*args, p)], [nk.nn_pair_force_t_plain(*args, p)],
-           (rotating(lambda *a: nk.nn_pair_force_t(*a, p), args), 20),
+    args = (vg,) + block
+    g = nk.nn_pair_force_plain(*args, p)
+    record(rows, f"nn_pair_force@{(A, K)}", [nk.nn_pair_force(*args, p)], [g],
+           (rotating(lambda *a: nk.nn_pair_force(*a, p), args), 20),
+           timed(rotating(lambda *a: nk.nn_pair_force_plain(*a, p), args), 5),
+           pair_in + M * n_t * n_t * 8 + M * K * 3 * 8,
+           pairs * (8 * n_t * n_t + 600), None, wrapper="nn_pair_force",
+           shape=[N, A, K], vector=True)
+    F = nk.nn_pair_gather_plain(g.reshape(N, A, K, 3), batch["rev"])
+    gF = ((F - batch["f_target"])
+          * batch["real"][..., None].to(F.dtype)).contiguous()
+    args = (gF, batch["jidx"]) + block
+    vgc = nk.nn_pair_force_t_plain(*args, p)
+    record(rows, f"nn_pair_force_t@{(A, K)}", [nk.nn_pair_force_t(*args, p)],
+           [vgc], (rotating(lambda *a: nk.nn_pair_force_t(*a, p), args), 20),
            timed(rotating(lambda *a: nk.nn_pair_force_t_plain(*a, p), args),
                  5),
            M * 3 * 8 + M * K * 4 + pair_in + M * n_t * n_t * 8,
            pairs * (4 * n_t * n_t + 600), None, wrapper="nn_pair_force_t",
            shape=[N, A, K], vector=True)
+    args = (vgc,) + tuple(z)
+    record(rows, f"nn_dedu_vg_t@{(A, K)}", [nk.nn_dedu_vg_t(*args, p)],
+           [nk.nn_dedu_vg_t_plain(*args, p)],
+           (rotating(lambda *a: nk.nn_dedu_vg_t(*a, p), args), 20),
+           timed(rotating(lambda *a: nk.nn_dedu_vg_t_plain(*a, p), args), 5),
+           M * (n_t * n_t + 2 * referenced_z(tb) + W) * 8,
+           M * (2 * tb.lgc_val.numel() + 5 * tb.yu_fac.numel()), None,
+           wrapper="nn_dedu_vg_t", shape=[N, A, K], vector=True)
 
 
 def nn_cached_kernel_checks(fs):
@@ -1895,13 +1920,15 @@ def nn_cached_kernel_checks(fs):
                                              device=ut.device) + 1.0)
     z = sk.zlist(batch["ut"].reshape(M, -1), p)
 
-    # K10: 5 flops per y entry, 2 per Lg entry, per atom
+    # K10: 5 flops per y entry, 2 per Lg entry, per atom; its bytes (as
+    # K10T's) count the z entries the y tables reference
+    nzr = referenced_z(tb)
     args = (dEdB,) + tuple(z)
     vg = nk.nn_dedu_vg_plain(*args, p)
     record(rows, "nn_dedu_vg", [nk.nn_dedu_vg(*args, p)], [vg],
            (rotating(lambda *a: nk.nn_dedu_vg(*a, p), args), 20),
            timed(rotating(lambda *a: nk.nn_dedu_vg_plain(*a, p), args), 5),
-           M * (W + 2 * p.nz + n_t * n_t) * 8, M * (5 * ny + 2 * nlg), None,
+           M * (W + 2 * nzr + n_t * n_t) * 8, M * (5 * ny + 2 * nlg), None,
            vector=True)
     rows[-1]["lg_mm_ms"] = lg_mm(torch.ones((M, 2 * U), dtype=torch.float64,
                                             device=vg.device), True)
@@ -1918,13 +1945,18 @@ def nn_cached_kernel_checks(fs):
     # the gather, on K11's pair gradients
     F = nk.nn_pair_gather_plain(g.reshape(N, A, K, 3), rev)
     gather_row(rows, g.reshape(N, A, K, 3), rev, batch["jidx"], batch["mask"])
-    # K9's and K11's outputs (K11 on a seeded vg, which training does not
-    # touch), to compare builds bit for bit
-    vg_seeded = torch.as_tensor(np.random.default_rng(0).normal(
-        size=(M, n_t, n_t)), device=vg.device)
+    # K9's, K11's and K11T's outputs (K11 on a seeded vg, K11T on a seeded
+    # gF, which training does not touch), to compare builds bit for bit
+    rng = np.random.default_rng(0)
+    vg_seeded = torch.as_tensor(rng.normal(size=(M, n_t, n_t)),
+                                device=vg.device)
+    gF_seeded = torch.as_tensor(rng.normal(size=(N, A, 3)), device=vg.device)
+    k11t_seeded = nk.nn_pair_force_t(gF_seeded, batch["jidx"], *block, p)
     print(f"nn_ut_b outputs' digest: {digest(nk.nn_ut_b(*block, p))}; "
           f"nn_pair_force outputs' digest (seeded vg): "
-          f"{digest([nk.nn_pair_force(vg_seeded, *block, p)])}", flush=True)
+          f"{digest([nk.nn_pair_force(vg_seeded, *block, p)])}; "
+          f"nn_pair_force_t outputs' digest (seeded gF): "
+          f"{digest([k11t_seeded])}", flush=True)
 
     # K11T on the force residual: per live pair 4 n_t^2 flops and 600
     gF = ((F - batch["f_target"])
@@ -1938,7 +1970,7 @@ def nn_cached_kernel_checks(fs):
            M * 3 * 8 + M * K * 4 + pair_in + M * n_t * n_t * 8,
            pairs * (4 * n_t * n_t + 600), None, wrapper="nn_pair_force_t",
            shape=[N, A, K], vector=True)
-    k11t_small_row(rows, sol)
+    cached_small_rows(rows, sol)
 
     # K10T: 2 flops per Lg entry, 5 per y entry, per atom
     args = (vgc,) + tuple(z)
@@ -1946,7 +1978,7 @@ def nn_cached_kernel_checks(fs):
     record(rows, "nn_dedu_vg_t", [nk.nn_dedu_vg_t(*args, p)], [ref],
            (rotating(lambda *a: nk.nn_dedu_vg_t(*a, p), args), 20),
            timed(rotating(lambda *a: nk.nn_dedu_vg_t_plain(*a, p), args), 5),
-           M * (n_t * n_t + 2 * p.nz + W) * 8, M * (2 * nlg + 5 * ny), None,
+           M * (n_t * n_t + 2 * nzr + W) * 8, M * (2 * nlg + 5 * ny), None,
            vector=True)
     rows[-1]["lg_mm_ms"] = lg_mm(vgc.reshape(M, -1))
 

@@ -12,7 +12,8 @@
 //   pair in HBM with one-hot GEMMs and maps wg through the dense Lg.
 // K11 nn_pair_force: per pair, from the atom's grid cotangent vg,
 //   sp = T1 . vg . T2, st_c = T1t_c . vg . T2 + T1 . vg . T2t_c and
-//   g_c = w st_c + wt_c sp (T1t, T2t, wt: tangents along displacement c).
+//   g_c = w st_c + wt_c sp (T1t, T2t, wt: tangents along displacement c);
+//   the derivative of the atom's energy along the pair's displacement.
 //   Replaces fitsnap_tpu/ops/snap.py `nn_grid_pair` + `nn_pair_force`, which
 //   materialize the grid tensors and their tangents in HBM every step.
 // K11T nn_pair_force_t: the transpose, the cotangent of vg from that of the
@@ -24,50 +25,69 @@
 // Bound on the H100: K9, K11 and K11T by operations per pair (about n_t^2,
 // 4 n_t^2 and 2 n_t^2 multiply-adds per live pair, 6.3 / 3.1 kflop for K11
 // / K11T at twojmax 6, against 24 bytes of displacement).  At the NN
-// minibatch of 4 x 128 x 64 (9,202 live pairs) K11T's bound is 1.3 us, by
-// its bytes (the n_t^2 grid cotangent it writes an atom), and its
-// operations take about as long at the FP64 vector rate.
+// minibatch of 4 x 128 x 64 (9,202 live pairs) K11's and K11T's bounds are
+// 1.5 and 1.3 us, by their bytes (the n_t^2 grid (co)tangent of an atom),
+// and their operations take about as long at the FP64 vector rate.
 //
-// Design of K9 and K11: one block per atom; the pair prologue and its
-// tangents are computed once per pair in closed form (prologue.cuh, as K1)
-// and the grid tensors never reach HBM.  The neighbors go in chunks of
-// CHUNK pairs: one thread per pair forms the chunk's prologues into shared
-// memory at once (the dual-number prologue, with its tan, sqrt and cos, is
-// the longest serial step).  K9 then walks the chunk in tiles of TILE
-// pairs: the tile's grid vectors go to shared memory, and each thread owns
-// entries (d, e) of the shared grid accumulator, which it updates pair by
-// pair in neighbor order.  K11 keeps vg in shared memory and gives each
-// pair to one warp: lanes build the grid vectors, then each lane contracts
-// columns e of vg and the warp reduces with shuffles in a fixed tree.  A
-// pair whose weight and weight tangents are all zero (masked, or past the
-// SNAP cutoff) adds exactly nothing, so K11 skips it and K9 skips a tile of
-// such pairs: the lists are nearest first, and about a third of the slots
-// of the Ta set's minibatch are live.  ut = wg . Lg reads Lg as a column
-// CSR table (1,835 nonzeros of 784 x 280 at twojmax 6).
+// Design of K9: one block per atom; the pair prologue and its tangents are
+// computed once per pair in closed form (prologue.cuh, as K1) and the grid
+// tensors never reach HBM.  The neighbors go in chunks of CHUNK pairs: one
+// thread per pair forms the chunk's prologues into shared memory at once
+// (the dual-number prologue, with its tan, sqrt and cos, is the longest
+// serial step).  K9 then walks the chunk in tiles of TILE pairs: the tile's
+// grid vectors go to shared memory, and each thread owns entries (d, e) of
+// the shared grid accumulator, which it updates pair by pair in neighbor
+// order.  A pair whose weight and weight tangents are all zero (masked, or
+// past the SNAP cutoff) adds exactly nothing, so K9 skips a tile of such
+// pairs: the lists are nearest first, and about a third of the slots of the
+// Ta set's minibatch are live.  ut = wg . Lg reads Lg as a column CSR table
+// (1,835 nonzeros of 784 x 280 at twojmax 6).
 //
-// Design of K11T: one block per atom, four warps up to twojmax 7 (more
-// beyond, a warp to four output tiles).  Its time is one block's chain of
-// dependent steps, not its bytes or operations, so each step is kept
-// short.  (1) one block-wide scan lists the atom's masked slots in neighbor
-// order (holes allowed), and a padded atom writes its zeros and returns; the
-// first chunk's inputs (displacement, cutoff, weight, gh) are staged in
-// shared memory on the way, a thread's first slot read ahead in the shadow
-// of the mask's load and the scan; (2) the listed pairs' prologues go one a
-// thread, in closed form (prologue_t: shared reciprocals where the dual
-// numbers divide about twenty times), and a second scan keeps the pairs with
-// a nonzero weight or weight tangent (the rest add exactly nothing), writing
-// for each s, the four h.dx and the power tables of ar, ai, br, bi (a
-// running product) into shared memory, in neighbor order; (3) vgc is the
-// product A B of the n_t x 2L matrix A of the L live pairs' columns T1, Y =
-// h.T1t and the 2L x n_t matrix B of their rows X = s T2 + h.T2t, T2: for
-// k-tiles of FT_PAIRS pairs, the threads build the vectors from the tables
-// (a few FMAs an entry, zero past n_t and past the live pairs) and each warp
-// multiplies its 16 x 8 output tiles on the FP64 tensor cores (mma.sync
-// m16n8k8, atom_gemm.cuh), the accumulators in registers; (4) the warps
-// store their tiles.  A register-blocked FMA accumulation (each thread 4 x 8
-// entries, groups of lanes over disjoint pairs, partial grids summed in
-// shared memory) was slower at the NN minibatch: its FMA chains and shared
-// loads set it.  No atomics, and every output one chain of tensor-core steps
+// Design of K11 and K11T: one block per atom.  Their time is one block's
+// chain of dependent steps, not their bytes or operations, so each step is
+// kept short.  (1) one block-wide scan lists the atom's masked slots in
+// neighbor order (holes allowed; K11 writes the other slots' zeros on the
+// way), and a padded atom writes its zeros and returns; the first chunk's
+// inputs (displacement, cutoff, weight, K11T's gh) are staged in shared
+// memory on the way, a thread's first slot read ahead in the shadow of the
+// mask's load and the scan (ft_list); (2) the listed pairs' prologues go
+// one a thread, in closed form (prologue_t: shared reciprocals where the
+// dual numbers divide about twenty times), and a second scan keeps the
+// pairs with a nonzero weight or weight tangent (the rest add exactly
+// nothing: K11 writes their zeros), writing their records and the power
+// tables of ar, ai, br, bi (a running product) into shared memory, in
+// neighbor order; (3) a product on the FP64 tensor cores (mma.sync
+// m16n8k8, atom_gemm.cuh), its operands built from the tables (a few FMAs
+// an entry, zero past n_t and past the live pairs), the accumulators in
+// registers.
+//   K11T (four warps up to twojmax 7, a warp to four output tiles beyond):
+// vgc is the product A B of the n_t x 2L matrix A of the L live pairs'
+// columns T1, Y = h.T1t and the 2L x n_t matrix B of their rows X = s T2 +
+// h.T2t, T2, over k-tiles of FT_PAIRS pairs staged in shared memory; then
+// the warps store their 16 x 8 output tiles.  A register-blocked FMA
+// accumulation (each thread 4 x 8 entries, groups of lanes over disjoint
+// pairs, partial grids summed in shared memory) was slower at the NN
+// minibatch: its FMA chains and shared loads set it.
+//   K11 (four warps, or eight where the atoms fit one wave): vg goes to
+// shared memory by asynchronous copies in the shadow of (1) and (2).  Each
+// live pair's T1t_c = dar_c dT1/dar + dai_c dT1/dai, so its rows [T1;
+// dT1/dar; dT1/dai] stack into X (3L rows; each entry one product of two
+// of the pair's tables, the derivative tables n x^(n-1) written beside the
+// powers) and Q = X vg is formed in m-tiles of FF_PAIRS pairs (16 rows),
+// one warp a tile, each lane building its A fragments straight from the
+// tables in registers (no staging, no barrier); each row's dot products
+// with T2, dT2/dbr and dT2/dbi follow on the accumulators, each lane with
+// the tables at its own columns, summed over the row's lanes by an xor
+// butterfly, and then sp = Q_0 . T2, st_c = dar_c Q_1 . T2 + dai_c Q_2 . T2
+// + dbr_c Q_0 . dT2/dbr + dbi_c Q_0 . dT2/dbi and g_c = w st_c + wt_c sp.
+// X goes on vg's left (not [T2; T2t_c] on its right, the same work): its
+// rows index pairs, so a warp's m-tile holds whole pairs and nothing
+// crosses warps.  The three rows, not the four of [T1; T1t_c], save a
+// quarter of the tensor-core steps and most of the operand arithmetic.
+// A chunk holds as many records as the shared memory beside vg allows (all
+// of a block's threads up to twojmax 12; fewer at 13 and 14, whose grids
+// then run more chunks).  Every slot is written once: masked-out, dead and padded slots exactly 0.
+// No atomics, and every output a fixed chain of tensor-core steps and sums
 // in neighbor order: a run repeats bit for bit.
 #include "atom_gemm.cuh"
 #include "common.cuh"
@@ -78,18 +98,12 @@ namespace {
 constexpr int GRID_THREADS = 256;  // K9
 constexpr int CHUNK = 128;         // pairs whose prologues form at once
 constexpr int TILE = 16;           // pairs per tile of K9
-constexpr int FORCE_WARPS = 8;     // K11: pairs in flight per block
 constexpr int DUALS = 20;          // ar, ai, br, bi, w: value + 3 tangents
 
 __device__ __forceinline__ double ipow(double x, int n) {
   double v = 1.0;
   for (int i = 0; i < n; ++i) v *= x;
   return v;
-}
-
-// d(x^n)/dc = n x^(n-1) dx/dc.
-__device__ __forceinline__ double ipow_tan(double x, int n, double dx) {
-  return n == 0 ? 0.0 : static_cast<double>(n) * ipow(x, n - 1) * dx;
 }
 
 __device__ void pair_duals(const double* __restrict__ disp,
@@ -130,22 +144,6 @@ __device__ __forceinline__ bool dead_tile(const double* tp, int stride) {
   for (int pr = 0; pr < TILE; ++pr)
     if (tp[pr * stride + 16] != 0.0) return false;
   return true;
-}
-
-// Grid entries at exponents (p, q) of one pair from its duals o: T1, T2
-// and their tangents T1t[c], T2t[c].
-__device__ __forceinline__ void grid_entry(const double* o, int p, int q,
-                                           double& t1, double t1t[3],
-                                           double& t2, double t2t[3]) {
-  const double ar = o[0], ai = o[4], br = o[8], bi = o[12];
-  const double pa = ipow(ar, p), pai = ipow(ai, q);
-  const double pb = ipow(br, p), pbi = ipow(bi, q);
-  t1 = pa * pai;
-  t2 = pb * pbi;
-  for (int c = 0; c < 3; ++c) {
-    t1t[c] = ipow_tan(ar, p, o[1 + c]) * pai + pa * ipow_tan(ai, q, o[5 + c]);
-    t2t[c] = ipow_tan(br, p, o[9 + c]) * pbi + pb * ipow_tan(bi, q, o[13 + c]);
-  }
 }
 
 __global__ void __launch_bounds__(GRID_THREADS) nn_ut_b_kernel(
@@ -220,76 +218,8 @@ __global__ void __launch_bounds__(GRID_THREADS) nn_ut_b_kernel(
   }
 }
 
-__device__ __forceinline__ double warp_sum(double v) {
-  for (int off = 16; off > 0; off /= 2)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__global__ void __launch_bounds__(FORCE_WARPS * 32) nn_pair_force_kernel(
-    const double* __restrict__ vg, const double* __restrict__ disp,
-    const int* __restrict__ jelem, const unsigned char* __restrict__ mask,
-    const int* __restrict__ ielem, const double* __restrict__ elem,
-    Scalars s, int K, int n_t, const int* __restrict__ pidx,
-    const int* __restrict__ qidx, double* __restrict__ g) {
-  extern __shared__ double sm[];
-  const int nt2 = n_t * n_t;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  double* svg = sm;                                   // [n_t^2]
-  double* pros = svg + nt2;                           // [CHUNK][DUALS]
-  double* T1 = pros + CHUNK * DUALS + warp * 8 * n_t; // this warp's pair
-  double* T1t = T1 + n_t;                             // [3][n_t]
-  double* T2 = T1t + 3 * n_t;                         // [n_t]
-  double* T2t = T2 + n_t;                             // [3][n_t]
-  const long long a = blockIdx.x;
-  for (int i = threadIdx.x; i < nt2; i += blockDim.x) svg[i] = vg[a * nt2 + i];
-  for (int c0 = 0; c0 < K; c0 += CHUNK) {
-  const int nc = min(CHUNK, K - c0);
-  chunk_duals(disp, jelem, mask, ielem[a], elem, s, a * K + c0, nc, pros,
-              DUALS);
-  __syncthreads();
-  for (int kk = warp; kk < nc; kk += FORCE_WARPS) {
-    const long long pk = a * K + c0 + kk;
-    const double* pro = pros + kk * DUALS;
-    if (pro[16] == 0.0 && pro[17] == 0.0 && pro[18] == 0.0 &&
-        pro[19] == 0.0) {
-      if (lane < 3) g[pk * 3 + lane] = 0.0;
-      continue;
-    }
-    for (int d = lane; d < n_t; d += 32) {
-      double t1t[3], t2t[3];
-      grid_entry(pro, pidx[d], qidx[d], T1[d], t1t, T2[d], t2t);
-      for (int c = 0; c < 3; ++c) {
-        T1t[c * n_t + d] = t1t[c];
-        T2t[c * n_t + d] = t2t[c];
-      }
-    }
-    __syncwarp();
-    double sp = 0.0, st[3] = {0.0, 0.0, 0.0};
-    for (int e = lane; e < n_t; e += 32) {
-      double tmp = 0.0, m[3] = {0.0, 0.0, 0.0};
-      for (int d = 0; d < n_t; ++d) {
-        const double v = svg[d * n_t + e];
-        tmp += T1[d] * v;
-        for (int c = 0; c < 3; ++c) m[c] += T1t[c * n_t + d] * v;
-      }
-      sp += tmp * T2[e];
-      for (int c = 0; c < 3; ++c) st[c] += m[c] * T2[e] + tmp * T2t[c * n_t + e];
-    }
-    sp = warp_sum(sp);
-    for (int c = 0; c < 3; ++c) st[c] = warp_sum(st[c]);
-    if (lane == 0) {
-      for (int c = 0; c < 3; ++c)
-        g[pk * 3 + c] = pro[16] * st[c] + pro[17 + c] * sp;
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-  }
-}
-
-// K11T.  Exclusive prefix sum of one int a thread over the block (a
-// multiple of 32 threads), the block's total in `total`; `ws` holds 33
+// K11 and K11T.  Exclusive prefix sum of one int a thread over the block
+// (a multiple of 32 threads), the block's total in `total`; `ws` holds 33
 // ints.  Every thread calls it; the caller puts a barrier between two calls
 // (the first call's reads of ws against the second's writes).
 __device__ int block_scan(int v, int* ws, int& total) {
@@ -316,25 +246,74 @@ __device__ int block_scan(int v, int* ws, int& total) {
   return (warp > 0 ? ws[warp - 1] : 0) + x - v;
 }
 
-// A masked pair's inputs to K11T, staged in shared memory: its
+// A masked pair's inputs to K11 and K11T, staged in shared memory: its
 // displacement, its cutoff rcut_ij, its neighbor's weight wj, the inner
-// switching function's centre and half-width, and gh = gF[a] - gF[j].
+// switching function's centre and half-width, and (K11T) gh = gF[a] -
+// gF[j].
 constexpr int FT_STAGE = 10;
 
 // Reads a masked pair pk's staged inputs; ei is its atom's row of elem.
+// Without gF (K11) gh is 0 and jidx is not read.
 __device__ __forceinline__ void ft_load(
     const double* __restrict__ disp, const int* __restrict__ jelem,
     const int* __restrict__ jidx, const double* __restrict__ gF,
     const double* __restrict__ elem, const Scalars& s, const double ei[4],
     long long a, long long first, long long pk, double st[FT_STAGE]) {
   const int je = jelem[pk];
-  const long long j = first + jidx[pk];
+  const long long j = gF != nullptr ? first + jidx[pk] : 0;
   for (int c = 0; c < 3; ++c) st[c] = disp[pk * 3 + c];
   st[3] = (ei[0] + elem[je * 4]) * s.rcutfac;
   st[4] = elem[je * 4 + 1];
   st[5] = s.switchinnerflag ? 0.5 * (ei[2] + elem[je * 4 + 2]) : 0.0;
   st[6] = s.switchinnerflag ? 0.5 * (ei[3] + elem[je * 4 + 3]) : 0.0;
-  for (int c = 0; c < 3; ++c) st[7 + c] = gF[a * 3 + c] - gF[j * 3 + c];
+  for (int c = 0; c < 3; ++c)
+    st[7 + c] = gF != nullptr ? gF[a * 3 + c] - gF[j * 3 + c] : 0.0;
+}
+
+// The masked slots of atom a in neighbor order: thread t counts slots
+// [t per, (t + 1) per), one scan places them in `list` ([K]), and the
+// first `chunk` listed slots' inputs are staged in `stage` (a thread's
+// first slot read ahead, in the shadow of the mask's load and the scan).
+// With `g` (K11's pair gradients) an unmasked slot's output is set to 0 on
+// the way.  Returns the number of masked slots, in every thread.
+__device__ int ft_list(const double* __restrict__ disp,
+                       const int* __restrict__ jelem,
+                       const int* __restrict__ jidx,
+                       const double* __restrict__ gF,
+                       const unsigned char* __restrict__ mask,
+                       const double* __restrict__ elem, const Scalars& s,
+                       const double ei[4], long long a, long long first,
+                       int K, int chunk, double* stage, int* list, int* ws,
+                       double* __restrict__ g) {
+  const int T = blockDim.x;
+  const int per = (K + T - 1) / T;
+  const int k0 = min(K, static_cast<int>(threadIdx.x) * per);
+  const int k1 = min(K, k0 + per);
+  double ahead[FT_STAGE];
+  if (k0 < k1)
+    ft_load(disp, jelem, jidx, gF, elem, s, ei, a, first, a * K + k0, ahead);
+  int cnt = 0;
+  for (int k = k0; k < k1; ++k) cnt += mask[a * K + k] != 0;
+  int nm;
+  int pos = block_scan(cnt, ws, nm);
+  for (int k = k0; k < k1; ++k) {
+    if (mask[a * K + k] == 0) {
+      if (g != nullptr)
+        for (int c = 0; c < 3; ++c) g[(a * K + k) * 3 + c] = 0.0;
+      continue;
+    }
+    list[pos] = k;
+    if (pos < chunk) {
+      double* st = stage + pos * FT_STAGE;
+      if (k == k0) {
+        for (int v = 0; v < FT_STAGE; ++v) st[v] = ahead[v];
+      } else {
+        ft_load(disp, jelem, jidx, gF, elem, s, ei, a, first, a * K + k, st);
+      }
+    }
+    ++pos;
+  }
+  return nm;
 }
 
 // K11T's prologue of a masked pair from its staged inputs: the values (ar,
@@ -428,6 +407,21 @@ struct FtShape {
         tiles((mp / 16) * (np / 8)) {}
 };
 
+// twojmax of a grid of n_t = (twojmax + 1)(twojmax + 2) / 2 exponent
+// pairs, -1 if n_t is no such count.
+inline int grid_twojmax(int n_t) {
+  int twojmax = 0;
+  while ((twojmax + 1) * (twojmax + 2) / 2 < n_t) ++twojmax;
+  return (twojmax + 1) * (twojmax + 2) / 2 == n_t ? twojmax : -1;
+}
+
+// A pair adds exactly nothing unless its weight or a weight tangent is
+// nonzero (it is masked in but past the SNAP cutoff, or switched off).
+__device__ __forceinline__ bool ft_alive(const double v[5],
+                                         const double t[5][3]) {
+  return v[4] != 0.0 || t[4][0] != 0.0 || t[4][1] != 0.0 || t[4][2] != 0.0;
+}
+
 template <int MAXT, int MINB>
 __global__ void __launch_bounds__(MAXT, MINB) nn_pair_force_t_kernel(
     const double* __restrict__ gF, const int* __restrict__ jidx,
@@ -456,35 +450,12 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_pair_force_t_kernel(
   const long long first = (a / A) * A;
   double* out = vgc + a * nt2;
 
-  // the masked slots in neighbor order: thread t counts slots
-  // [t per, (t + 1) per), one scan places them, and the first chunk's
-  // inputs are staged (a thread's first slot read ahead, in the shadow of
-  // the mask and the scan)
+  // the masked slots in neighbor order, the first chunk's inputs staged
   const int ie = ielem[a];
   double ei[4];
   for (int c = 0; c < 4; ++c) ei[c] = elem[ie * 4 + c];
-  const int per = (K + T - 1) / T;
-  const int k0 = min(K, tid * per), k1 = min(K, k0 + per);
-  double ahead[FT_STAGE];
-  if (k0 < k1)
-    ft_load(disp, jelem, jidx, gF, elem, s, ei, a, first, a * K + k0, ahead);
-  int cnt = 0;
-  for (int k = k0; k < k1; ++k) cnt += mask[a * K + k] != 0;
-  int nm;
-  int pos = block_scan(cnt, ws, nm);
-  for (int k = k0; k < k1; ++k) {
-    if (mask[a * K + k] == 0) continue;
-    list[pos] = k;
-    if (pos < chunk) {
-      double* st = stage + pos * FT_STAGE;
-      if (k == k0) {
-        for (int v = 0; v < FT_STAGE; ++v) st[v] = ahead[v];
-      } else {
-        ft_load(disp, jelem, jidx, gF, elem, s, ei, a, first, a * K + k, st);
-      }
-    }
-    ++pos;
-  }
+  const int nm = ft_list(disp, jelem, jidx, gF, mask, elem, s, ei, a, first,
+                         K, chunk, stage, list, ws, nullptr);
   if (nm == 0) {                                 // a padded atom
     for (int i = tid; i < nt2; i += T) out[i] = 0.0;
     return;
@@ -519,8 +490,7 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_pair_force_t_kernel(
       }
       double v[5], t[5][3];
       prologue_t(st, s, v, t);
-      alive = v[4] != 0.0 || t[4][0] != 0.0 || t[4][1] != 0.0
-              || t[4][2] != 0.0;
+      alive = ft_alive(v, t);
       if (alive) {
         double h[3];
         r5[0] = 0.0;
@@ -617,6 +587,214 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_pair_force_t_kernel(
   }
 }
 
+// K11.  A live pair's record: w, its tangents wt, and the tangents of ar,
+// ai, br, bi (three each), then eight tables: the powers of ar, ai, br, bi
+// as FT_REC's (x^n at [n + 1]) and their derivatives n x^(n-1) at [n]; the
+// stride is 4 mod 16 doubles, so that an m-tile's pairs spread over the
+// banks.
+constexpr int FF_REC = 16;
+constexpr int FF_NG = 4;           // n-tiles a warp multiplies at once
+constexpr int FF_PAIRS = 5;        // pairs an m-tile of 16 rows (3 each)
+
+__host__ __device__ __forceinline__ int ff_rec_len(int twojmax) {
+  const int n = FF_REC + 8 * (twojmax + 2);
+  return n + (20 - n % 16) % 16;
+}
+
+template <int THREADS, int MINB>
+__global__ void __launch_bounds__(THREADS, MINB) nn_pair_force_kernel(
+    const double* __restrict__ vg, const double* __restrict__ disp,
+    const int* __restrict__ jelem, const unsigned char* __restrict__ mask,
+    const int* __restrict__ ielem, const double* __restrict__ elem,
+    Scalars s, int K, int n_t, int twojmax, const int* __restrict__ pidx,
+    const int* __restrict__ qidx, int chunk, size_t work_doubles,
+    double* __restrict__ g) {
+  extern __shared__ double sm[];
+  const int T = blockDim.x, tid = threadIdx.x;
+  const int np1 = twojmax + 2;
+  const int rec_len = ff_rec_len(twojmax);
+  const FtShape sh(n_t);
+  const int ld = sh.ldb;
+  double* svg = sm;                              // [np][ld]
+  double* rec = svg + sh.np * ld;                // [chunk][rec_len]
+  // [chunk][FT_STAGE]: read before the second scan, the records after it
+  double* stage = rec;
+  double* zero = rec + chunk * rec_len;          // [np1] zeros
+  double* rs = zero + np1;                       // [warps][16][3] row sums
+  int* pq = reinterpret_cast<int*>(sm + work_doubles);         // [np]
+  int* lslot = pq + sh.np;                       // [chunk] live pairs' slots
+  int* list = lslot + chunk;                     // [K]
+  int* ws = list + K;                            // [33]
+  const long long a = blockIdx.x;
+
+  // vg by asynchronous copies, zero padded to np x np, in flight through
+  // the scan and the prologues; the exponents (p | q << 8; (0, 0) in the
+  // padding) are loaded here and stored after the scan
+  const double* va = vg + a * n_t * n_t;
+  for (int i = tid; i < n_t * n_t; i += T)
+    fs_cp_async8(svg + (i / n_t) * ld + i % n_t, va + i);
+  for (int i = tid; i < sh.np * ld; i += T) {
+    const int d = i / ld, e = i - d * ld;
+    if (d >= n_t || e >= n_t) svg[i] = 0.0;
+  }
+  for (int i = tid; i < np1; i += T) zero[i] = 0.0;
+  const int pqv = tid < n_t ? pidx[tid] | qidx[tid] << 8 : 0;
+
+  // the masked slots in neighbor order (the others' outputs set to 0), the
+  // first chunk's inputs staged
+  const int ie = ielem[a];
+  double ei[4];
+  for (int c = 0; c < 4; ++c) ei[c] = elem[ie * 4 + c];
+  const int nm = ft_list(disp, jelem, nullptr, nullptr, mask, elem, s, ei, a,
+                         0, K, chunk, stage, list, ws, g);
+  if (nm == 0) {                                 // a padded atom
+    fs_cp_async_wait_all();
+    return;
+  }
+  for (int d = tid; d < sh.np; d += T)
+    pq[d] = d == tid ? pqv : d < n_t ? pidx[d] | qidx[d] << 8 : 0;
+  __syncthreads();
+
+  const int lane = tid % 32, warp = tid / 32, warps = T / 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int ntiles = sh.np / 8;                  // also the k-steps
+  const int gsize = (ntiles + (ntiles + FF_NG - 1) / FF_NG - 1)
+                    / ((ntiles + FF_NG - 1) / FF_NG);
+  double* wrs = rs + warp * 48;
+  for (int c0 = 0; c0 < nm; c0 += chunk) {
+    // one masked pair a thread: its prologue (a dead pair's output 0),
+    // then the live ones' records in neighbor order
+    bool alive = false;
+    int k = 0;
+    double v[5], t[5][3];
+    if (tid < min(chunk, nm - c0)) {
+      double st[FT_STAGE];
+      k = list[c0 + tid];
+      if (c0 == 0) {
+        for (int u = 0; u < FT_STAGE; ++u) st[u] = stage[tid * FT_STAGE + u];
+      } else {
+        ft_load(disp, jelem, nullptr, nullptr, elem, s, ei, a, 0, a * K + k,
+                st);
+      }
+      prologue_t(st, s, v, t);
+      alive = ft_alive(v, t);
+      if (!alive)
+        for (int c = 0; c < 3; ++c) g[(a * K + k) * 3 + c] = 0.0;
+    }
+    int nl;
+    const int slot = block_scan(alive ? 1 : 0, ws, nl);
+    if (alive) {
+      double* rr = rec + slot * rec_len;
+      rr[0] = v[4];
+      for (int c = 0; c < 3; ++c) {
+        rr[1 + c] = t[4][c];
+        for (int u = 0; u < 4; ++u) rr[4 + 3 * u + c] = t[u][c];
+      }
+      // the power tables (as K11T's) and their derivatives, the four
+      // running products side by side
+      double* pw = rr + FF_REC;
+      double x[4] = {1.0, 1.0, 1.0, 1.0}, dn = 1.0;
+      for (int u = 0; u < 8; ++u) pw[u * np1] = 0.0;
+      for (int n = 0; n <= twojmax; ++n, dn += 1.0) {
+        for (int u = 0; u < 4; ++u) {
+          pw[u * np1 + n + 1] = x[u];
+          pw[(4 + u) * np1 + n + 1] = dn * x[u];
+          x[u] *= v[u];
+        }
+      }
+      lslot[slot] = k;
+    }
+    if (c0 == 0) fs_cp_async_wait_all();
+    __syncthreads();
+
+    // m-tile mt: rows 3 i + kind of its FF_PAIRS live pairs 5 mt + i, the
+    // pair's T1 (kind 0), dT1/dar (1) and dT1/dai (2) over the grid's first
+    // factor (each entry X[p] Y[q] of two of its tables), row 15 zero.
+    // Lane (gq, tq) owns rows gq and gq + 8.  Q = X vg on the FP64 tensor
+    // cores, gsize n-tiles at once, then each row's dot products with T2,
+    // E1 = dT2/dbr and E2 = dT2/dbi over the lane's columns, summed over
+    // the row's four lanes by an xor butterfly; per pair sp = Q_0 . T2 and
+    // st_c = dar_c Q_1 . T2 + dai_c Q_2 . T2 + dbr_c Q_0 . E1
+    // + dbi_c Q_0 . E2
+    for (int mt = warp; FF_PAIRS * mt < nl; mt += warps) {
+      const double* xr[2];
+      const double* yr[2];
+      const double* tb[2];
+      for (int h = 0; h < 2; ++h) {
+        const int row = gq + 8 * h, j = FF_PAIRS * mt + row / 3;
+        const int kind = row % 3;
+        const double* pw =
+            rec + min(j, nl - 1) * rec_len + FF_REC;   // Pa Pai Pb Pbi Da ..
+        const bool on = row < 3 * FF_PAIRS && j < nl;
+        xr[h] = !on ? zero : kind == 1 ? pw + 4 * np1 : pw + 1;
+        yr[h] = kind == 2 ? pw + 5 * np1 : pw + np1 + 1;
+        tb[h] = pw + 2 * np1;
+      }
+      double S[2][3] = {{0.0, 0.0, 0.0}, {0.0, 0.0, 0.0}};
+      for (int n0 = 0; n0 < ntiles; n0 += gsize) {
+        double acc[FF_NG][4];
+#pragma unroll
+        for (int i = 0; i < FF_NG; ++i)
+          for (int u = 0; u < 4; ++u) acc[i][u] = 0.0;
+        for (int ks = 0; ks < ntiles; ++ks) {
+          double fa[4];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e = pq[8 * ks + tq + 4 * h];
+            const int p = e & 255, q = e >> 8;
+            fa[2 * h] = xr[0][p] * yr[0][q];
+            fa[2 * h + 1] = xr[1][p] * yr[1][q];
+          }
+          const double* bq = svg + (8 * ks + tq) * ld + gq;
+#pragma unroll
+          for (int i = 0; i < FF_NG; ++i) {
+            if (i < gsize && n0 + i < ntiles) {
+              const double fb[2] = {bq[8 * (n0 + i)],
+                                    bq[4 * ld + 8 * (n0 + i)]};
+              mma_f64(acc[i], fa, fb);
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < FF_NG; ++i) {
+          if (!(i < gsize && n0 + i < ntiles)) continue;
+          for (int cc = 0; cc < 2; ++cc) {
+            const int e = pq[8 * (n0 + i) + 2 * tq + cc];
+            const int p = e & 255, q = e >> 8;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const double* pb = tb[h];            // Pb, Pbi, .., Db, Dbi
+              const double r = acc[i][2 * h + cc];
+              S[h][0] += r * (pb[p + 1] * pb[np1 + q + 1]);
+              S[h][1] += r * (pb[4 * np1 + p] * pb[np1 + q + 1]);
+              S[h][2] += r * (pb[p + 1] * pb[5 * np1 + q]);
+            }
+          }
+        }
+      }
+      for (int h = 0; h < 2; ++h) {
+        for (int u = 0; u < 3; ++u) {
+          S[h][u] += __shfl_xor_sync(0xffffffffu, S[h][u], 1);
+          S[h][u] += __shfl_xor_sync(0xffffffffu, S[h][u], 2);
+          if (tq == 0) wrs[(gq + 8 * h) * 3 + u] = S[h][u];
+        }
+      }
+      __syncwarp();
+      const int j = FF_PAIRS * mt + lane / 3;
+      if (lane < 3 * FF_PAIRS && j < nl) {       // g_c = w st_c + wt_c sp
+        const int c = lane % 3;
+        const double* rw = wrs + 9 * (lane / 3);
+        const double* rr = rec + j * rec_len;
+        const double st = rr[4 + c] * rw[3] + rr[7 + c] * rw[6]
+                          + rr[10 + c] * rw[1] + rr[13 + c] * rw[2];
+        g[(a * K + lslot[j]) * 3 + c] = rr[0] * st + rr[1 + c] * rw[0];
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+  }
+}
+
 Scalars scalars(double rcutfac, double rfac0, double rmin0, int switchflag,
                 int switchinnerflag) {
   Scalars s;
@@ -662,6 +840,8 @@ extern "C" int nn_ut_b(const double* disp, const int* jelem,
 }
 
 // vg (N, n_t, n_t) f64 and the pairs as nn_ut_b's.  Writes g (N, K, 3).
+// Four warps a block (four blocks an SM), or eight (two) where the atoms
+// fit one wave of two blocks an SM: a block's chain is then the time.
 extern "C" int nn_pair_force(const double* vg, const double* disp,
                              const int* jelem, const unsigned char* mask,
                              const int* ielem, const double* elem,
@@ -670,16 +850,40 @@ extern "C" int nn_pair_force(const double* vg, const double* disp,
                              long long natoms, int K, int n_t,
                              const int* pidx, const int* qidx, double* g,
                              void* stream) {
-  const size_t smem = sizeof(double) *
-      (n_t * n_t + CHUNK * DUALS + FORCE_WARPS * 8 * n_t);
-  const int err = fs_allow_smem(nn_pair_force_kernel, smem);
+  const int twojmax = grid_twojmax(n_t);
+  if (twojmax < 0) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const bool wide = natoms <= 2LL * sms;
+  const int threads = wide ? 256 : 128;
+  const FtShape sh(n_t);
+  // the chunk's records take the shared memory that vg and the rest leave,
+  // so that a large grid runs more, smaller chunks
+  const int rec_len = ff_rec_len(twojmax);
+  const size_t fixed = static_cast<size_t>(sh.np) * sh.ldb + (twojmax + 2)
+                       + threads / 32 * 48;
+  const long long fixed_bytes = static_cast<long long>(
+      fixed * sizeof(double) + (sh.np + K + 33) * sizeof(int));
+  const long long room = (static_cast<long long>(FS_SMEM_LIMIT) - fixed_bytes)
+                         / static_cast<long long>(rec_len * sizeof(double)
+                                                  + sizeof(int));
+  const int chunk = static_cast<int>(
+      room < ft_chunk(threads, K) ? room : ft_chunk(threads, K));
+  if (chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t work = fixed + static_cast<size_t>(chunk) * rec_len;
+  const size_t smem = work * sizeof(double)
+                      + (sh.np + chunk + K + 33) * sizeof(int);
+  const auto kernel = wide ? nn_pair_force_kernel<256, 2>
+                           : nn_pair_force_kernel<128, 4>;
+  const int err = fs_allow_smem(kernel, smem);
   if (err) return err;
   if (natoms > 0) {
-    nn_pair_force_kernel<<<static_cast<unsigned>(natoms), FORCE_WARPS * 32,
-                           smem, static_cast<cudaStream_t>(stream)>>>(
+    kernel<<<static_cast<unsigned>(natoms), threads, smem,
+             static_cast<cudaStream_t>(stream)>>>(
         vg, disp, jelem, mask, ielem, elem,
         scalars(rcutfac, rfac0, rmin0, switchflag, switchinnerflag), K, n_t,
-        pidx, qidx, g);
+        twojmax, pidx, qidx, chunk, work, g);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -694,10 +898,8 @@ extern "C" int nn_pair_force_t(const double* gF, const int* jidx,
                                int switchinnerflag, long long natoms, int A,
                                int K, int n_t, const int* pidx,
                                const int* qidx, double* vgc, void* stream) {
-  int twojmax = 0;                     // n_t = (twojmax + 1)(twojmax + 2) / 2
-  while ((twojmax + 1) * (twojmax + 2) / 2 < n_t) ++twojmax;
-  if ((twojmax + 1) * (twojmax + 2) / 2 != n_t)
-    return static_cast<int>(cudaErrorInvalidValue);
+  const int twojmax = grid_twojmax(n_t);
+  if (twojmax < 0) return static_cast<int>(cudaErrorInvalidValue);
   // a warp a FT_TILES output tiles, at least four warps
   const FtShape sh(n_t);
   const int threads = max(128, (sh.tiles + FT_TILES - 1) / FT_TILES * 32);

@@ -42,8 +42,8 @@ kl.register("nn_pair_force_t", "nn_grid", [_P] * 7 + _PAIRS + [_I] * 3
             + [_P] * 4)
 kl.register("nn_dedu_vg", "nn_dedu", [_P] * 3 + [_LL] + [_I] * 3 + [_P] * 4
             + [_I] + [_P] * 5)
-kl.register("nn_dedu_vg_t", "nn_dedu", [_P] * 3 + [_LL] + [_I] * 3
-            + [_P] * 3 + [_I] + [_P] * 6)
+kl.register("nn_dedu_vg_t", "nn_dedu", [_P] * 3 + [_LL] + [_I] * 4
+            + [_P] * 3 + [_I] * 2 + [_P] + [_I] * 3 + [_P] * 5)
 
 
 # ---------------------------------------------------------------------------
@@ -254,10 +254,11 @@ def nn_dedu_vg_t(vgc, z_r, z_i, p):
     out = torch.empty((N, p.ntriples), dtype=torch.float64,
                       device=vgc.device)
     _launch("nn_dedu_vg_t", vgc.device, _ptr(vgc), _ptr(z_r), _ptr(z_i), N,
-            p.ntriples, p.nz, 2 * p.u_len, _ptr(tb.lgc_ptr),
-            _ptr(tb.lgc_row), _ptr(tb.lgc_val), tb.n_t ** 2,
-            _ptr(tb.yt_ptr), _ptr(tb.yt_u), _ptr(tb.yt_src),
-            _ptr(tb.yt_fac), _ptr(out))
+            p.ntriples, p.nz, 2 * p.u_len, tb.lgc_val.numel(),
+            _ptr(tb.lgc_ptr), _ptr(tb.lgc_row), _ptr(tb.lgc_val), tb.n_t ** 2,
+            tb.yz_src.numel(), _ptr(tb.yz_src), tb.ys_threads, tb.ys_per,
+            ops.K10T_KEY_BITS, _ptr(tb.ys_key), _ptr(tb.ys_fac),
+            _ptr(tb.ys_seg), _ptr(out))
     nn_dedu_vg_t.launches += 1
     return out
 

@@ -600,8 +600,11 @@ class NnTables:
     utot: dense for the plain versions, as CSR by column (K9, K10T) and by
     row (K10) for the kernels.  `yblocks` is `_y_block_plan`; its nonzero
     entries (t, u, src, fac) are listed by U column (K10) and by descriptor
-    (K10T).  The B term list (i1, i2, i3, coefficient) by descriptor is
-    K9's (one channel only)."""
+    (`yt_*`).  K10T reads `yz_src`, the z entries they reference (sorted,
+    each once), and `ys_*`, the entries by descriptor cut into segments of
+    at most `ys_per` entries, one a thread of `ys_threads` (`k10t_schedule`).
+    The B term list (i1, i2, i3, coefficient) by descriptor is K9's (one
+    channel only)."""
 
     n_t: int
     pidx: torch.Tensor      # (n_t,) int32
@@ -622,6 +625,12 @@ class NnTables:
     yt_u: torch.Tensor
     yt_src: torch.Tensor
     yt_fac: torch.Tensor
+    yz_src: torch.Tensor    # (nzr,) int32: the referenced z entries
+    ys_per: int             # K10T: entries a thread
+    ys_threads: int         # K10T: threads a block
+    ys_key: torch.Tensor    # (per*threads,) int32: u | zc << 11, [j][thread]
+    ys_fac: torch.Tensor    # (per*threads,) f64, 0 in the padding
+    ys_seg: torch.Tensor    # (W+1,) int32: the threads of each descriptor
     bt_ptr: Optional[torch.Tensor]   # (W+1,) int32: B terms of each t
     bt_i1: Optional[torch.Tensor]
     bt_i2: Optional[torch.Tensor]
@@ -664,6 +673,48 @@ def _csr(keys, nkeys, *cols):
     return (ptr,) + tuple(np.asarray(c)[order] for c in cols)
 
 
+K10T_PER = 8           # K10T's least entries a thread
+K10T_BLOCK = 288       # K10T's block where its segments fit (its narrow
+                       # shape, csrc/nn_dedu.cu K10T_NARROW: 4 blocks an SM)
+K10T_KEY_BITS = 11     # u in the low bits of a K10T key (U < 2,048; the
+                       # launch passes it to the kernel)
+
+
+def k10t_schedule(ptr, u, zc, fac):
+    """K10T's schedule of the y entries by descriptor (CSR `ptr`, columns
+    u, compact z indices zc, factors fac): each descriptor's entries, in
+    compact z order, dealt round-robin to near-equal segments of at most
+    `per` entries, so that at each step the threads of one descriptor read
+    neighboring z; segment i of the list on thread i, entry j of a thread
+    at [j * threads + thread] (padding: key 0, factor 0).  per is the least
+    from K10T_PER up whose segments fit K10T_BLOCK threads, up to 12
+    entries, else the least whose segments fit 1,024; threads is the
+    segments' count, at least W, rounded up to a warp.  Returns (per,
+    threads, key (u | zc << K10T_KEY_BITS), fac, seg (W+1,): the threads
+    of each descriptor)."""
+    cnt = np.diff(ptr)
+    per = K10T_PER
+    while per < 12 and -(-cnt // per).sum() > K10T_BLOCK:
+        per += 1
+    if -(-cnt // per).sum() > K10T_BLOCK:
+        per = K10T_PER
+    while -(-cnt // per).sum() > 1024:
+        per += 1
+    nseg = -(-cnt // per)
+    seg = np.concatenate([[0], np.cumsum(nseg)])
+    threads = -(-max(int(seg[-1]), len(cnt), 1) // 32) * 32
+    key = np.zeros((per, threads), np.int64)
+    val = np.zeros((per, threads))
+    keys = np.asarray(u, np.int64) | np.asarray(zc, np.int64) << K10T_KEY_BITS
+    for t, n in enumerate(cnt):
+        q = ptr[t] + np.argsort(zc[ptr[t]:ptr[t + 1]], kind="stable")
+        for i in range(nseg[t]):
+            mine = q[i::nseg[t]]
+            key[:len(mine), seg[t] + i] = keys[mine]
+            val[:len(mine), seg[t] + i] = fac[mine]
+    return per, threads, key.ravel(), val.ravel(), seg
+
+
 def nn_tables(p: SnapParams) -> NnTables:
     """The pair-grid tables of `p`, built once and kept on it."""
     if p.nn is not None:
@@ -690,6 +741,10 @@ def nn_tables(p: SnapParams) -> NnTables:
     et, eu, es, ef = (np.array(x) for x in zip(*ent))
     yu = _csr(eu, p.u_len, et, es, ef)
     yt = _csr(et, p.ntriples, eu, es, ef)
+    assert p.u_len < 1 << K10T_KEY_BITS
+    yz_src, zc = np.unique(yt[2], return_inverse=True)
+    per, threads, ys_key, ys_fac, ys_seg = k10t_schedule(yt[0], yt[1], zc,
+                                                         yt[3])
     bt = [None] * 5
     if p.nchem == 1:
         mmat = p.mmat.cpu().numpy()
@@ -706,7 +761,9 @@ def nn_tables(p: SnapParams) -> NnTables:
         yu_ptr=t(yu[0]), yu_t=t(yu[1]), yu_src=t(yu[2]),
         yu_fac=t(yu[3], f64),
         yt_ptr=t(yt[0]), yt_u=t(yt[1]), yt_src=t(yt[2]),
-        yt_fac=t(yt[3], f64),
+        yt_fac=t(yt[3], f64), yz_src=t(yz_src), ys_per=per,
+        ys_threads=threads, ys_key=t(ys_key), ys_fac=t(ys_fac, f64),
+        ys_seg=t(ys_seg),
         bt_ptr=bt[0], bt_i1=bt[1], bt_i2=bt[2], bt_i3=bt[3], bt_c=bt[4])
     return p.nn
 

@@ -53,7 +53,11 @@ its edges (rows of 3 x 41 doubles, an atom no one neighbors, R = 1, R = 60
 slots (more than one round of prologues), 640 atoms and 2 atoms, a masked
 hole before live slots and a masked-in pair past the SNAP cutoff, each
 once, bit for bit from run to run (K11T: the padded atom's grid exactly
-0).  K15, K15V and K15T
+0); K11 and K10T on the same seven cases (K11: every slot that is not
+live, masked or past the cutoff or of the padded atom, exactly 0; K10T on
+both launch shapes, the z entries staged up to twojmax 8 and read from L2
+at 10 and 12, and on an odd atom count, whose last block holds one atom).
+K15, K15V and K15T
 (the custom pairwise NN's descriptors, their VJP and its transpose, also
 through the force gather's transpose) on two periodic cells with pairs
 past the cutoff and on the radial ramp and live slots masked mid-row, on
@@ -764,17 +768,35 @@ def test_gather_edges_match_plain(cuda, name):
 
 # K11T at its edges: (CASES-like spec, nconf, A, K).  twojmax 6, 8, 10 and
 # 12 (n_t 28, 45, 66, 91; from twojmax 10 the kernel takes more than 256
-# threads, its second launch shape); 200 slots (more than 128 masked pairs:
-# two rounds of prologues); 640 atoms (wide) and 2 (narrow).
+# threads, its second launch shape); twojmax 13 and 14 (n_t 105, 120, the
+# largest grids: K11's shared memory holds fewer records than masked pairs,
+# so its prologues run in several smaller chunks); 200 slots (more than 128
+# masked pairs: two rounds of prologues); 640 atoms (wide) and 2 (narrow).
 K11T_CASES = {
     "tj6": (CASES["tj6"], 2, 6, 40),
     "tj8": (dict(CASES["tj6"], twojmax=["8"]), 2, 6, 40),
     "tj10": (dict(CASES["tj6"], twojmax=["10"]), 2, 6, 40),
     "tj12": (dict(CASES["tj6"], twojmax=["12"]), 1, 4, 24),
+    "tj13_k128": (dict(CASES["tj6"], twojmax=["13"]), 1, 3, 128),
+    "tj14_k200": (dict(CASES["tj6"], twojmax=["14"]), 1, 3, 200),
     "tj6_k200": (CASES["tj6"], 2, 3, 200),
     "tj6_wide": (CASES["tj6"], 4, 160, 16),
     "tj6_narrow": (CASES["tj6"], 1, 2, 40),
 }
+
+
+def k11t_case(name, device):
+    """K11T_CASES[name]'s block (grid_block's lists) with a masked hole
+    before live pairs (slot 3 of atom 0) and a masked-in pair past the SNAP
+    cutoff (slot 5, zero weight)."""
+    spec, nconf, A, K = K11T_CASES[name]
+    p, block, jidx, _ = grid_block(spec, device, nconf, A, K)
+    disp, _, mask, _ = block
+    mask[0, 3] = False
+    mask[0, 4] = True
+    disp[0, 5] = torch.tensor([0.0, 5.5, 0.0], dtype=disp.dtype)
+    mask[0, 5] = True
+    return p, block, jidx
 
 
 @pytest.mark.parametrize("name", list(K11T_CASES))
@@ -785,15 +807,9 @@ def test_k11t_edges_match_plain(cuda, name):
     padded atom's grid exactly 0, and bit for bit from run to run."""
     from fitsnap_tpu_torch.kernels import nn_kernels as nk
 
-    spec, nconf, A, K = K11T_CASES[name]
-    p, block, jidx, _ = grid_block(spec, cuda, nconf, A, K)
-    disp, _, mask, _ = block
-    mask[0, 3] = False
-    mask[0, 4] = True
-    disp[0, 5] = torch.tensor([0.0, 5.5, 0.0], dtype=disp.dtype)
-    mask[0, 5] = True
-    gF = torch.as_tensor(np.random.default_rng(15).normal(size=(nconf, A, 3)),
-                         device=cuda)
+    p, block, jidx = k11t_case(name, cuda)
+    gF = torch.as_tensor(np.random.default_rng(15).normal(
+        size=tuple(jidx.shape[:2]) + (3,)), device=cuda)
     nk.reset_launches()
     out = nk.nn_pair_force_t(gF, jidx, *block, p)
     torch.cuda.synchronize()
@@ -802,6 +818,56 @@ def test_k11t_edges_match_plain(cuda, name):
         <= RTOL
     assert not out[-1].any()
     assert torch.equal(out, nk.nn_pair_force_t(gF, jidx, *block, p))
+
+
+@pytest.mark.parametrize("name", list(K11T_CASES))
+def test_k11_edges_match_plain(cuda, name):
+    """K11 against its plain version on `k11t_case`'s lists and a seeded
+    grid cotangent, launched once; every slot that is not live (masked out,
+    past the cutoff, of the padded atom) exactly 0; bit for bit from run to
+    run."""
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+    from fitsnap_tpu_torch.ops.snap import nn_tables
+
+    p, block, _ = k11t_case(name, cuda)
+    mask = block[2]
+    n_t = nn_tables(p).n_t
+    vg = torch.as_tensor(np.random.default_rng(16).normal(
+        size=(mask.shape[0], n_t, n_t)), device=cuda)
+    nk.reset_launches()
+    out = nk.nn_pair_force(vg, *block, p)
+    torch.cuda.synchronize()
+    assert launched(nk) == {"nn_pair_force": 1}
+    assert rel_err([out], [nk.nn_pair_force_plain(vg, *block, p)]) <= RTOL
+    assert not out[~mask].any() and not out[0, 5].any()
+    assert not out[-1].any()
+    assert torch.equal(out, nk.nn_pair_force(vg, *block, p))
+
+
+@pytest.mark.parametrize("name", list(K11T_CASES))
+def test_k10t_edges_match_plain(cuda, name):
+    """K10T against its plain version on the z-lists of `k11t_case`'s atoms
+    and a seeded grid cotangent, launched once, and bit for bit from run to
+    run; then on all atoms but the last (an odd count where the case's is
+    even)."""
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+    from fitsnap_tpu_torch.ops.snap import nn_tables
+
+    p, block, _ = k11t_case(name, cuda)
+    N = block[2].shape[0]
+    n_t = nn_tables(p).n_t
+    z = sk.zlist_plain(nk.nn_ut_b_plain(*block, p)[0], p)
+    vgc = torch.as_tensor(np.random.default_rng(17).normal(
+        size=(N, n_t, n_t)), device=cuda)
+    nk.reset_launches()
+    out = nk.nn_dedu_vg_t(vgc, *z, p)
+    torch.cuda.synchronize()
+    assert launched(nk) == {"nn_dedu_vg_t": 1}
+    assert rel_err([out], [nk.nn_dedu_vg_t_plain(vgc, *z, p)]) <= RTOL
+    assert torch.equal(out, nk.nn_dedu_vg_t(vgc, *z, p))
+    part = [x[:N - 1].contiguous() for x in (vgc, *z)]
+    assert rel_err([nk.nn_dedu_vg_t(*part, p)],
+                   [nk.nn_dedu_vg_t_plain(*part, p)]) <= RTOL
 
 
 def streamed_batch(device):

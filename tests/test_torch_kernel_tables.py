@@ -15,9 +15,19 @@ package's plan (CPU, float64).
   at twojmax 2 and 6, one channel and chemflag, at 1e-12; and the plain
   twins agree with the JAX functions at 1e-12 (relative to the largest
   magnitude of each array: the packages sum in different orders).
+- K10T's schedule (`ops/snap.k10t_schedule` in `nn_tables`) at twojmax 2,
+  6 and 10: it rebuilds the (t, u, src, fac) entries of `yt_*` exactly,
+  each descriptor's on its own threads, at most `per` a thread, dealt in
+  compact z order;
+  the referenced z entries `yz_src` list every src of those entries once,
+  sorted; and the schedule, run in numpy (the arithmetic of
+  csrc/nn_dedu.cu), agrees with `nn_dedu_vg_t_plain` at 1e-12; its block
+  is the kernel's narrow launch shape.
 """
 
+import re
 from functools import lru_cache
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +40,7 @@ from fitsnap_tpu.ops import snap as jsnap
 from fitsnap_tpu.ops.cg import build_snap_plan
 from fitsnap_tpu_torch.convert import (PARAM_FIELDS, PLAN_FIELDS,
                                        snap_params_from_numpy)
+from fitsnap_tpu_torch.kernels import nn_kernels as nk
 from fitsnap_tpu_torch.kernels import snap_kernels as sk
 from fitsnap_tpu_torch.ops import snap as tsnap
 
@@ -374,6 +385,114 @@ def test_k2_schedule_matches_plain(twojmax, nelem, chem):
         zr, zi = zr[:, 0], zi[:, 0]
     close(zr, ref[0])
     close(zi, ref[1])
+
+
+# ---------------------------------------------------------------------------
+# K10T
+# ---------------------------------------------------------------------------
+
+
+def k10t_schedule(tb):
+    """K10T's schedule as numpy: per, threads, (u, zc, fac) as (per,
+    threads) arrays, seg (W+1,), yz_src."""
+    per, T = tb.ys_per, tb.ys_threads
+    key = tb.ys_key.numpy().reshape(per, T)
+    fac = tb.ys_fac.numpy().reshape(per, T)
+    bits = tsnap.K10T_KEY_BITS
+    return (per, T, key & ((1 << bits) - 1), key >> bits, fac,
+            tb.ys_seg.numpy(), tb.yz_src.numpy())
+
+
+@pytest.mark.parametrize("twojmax", [2, 6, 10])
+def test_k10t_schedule_rebuilds_the_y_entries(twojmax):
+    _, p = plans(twojmax)
+    tb = tsnap.nn_tables(p)
+    per, T, u, zc, fac, seg, yz_src = k10t_schedule(tb)
+    assert T % 32 == 0 and T <= 1024 and seg[-1] <= T
+    # 8 entries a thread where 288 threads hold the segments, else where
+    # 1,024 do
+    assert per == {2: 8, 6: 8, 10: 15}[twojmax]
+    got = []
+    for t in range(p.ntriples):
+        for thread in range(seg[t], seg[t + 1]):
+            live = fac[:, thread] != 0
+            n = int(live.sum())
+            assert live[:n].all() and n >= 1     # entries, then padding
+            got += [(t, int(uu), int(yz_src[z]), f) for uu, z, f in zip(
+                u[:n, thread], zc[:n, thread], fac[:n, thread])]
+    assert (fac[:, seg[-1]:] == 0).all()
+    assert (u[fac == 0] == 0).all() and (zc[fac == 0] == 0).all()
+    ptr = tb.yt_ptr.numpy()
+    ref = [(t, int(uu), int(s), f) for t in range(p.ntriples)
+           for uu, s, f in zip(tb.yt_u.numpy()[ptr[t]:ptr[t + 1]],
+                               tb.yt_src.numpy()[ptr[t]:ptr[t + 1]],
+                               tb.yt_fac.numpy()[ptr[t]:ptr[t + 1]])]
+    assert sorted(got) == sorted(ref)     # each descriptor's, once each
+    # at each step a descriptor's threads read its z entries in order
+    for t in range(p.ntriples):
+        z = zc[:, seg[t]:seg[t + 1]][fac[:, seg[t]:seg[t + 1]] != 0]
+        assert (np.diff(z) >= 0).all()
+
+
+@pytest.mark.parametrize("twojmax,count,sectors", [(2, 38, 14),
+                                                   (6, 1388, 464),
+                                                   (10, 11098, 3522)])
+def test_k10t_referenced_z_entries_each_once(twojmax, count, sectors):
+    """yz_src lists each referenced z entry once, sorted; `sectors` of the
+    32-byte sectors of a z part (nz doubles) hold one, which K10T's
+    gathers move whole."""
+    _, p = plans(twojmax)
+    tb = tsnap.nn_tables(p)
+    yz_src = tb.yz_src.numpy()
+    assert (np.diff(yz_src) > 0).all()
+    assert np.array_equal(yz_src, np.unique(tb.yt_src.numpy()))
+    assert len(yz_src) == count and yz_src[-1] < p.nz
+    assert len(np.unique(yz_src // 4)) == sectors
+
+
+def emulate_k10t(p, vgc, zr, zi):
+    """csrc/nn_dedu.cu's K10T over `nn_tables`: du by Lg's columns, each
+    thread's segment of y entries on the compact z, then each descriptor's
+    segment sums in order."""
+    tb = tsnap.nn_tables(p)
+    per, T, u, zc, fac, seg, yz_src = k10t_schedule(tb)
+    N, U = vgc.shape[0], p.u_len
+    sv = vgc.reshape(N, -1)
+    ptr, row, val = (tb.lgc_ptr.numpy(), tb.lgc_row.numpy(),
+                     tb.lgc_val.numpy())
+    du = np.stack([(sv[:, row[ptr[c]:ptr[c + 1]]]
+                    * val[ptr[c]:ptr[c + 1]]).sum(1)
+                   for c in range(2 * U)], 1)
+    zcr, zci = zr[:, yz_src], zi[:, yz_src]
+    part = np.zeros((N, T))
+    for j in range(per):
+        part += fac[j] * (zcr[:, zc[j]] * du[:, u[j]]
+                          + zci[:, zc[j]] * du[:, U + u[j]])
+    return np.stack([part[:, seg[t]:seg[t + 1]].sum(1)
+                     for t in range(p.ntriples)], 1)
+
+
+@pytest.mark.parametrize("twojmax", [2, 6, 10])
+def test_k10t_schedule_matches_plain(twojmax):
+    _, p = plans(twojmax)
+    n_t = tsnap.nn_tables(p).n_t
+    rng = np.random.default_rng(11)
+    N = 5
+    vgc, zr, zi = (rng.normal(size=s) for s in ((N, n_t, n_t), (N, p.nz),
+                                                (N, p.nz)))
+    out = emulate_k10t(p, vgc, zr, zi)
+    ref = nk.nn_dedu_vg_t_plain(*(torch.from_numpy(x) for x in (vgc, zr, zi)),
+                                p)
+    close(out, ref)
+
+
+def test_k10t_block_is_the_narrow_launch_shape():
+    """The schedule fills K10T_BLOCK threads where it can: the block of
+    csrc/nn_dedu.cu's narrow launch shape (K10T_NARROW), whose launch bounds
+    set four blocks an SM."""
+    src = (Path(nk.__file__).parent / "csrc" / "nn_dedu.cu").read_text()
+    narrow = re.search(r"constexpr int K10T_NARROW = (\d+);", src)
+    assert narrow and int(narrow.group(1)) == tsnap.K10T_BLOCK
 
 
 # ---------------------------------------------------------------------------

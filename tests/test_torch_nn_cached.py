@@ -14,10 +14,10 @@ with their tolerances (relative to the largest magnitude):
   `nn_dEdu`, `nn_vg`, `nn_grid_pair`, `nn_pair_force`, `nn_pair_grad`,
   `atom_descriptors_fast`;
 - K10T's and K11T's plain versions against `jax.vjp` of the JAX
-  functions (K11T through the force scatter), 1e-12; K11T's also at
-  twojmax 8 on 4 x 12 slots with a padded atom and a masked hole, and the
-  force gather's against the JAX one-hot scatter on an atom no one
-  neighbors, R > K and one-atom configs, 1e-12;
+  functions (K11T through the force scatter), 1e-12; K10T's, K11's and
+  K11T's also at twojmax 8 on 4 x 12 slots with a padded atom and a masked
+  hole, and the force gather's against the JAX one-hot scatter on an atom
+  no one neighbors, R > K and one-atom configs, 1e-12;
 - the cached buckets of both packages' `prepare_dataset` (the small Ta
   set of `tests/test_torch_nn.py`): shapes and configs exactly, disp, ut,
   B, targets and standardization 1e-12; `_forward_batch_cached` and
@@ -155,11 +155,10 @@ def test_k10t_k11t_plain_equal_jax_vjp(kit):
     assert rel(out, np.asarray(vjp(jnp.asarray(gF))[0])) <= TOL
 
 
-def test_k11t_plain_equals_jax_vjp_twojmax8():
-    """K11T's plain version against `jax.vjp` of the JAX pair force and the
-    one-hot force scatter at twojmax 8 (n_t 45), on one config of 4 atoms
-    x 12 slots: masked tails, a masked hole between live slots, a padded
-    atom."""
+def twojmax8_block():
+    """(JAX params, the port's, one config of 4 atoms x 12 slots at
+    twojmax 8 (n_t 45): masked tails, a masked hole between live slots, a
+    padded atom; the generator after drawing it)."""
     jp = jsnap.SnapParams(
         plan=build_snap_plan(twojmax=8, nelements=1, bzeroflag=False),
         rcutfac=4.67637, rfac0=0.99363, rmin0=0.0, switchflag=True,
@@ -175,6 +174,14 @@ def test_k11t_plain_equals_jax_vjp_twojmax8():
     mask[0, 2] = False
     mask[-1] = False
     block = (disp, np.zeros((A, K), np.int32), mask, np.zeros(A, np.int32))
+    return jp, p, block, rng
+
+
+def test_k11t_plain_equals_jax_vjp_twojmax8():
+    """K11T's plain version against `jax.vjp` of the JAX pair force and the
+    one-hot force scatter at twojmax 8 (`twojmax8_block`)."""
+    jp, p, block, rng = twojmax8_block()
+    A, K = block[2].shape
     jidx = rng.integers(0, A, (A, K)).astype(np.int32)
     gF = rng.normal(size=(A, 3))
     grid_j = jsnap.nn_grid_pair(*(jnp.asarray(x) for x in block), jp)
@@ -191,6 +198,39 @@ def test_k11t_plain_equals_jax_vjp_twojmax8():
         *(torch.as_tensor(x) for x in block), p)
     assert rel(out, np.asarray(vjp(jnp.asarray(gF))[0])) <= TOL
     assert not out[-1].any()
+
+
+def test_k11_plain_equals_jax_twojmax8():
+    """K11's plain version against the JAX `nn_pair_force` on
+    `nn_grid_pair` at twojmax 8 (`twojmax8_block`), a seeded vg: the
+    padded atom's and the masked slots' gradients 0."""
+    jp, p, block, rng = twojmax8_block()
+    A = block[2].shape[0]
+    n_t = tsnap.nn_tables(p).n_t
+    vg = rng.normal(size=(A, n_t, n_t))
+    ref = jsnap.nn_pair_force(jnp.asarray(vg), jsnap.nn_grid_pair(
+        *(jnp.asarray(x) for x in block), jp))
+    out = nk.nn_pair_force_plain(torch.as_tensor(vg),
+                                 *(torch.as_tensor(x) for x in block), p)
+    assert rel(out, np.asarray(ref)) <= TOL
+    assert not out[torch.as_tensor(~block[2])].any()
+
+
+def test_k10t_plain_equals_jax_vjp_twojmax8():
+    """K10T's plain version on K2's plain z-lists against `jax.vjp` of
+    `nn_vg` after `nn_dEdu` at twojmax 8, on the JAX ut of
+    `twojmax8_block`'s atoms."""
+    jp, p, block, rng = twojmax8_block()
+    A = block[2].shape[0]
+    n_t = tsnap.nn_tables(p).n_t
+    ut_j, _ = jsnap.nn_ut_b(*(jnp.asarray(x) for x in block), jp)
+    dEdB = jnp.asarray(rng.normal(size=(A, p.ntriples)))
+    vgc = rng.normal(size=(A, n_t, n_t))
+    _, vjp = jax.vjp(lambda d: jsnap.nn_vg(jsnap.nn_dEdu(d, ut_j, jp), jp),
+                     dEdB)
+    z = sk.zlist_plain(torch.as_tensor(np.asarray(ut_j)), p)
+    out = nk.nn_dedu_vg_t_plain(torch.as_tensor(vgc), *z, p)
+    assert rel(out, np.asarray(vjp(jnp.asarray(vgc))[0])) <= TOL
 
 
 # (configs, atoms, slots): lonely, an atom that no one neighbors; r_gt_k,
