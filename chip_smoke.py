@@ -25,7 +25,15 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    the least time the card could take (bytes over 3.35 TB/s, float64
    operations over 67 T/s, the larger; K8r's by its bytes alone; K8r
    also beside `torch.sort(stable=True)` of the masked destinations, the
-   order alone);
+   order alone; K8's operations those of a binned search: each real
+   candidate binned, the candidates of the 27 bins around each real atom);
+   K8 also past the shared-memory cap it had before its binned search: 2
+   jittered 8 x 8 x 8 bcc cells (1,024 atoms, S = 27; K8's mask and jidx
+   equal, disp within 1e-12; a package whose K8 refuses them has that
+   refusal recorded as its row); at both sizes K8's split launch shape (a
+   bin pass, then the select pass; the wrapper takes it above
+   `K8_FUSED_ATOMS` atom slots) forced, held to the plain version alike,
+   with a row of its own and the two shapes timed in turn;
 4. FitSnap path: launch counts set to 0, then FitSnap(device="cuda") ->
    scrape_configs -> process_configs -> perform_fit -> write_output, the
    counts read just after.  It fails unless K1-K5 launched, the A matrix
@@ -107,9 +115,13 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    and K12T launched, the last epoch's train loss is below the first's and
    the `.pt`, `.mliap.descriptor`, `.mod` and metrics files are written.
    Then K12 and K12T against their plain versions at the largest bucket
-   with a minibatch of 4 (1e-11; timed on rotating copies of the inputs,
-   more than four L2 sizes, so that G is read from HBM, and once more on
-   one repeated input, which L2 holds), the loss gradient with respect to every
+   with a minibatch of 4, K12 also at the smallest bucket with seeded dE/dB
+   and G on its lists (its perfect cells' forces cancel otherwise; 1e-11;
+   timed on rotating copies of the inputs, more than four L2 sizes, so
+   that G is read from HBM, and once more on one repeated input, which L2
+   holds; K12 beside `torch.bmm` of its contraction alone, timed the same
+   ways, and its contraction's own device time), the loss gradient with
+   respect to every
    MLP parameter through `NnForce` against autograd through K12's plain
    version (1e-10), central-difference forces (h = 1e-4, host lists and
    K1-K3 on the card at each displaced position) of the trained model
@@ -131,7 +143,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    alone, its library call, and, printed as context, the whole gather in
    PyTorch: g.sum(2), then `index_add_`), K11, K11T and K10T also at the
    smallest bucket (4 x 8 x 64), the digests of K9's outputs, of K11's on a
-   seeded grid cotangent and of K11T's on a seeded force cotangent (to
+   seeded grid cotangent and of K11T's on a seeded force cotangent, with
+   K8's at the SNAP chunk and K12's on a seeded dE/dB and G at the NN
+   minibatch (to
    compare builds bit for bit; K10's and K10T's bounds count the z entries
    the y tables reference, the least they must read), the loss gradient through
    `NnCachedForce` against autograd through the plain versions (1e-10), the trained model's energies and forces on that
@@ -336,6 +350,9 @@ RECUR_PAIR_OPS = {"pair_desc": 2 + 2 * 2,
                   "pair_desc_vjp": 2 + 2 + 2 * 3 * 2,
                   "pair_desc_jvp": 2 + 2 * 2 * 2}
 DIAG_COL_OPS = 2
+# digests of kernels' outputs (to compare builds bit for bit), printed on
+# one line before the kernel table
+DIGESTS = {}
 # the profiler's kernel name of a wrapper, where it is not <wrapper>_kernel
 KERNEL_FN = {"nn_force": "nn_fpair_kernel",
              "nn_pair_gather": "nn_gather_kernel"}
@@ -887,16 +904,11 @@ def kernel_checks(calc, data):
     k8_args = (ph, pl, sh, sl, nat32, calc.cutoff, K)
     out = sk.device_neighbors(*k8_args)
     ref = sk.device_neighbors_plain(*k8_args)
-    if not (torch.equal(out[2], ref[2]) and torch.equal(out[1], ref[1])):
-        raise AssertionError("device_neighbors: mask or jidx differs from "
-                             "its plain version")
+    neighbors_check(rows, k8_args, out, ref)
+    DIGESTS["device_neighbors (SNAP chunk)"] = digest(out)
     print(f"device_neighbors: S={S} candidates/atom={S * A} listed="
           f"{int(out[2].sum().item())} (host lists {nlisted})", flush=True)
-    record(rows, "device_neighbors", out[:1], ref[:1],
-           (lambda: sk.device_neighbors(*k8_args), 20),
-           timed(lambda: sk.device_neighbors_plain(*k8_args), 3),
-           C * A * 3 * 8 * 2 + C * S * 3 * 8 * 2 + C * 4
-           + C * A * K * (24 + 4 + 1), C * S * A * A * 11, None)
+    k8_cap_check(rows, calc.cutoff)
     _, njidx, nmask = out
     reverse_check(rows, njidx, nmask)
     del out, ref
@@ -907,6 +919,151 @@ def kernel_checks(calc, data):
     truths, weights = [x[0] for x in truths], [x[0] for x in weights]
     normal_check(rows, rows_in, truths, weights, nat32, types, T, True)
     return rows
+
+
+def k8_work(ph, sh, natoms, cutoff):
+    """(real candidates, distances) a binned search over K8's inputs must
+    evaluate: each real candidate pos[j] + svec[s] binned once, then for
+    each real atom the candidates of the 27 bins (side = the cutoff) around
+    its own; counted here with numpy, apart from the kernel's own grid."""
+    ph, sh, natoms = (x.cpu().numpy() for x in (ph, sh, natoms))
+    nbinned = ndist = 0
+    for c, na in enumerate(natoms):
+        if na == 0:
+            continue
+        pos = ph[c, :na]
+        cand = (pos[None, :, :] + sh[c][:, None, :]).reshape(-1, 3)
+        lo = pos.min(0) - cutoff
+        atom_bin = np.floor((pos - lo) / cutoff).astype(np.int64)
+        cand_bin = np.floor((cand - lo) / cutoff).astype(np.int64)
+        n = atom_bin.max(0) + 2
+        keep = ((cand_bin >= 0) & (cand_bin < n)).all(1)
+        counts = np.bincount(np.ravel_multi_index(cand_bin[keep].T, n),
+                             minlength=int(np.prod(n))).reshape(n)
+        nbinned += len(cand)
+        for d in itertools.product((-1, 0, 1), repeat=3):
+            b = atom_bin + np.array(d)
+            ndist += int(counts[tuple(b.T)].sum())
+    return nbinned, ndist
+
+
+def neighbors_check(rows, args, out, ref, shape=None, plain_reps=3):
+    """Hold K8's outputs to its plain version's (mask and jidx equal, disp
+    within 1e-12) and add its row: its bound by its bytes and the
+    operations of a binned search (9 a binned candidate: the point and its
+    bin coordinates; 9 an evaluated distance: 3 differences, 3 squares, 2
+    sums, the comparison).  Where K8 has two launch shapes (a package with
+    `K8_FUSED_ATOMS`), the split one (the bin pass, then the select pass)
+    is forced on the same inputs and gets a row of its own, and the two
+    are timed in turn, fused - split - split - fused, by device time (each
+    the sum of its kernels' device ms over 20 calls)."""
+    import torch
+    from fitsnap_tpu_torch.kernels import snap_kernels as sk
+
+    ph, pl, sh, sl, nat32, cutoff, K = args
+    C, A = ph.shape[:2]
+    S = sh.shape[1]
+    name = "device_neighbors" + (f"@{shape}" if shape else "")
+
+    def fused():
+        return sk.device_neighbors(*args)
+
+    def split():
+        sk.K8_FUSED_ATOMS = 0
+        try:
+            return sk.device_neighbors(*args)
+        finally:
+            sk.K8_FUSED_ATOMS = fused_atoms
+
+    fused_atoms = getattr(sk, "K8_FUSED_ATOMS", None)
+    shapes = [("fused", out, fused)]
+    if fused_atoms is not None:
+        shapes.append(("split", split(), split))
+    for tag, o, _ in shapes:
+        if not (torch.equal(o[2], ref[2]) and torch.equal(o[1], ref[1])):
+            raise AssertionError(f"{name} ({tag}): mask or jidx differs "
+                                 f"from its plain version")
+        disp_err = (o[0] - ref[0]).abs().max().item()
+        if not disp_err <= 1e-12:
+            raise AssertionError(f"{name} ({tag}): disp differs from its "
+                                 f"plain version by {disp_err:.3e}")
+    nbinned, ndist = k8_work(ph, sh, nat32, cutoff)
+    print(f"{name}: binned candidates {nbinned}, distances of the 27 bins "
+          f"{ndist} (S A^2 = {C * S * A * A})", flush=True)
+    plain_ms = timed(lambda: sk.device_neighbors_plain(*args), plain_reps)
+    for tag, o, fn in shapes:
+        record(rows, name if tag == "fused" else
+               "device_neighbors (split shape)" + (f"@{shape}" if shape
+                                                   else ""),
+               o[:1], ref[:1], (fn, 20), plain_ms,
+               C * A * 3 * 8 * 2 + C * S * 3 * 8 * 2 + C * 4
+               + C * A * K * (24 + 4 + 1), 9 * (nbinned + ndist), None,
+               wrapper="device_neighbors", shape=shape)
+        if len(shapes) > 1:
+            rows[-1]["launch_shape"] = tag
+        if tag == "split":
+            rows[-1]["note"] = ("forced: the main path's calls at this size "
+                                "run the fused shape (the launches are the "
+                                "wrapper's)")
+    if len(shapes) > 1:
+        times = {"fused": [], "split": []}
+        for tag, fn in (("fused", fused), ("split", split),
+                        ("split", split), ("fused", fused)):
+            times[tag].append(device_time(fn, 20))
+        per_kernel = {k: v / 20 for k, v in profile_kernels(
+            lambda: [split() for _ in range(20)]).items()}
+        print(f"{name} launch shapes, device ms (fused - split - split - "
+              f"fused): fused {times['fused']} split {times['split']} "
+              f"(split by kernel: {per_kernel})", flush=True)
+
+
+def k8_cap_check(rows, cutoff, seed=7):
+    """K8 past the shared-memory cap it had before: 2 configs of a jittered
+    8 x 8 x 8 bcc supercell (1,024 atoms, a = 3.30 A, seeded jitter of
+    0.05 A), S = 27, at the Ta set's cutoff, K the largest neighbor count
+    rounded up to 8.  A package whose K8 lacks the binned search (before
+    `k8_bins`) refuses it: that refusal is recorded as its row."""
+    import torch
+    from fitsnap_tpu_torch.kernels import snap_kernels as sk
+    from fitsnap_tpu_torch.ops.neighbors import count_neighbors
+    from fitsnap_tpu_torch.parallel import fit
+    from fitsnap_tpu_torch.tools import synthetic
+
+    rng = np.random.default_rng(seed)
+    pos0, rows_ = synthetic.supercell(synthetic.BCC, 3.30, (8, 8, 8))
+    cell = rows_.T
+    pos = np.stack([pos0 + 0.05 * rng.normal(size=pos0.shape)
+                    for _ in range(2)])
+    A = pos.shape[1]
+    K = max(count_neighbors(p, cell, A, cutoff) for p in pos)
+    K = -(-K // 8) * 8
+    shifts = np.asarray(fit.batch_shift_table([cell], cutoff), np.float64)
+    svec = np.stack([shifts @ cell.T] * 2)
+
+    def dev(x, dtype=torch.float64):
+        return torch.as_tensor(x, dtype=dtype, device="cuda")
+
+    args = (dev(pos), dev(np.zeros_like(pos)), dev(svec),
+            dev(np.zeros_like(svec)), dev([A, A], torch.int32), cutoff, K)
+    shape = [2, A, K]
+    print(f"device_neighbors past the old cap: C=2 A={A} S={len(shifts)} "
+          f"K={K} (12 S A = {12 * len(shifts) * A} bytes)", flush=True)
+    if not hasattr(sk, "k8_bins"):
+        try:
+            sk.device_neighbors(*args)
+        except ValueError as e:
+            src, replaces = SOURCES["device_neighbors"]
+            print(f"device_neighbors@{shape}: refused ({e})", flush=True)
+            rows.append({"name": f"device_neighbors@{shape}",
+                         "kernel": "device_neighbors", "route": "cuda",
+                         "source": src, "replaces": replaces,
+                         "refused": str(e), "shape": shape})
+            return
+    out = sk.device_neighbors(*args)
+    ref = sk.device_neighbors_plain(*args)
+    neighbors_check(rows, args, out, ref, shape, plain_reps=2)
+    del out, ref
+    torch.cuda.empty_cache()
 
 
 def reverse_check(rows, jidx, mask, shape=None):
@@ -1536,18 +1693,57 @@ def nn_path(tmp, device, mode="precompute"):
     return fs, counts, times, checks
 
 
-def nn_batch(sol, n=4):
-    """A minibatch of the first n configs of the largest bucket, with the
-    trained model's dE/dB (K12's input)."""
+def nn_batch(sol, n=4, pick=np.argmax):
+    """A minibatch of the first n configs of the largest bucket
+    (pick=np.argmin: the smallest), with the trained model's dE/dB (K12's
+    input)."""
     import torch
 
-    bi = int(np.argmax([np.prod(b["shape"]) for b in sol.buckets]))
+    bi = int(pick([np.prod(b["shape"]) for b in sol.buckets]))
     batch = sol._gather(sol.buckets[bi],
                         np.arange(min(n, len(sol.buckets[bi]["groups"]))))
     x = ((batch["B"] - sol.mean) / sol.std).requires_grad_(True)
     e = (sol.model(x, batch["types"]) * batch["real"].to(x.dtype)).sum()
     dEdB = (torch.autograd.grad(e, x)[0] / sol.std).contiguous()
     return batch, dEdB
+
+
+def k12_row(rows, args, out, ref, shape=None):
+    """K12's row on (dE/dB, G, jidx, rev): timed on rotating copies of the
+    inputs, so that G comes from HBM as the bound assumes, and on one
+    repeated input (`device_ms_l2`, which L2 holds, as it holds a minibatch
+    just gathered in training); `contraction_device_ms` is the contraction's
+    kernel alone (the row's device ms adds the gather's); the library call
+    is `torch.bmm` of the contraction alone, timed the same two ways."""
+    import torch
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+
+    dEdB, G, jidx, rev = args
+    N, A, W, K, _ = G.shape
+    R = rev.shape[2]
+
+    def bmm(d, g):
+        return torch.bmm(d.view(N * A, 1, W), g.view(N * A, W, 3 * K))
+
+    record(rows, "nn_force" + (f"@{shape}" if shape else ""), [out], [ref],
+           (rotating(nk.nn_force, args), 20),
+           timed(rotating(nk.nn_force_plain, args), 10),
+           G.numel() * 8 + dEdB.numel() * 8 + rev.numel() * 4 + N * A * 3 * 8,
+           2 * G.numel() + N * A * (K + R) * 3, None, wrapper="nn_force",
+           shape=shape, library=rotating(bmm, (dEdB, G)))
+    row = rows[-1]
+    row["device_ms_l2"] = device_time(lambda: nk.nn_force(*args), 20)
+    fn = rotating(nk.nn_force, args)
+    fn()
+    split = profile_kernels(lambda: [fn() for _ in range(20)])
+    row["contraction_device_ms"] = (
+        split.get("nn_fpair_kernel", 0.0) / 20 if split else None)
+    row["library_device_ms_l2"] = device_time(lambda: bmm(dEdB, G), 20)
+    print(f"{row['name']}: contraction device_ms="
+          f"{row['contraction_device_ms']} device_ms_l2="
+          f"{row['device_ms_l2']} torch.bmm device_ms="
+          f"{row['library_device_ms']} (L2: {row['library_device_ms_l2']})",
+          flush=True)
 
 
 def rotating(fn, args):
@@ -1563,8 +1759,8 @@ def rotating(fn, args):
 
 def nn_kernel_checks(fs):
     """K12 and K12T against their plain versions on a minibatch of 4 at
-    the largest bucket, and the loss gradient through NnForce against
-    autograd through K12's plain version."""
+    the largest bucket (K12 also at the smallest), and the loss gradient
+    through NnForce against autograd through K12's plain version."""
     import torch
     from fitsnap_tpu_torch.kernels import nn_kernels as nk
     from fitsnap_tpu_torch.solvers import network as tnet
@@ -1576,21 +1772,43 @@ def nn_kernel_checks(fs):
     R = rev.shape[2]
     print(f"nn kernel inputs: N={N} A={A} W={W} K={K} R={R} pairs="
           f"{int((rev >= 0).sum().item())} float64", flush=True)
-    # timed on rotating copies of the inputs, so that G comes from HBM as
-    # the bound assumes; `device_ms_l2` is the call on one repeated input,
-    # which L2 holds, as it holds a minibatch just gathered in training
+    # K12 at this minibatch and at the smallest bucket's, K12T, each timed
+    # on rotating copies of the inputs (from HBM) and on one repeated input
+    # (from L2)
     rows = []
     args = (dEdB, G, jidx, rev)
     out = nk.nn_force(*args)
     ref = nk.nn_force_plain(*args)
-    g_bytes = G.numel() * 8
-    record(rows, "nn_force", [out], [ref], (rotating(nk.nn_force, args), 20),
-           timed(rotating(nk.nn_force_plain, args), 10),
-           g_bytes + dEdB.numel() * 8 + rev.numel() * 4 + N * A * 3 * 8,
-           2 * G.numel() + N * A * (K + R) * 3, None)
-    rows[-1]["device_ms_l2"] = device_time(lambda: nk.nn_force(*args), 20)
+    k12_row(rows, args, out, ref)
+
+    def seeded(t, rng):
+        return torch.as_tensor(rng.normal(size=tuple(t.shape)),
+                               device=t.device)
+
+    # the digest on seeded dE/dB and G (the trained dE/dB differs from run
+    # to run of one build)
+    rng = np.random.default_rng(12)
+    DIGESTS["nn_force (NN minibatch, seeded dE/dB and G)"] = digest(
+        [nk.nn_force(seeded(dEdB, rng), seeded(G, rng), jidx, rev)])
+    # the smallest bucket's cells are perfect lattices, whose forces cancel
+    # to rounding for any dE/dB: seeded dE/dB and G on its lists
+    small, dEdB_small = nn_batch(sol, pick=np.argmin)
+    targs = (dEdB_small, small["G"], small["jidx"], small["rev"])
+    t_abs, t_rel = rel_err([nk.nn_force(*targs)], [nk.nn_force_plain(*targs)])
+    print(f"nn_force at the smallest bucket on its trained dE/dB and G "
+          f"(context, not held to 1e-11): max |plain| "
+          f"{nk.nn_force_plain(*targs).abs().max().item():.3e}, max abs "
+          f"error {t_abs:.3e}, relative {t_rel:.3e}", flush=True)
+    rng = np.random.default_rng(16)
+    sargs = (seeded(dEdB_small, rng), seeded(small["G"], rng),
+             small["jidx"], small["rev"])
+    print(f"nn kernel inputs, the smallest bucket: "
+          f"{list(small['G'].shape)}, seeded dE/dB and G", flush=True)
+    k12_row(rows, sargs, nk.nn_force(*sargs), nk.nn_force_plain(*sargs),
+            shape=list(small["G"].shape[:2]) + [small["G"].shape[3]])
     gF = ((ref - batch["f_target"])
           * batch["real"][..., None].to(ref.dtype)).contiguous()
+    g_bytes = G.numel() * 8
     args = (gF, G, jidx)
     out = nk.nn_force_t(*args)
     ref = nk.nn_force_t_plain(*args)
@@ -1956,7 +2174,9 @@ def nn_cached_kernel_checks(fs):
           f"nn_pair_force outputs' digest (seeded vg): "
           f"{digest([nk.nn_pair_force(vg_seeded, *block, p)])}; "
           f"nn_pair_force_t outputs' digest (seeded gF): "
-          f"{digest([k11t_seeded])}", flush=True)
+          f"{digest([k11t_seeded])}; " + "; ".join(
+              f"{k} outputs' digest: {v}" for k, v in DIGESTS.items()),
+          flush=True)
 
     # K11T on the force residual: per live pair 4 n_t^2 flops and 600
     gF = ((F - batch["f_target"])

@@ -24,22 +24,85 @@
 // counterpart: there the one-hot (A, K, A) matmul of the row assembly plays
 // its role; it equals ops/neighbors.py `reverse_neighbors` of the port.
 //
-// Bound on the H100: K8 evaluates S * A^2 candidate distances per config
-// (11 flops each) and writes 29 B per slot; at the Ta shapes (S = 27,
-// A = 128, K = 64) the two least times are about equal.  K8r needs O(A K)
-// integer work per config against 9 B per slot of lists and table, and is
-// bound by the bytes: 0.6 MB at 8 x 128 x 64, well under a microsecond, so
-// its real floor is one launch's fixed latency.
+// Bound on the H100: K8 must write 29 B per slot and read the positions
+// once; a binned search evaluates a few hundred distances an atom (the
+// atoms of the bins around it, in each image that reaches it), so at the Ta
+// shapes (S = 27, A = 128, K = 64) it is bound by its bytes.  K8r needs
+// O(A K) integer work per config against 9 B per slot of lists and table,
+// and is bound by the bytes: 0.6 MB at 8 x 128 x 64, well under a
+// microsecond, so its real floor is one launch's fixed latency.
 //
-// Design.  K8: one block per (config, atom i).  The candidate distances go
-// to shared memory (8 B each) and the valid ones are listed (4 B each);
-// each listed candidate's slot is its rank in the (d2, f) order, counted
-// against the list, so the result does not depend on the order in which the
-// list was filled.  d2 is computed with __dmul_rn / __dadd_rn in the JAX
-// order, ((pos_j + svec) - pos_i) per component, then x, y, z left to right,
-// so no FMA contraction changes its rounding and the order of near ties
-// matches the plain version.  The block's candidates must fit in shared
-// memory (the wrapper checks).
+// Design.  K8 bins each config's home atoms (not its S * A candidates), so
+// nothing it keeps grows with S, and it has no cap on S * A (the flat index
+// f must fit an int).  The grid: cubic bins of side s = cutoff (1 + 2^-20)
+// (kernels/snap_kernels.py `K8_BIN_SIDE`, passed in) from the home atoms'
+// low corner lo, n_d = floor((hi - lo) / s) + 1 bins an axis over their
+// bounding box [lo, hi].  The bin of x is floor((x - lo) * (1 / s)), each
+// step rounded as written (__dsub_rn, __dmul_rn), a monotone formula, so
+// every home atom lies on the grid.  The grid has at most H bins
+// (`k8_bins`, from A alone): where s would need more (a sparse config), s
+// grows to ext / (m - 1.5), ext the box's largest edge and m the integer
+// cube root of H, which needs at most (m - 1)^3; so no per-config
+// parameter is read back by the host.  A counting sort (integer counts,
+// one atomic per bin a warp, an exclusive scan) gives each bin its range
+// of the sorted atoms (32 B each: pos_hi and j); the order within a bin
+// follows the atomics, and nothing downstream depends on it.
+//
+// An atom i searches, for each image shift s, the bins within one of the
+// query point q = pos_i - svec_s, clipped to the grid: a candidate pos_j +
+// svec_s within the cutoff of pos_i (d2 < cutoff^2 as computed) has pos_j
+// within cutoff (1 + 4 eps) of q along each axis, up to the rounding of q
+// and of the candidate (1e-12 A at coordinates below 1e4 A, against the
+// side's margin of 4e-6 A), so its bin is within one of q's; a shift whose
+// clipped range is empty holds no neighbor of i (the host test
+// `test_k8_bins_cover_every_neighbor` checks the cover on its cases).  A
+// warp's lanes take the shifts, 32 at a time; the rows of up to 3 x 3 bins
+// of the relevant shifts become items, one a lane (each a contiguous range
+// of the sorted atoms, found by a shuffle search of the rows' prefix sums),
+// and the items' atoms become candidates, four a lane a step.  A step runs
+// each stage for its four candidates before the next (the item search, the
+// loads, then d2), since a warp issues in order and the stages of one
+// candidate depend on each other; no branch, so a lane past the list reads
+// a valid atom and is not counted.  d2 = ((pos_j + svec_s - pos_i)^2 per
+// component, summed x, y, z left to right), each step rounded with
+// __dadd_rn / __dsub_rn / __dmul_rn as the plain version rounds it, so no
+// FMA contraction changes d2 and near ties order as there.  The valid
+// (d2, f) pairs, f = s A + j, go to a per-warp buffer (K8_BUF = 256 pairs
+// in shared memory), a step's at once; a pair's slot is its rank in (d2, f)
+// order, counted against the buffer, so the slots do not depend on the
+// order in which the bins or lanes filled it, and the output repeats bit
+// for bit.  When the buffer would overflow (more valid pairs than it
+// holds: truncation), it is pruned to its K smallest pairs, and from then
+// on only pairs below the K-th smallest are kept, which keeps the K nearest
+// exactly for any number of valid pairs (the buffer must hold K plus one
+// ballot's 32 pairs).  With m valid pairs and m < K, slots m..K-1 take the
+// first K - m invalid candidates by f; at most m candidates below K + m
+// are valid, and the buffer, never pruned then, holds them all: a bitmap of
+// their f below K + m marks them, and the rest fill the slots in order.  A
+// padded atom (i >= natoms) searches nothing and writes its K invalid slots
+// (f = k, so jidx = k % A).  K above K8_BUF / 2 keeps each atom's buffer of
+// 2 K + 128 pairs and its bitmap in global scratch instead, so that pruning
+// stays rare.
+//
+// Launch shapes.  Fused (A <= 1,024 and S <= 512, `K8_FUSED_ATOMS`,
+// `K8_FUSED_SHIFTS`: a config's sorted atoms and shifts fit one block's
+// shared memory): one launch; block (config, 8 atoms, or 16 above 256 atom
+// slots) sorts its config's home atoms and stages its shifts in shared
+// memory, then each warp searches one atom there.  Every block of a config
+// sorts the same atoms: at most 1,024, a few rounds of its threads.  Split
+// (larger configs): a bin pass, one block of 1,024 threads per config, into
+// global scratch, then the select pass, one warp an atom, 16 a block.  The
+// fused shape is the faster where both run (on the H100 about 1.4-1.6x at
+// 8 x 128 and 2 x 1,024 atom slots: the select pass reads the sorted atoms
+// from L2, not shared memory, and the bin pass is a launch of its own;
+// chip_smoke.py times both, PERF.md has the numbers).  Only integer atomics (the bin counts and the bitmap), whose order the output
+// does not depend on; no floating-point atomics.
+//
+// What holds K8 back on the H100 is one warp's chain of dependent steps,
+// not bytes or operations: a block's sort (bounding box, grid, counts,
+// scan, places, each behind a barrier) before any search starts, then the
+// shuffle searches and prefix sums that map lanes to items and candidates,
+// then the ranking (PERF.md has the times).
 //
 // K8r places each slot by counting: the column of slot s = i K + k in row
 // n = jidx[i, k] is the number of earlier live slots of its config with the
@@ -67,7 +130,20 @@
 
 namespace {
 
-constexpr int NB_THREADS = 256;
+constexpr int BIN_THREADS = 1024;            // the split shape's bin pass
+constexpr int SEL_MAX_WARPS = 16;            // atoms a block of the select
+constexpr int SEL_STEP = 4;                  // candidates a lane tests a step
+constexpr int BIN_ROUNDS = 4;                // atoms a thread, fused shape
+
+// A config's bin grid over its home atoms: origin (the box's low corner),
+// 1 / side, bins an axis (0: no real atom).
+struct Grid {
+  double o[3];
+  double inv;
+  int n[3];
+  int pad;
+};
+static_assert(sizeof(Grid) == 48, "kernels/snap_kernels.py allocates 48 B");
 
 __device__ __forceinline__ void two_sum(double a, double b, double& s,
                                         double& e) {
@@ -76,94 +152,750 @@ __device__ __forceinline__ void two_sum(double a, double b, double& s,
   e = __dadd_rn(__dsub_rn(a, __dsub_rn(s, bb)), __dsub_rn(b, bb));
 }
 
-__global__ void neighbors_kernel(const double* __restrict__ pos_hi,
-                                 const double* __restrict__ pos_lo,
-                                 const double* __restrict__ svec_hi,
-                                 const double* __restrict__ svec_lo,
-                                 const int* __restrict__ natoms, int A, int S,
-                                 int K, double cut2,
-                                 double* __restrict__ disp,
-                                 int* __restrict__ jidx,
-                                 unsigned char* __restrict__ mask) {
-  extern __shared__ double key[];            // [S * A] d2, or inf if invalid
-  __shared__ int nvalid;
-  const int n = S * A;
-  int* list = reinterpret_cast<int*>(key + n);  // [S * A] valid candidates
-  const long long ci = blockIdx.x;           // c * A + i
-  const long long c = ci / A;
-  const int i = static_cast<int>(ci % A);
-  const int na = natoms[c];
-  const double* ph = pos_hi + c * A * 3;
-  const double* pl = pos_lo + c * A * 3;
-  const double* sh = svec_hi + c * S * 3;
-  const double* sl = svec_lo + c * S * 3;
-  const int tid = threadIdx.x;
-  if (tid == 0) nvalid = 0;
-  __syncthreads();
+__device__ __forceinline__ unsigned lanes_below(int lane) {
+  return (1u << lane) - 1u;
+}
 
-  const double xi = ph[i * 3], yi = ph[i * 3 + 1], zi = ph[i * 3 + 2];
-  for (int f = tid; f < n; f += NB_THREADS) {
-    const int s = f / A;
-    const int j = f % A;
-    const double dx = __dsub_rn(__dadd_rn(ph[j * 3], sh[s * 3]), xi);
-    const double dy = __dsub_rn(__dadd_rn(ph[j * 3 + 1], sh[s * 3 + 1]), yi);
-    const double dz = __dsub_rn(__dadd_rn(ph[j * 3 + 2], sh[s * 3 + 2]), zi);
-    const double d2 = __dadd_rn(
-        __dadd_rn(__dmul_rn(dx, dx), __dmul_rn(dy, dy)), __dmul_rn(dz, dz));
-    const bool home = sh[s * 3] == 0.0 && sh[s * 3 + 1] == 0.0 &&
-                      sh[s * 3 + 2] == 0.0 && sl[s * 3] == 0.0 &&
-                      sl[s * 3 + 1] == 0.0 && sl[s * 3 + 2] == 0.0;
-    const bool ok = d2 < cut2 && j < na && i < na && !(home && i == j);
-    key[f] = ok ? d2 : CUDART_INF;
-    if (ok) list[atomicAdd(&nvalid, 1)] = f;
+// The grid of side s (inverse inv) over the box [lo, hi]; returns its
+// number of bins.
+__device__ double grid_of(const double* lo, const double* hi, double s,
+                          double inv, Grid& g) {
+  g.inv = inv;
+  double prod = 1.0;
+  for (int d = 0; d < 3; ++d) {
+    g.o[d] = lo[d];
+    const double n = floor(__dmul_rn(__dsub_rn(hi[d], lo[d]), inv)) + 1.0;
+    g.n[d] = static_cast<int>(fmin(n, 1e9));
+    prod *= n;
+  }
+  return prod;
+}
+
+// The bin coordinate of x along axis d, as a double (floor of t).
+__device__ __forceinline__ double bin_coord(const Grid& g, int d, double x) {
+  return floor(__dmul_rn(__dsub_rn(x, g.o[d]), g.inv));
+}
+
+// The flat bin of a home atom, or -1 for a position that is not a number.
+__device__ __forceinline__ int atom_bin(const Grid& g, double x, double y,
+                                        double z) {
+  const double bx = bin_coord(g, 0, x), by = bin_coord(g, 1, y),
+               bz = bin_coord(g, 2, z);
+  if (!(bx >= 0.0 && bx < g.n[0] && by >= 0.0 && by < g.n[1] &&
+        bz >= 0.0 && bz < g.n[2])) {
+    return -1;
+  }
+  return (static_cast<int>(bz) * g.n[1] + static_cast<int>(by)) * g.n[0] +
+         static_cast<int>(bx);
+}
+
+// The bins [lo, lo + n) along axis d within one of query coordinate x, on
+// the grid; n <= 0 when none is.
+__device__ __forceinline__ void near_bins(const Grid& g, int d, double x,
+                                          int& lo, int& n) {
+  const double b = bin_coord(g, d, x);
+  const double l = fmax(b - 1.0, 0.0);
+  const double h = fmin(b + 1.0, static_cast<double>(g.n[d] - 1));
+  lo = static_cast<int>(l);
+  n = l <= h ? static_cast<int>(h) - lo + 1 : 0;
+}
+
+// Bin config c's home atoms, block-wide: the grid (into g), the bins'
+// ranges bins[0..nb] (bins[b] the first of bin b, of nb <= H) and the
+// atoms sorted by bin, 32 bytes each: (x, y), (z, j) of pos_hi, j's bits in
+// the second double.  `bins`, `red` (6 x 32) and `wsum` (33) are shared
+// memory, and `cursor` (H ints, kRegs false); `sorted` shared or global.
+// With kRegs the block's atoms (at most BIN_ROUNDS a thread) keep their
+// bins and places in registers from the count to the placement; else a
+// second sweep places them through `cursor`.  The lo parts of the positions
+// are prefetched into L1 for the slots' displacements.
+template <bool kRegs>
+__device__ void bin_atoms(const double* __restrict__ ph,
+                          const double* __restrict__ pl, int na, int A,
+                          int H, double side, double inv_side, Grid& g,
+                          int* bins, int* cursor, double* red, int* wsum,
+                          double2* sorted) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = blockDim.x >> 5;
+  // the home atoms' bounding box (the loads of every slot are issued with
+  // that of natoms; padded slots are masked after)
+  double b[6] = {CUDART_INF, CUDART_INF, CUDART_INF,
+                 -CUDART_INF, -CUDART_INF, -CUDART_INF};
+  for (int j = tid; j < A; j += blockDim.x) {
+    double x[3];
+    for (int d = 0; d < 3; ++d) x[d] = ph[j * 3 + d];
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(pl + j * 3));
+    if (j < na) {
+      for (int d = 0; d < 3; ++d) {
+        b[d] = fmin(b[d], x[d]);
+        b[3 + d] = fmax(b[3 + d], x[d]);
+      }
+    }
+  }
+  for (int off = 16; off > 0; off /= 2) {
+    for (int d = 0; d < 3; ++d) {
+      b[d] = fmin(b[d], __shfl_xor_sync(0xffffffffu, b[d], off));
+      b[3 + d] = fmax(b[3 + d], __shfl_xor_sync(0xffffffffu, b[3 + d], off));
+    }
+  }
+  if (lane == 0)
+    for (int d = 0; d < 6; ++d) red[d * 32 + warp] = b[d];
+  for (int h = tid; h <= H; h += blockDim.x) bins[h] = 0;
+  __syncthreads();
+  if (warp == 0) {
+    for (int d = 0; d < 6; ++d)
+      b[d] = lane < nw ? red[d * 32 + lane] : (d < 3 ? CUDART_INF
+                                                     : -CUDART_INF);
+    for (int off = 16; off > 0; off /= 2) {
+      for (int d = 0; d < 3; ++d) {
+        b[d] = fmin(b[d], __shfl_xor_sync(0xffffffffu, b[d], off));
+        b[3 + d] = fmax(b[3 + d],
+                        __shfl_xor_sync(0xffffffffu, b[3 + d], off));
+      }
+    }
+    if (lane == 0) {
+      Grid gg;
+      if (na > 0) {
+        if (grid_of(b, b + 3, side, inv_side, gg) > static_cast<double>(H)) {
+          // a sparse config: the side that fits the grid in H bins
+          int m = 4;
+          while ((m + 1) * (m + 1) * (m + 1) <= H) ++m;
+          double ext = 0.0;
+          for (int d = 0; d < 3; ++d)
+            ext = fmax(ext, __dsub_rn(b[3 + d], b[d]));
+          const double s =
+              fmax(side, __ddiv_rn(ext, static_cast<double>(m) - 1.5));
+          grid_of(b, b + 3, s, __ddiv_rn(1.0, s), gg);
+        }
+      } else {
+        gg.o[0] = gg.o[1] = gg.o[2] = 0.0;
+        gg.inv = 0.0;
+        gg.n[0] = gg.n[1] = gg.n[2] = 0;
+      }
+      gg.pad = 0;
+      g = gg;
+    }
   }
   __syncthreads();
-  const int m = nvalid;
-  const long long out0 = ci * K;
 
-  // valid candidates: slot = rank in (d2, f) order
-  for (int u = tid; u < m; u += NB_THREADS) {
-    const int f = list[u];
-    const double kf = key[f];
+  // count each bin's atoms (bins[b + 1]), one atomic per bin a warp; its
+  // old value is the warp's place within the bin
+  int rbin[BIN_ROUNDS], rat[BIN_ROUNDS];
+  double rx[BIN_ROUNDS], ry[BIN_ROUNDS], rz[BIN_ROUNDS];
+#pragma unroll
+  for (int r = 0; r < BIN_ROUNDS; ++r) rbin[r] = -1;
+  for (int j0 = warp * 32, r = 0; j0 < na; j0 += blockDim.x, ++r) {
+    const int j = j0 + lane;
+    double x = 0.0, y = 0.0, z = 0.0;
+    int bin = -1;
+    if (j < na) {
+      x = ph[j * 3];
+      y = ph[j * 3 + 1];
+      z = ph[j * 3 + 2];
+      bin = atom_bin(g, x, y, z);
+    }
+    const unsigned peers = __match_any_sync(0xffffffffu, bin);
+    const int leader = __ffs(peers) - 1;
+    int base = 0;
+    if (bin >= 0 && lane == leader) base = atomicAdd(&bins[bin + 1],
+                                                     __popc(peers));
+    if (kRegs) {
+      base = __shfl_sync(0xffffffffu, base, leader);
+#pragma unroll
+      for (int q = 0; q < BIN_ROUNDS; ++q) {
+        if (q == r) {
+          rbin[q] = bin;
+          rat[q] = base + __popc(peers & lanes_below(lane));
+          rx[q] = x;
+          ry[q] = y;
+          rz[q] = z;
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // inclusive scan of the counts in place: bins[k] becomes the first of
+  // bin k (nb <= H, the grid's bins; the ranges past them are empty); one
+  // warp up to 1,024 bins, else the block
+  const int nb = g.n[0] * g.n[1] * g.n[2];
+  if (nb <= 32 * 32) {
+    if (warp == 0) {
+      const int per = (nb + 31) / 32;
+      const int h0 = min(nb, lane * per), h1 = min(nb, h0 + per);
+      int mine = 0;
+      for (int h = h0; h < h1; ++h) mine += bins[h + 1];
+      int incl = mine;
+      for (int off = 1; off < 32; off *= 2) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += v;
+      }
+      int at = incl - mine;
+      for (int h = h0; h < h1; ++h) {
+        at += bins[h + 1];
+        bins[h + 1] = at;
+      }
+    }
+  } else {
+    const int per = (nb + blockDim.x - 1) / blockDim.x;
+    const int h0 = min(nb, tid * per), h1 = min(nb, h0 + per);
+    int mine = 0;
+    for (int h = h0; h < h1; ++h) mine += bins[h + 1];
+    int incl = mine;
+    for (int off = 1; off < 32; off *= 2) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += v;
+    }
+    if (lane == 31) wsum[warp] = incl;
+    __syncthreads();
+    if (warp == 0) {
+      const int v = lane < nw ? wsum[lane] : 0;
+      int w = v;
+      for (int off = 1; off < 32; off *= 2) {
+        const int u = __shfl_up_sync(0xffffffffu, w, off);
+        if (lane >= off) w += u;
+      }
+      if (lane < nw) wsum[lane] = w - v;
+    }
+    __syncthreads();
+    int at = wsum[warp] + incl - mine;
+    for (int h = h0; h < h1; ++h) {
+      at += bins[h + 1];
+      bins[h + 1] = at;
+    }
+  }
+  __syncthreads();
+
+  // place each atom
+  if (kRegs) {
+#pragma unroll
+    for (int r = 0; r < BIN_ROUNDS; ++r) {
+      if (rbin[r] >= 0) {
+        const int o = bins[rbin[r]] + rat[r];
+        const int j = r * blockDim.x + warp * 32 + lane;
+        sorted[2 * o] = make_double2(rx[r], ry[r]);
+        sorted[2 * o + 1] = make_double2(
+            rz[r], __longlong_as_double(static_cast<long long>(j)));
+      }
+    }
+  } else {
+    for (int h = tid; h < nb; h += blockDim.x) cursor[h] = bins[h];
+    __syncthreads();
+    for (int j0 = warp * 32; j0 < na; j0 += blockDim.x) {
+      const int j = j0 + lane;
+      int bin = -1;
+      double x = 0.0, y = 0.0, z = 0.0;
+      if (j < na) {
+        x = ph[j * 3];
+        y = ph[j * 3 + 1];
+        z = ph[j * 3 + 2];
+        bin = atom_bin(g, x, y, z);
+      }
+      const unsigned peers = __match_any_sync(0xffffffffu, bin);
+      const int leader = __ffs(peers) - 1;
+      int base = 0;
+      if (bin >= 0 && lane == leader) base = atomicAdd(&cursor[bin],
+                                                       __popc(peers));
+      base = __shfl_sync(0xffffffffu, base, leader);
+      if (bin >= 0) {
+        const int o = base + __popc(peers & lanes_below(lane));
+        sorted[2 * o] = make_double2(x, y);
+        sorted[2 * o + 1] = make_double2(
+            z, __longlong_as_double(static_cast<long long>(j)));
+      }
+    }
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ bool key_less(double da, int fa, double db,
+                                         int fb) {
+  return da < db || (da == db && fa < fb);
+}
+
+// The rank of each of the buffer's n pairs in (d2, f) order, for lane's
+// pairs u = lane, lane + 32, ...; calls out(rank, d2, f).
+template <typename Out>
+__device__ __forceinline__ void rank_pairs(const double* bd, const int* bf,
+                                           int n, int lane, Out out) {
+  for (int u = lane; u < n; u += 32) {
+    const double du = bd[u];
+    const int fu = bf[u];
     int rank = 0;
-    for (int v = 0; v < m; ++v) {
-      const int g = list[v];
-      const double kg = key[g];
-      rank += (kg < kf) || (kg == kf && g < f);
+#pragma unroll 4
+    for (int v = 0; v < n; ++v) rank += key_less(bd[v], bf[v], du, fu);
+    out(rank, du, fu);
+  }
+}
+
+// The state of a warp's buffer: its pairs, and the bound (tau_d, tau_f)
+// below which a pair is kept (no bound until the first pruning).
+struct Kept {
+  int n;
+  double tau_d;
+  int tau_f;
+};
+
+// Prune the buffer to its K smallest pairs, in place; tau becomes the K-th
+// smallest, the largest pair kept.  Out of line (it runs only when the
+// buffer overflows), and by value, so that the caller's state stays in
+// registers.
+__device__ __noinline__ Kept prune(double* bd, int* bf, int n, int K,
+                                   int lane) {
+  __syncwarp();
+  double td = CUDART_INF;
+  int tf = 0x7fffffff;
+  bool found = false;
+  rank_pairs(bd, bf, n, lane, [&](int rank, double d, int f) {
+    if (rank == K - 1) {
+      td = d;
+      tf = f;
+      found = true;
     }
-    if (rank >= K) continue;
-    const int s = f / A;
-    const int j = f % A;
-    const long long o = out0 + rank;
-    for (int x = 0; x < 3; ++x) {
-      double s1, e1, s2, e2;
-      two_sum(sh[s * 3 + x], ph[j * 3 + x], s1, e1);
-      two_sum(s1, -ph[i * 3 + x], s2, e2);
-      const double lo = __dsub_rn(__dadd_rn(sl[s * 3 + x], pl[j * 3 + x]),
-                                  pl[i * 3 + x]);
-      disp[o * 3 + x] = __dadd_rn(s2, __dadd_rn(__dadd_rn(e1, e2), lo));
+  });
+  __syncwarp();
+  const int src = __ffs(__ballot_sync(0xffffffffu, found)) - 1;
+  const double tau_d = __shfl_sync(0xffffffffu, td, src);
+  const int tau_f = __shfl_sync(0xffffffffu, tf, src);
+  // stable compaction: a pair moves to a place at or below its own, and
+  // every lane reads its pair before any lane writes
+  int w = 0;
+  for (int base = 0; base < n; base += 32) {
+    const int u = base + lane;
+    double d = 0.0;
+    int f = 0;
+    if (u < n) {
+      d = bd[u];
+      f = bf[u];
     }
-    jidx[o] = j;
-    mask[o] = 1;
+    const bool keep = u < n && !key_less(tau_d, tau_f, d, f);
+    const unsigned bal = __ballot_sync(0xffffffffu, keep);
+    __syncwarp();
+    if (keep) {
+      const int o = w + __popc(bal & lanes_below(lane));
+      bd[o] = d;
+      bf[o] = f;
+    }
+    w += __popc(bal);
+    __syncwarp();
+  }
+  return {w, tau_d, tau_f};
+}
+
+// The last lane L whose (non-decreasing across lanes) value v_L <= x, for
+// x >= v_0: a binary search with shuffles, each lane its own x.
+__device__ __forceinline__ int last_lane_le(int v, int x) {
+  int L = 0;
+#pragma unroll
+  for (int step = 16; step > 0; step >>= 1) {
+    if (__shfl_sync(0xffffffffu, v, L + step) <= x) L += step;
+  }
+  return L;
+}
+
+// One warp's atom i of config c: its K slots (out0 = its first), from the
+// config's grid, bin ranges and sorted atoms, through a buffer of BUF
+// (d2, f) pairs (bd, bf) and a bitmap of the valid indices below K + m
+// (bits, (2 K + 31) / 32 words).
+__device__ void select_atom(const double* __restrict__ ph,
+                            const double* __restrict__ pl,
+                            const double* __restrict__ sh,
+                            const double* __restrict__ sl,
+                            const double* svs, const unsigned char* homes,
+                            int na, int i,
+                            int A, int S, int K, double cut2, const Grid& g,
+                            const int* start, const double2* sorted,
+                            double* bd, int* bf, int BUF, unsigned* bits,
+                            long long out0, double* __restrict__ disp,
+                            int* __restrict__ jidx,
+                            unsigned char* __restrict__ mask) {
+  const int lane = threadIdx.x & 31;
+  int m = 0;                                 // valid candidates
+  int n = 0;                                 // pairs in the buffer
+  if (i < na) {
+    const double xi = ph[i * 3], yi = ph[i * 3 + 1], zi = ph[i * 3 + 2];
+    const int nx = g.n[0], ny = g.n[1];
+    double tau_d = CUDART_INF;               // keep pairs below (tau_d, tau_f)
+    int tau_f = 0x7fffffff;
+    for (int s0 = 0; s0 < S; s0 += 32) {
+      // lane's shift s: the bins within one of the query point xi - svec_s
+      // (a candidate pos_j + svec_s near xi has pos_j near it), yn zn rows
+      // of xn bins, each row a contiguous range of the sorted atoms
+      const int s = s0 + lane;
+      int x0 = 0, xn = 0, y0 = 0, yn = 0, z0 = 0, zn = 0, home = 0;
+      if (s < S) {
+        const double vx = svs[s * 3], vy = svs[s * 3 + 1],
+                     vz = svs[s * 3 + 2];
+        near_bins(g, 0, __dsub_rn(xi, vx), x0, xn);
+        near_bins(g, 1, __dsub_rn(yi, vy), y0, yn);
+        near_bins(g, 2, __dsub_rn(zi, vz), z0, zn);
+        home = homes ? homes[s]
+                     : vx == 0.0 && vy == 0.0 && vz == 0.0 &&
+                           sl[s * 3] == 0.0 && sl[s * 3 + 1] == 0.0 &&
+                           sl[s * 3 + 2] == 0.0;
+      }
+      const int rows = xn > 0 && yn > 0 && zn > 0 ? yn * zn : 0;
+      int rincl = rows;
+      for (int off = 1; off < 32; off *= 2) {
+        const int v = __shfl_up_sync(0xffffffffu, rincl, off);
+        if (lane >= off) rincl += v;
+      }
+      const int rbase = rincl - rows;
+      const int nitems = __shfl_sync(0xffffffffu, rincl, 31);
+      for (int g0 = 0; g0 < nitems; g0 += 32) {
+        // lane's item: row r of shift lane L
+        const int u = g0 + lane;
+        const int L = last_lane_le(rbase, u);
+        const int r = u - __shfl_sync(0xffffffffu, rbase, L);
+        const int ix0 = __shfl_sync(0xffffffffu, x0, L);
+        const int ixn = __shfl_sync(0xffffffffu, xn, L);
+        const int iy0 = __shfl_sync(0xffffffffu, y0, L);
+        const int iyn = __shfl_sync(0xffffffffu, yn, L);
+        const int iz0 = __shfl_sync(0xffffffffu, z0, L);
+        const int ihome = __shfl_sync(0xffffffffu, home, L);
+        // the item's shift and home flag (shift 0 past the items, so that
+        // the branch-free candidate loads below stay in bounds)
+        const int itag = u < nitems ? (s0 + L) * 2 + ihome : 0;
+        int ilo = 0, ilen = 0;
+        if (u < nitems) {
+          const int b0 = ((iz0 + r / iyn) * ny + iy0 + r % iyn) * nx + ix0;
+          ilo = start[b0];
+          ilen = start[b0 + ixn] - ilo;
+        }
+        int cincl = ilen;
+        for (int off = 1; off < 32; off *= 2) {
+          const int v = __shfl_up_sync(0xffffffffu, cincl, off);
+          if (lane >= off) cincl += v;
+        }
+        const int cbase = cincl - ilen;
+        const int cshift = ilo - cbase;      // sorted index - candidate index
+        const int ncand = __shfl_sync(0xffffffffu, cincl, 31);
+        for (int c0 = 0; c0 < ncand; c0 += 32 * SEL_STEP) {
+          // every candidate of the step first, without branches (a lane
+          // past the list reads a valid atom and is not ok), so that the
+          // steps' loads and d2 overlap; then the appends
+          // each stage for every q before the next (a warp issues in order,
+          // so the independent shuffles and loads of the q's overlap)
+          int I[SEL_STEP], at[SEL_STEP], tag[SEL_STEP];
+#pragma unroll
+          for (int q = 0; q < SEL_STEP; ++q) I[q] = 0;
+#pragma unroll
+          for (int step = 16; step > 0; step >>= 1) {
+#pragma unroll
+            for (int q = 0; q < SEL_STEP; ++q) {
+              const int e = c0 + q * 32 + lane;
+              if (__shfl_sync(0xffffffffu, cbase, I[q] + step) <= e)
+                I[q] += step;
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < SEL_STEP; ++q) {
+            at[q] = min(__shfl_sync(0xffffffffu, cshift, I[q]) + c0 + q * 32 +
+                            lane,
+                        na - 1);
+            tag[q] = __shfl_sync(0xffffffffu, itag, I[q]);
+          }
+          double2 pa[SEL_STEP], pb[SEL_STEP];
+          double vx[SEL_STEP], vy[SEL_STEP], vz[SEL_STEP];
+#pragma unroll
+          for (int q = 0; q < SEL_STEP; ++q) {
+            pa[q] = sorted[2 * at[q]];
+            pb[q] = sorted[2 * at[q] + 1];
+            const int sq = tag[q] >> 1;
+            vx[q] = svs[sq * 3];
+            vy[q] = svs[sq * 3 + 1];
+            vz[q] = svs[sq * 3 + 2];
+          }
+          double d2[SEL_STEP];
+          int f[SEL_STEP];
+          bool ok[SEL_STEP];
+#pragma unroll
+          for (int q = 0; q < SEL_STEP; ++q) {
+            // d2 of pos_j + svec_s - pos_i, rounded as the plain version
+            const double dx = __dsub_rn(__dadd_rn(pa[q].x, vx[q]), xi);
+            const double dy = __dsub_rn(__dadd_rn(pa[q].y, vy[q]), yi);
+            const double dz = __dsub_rn(__dadd_rn(pb[q].x, vz[q]), zi);
+            d2[q] = __dadd_rn(__dadd_rn(__dmul_rn(dx, dx), __dmul_rn(dy, dy)),
+                              __dmul_rn(dz, dz));
+            const int j = static_cast<int>(__double_as_longlong(pb[q].y));
+            f[q] = (tag[q] >> 1) * A + j;
+            ok[q] = c0 + q * 32 + lane < ncand && d2[q] < cut2 &&
+                    !((tag[q] & 1) && j == i);
+            m += ok[q];
+          }
+          // the step's appends at once where the buffer holds them all,
+          // else one ballot at a time with pruning
+          unsigned kb[SEL_STEP];
+          int total = 0;
+#pragma unroll
+          for (int q = 0; q < SEL_STEP; ++q) {
+            kb[q] = __ballot_sync(
+                0xffffffffu, ok[q] && key_less(d2[q], f[q], tau_d, tau_f));
+            total += __popc(kb[q]);
+          }
+          if (n + total <= BUF) {
+#pragma unroll
+            for (int q = 0; q < SEL_STEP; ++q) {
+              if ((kb[q] >> lane) & 1u) {
+                const int o = n + __popc(kb[q] & lanes_below(lane));
+                bd[o] = d2[q];
+                bf[o] = f[q];
+              }
+              n += __popc(kb[q]);
+            }
+          } else {
+            for (int q = 0; q < SEL_STEP; ++q) {
+              bool keep = ok[q] && key_less(d2[q], f[q], tau_d, tau_f);
+              unsigned k1 = __ballot_sync(0xffffffffu, keep);
+              if (n + __popc(k1) > BUF) {
+                const Kept kp = prune(bd, bf, n, K, lane);
+                n = kp.n;
+                tau_d = kp.tau_d;
+                tau_f = kp.tau_f;
+                keep = ok[q] && key_less(d2[q], f[q], tau_d, tau_f);
+                k1 = __ballot_sync(0xffffffffu, keep);
+              }
+              if (keep) {
+                const int o = n + __popc(k1 & lanes_below(lane));
+                bd[o] = d2[q];
+                bf[o] = f[q];
+              }
+              n += __popc(k1);
+            }
+          }
+        }
+      }
+    }
+    // the valid candidates: each lane counted its own
+    for (int off = 16; off > 0; off /= 2)
+      m += __shfl_xor_sync(0xffffffffu, m, off);
+    __syncwarp();
+    // valid slots: a pair's slot is its rank in (d2, f) order
+    rank_pairs(bd, bf, n, lane, [&](int rank, double, int f) {
+      if (rank >= K) return;
+      const int s = f / A;
+      const int j = f - s * A;
+      const long long o = out0 + rank;
+      for (int x = 0; x < 3; ++x) {
+        double s1, e1, s2, e2;
+        two_sum(sh[s * 3 + x], ph[j * 3 + x], s1, e1);
+        two_sum(s1, -ph[i * 3 + x], s2, e2);
+        const double lo = __dsub_rn(__dadd_rn(sl[s * 3 + x], pl[j * 3 + x]),
+                                    pl[i * 3 + x]);
+        disp[o * 3 + x] = __dadd_rn(s2, __dadd_rn(__dadd_rn(e1, e2), lo));
+      }
+      jidx[o] = j;
+      mask[o] = 1;
+    });
   }
 
-  // slots m..K-1: the first K - m invalid candidates by index; they all lie
-  // below K + m, since at most m candidates there are valid
+  // slots m..K-1: the first K - m invalid candidates by index, all below
+  // K + m (at most m candidates there are valid).  With m < K the buffer
+  // was never pruned and holds every valid pair: a bitmap of their indices
+  // below the limit marks the valid ones.  A padded atom has none.
   if (m < K) {
-    const int lim = min(n, K + m);
-    for (int f = tid; f < lim; f += NB_THREADS) {
-      if (key[f] != CUDART_INF) continue;
-      int r = 0;
-      for (int g = 0; g < f; ++g) r += key[g] == CUDART_INF;
-      if (m + r >= K) continue;
-      const long long o = out0 + m + r;
-      disp[o * 3] = 1.0;
-      disp[o * 3 + 1] = 0.0;
-      disp[o * 3 + 2] = 0.0;
-      jidx[o] = f % A;
-      mask[o] = 0;
+    const long long sa = static_cast<long long>(S) * A;
+    const long long km = static_cast<long long>(K) + m;
+    const int lim = static_cast<int>(sa < km ? sa : km);
+    const int words = (lim + 31) / 32;
+    __syncwarp();
+    for (int w = lane; w < words; w += 32) bits[w] = 0u;
+    __syncwarp();
+    for (int u = lane; u < n; u += 32) {
+      const int f = bf[u];
+      if (f < lim) atomicOr(&bits[f >> 5], 1u << (f & 31));
+    }
+    __syncwarp();
+    // invalid candidates before each word (lane w holds word w's; words
+    // <= 32 in the shared bitmap, more in global scratch, a word at a time)
+    int r0 = 0;                              // invalid candidates so far
+    for (int w0 = 0; w0 < words && m + r0 < K; w0 += 32) {
+      const int wl = w0 + lane;
+      const unsigned valid_w = wl < words ? bits[wl] : ~0u;
+      const int span = lim - wl * 32;        // candidates of word wl
+      const unsigned in_w = span >= 32 ? ~0u : span > 0 ? (1u << span) - 1u
+                                                        : 0u;
+      const int inv_w = __popc(~valid_w & in_w);
+      int incl = inv_w;
+      for (int off = 1; off < 32; off *= 2) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += v;
+      }
+      const int before_w = r0 + incl - inv_w;
+      const int wn = min(32, words - w0);
+      for (int w = 0; w < wn; ++w) {
+        const unsigned bad_bits = __shfl_sync(0xffffffffu, ~valid_w & in_w, w);
+        const int r = __shfl_sync(0xffffffffu, before_w, w) +
+                      __popc(bad_bits & lanes_below(lane));
+        if (((bad_bits >> lane) & 1u) && m + r < K) {
+          const long long o = out0 + m + r;
+          const int f = (w0 + w) * 32 + lane;
+          disp[o * 3] = 1.0;
+          disp[o * 3 + 1] = 0.0;
+          disp[o * 3 + 2] = 0.0;
+          jidx[o] = f % A;
+          mask[o] = 0;
+        }
+      }
+      r0 += __shfl_sync(0xffffffffu, incl, 31);
     }
   }
+}
+
+// The atoms' arrays of config c.
+struct ConfigPtrs {
+  const double *ph, *pl, *sh, *sl;
+};
+
+__device__ __forceinline__ ConfigPtrs config_ptrs(
+    const double* pos_hi, const double* pos_lo, const double* svec_hi,
+    const double* svec_lo, long long c, int A, int S) {
+  return {pos_hi + c * A * 3, pos_lo + c * A * 3, svec_hi + c * S * 3,
+          svec_lo + c * S * 3};
+}
+
+// The bitmap words a warp keeps in shared memory for K slots ((2 K + 31)
+// / 32, rounded up to 16 bytes so that what follows stays aligned).
+__host__ __device__ __forceinline__ int local_words(int K) {
+  return ((2 * K + 31) / 32 + 3) / 4 * 4;
+}
+
+// The warp's pair buffer and bitmap: shared memory (gbuf_d null; `smem`
+// holds the warps' d2, then their f, then their bitmaps), else atom ci's in
+// global scratch.
+struct Buffers {
+  double* bd;
+  int* bf;
+  unsigned* bits;
+};
+
+__device__ __forceinline__ Buffers buffers(double* smem, double* gbuf_d,
+                                           int* gbuf_f, unsigned* gbits,
+                                           int BUF, int K, long long ci) {
+  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  if (gbuf_d == nullptr) {
+    int* f = reinterpret_cast<int*>(smem + nw * BUF);
+    return {smem + warp * BUF, f + warp * BUF,
+            reinterpret_cast<unsigned*>(f + nw * BUF) +
+                warp * local_words(K)};
+  }
+  return {gbuf_d + ci * BUF, gbuf_f + ci * BUF,
+          gbits + ci * ((2 * K + 31) / 32)};
+}
+
+// The dynamic shared bytes of nw warps' pair buffers and bitmaps (0 where
+// they are in global scratch); a multiple of 16 (BUF % 4 == 0).
+__host__ __device__ __forceinline__ size_t local_bytes(bool local, int nw,
+                                                       int BUF, int K) {
+  return local ? static_cast<size_t>(nw) * (BUF * 12 + local_words(K) * 4)
+               : 0;
+}
+
+// The fused shape: block (config c, one atom a warp) bins c's home atoms
+// into shared memory, then its warps select one atom each.  Dynamic shared
+// memory: the pair buffers and bitmaps (`local_bytes`; none when gbuf_d
+// holds them), the sorted atoms (A x 32 bytes), the bin ranges (H + 1), the
+// shifts' hi parts and home flags (S x 25 bytes).
+__global__ void __launch_bounds__(SEL_MAX_WARPS * 32)
+neighbors_fused_kernel(const double* __restrict__ pos_hi,
+                       const double* __restrict__ pos_lo,
+                       const double* __restrict__ svec_hi,
+                       const double* __restrict__ svec_lo,
+                       const int* __restrict__ natoms, int A, int S, int K,
+                       int H, double cut2, double side, double inv_side,
+                       double* __restrict__ gbuf_d,
+                       int* __restrict__ gbuf_f, unsigned* __restrict__ gbits,
+                       int BUF, double* __restrict__ disp,
+                       int* __restrict__ jidx,
+                       unsigned char* __restrict__ mask) {
+  extern __shared__ double smem[];
+  __shared__ double red[6 * 32];
+  __shared__ int wsum[33];
+  __shared__ Grid g;
+  const int nw = blockDim.x >> 5;
+  const int per_cfg = (A + nw - 1) / nw;
+  const long long c = blockIdx.x / per_cfg;
+  const int i = (blockIdx.x - c * per_cfg) * nw + (threadIdx.x >> 5);
+  const ConfigPtrs p = config_ptrs(pos_hi, pos_lo, svec_hi, svec_lo, c, A, S);
+  const int na = natoms[c];
+  double2* sorted = reinterpret_cast<double2*>(
+      smem + local_bytes(gbuf_d == nullptr, nw, BUF, K) / 8);
+  int* bins = reinterpret_cast<int*>(sorted + 2 * A);
+  // the shifts' hi parts and home flags
+  double* svs = reinterpret_cast<double*>(bins + H + 1 + (H + 1) % 2);
+  unsigned char* homes = reinterpret_cast<unsigned char*>(svs + 3 * S);
+  {
+    for (int s = threadIdx.x; s < S; s += blockDim.x) {
+      const double vx = p.sh[s * 3], vy = p.sh[s * 3 + 1],
+                   vz = p.sh[s * 3 + 2];
+      svs[s * 3] = vx;
+      svs[s * 3 + 1] = vy;
+      svs[s * 3 + 2] = vz;
+      homes[s] = vx == 0.0 && vy == 0.0 && vz == 0.0 && p.sl[s * 3] == 0.0 &&
+                 p.sl[s * 3 + 1] == 0.0 && p.sl[s * 3 + 2] == 0.0;
+    }
+  }
+  bin_atoms<true>(p.ph, p.pl, na, A, H, side, inv_side, g, bins, nullptr,
+                  red, wsum, sorted);
+  if (i >= A) return;                        // the whole warp
+  const long long ci = c * A + i;
+  const Buffers bu = buffers(smem, gbuf_d, gbuf_f, gbits, BUF, K, ci);
+  select_atom(p.ph, p.pl, p.sh, p.sl, svs, homes, na, i, A, S, K, cut2, g,
+              bins, sorted, bu.bd, bu.bf, BUF, bu.bits, ci * K, disp, jidx,
+              mask);
+}
+
+// The split shape (configs too large for the fused shape's shared memory):
+// the bin pass, one block per config, into global scratch (grids, bins
+// (C, H + 1), sorted (C, A, 32 bytes)), then the select pass, one warp per
+// atom.
+__global__ void __launch_bounds__(BIN_THREADS)
+neighbors_bin_kernel(const double* __restrict__ pos_hi,
+                     const double* __restrict__ pos_lo,
+                     const int* __restrict__ natoms, int A, int H,
+                     double side, double inv_side, Grid* __restrict__ grids,
+                     int* __restrict__ bins_all,
+                     double2* __restrict__ sorted_all) {
+  extern __shared__ int bins[];              // [H + 1], then cursor [H]
+  __shared__ double red[6 * 32];
+  __shared__ int wsum[33];
+  __shared__ Grid g;
+  const long long c = blockIdx.x;
+  bin_atoms<false>(pos_hi + c * A * 3, pos_lo + c * A * 3, natoms[c], A, H,
+                   side, inv_side, g, bins, bins + H + 1, red, wsum,
+                   sorted_all + c * A * 2);
+  int* out = bins_all + c * (H + 1);
+  for (int h = threadIdx.x; h <= H; h += blockDim.x) out[h] = bins[h];
+  if (threadIdx.x == 0) grids[c] = g;
+}
+
+__global__ void __launch_bounds__(SEL_MAX_WARPS * 32)
+neighbors_select_kernel(const double* __restrict__ pos_hi,
+                        const double* __restrict__ pos_lo,
+                        const double* __restrict__ svec_hi,
+                        const double* __restrict__ svec_lo,
+                        const int* __restrict__ natoms, long long atoms,
+                        int A, int S, int K, int H, double cut2,
+                        const Grid* __restrict__ grids,
+                        const int* __restrict__ bins_all,
+                        const double2* __restrict__ sorted_all,
+                        double* __restrict__ gbuf_d, int* __restrict__ gbuf_f,
+                        unsigned* __restrict__ gbits, int BUF,
+                        double* __restrict__ disp, int* __restrict__ jidx,
+                        unsigned char* __restrict__ mask) {
+  extern __shared__ double smem[];           // `local_bytes`
+  const long long ci = static_cast<long long>(blockIdx.x) *
+                           (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (ci >= atoms) return;                   // the whole warp
+  const long long c = ci / A;
+  const int i = static_cast<int>(ci - c * A);
+  const ConfigPtrs p = config_ptrs(pos_hi, pos_lo, svec_hi, svec_lo, c, A, S);
+  const Buffers bu = buffers(smem, gbuf_d, gbuf_f, gbits, BUF, K, ci);
+  const Grid g = grids[c];
+  select_atom(p.ph, p.pl, p.sh, p.sl, p.sh, nullptr, natoms[c], i, A, S, K,
+              cut2, g,
+              bins_all + c * (H + 1), sorted_all + c * A * 2, bu.bd, bu.bf,
+              BUF, bu.bits, ci * K, disp, jidx, mask);
 }
 
 constexpr int RV_THREADS = 256;
@@ -297,23 +1029,79 @@ int sm_count() {
 }  // namespace
 
 // pos_hi, pos_lo (C, A, 3) f64, svec_hi, svec_lo (C, S, 3) f64, natoms (C,)
-// i32.  Writes disp (C, A, K, 3) f64, jidx (C, A, K) i32, mask (C, A, K) u8.
+// i32.  The bins' side is `side` (above the cutoff; inv_side = 1 / side)
+// and a config has at most H of them; each atom's buffer holds `buf` (d2, f)
+// pairs, buf >= K + 32: in shared memory (buf % 4 == 0) where gbuf_d,
+// gbuf_f and gbits are null, else gbuf_d (C * A, buf) f64, gbuf_f
+// (C * A, buf) i32 and gbits (C * A, (2 K + 31) / 32) i32.  The split shape
+// runs where `grids` is given, with scratch grids (C, 48 bytes), bins
+// (C, H + 1) i32 and sorted (C, A, 32 bytes); else the fused shape.  The
+// caller (kernels/snap_kernels.py) chooses the shape and where the buffers
+// live; this refuses only what does not fit a block (shared memory, or the
+// fused kernel's atoms in registers).  Writes disp (C, A, K, 3) f64, jidx
+// (C, A, K) i32, mask (C, A, K) u8.
 extern "C" int device_neighbors(const double* pos_hi, const double* pos_lo,
                                 const double* svec_hi, const double* svec_lo,
                                 const int* natoms, int C, int A, int S, int K,
-                                double cutoff, double* disp, int* jidx,
-                                unsigned char* mask, void* stream) {
-  const size_t smem = (sizeof(double) + sizeof(int)) *
-                      static_cast<size_t>(S) * A;
-  const int err = fs_allow_smem(neighbors_kernel, smem);
-  if (err) return err;
-  const long long blocks = static_cast<long long>(C) * A;
-  if (blocks > 0) {
-    neighbors_kernel<<<static_cast<unsigned>(blocks), NB_THREADS, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-        pos_hi, pos_lo, svec_hi, svec_lo, natoms, A, S, K, cutoff * cutoff,
-        disp, jidx, mask);
+                                int H, double cutoff, double side,
+                                double inv_side, int buf, double* gbuf_d,
+                                int* gbuf_f, unsigned* gbits, void* grids,
+                                int* bins, double* sorted, double* disp,
+                                int* jidx, unsigned char* mask,
+                                void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long atoms = static_cast<long long>(C) * A;
+  if (atoms == 0 || K == 0) return 0;
+  const bool local = gbuf_d == nullptr;
+  if (static_cast<long long>(S) * A > 0x7fffffffLL || H < 64 ||
+      !(side > cutoff) || buf < K + 32 || local != (gbuf_f == nullptr) ||
+      local != (gbits == nullptr) ||
+      (local && buf % 4 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (grids == nullptr) {
+    const int nw = A <= 256 ? SEL_MAX_WARPS / 2 : SEL_MAX_WARPS;
+    // the fused kernel's atoms: at most BIN_ROUNDS a thread, in registers
+    if (A > BIN_ROUNDS * 32 * nw) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const size_t smem =
+        local_bytes(local, nw, buf, K) + static_cast<size_t>(A) * 32 +
+        static_cast<size_t>(H + 2) * 4 + static_cast<size_t>(S) * 25;
+    if (smem + 4096 > FS_SMEM_LIMIT) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    // the attribute bounds the dynamic bytes; room for the static ones
+    const int err = fs_allow_smem(neighbors_fused_kernel, smem + 4096);
+    if (err) return err;
+    const long long blocks = static_cast<long long>(C) * ((A + nw - 1) / nw);
+    neighbors_fused_kernel<<<static_cast<unsigned>(blocks), nw * 32, smem,
+                             st>>>(
+        pos_hi, pos_lo, svec_hi, svec_lo, natoms, A, S, K, H, cutoff * cutoff,
+        side, inv_side, gbuf_d, gbuf_f, gbits, buf, disp, jidx, mask);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t bin_smem = static_cast<size_t>(2 * H + 1) * sizeof(int);
+  int err = fs_allow_smem(neighbors_bin_kernel, bin_smem);
+  if (err) return err;
+  neighbors_bin_kernel<<<C, BIN_THREADS, bin_smem, st>>>(
+      pos_hi, pos_lo, natoms, A, H, side, inv_side,
+      static_cast<Grid*>(grids), bins, reinterpret_cast<double2*>(sorted));
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const size_t pairs = local_bytes(local, SEL_MAX_WARPS, buf, K);
+  if (pairs + 4096 > FS_SMEM_LIMIT) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  err = fs_allow_smem(neighbors_select_kernel, pairs + 4096);
+  if (err) return err;
+  const long long blocks = (atoms + SEL_MAX_WARPS - 1) / SEL_MAX_WARPS;
+  neighbors_select_kernel<<<static_cast<unsigned>(blocks),
+                            SEL_MAX_WARPS * 32, pairs, st>>>(
+      pos_hi, pos_lo, svec_hi, svec_lo, natoms, atoms, A, S, K, H,
+      cutoff * cutoff, static_cast<const Grid*>(grids), bins,
+      reinterpret_cast<const double2*>(sorted), gbuf_d, gbuf_f, gbits, buf,
+      disp, jidx, mask);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -24,13 +24,28 @@
 // everything else is a few percent of it.  The gather reads g once.
 //
 // Design: no atomics, every sum in a fixed order, so a run repeats bit for
-// bit.  K12 is two launches, as K8/K8r are: the contraction, one block per
-// atom (n, a) with a thread per (k, c) walking down w (G's (K, 3) rows for
-// one w are contiguous, so a warp reads consecutive doubles), into an
-// (N, A, K, 3) scratch; then the gather (nn_pair_gather).  K12T: one block
+// bit.  K12 is two launches, as K8/K8r are: the contraction into an
+// (N, A, K, 3) scratch, then the gather (nn_pair_gather).  K12T: one block
 // per atom; the differences gF[a] - gF[jidx] go to shared memory once, then
 // one warp per w runs down G's (K, 3) row and reduces with shuffles in a
 // fixed order.
+//
+// The contraction streams G, which is all its bytes: the card's HBM rate
+// needs tens of KB in flight on each SM.  One block of eight warps per atom
+// (n, a), whose G is one contiguous W x 3K slab; a block takes 3K in
+// chunks of 192 columns, and warp v the rows w = v, v + 8, ... of the
+// chunk, two rows a step: a lane issues all its loads of the step (two
+// rows x 192 / 32 columns, as 16-byte loads where 3K is even and G 16-byte
+// aligned, else 8-byte ones) and the two dE/dB values before its first
+// sum, so a block has 24 KB of G in flight, and the blocks of a minibatch
+// (512 at 4 x 128) are resident at once, four an SM (at most 64 registers
+// a thread): about 96 KB in flight on each SM.  Each warp sums its rows in
+// increasing w; the eight partial sums are added in warp order through
+// shared memory.  Plain loads were taken over TMA bulk copies into a ring
+// of stages (the Hopper shape for a streaming kernel) on an argument, not a
+// timing: they put as many bytes in flight with the same one pass over G,
+// and need no alignment of a slab (3K odd) nor a producer warp.  A TMA ring
+// has not been built or timed against this kernel.
 //
 // The gather: its bytes take 0.28 us at the NN minibatch, so its time is the
 // chain of dependent loads, which the design keeps to two round trips.  One
@@ -47,22 +62,86 @@
 
 namespace {
 
-constexpr int PAIR_THREADS = 128;
+constexpr int F_WARPS = 8;           // warps a block of the contraction
+constexpr int F_ROWS = 2;            // rows of G a warp loads a step
+constexpr int F_COLS = 192;          // columns a block takes a chunk
 constexpr int GATHER_WARPS = 4;      // atoms a block of the gather
 constexpr int T_THREADS = 256;
 constexpr int WARPS = T_THREADS / 32;
 
-__global__ void nn_fpair_kernel(const double* __restrict__ dedb,
-                                const double* __restrict__ G, int W, int K,
-                                double* __restrict__ fpair) {
-  const long long atom = blockIdx.x;         // n * A + a
-  const int row = 3 * K;
-  const double* g = G + atom * W * row;
+// A lane's loads of G: 16 bytes (two doubles) or 8.
+template <int V> struct Vec;
+template <> struct Vec<1> {
+  using T = double;
+  static __device__ __forceinline__ T zero() { return 0.0; }
+  static __device__ __forceinline__ void fma(T& acc, double d, T g) {
+    acc = __fma_rn(d, g, acc);
+  }
+  static __device__ __forceinline__ double at(T v, int) { return v; }
+};
+template <> struct Vec<2> {
+  using T = double2;
+  static __device__ __forceinline__ T zero() { return make_double2(0.0, 0.0); }
+  static __device__ __forceinline__ void fma(T& acc, double d, T g) {
+    acc.x = __fma_rn(d, g.x, acc.x);
+    acc.y = __fma_rn(d, g.y, acc.y);
+  }
+  static __device__ __forceinline__ double at(T v, int e) {
+    return e ? v.y : v.x;
+  }
+};
+
+// fpair[atom, j] = sum_w dedb[atom, w] G[atom, w, j], j < R = 3K: one block
+// per atom, V doubles a load (V = 2 needs R even and G 16-byte aligned).
+template <int V>
+__global__ void __launch_bounds__(F_WARPS * 32, 4)
+nn_fpair_kernel(const double* __restrict__ dedb, const double* __restrict__ G,
+                int W, int R, double* __restrict__ fpair) {
+  using T = typename Vec<V>::T;
+  constexpr int Q = F_COLS / (32 * V);       // loads a lane a row
+  __shared__ double part[F_WARPS][F_COLS];
+  const long long atom = blockIdx.x;
+  const double* g = G + atom * W * R;
   const double* d = dedb + atom * W;
-  for (int j = threadIdx.x; j < row; j += blockDim.x) {
-    double acc = 0.0;
-    for (int w = 0; w < W; ++w) acc += d[w] * g[static_cast<long long>(w) * row + j];
-    fpair[atom * row + j] = acc;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  for (int c0 = 0; c0 < R; c0 += F_COLS) {
+    T acc[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) acc[q] = Vec<V>::zero();
+    for (int w0 = warp; w0 < W; w0 += F_WARPS * F_ROWS) {
+      double dw[F_ROWS];
+      T x[F_ROWS][Q];
+#pragma unroll
+      for (int u = 0; u < F_ROWS; ++u) {
+        const int w = w0 + u * F_WARPS;
+        dw[u] = w < W ? d[w] : 0.0;
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          const int col = c0 + (q * 32 + lane) * V;
+          x[u][q] = w < W && col < R
+                        ? *reinterpret_cast<const T*>(
+                              g + static_cast<long long>(w) * R + col)
+                        : Vec<V>::zero();
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < F_ROWS; ++u)
+#pragma unroll
+        for (int q = 0; q < Q; ++q) Vec<V>::fma(acc[q], dw[u], x[u][q]);
+    }
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        part[warp][(q * 32 + lane) * V + e] = Vec<V>::at(acc[q], e);
+    __syncthreads();
+    for (int t = threadIdx.x; t < F_COLS && c0 + t < R; t += F_WARPS * 32) {
+      double sum = part[0][t];
+#pragma unroll
+      for (int v = 1; v < F_WARPS; ++v) sum += part[v][t];
+      fpair[atom * R + c0 + t] = sum;
+    }
+    __syncthreads();
   }
 }
 
@@ -142,9 +221,15 @@ extern "C" int nn_force(const double* dedb, const double* G, int N, int A,
                         int W, int K, double* fpair, void* stream) {
   const long long atoms = static_cast<long long>(N) * A;
   if (atoms > 0) {
-    nn_fpair_kernel<<<static_cast<unsigned>(atoms), PAIR_THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(dedb, G, W, K,
-                                                           fpair);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int R = 3 * K;
+    if (R % 2 == 0 && reinterpret_cast<size_t>(G) % 16 == 0) {
+      nn_fpair_kernel<2><<<static_cast<unsigned>(atoms), F_WARPS * 32, 0,
+                           st>>>(dedb, G, W, R, fpair);
+    } else {
+      nn_fpair_kernel<1><<<static_cast<unsigned>(atoms), F_WARPS * 32, 0,
+                           st>>>(dedb, G, W, R, fpair);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -46,7 +46,7 @@ kl.register("pair_scatter_rows", "pair_scatter",
 kl.register("zbl_pair_grad", "zbl_pair",
             [_P] * 5 + [_I] * 4 + [_D, _D] + [_P] * 4)
 kl.register("device_neighbors", "device_neighbors",
-            [_P] * 5 + [_I] * 4 + [_D] + [_P] * 4)
+            [_P] * 5 + [_I] * 5 + [_D] * 3 + [_I] + [_P] * 10)
 kl.register("reverse_table", "device_neighbors",
             [_P, _P] + [_I] * 4 + [_P] * 3)
 kl.register("normal_contrib", "normal_contrib",
@@ -783,10 +783,77 @@ def device_neighbors_plain(pos_hi, pos_lo, svec_hi, svec_lo, natoms, cutoff,
     return disp, j_sel.to(torch.int32), mask
 
 
+# K8 (csrc/device_neighbors.cu): the bin side over the cutoff (a margin
+# over it, so a neighbor lies within one bin of its atom); the pairs a
+# warp's buffer holds in shared memory (K above half of it keeps each
+# atom's buffer in global scratch); the most atom slots and image shifts of
+# its fused shape (a config's sorted atoms and shifts in each block's
+# shared memory; more run the split shape, a bin pass into global scratch,
+# then the select pass).  These choices are made here alone: the entry
+# point runs the shape and buffers it is given, and refuses only what does
+# not fit a block.
+K8_BIN_SIDE = 1.0 + 2.0 ** -20
+K8_BUF = 256
+K8_FUSED_ATOMS = 1024
+K8_FUSED_SHIFTS = 512
+
+
+def k8_bins(A):
+    """H, the most bins K8's grid of one config of A atom slots may have:
+    2 A + 64 (a bcc cell of 128 Ta atoms needs 27 bins of the cutoff's
+    side, one of 1,024 atoms 216), at least 64 (a grid the side can always
+    grow into) and at most 16,384.  A config that would need more bins gets
+    larger ones; only the shapes decide H, so the host never waits on the
+    card for it."""
+    return max(64, min(2 * A + 64, 16384))
+
+
+def k8_grid(pos_hi, natoms, cutoff, H):
+    """K8's bin grid of one config, op for op as its bin pass computes it:
+    (origin (3,), 1 / side, bins an axis (3,) int) over the home atoms
+    pos_hi[:natoms] (numpy, float64; each operation rounds as the kernel's
+    __dsub_rn / __dmul_rn / __ddiv_rn do)."""
+    p = np.asarray(pos_hi, np.float64)[:natoms]
+    lo, hi = p.min(0), p.max(0)
+
+    def bins(side):
+        inv = 1.0 / side
+        return inv, np.floor((hi - lo) * inv) + 1.0
+
+    side = cutoff * K8_BIN_SIDE
+    inv, n = bins(side)
+    if np.prod(n) > H:
+        m = 4
+        while (m + 1) ** 3 <= H:
+            m += 1
+        side = max(side, (hi - lo).max() / (m - 1.5))
+        inv, n = bins(side)
+    return lo, inv, n.astype(np.int64)
+
+
+def k8_bin_coords(points, grid):
+    """The bin coordinates (..., 3) float of points (..., 3) on a
+    `k8_grid`, as K8 computes them: floor((x - origin) * (1 / side))."""
+    origin, inv, _ = grid
+    return np.floor((np.asarray(points, np.float64) - origin) * inv)
+
+
+def k8_near_bins(points, grid):
+    """The bins K8 searches for query points (..., 3) (an atom's position
+    less an image shift): (lo, hi) coordinates (..., 3), one bin around
+    the point's, clipped to the grid; empty where lo > hi."""
+    b = k8_bin_coords(points, grid)
+    return np.maximum(b - 1, 0), np.minimum(b + 1, grid[2] - 1)
+
+
 def device_neighbors(pos_hi, pos_lo, svec_hi, svec_lo, natoms, cutoff,
                      k_pad):
     """K8 on the card; same arguments and outputs as the plain version
-    (natoms int32)."""
+    (natoms int32).  One launch for A <= K8_FUSED_ATOMS and S <=
+    K8_FUSED_SHIFTS, else two (the bin pass, then the select pass).  The
+    scratch comes from here: the split shape's grids, bin ranges and
+    sorted atoms, and for k_pad above K8_BUF / 2 each atom's buffer of
+    pairs and bitmap of valid indices."""
     C, A, S = _neighbor_args(pos_hi, svec_hi, k_pad)
     if _on_cpu(pos_hi, pos_lo, svec_hi, svec_lo, natoms):
         return device_neighbors_plain(pos_hi, pos_lo, svec_hi, svec_lo,
@@ -797,16 +864,36 @@ def device_neighbors(pos_hi, pos_lo, svec_hi, svec_lo, natoms, cutoff,
                            (svec_lo, "svec_lo", (C, S, 3))):
         _check(t, name, torch.float64, shape)
     _check(natoms, "natoms", torch.int32, (C,))
-    if 12 * S * A > _SMEM_LIMIT - 1024:
+    if S * A > 2 ** 31 - 1:
         raise ValueError(f"device_neighbors: {S} x {A} candidates exceed "
-                         f"one block's shared memory")
+                         f"the int32 flat index of a slot")
     dev = pos_hi.device
-    disp = torch.empty((C, A, k_pad, 3), dtype=torch.float64, device=dev)
-    jidx = torch.empty((C, A, k_pad), dtype=torch.int32, device=dev)
-    mask = torch.empty((C, A, k_pad), dtype=torch.bool, device=dev)
+    H = k8_bins(A)
+    side = float(cutoff) * K8_BIN_SIDE
+
+    def scratch(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    buf, gbuf_d, gbuf_f, gbits = K8_BUF, None, None, None
+    if k_pad > K8_BUF // 2:
+        buf = -(-(2 * k_pad + 128) // 32) * 32
+        gbuf_d = scratch((C * A, buf), torch.float64)
+        gbuf_f = scratch((C * A, buf), torch.int32)
+        gbits = scratch((C * A, (2 * k_pad + 31) // 32), torch.int32)
+    grids = bins = srt = None
+    if A > K8_FUSED_ATOMS or S > K8_FUSED_SHIFTS:
+        grids = scratch((C, 6), torch.float64)
+        bins = scratch((C, H + 1), torch.int32)
+        srt = scratch((C, A, 4), torch.float64)
+    disp = scratch((C, A, k_pad, 3), torch.float64)
+    jidx = scratch((C, A, k_pad), torch.int32)
+    mask = scratch((C, A, k_pad), torch.bool)
+    opt = [None if t is None else _ptr(t)
+           for t in (gbuf_d, gbuf_f, gbits, grids, bins, srt)]
     _launch("device_neighbors", dev, _ptr(pos_hi), _ptr(pos_lo),
-            _ptr(svec_hi), _ptr(svec_lo), _ptr(natoms), C, A, S, k_pad,
-            float(cutoff), _ptr(disp), _ptr(jidx), _ptr(mask))
+            _ptr(svec_hi), _ptr(svec_lo), _ptr(natoms), C, A, S, k_pad, H,
+            float(cutoff), side, 1.0 / side, buf, *opt, _ptr(disp),
+            _ptr(jidx), _ptr(mask))
     device_neighbors.launches += 1
     return disp, jidx, mask
 

@@ -13,7 +13,16 @@ bzeroflag and the inner switching function; blocks with masked pairs, a
 padded atom and an atom that is its own neighbor through a periodic image.
 K5, K7, K8 and K8r run on one batch of three configs built on the card by
 K8: a 2-atom cell whose atoms meet their own images, a 5-atom cell with a
-padded atom, and a padded config (natoms 0).  K8r also on seeded lists
+padded atom, and a padded config (natoms 0).  K8 also at its edges
+(`K8_CASES`: a triclinic cell, a 2-atom cell at S = 343, a perfect bcc
+supercell of ties, truncation, an empty config, padded atoms and rows, an
+atom that meets its own image, the sizes it refused before its bins (768
+atoms at S = 27, 160 at S = 125), its pruned buffer in shared memory and in
+global scratch, and six of them in its split shape): mask and jidx equal,
+disp within 1e-12, bit for bit from run to run.  K12 at its edges
+(`K12_CASES`: W = 30, 55 and 31 with 3K = 192, 120 and 123, K = 200, one
+atom, the (8, 64) bucket, G off a 16-byte boundary): 1e-11, one launch each
+of the contraction and the gather, bit for bit from run to run.  K8r also on seeded lists
 with destinations repeated within rows, a truncated table (rows past the
 width, entries dropped and counted), 37 atoms of 13 slots, 2 configs of
 600 atoms x 128 slots and one of 5,000 atoms x 8 slots, each twice, bit
@@ -556,6 +565,55 @@ def test_k12_k12t_match_plain(cuda):
     assert torch.equal(out_t, nk.nn_force_t(gF, G, jidx))
 
 
+# K12 at its edges: (N, A, W, K).  W = 30 and 55 with K = 64 and 40 (3K
+# even: 16-byte loads); W = 31 with K = 41 (3K and W x 3K odd: 8-byte
+# loads); K = 200 (3K = 600: four column chunks, the last one short); a
+# one-atom minibatch; the (8, 64) bucket of the NN sets (4 x 8 atoms);
+# "unaligned": G 8 bytes off a 16-byte boundary (8-byte loads with 3K
+# even).
+K12_CASES = {"w30_k64": (4, 16, 30, 64), "w55_k40": (2, 8, 55, 40),
+             "w31_k41": (2, 7, 31, 41), "k200": (2, 4, 30, 200),
+             "one_atom": (1, 1, 30, 64), "bucket_8x64": (4, 8, 30, 64),
+             "unaligned": (2, 6, 30, 64)}
+
+
+def k12_block(name, device):
+    """dE/dB (N, A, W), G (N, A, W, K, 3), jidx (N, A, K) and the reverse
+    table rev of seeded lists with masked slots; G is seeded on every slot
+    (the gather sums each atom's own slots, listed or not, and scatters the
+    listed ones), so a one-atom minibatch's forces do not cancel."""
+    N, A, W, K = K12_CASES[name]
+    rng = np.random.default_rng(30)
+    jidx = rng.integers(0, A, (N, A, K)).astype(np.int32)
+    mask = rng.uniform(size=(N, A, K)) < 0.8
+    G = rng.normal(size=(N, A, W, K, 3))
+    jt = torch.as_tensor(jidx, device=device)
+    rev, _ = sk.reverse_table_plain(jt, torch.as_tensor(mask, device=device))
+    Gt = torch.as_tensor(G, device=device)
+    if name == "unaligned":
+        flat = torch.empty(G.size + 1, dtype=torch.float64, device=device)
+        flat[1:] = Gt.reshape(-1)
+        Gt = flat[1:].view(G.shape)
+        assert Gt.is_contiguous() and Gt.data_ptr() % 16 == 8
+    return (torch.as_tensor(rng.normal(size=(N, A, W)), device=device), Gt,
+            jt, rev)
+
+
+@pytest.mark.parametrize("name", list(K12_CASES))
+def test_k12_shapes_match_plain(cuda, name):
+    """K12 (its contraction, then the gather) against its plain version,
+    one launch of each, bit for bit from run to run."""
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+
+    dEdB, G, jidx, rev = k12_block(name, cuda)
+    nk.reset_launches()
+    out = nk.nn_force(dEdB, G, jidx, rev)
+    torch.cuda.synchronize()
+    assert launched(nk) == {"nn_force": 1, "nn_pair_gather": 1}
+    assert rel_err([out], [nk.nn_force_plain(dEdB, G, jidx, rev)]) <= RTOL
+    assert torch.equal(out, nk.nn_force(dEdB, G, jidx, rev))
+
+
 def test_nn_force_gradient_matches_plain_autograd(cuda):
     """The gradient of a force loss with respect to MLP parameters, through
     NnForce (K12, backward K12T) and through autograd of the plain K12."""
@@ -913,6 +971,133 @@ def test_k8_k8r_match_plain(cuda):
     assert not mask[1, 4].any()           # the padded atom
     own = (jidx[0] == torch.arange(5, device=cuda)[:, None]) & mask[0]
     assert own[:2].any()                  # an atom meets its own image
+
+
+# K8 at its edges: (cells, cutoff, atom slots A, K rule).  Each cell is
+# (atoms, lattice); K is the largest neighbor count rounded up to 8, less 5
+# where truncated, or fixed.  triclinic: 6 atoms in a skewed cell;
+# two_atom_s343: bcc at 3.3 A with a 6.7 A cutoff (S = 343); bcc_ties: a
+# perfect 16-atom supercell (every shell a tie); truncation: the same
+# jittered, K = count - 5; empty: a config of no atom beside a real one;
+# padded: 8 atom slots for 6 and 2 atoms (padded atoms and neighbor rows);
+# self_image: one atom in a 3 A cube (its own images are its neighbors);
+# a768_s27 and a160_s125: the sizes the kernel refused before (12 S A
+# bytes over one block's shared memory), the second also the wide shape (K
+# above half the shared buffer: each atom's pairs in global scratch);
+# prune: 128 atoms at a 13.5 A cutoff, about 570 valid pairs an atom
+# against K = 64 (the shared buffer pruned); wide_prune: a160_s125 with
+# K = 300 (the global buffer pruned).  The 1,024-atom configs past the
+# cap run in chip_smoke.py; here A stays under K8_FUSED_ATOMS.
+K8_CASES = {
+    "triclinic": ("triclinic", 4.8, 6, "count"),
+    "two_atom_s343": ("bcc1", 6.7, 2, "count"),
+    "bcc_ties": ("bcc2", 4.8, 16, "count"),
+    "truncation": ("bcc2_jitter", 4.8, 16, "count - 5"),
+    "empty": ("empty", 4.8, 6, "count"),
+    "padded": ("padded", 4.8, 8, "count"),
+    "self_image": ("one", 4.8, 1, "count"),
+    "a768_s27": ("bcc_8x8x6", 4.8, 768, "count"),
+    "a160_s125": ("bcc_4x4x5", 17.0, 160, "count"),
+    "prune": ("bcc4_jitter", 13.5, 128, 64),
+    "wide_prune": ("bcc_4x4x5", 17.0, 160, 300),
+}
+# the same in the split shape (a bin pass into global scratch, then the
+# select pass), which the wrapper takes above K8_FUSED_ATOMS atom slots
+K8_CASES.update({f"{k}_split": K8_CASES[k] for k in
+                 ("triclinic", "empty", "padded", "a768_s27", "prune",
+                  "wide_prune")})
+
+
+def k8_case(name, device):
+    """K8_CASES[name]'s arguments of device_neighbors on `device`: seeded
+    positions with lo parts of 1e-17, the shift table of the largest
+    required shifts."""
+    from fitsnap_tpu_torch.tools import synthetic
+
+    kind, cut, A, krule = K8_CASES[name]
+    rng = np.random.default_rng(60)
+
+    def bcc(reps, jitter=0.0):
+        pos, rows = synthetic.supercell(synthetic.BCC, 3.3, reps)
+        return pos + jitter * rng.normal(size=pos.shape), rows.T
+
+    skew = np.array([[5.1, 0.4, 0.3], [0.0, 4.7, 0.8], [0.0, 0.0, 5.5]]).T
+    cells = {
+        "triclinic": lambda: [(rng.uniform(0, 1, (6, 3)) @ skew.T, skew)],
+        "bcc1": lambda: [bcc((1, 1, 1))],
+        "bcc2": lambda: [bcc((2, 2, 2))],
+        "bcc2_jitter": lambda: [bcc((2, 2, 2), 0.1)],
+        "empty": lambda: [(rng.uniform(0, 1, (6, 3)) @ skew.T, skew),
+                          (np.zeros((0, 3)), np.eye(3) * 5.0)],
+        "padded": lambda: [(rng.uniform(0, 1, (6, 3)) @ skew.T, skew),
+                           bcc((1, 1, 1), 0.05)],
+        "one": lambda: [(np.array([[0.3, 0.2, 0.1]]), np.eye(3) * 3.0)],
+        "bcc_8x8x6": lambda: [bcc((8, 8, 6), 0.05)],
+        "bcc_4x4x5": lambda: [bcc((4, 4, 5), 0.05)],
+        "bcc4_jitter": lambda: [bcc((4, 4, 4), 0.05)],
+    }[kind]()
+    nvec = np.max([required_shifts(c, cut) for _, c in cells], 0)
+    shifts = shift_table(nvec).astype(np.float64)
+    C, S = len(cells), len(shifts)
+    pos = np.zeros((C, A, 3))
+    pos_lo = np.zeros((C, A, 3))
+    svec = np.zeros((C, S, 3))
+    natoms = np.zeros(C, np.int32)
+    count = 0
+    for c, (p, cell) in enumerate(cells):
+        na = len(p)
+        pos[c, :na] = p
+        pos_lo[c, :na] = rng.normal(size=(na, 3)) * 1e-17
+        svec[c] = shifts @ cell.T
+        natoms[c] = na
+        if na:
+            count = max(count, count_neighbors(p, cell, na, cut))
+    K = -(-count // 8) * 8 if krule == "count" else \
+        count - 5 if krule == "count - 5" else krule
+    K = min(K, S * A)
+
+    def dev(x, dtype=torch.float64):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    return (dev(pos), dev(pos_lo), dev(svec), dev(np.zeros_like(svec)),
+            dev(natoms, torch.int32), cut, K)
+
+
+@pytest.mark.parametrize("name", list(K8_CASES))
+def test_k8_edges_match_plain(cuda, name, monkeypatch):
+    """K8 against its plain version: mask and jidx equal, disp within
+    1e-12, one wrapper call, bit for bit from run to run."""
+    if name.endswith("_split"):
+        monkeypatch.setattr(sk, "K8_FUSED_ATOMS", 0)
+        name = name.removesuffix("_split")
+    args = k8_case(name, cuda)
+    C, A = args[0].shape[:2]
+    S, K = args[2].shape[1], args[6]
+    if name in ("a768_s27", "a160_s125"):
+        assert 12 * S * A > 232448          # refused before
+    if name in ("a160_s125", "wide_prune"):
+        assert K > sk.K8_BUF // 2           # the wide shape
+    sk.reset_launches()
+    disp, jidx, mask = sk.device_neighbors(*args)
+    torch.cuda.synchronize()
+    assert sk.launches()["device_neighbors"] == 1
+    ref = sk.device_neighbors_plain(*args)
+    assert torch.equal(mask, ref[2]) and torch.equal(jidx, ref[1])
+    assert (disp - ref[0]).abs().max().item() <= 1e-12
+    again = sk.device_neighbors(*args)
+    assert all(torch.equal(x, y) for x, y in zip((disp, jidx, mask), again))
+    listed = mask.sum(-1)
+    if name == "truncation":
+        assert int(listed.max()) == K        # some atom lost neighbors
+    if name in ("prune", "wide_prune"):
+        assert bool((listed == K).all())
+    if name == "empty":
+        assert not mask[1].any()
+    if name == "padded":
+        assert not mask[1, 2:].any() and not mask[0, 6:].any()
+    if name == "self_image":
+        assert bool(mask[0, 0].any()) and bool((jidx[0, 0][mask[0, 0]] == 0)
+                                               .all())
 
 
 def k8r_lists(name):

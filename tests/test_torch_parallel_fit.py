@@ -243,6 +243,107 @@ def test_device_neighbors_ties_on_bcc():
         assert port == sorted(map(tuple, np.round(dh[a][mh[a]], 8)))
 
 
+def k8_cases():
+    """(name, pos, cell, natoms, k_pad, cutoff) of the K8 edges held to
+    JAX: "trunc_jitter", a jittered 16-atom bcc supercell with k_pad 5 below
+    its largest count (the nearest-first set); "trunc_ties", the perfect
+    one, k_pad cutting through a shell of ties (their order by index);
+    "two_atom_s343", a 2-atom bcc cell at a 6.7 A cutoff (343 image
+    shifts); "empty", a config of no atom (two padded rows)."""
+    rng = np.random.default_rng(8)
+    pos, rows = synthetic.supercell(synthetic.BCC, 3.3, (2, 2, 2))
+    cell = rows.T
+    jit = pos + 0.1 * rng.normal(size=pos.shape)
+    kj = neighbors.count_neighbors(jit, cell, len(pos), 4.8)
+    pos2, rows2 = synthetic.supercell(synthetic.BCC, 3.3, (1, 1, 1))
+    k2 = neighbors.count_neighbors(pos2, rows2.T, 2, 6.7)
+    return [("trunc_jitter", jit, cell, len(pos), kj - 5, 4.8),
+            ("trunc_ties", pos, cell, len(pos), 20, 4.8),
+            ("two_atom_s343", pos2, rows2.T, 2, k2 + 3, 6.7),
+            ("empty", np.zeros((2, 3)), np.eye(3) * 5.0, 0, 6, 4.8)]
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_device_neighbors_edges_match_jax(case):
+    """K8's plain version, its kernel's oracle, against JAX
+    `device_neighbors` where truncation, many image shifts or an empty
+    config decide the lists: mask and jidx equal (every slot), disp within
+    1e-12."""
+    name, pos, cell, na, k_pad, cut = k8_cases()[case]
+    (dp, jp, mp), (dr, jr, mr) = both_device_neighbors(pos, cell, na, k_pad,
+                                                       cut)
+    np.testing.assert_array_equal(mp, mr)
+    np.testing.assert_array_equal(jp, jr)
+    assert np.abs(dp - dr).max() <= 1e-12
+    S = len(fit.batch_shift_table([cell], cut))
+    if name.startswith("trunc"):
+        assert mp[:na].all()                 # every slot listed: truncated
+    if name == "trunc_ties":
+        d = np.linalg.norm(dp[mp], axis=-1)
+        assert np.isclose(d, d.max()).sum() > 1   # the cut runs in a shell
+    if name == "two_atom_s343":
+        assert S == 343
+    if name == "empty":
+        assert not mp.any()
+
+
+def test_k8_bins_bound():
+    """K8's bin bound H from the atom slots alone: 2 A + 64 within
+    [64, 16384]; its integer cube root is at least 4, so the grown side
+    fits any config in (m - 1)^3 <= H bins."""
+    assert [sk.k8_bins(a) for a in (0, 1, 128, 1024, 8160, 10 ** 6)] == \
+        [64, 66, 320, 2112, 16384, 16384]
+    for a in (0, 1, 7, 128, 10 ** 6):
+        H = sk.k8_bins(a)
+        m = round(H ** (1 / 3))
+        m -= (m ** 3 > H)
+        assert m >= 4 and (m - 1) ** 3 <= H
+
+
+def _cover_cases():
+    """(pos, cell, natoms, cutoff, H) of the cover check: the four random
+    triclinic cells, the K8 edge cells, and a sparse one (two atoms 45 A
+    apart in a 40 A box at H = 64, so the side grows)."""
+    out = [(p, c, na, CUTOFF, sk.k8_bins(len(p)))
+           for p, c, na, _ in triclinic_lists()]
+    out += [(p, c, na, cut, sk.k8_bins(len(p)))
+            for _, p, c, na, _, cut in k8_cases() if na]
+    out.append((np.array([[0.1, 0.1, 0.1], [20.0, 30.0, 35.0]]),
+                np.eye(3) * 40.0, 2, 4.8, 64))
+    return out
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_k8_bins_cover_every_neighbor(case):
+    """The cover property of K8's binned search: on the grid its bin pass
+    computes over the home atoms (`k8_grid`, op for op), every real atom
+    lies on the grid, the grid has at most H bins, and for every real atom
+    i and image shift s, every atom j with pos_j + svec_s within the cutoff
+    of pos_i (d2 as the kernel rounds it) lies in the bins the search
+    visits for the query point pos_i - svec_s (`k8_near_bins`)."""
+    pos, cell, na, cut, H = _cover_cases()[case]
+    grid = sk.k8_grid(pos, na, cut, H)
+    n = grid[2]
+    assert np.prod(n) <= H
+    # the sparse case's side grew past the cutoff's
+    assert (1.0 / grid[1] > cut * sk.K8_BIN_SIDE * (1 + 1e-9)) == (case == 7)
+    svec = np.asarray(fit.batch_shift_table([cell], cut), np.float64) \
+        @ cell.T
+    ab = sk.k8_bin_coords(pos[:na], grid)
+    assert (ab >= 0).all() and (ab <= n - 1).all()
+    found = 0
+    for i in range(na):
+        lo, hi = sk.k8_near_bins(pos[i] - svec, grid)       # (S, 3)
+        diff = (pos[None, :na, :] + svec[:, None, :]) - pos[i]
+        d2 = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]) \
+            + diff[..., 2] * diff[..., 2]                      # (S, na)
+        s_near, j_near = np.nonzero(d2 < cut * cut)
+        found += len(s_near)
+        assert (ab[j_near] >= lo[s_near]).all()
+        assert (ab[j_near] <= hi[s_near]).all()
+    assert found > 0 or case == 7
+
+
 @pytest.mark.parametrize("index", range(5))
 def test_reverse_table_matches_host(index):
     if index < 4:
