@@ -15,7 +15,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
 3. kernels: each of K1-K5, K7, K8 and K8r against its plain PyTorch
    version on the card at the main paths' Ta shapes (one chunk of 8
    compressed 128-atom bcc cells, 64 neighbor slots, twojmax 6, float64;
-   K4 also as the ZBL reference calls it, width 1 and one type block; K8
+   K5 the whole ZBL reference, `zbl_eav`, energy, forces and virial in one
+   launch, against the plain composition (the per-slot gradient, then K4's
+   plain scatter at width 1), twice bit for bit, its digest printed; K8
    and K8r on that chunk's positions batch), failing above 1e-11
    relative error (K8's mask and jidx and K8r's table must be equal); kernel,
    plain and library-call times with CUDA events, the kernel's device time
@@ -29,14 +31,15 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    candidate binned, the candidates of the 27 bins around each real atom);
    K8 also past the shared-memory cap it had before its binned search: 2
    jittered 8 x 8 x 8 bcc cells (1,024 atoms, S = 27; K8's mask and jidx
-   equal, disp within 1e-12; a package whose K8 refuses them has that
-   refusal recorded as its row); at both sizes K8's split launch shape (a
+   equal, disp within 1e-12); at both sizes K8's split launch shape (a
    bin pass, then the select pass; the wrapper takes it above
    `K8_FUSED_ATOMS` atom slots) forced, held to the plain version alike,
    with a row of its own and the two shapes timed in turn;
 4. FitSnap path: launch counts set to 0, then FitSnap(device="cuda") ->
    scrape_configs -> process_configs -> perform_fit -> write_output, the
-   counts read just after.  It fails unless K1-K5 launched, the A matrix
+   counts read just after.  It fails unless K1-K5 launched, K4 once a
+   chunk (as many launches as the reference's K5: the reference no longer
+   calls K4), the A matrix
    equals A_plain to 1e-10 relative (per column), and the fit recovers
    beta_true within 100 * cond(weighted A) * 2.2e-16;
 5. streamed path (fitsnap_tpu_torch.parallel.fit): launch counts set to 0,
@@ -58,7 +61,11 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    an inner cutoff on the In-P bond) on 8 seeded zincblende cells of 64
    atoms, and K7 in the ACE layout (two leading constant columns) on the
    latter's rows, and K8r on the latter's host lists, measured as in
-   phase 3;
+   phase 3; K13 also past its old limits on the Ta chunk (a plan of lmax
+   8: ranks 1-4, 171 A-slots; the Ta_PACE plan in the three other
+   convention pairs: radial pace_mx / v0_t1 / pace_x with Ylm std / racah
+   / 4pi), twice bit for bit with its digests printed, and K4 at the ACE
+   width (the Ta_PACE chunk's 68 label columns, one type block);
 8. ACE FitSnap and streamed paths, as phases 4 and 5 with
    `calculator = LAMMPSPACE`, PACE output and `kernel=ace_kernel(plan)`.
    The weighted design matrix is too ill-conditioned (cond about 1e16)
@@ -69,7 +76,7 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    column-equilibrated matrix, direct and refined), and each row type's
    largest error within 1e-6 of its largest truth.  K13, K14, K4 and K5
    must launch on the FitSnap path, and K7, K8 and K8r too on the
-   streamed one;
+   streamed one (K4 once a chunk, as in phase 4);
 9. quadratic SNAP data: the same configs with `synthetic.quadratic_settings`
    (twojmax 8, quadraticflag: 55 + 1,540 descriptor columns, 1,596
    coefficients), truths from the plain path; and InP-shaped chemflag data:
@@ -111,8 +118,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    `synthetic.nn_settings` (nonlinear 1, [PYTORCH] layer_sizes num_desc 64
    64 1, batch size 4, 10 epochs): launch counts set to 0, then
    FitSnap(device="cuda") -> scrape -> process -> perform_fit ->
-   write_output, the counts read just after; it fails unless K1-K5, K12
-   and K12T launched, the last epoch's train loss is below the first's and
+   write_output, the counts read just after; it fails unless K1-K3, K5,
+   K12 and K12T launched, K4 did not (its one caller there was the
+   reference), the last epoch's train loss is below the first's and
    the `.pt`, `.mliap.descriptor`, `.mod` and metrics files are written.
    Then K12 and K12T against their plain versions at the largest bucket
    with a minibatch of 4, K12 also at the smallest bucket with seeded dE/dB
@@ -133,8 +141,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    networks), on the same set with `nn_settings(..., dgrad_mode="cached")`
    and its 10 epochs: launch counts set to 0, then FitSnap(device="cuda")
    -> scrape -> process -> perform_fit -> write_output, the counts read
-   just after; it fails unless K4, K5, K8, K8r, K2, K9, K10, K10T, K11,
-   K11T and the force gather launched, K1, K3 and K12's contraction did not,
+   just after; it fails unless K5, K8, K8r, K2, K9, K10, K10T, K11,
+   K11T and the force gather launched, K1, K3, K4 and K12's contraction
+   did not,
    no bucket holds dB/dD, the last epoch's train loss is below the first's
    and the four files are written.  Then K9, K10, K10T, K11, K11T and the
    gather against their plain versions at the largest bucket with a
@@ -177,6 +186,12 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    the trained model's (the JAX package's 1e-7: standardization is folded
    into layer 1), and a profiler split of one epoch.
 
+Run on a package from before `zbl_eav` (to compare it with this one in
+one chip call, parent - tree - tree - parent), the script times that
+package's reference route (K5's `zbl_pair_grad`, then K4 at width 1:
+four kernels) as its `zbl_eav` row, records its refusal of K13's new
+rows, and holds its K4 count to K5's plus the rows' (once a chunk).
+
 Each NN phase's profiler split prints the port's kernels' launches in the
 profiled epoch beside their device ms (the cached epoch's K11T and gather
 among them).  Rows of kernels whose work is f64
@@ -190,6 +205,7 @@ the package is missing, it exits non-zero and prints no result.
 """
 
 import argparse
+import dataclasses
 import itertools
 import json
 import os
@@ -224,6 +240,9 @@ SOURCES = {
              "fitsnap_tpu/ops/snap.py:823"),
     "pair_scatter_rows": ("fitsnap_tpu_torch/kernels/csrc/pair_scatter.cu",
                           "fitsnap_tpu/calculators/snap.py:326"),
+    "zbl_eav": ("fitsnap_tpu_torch/kernels/csrc/zbl_pair.cu",
+                "fitsnap_tpu/ops/refpot.py:239"),
+    # the reference route of a package before `zbl_eav` (K5 then K4)
     "zbl_pair_grad": ("fitsnap_tpu_torch/kernels/csrc/zbl_pair.cu",
                       "fitsnap_tpu/ops/refpot.py:239"),
     "normal_contrib": ("fitsnap_tpu_torch/kernels/csrc/normal_contrib.cu",
@@ -268,19 +287,20 @@ SOURCES = {
                       "fitsnap_tpu/solvers/network.py:707"),
 }
 FITSNAP_KERNELS = ("pair_u_duals", "zlist", "dbdd", "pair_scatter_rows",
-                   "zbl_pair_grad")
+                   "zbl_eav")
 STREAM_KERNELS = ("normal_contrib", "device_neighbors", "reverse_table")
 ACE_KERNELS = ("ace_pair_basis", "ace_b_dbdd", "pair_scatter_rows",
-               "zbl_pair_grad")
+               "zbl_eav")
 QUAD_KERNELS = FITSNAP_KERNELS + ("quad_chain",)
 CHEM_KERNELS = ("pair_u_duals_chem", "zlist_chem", "dbdd_chem",
-                "pair_scatter_rows", "zbl_pair_grad")
-NN_KERNELS = FITSNAP_KERNELS + ("nn_force", "nn_force_t")
-NN_CACHED_KERNELS = ("pair_scatter_rows", "zbl_pair_grad", "device_neighbors",
-                     "reverse_table", "zlist", "nn_ut_b", "nn_dedu_vg",
-                     "nn_dedu_vg_t", "nn_pair_force", "nn_pair_force_t",
-                     "nn_pair_gather")
-# kernels the cached mode must not launch (K1, K3 and K12's contraction)
+                "pair_scatter_rows", "zbl_eav")
+NN_KERNELS = ("pair_u_duals", "zlist", "dbdd", "zbl_eav", "nn_force",
+              "nn_force_t")
+NN_CACHED_KERNELS = ("zbl_eav", "device_neighbors", "reverse_table", "zlist",
+                     "nn_ut_b", "nn_dedu_vg", "nn_dedu_vg_t", "nn_pair_force",
+                     "nn_pair_force_t", "nn_pair_gather")
+# kernels the cached mode must not launch (K1, K3 and K12's contraction;
+# K4 is checked by `check_launched`)
 NN_CACHED_ABSENT = ("pair_u_duals", "dbdd", "nn_force")
 CUSTOM_KERNELS = ("pair_desc", "pair_desc_vjp", "pair_desc_jvp",
                   "nn_pair_gather")
@@ -296,6 +316,17 @@ PATH_KERNELS = {"fitsnap": FITSNAP_KERNELS,
                 "nn_fitsnap": NN_KERNELS,
                 "nn_cached_fitsnap": NN_CACHED_KERNELS,
                 "custom_fitsnap": CUSTOM_KERNELS}
+# paths whose K4 launches are the rows', one a reference call
+ROWS_PATHS = ("fitsnap", "streamed", "ace_fitsnap", "ace_streamed",
+              "quadratic_fitsnap", "quadratic_streamed", "chem_fitsnap",
+              "chem_streamed")
+# the plan of K13's lmax-8 row (ranks 1-4, 171 A-slots), on the Ta chunk
+LMAX8_SHAPE = dict(numtypes=1, ranks=[1, 2, 3, 4], nmax=[8, 2, 2, 1],
+                   lmax=[0, 8, 3, 2], lmin=[0, 0, 0, 0], nmaxbase=8,
+                   rcutfac=[4.6], lmbda=[3.0], rcinner=[0.0],
+                   drcinner=[0.01], b_basis="minsub")
+# K13's three non-default convention pairs (radial, ylm), on Ta_PACE
+K13_CONVENTIONS = (("pace_mx", "std"), ("v0_t1", "racah"), ("pace_x", "4pi"))
 # FitSnap and streamed paths of each data set
 FITSNAP_PATH = {"snap": "fitsnap", "ace": "ace_fitsnap",
                 "quadratic": "quadratic_fitsnap", "inp": "chem_fitsnap"}
@@ -457,11 +488,33 @@ def launches():
                 **ck.launches())
 
 
+def zbl_kernel():
+    """The reference's kernel wrapper: `zbl_eav`, or `zbl_pair_grad` on a
+    package from before it (driven by this script in a parent - tree
+    comparison), whose reference calls K4 after it."""
+    from fitsnap_tpu_torch.kernels import snap_kernels as sk
+
+    return "zbl_eav" if hasattr(sk, "zbl_eav") else "zbl_pair_grad"
+
+
 def check_launched(counts, path):
-    missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
+    """Every kernel of the path launched, and K4 as often as the rows
+    need: once a reference call on a rows path, never on an NN path (on
+    a package from before `zbl_eav`, whose reference called K4, once more
+    a reference call)."""
+    zbl = zbl_kernel()
+    missing = [k for k in PATH_KERNELS[path]
+               if counts[zbl if k == "zbl_eav" else k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the {path} path: "
                              f"{missing}")
+    k4 = counts[zbl] * (path in ROWS_PATHS)
+    if zbl == "zbl_pair_grad":
+        k4 += counts[zbl]
+    if counts["pair_scatter_rows"] != k4:
+        raise AssertionError(f"K4 launched {counts['pair_scatter_rows']} "
+                             f"times on the {path} path, not {k4} (the "
+                             f"reference: {counts[zbl]})")
 
 
 def record(rows, name, out, ref, kernel, plain_ms, nbytes, flops,
@@ -760,7 +813,7 @@ def descriptor_checks(rows, p, k1_in, shape=None):
 def scatter_check(rows, args, smask, G, T, shape=None, types=None):
     """K4 against its plain version on one chunk's per-pair gradients G
     (N, X, K, 3), with index_add_ of the neighbor scatter as library
-    call; `types` replaces the chunk's (the ZBL call passes all zeros)."""
+    call; `types` replaces the chunk's (the ACE rows pass all zeros)."""
     import torch
     from fitsnap_tpu_torch.kernels import snap_kernels as sk
 
@@ -860,9 +913,7 @@ def seeded_truths(seed, C, A, device):
 def kernel_checks(calc, data):
     """K1-K5, K7, K8 and K8r vs plain on the first Compressed_BCC chunk
     (8 x 128 x 64)."""
-    import torch
     from fitsnap_tpu_torch.kernels import snap_kernels as sk
-    from fitsnap_tpu_torch.ops.refpot import zbl_table
     from fitsnap_tpu_torch.parallel import fit
 
     packed, args, k1_in, smask = snap_chunk(calc, data, "Compressed_BCC", 8)
@@ -878,22 +929,9 @@ def kernel_checks(calc, data):
     scatter_check(rows, args, smask, G, T)
     del B, G
 
-    # K5 on the chunk's host neighbor lists
-    table = zbl_table(calc.refspec.zbl, disp.device)
-    zc = calc.refspec.zbl
-    k5_args = (disp, jidx, mask, types, table, zc.cut_inner, zc.cut_outer)
-    out = sk.zbl_pair_grad(*k5_args)
-    ref = sk.zbl_pair_grad_plain(*k5_args)
+    # K5, the whole reference, on the chunk's host neighbor lists
+    zbl_check(rows, args, calc.refspec)
     nlisted = int(mask.sum().item())
-    record(rows, "zbl_pair_grad", out, ref,
-           (lambda: sk.zbl_pair_grad(*k5_args), 20),
-           timed(lambda: sk.zbl_pair_grad_plain(*k5_args), 5),
-           C * A * K * (24 + 4 + 1 + 24) + C * A * 4 + C * 8 + table.numel()
-           * 8, nlisted * 120, None)
-    # K4 as the ZBL reference calls it: width 1, one type block, every
-    # listed pair
-    g_zbl = ref[0].reshape(C * A, 1, K, 3)
-    scatter_check(rows, args, mask, g_zbl, 1, "ZBL", torch.zeros_like(types))
 
     # K8 and K8r on the chunk's positions batch
     s_table = fit.batch_shift_table([pc.cell for pc in packed], calc.cutoff)
@@ -919,6 +957,66 @@ def kernel_checks(calc, data):
     truths, weights = [x[0] for x in truths], [x[0] for x in weights]
     normal_check(rows, rows_in, truths, weights, nat32, types, T, True)
     return rows
+
+
+def zbl_check(rows, args, spec, shape=None):
+    """K5, the whole ZBL reference (`zbl_eav`: energy, forces and virial in
+    one launch), against its plain version (the per-slot gradient, then
+    K4's plain scatter at width 1) on one chunk's host lists: 1e-11, two
+    calls bit for bit, the digest printed.  Its bound: disp, jidx, mask,
+    rev and types read once, energy, forces and virial written once; its
+    operations each listed slot's energy and gradient (four exps) from
+    both sides.  On a package from before `zbl_eav` its route (K5's
+    `zbl_pair_grad`, then K4 at width 1) is timed as the row, its device
+    ms summed over its four kernels."""
+    import torch
+    from fitsnap_tpu_torch.kernels import snap_kernels as sk
+    from fitsnap_tpu_torch.ops.refpot import zbl_table
+
+    disp, jidx, mask, rev, types, _, _ = args
+    C, A, K = mask.shape
+    zc = spec.zbl
+    table = zbl_table(zc, disp.device)
+    k5_args = (disp, jidx, mask, rev, types, table, zc.cut_inner,
+               zc.cut_outer)
+    name = "zbl_eav" + (f"@{shape}" if shape else "")
+    if zbl_kernel() == "zbl_eav":
+        def call():
+            return sk.zbl_eav(*k5_args)
+
+        def plain():
+            return sk.zbl_eav_plain(*k5_args)
+    else:
+        zeros = torch.zeros_like(types)
+
+        def route(grad, scatter):
+            g, energy = grad(disp, jidx, mask, types, table, zc.cut_inner,
+                             zc.cut_outer)
+            force, virial = scatter(g[:, :, None], disp, mask, rev, zeros, 1)
+            return energy, force.reshape(C, A, 3), virial.reshape(C, 6)
+
+        def call():
+            return route(sk.zbl_pair_grad, sk.pair_scatter_rows)
+
+        def plain():
+            return route(sk.zbl_pair_grad_plain, sk.pair_scatter_rows_plain)
+    out, again, ref = call(), call(), plain()
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        raise AssertionError(f"{name}: two calls differ")
+    DIGESTS[name] = digest(out)
+    nlisted = int(mask.sum().item())
+    nbytes = (disp.numel() * 8 + (jidx.numel() + rev.numel()
+                                  + types.numel()) * 4 + mask.numel()
+              + table.numel() * 8 + (C + C * A * 3 + C * 6) * 8)
+    flops = 2 * nlisted * (4 * EXP_OPS + 40)
+    print(f"{name}: C={C} A={A} K={K} R={rev.shape[2]} listed={nlisted} "
+          f"types={table.shape[0]} route={zbl_kernel()}", flush=True)
+    record(rows, name, out, ref, (call, 20), timed(plain, 5), nbytes, flops,
+           None, wrapper=zbl_kernel(), shape=shape)
+    rows[-1]["route_kernels"] = 1 if zbl_kernel() == "zbl_eav" else 4
+    del out, again, ref
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 def k8_work(ph, sh, natoms, cutoff):
@@ -952,11 +1050,10 @@ def neighbors_check(rows, args, out, ref, shape=None, plain_reps=3):
     within 1e-12) and add its row: its bound by its bytes and the
     operations of a binned search (9 a binned candidate: the point and its
     bin coordinates; 9 an evaluated distance: 3 differences, 3 squares, 2
-    sums, the comparison).  Where K8 has two launch shapes (a package with
-    `K8_FUSED_ATOMS`), the split one (the bin pass, then the select pass)
-    is forced on the same inputs and gets a row of its own, and the two
-    are timed in turn, fused - split - split - fused, by device time (each
-    the sum of its kernels' device ms over 20 calls)."""
+    sums, the comparison).  K8's split launch shape (the bin pass, then
+    the select pass) is forced on the same inputs and gets a row of its
+    own, and the two are timed in turn, fused - split - split - fused, by
+    device time (each the sum of its kernels' device ms over 20 calls)."""
     import torch
     from fitsnap_tpu_torch.kernels import snap_kernels as sk
 
@@ -975,10 +1072,8 @@ def neighbors_check(rows, args, out, ref, shape=None, plain_reps=3):
         finally:
             sk.K8_FUSED_ATOMS = fused_atoms
 
-    fused_atoms = getattr(sk, "K8_FUSED_ATOMS", None)
-    shapes = [("fused", out, fused)]
-    if fused_atoms is not None:
-        shapes.append(("split", split(), split))
+    fused_atoms = sk.K8_FUSED_ATOMS
+    shapes = [("fused", out, fused), ("split", split(), split)]
     for tag, o, _ in shapes:
         if not (torch.equal(o[2], ref[2]) and torch.equal(o[1], ref[1])):
             raise AssertionError(f"{name} ({tag}): mask or jidx differs "
@@ -999,30 +1094,27 @@ def neighbors_check(rows, args, out, ref, shape=None, plain_reps=3):
                C * A * 3 * 8 * 2 + C * S * 3 * 8 * 2 + C * 4
                + C * A * K * (24 + 4 + 1), 9 * (nbinned + ndist), None,
                wrapper="device_neighbors", shape=shape)
-        if len(shapes) > 1:
-            rows[-1]["launch_shape"] = tag
+        rows[-1]["launch_shape"] = tag
         if tag == "split":
             rows[-1]["note"] = ("forced: the main path's calls at this size "
                                 "run the fused shape (the launches are the "
                                 "wrapper's)")
-    if len(shapes) > 1:
-        times = {"fused": [], "split": []}
-        for tag, fn in (("fused", fused), ("split", split),
-                        ("split", split), ("fused", fused)):
-            times[tag].append(device_time(fn, 20))
-        per_kernel = {k: v / 20 for k, v in profile_kernels(
-            lambda: [split() for _ in range(20)]).items()}
-        print(f"{name} launch shapes, device ms (fused - split - split - "
-              f"fused): fused {times['fused']} split {times['split']} "
-              f"(split by kernel: {per_kernel})", flush=True)
+    times = {"fused": [], "split": []}
+    for tag, fn in (("fused", fused), ("split", split), ("split", split),
+                    ("fused", fused)):
+        times[tag].append(device_time(fn, 20))
+    per_kernel = {k: v / 20 for k, v in profile_kernels(
+        lambda: [split() for _ in range(20)]).items()}
+    print(f"{name} launch shapes, device ms (fused - split - split - "
+          f"fused): fused {times['fused']} split {times['split']} "
+          f"(split by kernel: {per_kernel})", flush=True)
 
 
 def k8_cap_check(rows, cutoff, seed=7):
     """K8 past the shared-memory cap it had before: 2 configs of a jittered
     8 x 8 x 8 bcc supercell (1,024 atoms, a = 3.30 A, seeded jitter of
     0.05 A), S = 27, at the Ta set's cutoff, K the largest neighbor count
-    rounded up to 8.  A package whose K8 lacks the binned search (before
-    `k8_bins`) refuses it: that refusal is recorded as its row."""
+    rounded up to 8."""
     import torch
     from fitsnap_tpu_torch.kernels import snap_kernels as sk
     from fitsnap_tpu_torch.ops.neighbors import count_neighbors
@@ -1048,17 +1140,6 @@ def k8_cap_check(rows, cutoff, seed=7):
     shape = [2, A, K]
     print(f"device_neighbors past the old cap: C=2 A={A} S={len(shifts)} "
           f"K={K} (12 S A = {12 * len(shifts) * A} bytes)", flush=True)
-    if not hasattr(sk, "k8_bins"):
-        try:
-            sk.device_neighbors(*args)
-        except ValueError as e:
-            src, replaces = SOURCES["device_neighbors"]
-            print(f"device_neighbors@{shape}: refused ({e})", flush=True)
-            rows.append({"name": f"device_neighbors@{shape}",
-                         "kernel": "device_neighbors", "route": "cuda",
-                         "source": src, "replaces": replaces,
-                         "refused": str(e), "shape": shape})
-            return
     out = sk.device_neighbors(*args)
     ref = sk.device_neighbors_plain(*args)
     neighbors_check(rows, args, out, ref, shape, plain_reps=2)
@@ -1142,16 +1223,66 @@ def inp_chunk(seed, plan, device, configs=8):
             put(np.full(configs, A, np.int32)), put(np.stack(cells)))
 
 
+def k13_row(rows, plan, k13_in, npairs, shape):
+    """K13 against its plain version on one chunk's inputs (1e-11), two
+    calls bit for bit with the digest printed; returns the plain (A, Jp).
+    Its bound: the inputs read once, A and Jp written once; its
+    operations per live pair the radial recursion (about 20 flops per n)
+    and the Ylm recursion with its gradient (about 60 per (l, m)), then 16
+    per A-slot (phi and three tangents, re and im).  A package from
+    before `k13_shape` refuses lmax > 6 and the non-default conventions:
+    on it such a row records the refusal (None is returned)."""
+    import torch
+    from fitsnap_tpu_torch.kernels import ace_kernels as ak
+
+    N, K = k13_in[2].shape
+    nA, nrad, ny = plan.nA, plan.nradbase, (plan.lmax + 1) ** 2
+    name = "ace_pair_basis" + ("" if shape == "Ta_PACE" else f"@{shape}")
+    try:
+        out = ak.ace_pair_basis(*k13_in, plan)
+    except (ValueError, NotImplementedError) as e:
+        if hasattr(ak, "k13_shape"):
+            raise
+        src, replaces = SOURCES["ace_pair_basis"]
+        print(f"{name}: refused ({e})", flush=True)
+        rows.append({"name": name, "kernel": "ace_pair_basis",
+                     "route": "cuda", "source": src, "replaces": replaces,
+                     "refused": str(e), "shape": shape})
+        return None
+    again = ak.ace_pair_basis(*k13_in, plan)
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        raise AssertionError(f"{name}: two calls differ")
+    DIGESTS[name] = digest(out)
+    del again
+    ref = ak.ace_pair_basis_plain(*k13_in, plan)
+    record(rows, name, out, ref, (lambda: ak.ace_pair_basis(*k13_in, plan),
+                                  10),
+           timed(lambda: ak.ace_pair_basis_plain(*k13_in, plan), 3),
+           N * K * (24 + 4 + 1) + N * 4 + N * 2 * nA * 8
+           + 3 * N * K * 2 * nA * 8 + nA * 16,
+           npairs * (20 * nrad + 60 * ny + 16 * nA), None,
+           wrapper="ace_pair_basis", shape=shape)
+    rows[-1]["lmax"], rows[-1]["nA"] = plan.lmax, nA
+    rows[-1]["conventions"] = [plan.radial, plan.ylm]
+    if hasattr(ak, "k13_shape"):
+        warps, nw_log, rl, smem = ak.k13_shape(plan, K)
+        rows[-1]["launch_shape"] = {"warps": warps, "tile": 1 << nw_log,
+                                    "record": rl, "smem_bytes": smem}
+    del out
+    return ref
+
+
 def ace_pair_checks(rows, plan, disp, jelem, smask, types, shape):
-    """K13 and K14 against their plain versions on one chunk."""
+    """K13 and K14 against their plain versions on one chunk; returns the
+    plain dB/dD."""
     import torch
     from fitsnap_tpu_torch.kernels import ace_kernels as ak
     from fitsnap_tpu_torch.ops import ace as ops
 
     C, A, K = smask.shape
     N = C * A
-    nA, nl, nrad = plan.nA, len(plan.labels), plan.nradbase
-    ny, R = (plan.lmax + 1) ** 2, plan.rank_max
+    nA, nl = plan.nA, len(plan.labels)
+    R = plan.rank_max
     k13_in = (disp.reshape(N, K, 3), jelem.reshape(N, K),
               smask.reshape(N, K), types.reshape(N))
     npairs = int(smask.sum().item())
@@ -1161,21 +1292,8 @@ def ace_pair_checks(rows, plan, disp, jelem, smask, types, shape):
           f"dB/dA entries={tabs.nE} float64", flush=True)
     suffix = "" if shape == "Ta_PACE" else f"@{shape}"
 
-    # K13: per live pair the radial recursion (about 20 flops per n) and
-    # the Ylm recursion with its gradient (about 60 per (l, m)), then 16 per
-    # A-slot (phi and three tangents, re and im)
-    out = ak.ace_pair_basis(*k13_in, plan)
-    ref = ak.ace_pair_basis_plain(*k13_in, plan)
-    record(rows, "ace_pair_basis" + suffix, out, ref,
-           (lambda: ak.ace_pair_basis(*k13_in, plan), 10),
-           timed(lambda: ak.ace_pair_basis_plain(*k13_in, plan), 3),
-           N * K * (24 + 4 + 1) + N * 4 + N * 2 * nA * 8
-           + 3 * N * K * 2 * nA * 8 + nA * 16,
-           npairs * (20 * nrad + 60 * ny + 16 * nA), None,
-           wrapper="ace_pair_basis", shape=shape)
-    A_, Jp = ref
+    A_, Jp = k13_row(rows, plan, k13_in, npairs, shape)
     ielem = k13_in[3]
-    del out
 
     # K14: work of the labels whose central element is the atom's: per term
     # R - 1 complex products (6 flops) and its coefficient (2), per
@@ -1211,14 +1329,17 @@ def ace_pair_checks(rows, plan, disp, jelem, smask, types, shape):
            + N * nl * K * 3 * 8 + table_bytes, flops, None,
            wrapper="ace_b_dbdd", shape=shape,
            library=lambda: torch.einsum("alp,cakp->alkc", dbda, Jp))
-    del out, ref, dbda
+    del out, dbda, A_, Jp
+    return ref[1]
 
 
 def ace_kernel_checks(calc, data, seed):
     """K13 and K14 vs plain at the Ta_PACE plan on the first Compressed_BCC
-    chunk (8 x 128 x 64) and at the InP-shaped plan on a seeded two-element
-    chunk (8 x 64 atoms), and K7 in the ACE layout (two leading constant
-    columns) on the rows of the latter."""
+    chunk (8 x 128 x 64), then K4 at the ACE width and K13 at lmax 8 and
+    in the three other convention pairs on that chunk, K13 and K14 at the
+    InP-shaped plan on a seeded two-element chunk (8 x 64 atoms), and K7
+    in the ACE layout (two leading constant columns) on the rows of the
+    latter."""
     import torch
     from fitsnap_tpu_torch.calculators.ace import _within_rcut, ace_rows
     from fitsnap_tpu_torch.kernels import snap_kernels as sk
@@ -1228,13 +1349,37 @@ def ace_kernel_checks(calc, data, seed):
     rows = []
     chunk = [d for d in data if d["Group"] == "Compressed_BCC"][:8]
     packed, buckets = calc.host_preprocess(chunk)
-    _, (disp, jidx, mask, _, types, _, _) = next(iter(
-        calc.batches(packed, buckets)))
+    _, args = next(iter(calc.batches(packed, buckets)))
+    disp, jidx, mask, _, types, _, _ = args
     dev = disp.device
     jelem, inside = _within_rcut(disp, jidx, types, calc.plan)
-    ace_pair_checks(rows, calc.plan, disp, jelem, mask & inside, types,
-                    "Ta_PACE")
-    del disp, jidx, mask, jelem, inside
+    smask = mask & inside
+    dBdD = ace_pair_checks(rows, calc.plan, disp, jelem, smask, types,
+                           "Ta_PACE")
+    # K4 as the ACE rows call it: the labels' columns, one type block
+    scatter_check(rows, args, smask, dBdD, 1, "Ta_PACE",
+                  torch.zeros_like(types))
+    del dBdD
+    torch.cuda.empty_cache()
+    # K13 past its old limits on the same chunk: lmax 8, and the Ta_PACE
+    # plan in the three other convention pairs
+    C, A, K = mask.shape
+    plan8 = build_ace_plan(SimpleNamespace(**LMAX8_SHAPE))
+    plans = [(plan8, "lmax8")] + [
+        (dataclasses.replace(calc.plan, radial=radial, ylm=ylm, tables={}),
+         f"Ta_PACE {radial}/{ylm}") for radial, ylm in K13_CONVENTIONS]
+    for plan, shape in plans:
+        jel, ins = _within_rcut(disp, jidx, types, plan)
+        sm = mask & ins
+        k13_in = (disp.reshape(-1, K, 3), jel.reshape(-1, K),
+                  sm.reshape(-1, K), types.reshape(-1))
+        print(f"K13 row {shape}: lmax={plan.lmax} A-slots={plan.nA} "
+              f"radial functions={plan.nradbase} conventions="
+              f"{plan.radial}/{plan.ylm}", flush=True)
+        k13_row(rows, plan, k13_in, int(sm.sum().item()), shape)
+        del jel, ins, sm, k13_in
+        torch.cuda.empty_cache()
+    del disp, jidx, mask, jelem, inside, smask, args
     torch.cuda.empty_cache()
 
     plan = build_ace_plan(SimpleNamespace(**INP_SHAPE))
@@ -1268,8 +1413,8 @@ def ace_kernel_checks(calc, data, seed):
 def flag_kernel_checks(calc, data, kind, seed):
     """The kernels of the quadratic ("quadratic") or chemflag ("inp") path
     against their plain versions on the main path's first chunk of a group
-    (Compressed_BCC, Displaced_ZB64): K1-K3 (chemflag modes), K6q, K4, and
-    K7 on the chunk's rows."""
+    (Compressed_BCC, Displaced_ZB64): K1-K3 (chemflag modes), K6q, K4, K5
+    at the two-type InP chunk, and K7 on the chunk's rows."""
     import torch
     from fitsnap_tpu_torch.kernels import snap_kernels as sk
 
@@ -1286,6 +1431,9 @@ def flag_kernel_checks(calc, data, kind, seed):
     B, G = descriptor_checks(rows, p, k1_in, shape)
     scatter_check(rows, args, smask, G, calc.numtypes, shape)
     del B, G
+    if kind == "inp":
+        # K5, the whole reference, at the two-type chunk
+        zbl_check(rows, args, calc.refspec, shape)
     # K7 on the chunk's rows (the streamed fit's width), seeded truths
     rows_in = calc.rows(*args)
     natoms, types = args[5].to(torch.int32), args[4]

@@ -158,7 +158,7 @@ def nn_prep(params, refspec, disp, jidx, mask, rev, types, natoms):
 
     The JAX package's `SnapCalculator.nn_prep_fn` with the config axis
     written out: the SNAP pair mask, then K1-K3 (their chemflag modes, and
-    K6q under quadraticflag), then the reference potential (K5 + K4).  B and
+    K6q under quadraticflag), then the reference potential (K5).  B and
     G are zero on padded atoms, and G on every pair outside the SNAP mask,
     so the force contraction may run over all neighbor slots.  Arguments as
     `snap_rows`'."""

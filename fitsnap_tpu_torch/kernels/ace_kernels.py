@@ -8,11 +8,13 @@ PyTorch versions beside them.
 As in `kernels/snap_kernels.py`, each wrapper takes its plain version for
 tensors on the CPU, launches its kernel for tensors on a CUDA device, and
 raises for anything else; every launch adds one to the wrapper's
-`launches` count.  The kernels take ML-PACE's conventions, the plan
-defaults (`radial="pace_px"`, `ylm="4pi"`, no spline radials, lmax <= 6);
-their wrappers raise for others, which the plain versions keep.
+`launches` count.  K13 takes every closed-form convention of the plan (the
+six radial variants, the three Ylm normalisations) and any lmax whose
+working set fits a block's shared memory; spline radials are refused, as
+the plain versions do not have them either.
 """
 
+import math
 from types import SimpleNamespace
 
 import numpy as np
@@ -21,21 +23,139 @@ import torch
 from fitsnap_tpu_torch.kernels import launch as kl
 from fitsnap_tpu_torch.ops import ace as ops
 
-_LMAX = 6        # largest l of csrc/ace_pair_basis.cu
-_K13_TILE = 16   # neighbors per tile of csrc/ace_pair_basis.cu
+_K13_WARPS = 8   # warps a block of csrc/ace_pair_basis.cu where they fit
+_K13_ENTRY = 9   # doubles of an (l, m) entry of its records (ENTRY)
 
 kl.register("ace_pair_basis", "ace_pair_basis",
-            [kl.P] * 8 + [kl.I, kl.I, kl.P, kl.I, kl.I, kl.I, kl.LL, kl.I]
-            + [kl.P] * 3)
+            [kl.P] * 8 + [kl.I] * 3 + [kl.P, kl.P] + [kl.I] * 3 + [kl.LL]
+            + [kl.I] * 5 + [kl.P] * 3)
 kl.register("ace_b_dbdd", "ace_b_dbdd",
             [kl.P] * 12 + [kl.I] * 4 + [kl.LL] + [kl.I] * 4 + [kl.P] * 3)
+
+
+def radial_code(variant):
+    """csrc/ace_pair_basis.cu's code of a ChebExpCos radial variant, the
+    predicates of `ops.ace._radial_and_derivative`: 1 x runs as
+    e^{lambda r / rc} (pace_x*), 2 x negated (every pace* but pace_px), 4
+    the PACE stack g_1 = env, g_n = (1 - T_{n-1}(x)) / 2 env (pace*), 8 the
+    T stack from T_1 (*_t1)."""
+    pace = variant.startswith("pace")
+    return (int(variant.startswith("pace_x"))
+            | 2 * int(pace and variant != "pace_px") | 4 * int(pace)
+            | 8 * int(variant.endswith("_t1")))
+
+
+def ylm_table(lmax, ylm):
+    """(3, (lmax + 1)(lmax + 2) / 2) float64 rows of each (l, m >= 0) at
+    l (l + 1) / 2 + m: the normalisation c_lm = s_l (-1)^m sqrt((2l + 1) /
+    (4 pi) (l - m)! / (l + m)!) of the `ylm` convention (s_l = sqrt(4 pi)
+    for '4pi', sqrt(4 pi / (2l + 1)) for 'racah', else 1), and the
+    coefficients a, b of the Legendre recursion (sin^m factored out)
+    P_lm = a z P_{l-1,m} - b P_{l-2,m}, a = (2l - 1) / (l - m), b =
+    (l + m - 1) / (l - m); at l = m, a holds P_mm = (2m - 1)!!.  The
+    arithmetic of `ops.ace._ylm_and_gradient`."""
+    tab = np.zeros((3, (lmax + 1) * (lmax + 2) // 2))
+    pmm = 1.0
+    for m in range(lmax + 1):
+        if m > 0:
+            pmm = pmm * (2 * m - 1)
+        for l in range(m, lmax + 1):
+            e = l * (l + 1) // 2 + m
+            scale = {"4pi": math.sqrt(4.0 * math.pi),
+                     "racah": math.sqrt(4.0 * math.pi / (2 * l + 1))
+                     }.get(ylm, 1.0)
+            tab[0, e] = scale * (-1.0) ** m * math.sqrt(
+                (2 * l + 1) / (4 * math.pi)
+                * math.factorial(l - m) / math.factorial(l + m))
+            if l == m:
+                tab[1, e] = pmm
+            else:
+                tab[1, e] = (2 * l - 1) / (l - m)
+                tab[2, e] = (l + m - 1) / (l - m)
+    return tab
+
+
+def k13_record(plan):
+    """(record length, offset of the Yhat entries, offset of the constant
+    entry) of a neighbor's record in csrc/ace_pair_basis.cu, in doubles:
+    g, dg/dr (nradbase each), the unit vector and 1 / r, an entry of 9
+    doubles per (l, m >= 0) (Yhat re, im, their gradients, a pad), the
+    constant entry (1, 0, ..., 0), padded to an odd length (records of
+    neighboring lanes then start in different banks)."""
+    ne = (plan.lmax + 1) * (plan.lmax + 2) // 2
+    y0 = 2 * plan.nradbase + 4
+    c0 = y0 + _K13_ENTRY * ne
+    return (c0 + 8) | 1, y0, c0
+
+
+def k13_columns(plan):
+    """(2 nA, 4) int32 column table of csrc/ace_pair_basis.cu, one row per
+    Jp column (real parts of the A-slots, then imaginary): the record
+    offsets of the slot's Yhat part and of its gradient's three
+    directions, n - 1, and sign * (mu + 1), the sign (-1)^m of m < 0 (and
+    of the imaginary part's conjugate), 0 for slot 0 (always zero).  A
+    rank-1 radial slot (l = -1) reads the constant entry."""
+    _, y0, c0 = k13_record(plan)
+    nA = plan.nA
+    cols = np.zeros((2 * nA, 4), np.int32)
+    for part in (0, 1):
+        for s, (mu, n, l, m) in enumerate(ops.slot_table(plan)):
+            if s == 0:
+                cols[part * nA] = (c0 + 1, c0 + 2, 0, 0)
+                continue
+            if l < 0:
+                yo, go, sg = c0 + part, c0 + 2, 1
+            else:
+                e = y0 + _K13_ENTRY * (l * (l + 1) // 2 + abs(m))
+                yo, go = e + part, e + 2 + 3 * part
+                sg = 1 if m >= 0 else (-1) ** abs(m) * (1 - 2 * part)
+            cols[part * nA + s] = (yo, go, n - 1, sg * (mu + 1))
+    return cols
+
+
+def k13_shape(plan, K):
+    """csrc/ace_pair_basis.cu's launch shape for K neighbor slots: (warps a
+    block, log2 of the neighbors a warp's tile, record length,
+    shared-memory bytes).  A tile holds 8 neighbors, halved while its
+    Legendre items ((lmax + 1) a neighbor) exceed 48, and a block has a
+    warp a tile up to 8 (measured on the H100, `PERF.md` §6: 8
+    warps of 8 neighbors at lmax 2, of 4 at lmax 8); warps, then the tile,
+    halve until the working set (the column table, a partial sum of A per
+    warp, the warps' records and neighbor elements) fits a block; raises
+    where one warp with one-neighbor tiles does not fit."""
+    rl, _, _ = k13_record(plan)
+    two_a = 2 * plan.nA
+    nw_log = 3
+    while nw_log and (plan.lmax + 1) << nw_log > 48:
+        nw_log -= 1
+
+    def smem(warps, nw_log):
+        nw = 1 << nw_log
+        return 8 * (2 * two_a + warps * two_a + warps * nw * rl) \
+            + 4 * warps * nw
+
+    warps = max(1, min(_K13_WARPS, -(-K // (1 << nw_log))))
+    while smem(warps, nw_log) > kl.SMEM_LIMIT and (warps > 1 or nw_log):
+        if warps > 1:
+            warps //= 2
+        else:
+            nw_log -= 1
+    need = smem(warps, nw_log)
+    if need > kl.SMEM_LIMIT:
+        raise ValueError(
+            f"ace_pair_basis: lmax {plan.lmax}, {plan.nradbase} radial "
+            f"functions and {plan.nA} A-slots need {need} bytes of shared "
+            f"memory a block, more than {kl.SMEM_LIMIT}")
+    return warps, nw_log, rl, need
 
 
 def kernel_tables(plan):
     """Host-built tables of the two kernels (numpy, kept on the plan).
 
-    slot (nA, 4): `ops.ace.slot_table`; lab_t (nl + 1): the terms of label
-    l, whose rows of t_fact are sorted by label; the nonzero entries of
+    K13: ytab (`ylm_table` of the plan's lmax and convention), radial (the
+    `radial_code` of its variant), cols (`k13_columns`).  K14: lab_t
+    (nl + 1): the terms of label l, whose rows of t_fact are sorted by
+    label; the nonzero entries of
     dB/dA: lab_e (nl + 1) the entries of label l, e_slot the A-slot of each
     entry (the distinct slots of the label's terms in increasing order,
     slot 0, the padding factor's, where Jp is zero, left out), e_lab its
@@ -47,7 +167,6 @@ def kernel_tables(plan):
     if tabs is not None:
         return tabs
     nl, R = len(plan.labels), plan.rank_max
-    slot = ops.slot_table(plan)
     lab = np.asarray(plan.t_label, np.int64)
     if np.any(np.diff(lab) < 0):
         raise ValueError("ACE plan: terms are not sorted by label")
@@ -75,7 +194,9 @@ def kernel_tables(plan):
         return np.asarray(x, np.int32)
 
     tabs = SimpleNamespace(
-        slot=slot, lab_t=lab_t, lab_e=i32(lab_e), e_slot=i32(e_slot),
+        ytab=ylm_table(plan.lmax, plan.ylm), radial=radial_code(plan.radial),
+        cols=k13_columns(plan),
+        lab_t=lab_t, lab_e=i32(lab_e), e_slot=i32(e_slot),
         e_lab=i32(e_lab), e_c=i32(e_c), c_tr=i32(c_tr), el_l=i32(el_l),
         nE=len(e_slot), nC=len(c_tr))
     plan.tables["kernel_tables"] = tabs
@@ -117,7 +238,8 @@ def _device_tables(plan, device):
                                    device=device)
 
         tabs = SimpleNamespace(
-            slot=i32(h.slot), lab_t=i32(h.lab_t), lab_e=i32(h.lab_e),
+            ytab=torch.as_tensor(h.ytab, device=device), cols=i32(h.cols),
+            lab_t=i32(h.lab_t), lab_e=i32(h.lab_e),
             e_slot=i32(h.e_slot), e_lab=i32(h.e_lab), e_c=i32(h.e_c),
             c_tr=i32(h.c_tr), el_l=i32(h.el_l), fact=i32(plan.t_fact),
             coef=torch.as_tensor(np.asarray(plan.t_coef, np.float64),
@@ -127,14 +249,11 @@ def _device_tables(plan, device):
 
 
 def _kernel_conventions(plan):
-    if plan.radial != "pace_px" or plan.ylm != "4pi" or plan.spline_delta:
+    if plan.spline_delta:
         raise NotImplementedError(
-            f"ACE kernels take radial='pace_px', ylm='4pi' and no spline "
-            f"radials; this plan has radial={plan.radial!r}, "
-            f"ylm={plan.ylm!r}, spline_delta={plan.spline_delta!r} (the "
-            f"plain versions keep them)")
-    if plan.lmax > _LMAX:
-        raise ValueError(f"ACE kernels: lmax {plan.lmax} > {_LMAX}")
+            f"ACE kernels take the closed-form radials, not spline radials "
+            f"(spline_delta={plan.spline_delta!r}; ROADMAP.md: \"ACE "
+            f"splines and nonlinear ACE\")")
 
 
 # ---------------------------------------------------------------------------
@@ -162,12 +281,8 @@ def ace_pair_basis(disp, jelem, mask, ielem, plan):
     kl.check(jelem, "jelem", torch.int32, (N, K))
     kl.check(mask, "mask", torch.bool, (N, K))
     kl.check(ielem, "ielem", torch.int32, (N,))
-    nA, nrad, ny = plan.nA, plan.nradbase, (plan.lmax + 1) ** 2
-    smem = 8 * (_K13_TILE * (2 * nrad + 3 + 8 * ny)
-                + (_K13_TILE + 1) * 2 * nA) + 4 * _K13_TILE
-    if smem > kl.SMEM_LIMIT:
-        raise ValueError(f"ace_pair_basis: {smem} bytes of shared memory "
-                         f"per block")
+    nA = plan.nA
+    warps, nw_log, rl, smem = k13_shape(plan, K)
     dev = disp.device
     bonds = ops.plan_tensors(plan, dev)
     tabs = _device_tables(plan, dev)
@@ -178,8 +293,9 @@ def ace_pair_basis(disp, jelem, mask, ielem, plan):
               kl.ptr(mask), kl.ptr(ielem), kl.ptr(bonds.rcut),
               kl.ptr(bonds.lmbda), kl.ptr(bonds.rcinner),
               kl.ptr(bonds.drcinner), plan.numtypes, inner,
-              kl.ptr(tabs.slot), nA, nrad, plan.lmax, N, K, kl.ptr(A),
-              kl.ptr(Jp))
+              kernel_tables(plan).radial, kl.ptr(tabs.ytab),
+              kl.ptr(tabs.cols), nA, plan.nradbase, plan.lmax, N, K, warps,
+              nw_log, rl, smem, kl.ptr(A), kl.ptr(Jp))
     ace_pair_basis.launches += 1
     return A, Jp
 

@@ -5,9 +5,13 @@
 //   Jp[c, a, k, s] = d phi[a, k, s] / d D[a, k, c]   (real part at s,
 //                                                     imaginary at nA + s)
 // and the neighbor sum A[a, s] = sum_k phi[a, k, s], with A[a, 0] = 1.
-// g_n is ML-PACE's ChebExpCos radial base ("pace_px": g_1 = env,
-// g_n = (1 - T_{n-1}(x)) / 2 env), fin the optional distance-type inner
-// ramp, Yhat_lm = sqrt(4 pi) Y_lm (ML-PACE normalisation, Y_00 = 1).
+// g_n is the ChebExpCos radial base in any of the plan's six closed-form
+// variants, given as a host-built code: which way x runs, its sign, the
+// PACE stack (g_1 = env, g_n = (1 - T_{n-1}(x)) / 2 env) or the T stack
+// (g_n = T_{n-1}(x) env, or T_n with T_0 skipped); fin is the optional
+// distance-type inner ramp; Yhat_lm = s_l Y_lm in the plan's convention
+// (s_l = sqrt(4 pi), 1 or sqrt(4 pi / (2l + 1)), folded into the host's
+// normalisation table).
 //
 // Replaces fitsnap_tpu/ops/ace.py `ace_pair_phi` (:589) with
 // `chebexpcos_basis` (:406) and `sph_harm` (:524), `ace_a_basis` (:656)
@@ -15,29 +19,50 @@
 //
 // Bound on the H100: bytes.  The kernel must write Jp (3 x K x 2 nA
 // doubles per atom, 120 KB at K = 64, nA = 39); its FP64 work per pair
-// (the radial and Ylm recursions with their derivatives, a few hundred
-// flops, then 10 flops per slot and direction) is well under what the
-// card's FP64 rate does while HBM takes Jp.
+// (the radial and Legendre recursions with their derivatives, a few hundred
+// flops, then 12 flops per slot column) is well under what the card's FP64
+// rate does while HBM takes Jp.
 //
-// Design: one block per atom, neighbors in tiles of KT.  Per neighbor one
-// thread computes r, the unit vector, g_n and dg_n/dr (the Chebyshev
-// recursion carried with its derivative), and Yhat_lm with its Cartesian
-// gradient through d(unit)/dD = (I - u u^T) / r, into shared memory.  Then
-// the block forms phi and Jp for every (neighbor, slot) from a host-built
-// slot table (mu, n, l, m), writing Jp with neighbouring threads on
-// neighbouring slots, and each slot's owner thread adds the tile's phi to
-// its sum in neighbor order: A repeats bit for bit, no atomics.  Masked
-// pairs take the displacement (1, 0, 0) and weight 0: exactly zero phi and
-// zero tangents.
+// Design: one block per atom, W warps (the wrapper's choice), each on its
+// own until the final sum: warp w takes the tiles of NW neighbors starting
+// at k0 = (w + i W) NW.  Per tile:
+//   1. records in shared memory, in two rounds of uniform work: first the
+//      radial items, a neighbor a lane (1 / r, the unit vector, then the
+//      radial recursion with its r derivative, g_n and dg_n/dr), then the
+//      Legendre columns, a (neighbor, m) item a lane with the same m on
+//      neighboring lanes: the column with its z derivative, scaled by the
+//      host's normalisation, times (x + i y)^m, gives Yhat_lm and its
+//      Cartesian gradient for l = m..lmax.  The host tabulates the
+//      normalisations and the recursion's coefficients (2l-1)/(l-m) and
+//      (l+m-1)/(l-m): the kernel divides by no l or m and takes no
+//      factorial or sqrt of a constant; it divides once by r, rc and
+//      e^lambda - 1 a pair and multiplies after.  A record's (l, m) entries
+//      are ENTRY = 9 doubles apart, so the entries that neighboring lanes
+//      read in step 2 fall in different shared-memory banks;
+//   2. Jp: the tile's rows of one direction c are one contiguous run of
+//      NW x 2 nA doubles; lanes take consecutive 16-byte pairs of columns
+//      of it, the (neighbor, pair) index advanced by the launch shape (a
+//      carry, no div/mod), and form the pair's three directions from the
+//      record and a host-built column table (the record offsets of the
+//      slot's Yhat part and its gradient, the sign of m < 0, n and mu):
+//      three 16-byte stores.  The structurally zero columns (slot 0, the
+//      imaginary parts of the radial slots and of m = 0) are written too;
+//   3. A: each lane adds phi of its own columns over the tile's neighbors,
+//      in neighbor order, to the warp's partial sums.
+// Only __syncwarp separates these steps, so no barrier holds the block's
+// other warps, or the SM's other blocks, out of their stores while one
+// warp builds records.  After its last tile the block sums its warps'
+// partials in warp order: A repeats bit for bit, no atomics.  Masked pairs
+// take the displacement (1, 0, 0) and weight 0, and pairs at or beyond the
+// cutoff weight 0: exactly zero phi and tangents.  The working set (the
+// column table, W partial sums and W x NW records) is the wrapper's
+// `k13_shape`; no lmax is refused that fits a block's shared memory.
 #include "common.cuh"
 
 namespace {
 
-constexpr int KT = 16;           // neighbors per tile
-constexpr int THREADS = 128;
-constexpr int LMAX = 6;          // largest l of the kernel
-constexpr int NP = (LMAX + 1) * (LMAX + 2) / 2;
 constexpr double PI = 3.14159265358979323846;
+constexpr int ENTRY = 9;         // doubles of a (l, m) entry of a record
 
 struct Args {
   const double* disp;            // (N, K, 3)
@@ -48,27 +73,29 @@ struct Args {
   const double* lmbda;
   const double* rcin;
   const double* dcin;
-  const int* slot;               // (nA, 4): mu, n, l, m; slot 0 unused
-  int T, inner, nA, nrad, lmax, K;
+  const double* ytab;            // (3, ne): normalisation, a, b of (l, m)
+  const int4* cols;              // (2 nA): Yhat, gradient, n - 1, sign (mu + 1)
+  int T, inner, radial, nA, nrad, lmax, K, nw_log, rl;
   long long N;
 };
 
-// Shared-memory record of one neighbor: g and dg/dr (nrad each), the unit
-// vector (3), Yhat re / im (ny each), their gradients d/dD_c (3 ny each).
-__device__ __forceinline__ int record_len(int nrad, int ny) {
-  return 2 * nrad + 3 + 8 * ny;
-}
+// A neighbor's record (doubles): g (nrad), dg/dr (nrad), the unit vector
+// and 1 / r (4), then per (l, m >= 0) at e = l (l + 1) / 2 + m an entry of
+// ENTRY doubles: Yhat re, im, d/dD_c re (3), d/dD_c im (3); then one
+// constant entry (1, 0, ...) that the rank-1 radial slots read
+// (kernels/ace_kernels.py `k13_record`).
 
-__device__ void neighbor_record(const Args& p, long long a, int k,
-                                double* rec, int* jel) {
-  const int ny = (p.lmax + 1) * (p.lmax + 1);
-  double* g = rec;
-  double* dg = g + p.nrad;
-  double* u = dg + p.nrad;
-  double* yr = u + 3;
-  double* yi = yr + ny;
-  double* dyr = yi + ny;          // [3][ny]
-  double* dyi = dyr + 3 * ny;     // [3][ny]
+// Radial code bits (kernels/ace_kernels.py `radial_code`).
+constexpr int RAD_X_UP = 1;      // x from e^{lambda r / rc} (pace_x*)
+constexpr int RAD_NEG = 2;       // x negated (every pace* but pace_px)
+constexpr int RAD_PACE = 4;      // the PACE stack
+constexpr int RAD_T1 = 8;        // the T stack from T_1 (v0_t1)
+
+// A neighbor's radial item: its displacement (1, 0, 0 where masked), unit
+// vector, 1 / r and element into the record, then g_n and dg_n/dr with the
+// inner ramp (zero unless the pair is live and r < rc).
+__device__ void radial_item(const Args& p, long long a, int k, double* rec,
+                            int* jel) {
   const long long q = a * p.K + k;
   const bool on = p.mask[q];
   double dx = 1.0, dy = 0.0, dz = 0.0;
@@ -77,248 +104,288 @@ __device__ void neighbor_record(const Args& p, long long a, int k,
     dy = p.disp[3 * q + 1];
     dz = p.disp[3 * q + 2];
   }
+  const double r = sqrt(dx * dx + dy * dy + dz * dz);
+  const double rinv = 1.0 / r;
+  double* u = rec + 2 * p.nrad;
+  u[0] = dx * rinv;
+  u[1] = dy * rinv;
+  u[2] = dz * rinv;
+  u[3] = rinv;
   const int je = p.jelem[q];
   *jel = je;
+  double* g = rec;
+  double* dg = rec + p.nrad;
   const int bond = p.ielem[a] * p.T + je;
-  const double r = sqrt(dx * dx + dy * dy + dz * dz);
-  const double x = dx / r, y = dy / r, z = dz / r;
-  u[0] = x;
-  u[1] = y;
-  u[2] = z;
-
-  // radial base with its r derivative, times the inner ramp and the mask
   const double rc = p.rcut[bond];
-  const double lam = p.lmbda[bond];
-  double fin = 1.0, dfin = 0.0;
-  if (p.inner) {
-    const double din = p.dcin[bond];
-    const double dsafe = din > 1e-12 ? din : 1e-12;
-    const double t = (r - (p.rcin[bond] - din)) / dsafe;
-    if (t <= 0.0) {
-      fin = 0.0;
-    } else if (t < 1.0) {
-      fin = 0.5 * (1.0 - cos(PI * t));
-      dfin = 0.5 * PI * sin(PI * t) / dsafe;
-    }
-  }
-  const bool live = on && r < rc;
-  if (live) {
-    // pace_px: x = 1 - 2 (e^{lambda (1 - r/rc)} - 1) / (e^lambda - 1),
-    // increasing from -1 at r = 0 to 1 at r = rc
-    const double x0 = r / rc;
-    const double den = exp(lam) - 1.0;
-    const double el = exp(lam * (1.0 - x0));
-    double xs = 1.0 - 2.0 * (el - 1.0) / den;
-    double dxs = 2.0 * lam * el / den / rc;
-    if (xs < -1.0 || xs > 1.0) {
-      xs = xs < -1.0 ? -1.0 : 1.0;
-      dxs = 0.0;
-    }
-    const double cz = 0.5 * (1.0 + cos(PI * x0));
-    const double dcz = -0.5 * PI * sin(PI * x0) / rc;
-    // T_{n-1}(xs) and its xs-derivative, carried up the recursion
-    double tm = 1.0, dtm = 0.0;   // T_{n-2}
-    double tc = xs, dtc = 1.0;    // T_{n-1}
-    g[0] = cz * fin;
-    dg[0] = dcz * fin + cz * dfin;
-    for (int n = 2; n <= p.nrad; ++n) {
-      if (n > 2) {
-        const double tn = 2.0 * xs * tc - tm;
-        const double dtn = 2.0 * tc + 2.0 * xs * dtc - dtm;
-        tm = tc;
-        dtm = dtc;
-        tc = tn;
-        dtc = dtn;
-      }
-      const double h = 0.5 * (1.0 - tc);
-      const double dh = -0.5 * dtc * dxs;
-      g[n - 1] = h * cz * fin;
-      dg[n - 1] = (dh * cz + h * dcz) * fin + h * cz * dfin;
-    }
-  } else {
+  if (!(on && r < rc)) {
     for (int n = 0; n < p.nrad; ++n) {
       g[n] = 0.0;
       dg[n] = 0.0;
     }
+    return;
   }
+  double fin = 1.0, dfin = 0.0;
+  if (p.inner) {
+    const double din = p.dcin[bond];
+    const double dsi = 1.0 / (din > 1e-12 ? din : 1e-12);
+    const double t = (r - (p.rcin[bond] - din)) * dsi;
+    if (t <= 0.0) {
+      fin = 0.0;
+    } else if (t < 1.0) {
+      double s, c;
+      sincospi(t, &s, &c);
+      fin = 0.5 * (1.0 - c);
+      dfin = 0.5 * PI * s * dsi;
+    }
+  }
+  const double lam = p.lmbda[bond];
+  const double rci = 1.0 / rc;
+  const double x0 = r * rci;
+  const double deni = 1.0 / (exp(lam) - 1.0);
+  double el, dx0;
+  if (p.radial & RAD_X_UP) {
+    el = exp(lam * x0);
+    dx0 = -2.0 * lam * el * deni * rci;
+  } else {
+    el = exp(lam * (1.0 - x0));
+    dx0 = 2.0 * lam * el * deni * rci;
+  }
+  double x = 1.0 - 2.0 * (el - 1.0) * deni;
+  if (x < -1.0 || x > 1.0) {
+    x = x < -1.0 ? -1.0 : 1.0;
+    dx0 = 0.0;
+  }
+  if (p.radial & RAD_NEG) {
+    x = -x;
+    dx0 = -dx0;
+  }
+  double sz, cz0;
+  sincospi(x0, &sz, &cz0);
+  const double cz = 0.5 * (1.0 + cz0);
+  const double dcz = -0.5 * PI * sz * rci;
+  const bool pace = p.radial & RAD_PACE;
+  const int skip = (!pace && (p.radial & RAD_T1)) ? 1 : 0;
+  // (tc, dtc) = T_t(x) and dT_t/dr, (tm, dtm) = T_{t-1}
+  double tm = 0.0, dtm = 0.0, tc = 1.0, dtc = 0.0;
+  for (int t = 0; t < p.nrad + skip; ++t) {
+    if (t == 1) {
+      tm = tc;
+      dtm = dtc;
+      tc = x;
+      dtc = dx0;
+    } else if (t > 1) {
+      const double tn = 2.0 * x * tc - tm;
+      const double dtn = 2.0 * dx0 * tc + 2.0 * x * dtc - dtm;
+      tm = tc;
+      dtm = dtc;
+      tc = tn;
+      dtc = dtn;
+    }
+    if (t < skip) continue;
+    double h, dh;
+    if (!pace) {
+      h = tc;
+      dh = dtc;
+    } else if (t == 0) {
+      h = 1.0;
+      dh = 0.0;
+    } else {
+      h = 0.5 * (1.0 - tc);
+      dh = -0.5 * dtc;
+    }
+    const int n = t - skip;
+    g[n] = h * cz * fin;
+    dg[n] = (dh * cz + h * dcz) * fin + h * cz * dfin;
+  }
+}
 
-  // associated Legendre polynomials P_lm(z) (sin^m factored out) and dP/dz
-  double P[NP], dP[NP];
-  P[0] = 1.0;
-  dP[0] = 0.0;
-  for (int m = 1; m <= p.lmax; ++m) {
-    const int i = m * (m + 1) / 2 + m, j = (m - 1) * m / 2 + m - 1;
-    P[i] = P[j] * (2 * m - 1);
-    dP[i] = 0.0;
+// Legendre column m (sin^m factored out) with its z derivative, times the
+// normalisation and (x + i y)^m: Yhat_lm and its gradient for l = m..lmax,
+// from the unit vector and 1 / r of the neighbor's record.
+__device__ void ylm_item(const Args& p, int m, double* rec) {
+  const int ne = (p.lmax + 1) * (p.lmax + 2) / 2;
+  const double* __restrict__ norm = p.ytab;
+  const double* __restrict__ ca = p.ytab + ne;
+  const double* __restrict__ cb = p.ytab + 2 * ne;
+  const double* u = rec + 2 * p.nrad;
+  const double x = u[0], y = u[1], z = u[2], rinv = u[3];
+  double* yrec = rec + 2 * p.nrad + 4;
+  double er = 1.0, ei = 0.0, erm = 0.0, eim = 0.0;   // (x + i y)^m, ^(m-1)
+  for (int s = 0; s < m; ++s) {
+    erm = er;
+    eim = ei;
+    const double t = er * x - ei * y;
+    ei = er * y + ei * x;
+    er = t;
   }
-  for (int m = 0; m < p.lmax; ++m) {
-    const int i = (m + 1) * (m + 2) / 2 + m, j = m * (m + 1) / 2 + m;
-    P[i] = z * (2 * m + 1) * P[j];
-    dP[i] = (2 * m + 1) * P[j];
-  }
-  for (int m = 0; m <= p.lmax; ++m) {
-    for (int l = m + 2; l <= p.lmax; ++l) {
-      const int i = l * (l + 1) / 2 + m;
-      const int i1 = (l - 1) * l / 2 + m, i2 = (l - 2) * (l - 1) / 2 + m;
-      P[i] = ((2 * l - 1) * z * P[i1] - (l + m - 1) * P[i2]) / (l - m);
-      dP[i] = ((2 * l - 1) * (P[i1] + z * dP[i1]) - (l + m - 1) * dP[i2]) /
-              (l - m);
+  int e = m * (m + 3) / 2;                           // (l, m) at l = m
+  double p1 = ca[e], dp1 = 0.0, p2 = 0.0, dp2 = 0.0; // P_{l-1}, P_{l-2}
+  for (int l = m; l <= p.lmax; ++l) {
+    if (l > m) {
+      const double pl = ca[e] * z * p1 - cb[e] * p2;
+      const double dpl = ca[e] * (p1 + z * dp1) - cb[e] * dp2;
+      p2 = p1;
+      dp2 = dp1;
+      p1 = pl;
+      dp1 = dpl;
     }
-  }
-  // (x + i y)^m
-  double er[LMAX + 1], ei[LMAX + 1];
-  er[0] = 1.0;
-  ei[0] = 0.0;
-  for (int m = 1; m <= p.lmax; ++m) {
-    er[m] = er[m - 1] * x - ei[m - 1] * y;
-    ei[m] = er[m - 1] * y + ei[m - 1] * x;
-  }
-  const double rinv = 1.0 / r;
-  for (int l = 0; l <= p.lmax; ++l) {
-    for (int m = 0; m <= l; ++m) {
-      double ratio = 1.0;  // (l - m)! / (l + m)!
-      for (int f = l - m + 1; f <= l + m; ++f) ratio /= f;
-      const double c = ((m & 1) ? -1.0 : 1.0) * sqrt((2 * l + 1) * ratio);
-      const double pl = P[l * (l + 1) / 2 + m];
-      const double dpl = dP[l * (l + 1) / 2 + m];
-      const double vr = c * pl * er[m], vi = c * pl * ei[m];
-      // partial derivatives in (x, y, z) of the polynomial form
-      double gr[3], gi[3];
-      if (m > 0) {
-        gr[0] = c * pl * m * er[m - 1];
-        gi[0] = c * pl * m * ei[m - 1];
-        gr[1] = -c * pl * m * ei[m - 1];
-        gi[1] = c * pl * m * er[m - 1];
-      } else {
-        gr[0] = gi[0] = gr[1] = gi[1] = 0.0;
-      }
-      gr[2] = c * dpl * er[m];
-      gi[2] = c * dpl * ei[m];
-      // chain rule through the unit vector: (g_c - u_c (u . g)) / r
-      const double ur = x * gr[0] + y * gr[1] + z * gr[2];
-      const double ui = x * gi[0] + y * gi[1] + z * gi[2];
-      double tr[3], ti[3];
-      for (int d = 0; d < 3; ++d) {
-        tr[d] = (gr[d] - u[d] * ur) * rinv;
-        ti[d] = (gi[d] - u[d] * ui) * rinv;
-      }
-      const int ip = l * l + l + m;
-      yr[ip] = vr;
-      yi[ip] = vi;
-      for (int d = 0; d < 3; ++d) {
-        dyr[d * ny + ip] = tr[d];
-        dyi[d * ny + ip] = ti[d];
-      }
-      if (m > 0) {
-        // Y_{l,-m} = (-1)^m conj(Y_lm)
-        const double s = (m & 1) ? -1.0 : 1.0;
-        const int in = l * l + l - m;
-        yr[in] = s * vr;
-        yi[in] = -s * vi;
-        for (int d = 0; d < 3; ++d) {
-          dyr[d * ny + in] = s * tr[d];
-          dyi[d * ny + in] = -s * ti[d];
-        }
-      }
+    const double pl = norm[e] * p1, dpl = norm[e] * dp1;
+    double gr0 = 0.0, gr1 = 0.0, gi0 = 0.0, gi1 = 0.0;
+    if (m > 0) {
+      gr0 = pl * m * erm;
+      gi0 = pl * m * eim;
+      gr1 = -pl * m * eim;
+      gi1 = pl * m * erm;
     }
+    const double gr2 = dpl * er, gi2 = dpl * ei;
+    // chain rule through the unit vector: (g_c - u_c (u . g)) / r
+    const double ur = x * gr0 + y * gr1 + z * gr2;
+    const double ui = x * gi0 + y * gi1 + z * gi2;
+    double* o = yrec + ENTRY * e;
+    o[0] = pl * er;
+    o[1] = pl * ei;
+    o[2] = (gr0 - x * ur) * rinv;
+    o[3] = (gr1 - y * ur) * rinv;
+    o[4] = (gr2 - z * ur) * rinv;
+    o[5] = (gi0 - x * ui) * rinv;
+    o[6] = (gi1 - y * ui) * rinv;
+    o[7] = (gi2 - z * ui) * rinv;
+    e += l + 1;                                      // (l + 1, m)
   }
+}
+
+// The value (phi, or d phi / dD_c for c = 0..2) of one column of a record.
+struct Column {
+  double v, d[3];
+};
+
+__device__ __forceinline__ Column column(const double* rj, int je, int4 t,
+                                         int nrad) {
+  Column o;
+  const int mu = (t.w < 0 ? -t.w : t.w) - 1;
+  const double sg = t.w < 0 ? -1.0 : 1.0;
+  double base = 0.0, dbase = 0.0;
+  if (t.w != 0 && je == mu) {
+    base = rj[t.z];
+    dbase = rj[nrad + t.z];
+  }
+  const double* u = rj + 2 * nrad;   // unit vector
+  const double yv = sg * rj[t.x];
+  o.v = base * yv;
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    o.d[c] = dbase * u[c] * yv + base * (sg * rj[t.y + c]);
+  return o;
 }
 
 __global__ void ace_pair_basis_kernel(Args p, double* __restrict__ A,
                                       double* __restrict__ Jp) {
-  extern __shared__ double sm[];
-  const int ny = (p.lmax + 1) * (p.lmax + 1);
-  const int rl = record_len(p.nrad, ny);
+  extern __shared__ __align__(16) double sm[];
   const int two_a = 2 * p.nA;
-  double* rec = sm;                        // [KT][rl]
-  double* ph = rec + KT * rl;              // [KT][2 nA] phi of the tile
-  double* acc = ph + KT * two_a;           // [2 nA] running sum over k
-  int* jel = reinterpret_cast<int*>(acc + two_a);   // [KT]
+  const int nw = 1 << p.nw_log;
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int4* cols = reinterpret_cast<int4*>(sm);                   // [2 nA]
+  double* acc = sm + 2 * two_a;                               // [W][2 nA]
+  double* rec = acc + warps * two_a + warp * nw * p.rl;       // [NW][rl]
+  int* jel = reinterpret_cast<int*>(acc + warps * two_a +
+                                    warps * nw * p.rl) + warp * nw;
+  double* wacc = acc + warp * two_a;
   const long long a = blockIdx.x;
-  const int tid = threadIdx.x;
-  const long long jstride = p.N * p.K * two_a;      // one direction c of Jp
+  const int c0 = 2 * p.nrad + 4 + ENTRY * (p.lmax + 1) * (p.lmax + 2) / 2;
+  const long long jstride = p.N * p.K * two_a / 2;    // one direction, in pairs
 
-  for (int s = tid; s < two_a; s += THREADS) acc[s] = 0.0;
-  for (int k0 = 0; k0 < p.K; k0 += KT) {
-    const int nk = p.K - k0 < KT ? p.K - k0 : KT;
-    if (tid < nk) neighbor_record(p, a, k0 + tid, rec + tid * rl, jel + tid);
-    __syncthreads();
-    for (int idx = tid; idx < nk * p.nA; idx += THREADS) {
-      const int kk = idx / p.nA;
-      const int s = idx % p.nA;
-      const double* g = rec + kk * rl;
-      const double* dg = g + p.nrad;
-      const double* u = dg + p.nrad;
-      const double* yr = u + 3;
-      const double* yi = yr + ny;
-      const double* dyr = yi + ny;
-      const double* dyi = dyr + 3 * ny;
-      double vr = 0.0, vi = 0.0, tr[3] = {0.0, 0.0, 0.0},
-             ti[3] = {0.0, 0.0, 0.0};
-      if (s > 0) {
-        const int mu = p.slot[4 * s], n = p.slot[4 * s + 1];
-        const int l = p.slot[4 * s + 2], m = p.slot[4 * s + 3];
-        const bool ch = jel[kk] == mu;
-        const double base = ch ? g[n - 1] : 0.0;
-        const double dbase = ch ? dg[n - 1] : 0.0;
-        if (l < 0) {
-          vr = base;
-          for (int c = 0; c < 3; ++c) tr[c] = dbase * u[c];
-        } else {
-          const int ip = l * l + l + m;
-          vr = base * yr[ip];
-          vi = base * yi[ip];
-          for (int c = 0; c < 3; ++c) {
-            tr[c] = dbase * u[c] * yr[ip] + base * dyr[c * ny + ip];
-            ti[c] = dbase * u[c] * yi[ip] + base * dyi[c * ny + ip];
-          }
-        }
-      }
-      ph[kk * two_a + s] = vr;
-      ph[kk * two_a + p.nA + s] = vi;
-      const long long o = (a * p.K + k0 + kk) * two_a + s;
-      for (int c = 0; c < 3; ++c) {
-        Jp[c * jstride + o] = tr[c];
-        Jp[c * jstride + o + p.nA] = ti[c];
-      }
-    }
-    __syncthreads();
-    for (int s = tid; s < two_a; s += THREADS) {
-      double v = acc[s];
-      for (int kk = 0; kk < nk; ++kk) v += ph[kk * two_a + s];
-      acc[s] = v;
-    }
-    __syncthreads();
+  for (int s = threadIdx.x; s < two_a; s += blockDim.x) cols[s] = p.cols[s];
+  for (int s = lane; s < two_a; s += 32) wacc[s] = 0.0;
+  for (int j = lane; j < nw; j += 32) {
+    double* cst = rec + j * p.rl + c0;
+    cst[0] = 1.0;
+    for (int i = 1; i < 8; ++i) cst[i] = 0.0;
   }
-  for (int s = tid; s < two_a; s += THREADS)
-    A[a * two_a + s] = s == 0 ? 1.0 : acc[s];
+  __syncthreads();
+
+  for (int k0 = warp * nw; k0 < p.K; k0 += warps * nw) {
+    const int nk = p.K - k0 < nw ? p.K - k0 : nw;
+    // 1. the tile's records: the radial items, a neighbor a lane, then
+    // the Legendre columns, (neighbor, m) items with m the round's
+    for (int j = lane; j < nk; j += 32)
+      radial_item(p, a, k0 + j, rec + j * p.rl, jel + j);
+    __syncwarp();
+    for (int i = lane; i < (p.lmax + 1) << p.nw_log; i += 32) {
+      const int j = i & (nw - 1);
+      if (j < nk) ylm_item(p, i >> p.nw_log, rec + j * p.rl);
+    }
+    __syncwarp();
+    // 2. Jp: consecutive column pairs of the tile's contiguous run
+    double2* out = reinterpret_cast<double2*>(Jp + (a * p.K + k0) * two_a);
+    int j = 0, q = lane;
+    while (q >= p.nA) {
+      q -= p.nA;
+      ++j;
+    }
+    for (long long e = lane; j < nk; e += 32) {
+      const double* rj = rec + j * p.rl;
+      const int je = jel[j];
+      const Column lo = column(rj, je, cols[2 * q], p.nrad);
+      const Column hi = column(rj, je, cols[2 * q + 1], p.nrad);
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        out[c * jstride + e] = make_double2(lo.d[c], hi.d[c]);
+      q += 32;
+      while (q >= p.nA) {
+        q -= p.nA;
+        ++j;
+      }
+    }
+    // 3. A: each lane's columns over the tile's neighbors, in order
+    for (int s = lane; s < two_a; s += 32) {
+      const int4 t = cols[s];
+      double v = wacc[s];
+      for (int jj = 0; jj < nk; ++jj)
+        v += column(rec + jj * p.rl, jel[jj], t, p.nrad).v;
+      wacc[s] = v;
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < two_a; s += blockDim.x) {
+    double v = 0.0;
+    for (int w = 0; w < warps; ++w) v += acc[w * two_a + s];
+    A[a * two_a + s] = s == 0 ? 1.0 : v;
+  }
 }
 
 }  // namespace
 
 // disp (N, K, 3) f64, jelem (N, K) i32, mask (N, K) bool, ielem (N,) i32;
 // per-bond rcut, lmbda, rcin, dcin (T, T) f64; inner: apply the inner ramp;
-// slot (nA, 4) i32 A-slot table (mu, n, l, m); nrad radial functions;
-// lmax <= 6.  Writes A (N, 2 nA) [Re | Im] and Jp (3, N, K, 2 nA).
+// radial: the radial variant's code; ytab (3, (lmax + 1)(lmax + 2) / 2)
+// f64 normalisations and recursion coefficients; cols (2 nA, 4) i32 the
+// column table; nrad radial functions; the launch shape: warps a block,
+// 2^nw_log neighbors a tile, rl doubles a record, smem bytes of shared
+// memory (kernels/ace_kernels.py `k13_shape`).  Writes A (N, 2 nA)
+// [Re | Im] and Jp (3, N, K, 2 nA).
 extern "C" int ace_pair_basis(const double* disp, const int* jelem,
                               const bool* mask, const int* ielem,
                               const double* rcut, const double* lmbda,
                               const double* rcin, const double* dcin, int T,
-                              int inner, const int* slot, int nA, int nrad,
-                              int lmax, long long N, int K, double* A,
-                              double* Jp, void* stream) {
-  if (lmax > LMAX || lmax < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Args p{disp, jelem, mask, ielem, rcut, lmbda, rcin, dcin, slot,
-               T, inner, nA, nrad, lmax, K, N};
-  const int ny = (lmax + 1) * (lmax + 1);
-  const size_t smem = sizeof(double) * (static_cast<size_t>(KT) *
-                                            (2 * nrad + 3 + 8 * ny) +
-                                        static_cast<size_t>(KT + 1) * 2 * nA) +
-                      sizeof(int) * KT;
-  const int err = fs_allow_smem(ace_pair_basis_kernel, smem);
+                              int inner, int radial, const double* ytab,
+                              const int* cols, int nA, int nrad, int lmax,
+                              long long N, int K, int warps, int nw_log,
+                              int rl, int smem, double* A, double* Jp,
+                              void* stream) {
+  if (lmax < 0 || warps < 1 || warps > 32 || nw_log < 0 || nw_log > 5 ||
+      static_cast<size_t>(smem) > FS_SMEM_LIMIT)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args p{disp, jelem, mask, ielem, rcut, lmbda, rcin, dcin, ytab,
+               reinterpret_cast<const int4*>(cols), T, inner, radial, nA,
+               nrad, lmax, K, nw_log, rl, N};
+  const int err = fs_allow_smem(ace_pair_basis_kernel,
+                                static_cast<size_t>(smem));
   if (err) return err;
   if (N > 0) {
-    ace_pair_basis_kernel<<<static_cast<unsigned>(N), THREADS, smem,
+    ace_pair_basis_kernel<<<static_cast<unsigned>(N), 32 * warps, smem,
                             static_cast<cudaStream_t>(stream)>>>(p, A, Jp);
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,133 +1,252 @@
-// K5 zbl_pair_grad: the ZBL reference pair energy and its gradient with
-// respect to each pair displacement, in closed form.
+// K5 zbl_eav: the ZBL reference potential of a batch of configs, energy,
+// forces and virial in one launch.
 //
 // Per directed pair slot (c, i, k) with mask set, r = |D[i, k]| and the
 // LAMMPS `pair_style zbl` energy of `zbl_pair_energy`
 //   e(r)  = pre / r * phi(r / a) + sw5 + [r > r_in] t^3 (sw3 + sw4 t)
 //   e'(r) = pre * (-phi / r^2 + phi' / r) + [r > r_in] (3 sw3 t^2 + 4 sw4 t^3)
 // with t = r - r_in, phi(x) = sum_m c_m exp(-d_m x), phi' = dphi/dr, and
-// e = e' = 0 at r >= r_out or for a type pair without coefficients.  Outputs
-// g[c, i, k] = 0.5 e'(r) D / r (zero for masked slots), which is what the
-// vjp of 0.5 sum e gives, and energy[c] = 0.5 sum e, summed per atom and
-// then per config in a fixed order.  Forces and virial are formed from g by
-// K4 (pair_scatter_rows) with a width of 1.
+// e = e' = 0 at r >= r_out or for a type pair without coefficients.  The
+// slot's gradient is g = 0.5 e'(r) D / r (what the vjp of 0.5 sum e gives),
+// and per atom n and config c
+//   force[c, n]  = sum_k g[c, n, k] - sum over n's reverse slots s of g[c, s]
+//   virial[c, v] = -sum over masked slots D[pa_v] g[pb_v]
+//   energy[c]    = 0.5 sum over masked slots e
+// with (pa, pb) = xx, yy, zz, yz, xz, xy.
 //
-// Replaces fitsnap_tpu/ops/refpot.py `reference_eav` (its `jax.vjp` of the
-// pair energy) and `zbl_pair_energy`.
+// Replaces fitsnap_tpu/ops/refpot.py `reference_eav` (:239; its `jax.vjp`
+// of the pair energy and the one-hot matmul scatter of :295-302) and
+// `zbl_pair_energy` (:96).
 //
 // Bound on the H100: bytes.  Each pair slot reads 24 B of displacement, 5 B
-// of index and mask, and writes 24 B of gradient; the four exponentials
-// per pair are far below the card's FP64 rate for that traffic.
+// of index and mask, and 4 B of the reverse table; per atom 12 B of types
+// and 24 B of force out.  The four exponentials per pair (twice: once from
+// each side) are far below the card's FP64 rate for that traffic.
 //
-// Design: one block per atom, one thread per neighbor slot (strided), the
-// per-type-pair table (pre, a, sw3, sw4, sw5, active) read through the
-// cache.  The atom's energy is a shared-memory tree sum; a second kernel
-// sums the atoms of each config in order.  No atomics: deterministic.
+// Design: two warps per atom (64 lanes), ATOMS atoms a block, the blocks
+// of a config consecutive.  The atom's lane L takes its own slots k = L +
+// 64 u, then its reverse slots rev[n, L + 64 u] (flat slots i K + k of the
+// config whose jidx is n), G slots at a time: their indices, then their
+// masks, displacements and type pairs, then their energies, all G loads of
+// a step issued together, so a lane waits for one chain of dependent
+// loads, not one per slot.  A reverse slot's g is recomputed from that
+// slot's own displacement, mask and type pair (type of its source atom i,
+// type of n), never read from a g in memory, so a truncated or one-sided
+// list, or an atom that is its own neighbor through a periodic image (rev
+// repeats that slot), gives what the reference gives.  A fixed butterfly
+// sums each warp's lanes; the atom's force is its two warps' own sums
+// minus their reverse sums, in warp order; the block sums its warps'
+// energy and virial in warp order into a partial per block, and the last
+// block of each config (an integer ticket per config, which that block
+// resets to 0) sums the config's partials in block order.  No
+// floating-point atomics: the outputs repeat bit for bit.
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 64;
+constexpr int ATOMS = 4;                 // atoms of a block (kernels/snap_kernels.py ZBL_ATOMS)
+constexpr int WPA = 2;                   // warps of an atom
+constexpr int WARPS = ATOMS * WPA;
+constexpr int THREADS = 32 * WARPS;
+constexpr int G = 2;                     // slots a lane evaluates together
+constexpr int NPART = 7;                 // energy and the six virial components
 __constant__ double kC[4] = {0.02817, 0.28022, 0.50986, 0.18175};
 __constant__ double kD[4] = {0.20162, 0.40290, 0.94229, 3.19980};
 
-__global__ void zbl_pair_kernel(const double* __restrict__ disp,
-                                const int* __restrict__ jidx,
-                                const unsigned char* __restrict__ mask,
-                                const int* __restrict__ types,
-                                const double* __restrict__ table, int A,
-                                int K, int T, double cut_inner,
-                                double cut_outer, double* __restrict__ g,
-                                double* __restrict__ e_atom) {
-  __shared__ double red[THREADS];
-  const long long n = blockIdx.x;            // atom c * A + local index
-  const long long first = (n / A) * A;       // first atom of its config
-  const int ti = types[n];
-  const int tid = threadIdx.x;
-  double esum = 0.0;
-  for (int k = tid; k < K; k += THREADS) {
-    const long long s = n * K + k;
-    double f = 0.0;
-    double dx = 0.0, dy = 0.0, dz = 0.0;
-    if (mask[s]) {
-      dx = disp[s * 3];
-      dy = disp[s * 3 + 1];
-      dz = disp[s * 3 + 2];
-      const double r = sqrt(dx * dx + dy * dy + dz * dz);
-      const double* p = table + (ti * T + types[first + jidx[s]]) * 6;
-      if (p[5] != 0.0 && r < cut_outer) {
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__global__ void __launch_bounds__(THREADS)
+    zbl_eav_kernel(const double* __restrict__ disp,
+                   const int* __restrict__ jidx,
+                   const unsigned char* __restrict__ mask,
+                   const int* __restrict__ rev,
+                   const int* __restrict__ types,
+                   const double* __restrict__ table, int A, int K, int R,
+                   int T, int bpc, double cut_inner, double cut_outer,
+                   double* __restrict__ part, unsigned* __restrict__ ticket,
+                   double* __restrict__ energy, double* __restrict__ force,
+                   double* __restrict__ virial) {
+  __shared__ double red[WARPS][NPART];
+  __shared__ double fsum[WARPS][6];       // own and reverse sums of g
+  __shared__ bool last;
+  const int c = blockIdx.x / bpc;             // config
+  const int b = blockIdx.x - c * bpc;         // block of the config
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int i = b * ATOMS + warp / WPA;       // atom of the config
+  const int L = lane + 32 * (warp % WPA);     // the atom's lane
+  const long long first = static_cast<long long>(c) * A;
+  double es = 0.0, v[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  double fo[3] = {0.0, 0.0, 0.0}, fr[3] = {0.0, 0.0, 0.0};
+  if (i < A) {
+    const long long n = first + i;
+    const int ti = types[n];
+    const int uo = (K + 32 * WPA - 1) / (32 * WPA);   // own slot steps
+    const int ur = (R + 32 * WPA - 1) / (32 * WPA);   // reverse slot steps
+    for (int g0 = 0; g0 < uo + ur; g0 += G) {
+      long long s[G];
+      int src[G];
+#pragma unroll
+      for (int u = 0; u < G; ++u) {      // 1. the slot: own, or reverse
+        const int it = g0 + u;
+        s[u] = -1;
+        src[u] = 0;
+        if (it < uo) {
+          const int k = L + 32 * WPA * it;
+          if (k < K) s[u] = n * K + k;
+        } else if (it < uo + ur) {
+          const int q = L + 32 * WPA * (it - uo);
+          const int slot = q < R ? rev[n * R + q] : -1;
+          if (slot >= 0) {
+            s[u] = first * K + slot;
+            src[u] = slot / K;
+          }
+        }
+      }
+      double d[G][3];
+      int pt[G];
+#pragma unroll
+      for (int u = 0; u < G; ++u) {      // 2. mask, displacement, type pair
+        pt[u] = -1;
+        d[u][0] = d[u][1] = d[u][2] = 0.0;
+        if (s[u] >= 0 && mask[s[u]]) {
+          d[u][0] = disp[3 * s[u]];
+          d[u][1] = disp[3 * s[u] + 1];
+          d[u][2] = disp[3 * s[u] + 2];
+          pt[u] = g0 + u < uo ? ti * T + types[first + jidx[s[u]]]
+                              : types[first + src[u]] * T + ti;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < G; ++u) {      // 3. e and e', then the sums
+        if (pt[u] < 0) continue;
+        const double* p = table + 6 * pt[u];
+        const double dx = d[u][0], dy = d[u][1], dz = d[u][2];
+        const double r = sqrt(dx * dx + dy * dy + dz * dz);
+        if (p[5] == 0.0 || !(r < cut_outer)) continue;
         const double pre = p[0];
-        const double a = p[1];
-        const double x = r / a;
+        const double ainv = 1.0 / p[1];
+        const double rinv = 1.0 / r;
+        const double x = r * ainv;
         double phi = 0.0, dphi = 0.0;
+#pragma unroll
         for (int m = 0; m < 4; ++m) {
           const double ex = exp(-kD[m] * x);
           phi += kC[m] * ex;
           dphi -= kC[m] * kD[m] * ex;
         }
-        dphi /= a;
-        double e = pre / r * phi;
-        e += p[4];
-        double de = pre * (-phi / (r * r) + dphi / r);
+        dphi *= ainv;
+        double e = pre * rinv * phi + p[4];
+        double de = pre * rinv * (dphi - phi * rinv);
         if (r > cut_inner) {
           const double t = r - cut_inner;
           e += t * t * t * (p[2] + p[3] * t);
           de += t * t * (3.0 * p[2] + 4.0 * p[3] * t);
         }
-        esum += e;
-        f = 0.5 * de / r;
+        const double f = 0.5 * de * rinv;
+        const double gx = f * dx, gy = f * dy, gz = f * dz;
+        if (g0 + u < uo) {
+          es += e;
+          fo[0] += gx;
+          fo[1] += gy;
+          fo[2] += gz;
+          v[0] -= dx * gx;
+          v[1] -= dy * gy;
+          v[2] -= dz * gz;
+          v[3] -= dy * gz;
+          v[4] -= dx * gz;
+          v[5] -= dx * gy;
+        } else {
+          fr[0] += gx;
+          fr[1] += gy;
+          fr[2] += gz;
+        }
       }
     }
-    g[s * 3] = f * dx;
-    g[s * 3 + 1] = f * dy;
-    g[s * 3 + 2] = f * dz;
   }
-  red[tid] = esum;
+  es = warp_sum(es);
+#pragma unroll
+  for (int d = 0; d < 6; ++d) v[d] = warp_sum(v[d]);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    fo[d] = warp_sum(fo[d]);
+    fr[d] = warp_sum(fr[d]);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      fsum[warp][d] = fo[d];
+      fsum[warp][3 + d] = fr[d];
+    }
+    red[warp][0] = es;
+#pragma unroll
+    for (int d = 0; d < 6; ++d) red[warp][1 + d] = v[d];
+  }
   __syncthreads();
-  for (int half = THREADS / 2; half > 0; half /= 2) {
-    if (tid < half) red[tid] += red[tid + half];
-    __syncthreads();
+  if (warp % WPA == 0 && lane < 3 && i < A) {
+    double so = 0.0, sr = 0.0;
+#pragma unroll
+    for (int h = 0; h < WPA; ++h) {
+      so += fsum[warp + h][lane];
+      sr += fsum[warp + h][3 + lane];
+    }
+    force[3 * (first + i) + lane] = so - sr;
   }
-  if (tid == 0) e_atom[n] = red[0];
-}
-
-__global__ void config_sum_kernel(const double* __restrict__ e_atom, int A,
-                                  double* __restrict__ energy) {
-  __shared__ double red[THREADS];
-  const long long c = blockIdx.x;
-  const int tid = threadIdx.x;
-  double s = 0.0;
-  for (int i = tid; i < A; i += THREADS) s += e_atom[c * A + i];
-  red[tid] = s;
+  if (threadIdx.x < NPART) {
+    double t = 0.0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) t += red[w][threadIdx.x];
+    part[static_cast<long long>(blockIdx.x) * NPART + threadIdx.x] = t;
+    __threadfence();
+  }
   __syncthreads();
-  for (int half = THREADS / 2; half > 0; half /= 2) {
-    if (tid < half) red[tid] += red[tid + half];
-    __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(ticket + c, 1u) == static_cast<unsigned>(bpc - 1);
+  __syncthreads();
+  if (!last) return;
+  // the last block of config c: its blocks' partials in block order
+  const double* pc = part + static_cast<long long>(c) * bpc * NPART;
+  for (int d = warp; d < NPART; d += WARPS) {
+    double t = 0.0;
+    for (int q = lane; q < bpc; q += 32) t += __ldcg(pc + q * NPART + d);
+    t = warp_sum(t);
+    if (lane == 0) {
+      if (d == 0)
+        energy[c] = 0.5 * t;
+      else
+        virial[6 * c + d - 1] = t;
+    }
   }
-  if (tid == 0) energy[c] = 0.5 * red[0];
+  if (threadIdx.x == 0) ticket[c] = 0u;
 }
 
 }  // namespace
 
-// disp (C, A, K, 3) f64, jidx (C, A, K) i32, mask (C, A, K) u8, types
-// (C, A) i32, table (T, T, 6) f64 rows (pre, a, sw3, sw4, sw5, active);
-// e_atom (C, A) f64 scratch.  Writes g (C, A, K, 3) and energy (C,).
-extern "C" int zbl_pair_grad(const double* disp, const int* jidx,
-                             const unsigned char* mask, const int* types,
-                             const double* table, int C, int A, int K, int T,
-                             double cut_inner, double cut_outer,
-                             double* e_atom, double* g, double* energy,
-                             void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long natoms = static_cast<long long>(C) * A;
-  if (natoms > 0) {
-    zbl_pair_kernel<<<static_cast<unsigned>(natoms), THREADS, 0, st>>>(
-        disp, jidx, mask, types, table, A, K, T, cut_inner, cut_outer, g,
-        e_atom);
-    const int err = static_cast<int>(cudaGetLastError());
-    if (err) return err;
-    config_sum_kernel<<<static_cast<unsigned>(C), THREADS, 0, st>>>(
-        e_atom, A, energy);
+// disp (C, A, K, 3) f64, jidx (C, A, K) i32, mask (C, A, K) u8, rev
+// (C, A, R) i32 flat source slots i*K + k (-1 padded), types (C, A) i32,
+// table (T, T, 6) f64 rows (pre, a, sw3, sw4, sw5, active); part
+// (C * ceil(A / ATOMS), 7) f64 scratch; ticket (C,) u32, zero on entry and
+// left zero.  Writes energy (C,), force (C, A, 3) and virial (C, 6).
+extern "C" int zbl_eav(const double* disp, const int* jidx,
+                       const unsigned char* mask, const int* rev,
+                       const int* types, const double* table, int C, int A,
+                       int K, int R, int T, double cut_inner,
+                       double cut_outer, double* part, unsigned* ticket,
+                       double* energy, double* force, double* virial,
+                       void* stream) {
+  const int bpc = (A + ATOMS - 1) / ATOMS;
+  const long long blocks = static_cast<long long>(C) * bpc;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks > 0) {
+    zbl_eav_kernel<<<static_cast<unsigned>(blocks), THREADS, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+        disp, jidx, mask, rev, types, table, A, K, R, T, bpc, cut_inner,
+        cut_outer, part, ticket, energy, force, virial);
   }
   return static_cast<int>(cudaGetLastError());
 }

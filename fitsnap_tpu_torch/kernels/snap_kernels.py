@@ -6,8 +6,8 @@ PyTorch versions beside them.
 | K2 zlist (_chem) | csrc/zlist.cu | ops/snap.py _compute_zcat_pair (channel pairs :1005-1010) |
 | K3 dbdd (_chem) | csrc/dbdd.cu (+ atom_gemm.cuh) | ops/snap.py _dbdu_ylist, _chem_b_and_dbdu + the contractions at :956-982 |
 | K6q quad_chain | csrc/quad_chain.cu | ops/snap.py _quad_chain |
-| K4 pair_scatter_rows | csrc/pair_scatter.cu | calculators/snap.py:326-343, ops/refpot.py:295-302 |
-| K5 zbl_pair_grad | csrc/zbl_pair.cu | ops/refpot.py reference_eav (vjp), zbl_pair_energy |
+| K4 pair_scatter_rows | csrc/pair_scatter.cu | calculators/snap.py:326-343 (and calculators/ace.py:153-162) |
+| K5 zbl_eav | csrc/zbl_pair.cu | ops/refpot.py reference_eav (vjp and scatter), zbl_pair_energy |
 | K7 normal_contrib | csrc/normal_contrib.cu | parallel/fit.py config_normal_contrib (:288-364) |
 | K8 device_neighbors | csrc/device_neighbors.cu | parallel/fit.py device_neighbors |
 | K8r reverse_table | csrc/device_neighbors.cu | the index role of the one-hot (A, K, A) matmuls |
@@ -43,8 +43,8 @@ kl.register("quad_chain", "quad_chain", [_P] * 5 + [_LL] + [_I] * 3
             + [_P] * 3)
 kl.register("pair_scatter_rows", "pair_scatter",
             [_P] * 5 + [_I] * 7 + [_P] * 4)
-kl.register("zbl_pair_grad", "zbl_pair",
-            [_P] * 5 + [_I] * 4 + [_D, _D] + [_P] * 4)
+kl.register("zbl_eav", "zbl_pair",
+            [_P] * 6 + [_I] * 5 + [_D, _D] + [_P] * 6)
 kl.register("device_neighbors", "device_neighbors",
             [_P] * 5 + [_I] * 5 + [_D] * 3 + [_I] + [_P] * 10)
 kl.register("reverse_table", "device_neighbors",
@@ -655,18 +655,20 @@ def pair_scatter_rows(g, disp, vmask, rev, types, ntypes):
 pair_scatter_rows.launches = 0
 
 # ---------------------------------------------------------------------------
-# K5: ZBL pair energy and its gradient in closed form
+# K5: the ZBL reference potential's energy, forces and virial
 # ---------------------------------------------------------------------------
 
 # LAMMPS pair_zbl universal screening function (the constants of
 # csrc/zbl_pair.cu)
 ZBL_C = (0.02817, 0.28022, 0.50986, 0.18175)
 ZBL_D = (0.20162, 0.40290, 0.94229, 3.19980)
+ZBL_ATOMS = 4          # atoms of a block of csrc/zbl_pair.cu, two warps each
+_ZBL_TICKETS = {}      # device -> the kernel's per-config tickets (zero)
 
 
 def zbl_pair_grad_plain(disp, jidx, mask, types, table, cut_inner,
                         cut_outer):
-    """Plain K5: (g (C, A, K, 3), energy (C,)).
+    """The per-slot half of plain K5: (g (C, A, K, 3), energy (C,)).
 
     disp (C, A, K, 3) pair displacements; jidx, mask (C, A, K); types
     (C, A); table (T, T, 6) rows (pre, a, sw3, sw4, sw5, active) per type
@@ -699,30 +701,64 @@ def zbl_pair_grad_plain(disp, jidx, mask, types, table, cut_inner,
     return g, 0.5 * e.sum(dim=(1, 2))
 
 
-def zbl_pair_grad(disp, jidx, mask, types, table, cut_inner, cut_outer):
+def zbl_eav_plain(disp, jidx, mask, rev, types, table, cut_inner,
+                  cut_outer):
+    """Plain K5: (energy (C,), force (C, A, 3), virial (C, 6)), the
+    per-slot gradient of `zbl_pair_grad_plain` turned into forces and
+    virial by K4's plain version at width 1 with one type block.
+
+    rev (C, A, R) is the reverse neighbor table (flat slots i*K + k whose
+    jidx is the row's atom, -1 padded); the virial is ordered (xx, yy, zz,
+    yz, xz, xy), W_ab = -sum D_a g_b over the masked slots."""
+    C, A = mask.shape[:2]
+    g, energy = zbl_pair_grad_plain(disp, jidx, mask, types, table,
+                                    cut_inner, cut_outer)
+    force, virial = pair_scatter_rows_plain(g[:, :, None], disp, mask, rev,
+                                            torch.zeros_like(types), 1)
+    return energy, force.reshape(C, A, 3), virial.reshape(C, 6)
+
+
+def _zbl_tickets(device, C):
+    """The kernel's per-config tickets on `device`, at least C of them:
+    zero when allocated, and left zero by every launch."""
+    t = _ZBL_TICKETS.get(device)
+    if t is None or t.numel() < C:
+        t = torch.zeros((max(C, 64),), dtype=torch.int32, device=device)
+        _ZBL_TICKETS[device] = t
+    return t
+
+
+def zbl_eav(disp, jidx, mask, rev, types, table, cut_inner, cut_outer):
     """K5 on the card; same arguments and outputs as the plain version."""
-    if _on_cpu(disp, jidx, mask, types, table):
-        return zbl_pair_grad_plain(disp, jidx, mask, types, table,
-                                   cut_inner, cut_outer)
+    if _on_cpu(disp, jidx, mask, rev, types, table):
+        return zbl_eav_plain(disp, jidx, mask, rev, types, table,
+                             cut_inner, cut_outer)
     C, A, K = mask.shape
-    T = table.shape[0]
+    R, T = rev.shape[2], table.shape[0]
     _check(disp, "disp", torch.float64, (C, A, K, 3))
     _check(jidx, "jidx", torch.int32, (C, A, K))
     _check(mask, "mask", torch.bool, (C, A, K))
+    _check(rev, "rev", torch.int32, (C, A, R))
     _check(types, "types", torch.int32, (C, A))
     _check(table, "table", torch.float64, (T, T, 6))
     dev = disp.device
-    e_atom = torch.empty((C, A), dtype=torch.float64, device=dev)
-    g = torch.empty((C, A, K, 3), dtype=torch.float64, device=dev)
-    energy = torch.zeros((C,), dtype=torch.float64, device=dev)
-    _launch("zbl_pair_grad", dev, _ptr(disp), _ptr(jidx), _ptr(mask),
-            _ptr(types), _ptr(table), C, A, K, T, float(cut_inner),
-            float(cut_outer), _ptr(e_atom), _ptr(g), _ptr(energy))
-    zbl_pair_grad.launches += 1
-    return g, energy
+    if C * A == 0:
+        return (disp.new_zeros(C), disp.new_zeros((C, A, 3)),
+                disp.new_zeros((C, 6)))
+    bpc = -(-A // ZBL_ATOMS)
+    part = torch.empty((C * bpc, 7), dtype=torch.float64, device=dev)
+    energy = torch.empty((C,), dtype=torch.float64, device=dev)
+    force = torch.empty((C, A, 3), dtype=torch.float64, device=dev)
+    virial = torch.empty((C, 6), dtype=torch.float64, device=dev)
+    _launch("zbl_eav", dev, _ptr(disp), _ptr(jidx), _ptr(mask), _ptr(rev),
+            _ptr(types), _ptr(table), C, A, K, R, T, float(cut_inner),
+            float(cut_outer), _ptr(part), _ptr(_zbl_tickets(dev, C)),
+            _ptr(energy), _ptr(force), _ptr(virial))
+    zbl_eav.launches += 1
+    return energy, force, virial
 
 
-zbl_pair_grad.launches = 0
+zbl_eav.launches = 0
 
 # ---------------------------------------------------------------------------
 # K8: neighbor lists on the device; K8r: their reverse table
@@ -1120,7 +1156,7 @@ def normal_contrib(rows, truths, weights, natoms, types, numtypes,
 
 normal_contrib.launches = 0
 
-KERNELS = (pair_u_duals, zlist, dbdd, pair_scatter_rows, zbl_pair_grad,
+KERNELS = (pair_u_duals, zlist, dbdd, pair_scatter_rows, zbl_eav,
            normal_contrib, device_neighbors, reverse_table, pair_u_duals_chem,
            zlist_chem, dbdd_chem, quad_chain)
 

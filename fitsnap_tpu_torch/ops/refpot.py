@@ -1,9 +1,9 @@
 """Reference (subtracted) potentials in PyTorch: `zero`, `zbl`, `hybrid/overlay`.
 
-Counterpart of `fitsnap_tpu/ops/refpot.py`.  The ZBL pair energy and its
-gradient dE/dD come in closed form from kernel K5 (`zbl_pair_grad`); the
-force scatter and virial run through the row-scatter kernel K4 with a
-gradient of width 1.
+Counterpart of `fitsnap_tpu/ops/refpot.py`.  The ZBL energy, forces and
+virial come from one launch of kernel K5 (`zbl_eav`): the pair energy and
+its gradient dE/dD in closed form, each reverse neighbor slot's gradient
+recomputed from its own displacement, summed per atom and per config.
 
 ZBL follows LAMMPS `pair_style zbl` (metal units): universal screening
 function plus a C1-smooth switching polynomial between the inner and outer
@@ -230,7 +230,7 @@ def reference_eav(disp, jidx, mask, rev, types, spec: RefSpec, plain=False):
     jidx, mask (C, A, K); rev (C, A, R) reverse neighbor table; types (C, A)
     int32.  Returns energy (C,), forces (C, A, 3) and virial (C, 6) ordered
     (xx, yy, zz, yz, xz, xy), W_ab = -sum D_a dE/dD_b.  `plain=True` runs the
-    plain versions of K5 and K4 on any device.
+    plain version of K5 on any device.
     """
     C, A = mask.shape[:2]
     if spec.coul is not None:
@@ -243,10 +243,6 @@ def reference_eav(disp, jidx, mask, rev, types, spec: RefSpec, plain=False):
                 disp.new_zeros((C, 6)))
 
     table = zbl_table(spec.zbl, disp.device)
-    zbl = sk.zbl_pair_grad_plain if plain else sk.zbl_pair_grad
-    g, energy = zbl(disp, jidx, mask, types, table, spec.zbl.cut_inner,
-                    spec.zbl.cut_outer)
-    scatter = sk.pair_scatter_rows_plain if plain else sk.pair_scatter_rows
-    zeros = torch.zeros_like(types)
-    force, virial = scatter(g[:, :, None], disp, mask, rev, zeros, 1)
-    return energy, force.reshape(C, A, 3), virial.reshape(C, 6)
+    zbl = sk.zbl_eav_plain if plain else sk.zbl_eav
+    return zbl(disp, jidx, mask, rev, types, table, spec.zbl.cut_inner,
+               spec.zbl.cut_outer)

@@ -319,7 +319,7 @@ class NetworkSolver(Solver):
         device).  Per bucket of `plan_pos_buckets` the positions go to the
         device (`pack_batch_pos`, float64), and per chunk of configs K8
         builds the neighbor lists, K8r their reverse table, K9 the per-atom
-        ut and B, and K5 + K4 the reference potential; the stats pass forms
+        ut and B, and K5 the reference potential; the stats pass forms
         the targets and the standardization over real atoms.  A bucket
         keeps disp, jidx, mask, rev, ut and B, not the positions (they never
         move in training)."""

@@ -25,7 +25,18 @@ cutoffs and an inner cutoff on the mixed bonds.
   const_mode=("ace", 2))` against JAX's, direct and residual: AtA and Atb
   within 1e-12 relative, nrows exact;
 - on CPU tensors the kernel wrappers run their plain versions and count
-  no launch.
+  no launch;
+- K13's host tables (`ylm_table`, `radial_code`, `k13_columns`), read by
+  a numpy emulation of the kernel's arithmetic (its records, then A and Jp
+  through the column table): Yhat and its gradient against the plain
+  `_ylm_and_gradient` at lmax 8 in the '4pi', 'std' and 'racah'
+  conventions, the radial code against `_radial_and_derivative` in all six
+  variants, and the emulated A and Jp against the plain K13 at lmax 8 in
+  four convention pairs and on the two-element plan, within 1e-12; its
+  launch shape (`k13_shape`) fits a block or raises;
+- a plan of lmax 8 (ranks 1-2, nmax 4 2, lmax 0 8, nmaxbase 4) on 6 atoms
+  x 16 slots: descriptors and jacobian equal JAX's in four convention
+  pairs (the default and the three others), 1e-12.
 """
 
 from types import SimpleNamespace
@@ -201,8 +212,9 @@ def test_descriptors_with_jacobian_match_jax(cases, name):
                                         ("v0_t1", "racah"),
                                         ("pace_x", "4pi")])
 def test_other_conventions_match_jax(cases, radial, ylm):
-    """The plain versions keep the conventions the kernels refuse: the
-    closed-form tangents equal `jax.jvp`'s for them too."""
+    """The plain versions keep every closed-form convention: the tangents
+    equal `jax.jvp`'s for them too.  The kernels take them; they refuse
+    only spline radials."""
     jplan, plan, inputs = cases["two"]
     plan = ace_plan_from_numpy(dict({k: getattr(plan, k)
                                      for k in ACE_PLAN_FIELDS},
@@ -212,8 +224,12 @@ def test_other_conventions_match_jax(cases, radial, ylm):
         lambda *a: ace.ace_descriptors_with_jacobian(*a, plan),
         lambda *a: jace.ace_descriptors_with_jacobian(*a, jplan), inputs)
     assert rel(port[0], ref[0]) <= RTOL and rel(port[1], ref[1]) <= RTOL
-    with pytest.raises(NotImplementedError, match="radial="):
-        ak._kernel_conventions(plan)
+    ak._kernel_conventions(plan)
+    spline = ace_plan_from_numpy(dict({k: getattr(plan, k)
+                                       for k in ACE_PLAN_FIELDS},
+                                      spline_delta=0.001))
+    with pytest.raises(NotImplementedError, match="spline"):
+        ak._kernel_conventions(spline)
 
 
 @pytest.mark.parametrize("name", sorted(PLANS))
@@ -343,3 +359,256 @@ def test_wrappers_take_plain_version_on_cpu_and_refuse_meta(cases):
         ak.ace_pair_basis(*(x.to("meta") for x in args), plan)
     with pytest.raises(ValueError, match="no kernel for device"):
         ak.ace_b_dbdd(A.to("meta"), Jp.to("meta"), args[3].to("meta"), plan)
+
+
+# ---------------------------------------------------------------------------
+# K13's host tables, through a numpy emulation of csrc/ace_pair_basis.cu
+# ---------------------------------------------------------------------------
+
+LMAX8 = dict(numtypes=1, ranks=[1, 2], nmax=[4, 2], lmax=[0, 8],
+             lmin=[0, 0], nmaxbase=4, rcutfac=[4.5], lmbda=[3.0],
+             rcinner=[0.0], drcinner=[0.01])
+CONVENTIONS = [("pace_px", "4pi"), ("pace_mx", "std"), ("v0_t1", "racah"),
+               ("pace_x", "4pi")]
+VARIANTS = ["v0", "pace_x", "v0_t1", "pace_x_t1", "pace_px", "pace_mx"]
+
+
+def with_conventions(plan, radial, ylm):
+    return ace_plan_from_numpy(dict({k: getattr(plan, k)
+                                     for k in ACE_PLAN_FIELDS},
+                                    radial=radial, ylm=ylm))
+
+
+@pytest.fixture(scope="module")
+def lmax8():
+    """(JAX plan, port plan, numpy inputs) of a plan of lmax 8 on 6 atoms x
+    16 slots: masked slots, an atom with no neighbor, pairs past the
+    cutoff, an atom's own periodic image."""
+    sec = SimpleNamespace(b_basis="minsub", **LMAX8)
+    jplan = jace.build_ace_plan(sec)
+    plan = ace_plan_from_numpy({k: getattr(jplan, k)
+                                for k in ACE_PLAN_FIELDS})
+    assert plan.lmax == 8
+    rng = np.random.default_rng(11)
+    A, K = 6, 16
+    d = rng.normal(size=(A, K, 3))
+    d *= rng.uniform(0.8, 5.0, (A, K, 1)) / np.linalg.norm(d, axis=-1,
+                                                          keepdims=True)
+    d[0, 1] = [3.3, 0.0, 0.0]
+    mask = rng.uniform(size=(A, K)) < 0.85
+    mask[0, 1] = True
+    mask[-1] = False
+    inputs = (d, np.zeros((A, K), np.int64), mask, np.zeros(A, np.int64))
+    assert (np.linalg.norm(d, axis=-1)[mask] > 4.5).any()
+    return jplan, plan, inputs
+
+
+def np_ylm(u, r, ytab, lmax):
+    """The kernel's Legendre columns: (..., ne, 8) entries per (l, m >= 0)
+    at l (l + 1) / 2 + m: Yhat re, im, gradient re (3), im (3)."""
+    x, y, z = u[..., 0], u[..., 1], u[..., 2]
+    ne = (lmax + 1) * (lmax + 2) // 2
+    norm, ca, cb = ytab
+    out = np.zeros(u.shape[:-1] + (ne, 8))
+    for m in range(lmax + 1):
+        er, ei = np.ones_like(x), np.zeros_like(x)
+        erm = eim = np.zeros_like(x)
+        for _ in range(m):
+            erm, eim = er, ei
+            er, ei = er * x - ei * y, er * y + ei * x
+        e = m * (m + 3) // 2
+        p1, dp1 = np.full_like(x, ca[e]), np.zeros_like(x)
+        p2 = dp2 = np.zeros_like(x)
+        for l in range(m, lmax + 1):
+            if l > m:
+                pl = ca[e] * z * p1 - cb[e] * p2
+                dpl = ca[e] * (p1 + z * dp1) - cb[e] * dp2
+                p2, dp2, p1, dp1 = p1, dp1, pl, dpl
+            pl, dpl = norm[e] * p1, norm[e] * dp1
+            gr = [pl * m * erm, -pl * m * eim, dpl * er]
+            gi = [pl * m * eim, pl * m * erm, dpl * ei]
+            ur = x * gr[0] + y * gr[1] + z * gr[2]
+            ui = x * gi[0] + y * gi[1] + z * gi[2]
+            out[..., e, 0], out[..., e, 1] = pl * er, pl * ei
+            for c, uc in enumerate((x, y, z)):
+                out[..., e, 2 + c] = (gr[c] - uc * ur) / r
+                out[..., e, 5 + c] = (gi[c] - uc * ui) / r
+            e += l + 1
+    return out
+
+
+def np_radial(r, rc, lam, code, nrad, fin=1.0, dfin=0.0):
+    """The kernel's radial item: g and dg/dr (..., nrad), zero at r >= rc."""
+    x0 = r / rc
+    den = np.exp(lam) - 1.0
+    if code & 1:
+        el = np.exp(lam * x0)
+        dx = -2.0 * lam * el / den / rc
+    else:
+        el = np.exp(lam * (1.0 - x0))
+        dx = 2.0 * lam * el / den / rc
+    x = 1.0 - 2.0 * (el - 1.0) / den
+    out_range = (x < -1.0) | (x > 1.0)
+    x, dx = np.clip(x, -1.0, 1.0), np.where(out_range, 0.0, dx)
+    if code & 2:
+        x, dx = -x, -dx
+    cz = 0.5 * (1.0 + np.cos(np.pi * x0))
+    dcz = -0.5 * np.pi * np.sin(np.pi * x0) / rc
+    pace = bool(code & 4)
+    skip = 1 if (code & 8) and not pace else 0
+    g = np.zeros(r.shape + (nrad,))
+    dg = np.zeros_like(g)
+    tm = dtm = np.zeros_like(r)
+    tc, dtc = np.ones_like(r), np.zeros_like(r)
+    for t_ in range(nrad + skip):
+        if t_ == 1:
+            tm, dtm, tc, dtc = tc, dtc, x, dx
+        elif t_ > 1:
+            tm, dtm, tc, dtc = (tc, dtc, 2.0 * x * tc - tm,
+                                2.0 * dx * tc + 2.0 * x * dtc - dtm)
+        if t_ < skip:
+            continue
+        if not pace:
+            h, dh = tc, dtc
+        elif t_ == 0:
+            h, dh = np.ones_like(r), np.zeros_like(r)
+        else:
+            h, dh = 0.5 * (1.0 - tc), -0.5 * dtc
+        g[..., t_ - skip] = h * cz * fin
+        dg[..., t_ - skip] = (dh * cz + h * dcz) * fin + h * cz * dfin
+    live = (r < rc)[..., None]
+    return np.where(live, g, 0.0), np.where(live, dg, 0.0)
+
+
+def emulate_k13(disp, jelem, mask, ielem, plan):
+    """A (N, 2nA) and Jp (3, N, K, 2nA) as csrc/ace_pair_basis.cu forms
+    them from `kernel_tables`: each neighbor's record (g, dg/dr, the unit
+    vector and 1 / r, the Legendre columns' entries 9 doubles apart, the
+    constant entry), then every Jp column through `k13_columns`, A the sum
+    of phi over the neighbors."""
+    tabs = ak.kernel_tables(plan)
+    rl, y0, c0 = ak.k13_record(plan)
+    nrad = plan.nradbase
+    safe = np.where(mask[..., None], disp, [1.0, 0.0, 0.0])
+    r = np.sqrt((safe * safe).sum(-1))
+    u = safe / r[..., None]
+    bond = (ielem[:, None], jelem)
+    rc = np.asarray(plan.rcut)[bond]
+    lam = np.asarray(plan.lmbda)[bond]
+    fin, dfin = np.ones_like(r), np.zeros_like(r)
+    if np.any(np.asarray(plan.rcinner) > 0.0):
+        din = np.asarray(plan.drcinner)[bond]
+        dsafe = np.maximum(din, 1e-12)
+        tt = (r - (np.asarray(plan.rcinner)[bond] - din)) / dsafe
+        fin = np.where(tt <= 0.0, 0.0, np.where(
+            tt < 1.0, 0.5 * (1.0 - np.cos(np.pi * tt)), 1.0))
+        dfin = np.where((tt > 0.0) & (tt < 1.0),
+                        0.5 * np.pi * np.sin(np.pi * tt) / dsafe, 0.0)
+    g, dg = np_radial(r, rc, lam, tabs.radial, nrad, fin, dfin)
+    live = mask[..., None]
+    rec = np.zeros(r.shape + (rl,))
+    rec[..., :nrad] = np.where(live, g, 0.0)
+    rec[..., nrad:2 * nrad] = np.where(live, dg, 0.0)
+    rec[..., 2 * nrad:y0] = np.concatenate([u, 1.0 / r[..., None]], -1)
+    ent = np.zeros(r.shape + ((c0 - y0) // 9, 9))
+    ent[..., :8] = np_ylm(u, r, tabs.ytab, plan.lmax)
+    rec[..., y0:c0] = ent.reshape(r.shape + (-1,))
+    rec[..., c0] = 1.0
+    yo, go, n1, w = tabs.cols.T.astype(np.int64)
+    sg = np.where(w < 0, -1.0, 1.0)
+    chan = (w != 0) & (jelem[..., None] == np.abs(w) - 1)
+    base = np.where(chan, rec[..., n1], 0.0)
+    dbase = np.where(chan, rec[..., nrad + n1], 0.0)
+    yv = sg * rec[..., yo]
+    Jp = np.stack([dbase * u[..., c, None] * yv + base * (sg * rec[..., go + c])
+                   for c in range(3)])
+    A = (base * yv).sum(1)
+    A[:, 0] = 1.0
+    return A, Jp
+
+
+@pytest.mark.parametrize("ylm", ["4pi", "std", "racah"])
+def test_k13_ylm_tables_match_plain(ylm):
+    """Yhat and its gradient from `ylm_table` (the kernel's Legendre
+    columns) equal the plain `_ylm_and_gradient` at lmax 8, with m < 0 by
+    the column table's rule Y_{l,-m} = (-1)^m conj(Y_lm)."""
+    lmax = 8
+    rng = np.random.default_rng(4)
+    v = rng.normal(size=(64, 3))
+    r = rng.uniform(0.5, 5.0, 64)
+    u = v / np.linalg.norm(v, axis=1)[:, None]
+    ent = np_ylm(u, r, ak.ylm_table(lmax, ylm), lmax)
+    yr, yi, dyr, dyi = (x.numpy() for x in ace._ylm_and_gradient(
+        t(u), t(r), lmax, ylm))
+    for l in range(lmax + 1):
+        for m in range(-l, l + 1):
+            e = ent[:, l * (l + 1) // 2 + abs(m)]
+            s = 1.0 if m >= 0 else (-1.0) ** m
+            ip = l * l + l + m
+            assert rel(s * e[:, 0], yr[:, ip]) <= RTOL
+            assert rel(s * e[:, 2:5].T, dyr[:, :, ip]) <= RTOL
+            assert rel((s if m >= 0 else -s) * e[:, 1], yi[:, ip]) <= RTOL
+            assert rel((s if m >= 0 else -s) * e[:, 5:8].T,
+                       dyi[:, :, ip]) <= RTOL
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_k13_radial_code_matches_plain(variant):
+    rng = np.random.default_rng(6)
+    r = rng.uniform(0.1, 5.5, 300)
+    rc = rng.uniform(4.0, 5.0, 300)
+    lam = np.full(300, 3.06)
+    g, dg = np_radial(r, rc, lam, ak.radial_code(variant), 22)
+    ref = ace._radial_and_derivative(t(r), t(rc), t(lam), 22, variant)
+    assert (r > rc).any() and np.abs(ref[0].numpy()).max() > 0.1
+    assert rel(g, ref[0]) <= RTOL and rel(dg, ref[1]) <= RTOL
+
+
+@pytest.mark.parametrize("conv", CONVENTIONS + [("two", None)])
+def test_k13_emulation_matches_plain(cases, lmax8, conv):
+    """A and Jp as the kernel forms them from its host tables equal the
+    plain K13: at lmax 8 in four convention pairs, and on the two-element
+    plan (per-bond cutoffs, the inner ramp); structurally zero columns
+    exactly 0."""
+    if conv[0] == "two":
+        _, plan, inputs = cases["two"]
+    else:
+        _, plan, inputs = lmax8
+        plan = with_conventions(plan, *conv)
+    A, Jp = emulate_k13(*inputs, plan)
+    ref = ak.ace_pair_basis_plain(*(t(x) for x in inputs), plan)
+    assert rel(A, ref[0]) <= RTOL and rel(Jp, ref[1]) <= RTOL
+    nA = plan.nA
+    slot = ace.slot_table(plan)
+    zero = [0, nA] + [nA + s for s, (_, _, l, m) in enumerate(slot)
+                      if s and (l < 0 or m == 0)]
+    assert (Jp[..., zero] == 0).all() and (Jp[:, ~inputs[2]] == 0).all()
+
+
+def test_k13_shape_fits_and_raises(lmax8):
+    """The launch shape's working set fits a block; a plan whose records
+    cannot fit one warp's one-neighbor tile is refused."""
+    _, plan, _ = lmax8
+    warps, nw_log, rl, smem = ak.k13_shape(plan, 64)
+    assert rl % 2 == 1 and (plan.lmax + 1) << nw_log <= 48 and nw_log == 2
+    assert smem <= ak.kl.SMEM_LIMIT and warps == 8
+    assert ak.k13_shape(plan, 10)[0] == 3 and ak.k13_shape(plan, 1)[0] == 1
+    assert ak.k13_record(plan)[2] + 8 <= rl
+    big = SimpleNamespace(lmax=80, nradbase=22, nA=600)
+    with pytest.raises(ValueError, match="shared memory"):
+        ak.k13_shape(big, 64)
+    w, nl, _, sm = ak.k13_shape(SimpleNamespace(lmax=40, nradbase=22,
+                                                nA=500), 64)
+    assert sm <= ak.kl.SMEM_LIMIT and w < 8
+
+
+@pytest.mark.parametrize("radial,ylm", CONVENTIONS)
+def test_lmax8_descriptors_with_jacobian_match_jax(lmax8, radial, ylm):
+    jplan, plan, inputs = lmax8
+    plan = with_conventions(plan, radial, ylm)
+    jplan = jace.AcePlan(**dict(jplan.__dict__, radial=radial, ylm=ylm))
+    port, ref = both(
+        lambda *a: ace.ace_descriptors_with_jacobian(*a, plan),
+        lambda *a: jace.ace_descriptors_with_jacobian(*a, jplan), inputs)
+    assert port[1].shape == (6, len(plan.labels), 16, 3)
+    assert rel(port[0], ref[0]) <= RTOL and rel(port[1], ref[1]) <= RTOL

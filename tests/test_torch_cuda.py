@@ -13,7 +13,11 @@ bzeroflag and the inner switching function; blocks with masked pairs, a
 padded atom and an atom that is its own neighbor through a periodic image.
 K5, K7, K8 and K8r run on one batch of three configs built on the card by
 K8: a 2-atom cell whose atoms meet their own images, a 5-atom cell with a
-padded atom, and a padded config (natoms 0).  K8 also at its edges
+padded atom, and a padded config (natoms 0); K5 (the whole ZBL reference,
+`zbl_eav`) also on the cases of tests/test_torch_zbl.py (two types,
+one-sided lists, atoms that meet their own images, a type pair without
+coefficients, padding atoms) and on 40 configs, bit for bit from run to
+run.  K8 also at its edges
 (`K8_CASES`: a triclinic cell, a 2-atom cell at S = 343, a perfect bcc
 supercell of ties, truncation, an empty config, padded atoms and rows, an
 atom that meets its own image, the sizes it refused before its bins (768
@@ -32,7 +36,9 @@ than the plain versions, at float64); K8's mask and jidx and K8r's table
 exactly.  K13 and K14 run on 12 atoms x 40 neighbor slots for a
 one-element plan (ranks 1-4, lmax up to 2) and a two-element plan with an
 inner cutoff on the mixed bonds, with masked pairs, pairs past the cutoff
-and an empty atom; K7 also in the ACE layout (two leading constant
+and an empty atom; K13 also at lmax 8 and on the two-element plan in four
+convention pairs (radial pace_px, pace_mx, v0_t1, pace_x; Ylm 4pi, std,
+racah) on 12 atoms x 37 slots, bit for bit from run to run; K7 also in the ACE layout (two leading constant
 columns), and at the widths its output is tiled over (480 and 1,596, both
 layouts, direct and residual, with a padded and a one-atom config), bit for
 bit from run to run.  K4 with one to three source types at widths 1, 4,
@@ -88,7 +94,7 @@ import torch
 
 from fitsnap_tpu_torch.kernels import ace_kernels as ak
 from fitsnap_tpu_torch.kernels import snap_kernels as sk
-from fitsnap_tpu_torch.ops.ace import build_ace_plan
+from fitsnap_tpu_torch.ops.ace import build_ace_plan, slot_table
 from fitsnap_tpu_torch.ops.neighbors import (count_neighbors, host_neighbors,
                                              required_shifts,
                                              reverse_neighbors, shift_table)
@@ -1147,21 +1153,27 @@ def test_k8r_matches_plain(cuda, name):
 
 
 def test_k5_k7_match_plain(cuda):
-    """ZBL gradient and the normal equations (direct and residual) on rows
-    made from random per-pair gradients of the K8 batch."""
+    """The ZBL reference (energy, forces, virial) and the normal equations
+    (direct and residual) on rows made from random per-pair gradients of
+    the K8 batch."""
     pos, _, _, _, natoms, cut, K = args = streamed_batch(cuda)
     disp, jidx, mask = sk.device_neighbors_plain(*args)
+    rev = sk.reverse_table_plain(jidx, mask)[0]
     C, A = natoms.shape[0], pos.shape[1]
     types = torch.as_tensor([[0, 1, 0, 0, 0]] * C, dtype=torch.int32,
                             device=cuda)
     zbl = build_zbl(4.0, 4.8, {(0, 0): (73, 73), (0, 1): (73, 41)}, 2)
     table = zbl_table(zbl, cuda)
+    k5_args = (disp, jidx, mask, rev, types, table, 4.0, 4.8)
     sk.reset_launches()
-    out = sk.zbl_pair_grad(disp, jidx, mask, types, table, 4.0, 4.8)
-    ref = sk.zbl_pair_grad_plain(disp, jidx, mask, types, table, 4.0, 4.8)
+    out = sk.zbl_eav(*k5_args)
+    again = sk.zbl_eav(*k5_args)
+    ref = sk.zbl_eav_plain(*k5_args)
     torch.cuda.synchronize()
-    assert sk.launches()["zbl_pair_grad"] == 1
-    assert rel_err(out, ref) <= RTOL and ref[1][:2].abs().min() > 0
+    assert sk.launches()["zbl_eav"] == 2
+    assert sk.launches()["pair_scatter_rows"] == 0
+    assert rel_err(out, ref) <= RTOL and ref[0][:2].abs().min() > 0
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
 
     rng = np.random.default_rng(2)
     T, Wr = 2, 6
@@ -1239,6 +1251,111 @@ def test_k13_k14_match_plain(cuda, name):
     assert (A[:, 0] == 1).all() and (Jp[..., 0] == 0).all()
     dead = ~args[2]
     assert (Jp[:, dead] == 0).all() and torch.isfinite(Jp).all()
+
+
+K13_PLANS = {
+    "lmax8": dict(numtypes=1, ranks=[1, 2, 3, 4], nmax=[8, 2, 2, 1],
+                  lmax=[0, 8, 3, 2], lmin=[0, 0, 0, 0], nmaxbase=8,
+                  rcutfac=[4.6], lmbda=[3.0], rcinner=[0.0],
+                  drcinner=[0.01]),
+    "two_elements": ACE_CASES["two_elements"],
+}
+K13_CONVENTIONS = [("pace_px", "4pi"), ("pace_mx", "std"),
+                   ("v0_t1", "racah"), ("pace_x", "4pi")]
+
+
+@pytest.mark.parametrize("conv", K13_CONVENTIONS)
+@pytest.mark.parametrize("name", sorted(K13_PLANS))
+def test_k13_lmax_and_conventions_match_plain(cuda, name, conv):
+    """K13 past its old limits: lmax 8, every convention pair, on 12 atoms
+    x 37 slots (a partial last tile) with masked pairs, pairs past the
+    cutoff and an empty atom; 1e-11, structurally zero columns and dead
+    slots exactly 0, bit for bit from run to run."""
+    spec = K13_PLANS[name]
+    plan = build_ace_plan(SimpleNamespace(b_basis="minsub", **spec))
+    plan.radial, plan.ylm = conv
+    N, K, nel = 12, 37, spec["numtypes"]
+    rng = np.random.default_rng(13)
+    d = rng.normal(size=(N, K, 3))
+    d *= rng.uniform(0.9, 5.0, (N, K, 1)) / np.linalg.norm(d, axis=-1,
+                                                          keepdims=True)
+    mask = rng.uniform(size=(N, K)) < 0.85
+    mask[-1] = False
+    args = (torch.as_tensor(d, device=cuda),
+            torch.as_tensor(rng.integers(0, nel, (N, K)), dtype=torch.int32,
+                            device=cuda),
+            torch.as_tensor(mask, device=cuda),
+            torch.as_tensor(rng.integers(0, nel, N), dtype=torch.int32,
+                            device=cuda))
+    ak.reset_launches()
+    A, Jp = ak.ace_pair_basis(*args, plan)
+    again = ak.ace_pair_basis(*args, plan)
+    ref = ak.ace_pair_basis_plain(*args, plan)
+    torch.cuda.synchronize()
+    assert ak.launches()["ace_pair_basis"] == 2
+    assert rel_err((A, Jp), ref) <= RTOL
+    assert torch.equal(A, again[0]) and torch.equal(Jp, again[1])
+    nA = plan.nA
+    zero = [0, nA] + [nA + s for s, (_, _, l, m) in enumerate(
+        slot_table(plan)) if s and (l < 0 or m == 0)]
+    assert (Jp[..., zero] == 0).all() and (A[:, 0] == 1).all()
+    assert (Jp[:, ~args[2]] == 0).all() and torch.isfinite(Jp).all()
+
+
+def zbl_case(name, rng):
+    """A batch of the ZBL cases of tests/test_torch_zbl.py (host lists at
+    5.4 A, two types): (disp, jidx, mask, types) as numpy, with `types`
+    (T, pairs with coefficients)."""
+    from fitsnap_tpu_torch.tools import synthetic
+
+    if name == "self_image":
+        cells = [(rng.uniform(0, 3.1, (2, 3)), np.diag([3.1, 3.2, 3.0])),
+                 (rng.uniform(0, 2.9, (2, 3)), np.diag([2.9, 3.3, 3.1]))]
+    else:
+        sizes = {"padding": [5, 9], "many_configs": [9] * 40}.get(
+            name, [12, 12, 12])
+        cells = []
+        for na in sizes:
+            pos, rows = synthetic.liquid(rng, na, 0.06, 1.5)
+            cells.append((pos, rows.T))
+    A = max(len(p) for p, _ in cells) + (name == "padding")
+    K = max(count_neighbors(p, c, len(p), 5.4) for p, c in cells)
+    lists = [host_neighbors(p, c, len(p), 5.4, a_pad=A, k_pad=K)[:3]
+             for p, c in cells]
+    disp, jidx, mask = (np.stack(x) for x in zip(*lists))
+    types = np.stack([np.pad(np.arange(len(p)) % 2, (0, A - len(p)))
+                      for p, _ in cells]).astype(np.int32)
+    if name == "one_sided":
+        ci, ii, kk = np.nonzero(mask)
+        pick = rng.choice(len(ci), size=len(ci) // 6, replace=False)
+        mask[ci[pick], ii[pick], kk[pick]] = False
+    return disp, jidx, mask, types
+
+
+@pytest.mark.parametrize("name", ["two_types", "one_sided", "self_image",
+                                  "no_coeff", "padding", "many_configs"])
+def test_zbl_eav_matches_plain(cuda, name):
+    """K5 (the whole reference in one launch) against its plain version on
+    the cases of tests/test_torch_zbl.py and on 40 configs of 9 atoms
+    (three blocks a config, the tickets of 40 configs), 1e-11, one launch a
+    call, bit for bit from run to run."""
+    rng = np.random.default_rng(21)
+    disp, jidx, mask, types = (torch.as_tensor(x, device=cuda)
+                               for x in zbl_case(name, rng))
+    pairs = {(0, 0): (73, 73), (0, 1): (73, 41)}
+    if name != "no_coeff":
+        pairs[(1, 1)] = (41, 41)
+    table = zbl_table(build_zbl(4.0, 4.8, pairs, 2), cuda)
+    rev = sk.reverse_table_plain(jidx, mask)[0]
+    k5_args = (disp, jidx, mask, rev, types, table, 4.0, 4.8)
+    sk.reset_launches()
+    out = sk.zbl_eav(*k5_args)
+    again = sk.zbl_eav(*k5_args)
+    ref = sk.zbl_eav_plain(*k5_args)
+    torch.cuda.synchronize()
+    assert sk.launches()["zbl_eav"] == 2
+    assert rel_err(out, ref) <= RTOL and ref[0].abs().min() > 0
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
 
 
 # ---------------------------------------------------------------------------

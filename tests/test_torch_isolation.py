@@ -162,7 +162,7 @@ def test_wrappers_take_plain_version_on_cpu():
     ref = sk.pair_scatter_rows_plain(*args)
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
     assert set(sk.launches()) == {"pair_u_duals", "zlist", "dbdd",
-                                  "pair_scatter_rows", "zbl_pair_grad",
+                                  "pair_scatter_rows", "zbl_eav",
                                   "normal_contrib", "device_neighbors",
                                   "reverse_table", "pair_u_duals_chem",
                                   "zlist_chem", "dbdd_chem", "quad_chain"}
@@ -202,8 +202,9 @@ def _new_kernel_calls(device):
     pos = t(rng.uniform(0, 3, (C, A, 3)))
     svec = t(np.stack([np.zeros((C, 3)), np.full((C, 3), 3.0)], 1))
     return {
-        "zbl_pair_grad": lambda: sk.zbl_pair_grad(
-            disp, jidx, mask, types, t(np.ones((T, T, 6))), 4.0, 4.8),
+        "zbl_eav": lambda: sk.zbl_eav(
+            disp, jidx, mask, t(np.full((C, A, K), -1), torch.int32), types,
+            t(np.ones((T, T, 6))), 4.0, 4.8),
         "normal_contrib": lambda: sk.normal_contrib(
             rows, truths, weights, natoms, types, T, False, flags),
         "device_neighbors": lambda: sk.device_neighbors(
@@ -213,7 +214,7 @@ def _new_kernel_calls(device):
     }
 
 
-@pytest.mark.parametrize("name", ["zbl_pair_grad", "normal_contrib",
+@pytest.mark.parametrize("name", ["zbl_eav", "normal_contrib",
                                   "device_neighbors", "reverse_table"])
 def test_new_wrappers_plain_on_cpu_and_raise_on_meta(name):
     """K5, K7, K8 and K8r run their plain version for CPU tensors without
