@@ -150,13 +150,17 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    minibatch of 4 (4 x 128 x 64; 1e-11; timed on rotating copies of the
    inputs, as K12; the gather beside `index_add_` of the neighbor scatter
    alone, its library call, and, printed as context, the whole gather in
-   PyTorch: g.sum(2), then `index_add_`), K11, K11T and K10T also at the
-   smallest bucket (4 x 8 x 64), the digests of K9's outputs, of K11's on a
-   seeded grid cotangent and of K11T's on a seeded force cotangent, with
-   K8's at the SNAP chunk and K12's on a seeded dE/dB and G at the NN
+   PyTorch: g.sum(2), then `index_add_`), K9, K10, K11, K11T and K10T also
+   at the smallest bucket (4 x 8 x 64), K9 also at one chunk of the cached
+   prep (32 configs of the largest bucket, where K9 runs in a fit), K9 and
+   K10 twice bit for bit, the digests of K9's and K10's outputs, of K11's
+   on a seeded grid cotangent and of K11T's on a seeded force cotangent,
+   with K8's at the SNAP chunk and K12's on a seeded dE/dB and G at the NN
    minibatch (to
    compare builds bit for bit; K10's and K10T's bounds count the z entries
-   the y tables reference, the least they must read), the loss gradient through
+   the y tables reference, the least they must read, K9's the live pairs'
+   values-only prologue and grid update and its B terms), the loss
+   gradient through
    `NnCachedForce` against autograd through the plain versions (1e-10), the trained model's energies and forces on that
    minibatch against the precompute path's (K1-K3's dB/dD, then K12;
    1e-9), central-difference forces (device neighbor lists, K9 and the
@@ -185,12 +189,6 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    (1e-5), the `.pt`'s per-atom energies and dE/drij on one config against
    the trained model's (the JAX package's 1e-7: standardization is folded
    into layer 1), and a profiler split of one epoch.
-
-Run on a package from before `zbl_eav` (to compare it with this one in
-one chip call, parent - tree - tree - parent), the script times that
-package's reference route (K5's `zbl_pair_grad`, then K4 at width 1:
-four kernels) as its `zbl_eav` row, records its refusal of K13's new
-rows, and holds its K4 count to K5's plus the rows' (once a chunk).
 
 Each NN phase's profiler split prints the port's kernels' launches in the
 profiled epoch beside their device ms (the cached epoch's K11T and gather
@@ -242,9 +240,6 @@ SOURCES = {
                           "fitsnap_tpu/calculators/snap.py:326"),
     "zbl_eav": ("fitsnap_tpu_torch/kernels/csrc/zbl_pair.cu",
                 "fitsnap_tpu/ops/refpot.py:239"),
-    # the reference route of a package before `zbl_eav` (K5 then K4)
-    "zbl_pair_grad": ("fitsnap_tpu_torch/kernels/csrc/zbl_pair.cu",
-                      "fitsnap_tpu/ops/refpot.py:239"),
     "normal_contrib": ("fitsnap_tpu_torch/kernels/csrc/normal_contrib.cu",
                        "fitsnap_tpu/parallel/fit.py:235"),
     "device_neighbors": ("fitsnap_tpu_torch/kernels/csrc/device_neighbors.cu",
@@ -359,6 +354,9 @@ NN_FILES = ["Ta_nn.pt", "Ta_nn_pot.mliap.descriptor", "Ta_nn_pot.mod",
 CUSTOM_FILES = ["Ta_custom.pt", "Ta_custom_metrics.md", "loss_vs_epochs.dat"]
 # the pairwise set's most common bucket (205 of its 357 configs)
 SMALL_BUCKET = (8, 64)
+# configs of one chunk of the NN cached prep (solvers/network.py
+# `_prepare_cached`, where the (A, S, A) transient does not bind)
+PREP_CHUNK = 32
 PAIR_PT_RTOL = 1e-7         # pairwise .pt vs the model (the JAX test's bar)
 # operations of one (j, k) pair's Gaussian column in K15, K15V, K15T when
 # each Gaussian costs its own exp: the exp, the square and the weighted
@@ -488,33 +486,18 @@ def launches():
                 **ck.launches())
 
 
-def zbl_kernel():
-    """The reference's kernel wrapper: `zbl_eav`, or `zbl_pair_grad` on a
-    package from before it (driven by this script in a parent - tree
-    comparison), whose reference calls K4 after it."""
-    from fitsnap_tpu_torch.kernels import snap_kernels as sk
-
-    return "zbl_eav" if hasattr(sk, "zbl_eav") else "zbl_pair_grad"
-
-
 def check_launched(counts, path):
     """Every kernel of the path launched, and K4 as often as the rows
-    need: once a reference call on a rows path, never on an NN path (on
-    a package from before `zbl_eav`, whose reference called K4, once more
-    a reference call)."""
-    zbl = zbl_kernel()
-    missing = [k for k in PATH_KERNELS[path]
-               if counts[zbl if k == "zbl_eav" else k] == 0]
+    need: once a reference call on a rows path, never on an NN path."""
+    missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the {path} path: "
                              f"{missing}")
-    k4 = counts[zbl] * (path in ROWS_PATHS)
-    if zbl == "zbl_pair_grad":
-        k4 += counts[zbl]
+    k4 = counts["zbl_eav"] * (path in ROWS_PATHS)
     if counts["pair_scatter_rows"] != k4:
         raise AssertionError(f"K4 launched {counts['pair_scatter_rows']} "
                              f"times on the {path} path, not {k4} (the "
-                             f"reference: {counts[zbl]})")
+                             f"reference: {counts['zbl_eav']})")
 
 
 def record(rows, name, out, ref, kernel, plain_ms, nbytes, flops,
@@ -966,9 +949,7 @@ def zbl_check(rows, args, spec, shape=None):
     calls bit for bit, the digest printed.  Its bound: disp, jidx, mask,
     rev and types read once, energy, forces and virial written once; its
     operations each listed slot's energy and gradient (four exps) from
-    both sides.  On a package from before `zbl_eav` its route (K5's
-    `zbl_pair_grad`, then K4 at width 1) is timed as the row, its device
-    ms summed over its four kernels."""
+    both sides."""
     import torch
     from fitsnap_tpu_torch.kernels import snap_kernels as sk
     from fitsnap_tpu_torch.ops.refpot import zbl_table
@@ -980,26 +961,13 @@ def zbl_check(rows, args, spec, shape=None):
     k5_args = (disp, jidx, mask, rev, types, table, zc.cut_inner,
                zc.cut_outer)
     name = "zbl_eav" + (f"@{shape}" if shape else "")
-    if zbl_kernel() == "zbl_eav":
-        def call():
-            return sk.zbl_eav(*k5_args)
 
-        def plain():
-            return sk.zbl_eav_plain(*k5_args)
-    else:
-        zeros = torch.zeros_like(types)
+    def call():
+        return sk.zbl_eav(*k5_args)
 
-        def route(grad, scatter):
-            g, energy = grad(disp, jidx, mask, types, table, zc.cut_inner,
-                             zc.cut_outer)
-            force, virial = scatter(g[:, :, None], disp, mask, rev, zeros, 1)
-            return energy, force.reshape(C, A, 3), virial.reshape(C, 6)
+    def plain():
+        return sk.zbl_eav_plain(*k5_args)
 
-        def call():
-            return route(sk.zbl_pair_grad, sk.pair_scatter_rows)
-
-        def plain():
-            return route(sk.zbl_pair_grad_plain, sk.pair_scatter_rows_plain)
     out, again, ref = call(), call(), plain()
     if not all(torch.equal(a, b) for a, b in zip(out, again)):
         raise AssertionError(f"{name}: two calls differ")
@@ -1010,10 +978,9 @@ def zbl_check(rows, args, spec, shape=None):
               + table.numel() * 8 + (C + C * A * 3 + C * 6) * 8)
     flops = 2 * nlisted * (4 * EXP_OPS + 40)
     print(f"{name}: C={C} A={A} K={K} R={rev.shape[2]} listed={nlisted} "
-          f"types={table.shape[0]} route={zbl_kernel()}", flush=True)
+          f"types={table.shape[0]}", flush=True)
     record(rows, name, out, ref, (call, 20), timed(plain, 5), nbytes, flops,
-           None, wrapper=zbl_kernel(), shape=shape)
-    rows[-1]["route_kernels"] = 1 if zbl_kernel() == "zbl_eav" else 4
+           None, wrapper="zbl_eav", shape=shape)
     del out, again, ref
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1229,26 +1196,14 @@ def k13_row(rows, plan, k13_in, npairs, shape):
     Its bound: the inputs read once, A and Jp written once; its
     operations per live pair the radial recursion (about 20 flops per n)
     and the Ylm recursion with its gradient (about 60 per (l, m)), then 16
-    per A-slot (phi and three tangents, re and im).  A package from
-    before `k13_shape` refuses lmax > 6 and the non-default conventions:
-    on it such a row records the refusal (None is returned)."""
+    per A-slot (phi and three tangents, re and im)."""
     import torch
     from fitsnap_tpu_torch.kernels import ace_kernels as ak
 
     N, K = k13_in[2].shape
     nA, nrad, ny = plan.nA, plan.nradbase, (plan.lmax + 1) ** 2
     name = "ace_pair_basis" + ("" if shape == "Ta_PACE" else f"@{shape}")
-    try:
-        out = ak.ace_pair_basis(*k13_in, plan)
-    except (ValueError, NotImplementedError) as e:
-        if hasattr(ak, "k13_shape"):
-            raise
-        src, replaces = SOURCES["ace_pair_basis"]
-        print(f"{name}: refused ({e})", flush=True)
-        rows.append({"name": name, "kernel": "ace_pair_basis",
-                     "route": "cuda", "source": src, "replaces": replaces,
-                     "refused": str(e), "shape": shape})
-        return None
+    out = ak.ace_pair_basis(*k13_in, plan)
     again = ak.ace_pair_basis(*k13_in, plan)
     if not all(torch.equal(a, b) for a, b in zip(out, again)):
         raise AssertionError(f"{name}: two calls differ")
@@ -1264,10 +1219,9 @@ def k13_row(rows, plan, k13_in, npairs, shape):
            wrapper="ace_pair_basis", shape=shape)
     rows[-1]["lmax"], rows[-1]["nA"] = plan.lmax, nA
     rows[-1]["conventions"] = [plan.radial, plan.ylm]
-    if hasattr(ak, "k13_shape"):
-        warps, nw_log, rl, smem = ak.k13_shape(plan, K)
-        rows[-1]["launch_shape"] = {"warps": warps, "tile": 1 << nw_log,
-                                    "record": rl, "smem_bytes": smem}
+    warps, nw_log, rl, smem = ak.k13_shape(plan, K)
+    rows[-1]["launch_shape"] = {"warps": warps, "tile": 1 << nw_log,
+                                "record": rl, "smem_bytes": smem}
     del out
     return ref
 
@@ -2184,14 +2138,80 @@ def gather_row(rows, g, rev, jidx, mask, tag=""):
 def referenced_z(tb):
     """The number of z entries the y tables reference (of each atom's nz):
     what K10 and K10T must read."""
-    return len(np.unique(tb.yt_src.cpu().numpy()))
+    return tb.yz_src.numel()
+
+
+def k9_row(rows, block, p, tag="", shape=None):
+    """K9 against its plain version on `block`'s atoms (1e-11), two calls
+    bit for bit with the digest kept; returns the plain (ut, B).  Its bound:
+    the pair inputs read once, ut and B written once; per live pair the
+    prologue's values (sqrt, tan, rsqrt and a cosine, EXP_OPS each, and
+    about 20 more), the four power tables, w T1, T1 and T2 (3 n_t) and the
+    grid's rank-one update (2 n_t^2), per atom 2 per Lg entry (ut) and 12
+    per B term."""
+    import torch
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+    from fitsnap_tpu_torch.ops.snap import nn_tables
+
+    tb = nn_tables(p)
+    M, K = block[2].shape
+    n_t, U, W = tb.n_t, p.u_len, p.ntriples
+    pairs = int(block[2].sum().item())
+    name = "nn_ut_b" + tag
+    out, again = nk.nn_ut_b(*block, p), nk.nn_ut_b(*block, p)
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        raise AssertionError(f"{name}: two calls differ")
+    DIGESTS[name] = digest(out)
+    ref = nk.nn_ut_b_plain(*block, p)
+    print(f"{name}: atoms={M} K={K} live pairs={pairs}", flush=True)
+    record(rows, name, list(out), list(ref),
+           (rotating(lambda *a: nk.nn_ut_b(*a, p), block), 20),
+           timed(rotating(lambda *a: nk.nn_ut_b_plain(*a, p), block), 5),
+           M * K * (3 * 8 + 4 + 1) + M * 4 + M * (2 * U + W) * 8,
+           pairs * (2 * n_t * n_t + 3 * n_t + 4 * (p.twojmax + 1)
+                    + 4 * EXP_OPS + 20)
+           + M * (2 * tb.lgc_val.numel() + 12 * len(tb.bt_c)), None,
+           wrapper="nn_ut_b", shape=shape, vector=True)
+    return ref
+
+
+def k10_row(rows, dEdB, z, p, tag="", shape=None):
+    """K10 against its plain version on dE/dB and the z-lists (1e-11), two
+    calls bit for bit, with the digest kept on a seeded dE/dB (training
+    need not repeat bit for bit); returns the plain vg.  Its bound: dE/dB
+    and the z entries the y tables reference read once, vg written once;
+    5 flops per y entry and 2 per Lg entry, per atom."""
+    import torch
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+    from fitsnap_tpu_torch.ops.snap import nn_tables
+
+    tb = nn_tables(p)
+    M, W, n_t = dEdB.shape[0], p.ntriples, tb.n_t
+    args = (dEdB,) + tuple(z)
+    name = "nn_dedu_vg" + tag
+    out, again = nk.nn_dedu_vg(*args, p), nk.nn_dedu_vg(*args, p)
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name}: two calls differ")
+    seeded = torch.as_tensor(np.random.default_rng(0).normal(
+        size=tuple(dEdB.shape)), device=dEdB.device)
+    DIGESTS[name + " (seeded dE/dB)"] = digest(
+        [nk.nn_dedu_vg(seeded, *z, p)])
+    ref = nk.nn_dedu_vg_plain(*args, p)
+    record(rows, name, [out], [ref],
+           (rotating(lambda *a: nk.nn_dedu_vg(*a, p), args), 20),
+           timed(rotating(lambda *a: nk.nn_dedu_vg_plain(*a, p), args), 5),
+           M * (W + 2 * referenced_z(tb) + n_t * n_t) * 8,
+           M * (5 * len(tb.yu_fac) + 2 * tb.lgr_val.numel()), None,
+           wrapper="nn_dedu_vg", shape=shape, vector=True)
+    return ref
 
 
 def cached_small_rows(rows, sol):
-    """K11, K11T and K10T against their plain versions on a minibatch of 4
-    at the cached mode's smallest bucket: K11 on the plain K10's grid
-    cotangent, K11T on the force residual of the plain forward, K10T on the
-    plain K11T's grid cotangent."""
+    """K9, K10, K11, K11T and K10T against their plain versions on a
+    minibatch of 4 at the cached mode's smallest bucket: K9 on its lists,
+    K10 on the trained dE/dB, K11 on the plain K10's grid cotangent, K11T
+    on the force residual of the plain forward, K10T on the plain K11T's
+    grid cotangent."""
     import torch
     from fitsnap_tpu_torch.kernels import nn_kernels as nk
     from fitsnap_tpu_torch.kernels import snap_kernels as sk
@@ -2204,11 +2224,12 @@ def cached_small_rows(rows, sol):
     N, A, K = batch["jidx"].shape
     M = N * A
     z = sk.zlist_plain(batch["ut"].reshape(M, -1), p)
-    vg = nk.nn_dedu_vg_plain(dEdB, *z, p)
     pairs = int(block[2].sum().item())
     pair_in = M * K * (3 * 8 + 4 + 1) + M * 4
     print(f"nn cached smallest bucket: N={N} A={A} K={K} live pairs={pairs}",
           flush=True)
+    k9_row(rows, block, p, f"@{(A, K)}", [N, A, K])
+    vg = k10_row(rows, dEdB, z, p, f"@{(A, K)}", [N, A, K])
     args = (vg,) + block
     g = nk.nn_pair_force_plain(*args, p)
     record(rows, f"nn_pair_force@{(A, K)}", [nk.nn_pair_force(*args, p)], [g],
@@ -2235,7 +2256,7 @@ def cached_small_rows(rows, sol):
            (rotating(lambda *a: nk.nn_dedu_vg_t(*a, p), args), 20),
            timed(rotating(lambda *a: nk.nn_dedu_vg_t_plain(*a, p), args), 5),
            M * (n_t * n_t + 2 * referenced_z(tb) + W) * 8,
-           M * (2 * tb.lgc_val.numel() + 5 * tb.yu_fac.numel()), None,
+           M * (2 * tb.lgc_val.numel() + 5 * len(tb.yu_fac)), None,
            wrapper="nn_dedu_vg_t", shape=[N, A, K], vector=True)
 
 
@@ -2260,8 +2281,7 @@ def nn_cached_kernel_checks(fs):
     pairs = int(block[2].sum().item())
     print(f"nn cached kernel inputs: N={N} A={A} K={K} W={W} 2U={2 * U} "
           f"n_t={n_t} live pairs={pairs} float64", flush=True)
-    nlg, ny = tb.lgc_val.numel(), tb.yu_fac.numel()
-    nterms = tb.bt_c.numel()
+    nlg, ny = tb.lgc_val.numel(), len(tb.yu_fac)
     pair_in = M * K * (3 * 8 + 4 + 1) + M * 4        # disp, jelem, mask, ielem
     rows = []
 
@@ -2272,30 +2292,23 @@ def nn_cached_kernel_checks(fs):
         Lg = tb.Lg2.T.contiguous() if transpose else tb.Lg2
         return timed(rotating(lambda y: torch.mm(y, Lg), (x,)), 20)
 
-    # K9: per live pair about 3 n_t^2 flops of accumulation and 600 of
-    # prologue and powers; per atom 2 per Lg entry and 12 per B term
-    ut, B = nk.nn_ut_b_plain(*block, sol._snap)
-    record(rows, "nn_ut_b", list(nk.nn_ut_b(*block, p)), [ut, B],
-           (rotating(lambda *a: nk.nn_ut_b(*a, p), block), 20),
-           timed(rotating(lambda *a: nk.nn_ut_b_plain(*a, p), block), 5),
-           pair_in + M * (2 * U + W) * 8,
-           pairs * (3 * n_t * n_t + 600) + M * (2 * nlg + 12 * nterms), None,
-           vector=True)
+    # K9 at the minibatch and at the cached prep's chunk (`PREP_CHUNK`
+    # configs of the largest bucket, where its launches of a fit run)
+    ut, _ = k9_row(rows, block, p)
     rows[-1]["lg_mm_ms"] = lg_mm(torch.zeros((M, n_t * n_t),
                                              dtype=torch.float64,
                                              device=ut.device) + 1.0)
+    prep, _, prep_block = nn_cached_batch(sol, n=PREP_CHUNK)
+    print(f"nn cached prep chunk: C={prep['jidx'].shape[0]} "
+          f"A={A} K={K}", flush=True)
+    k9_row(rows, prep_block, p, "@prep", list(prep["jidx"].shape))
+    del prep, prep_block
     z = sk.zlist(batch["ut"].reshape(M, -1), p)
 
-    # K10: 5 flops per y entry, 2 per Lg entry, per atom; its bytes (as
-    # K10T's) count the z entries the y tables reference
+    # K10 (its bytes, as K10T's, count the z entries the y tables
+    # reference)
     nzr = referenced_z(tb)
-    args = (dEdB,) + tuple(z)
-    vg = nk.nn_dedu_vg_plain(*args, p)
-    record(rows, "nn_dedu_vg", [nk.nn_dedu_vg(*args, p)], [vg],
-           (rotating(lambda *a: nk.nn_dedu_vg(*a, p), args), 20),
-           timed(rotating(lambda *a: nk.nn_dedu_vg_plain(*a, p), args), 5),
-           M * (W + 2 * nzr + n_t * n_t) * 8, M * (5 * ny + 2 * nlg), None,
-           vector=True)
+    vg = k10_row(rows, dEdB, z, p)
     rows[-1]["lg_mm_ms"] = lg_mm(torch.ones((M, 2 * U), dtype=torch.float64,
                                             device=vg.device), True)
 
@@ -2318,8 +2331,7 @@ def nn_cached_kernel_checks(fs):
                                 device=vg.device)
     gF_seeded = torch.as_tensor(rng.normal(size=(N, A, 3)), device=vg.device)
     k11t_seeded = nk.nn_pair_force_t(gF_seeded, batch["jidx"], *block, p)
-    print(f"nn_ut_b outputs' digest: {digest(nk.nn_ut_b(*block, p))}; "
-          f"nn_pair_force outputs' digest (seeded vg): "
+    print(f"nn_pair_force outputs' digest (seeded vg): "
           f"{digest([nk.nn_pair_force(vg_seeded, *block, p)])}; "
           f"nn_pair_force_t outputs' digest (seeded gF): "
           f"{digest([k11t_seeded])}; " + "; ".join(

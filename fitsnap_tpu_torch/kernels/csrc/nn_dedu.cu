@@ -22,83 +22,206 @@
 // entries of multiply-adds; K10T the same traffic with n_t^2 read and W
 // written.
 //
-// Design of K10: one block per atom.  The y entries and Lg come as
-// host-built CSR tables (the y entries by U column, Lg by grid row), read
-// through the read-only cache; the 2U-wide intermediate stays in shared
-// memory.  Each output is one thread's sum in table order.
-//
-// Design of K10T: one atom a block, its time the block's chain of loads
-// and sums.  (1) At the start, everything the block reads is put in flight
-// at once: each thread's first K10T_REGS y entries into registers, and by
-// asynchronous copies the atom's vgc, the Lg table and the z entries the y
-// tables reference (yz_src, a sorted list built on the host, its indices
-// loaded K10T_ZR at a time ahead of their copies; the y entries index this
-// compact z, 22 KB an atom at twojmax 6, 70 KB at 8).
-// Where they would not fit a block (twojmax 10 and 12), the second launch
-// shape reads z and Lg from L2 instead.  (2) du = vgc . Lg, a thread a
-// column.  (3) The y entries, in a host-built schedule (ops/snap.py
-// `k10t_schedule`), go to every thread of the block: each descriptor's
-// entries, in compact z order, are dealt round-robin to segments of at
-// most `per` (8 at twojmax 6), one a thread, laid out [entry][thread]; so
-// no thread holds more than `per` entries in series (a descriptor has up
-// to 147 at twojmax 6), and at each step a descriptor's threads read
-// neighboring z in shared memory.
-// (4) A descriptor's output sums its segments' partial sums in order.  At
-// twojmax 6 the block is 288 threads at 56 registers, four blocks an SM,
-// so the Ta minibatch's 512 atoms run in one wave.  Measured on the H100
-// and not kept: two atoms a block (each table entry read once for both;
-// slower at both minibatch shapes), 256 threads (slower), the pairs (z_r,
-// z_i) and (du_r, du_i) as 16-byte loads (slower), Lg read from L2 in
-// place of staged (as fast at 4 x 128 x 64, slower at 4 x 8 x 64).
+// Both kernels: one atom a block, its time the block's chain of loads and
+// sums.  (1) At the start, everything the block reads is put in flight at
+// once: each thread's first few y entries into registers, and by
+// asynchronous copies the atom's own input (K10 dE/dB, K10T vgc), the Lg
+// table (K10 by grid row, K10T by U column) and the z entries the y tables
+// reference (yz_src, a sorted list built on the host, its indices loaded
+// ZR at a time ahead of their copies; the y entries index this compact z,
+// 22 KB an atom at twojmax 6, 70 KB at 8).  Where they would not fit a
+// block (twojmax 10 and up), the second launch shape reads z and Lg from
+// L2 instead.  (2) The y entries, in a host-built schedule (ops/snap.py
+// `deal`: K10's by U column, K10T's by descriptor), go to every thread of
+// the block: each group's entries, in compact z order, are dealt
+// round-robin to segments of at most `per` (K10 9, K10T 8 at twojmax 6),
+// one a thread, laid out [entry][thread]; so no thread holds more than
+// `per` entries in series (a U column has up to 17 at twojmax 6, a
+// descriptor 147), and at each step a group's threads read neighboring z
+// in shared memory.  (3) A group's output sums its segments' partial sums
+// in order.  K10 then forms vg = Lg . du a thread a nonzero row of Lg,
+// the longest rows first (574 of the 784 rows are empty at twojmax 6, and
+// a warp of consecutive rows waited on its longest, 16 entries), over
+// zeros stored while the copies were in flight; K10T forms du = vgc . Lg
+// first, a thread a column, and its descriptors last.  The block is the
+// schedule's `threads` (288 at twojmax 6: 56 registers, four blocks an SM,
+// so the Ta minibatch's 512 atoms run in one wave).  K10's time is mostly
+// its z gathers (measured on the H100): the 928 32-byte sectors of an
+// atom's z that hold a referenced entry, read well under the HBM rate.
+// Measured on the H100 and not kept: for K10T two atoms a block (each table
+// entry read once for both; slower at both minibatch shapes), 256 threads
+// (slower), the pairs (z_r, z_i) and (du_r, du_i) as 16-byte loads
+// (slower), Lg read from L2 in place of staged (as fast at 4 x 128 x 64,
+// slower at 4 x 8 x 64); for K10 more entries in registers (spills;
+// slower), z staged as 16-byte pairs (its copies barely faster, the whole
+// slower with its larger block), Lg read from L2 (faster at 4 x 128 x 64,
+// slower at 4 x 8 x 64), vg gathered in shared memory and stored coalesced
+// (slower).
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
+// Entries a thread holds in registers (the rest, where a thread has more,
+// read in turn: K10's 9 at twojmax 6 spill past the narrow bounds' 56
+// registers, which costs more than reading 5 in turn), and the z gathers a
+// thread issues a round.
+constexpr int K10T_REGS = 8;
+constexpr int K10_REGS = 4;
+constexpr int ZR = 8;
 
-__global__ void __launch_bounds__(THREADS) nn_dedu_vg_kernel(
-    const double* __restrict__ dedb, const double* __restrict__ zr,
-    const double* __restrict__ zi, int W, int nz, int two_u,
-    const int* __restrict__ yu_ptr, const int* __restrict__ yu_t,
-    const int* __restrict__ yu_src, const double* __restrict__ yu_fac,
-    int nt2, const int* __restrict__ lgr_ptr,
-    const int* __restrict__ lgr_col, const double* __restrict__ lgr_val,
-    double* __restrict__ vg) {
-  extern __shared__ double sm[];
-  double* sd = sm;          // [W] this atom's dE/dB
-  double* du = sm + W;      // [2U] dE/dutot
-  const long long a = blockIdx.x;
-  const int U = two_u / 2;
-  const double* zra = zr + a * nz;
-  const double* zia = zi + a * nz;
-  for (int t = threadIdx.x; t < W; t += blockDim.x) sd[t] = dedb[a * W + t];
-  __syncthreads();
-  for (int u = threadIdx.x; u < U; u += blockDim.x) {
-    double r = 0.0, i = 0.0;
-    for (int q = yu_ptr[u]; q < yu_ptr[u + 1]; ++q) {
-      const double w = sd[yu_t[q]] * yu_fac[q];
-      const int src = yu_src[q];
-      r += w * zra[src];
-      i += w * zia[src];
+// The narrow launch bounds: blocks of up to 12 warps at 56 registers, so
+// that four blocks of 9 warps (ops/snap.py `deal`'s block where it can)
+// share an SM; wider blocks take the bounds of 1,024 threads, one block an
+// SM.
+constexpr int NARROW_THREADS = 384;
+constexpr int NARROW_BLOCKS = 3;
+
+// The compact z entries of atom a (zra, zia its rows), K10's and K10T's
+// gathers: ZR indices a round, loaded before their copies.
+__device__ __forceinline__ void stage_z(const double* __restrict__ zra,
+                                        const double* __restrict__ zia,
+                                        int nzr,
+                                        const int* __restrict__ yz_src,
+                                        double* zc) {
+  const int T = blockDim.x;
+  for (int i0 = threadIdx.x; i0 < nzr; i0 += ZR * T) {
+    int src[ZR];
+#pragma unroll
+    for (int r = 0; r < ZR; ++r)
+      src[r] = i0 + r * T < nzr ? yz_src[i0 + r * T] : -1;
+#pragma unroll
+    for (int r = 0; r < ZR; ++r) {
+      if (src[r] < 0) continue;
+      fs_cp_async8(zc + i0 + r * T, zra + src[r]);
+      fs_cp_async8(zc + nzr + i0 + r * T, zia + src[r]);
     }
-    du[u] = r;
-    du[U + u] = i;
-  }
-  __syncthreads();
-  for (int de = threadIdx.x; de < nt2; de += blockDim.x) {
-    double acc = 0.0;
-    for (int q = lgr_ptr[de]; q < lgr_ptr[de + 1]; ++q)
-      acc += du[lgr_col[q]] * lgr_val[q];
-    vg[a * nt2 + de] = acc;
   }
 }
 
-// K10T.  Entries a thread held in registers (the rest, where a thread has
-// more, read in turn).
-constexpr int K10T_REGS = 8;
-constexpr int K10T_ZR = 8;                   // z gathers a thread a round
+// Shared doubles of K10's block: dE/dB, du, the slots' partial sums (real
+// and imaginary) and, in the staged shape, the referenced z entries and
+// the Lg row table (nlg values and, as ints, nlg columns, nlr + 1 row
+// starts and the nlr rows).
+__host__ __device__ inline size_t k10_doubles(int W, int two_u, int stride,
+                                              int nzr, int nlg, int nlr,
+                                              bool staged) {
+  const size_t base = static_cast<size_t>(W) + two_u + 2 * stride;
+  return staged ? base + 2 * nzr + nlg + (nlg + 2 * nlr + 2) / 2 : base;
+}
 
-// Shared doubles of K10T's block: the atom's vgc, du and the threads'
+template <bool STAGED, int MAXT, int MINB>
+__global__ void __launch_bounds__(MAXT, MINB) nn_dedu_vg_kernel(
+    const double* __restrict__ dedb, const double* __restrict__ zr,
+    const double* __restrict__ zi, int W, int nz, int two_u, int nt2,
+    int nlr, int nlg, const int* __restrict__ lgr_row,
+    const int* __restrict__ lgr_ptr, const int* __restrict__ lgr_col,
+    const double* __restrict__ lgr_val, int nzr,
+    const int* __restrict__ yz_src, int per, int stride, int key_bits,
+    const int* __restrict__ yc_key, const double* __restrict__ yc_fac,
+    const int* __restrict__ yc_seg, double* __restrict__ vg) {
+  extern __shared__ double sm[];
+  const int T = blockDim.x, tid = threadIdx.x;
+  const int U = two_u / 2;
+  double* sd = sm;                   // [W] this atom's dE/dB
+  double* du = sd + W;               // [2U] dE/dutot
+  double* part = du + two_u;         // [2][stride] the slots' partial sums
+  double* zc = part + 2 * stride;    // staged: [2][nzr] z entries
+  double* lv = zc + 2 * nzr;         // staged: [nlg] Lg by row
+  int* lc = reinterpret_cast<int*>(lv + nlg);    // staged: [nlg]
+  int* lp = lc + nlg;                            // staged: [nlr + 1]
+  int* lr = lp + nlr + 1;                        // staged: [nlr]
+  const long long a = blockIdx.x;
+  const double* zra = zr + a * nz;
+  const double* zia = zi + a * nz;
+
+  // this thread's first K10_REGS y entries and its column's segments, then
+  // the copies: the atom's dE/dB and (staged) its referenced z entries and
+  // the Lg rows, all in flight at once; vg zeroed meanwhile (most of its
+  // rows are: Lg's empty ones)
+  int key[K10_REGS];
+  double fac[K10_REGS];
+#pragma unroll
+  for (int j = 0; j < K10_REGS; ++j) {
+    key[j] = j < per ? yc_key[j * stride + tid] : 0;
+    fac[j] = j < per ? yc_fac[j * stride + tid] : 0.0;
+  }
+  const int s0 = tid < U ? yc_seg[tid] : 0;
+  const int s1 = tid < U ? yc_seg[tid + 1] : 0;
+  for (int i = tid; i < W; i += T) fs_cp_async8(sd + i, dedb + a * W + i);
+  if (STAGED) {
+    for (int i = tid; i < nlg; i += T) {
+      fs_cp_async8(lv + i, lgr_val + i);
+      fs_cp_async4(lc + i, lgr_col + i);
+    }
+    for (int i = tid; i <= nlr; i += T) {
+      fs_cp_async4(lp + i, lgr_ptr + i);
+      if (i < nlr) fs_cp_async4(lr + i, lgr_row + i);
+    }
+    stage_z(zra, zia, nzr, yz_src, zc);
+  }
+  for (int de = tid; de < nt2; de += T) vg[a * nt2 + de] = 0.0;
+  fs_cp_async_wait_all();
+  __syncthreads();
+
+  // the y entries: slot s sums its segment's `per` entries (zero factors
+  // past its end) in order, real and imaginary parts apart
+  const int mask = (1 << key_bits) - 1;
+  auto entry = [&](int kk, double f, double& r, double& im) {
+    const double w = sd[kk & mask] * f;
+    const int z = kk >> key_bits;
+    if (STAGED) {
+      r += w * zc[z];
+      im += w * zc[nzr + z];
+    } else {
+      const int src = yz_src[z];
+      r += w * zra[src];
+      im += w * zia[src];
+    }
+  };
+  for (int sl = tid; sl < stride; sl += T) {
+    double r = 0.0, im = 0.0;
+    if (sl == tid) {
+#pragma unroll
+      for (int j = 0; j < K10_REGS; ++j) entry(key[j], fac[j], r, im);
+      for (int j = K10_REGS; j < per; ++j)
+        entry(yc_key[j * stride + sl], yc_fac[j * stride + sl], r, im);
+    } else {
+      for (int j = 0; j < per; ++j)
+        entry(yc_key[j * stride + sl], yc_fac[j * stride + sl], r, im);
+    }
+    part[sl] = r;
+    part[stride + sl] = im;
+  }
+  __syncthreads();
+
+  // a U column: its segments' sums in order
+  for (int u = tid; u < U; u += T) {
+    const int q0 = u == tid ? s0 : yc_seg[u];
+    const int q1 = u == tid ? s1 : yc_seg[u + 1];
+    double r = 0.0, im = 0.0;
+    for (int q = q0; q < q1; ++q) {
+      r += part[q];
+      im += part[stride + q];
+    }
+    du[u] = r;
+    du[U + u] = im;
+  }
+  __syncthreads();
+
+  // vg = Lg . du, a thread a nonzero row (the longest first, so that a
+  // warp's rows are of like length), over the zeros stored above
+  const int* rr = STAGED ? lr : lgr_row;
+  const int* rp = STAGED ? lp : lgr_ptr;
+  const int* rc = STAGED ? lc : lgr_col;
+  const double* rv = STAGED ? lv : lgr_val;
+  for (int r = tid; r < nlr; r += T) {
+    double acc = 0.0;
+    for (int q = rp[r]; q < rp[r + 1]; ++q) acc += du[rc[q]] * rv[q];
+    vg[a * nt2 + rr[r]] = acc;
+  }
+}
+
+// K10T.  Shared doubles of K10T's block: the atom's vgc, du and the threads'
 // partial sums and, in the staged shape, its referenced z entries and the
 // Lg table (nlg values and, as ints, nlg rows and 2U + 1 column starts).
 __host__ __device__ inline size_t k10t_doubles(int nt2, int two_u,
@@ -107,10 +230,6 @@ __host__ __device__ inline size_t k10t_doubles(int nt2, int two_u,
   const size_t base = static_cast<size_t>(nt2) + two_u + threads;
   return staged ? base + 2 * nzr + nlg + (nlg + two_u + 2) / 2 : base;
 }
-
-// K10T's narrow block: up to K10T_NARROW threads, four blocks an SM
-// (ops/snap.py K10T_BLOCK sizes the schedule to it).
-constexpr int K10T_NARROW = 288;
 
 template <bool STAGED, int MAXT, int MINB>
 __global__ void __launch_bounds__(MAXT, MINB) nn_dedu_vg_t_kernel(
@@ -155,19 +274,7 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_dedu_vg_t_kernel(
       fs_cp_async4(lr + i, lgc_row + i);
     }
     for (int i = tid; i <= two_u; i += T) fs_cp_async4(lp + i, lgc_ptr + i);
-    // the z gathers: K10T_ZR indices a round, loaded before their copies
-    for (int i0 = tid; i0 < nzr; i0 += K10T_ZR * T) {
-      int src[K10T_ZR];
-#pragma unroll
-      for (int r = 0; r < K10T_ZR; ++r)
-        src[r] = i0 + r * T < nzr ? yz_src[i0 + r * T] : -1;
-#pragma unroll
-      for (int r = 0; r < K10T_ZR; ++r) {
-        if (src[r] < 0) continue;
-        fs_cp_async8(zc + i0 + r * T, zra + src[r]);
-        fs_cp_async8(zc + nzr + i0 + r * T, zia + src[r]);
-      }
-    }
+    stage_z(zra, zia, nzr, yz_src, zc);
   }
   fs_cp_async_wait_all();
   __syncthreads();
@@ -217,34 +324,54 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_dedu_vg_t_kernel(
 
 }  // namespace
 
-// dedb (N, W) f64, zr, zi (N, nz) f64 (K2's z-lists of the atoms' ut); the
-// y entries by U column (yu_ptr (U + 1,), yu_t, yu_src i32, yu_fac f64) and
-// Lg by grid row (lgr_ptr (n_t^2 + 1,), lgr_col i32, lgr_val f64).  Writes
-// vg (N, n_t^2).
+// dedb (N, W) f64, zr, zi (N, nz) f64 (K2's z-lists of the atoms' ut); Lg
+// by grid row (its nlr nonzero rows lgr_row i32, longest first, and their
+// nlg entries: lgr_ptr (nlr + 1,), lgr_col i32, lgr_val f64); the nzr z
+// entries the y tables reference (yz_src i32, sorted) and
+// the y entries' schedule by U column (ops/snap.py `deal`: `per` entries a
+// slot, `stride` slots, `threads` threads, yc_key i32 t | zc << key_bits,
+// yc_fac f64, yc_seg (U + 1,) i32).  Writes vg (N, n_t^2).
 extern "C" int nn_dedu_vg(const double* dedb, const double* zr,
                           const double* zi, long long natoms, int W, int nz,
-                          int two_u, const int* yu_ptr, const int* yu_t,
-                          const int* yu_src, const double* yu_fac, int nt2,
-                          const int* lgr_ptr, const int* lgr_col,
-                          const double* lgr_val, double* vg, void* stream) {
-  const size_t smem = sizeof(double) * (W + two_u);
-  const int err = fs_allow_smem(nn_dedu_vg_kernel, smem);
+                          int two_u, int nt2, int nlr, int nlg,
+                          const int* lgr_row, const int* lgr_ptr,
+                          const int* lgr_col, const double* lgr_val, int nzr,
+                          const int* yz_src, int threads, int per,
+                          int stride, int key_bits, const int* yc_key,
+                          const double* yc_fac, const int* yc_seg,
+                          double* vg, void* stream) {
+  if (threads % 32 != 0 || threads > 1024 || stride < threads
+      || key_bits < 1 || key_bits > 30 || W > 1 << key_bits)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the staged shape while the atom's z entries and Lg fit a block, else
+  // both read from L2
+  const bool staged = k10_doubles(W, two_u, stride, nzr, nlg, nlr, true)
+                      * sizeof(double) <= FS_SMEM_LIMIT;
+  const size_t smem = sizeof(double)
+                      * k10_doubles(W, two_u, stride, nzr, nlg, nlr, staged);
+  const auto kernel =
+      !staged ? nn_dedu_vg_kernel<false, 1024, 1>
+      : threads <= NARROW_THREADS
+          ? nn_dedu_vg_kernel<true, NARROW_THREADS, NARROW_BLOCKS>
+          : nn_dedu_vg_kernel<true, 1024, 1>;
+  const int err = fs_allow_smem(kernel, smem);
   if (err) return err;
   if (natoms > 0) {
-    nn_dedu_vg_kernel<<<static_cast<unsigned>(natoms), THREADS, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-        dedb, zr, zi, W, nz, two_u, yu_ptr, yu_t, yu_src, yu_fac, nt2,
-        lgr_ptr, lgr_col, lgr_val, vg);
+    kernel<<<static_cast<unsigned>(natoms), threads, smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        dedb, zr, zi, W, nz, two_u, nt2, nlr, nlg, lgr_row, lgr_ptr, lgr_col,
+        lgr_val, nzr, yz_src, per, stride, key_bits, yc_key, yc_fac, yc_seg,
+        vg);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // vgc (N, n_t^2) f64, zr, zi (N, nz) f64; Lg by U column (nlg entries:
 // lgc_ptr (2U + 1,), lgc_row i32, lgc_val f64); the nzr z entries the y
-// tables reference (yz_src i32, sorted) and the y entries' schedule
-// (ops/snap.py `k10t_schedule`: `per` entries a thread of `threads` (at
-// least W), ys_key i32 u | zc << key_bits, ys_fac f64, ys_seg (W + 1,)
-// i32).  Writes out (N, W).
+// tables reference (yz_src i32, sorted) and the y entries' schedule by
+// descriptor (ops/snap.py `deal`: `per` entries a thread of `threads` (at
+// least W, one slot each), ys_key i32 u | zc << key_bits, ys_fac f64,
+// ys_seg (W + 1,) i32).  Writes out (N, W).
 extern "C" int nn_dedu_vg_t(const double* vgc, const double* zr,
                             const double* zi, long long natoms, int W, int nz,
                             int two_u, int nlg, const int* lgc_ptr,
@@ -262,10 +389,11 @@ extern "C" int nn_dedu_vg_t(const double* vgc, const double* zr,
                       * sizeof(double) <= FS_SMEM_LIMIT;
   const size_t smem = sizeof(double)
                       * k10t_doubles(nt2, two_u, threads, nzr, nlg, staged);
-  const auto kernel = !staged ? nn_dedu_vg_t_kernel<false, 1024, 1>
-                       : threads <= K10T_NARROW
-                           ? nn_dedu_vg_t_kernel<true, K10T_NARROW, 4>
-                           : nn_dedu_vg_t_kernel<true, 1024, 1>;
+  const auto kernel =
+      !staged ? nn_dedu_vg_t_kernel<false, 1024, 1>
+      : threads <= NARROW_THREADS
+          ? nn_dedu_vg_t_kernel<true, NARROW_THREADS, NARROW_BLOCKS>
+          : nn_dedu_vg_t_kernel<true, 1024, 1>;
   const int err = fs_allow_smem(kernel, smem);
   if (err) return err;
   if (natoms > 0) {

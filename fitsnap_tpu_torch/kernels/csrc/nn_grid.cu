@@ -24,42 +24,42 @@
 //
 // Bound on the H100: K9, K11 and K11T by operations per pair (about n_t^2,
 // 4 n_t^2 and 2 n_t^2 multiply-adds per live pair, 6.3 / 3.1 kflop for K11
-// / K11T at twojmax 6, against 24 bytes of displacement).  At the NN
+// / K11T at twojmax 6, against 24 bytes of displacement), K9 also by its B
+// terms (about 12 flops each, 3,549 an atom at twojmax 6).  At the NN
 // minibatch of 4 x 128 x 64 (9,202 live pairs) K11's and K11T's bounds are
 // 1.5 and 1.3 us, by their bytes (the n_t^2 grid (co)tangent of an atom),
 // and their operations take about as long at the FP64 vector rate.
 //
-// Design of K9: one block per atom; the pair prologue and its tangents are
-// computed once per pair in closed form (prologue.cuh, as K1) and the grid
-// tensors never reach HBM.  The neighbors go in chunks of CHUNK pairs: one
-// thread per pair forms the chunk's prologues into shared memory at once
-// (the dual-number prologue, with its tan, sqrt and cos, is the longest
-// serial step).  K9 then walks the chunk in tiles of TILE pairs: the tile's
-// grid vectors go to shared memory, and each thread owns entries (d, e) of
-// the shared grid accumulator, which it updates pair by pair in neighbor
-// order.  A pair whose weight and weight tangents are all zero (masked, or
-// past the SNAP cutoff) adds exactly nothing, so K9 skips a tile of such
-// pairs: the lists are nearest first, and about a third of the slots of the
-// Ta set's minibatch are live.  ut = wg . Lg reads Lg as a column CSR table
-// (1,835 nonzeros of 784 x 280 at twojmax 6).
-//
-// Design of K11 and K11T: one block per atom.  Their time is one block's
-// chain of dependent steps, not their bytes or operations, so each step is
-// kept short.  (1) one block-wide scan lists the atom's masked slots in
-// neighbor order (holes allowed; K11 writes the other slots' zeros on the
-// way), and a padded atom writes its zeros and returns; the first chunk's
-// inputs (displacement, cutoff, weight, K11T's gh) are staged in shared
-// memory on the way, a thread's first slot read ahead in the shadow of the
-// mask's load and the scan (ft_list); (2) the listed pairs' prologues go
-// one a thread, in closed form (prologue_t: shared reciprocals where the
-// dual numbers divide about twenty times), and a second scan keeps the
-// pairs with a nonzero weight or weight tangent (the rest add exactly
-// nothing: K11 writes their zeros), writing their records and the power
-// tables of ar, ai, br, bi (a running product) into shared memory, in
-// neighbor order; (3) a product on the FP64 tensor cores (mma.sync
+// Design of K9, K11 and K11T: one block per atom.  Their time is one
+// block's chain of dependent steps, not their bytes or operations, so each
+// step is kept short.  (1) one block-wide scan lists the atom's masked
+// slots in neighbor order (holes allowed; K11 writes the other slots'
+// zeros on the way); a padded atom writes its zeros and returns (K9: its
+// grid stays 0, so its ut is the self term and its B that of the self
+// term); the first chunk's inputs (displacement, cutoff, weight, K11T's
+// gh) are staged in shared memory on the way, a thread's first slot read
+// ahead in the shadow of the mask's load and the scan (ft_list); (2) the
+// listed pairs' prologues go one a thread, in closed form (prologue_t:
+// shared reciprocals where the dual numbers divide about twenty times; K9
+// the values alone), and a second scan keeps the live pairs (a nonzero
+// weight, or for K11 and K11T a nonzero weight tangent; the rest add
+// exactly nothing: K11 writes their zeros), writing their records and the
+// power tables of ar, ai, br, bi (a running product) into shared memory,
+// in neighbor order; (3) a product on the FP64 tensor cores (mma.sync
 // m16n8k8, atom_gemm.cuh), its operands built from the tables (a few FMAs
 // an entry, zero past n_t and past the live pairs), the accumulators in
 // registers.
+//   K9 (the block the B-term schedule sets, 256 threads at twojmax 6): wg
+// is the product A B of the n_t x L matrix A of the L live pairs' columns
+// w T1 and the L x n_t matrix B of their rows T2, over k-tiles of up to
+// K9_PAIRS pairs staged in shared memory, the warps' output tiles kept in
+// wg between chunks (in rounds where the tiles outnumber the warps).  Then
+// ut = wg . Lg + the self term, a thread a U column (Lg as a column CSR
+// table, 1,835 nonzeros of 784 x 280 at twojmax 6, read through L2), and
+// the B terms in a host-built schedule (ops/snap.py `deal`): each
+// descriptor's terms dealt to segments of at most `per` (15 at twojmax 6,
+// where a descriptor has up to 505 terms), one a thread, whose partial
+// sums the descriptor adds in order.
 //   K11T (four warps up to twojmax 7, a warp to four output tiles beyond):
 // vgc is the product A B of the n_t x 2L matrix A of the L live pairs'
 // columns T1, Y = h.T1t and the 2L x n_t matrix B of their rows X = s T2 +
@@ -86,139 +86,16 @@
 // quarter of the tensor-core steps and most of the operand arithmetic.
 // A chunk holds as many records as the shared memory beside vg allows (all
 // of a block's threads up to twojmax 12; fewer at 13 and 14, whose grids
-// then run more chunks).  Every slot is written once: masked-out, dead and padded slots exactly 0.
-// No atomics, and every output a fixed chain of tensor-core steps and sums
-// in neighbor order: a run repeats bit for bit.
+// then run more chunks).  Every slot is written once: masked-out, dead and
+// padded slots exactly 0.  No atomics, and every output a fixed chain of
+// tensor-core steps and sums in neighbor order: a run repeats bit for bit.
 #include "atom_gemm.cuh"
 #include "common.cuh"
 #include "prologue.cuh"
 
 namespace {
 
-constexpr int GRID_THREADS = 256;  // K9
-constexpr int CHUNK = 128;         // pairs whose prologues form at once
-constexpr int TILE = 16;           // pairs per tile of K9
-constexpr int DUALS = 20;          // ar, ai, br, bi, w: value + 3 tangents
-
-__device__ __forceinline__ double ipow(double x, int n) {
-  double v = 1.0;
-  for (int i = 0; i < n; ++i) v *= x;
-  return v;
-}
-
-__device__ void pair_duals(const double* __restrict__ disp,
-                           const int* __restrict__ jelem,
-                           const unsigned char* __restrict__ mask, int ie,
-                           const double* __restrict__ elem, const Scalars& s,
-                           long long pk, double* o) {
-  Dual out[5];
-  prologue(disp[pk * 3], disp[pk * 3 + 1], disp[pk * 3 + 2], mask[pk] != 0,
-           ie, jelem[pk], elem, s, out);
-  for (int v = 0; v < 5; ++v) {
-    o[4 * v] = out[v].v;
-    for (int c = 0; c < 3; ++c) o[4 * v + 1 + c] = out[v].d[c];
-  }
-}
-
-// The duals of pairs pk0 .. pk0 + n - 1 of one atom, one thread per pair,
-// into rows of `stride` doubles; the rows up to CHUNK past n are zeroed (a
-// zero weight: such a pair adds nothing).
-__device__ void chunk_duals(const double* __restrict__ disp,
-                           const int* __restrict__ jelem,
-                           const unsigned char* __restrict__ mask, int ie,
-                           const double* __restrict__ elem, const Scalars& s,
-                           long long pk0, int n, double* pro, int stride) {
-  for (int i = threadIdx.x; i < CHUNK; i += blockDim.x) {
-    double* o = pro + i * stride;
-    if (i < n) {
-      pair_duals(disp, jelem, mask, ie, elem, s, pk0 + i, o);
-    } else {
-      for (int v = 0; v < stride; ++v) o[v] = 0.0;
-    }
-  }
-}
-
-// True when every pair of a tile of `stride`-double dual rows has zero
-// weight: the tile adds nothing to K9's grid.
-__device__ __forceinline__ bool dead_tile(const double* tp, int stride) {
-  for (int pr = 0; pr < TILE; ++pr)
-    if (tp[pr * stride + 16] != 0.0) return false;
-  return true;
-}
-
-__global__ void __launch_bounds__(GRID_THREADS) nn_ut_b_kernel(
-    const double* __restrict__ disp, const int* __restrict__ jelem,
-    const unsigned char* __restrict__ mask, const int* __restrict__ ielem,
-    const double* __restrict__ elem, Scalars s, int K, int n_t,
-    const int* __restrict__ pidx, const int* __restrict__ qidx,
-    const int* __restrict__ lgc_ptr, const int* __restrict__ lgc_row,
-    const double* __restrict__ lgc_val, int two_u,
-    const double* __restrict__ selfvec, const int* __restrict__ bt_ptr,
-    const int* __restrict__ bt_i1, const int* __restrict__ bt_i2,
-    const int* __restrict__ bt_i3, const double* __restrict__ bt_c, int W,
-    const double* __restrict__ bzero, double* __restrict__ ut,
-    double* __restrict__ B) {
-  extern __shared__ double sm[];
-  const int nt2 = n_t * n_t;
-  double* wg = sm;                    // [n_t^2] grid accumulator
-  double* pro = wg + nt2;             // [CHUNK][DUALS]
-  double* t1 = pro + CHUNK * DUALS;   // [TILE][n_t]
-  double* t2 = t1 + TILE * n_t;       // [TILE][n_t]
-  double* su = t2 + TILE * n_t;       // [2U] this atom's ut
-  const long long a = blockIdx.x;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < nt2; i += blockDim.x) wg[i] = 0.0;
-  for (int c0 = 0; c0 < K; c0 += CHUNK) {
-    const int nc = min(CHUNK, K - c0);
-    chunk_duals(disp, jelem, mask, ielem[a], elem, s, a * K + c0, nc, pro,
-                DUALS);
-    __syncthreads();
-    for (int k0 = 0; k0 < nc; k0 += TILE) {
-      const double* tp = pro + k0 * DUALS;
-      if (dead_tile(tp, DUALS)) continue;
-      for (int i = tid; i < TILE * n_t; i += blockDim.x) {
-        const double* o = tp + (i / n_t) * DUALS;
-        const int d = i % n_t;
-        t1[i] = ipow(o[0], pidx[d]) * ipow(o[4], qidx[d]);
-        t2[i] = ipow(o[8], pidx[d]) * ipow(o[12], qidx[d]);
-      }
-      __syncthreads();
-      for (int i = tid; i < nt2; i += blockDim.x) {
-        const int d = i / n_t, e = i % n_t;
-        double acc = wg[i];
-        for (int pr = 0; pr < TILE; ++pr)
-          acc += tp[pr * DUALS + 16] * t1[pr * n_t + d] * t2[pr * n_t + e];
-        wg[i] = acc;
-      }
-      __syncthreads();
-    }
-  }
-  const int U = two_u / 2;
-  for (int u = tid; u < two_u; u += blockDim.x) {
-    double acc = 0.0;
-    for (int q = lgc_ptr[u]; q < lgc_ptr[u + 1]; ++q)
-      acc += wg[lgc_row[q]] * lgc_val[q];
-    acc += selfvec[u];
-    su[u] = acc;
-    ut[a * two_u + u] = acc;
-  }
-  __syncthreads();
-  for (int t = tid; t < W; t += blockDim.x) {
-    double acc = 0.0;
-    for (int q = bt_ptr[t]; q < bt_ptr[t + 1]; ++q) {
-      const int i1 = bt_i1[q], i2 = bt_i2[q], i3 = bt_i3[q];
-      const double a_r = su[i1], a_i = su[U + i1];
-      const double b_r = su[i2], b_i = su[U + i2];
-      const double ab_r = a_r * b_r - a_i * b_i;
-      const double ab_i = a_r * b_i + a_i * b_r;
-      acc += (ab_r * su[i3] + ab_i * su[U + i3]) * bt_c[q];
-    }
-    if (bzero != nullptr) acc -= bzero[t];
-    B[a * W + t] = acc;
-  }
-}
-
-// K11 and K11T.  Exclusive prefix sum of one int a thread over the block
+// K9, K11 and K11T.  Exclusive prefix sum of one int a thread over the block
 // (a multiple of 32 threads), the block's total in `total`; `ws` holds 33
 // ints.  Every thread calls it; the caller puts a barrier between two calls
 // (the first call's reads of ws against the second's writes).
@@ -316,23 +193,22 @@ __device__ int ft_list(const double* __restrict__ disp,
   return nm;
 }
 
-// K11T's prologue of a masked pair from its staged inputs: the values (ar,
-// ai, br, bi, w) of `prologue` (prologue.cuh) with their tangents along
-// the three displacement axes in closed form, sharing 1 / r, 1 / tan and
-// one rsqrt where the dual numbers divide about twenty times.
+// The prologue of a masked pair from its staged inputs: the values (ar,
+// ai, br, bi, w) of `prologue` (prologue.cuh) and, with TAN (K11, K11T),
+// their tangents along the three displacement axes in closed form, sharing
+// 1 / r, 1 / tan and one rsqrt where the dual numbers divide about twenty
+// times; K9 takes the values alone (t unused).
+template <bool TAN = true>
 __device__ void prologue_t(const double st[FT_STAGE], const Scalars& s,
                            double v[5], double t[5][3]) {
   const double dx = st[0], dy = st[1], dz = st[2], rcutij = st[3];
-  const double dd[3] = {dx, dy, dz};
   const double r = sqrt(dx * dx + dy * dy + dz * dz);
-  const double rinv = 1.0 / r;
   const double span = rcutij - s.rmin0;
   const double kth = s.rfac0 * M_PI / span;      // d theta0 / dr
   const double tn = tan((r - s.rmin0) * kth);
   const double itn = 1.0 / tn;
   const double z0 = r * itn;
   const double r0inv = rsqrt(r * r + z0 * z0);
-  const double r0i3 = r0inv * r0inv * r0inv;
   v[0] = r0inv * z0;
   v[1] = -(r0inv * dz);
   v[2] = r0inv * dy;
@@ -346,7 +222,7 @@ __device__ void prologue_t(const double st[FT_STAGE], const Scalars& s,
       double sn, cs;
       sincos((r - s.rmin0) * rscale, &sn, &cs);
       sf = 0.5 * (cs + 1.0);
-      dsf = -0.5 * sn * rscale;
+      if (TAN) dsf = -0.5 * sn * rscale;
     }
   }
   if (s.switchinnerflag) {
@@ -361,13 +237,17 @@ __device__ void prologue_t(const double st[FT_STAGE], const Scalars& s,
       sincos(fmin(fmax(arg, -0.5 * M_PI), 0.5 * M_PI) + 0.5 * M_PI, &sn,
              &cs);
       inner = 0.5 * (1.0 - cs);
-      dinner = fabs(arg) > 0.5 * M_PI ? 0.0 : 0.5 * sn * karg;
+      if (TAN) dinner = fabs(arg) > 0.5 * M_PI ? 0.0 : 0.5 * sn * karg;
     }
-    dsf = dsf * inner + sf * dinner;
+    if (TAN) dsf = dsf * inner + sf * dinner;
     sf *= inner;
   }
   const double wj = st[4];
   v[4] = sf * wj;
+  if (!TAN) return;
+  const double dd[3] = {dx, dy, dz};
+  const double rinv = 1.0 / r;
+  const double r0i3 = r0inv * r0inv * r0inv;
   for (int c = 0; c < 3; ++c) {
     const double dr = dd[c] * rinv;
     const double dtn = (1.0 + tn * tn) * kth * dr;
@@ -795,6 +675,244 @@ __global__ void __launch_bounds__(THREADS, MINB) nn_pair_force_kernel(
   }
 }
 
+// K9.  A live pair's record: its weight w, then the power tables of ar,
+// ai, br, bi, each x^0 .. x^twojmax.
+__host__ __device__ __forceinline__ int k9_rec_len(int twojmax) {
+  return 1 + 4 * (twojmax + 1);
+}
+
+// K9's shared doubles: the grid wg (n_t^2, rounded up to an even count so
+// that the next region holds 16-byte pairs) and the work region, the
+// product's (the records of `chunk` pairs and a k-tile of `kp` pairs: A
+// transposed, [kp][lda], and B, [kp][ldb]) or the B terms' (ut as (re, im)
+// pairs, then the slots' partial sums), whichever is larger.
+__host__ __device__ inline size_t k9_wg(int n_t) {
+  return (static_cast<size_t>(n_t) * n_t + 1) / 2 * 2;
+}
+__host__ __device__ inline size_t k9_work(const FtShape& sh, int twojmax,
+                                          int chunk, int kp, int two_u,
+                                          int stride) {
+  const size_t prod = static_cast<size_t>(chunk) * k9_rec_len(twojmax)
+                      + static_cast<size_t>(kp) * (sh.lda + sh.ldb);
+  const size_t terms = static_cast<size_t>(two_u) + stride;
+  return prod > terms ? prod : terms;
+}
+
+constexpr int K9_PAIRS = 32;       // live pairs a k-tile, at most
+constexpr int K9_BATCH = 4;        // B terms a thread loads at once
+
+// K9's narrow launch bounds: blocks of up to 8 warps at 64 registers (the
+// FP64 mma.sync takes no fewer), four an SM; wider blocks take the bounds
+// of 1,024 threads, one block an SM.
+constexpr int K9_NARROW_THREADS = 256;
+constexpr int K9_NARROW_BLOCKS = 4;
+
+template <int MAXT, int MINB, int TILES>
+__global__ void __launch_bounds__(MAXT, MINB) nn_ut_b_kernel(
+    const double* __restrict__ disp, const int* __restrict__ jelem,
+    const unsigned char* __restrict__ mask, const int* __restrict__ ielem,
+    const double* __restrict__ elem, Scalars s, int K, int n_t, int twojmax,
+    const int* __restrict__ pidx, const int* __restrict__ qidx,
+    const int* __restrict__ lgc_ptr, const int* __restrict__ lgc_row,
+    const double* __restrict__ lgc_val, int two_u,
+    const double* __restrict__ selfvec, int per, int stride,
+    const long long* __restrict__ bs_key, const double* __restrict__ bs_fac,
+    const int* __restrict__ bs_seg, int W, const double* __restrict__ bzero,
+    int chunk, int kp, size_t work_doubles, double* __restrict__ ut,
+    double* __restrict__ B) {
+  extern __shared__ double sm[];
+  const int T = blockDim.x, tid = threadIdx.x;
+  const int U = two_u / 2;
+  const int np1 = twojmax + 1;
+  const int rec_len = k9_rec_len(twojmax);
+  const FtShape sh(n_t);
+  double* wg = sm;                               // [n_t][n_t]
+  double* work = sm + k9_wg(n_t);
+  double* rec = work;                            // [chunk][rec_len]
+  double* at = rec + chunk * rec_len;            // [kp][lda]: A transposed
+  double* bk = at + kp * sh.lda;                 // [kp][ldb]
+  double2* su = reinterpret_cast<double2*>(work);  // terms: [U] ut (re, im)
+  double* part = work + two_u;                   // terms: [stride]
+  double* stage = sm + work_doubles;             // [chunk][FT_STAGE]
+  int* pq = reinterpret_cast<int*>(stage + chunk * FT_STAGE);  // [np]
+  int* list = pq + sh.np;                        // [K]
+  int* ws = list + K;                            // [33]
+  const long long a = blockIdx.x;
+
+  // the grid zeroed and the exponents (p | q << 8; (0, 0) in the padding)
+  // staged, in the shadow of the scan
+  for (int i = tid; i < n_t * n_t; i += T) wg[i] = 0.0;
+  for (int d = tid; d < sh.np; d += T)
+    pq[d] = d < n_t ? pidx[d] | qidx[d] << 8 : 0;
+
+  // the masked slots in neighbor order, the first chunk's inputs staged; a
+  // padded atom (no masked slot) keeps wg = 0: its ut is the self term
+  const int ie = ielem[a];
+  double ei[4];
+  for (int c = 0; c < 4; ++c) ei[c] = elem[ie * 4 + c];
+  const int nm = ft_list(disp, jelem, nullptr, nullptr, mask, elem, s, ei, a,
+                         0, K, chunk, stage, list, ws, nullptr);
+  __syncthreads();
+
+  // round r: warp w owns output tiles w + (r TILES + i) warps (16 x 8
+  // each), accumulated in registers over the chunk's k-tiles and kept in wg
+  // between chunks
+  const int lane = tid % 32, warp = tid / 32, warps = T / 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int rounds = (sh.tiles + warps * TILES - 1) / (warps * TILES);
+  const int width = max(sh.mp, sh.np);
+  for (int c0 = 0; c0 < nm; c0 += chunk) {
+    // one masked pair a thread: its values, then the live ones (nonzero
+    // weight: the others add exactly nothing) written in neighbor order
+    bool alive = false;
+    double v[5];
+    if (tid < min(chunk, nm - c0)) {
+      double st[FT_STAGE];
+      if (c0 == 0) {
+        for (int u = 0; u < FT_STAGE; ++u) st[u] = stage[tid * FT_STAGE + u];
+      } else {
+        ft_load(disp, jelem, nullptr, nullptr, elem, s, ei, a, 0,
+                a * K + list[c0 + tid], st);
+      }
+      prologue_t<false>(st, s, v, nullptr);
+      alive = v[4] != 0.0;
+    }
+    int nl;
+    const int slot = block_scan(alive ? 1 : 0, ws, nl);
+    if (alive) {
+      double* rr = rec + slot * rec_len;
+      rr[0] = v[4];
+      double x[4] = {1.0, 1.0, 1.0, 1.0};
+      for (int n = 0; n < np1; ++n) {
+        for (int u = 0; u < 4; ++u) {
+          rr[1 + u * np1 + n] = x[u];
+          x[u] *= v[u];
+        }
+      }
+    }
+    __syncthreads();
+    for (int r = 0; r < rounds; ++r) {
+      double acc[TILES][4];
+      int m0[TILES], n0[TILES];                  // -1: no tile
+#pragma unroll
+      for (int i = 0; i < TILES; ++i) {
+        const int tt = warp + (r * TILES + i) * warps;
+        m0[i] = tt < sh.tiles ? (tt / (sh.np / 8)) * 16 : -1;
+        n0[i] = (tt % (sh.np / 8)) * 8;
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0[i] + g + 8 * h;
+          for (int c = 0; c < 2; ++c) {
+            const int col = n0[i] + 2 * tq + c;
+            acc[i][2 * h + c] = m0[i] >= 0 && row < n_t && col < n_t
+                                    ? wg[row * n_t + col] : 0.0;
+          }
+        }
+      }
+      for (int p0 = 0; p0 < nl; p0 += kp) {
+        // the k-tile: pair j's column w T1 and row T2 from its tables, zero
+        // past the live pairs and past n_t
+        const int npr = min(kp, nl - p0);
+        for (int i = tid; i < kp * width; i += T) {
+          const int j = i / width, d = i - j * width;
+          double t1 = 0.0, t2 = 0.0;
+          if (j < npr && d < n_t) {
+            const double* rr = rec + (p0 + j) * rec_len;
+            const int e = pq[d];
+            const int pp = e & 255, qq = e >> 8;
+            t1 = rr[0] * (rr[1 + pp] * rr[1 + np1 + qq]);
+            t2 = rr[1 + 2 * np1 + pp] * rr[1 + 3 * np1 + qq];
+          }
+          if (d < sh.mp) at[j * sh.lda + d] = t1;
+          if (d < sh.np) bk[j * sh.ldb + d] = t2;
+        }
+        __syncthreads();
+        // wg += A B over the tile's k-steps of 8 pairs, in pair order
+        const int ksteps = (npr + 7) / 8;
+        for (int ks = 0; ks < ksteps; ++ks) {
+          const double* ak = at + (8 * ks + tq) * sh.lda + g;
+          const double* bq = bk + (8 * ks + tq) * sh.ldb + g;
+#pragma unroll
+          for (int i = 0; i < TILES; ++i) {
+            if (m0[i] < 0) break;
+            double fa[4], fb[2];
+            for (int h = 0; h < 2; ++h) {
+              fa[2 * h] = ak[4 * h * sh.lda + m0[i]];
+              fa[2 * h + 1] = ak[4 * h * sh.lda + m0[i] + 8];
+              fb[h] = bq[4 * h * sh.ldb + n0[i]];
+            }
+            mma_f64(acc[i], fa, fb);
+          }
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int i = 0; i < TILES; ++i) {
+        if (m0[i] < 0) break;
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0[i] + g + 8 * h;
+          for (int c = 0; c < 2; ++c) {
+            const int col = n0[i] + 2 * tq + c;
+            if (row < n_t && col < n_t)
+              wg[row * n_t + col] = acc[i][2 * h + c];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // ut = wg . Lg + the self term, a thread a column, kept as (re, im)
+  // pairs for the B terms
+  double* sud = reinterpret_cast<double*>(su);
+  for (int u = tid; u < two_u; u += T) {
+    const int q0 = lgc_ptr[u], q1 = lgc_ptr[u + 1];
+    double acc = 0.0;
+    for (int q = q0; q < q1; ++q) acc += wg[lgc_row[q]] * lgc_val[q];
+    acc += selfvec[u];
+    ut[a * two_u + u] = acc;
+    sud[2 * (u < U ? u : u - U) + (u < U ? 0 : 1)] = acc;
+  }
+  __syncthreads();
+
+  // the B terms: slot s sums its segment's `per` terms in order,
+  // K9_BATCH loaded at a time
+  for (int sl = tid; sl < stride; sl += T) {
+    double acc = 0.0;
+    for (int j0 = 0; j0 < per; j0 += K9_BATCH) {
+      long long kk[K9_BATCH];
+      double cc[K9_BATCH];
+#pragma unroll
+      for (int r = 0; r < K9_BATCH; ++r) {
+        const bool in = j0 + r < per;
+        kk[r] = in ? bs_key[(j0 + r) * static_cast<long long>(stride) + sl]
+                   : 0;
+        cc[r] = in ? bs_fac[(j0 + r) * static_cast<long long>(stride) + sl]
+                   : 0.0;
+      }
+#pragma unroll
+      for (int r = 0; r < K9_BATCH; ++r) {
+        if (j0 + r >= per) break;
+        const double2 x = su[kk[r] & 0xffff];
+        const double2 y = su[(kk[r] >> 16) & 0xffff];
+        const double2 z = su[kk[r] >> 32];
+        const double ab_r = x.x * y.x - x.y * y.y;
+        const double ab_i = x.x * y.y + x.y * y.x;
+        acc += (ab_r * z.x + ab_i * z.y) * cc[r];
+      }
+    }
+    part[sl] = acc;
+  }
+  __syncthreads();
+
+  // a descriptor: its segments' sums in order, less bzero
+  for (int t = tid; t < W; t += T) {
+    double acc = 0.0;
+    for (int q = bs_seg[t]; q < bs_seg[t + 1]; ++q) acc += part[q];
+    if (bzero != nullptr) acc -= bzero[t];
+    B[a * W + t] = acc;
+  }
+}
+
 Scalars scalars(double rcutfac, double rfac0, double rmin0, int switchflag,
                 int switchinnerflag) {
   Scalars s;
@@ -810,9 +928,13 @@ Scalars scalars(double rcutfac, double rfac0, double rmin0, int switchflag,
 
 // disp (N, K, 3) f64, jelem (N, K) i32, mask (N, K) u8, ielem (N,) i32, elem
 // (nelem, 4); the grid exponents pidx, qidx (n_t,) i32; Lg by column
-// (lgc_ptr (2U + 1,), lgc_row, lgc_val); selfvec (2U,); the B terms by
-// descriptor (bt_ptr (W + 1,), bt_i1, bt_i2, bt_i3, bt_c); bzero (W,) or
-// null.  Writes ut (N, 2U) and B (N, W).
+// (lgc_ptr (2U + 1,), lgc_row, lgc_val); selfvec (2U,); the B terms'
+// schedule by descriptor (ops/snap.py `deal`: `per` terms a slot, `stride`
+// slots, `threads` threads, bs_key i64 i1 | i2 << 16 | i3 << 32, bs_fac
+// f64, bs_seg (W + 1,) i32); bzero (W,) or null.  Writes ut (N, 2U) and B
+// (N, W).  The chunk of prologues and the k-tile take what shared memory
+// the grid leaves (fewer pairs at the largest grids); a grid past a
+// block's shared memory (twojmax 17 and up) is refused.
 extern "C" int nn_ut_b(const double* disp, const int* jelem,
                        const unsigned char* mask, const int* ielem,
                        const double* elem, double rcutfac, double rfac0,
@@ -820,21 +942,47 @@ extern "C" int nn_ut_b(const double* disp, const int* jelem,
                        long long natoms, int K, int n_t, const int* pidx,
                        const int* qidx, const int* lgc_ptr,
                        const int* lgc_row, const double* lgc_val, int two_u,
-                       const double* selfvec, const int* bt_ptr,
-                       const int* bt_i1, const int* bt_i2, const int* bt_i3,
-                       const double* bt_c, int W, const double* bzero,
-                       double* ut, double* B, void* stream) {
-  const size_t smem = sizeof(double) *
-      (n_t * n_t + CHUNK * DUALS + 2 * TILE * n_t + two_u);
-  const int err = fs_allow_smem(nn_ut_b_kernel, smem);
+                       const double* selfvec, int threads, int per,
+                       int stride, const long long* bs_key,
+                       const double* bs_fac, const int* bs_seg, int W,
+                       const double* bzero, double* ut, double* B,
+                       void* stream) {
+  const int twojmax = grid_twojmax(n_t);
+  if (twojmax < 0 || threads % 32 != 0 || threads > 1024 || stride < threads
+      || two_u / 2 > 1 << 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FtShape sh(n_t);
+  const size_t ints = static_cast<size_t>(sh.np) + K + 33;
+  auto bytes = [&](int chunk, int kp) {
+    return (k9_wg(n_t) + k9_work(sh, twojmax, chunk, kp, two_u, stride)
+            + static_cast<size_t>(chunk) * FT_STAGE) * sizeof(double)
+           + ints * sizeof(int);
+  };
+  // the widest k-tile beside a full chunk, else k-tiles of 8 pairs and the
+  // chunk that fits
+  const int full = ft_chunk(threads, K);
+  int kp = K9_PAIRS;
+  while (kp > 8 && bytes(full, kp) > FS_SMEM_LIMIT) kp -= 8;
+  int chunk = full;
+  while (chunk > 1 && bytes(chunk, kp) > FS_SMEM_LIMIT) --chunk;
+  if (bytes(chunk, kp) > FS_SMEM_LIMIT)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t work = k9_wg(n_t)
+                      + k9_work(sh, twojmax, chunk, kp, two_u, stride);
+  const auto kernel =
+      threads <= K9_NARROW_THREADS
+          ? nn_ut_b_kernel<K9_NARROW_THREADS, K9_NARROW_BLOCKS, 1>
+          : nn_ut_b_kernel<1024, 1, FT_TILES>;
+  const int err = fs_allow_smem(kernel, bytes(chunk, kp));
   if (err) return err;
   if (natoms > 0) {
-    nn_ut_b_kernel<<<static_cast<unsigned>(natoms), GRID_THREADS, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
+    kernel<<<static_cast<unsigned>(natoms), threads, bytes(chunk, kp),
+             static_cast<cudaStream_t>(stream)>>>(
         disp, jelem, mask, ielem, elem,
         scalars(rcutfac, rfac0, rmin0, switchflag, switchinnerflag), K, n_t,
-        pidx, qidx, lgc_ptr, lgc_row, lgc_val, two_u, selfvec, bt_ptr, bt_i1,
-        bt_i2, bt_i3, bt_c, W, bzero, ut, B);
+        twojmax, pidx, qidx, lgc_ptr, lgc_row, lgc_val, two_u, selfvec, per,
+        stride, bs_key, bs_fac, bs_seg,
+        W, bzero, chunk, kp, work, ut, B);
   }
   return static_cast<int>(cudaGetLastError());
 }

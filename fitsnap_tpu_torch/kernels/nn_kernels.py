@@ -35,13 +35,13 @@ kl.register("nn_pair_gather", "nn_force", [_P] * 2 + [_I] * 4 + [_P] * 2)
 kl.register("nn_force_t", "nn_force", [_P] * 3 + [_I] * 4 + [_P] * 2)
 _PAIRS = [_D] * 3 + [_I] * 2 + [_LL]    # prologue scalars, pair count
 kl.register("nn_ut_b", "nn_grid", [_P] * 5 + _PAIRS + [_I] * 2 + [_P] * 5
-            + [_I] + [_P] * 6 + [_I] + [_P] * 4)
+            + [_I] + [_P] + [_I] * 3 + [_P] * 3 + [_I] + [_P] * 4)
 kl.register("nn_pair_force", "nn_grid", [_P] * 6 + _PAIRS + [_I] * 2
             + [_P] * 4)
 kl.register("nn_pair_force_t", "nn_grid", [_P] * 7 + _PAIRS + [_I] * 3
             + [_P] * 4)
-kl.register("nn_dedu_vg", "nn_dedu", [_P] * 3 + [_LL] + [_I] * 3 + [_P] * 4
-            + [_I] + [_P] * 5)
+kl.register("nn_dedu_vg", "nn_dedu", [_P] * 3 + [_LL] + [_I] * 6 + [_P] * 4
+            + [_I] + [_P] + [_I] * 4 + [_P] * 5)
 kl.register("nn_dedu_vg_t", "nn_dedu", [_P] * 3 + [_LL] + [_I] * 4
             + [_P] * 3 + [_I] * 2 + [_P] + [_I] * 3 + [_P] * 5)
 
@@ -189,11 +189,12 @@ def nn_ut_b(disp, jelem, mask, ielem, p):
     two_u, W, dev = 2 * p.u_len, p.ntriples, disp.device
     ut = torch.empty((N, two_u), dtype=torch.float64, device=dev)
     B = torch.empty((N, W), dtype=torch.float64, device=dev)
+    bs = tb.bterm
     _launch("nn_ut_b", dev, _ptr(disp), _ptr(jelem), _ptr(mask), _ptr(ielem),
             *_prologue_args(p), N, K, tb.n_t, _ptr(tb.pidx), _ptr(tb.qidx),
             _ptr(tb.lgc_ptr), _ptr(tb.lgc_row), _ptr(tb.lgc_val), two_u,
-            _ptr(p.selfvec), _ptr(tb.bt_ptr), _ptr(tb.bt_i1), _ptr(tb.bt_i2),
-            _ptr(tb.bt_i3), _ptr(tb.bt_c), W,
+            _ptr(p.selfvec), bs.threads, bs.per, bs.stride, _ptr(bs.key),
+            _ptr(bs.fac), _ptr(bs.seg), W,
             _ptr(p.bzero) if p.bzeroflag else None, _ptr(ut), _ptr(B))
     nn_ut_b.launches += 1
     return ut, B
@@ -220,10 +221,13 @@ def nn_dedu_vg(dEdB, z_r, z_i, p):
     _check_z(z_r, z_i, N, p)
     vg = torch.empty((N, tb.n_t, tb.n_t), dtype=torch.float64,
                      device=dEdB.device)
+    yc = tb.ycol
     _launch("nn_dedu_vg", dEdB.device, _ptr(dEdB), _ptr(z_r), _ptr(z_i), N,
-            W, p.nz, 2 * p.u_len, _ptr(tb.yu_ptr), _ptr(tb.yu_t),
-            _ptr(tb.yu_src), _ptr(tb.yu_fac), tb.n_t ** 2, _ptr(tb.lgr_ptr),
-            _ptr(tb.lgr_col), _ptr(tb.lgr_val), _ptr(vg))
+            W, p.nz, 2 * p.u_len, tb.n_t ** 2, tb.lgr_row.numel(),
+            tb.lgr_val.numel(), _ptr(tb.lgr_row), _ptr(tb.lgr_ptr),
+            _ptr(tb.lgr_col), _ptr(tb.lgr_val),
+            tb.yz_src.numel(), _ptr(tb.yz_src), yc.threads, yc.per, yc.stride,
+            tb.key_bits, _ptr(yc.key), _ptr(yc.fac), _ptr(yc.seg), _ptr(vg))
     nn_dedu_vg.launches += 1
     return vg
 
@@ -253,12 +257,15 @@ def nn_dedu_vg_t(vgc, z_r, z_i, p):
     _check_z(z_r, z_i, N, p)
     out = torch.empty((N, p.ntriples), dtype=torch.float64,
                       device=vgc.device)
+    ys = tb.ydesc
+    if ys.stride != ys.threads:
+        raise ValueError(f"nn_dedu_vg_t: {p.ntriples} descriptors exceed a "
+                         f"block (one slot a thread)")
     _launch("nn_dedu_vg_t", vgc.device, _ptr(vgc), _ptr(z_r), _ptr(z_i), N,
             p.ntriples, p.nz, 2 * p.u_len, tb.lgc_val.numel(),
             _ptr(tb.lgc_ptr), _ptr(tb.lgc_row), _ptr(tb.lgc_val), tb.n_t ** 2,
-            tb.yz_src.numel(), _ptr(tb.yz_src), tb.ys_threads, tb.ys_per,
-            ops.K10T_KEY_BITS, _ptr(tb.ys_key), _ptr(tb.ys_fac),
-            _ptr(tb.ys_seg), _ptr(out))
+            tb.yz_src.numel(), _ptr(tb.yz_src), ys.threads, ys.per,
+            tb.key_bits, _ptr(ys.key), _ptr(ys.fac), _ptr(ys.seg), _ptr(out))
     nn_dedu_vg_t.launches += 1
     return out
 

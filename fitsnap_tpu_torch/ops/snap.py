@@ -592,19 +592,39 @@ def descriptors_with_jacobian(disp, jelem, mask, ielem, p: SnapParams,
 
 
 @dataclass
+class Dealt:
+    """Entries grouped by key (CSR) dealt to the threads of a kernel's block
+    (`deal`): each group's entries cut into segments of at most `per`, one
+    segment a slot, entry j of slot s at [j * stride + s] (padding: key 0,
+    factor 0); `seg` (groups + 1,) the slots of each group.  The kernel
+    launches `threads` threads (`stride` >= threads: a thread takes slots
+    tid, tid + threads, ...)."""
+
+    per: int
+    threads: int
+    stride: int
+    key: torch.Tensor       # (per * stride,) int32 or int64
+    fac: torch.Tensor       # (per * stride,) f64
+    seg: torch.Tensor       # (groups + 1,) int32
+
+
+@dataclass
 class NnTables:
     """Pair-grid tables of one plan on its device (`nn_tables`).
 
     T1[d] = ar^pidx[d] ai^qidx[d] (T2 the same in br, bi) over the n_t
     exponent pairs of degree <= twojmax.  Lg2 (n_t^2, 2U) maps the grid to
     utot: dense for the plain versions, as CSR by column (K9, K10T) and by
-    row (K10) for the kernels.  `yblocks` is `_y_block_plan`; its nonzero
-    entries (t, u, src, fac) are listed by U column (K10) and by descriptor
-    (`yt_*`).  K10T reads `yz_src`, the z entries they reference (sorted,
-    each once), and `ys_*`, the entries by descriptor cut into segments of
-    at most `ys_per` entries, one a thread of `ys_threads` (`k10t_schedule`).
-    The B term list (i1, i2, i3, coefficient) by descriptor is K9's (one
-    channel only)."""
+    row (K10: the nonzero rows alone, `lgr_row`, longest first) for the
+    kernels.  `yblocks` is `_y_block_plan`; its nonzero entries (t, u,
+    src, fac) are listed on the host by U column (`yu_*`)
+    and by descriptor (`yt_*`), and the B terms (i1, i2, i3, coefficient)
+    by descriptor (`bt_*`, one channel only): numpy, the inputs of the
+    dealt schedules, which the kernels read.  `yz_src` lists the z entries
+    the y entries reference (sorted, each once); a y key is `low |
+    zc << key_bits`, zc an index into `yz_src` and low u (K10T, `ydesc`:
+    by descriptor) or t (K10, `ycol`: by U column).  K9's B terms
+    (`bterm`) key i1 | i2 << 16 | i3 << 32."""
 
     n_t: int
     pidx: torch.Tensor      # (n_t,) int32
@@ -613,29 +633,29 @@ class NnTables:
     lgc_ptr: torch.Tensor   # (2U+1,) int32: Lg2 by column
     lgc_row: torch.Tensor
     lgc_val: torch.Tensor
-    lgr_ptr: torch.Tensor   # (n_t^2+1,) int32: Lg2 by row
+    lgr_row: torch.Tensor   # (nrows,) int32: Lg2's nonzero rows, longest first
+    lgr_ptr: torch.Tensor   # (nrows+1,) int32: their entries
     lgr_col: torch.Tensor
     lgr_val: torch.Tensor
     yblocks: list           # [(c0, c1, ts, src_b, fac_b)], tensors
-    yu_ptr: torch.Tensor    # (U+1,) int32: y entries of each u
-    yu_t: torch.Tensor
-    yu_src: torch.Tensor
-    yu_fac: torch.Tensor
-    yt_ptr: torch.Tensor    # (W+1,) int32: y entries of each descriptor
-    yt_u: torch.Tensor
-    yt_src: torch.Tensor
-    yt_fac: torch.Tensor
+    yu_ptr: np.ndarray      # (U+1,): y entries of each u, host
+    yu_t: np.ndarray
+    yu_src: np.ndarray
+    yu_fac: np.ndarray
+    yt_ptr: np.ndarray      # (W+1,): y entries of each descriptor, host
+    yt_u: np.ndarray
+    yt_src: np.ndarray
+    yt_fac: np.ndarray
     yz_src: torch.Tensor    # (nzr,) int32: the referenced z entries
-    ys_per: int             # K10T: entries a thread
-    ys_threads: int         # K10T: threads a block
-    ys_key: torch.Tensor    # (per*threads,) int32: u | zc << 11, [j][thread]
-    ys_fac: torch.Tensor    # (per*threads,) f64, 0 in the padding
-    ys_seg: torch.Tensor    # (W+1,) int32: the threads of each descriptor
-    bt_ptr: Optional[torch.Tensor]   # (W+1,) int32: B terms of each t
-    bt_i1: Optional[torch.Tensor]
-    bt_i2: Optional[torch.Tensor]
-    bt_i3: Optional[torch.Tensor]
-    bt_c: Optional[torch.Tensor]
+    key_bits: int           # the low field of a y key
+    ycol: Dealt             # K10: the y entries by U column
+    ydesc: Dealt            # K10T: the y entries by descriptor
+    bt_ptr: Optional[np.ndarray]     # (W+1,): B terms of each t, host
+    bt_i1: Optional[np.ndarray]
+    bt_i2: Optional[np.ndarray]
+    bt_i3: Optional[np.ndarray]
+    bt_c: Optional[np.ndarray]
+    bterm: Optional[Dealt]  # K9: the B terms by descriptor
 
 
 def _y_block_plan(p: SnapParams):
@@ -673,46 +693,61 @@ def _csr(keys, nkeys, *cols):
     return (ptr,) + tuple(np.asarray(c)[order] for c in cols)
 
 
-K10T_PER = 8           # K10T's least entries a thread
-K10T_BLOCK = 288       # K10T's block where its segments fit (its narrow
-                       # shape, csrc/nn_dedu.cu K10T_NARROW: 4 blocks an SM)
-K10T_KEY_BITS = 11     # u in the low bits of a K10T key (U < 2,048; the
-                       # launch passes it to the kernel)
+DEAL_PER = 8           # a dealt schedule's least entries a slot
+DEAL_MOST = 16         # its most where the segments fit its block
+DEAL_BLOCK = 288       # the block K10's and K10T's schedules fill where
+                       # they can (csrc/nn_dedu.cu's narrow launch bounds
+                       # hold four an SM)
+K9_BLOCK = 256         # K9's (csrc/nn_grid.cu's narrow launch bounds hold
+                       # four an SM at the 64 registers its mma needs)
+DEAL_THREADS = 1024    # a block's most threads
 
 
-def k10t_schedule(ptr, u, zc, fac):
-    """K10T's schedule of the y entries by descriptor (CSR `ptr`, columns
-    u, compact z indices zc, factors fac): each descriptor's entries, in
-    compact z order, dealt round-robin to near-equal segments of at most
-    `per` entries, so that at each step the threads of one descriptor read
-    neighboring z; segment i of the list on thread i, entry j of a thread
-    at [j * threads + thread] (padding: key 0, factor 0).  per is the least
-    from K10T_PER up whose segments fit K10T_BLOCK threads, up to 12
-    entries, else the least whose segments fit 1,024; threads is the
-    segments' count, at least W, rounded up to a warp.  Returns (per,
-    threads, key (u | zc << K10T_KEY_BITS), fac, seg (W+1,): the threads
-    of each descriptor)."""
+def _warps(n):
+    return -(-max(int(n), 1) // 32) * 32
+
+
+def deal(ptr, keys, fac, order=None, block=DEAL_BLOCK):
+    """Deal entries grouped by CSR `ptr` (keys, factors `fac`; within a
+    group in `order`, stable, where given) to the slots of a kernel's
+    block: each group's entries dealt round-robin to near-equal segments
+    of at most `per`, so that at each step a group's slots take
+    neighboring entries in `order`; segment i of the list in slot i.  per
+    is the least from DEAL_PER up whose segments fit `block` slots, up
+    to DEAL_MOST entries, else the least whose segments fit DEAL_THREADS
+    (at most one segment a group: groups past DEAL_THREADS then share
+    threads).  threads covers the slots and the groups, rounded up to a
+    warp, at most DEAL_THREADS; stride covers the slots, at least threads.
+    Returns numpy (per, threads, stride, key (per * stride,), fac, seg
+    (groups + 1,))."""
     cnt = np.diff(ptr)
-    per = K10T_PER
-    while per < 12 and -(-cnt // per).sum() > K10T_BLOCK:
+
+    def nseg(per):
+        return -(-cnt // per)
+
+    per = DEAL_PER
+    while per < DEAL_MOST and nseg(per).sum() > block:
         per += 1
-    if -(-cnt // per).sum() > K10T_BLOCK:
-        per = K10T_PER
-    while -(-cnt // per).sum() > 1024:
-        per += 1
-    nseg = -(-cnt // per)
-    seg = np.concatenate([[0], np.cumsum(nseg)])
-    threads = -(-max(int(seg[-1]), len(cnt), 1) // 32) * 32
-    key = np.zeros((per, threads), np.int64)
-    val = np.zeros((per, threads))
-    keys = np.asarray(u, np.int64) | np.asarray(zc, np.int64) << K10T_KEY_BITS
-    for t, n in enumerate(cnt):
-        q = ptr[t] + np.argsort(zc[ptr[t]:ptr[t + 1]], kind="stable")
-        for i in range(nseg[t]):
-            mine = q[i::nseg[t]]
-            key[:len(mine), seg[t] + i] = keys[mine]
-            val[:len(mine), seg[t] + i] = fac[mine]
-    return per, threads, key.ravel(), val.ravel(), seg
+    if nseg(per).sum() > block:
+        per = DEAL_PER
+        top = max(int(cnt.max(initial=0)), 1)
+        while per < top and nseg(per).sum() > DEAL_THREADS:
+            per += 1
+    n = nseg(per)
+    seg = np.concatenate([[0], np.cumsum(n)])
+    threads = min(_warps(max(seg[-1], len(cnt))), DEAL_THREADS)
+    stride = max(_warps(seg[-1]), threads)
+    key = np.zeros((per, stride), np.int64)
+    val = np.zeros((per, stride))
+    for g, m in enumerate(n):
+        q = np.arange(ptr[g], ptr[g + 1])
+        if order is not None:
+            q = q[np.argsort(order[q], kind="stable")]
+        for i in range(m):
+            mine = q[i::m]
+            key[:len(mine), seg[g] + i] = keys[mine]
+            val[:len(mine), seg[g] + i] = fac[mine]
+    return per, threads, stride, key.ravel(), val.ravel(), seg
 
 
 def nn_tables(p: SnapParams) -> NnTables:
@@ -726,13 +761,27 @@ def nn_tables(p: SnapParams) -> NnTables:
     def t(x, dtype=i32):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
 
+    def dealt(ptr, keys, fac, order=None, dtype=i32, block=DEAL_BLOCK):
+        per, threads, stride, key, val, seg = deal(ptr, keys, fac, order,
+                                                   block)
+        return Dealt(per=per, threads=threads, stride=stride,
+                     key=t(key, dtype), fac=t(val, f64), seg=t(seg))
+
     pidx, qidx, Lg = grid_plan(p.twojmax)
     n_t = len(pidx)
     Lg2 = Lg.reshape(n_t * n_t, -1)
     rows, cols = np.nonzero(Lg2)
     vals = Lg2[rows, cols]
     lgc = _csr(cols, Lg2.shape[1], rows, vals)
-    lgr = _csr(rows, Lg2.shape[0], cols, vals)
+    # by row for K10, a thread a row: the nonzero rows alone (574 of 784 are
+    # empty at twojmax 6), longest first, so that a warp's rows are of like
+    # length
+    length = np.bincount(rows, minlength=Lg2.shape[0])
+    lgr_row = np.nonzero(length)[0]
+    lgr_row = lgr_row[np.argsort(-length[lgr_row], kind="stable")]
+    place = np.zeros(Lg2.shape[0], np.int64)
+    place[lgr_row] = np.arange(len(lgr_row))
+    lgr = _csr(place[rows], len(lgr_row), cols, vals)
     blocks = _y_block_plan(p)
     ent = [(tt, c0 + uu, src[ti, uu], fac[ti, uu])
            for c0, c1, ts, src, fac in blocks
@@ -741,30 +790,35 @@ def nn_tables(p: SnapParams) -> NnTables:
     et, eu, es, ef = (np.array(x) for x in zip(*ent))
     yu = _csr(eu, p.u_len, et, es, ef)
     yt = _csr(et, p.ntriples, eu, es, ef)
-    assert p.u_len < 1 << K10T_KEY_BITS
-    yz_src, zc = np.unique(yt[2], return_inverse=True)
-    per, threads, ys_key, ys_fac, ys_seg = k10t_schedule(yt[0], yt[1], zc,
-                                                         yt[3])
-    bt = [None] * 5
+    yz_src = np.unique(es)
+    # a y key: u (K10T) or t (K10) in the low bits, the compact z index
+    # above them
+    key_bits = max(p.u_len - 1, p.ntriples - 1, 1).bit_length()
+    assert len(yz_src) << key_bits < 1 << 31
+    zcol, zdesc = (np.searchsorted(yz_src, y[2]) for y in (yu, yt))
+    ycol = dealt(yu[0], yu[1] | zcol << key_bits, yu[3], zcol)
+    ydesc = dealt(yt[0], yt[1] | zdesc << key_bits, yt[3], zdesc)
+    bt, bterm = [None] * 5, None
     if p.nchem == 1:
         mmat = p.mmat.cpu().numpy()
         ks, ts = np.nonzero(mmat)
         ptr, k_s, c_s = _csr(ts, mmat.shape[1], ks, mmat[ks, ts])
-        bt = [t(ptr)] + [t(getattr(p, n).cpu().numpy()[k_s])
-                         for n in ("i1", "i2", "i3")] + [t(c_s, f64)]
+        bt = [ptr] + [getattr(p, n).cpu().numpy()[k_s].astype(np.int64)
+                      for n in ("i1", "i2", "i3")] + [c_s]
+        bterm = dealt(ptr, bt[1] | bt[2] << 16 | bt[3] << 32, c_s,
+                      dtype=torch.int64, block=K9_BLOCK)
     p.nn = NnTables(
         n_t=n_t, pidx=t(pidx), qidx=t(qidx), Lg2=t(Lg2, f64),
         lgc_ptr=t(lgc[0]), lgc_row=t(lgc[1]), lgc_val=t(lgc[2], f64),
-        lgr_ptr=t(lgr[0]), lgr_col=t(lgr[1]), lgr_val=t(lgr[2], f64),
+        lgr_row=t(lgr_row), lgr_ptr=t(lgr[0]), lgr_col=t(lgr[1]),
+        lgr_val=t(lgr[2], f64),
         yblocks=[(c0, c1, t(ts, torch.long), t(src, torch.long), t(fac, f64))
                  for c0, c1, ts, src, fac in blocks],
-        yu_ptr=t(yu[0]), yu_t=t(yu[1]), yu_src=t(yu[2]),
-        yu_fac=t(yu[3], f64),
-        yt_ptr=t(yt[0]), yt_u=t(yt[1]), yt_src=t(yt[2]),
-        yt_fac=t(yt[3], f64), yz_src=t(yz_src), ys_per=per,
-        ys_threads=threads, ys_key=t(ys_key), ys_fac=t(ys_fac, f64),
-        ys_seg=t(ys_seg),
-        bt_ptr=bt[0], bt_i1=bt[1], bt_i2=bt[2], bt_i3=bt[3], bt_c=bt[4])
+        yu_ptr=yu[0], yu_t=yu[1], yu_src=yu[2], yu_fac=yu[3],
+        yt_ptr=yt[0], yt_u=yt[1], yt_src=yt[2], yt_fac=yt[3],
+        yz_src=t(yz_src), key_bits=key_bits, ycol=ycol, ydesc=ydesc,
+        bt_ptr=bt[0], bt_i1=bt[1], bt_i2=bt[2], bt_i3=bt[3], bt_c=bt[4],
+        bterm=bterm)
     return p.nn
 
 

@@ -68,10 +68,12 @@ its edges (rows of 3 x 41 doubles, an atom no one neighbors, R = 1, R = 60
 slots (more than one round of prologues), 640 atoms and 2 atoms, a masked
 hole before live slots and a masked-in pair past the SNAP cutoff, each
 once, bit for bit from run to run (K11T: the padded atom's grid exactly
-0); K11 and K10T on the same seven cases (K11: every slot that is not
-live, masked or past the cutoff or of the padded atom, exactly 0; K10T on
-both launch shapes, the z entries staged up to twojmax 8 and read from L2
-at 10 and 12, and on an odd atom count, whose last block holds one atom).
+0); K11, K10T, K10 and K9 on the same cases (K11: every slot that is not
+live, masked or past the cutoff or of the padded atom, exactly 0; K10T
+and K10 on both launch shapes, the z entries staged up to twojmax 8 and
+read from L2 from 10, and on an odd atom count, whose last block holds
+one atom; K9 also at twojmax 16, the padded atom's ut exactly the self
+term and its B the twin's).
 K15, K15V and K15T
 (the custom pairwise NN's descriptors, their VJP and its transpose, also
 through the force gather's transpose) on two periodic cells with pairs
@@ -849,11 +851,16 @@ K11T_CASES = {
 }
 
 
+# K9's largest grid: twojmax 16 (n_t 153, 187 KB of shared memory).
+K9_CASES = dict(K11T_CASES, tj16=(dict(CASES["tj6"], twojmax=["16"]), 1, 3,
+                                  40))
+
+
 def k11t_case(name, device):
-    """K11T_CASES[name]'s block (grid_block's lists) with a masked hole
-    before live pairs (slot 3 of atom 0) and a masked-in pair past the SNAP
-    cutoff (slot 5, zero weight)."""
-    spec, nconf, A, K = K11T_CASES[name]
+    """K9_CASES[name]'s block (grid_block's lists) with a masked hole before
+    live pairs (slot 3 of atom 0) and a masked-in pair past the SNAP cutoff
+    (slot 5, zero weight)."""
+    spec, nconf, A, K = K9_CASES[name]
     p, block, jidx, _ = grid_block(spec, device, nconf, A, K)
     disp, _, mask, _ = block
     mask[0, 3] = False
@@ -932,6 +939,54 @@ def test_k10t_edges_match_plain(cuda, name):
     part = [x[:N - 1].contiguous() for x in (vgc, *z)]
     assert rel_err([nk.nn_dedu_vg_t(*part, p)],
                    [nk.nn_dedu_vg_t_plain(*part, p)]) <= RTOL
+
+
+@pytest.mark.parametrize("name", list(K9_CASES))
+def test_k9_edges_match_plain(cuda, name):
+    """K9 against its plain version on `k11t_case`'s lists (and at twojmax
+    16, n_t 153, whose grid leaves the least shared memory beside it),
+    launched once: the atom with every slot masked out gets the self term
+    as its ut and the self term's B, as the twin's; bit for bit from run to
+    run."""
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+
+    p, block, _ = k11t_case(name, cuda)
+    nk.reset_launches()
+    out = nk.nn_ut_b(*block, p)
+    torch.cuda.synchronize()
+    assert launched(nk) == {"nn_ut_b": 1}
+    ref = nk.nn_ut_b_plain(*block, p)
+    assert rel_err(out, ref) <= RTOL
+    assert torch.equal(out[0][-1], p.selfvec)
+    assert torch.equal(ref[0][-1], p.selfvec)
+    assert (out[1][-1] - ref[1][-1]).abs().max() <= RTOL * ref[1].abs().max()
+    assert all(torch.equal(a, b) for a, b in zip(out, nk.nn_ut_b(*block, p)))
+
+
+@pytest.mark.parametrize("name", list(K11T_CASES))
+def test_k10_edges_match_plain(cuda, name):
+    """K10 against its plain version on the z-lists of `k11t_case`'s atoms
+    (the last, every slot masked out, of the self term alone) and a seeded
+    dE/dB, launched once, and bit for bit from run to run; then on all
+    atoms but the last."""
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+
+    p, block, _ = k11t_case(name, cuda)
+    N = block[2].shape[0]
+    z = sk.zlist_plain(nk.nn_ut_b_plain(*block, p)[0], p)
+    dEdB = torch.as_tensor(np.random.default_rng(18).normal(
+        size=(N, p.ntriples)), device=cuda)
+    nk.reset_launches()
+    out = nk.nn_dedu_vg(dEdB, *z, p)
+    torch.cuda.synchronize()
+    assert launched(nk) == {"nn_dedu_vg": 1}
+    ref = nk.nn_dedu_vg_plain(dEdB, *z, p)
+    assert rel_err([out], [ref]) <= RTOL
+    assert (out[-1] - ref[-1]).abs().max() <= RTOL * ref.abs().max()
+    assert torch.equal(out, nk.nn_dedu_vg(dEdB, *z, p))
+    part = [x[:N - 1].contiguous() for x in (dEdB, *z)]
+    assert rel_err([nk.nn_dedu_vg(*part, p)],
+                   [nk.nn_dedu_vg_plain(*part, p)]) <= RTOL
 
 
 def streamed_batch(device):

@@ -15,14 +15,17 @@ package's plan (CPU, float64).
   at twojmax 2 and 6, one channel and chemflag, at 1e-12; and the plain
   twins agree with the JAX functions at 1e-12 (relative to the largest
   magnitude of each array: the packages sum in different orders).
-- K10T's schedule (`ops/snap.k10t_schedule` in `nn_tables`) at twojmax 2,
-  6 and 10: it rebuilds the (t, u, src, fac) entries of `yt_*` exactly,
-  each descriptor's on its own threads, at most `per` a thread, dealt in
-  compact z order;
-  the referenced z entries `yz_src` list every src of those entries once,
-  sorted; and the schedule, run in numpy (the arithmetic of
-  csrc/nn_dedu.cu), agrees with `nn_dedu_vg_t_plain` at 1e-12; its block
-  is the kernel's narrow launch shape.
+- The dealt schedules of `nn_tables` (`ops/snap.deal`) at twojmax 2, 6
+  and 10: K10T's rebuilds the (t, u, src, fac) entries of `yt_*` exactly
+  and K10's those of `yu_*`, each group's (descriptor, U column) on its
+  own threads, at most `per` a thread, dealt in compact z order; K9's
+  rebuilds the (i1, i2, i3, c) terms of `bt_*` exactly; the referenced z
+  entries `yz_src` list every src of those entries once, sorted; each
+  schedule, run in numpy (the arithmetic of csrc/nn_dedu.cu and
+  csrc/nn_grid.cu), agrees with its plain twin (`nn_dedu_vg_t_plain`,
+  `nn_dedu_vg_plain`, `nn_ut_b_plain`) at 1e-12; and K9, K10 and K10T
+  launch with their schedules' `threads`, whose narrow launch bounds hold
+  four blocks of the schedules' block an SM.
 """
 
 import re
@@ -388,19 +391,47 @@ def test_k2_schedule_matches_plain(twojmax, nelem, chem):
 
 
 # ---------------------------------------------------------------------------
-# K10T
+# K9, K10 and K10T: the dealt schedules
 # ---------------------------------------------------------------------------
+
+
+def dealt_y(d, bits):
+    """A dealt y schedule as numpy: per, threads, stride, (low field, zc,
+    fac) as (per, stride) arrays, seg."""
+    key = d.key.numpy().reshape(d.per, d.stride)
+    fac = d.fac.numpy().reshape(d.per, d.stride)
+    return (d.per, d.threads, d.stride, key & ((1 << bits) - 1), key >> bits,
+            fac, d.seg.numpy())
 
 
 def k10t_schedule(tb):
     """K10T's schedule as numpy: per, threads, (u, zc, fac) as (per,
     threads) arrays, seg (W+1,), yz_src."""
-    per, T = tb.ys_per, tb.ys_threads
-    key = tb.ys_key.numpy().reshape(per, T)
-    fac = tb.ys_fac.numpy().reshape(per, T)
-    bits = tsnap.K10T_KEY_BITS
-    return (per, T, key & ((1 << bits) - 1), key >> bits, fac,
-            tb.ys_seg.numpy(), tb.yz_src.numpy())
+    per, T, stride, u, zc, fac, seg = dealt_y(tb.ydesc, tb.key_bits)
+    assert stride == T                   # one slot a thread
+    return per, T, u, zc, fac, seg, tb.yz_src.numpy()
+
+
+def check_dealt_entries(per, T, stride, low, zc, fac, seg, ref):
+    """The dealt entries (group, low, z index, fac) equal `ref`'s, each
+    group's on its own slots, entries then padding in each slot, a group's
+    slots reading z in order at each step."""
+    assert T % 32 == 0 and T <= 1024 and seg[-1] <= stride
+    assert stride == T or (stride > 1024 and T == 1024)
+    got = []
+    for t in range(len(seg) - 1):
+        for slot in range(seg[t], seg[t + 1]):
+            live = fac[:, slot] != 0
+            n = int(live.sum())
+            assert live[:n].all() and n >= 1     # entries, then padding
+            got += [(t, int(a), int(z), f) for a, z, f in zip(
+                low[:n, slot], zc[:n, slot], fac[:n, slot])]
+    assert (fac[:, seg[-1]:] == 0).all()
+    assert (low[fac == 0] == 0).all() and (zc[fac == 0] == 0).all()
+    assert sorted(got) == sorted(ref)     # each group's, once each
+    for t in range(len(seg) - 1):
+        z = zc[:, seg[t]:seg[t + 1]][fac[:, seg[t]:seg[t + 1]] != 0]
+        assert (np.diff(z) >= 0).all()
 
 
 @pytest.mark.parametrize("twojmax", [2, 6, 10])
@@ -408,44 +439,91 @@ def test_k10t_schedule_rebuilds_the_y_entries(twojmax):
     _, p = plans(twojmax)
     tb = tsnap.nn_tables(p)
     per, T, u, zc, fac, seg, yz_src = k10t_schedule(tb)
-    assert T % 32 == 0 and T <= 1024 and seg[-1] <= T
     # 8 entries a thread where 288 threads hold the segments, else where
     # 1,024 do
     assert per == {2: 8, 6: 8, 10: 15}[twojmax]
-    got = []
+    ptr = tb.yt_ptr
+    ref = [(t, int(uu), int(np.searchsorted(yz_src, s)), f)
+           for t in range(p.ntriples)
+           for uu, s, f in zip(tb.yt_u[ptr[t]:ptr[t + 1]],
+                               tb.yt_src[ptr[t]:ptr[t + 1]],
+                               tb.yt_fac[ptr[t]:ptr[t + 1]])]
+    assert len(seg) == p.ntriples + 1
+    check_dealt_entries(per, T, T, u, zc, fac, seg, ref)
+
+
+@pytest.mark.parametrize("twojmax", [2, 6, 10])
+def test_k10_schedule_rebuilds_the_y_entries(twojmax):
+    """K10's schedule, by U column: its (u, t, src, fac) entries are
+    `yu_*`'s; 9 entries a thread at twojmax 6 (275 segments in 288
+    threads)."""
+    _, p = plans(twojmax)
+    tb = tsnap.nn_tables(p)
+    per, T, stride, t, zc, fac, seg = dealt_y(tb.ycol, tb.key_bits)
+    yz_src = tb.yz_src.numpy()
+    assert (per, T) == {2: (8, 32), 6: (9, 288), 10: (17, 1024)}[twojmax]
+    ptr = tb.yu_ptr
+    ref = [(u, int(tt), int(np.searchsorted(yz_src, s)), f)
+           for u in range(p.u_len)
+           for tt, s, f in zip(tb.yu_t[ptr[u]:ptr[u + 1]],
+                               tb.yu_src[ptr[u]:ptr[u + 1]],
+                               tb.yu_fac[ptr[u]:ptr[u + 1]])]
+    assert len(seg) == p.u_len + 1
+    assert (yz_src[zc[fac != 0]] >= 0).all()
+    check_dealt_entries(per, T, stride, t, zc, fac, seg, ref)
+
+
+def k9_schedule(tb):
+    """K9's B-term schedule as numpy: per, threads, stride, (i1, i2, i3,
+    c) as (per, stride) arrays, seg (W+1,)."""
+    d = tb.bterm
+    key = d.key.numpy().reshape(d.per, d.stride)
+    return (d.per, d.threads, d.stride, key & 0xffff, (key >> 16) & 0xffff,
+            key >> 32, d.fac.numpy().reshape(d.per, d.stride),
+            d.seg.numpy())
+
+
+@pytest.mark.parametrize("twojmax", [2, 6, 10])
+def test_k9_schedule_rebuilds_the_b_terms(twojmax):
+    """K9's B terms dealt by descriptor rebuild `bt_*`'s (t, i1, i2, i3, c)
+    exactly, each descriptor's on its own threads in its order, at most
+    `per` a thread; 15 terms a thread at twojmax 6 (251 segments in 256
+    threads, where a descriptor has up to 505)."""
+    _, p = plans(twojmax)
+    tb = tsnap.nn_tables(p)
+    per, T, stride, i1, i2, i3, c, seg = k9_schedule(tb)
+    assert (per, T) == {2: (8, 32), 6: (15, 256), 10: (60, 1024)}[twojmax]
+    assert T % 32 == 0 and stride == T and seg[-1] <= T
+    assert len(seg) == p.ntriples + 1
+    ptr = tb.bt_ptr
     for t in range(p.ntriples):
-        for thread in range(seg[t], seg[t + 1]):
-            live = fac[:, thread] != 0
-            n = int(live.sum())
-            assert live[:n].all() and n >= 1     # entries, then padding
-            got += [(t, int(uu), int(yz_src[z]), f) for uu, z, f in zip(
-                u[:n, thread], zc[:n, thread], fac[:n, thread])]
-    assert (fac[:, seg[-1]:] == 0).all()
-    assert (u[fac == 0] == 0).all() and (zc[fac == 0] == 0).all()
-    ptr = tb.yt_ptr.numpy()
-    ref = [(t, int(uu), int(s), f) for t in range(p.ntriples)
-           for uu, s, f in zip(tb.yt_u.numpy()[ptr[t]:ptr[t + 1]],
-                               tb.yt_src.numpy()[ptr[t]:ptr[t + 1]],
-                               tb.yt_fac.numpy()[ptr[t]:ptr[t + 1]])]
-    assert sorted(got) == sorted(ref)     # each descriptor's, once each
-    # at each step a descriptor's threads read its z entries in order
-    for t in range(p.ntriples):
-        z = zc[:, seg[t]:seg[t + 1]][fac[:, seg[t]:seg[t + 1]] != 0]
-        assert (np.diff(z) >= 0).all()
+        q = np.arange(ptr[t], ptr[t + 1])
+        n = seg[t + 1] - seg[t]
+        assert n == -(-len(q) // per)
+        for i in range(n):
+            mine = q[i::n]                  # dealt round-robin, in order
+            live = c[:, seg[t] + i] != 0
+            assert live[:len(mine)].all() and not live[len(mine):].any()
+            for arr, ref in ((i1, tb.bt_i1), (i2, tb.bt_i2),
+                             (i3, tb.bt_i3), (c, tb.bt_c)):
+                assert np.array_equal(arr[:len(mine), seg[t] + i], ref[mine])
+    assert (c[:, seg[-1]:] == 0).all()
+    assert (i1[c == 0] == 0).all() and (i3[c == 0] == 0).all()
 
 
 @pytest.mark.parametrize("twojmax,count,sectors", [(2, 38, 14),
                                                    (6, 1388, 464),
                                                    (10, 11098, 3522)])
 def test_k10t_referenced_z_entries_each_once(twojmax, count, sectors):
-    """yz_src lists each referenced z entry once, sorted; `sectors` of the
-    32-byte sectors of a z part (nz doubles) hold one, which K10T's
-    gathers move whole."""
+    """yz_src lists each referenced z entry once, sorted (the same for K10's
+    and K10T's entries); `sectors` of the 32-byte sectors of a z part (nz
+    doubles) hold one, which the kernels' gathers move whole."""
     _, p = plans(twojmax)
     tb = tsnap.nn_tables(p)
     yz_src = tb.yz_src.numpy()
     assert (np.diff(yz_src) > 0).all()
-    assert np.array_equal(yz_src, np.unique(tb.yt_src.numpy()))
+    assert np.array_equal(yz_src, np.unique(tb.yt_src))
+    assert np.array_equal(yz_src, np.unique(tb.yu_src))
     assert len(yz_src) == count and yz_src[-1] < p.nz
     assert len(np.unique(yz_src // 4)) == sectors
 
@@ -472,6 +550,65 @@ def emulate_k10t(p, vgc, zr, zi):
                      for t in range(p.ntriples)], 1)
 
 
+def emulate_k10(p, dedb, zr, zi):
+    """csrc/nn_dedu.cu's K10 over `nn_tables`: each slot's segment of y
+    entries by U column on the compact z, real and imaginary apart, each
+    column's segment sums in order, then vg by Lg's nonzero rows (the
+    others 0)."""
+    tb = tsnap.nn_tables(p)
+    per, T, stride, t, zc, fac, seg = dealt_y(tb.ycol, tb.key_bits)
+    yz_src = tb.yz_src.numpy()
+    N, U = dedb.shape[0], p.u_len
+    zcr, zci = zr[:, yz_src], zi[:, yz_src]
+    pr, pi = np.zeros((N, stride)), np.zeros((N, stride))
+    for j in range(per):
+        w = dedb[:, t[j]] * fac[j]
+        pr += w * zcr[:, zc[j]]
+        pi += w * zci[:, zc[j]]
+    du = np.concatenate([
+        np.stack([x[:, seg[u]:seg[u + 1]].sum(1) for u in range(U)], 1)
+        for x in (pr, pi)], 1)
+    row, ptr, col, val = (x.numpy() for x in (tb.lgr_row, tb.lgr_ptr,
+                                                tb.lgr_col, tb.lgr_val))
+    assert (np.diff(np.diff(ptr)) <= 0).all()     # longest rows first
+    vg = np.zeros((N, tb.n_t ** 2))
+    for i, r in enumerate(row):
+        vg[:, r] = (du[:, col[ptr[i]:ptr[i + 1]]]
+                    * val[ptr[i]:ptr[i + 1]]).sum(1)
+    return vg.reshape(N, tb.n_t, tb.n_t)
+
+
+def emulate_k9(p, args):
+    """csrc/nn_grid.cu's K9 after its product: ut = wg . Lg by Lg's
+    columns, then the self term; each slot's segment of B terms in order,
+    then each descriptor's segment sums in order, less bzero.  wg, the
+    tensor-core product, is the plain grid sum."""
+    tb = tsnap.nn_tables(p)
+    per, T, stride, i1, i2, i3, c, seg = k9_schedule(tb)
+    ar, ai, br, bi, w = (x.numpy() for x in tsnap._ck_prologue(*args, p))
+    P, Q = tb.pidx.numpy(), tb.qidx.numpy()
+    T1 = ar[..., None] ** P * ai[..., None] ** Q
+    T2 = br[..., None] ** P * bi[..., None] ** Q
+    N, U = w.shape[0], p.u_len
+    wg = np.einsum("ak,akd,ake->ade", w, T1, T2).reshape(N, -1)
+    ptr, row, val = (tb.lgc_ptr.numpy(), tb.lgc_row.numpy(),
+                     tb.lgc_val.numpy())
+    ut = np.stack([(wg[:, row[ptr[u]:ptr[u + 1]]]
+                    * val[ptr[u]:ptr[u + 1]]).sum(1)
+                   for u in range(2 * U)], 1) + p.selfvec.numpy()
+    re, im = ut[:, :U], ut[:, U:]
+    part = np.zeros((N, stride))
+    for j in range(per):
+        ab_r = re[:, i1[j]] * re[:, i2[j]] - im[:, i1[j]] * im[:, i2[j]]
+        ab_i = re[:, i1[j]] * im[:, i2[j]] + im[:, i1[j]] * re[:, i2[j]]
+        part += (ab_r * re[:, i3[j]] + ab_i * im[:, i3[j]]) * c[j]
+    B = np.stack([part[:, seg[t]:seg[t + 1]].sum(1)
+                  for t in range(p.ntriples)], 1)
+    if p.bzeroflag:
+        B = B - p.bzero.numpy()
+    return ut, B
+
+
 @pytest.mark.parametrize("twojmax", [2, 6, 10])
 def test_k10t_schedule_matches_plain(twojmax):
     _, p = plans(twojmax)
@@ -486,13 +623,97 @@ def test_k10t_schedule_matches_plain(twojmax):
     close(out, ref)
 
 
-def test_k10t_block_is_the_narrow_launch_shape():
-    """The schedule fills K10T_BLOCK threads where it can: the block of
-    csrc/nn_dedu.cu's narrow launch shape (K10T_NARROW), whose launch bounds
-    set four blocks an SM."""
-    src = (Path(nk.__file__).parent / "csrc" / "nn_dedu.cu").read_text()
-    narrow = re.search(r"constexpr int K10T_NARROW = (\d+);", src)
-    assert narrow and int(narrow.group(1)) == tsnap.K10T_BLOCK
+@pytest.mark.parametrize("twojmax", [2, 6, 10])
+def test_k10_schedule_matches_plain(twojmax):
+    _, p = plans(twojmax)
+    rng = np.random.default_rng(12)
+    N = 5
+    dedb, zr, zi = (rng.normal(size=s) for s in ((N, p.ntriples),
+                                                 (N, p.nz), (N, p.nz)))
+    out = emulate_k10(p, dedb, zr, zi)
+    ref = nk.nn_dedu_vg_plain(*(torch.from_numpy(x) for x in (dedb, zr, zi)),
+                              p)
+    close(out, ref)
+
+
+@pytest.mark.parametrize("twojmax", [2, 6, 10])
+def test_k9_schedule_matches_plain(twojmax):
+    """K9's emulation on `block`'s atoms (masked pairs, an atom with every
+    slot masked: its ut the self term) against `nn_ut_b_plain`."""
+    _, p = plans(twojmax)
+    args = tuple(torch.from_numpy(x) for x in block(9, 1))
+    ut, B = emulate_k9(p, args)
+    ut0, B0 = nk.nn_ut_b_plain(*args, p)
+    close(ut, ut0)
+    close(B, B0)
+    assert np.array_equal(ut[-1], p.selfvec.numpy())
+
+
+def _entry_args(source, name):
+    """The parameter names of csrc/<source>.cu's entry point `name` and the
+    body of its launch."""
+    src = (Path(nk.__file__).parent / "csrc" / f"{source}.cu").read_text()
+    m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)\s*\{(.*?)\n\}",
+                  src, re.S)
+    names = [a.strip().rsplit(" ", 1)[-1].lstrip("*")
+             for a in m.group(1).split(",")]
+    return names, m.group(2)
+
+
+def _launched_args(monkeypatch, call):
+    """{parameter: value} of the one launch `call` makes, the kernel
+    library replaced by a recorder (CPU tensors taken for device ones)."""
+    seen = []
+    monkeypatch.setattr(nk, "_on_cpu", lambda *t: False)
+    monkeypatch.setattr(nk, "_launch",
+                        lambda name, dev, *a: seen.append((name, a)))
+    call()
+    (name, args), = seen
+    source = {"nn_ut_b": "nn_grid"}.get(name, "nn_dedu")
+    names, body = _entry_args(source, name)
+    return dict(zip(names, args + (None,))), body
+
+
+@pytest.mark.parametrize("kernel", ["nn_dedu_vg_t", "nn_dedu_vg", "nn_ut_b"])
+@pytest.mark.parametrize("twojmax", [6, 8])
+def test_k10t_block_is_the_narrow_launch_shape(monkeypatch, kernel,
+                                               twojmax):
+    """K10T, K10 and K9 launch with their schedules' `threads` (the block
+    of the launch is that argument), and their sources' narrow launch
+    bounds hold four blocks of their schedules' block an SM (K10 and K10T
+    at 56 registers a thread, K9 at the 64 its FP64 mma needs), so that
+    the 512 atoms of the Ta minibatch run in one wave at twojmax 6."""
+    _, p = plans(twojmax)
+    tb = tsnap.nn_tables(p)
+    rng = np.random.default_rng(3)
+    N, K, n_t = 3, 5, tb.n_t
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape))
+
+    z = (t(N, p.nz), t(N, p.nz))
+    disp, jelem, mask, ielem = (torch.from_numpy(x)
+                                for x in block(1, 1, A=N, K=K))
+    calls = {"nn_dedu_vg_t": (lambda: nk.nn_dedu_vg_t(t(N, n_t, n_t), *z, p),
+                              tb.ydesc, "nn_dedu", "", tsnap.DEAL_BLOCK),
+             "nn_dedu_vg": (lambda: nk.nn_dedu_vg(t(N, p.ntriples), *z, p),
+                            tb.ycol, "nn_dedu", "", tsnap.DEAL_BLOCK),
+             "nn_ut_b": (lambda: nk.nn_ut_b(disp, jelem, mask, ielem, p),
+                         tb.bterm, "nn_grid", "K9_", tsnap.K9_BLOCK)}
+    call, sched, source, prefix, target = calls[kernel]
+    args, body = _launched_args(monkeypatch, call)
+    assert args["threads"] == sched.threads and args["per"] == sched.per
+    assert args.get("stride", sched.threads) == sched.stride
+    assert re.search(r"<<<static_cast<unsigned>\(natoms\), threads,", body)
+    src = (Path(nk.__file__).parent / "csrc" / f"{source}.cu").read_text()
+    narrow, blocks = (int(re.search(rf"constexpr int {prefix}{n} = (\d+);",
+                                    src).group(1))
+                      for n in ("NARROW_THREADS", "NARROW_BLOCKS"))
+    regs = 65536 // (narrow * blocks) // 8 * 8
+    assert target <= narrow and 4 * target * regs <= 65536
+    assert regs >= {"nn_grid": 64, "nn_dedu": 56}[source]
+    if twojmax == 6:
+        assert sched.threads <= target
 
 
 # ---------------------------------------------------------------------------

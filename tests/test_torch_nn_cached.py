@@ -14,9 +14,9 @@ with their tolerances (relative to the largest magnitude):
   `nn_dEdu`, `nn_vg`, `nn_grid_pair`, `nn_pair_force`, `nn_pair_grad`,
   `atom_descriptors_fast`;
 - K10T's and K11T's plain versions against `jax.vjp` of the JAX
-  functions (K11T through the force scatter), 1e-12; K10T's, K11's and
-  K11T's also at twojmax 8 on 4 x 12 slots with a padded atom and a masked
-  hole, and the force gather's against the JAX one-hot scatter on an atom
+  functions (K11T through the force scatter), 1e-12; K9's, K10's, K10T's,
+  K11's and K11T's also at twojmax 8 on 4 x 12 slots with a padded atom
+  and a masked hole, and the force gather's against the JAX one-hot scatter on an atom
   no one neighbors, R > K and one-atom configs, 1e-12;
 - the cached buckets of both packages' `prepare_dataset` (the small Ta
   set of `tests/test_torch_nn.py`): shapes and configs exactly, disp, ut,
@@ -214,6 +214,28 @@ def test_k11_plain_equals_jax_twojmax8():
                                  *(torch.as_tensor(x) for x in block), p)
     assert rel(out, np.asarray(ref)) <= TOL
     assert not out[torch.as_tensor(~block[2])].any()
+
+
+@pytest.mark.parametrize("kernel", ["nn_ut_b", "nn_dedu_vg"])
+def test_k9_k10_plain_equal_jax_twojmax8(kernel):
+    """K9's plain version against the JAX `nn_ut_b` (ut and B; the padded
+    atom's ut the self term) and K10's, on K2's plain z-lists of the JAX
+    ut, against `nn_vg` after `nn_dEdu`, at twojmax 8 on `twojmax8_block`'s
+    atoms and a seeded dE/dB."""
+    jp, p, block, rng = twojmax8_block()
+    A = block[2].shape[0]
+    ut_j, B_j = jsnap.nn_ut_b(*(jnp.asarray(x) for x in block), jp)
+    if kernel == "nn_ut_b":
+        ut, B = nk.nn_ut_b_plain(*(torch.as_tensor(x) for x in block), p)
+        assert rel(ut, np.asarray(ut_j)) <= TOL
+        assert rel(B, np.asarray(B_j)) <= TOL
+        assert torch.equal(ut[-1], p.selfvec)
+        return
+    dEdB = rng.normal(size=(A, p.ntriples))
+    ref = jsnap.nn_vg(jsnap.nn_dEdu(jnp.asarray(dEdB), ut_j, jp), jp)
+    z = sk.zlist_plain(torch.as_tensor(np.asarray(ut_j)), p)
+    out = nk.nn_dedu_vg_plain(torch.as_tensor(dEdB), *z, p)
+    assert rel(out, np.asarray(ref)) <= TOL
 
 
 def test_k10t_plain_equals_jax_vjp_twojmax8():
