@@ -166,7 +166,30 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    1e-9), central-difference forces (device neighbor lists, K9 and the
    cached forward at each displaced position) on three atoms of two configs
    (1e-5), and a profiler split of one epoch;
-14. the custom pairwise NN (calculator LAMMPSCUSTOM) on the same set with
+14. NN path in the OTF mode, linear SNAP, on the same set with
+   `nn_settings(..., dgrad_mode="otf")` and its 10 epochs: launch counts
+   set to 0, then FitSnap(device="cuda") -> scrape -> process ->
+   perform_fit -> write_output, the counts read just after; it fails
+   unless K5, K8, K8r, K2, K9, K10, K10T, K11, K11T and the force gather
+   launched (K8, K8r and K9 every step), K1, K3, K4 and K12's contraction
+   did not, the solver resolved to OTF, no bucket holds dB/dD, disp or
+   ut, the last epoch's train loss is below the first's and the four
+   files are written.  Then the trained model's energies and forces on a
+   minibatch of 4 of the largest bucket against the precompute path's
+   (K1-K3's dB/dD on the lists the step builds, then K12) and the cached
+   step's on those lists (1e-9), central-difference forces (each displaced
+   config packed as an OTF bucket, then the OTF forward) on three atoms of
+   two configs (1e-5), and a profiler split of one epoch;
+15. the same with quadraticflag 1 (twojmax 6: 30 + 465 descriptors) for 3
+   epochs: the kernels of phase 14, and K6q not; the forces against the
+   precompute path's (K1-K3, K6q, K12);
+16. chemflag in the OTF mode on the InP-shaped set of phase 9 with
+   `synthetic.inp_nn_settings(..., dgrad_mode="otf")` for 3 epochs: it
+   fails unless K5, K8, K8r, the chemflag modes of K1-K3, K12, K12T and
+   the gather launched and K9-K11T did not; the forces against the
+   precompute path's, FD forces on two 64-atom cells (a displaced and an
+   antisite one), a profiler split of one epoch;
+17. the custom pairwise NN (calculator LAMMPSCUSTOM) on the same set with
    `synthetic.custom_settings` (31 Bessel / Gaussian 3-body pair
    descriptors at cutoff 5.0, `num_desc 64 64 1`, batch 4, 10 epochs, the
    raw energies and forces): launch counts set to 0, then
@@ -297,6 +320,23 @@ NN_CACHED_KERNELS = ("zbl_eav", "device_neighbors", "reverse_table", "zlist",
 # kernels the cached mode must not launch (K1, K3 and K12's contraction;
 # K4 is checked by `check_launched`)
 NN_CACHED_ABSENT = ("pair_u_duals", "dbdd", "nn_force")
+# the OTF mode's routes: linear SNAP and quadraticflag rebuild the cached
+# step's inputs every step (K8, K8r, K9), chemflag forms B and dB/dD with
+# K1-K3's chemflag modes and takes the forces through K12
+NN_OTF_CHEM_KERNELS = ("zbl_eav", "device_neighbors", "reverse_table",
+                       "pair_u_duals_chem", "zlist_chem", "dbdd_chem",
+                       "nn_force", "nn_force_t", "nn_pair_gather")
+NN_PATH = {"precompute": "nn_fitsnap", "cached": "nn_cached_fitsnap",
+           "custom": "custom_fitsnap", "otf": "nn_otf_fitsnap",
+           "otf_quadratic": "nn_otf_quadratic_fitsnap",
+           "otf_chem": "nn_otf_chem_fitsnap"}
+# the kernels each mode must not launch
+NN_ABSENT = {"cached": NN_CACHED_ABSENT, "otf": NN_CACHED_ABSENT,
+             "otf_quadratic": NN_CACHED_ABSENT + ("quad_chain",),
+             "otf_chem": ("nn_ut_b", "nn_dedu_vg", "nn_dedu_vg_t",
+                          "nn_pair_force", "nn_pair_force_t")}
+# epochs of the OTF phases (the others: `nn_settings`' 10)
+NN_EPOCHS = {"otf_quadratic": 3, "otf_chem": 3}
 CUSTOM_KERNELS = ("pair_desc", "pair_desc_vjp", "pair_desc_jvp",
                   "nn_pair_gather")
 # the kernels each path must launch
@@ -310,6 +350,9 @@ PATH_KERNELS = {"fitsnap": FITSNAP_KERNELS,
                 "chem_streamed": CHEM_KERNELS + STREAM_KERNELS,
                 "nn_fitsnap": NN_KERNELS,
                 "nn_cached_fitsnap": NN_CACHED_KERNELS,
+                "nn_otf_fitsnap": NN_CACHED_KERNELS,
+                "nn_otf_quadratic_fitsnap": NN_CACHED_KERNELS,
+                "nn_otf_chem_fitsnap": NN_OTF_CHEM_KERNELS,
                 "custom_fitsnap": CUSTOM_KERNELS}
 # paths whose K4 launches are the rows', one a reference call
 ROWS_PATHS = ("fitsnap", "streamed", "ace_fitsnap", "ace_streamed",
@@ -351,11 +394,13 @@ PT_RTOL = 1e-10             # exported .pt energies vs evaluate_bucket
 CROSS_RTOL = 1e-9           # NN cached vs precompute energies and forces
 NN_FILES = ["Ta_nn.pt", "Ta_nn_pot.mliap.descriptor", "Ta_nn_pot.mod",
             "Ta_nn_metrics.md", "loss_vs_epochs.dat"]
+INP_NN_FILES = ["InP_nn.pt", "InP_nn_pot.mliap.descriptor", "InP_nn_pot.mod",
+                "InP_nn_metrics.md", "loss_vs_epochs.dat"]
 CUSTOM_FILES = ["Ta_custom.pt", "Ta_custom_metrics.md", "loss_vs_epochs.dat"]
 # the pairwise set's most common bucket (205 of its 357 configs)
 SMALL_BUCKET = (8, 64)
 # configs of one chunk of the NN cached prep (solvers/network.py
-# `_prepare_cached`, where the (A, S, A) transient does not bind)
+# `_prepare_pos`, where the (A, S, A) transient does not bind)
 PREP_CHUNK = 32
 PAIR_PT_RTOL = 1e-7         # pairwise .pt vs the model (the JAX test's bar)
 # operations of one (j, k) pair's Gaussian column in K15, K15V, K15T when
@@ -384,7 +429,11 @@ DIAG_COL_OPS = 2
 DIGESTS = {}
 # the profiler's kernel name of a wrapper, where it is not <wrapper>_kernel
 KERNEL_FN = {"nn_force": "nn_fpair_kernel",
-             "nn_pair_gather": "nn_gather_kernel"}
+             "nn_pair_gather": "nn_gather_kernel",
+             "device_neighbors": "neighbors_fused_kernel",
+             "reverse_table": "reverse_kernel",
+             "pair_u_duals_chem": "pair_u_duals_kernel",
+             "zlist_chem": "zlist_kernel", "dbdd_chem": "dbdd_kernel"}
 
 
 def card_line():
@@ -1724,18 +1773,30 @@ def streamed_path(fs, a_plain, beta, seed, device, kind="snap"):
 
 def nn_path(tmp, device, mode="precompute"):
     """Drive the NN fit through FitSnap on the card on the Ta set of phase
-    2 in `mode` (precompute, cached, or custom: the pairwise NN); returns
-    (the FitSnap, launch counts, timings, checks)."""
+    2 in `mode` (precompute, cached, otf, otf_quadratic: quadraticflag, or
+    custom: the pairwise NN), or on the InP-shaped set of phase 9
+    (otf_chem); returns (the FitSnap, launch counts, timings, checks)."""
     import torch
     from fitsnap_tpu_torch import FitSnap
     from fitsnap_tpu_torch.tools import synthetic
 
     ini = Path(tmp) / f"nn_{mode}.in"
     data = Path(tmp) / "JSON"
-    files = CUSTOM_FILES if mode == "custom" else NN_FILES
-    synthetic.write_ini(ini, synthetic.custom_settings(data)
-                        if mode == "custom" else
-                        synthetic.nn_settings(data, dgrad_mode=mode))
+    files = (CUSTOM_FILES if mode == "custom" else
+             INP_NN_FILES if mode == "otf_chem" else NN_FILES)
+    if mode == "custom":
+        settings = synthetic.custom_settings(data)
+    elif mode == "otf_chem":
+        settings = synthetic.inp_nn_settings(Path(tmp) / "INP_JSON",
+                                             dgrad_mode="otf")
+    else:
+        settings = synthetic.nn_settings(
+            data, dgrad_mode=mode.removesuffix("_quadratic"))
+    if mode == "otf_quadratic":
+        settings["BISPECTRUM"]["quadraticflag"] = 1
+    if mode in NN_EPOCHS:
+        settings["PYTORCH"]["num_epochs"] = NN_EPOCHS[mode]
+    synthetic.write_ini(ini, settings)
     for name in files:
         Path(name).unlink(missing_ok=True)
     reset_launches()
@@ -1749,21 +1810,23 @@ def nn_path(tmp, device, mode="precompute"):
     wall = time.time() - t0
     counts = launches()
     sol = fs.solver
-    if mode == "custom":
-        check_launched(counts, "custom_fitsnap")
-    elif mode == "cached":
-        check_launched(counts, "nn_cached_fitsnap")
-        stray = {k: counts[k] for k in NN_CACHED_ABSENT if counts[k]}
-        if stray or not sol.cached or any("G" in b for b in sol.buckets):
-            raise AssertionError(f"the cached NN path launched {stray} or "
-                                 f"stored dB/dD")
-    else:
-        check_launched(counts, "nn_fitsnap")
+    check_launched(counts, NN_PATH[mode])
+    stray = {k: counts[k] for k in NN_ABSENT.get(mode, ()) if counts[k]}
+    if stray:
+        raise AssertionError(f"the {NN_PATH[mode]} path launched {stray}")
+    if mode == "cached" and (not sol.cached
+                             or any("G" in b for b in sol.buckets)):
+        raise AssertionError("the cached NN path stored dB/dD")
+    stored = [k for b in sol.buckets for k in ("G", "disp", "ut") if k in b]
+    if mode.startswith("otf") and (stored or not sol.otf):
+        raise AssertionError(f"the OTF NN path (otf={sol.otf}) stored "
+                             f"{stored}")
 
     hist = np.array(sol.history)
-    print("nn loss curve (epoch, train, validation): "
+    print(f"nn loss curve ({mode}; epoch, train, validation): "
           + json.dumps(hist.tolist()), flush=True)
-    print("nn seconds per epoch: " + json.dumps(sol.epoch_times), flush=True)
+    print(f"nn seconds per epoch ({mode}): " + json.dumps(sol.epoch_times),
+          flush=True)
     if not (np.isfinite(hist).all() and hist[-1, 1] < hist[0, 1]):
         raise AssertionError(f"NN train loss did not fall: {hist[:, 1]}")
     missing = [f for f in files
@@ -1786,6 +1849,10 @@ def nn_path(tmp, device, mode="precompute"):
               "pair_bytes": sum(b[k].numel() * b[k].element_size()
                                 for b in sol.buckets if mode == "custom"
                                 for k in ("disp", "jidx", "mask", "rev")),
+              "position_bytes": sum(b[k].numel() * b[k].element_size()
+                                    for b in sol.buckets if "pos_hi" in b
+                                    for k in ("pos_hi", "pos_lo", "svec_hi",
+                                              "svec_lo")),
               "errors": {f"{g}/{t}": dict(zip(errs.columns, map(float, v)))
                          for (g, t), v in zip(errs.index, errs.values)
                          if g == "*ALL"}}
@@ -1977,31 +2044,32 @@ def nn_model_eval(sol, calc, pos, cell, types):
     return float(e[0]) * n, f[0].cpu().numpy()
 
 
-def nn_fd_check(fs):
-    """Central-difference forces of the trained model against its K12
-    forces on three atoms of two configs (a displaced 54-atom bcc cell and
-    a 100-atom liquid-like one)."""
+def fd_check(fs, evaluate, tag, groups=("Displaced_BCC", "Liquid")):
+    """Central-difference forces of the trained model against its forces,
+    `evaluate(sol, calc, pos, cell, types)` -> (energy, forces), on three
+    atoms of the first config of each group (the Ta set's: a displaced
+    54-atom bcc cell and a 100-atom liquid-like one)."""
     sol, calc = fs.solver, fs.calculator
     worst = []
-    for group in ("Displaced_BCC", "Liquid"):
+    for group in groups:
         d = [x for x in fs.data if x["Group"] == group][0]
         pos = np.asarray(d["Positions"], float)
         cell = np.asarray(d["Lattice"], float)
         types = [calc.type_mapping[t] - 1 for t in d["AtomTypes"]]
-        _, f0 = nn_model_eval(sol, calc, pos, cell, types)
+        _, f0 = evaluate(sol, calc, pos, cell, types)
         for a in (0, len(pos) // 2, len(pos) - 1):
             for c in range(3):
                 pp, pm = pos.copy(), pos.copy()
                 pp[a, c] += FD_H
                 pm[a, c] -= FD_H
-                ep, _ = nn_model_eval(sol, calc, pp, cell, types)
-                em, _ = nn_model_eval(sol, calc, pm, cell, types)
+                ep, _ = evaluate(sol, calc, pp, cell, types)
+                em, _ = evaluate(sol, calc, pm, cell, types)
                 worst.append(abs(-(ep - em) / (2 * FD_H) - f0[a, c]))
     err = float(np.max(worst))
-    print(f"nn FD forces (h={FD_H}): max error {err:.3e}, mean "
+    print(f"{tag} FD forces (h={FD_H}): max error {err:.3e}, mean "
           f"{float(np.mean(worst)):.3e} (bar {FD_BAR})", flush=True)
     if not err < FD_BAR:
-        raise AssertionError(f"NN FD forces miss the bar: {err:.3e}")
+        raise AssertionError(f"{tag} FD forces miss the bar: {err:.3e}")
     return {"fd_max_err": err, "fd_mean_err": float(np.mean(worst)),
             "fd_bar": FD_BAR}
 
@@ -2035,7 +2103,9 @@ def nn_export_check(fs):
 def nn_epoch_profile(fs, epoch_s):
     """Device time of one training epoch by kernel (torch.profiler), split
     into the port's kernels (K12 / K12T; cached: K2, K10, K10T, K11, K11T
-    and the gather; pairwise: K15, K15V, K15T and the gather), the other
+    and the gather; OTF: also K8, K8r and K9, or under chemflag K8, K8r,
+    K1-K3's chemflag modes, K12 / K12T; pairwise: K15, K15V, K15T and the
+    gather), the other
     kernels (MLP, its double backward, gathers,
     Adam), and its share of `epoch_s`, the unprofiled epoch's seconds;
     prints each port kernel's launches in the epoch beside its device ms."""
@@ -2052,7 +2122,8 @@ def nn_epoch_profile(fs, epoch_s):
         return {"epoch_profile": "not measured (no device time)",
                 "epoch_launches": counts}
     ours = sum(v for k, v in kernels.items()
-               if k.startswith(("nn_", "zlist", "pair_desc")))
+               if k.startswith(("nn_", "zlist", "pair_desc", "neighbors_",
+                                "reverse_", "pair_u_duals", "dbdd")))
     total = sum(kernels.values())
     print("nn epoch device time by kernel (ms): " + json.dumps(
         {k: round(v, 3) for k, v in list(kernels.items())[:12]}),
@@ -2443,32 +2514,72 @@ def nn_cached_eval(sol, calc, pos, cell, types):
     return float(e[0]) * n, f[0].cpu().numpy()
 
 
-def nn_cached_fd_check(fs):
-    """Central-difference forces of the trained cached model against its
-    forces on three atoms of two configs (as `nn_fd_check`)."""
+def otf_lists(sol, batch):
+    """The lists an OTF step builds for `batch`: K8, then K8r."""
+    from fitsnap_tpu_torch.kernels import snap_kernels as sk
+
+    disp, jidx, mask = sk.device_neighbors(
+        batch["pos_hi"], batch["pos_lo"], batch["svec_hi"], batch["svec_lo"],
+        batch["nat"], sol._cutoff, batch["shape"][1])
+    return disp, jidx, mask, sk.reverse_table(jidx, mask)[0]
+
+
+def nn_otf_cross_check(fs):
+    """The trained OTF model's energies and forces on a minibatch of 4 (the
+    largest bucket) against the precompute path's on the lists the step
+    builds (B and dB/dD from K1-K3, their chemflag modes and K6q under
+    their flags, then K12) and, for linear SNAP, the cached step's on them
+    (K9's ut and B, then K2, K10, K11 and the gather)."""
     sol, calc = fs.solver, fs.calculator
-    worst = []
-    for group in ("Displaced_BCC", "Liquid"):
-        d = [x for x in fs.data if x["Group"] == group][0]
-        pos = np.asarray(d["Positions"], float)
-        cell = np.asarray(d["Lattice"], float)
-        types = [calc.type_mapping[t] - 1 for t in d["AtomTypes"]]
-        _, f0 = nn_cached_eval(sol, calc, pos, cell, types)
-        for a in (0, len(pos) // 2, len(pos) - 1):
-            for c in range(3):
-                pp, pm = pos.copy(), pos.copy()
-                pp[a, c] += FD_H
-                pm[a, c] -= FD_H
-                ep, _ = nn_cached_eval(sol, calc, pp, cell, types)
-                em, _ = nn_cached_eval(sol, calc, pm, cell, types)
-                worst.append(abs(-(ep - em) / (2 * FD_H) - f0[a, c]))
-    err = float(np.max(worst))
-    print(f"nn cached FD forces (h={FD_H}): max error {err:.3e}, mean "
-          f"{float(np.mean(worst)):.3e} (bar {FD_BAR})", flush=True)
-    if not err < FD_BAR:
-        raise AssertionError(f"NN cached FD forces miss the bar: {err:.3e}")
-    return {"fd_max_err": err, "fd_mean_err": float(np.mean(worst)),
-            "fd_bar": FD_BAR}
+    bi = int(np.argmax([np.prod(b["shape"]) for b in sol.buckets]))
+    batch = sol._gather(sol.buckets[bi],
+                        np.arange(min(4, len(sol.buckets[bi]["groups"]))))
+    e, f = sol._forward_batch_otf(sol.model, batch)
+    disp, jidx, mask, rev = otf_lists(sol, batch)
+    types, nat = batch["types"], batch["nat"]
+    B, G, _, _ = calc.nn_prep(disp, jidx, mask, rev, types, nat)
+    e_ref, f_ref = sol._forward_batch(sol.model, dict(
+        batch, B=B, G=G, types=batch["elem"], jidx=jidx, rev=rev))
+    out = {"otf_vs_precompute_rel_err": rel_err([e, f], [e_ref, f_ref])[1]}
+    p = calc.params
+    if not (p.chemflag or p.quadraticflag):
+        ut, Bc = sol._kit["utb"](disp, jidx, mask, types, nat)
+        e_ref, f_ref = sol._forward_batch_cached(sol.model, dict(
+            batch, disp=disp, jidx=jidx, mask=mask, rev=rev, ut=ut, B=Bc))
+        out["otf_vs_cached_rel_err"] = rel_err([e, f], [e_ref, f_ref])[1]
+    print(f"nn OTF vs the other modes on one minibatch "
+          f"({list(batch['pos_hi'].shape[:2])}): energies and forces "
+          f"{json.dumps(out)} (limit {CROSS_RTOL})", flush=True)
+    if not all(v <= CROSS_RTOL for v in out.values()):
+        raise AssertionError(f"NN OTF and the other modes disagree: {out}")
+    return out
+
+
+def nn_otf_eval(sol, calc, pos, cell, types):
+    """Energy and OTF forces of one config: its positions packed as an OTF
+    bucket's (`pack_batch_pos`), then the OTF step's forward (K8, K8r and
+    its route's kernels)."""
+    import torch
+    from fitsnap_tpu_torch.calculators.snap import PackedConfig
+    from fitsnap_tpu_torch.ops.neighbors import (count_neighbors,
+                                                 required_shifts, shift_table)
+    from fitsnap_tpu_torch.parallel.fit import pack_batch_pos
+
+    n = len(pos)
+    s_table = tuple(map(tuple, shift_table(required_shifts(cell,
+                                                           calc.cutoff))))
+    k_pad = min(count_neighbors(pos, cell, n, calc.cutoff), n * len(s_table))
+    pc = PackedConfig(pos=pos, cell=cell, types=np.asarray(types, np.int32),
+                      natoms=n, data={})
+    ph, pl, sh, sl, t, nat = (torch.from_numpy(x[0]).to(calc.device)
+                              for x in pack_batch_pos([pc], n, 1,
+                                                      s_table)[:6])
+    batch = {"pos_hi": ph, "pos_lo": pl, "svec_hi": sh, "svec_lo": sl,
+             "types": t, "elem": torch.zeros_like(t),
+             "real": torch.ones_like(t, dtype=torch.bool), "nat": nat,
+             "shape": (n, k_pad)}
+    e, f = sol._forward_batch_otf(sol.model, batch)
+    return float(e[0]) * n, f[0].cpu().numpy()
 
 
 def custom_batch(sol, n=4, shape=None):
@@ -2657,34 +2768,6 @@ def custom_eval(sol, calc, pos, cell, types):
     return float(e[0]) * n, f[0].cpu().numpy()
 
 
-def custom_fd_check(fs):
-    """Central-difference forces of the trained pairwise model against its
-    forces on three atoms of two configs (as `nn_fd_check`)."""
-    sol, calc = fs.solver, fs.calculator
-    worst = []
-    for group in ("Displaced_BCC", "Liquid"):
-        d = [x for x in fs.data if x["Group"] == group][0]
-        pos = np.asarray(d["Positions"], float)
-        cell = np.asarray(d["Lattice"], float)
-        types = [calc.type_mapping[t] - 1 for t in d["AtomTypes"]]
-        _, f0 = custom_eval(sol, calc, pos, cell, types)
-        for a in (0, len(pos) // 2, len(pos) - 1):
-            for c in range(3):
-                pp, pm = pos.copy(), pos.copy()
-                pp[a, c] += FD_H
-                pm[a, c] -= FD_H
-                ep, _ = custom_eval(sol, calc, pp, cell, types)
-                em, _ = custom_eval(sol, calc, pm, cell, types)
-                worst.append(abs(-(ep - em) / (2 * FD_H) - f0[a, c]))
-    err = float(np.max(worst))
-    print(f"custom FD forces (h={FD_H}): max error {err:.3e}, mean "
-          f"{float(np.mean(worst)):.3e} (bar {FD_BAR})", flush=True)
-    if not err < FD_BAR:
-        raise AssertionError(f"pairwise FD forces miss the bar: {err:.3e}")
-    return {"fd_max_err": err, "fd_mean_err": float(np.mean(worst)),
-            "fd_bar": FD_BAR}
-
-
 def custom_export_check(fs):
     """The written .pt's per-atom energies and dE/drij on one config (a
     displaced 54-atom bcc cell) against the trained model's."""
@@ -2807,7 +2890,8 @@ def main():
             fs, counts, times, checks = nn_path(tmp, "cuda")
             rows, grad = nn_kernel_checks(fs)
             kernels += rows
-            checks.update(grad, **nn_fd_check(fs), **nn_export_check(fs))
+            checks.update(grad, **fd_check(fs, nn_model_eval, "nn"),
+                          **nn_export_check(fs))
             checks.update(nn_epoch_profile(fs, times["epoch_mean_rest"]))
             paths["nn_fitsnap"] = (counts, times, checks)
             del fs
@@ -2817,16 +2901,29 @@ def main():
             rows, grad = nn_cached_kernel_checks(fs)
             kernels += rows
             checks.update(grad, **nn_cross_mode_check(fs),
-                          **nn_cached_fd_check(fs))
+                          **fd_check(fs, nn_cached_eval, "nn cached"))
             checks.update(nn_epoch_profile(fs, times["epoch_mean_rest"]))
             paths["nn_cached_fitsnap"] = (counts, times, checks)
             del fs
             torch.cuda.empty_cache()
+            # the NN fit in the OTF mode: linear SNAP and quadraticflag on
+            # the same set, chemflag on the InP-shaped set of phase 9
+            for mode in ("otf", "otf_quadratic", "otf_chem"):
+                fs, counts, times, checks = nn_path(tmp, "cuda", mode)
+                groups = (("Displaced_ZB64", "Antisite_ZB64")
+                          if mode == "otf_chem"
+                          else ("Displaced_BCC", "Liquid"))
+                checks.update(nn_otf_cross_check(fs), **fd_check(
+                    fs, nn_otf_eval, f"nn {mode}", groups))
+                checks.update(nn_epoch_profile(fs, times["epoch_mean_rest"]))
+                paths[NN_PATH[mode]] = (counts, times, checks)
+                del fs
+                torch.cuda.empty_cache()
             # the custom pairwise NN on the same set
             fs, counts, times, checks = nn_path(tmp, "cuda", "custom")
             rows, grad = custom_kernel_checks(fs)
             kernels += rows
-            checks.update(grad, **custom_fd_check(fs),
+            checks.update(grad, **fd_check(fs, custom_eval, "custom"),
                           **custom_export_check(fs))
             checks.update(nn_epoch_profile(fs, times["epoch_mean_rest"]))
             paths["custom_fitsnap"] = (counts, times, checks)

@@ -170,8 +170,18 @@ def nn_prep(params, refspec, disp, jidx, mask, rev, types, natoms):
 
 def nn_analytic(params):
     """The NN cached mode's kit (JAX `SnapCalculator.nn_analytic_fns`), or
-    None for chemflag and quadraticflag, which it does not cover.  Batches
-    carry the config axis C first, as `snap_rows`'.  Roles:
+    None for chemflag and quadraticflag, which it does not cover: `nn_kit`
+    where the cached mode applies."""
+    if params.chemflag or params.quadraticflag:
+        return None
+    return nn_kit(params)
+
+
+def nn_kit(params):
+    """The pair-grid kit of one element channel on the base descriptors:
+    the cached mode's, and the OTF mode's for linear SNAP and, with the
+    quadratic columns' chain rule applied by the caller, quadraticflag.
+    Batches carry the config axis C first, as `snap_rows`'.  Roles:
 
       utb(disp, jidx, mask, types, natoms) -> (ut (C, A, 2U), B (C, A, W)):
           the cached per-atom state, K9 (B zero on padded atoms);
@@ -183,9 +193,6 @@ def nn_analytic(params):
       force(vg (C*A, n_t, n_t), disp, pair, types) -> dE/ddisp (C, A, K,
           3): K11.
     """
-    if params.chemflag or params.quadraticflag:
-        return None
-
     def pair(disp, jidx, mask, types):
         return pair_masks(params, disp, jidx, mask, types)
 
@@ -220,7 +227,7 @@ def nn_desc(params, disp, jidx, mask, types, natoms):
     if params.nchem > 1:
         raise NotImplementedError(
             "nn_desc: the pair-grid descriptor kernel K9 takes one element "
-            "channel (ROADMAP.md: \"The NN solver's OTF mode\")")
+            "channel (ROADMAP.md: \"PAS\")")
     C, A, K = mask.shape
     jelem, smask = pair_masks(params, disp, jidx, mask, types)
     _, B = nk.nn_ut_b(disp.reshape(C * A, K, 3), jelem.reshape(C * A, K),
@@ -378,6 +385,11 @@ class SnapCalculator:
         mode does not apply)."""
         self._maybe_refresh()
         return nn_analytic(self.params)
+
+    def nn_kit(self):
+        """`nn_kit` of this calculator's model."""
+        self._maybe_refresh()
+        return nn_kit(self.params)
 
     def nn_desc(self, disp, jidx, mask, types, natoms):
         """`nn_desc` of a batch with this calculator's model."""

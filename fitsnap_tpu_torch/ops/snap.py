@@ -363,6 +363,19 @@ def _quad_extend(B, p: SnapParams):
     return torch.cat([B, B[:, p.iq1] * B[:, p.iq2] * p.qcoef], 1)
 
 
+def quad_fold(dEdB, B, p: SnapParams):
+    """dE/dB (M, W + nq) of `_quad_extend(B)` -> dE/dB (M, W) of the base
+    columns B (M, W), by the product rule: with q_m = qcoef_m B[iq1_m]
+    B[iq2_m], dE/dq_m qcoef_m B[iq2_m] adds at iq1_m and dE/dq_m qcoef_m
+    B[iq1_m] at iq2_m.  Differentiable in dE/dB (B takes no gradient)."""
+    if not p.quadraticflag:
+        return dEdB
+    W = B.shape[1]
+    dq = dEdB[:, W:] * p.qcoef
+    return (dEdB[:, :W].index_add(1, p.iq1, dq * B[:, p.iq2])
+            .index_add(1, p.iq2, dq * B[:, p.iq1]))
+
+
 def atom_descriptors(disp, jelem, mask, ielem, p: SnapParams):
     """Per-atom SNAP descriptors by the recursion (the independent oracle),
     with the quadratic extension: (A, ncoeff)."""

@@ -1,17 +1,26 @@
 """Neural-network solver (PyTorch), replacing the reference's PYTORCH /
-NETWORK / JAX solvers, in the cached and precompute modes and as the
+NETWORK / JAX solvers, in the cached, OTF and precompute modes and as the
 custom pairwise NN.
 
 Counterpart of `fitsnap_tpu/solvers/network.py`.  `dgrad_mode = cached`
 (what `auto` picks for linear SNAP, as in the JAX package): positions go to
 the device in the buckets of `parallel/fit.plan_pos_buckets`, and one pass
 builds the neighbor lists (K8), their reverse table (K8r), the per-atom ut
-and B (K9, `calculators/snap.nn_analytic`) and the reference potential (K5 +
-K4); the buckets keep those, no dB/dD.  Each step takes dE/dB back to the
+and B (K9, `calculators/snap.nn_analytic`) and the reference potential
+(K5); the buckets keep those, no dB/dD.  Each step takes dE/dB back to the
 pairs analytically (`NnCachedForce`: K2 z-lists of the cached ut, K10, K11
-and the force gather; backward K11T and K10T).  `dgrad_mode = precompute`
-(chemflag and quadraticflag, or asked for): per-atom descriptors B and their
-per-pair gradients G = dB/dD are computed on the device once
+and the force gather; backward K11T and K10T).  `dgrad_mode = otf` (also
+what `cached` falls back to under chemflag or quadraticflag, and what
+`auto` picks when neither the cached mode's cache nor dB/dD fits): the
+buckets keep the positions alone, the same pass forms the targets and the
+standardization, and every step rebuilds the lists (K8, K8r) and the
+descriptors from the positions.  Linear SNAP and quadraticflag then take
+K9's ut and B into the cached step (under quadraticflag the MLP sees the
+quadratic columns, and their dE/dB folds back onto the base columns ahead
+of K10); chemflag takes B and dB/dD of the minibatch from K1-K3's chemflag
+modes into the precompute step.  `dgrad_mode = precompute` (chemflag and
+quadraticflag, or asked for): per-atom descriptors B and their per-pair
+gradients G = dB/dD are computed on the device once
 (`calculators/snap.nn_prep`: kernels K1-K5, K6q and the chemflag modes under
 their flags), in shape buckets of configs padded to one (atoms, neighbor
 slots) shape, and the forces go through K12 (`NnForce`, backward K12T).
@@ -33,7 +42,7 @@ warm start, best-validation tracking and the plateau scheduler are the JAX
 package's, so both packages follow the same loss trajectory from the same
 initial parameters.  The JAX package's epoch blocks and chunked programs
 only arrange TPU dispatch (they compute the same trajectory), and are not
-copied.  The OTF mode and PAS raise naming their ROADMAP.md items.
+copied.  PAS raises naming its ROADMAP.md item.
 """
 
 import time
@@ -42,7 +51,7 @@ import numpy as np
 import torch
 
 from fitsnap_tpu_torch.convert import mlp_params_from_numpy
-from fitsnap_tpu_torch.io.screen import info, screen
+from fitsnap_tpu_torch.io.screen import info, screen, warn
 from fitsnap_tpu_torch.kernels.custom_kernels import (PairDescForce,
                                                       pair_desc,
                                                       pair_desc_vjp)
@@ -51,12 +60,12 @@ from fitsnap_tpu_torch.kernels.nn_kernels import (NnCachedForce, NnForce,
 from fitsnap_tpu_torch.models.mlp import (PerElementMLP, init_mlp,
                                           load_params, params_to_numpy,
                                           save_params)
+from fitsnap_tpu_torch.ops.snap import _quad_extend, quad_fold
 from fitsnap_tpu_torch.solvers.solver import (NN_COLUMNS, NN_INDEX_NAMES,
                                               ErrorTable, Solver)
 from fitsnap_tpu_torch.utils.torchsetup import DTYPE, resolve_device
 
 _LATER = '{} is not ported to fitsnap_tpu_torch yet (ROADMAP.md: "{}")'
-_OTF = "The NN solver's OTF mode"
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 _BATCH_KEYS = ("B", "G", "types", "real", "nat", "jidx", "rev", "e_target",
                "f_target", "ew", "fw")
@@ -66,16 +75,21 @@ _BATCH_KEYS = ("B", "G", "types", "real", "nat", "jidx", "rev", "e_target",
 _BATCH_KEYS_CACHED = ("disp", "jidx", "mask", "rev", "ut", "B", "types",
                       "elem", "real", "nat", "e_target", "f_target", "ew",
                       "fw")
+# the OTF mode's buckets: positions (hi/lo parts, float64) and image shift
+# vectors; k_pad is the bucket's "shape"[1]
+_BATCH_KEYS_OTF = ("pos_hi", "pos_lo", "svec_hi", "svec_lo", "types", "elem",
+                   "real", "nat", "e_target", "f_target", "ew", "fw")
 # the pairwise mode's buckets: host neighbor lists, no descriptors
 _BATCH_KEYS_PW = ("disp", "jidx", "mask", "rev", "types", "real", "nat",
                   "e_target", "f_target", "ew", "fw")
 # dgrad_mode = auto (the JAX package's defaults): the cached mode while its
 # neighbor and per-atom cache stays within NEIGH_LIMIT bytes, else the
-# stored dB/dD within G_LIMIT
+# stored dB/dD within G_LIMIT, else the OTF mode
 NEIGH_LIMIT = 4 << 30
 G_LIMIT = 2 << 30
 MAX_PROGRAMS = 10           # plan_pos_buckets' cap on the cached buckets
 CACHED_PAIRS = 390_000      # the cached mode's pair slots per minibatch
+OTF_CANDIDATES = 1 << 25    # the OTF mode's (A, S, A) candidates per minibatch
 PAIR_CHUNK = 1 << 20        # pair slots per K15 call of the pairwise stats
 
 
@@ -194,8 +208,10 @@ class NetworkSolver(Solver):
         self.std = None
         self.model = None
         self.cached = False     # dgrad_mode resolved to cached
-        self._kit = None        # calculators/snap.nn_analytic of the fit
+        self.otf = False        # dgrad_mode resolved to otf
+        self._kit = None        # calculators/snap.nn_kit of the fit
         self._snap = None       # its SnapParams
+        self._cutoff = None     # the neighbor cutoff of the cached/OTF lists
         self._custom = None     # the pairwise mode's [CUSTOM] section
         self.history = []
         self.lr_history = np.zeros(0)
@@ -209,20 +225,19 @@ class NetworkSolver(Solver):
         targets and the descriptor standardization, in the mode
         `dgrad_mode` resolves to (JAX `prepare_dataset`): `auto` takes the
         cached mode for linear SNAP while its cache stays within
-        NEIGH_LIMIT, else precompute while dB/dD stays within G_LIMIT.  A
-        [CUSTOM] section takes the pairwise mode whatever `dgrad_mode`
-        says."""
+        NEIGH_LIMIT, else precompute while dB/dD stays within G_LIMIT, else
+        OTF; `cached` where its kit does not apply (chemflag,
+        quadraticflag) warns and takes OTF.  A [CUSTOM] section takes the
+        pairwise mode whatever `dgrad_mode` says."""
         from fitsnap_tpu_torch.calculators.snap import (
             chunk_size, coalesce_shape_buckets, pack_bucket)
         from fitsnap_tpu_torch.parallel.fit import plan_pos_buckets
 
-        self.cached = False
+        self.cached = self.otf = False
         if self.pairwise:
             return self._prepare_pairwise(calculator, data)
         mode = self.net.dgrad_mode
-        if mode == "otf":
-            raise NotImplementedError(_LATER.format("dgrad_mode=otf", _OTF))
-        if mode in ("auto", "cached"):
+        if mode in ("auto", "cached", "otf"):
             packed = [calculator._pack(d) for d in data]
             pos_groups = plan_pos_buckets(packed, calculator.cutoff,
                                           max_programs=MAX_PROGRAMS)
@@ -241,25 +256,23 @@ class NetworkSolver(Solver):
                 elif g_bytes <= G_LIMIT:
                     mode = "precompute"
                 else:
-                    raise NotImplementedError(
-                        f"dgrad_mode=auto: the cached mode does not apply "
-                        f"and the stored dB/dD would take "
-                        f"{g_bytes / 1e9:.2f} GB, which the JAX package "
-                        f"trains in its OTF mode; "
-                        + _LATER.format("The OTF mode", _OTF))
+                    mode = "otf"
                 screen(f"dgrad_mode=auto -> {mode} (neighbor cache "
                        f"{neigh_bytes / 1e9:.3f} GB, dB/dD "
                        f"{g_bytes / 1e9:.3f} GB)")
-            if mode == "cached":
-                if kit is None:
-                    raise NotImplementedError(
-                        "dgrad_mode=cached covers linear SNAP, not chemflag "
-                        "or quadraticflag; the JAX package falls back to "
-                        "its OTF mode there, and "
-                        + _LATER.format("the OTF mode", _OTF))
-                self.cached = True
-                self._kit, self._snap = kit, calculator.params
-                return self._prepare_cached(calculator, pos_groups)
+            if mode == "cached" and kit is None:
+                warn("dgrad_mode=cached is not available for this "
+                     "descriptor config (chem/quadratic/non-SNAP); "
+                     "falling back to otf")
+                mode = "otf"
+        self.cached, self.otf = mode == "cached", mode == "otf"
+        if self.cached or self.otf:
+            self._snap = calculator.params
+            self._cutoff = float(calculator.cutoff)
+            # the descriptor form picks the OTF route: the pair-grid kit for
+            # one element channel (quadraticflag too), K1-K3 under chemflag
+            self._kit = None if self._snap.chemflag else calculator.nn_kit()
+            return self._prepare_pos(calculator, pos_groups)
         packed, shape_buckets = calculator.host_preprocess(data)
         shape_buckets = coalesce_shape_buckets(shape_buckets)
         width = calculator.desc_width()
@@ -314,22 +327,28 @@ class NetworkSolver(Solver):
         self.mean = torch.as_tensor(mean, dtype=DTYPE, device=self.device)
         self.std = torch.as_tensor(std, dtype=DTYPE, device=self.device)
 
-    def _prepare_cached(self, calculator, pos_groups):
-        """The cached mode's buckets (JAX `_prepare_otf(cache=True)` on one
-        device).  Per bucket of `plan_pos_buckets` the positions go to the
-        device (`pack_batch_pos`, float64), and per chunk of configs K8
-        builds the neighbor lists, K8r their reverse table, K9 the per-atom
-        ut and B, and K5 the reference potential; the stats pass forms
-        the targets and the standardization over real atoms.  A bucket
-        keeps disp, jidx, mask, rev, ut and B, not the positions (they never
-        move in training)."""
+    def _prepare_pos(self, calculator, pos_groups):
+        """The cached and OTF modes' buckets (JAX `_prepare_otf`, with
+        `cache=True` in the cached mode) on one device.  Per bucket of
+        `plan_pos_buckets` the positions go to the device (`pack_batch_pos`,
+        float64), and per chunk of configs K8 builds the neighbor lists, K8r
+        their reverse table, the descriptor pass B (cached: K9's ut and B;
+        OTF: `nn_desc`, K9 with the quadratic columns, or under chemflag
+        K1-K3's chemflag modes, whose dB/dD is dropped), and K5 the
+        reference potential; the stats pass forms the targets and the
+        standardization over real atoms.  A cached bucket keeps disp, jidx,
+        mask, rev, ut and B, not the positions (they never move in
+        training); an OTF bucket keeps the positions alone.  The reverse
+        tables' dropped entries are checked here once: a step's lists
+        equal these."""
+        from fitsnap_tpu_torch.calculators.snap import (_batch_descriptors,
+                                                        chunk_size, nn_desc)
         from fitsnap_tpu_torch.kernels import snap_kernels as sk
         from fitsnap_tpu_torch.ops.refpot import reference_eav
         from fitsnap_tpu_torch.parallel.fit import (_check_dropped,
                                                     pack_batch_pos)
 
-        dev = self.device
-        cutoff = float(calculator.cutoff)
+        dev, p, cutoff = self.device, self._snap, self._cutoff
         self.buckets = []
         sum_b = sumsq_b = None
         count = 0
@@ -340,20 +359,32 @@ class NetworkSolver(Solver):
             ph, pl, sh, sl, types, nat, _, e_t, f_t, _, ew, fw, _ = (
                 torch.from_numpy(x[0]).to(dev)
                 for x in pack_batch_pos(cfgs, a_pad, n, s_table))
-            # bound the (A, S, A) neighbor-candidate transient
+            # bound the (A, S, A) neighbor-candidate transient (and the
+            # chunk's dB/dD under chemflag)
             chunk = int(min(32, max(1, (1 << 26) // (a_pad * S * a_pad)), n))
+            if self.otf and p.chemflag:
+                chunk = min(chunk, chunk_size(a_pad, k_pad,
+                                              calculator.desc_width()))
             outs = []
             for c0 in range(0, n, chunk):
                 c = slice(c0, c0 + chunk)
                 disp, jidx, mask = sk.device_neighbors(
                     ph[c], pl[c], sh[c], sl[c], nat[c], cutoff, k_pad)
                 rev, dropped = sk.reverse_table(jidx, mask)
-                ut, B = self._kit["utb"](disp, jidx, mask, types[c], nat[c])
+                keep = ()
+                if self.cached:
+                    ut, B = self._kit["utb"](disp, jidx, mask, types[c],
+                                             nat[c])
+                    keep = (disp, jidx, mask, rev, ut)
+                elif p.chemflag:
+                    B = _batch_descriptors(p, disp, jidx, mask, types[c],
+                                           nat[c], plain=False)[0]
+                else:
+                    B = nn_desc(p, disp, jidx, mask, types[c], nat[c])
                 re, rf, _ = reference_eav(disp, jidx, mask, rev, types[c],
                                           calculator.refspec)
-                outs.append((disp, jidx, mask, rev, ut, B, re, rf, dropped))
-            disp, jidx, mask, rev, ut, B, re, rf, dropped = (
-                torch.cat(x) for x in zip(*outs))
+                outs.append((B, re, rf, dropped) + keep)
+            B, re, rf, dropped, *keep = (torch.cat(x) for x in zip(*outs))
             del outs
             _check_dropped(dropped)
             real = torch.arange(a_pad, device=dev)[None, :] < nat[:, None]
@@ -363,9 +394,14 @@ class NetworkSolver(Solver):
             sum_b = sb if sum_b is None else sum_b + sb
             sumsq_b = ssq if sumsq_b is None else sumsq_b + ssq
             count += int(real.sum())
+            if self.cached:
+                lists = dict(zip(("disp", "jidx", "mask", "rev", "ut"), keep),
+                             B=B)
+            else:
+                lists = {"pos_hi": ph, "pos_lo": pl, "svec_hi": sh,
+                         "svec_lo": sl}
             self.buckets.append({
-                "disp": disp, "jidx": jidx, "mask": mask, "rev": rev,
-                "ut": ut, "B": B, "types": types, "elem": types.clone(),
+                **lists, "types": types, "elem": types.clone(),
                 "nat": nat, "real": real,
                 "e_target": (e_t - re) / torch.clamp(nat, min=1),
                 "f_target": f_t - rf, "ew": ew, "fw": fw,
@@ -457,18 +493,21 @@ class NetworkSolver(Solver):
         (configs x atoms) axis, then dE/dB taken to the pairs and gathered
         into forces (K2, K10, K11 and the gather; with `train`, through
         `NnCachedForce`, whose backward K11T, K10T carries the force term
-        into the loss's parameter gradient)."""
-        kit = self._kit
+        into the loss's parameter gradient).  Under quadraticflag (the OTF
+        mode) the MLP sees B with its quadratic columns, whose dE/dB folds
+        back onto the base columns ahead of K10 (`ops/snap.quad_fold`)."""
+        kit, p = self._kit, self._snap
         B = batch["B"]
         N, A, W = B.shape
+        B = B.reshape(N * A, W)
         real = batch["real"].to(B.dtype).reshape(-1)
         nat = torch.clamp(batch["nat"], min=1).to(B.dtype)
-        x = ((B - self.mean) / self.std).reshape(N * A, W).requires_grad_(True)
+        x = ((_quad_extend(B, p) - self.mean) / self.std).requires_grad_(True)
         with torch.enable_grad():
             e = (model(x, batch["elem"].reshape(-1)) * real).reshape(N, A) \
                 .sum(1)
             dEdx, = torch.autograd.grad(e.sum(), x, create_graph=train)
-        dEdB = dEdx / self.std
+        dEdB = quad_fold(dEdx / self.std, B, p)
         ut = batch["ut"].reshape(N * A, -1)
         disp, types = batch["disp"], batch["types"]
         pair = kit["pair"](disp, batch["jidx"], batch["mask"], types)
@@ -484,6 +523,34 @@ class NetworkSolver(Solver):
             g = kit["force"](kit["dEdu_vg"](dEdB, ut), disp, pair, types)
             forces = nn_pair_gather(g, batch["rev"])
         return e / nat, forces
+
+    def _forward_batch_otf(self, model, batch, train=False):
+        """The OTF mode's energies and forces of one gathered batch (JAX
+        `_forward_batch_otf`, with analytic forces in place of autodiff in
+        the positions): the neighbor lists rebuilt from the positions (K8,
+        K8r), then by the descriptor form.  One element channel (linear
+        SNAP, quadraticflag): K9's ut and B into the cached step
+        (`_forward_batch_cached`).  chemflag: B and dB/dD of the minibatch
+        from K1-K3's chemflag modes into the precompute step
+        (`_forward_batch`); that dB/dD lives for this step only."""
+        from fitsnap_tpu_torch.calculators.snap import _batch_descriptors
+        from fitsnap_tpu_torch.kernels import snap_kernels as sk
+
+        types, nat = batch["types"], batch["nat"]
+        disp, jidx, mask = sk.device_neighbors(
+            batch["pos_hi"], batch["pos_lo"], batch["svec_hi"],
+            batch["svec_lo"], nat, self._cutoff, batch["shape"][1])
+        rev, _ = sk.reverse_table(jidx, mask)
+        if self._kit is None:
+            B, G, _, _ = _batch_descriptors(self._snap, disp, jidx, mask,
+                                            types, nat, plain=False)
+            return self._forward_batch(model, dict(
+                batch, B=B, G=G, types=batch["elem"], jidx=jidx, rev=rev),
+                train)
+        ut, B = self._kit["utb"](disp, jidx, mask, types, nat)
+        return self._forward_batch_cached(model, dict(
+            batch, disp=disp, jidx=jidx, mask=mask, rev=rev, ut=ut, B=B),
+            train)
 
     def _forward_pairwise(self, model, batch, train=False):
         """The pairwise mode's energies and forces of one gathered batch
@@ -524,6 +591,7 @@ class NetworkSolver(Solver):
     def _forward(self):
         return (self._forward_pairwise if self.pairwise
                 else self._forward_batch_cached if self.cached
+                else self._forward_batch_otf if self.otf
                 else self._forward_batch)
 
     def _loss(self, model, batch, train=False):
@@ -547,8 +615,10 @@ class NetworkSolver(Solver):
         idx = torch.as_tensor(np.asarray(idx), dtype=torch.long,
                               device=self.device)
         keys = (_BATCH_KEYS_PW if self.pairwise
-                else _BATCH_KEYS_CACHED if self.cached else _BATCH_KEYS)
-        return {k: ds[k].index_select(0, idx) for k in keys}
+                else _BATCH_KEYS_CACHED if self.cached
+                else _BATCH_KEYS_OTF if self.otf else _BATCH_KEYS)
+        return dict({k: ds[k].index_select(0, idx) for k in keys},
+                    shape=ds["shape"])
 
     # ------------- training -------------
 
@@ -610,14 +680,18 @@ class NetworkSolver(Solver):
             train_sets.append(tr)
             val_sets.append(va)
         def plan_bsz(n, ds):
-            """The minibatch size: min(batch_size, n), and in the cached
-            mode at most CACHED_PAIRS pair slots (JAX `_plan_bsz`).  The
+            """The minibatch size: min(batch_size, n), and at most
+            CACHED_PAIRS pair slots in the cached mode, OTF_CANDIDATES
+            neighbor candidates in the OTF mode (JAX `_plan_bsz`).  The
             JAX package's np.resize wrap of a set smaller than the
             minibatch fires only with more devices than examples."""
             bsz = min(bs, n)
+            a_pad, k_pad = ds["shape"]
             if self.cached:
-                a_pad, k_pad = ds["shape"]
                 bsz = min(bsz, max(1, CACHED_PAIRS // (a_pad * k_pad)))
+            if self.otf:
+                S = ds["svec_hi"].shape[1]
+                bsz = min(bsz, max(1, OTF_CANDIDATES // (a_pad * S * a_pad)))
             return bsz
 
         E = net.num_epochs

@@ -19,7 +19,8 @@ zincblende In/P cells (8-atom volume and strain scans, displaced 64- and
 216-atom supercells, 64-atom cells with antisite defects, so the mix of
 elements varies), and `inp_settings` the example's explicit multi-element
 model (chemflag, two elements, wselfallflag, bnormflag, bzeroflag 1,
-per-element ESHIFT, ZBL 4.0-4.2 for Z = 49 / 15).
+per-element ESHIFT, ZBL 4.0-4.2 for Z = 49 / 15), `inp_nn_settings` the
+same model under the NN solver.
 
 `write_dataset` writes zero truths; callers that fit it first compute their
 truths (for example A @ beta_true + the reference potential) and rewrite
@@ -323,6 +324,19 @@ def inp_settings(datapath, groups=None):
         "pair_coeff3": "1 2 zbl 49 15", "pair_coeff4": "2 2 zbl 15 15"}
     s["OUTFILE"] = {"metrics": "InP_metrics.md", "potential": "InP_pot"}
     s["GROUPS"].update(table)
+    return s
+
+
+def inp_nn_settings(datapath, groups=None, dgrad_mode="precompute"):
+    """`inp_settings` for the NN solver: nonlinear 1 and the [PYTORCH]
+    section of `nn_settings` (`dgrad_mode` as given), writing InP_nn.pt,
+    InP_nn_metrics.md and InP_nn_pot.*."""
+    s = inp_settings(datapath, groups)
+    s["CALCULATOR"]["nonlinear"] = 1
+    s["SOLVER"] = {"solver": "PYTORCH"}
+    s["PYTORCH"] = dict(nn_settings(datapath, [], dgrad_mode)["PYTORCH"],
+                        output_file="InP_nn.pt")
+    s["OUTFILE"] = {"metrics": "InP_nn_metrics.md", "potential": "InP_nn_pot"}
     return s
 
 

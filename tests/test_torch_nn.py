@@ -29,7 +29,6 @@ both.  Checks, with their tolerances:
 """
 
 import os
-from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -410,22 +409,9 @@ def test_plateau_step_equals_jax():
     assert port[0] < 1e-3
 
 
-def test_modes_the_port_lacks_raise(prepared, tmp_path):
-    """The OTF mode, the cached mode under chemflag (where the JAX package
-    falls back to OTF), PAS and nonlinear ACE raise, naming their ROADMAP.md
-    items by title."""
-    port, _ = prepared
-    otf = "The NN solver's OTF mode"
-    solver = tnet.NetworkSolver("PYTORCH", port.config, "cpu")
-    solver.net = SimpleNamespace(dgrad_mode="otf")
-    with pytest.raises(NotImplementedError, match=otf):
-        solver.prepare_dataset(None, [])
-    s = ta_nn_settings(tmp_path)
-    s["BISPECTRUM"]["chemflag"] = 1
-    s["PYTORCH"]["dgrad_mode"] = "cached"
-    chem = FitSnap(s, arglist=["--overwrite"], device="cpu")
-    with pytest.raises(NotImplementedError, match=otf):
-        chem.solver.prepare_dataset(chem.calculator, [])
+def test_modes_the_port_lacks_raise(tmp_path):
+    """PAS and nonlinear ACE raise, naming their ROADMAP.md items by
+    title."""
     s = ta_nn_settings(tmp_path)
     s["CALCULATOR"]["per_atom_scalar"] = 1
     s["CALCULATOR"]["energy"] = s["CALCULATOR"]["force"] = 0
