@@ -17,8 +17,10 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    compressed 128-atom bcc cells, 64 neighbor slots, twojmax 6, float64;
    K5 the whole ZBL reference, `zbl_eav`, energy, forces and virial in one
    launch, against the plain composition (the per-slot gradient, then K4's
-   plain scatter at width 1), twice bit for bit, its digest printed; K8
-   and K8r on that chunk's positions batch), failing above 1e-11
+   plain scatter at width 1), twice bit for bit, its digest printed; K5
+   also in its ref_eav mode with seeded charges and unit spins on that
+   chunk: coul/cut, the spin term and zbl + coul/cut + spin, a row each;
+   K8 and K8r on that chunk's positions batch), failing above 1e-11
    relative error (K8's mask and jidx and K8r's table must be equal); kernel,
    plain and library-call times with CUDA events, the kernel's device time
    (and K3's, K4's, K7's and K14's library call's) from a torch.profiler
@@ -64,8 +66,10 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    phase 3; K13 also past its old limits on the Ta chunk (a plan of lmax
    8: ranks 1-4, 171 A-slots; the Ta_PACE plan in the three other
    convention pairs: radial pace_mx / v0_t1 / pace_x with Ylm std / racah
-   / 4pi), twice bit for bit with its digests printed, and K4 at the ACE
-   width (the Ta_PACE chunk's 68 label columns, one type block);
+   / 4pi; the Ta_PACE plan with spline radials, delta 0.001, as the
+   InP-shaped plan on its chunk), twice bit for bit with its digests
+   printed, and K4 at the ACE width (the Ta_PACE chunk's 68 label
+   columns, one type block);
 8. ACE FitSnap and streamed paths, as phases 4 and 5 with
    `calculator = LAMMPSPACE`, PACE output and `kernel=ace_kernel(plan)`.
    The weighted design matrix is too ill-conditioned (cond about 1e16)
@@ -114,6 +118,13 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    sqrt(10 eps) of the largest), e_kept that type's error of the host's SVD
    solve that keeps the same directions, direct and refined; as a control,
    the same solve of AtA and Atb rounded to float32 must fail these checks;
+11b. SNAP with the reference `hybrid/overlay zero zbl 4.0 4.8 coul/cut 5.0
+   spin/exchange/biquadratic 4.5` (`synthetic.fe_settings`) on a seeded
+   Fe-shaped set (`synthetic.fe_configs`: 60 bcc cells of 2, 16 and 54
+   atoms whose JSON carries Spins and Charges), truths A_plain beta_true
+   plus that reference: the FitSnap path as phase 4 (K1-K5 launched, K5 in
+   its ref_eav mode; A equal to the plain path's to 1e-10, beta_true
+   recovered); no streamed fit, which passes the reference no charges;
 12. NN path (precompute mode), on the Ta set of phase 2 with
    `synthetic.nn_settings` (nonlinear 1, [PYTORCH] layer_sizes num_desc 64
    64 1, batch size 4, 10 epochs): launch counts set to 0, then
@@ -189,6 +200,17 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    the gather launched and K9-K11T did not; the forces against the
    precompute path's, FD forces on two 64-atom cells (a displaced and an
    antisite one), a profiler split of one epoch;
+16b. nonlinear ACE (`synthetic.ace_nn_settings`: the Ta_PACE plan, 68
+   labels, under the [PYTORCH] section of phase 12) on the ACE set of
+   phase 6 for 4 epochs, precompute then OTF: launch counts set to 0,
+   FitSnap(device="cuda") -> scrape -> process -> perform_fit ->
+   write_output, the counts read just after; it fails unless K13, K14, K5,
+   K12 and K12T launched (OTF: K8 and K8r too) and no SNAP kernel did,
+   OTF kept no G, the train loss fell and the `.pt` and metrics were
+   written.  Then the `.pt` against the model, OTF against the precompute
+   path's forces on a minibatch (1e-9), central-difference forces (1e-5),
+   the same fit with every kernel's plain version on the card (the loss
+   curves equal to 1e-10), and a profiler split of one epoch;
 17. the custom pairwise NN (calculator LAMMPSCUSTOM) on the same set with
    `synthetic.custom_settings` (31 Bessel / Gaussian 3-body pair
    descriptors at cutoff 5.0, `num_desc 64 64 1`, batch 4, 10 epochs, the
@@ -226,6 +248,7 @@ the package is missing, it exits non-zero and prints no result.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -326,17 +349,28 @@ NN_CACHED_ABSENT = ("pair_u_duals", "dbdd", "nn_force")
 NN_OTF_CHEM_KERNELS = ("zbl_eav", "device_neighbors", "reverse_table",
                        "pair_u_duals_chem", "zlist_chem", "dbdd_chem",
                        "nn_force", "nn_force_t", "nn_pair_gather")
+# nonlinear ACE: K13 and K14 for B and dB/dD (each minibatch in OTF, after
+# K8 and K8r), K12 / K12T, K5 in the prep
+ACE_NN_KERNELS = ("ace_pair_basis", "ace_b_dbdd", "zbl_eav", "nn_force",
+                  "nn_force_t")
 NN_PATH = {"precompute": "nn_fitsnap", "cached": "nn_cached_fitsnap",
            "custom": "custom_fitsnap", "otf": "nn_otf_fitsnap",
            "otf_quadratic": "nn_otf_quadratic_fitsnap",
-           "otf_chem": "nn_otf_chem_fitsnap"}
+           "otf_chem": "nn_otf_chem_fitsnap", "ace": "ace_nn_fitsnap",
+           "ace_otf": "ace_nn_otf_fitsnap"}
+# the SNAP kernels, which no nonlinear ACE fit may launch
+SNAP_ONLY = ("pair_u_duals", "zlist", "dbdd", "quad_chain", "nn_ut_b",
+             "nn_dedu_vg", "nn_dedu_vg_t", "nn_pair_force", "nn_pair_force_t",
+             "pair_u_duals_chem", "zlist_chem", "dbdd_chem")
 # the kernels each mode must not launch
 NN_ABSENT = {"cached": NN_CACHED_ABSENT, "otf": NN_CACHED_ABSENT,
              "otf_quadratic": NN_CACHED_ABSENT + ("quad_chain",),
              "otf_chem": ("nn_ut_b", "nn_dedu_vg", "nn_dedu_vg_t",
-                          "nn_pair_force", "nn_pair_force_t")}
-# epochs of the OTF phases (the others: `nn_settings`' 10)
-NN_EPOCHS = {"otf_quadratic": 3, "otf_chem": 3}
+                          "nn_pair_force", "nn_pair_force_t"),
+             "ace": SNAP_ONLY + ("device_neighbors", "reverse_table"),
+             "ace_otf": SNAP_ONLY}
+# epochs of the OTF and ACE phases (the others: `nn_settings`' 10)
+NN_EPOCHS = {"otf_quadratic": 3, "otf_chem": 3, "ace": 4, "ace_otf": 4}
 CUSTOM_KERNELS = ("pair_desc", "pair_desc_vjp", "pair_desc_jvp",
                   "nn_pair_gather")
 # the kernels each path must launch
@@ -353,11 +387,15 @@ PATH_KERNELS = {"fitsnap": FITSNAP_KERNELS,
                 "nn_otf_fitsnap": NN_CACHED_KERNELS,
                 "nn_otf_quadratic_fitsnap": NN_CACHED_KERNELS,
                 "nn_otf_chem_fitsnap": NN_OTF_CHEM_KERNELS,
-                "custom_fitsnap": CUSTOM_KERNELS}
+                "ace_nn_fitsnap": ACE_NN_KERNELS,
+                "ace_nn_otf_fitsnap": ACE_NN_KERNELS + ("device_neighbors",
+                                                        "reverse_table"),
+                "custom_fitsnap": CUSTOM_KERNELS,
+                "fe_fitsnap": FITSNAP_KERNELS}
 # paths whose K4 launches are the rows', one a reference call
 ROWS_PATHS = ("fitsnap", "streamed", "ace_fitsnap", "ace_streamed",
               "quadratic_fitsnap", "quadratic_streamed", "chem_fitsnap",
-              "chem_streamed")
+              "chem_streamed", "fe_fitsnap")
 # the plan of K13's lmax-8 row (ranks 1-4, 171 A-slots), on the Ta chunk
 LMAX8_SHAPE = dict(numtypes=1, ranks=[1, 2, 3, 4], nmax=[8, 2, 2, 1],
                    lmax=[0, 8, 3, 2], lmin=[0, 0, 0, 0], nmaxbase=8,
@@ -367,7 +405,8 @@ LMAX8_SHAPE = dict(numtypes=1, ranks=[1, 2, 3, 4], nmax=[8, 2, 2, 1],
 K13_CONVENTIONS = (("pace_mx", "std"), ("v0_t1", "racah"), ("pace_x", "4pi"))
 # FitSnap and streamed paths of each data set
 FITSNAP_PATH = {"snap": "fitsnap", "ace": "ace_fitsnap",
-                "quadratic": "quadratic_fitsnap", "inp": "chem_fitsnap"}
+                "quadratic": "quadratic_fitsnap", "inp": "chem_fitsnap",
+                "fe": "fe_fitsnap"}
 STREAM_PATH = {"snap": "streamed", "ace": "ace_streamed",
                "quadratic": "quadratic_streamed", "inp": "chem_streamed"}
 # the groups the streamed fit runs of each set (None: all of them)
@@ -397,6 +436,20 @@ NN_FILES = ["Ta_nn.pt", "Ta_nn_pot.mliap.descriptor", "Ta_nn_pot.mod",
 INP_NN_FILES = ["InP_nn.pt", "InP_nn_pot.mliap.descriptor", "InP_nn_pot.mod",
                 "InP_nn_metrics.md", "loss_vs_epochs.dat"]
 CUSTOM_FILES = ["Ta_custom.pt", "Ta_custom_metrics.md", "loss_vs_epochs.dat"]
+ACE_NN_FILES = ["Ta_ace_nn.pt", "Ta_ace_nn_metrics.md", "loss_vs_epochs.dat"]
+LOSS_RTOL = 1e-10           # NN loss curves vs the plain versions' fit
+SPLINE_DELTA = 0.001        # ML-PACE's default spline bin (deltaSplineBins)
+# K5's modes on the SNAP chunk: REFERENCE declarations (Z = 73; the spin
+# term's Bethe-Slater parameters those of synthetic.fe_settings)
+K5_SPIN = ("pair_coeff * * spin/exchange/biquadratic biquadratic 4.5 0.2827 "
+           "-4.747 0.7810 0.0234 -1.0 0.6 offset yes")
+K5_MODES = {
+    "coul": ["pair_style coul/cut 5.0"],
+    "spin": ["pair_style spin/exchange/biquadratic 4.5", K5_SPIN],
+    "zbl+coul+spin": ["pair_style hybrid/overlay zero 10.0 zbl 4.0 4.8 "
+                      "coul/cut 5.0 spin/exchange/biquadratic 4.5",
+                      "pair_coeff * * zero", "pair_coeff * * zbl 73 73",
+                      "pair_coeff * * coul/cut", K5_SPIN]}
 # the pairwise set's most common bucket (205 of its 357 configs)
 SMALL_BUCKET = (8, 64)
 # configs of one chunk of the NN cached prep (solvers/network.py
@@ -428,7 +481,7 @@ DIAG_COL_OPS = 2
 # one line before the kernel table
 DIGESTS = {}
 # the profiler's kernel name of a wrapper, where it is not <wrapper>_kernel
-KERNEL_FN = {"nn_force": "nn_fpair_kernel",
+KERNEL_FN = {"nn_force": "nn_fpair_kernel", "zbl_eav": "ref_eav_kernel",
              "nn_pair_gather": "nn_gather_kernel",
              "device_neighbors": "neighbors_fused_kernel",
              "reverse_table": "reverse_kernel",
@@ -597,11 +650,13 @@ def record(rows, name, out, ref, kernel, plain_ms, nbytes, flops,
 
 
 def make_dataset(tmp, seed, device, kind="snap"):
-    """Write the synthetic set with truths A_plain @ beta_true + ZBL, for
-    the SNAP model (`kind="snap"`, the Ta_Linear_JCP2014 sections), the ACE
-    one ("ace", the Ta_PACE section), quadratic SNAP ("quadratic", the
-    Ta_Quadratic_JCP2018 width) on the Ta-shaped configs, or the InP_JPCA2020
-    chemflag model ("inp") on the InP-shaped configs.
+    """Write the synthetic set with truths A_plain @ beta_true + the
+    reference, for the SNAP model (`kind="snap"`, the Ta_Linear_JCP2014
+    sections), the ACE one ("ace", the Ta_PACE section), quadratic SNAP
+    ("quadratic", the Ta_Quadratic_JCP2018 width) on the Ta-shaped configs,
+    the InP_JPCA2020 chemflag model ("inp") on the InP-shaped configs, or
+    the SNAP model with the zbl + coul/cut + spin reference ("fe") on the
+    Fe-shaped configs, whose JSON carries Spins and Charges.
 
     Returns (input file, the FitSnap that computed A_plain, its scraped
     data, A_plain, beta_true, seconds of the plain path on the card)."""
@@ -617,7 +672,9 @@ def make_dataset(tmp, seed, device, kind="snap"):
         "quadratic": ("QUAD_JSON", synthetic.quadratic_settings, seed + 7,
                       synthetic.ta_configs),
         "inp": ("INP_JSON", synthetic.inp_settings, seed + 8,
-                synthetic.inp_configs)}[kind]
+                synthetic.inp_configs),
+        "fe": ("FE_JSON", synthetic.fe_settings, seed + 10,
+               synthetic.fe_configs)}[kind]
     root = Path(tmp) / folder
     files = synthetic.write_dataset(root, configs(seed))
     ini = Path(tmp) / f"{kind}.in"
@@ -637,7 +694,8 @@ def make_dataset(tmp, seed, device, kind="snap"):
         conf = files[(d["Group"], d["File"])]
         (root / d["Group"] / d["File"]).write_text(synthetic.config_json(
             conf[0], conf[1], e, f, s,
-            types=conf[2] if len(conf) > 2 else None))
+            types=conf[2] if len(conf) > 2 else None,
+            extra=conf[3] if len(conf) > 3 else None))
     return ini, fs0, data, a, beta, t_plain
 
 
@@ -942,9 +1000,9 @@ def seeded_truths(seed, C, A, device):
             (rnd(C).abs(), rnd(C).abs(), rnd(C).abs()))
 
 
-def kernel_checks(calc, data):
-    """K1-K5, K7, K8 and K8r vs plain on the first Compressed_BCC chunk
-    (8 x 128 x 64)."""
+def kernel_checks(calc, data, seed):
+    """K1-K5 (K5 also in its coul/cut and spin modes), K7, K8 and K8r vs
+    plain on the first Compressed_BCC chunk (8 x 128 x 64)."""
     from fitsnap_tpu_torch.kernels import snap_kernels as sk
     from fitsnap_tpu_torch.parallel import fit
 
@@ -961,8 +1019,10 @@ def kernel_checks(calc, data):
     scatter_check(rows, args, smask, G, T)
     del B, G
 
-    # K5, the whole reference, on the chunk's host neighbor lists
+    # K5, the whole reference, on the chunk's host neighbor lists; then its
+    # coul/cut and spin modes with seeded charges and spins
     zbl_check(rows, args, calc.refspec)
+    ref_mode_checks(rows, args, seed)
     nlisted = int(mask.sum().item())
 
     # K8 and K8r on the chunk's positions batch
@@ -1032,6 +1092,66 @@ def zbl_check(rows, args, spec, shape=None):
            None, wrapper="zbl_eav", shape=shape)
     del out, again, ref
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def ref_mode_checks(rows, args, seed):
+    """K5's ref_eav mode (`zbl_eav` with `extra`) on the SNAP chunk's host
+    lists with seeded charges (N(0, 0.4)) and unit spins, zero on padding
+    atoms: coul/cut, the spin term, and zbl + coul/cut + spin (K5_MODES),
+    each against its plain version (1e-11), two calls bit for bit, the
+    digest printed.  Its bound: zbl_eav's bytes, the charges and spins read
+    once; its operations each listed slot's terms from both sides (the
+    Coulomb term 10, the spin term's two profiles, two exps, on its own
+    side only)."""
+    import torch
+    from fitsnap_tpu_torch.kernels import snap_kernels as sk
+    from fitsnap_tpu_torch.ops import refpot
+
+    disp, jidx, mask, rev, types, natoms, _ = args
+    C, A, K = mask.shape
+    dev = disp.device
+    rng = np.random.default_rng(seed + 11)
+    real = torch.arange(A, device=dev)[None, :] < natoms[:, None]
+    q = torch.as_tensor(rng.normal(0.0, 0.4, (C, A)), device=dev) * real
+    spins = torch.as_tensor(rng.normal(size=(C, A, 3)), device=dev)
+    spins = spins / spins.norm(dim=-1, keepdim=True) * real[..., None]
+    nlisted = int(mask.sum().item())
+    for mode, decls in K5_MODES.items():
+        spec = refpot.parse_reference(SimpleNamespace(lmp_pairdecl=decls), 1)
+        zc = spec.zbl
+        table = (refpot.zbl_table(zc, dev) if zc is not None
+                 else disp.new_zeros((1, 1, 6)))
+        k5_args = (disp, jidx, mask, rev, types, table,
+                   *((zc.cut_inner, zc.cut_outer) if zc else (0.0, 0.0)))
+        kw = {"charges": q if spec.coul else None,
+              "spins": spins if spec.spin else None,
+              "extra": refpot.extra_table(spec, dev)}
+
+        def call(a=k5_args, k=kw):
+            return sk.zbl_eav(*a, **k)
+
+        def plain(a=k5_args, k=kw):
+            return sk.zbl_eav_plain(*a, **k)
+
+        name = f"zbl_eav@{mode}"
+        out, again, ref = call(), call(), plain()
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            raise AssertionError(f"{name}: two calls differ")
+        DIGESTS[name] = digest(out)
+        nbytes = (disp.numel() * 8 + (jidx.numel() + rev.numel()
+                                      + types.numel()) * 4 + mask.numel()
+                  + table.numel() * 8 + 9 * 8 + (C + C * A * 3 + C * 6) * 8
+                  + (C * A * 8 if spec.coul else 0)
+                  + (C * A * 24 if spec.spin else 0))
+        flops = (2 * nlisted * ((4 * EXP_OPS + 40 if zc else 0)
+                                + (10 if spec.coul else 0))
+                 + (nlisted * (2 * EXP_OPS + 30) if spec.spin else 0))
+        print(f"{name}: C={C} A={A} K={K} listed={nlisted} energy "
+              f"{ref[0].sum().item():.6e}", flush=True)
+        record(rows, name, out, ref, (call, 20), timed(plain, 5), nbytes,
+               flops, None, wrapper="zbl_eav", shape=f"SNAP chunk {mode}")
+        del out, again, ref
     torch.cuda.empty_cache()
 
 
@@ -1242,16 +1362,28 @@ def inp_chunk(seed, plan, device, configs=8):
 def k13_row(rows, plan, k13_in, npairs, shape):
     """K13 against its plain version on one chunk's inputs (1e-11), two
     calls bit for bit with the digest printed; returns the plain (A, Jp).
-    Its bound: the inputs read once, A and Jp written once; its
-    operations per live pair the radial recursion (about 20 flops per n)
-    and the Ylm recursion with its gradient (about 60 per (l, m)), then 16
-    per A-slot (phi and three tangents, re and im)."""
+    Its bound: the inputs read once, A and Jp written once (a spline plan:
+    and the table bins the live pairs read); its operations per live pair
+    the radial recursion (about 20 flops per n; a spline's cubic and its
+    derivative 12) and the Ylm recursion with its gradient (about 60 per
+    (l, m)), then 16 per A-slot (phi and three tangents, re and im)."""
     import torch
     from fitsnap_tpu_torch.kernels import ace_kernels as ak
 
     N, K = k13_in[2].shape
     nA, nrad, ny = plan.nA, plan.nradbase, (plan.lmax + 1) ** 2
     name = "ace_pair_basis" + ("" if shape == "Ta_PACE" else f"@{shape}")
+    radial_ops, table_bytes = 20 * nrad, 0
+    if plan.spline_delta:
+        # a spline radial: per n Horner's rule and its derivative (12); the
+        # bins the live pairs read, 4 nrad doubles each distinct (bond, bin)
+        disp, jel, sm, ie = k13_in
+        r = torch.sqrt((disp * disp).sum(-1))[sm]
+        bond = (ie[:, None] * plan.numtypes + jel)[sm].long()
+        nlut = int(np.ceil(float(np.max(plan.rcut)) / plan.spline_delta)) + 1
+        bins = torch.unique(bond * nlut
+                            + torch.floor(r / plan.spline_delta).long())
+        radial_ops, table_bytes = 12 * nrad, bins.numel() * nrad * 4 * 8
     out = ak.ace_pair_basis(*k13_in, plan)
     again = ak.ace_pair_basis(*k13_in, plan)
     if not all(torch.equal(a, b) for a, b in zip(out, again)):
@@ -1263,9 +1395,10 @@ def k13_row(rows, plan, k13_in, npairs, shape):
                                   10),
            timed(lambda: ak.ace_pair_basis_plain(*k13_in, plan), 3),
            N * K * (24 + 4 + 1) + N * 4 + N * 2 * nA * 8
-           + 3 * N * K * 2 * nA * 8 + nA * 16,
-           npairs * (20 * nrad + 60 * ny + 16 * nA), None,
+           + 3 * N * K * 2 * nA * 8 + nA * 16 + table_bytes,
+           npairs * (radial_ops + 60 * ny + 16 * nA), None,
            wrapper="ace_pair_basis", shape=shape)
+    rows[-1]["spline_delta"] = plan.spline_delta
     rows[-1]["lmax"], rows[-1]["nA"] = plan.lmax, nA
     rows[-1]["conventions"] = [plan.radial, plan.ylm]
     warps, nw_log, rl, smem = ak.k13_shape(plan, K)
@@ -1338,11 +1471,12 @@ def ace_pair_checks(rows, plan, disp, jelem, smask, types, shape):
 
 def ace_kernel_checks(calc, data, seed):
     """K13 and K14 vs plain at the Ta_PACE plan on the first Compressed_BCC
-    chunk (8 x 128 x 64), then K4 at the ACE width and K13 at lmax 8 and
-    in the three other convention pairs on that chunk, K13 and K14 at the
-    InP-shaped plan on a seeded two-element chunk (8 x 64 atoms), and K7
-    in the ACE layout (two leading constant columns) on the rows of the
-    latter."""
+    chunk (8 x 128 x 64), then K4 at the ACE width and K13 at lmax 8, in
+    the three other convention pairs and with spline radials (delta
+    0.001) on that chunk, K13 and K14 at the InP-shaped plan on a seeded
+    two-element chunk (8 x 64 atoms), K13 there with spline radials too,
+    and K7 in the ACE layout (two leading constant columns) on the rows of
+    the latter."""
     import torch
     from fitsnap_tpu_torch.calculators.ace import _within_rcut, ace_rows
     from fitsnap_tpu_torch.kernels import snap_kernels as sk
@@ -1370,7 +1504,9 @@ def ace_kernel_checks(calc, data, seed):
     plan8 = build_ace_plan(SimpleNamespace(**LMAX8_SHAPE))
     plans = [(plan8, "lmax8")] + [
         (dataclasses.replace(calc.plan, radial=radial, ylm=ylm, tables={}),
-         f"Ta_PACE {radial}/{ylm}") for radial, ylm in K13_CONVENTIONS]
+         f"Ta_PACE {radial}/{ylm}") for radial, ylm in K13_CONVENTIONS] + [
+        (dataclasses.replace(calc.plan, spline_delta=SPLINE_DELTA,
+                             tables={}), "Ta_PACE spline")]
     for plan, shape in plans:
         jel, ins = _within_rcut(disp, jidx, types, plan)
         sm = mask & ins
@@ -1399,6 +1535,13 @@ def ace_kernel_checks(calc, data, seed):
         raise AssertionError("InP chunk: no pair inside the inner ramp")
     del r, mixed
     ace_pair_checks(rows, plan, disp, jelem, smask, types, "InP_shape")
+    # K13 with the InP plan's spline radials (four bonds' tables)
+    K = mask.shape[2]
+    spline = dataclasses.replace(plan, spline_delta=SPLINE_DELTA, tables={})
+    k13_row(rows, spline, (disp.reshape(-1, K, 3), jelem.reshape(-1, K),
+                           smask.reshape(-1, K), types.reshape(-1)),
+            int(smask.sum().item()), "InP_shape spline")
+    torch.cuda.empty_cache()
 
     # K8r on the chunk's host lists
     reverse_check(rows, jidx, mask, "InP_shape")
@@ -1774,8 +1917,10 @@ def streamed_path(fs, a_plain, beta, seed, device, kind="snap"):
 def nn_path(tmp, device, mode="precompute"):
     """Drive the NN fit through FitSnap on the card on the Ta set of phase
     2 in `mode` (precompute, cached, otf, otf_quadratic: quadraticflag, or
-    custom: the pairwise NN), or on the InP-shaped set of phase 9
-    (otf_chem); returns (the FitSnap, launch counts, timings, checks)."""
+    custom: the pairwise NN), on the InP-shaped set of phase 9
+    (otf_chem), or nonlinear ACE on the ACE set of phase 6 (ace:
+    precompute, ace_otf: OTF); returns (the FitSnap, launch counts,
+    timings, checks)."""
     import torch
     from fitsnap_tpu_torch import FitSnap
     from fitsnap_tpu_torch.tools import synthetic
@@ -1783,9 +1928,14 @@ def nn_path(tmp, device, mode="precompute"):
     ini = Path(tmp) / f"nn_{mode}.in"
     data = Path(tmp) / "JSON"
     files = (CUSTOM_FILES if mode == "custom" else
-             INP_NN_FILES if mode == "otf_chem" else NN_FILES)
+             INP_NN_FILES if mode == "otf_chem" else
+             ACE_NN_FILES if mode.startswith("ace") else NN_FILES)
     if mode == "custom":
         settings = synthetic.custom_settings(data)
+    elif mode.startswith("ace"):
+        settings = synthetic.ace_nn_settings(
+            Path(tmp) / "ACE_JSON",
+            dgrad_mode="otf" if mode == "ace_otf" else "precompute")
     elif mode == "otf_chem":
         settings = synthetic.inp_nn_settings(Path(tmp) / "INP_JSON",
                                              dgrad_mode="otf")
@@ -1818,7 +1968,7 @@ def nn_path(tmp, device, mode="precompute"):
                              or any("G" in b for b in sol.buckets)):
         raise AssertionError("the cached NN path stored dB/dD")
     stored = [k for b in sol.buckets for k in ("G", "disp", "ut") if k in b]
-    if mode.startswith("otf") and (stored or not sol.otf):
+    if "otf" in mode and (stored or not sol.otf):
         raise AssertionError(f"the OTF NN path (otf={sol.otf}) stored "
                              f"{stored}")
 
@@ -2074,16 +2224,17 @@ def fd_check(fs, evaluate, tag, groups=("Displaced_BCC", "Liquid")):
             "fd_bar": FD_BAR}
 
 
-def nn_export_check(fs):
+def nn_export_check(fs, path="Ta_nn.pt", B=None):
     """The written .pt's per-atom energies on one config against the
-    model's and evaluate_bucket's."""
+    model's and evaluate_bucket's (B: that config's descriptors where its
+    bucket keeps none, as in the OTF mode)."""
     import torch
 
     sol = fs.solver
     ds = sol.buckets[-1]
     nat = int(ds["nat_host"][0])
-    B = ds["B"][0, :nat]
-    model = torch.load("Ta_nn.pt", weights_only=False)
+    B = ds["B"][0, :nat] if B is None else B
+    model = torch.load(path, weights_only=False)
     beta, energy = np.zeros(tuple(B.shape)), np.zeros(nat)
     model(np.zeros(nat, np.int32), B.cpu().numpy().copy(), beta, energy)
     with torch.no_grad():
@@ -2123,7 +2274,7 @@ def nn_epoch_profile(fs, epoch_s):
                 "epoch_launches": counts}
     ours = sum(v for k, v in kernels.items()
                if k.startswith(("nn_", "zlist", "pair_desc", "neighbors_",
-                                "reverse_", "pair_u_duals", "dbdd")))
+                                "reverse_", "pair_u_duals", "dbdd", "ace_")))
     total = sum(kernels.values())
     print("nn epoch device time by kernel (ms): " + json.dumps(
         {k: round(v, 3) for k, v in list(kernels.items())[:12]}),
@@ -2528,8 +2679,9 @@ def nn_otf_cross_check(fs):
     """The trained OTF model's energies and forces on a minibatch of 4 (the
     largest bucket) against the precompute path's on the lists the step
     builds (B and dB/dD from K1-K3, their chemflag modes and K6q under
-    their flags, then K12) and, for linear SNAP, the cached step's on them
-    (K9's ut and B, then K2, K10, K11 and the gather)."""
+    their flags, or for ACE K13 and K14, then K12) and, for linear SNAP,
+    the cached step's on them (K9's ut and B, then K2, K10, K11 and the
+    gather)."""
     sol, calc = fs.solver, fs.calculator
     bi = int(np.argmax([np.prod(b["shape"]) for b in sol.buckets]))
     batch = sol._gather(sol.buckets[bi],
@@ -2541,8 +2693,8 @@ def nn_otf_cross_check(fs):
     e_ref, f_ref = sol._forward_batch(sol.model, dict(
         batch, B=B, G=G, types=batch["elem"], jidx=jidx, rev=rev))
     out = {"otf_vs_precompute_rel_err": rel_err([e, f], [e_ref, f_ref])[1]}
-    p = calc.params
-    if not (p.chemflag or p.quadraticflag):
+    p = getattr(calc, "params", None)       # None: ACE
+    if p is not None and not (p.chemflag or p.quadraticflag):
         ut, Bc = sol._kit["utb"](disp, jidx, mask, types, nat)
         e_ref, f_ref = sol._forward_batch_cached(sol.model, dict(
             batch, disp=disp, jidx=jidx, mask=mask, rev=rev, ut=ut, B=Bc))
@@ -2580,6 +2732,112 @@ def nn_otf_eval(sol, calc, pos, cell, types):
              "shape": (n, k_pad)}
     e, f = sol._forward_batch_otf(sol.model, batch)
     return float(e[0]) * n, f[0].cpu().numpy()
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel wrapper replaced by its plain version (in its module and
+    where the NN solver imported it by name) while the block runs: the
+    plain path on the card, the reference of the NN phases' loss curves."""
+    from fitsnap_tpu_torch.kernels import ace_kernels as ak
+    from fitsnap_tpu_torch.kernels import custom_kernels as ck
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+    from fitsnap_tpu_torch.kernels import snap_kernels as sk
+    from fitsnap_tpu_torch.solvers import network as tnet
+
+    saved = []
+    for mod in (sk, ak, nk, ck):
+        for k in mod.KERNELS:
+            # the chemflag modes share their one-channel wrapper's twin
+            plain = getattr(mod, k.__name__.removesuffix("_chem") + "_plain")
+            for owner in (mod, tnet):
+                if getattr(owner, k.__name__, None) is k:
+                    saved.append((owner, k.__name__, k))
+                    setattr(owner, k.__name__, plain)
+    try:
+        yield
+    finally:
+        for owner, name, k in saved:
+            setattr(owner, name, k)
+
+
+def ace_nn_eval(sol, calc, pos, cell, types):
+    """Energy and K12 forces of one config through the nonlinear ACE
+    precompute pipeline: host lists, then K13, K14 and the MLP on the
+    card."""
+    import torch
+    from fitsnap_tpu_torch.calculators.ace import ace_batch
+    from fitsnap_tpu_torch.ops.neighbors import (host_neighbors,
+                                                 reverse_neighbors)
+
+    n = len(pos)
+    disp, jidx, mask, _ = host_neighbors(pos, cell, n, calc.cutoff)
+    rev = reverse_neighbors(jidx, mask, n)
+
+    def put(x):
+        return torch.as_tensor(x, device=calc.device)[None]
+
+    types = put(np.asarray(types, np.int32))
+    nat = torch.tensor([n], device=calc.device)
+    B, G, _ = ace_batch(calc.plan, put(disp), put(jidx), put(mask), types,
+                        nat)
+    batch = {"B": B, "G": G, "types": torch.zeros_like(types),
+             "real": torch.ones((1, n), dtype=torch.bool,
+                                device=calc.device),
+             "nat": nat, "jidx": put(jidx), "rev": put(rev)}
+    e, f = sol._forward_batch(sol.model, batch)
+    return float(e[0]) * n, f[0].cpu().numpy()
+
+
+def ace_nn_checks(fs, tmp, mode, epoch_s):
+    """Nonlinear ACE after its fit (mode "ace": precompute, "ace_otf"):
+    the .pt against the model; OTF: the trained model's forces on a
+    minibatch against the precompute path's (K13 and K14 on the step's
+    lists, then K12), 1e-9; central-difference forces (1e-5); the same fit
+    through FitSnap with every kernel's plain version on the card
+    (`plain_kernels`), its loss curve held to the kernels' to 1e-10; a
+    profiler split of one epoch (which trains anew: last)."""
+    import torch
+    from fitsnap_tpu_torch import FitSnap
+
+    sol, calc = fs.solver, fs.calculator
+    out = {"labels": len(calc.plan.labels)}
+    if mode == "ace_otf":
+        bi = len(sol.buckets) - 1
+        batch = sol._gather(sol.buckets[bi], np.arange(1))
+        disp, jidx, mask, _ = otf_lists(sol, batch)
+        nat = int(sol.buckets[bi]["nat_host"][0])
+        B = calc.nn_desc(disp, jidx, mask, batch["types"],
+                         batch["nat"])[0, :nat]
+        out.update(nn_export_check(fs, "Ta_ace_nn.pt", B),
+                   **nn_otf_cross_check(fs),
+                   **fd_check(fs, nn_otf_eval, f"nn {mode}"))
+    else:
+        out.update(nn_export_check(fs, "Ta_ace_nn.pt"),
+                   **fd_check(fs, ace_nn_eval, f"nn {mode}"))
+    t0 = time.time()
+    with plain_kernels():
+        ref = FitSnap(str(Path(tmp) / f"nn_{mode}.in"),
+                      arglist=["--overwrite"], device=fs.device)
+        ref.scrape_configs()
+        ref.process_configs()
+        ref.perform_fit()
+        torch.cuda.synchronize()
+    hist, ref_hist = np.array(sol.history), np.array(ref.solver.history)
+    loss_err = float(np.abs(hist - ref_hist).max()
+                     / np.abs(ref_hist).max())
+    print(f"nn {mode} loss curve vs the plain versions' fit on the card: "
+          f"{loss_err:.3e} (limit {LOSS_RTOL}; plain fit "
+          f"{time.time() - t0:.2f} s): " + json.dumps(ref_hist.tolist()),
+          flush=True)
+    if not loss_err <= LOSS_RTOL:
+        raise AssertionError(f"nn {mode}: the loss curve differs from the "
+                             f"plain versions' fit: {loss_err:.3e}")
+    del ref
+    torch.cuda.empty_cache()
+    out["loss_vs_plain_rel_err"] = loss_err
+    out.update(nn_epoch_profile(fs, epoch_s))
+    return out
 
 
 def custom_batch(sol, n=4, shape=None):
@@ -2854,7 +3112,7 @@ def main():
                       f"{a_plain.shape}, plain path on the card "
                       f"{t_plain:.2f} s, set-up {time.time() - t0:.2f} s",
                       flush=True)
-                kernels += (kernel_checks(fs0.calculator, data)
+                kernels += (kernel_checks(fs0.calculator, data, args.seed)
                             if kind == "snap" else
                             ace_kernel_checks(fs0.calculator, data, args.seed))
                 del fs0, data
@@ -2886,6 +3144,27 @@ def main():
                     fs, a_plain, beta, args.seed, "cuda", kind)
                 del fs, a_plain
                 torch.cuda.empty_cache()
+            # SNAP with the zbl + coul/cut + spin reference on the Fe-shaped
+            # set (its JSON carries Spins and Charges): FitSnap only, as the
+            # streamed fit passes the reference no charges
+            t0 = time.time()
+            ini, fs0, data, a_plain, beta, t_plain = make_dataset(
+                tmp, args.seed, "cuda", "fe")
+            print(f"data (fe): {len(data)} configs, A {a_plain.shape}, "
+                  f"plain path on the card {t_plain:.2f} s, set-up "
+                  f"{time.time() - t0:.2f} s", flush=True)
+            del fs0, data
+            fs, *fitsnap = main_path(ini, a_plain, beta, "cuda", "fe")
+            spec = fs.calculator.refspec
+            packed = fs.calculator.host_preprocess(fs.data)[0]
+            if not (spec.zbl and spec.coul and spec.spin and all(
+                    pc.spins is not None and pc.charges is not None
+                    for pc in packed)):
+                raise AssertionError("the Fe fit's reference or its spins "
+                                     "and charges are missing")
+            paths[FITSNAP_PATH["fe"]] = fitsnap
+            del fs, a_plain, packed
+            torch.cuda.empty_cache()
             # the NN fit on the Ta set of phase 2
             fs, counts, times, checks = nn_path(tmp, "cuda")
             rows, grad = nn_kernel_checks(fs)
@@ -2916,6 +3195,14 @@ def main():
                 checks.update(nn_otf_cross_check(fs), **fd_check(
                     fs, nn_otf_eval, f"nn {mode}", groups))
                 checks.update(nn_epoch_profile(fs, times["epoch_mean_rest"]))
+                paths[NN_PATH[mode]] = (counts, times, checks)
+                del fs
+                torch.cuda.empty_cache()
+            # nonlinear ACE (Ta_PACE) on the ACE set: precompute, then OTF
+            for mode in ("ace", "ace_otf"):
+                fs, counts, times, checks = nn_path(tmp, "cuda", mode)
+                checks.update(ace_nn_checks(fs, tmp, mode,
+                                            times["epoch_mean_rest"]))
                 paths[NN_PATH[mode]] = (counts, times, checks)
                 del fs
                 torch.cuda.empty_cache()

@@ -118,15 +118,17 @@ def _batch_descriptors(params, disp, jidx, mask, types, natoms, plain):
 
 
 def snap_rows(params, numtypes, refspec, disp, jidx, mask, rev, types,
-              natoms, cell, plain=False):
+              natoms, cell, plain=False, spins=None, charges=None):
     """Energy columns, force/virial rows and reference values of a batch.
 
     The rows of `FitSnap` (`SnapCalculator.rows`) and of the streamed fit
     (`parallel/fit.py`).  disp (C, A, K, 3) f64; jidx, mask (C, A, K); rev
     (C, A, R) int32 reverse neighbor table (flat slots i*K + k); types
-    (C, A) int32; natoms (C,); cell (C, 3, 3).  All on one device.
-    `plain=True` runs the kernels' plain versions (the reference the kernels
-    are checked against on the card).  blank2J is not applied here.
+    (C, A) int32; natoms (C,); cell (C, 3, 3); spins (C, A, 3) and charges
+    (C, A) for the reference potential, or None (`ref_arrays`).  All on one
+    device.  `plain=True` runs the kernels' plain versions (the reference
+    the kernels are checked against on the card).  blank2J is not applied
+    here.
     """
     T = numtypes
     C, A, K = mask.shape
@@ -145,7 +147,7 @@ def snap_rows(params, numtypes, refspec, disp, jidx, mask, rev, types,
     virial_rows = vir.reshape(C, 6, T * W0) * scale[..., None]
 
     re, rf, rv = reference_eav(disp, jidx, mask, rev, types, refspec,
-                               plain=plain)
+                               plain=plain, spins=spins, charges=charges)
     return {"e_cols": e_cols, "force_rows": force_rows,
             "virial_rows": virial_rows,
             "ref_e": re, "ref_f": rf, "ref_v": rv * scale}
@@ -161,7 +163,8 @@ def nn_prep(params, refspec, disp, jidx, mask, rev, types, natoms):
     K6q under quadraticflag), then the reference potential (K5).  B and
     G are zero on padded atoms, and G on every pair outside the SNAP mask,
     so the force contraction may run over all neighbor slots.  Arguments as
-    `snap_rows`'."""
+    `snap_rows`'; the reference gets no spins or charges, as in the JAX
+    package's NN prep."""
     B, G, _, _ = _batch_descriptors(params, disp, jidx, mask, types, natoms,
                                     plain=False)
     re, rf, _ = reference_eav(disp, jidx, mask, rev, types, refspec)
@@ -267,6 +270,28 @@ def pack_bucket(packed, ids, a_pad, k_pad):
     return disp, jidx, mask, rev, types, nat, cell
 
 
+def ref_arrays(packed, ids, a_pad, refspec, spins=True, charges=True):
+    """{"spins": (n, a_pad, 3), "charges": (n, a_pad)} host arrays of
+    configs `ids` for the reference potential, zero on padded atoms and on
+    configs without the key; None where the reference has no spin term or
+    no coul/cut (or where the caller passes none: `spins`, `charges`
+    False)."""
+    n = len(ids)
+    out = {"spins": None, "charges": None}
+    if spins and refspec.spin is not None:
+        out["spins"] = np.zeros((n, a_pad, 3))
+    if charges and refspec.coul is not None:
+        out["charges"] = np.zeros((n, a_pad))
+    for key in ("spins", "charges"):
+        if out[key] is None:
+            continue
+        for j, i in enumerate(ids):
+            x = getattr(packed[i], key)
+            if x is not None:
+                out[key][j, :packed[i].natoms] = x
+    return out
+
+
 @dataclass
 class PackedConfig:
     pos: np.ndarray
@@ -279,6 +304,8 @@ class PackedConfig:
     mask: np.ndarray = None
     rev: np.ndarray = None  # (natoms, R) reverse table, slots i*kcount + k
     kcount: int = 0
+    spins: np.ndarray = None   # (natoms, 3) unit vectors, or None
+    charges: np.ndarray = None  # (natoms,) per-atom charges, or None
 
 
 class SnapCalculator:
@@ -343,14 +370,31 @@ class SnapCalculator:
     # ---------------- packing ----------------
 
     def _pack(self, data: dict) -> PackedConfig:
+        """A config's arrays, with its unit spins (`Spins` columns 1:4,
+        normalized) where the reference has a spin term and its charges
+        where it has coul/cut, which needs them (JAX `_pack`)."""
         types = np.array(
             [self.type_mapping[t] - 1 for t in data["AtomTypes"]], np.int32)
+        spins = None
+        if "Spins" in data and self.refspec.spin is not None:
+            vec = np.asarray(data["Spins"], np.float64)[:, 1:4]
+            spins = vec / np.linalg.norm(vec, axis=1)[:, None]
+        charges = None
+        if self.refspec.coul is not None:
+            if "Charges" not in data:
+                raise ValueError(
+                    "REFERENCE pair_style coul/cut needs per-atom charges "
+                    f"(atom_style charge), but config {data.get('File')} "
+                    "has no 'Charges' key")
+            charges = np.asarray(data["Charges"], np.float64).reshape(-1)
         return PackedConfig(
             pos=np.asarray(data["Positions"], np.float64),
             cell=np.asarray(data["Lattice"], np.float64),
             types=types,
             natoms=int(data["NumAtoms"]),
             data=data,
+            spins=spins,
+            charges=charges,
         )
 
     def host_preprocess(self, data: list):
@@ -370,15 +414,24 @@ class SnapCalculator:
 
     # ---------------- device function ----------------
 
-    def rows(self, disp, jidx, mask, rev, types, natoms, cell, plain=False):
+    def rows(self, disp, jidx, mask, rev, types, natoms, cell, plain=False,
+             spins=None, charges=None):
         """`snap_rows` of a batch with this calculator's model."""
         return snap_rows(self.params, self.numtypes, self.refspec, disp,
-                         jidx, mask, rev, types, natoms, cell, plain=plain)
+                         jidx, mask, rev, types, natoms, cell, plain=plain,
+                         spins=spins, charges=charges)
 
     def nn_prep(self, disp, jidx, mask, rev, types, natoms):
         """`nn_prep` of a batch with this calculator's model."""
         return nn_prep(self.params, self.refspec, disp, jidx, mask, rev,
                        types, natoms)
+
+    def nn_descriptors(self, disp, jidx, mask, types, natoms):
+        """B and G = dB/dD of a batch (K1-K3 and their chemflag modes, K6q
+        under quadraticflag), zero on padded atoms: the OTF mode's
+        minibatch descriptors under chemflag."""
+        return _batch_descriptors(self.params, disp, jidx, mask, types,
+                                  natoms, plain=False)[:2]
 
     def nn_analytic(self):
         """`nn_analytic` of this calculator's model (None where the cached
@@ -411,11 +464,16 @@ class SnapCalculator:
         packed, buckets = self.host_preprocess(data)
         results = [None] * len(packed)
         for ids, args in self.batches(packed, buckets):
-            out = self.rows(*args, plain=plain)
+            out = self.rows(*args, plain=plain,
+                            **self.ref_tensors(packed, ids, args[0]))
             out = {k: v.cpu().numpy() for k, v in out.items()}
             for j, i in enumerate(ids):
                 results[i] = {k: v[j] for k, v in out.items()}
         return self._assemble(packed, results)
+
+    # what the rows pass the reference (JAX `process_configs`: the SNAP
+    # rows both arrays, the ACE rows a spin array that stays zero)
+    REF_ARRAYS = {"spins": True, "charges": True}
 
     def batches(self, packed, buckets):
         """Yield (config indices, rows() arguments on the device) for every
@@ -429,6 +487,15 @@ class SnapCalculator:
                 arrays = pack_bucket(packed, ids, a_pad, k_pad)
                 yield ids, tuple(torch.from_numpy(x).to(dev)
                                  for x in arrays)
+
+    def ref_tensors(self, packed, ids, disp):
+        """rows()' keyword arguments of the reference for the batch of
+        configs `ids` whose disp is `disp` (its device and atom slots):
+        `ref_arrays` as tensors, or None."""
+        ref = ref_arrays(packed, ids, disp.shape[1], self.refspec,
+                         **self.REF_ARRAYS)
+        return {k: None if v is None else torch.from_numpy(v).to(disp.device)
+                for k, v in ref.items()}
 
     def _expand(self, block, counts_frac=None):
         """(..., raw_width) -> (..., width): insert per-type leading column

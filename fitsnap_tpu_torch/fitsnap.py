@@ -5,7 +5,8 @@ methods: `FitSnap(input, arglist, device).scrape_configs()`,
 `.process_configs()`, `.perform_fit()`, `.write_output()`.  The port takes
 the JSON scraper, the LAMMPSSNAP, LAMMPSPACE and LAMMPSCUSTOM calculators,
 the SVD, TPUSVD / SCALAPACK and TENSORFLOWSVD solvers, the NN solver
-(PYTORCH / NETWORK / JAX) on LAMMPSSNAP descriptors in its cached and
+(PYTORCH / NETWORK / JAX) on LAMMPSSNAP descriptors in its cached, OTF and
+precompute modes, on LAMMPSPACE descriptors (nonlinear ACE) in its OTF and
 precompute modes and as the custom pairwise NN on LAMMPSCUSTOM, and SNAP,
 PACE and CUSTOM output; any other choice raises NotImplementedError naming
 its ROADMAP item by title.
@@ -32,9 +33,6 @@ def _scraper_factory(config):
 
 def _calculator_factory(config, device):
     name = config.sections["CALCULATOR"].calculator.upper()
-    if config.sections["CALCULATOR"].nonlinear and name == "LAMMPSPACE":
-        raise NotImplementedError(_LATER.format(
-            "nonlinear calculator", name, "ACE splines and nonlinear ACE"))
     if name == "LAMMPSSNAP":
         from fitsnap_tpu_torch.calculators.snap import SnapCalculator
         return SnapCalculator(name, config, device)

@@ -2,16 +2,16 @@
 PyTorch versions beside them.
 
 | kernel | source | replaces (fitsnap_tpu) |
-| K13 ace_pair_basis | csrc/ace_pair_basis.cu | ops/ace.py ace_pair_phi (with chebexpcos_basis, sph_harm), ace_a_basis, the jvp of ace_descriptors_with_jacobian |
+| K13 ace_pair_basis | csrc/ace_pair_basis.cu | ops/ace.py ace_pair_phi (with chebexpcos_basis, spline_radial_basis, sph_harm), ace_a_basis, the jvp of ace_descriptors_with_jacobian |
 | K14 ace_b_dbdd | csrc/ace_b_dbdd.cu (+ atom_gemm.cuh) | ops/ace.py ace_b_and_dbda, the einsum and live mask of ace_descriptors_with_jacobian |
 
 As in `kernels/snap_kernels.py`, each wrapper takes its plain version for
 tensors on the CPU, launches its kernel for tensors on a CUDA device, and
 raises for anything else; every launch adds one to the wrapper's
-`launches` count.  K13 takes every closed-form convention of the plan (the
-six radial variants, the three Ylm normalisations) and any lmax whose
-working set fits a block's shared memory; spline radials are refused, as
-the plain versions do not have them either.
+`launches` count.  K13 takes every convention of the plan (the six
+closed-form radial variants, the spline radials, the three Ylm
+normalisations) and any lmax whose working set fits a block's shared
+memory.
 """
 
 import math
@@ -27,8 +27,8 @@ _K13_WARPS = 8   # warps a block of csrc/ace_pair_basis.cu where they fit
 _K13_ENTRY = 9   # doubles of an (l, m) entry of its records (ENTRY)
 
 kl.register("ace_pair_basis", "ace_pair_basis",
-            [kl.P] * 8 + [kl.I] * 3 + [kl.P, kl.P] + [kl.I] * 3 + [kl.LL]
-            + [kl.I] * 5 + [kl.P] * 3)
+            [kl.P] * 8 + [kl.I] * 3 + [kl.P] * 3 + [kl.I, kl.D]
+            + [kl.I] * 3 + [kl.LL] + [kl.I] * 5 + [kl.P] * 3)
 kl.register("ace_b_dbdd", "ace_b_dbdd",
             [kl.P] * 12 + [kl.I] * 4 + [kl.LL] + [kl.I] * 4 + [kl.P] * 3)
 
@@ -239,6 +239,8 @@ def _device_tables(plan, device):
 
         tabs = SimpleNamespace(
             ytab=torch.as_tensor(h.ytab, device=device), cols=i32(h.cols),
+            spline=(ops.spline_tensor(plan, device) if plan.spline_delta
+                    else None),
             lab_t=i32(h.lab_t), lab_e=i32(h.lab_e),
             e_slot=i32(h.e_slot), e_lab=i32(h.e_lab), e_c=i32(h.e_c),
             c_tr=i32(h.c_tr), el_l=i32(h.el_l), fact=i32(plan.t_fact),
@@ -246,14 +248,6 @@ def _device_tables(plan, device):
                                  device=device))
         plan.tables[key] = tabs
     return tabs
-
-
-def _kernel_conventions(plan):
-    if plan.spline_delta:
-        raise NotImplementedError(
-            f"ACE kernels take the closed-form radials, not spline radials "
-            f"(spline_delta={plan.spline_delta!r}; ROADMAP.md: \"ACE "
-            f"splines and nonlinear ACE\")")
 
 
 # ---------------------------------------------------------------------------
@@ -275,7 +269,6 @@ def ace_pair_basis(disp, jelem, mask, ielem, plan):
     bool, ielem (N,) i32.  Same outputs as `ace_pair_basis_plain`."""
     if kl.on_cpu(disp, jelem, mask, ielem):
         return ace_pair_basis_plain(disp, jelem, mask, ielem, plan)
-    _kernel_conventions(plan)
     N, K = mask.shape
     kl.check(disp, "disp", torch.float64, (N, K, 3))
     kl.check(jelem, "jelem", torch.int32, (N, K))
@@ -289,13 +282,16 @@ def ace_pair_basis(disp, jelem, mask, ielem, plan):
     A = torch.empty((N, 2 * nA), dtype=torch.float64, device=dev)
     Jp = torch.empty((3, N, K, 2 * nA), dtype=torch.float64, device=dev)
     inner = int(np.any(np.asarray(plan.rcinner) > 0.0))
+    spline = tabs.spline
     kl.launch("ace_pair_basis", dev, kl.ptr(disp), kl.ptr(jelem),
               kl.ptr(mask), kl.ptr(ielem), kl.ptr(bonds.rcut),
               kl.ptr(bonds.lmbda), kl.ptr(bonds.rcinner),
               kl.ptr(bonds.drcinner), plan.numtypes, inner,
               kernel_tables(plan).radial, kl.ptr(tabs.ytab),
-              kl.ptr(tabs.cols), nA, plan.nradbase, plan.lmax, N, K, warps,
-              nw_log, rl, smem, kl.ptr(A), kl.ptr(Jp))
+              kl.ptr(tabs.cols), None if spline is None else kl.ptr(spline),
+              0 if spline is None else spline.shape[1],
+              float(plan.spline_delta or 0.0), nA, plan.nradbase, plan.lmax,
+              N, K, warps, nw_log, rl, smem, kl.ptr(A), kl.ptr(Jp))
     ace_pair_basis.launches += 1
     return A, Jp
 

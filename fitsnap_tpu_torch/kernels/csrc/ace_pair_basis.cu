@@ -11,11 +11,16 @@
 // (g_n = T_{n-1}(x) env, or T_n with T_0 skipped); fin is the optional
 // distance-type inner ramp; Yhat_lm = s_l Y_lm in the plan's convention
 // (s_l = sqrt(4 pi), 1 or sqrt(4 pi / (2l + 1)), folded into the host's
-// normalisation table).
+// normalisation table).  A spline plan (ML-PACE's radials) takes g_n and
+// dg_n/dr from host-built cubic Hermite tables instead: per bond, bin
+// b = floor(r / delta) and t = r / delta - b,
+//   g_n = ((c3 t + c2) t + c1) t + c0,  dg_n/dr = ((3 c3 t + 2 c2) t + c1) / delta
+// with the bin's four coefficients of each n read from device memory.
 //
 // Replaces fitsnap_tpu/ops/ace.py `ace_pair_phi` (:589) with
-// `chebexpcos_basis` (:406) and `sph_harm` (:524), `ace_a_basis` (:656)
-// and the jvp of `ace_descriptors_with_jacobian` (:671-676).
+// `chebexpcos_basis` (:406), `spline_radial_basis` (:483) and `sph_harm`
+// (:524), `ace_a_basis` (:656) and the jvp of
+// `ace_descriptors_with_jacobian` (:671-676).
 //
 // Bound on the H100: bytes.  The kernel must write Jp (3 x K x 2 nA
 // doubles per atom, 120 KB at K = 64, nA = 39); its FP64 work per pair
@@ -56,7 +61,10 @@
 // take the displacement (1, 0, 0) and weight 0, and pairs at or beyond the
 // cutoff weight 0: exactly zero phi and tangents.  The working set (the
 // column table, W partial sums and W x NW records) is the wrapper's
-// `k13_shape`; no lmax is refused that fits a block's shared memory.
+// `k13_shape`; no lmax is refused that fits a block's shared memory.  The
+// spline tables (ceil(rc / delta) + 1 bins x nrad x 4 doubles a bond, a
+// few MB at delta 0.001) are far over a block's shared memory: a radial
+// item reads its bin's 4 nrad doubles, one contiguous run, through L2.
 #include "common.cuh"
 
 namespace {
@@ -75,7 +83,9 @@ struct Args {
   const double* dcin;
   const double* ytab;            // (3, ne): normalisation, a, b of (l, m)
   const int4* cols;              // (2 nA): Yhat, gradient, n - 1, sign (mu + 1)
-  int T, inner, radial, nA, nrad, lmax, K, nw_log, rl;
+  const double* spline;          // (T * T, nlut, nrad, 4) or null
+  int T, inner, radial, nA, nrad, lmax, K, nw_log, rl, nlut;
+  double delta;                  // the spline's bin width
   long long N;
 };
 
@@ -137,6 +147,24 @@ __device__ void radial_item(const Args& p, long long a, int k, double* rec,
       fin = 0.5 * (1.0 - c);
       dfin = 0.5 * PI * s * dsi;
     }
+  }
+  if (p.spline) {
+    const double xs = r / p.delta;
+    double b = floor(xs);
+    b = b < 0.0 ? 0.0 : (b > p.nlut - 1 ? p.nlut - 1 : b);
+    const double t = xs - b;
+    const double* c =
+        p.spline + (static_cast<long long>(bond) * p.nlut +
+                    static_cast<int>(b)) * p.nrad * 4;
+    for (int n = 0; n < p.nrad; ++n) {
+      const double c0 = c[4 * n], c1 = c[4 * n + 1], c2 = c[4 * n + 2],
+                   c3 = c[4 * n + 3];
+      const double h = ((c3 * t + c2) * t + c1) * t + c0;
+      const double dh = ((3.0 * c3 * t + 2.0 * c2) * t + c1) / p.delta;
+      g[n] = h * fin;
+      dg[n] = dh * fin + h * dfin;
+    }
+    return;
   }
   const double lam = p.lmbda[bond];
   const double rci = 1.0 / rc;
@@ -362,7 +390,9 @@ __global__ void ace_pair_basis_kernel(Args p, double* __restrict__ A,
 // per-bond rcut, lmbda, rcin, dcin (T, T) f64; inner: apply the inner ramp;
 // radial: the radial variant's code; ytab (3, (lmax + 1)(lmax + 2) / 2)
 // f64 normalisations and recursion coefficients; cols (2 nA, 4) i32 the
-// column table; nrad radial functions; the launch shape: warps a block,
+// column table; spline (T * T, nlut, nrad, 4) f64 the Hermite tables of a
+// spline plan, bin width delta, or null (the closed-form radial); nrad
+// radial functions; the launch shape: warps a block,
 // 2^nw_log neighbors a tile, rl doubles a record, smem bytes of shared
 // memory (kernels/ace_kernels.py `k13_shape`).  Writes A (N, 2 nA)
 // [Re | Im] and Jp (3, N, K, 2 nA).
@@ -371,16 +401,20 @@ extern "C" int ace_pair_basis(const double* disp, const int* jelem,
                               const double* rcut, const double* lmbda,
                               const double* rcin, const double* dcin, int T,
                               int inner, int radial, const double* ytab,
-                              const int* cols, int nA, int nrad, int lmax,
+                              const int* cols, const double* spline,
+                              int nlut, double delta, int nA, int nrad,
+                              int lmax,
                               long long N, int K, int warps, int nw_log,
                               int rl, int smem, double* A, double* Jp,
                               void* stream) {
   if (lmax < 0 || warps < 1 || warps > 32 || nw_log < 0 || nw_log > 5 ||
       static_cast<size_t>(smem) > FS_SMEM_LIMIT)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (spline && (nlut < 1 || !(delta > 0.0)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Args p{disp, jelem, mask, ielem, rcut, lmbda, rcin, dcin, ytab,
-               reinterpret_cast<const int4*>(cols), T, inner, radial, nA,
-               nrad, lmax, K, nw_log, rl, N};
+               reinterpret_cast<const int4*>(cols), spline, T, inner, radial,
+               nA, nrad, lmax, K, nw_log, rl, nlut, delta, N};
   const int err = fs_allow_smem(ace_pair_basis_kernel,
                                 static_cast<size_t>(smem));
   if (err) return err;

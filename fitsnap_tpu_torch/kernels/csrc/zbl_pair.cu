@@ -1,45 +1,62 @@
-// K5 zbl_eav: the ZBL reference potential of a batch of configs, energy,
-// forces and virial in one launch.
+// K5 zbl_eav / ref_eav: the reference potential of a batch of configs,
+// energy, forces and virial in one launch.  zbl_eav is `pair_style zbl`
+// alone; ref_eav is the whole `hybrid/overlay` of zbl, coul/cut and
+// spin/exchange/biquadratic, any of the three.
 //
 // Per directed pair slot (c, i, k) with mask set, r = |D[i, k]| and the
 // LAMMPS `pair_style zbl` energy of `zbl_pair_energy`
 //   e(r)  = pre / r * phi(r / a) + sw5 + [r > r_in] t^3 (sw3 + sw4 t)
 //   e'(r) = pre * (-phi / r^2 + phi' / r) + [r > r_in] (3 sw3 t^2 + 4 sw4 t^3)
 // with t = r - r_in, phi(x) = sum_m c_m exp(-d_m x), phi' = dphi/dr, and
-// e = e' = 0 at r >= r_out or for a type pair without coefficients.  The
-// slot's gradient is g = 0.5 e'(r) D / r (what the vjp of 0.5 sum e gives),
-// and per atom n and config c
+// e = e' = 0 at r >= r_out or for a type pair without coefficients.
+// ref_eav adds, inside their cutoffs, the bare Coulomb energy
+//   e_q(r) = qqr2e q_i q_j / r,   e_q'(r) = -e_q / r   (r < rc_q)
+// and the Bethe-Slater spin energy
+//   e_s = -(J(r) (s_i.s_j - off) + Kb(r) ((s_i.s_j)^2 - off))   (r < rc_s)
+//   J(r) = 4 a (r/d)^2 (1 - g (r/d)^2) exp(-(r/d)^2)   (Kb alike)
+// which enters the energy alone: the reference pins the spin term's
+// mechanical force and virial to zero.  The slot's gradient is
+// g = 0.5 (e' + e_q') D / r (what the vjp of 0.5 sum e gives), and per atom
+// n and config c
 //   force[c, n]  = sum_k g[c, n, k] - sum over n's reverse slots s of g[c, s]
 //   virial[c, v] = -sum over masked slots D[pa_v] g[pb_v]
-//   energy[c]    = 0.5 sum over masked slots e
+//   energy[c]    = 0.5 sum over masked slots (e + e_q + e_s)
 // with (pa, pb) = xx, yy, zz, yz, xz, xy.
 //
 // Replaces fitsnap_tpu/ops/refpot.py `reference_eav` (:239; its `jax.vjp`
-// of the pair energy and the one-hot matmul scatter of :295-302) and
+// of the pair energies, the coul/cut branch at :270-273, the spin branch
+// at :274-281 and the one-hot matmul scatter of :295-302) and
 // `zbl_pair_energy` (:96).
 //
 // Bound on the H100: bytes.  Each pair slot reads 24 B of displacement, 5 B
 // of index and mask, and 4 B of the reverse table; per atom 12 B of types
-// and 24 B of force out.  The four exponentials per pair (twice: once from
-// each side) are far below the card's FP64 rate for that traffic.
+// and 24 B of force out (ref_eav: 8 B of charge and 24 B of spin more).
+// The four exponentials per pair (twice: once from each side), and the
+// spin term's two, are far below the card's FP64 rate for that traffic.
 //
 // Design: two warps per atom (64 lanes), ATOMS atoms a block, the blocks
 // of a config consecutive.  The atom's lane L takes its own slots k = L +
 // 64 u, then its reverse slots rev[n, L + 64 u] (flat slots i K + k of the
 // config whose jidx is n), G slots at a time: their indices, then their
-// masks, displacements and type pairs, then their energies, all G loads of
+// masks, displacements and type pairs (ref_eav: and the other atom's
+// charge and, on own slots, its spin), then their energies, all G loads of
 // a step issued together, so a lane waits for one chain of dependent
 // loads, not one per slot.  A reverse slot's g is recomputed from that
 // slot's own displacement, mask and type pair (type of its source atom i,
-// type of n), never read from a g in memory, so a truncated or one-sided
+// type of n), and its Coulomb term from the charges of i and n, never read
+// from a g in memory, so a truncated or one-sided
 // list, or an atom that is its own neighbor through a periodic image (rev
-// repeats that slot), gives what the reference gives.  A fixed butterfly
+// repeats that slot), gives what the reference gives.  The spin energy is
+// taken on own slots alone (reverse slots carry gradients, not energy).  A
+// fixed butterfly
 // sums each warp's lanes; the atom's force is its two warps' own sums
 // minus their reverse sums, in warp order; the block sums its warps'
 // energy and virial in warp order into a partial per block, and the last
 // block of each config (an integer ticket per config, which that block
 // resets to 0) sums the config's partials in block order.  No
-// floating-point atomics: the outputs repeat bit for bit.
+// floating-point atomics: the outputs repeat bit for bit.  One template
+// gives both entry points: zbl_eav's instantiation holds none of
+// ref_eav's loads or branches.
 #include "common.cuh"
 
 namespace {
@@ -52,6 +69,21 @@ constexpr int G = 2;                     // slots a lane evaluates together
 constexpr int NPART = 7;                 // energy and the six virial components
 __constant__ double kC[4] = {0.02817, 0.28022, 0.50986, 0.18175};
 __constant__ double kD[4] = {0.20162, 0.40290, 0.94229, 3.19980};
+constexpr double QQR2E = 14.399645;      // eV A (ops/refpot.py _QQR2E)
+
+// ref_eav's scalars, (9,) f64 in device memory: coul/cut's cutoff, then
+// spin/exchange/biquadratic's cutoff, a, g, d of J, a, g, d of Kb, offset
+struct Extra {
+  double rcq, rcs, aj, gj, dj, ak, gk, dk, off;
+};
+
+// The Bethe-Slater profile 4 a x2 (1 - g x2) exp(-x2), x2 = (r / d)^2.
+__device__ __forceinline__ double bethe_slater(double r, double a, double g,
+                                               double d) {
+  const double x = r / d;
+  const double x2 = x * x;
+  return 4.0 * a * x2 * (1.0 - g * x2) * exp(-x2);
+}
 
 __device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
@@ -60,13 +92,19 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
+// EXTRA: ref_eav (charges, spins and their scalars read; either of the
+// two arrays may be null); else zbl_eav.
+template <bool EXTRA>
 __global__ void __launch_bounds__(THREADS)
-    zbl_eav_kernel(const double* __restrict__ disp,
+    ref_eav_kernel(const double* __restrict__ disp,
                    const int* __restrict__ jidx,
                    const unsigned char* __restrict__ mask,
                    const int* __restrict__ rev,
                    const int* __restrict__ types,
-                   const double* __restrict__ table, int A, int K, int R,
+                   const double* __restrict__ table,
+                   const double* __restrict__ charges,
+                   const double* __restrict__ spins,
+                   const double* __restrict__ extra, int A, int K, int R,
                    int T, int bpc, double cut_inner, double cut_outer,
                    double* __restrict__ part, unsigned* __restrict__ ticket,
                    double* __restrict__ energy, double* __restrict__ force,
@@ -86,6 +124,17 @@ __global__ void __launch_bounds__(THREADS)
   if (i < A) {
     const long long n = first + i;
     const int ti = types[n];
+    Extra x{};
+    double qn = 0.0, sn[3] = {0.0, 0.0, 0.0};
+    if constexpr (EXTRA) {
+      x = *reinterpret_cast<const Extra*>(extra);
+      if (charges) qn = charges[n];
+      if (spins) {
+        sn[0] = spins[3 * n];
+        sn[1] = spins[3 * n + 1];
+        sn[2] = spins[3 * n + 2];
+      }
+    }
     const int uo = (K + 32 * WPA - 1) / (32 * WPA);   // own slot steps
     const int ur = (R + 32 * WPA - 1) / (32 * WPA);   // reverse slot steps
     for (int g0 = 0; g0 < uo + ur; g0 += G) {
@@ -110,16 +159,27 @@ __global__ void __launch_bounds__(THREADS)
       }
       double d[G][3];
       int pt[G];
+      double qo[G], so[G][3];            // ref_eav: the other atom's q, s
 #pragma unroll
       for (int u = 0; u < G; ++u) {      // 2. mask, displacement, type pair
         pt[u] = -1;
         d[u][0] = d[u][1] = d[u][2] = 0.0;
+        if constexpr (EXTRA) qo[u] = so[u][0] = so[u][1] = so[u][2] = 0.0;
         if (s[u] >= 0 && mask[s[u]]) {
           d[u][0] = disp[3 * s[u]];
           d[u][1] = disp[3 * s[u] + 1];
           d[u][2] = disp[3 * s[u] + 2];
-          pt[u] = g0 + u < uo ? ti * T + types[first + jidx[s[u]]]
-                              : types[first + src[u]] * T + ti;
+          const bool own = g0 + u < uo;
+          const long long o = first + (own ? jidx[s[u]] : src[u]);
+          pt[u] = own ? ti * T + types[o] : types[o] * T + ti;
+          if constexpr (EXTRA) {
+            if (charges) qo[u] = charges[o];
+            if (spins && own) {
+              so[u][0] = spins[3 * o];
+              so[u][1] = spins[3 * o + 1];
+              so[u][2] = spins[3 * o + 2];
+            }
+          }
         }
       }
 #pragma unroll
@@ -128,25 +188,42 @@ __global__ void __launch_bounds__(THREADS)
         const double* p = table + 6 * pt[u];
         const double dx = d[u][0], dy = d[u][1], dz = d[u][2];
         const double r = sqrt(dx * dx + dy * dy + dz * dz);
-        if (p[5] == 0.0 || !(r < cut_outer)) continue;
-        const double pre = p[0];
-        const double ainv = 1.0 / p[1];
+        const bool zon = p[5] != 0.0 && r < cut_outer;
+        if (!EXTRA && !zon) continue;
         const double rinv = 1.0 / r;
-        const double x = r * ainv;
-        double phi = 0.0, dphi = 0.0;
+        double e = 0.0, de = 0.0;
+        if (zon) {
+          const double pre = p[0];
+          const double ainv = 1.0 / p[1];
+          const double xa = r * ainv;
+          double phi = 0.0, dphi = 0.0;
 #pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          const double ex = exp(-kD[m] * x);
-          phi += kC[m] * ex;
-          dphi -= kC[m] * kD[m] * ex;
+          for (int m = 0; m < 4; ++m) {
+            const double ex = exp(-kD[m] * xa);
+            phi += kC[m] * ex;
+            dphi -= kC[m] * kD[m] * ex;
+          }
+          dphi *= ainv;
+          e = pre * rinv * phi + p[4];
+          de = pre * rinv * (dphi - phi * rinv);
+          if (r > cut_inner) {
+            const double t = r - cut_inner;
+            e += t * t * t * (p[2] + p[3] * t);
+            de += t * t * (3.0 * p[2] + 4.0 * p[3] * t);
+          }
         }
-        dphi *= ainv;
-        double e = pre * rinv * phi + p[4];
-        double de = pre * rinv * (dphi - phi * rinv);
-        if (r > cut_inner) {
-          const double t = r - cut_inner;
-          e += t * t * t * (p[2] + p[3] * t);
-          de += t * t * (3.0 * p[2] + 4.0 * p[3] * t);
+        if constexpr (EXTRA) {
+          if (charges && r < x.rcq) {
+            const double eq = QQR2E * (qn * qo[u]) * rinv;
+            e += eq;
+            de -= eq * rinv;
+          }
+          if (spins && g0 + u < uo && r < x.rcs) {
+            const double dot = sn[0] * so[u][0] + sn[1] * so[u][1] +
+                               sn[2] * so[u][2];
+            e -= bethe_slater(r, x.aj, x.gj, x.dj) * (dot - x.off) +
+                 bethe_slater(r, x.ak, x.gk, x.dk) * (dot * dot - x.off);
+          }
         }
         const double f = 0.5 * de * rinv;
         const double gx = f * dx, gy = f * dy, gz = f * dz;
@@ -225,6 +302,26 @@ __global__ void __launch_bounds__(THREADS)
   if (threadIdx.x == 0) ticket[c] = 0u;
 }
 
+template <bool EXTRA>
+static int launch(const double* disp, const int* jidx,
+                  const unsigned char* mask, const int* rev, const int* types,
+                  const double* table, const double* charges,
+                  const double* spins, const double* extra, int C, int A,
+                  int K, int R, int T, double cut_inner, double cut_outer,
+                  double* part, unsigned* ticket, double* energy,
+                  double* force, double* virial, void* stream) {
+  const int bpc = (A + ATOMS - 1) / ATOMS;
+  const long long blocks = static_cast<long long>(C) * bpc;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks > 0) {
+    ref_eav_kernel<EXTRA><<<static_cast<unsigned>(blocks), THREADS, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        disp, jidx, mask, rev, types, table, charges, spins, extra, A, K, R,
+        T, bpc, cut_inner, cut_outer, part, ticket, energy, force, virial);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // disp (C, A, K, 3) f64, jidx (C, A, K) i32, mask (C, A, K) u8, rev
@@ -239,14 +336,23 @@ extern "C" int zbl_eav(const double* disp, const int* jidx,
                        double cut_outer, double* part, unsigned* ticket,
                        double* energy, double* force, double* virial,
                        void* stream) {
-  const int bpc = (A + ATOMS - 1) / ATOMS;
-  const long long blocks = static_cast<long long>(C) * bpc;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  if (blocks > 0) {
-    zbl_eav_kernel<<<static_cast<unsigned>(blocks), THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-        disp, jidx, mask, rev, types, table, A, K, R, T, bpc, cut_inner,
-        cut_outer, part, ticket, energy, force, virial);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(disp, jidx, mask, rev, types, table, nullptr, nullptr,
+                       nullptr, C, A, K, R, T, cut_inner, cut_outer, part,
+                       ticket, energy, force, virial, stream);
+}
+
+// zbl_eav's arguments (a table of inactive rows where there is no zbl)
+// and: charges (C, A) f64 or null (no coul/cut), spins (C, A, 3) f64 or
+// null (no spin term), extra (9,) f64 the scalars of `Extra`.
+extern "C" int ref_eav(const double* disp, const int* jidx,
+                       const unsigned char* mask, const int* rev,
+                       const int* types, const double* table,
+                       const double* charges, const double* spins,
+                       const double* extra, int C, int A, int K, int R,
+                       int T, double cut_inner, double cut_outer,
+                       double* part, unsigned* ticket, double* energy,
+                       double* force, double* virial, void* stream) {
+  return launch<true>(disp, jidx, mask, rev, types, table, charges, spins,
+                      extra, C, A, K, R, T, cut_inner, cut_outer, part,
+                      ticket, energy, force, virial, stream);
 }

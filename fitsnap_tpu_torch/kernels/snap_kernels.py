@@ -7,7 +7,7 @@ PyTorch versions beside them.
 | K3 dbdd (_chem) | csrc/dbdd.cu (+ atom_gemm.cuh) | ops/snap.py _dbdu_ylist, _chem_b_and_dbdu + the contractions at :956-982 |
 | K6q quad_chain | csrc/quad_chain.cu | ops/snap.py _quad_chain |
 | K4 pair_scatter_rows | csrc/pair_scatter.cu | calculators/snap.py:326-343 (and calculators/ace.py:153-162) |
-| K5 zbl_eav | csrc/zbl_pair.cu | ops/refpot.py reference_eav (vjp and scatter), zbl_pair_energy |
+| K5 zbl_eav | csrc/zbl_pair.cu | ops/refpot.py reference_eav (vjp and scatter; zbl, coul/cut, spin/exchange/biquadratic), zbl_pair_energy |
 | K7 normal_contrib | csrc/normal_contrib.cu | parallel/fit.py config_normal_contrib (:288-364) |
 | K8 device_neighbors | csrc/device_neighbors.cu | parallel/fit.py device_neighbors |
 | K8r reverse_table | csrc/device_neighbors.cu | the index role of the one-hot (A, K, A) matmuls |
@@ -45,6 +45,8 @@ kl.register("pair_scatter_rows", "pair_scatter",
             [_P] * 5 + [_I] * 7 + [_P] * 4)
 kl.register("zbl_eav", "zbl_pair",
             [_P] * 6 + [_I] * 5 + [_D, _D] + [_P] * 6)
+kl.register("ref_eav", "zbl_pair",
+            [_P] * 9 + [_I] * 5 + [_D, _D] + [_P] * 6)
 kl.register("device_neighbors", "device_neighbors",
             [_P] * 5 + [_I] * 5 + [_D] * 3 + [_I] + [_P] * 10)
 kl.register("reverse_table", "device_neighbors",
@@ -655,29 +657,42 @@ def pair_scatter_rows(g, disp, vmask, rev, types, ntypes):
 pair_scatter_rows.launches = 0
 
 # ---------------------------------------------------------------------------
-# K5: the ZBL reference potential's energy, forces and virial
+# K5: the reference potential's energy, forces and virial
 # ---------------------------------------------------------------------------
 
 # LAMMPS pair_zbl universal screening function (the constants of
 # csrc/zbl_pair.cu)
 ZBL_C = (0.02817, 0.28022, 0.50986, 0.18175)
 ZBL_D = (0.20162, 0.40290, 0.94229, 3.19980)
+QQR2E = 14.399645      # eV A, LAMMPS metal units' qqr2e (csrc/zbl_pair.cu)
 ZBL_ATOMS = 4          # atoms of a block of csrc/zbl_pair.cu, two warps each
 _ZBL_TICKETS = {}      # device -> the kernel's per-config tickets (zero)
 
 
+def bethe_slater(r, a, g, d):
+    """The Bethe-Slater profile 4 a x2 (1 - g x2) exp(-x2), x2 = (r/d)^2,
+    of `pair_style spin/exchange/biquadratic`."""
+    x2 = (r / d) ** 2
+    return 4.0 * a * x2 * (1.0 - g * x2) * torch.exp(-x2)
+
+
 def zbl_pair_grad_plain(disp, jidx, mask, types, table, cut_inner,
-                        cut_outer):
+                        cut_outer, charges=None, spins=None, extra=None):
     """The per-slot half of plain K5: (g (C, A, K, 3), energy (C,)).
 
     disp (C, A, K, 3) pair displacements; jidx, mask (C, A, K); types
     (C, A); table (T, T, 6) rows (pre, a, sw3, sw4, sw5, active) per type
     pair.  g = 0.5 e'(r) D / r per pair (zero for masked pairs), energy =
-    0.5 sum e per config.
+    0.5 sum e per config.  With `extra` (9,) (coul/cut's cutoff, then the
+    spin term's cutoff, a, g, d of J, a, g, d of K, offset; the scalars of
+    csrc/zbl_pair.cu's `Extra`), charges (C, A) add the bare Coulomb term
+    to e and e' inside its cutoff, and unit spins (C, A, 3) the
+    Bethe-Slater spin energy to e alone; either may be None.
     """
     C, A, K = mask.shape
     ti = types.long()[:, :, None].expand(C, A, K)
-    tj = torch.gather(types.long(), 1, jidx.long().reshape(C, A * K))
+    jflat = jidx.long().reshape(C, A * K)
+    tj = torch.gather(types.long(), 1, jflat)
     pre, a, sw3, sw4, sw5, active = table[ti, tj.reshape(C, A, K)].unbind(-1)
     safe = torch.where(mask[..., None], disp,
                        disp.new_tensor([1.0, 0.0, 0.0]))
@@ -697,22 +712,39 @@ def zbl_pair_grad_plain(disp, jidx, mask, types, table, cut_inner,
     on = mask & (r < cut_outer) & (active != 0)
     e = torch.where(on, e, zero)
     de = torch.where(on, de, zero)
+    if charges is not None:
+        qj = torch.gather(charges, 1, jflat).reshape(C, A, K)
+        eq = QQR2E * (charges[:, :, None] * qj) / r
+        qon = mask & (r < extra[0])
+        e = e + torch.where(qon, eq, zero)
+        de = de + torch.where(qon, -eq / r, zero)
+    if spins is not None:
+        sj = torch.gather(spins, 1, jflat[..., None].expand(C, A * K, 3))
+        dots = torch.einsum("cax,cakx->cak", spins, sj.reshape(C, A, K, 3))
+        es = -(bethe_slater(r, extra[2], extra[3], extra[4])
+               * (dots - extra[8])
+               + bethe_slater(r, extra[5], extra[6], extra[7])
+               * (dots * dots - extra[8]))
+        e = e + torch.where(mask & (r < extra[1]), es, zero)
     g = (0.5 * de / r)[..., None] * safe
     return g, 0.5 * e.sum(dim=(1, 2))
 
 
 def zbl_eav_plain(disp, jidx, mask, rev, types, table, cut_inner,
-                  cut_outer):
+                  cut_outer, charges=None, spins=None, extra=None):
     """Plain K5: (energy (C,), force (C, A, 3), virial (C, 6)), the
     per-slot gradient of `zbl_pair_grad_plain` turned into forces and
     virial by K4's plain version at width 1 with one type block.
 
     rev (C, A, R) is the reverse neighbor table (flat slots i*K + k whose
     jidx is the row's atom, -1 padded); the virial is ordered (xx, yy, zz,
-    yz, xz, xy), W_ab = -sum D_a g_b over the masked slots."""
+    yz, xz, xy), W_ab = -sum D_a g_b over the masked slots.  charges,
+    spins and extra as `zbl_pair_grad_plain`'s (the spin term adds energy
+    alone)."""
     C, A = mask.shape[:2]
     g, energy = zbl_pair_grad_plain(disp, jidx, mask, types, table,
-                                    cut_inner, cut_outer)
+                                    cut_inner, cut_outer, charges, spins,
+                                    extra)
     force, virial = pair_scatter_rows_plain(g[:, :, None], disp, mask, rev,
                                             torch.zeros_like(types), 1)
     return energy, force.reshape(C, A, 3), virial.reshape(C, 6)
@@ -728,11 +760,15 @@ def _zbl_tickets(device, C):
     return t
 
 
-def zbl_eav(disp, jidx, mask, rev, types, table, cut_inner, cut_outer):
-    """K5 on the card; same arguments and outputs as the plain version."""
-    if _on_cpu(disp, jidx, mask, rev, types, table):
+def zbl_eav(disp, jidx, mask, rev, types, table, cut_inner, cut_outer,
+            charges=None, spins=None, extra=None):
+    """K5 on the card; same arguments and outputs as the plain version.
+    Without `extra` it launches the ZBL-only entry point (zbl_eav), with it
+    the whole reference (ref_eav)."""
+    if _on_cpu(disp, jidx, mask, rev, types, table,
+               *(x for x in (charges, spins, extra) if x is not None)):
         return zbl_eav_plain(disp, jidx, mask, rev, types, table,
-                             cut_inner, cut_outer)
+                             cut_inner, cut_outer, charges, spins, extra)
     C, A, K = mask.shape
     R, T = rev.shape[2], table.shape[0]
     _check(disp, "disp", torch.float64, (C, A, K, 3))
@@ -741,6 +777,14 @@ def zbl_eav(disp, jidx, mask, rev, types, table, cut_inner, cut_outer):
     _check(rev, "rev", torch.int32, (C, A, R))
     _check(types, "types", torch.int32, (C, A))
     _check(table, "table", torch.float64, (T, T, 6))
+    if extra is None and (charges is not None or spins is not None):
+        raise ValueError("zbl_eav: charges and spins need `extra`")
+    if extra is not None:
+        _check(extra, "extra", torch.float64, (9,))
+    if charges is not None:
+        _check(charges, "charges", torch.float64, (C, A))
+    if spins is not None:
+        _check(spins, "spins", torch.float64, (C, A, 3))
     dev = disp.device
     if C * A == 0:
         return (disp.new_zeros(C), disp.new_zeros((C, A, 3)),
@@ -750,10 +794,17 @@ def zbl_eav(disp, jidx, mask, rev, types, table, cut_inner, cut_outer):
     energy = torch.empty((C,), dtype=torch.float64, device=dev)
     force = torch.empty((C, A, 3), dtype=torch.float64, device=dev)
     virial = torch.empty((C, 6), dtype=torch.float64, device=dev)
-    _launch("zbl_eav", dev, _ptr(disp), _ptr(jidx), _ptr(mask), _ptr(rev),
-            _ptr(types), _ptr(table), C, A, K, R, T, float(cut_inner),
-            float(cut_outer), _ptr(part), _ptr(_zbl_tickets(dev, C)),
-            _ptr(energy), _ptr(force), _ptr(virial))
+    head = (_ptr(disp), _ptr(jidx), _ptr(mask), _ptr(rev), _ptr(types),
+            _ptr(table))
+    tail = (C, A, K, R, T, float(cut_inner), float(cut_outer), _ptr(part),
+            _ptr(_zbl_tickets(dev, C)), _ptr(energy), _ptr(force),
+            _ptr(virial))
+    if extra is None:
+        _launch("zbl_eav", dev, *head, *tail)
+    else:
+        _launch("ref_eav", dev, *head,
+                *(None if x is None else _ptr(x)
+                  for x in (charges, spins)), _ptr(extra), *tail)
     zbl_eav.launches += 1
     return energy, force, virial
 

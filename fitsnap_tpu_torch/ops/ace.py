@@ -17,13 +17,16 @@ Counterpart of `fitsnap_tpu/ops/ace.py`.
 
 `ace_descriptors_with_jacobian` takes `plain=` as
 `ops/snap.descriptors_with_jacobian` does: for a CUDA tensor it launches
-K13 and K14.  The Hermite spline radials (`FITSNAP_TPU_ACE_SPLINE` of the
-JAX package) are not ported: the port's plans carry `spline_delta=None`,
-and a plan with a spline raises.
+K13 and K14.  With `FITSNAP_TPU_ACE_SPLINE=<delta>` in the environment (the
+JAX package's variable) a plan evaluates its radials from cubic Hermite
+spline tables of bin width delta, as ML-PACE does (`_hermite_radial_table`,
+`spline_radial_basis`).
 """
 
 import itertools
+import os
 from dataclasses import dataclass, field
+from functools import lru_cache
 from math import sqrt
 from types import SimpleNamespace
 
@@ -194,8 +197,8 @@ class AcePlan:
     radial: str = "pace_px"     # ChebExpCos convention variant
     ylm: str = "4pi"            # '4pi' | 'std' | 'racah'
     # ML-PACE evaluates radials from cubic Hermite spline lookup tables
-    # (deltaSplineBins in the .yace); the JAX package emulates them when
-    # this is set.  Not ported: the port's plans keep None.
+    # (deltaSplineBins in the .yace, default 0.001), not the analytic
+    # ChebExpCos; the bin width when set (FITSNAP_TPU_ACE_SPLINE)
     spline_delta: float = None
     # per-device tensors of the tables (`plan_tensors`) and the kernels'
     # host-built tables (`kernels/ace_kernels.py`), built at first use
@@ -284,6 +287,9 @@ def _pack_plan(labels, terms_per_label, numtypes, nradbase, lmax,
         t_mu0=np.asarray([lab[0] for lab in labels], np.int32),
         rank_max=rank_max,
         mmat=mmat,
+        spline_delta=(float(os.environ["FITSNAP_TPU_ACE_SPLINE"])
+                      if os.environ.get("FITSNAP_TPU_ACE_SPLINE")
+                      else None),
     )
 
 
@@ -427,14 +433,6 @@ def plan_tensors(plan: AcePlan, device):
 # device side, plain PyTorch
 # ---------------------------------------------------------------------------
 
-def _no_spline(plan):
-    if plan.spline_delta:
-        raise NotImplementedError(
-            "ACE spline radials (spline_delta) are not ported to "
-            'fitsnap_tpu_torch yet (ROADMAP.md: "ACE splines and '
-            'nonlinear ACE")')
-
-
 def chebexpcos_basis(r, rcut, lmbda, nradbase, variant="v0"):
     """ChebExpCos radial functions g_k(r), k = 1..nradbase (the values of
     `_radial_and_derivative`); `rcut` and `lmbda` broadcast against r."""
@@ -521,6 +519,81 @@ def _radial_and_derivative(r, rcut, lmbda, nradbase, variant):
     return g, dg
 
 
+@lru_cache(maxsize=None)
+def _hermite_radial_table(rcut, lmbda, nradbase, variant, delta):
+    """Cubic-Hermite spline coefficients of the radial basis (host numpy).
+
+    Emulates ML-PACE's SplineInterpolator: node values and derivatives at
+    spacing `delta` (from `_radial_and_derivative`), evaluated per bin as a
+    cubic in t = r/delta - n.  Returns (nlut, nradbase, 4) float64 [c0, c1,
+    c2, c3], nlut = ceil(rcut/delta) + 1.  At the node r = 0 both clamps of
+    the scaled distance sit at their bounds, where the JAX package's
+    derivative (`jax.jvp`) takes half of each side: its node derivative
+    there is a quarter of the closed form's (the cutoff factor's part is
+    zero, sin 0 = 0), and so is this table's.
+    """
+    nlut = int(np.ceil(rcut / delta)) + 1
+    rs = torch.arange(nlut + 1, dtype=torch.float64)[:, None] * delta
+    full = torch.ones_like(rs)
+    g, dg = _radial_and_derivative(rs, full * rcut, full * lmbda, nradbase,
+                                   variant)
+    vals, dvals = g[:, 0].numpy(), dg[:, 0].numpy().copy()
+    dvals[0] *= 0.25
+    f0, f1 = vals[:-1], vals[1:]
+    d0, d1 = dvals[:-1] * delta, dvals[1:] * delta
+    c2 = -3.0 * f0 - 2.0 * d0 + 3.0 * f1 - d1
+    c3 = 2.0 * f0 + d0 - 2.0 * f1 + d1
+    return np.stack([f0, d0, c2, c3], axis=-1)
+
+
+def spline_tables(plan: AcePlan):
+    """(numtypes^2, nlut_max, nradbase, 4) float64 host table of the
+    plan's spline radials, bond ielem * numtypes + jelem (each bond's
+    `_hermite_radial_table`, zero past its own bins); kept on the plan."""
+    tab = plan.tables.get("spline")
+    if tab is None:
+        tabs = [_hermite_radial_table(float(rc), float(lam), plan.nradbase,
+                                      plan.radial, float(plan.spline_delta))
+                for rc, lam in zip(np.ravel(plan.rcut), np.ravel(plan.lmbda))]
+        tab = np.zeros((len(tabs), max(t.shape[0] for t in tabs))
+                       + tabs[0].shape[1:])
+        for i, t in enumerate(tabs):
+            tab[i, :t.shape[0]] = t
+        plan.tables["spline"] = tab
+    return tab
+
+
+def spline_tensor(plan: AcePlan, device):
+    """`spline_tables` as a float64 tensor on `device`, kept on the plan
+    (the plain radials and kernel K13 read the same one)."""
+    key = f"spline:{torch.device(device)}"
+    tab = plan.tables.get(key)
+    if tab is None:
+        tab = plan.tables[key] = torch.as_tensor(spline_tables(plan),
+                                                 device=device)
+    return tab
+
+
+def spline_radial_basis(r, bond_idx, rcm, plan: AcePlan):
+    """Spline-table radials g (..., nradbase) and dg/dr at r with per-bond
+    tables (`spline_tables`, bond_idx = ielem * numtypes + jelem), zero at
+    or beyond the bond's cutoff rcm: the JAX package's
+    `spline_radial_basis` (:483) with its r derivative, ((3 c3 t + 2 c2) t
+    + c1) / delta (the floor of the bin has zero derivative)."""
+    delta = float(plan.spline_delta)
+    tab = spline_tensor(plan, r.device)
+    x = r / delta
+    n = torch.clamp(torch.floor(x), 0, tab.shape[1] - 1)
+    t = (x - n)[..., None]
+    c = tab[bond_idx.long(), n.long()]                 # (..., nradbase, 4)
+    c0, c1, c2, c3 = c.unbind(-1)
+    g = ((c3 * t + c2) * t + c1) * t + c0
+    dg = ((3.0 * c3 * t + 2.0 * c2) * t + c1) / delta
+    inside = (r < rcm)[..., None]
+    zero = torch.zeros_like(g)
+    return torch.where(inside, g, zero), torch.where(inside, dg, zero)
+
+
 def _ylm_and_gradient(unit, r, lmax, ylm):
     """Yhat_lm in the `ylm` convention at the unit vectors, (..., (lmax+1)^2)
     real and imaginary parts at l*l + l + m, and their gradients with
@@ -604,16 +677,21 @@ def pair_phi_tangents(disp, jelem, mask, ielem, plan: AcePlan):
     arithmetic of kernel K13): g_n'(r) from the Chebyshev recursion carried
     with its derivative, the Ylm gradient through d(unit)/dD = (I - u u^T)
     / r.  Masked pairs take the displacement (1, 0, 0) and weight 0, so
-    their phi and tangents are exactly zero."""
-    _no_spline(plan)
+    their phi and tangents are exactly zero.  A plan with `spline_delta`
+    takes g and g' from its spline tables (`spline_radial_basis`)."""
     dtype, dev = disp.dtype, disp.device
     tabs = plan_tensors(plan, dev)
     safe = torch.where(mask[..., None], disp, disp.new_tensor([1.0, 0.0, 0.0]))
     r = torch.sqrt(torch.sum(safe * safe, -1))
     unit = safe / r[..., None]
     ie, je = ielem.long()[:, None], jelem.long()
-    g, dg = _radial_and_derivative(r, tabs.rcut[ie, je], tabs.lmbda[ie, je],
-                                   plan.nradbase, plan.radial)
+    if plan.spline_delta:
+        g, dg = spline_radial_basis(r, ie * plan.numtypes + je,
+                                    tabs.rcut[ie, je], plan)
+    else:
+        g, dg = _radial_and_derivative(r, tabs.rcut[ie, je],
+                                       tabs.lmbda[ie, je], plan.nradbase,
+                                       plan.radial)
     if np.any(np.asarray(plan.rcinner) > 0.0):
         din = torch.clamp(tabs.drcinner[ie, je], min=1e-12)
         t = (r - (tabs.rcinner[ie, je] - tabs.drcinner[ie, je])) / din

@@ -1,16 +1,19 @@
-"""Reference (subtracted) potentials in PyTorch: `zero`, `zbl`, `hybrid/overlay`.
+"""Reference (subtracted) potentials in PyTorch: `zero`, `zbl`, `coul/cut`,
+`spin/exchange/biquadratic` and their `hybrid/overlay`.
 
-Counterpart of `fitsnap_tpu/ops/refpot.py`.  The ZBL energy, forces and
-virial come from one launch of kernel K5 (`zbl_eav`): the pair energy and
-its gradient dE/dD in closed form, each reverse neighbor slot's gradient
-recomputed from its own displacement, summed per atom and per config.
+Counterpart of `fitsnap_tpu/ops/refpot.py`.  The energy, forces and virial
+come from one launch of kernel K5 (`zbl_eav`): the pair energies and their
+gradient dE/dD in closed form, each reverse neighbor slot's gradient
+recomputed from its own displacement (and the charges of both atoms),
+summed per atom and per config.
 
 ZBL follows LAMMPS `pair_style zbl` (metal units): universal screening
 function plus a C1-smooth switching polynomial between the inner and outer
-cutoffs, with the constant shift sw5 making E(outer) = 0.
-
-`coul/cut` and `spin/exchange/biquadratic` parse but are not ported yet
-(ROADMAP.md: "coul/cut and spin references").
+cutoffs, with the constant shift sw5 making E(outer) = 0.  `coul/cut` is
+the bare Coulomb energy qqr2e q_i q_j / r inside its cutoff.  The spin
+term (Bethe-Slater exchange and biquadratic profiles between unit spins)
+adds energy only: the JAX package pins its mechanical force and virial to
+zero, as the reference's Fe oracle does.
 """
 
 from dataclasses import dataclass
@@ -25,10 +28,7 @@ _PZBL = 0.23
 _A0 = 0.46850
 _C = np.array(sk.ZBL_C)
 _D = np.array(sk.ZBL_D)
-_QQR2E = 14.399645  # eV*A
-
-_NOT_PORTED = ("reference pair style {} is not ported to fitsnap_tpu_torch "
-               'yet (ROADMAP.md: "coul/cut and spin references")')
+_QQR2E = sk.QQR2E  # eV*A
 
 
 def _e_zbl_np(r, zi, zj):
@@ -112,7 +112,9 @@ def zbl_table(p: ZblParams, device):
 @dataclass(frozen=True)
 class SpinExchangeParams:
     """LAMMPS `pair_style spin/exchange/biquadratic` (Bethe-Slater radial
-    profiles): parsed here, evaluated in a later slice."""
+    profiles):
+    E = -1/2 sum_pairs [ J(r)(s_i.s_j - off) + K(r)((s_i.s_j)^2 - off) ]
+    with unit spin vectors, off = 1 with the offset enabled."""
     rc: float
     aj: float
     gj: float
@@ -125,18 +127,21 @@ class SpinExchangeParams:
 
 @dataclass(frozen=True)
 class CoulCutParams:
-    """LAMMPS `pair_style coul/cut <rc>`: parsed here, evaluated in a later
-    slice."""
+    """LAMMPS `pair_style coul/cut <rc>`: bare (unshifted) Coulomb between
+    per-atom charges inside the cutoff, E = qqr2e * qi * qj / r.  Needs
+    `atom_style charge` data (per-atom `Charges`)."""
     rc: float
 
 
 @dataclass(frozen=True)
 class RefSpec:
-    """Parsed REFERENCE section: list of active pair potentials."""
+    """Parsed REFERENCE section: list of active pair potentials (and the
+    type count, the size of K5's type-pair table)."""
     zbl: ZblParams = None
     spin: SpinExchangeParams = None
     coul: CoulCutParams = None
     max_cutoff: float = 0.0
+    ntypes: int = 1
 
 
 def parse_reference(section, ntypes) -> RefSpec:
@@ -211,7 +216,8 @@ def parse_reference(section, ntypes) -> RefSpec:
         max_cut = max(max_cut, coul.rc)
     if spin is not None:
         max_cut = max(max_cut, spin.rc)
-    return RefSpec(zbl=zbl, spin=spin, coul=coul, max_cutoff=max_cut)
+    return RefSpec(zbl=zbl, spin=spin, coul=coul, max_cutoff=max_cut,
+                   ntypes=ntypes)
 
 
 def _is_num(s):
@@ -222,27 +228,51 @@ def _is_num(s):
         return False
 
 
-def reference_eav(disp, jidx, mask, rev, types, spec: RefSpec, plain=False):
+def extra_table(spec: RefSpec, device):
+    """(9,) float64: the scalars K5 reads beside the ZBL table (csrc/
+    zbl_pair.cu `Extra`): coul/cut's cutoff, then the spin term's cutoff,
+    a, g, d of J, a, g, d of K, and its offset (1 or 0); zero where the
+    style is absent."""
+    rcq = spec.coul.rc if spec.coul is not None else 0.0
+    sp = spec.spin
+    vals = ([sp.rc, sp.aj, sp.gj, sp.dj, sp.ak, sp.gk, sp.dk,
+             1.0 if sp.offset else 0.0] if sp is not None else [0.0] * 8)
+    return torch.tensor([rcq] + vals, dtype=torch.float64, device=device)
+
+
+def reference_eav(disp, jidx, mask, rev, types, spec: RefSpec, plain=False,
+                  spins=None, charges=None):
     """Reference-potential energy, forces and virial of a batch of configs.
 
     disp (C, A, K, 3) = r_j - r_i over the directed padded neighbor list
     (each physical pair appears twice, so pair sums carry a 0.5 factor);
     jidx, mask (C, A, K); rev (C, A, R) reverse neighbor table; types (C, A)
-    int32.  Returns energy (C,), forces (C, A, 3) and virial (C, 6) ordered
-    (xx, yy, zz, yz, xz, xy), W_ab = -sum D_a dE/dD_b.  `plain=True` runs the
-    plain version of K5 on any device.
+    int32.  spins: optional (C, A, 3) unit spin vectors for the spin term
+    (without them it adds nothing, as in the JAX package); charges:
+    optional (C, A) per-atom charges, which coul/cut requires.  Returns
+    energy (C,), forces (C, A, 3) and virial (C, 6) ordered (xx, yy, zz,
+    yz, xz, xy), W_ab = -sum D_a dE/dD_b; the spin term adds to the energy
+    alone.  `plain=True` runs the plain version of K5 on any device.
     """
     C, A = mask.shape[:2]
-    if spec.coul is not None:
-        raise NotImplementedError(_NOT_PORTED.format("coul/cut"))
-    if spec.spin is not None:
-        raise NotImplementedError(
-            _NOT_PORTED.format("spin/exchange/biquadratic"))
-    if spec.zbl is None:
+    if spec.coul is not None and charges is None:
+        raise ValueError(
+            "REFERENCE pair_style coul/cut needs per-atom charges: the "
+            "training data has no 'Charges' key (atom_style charge)")
+    spins = spins if spec.spin is not None else None
+    if spec.zbl is None and spec.coul is None and spins is None:
         return (disp.new_zeros(C), disp.new_zeros((C, A, 3)),
                 disp.new_zeros((C, 6)))
-
-    table = zbl_table(spec.zbl, disp.device)
     zbl = sk.zbl_eav_plain if plain else sk.zbl_eav
-    return zbl(disp, jidx, mask, rev, types, table, spec.zbl.cut_inner,
-               spec.zbl.cut_outer)
+    if spec.zbl is not None:
+        table = zbl_table(spec.zbl, disp.device)
+        cuts = (spec.zbl.cut_inner, spec.zbl.cut_outer)
+    else:
+        # no zbl: a table of inactive type pairs
+        table = disp.new_zeros((spec.ntypes, spec.ntypes, 6))
+        cuts = (0.0, 0.0)
+    if spec.coul is None and spins is None:
+        return zbl(disp, jidx, mask, rev, types, table, *cuts)
+    return zbl(disp, jidx, mask, rev, types, table, *cuts,
+               charges=charges if spec.coul is not None else None,
+               spins=spins, extra=extra_table(spec, disp.device))

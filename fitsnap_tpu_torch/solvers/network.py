@@ -24,6 +24,10 @@ gradients G = dB/dD are computed on the device once
 (`calculators/snap.nn_prep`: kernels K1-K5, K6q and the chemflag modes under
 their flags), in shape buckets of configs padded to one (atoms, neighbor
 slots) shape, and the forces go through K12 (`NnForce`, backward K12T).
+Nonlinear ACE (calculator LAMMPSPACE) takes the same steps with K13 and K14
+for B and dB/dD (`calculators/ace.nn_prep`); it has no pair-grid kit, so
+its OTF mode takes chemflag's route (B and dB/dD of each minibatch from K13
+and K14 into the precompute step) and `cached` falls back to OTF.
 The custom pairwise NN (a [CUSTOM] section, calculator LAMMPSCUSTOM) takes
 precedence over `dgrad_mode`, as in the JAX package: its buckets keep the
 host neighbor lists (disp, jidx, mask, rev) on the device, and each step
@@ -210,7 +214,8 @@ class NetworkSolver(Solver):
         self.cached = False     # dgrad_mode resolved to cached
         self.otf = False        # dgrad_mode resolved to otf
         self._kit = None        # calculators/snap.nn_kit of the fit
-        self._snap = None       # its SnapParams
+        self._snap = None       # its SnapParams (None for ACE)
+        self._dense = None      # the OTF minibatch's B and dB/dD, no kit
         self._cutoff = None     # the neighbor cutoff of the cached/OTF lists
         self._custom = None     # the pairwise mode's [CUSTOM] section
         self.history = []
@@ -227,8 +232,8 @@ class NetworkSolver(Solver):
         cached mode for linear SNAP while its cache stays within
         NEIGH_LIMIT, else precompute while dB/dD stays within G_LIMIT, else
         OTF; `cached` where its kit does not apply (chemflag,
-        quadraticflag) warns and takes OTF.  A [CUSTOM] section takes the
-        pairwise mode whatever `dgrad_mode` says."""
+        quadraticflag, ACE) warns and takes OTF.  A [CUSTOM] section takes
+        the pairwise mode whatever `dgrad_mode` says."""
         from fitsnap_tpu_torch.calculators.snap import (
             chunk_size, coalesce_shape_buckets, pack_bucket)
         from fitsnap_tpu_torch.parallel.fit import plan_pos_buckets
@@ -267,11 +272,15 @@ class NetworkSolver(Solver):
                 mode = "otf"
         self.cached, self.otf = mode == "cached", mode == "otf"
         if self.cached or self.otf:
-            self._snap = calculator.params
+            # SNAP's model, or None for ACE
+            self._snap = getattr(calculator, "params", None)
             self._cutoff = float(calculator.cutoff)
             # the descriptor form picks the OTF route: the pair-grid kit for
-            # one element channel (quadraticflag too), K1-K3 under chemflag
-            self._kit = None if self._snap.chemflag else calculator.nn_kit()
+            # one element channel (quadraticflag too); B and dB/dD of each
+            # minibatch under chemflag (K1-K3) and for ACE (K13, K14)
+            dense = self._snap is None or self._snap.chemflag
+            self._kit = None if dense else calculator.nn_kit()
+            self._dense = calculator.nn_descriptors if dense else None
             return self._prepare_pos(calculator, pos_groups)
         packed, shape_buckets = calculator.host_preprocess(data)
         shape_buckets = coalesce_shape_buckets(shape_buckets)
@@ -334,21 +343,21 @@ class NetworkSolver(Solver):
         float64), and per chunk of configs K8 builds the neighbor lists, K8r
         their reverse table, the descriptor pass B (cached: K9's ut and B;
         OTF: `nn_desc`, K9 with the quadratic columns, or under chemflag
-        K1-K3's chemflag modes, whose dB/dD is dropped), and K5 the
+        K1-K3's chemflag modes and for ACE K13 and K14, whose dB/dD is
+        dropped), and K5 the
         reference potential; the stats pass forms the targets and the
         standardization over real atoms.  A cached bucket keeps disp, jidx,
         mask, rev, ut and B, not the positions (they never move in
         training); an OTF bucket keeps the positions alone.  The reverse
         tables' dropped entries are checked here once: a step's lists
         equal these."""
-        from fitsnap_tpu_torch.calculators.snap import (_batch_descriptors,
-                                                        chunk_size, nn_desc)
+        from fitsnap_tpu_torch.calculators.snap import chunk_size
         from fitsnap_tpu_torch.kernels import snap_kernels as sk
         from fitsnap_tpu_torch.ops.refpot import reference_eav
         from fitsnap_tpu_torch.parallel.fit import (_check_dropped,
                                                     pack_batch_pos)
 
-        dev, p, cutoff = self.device, self._snap, self._cutoff
+        dev, cutoff = self.device, self._cutoff
         self.buckets = []
         sum_b = sumsq_b = None
         count = 0
@@ -360,9 +369,9 @@ class NetworkSolver(Solver):
                 torch.from_numpy(x[0]).to(dev)
                 for x in pack_batch_pos(cfgs, a_pad, n, s_table))
             # bound the (A, S, A) neighbor-candidate transient (and the
-            # chunk's dB/dD under chemflag)
+            # chunk's dB/dD on the dense route)
             chunk = int(min(32, max(1, (1 << 26) // (a_pad * S * a_pad)), n))
-            if self.otf and p.chemflag:
+            if self._dense is not None:
                 chunk = min(chunk, chunk_size(a_pad, k_pad,
                                               calculator.desc_width()))
             outs = []
@@ -376,11 +385,10 @@ class NetworkSolver(Solver):
                     ut, B = self._kit["utb"](disp, jidx, mask, types[c],
                                              nat[c])
                     keep = (disp, jidx, mask, rev, ut)
-                elif p.chemflag:
-                    B = _batch_descriptors(p, disp, jidx, mask, types[c],
-                                           nat[c], plain=False)[0]
+                elif self._dense is not None:
+                    B = self._dense(disp, jidx, mask, types[c], nat[c])[0]
                 else:
-                    B = nn_desc(p, disp, jidx, mask, types[c], nat[c])
+                    B = calculator.nn_desc(disp, jidx, mask, types[c], nat[c])
                 re, rf, _ = reference_eav(disp, jidx, mask, rev, types[c],
                                           calculator.refspec)
                 outs.append((B, re, rf, dropped) + keep)
@@ -530,10 +538,10 @@ class NetworkSolver(Solver):
         the positions): the neighbor lists rebuilt from the positions (K8,
         K8r), then by the descriptor form.  One element channel (linear
         SNAP, quadraticflag): K9's ut and B into the cached step
-        (`_forward_batch_cached`).  chemflag: B and dB/dD of the minibatch
-        from K1-K3's chemflag modes into the precompute step
-        (`_forward_batch`); that dB/dD lives for this step only."""
-        from fitsnap_tpu_torch.calculators.snap import _batch_descriptors
+        (`_forward_batch_cached`).  chemflag and ACE: B and dB/dD of the
+        minibatch from K1-K3's chemflag modes or from K13 and K14 into the
+        precompute step (`_forward_batch`); that dB/dD lives for this step
+        only."""
         from fitsnap_tpu_torch.kernels import snap_kernels as sk
 
         types, nat = batch["types"], batch["nat"]
@@ -542,8 +550,7 @@ class NetworkSolver(Solver):
             batch["svec_lo"], nat, self._cutoff, batch["shape"][1])
         rev, _ = sk.reverse_table(jidx, mask)
         if self._kit is None:
-            B, G, _, _ = _batch_descriptors(self._snap, disp, jidx, mask,
-                                            types, nat, plain=False)
+            B, G = self._dense(disp, jidx, mask, types, nat)
             return self._forward_batch(model, dict(
                 batch, B=B, G=G, types=batch["elem"], jidx=jidx, rev=rev),
                 train)
@@ -641,6 +648,10 @@ class NetworkSolver(Solver):
                 key = "elem" if "elem" in ds else "types"
                 ds[key] = torch.zeros_like(ds[key])
         seed = 13 if net.manual_seed_flag else int(time.time()) % 2 ** 31
+        if net.layer_sizes[0] == 0:
+            # the 'num_desc' placeholder unresolved at config time (ACE,
+            # whose width the plan gives): the prepared descriptors' width
+            net.layer_sizes[0] = int(self.mean.shape[0])
         params = init_mlp(net.layer_sizes, nelem_net,
                           torch.Generator().manual_seed(seed), dev)
         warm_start = net.save_state_input and net.save_state_input != "None"

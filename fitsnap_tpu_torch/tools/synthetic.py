@@ -22,6 +22,13 @@ model (chemflag, two elements, wselfallflag, bnormflag, bzeroflag 1,
 per-element ESHIFT, ZBL 4.0-4.2 for Z = 49 / 15), `inp_nn_settings` the
 same model under the NN solver.
 
+The Fe_Linear_NPJ2021 set is not in the repository: `fe_configs` makes bcc
+Fe cells (2-atom volume scans, jittered 16- and 54-atom supercells) whose
+JSON carries `Spins` (a moment and a direction near +z per atom) and
+`Charges` (small, summing to zero per cell), and `fe_settings` a SNAP
+model with the hybrid/overlay reference of zbl, coul/cut and
+spin/exchange/biquadratic, which reads both.
+
 `write_dataset` writes zero truths; callers that fit it first compute their
 truths (for example A @ beta_true + the reference potential) and rewrite
 the files with `config_json`.
@@ -55,6 +62,12 @@ TA_GROUPS = {
     "Compressed_BCC": (1.0, 0.0, 100.0, 1.0, 1e-8),
     "Liquid": (0.75, 0.25, 467.0, 1.0, 1e-8),
 }
+FE_GROUPS = {
+    "Volume_BCC": (1.0, 0.0, 1.0, 1e-9, 1e-9),
+    "Spin_BCC": (0.8, 0.2, 100.0, 1.0, 1e-8),
+    "Displaced_BCC": (1.0, 0.0, 100.0, 1.0, 1e-8),
+}
+FE_A = 2.83
 INP_GROUPS = {
     "Volume_ZB": (1.0, 0.0, 100.0, 1e-9, 1e-9),
     "Strain_ZB": (0.8, 0.2, 1e-8, 1e-8, 1e-4),
@@ -176,9 +189,47 @@ def inp_configs(seed, counts=None):
     return out
 
 
-def config_json(pos, cell, energy=0.0, forces=None, stress=None, types=None):
+def fe_configs(seed, counts=None):
+    """{group: [(positions, cell rows, element names, extra keys)]} of an
+    Fe-shaped set: bcc cells (a = 2.83 A) of 2 atoms scaled 0.9-1.1
+    (Volume_BCC), 16 atoms jittered by 0.08 A (Spin_BCC) and 54 atoms
+    jittered by 0.1 A (Displaced_BCC).  Every config's extra keys hold
+    `Spins` (natoms, 4): a moment of 2.2 and a direction within about 0.3
+    rad of +z, and `Charges` (natoms,): N(0, 0.1) less their mean.
+    `counts` gives each group's size; the default is 60 configs."""
+    rng = np.random.default_rng(seed)
+    full = {"Volume_BCC": 20, "Spin_BCC": 24, "Displaced_BCC": 16}
+    counts = full if counts is None else counts
+    out = {}
+    for group, n in counts.items():
+        confs = []
+        for i in range(n):
+            if group == "Volume_BCC":
+                scale = 0.9 + 0.2 * i / max(n - 1, 1)
+                pos, cell = supercell(BCC, FE_A * scale, (1, 1, 1))
+            else:
+                reps = (3, 3, 3) if group == "Displaced_BCC" else (2, 2, 2)
+                pos, cell = supercell(BCC, FE_A, reps)
+                pos = pos + rng.normal(
+                    0.0, 0.1 if group == "Displaced_BCC" else 0.08,
+                    pos.shape)
+            na = len(pos)
+            direction = rng.normal(0.0, 0.3, (na, 3)) + [0.0, 0.0, 1.0]
+            direction /= np.linalg.norm(direction, axis=1)[:, None]
+            q = rng.normal(0.0, 0.1, na)
+            extra = {"Spins": np.concatenate(
+                [np.full((na, 1), 2.2), direction], 1).tolist(),
+                "Charges": (q - q.mean()).tolist()}
+            confs.append((pos, cell, ["Fe"] * na, extra))
+        out[group] = confs
+    return out
+
+
+def config_json(pos, cell, energy=0.0, forces=None, stress=None, types=None,
+                extra=None):
     """FitSNAP JSON text of one config (cell rows = lattice vectors); the
-    atoms are Ta unless `types` names them."""
+    atoms are Ta unless `types` names them; `extra` adds keys (for
+    example per-atom `Spins` and `Charges`)."""
     n = len(pos)
     forces = np.zeros((n, 3)) if forces is None else forces
     stress = np.zeros((3, 3)) if stress is None else stress
@@ -191,21 +242,23 @@ def config_json(pos, cell, energy=0.0, forces=None, stress=None, types=None):
             "Stress": np.asarray(stress).tolist(),
             "PositionsStyle": "angstrom", "LatticeStyle": "angstrom",
             "EnergyStyle": "electronvolt", "ForcesStyle": "electronvoltperangstrom",
-            "StressStyle": "bar"}
+            "StressStyle": "bar", **(extra or {})}
     return json.dumps({"Dataset": {"Data": [data]}})
 
 
 def write_dataset(root, configs):
-    """Write {group: [(pos, cell) or (pos, cell, element names)]} as
-    root/<group>/<group>_<i>.json with zero truths (Ta atoms where no names
-    are given); returns {(group, file name): the config's tuple}."""
+    """Write {group: [(pos, cell), (pos, cell, element names) or (pos, cell,
+    element names, extra keys)]} as root/<group>/<group>_<i>.json with zero
+    truths (Ta atoms where no names are given); returns {(group, file
+    name): the config's tuple}."""
     files = {}
     for group, confs in configs.items():
         (Path(root) / group).mkdir(parents=True, exist_ok=True)
         for i, conf in enumerate(confs):
             name = f"{group}_{i}.json"
             (Path(root) / group / name).write_text(config_json(
-                conf[0], conf[1], types=conf[2] if len(conf) > 2 else None))
+                conf[0], conf[1], types=conf[2] if len(conf) > 2 else None,
+                extra=conf[3] if len(conf) > 3 else None))
             files[(group, name)] = conf
     return files
 
@@ -300,6 +353,31 @@ def custom_settings(datapath, groups=None, multi_element=False):
     return s
 
 
+def fe_settings(datapath, groups=None):
+    """A SNAP model for `fe_configs`: the Ta_Linear_JCP2014 BISPECTRUM
+    (twojmax 6, 30 descriptors) with type Fe and rcutfac 4.7, and a
+    REFERENCE of `hybrid/overlay zero 10.0 zbl 4.0 4.8 coul/cut 5.0
+    spin/exchange/biquadratic 4.5` (ZBL for Z = 26; Bethe-Slater exchange
+    and biquadratic profiles with the offset, energy only), so the fit
+    reads the set's `Spins` and `Charges`."""
+    groups = FE_GROUPS if groups is None else groups
+    table = {g: " ".join(str(v) for v in FE_GROUPS[g]) for g in groups}
+    s = ta_settings(datapath, groups=[])
+    s["BISPECTRUM"].update(type="Fe", rcutfac=4.7)
+    s["ESHIFT"] = {"Fe": 0.0}
+    s["REFERENCE"] = {
+        "units": "metal", "atom_style": "spin",
+        "pair_style": "hybrid/overlay zero 10.0 zbl 4.0 4.8 coul/cut 5.0 "
+                      "spin/exchange/biquadratic 4.5",
+        "pair_coeff1": "* * zero", "pair_coeff2": "* * zbl 26 26",
+        "pair_coeff3": "* * coul/cut",
+        "pair_coeff4": "* * spin/exchange/biquadratic biquadratic 4.5 "
+                       "0.2827 -4.747 0.7810 0.0234 -1.0 0.6 offset yes"}
+    s["OUTFILE"] = {"metrics": "Fe_metrics.md", "potential": "Fe_pot"}
+    s["GROUPS"].update(table)
+    return s
+
+
 def inp_settings(datapath, groups=None):
     """Input sections of the InP_JPCA2020 example's explicit multi-element
     SNAP model for `datapath`: BISPECTRUM (two elements, twojmax 6,
@@ -359,6 +437,23 @@ def ace_settings(datapath, groups=None):
                 "lambda": 3.059235105, "b_basis": "minsub"}
     s["CALCULATOR"]["calculator"] = "LAMMPSPACE"
     s["OUTFILE"]["output_style"] = "PACE"
+    return s
+
+
+def ace_nn_settings(datapath, groups=None, dgrad_mode="precompute"):
+    """Nonlinear ACE (the reference's Ta_PACE_PyTorch_NN shape): the
+    Ta_PACE [ACE] section of `ace_settings` (68 labels) under the NN
+    solver, with the [PYTORCH] section of `nn_settings` (`num_desc 64 64
+    1`, batch 4, 10 epochs, seed 13, `dgrad_mode` as given), writing
+    Ta_ace_nn.pt, Ta_ace_nn_metrics.md and no potential (PACE output of a
+    nonlinear fit writes none)."""
+    s = ace_settings(datapath, groups)
+    s["CALCULATOR"]["nonlinear"] = 1
+    s["SOLVER"] = {"solver": "PYTORCH"}
+    s["PYTORCH"] = dict(nn_settings(datapath, [], dgrad_mode)["PYTORCH"],
+                        output_file="Ta_ace_nn.pt")
+    s["OUTFILE"] = {"metrics": "Ta_ace_nn_metrics.md",
+                    "potential": "Ta_ace_nn_pot", "output_style": "PACE"}
     return s
 
 

@@ -213,23 +213,23 @@ def test_descriptors_with_jacobian_match_jax(cases, name):
                                         ("pace_x", "4pi")])
 def test_other_conventions_match_jax(cases, radial, ylm):
     """The plain versions keep every closed-form convention: the tangents
-    equal `jax.jvp`'s for them too.  The kernels take them; they refuse
-    only spline radials."""
+    equal `jax.jvp`'s for them too, and with spline radials in the same
+    convention (tests/test_torch_ace_spline.py holds the rest of the spline
+    mode).  The kernels take them all."""
     jplan, plan, inputs = cases["two"]
-    plan = ace_plan_from_numpy(dict({k: getattr(plan, k)
-                                     for k in ACE_PLAN_FIELDS},
-                                    radial=radial, ylm=ylm))
-    jplan = jace.AcePlan(**dict(jplan.__dict__, radial=radial, ylm=ylm))
-    port, ref = both(
-        lambda *a: ace.ace_descriptors_with_jacobian(*a, plan),
-        lambda *a: jace.ace_descriptors_with_jacobian(*a, jplan), inputs)
-    assert rel(port[0], ref[0]) <= RTOL and rel(port[1], ref[1]) <= RTOL
-    ak._kernel_conventions(plan)
-    spline = ace_plan_from_numpy(dict({k: getattr(plan, k)
-                                       for k in ACE_PLAN_FIELDS},
-                                      spline_delta=0.001))
-    with pytest.raises(NotImplementedError, match="spline"):
-        ak._kernel_conventions(spline)
+    for spline in (None, 0.001):
+        p = ace_plan_from_numpy(dict({k: getattr(plan, k)
+                                      for k in ACE_PLAN_FIELDS},
+                                     radial=radial, ylm=ylm,
+                                     spline_delta=spline))
+        jp = jace.AcePlan(**dict(jplan.__dict__, radial=radial, ylm=ylm,
+                                 spline_delta=spline))
+        port, ref = both(
+            lambda *a: ace.ace_descriptors_with_jacobian(*a, p),
+            lambda *a: jace.ace_descriptors_with_jacobian(*a, jp), inputs)
+        assert rel(port[0], ref[0]) <= RTOL and rel(port[1], ref[1]) <= RTOL
+        assert (ak._device_tables(p, "cpu").spline is None) == \
+            (spline is None)
 
 
 @pytest.mark.parametrize("name", sorted(PLANS))

@@ -17,7 +17,9 @@ padded atom, and a padded config (natoms 0); K5 (the whole ZBL reference,
 `zbl_eav`) also on the cases of tests/test_torch_zbl.py (two types,
 one-sided lists, atoms that meet their own images, a type pair without
 coefficients, padding atoms) and on 40 configs, bit for bit from run to
-run.  K8 also at its edges
+run; its ref_eav mode (coul/cut, the spin term with and without its
+offset, zbl + coul/cut + spin) on four of those cases with seeded charges
+and unit spins.  K8 also at its edges
 (`K8_CASES`: a triclinic cell, a 2-atom cell at S = 343, a perfect bcc
 supercell of ties, truncation, an empty config, padded atoms and rows, an
 atom that meets its own image, the sizes it refused before its bins (768
@@ -38,7 +40,8 @@ one-element plan (ranks 1-4, lmax up to 2) and a two-element plan with an
 inner cutoff on the mixed bonds, with masked pairs, pairs past the cutoff
 and an empty atom; K13 also at lmax 8 and on the two-element plan in four
 convention pairs (radial pace_px, pace_mx, v0_t1, pace_x; Ylm 4pi, std,
-racah) on 12 atoms x 37 slots, bit for bit from run to run; K7 also in the ACE layout (two leading constant
+racah) on 12 atoms x 37 slots, bit for bit from run to run, and with
+spline radials (delta 0.001) on both of those plans; K7 also in the ACE layout (two leading constant
 columns), and at the widths its output is tiled over (480 and 1,596, both
 layouts, direct and residual, with a padded and a one-atom config), bit for
 bit from run to run.  K4 with one to three source types at widths 1, 4,
@@ -1411,6 +1414,92 @@ def test_zbl_eav_matches_plain(cuda, name):
     assert sk.launches()["zbl_eav"] == 2
     assert rel_err(out, ref) <= RTOL and ref[0].abs().min() > 0
     assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+REF_SPIN = ("pair_coeff * * spin/exchange/biquadratic biquadratic 4.5 0.2827 "
+            "-4.747 0.7810 0.0234 -1.0 0.6 offset {}")
+REF_MODES = {
+    "coul": ["pair_style coul/cut 5.0"],
+    "spin": ["pair_style spin/exchange/biquadratic 4.5",
+             REF_SPIN.format("yes")],
+    "spin_no_offset": ["pair_style spin/exchange/biquadratic 4.5",
+                       REF_SPIN.format("no")],
+    "zbl_coul_spin": [
+        "pair_style hybrid/overlay zero 10.0 zbl 4.0 4.8 coul/cut 5.0 "
+        "spin/exchange/biquadratic 4.5", "pair_coeff * * zero",
+        "pair_coeff 1 1 zbl 73 73", "pair_coeff 1 2 zbl 73 41",
+        "pair_coeff * * coul/cut", REF_SPIN.format("yes")],
+}
+
+
+@pytest.mark.parametrize("mode", sorted(REF_MODES))
+@pytest.mark.parametrize("name", ["two_types", "one_sided", "self_image",
+                                  "padding"])
+def test_ref_eav_modes_match_plain(cuda, name, mode):
+    """K5's ref_eav entry point (coul/cut, the spin term with and without
+    its offset, and zbl + coul/cut + spin with a type pair without ZBL
+    coefficients) against its plain version on the ZBL cases with seeded
+    charges and unit spins (zero on padding atoms): 1e-11, one launch a
+    call, bit for bit from run to run; the spin term adds no force or
+    virial."""
+    from fitsnap_tpu_torch.ops import refpot
+
+    rng = np.random.default_rng(23)
+    disp, jidx, mask, types = (torch.as_tensor(x, device=cuda)
+                               for x in zbl_case(name, rng))
+    C, A = types.shape
+    real = mask.any(2)
+    q = torch.as_tensor(rng.normal(0.0, 0.4, (C, A)), device=cuda) * real
+    spins = torch.as_tensor(rng.normal(size=(C, A, 3)), device=cuda)
+    spins = spins / spins.norm(dim=-1, keepdim=True) * real[..., None]
+    spec = refpot.parse_reference(
+        SimpleNamespace(lmp_pairdecl=REF_MODES[mode]), 2)
+    rev = sk.reverse_table_plain(jidx, mask)[0]
+    args = (disp, jidx, mask, rev, types, spec)
+    kw = {"spins": spins, "charges": q}
+    sk.reset_launches()
+    out = refpot.reference_eav(*args, **kw)
+    again = refpot.reference_eav(*args, **kw)
+    ref = refpot.reference_eav(*args, plain=True, **kw)
+    torch.cuda.synchronize()
+    assert sk.launches()["zbl_eav"] == 2
+    assert rel_err(out, ref) <= RTOL and ref[0].abs().max() > 0
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    if mode.startswith("spin"):
+        assert (out[1] == 0).all() and (out[2] == 0).all()
+
+
+@pytest.mark.parametrize("name", sorted(K13_PLANS))
+def test_k13_spline_matches_plain(cuda, name):
+    """K13 with spline radials (delta 0.001, the tables read from device
+    memory) on 12 atoms x 37 slots with masked pairs, pairs past the cutoff
+    and an empty atom, against its plain version: 1e-11, dead slots
+    exactly 0, bit for bit from run to run."""
+    spec = K13_PLANS[name]
+    plan = build_ace_plan(SimpleNamespace(b_basis="minsub", **spec))
+    plan.spline_delta = 0.001
+    N, K, nel = 12, 37, spec["numtypes"]
+    rng = np.random.default_rng(17)
+    d = rng.normal(size=(N, K, 3))
+    d *= rng.uniform(0.5, 5.0, (N, K, 1)) / np.linalg.norm(d, axis=-1,
+                                                          keepdims=True)
+    mask = rng.uniform(size=(N, K)) < 0.85
+    mask[-1] = False
+    args = (torch.as_tensor(d, device=cuda),
+            torch.as_tensor(rng.integers(0, nel, (N, K)), dtype=torch.int32,
+                            device=cuda),
+            torch.as_tensor(mask, device=cuda),
+            torch.as_tensor(rng.integers(0, nel, N), dtype=torch.int32,
+                            device=cuda))
+    ak.reset_launches()
+    A, Jp = ak.ace_pair_basis(*args, plan)
+    again = ak.ace_pair_basis(*args, plan)
+    ref = ak.ace_pair_basis_plain(*args, plan)
+    torch.cuda.synchronize()
+    assert ak.launches()["ace_pair_basis"] == 2
+    assert rel_err((A, Jp), ref) <= RTOL
+    assert torch.equal(A, again[0]) and torch.equal(Jp, again[1])
+    assert (Jp[:, ~args[2]] == 0).all() and torch.isfinite(Jp).all()
 
 
 # ---------------------------------------------------------------------------

@@ -24,8 +24,8 @@ both.  Checks, with their tolerances:
 - one Adam step against optax's `scale_by_adam` with the learning rate
   applied outside it, 1e-14; the plateau scheduler against the JAX one,
   exactly;
-- the modes the port does not have raise naming their ROADMAP.md item
-  by title.
+- the mode the port does not have (PAS) raises naming its ROADMAP.md
+  item by title; nonlinear ACE builds.
 """
 
 import os
@@ -410,8 +410,9 @@ def test_plateau_step_equals_jax():
 
 
 def test_modes_the_port_lacks_raise(tmp_path):
-    """PAS and nonlinear ACE raise, naming their ROADMAP.md items by
-    title."""
+    """PAS raises, naming its ROADMAP.md item by title (nonlinear ACE, which
+    raised here before, is held to the JAX package by
+    tests/test_torch_ace_nn.py)."""
     s = ta_nn_settings(tmp_path)
     s["CALCULATOR"]["per_atom_scalar"] = 1
     s["CALCULATOR"]["energy"] = s["CALCULATOR"]["force"] = 0
@@ -422,6 +423,6 @@ def test_modes_the_port_lacks_raise(tmp_path):
     a["CALCULATOR"]["nonlinear"] = 1
     a["SOLVER"] = {"solver": "PYTORCH"}
     a["PYTORCH"] = {}
-    with pytest.raises(NotImplementedError,
-                       match="ACE splines and nonlinear ACE"):
-        FitSnap(a, arglist=["--overwrite"], device="cpu")
+    fs = FitSnap(a, arglist=["--overwrite"], device="cpu")
+    assert type(fs.calculator).__name__ == "AceCalculator"
+    assert type(fs.solver).__name__ == "NetworkSolver"
