@@ -95,9 +95,10 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    main path's first Displaced_ZB64 chunk the chemflag modes of K1, K2 and
    K3 (utot in two element channels, four channel-pair z-lists, W tiles
    of the channel-resolved y-list, one pass per channel) and K4 at width
-   240; at both, K7 on that chunk's rows with seeded truths and weights
-   (width 1,596 with one constant column; 480 without), direct and
-   residual;
+   240, K5 and K9 in its element-channel mode (the chemflag PAS prep's
+   kernel, phase 18); at both, K7 on that chunk's rows with seeded truths
+   and weights (width 1,596 with one constant column; 480 without), direct
+   and residual;
 11. quadratic and chemflag FitSnap paths, as phase 4 (launch counts set to
    0 just before, read just after): K1-K3, K6q, K4, K5 must launch on the
    first, the chemflag K1-K3 with K4 and K5 on the second; A equal to the
@@ -233,7 +234,25 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    lists and K15 at each displaced position) on three atoms of two configs
    (1e-5), the `.pt`'s per-atom energies and dE/drij on one config against
    the trained model's (the JAX package's 1e-7: standardization is folded
-   into layer 1), and a profiler split of one epoch.
+   into layer 1), and a profiler split of one epoch;
+18. per-atom-scalar (PAS) fits of a seeded per-atom `Chis`
+   (`synthetic.with_chis`, `synthetic.pas_settings`: `num_desc 64 64 1`,
+   batch 4) through FitSnap(device="cuda") -> scrape -> process ->
+   perform_fit -> write_output, launch counts set to 0 just before and
+   read just after: chemflag SNAP on the InP-shaped configs of phase 9
+   (the InP_JPCA2020 BISPECTRUM, 240 descriptors; 3 epochs), then linear
+   SNAP on the Ta-shaped configs of phase 2 and ACE (the Ta_PACE plan, 68
+   labels) on them (2 epochs each).  Each fails unless its descriptors'
+   kernels launched (K9 in its element-channel mode; K9; K13 and K14) and
+   no other port kernel did, its buckets keep B alone on the card (no G,
+   lists or positions), the train loss fell and the `.pt` and metrics
+   were written; then the `.pt`'s per-atom outputs against
+   `evaluate_bucket`'s (1e-10), the same fit with every kernel's plain
+   version on the card (the loss curves equal to 1e-10) and a profiler
+   split of one epoch.  K9's element-channel mode also has kernel rows:
+   at the InP chunk of phase 10 (7 x 64 x 96) and at one chunk of the
+   chemflag PAS prep, each held to its plain version (1e-11), twice bit
+   for bit with its digest printed.
 
 Each NN phase's profiler split prints the port's kernels' launches in the
 profiled epoch beside their device ms (the cached epoch's K11T and gather
@@ -312,6 +331,8 @@ SOURCES = {
                        "fitsnap_tpu/solvers/network.py:811"),
     "nn_ut_b": ("fitsnap_tpu_torch/kernels/csrc/nn_grid.cu",
                 "fitsnap_tpu/ops/snap.py:352"),
+    "nn_ut_b_chem": ("fitsnap_tpu_torch/kernels/csrc/nn_grid.cu",
+                     "fitsnap_tpu/ops/snap.py:385"),
     "nn_dedu_vg": ("fitsnap_tpu_torch/kernels/csrc/nn_dedu.cu",
                    "fitsnap_tpu/ops/snap.py:471"),
     "nn_dedu_vg_t": ("fitsnap_tpu_torch/kernels/csrc/nn_dedu.cu",
@@ -357,7 +378,8 @@ NN_PATH = {"precompute": "nn_fitsnap", "cached": "nn_cached_fitsnap",
            "custom": "custom_fitsnap", "otf": "nn_otf_fitsnap",
            "otf_quadratic": "nn_otf_quadratic_fitsnap",
            "otf_chem": "nn_otf_chem_fitsnap", "ace": "ace_nn_fitsnap",
-           "ace_otf": "ace_nn_otf_fitsnap"}
+           "ace_otf": "ace_nn_otf_fitsnap", "pas_chem": "pas_chem_fitsnap",
+           "pas": "pas_fitsnap", "pas_ace": "pas_ace_fitsnap"}
 # the SNAP kernels, which no nonlinear ACE fit may launch
 SNAP_ONLY = ("pair_u_duals", "zlist", "dbdd", "quad_chain", "nn_ut_b",
              "nn_dedu_vg", "nn_dedu_vg_t", "nn_pair_force", "nn_pair_force_t",
@@ -369,8 +391,16 @@ NN_ABSENT = {"cached": NN_CACHED_ABSENT, "otf": NN_CACHED_ABSENT,
                           "nn_pair_force", "nn_pair_force_t"),
              "ace": SNAP_ONLY + ("device_neighbors", "reverse_table"),
              "ace_otf": SNAP_ONLY}
-# epochs of the OTF and ACE phases (the others: `nn_settings`' 10)
-NN_EPOCHS = {"otf_quadratic": 3, "otf_chem": 3, "ace": 4, "ace_otf": 4}
+# epochs of the OTF, ACE and PAS phases (the others: `nn_settings`' 10)
+NN_EPOCHS = {"otf_quadratic": 3, "otf_chem": 3, "ace": 4, "ace_otf": 4,
+             "pas_chem": 3, "pas": 2, "pas_ace": 2}
+# PAS (per-atom scalars, `synthetic.pas_settings`): each phase's data set
+# (a copy of a set above with the seeded `Chis` of `synthetic.with_chis`),
+# its base sections and its output name; PAS launches its descriptors'
+# kernels in the prep and no kernel in training
+PAS_SETS = {"pas_chem": ("INP_PAS_JSON", "inp_settings", "InP_pas"),
+            "pas": ("PAS_JSON", "ta_settings", "Ta_pas"),
+            "pas_ace": ("PAS_JSON", "ace_settings", "Ta_ace_pas")}
 CUSTOM_KERNELS = ("pair_desc", "pair_desc_vjp", "pair_desc_jvp",
                   "nn_pair_gather")
 # the kernels each path must launch
@@ -391,7 +421,12 @@ PATH_KERNELS = {"fitsnap": FITSNAP_KERNELS,
                 "ace_nn_otf_fitsnap": ACE_NN_KERNELS + ("device_neighbors",
                                                         "reverse_table"),
                 "custom_fitsnap": CUSTOM_KERNELS,
-                "fe_fitsnap": FITSNAP_KERNELS}
+                "fe_fitsnap": FITSNAP_KERNELS,
+                # K9 in its element-channel mode alone (nn_path counts K9's
+                # launches there under "nn_ut_b_chem": its plan has two)
+                "pas_chem_fitsnap": ("nn_ut_b_chem",),
+                "pas_fitsnap": ("nn_ut_b",),
+                "pas_ace_fitsnap": ("ace_pair_basis", "ace_b_dbdd")}
 # paths whose K4 launches are the rows', one a reference call
 ROWS_PATHS = ("fitsnap", "streamed", "ace_fitsnap", "ace_streamed",
               "quadratic_fitsnap", "quadratic_streamed", "chem_fitsnap",
@@ -486,7 +521,8 @@ KERNEL_FN = {"nn_force": "nn_fpair_kernel", "zbl_eav": "ref_eav_kernel",
              "device_neighbors": "neighbors_fused_kernel",
              "reverse_table": "reverse_kernel",
              "pair_u_duals_chem": "pair_u_duals_kernel",
-             "zlist_chem": "zlist_kernel", "dbdd_chem": "dbdd_kernel"}
+             "zlist_chem": "zlist_kernel", "dbdd_chem": "dbdd_kernel",
+             "nn_ut_b_chem": "nn_ut_b_kernel"}
 
 
 def card_line():
@@ -1578,8 +1614,10 @@ def flag_kernel_checks(calc, data, kind, seed):
     scatter_check(rows, args, smask, G, calc.numtypes, shape)
     del B, G
     if kind == "inp":
-        # K5, the whole reference, at the two-type chunk
+        # K5, the whole reference, at the two-type chunk; K9 in its
+        # element-channel mode (the chemflag PAS prep's kernel) on its atoms
         zbl_check(rows, args, calc.refspec, shape)
+        k9_row(rows, k1_in, p, "_chem@InP", [C, A, K])
     # K7 on the chunk's rows (the streamed fit's width), seeded truths
     rows_in = calc.rows(*args)
     natoms, types = args[5].to(torch.int32), args[4]
@@ -1918,9 +1956,10 @@ def nn_path(tmp, device, mode="precompute"):
     """Drive the NN fit through FitSnap on the card on the Ta set of phase
     2 in `mode` (precompute, cached, otf, otf_quadratic: quadraticflag, or
     custom: the pairwise NN), on the InP-shaped set of phase 9
-    (otf_chem), or nonlinear ACE on the ACE set of phase 6 (ace:
-    precompute, ace_otf: OTF); returns (the FitSnap, launch counts,
-    timings, checks)."""
+    (otf_chem), nonlinear ACE on the ACE set of phase 6 (ace:
+    precompute, ace_otf: OTF), or a PAS fit of `PAS_SETS[mode]` (pas_chem,
+    pas, pas_ace); returns (the FitSnap, launch counts, timings,
+    checks)."""
     import torch
     from fitsnap_tpu_torch import FitSnap
     from fitsnap_tpu_torch.tools import synthetic
@@ -1930,7 +1969,12 @@ def nn_path(tmp, device, mode="precompute"):
     files = (CUSTOM_FILES if mode == "custom" else
              INP_NN_FILES if mode == "otf_chem" else
              ACE_NN_FILES if mode.startswith("ace") else NN_FILES)
-    if mode == "custom":
+    if mode in PAS_SETS:
+        folder, base, name = PAS_SETS[mode]
+        settings = synthetic.pas_settings(Path(tmp) / folder,
+                                          getattr(synthetic, base))
+        files = [f"{name}.pt", f"{name}_metrics.md", "loss_vs_epochs.dat"]
+    elif mode == "custom":
         settings = synthetic.custom_settings(data)
     elif mode.startswith("ace"):
         settings = synthetic.ace_nn_settings(
@@ -1960,10 +2004,24 @@ def nn_path(tmp, device, mode="precompute"):
     wall = time.time() - t0
     counts = launches()
     sol = fs.solver
+    p = getattr(fs.calculator, "params", None)
+    if mode in PAS_SETS and p is not None and p.nchem > 1:
+        # the plan has element channels: each K9 launch was in that mode
+        counts["nn_ut_b_chem"], counts["nn_ut_b"] = counts["nn_ut_b"], 0
     check_launched(counts, NN_PATH[mode])
-    stray = {k: counts[k] for k in NN_ABSENT.get(mode, ()) if counts[k]}
+    absent = NN_ABSENT.get(mode, ())
+    if mode in PAS_SETS:
+        absent = [k for k in counts if k not in PATH_KERNELS[NN_PATH[mode]]]
+    stray = {k: counts[k] for k in absent if counts[k]}
     if stray:
         raise AssertionError(f"the {NN_PATH[mode]} path launched {stray}")
+    if mode in PAS_SETS:
+        from fitsnap_tpu_torch.solvers.network import _BATCH_KEYS_PAS
+        kept = {k for b in sol.buckets for k, v in b.items()
+                if torch.is_tensor(v)}
+        if not sol.pas or kept != set(_BATCH_KEYS_PAS):
+            raise AssertionError(f"the PAS path (pas={sol.pas}) kept "
+                                 f"{sorted(kept)} on the card")
     if mode == "cached" and (not sol.cached
                              or any("G" in b for b in sol.buckets)):
         raise AssertionError("the cached NN path stored dB/dD")
@@ -2369,15 +2427,17 @@ def k9_row(rows, block, p, tag="", shape=None):
     the pair inputs read once, ut and B written once; per live pair the
     prologue's values (sqrt, tan, rsqrt and a cosine, EXP_OPS each, and
     about 20 more), the four power tables, w T1, T1 and T2 (3 n_t) and the
-    grid's rank-one update (2 n_t^2), per atom 2 per Lg entry (ut) and 12
-    per B term."""
+    grid's rank-one update (2 n_t^2, in its channel's grid), per atom 2 per
+    Lg entry in each channel (ut) and 12 per B term (over the nchem^3
+    channel triples).  A plan with element channels makes the row of K9's
+    channel mode ("nn_ut_b_chem")."""
     import torch
     from fitsnap_tpu_torch.kernels import nn_kernels as nk
     from fitsnap_tpu_torch.ops.snap import nn_tables
 
     tb = nn_tables(p)
     M, K = block[2].shape
-    n_t, U, W = tb.n_t, p.u_len, p.ntriples
+    n_t, U, W = tb.n_t, p.nchem * p.u_len, p.nb_base
     pairs = int(block[2].sum().item())
     name = "nn_ut_b" + tag
     out, again = nk.nn_ut_b(*block, p), nk.nn_ut_b(*block, p)
@@ -2392,8 +2452,9 @@ def k9_row(rows, block, p, tag="", shape=None):
            M * K * (3 * 8 + 4 + 1) + M * 4 + M * (2 * U + W) * 8,
            pairs * (2 * n_t * n_t + 3 * n_t + 4 * (p.twojmax + 1)
                     + 4 * EXP_OPS + 20)
-           + M * (2 * tb.lgc_val.numel() + 12 * len(tb.bt_c)), None,
-           wrapper="nn_ut_b", shape=shape, vector=True)
+           + M * (2 * p.nchem * tb.lgc_val.numel() + 12 * len(tb.bt_c)),
+           None, wrapper="nn_ut_b_chem" if p.nchem > 1 else "nn_ut_b",
+           shape=shape, vector=True)
     return ref
 
 
@@ -2797,9 +2858,6 @@ def ace_nn_checks(fs, tmp, mode, epoch_s):
     through FitSnap with every kernel's plain version on the card
     (`plain_kernels`), its loss curve held to the kernels' to 1e-10; a
     profiler split of one epoch (which trains anew: last)."""
-    import torch
-    from fitsnap_tpu_torch import FitSnap
-
     sol, calc = fs.solver, fs.calculator
     out = {"labels": len(calc.plan.labels)}
     if mode == "ace_otf":
@@ -2815,6 +2873,18 @@ def ace_nn_checks(fs, tmp, mode, epoch_s):
     else:
         out.update(nn_export_check(fs, "Ta_ace_nn.pt"),
                    **fd_check(fs, ace_nn_eval, f"nn {mode}"))
+    out.update(plain_fit_check(fs, tmp, mode),
+               **nn_epoch_profile(fs, epoch_s))
+    return out
+
+
+def plain_fit_check(fs, tmp, mode):
+    """The fit of `nn_path(tmp, mode)` again through FitSnap with every
+    kernel's plain version on the card (`plain_kernels`): its loss curve
+    held to the kernels' fit's to LOSS_RTOL."""
+    import torch
+    from fitsnap_tpu_torch import FitSnap
+
     t0 = time.time()
     with plain_kernels():
         ref = FitSnap(str(Path(tmp) / f"nn_{mode}.in"),
@@ -2823,7 +2893,8 @@ def ace_nn_checks(fs, tmp, mode, epoch_s):
         ref.process_configs()
         ref.perform_fit()
         torch.cuda.synchronize()
-    hist, ref_hist = np.array(sol.history), np.array(ref.solver.history)
+    hist = np.array(fs.solver.history)
+    ref_hist = np.array(ref.solver.history)
     loss_err = float(np.abs(hist - ref_hist).max()
                      / np.abs(ref_hist).max())
     print(f"nn {mode} loss curve vs the plain versions' fit on the card: "
@@ -2835,9 +2906,88 @@ def ace_nn_checks(fs, tmp, mode, epoch_s):
                              f"plain versions' fit: {loss_err:.3e}")
     del ref
     torch.cuda.empty_cache()
-    out["loss_vs_plain_rel_err"] = loss_err
-    out.update(nn_epoch_profile(fs, epoch_s))
-    return out
+    return {"loss_vs_plain_rel_err": loss_err}
+
+
+def pas_data(tmp, seed):
+    """The PAS phases' sets: the Ta-shaped configs of phase 2 and the
+    InP-shaped ones of phase 9 (the same seeds) with the seeded per-atom
+    `Chis` of `synthetic.with_chis`, zero energies and forces."""
+    from fitsnap_tpu_torch.tools import synthetic
+
+    synthetic.write_dataset(Path(tmp) / "PAS_JSON", synthetic.with_chis(
+        synthetic.ta_configs(seed), seed + 12))
+    synthetic.write_dataset(Path(tmp) / "INP_PAS_JSON", synthetic.with_chis(
+        synthetic.inp_configs(seed), seed + 13))
+
+
+def pas_prep_block(fs):
+    """K9's inputs at one chunk of the PAS prep of the largest bucket
+    (`solvers/network.py` `_prepare_pas`: `pas_chunk` configs of it, the
+    host lists, then the SNAP pair mask), flat (C*A, K), and (C, A, K)."""
+    import torch
+    from fitsnap_tpu_torch.calculators.snap import (
+        coalesce_shape_buckets, pack_bucket, pair_masks)
+    from fitsnap_tpu_torch.solvers.network import pas_chunk
+
+    calc = fs.calculator
+    packed, buckets = calc.host_preprocess(fs.data)
+    (a_pad, k_pad), idxs = max(coalesce_shape_buckets(buckets).items(),
+                               key=lambda kv: kv[0][0] * kv[0][1])
+    idxs = idxs[:pas_chunk(calc, a_pad, k_pad)]
+    disp, jidx, mask, _, types, _, _ = (
+        torch.from_numpy(x).to(calc.device)
+        for x in pack_bucket(packed, idxs, a_pad, k_pad))
+    jelem, smask = pair_masks(calc.params, disp, jidx, mask, types)
+    C, A, K = mask.shape
+    N = C * A
+    return (disp.reshape(N, K, 3), jelem.reshape(N, K), smask.reshape(N, K),
+            types.reshape(N)), [C, A, K]
+
+
+def pas_export_check(fs, name):
+    """The written .pt's per-atom outputs on the first config of the last
+    bucket against `evaluate_bucket`'s scalars (the elements as the bucket
+    holds them)."""
+    import torch
+
+    sol = fs.solver
+    ds = sol.buckets[-1]
+    nat = int(ds["nat_host"][0])
+    B = ds["B"][0, :nat].cpu().numpy().copy()
+    model = torch.load(f"{name}.pt", weights_only=False)
+    beta, scal = np.zeros(B.shape), np.zeros(nat)
+    model(ds["types"][0, :nat].cpu().numpy().astype(np.int32), B, beta,
+          scal)
+    pred, _ = sol.evaluate_bucket(ds)
+    err = float(np.abs(scal - pred[0, :nat]).max()
+                / np.abs(pred[0, :nat]).max())
+    print(f"pas exported .pt vs evaluate_bucket: {err:.3e} (limit "
+          f"{PT_RTOL})", flush=True)
+    if not err <= PT_RTOL:
+        raise AssertionError(f"the exported PAS .pt disagrees: {err:.3e}")
+    return {"pt_rel_err": err}
+
+
+def pas_checks(fs, tmp, mode, epoch_s):
+    """A PAS phase after its fit: under chemflag K9's channel mode against
+    its plain version at one chunk of the PAS prep (a kernel row); the .pt
+    against evaluate_bucket; the same fit with every kernel's plain version
+    on the card, its loss curve held to 1e-10; a profiler split of one
+    epoch (which trains anew: last).  Returns (kernel rows, checks)."""
+    rows = []
+    p = getattr(fs.calculator, "params", None)
+    if p is not None and p.nchem > 1:
+        block, shape = pas_prep_block(fs)
+        print(f"pas prep chunk: C={shape[0]} A={shape[1]} K={shape[2]} "
+              f"channels={p.nchem} width={p.nb_base}", flush=True)
+        k9_row(rows, block, p, "_chem@pas_prep", shape)
+        del block
+    out = {"width": int(fs.solver.mean.shape[0])}
+    out.update(pas_export_check(fs, PAS_SETS[mode][2]),
+               **plain_fit_check(fs, tmp, mode),
+               **nn_epoch_profile(fs, epoch_s))
+    return rows, out
 
 
 def custom_batch(sol, n=4, shape=None):
@@ -3216,6 +3366,18 @@ def main():
             paths["custom_fitsnap"] = (counts, times, checks)
             del fs
             torch.cuda.empty_cache()
+            # PAS: chemflag SNAP on the InP-shaped set (K9's element-channel
+            # mode), then linear SNAP on the Ta set and ACE (Ta_PACE)
+            pas_data(tmp, args.seed)
+            for mode in ("pas_chem", "pas", "pas_ace"):
+                fs, counts, times, checks = nn_path(tmp, "cuda", mode)
+                rows, more = pas_checks(fs, tmp, mode,
+                                        times["epoch_mean_rest"])
+                kernels += rows
+                checks.update(more)
+                paths[NN_PATH[mode]] = (counts, times, checks)
+                del fs
+                torch.cuda.empty_cache()
         finally:
             os.chdir(cwd)
     seconds = ("pack", "upload", "first_pass", "steady_pass", "solve",
@@ -3227,7 +3389,7 @@ def main():
             flush=True)
         print(f"{path} path checks: " + json.dumps(checks), flush=True)
     for row in kernels:
-        by_path = {path: counts[row["kernel"]]
+        by_path = {path: counts.get(row["kernel"], 0)
                    for path, (counts, _, _) in paths.items()}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path

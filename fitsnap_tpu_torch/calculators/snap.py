@@ -224,13 +224,9 @@ def nn_kit(params):
 
 def nn_desc(params, disp, jidx, mask, types, natoms):
     """Per-atom descriptors B (C, A, W) of a batch, zero on padded atoms:
-    JAX `SnapCalculator.nn_desc_fn` on the pair grid (K9's B, with the
-    quadratic columns appended under quadraticflag).  One element channel:
-    K9 has no chemflag mode."""
-    if params.nchem > 1:
-        raise NotImplementedError(
-            "nn_desc: the pair-grid descriptor kernel K9 takes one element "
-            "channel (ROADMAP.md: \"PAS\")")
+    JAX `SnapCalculator.nn_desc_fn` on the pair grid (K9's B, over the
+    element channels under chemflag, with the quadratic columns appended
+    under quadraticflag)."""
     C, A, K = mask.shape
     jelem, smask = pair_masks(params, disp, jidx, mask, types)
     _, B = nk.nn_ut_b(disp.reshape(C * A, K, 3), jelem.reshape(C * A, K),

@@ -7,9 +7,12 @@
 //
 // K9 nn_ut_b: per atom, wg[d, e] = sum_k w T1[d] T2[e], then
 //   ut = wg . Lg + the self term and B by the trilinear CG contraction of ut.
-//   Replaces fitsnap_tpu/ops/snap.py `compute_utot_mono` (+ `_grid_tensors`,
-//   `bispectrum_from_utot`, `nn_ut_b`): the TPU form builds T1, T2 of every
-//   pair in HBM with one-hot GEMMs and maps wg through the dense Lg.
+//   Under chemflag one grid an element channel, wg[c] over the pairs whose
+//   neighbor is of element c, and B over the nchem^3 channel triples.
+//   Replaces fitsnap_tpu/ops/snap.py `compute_utot_mono` (both branches; +
+//   `_grid_tensors`, `bispectrum_from_utot`, `nn_ut_b`): the TPU form builds
+//   T1, T2 of every pair in HBM with one-hot GEMMs and maps wg through the
+//   dense Lg.
 // K11 nn_pair_force: per pair, from the atom's grid cotangent vg,
 //   sp = T1 . vg . T2, st_c = T1t_c . vg . T2 + T1 . vg . T2t_c and
 //   g_c = w st_c + wt_c sp (T1t, T2t, wt: tangents along displacement c);
@@ -53,10 +56,12 @@
 // is the product A B of the n_t x L matrix A of the L live pairs' columns
 // w T1 and the L x n_t matrix B of their rows T2, over k-tiles of up to
 // K9_PAIRS pairs staged in shared memory, the warps' output tiles kept in
-// wg between chunks (in rounds where the tiles outnumber the warps).  Then
-// ut = wg . Lg + the self term, a thread a U column (Lg as a column CSR
-// table, 1,835 nonzeros of 784 x 280 at twojmax 6, read through L2), and
-// the B terms in a host-built schedule (ops/snap.py `deal`): each
+// wg between chunks (in rounds where the tiles outnumber the warps); under
+// chemflag the second scan places each channel's live pairs together, in
+// neighbor order, and the product runs once a channel into its own grid.
+// Then ut = wg . Lg + the self term, a thread a U column (Lg as a column
+// CSR table, 1,835 nonzeros of 784 x 280 at twojmax 6, read through L2),
+// and the B terms in a host-built schedule (ops/snap.py `deal`): each
 // descriptor's terms dealt to segments of at most `per` (15 at twojmax 6,
 // where a descriptor has up to 505 terms), one a thread, whose partial
 // sums the descriptor adds in order.
@@ -681,20 +686,21 @@ __host__ __device__ __forceinline__ int k9_rec_len(int twojmax) {
   return 1 + 4 * (twojmax + 1);
 }
 
-// K9's shared doubles: the grid wg (n_t^2, rounded up to an even count so
-// that the next region holds 16-byte pairs) and the work region, the
-// product's (the records of `chunk` pairs and a k-tile of `kp` pairs: A
-// transposed, [kp][lda], and B, [kp][ldb]) or the B terms' (ut as (re, im)
-// pairs, then the slots' partial sums), whichever is larger.
-__host__ __device__ inline size_t k9_wg(int n_t) {
-  return (static_cast<size_t>(n_t) * n_t + 1) / 2 * 2;
+// K9's shared doubles: the grids wg, one an element channel (nchem n_t^2,
+// rounded up to an even count so that the next region holds 16-byte
+// pairs), and the work region, the product's (the records of `chunk` pairs
+// and a k-tile of `kp` pairs: A transposed, [kp][lda], and B, [kp][ldb]) or
+// the B terms' (ut as (re, im) pairs, nchem U of them, then the slots'
+// partial sums), whichever is larger.
+__host__ __device__ inline size_t k9_wg(int n_t, int nchem) {
+  return (static_cast<size_t>(nchem) * n_t * n_t + 1) / 2 * 2;
 }
 __host__ __device__ inline size_t k9_work(const FtShape& sh, int twojmax,
                                           int chunk, int kp, int two_u,
-                                          int stride) {
+                                          int nchem, int stride) {
   const size_t prod = static_cast<size_t>(chunk) * k9_rec_len(twojmax)
                       + static_cast<size_t>(kp) * (sh.lda + sh.ldb);
-  const size_t terms = static_cast<size_t>(two_u) + stride;
+  const size_t terms = static_cast<size_t>(nchem) * two_u + stride;
   return prod > terms ? prod : terms;
 }
 
@@ -715,7 +721,8 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_ut_b_kernel(
     const int* __restrict__ pidx, const int* __restrict__ qidx,
     const int* __restrict__ lgc_ptr, const int* __restrict__ lgc_row,
     const double* __restrict__ lgc_val, int two_u,
-    const double* __restrict__ selfvec, int per, int stride,
+    const double* __restrict__ selfvec, int nchem, int self_all, int per,
+    int stride,
     const long long* __restrict__ bs_key, const double* __restrict__ bs_fac,
     const int* __restrict__ bs_seg, int W, const double* __restrict__ bzero,
     int chunk, int kp, size_t work_doubles, double* __restrict__ ut,
@@ -723,30 +730,32 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_ut_b_kernel(
   extern __shared__ double sm[];
   const int T = blockDim.x, tid = threadIdx.x;
   const int U = two_u / 2;
+  const int nt2 = n_t * n_t;
   const int np1 = twojmax + 1;
   const int rec_len = k9_rec_len(twojmax);
   const FtShape sh(n_t);
-  double* wg = sm;                               // [n_t][n_t]
-  double* work = sm + k9_wg(n_t);
+  double* wg = sm;                               // [nchem][n_t][n_t]
+  double* work = sm + k9_wg(n_t, nchem);
   double* rec = work;                            // [chunk][rec_len]
   double* at = rec + chunk * rec_len;            // [kp][lda]: A transposed
   double* bk = at + kp * sh.lda;                 // [kp][ldb]
-  double2* su = reinterpret_cast<double2*>(work);  // terms: [U] ut (re, im)
-  double* part = work + two_u;                   // terms: [stride]
+  double2* su = reinterpret_cast<double2*>(work);  // terms: [nchem U] ut
+  double* part = work + nchem * two_u;           // terms: [stride]
   double* stage = sm + work_doubles;             // [chunk][FT_STAGE]
   int* pq = reinterpret_cast<int*>(stage + chunk * FT_STAGE);  // [np]
   int* list = pq + sh.np;                        // [K]
   int* ws = list + K;                            // [33]
+  int* cb = ws + 33;                             // [nchem + 1]
   const long long a = blockIdx.x;
 
-  // the grid zeroed and the exponents (p | q << 8; (0, 0) in the padding)
+  // the grids zeroed and the exponents (p | q << 8; (0, 0) in the padding)
   // staged, in the shadow of the scan
-  for (int i = tid; i < n_t * n_t; i += T) wg[i] = 0.0;
+  for (int i = tid; i < nchem * nt2; i += T) wg[i] = 0.0;
   for (int d = tid; d < sh.np; d += T)
     pq[d] = d < n_t ? pidx[d] | qidx[d] << 8 : 0;
 
   // the masked slots in neighbor order, the first chunk's inputs staged; a
-  // padded atom (no masked slot) keeps wg = 0: its ut is the self term
+  // padded atom (no masked slot) keeps every wg 0: its ut is the self term
   const int ie = ielem[a];
   double ei[4];
   for (int c = 0; c < 4; ++c) ei[c] = elem[ie * 4 + c];
@@ -755,16 +764,18 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_ut_b_kernel(
   __syncthreads();
 
   // round r: warp w owns output tiles w + (r TILES + i) warps (16 x 8
-  // each), accumulated in registers over the chunk's k-tiles and kept in wg
-  // between chunks
+  // each) of a channel's grid, accumulated in registers over the chunk's
+  // k-tiles of that channel's pairs and kept in wg between chunks
   const int lane = tid % 32, warp = tid / 32, warps = T / 32;
   const int g = lane / 4, tq = lane % 4;
   const int rounds = (sh.tiles + warps * TILES - 1) / (warps * TILES);
   const int width = max(sh.mp, sh.np);
   for (int c0 = 0; c0 < nm; c0 += chunk) {
     // one masked pair a thread: its values, then the live ones (nonzero
-    // weight: the others add exactly nothing) written in neighbor order
+    // weight: the others add exactly nothing) written channel by channel
+    // (the neighbor's element), each channel's in neighbor order
     bool alive = false;
+    int ch = 0;
     double v[5];
     if (tid < min(chunk, nm - c0)) {
       double st[FT_STAGE];
@@ -776,84 +787,99 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_ut_b_kernel(
       }
       prologue_t<false>(st, s, v, nullptr);
       alive = v[4] != 0.0;
+      if (nchem > 1) ch = jelem[a * K + list[c0 + tid]];
     }
-    int nl;
-    const int slot = block_scan(alive ? 1 : 0, ws, nl);
-    if (alive) {
-      double* rr = rec + slot * rec_len;
-      rr[0] = v[4];
-      double x[4] = {1.0, 1.0, 1.0, 1.0};
-      for (int n = 0; n < np1; ++n) {
-        for (int u = 0; u < 4; ++u) {
-          rr[1 + u * np1 + n] = x[u];
-          x[u] *= v[u];
+    // channel ec's live pairs of the chunk at records [cb[ec], cb[ec + 1])
+    int nl = 0;
+    for (int ec = 0; ec < nchem; ++ec) {
+      const bool mine = alive && ch == ec;
+      int nc;
+      const int slot = nl + block_scan(mine ? 1 : 0, ws, nc);
+      if (mine) {
+        double* rr = rec + slot * rec_len;
+        rr[0] = v[4];
+        double x[4] = {1.0, 1.0, 1.0, 1.0};
+        for (int n = 0; n < np1; ++n) {
+          for (int u = 0; u < 4; ++u) {
+            rr[1 + u * np1 + n] = x[u];
+            x[u] *= v[u];
+          }
         }
       }
+      if (tid == 0) cb[ec] = nl;
+      nl += nc;
+      __syncthreads();
     }
+    if (tid == 0) cb[nchem] = nl;
     __syncthreads();
-    for (int r = 0; r < rounds; ++r) {
-      double acc[TILES][4];
-      int m0[TILES], n0[TILES];                  // -1: no tile
+    for (int ec = 0; ec < nchem; ++ec) {
+      const int lo = cb[ec], nlc = cb[ec + 1] - lo;
+      if (nlc == 0) continue;
+      double* wgc = wg + ec * nt2;
+      for (int r = 0; r < rounds; ++r) {
+        double acc[TILES][4];
+        int m0[TILES], n0[TILES];                // -1: no tile
 #pragma unroll
-      for (int i = 0; i < TILES; ++i) {
-        const int tt = warp + (r * TILES + i) * warps;
-        m0[i] = tt < sh.tiles ? (tt / (sh.np / 8)) * 16 : -1;
-        n0[i] = (tt % (sh.np / 8)) * 8;
-        for (int h = 0; h < 2; ++h) {
-          const int row = m0[i] + g + 8 * h;
-          for (int c = 0; c < 2; ++c) {
-            const int col = n0[i] + 2 * tq + c;
-            acc[i][2 * h + c] = m0[i] >= 0 && row < n_t && col < n_t
-                                    ? wg[row * n_t + col] : 0.0;
-          }
-        }
-      }
-      for (int p0 = 0; p0 < nl; p0 += kp) {
-        // the k-tile: pair j's column w T1 and row T2 from its tables, zero
-        // past the live pairs and past n_t
-        const int npr = min(kp, nl - p0);
-        for (int i = tid; i < kp * width; i += T) {
-          const int j = i / width, d = i - j * width;
-          double t1 = 0.0, t2 = 0.0;
-          if (j < npr && d < n_t) {
-            const double* rr = rec + (p0 + j) * rec_len;
-            const int e = pq[d];
-            const int pp = e & 255, qq = e >> 8;
-            t1 = rr[0] * (rr[1 + pp] * rr[1 + np1 + qq]);
-            t2 = rr[1 + 2 * np1 + pp] * rr[1 + 3 * np1 + qq];
-          }
-          if (d < sh.mp) at[j * sh.lda + d] = t1;
-          if (d < sh.np) bk[j * sh.ldb + d] = t2;
-        }
-        __syncthreads();
-        // wg += A B over the tile's k-steps of 8 pairs, in pair order
-        const int ksteps = (npr + 7) / 8;
-        for (int ks = 0; ks < ksteps; ++ks) {
-          const double* ak = at + (8 * ks + tq) * sh.lda + g;
-          const double* bq = bk + (8 * ks + tq) * sh.ldb + g;
-#pragma unroll
-          for (int i = 0; i < TILES; ++i) {
-            if (m0[i] < 0) break;
-            double fa[4], fb[2];
-            for (int h = 0; h < 2; ++h) {
-              fa[2 * h] = ak[4 * h * sh.lda + m0[i]];
-              fa[2 * h + 1] = ak[4 * h * sh.lda + m0[i] + 8];
-              fb[h] = bq[4 * h * sh.ldb + n0[i]];
+        for (int i = 0; i < TILES; ++i) {
+          const int tt = warp + (r * TILES + i) * warps;
+          m0[i] = tt < sh.tiles ? (tt / (sh.np / 8)) * 16 : -1;
+          n0[i] = (tt % (sh.np / 8)) * 8;
+          for (int h = 0; h < 2; ++h) {
+            const int row = m0[i] + g + 8 * h;
+            for (int c = 0; c < 2; ++c) {
+              const int col = n0[i] + 2 * tq + c;
+              acc[i][2 * h + c] = m0[i] >= 0 && row < n_t && col < n_t
+                                      ? wgc[row * n_t + col] : 0.0;
             }
-            mma_f64(acc[i], fa, fb);
           }
         }
-        __syncthreads();
-      }
+        for (int p0 = 0; p0 < nlc; p0 += kp) {
+          // the k-tile: pair j's column w T1 and row T2 from its tables,
+          // zero past the channel's live pairs and past n_t
+          const int npr = min(kp, nlc - p0);
+          for (int i = tid; i < kp * width; i += T) {
+            const int j = i / width, d = i - j * width;
+            double t1 = 0.0, t2 = 0.0;
+            if (j < npr && d < n_t) {
+              const double* rr = rec + (lo + p0 + j) * rec_len;
+              const int e = pq[d];
+              const int pp = e & 255, qq = e >> 8;
+              t1 = rr[0] * (rr[1 + pp] * rr[1 + np1 + qq]);
+              t2 = rr[1 + 2 * np1 + pp] * rr[1 + 3 * np1 + qq];
+            }
+            if (d < sh.mp) at[j * sh.lda + d] = t1;
+            if (d < sh.np) bk[j * sh.ldb + d] = t2;
+          }
+          __syncthreads();
+          // wg += A B over the tile's k-steps of 8 pairs, in pair order
+          const int ksteps = (npr + 7) / 8;
+          for (int ks = 0; ks < ksteps; ++ks) {
+            const double* ak = at + (8 * ks + tq) * sh.lda + g;
+            const double* bq = bk + (8 * ks + tq) * sh.ldb + g;
 #pragma unroll
-      for (int i = 0; i < TILES; ++i) {
-        if (m0[i] < 0) break;
-        for (int h = 0; h < 2; ++h) {
-          const int row = m0[i] + g + 8 * h;
-          for (int c = 0; c < 2; ++c) {
-            const int col = n0[i] + 2 * tq + c;
-            if (row < n_t && col < n_t)
-              wg[row * n_t + col] = acc[i][2 * h + c];
+            for (int i = 0; i < TILES; ++i) {
+              if (m0[i] < 0) break;
+              double fa[4], fb[2];
+              for (int h = 0; h < 2; ++h) {
+                fa[2 * h] = ak[4 * h * sh.lda + m0[i]];
+                fa[2 * h + 1] = ak[4 * h * sh.lda + m0[i] + 8];
+                fb[h] = bq[4 * h * sh.ldb + n0[i]];
+              }
+              mma_f64(acc[i], fa, fb);
+            }
+          }
+          __syncthreads();
+        }
+#pragma unroll
+        for (int i = 0; i < TILES; ++i) {
+          if (m0[i] < 0) break;
+          for (int h = 0; h < 2; ++h) {
+            const int row = m0[i] + g + 8 * h;
+            for (int c = 0; c < 2; ++c) {
+              const int col = n0[i] + 2 * tq + c;
+              if (row < n_t && col < n_t)
+                wgc[row * n_t + col] = acc[i][2 * h + c];
+            }
           }
         }
       }
@@ -861,16 +887,23 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_ut_b_kernel(
     __syncthreads();
   }
 
-  // ut = wg . Lg + the self term, a thread a column, kept as (re, im)
-  // pairs for the B terms
+  // ut = wg . Lg + the self term, a thread a column of a channel (the self
+  // term in every channel under self_all, else in the atom's own), written
+  // as the plain version lays ut out: every channel's real parts, then
+  // every channel's imaginary parts; kept as (re, im) pairs for the B terms
   double* sud = reinterpret_cast<double*>(su);
-  for (int u = tid; u < two_u; u += T) {
+  const int cu = nchem * U;
+  for (int i = tid; i < nchem * two_u; i += T) {
+    const int ec = i / two_u, u = i - ec * two_u;
+    const double* wgc = wg + ec * nt2;
     const int q0 = lgc_ptr[u], q1 = lgc_ptr[u + 1];
     double acc = 0.0;
-    for (int q = q0; q < q1; ++q) acc += wg[lgc_row[q]] * lgc_val[q];
-    acc += selfvec[u];
-    ut[a * two_u + u] = acc;
-    sud[2 * (u < U ? u : u - U) + (u < U ? 0 : 1)] = acc;
+    for (int q = q0; q < q1; ++q) acc += wgc[lgc_row[q]] * lgc_val[q];
+    if (self_all || ec == ie) acc += selfvec[u];
+    const int im = u < U ? 0 : 1;
+    const int col = ec * U + u - im * U;
+    ut[a * 2 * cu + im * cu + col] = acc;
+    sud[2 * col + im] = acc;
   }
   __syncthreads();
 
@@ -928,13 +961,16 @@ Scalars scalars(double rcutfac, double rfac0, double rmin0, int switchflag,
 
 // disp (N, K, 3) f64, jelem (N, K) i32, mask (N, K) u8, ielem (N,) i32, elem
 // (nelem, 4); the grid exponents pidx, qidx (n_t,) i32; Lg by column
-// (lgc_ptr (2U + 1,), lgc_row, lgc_val); selfvec (2U,); the B terms'
-// schedule by descriptor (ops/snap.py `deal`: `per` terms a slot, `stride`
-// slots, `threads` threads, bs_key i64 i1 | i2 << 16 | i3 << 32, bs_fac
-// f64, bs_seg (W + 1,) i32); bzero (W,) or null.  Writes ut (N, 2U) and B
-// (N, W).  The chunk of prologues and the k-tile take what shared memory
-// the grid leaves (fewer pairs at the largest grids); a grid past a
-// block's shared memory (twojmax 17 and up) is refused.
+// (lgc_ptr (2U + 1,), lgc_row, lgc_val); selfvec (2U,); nchem element
+// channels (a pair's channel its neighbor's element; 1 without chemflag)
+// and self_all (the self term in every channel, else in the atom's own);
+// the B terms' schedule by descriptor (ops/snap.py `deal`: `per` terms a
+// slot, `stride` slots, `threads` threads, bs_key i64 i1 | i2 << 16 | i3
+// << 32 into the channel-major ut, bs_fac f64, bs_seg (W + 1,) i32); bzero
+// (W,) or null.  Writes ut (N, 2 nchem U) and B (N, W).  The chunk of
+// prologues and the k-tile take what shared memory the grids leave (fewer
+// pairs at the largest grids); grids past a block's shared memory (twojmax
+// 17 and up in one channel, less in more) are refused.
 extern "C" int nn_ut_b(const double* disp, const int* jelem,
                        const unsigned char* mask, const int* ielem,
                        const double* elem, double rcutfac, double rfac0,
@@ -942,19 +978,21 @@ extern "C" int nn_ut_b(const double* disp, const int* jelem,
                        long long natoms, int K, int n_t, const int* pidx,
                        const int* qidx, const int* lgc_ptr,
                        const int* lgc_row, const double* lgc_val, int two_u,
-                       const double* selfvec, int threads, int per,
-                       int stride, const long long* bs_key,
+                       const double* selfvec, int nchem, int self_all,
+                       int threads, int per, int stride,
+                       const long long* bs_key,
                        const double* bs_fac, const int* bs_seg, int W,
                        const double* bzero, double* ut, double* B,
                        void* stream) {
   const int twojmax = grid_twojmax(n_t);
   if (twojmax < 0 || threads % 32 != 0 || threads > 1024 || stride < threads
-      || two_u / 2 > 1 << 16)
+      || nchem < 1 || static_cast<long long>(nchem) * (two_u / 2) > 1 << 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const FtShape sh(n_t);
-  const size_t ints = static_cast<size_t>(sh.np) + K + 33;
+  const size_t ints = static_cast<size_t>(sh.np) + K + 33 + nchem + 1;
   auto bytes = [&](int chunk, int kp) {
-    return (k9_wg(n_t) + k9_work(sh, twojmax, chunk, kp, two_u, stride)
+    return (k9_wg(n_t, nchem)
+            + k9_work(sh, twojmax, chunk, kp, two_u, nchem, stride)
             + static_cast<size_t>(chunk) * FT_STAGE) * sizeof(double)
            + ints * sizeof(int);
   };
@@ -967,8 +1005,8 @@ extern "C" int nn_ut_b(const double* disp, const int* jelem,
   while (chunk > 1 && bytes(chunk, kp) > FS_SMEM_LIMIT) --chunk;
   if (bytes(chunk, kp) > FS_SMEM_LIMIT)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t work = k9_wg(n_t)
-                      + k9_work(sh, twojmax, chunk, kp, two_u, stride);
+  const size_t work = k9_wg(n_t, nchem)
+                      + k9_work(sh, twojmax, chunk, kp, two_u, nchem, stride);
   const auto kernel =
       threads <= K9_NARROW_THREADS
           ? nn_ut_b_kernel<K9_NARROW_THREADS, K9_NARROW_BLOCKS, 1>
@@ -980,8 +1018,8 @@ extern "C" int nn_ut_b(const double* disp, const int* jelem,
              static_cast<cudaStream_t>(stream)>>>(
         disp, jelem, mask, ielem, elem,
         scalars(rcutfac, rfac0, rmin0, switchflag, switchinnerflag), K, n_t,
-        twojmax, pidx, qidx, lgc_ptr, lgc_row, lgc_val, two_u, selfvec, per,
-        stride, bs_key, bs_fac, bs_seg,
+        twojmax, pidx, qidx, lgc_ptr, lgc_row, lgc_val, two_u, selfvec, nchem,
+        self_all, per, stride, bs_key, bs_fac, bs_seg,
         W, bzero, chunk, kp, work, ut, B);
   }
   return static_cast<int>(cudaGetLastError());

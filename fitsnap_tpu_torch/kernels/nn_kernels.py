@@ -5,7 +5,7 @@ versions beside them.
 | K12 nn_force | csrc/nn_force.cu | solvers/network.py _forward_batch (:737-741) |
 | K12T nn_force_t | csrc/nn_force.cu | its transpose (autodiff of the same lines) |
 | nn_pair_gather | csrc/nn_force.cu | the force scatter of _forward_batch (:739-741) and _forward_batch_cached (:811-816) |
-| K9 nn_ut_b | csrc/nn_grid.cu | ops/snap.py compute_utot_mono, _grid_tensors, nn_ut_b |
+| K9 nn_ut_b | csrc/nn_grid.cu | ops/snap.py compute_utot_mono (element channels too), _grid_tensors, nn_ut_b |
 | K10 nn_dedu_vg | csrc/nn_dedu.cu | ops/snap.py nn_dEdu, nn_vg |
 | K10T nn_dedu_vg_t | csrc/nn_dedu.cu | their transpose |
 | K11 nn_pair_force | csrc/nn_grid.cu | ops/snap.py nn_grid_pair, nn_pair_force |
@@ -35,7 +35,7 @@ kl.register("nn_pair_gather", "nn_force", [_P] * 2 + [_I] * 4 + [_P] * 2)
 kl.register("nn_force_t", "nn_force", [_P] * 3 + [_I] * 4 + [_P] * 2)
 _PAIRS = [_D] * 3 + [_I] * 2 + [_LL]    # prologue scalars, pair count
 kl.register("nn_ut_b", "nn_grid", [_P] * 5 + _PAIRS + [_I] * 2 + [_P] * 5
-            + [_I] + [_P] + [_I] * 3 + [_P] * 3 + [_I] + [_P] * 4)
+            + [_I] + [_P] + [_I] * 5 + [_P] * 3 + [_I] + [_P] * 4)
 kl.register("nn_pair_force", "nn_grid", [_P] * 6 + _PAIRS + [_I] * 2
             + [_P] * 4)
 kl.register("nn_pair_force_t", "nn_grid", [_P] * 7 + _PAIRS + [_I] * 3
@@ -152,6 +152,8 @@ class NnForce(torch.autograd.Function):
 
 
 def _one_channel(p, name):
+    """The plan's pair-grid tables; K10, K10T, K11 and K11T refuse element
+    channels (chemflag), which they do not have."""
     if p.nchem != 1:
         raise ValueError(f"{name}: the pair-grid kernels take one element "
                          f"channel (the plan has {p.nchem})")
@@ -173,29 +175,31 @@ def _prologue_args(p):
 
 
 def nn_ut_b_plain(disp, jelem, mask, ielem, p):
-    """Plain K9: (ut (N, 2U), B (N, W)) of atoms with neighbor slots disp
-    (N, K, 3), jelem (N, K), mask (N, K), ielem (N,)."""
+    """Plain K9: (ut (N, 2 nchem U), B (N, nb_base)) of atoms with neighbor
+    slots disp (N, K, 3), jelem (N, K), mask (N, K), ielem (N,); under
+    chemflag over the element channels."""
     return ops.nn_ut_b(disp, jelem, mask, ielem, p)
 
 
 def nn_ut_b(disp, jelem, mask, ielem, p):
-    """K9 on the card; same arguments and outputs as the plain version
-    (jelem, ielem int32, mask bool).  B holds the base descriptors also
-    under quadraticflag."""
+    """K9 on the card, in one element channel or (chemflag) several; same
+    arguments and outputs as the plain version (jelem, ielem int32, mask
+    bool).  B holds the base descriptors also under quadraticflag."""
     if _on_cpu(disp, jelem, mask, ielem):
         return nn_ut_b_plain(disp, jelem, mask, ielem, p)
-    tb = _one_channel(p, "nn_ut_b")
+    tb = ops.nn_tables(p)
     N, K = _check_block(disp, jelem, mask, ielem)
-    two_u, W, dev = 2 * p.u_len, p.ntriples, disp.device
-    ut = torch.empty((N, two_u), dtype=torch.float64, device=dev)
+    two_u, W, dev = 2 * p.u_len, p.nb_base, disp.device
+    ut = torch.empty((N, p.nchem * two_u), dtype=torch.float64, device=dev)
     B = torch.empty((N, W), dtype=torch.float64, device=dev)
     bs = tb.bterm
     _launch("nn_ut_b", dev, _ptr(disp), _ptr(jelem), _ptr(mask), _ptr(ielem),
             *_prologue_args(p), N, K, tb.n_t, _ptr(tb.pidx), _ptr(tb.qidx),
             _ptr(tb.lgc_ptr), _ptr(tb.lgc_row), _ptr(tb.lgc_val), two_u,
-            _ptr(p.selfvec), bs.threads, bs.per, bs.stride, _ptr(bs.key),
-            _ptr(bs.fac), _ptr(bs.seg), W,
-            _ptr(p.bzero) if p.bzeroflag else None, _ptr(ut), _ptr(B))
+            _ptr(p.selfvec), p.nchem, int(p.nchem == 1 or p.wselfallflag),
+            bs.threads, bs.per, bs.stride, _ptr(bs.key), _ptr(bs.fac),
+            _ptr(bs.seg), W, _ptr(p.bzero) if p.bzeroflag else None,
+            _ptr(ut), _ptr(B))
     nn_ut_b.launches += 1
     return ut, B
 

@@ -632,12 +632,14 @@ class NnTables:
     kernels.  `yblocks` is `_y_block_plan`; its nonzero entries (t, u,
     src, fac) are listed on the host by U column (`yu_*`)
     and by descriptor (`yt_*`), and the B terms (i1, i2, i3, coefficient)
-    by descriptor (`bt_*`, one channel only): numpy, the inputs of the
+    by descriptor (`bt_*`, over the element channels' nb_base
+    descriptors under chemflag): numpy, the inputs of the
     dealt schedules, which the kernels read.  `yz_src` lists the z entries
     the y entries reference (sorted, each once); a y key is `low |
     zc << key_bits`, zc an index into `yz_src` and low u (K10T, `ydesc`:
     by descriptor) or t (K10, `ycol`: by U column).  K9's B terms
-    (`bterm`) key i1 | i2 << 16 | i3 << 32."""
+    (`bterm`) key i1 | i2 << 16 | i3 << 32, indices into the channel-major
+    ut (A, nchem U)."""
 
     n_t: int
     pidx: torch.Tensor      # (n_t,) int32
@@ -663,12 +665,12 @@ class NnTables:
     key_bits: int           # the low field of a y key
     ycol: Dealt             # K10: the y entries by U column
     ydesc: Dealt            # K10T: the y entries by descriptor
-    bt_ptr: Optional[np.ndarray]     # (W+1,): B terms of each t, host
-    bt_i1: Optional[np.ndarray]
-    bt_i2: Optional[np.ndarray]
-    bt_i3: Optional[np.ndarray]
-    bt_c: Optional[np.ndarray]
-    bterm: Optional[Dealt]  # K9: the B terms by descriptor
+    bt_ptr: np.ndarray      # (nb_base+1,): B terms of each descriptor, host
+    bt_i1: np.ndarray
+    bt_i2: np.ndarray
+    bt_i3: np.ndarray
+    bt_c: np.ndarray
+    bterm: Dealt            # K9: the B terms by descriptor
 
 
 def _y_block_plan(p: SnapParams):
@@ -811,15 +813,22 @@ def nn_tables(p: SnapParams) -> NnTables:
     zcol, zdesc = (np.searchsorted(yz_src, y[2]) for y in (yu, yt))
     ycol = dealt(yu[0], yu[1] | zcol << key_bits, yu[3], zcol)
     ydesc = dealt(yt[0], yt[1] | zdesc << key_bits, yt[3], zdesc)
-    bt, bterm = [None] * 5, None
-    if p.nchem == 1:
-        mmat = p.mmat.cpu().numpy()
-        ks, ts = np.nonzero(mmat)
-        ptr, k_s, c_s = _csr(ts, mmat.shape[1], ks, mmat[ks, ts])
-        bt = [ptr] + [getattr(p, n).cpu().numpy()[k_s].astype(np.int64)
-                      for n in ("i1", "i2", "i3")] + [c_s]
-        bterm = dealt(ptr, bt[1] | bt[2] << 16 | bt[3] << 32, c_s,
-                      dtype=torch.int64, block=K9_BLOCK)
+    # K9's B terms: block blk of the nchem^3 channel triples holds terms
+    # blk * nterms + k of i1, i2, i3, and descriptor blk * ntriples + t sums
+    # its terms k with mmat[k, t] (`bispectrum_from_utot`)
+    mmat = p.mmat.cpu().numpy()
+    ks, ts = np.nonzero(mmat)
+    nterms, nblk = mmat.shape[0], p.nchem ** 3
+    blk = np.repeat(np.arange(nblk), len(ks))
+    ptr, k_s, c_s = _csr(np.tile(ts, nblk) + blk * p.ntriples, p.nb_base,
+                         np.tile(ks, nblk) + blk * nterms,
+                         np.tile(mmat[ks, ts], nblk))
+    bt = [ptr] + [getattr(p, n).cpu().numpy()[k_s].astype(np.int64)
+                  for n in ("i1", "i2", "i3")] + [c_s]
+    # a term's key packs three 16-bit indices into the channel-major ut (K9
+    # refuses a plan whose nchem U passes 2^16)
+    bterm = dealt(ptr, bt[1] | bt[2] << 16 | bt[3] << 32, c_s,
+                  dtype=torch.int64, block=K9_BLOCK)
     p.nn = NnTables(
         n_t=n_t, pidx=t(pidx), qidx=t(qidx), Lg2=t(Lg2, f64),
         lgc_ptr=t(lgc[0]), lgc_row=t(lgc[1]), lgc_val=t(lgc[2], f64),
@@ -901,8 +910,10 @@ def atom_descriptors_fast(disp, jelem, mask, ielem, p: SnapParams):
 
 
 def nn_ut_b(disp, jelem, mask, ielem, p: SnapParams):
-    """Per-atom (ut (A, 2U), B (A, W)): the cached atom-side state of the
-    NN cached mode (one channel, base descriptors).  Plain K9."""
+    """Per-atom (ut (A, 2 nchem U), B (A, nb_base)): the cached atom-side
+    state of the NN cached mode, and the descriptors of `nn_desc` (the base
+    ones; under chemflag over the element channels, ut's real parts
+    channel-major, then its imaginary parts).  Plain K9."""
     utr, uti = compute_utot_mono(disp, jelem, mask, ielem, p)
     return torch.cat([utr, uti], -1), bispectrum_from_utot(utr, uti, p)
 

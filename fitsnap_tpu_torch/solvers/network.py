@@ -35,6 +35,13 @@ computes the 31 Bessel / Gaussian 3-body pair descriptors with K15, runs
 the MLP per pair (atom i's element), and takes the forces through
 `PairDescForce` (K15V and the gather; backward K15T).  It fits the raw
 energies and forces (no reference potential is subtracted).
+Per-atom-scalar fitting (PAS, `per_atom_scalar` in [CALCULATOR], the
+reference's FitTorchPAS) also takes precedence over `dgrad_mode`: its
+buckets keep the per-atom descriptors B alone (SNAP: `nn_desc`, K9 in every
+element channel under chemflag, with the quadratic columns; ACE: K13 and
+K14's B) and the per-atom targets of the configs' `Chis`, and the network
+maps each atom's standardized B to one scalar, with no energy contraction,
+no forces and no reference potential.
 Training is a per-epoch loop of minibatch steps: per-element MLP energies
 (`models/mlp.py`), dE/dB by autograd with `create_graph`, the forces (whose
 backward carries the force residual into the MLP's double backward), the
@@ -46,7 +53,7 @@ warm start, best-validation tracking and the plateau scheduler are the JAX
 package's, so both packages follow the same loss trajectory from the same
 initial parameters.  The JAX package's epoch blocks and chunked programs
 only arrange TPU dispatch (they compute the same trajectory), and are not
-copied.  PAS raises naming its ROADMAP.md item.
+copied.
 """
 
 import time
@@ -66,10 +73,9 @@ from fitsnap_tpu_torch.models.mlp import (PerElementMLP, init_mlp,
                                           save_params)
 from fitsnap_tpu_torch.ops.snap import _quad_extend, quad_fold
 from fitsnap_tpu_torch.solvers.solver import (NN_COLUMNS, NN_INDEX_NAMES,
-                                              ErrorTable, Solver)
+                                              PAS_COLUMNS, ErrorTable, Solver)
 from fitsnap_tpu_torch.utils.torchsetup import DTYPE, resolve_device
 
-_LATER = '{} is not ported to fitsnap_tpu_torch yet (ROADMAP.md: "{}")'
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 _BATCH_KEYS = ("B", "G", "types", "real", "nat", "jidx", "rev", "e_target",
                "f_target", "ew", "fw")
@@ -86,6 +92,8 @@ _BATCH_KEYS_OTF = ("pos_hi", "pos_lo", "svec_hi", "svec_lo", "types", "elem",
 # the pairwise mode's buckets: host neighbor lists, no descriptors
 _BATCH_KEYS_PW = ("disp", "jidx", "mask", "rev", "types", "real", "nat",
                   "e_target", "f_target", "ew", "fw")
+# the PAS buckets: descriptors and per-atom targets, no forces
+_BATCH_KEYS_PAS = ("B", "types", "real", "nat", "pas_target", "ew")
 # dgrad_mode = auto (the JAX package's defaults): the cached mode while its
 # neighbor and per-atom cache stays within NEIGH_LIMIT bytes, else the
 # stored dB/dD within G_LIMIT, else the OTF mode
@@ -95,6 +103,31 @@ MAX_PROGRAMS = 10           # plan_pos_buckets' cap on the cached buckets
 CACHED_PAIRS = 390_000      # the cached mode's pair slots per minibatch
 OTF_CANDIDATES = 1 << 25    # the OTF mode's (A, S, A) candidates per minibatch
 PAIR_CHUNK = 1 << 20        # pair slots per K15 call of the pairwise stats
+
+
+def pas_chunk(calculator, a_pad, k_pad):
+    """Configs of one `nn_desc` call of the PAS prep at an (A, K) shape: on
+    SNAP, where K9 forms B alone, at most 32 configs or 1,024 atom slots
+    (JAX `_prepare_pas`); on ACE, whose K14 forms dB/dD beside B, also
+    `chunk_size`'s bound on that transient."""
+    from fitsnap_tpu_torch.calculators.snap import chunk_size
+
+    ace = getattr(calculator, "params", None) is None
+    return chunk_size(a_pad, k_pad, calculator.desc_width() if ace else 1)
+
+
+def _real_sums(B, real):
+    """The standardization's sums of a bucket's descriptors B (n, A, W) over
+    its real atoms (n, A): (sum B, sum B^2) (W,) on the host, and the
+    count."""
+    Bm = B * real[..., None]
+    return (Bm.sum((0, 1)).cpu().numpy(), (Bm * Bm).sum((0, 1)).cpu().numpy(),
+            int(real.sum()))
+
+
+def _totals(stats):
+    """The buckets' `_real_sums`, added in bucket order."""
+    return [sum(x) for x in zip(*stats)]
 
 
 def _truths(datas, nat, a_pad):
@@ -204,9 +237,9 @@ class NetworkSolver(Solver):
         self.net = _net_section(config)
         # the custom pairwise NN (takes precedence over dgrad_mode)
         self.pairwise = "CUSTOM" in config.sections
-        if config.sections["CALCULATOR"].per_atom_scalar:
-            raise NotImplementedError(_LATER.format(
-                "Per-atom scalar (PAS) fitting", "PAS"))
+        # per-atom-scalar fitting (reference lib/neural_networks/pas.py):
+        # one scalar per atom, no energy contraction and no forces
+        self.pas = config.sections["CALCULATOR"].per_atom_scalar
         self.buckets = None     # list of per-bucket dataset dicts
         self.mean = None
         self.std = None
@@ -233,7 +266,8 @@ class NetworkSolver(Solver):
         NEIGH_LIMIT, else precompute while dB/dD stays within G_LIMIT, else
         OTF; `cached` where its kit does not apply (chemflag,
         quadraticflag, ACE) warns and takes OTF.  A [CUSTOM] section takes
-        the pairwise mode whatever `dgrad_mode` says."""
+        the pairwise mode, and `per_atom_scalar` the PAS mode, whatever
+        `dgrad_mode` says."""
         from fitsnap_tpu_torch.calculators.snap import (
             chunk_size, coalesce_shape_buckets, pack_bucket)
         from fitsnap_tpu_torch.parallel.fit import plan_pos_buckets
@@ -241,6 +275,8 @@ class NetworkSolver(Solver):
         self.cached = self.otf = False
         if self.pairwise:
             return self._prepare_pairwise(calculator, data)
+        if self.pas:
+            return self._prepare_pas(calculator, data)
         mode = self.net.dgrad_mode
         if mode in ("auto", "cached", "otf"):
             packed = [calculator._pack(d) for d in data]
@@ -288,8 +324,7 @@ class NetworkSolver(Solver):
 
         dev = self.device
         self.buckets = []
-        sum_b = sumsq_b = None
-        count = 0
+        stats = []
         for (a_pad, k_pad), idxs in sorted(shape_buckets.items()):
             n = len(idxs)
             arrays = pack_bucket(packed, idxs, a_pad, k_pad)
@@ -309,12 +344,7 @@ class NetworkSolver(Solver):
                 / torch.clamp(natd, min=1)
             f_target = torch.from_numpy(f_t).to(dev) - rf
             real = torch.arange(a_pad, device=dev)[None, :] < natd[:, None]
-            Bm = B * real[..., None]
-            sb = Bm.sum((0, 1)).cpu().numpy()
-            ssq = (Bm * Bm).sum((0, 1)).cpu().numpy()
-            sum_b = sb if sum_b is None else sum_b + sb
-            sumsq_b = ssq if sumsq_b is None else sumsq_b + ssq
-            count += int(real.sum())
+            stats.append(_real_sums(B, real))
             self.buckets.append({
                 "B": B, "G": G,
                 "jidx": torch.from_numpy(jidx).to(dev),
@@ -325,7 +355,7 @@ class NetworkSolver(Solver):
                 "nat_host": nat, "shape": (a_pad, k_pad),
                 **_config_meta(datas, dev),
             })
-        self._standardize(sum_b, sumsq_b, count)
+        self._standardize(*_totals(stats))
         return self.buckets
 
     def _standardize(self, sum_b, sumsq_b, count):
@@ -359,8 +389,7 @@ class NetworkSolver(Solver):
 
         dev, cutoff = self.device, self._cutoff
         self.buckets = []
-        sum_b = sumsq_b = None
-        count = 0
+        stats = []
         for g in pos_groups:
             cfgs, a_pad, s_table = g["configs"], g["a_pad"], g["s_table"]
             n, S = len(cfgs), len(s_table)
@@ -396,12 +425,7 @@ class NetworkSolver(Solver):
             del outs
             _check_dropped(dropped)
             real = torch.arange(a_pad, device=dev)[None, :] < nat[:, None]
-            Bm = B * real[..., None]
-            sb = Bm.sum((0, 1)).cpu().numpy()
-            ssq = (Bm * Bm).sum((0, 1)).cpu().numpy()
-            sum_b = sb if sum_b is None else sum_b + sb
-            sumsq_b = ssq if sumsq_b is None else sumsq_b + ssq
-            count += int(real.sum())
+            stats.append(_real_sums(B, real))
             if self.cached:
                 lists = dict(zip(("disp", "jidx", "mask", "rev", "ut"), keep),
                              B=B)
@@ -418,7 +442,7 @@ class NetworkSolver(Solver):
                 "files": [str(pc.data.get("File", "")) for pc in cfgs],
                 "nat_host": nat.cpu().numpy(), "shape": (a_pad, k_pad),
             })
-        self._standardize(sum_b, sumsq_b, count)
+        self._standardize(*_totals(stats))
         return self.buckets
 
     def _prepare_pairwise(self, calculator, data):
@@ -470,6 +494,48 @@ class NetworkSolver(Solver):
                 **_config_meta(datas, dev),
             })
         self._standardize(sum_b, sumsq_b, count)
+        return self.buckets
+
+    def _prepare_pas(self, calculator, data):
+        """The PAS buckets (JAX `_prepare_pas`): per shape bucket of the
+        host neighbor lists, the per-atom descriptors B of `nn_desc` on the
+        device (zero on padded atoms), chunk by chunk, and the per-atom
+        targets of the configs' `Chis`; the standardization sums over real
+        atoms.  No reference potential is subtracted."""
+        from fitsnap_tpu_torch.calculators.snap import (coalesce_shape_buckets,
+                                                        pack_bucket)
+
+        packed, shape_buckets = calculator.host_preprocess(data)
+        shape_buckets = coalesce_shape_buckets(shape_buckets)
+        dev = self.device
+        self.buckets = []
+        stats = []
+        for (a_pad, k_pad), idxs in sorted(shape_buckets.items()):
+            n = len(idxs)
+            disp, jidx, mask, _, types, nat, _ = pack_bucket(
+                packed, idxs, a_pad, k_pad)
+            datas = [packed[i].data for i in idxs]
+            chis = np.zeros((n, a_pad))
+            for j, d in enumerate(datas):
+                chis[j, :nat[j]] = np.asarray(d["Chis"],
+                                              np.float64).reshape(-1)
+            chunk = min(pas_chunk(calculator, a_pad, k_pad), n)
+            B = torch.cat([calculator.nn_desc(*[
+                torch.from_numpy(x[c0:c0 + chunk]).to(dev)
+                for x in (disp, jidx, mask, types, nat)])
+                for c0 in range(0, n, chunk)])
+            natd = torch.from_numpy(nat).to(dev)
+            real = torch.arange(a_pad, device=dev)[None, :] < natd[:, None]
+            stats.append(_real_sums(B, real))
+            meta = _config_meta(datas, dev)
+            del meta["fw"]
+            self.buckets.append({
+                "B": B, "types": torch.from_numpy(types).to(dev),
+                "nat": natd, "real": real,
+                "pas_target": torch.from_numpy(chis).to(dev),
+                "nat_host": nat, "shape": (a_pad, k_pad), **meta,
+            })
+        self._standardize(*_totals(stats))
         return self.buckets
 
     # ------------- model -------------
@@ -595,15 +661,33 @@ class NetworkSolver(Solver):
             forces = nn_pair_gather(g, batch["rev"])
         return e / nat, forces
 
+    def _forward_pas(self, model, batch, train=False):
+        """Per-atom scalars (N, A) of one gathered batch (JAX
+        `_forward_pas`): the MLP on the standardized B, one evaluation an
+        atom, zero on padded atoms; no contraction, no forces.  Without
+        `train` the scalars keep no graph."""
+        B = batch["B"]
+        x = (B - self.mean) / self.std
+        with torch.set_grad_enabled(train):
+            return model(x, batch["types"]) * batch["real"].to(B.dtype)
+
     def _forward(self):
-        return (self._forward_pairwise if self.pairwise
+        return (self._forward_pas if self.pas
+                else self._forward_pairwise if self.pairwise
                 else self._forward_batch_cached if self.cached
                 else self._forward_batch_otf if self.otf
                 else self._forward_batch)
 
     def _loss(self, model, batch, train=False):
-        """Weighted MSE loss of one minibatch (JAX `_loss`, one device)."""
+        """Weighted MSE loss of one minibatch (JAX `_loss`, one device); PAS:
+        the weighted per-atom residuals over the real atoms."""
         net = self.net
+        if self.pas:
+            pred = self._forward_pas(model, batch, train)
+            real = batch["real"].to(pred.dtype)
+            res = (pred - batch["pas_target"]) * real
+            return (torch.sum(batch["ew"][:, None] * res ** 2)
+                    / torch.clamp(real.sum(), min=1.0))
         e_pred, f_pred = self._forward()(model, batch, train)
         real = batch["real"].to(e_pred.dtype)
         live = (batch["nat"] > 0).to(e_pred.dtype)
@@ -621,7 +705,8 @@ class NetworkSolver(Solver):
     def _gather(self, ds, idx):
         idx = torch.as_tensor(np.asarray(idx), dtype=torch.long,
                               device=self.device)
-        keys = (_BATCH_KEYS_PW if self.pairwise
+        keys = (_BATCH_KEYS_PAS if self.pas
+                else _BATCH_KEYS_PW if self.pairwise
                 else _BATCH_KEYS_CACHED if self.cached
                 else _BATCH_KEYS_OTF if self.otf else _BATCH_KEYS)
         return dict({k: ds[k].index_select(0, idx) for k in keys},
@@ -658,9 +743,15 @@ class NetworkSolver(Solver):
         warm_opt = None
         if warm_start:
             params, warm_opt = self._warm_start(net, params)
-        # start the output bias at the mean per-atom energy target
-        e_mean = float(np.mean(np.concatenate(
-            [ds["e_target"].cpu().numpy() for ds in self.buckets])))
+        # start the output bias at the mean per-atom energy target (PAS: the
+        # mean real-atom target)
+        if self.pas:
+            e_mean = float(np.concatenate(
+                [ds["pas_target"][ds["real"]].cpu().numpy()
+                 for ds in self.buckets]).mean())
+        else:
+            e_mean = float(np.mean(np.concatenate(
+                [ds["e_target"].cpu().numpy() for ds in self.buckets])))
         if self.pairwise:
             # pairwise models sum per-pair energies: scale by pairs per atom
             pairs = sum(float(ds["mask"].sum()) for ds in self.buckets)
@@ -869,9 +960,15 @@ class NetworkSolver(Solver):
 
     def evaluate_bucket(self, ds):
         """Per-atom energies (n,) and forces (n, A, 3) of every config in
-        one bucket, as numpy arrays, 32 configs at a time."""
+        one bucket, as numpy arrays, 32 configs at a time; PAS: the per-atom
+        scalars (n, A) and None."""
         n = int(ds["nat"].shape[0])
         fwd = self._forward()
+        if self.pas:
+            return torch.cat([
+                fwd(self.model,
+                    self._gather(ds, np.arange(c0, min(c0 + 32, n))))
+                for c0 in range(0, n, 32)]).cpu().numpy(), None
         es, fs = [], []
         for c0 in range(0, n, 32):
             e, f = fwd(self.model,
@@ -928,6 +1025,8 @@ class NetworkSolver(Solver):
         if self.model is None or self.buckets is None:
             self.errors = []
             return
+        if self.pas:
+            return self._error_analysis_pas()
         extras = self.config.sections["EXTRAS"]
         if extras.dump_perconfig or extras.dump_peratom:
             self._dump_details()
@@ -966,3 +1065,32 @@ class NetworkSolver(Solver):
                 np.abs(f_res).mean() if f_res.size else 0.0,
                 np.sqrt((f_res ** 2).mean()) if f_res.size else 0.0])
         self.errors = ErrorTable(index, values, NN_INDEX_NAMES, NN_COLUMNS)
+
+    def _error_analysis_pas(self):
+        """The PAS error table (JAX `_error_analysis_pas`): ncount, mae and
+        rmse of the real atoms' residuals per (Group, Testing) and over all
+        groups; no per-config or per-atom dumps."""
+        rows = {}
+        for ds in self.buckets:
+            pred, _ = self.evaluate_bucket(ds)
+            t = ds["pas_target"].cpu().numpy()
+            realm = ds["real"].cpu().numpy()
+            for i, g in enumerate(ds["groups"]):
+                label = "Testing" if ds["test"][i] else "Training"
+                rows.setdefault((g, label), []).append(
+                    (pred[i] - t[i])[realm[i]])
+        index, values = [], []
+        keys = sorted(rows) + [("*ALL", "Training"), ("*ALL", "Testing")]
+        for g, label in keys:
+            if g == "*ALL":
+                res = np.concatenate(
+                    [v for (gg, ll), vs in rows.items() if ll == label
+                     for v in vs] or [np.zeros(0)])
+            else:
+                res = np.concatenate(rows[(g, label)])
+            if res.size == 0:
+                continue
+            index.append((g, label))
+            values.append([res.size, np.abs(res).mean(),
+                           np.sqrt((res ** 2).mean())])
+        self.errors = ErrorTable(index, values, NN_INDEX_NAMES, PAS_COLUMNS)

@@ -13,6 +13,7 @@ _COLUMNS = ("ncount", "mae", "rmse", "rsq")
 _INDEX_NAMES = ("Group", "Weighting", "Testing", "Subsystem")
 NN_COLUMNS = ("ncount_E", "mae_E", "rmse_E", "ncount_F", "mae_F", "rmse_F")
 NN_INDEX_NAMES = ("Group", "Testing")
+PAS_COLUMNS = ("ncount", "mae", "rmse")
 
 
 class ErrorTable:
@@ -22,7 +23,8 @@ class ErrorTable:
     len(columns)) array, row by row in the order of the JAX package's
     table.  The linear table's index is (Group, Weighting, Testing,
     Subsystem) and its columns ncount, mae, rmse, rsq; the NN solver's are
-    NN_INDEX_NAMES and NN_COLUMNS.  Columns named ncount* are counts.
+    NN_INDEX_NAMES and NN_COLUMNS (PAS: PAS_COLUMNS).  Columns named
+    ncount* are counts.
     """
 
     def __init__(self, index, values, index_names=_INDEX_NAMES,

@@ -29,6 +29,12 @@ JSON carries `Spins` (a moment and a direction near +z per atom) and
 model with the hybrid/overlay reference of zbl, coul/cut and
 spin/exchange/biquadratic, which reads both.
 
+Per-atom-scalar (PAS) fits read a per-atom `Chis` key: `with_chis` adds a
+seeded smooth one to any of these sets (the JAX package's PAS test's
+target, 0.3 sin(sum of the position's coordinates) + 2.0 plus N(0, 0.05)
+noise), and `pas_settings` turns `ta_settings`, `inp_settings` or
+`ace_settings` into a PAS fit under the NN solver.
+
 `write_dataset` writes zero truths; callers that fit it first compute their
 truths (for example A @ beta_true + the reference potential) and rewrite
 the files with `config_json`.
@@ -246,6 +252,27 @@ def config_json(pos, cell, energy=0.0, forces=None, stress=None, types=None,
     return json.dumps({"Dataset": {"Data": [data]}})
 
 
+def with_chis(configs, seed):
+    """{group: [(pos, cell, element names, extra keys)]}: `configs` (as
+    `write_dataset` takes them; Ta atoms where no names are given) with a
+    per-atom `Chis` in every config's extra keys, 0.3 sin(x + y + z) +
+    0.05 N(0, 1) + 2.0 at each atom's position, the noise drawn from
+    `seed` in the groups' and configs' order."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for group, confs in configs.items():
+        out[group] = []
+        for conf in confs:
+            pos = np.asarray(conf[0])
+            names = conf[2] if len(conf) > 2 else ["Ta"] * len(pos)
+            extra = dict(conf[3]) if len(conf) > 3 else {}
+            extra["Chis"] = (0.3 * np.sin(pos.sum(axis=1))
+                             + 0.05 * rng.standard_normal(len(pos))
+                             + 2.0).tolist()
+            out[group].append((conf[0], conf[1], names, extra))
+    return out
+
+
 def write_dataset(root, configs):
     """Write {group: [(pos, cell), (pos, cell, element names) or (pos, cell,
     element names, extra keys)]} as root/<group>/<group>_<i>.json with zero
@@ -454,6 +481,27 @@ def ace_nn_settings(datapath, groups=None, dgrad_mode="precompute"):
                         output_file="Ta_ace_nn.pt")
     s["OUTFILE"] = {"metrics": "Ta_ace_nn_metrics.md",
                     "potential": "Ta_ace_nn_pot", "output_style": "PACE"}
+    return s
+
+
+def pas_settings(datapath, base=ta_settings, groups=None):
+    """A per-atom-scalar fit of the `Chis` of `with_chis` for `datapath`:
+    `base` (`ta_settings`, `inp_settings` or `ace_settings`) with energy,
+    force and stress 0, nonlinear 1 and per_atom_scalar 1, under the NN
+    solver with the [PYTORCH] section of `nn_settings` (`num_desc 64 64 1`,
+    batch 4, 10 epochs, seed 13), writing <name>_pas.pt,
+    <name>_pas_metrics.md and <name>_pas_pot.* (name: Ta, InP or Ta_ace)."""
+    name = {"ta_settings": "Ta", "inp_settings": "InP",
+            "ace_settings": "Ta_ace"}[base.__name__] + "_pas"
+    s = base(datapath, groups)
+    s["CALCULATOR"].update(energy=0, force=0, stress=0, nonlinear=1,
+                           per_atom_scalar=1)
+    s["SOLVER"] = {"solver": "PYTORCH"}
+    s["PYTORCH"] = dict(nn_settings(datapath, [])["PYTORCH"],
+                        output_file=f"{name}.pt")
+    del s["PYTORCH"]["dgrad_mode"]
+    s["OUTFILE"] = dict(s["OUTFILE"], metrics=f"{name}_metrics.md",
+                        potential=f"{name}_pot")
     return s
 
 

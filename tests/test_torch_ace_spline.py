@@ -231,3 +231,46 @@ def test_spline_fit_matches_jax(spline_fits):
     assert rel(ref.a @ port.fit, ref.a @ np.asarray(ref.fit)) <= 1e-10
     assert rel(port.fit, ref.fit) <= 1e-9
 
+
+
+def test_spline_fit_gap_is_the_node_values(spline_fits, monkeypatch,
+                                           tmp_path):
+    """The coefficients' 3e-10 above comes from the tables' node values
+    alone.  The port forms them in the JAX package's order of operations,
+    but XLA's exp and PyTorch's differ by an ulp at some nodes, and the
+    spline's coefficients c2 and c3 take differences of neighboring nodes.  With the JAX package's node
+    values and the port's own node derivatives (closed form, not `jax.jvp`)
+    the port's fit agrees with the JAX fit's coefficients within the slice
+    rule's 1e-10."""
+    monkeypatch.setenv("FITSNAP_TPU_ACE_SPLINE", str(DELTA))
+    own = ace._hermite_radial_table
+
+    def jax_values(rcut, lmbda, nradbase, variant, delta):
+        tab = own(rcut, lmbda, nradbase, variant, delta)
+        rs = np.arange(tab.shape[0] + 1) * delta
+        with jax.ensure_compile_time_eval():
+            vals = np.asarray(jace.chebexpcos_basis(
+                jnp.asarray(rs), rcut, lmbda, nradbase, variant))
+        d0 = tab[..., 1]
+        d1 = np.concatenate([d0[1:], [(tab[-1, :, 1] + 2 * tab[-1, :, 2]
+                                       + 3 * tab[-1, :, 3])]])
+        f0, f1 = vals[:-1], vals[1:]
+        return np.stack([f0, d0, -3.0 * f0 - 2.0 * d0 + 3.0 * f1 - d1,
+                         2.0 * f0 + d0 - 2.0 * f1 + d1], axis=-1)
+
+    monkeypatch.setattr(ace, "_hermite_radial_table", jax_values)
+    (tmp_path / "JSON").mkdir()
+    write_configs(tmp_path / "JSON", 23)
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        fs = FitSnap(settings(tmp_path / "JSON"), arglist=["--overwrite"],
+                     device="cpu")
+        fs.scrape_configs()
+        fs.process_configs()
+        fs.perform_fit()
+    finally:
+        os.chdir(cwd)
+    ref = spline_fits["jax"]
+    assert rel(fs.a, ref.a) <= 1e-13
+    assert rel(fs.fit, ref.fit) <= 1e-10

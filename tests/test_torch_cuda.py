@@ -57,7 +57,11 @@ twojmax 2.  K3 at the edges of its tiles (W = 5 and 55, K = 13, 19, 21,
 37, three channels, every neighbor in one channel, neighbors of no
 channel, an atom with every slot masked) and K14 where an element's labels
 need several tiles (the InP_PACE shape, K = 21, atoms whose element is out
-of range): padding slots exactly 0, bit for bit from run to run.  K12
+of range): padding slots exactly 0, bit for bit from run to run.  K9 in
+its element-channel mode (two channels at twojmax 4, 6 and 8, three at 2
+and 4; wselfallflag 0 and 1; 200 slots; an atom whose other channels are
+empty), bit for bit, with K10, K10T, K11 and K11T refusing channels, and
+two channels at twojmax 14 refused for their shared memory.  K12
 and K12T on two small periodic cells with a padded atom (and twice, to
 show a run repeats bit for bit), and the gradient of a
 force loss with respect to MLP parameters through `NnForce` against
@@ -691,13 +695,65 @@ def grid_block(spec, device, nconf=2, A=6, K=40):
     return p, block, t(jidx, torch.int32), t(rev, torch.int32)
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
+# K9's element-channel mode (chemflag): two elements at twojmax 4
+# (wselfallflag 0 and 1, bnormflag) and three at twojmax 2
+CHEM_CASES = {
+    "tj4_chem2": dict(CASES["tj4_two_elements"], chemflag=1, bnormflag=1),
+    "tj4_chem2_wself": dict(CASES["tj4_two_elements"], chemflag=1,
+                            wselfallflag=1, switchinnerflag=0),
+    "tj2_chem3": dict(twojmax=["2"] * 3, numtypes=3, wj=["1.0", "0.8", "0.7"],
+                      radelem=["0.5", "0.45", "0.42"], bzeroflag=1,
+                      switchinnerflag=0, chemflag=1),
+}
+
+
+def self_ut(p, ie):
+    """The ut (2 nchem U,) of an atom of element ie without neighbors: the
+    self term in every channel (wselfallflag, or one channel), else in its
+    own, real parts channel-major, then imaginary parts."""
+    U, nc = p.u_len, p.nchem
+    own = torch.ones(nc, dtype=torch.float64, device=p.selfvec.device)
+    if nc > 1 and not p.wselfallflag:
+        own = torch.nn.functional.one_hot(torch.tensor(ie), nc).to(own)
+    ut = (own[:, None] * p.selfvec[None]).reshape(nc, 2, U)
+    return torch.cat([ut[:, 0].reshape(-1), ut[:, 1].reshape(-1)])
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(CHEM_CASES))
 def test_k9_k10_k11_match_plain(cuda, name):
     """K9, K10, K10T, K11, K11T and the force gather against their plain
-    versions, each launched once, and bit for bit from run to run."""
+    versions, each launched once, and bit for bit from run to run.  Under
+    chemflag K9 alone, in its element-channel mode; K10, K10T, K11 and
+    K11T refuse element channels loudly."""
     from fitsnap_tpu_torch.kernels import nn_kernels as nk
     from fitsnap_tpu_torch.ops.snap import nn_tables
 
+    if name in CHEM_CASES:
+        p, block, jidx, _ = grid_block(CHEM_CASES[name], cuda)
+        assert p.nchem == CHEM_CASES[name]["numtypes"]
+        nk.reset_launches()
+        out = nk.nn_ut_b(*block, p)
+        torch.cuda.synchronize()
+        assert launched(nk) == {"nn_ut_b": 1}
+        ref = nk.nn_ut_b_plain(*block, p)
+        assert out[0].shape == (block[2].shape[0], 2 * p.nchem * p.u_len)
+        assert out[1].shape == (block[2].shape[0], p.nb_base)
+        assert rel_err(out, ref) <= RTOL
+        assert all(torch.equal(a, b)
+                   for a, b in zip(out, nk.nn_ut_b(*block, p)))
+        n_t = nn_tables(p).n_t
+        N = block[2].shape[0]
+        vg = torch.zeros((N, n_t, n_t), dtype=torch.float64, device=cuda)
+        z = torch.zeros((N, p.nz), dtype=torch.float64, device=cuda)
+        gF = torch.zeros(tuple(jidx.shape[:2]) + (3,), dtype=torch.float64,
+                         device=cuda)
+        for call in (lambda: nk.nn_dedu_vg(z[:, :p.ntriples], z, z, p),
+                     lambda: nk.nn_dedu_vg_t(vg, z, z, p),
+                     lambda: nk.nn_pair_force(vg, *block, p),
+                     lambda: nk.nn_pair_force_t(gF, jidx, *block, p)):
+            with pytest.raises(ValueError, match="one element"):
+                call()
+        return
     p, block, jidx, rev = grid_block(CASES[name], cuda)
     N, K = block[2].shape
     n_t = nn_tables(p).n_t
@@ -854,9 +910,19 @@ K11T_CASES = {
 }
 
 
-# K9's largest grid: twojmax 16 (n_t 153, 187 KB of shared memory).
+# K9's largest grid: twojmax 16 (n_t 153, 187 KB of shared memory); its
+# element channels: the InP model's two at twojmax 6 (wselfallflag and
+# bnormflag), 200 slots (two rounds of prologues), three channels, and two
+# at twojmax 8
+INP_TJ6 = dict(CASES["tj4_two_elements"], twojmax=["6", "6"], chemflag=1,
+               wselfallflag=1, bnormflag=1, switchinnerflag=0)
 K9_CASES = dict(K11T_CASES, tj16=(dict(CASES["tj6"], twojmax=["16"]), 1, 3,
-                                  40))
+                                  40),
+                tj6_chem2=(INP_TJ6, 2, 6, 40),
+                tj6_chem2_k200=(dict(INP_TJ6, wselfallflag=0), 1, 3, 200),
+                tj4_chem3=(dict(CHEM_CASES["tj2_chem3"],
+                                twojmax=["4"] * 3), 2, 6, 40),
+                tj8_chem2=(dict(INP_TJ6, twojmax=["8", "8"]), 1, 4, 40))
 
 
 def k11t_case(name, device):
@@ -947,23 +1013,41 @@ def test_k10t_edges_match_plain(cuda, name):
 @pytest.mark.parametrize("name", list(K9_CASES))
 def test_k9_edges_match_plain(cuda, name):
     """K9 against its plain version on `k11t_case`'s lists (and at twojmax
-    16, n_t 153, whose grid leaves the least shared memory beside it),
-    launched once: the atom with every slot masked out gets the self term
-    as its ut and the self term's B, as the twin's; bit for bit from run to
-    run."""
+    16, n_t 153, whose grid leaves the least shared memory beside it; and
+    in its element-channel mode, atom 0's neighbors then all of one
+    element, so that its other channels hold no pair), launched once: the
+    atom with every slot masked out gets the self term as its ut and the
+    self term's B, as the twin's; bit for bit from run to run."""
     from fitsnap_tpu_torch.kernels import nn_kernels as nk
 
     p, block, _ = k11t_case(name, cuda)
+    if p.nchem > 1:
+        block[1][0] = 1
     nk.reset_launches()
     out = nk.nn_ut_b(*block, p)
     torch.cuda.synchronize()
     assert launched(nk) == {"nn_ut_b": 1}
     ref = nk.nn_ut_b_plain(*block, p)
     assert rel_err(out, ref) <= RTOL
-    assert torch.equal(out[0][-1], p.selfvec)
-    assert torch.equal(ref[0][-1], p.selfvec)
+    alone = self_ut(p, int(block[3][-1]))
+    assert torch.equal(out[0][-1], alone)
+    assert torch.equal(ref[0][-1], alone)
     assert (out[1][-1] - ref[1][-1]).abs().max() <= RTOL * ref[1].abs().max()
     assert all(torch.equal(a, b) for a, b in zip(out, nk.nn_ut_b(*block, p)))
+
+
+def test_k9_refuses_channel_grids_past_shared_memory(cuda):
+    """Two element channels at twojmax 14 (n_t 120: two grids of 225 KB)
+    pass a block's shared memory: K9 refuses them (invalid argument), as it
+    refuses one channel from twojmax 17, and writes nothing."""
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+
+    spec = dict(INP_TJ6, twojmax=["14", "14"])
+    p, block, _, _ = grid_block(spec, cuda, 1, 2, 8)
+    nk.reset_launches()
+    with pytest.raises(RuntimeError, match="nn_ut_b: CUDA error"):
+        nk.nn_ut_b(*block, p)
+    assert launched(nk) == {}
 
 
 @pytest.mark.parametrize("name", list(K11T_CASES))

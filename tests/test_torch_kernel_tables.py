@@ -19,11 +19,15 @@ package's plan (CPU, float64).
   and 10: K10T's rebuilds the (t, u, src, fac) entries of `yt_*` exactly
   and K10's those of `yu_*`, each group's (descriptor, U column) on its
   own threads, at most `per` a thread, dealt in compact z order; K9's
-  rebuilds the (i1, i2, i3, c) terms of `bt_*` exactly; the referenced z
+  rebuilds the (i1, i2, i3, c) terms of `bt_*` exactly, and `bt_*` the
+  plan's B terms (each channel triple's block of i1, i2, i3 with `mmat`),
+  one channel and chemflag (two and three elements, wselfallflag 0 and 1,
+  bzeroflag and bnormflag); the referenced z
   entries `yz_src` list every src of those entries once, sorted; each
   schedule, run in numpy (the arithmetic of csrc/nn_dedu.cu and
   csrc/nn_grid.cu), agrees with its plain twin (`nn_dedu_vg_t_plain`,
-  `nn_dedu_vg_plain`, `nn_ut_b_plain`) at 1e-12; and K9, K10 and K10T
+  `nn_dedu_vg_plain`, `nn_ut_b_plain`, K9's also on the chemflag plans) at
+  1e-12; and K9, K10 and K10T
   launch with their schedules' `threads`, whose narrow launch bounds hold
   four blocks of the schedules' block an SM.
 """
@@ -59,10 +63,12 @@ def close(port, ref, rtol=RTOL):
 
 
 @lru_cache(maxsize=None)
-def plans(twojmax, nelem=1, chem=False):
+def plans(twojmax, nelem=1, chem=False, wself=False, bnorm=False,
+          bzero=True):
     """(JAX SnapParams, the port's SnapParams on the CPU)."""
     plan = build_snap_plan(twojmax=twojmax, nelements=nelem, chemflag=chem,
-                           bzeroflag=True, wselfallflag=False)
+                           bzeroflag=bzero, wselfallflag=wself,
+                           bnormflag=bnorm)
     jp = jsnap.SnapParams(
         plan=plan, rcutfac=4.6, rfac0=0.99, rmin0=0.0, switchflag=True,
         switchinnerflag=False, wj=np.array([1.0, 0.93, 0.8][:nelem]),
@@ -483,20 +489,60 @@ def k9_schedule(tb):
             d.seg.numpy())
 
 
-@pytest.mark.parametrize("twojmax", [2, 6, 10])
-def test_k9_schedule_rebuilds_the_b_terms(twojmax):
+# K9's plans: one channel (the ids of the one-channel cases kept), and
+# chemflag with two and three elements, wselfallflag 0 and 1, bzeroflag and
+# bnormflag: (twojmax, nelem, chem, wself, bnorm, bzero)
+K9_PLANS = [pytest.param(2, 1, False, False, False, True, id="2"),
+            pytest.param(6, 1, False, False, False, True, id="6"),
+            pytest.param(10, 1, False, False, False, True, id="10"),
+            pytest.param(2, 2, True, False, False, True, id="2-chem2"),
+            pytest.param(4, 2, True, True, True, True,
+                         id="4-chem2-wself-bnorm"),
+            pytest.param(4, 2, True, False, True, False,
+                         id="4-chem2-bnorm-nobzero"),
+            pytest.param(2, 3, True, True, False, True, id="2-chem3-wself"),
+            pytest.param(4, 3, True, False, True, True, id="4-chem3-bnorm")]
+
+
+def plan_b_terms(p):
+    """The B terms of plan `p` by descriptor, in term order: descriptor
+    blk * ntriples + t of channel triple blk sums (i1, i2, i3)[blk * nterms
+    + k] with mmat[k, t] over the nonzero mmat[k, t]."""
+    mmat = p.mmat.numpy()
+    i1, i2, i3 = (getattr(p, n).numpy() for n in ("i1", "i2", "i3"))
+    out = []
+    for blk in range(p.nchem ** 3):
+        for t in range(p.ntriples):
+            k = np.nonzero(mmat[:, t])[0]
+            q = blk * mmat.shape[0] + k
+            out.append((i1[q], i2[q], i3[q], mmat[k, t]))
+    return out
+
+
+@pytest.mark.parametrize("twojmax,nelem,chem,wself,bnorm,bzero", K9_PLANS)
+def test_k9_schedule_rebuilds_the_b_terms(twojmax, nelem, chem, wself,
+                                          bnorm, bzero):
     """K9's B terms dealt by descriptor rebuild `bt_*`'s (t, i1, i2, i3, c)
     exactly, each descriptor's on its own threads in its order, at most
     `per` a thread; 15 terms a thread at twojmax 6 (251 segments in 256
-    threads, where a descriptor has up to 505)."""
-    _, p = plans(twojmax)
+    threads, where a descriptor has up to 505).  `bt_*` holds the plan's B
+    terms: under chemflag nb_base = nchem^3 ntriples descriptors, their
+    keys below 2^16 (the kernel's fields)."""
+    _, p = plans(twojmax, nelem, chem, wself, bnorm, bzero)
     tb = tsnap.nn_tables(p)
     per, T, stride, i1, i2, i3, c, seg = k9_schedule(tb)
-    assert (per, T) == {2: (8, 32), 6: (15, 256), 10: (60, 1024)}[twojmax]
-    assert T % 32 == 0 and stride == T and seg[-1] <= T
-    assert len(seg) == p.ntriples + 1
+    if not chem:
+        assert (per, T) == {2: (8, 32), 6: (15, 256),
+                            10: (60, 1024)}[twojmax]
+        assert stride == T
+    assert T % 32 == 0 and T <= 1024 and stride >= T and seg[-1] <= stride
+    assert len(seg) == p.nb_base + 1 == p.nchem ** 3 * p.ntriples + 1
     ptr = tb.bt_ptr
-    for t in range(p.ntriples):
+    for t, ref in enumerate(plan_b_terms(p)):
+        for arr, r in zip((tb.bt_i1, tb.bt_i2, tb.bt_i3, tb.bt_c), ref):
+            assert np.array_equal(arr[ptr[t]:ptr[t + 1]], r)
+    assert max(i1.max(), i2.max(), i3.max()) < p.nchem * p.u_len < 1 << 16
+    for t in range(p.nb_base):
         q = np.arange(ptr[t], ptr[t + 1])
         n = seg[t + 1] - seg[t]
         assert n == -(-len(q) // per)
@@ -579,34 +625,43 @@ def emulate_k10(p, dedb, zr, zi):
 
 
 def emulate_k9(p, args):
-    """csrc/nn_grid.cu's K9 after its product: ut = wg . Lg by Lg's
-    columns, then the self term; each slot's segment of B terms in order,
-    then each descriptor's segment sums in order, less bzero.  wg, the
-    tensor-core product, is the plain grid sum."""
+    """csrc/nn_grid.cu's K9 after its product: per element channel ut = wg
+    . Lg by Lg's columns, then the self term (every channel under
+    wselfallflag or in one channel, else the atom's own); each slot's
+    segment of B terms in order, then each descriptor's segment sums in
+    order, less bzero.  wg, the tensor-core product, is the plain grid sum
+    over the channel's pairs (the neighbor's element).  ut is laid out as
+    the plain version's: the channels' real parts, then their imaginary
+    parts."""
     tb = tsnap.nn_tables(p)
     per, T, stride, i1, i2, i3, c, seg = k9_schedule(tb)
     ar, ai, br, bi, w = (x.numpy() for x in tsnap._ck_prologue(*args, p))
     P, Q = tb.pidx.numpy(), tb.qidx.numpy()
     T1 = ar[..., None] ** P * ai[..., None] ** Q
     T2 = br[..., None] ** P * bi[..., None] ** Q
-    N, U = w.shape[0], p.u_len
-    wg = np.einsum("ak,akd,ake->ade", w, T1, T2).reshape(N, -1)
+    N, U, nc = w.shape[0], p.u_len, p.nchem
+    chan = np.eye(nc)[args[1].numpy() if nc > 1 else np.zeros(w.shape, int)]
+    wg = np.einsum("akc,ak,akd,ake->acde", chan, w, T1, T2).reshape(N, nc, -1)
     ptr, row, val = (tb.lgc_ptr.numpy(), tb.lgc_row.numpy(),
                      tb.lgc_val.numpy())
-    ut = np.stack([(wg[:, row[ptr[u]:ptr[u + 1]]]
-                    * val[ptr[u]:ptr[u + 1]]).sum(1)
-                   for u in range(2 * U)], 1) + p.selfvec.numpy()
-    re, im = ut[:, :U], ut[:, U:]
+    ut = np.stack([(wg[:, :, row[ptr[u]:ptr[u + 1]]]
+                    * val[ptr[u]:ptr[u + 1]]).sum(-1)
+                   for u in range(2 * U)], -1)
+    own = (np.ones((N, nc)) if nc == 1 or p.wselfallflag
+           else np.eye(nc)[args[3].numpy()])
+    ut = ut + own[..., None] * p.selfvec.numpy()
+    re = ut[..., :U].reshape(N, nc * U)
+    im = ut[..., U:].reshape(N, nc * U)
     part = np.zeros((N, stride))
     for j in range(per):
         ab_r = re[:, i1[j]] * re[:, i2[j]] - im[:, i1[j]] * im[:, i2[j]]
         ab_i = re[:, i1[j]] * im[:, i2[j]] + im[:, i1[j]] * re[:, i2[j]]
         part += (ab_r * re[:, i3[j]] + ab_i * im[:, i3[j]]) * c[j]
     B = np.stack([part[:, seg[t]:seg[t + 1]].sum(1)
-                  for t in range(p.ntriples)], 1)
+                  for t in range(p.nb_base)], 1)
     if p.bzeroflag:
         B = B - p.bzero.numpy()
-    return ut, B
+    return np.concatenate([re, im], 1), B
 
 
 @pytest.mark.parametrize("twojmax", [2, 6, 10])
@@ -636,17 +691,25 @@ def test_k10_schedule_matches_plain(twojmax):
     close(out, ref)
 
 
-@pytest.mark.parametrize("twojmax", [2, 6, 10])
-def test_k9_schedule_matches_plain(twojmax):
+@pytest.mark.parametrize("twojmax,nelem,chem,wself,bnorm,bzero", K9_PLANS)
+def test_k9_schedule_matches_plain(twojmax, nelem, chem, wself, bnorm,
+                                   bzero):
     """K9's emulation on `block`'s atoms (masked pairs, an atom with every
-    slot masked: its ut the self term) against `nn_ut_b_plain`."""
-    _, p = plans(twojmax)
-    args = tuple(torch.from_numpy(x) for x in block(9, 1))
+    slot masked: its ut the self term) against `nn_ut_b_plain`, one channel
+    and chemflag."""
+    _, p = plans(twojmax, nelem, chem, wself, bnorm, bzero)
+    args = tuple(torch.from_numpy(x) for x in block(9, nelem))
     ut, B = emulate_k9(p, args)
     ut0, B0 = nk.nn_ut_b_plain(*args, p)
+    assert ut.shape == (6, 2 * p.nchem * p.u_len)
+    assert B.shape == (6, p.nb_base)
     close(ut, ut0)
     close(B, B0)
-    assert np.array_equal(ut[-1], p.selfvec.numpy())
+    U, nc, ie = p.u_len, p.nchem, int(args[3][-1])
+    own = np.ones(nc) if nc == 1 or wself else np.eye(nc)[ie]
+    self_ut = (own[:, None] * p.selfvec.numpy()).reshape(nc, 2, U)
+    assert np.array_equal(ut[-1], np.concatenate(
+        [self_ut[:, 0].ravel(), self_ut[:, 1].ravel()]))
 
 
 def _entry_args(source, name):

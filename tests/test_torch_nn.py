@@ -24,8 +24,8 @@ both.  Checks, with their tolerances:
 - one Adam step against optax's `scale_by_adam` with the learning rate
   applied outside it, 1e-14; the plateau scheduler against the JAX one,
   exactly;
-- the mode the port does not have (PAS) raises naming its ROADMAP.md
-  item by title; nonlinear ACE builds.
+- nonlinear ACE builds (PAS, which raised here before, is held to the JAX
+  package by tests/test_torch_pas.py).
 """
 
 import os
@@ -410,15 +410,9 @@ def test_plateau_step_equals_jax():
 
 
 def test_modes_the_port_lacks_raise(tmp_path):
-    """PAS raises, naming its ROADMAP.md item by title (nonlinear ACE, which
-    raised here before, is held to the JAX package by
-    tests/test_torch_ace_nn.py)."""
-    s = ta_nn_settings(tmp_path)
-    s["CALCULATOR"]["per_atom_scalar"] = 1
-    s["CALCULATOR"]["energy"] = s["CALCULATOR"]["force"] = 0
-    s["CALCULATOR"]["stress"] = 0
-    with pytest.raises(NotImplementedError, match='"PAS"'):
-        FitSnap(s, arglist=["--overwrite"], device="cpu")
+    """Nonlinear ACE builds its calculator and the NN solver (it and PAS,
+    which raised here before, are held to the JAX package by
+    tests/test_torch_ace_nn.py and tests/test_torch_pas.py)."""
     a = synthetic.ace_settings(tmp_path)
     a["CALCULATOR"]["nonlinear"] = 1
     a["SOLVER"] = {"solver": "PYTORCH"}

@@ -23,7 +23,9 @@ with their tolerances (relative to the largest magnitude):
   B, targets and standardization 1e-12; `_forward_batch_cached` and
   `_loss` with its parameter gradient (one and two network elements)
   against the JAX ones, 1e-12; the gradient through `NnCachedForce`
-  against plain autograd, 1e-10; `nn_desc` against `nn_desc_fn`, 1e-12;
+  against plain autograd, 1e-10; `nn_desc` against `nn_desc_fn`, 1e-12,
+  also under chemflag (InP-shaped cells, two elements, wselfallflag 0 and
+  1, with and without quadraticflag);
 - whole cached fits, one element (the Ta set) and two (InP-shaped cells
   without chemflag, multi_element_option 1: the network index is zeroed,
   the atom types are not): loss curves 1e-10, `evaluate_bucket`, the
@@ -427,6 +429,56 @@ def test_nn_desc_equals_jax(prepared):
         *[jnp.asarray(a.numpy()) for a in args])
     assert rel(out, np.asarray(ref)) <= TOL
     assert rel(out, pb["B"][:n].numpy()) <= TOL
+
+
+@pytest.mark.parametrize("wself,quad", [(0, 0), (1, 1)])
+def test_nn_desc_chemflag_equals_jax(wself, quad):
+    """`nn_desc` under chemflag (K9 over the element channels, the
+    quadratic columns under quadraticflag) against the JAX package's
+    `nn_desc_fn` (`atom_descriptors_fast` over the channels) on three
+    jittered 8-atom InP-shaped cells at twojmax 4, the last with an
+    antisite and one atom fewer (a padded atom slot, its B zero)."""
+    from fitsnap_tpu.calculators import snap as jcalcs
+    from fitsnap_tpu.config import Config as JaxConfig
+    from fitsnap_tpu_torch.calculators import snap as tcalcs
+    from fitsnap_tpu_torch.config import Config
+
+    rng = np.random.default_rng(71)
+    dicts = []
+    for i, (pos, cell, names) in enumerate(
+            synthetic.inp_configs(5, {"Volume_ZB": 3})["Volume_ZB"]):
+        names = list(names)
+        if i == 2:
+            # an antisite, and a config of 7 atoms: one padded atom slot
+            names[0] = "P"
+            pos, names = pos[:7], names[:7]
+        n = len(pos)
+        dicts.append({"Positions": pos + rng.normal(0.0, 0.1, (n, 3)),
+                      "Lattice": cell, "AtomTypes": names, "NumAtoms": n,
+                      "Energy": 0.0, "Forces": np.zeros((n, 3)),
+                      "Group": "g", "File": f"{i}", "test_bool": 0})
+    s = synthetic.inp_settings("unused", groups=[])
+    s["BISPECTRUM"].update(twojmax="4 4", wselfallflag=wself,
+                           quadraticflag=quad)
+    tcalc = tcalcs.SnapCalculator("LAMMPSSNAP", Config(s, ["--overwrite"]),
+                                  "cpu")
+    jcalc = jcalcs.SnapCalculator("LAMMPSSNAP",
+                                  JaxConfig(s, ["--overwrite"]))
+    assert tcalc.params.nchem == 2
+    packed, buckets = tcalc.host_preprocess(dicts)
+    buckets = jcalcs.coalesce_shape_buckets(buckets, 1)
+    ((a_pad, k_pad), idxs), = buckets.items()
+    disp, jidx, mask, _, types, nat, _ = tcalcs.pack_bucket(
+        packed, idxs, a_pad, k_pad)
+    out = tcalc.nn_desc(*[torch.from_numpy(x)
+                          for x in (disp, jidx, mask, types, nat)])
+    ref = jax.vmap(jcalc.nn_desc_fn())(
+        jnp.asarray(disp), jnp.asarray(jidx), jnp.asarray(mask),
+        jnp.asarray(types), jnp.asarray(nat, jnp.int32))
+    assert out.shape == (3, a_pad, tcalc.desc_width())
+    assert tcalc.desc_width() == 112 + quad * 112 * 113 // 2
+    assert rel(out, np.asarray(ref)) <= TOL
+    assert not out[nat < a_pad][:, -1].any() and out.abs().max() > 0
 
 
 # ---------------------------------------------------------------------------
