@@ -252,7 +252,36 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    split of one epoch.  K9's element-channel mode also has kernel rows:
    at the InP chunk of phase 10 (7 x 64 x 96) and at one chunk of the
    chemflag PAS prep, each held to its plain version (1e-11), twice bit
-   for bit with its digest printed.
+   for bit with its digest printed;
+19. the host copies on the Ta-shaped set of phase 2: (a) the set written
+   as extended XYZ (one file a group, floats %.17g) and fitted through
+   FitSnap(device="cuda") with `scraper XYZ` and SVD, launch counts set to
+   0 just before and read just after: K1-K5 must launch as on phase 4's
+   path, A, b and w equal phase 4's row for row (configs matched by group
+   and energy) to 1e-10 relative per column, the fit within 100 cond eps
+   of phase 4's; (b) the set written as OUTCAR trees (two a group, its
+   configs as ionic steps) and fitted with `scraper VASP`, counted the
+   same way: A within 1e-10 of the plain path's on the same scraped dicts,
+   and a second run from the vJSON cache the same A; (c) FitSnap on the
+   XYZ set with each host solver that needs no sklearn: RIDGE
+   (`local_solver`), ANL, BCS, OPT, MCMC (3,000 steps) and MERR (BFGS),
+   BCS and MERR on the Displaced_FCC group alone (4,635 rows; MERR its
+   first half: BCS forms an N x N matrix of the training rows each
+   iteration, and MERR's BFGS on finite differences evaluates all rows
+   some 60 times a step; the set's first groups are perfect lattices,
+   whose weighted rows leave cond about 1e22), metrics written in the
+   JSON style and parsed back; each solver's coefficients within 100 cond(AᵀA) eps of the same
+   solver on the host with A_plain (each forms the weighted AᵀA; MCMC:
+   the chain's mean within 0.1, the bar of
+   tests/test_solvers.py::test_mcmc_solver_recovers_truth; BCS and MERR,
+   whose fits a 5e-15 difference in A moves by order 1: their rows within
+   1e-10 of A_plain's, the distance from the A_plain run printed); (d)
+   `python -m fitsnap_tpu_torch <ini> --torchprof DIR` on the card on the
+   Displaced_FCC group of the XYZ set, whose trace must name K1-K5's
+   kernels; (e) the torch finite-difference harness
+   (`tools/test_tools.TestTools`) on phase 12's precompute NN settings,
+   its largest error within the bar of 1e-5.  Each scraper's and each
+   solver's seconds are printed.
 
 Each NN phase's profiler split prints the port's kernels' launches in the
 profiled epoch beside their device ms (the cached epoch's K11T and gather
@@ -426,11 +455,13 @@ PATH_KERNELS = {"fitsnap": FITSNAP_KERNELS,
                 # launches there under "nn_ut_b_chem": its plan has two)
                 "pas_chem_fitsnap": ("nn_ut_b_chem",),
                 "pas_fitsnap": ("nn_ut_b",),
-                "pas_ace_fitsnap": ("ace_pair_basis", "ace_b_dbdd")}
+                "pas_ace_fitsnap": ("ace_pair_basis", "ace_b_dbdd"),
+                "xyz_fitsnap": FITSNAP_KERNELS,
+                "vasp_fitsnap": FITSNAP_KERNELS}
 # paths whose K4 launches are the rows', one a reference call
 ROWS_PATHS = ("fitsnap", "streamed", "ace_fitsnap", "ace_streamed",
               "quadratic_fitsnap", "quadratic_streamed", "chem_fitsnap",
-              "chem_streamed", "fe_fitsnap")
+              "chem_streamed", "fe_fitsnap", "xyz_fitsnap", "vasp_fitsnap")
 # the plan of K13's lmax-8 row (ranks 1-4, 171 A-slots), on the Ta chunk
 LMAX8_SHAPE = dict(numtypes=1, ranks=[1, 2, 3, 4], nmax=[8, 2, 2, 1],
                    lmax=[0, 8, 3, 2], lmin=[0, 0, 0, 0], nmaxbase=8,
@@ -515,6 +546,30 @@ DIAG_COL_OPS = 2
 # digests of kernels' outputs (to compare builds bit for bit), printed on
 # one line before the kernel table
 DIGESTS = {}
+# phase 19: the host solvers that need no sklearn, with their extra
+# settings (MCMC: the chain length of tests/test_solvers.py's MCMC test)
+HOST_SOLVERS = {"RIDGE": {"RIDGE": {"local_solver": 1}}, "ANL": {},
+                "BCS": {}, "OPT": {}, "MCMC": {"SOLVER": {"mcmc_num": 3000}},
+                "MERR": {"SOLVER": {"merr_sampler": "bfgs"}}}
+# BCS and MERR fit one group alone: BCS forms an N x N matrix of the
+# training rows each iteration, and MERR's BFGS on finite differences
+# costs some 60 evaluations of the whole set's rows a step (MERR: the
+# group's first half); the set's first groups are perfect lattices, whose
+# weighted rows leave cond about 1e22, so the group is Displaced_FCC (4,635
+# rows)
+SUBSET_GROUPS = {"BCS": {"Displaced_FCC": "1.0 0.0 100.0 1.0 1e-8"},
+                 "MERR": {"Displaced_FCC": "0.5 0.0 100.0 1.0 1e-8"}}
+# solvers whose fit a 5e-15 difference in A moves by 0.1-2 relative on
+# Displaced_FCC (one H100): BCS picks its basis by argmax and divides by
+# alpha - S where the two cancel, MERR's BFGS on finite-difference
+# gradients stops at gtol 1e-3; on the card path their rows are held to
+# A_plain's (A_RTOL) and their distance from the same solver on A_plain is
+# printed
+PATH_DEPENDENT = ("BCS", "MERR")
+MCMC_MEAN_TOL = 0.1         # tests/test_solvers.py's MCMC bar (absolute)
+# the kernel names of K1-K5 that a --torchprof trace of a SNAP fit must hold
+TRACE_KERNELS = ("pair_u_duals_kernel", "zlist_kernel", "dbdd_kernel",
+                 "scatter_rows_kernel", "ref_eav_kernel")
 # the profiler's kernel name of a wrapper, where it is not <wrapper>_kernel
 KERNEL_FN = {"nn_force": "nn_fpair_kernel", "zbl_eav": "ref_eav_kernel",
              "nn_pair_gather": "nn_gather_kernel",
@@ -3217,6 +3272,361 @@ def custom_export_check(fs):
     return {"pt_rel_err": float(err)}
 
 
+# ---------------------------------------------------------------------------
+# host copies: XYZ and VASP scrapers, host solvers, --torchprof, FD harness
+# ---------------------------------------------------------------------------
+
+
+def g17(x):
+    """Floats as %.17g, space-separated: they read back exactly."""
+    return " ".join(f"{v:.17g}" for v in np.ravel(x))
+
+
+def json_set(root):
+    """{group: [config dict]} of a FitSNAP JSON set, each group's configs
+    in the JSON scraper's (sorted file name) order."""
+    return {folder.name: [
+        json.loads(f.read_text())["Dataset"]["Data"][0]
+        for f in sorted(folder.iterdir()) if f.suffix == ".json"]
+        for folder in sorted(Path(root).iterdir()) if folder.is_dir()}
+
+
+def write_xyz_set(configs, root):
+    """One extended-XYZ file a group (`<group>.extxyz`), its frames in the
+    JSON scraper's order."""
+    root.mkdir(parents=True, exist_ok=True)
+    for group, confs in configs.items():
+        lines = []
+        for c in confs:
+            lines += [str(c["NumAtoms"]),
+                      f'Lattice="{g17(c["Lattice"])}" '
+                      "Properties=species:S:1:pos:R:3:forces:R:3 "
+                      f'energy={c["Energy"]:.17g} stress="{g17(c["Stress"])}"'
+                      ' pbc="T T T"']
+            lines += [f"{t} {g17(p)} {g17(f)}" for t, p, f in zip(
+                c["AtomTypes"], c["Positions"], c["Forces"])]
+        (root / f"{group}.extxyz").write_text("\n".join(lines) + "\n")
+
+
+def write_vasp_set(configs, root):
+    """Each group as two OUTCAR trees (`<group>/run_a/OUTCAR` holds the
+    first half of its configs as ionic steps, `<group>/run_b/relax/OUTCAR`
+    the rest) in the layout the VASP scraper reads, stress in kB."""
+    for group, confs in configs.items():
+        half = (len(confs) + 1) // 2
+        for rel, part in (("run_a/OUTCAR", confs[:half]),
+                          ("run_b/relax/OUTCAR", confs[half:])):
+            if not part:
+                continue
+            out = [f"   VRHFIN ={part[0]['AtomTypes'][0]}: synthetic",
+                   f"   ions per type =  {part[0]['NumAtoms']}"]
+            for c in part:
+                s = np.asarray(c["Stress"]) / 1000.0
+                out += ["  aborting loop because EDIFF is reached",
+                        " direct lattice vectors        reciprocal lattice "
+                        "vectors"]
+                out += [f"  {g17(v)}  0 0 0" for v in c["Lattice"]]
+                out.append("  in kB  " + g17([s[0, 0], s[1, 1], s[2, 2],
+                                               s[0, 1], s[1, 2], s[2, 0]]))
+                out += [" POSITION          TOTAL-FORCE (eV/Angst)",
+                        " " + "-" * 80]
+                out += [f"  {g17(p)}  {g17(f)}"
+                        for p, f in zip(c["Positions"], c["Forces"])]
+                e = f"{c['Energy']:.17g}"
+                out += [" " + "-" * 80,
+                        "  FREE ENERGIE OF THE ION-ELECTRON SYSTEM (eV)",
+                        "  " + "-" * 50,
+                        f"  free  energy   TOTEN  =  {e} eV", "",
+                        f"  energy  without entropy=  {e}  "
+                        f"energy(sigma->0) =  {e}"]
+            path = root / group / rel
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_text("\n".join(out) + "\n")
+
+
+def config_rows(fs):
+    """{(group, energy): the row indices of its config} of a FitSnap's A,
+    from its data order (an energy row, 3N force rows, 6 stress rows a
+    config), held to its Row_Type list."""
+    out, types, r = {}, [], 0
+    for d in fs.data:
+        n = d["NumAtoms"]
+        key = (d["Group"], float(d["Energy"]))
+        if key in out:
+            raise AssertionError(f"two configs share the key {key}")
+        out[key] = np.arange(r, r + 1 + 3 * n + 6)
+        types += ["Energy"] + ["Force"] * (3 * n) + ["Stress"] * 6
+        r += 1 + 3 * n + 6
+    if types != list(fs.fs_dict["Row_Type"]):
+        raise AssertionError("rows are not one energy, 3N force and 6 "
+                             "stress rows a config, in data order")
+    return out
+
+
+def col_err(x, ref):
+    """Largest difference over each column's largest |ref|."""
+    x, ref = np.asarray(x, float), np.asarray(ref, float)
+    if x.shape != ref.shape:
+        raise AssertionError(f"shape {x.shape} != {ref.shape}")
+    x, ref = x.reshape(len(x), -1), ref.reshape(len(ref), -1)
+    scale = np.maximum(np.abs(ref).max(0), 1e-300)
+    return float((np.abs(x - ref).max(0) / scale).max())
+
+
+def fitsnap_run(settings, ini, device):
+    """FitSnap on `settings` (written to `ini`): scrape, process, fit,
+    output, the launch counts set to 0 just before and read just after;
+    returns (the FitSnap, counts, wall seconds)."""
+    import torch
+    from fitsnap_tpu_torch import FitSnap
+    from fitsnap_tpu_torch.tools import synthetic
+
+    synthetic.write_ini(ini, settings)
+    reset_launches()
+    t0 = time.time()
+    fs = FitSnap(str(ini), arglist=["--overwrite"], device=device)
+    fs.scrape_configs()
+    fs.process_configs()
+    fs.perform_fit()
+    fs.write_output()
+    torch.cuda.synchronize()
+    return fs, launches(), time.time() - t0
+
+
+def xyz_settings(root, groups=None):
+    """The Ta_Linear_JCP2014 sections on the XYZ set (`groups`: all)."""
+    from fitsnap_tpu_torch.tools import synthetic
+
+    s = synthetic.ta_settings(root, groups)
+    s["SCRAPER"] = {"scraper": "XYZ"}
+    return s
+
+
+def xyz_check(tmp, ref, device):
+    """Phase 19 (a): the XYZ set through FitSnap against phase 4's fit."""
+    fs, counts, wall = fitsnap_run(xyz_settings(Path(tmp) / "XYZ"),
+                                   Path(tmp) / "xyz.in", device)
+    check_launched(counts, "xyz_fitsnap")
+    got = {k: counts[k] for k in FITSNAP_KERNELS}
+    want = {k: ref["counts"][k] for k in FITSNAP_KERNELS}
+    if got != want:
+        raise AssertionError(f"K1-K5 launched {got} on the XYZ path, {want} "
+                             f"on phase 4's")
+    rows = config_rows(fs)
+    if set(rows) != set(ref["rows"]):
+        raise AssertionError("the XYZ and JSON sets hold other configs")
+    # this run's rows in phase 4's config order
+    order = np.concatenate([rows[k] for k in ref["rows"]])
+    errs = {name: col_err(getattr(fs, name)[order], ref[name])
+            for name in ("a", "b", "w")}
+    if not np.array_equal(np.asarray(fs.fs_dict["Testing"])[order],
+                          ref["testing"]):
+        raise AssertionError("the XYZ and JSON scrapers split the groups "
+                             "into other training and testing configs")
+    tol = 100 * ref["cond"] * EPS64
+    beta_err = float(np.abs(fs.fit - ref["fit"]).max()
+                     / np.abs(ref["fit"]).max())
+    print(f"xyz path: A / b / w against phase 4's {errs}, fit {beta_err:.3e}"
+          f" (limit {tol:.3e}); scrape {fs.timings['scrape']:.3f} s (JSON, "
+          f"phase 4: {ref['scrape']:.3f} s)", flush=True)
+    if not (max(errs.values()) <= A_RTOL and beta_err <= tol):
+        raise AssertionError(f"the XYZ fit differs from phase 4's: {errs}, "
+                             f"fit {beta_err:.3e} (limit {tol:.3e})")
+    checks = {"rows_rel_err": errs, "fit_rel_err": beta_err,
+              "fit_tol": tol, "order_is_phase4s": bool(
+                  np.array_equal(order, np.arange(len(order))))}
+    return fs, counts, dict(fs.timings, wall=wall), checks
+
+
+def vasp_check(tmp, configs, device):
+    """Phase 19 (b): the set as OUTCAR trees through FitSnap, then again
+    from the vJSON cache."""
+    from fitsnap_tpu_torch.tools import synthetic
+
+    root = Path(tmp) / "VASP"
+    write_vasp_set(configs, root)
+    s = synthetic.ta_settings(root)
+    s["SCRAPER"] = {"scraper": "VASP"}
+    s["GROUPS"]["vasp_json_pathname"] = str(Path(tmp) / "vJSON")
+    fs, counts, wall = fitsnap_run(s, Path(tmp) / "vasp.in", device)
+    check_launched(counts, "vasp_fitsnap")
+    a_plain = fs.calculator.process_configs(fs.data, plain=True)[0]
+    a_err = col_err(fs.a, a_plain)
+    cached = len(list((Path(tmp) / "vJSON").rglob("*.json")))
+    fs2, _, wall2 = fitsnap_run(s, Path(tmp) / "vasp.in", device)
+    again = col_err(fs2.a, fs.a)
+    times = {"scrape": fs.timings["scrape"],
+             "scrape_cached": fs2.timings["scrape"]}
+    print(f"vasp path: A against the plain path's {a_err:.3e}, from the "
+          f"cache {again:.3e} ({cached} vJSON files); scrape "
+          f"{times['scrape']:.3f} s, from the cache "
+          f"{times['scrape_cached']:.3f} s", flush=True)
+    if not (a_err <= A_RTOL and again <= A_RTOL
+            and cached == len(fs.data) == sum(map(len, configs.values()))):
+        raise AssertionError(f"the VASP path: A {a_err:.3e}, cached A "
+                             f"{again:.3e}, {cached} cache files for "
+                             f"{len(fs.data)} configs")
+    checks = {"a_rel_err": a_err, "cached_a_rel_err": again,
+              "rows": int(fs.a.shape[0]), "configs": len(fs.data)}
+    return counts, dict(fs.timings, wall=wall, wall_cached=wall2,
+                        scrape_cached=fs2.timings["scrape"]), checks
+
+
+def host_lstsq(a, fs):
+    """numpy's lstsq of a FitSnap's weighted training rows with `a`."""
+    train = ~np.asarray(fs.fs_dict["Testing"])
+    return np.linalg.lstsq(fs.w[train][:, None] * a[train],
+                           fs.w[train] * fs.b[train], rcond=SVD_RCOND)[0]
+
+
+def solver_checks(tmp, ref, a_plain, device):
+    """Phase 19 (c): FitSnap on the XYZ set with each host solver that
+    needs no sklearn, against the same solver on the host with A_plain."""
+    out = {}
+    for name, extra in HOST_SOLVERS.items():
+        s = xyz_settings(Path(tmp) / "XYZ",
+                         [] if name in SUBSET_GROUPS else None)
+        s["GROUPS"].update(SUBSET_GROUPS.get(name, {}))
+        s["SOLVER"] = {"solver": name}
+        s["OUTFILE"] = {"metrics": f"Ta_{name}_metrics.json",
+                        "potential": f"Ta_{name}_pot",
+                        "metrics_style": "JSON"}
+        for section, kv in extra.items():
+            s.setdefault(section, {}).update(kv)
+        fs, _, wall = fitsnap_run(s, Path(tmp) / f"xyz_{name}.in", device)
+        metrics = json.loads(Path(f"Ta_{name}_metrics.json").read_text())
+        if set(metrics) != {"ncount", "mae", "rmse", "rsq"} or not all(
+                np.isfinite(v) for c in ("ncount", "mae", "rmse")
+                for v in metrics[c].values()):
+            raise AssertionError(f"{name}: the JSON metrics read back "
+                                 f"wrong: {sorted(metrics)}")
+        rows = config_rows(fs)
+        a_host = a_plain[np.concatenate([ref["rows"][k] for k in rows])]
+        host = type(fs.solver)(name, fs.config)
+        t0 = time.time()
+        host.perform_fit(a_host, fs.b, fs.w, fs.fs_dict)
+        host_s = time.time() - t0
+        train = ~np.asarray(fs.fs_dict["Testing"])
+        sv = np.linalg.svd(fs.w[train][:, None] * a_host[train],
+                           compute_uv=False)
+        # each of these solvers forms the weighted normal matrix AᵀA (RIDGE,
+        # ANL, BCS and MERR factor it, OPT steps on its gradient), so a
+        # difference in A reaches the fit through cond(AᵀA) = cond(A)²
+        cond = float(sv[0] / sv[-1]) ** 2
+        apart = float(np.abs(fs.fit - host.fit).max()
+                      / np.abs(host.fit).max())
+        if name == "MCMC":
+            err = float(np.abs(fs.solver.fit_sam.mean(0)
+                               - host.fit_sam.mean(0)).max())
+            tol = MCMC_MEAN_TOL
+        elif name in PATH_DEPENDENT:
+            err = col_err(fs.a, a_host)
+            tol = A_RTOL
+            print(f"solver {name}: its rows against A_plain's {err:.3e}; "
+                  f"its fit against {name} on A_plain {apart:.3e} "
+                  f"(context)", flush=True)
+        else:
+            err, tol = apart, 100 * cond * EPS64
+        if name == "OPT":
+            from fitsnap_tpu_torch.solvers.linear import _solver_rng
+            x0 = _solver_rng(fs.config).standard_normal(fs.a.shape[1])
+            print(f"solver OPT: moved {np.abs(fs.fit - x0).max():.3e} from "
+                  f"its seeded start; lstsq's fit is "
+                  f"{np.abs(fs.fit - host_lstsq(a_host, fs)).max():.3e} "
+                  f"from it (context)", flush=True)
+        out[name] = {"fit_s": fs.timings["fit"], "host_fit_s": host_s,
+                     "wall_s": wall, "rows": int(fs.a.shape[0]),
+                     "cond_ata": cond, "err": err, "tol": tol,
+                     "fit_rel_diff_a_plain": apart,
+                     "metrics_groups": len(metrics["mae"])}
+        print(f"solver {name}: {fs.timings['fit']:.3f} s on the card path "
+              f"(the host solver on A_plain {host_s:.3f} s), "
+              f"{fs.a.shape[0]} rows, checked {err:.3e} (limit {tol:.3e}, "
+              f"cond(AᵀA) {cond:.3e})", flush=True)
+        if not (np.isfinite(fs.fit).all() and err <= tol):
+            raise AssertionError(f"{name}: the card path's fit differs from "
+                                 f"the host's: {err:.3e} > {tol:.3e}")
+    return out
+
+
+def torchprof_check(tmp, root, device):
+    """Phase 19 (d): the CLI with --torchprof on the card; its trace must
+    name K1-K5's kernels."""
+    from fitsnap_tpu_torch.tools import synthetic
+
+    run = Path(tmp) / "torchprof_run"
+    run.mkdir()
+    # one group of the XYZ set: the trace needs K1-K5, not the whole set
+    ini = run / "xyz_prof.in"
+    s = xyz_settings(Path(tmp) / "XYZ", [])
+    s["GROUPS"].update(SUBSET_GROUPS["BCS"])
+    synthetic.write_ini(ini, s)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "fitsnap_tpu_torch", str(ini),
+         "--overwrite", "--device", device, "--torchprof",
+         str(run / "trace")],
+        cwd=run, env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"--torchprof run failed:\n{proc.stderr[-3000:]}")
+    traces = list((run / "trace").glob("*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"--torchprof wrote {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    names = {e["name"] for e in events if e.get("cat") == "kernel"}
+    found = {k: sum(k in n for n in names) > 0 for k in TRACE_KERNELS}
+    stages = " ".join(" ".join(line.split()) for line in
+                      proc.stdout.splitlines()[-4:])
+    print(f"--torchprof: {seconds:.1f} s (its stages: {stages}), trace "
+          f"{traces[0].stat().st_size} B, {len(names)} kernel names, K1-K5 "
+          f"named: {found}", flush=True)
+    if not all(found.values()):
+        raise AssertionError(f"the --torchprof trace lacks {found}")
+    return {"torchprof_s": seconds, "trace_bytes": traces[0].stat().st_size,
+            "trace_kernel_names": len(names)}
+
+
+def fd_harness_check(tmp, device):
+    """Phase 19 (e): tools/test_tools.TestTools on phase 12's precompute
+    NN settings on the card."""
+    from fitsnap_tpu_torch.tools import synthetic
+    from fitsnap_tpu_torch.tools.test_tools import TestTools
+
+    t0 = time.time()
+    tt = TestTools(synthetic.nn_settings(Path(tmp) / "JSON"), device=device)
+    mean, worst, details = tt.finite_difference(
+        "Displaced_BCC", config_index=0, max_atoms=2)
+    seconds = time.time() - t0
+    print(f"FD harness (TestTools, h=1e-5): mean error {mean:.3e}, max "
+          f"{worst:.3e} (bar {FD_BAR}) over {len(details)} coordinates, "
+          f"{seconds:.1f} s", flush=True)
+    if not (tt.fs.solver.device.type == device and worst < FD_BAR):
+        raise AssertionError(f"FD harness: max error {worst:.3e}")
+    return {"fd_harness_mean_err": mean, "fd_harness_max_err": worst,
+            "fd_harness_s": seconds}
+
+
+def host_copies_phase(tmp, ref, a_plain, root, device="cuda"):
+    """Phase 19: the XYZ and VASP paths, the host solvers, --torchprof and
+    the FD harness on the Ta set of phase 2; returns the paths' (counts,
+    timings, checks)."""
+    t0 = time.time()
+    configs = json_set(Path(tmp) / "JSON")
+    write_xyz_set(configs, Path(tmp) / "XYZ")
+    fs, counts, times, checks = xyz_check(tmp, ref, device)
+    del fs
+    paths = {"vasp_fitsnap": vasp_check(tmp, configs, device)}
+    checks["solvers"] = solver_checks(tmp, ref, a_plain, device)
+    checks.update(torchprof_check(tmp, root, device),
+                  **fd_harness_check(tmp, device))
+    paths["xyz_fitsnap"] = (counts, times, checks)
+    print(f"host copies phase: {time.time() - t0:.1f} s", flush=True)
+    return paths
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3268,6 +3678,15 @@ def main():
                 del fs0, data
                 torch.cuda.empty_cache()
                 fs, *fitsnap = main_path(ini, a_plain, beta, "cuda", kind)
+                if kind == "snap":
+                    # phase 4's rows and fit, for phase 19
+                    snap_ref = {
+                        "a": fs.a, "b": fs.b, "w": fs.w, "fit": fs.fit,
+                        "testing": np.asarray(fs.fs_dict["Testing"]),
+                        "rows": config_rows(fs), "counts": fitsnap[0],
+                        "cond": fitsnap[2]["cond_weighted_a"],
+                        "scrape": fs.timings["scrape"]}
+                    snap_a_plain = a_plain
                 streamed = streamed_path(fs, a_plain, beta, args.seed,
                                          "cuda", kind)
                 paths[FITSNAP_PATH[kind]] = fitsnap
@@ -3378,6 +3797,10 @@ def main():
                 paths[NN_PATH[mode]] = (counts, times, checks)
                 del fs
                 torch.cuda.empty_cache()
+            # the host copies: XYZ and VASP scrapers, host solvers,
+            # --torchprof and the FD harness on the Ta set of phase 2
+            paths.update(host_copies_phase(tmp, snap_ref, snap_a_plain,
+                                           root))
         finally:
             os.chdir(cwd)
     seconds = ("pack", "upload", "first_pass", "steady_pass", "solve",

@@ -64,6 +64,10 @@ def parse_cmdline(arglist=None):
     parser.add_argument("--device", choices=("cuda", "cpu"), default=None,
                         help="device to compute on (default cuda; cpu only "
                              "when asked for)")
+    parser.add_argument("--torchprof", default=None, metavar="DIR",
+                        help="capture a torch.profiler trace of the run "
+                             "(CUDA activity on the card) into DIR as a "
+                             "Chrome trace (chrome://tracing, Perfetto)")
     return parser.parse_args(arglist if arglist else None)
 
 

@@ -3,13 +3,15 @@
 Counterpart of `fitsnap_tpu/fitsnap.py` with the same factories and stage
 methods: `FitSnap(input, arglist, device).scrape_configs()`,
 `.process_configs()`, `.perform_fit()`, `.write_output()`.  The port takes
-the JSON scraper, the LAMMPSSNAP, LAMMPSPACE and LAMMPSCUSTOM calculators,
-the SVD, TPUSVD / SCALAPACK and TENSORFLOWSVD solvers, the NN solver
-(PYTORCH / NETWORK / JAX) on LAMMPSSNAP descriptors in its cached, OTF and
-precompute modes, on LAMMPSPACE descriptors (nonlinear ACE) in its OTF and
-precompute modes and as the custom pairwise NN on LAMMPSCUSTOM, and SNAP,
-PACE and CUSTOM output; any other choice raises NotImplementedError naming
-its ROADMAP item by title.
+the JSON, XYZ and VASP scrapers, the LAMMPSSNAP, LAMMPSPACE and
+LAMMPSCUSTOM calculators, every solver of the JAX package: the host ones
+(SVD, RIDGE, LASSO, ARD, ANL, BCS, MCMC, OPT, MERR), the device ones
+(TPUSVD / SCALAPACK, TENSORFLOWSVD) and the NN solver (PYTORCH / NETWORK
+/ JAX) on LAMMPSSNAP descriptors in its cached, OTF and precompute modes,
+on LAMMPSPACE descriptors (nonlinear ACE) in its OTF and precompute modes
+and as the custom pairwise NN on LAMMPSCUSTOM, and SNAP, PACE and CUSTOM
+output; any other choice raises NotImplementedError naming its ROADMAP
+item by title.
 """
 
 import time
@@ -27,8 +29,13 @@ def _scraper_factory(config):
     if name == "JSON":
         from fitsnap_tpu_torch.scrapers.json_scraper import JsonScraper
         return JsonScraper(name, config)
-    raise NotImplementedError(_LATER.format(
-        "scraper", name, "Host copies"))
+    if name == "XYZ":
+        from fitsnap_tpu_torch.scrapers.xyz_scraper import XyzScraper
+        return XyzScraper(name, config)
+    if name == "VASP":
+        from fitsnap_tpu_torch.scrapers.vasp_scraper import VaspScraper
+        return VaspScraper(name, config)
+    raise NotImplementedError(f"scraper {name}")
 
 
 def _calculator_factory(config, device):
@@ -46,11 +53,27 @@ def _calculator_factory(config, device):
                                             "Modules to port"))
 
 
+# the host solvers, numpy (and scipy or sklearn inside their methods)
+_HOST_SOLVERS = {
+    "SVD": "svd:SVD",
+    "RIDGE": "linear:Ridge",
+    "LASSO": "linear:Lasso",
+    "ARD": "linear:ARD",
+    "ANL": "linear:ANL",
+    "BCS": "linear:BCS",
+    "MCMC": "linear:MCMC",
+    "OPT": "linear:OPT",
+    "MERR": "merr:MERR",
+}
+
+
 def _solver_factory(config, device):
     name = config.sections["SOLVER"].solver.upper()
-    if name == "SVD":
-        from fitsnap_tpu_torch.solvers.svd import SVD
-        return SVD(name, config)
+    if name in _HOST_SOLVERS:
+        import importlib
+        mod_name, cls_name = _HOST_SOLVERS[name].split(":")
+        mod = importlib.import_module(f"fitsnap_tpu_torch.solvers.{mod_name}")
+        return getattr(mod, cls_name)(name, config)
     if name == "TENSORFLOWSVD":
         from fitsnap_tpu_torch.solvers.svd import TfSVD
         return TfSVD(name, config, device)
@@ -60,8 +83,7 @@ def _solver_factory(config, device):
     if name in ("PYTORCH", "NETWORK", "JAX"):
         from fitsnap_tpu_torch.solvers.network import NetworkSolver
         return NetworkSolver(name, config, device)
-    raise NotImplementedError(_LATER.format(
-        "solver", name, "Host copies"))
+    raise NotImplementedError(f"solver {name}")
 
 
 def _output_factory(config):

@@ -209,7 +209,9 @@ class SnapOutput:
     # ---------------- metrics ----------------
 
     def write_errors(self, errors):
-        """Write the grouped error table (`solvers.solver.ErrorTable`)."""
+        """Write the grouped error table (`solvers.solver.ErrorTable`):
+        MD, CSV, SSV and JSON as text, DF as the JAX package's pickled
+        pandas DataFrame."""
         if isinstance(errors, list):
             return
         fname = self.config.sections["OUTFILE"].metric_file
@@ -220,9 +222,12 @@ class SnapOutput:
             text = errors.to_markdown()
         elif style in ("CSV", "SSV"):
             text = errors.to_csv(sep="," if style == "CSV" else " ")
+        elif style == "JSON":
+            text = errors.to_json()
+        elif style == "DF":
+            errors.to_dataframe().to_pickle(fname)
+            return
         else:
-            raise NotImplementedError(
-                f"metrics style {style} is not ported to fitsnap_tpu_torch "
-                'yet (ROADMAP.md: "Host copies")')
+            raise NotImplementedError(f"metrics style {style}")
         with open(fname, "wt") as f:
             f.write(text)

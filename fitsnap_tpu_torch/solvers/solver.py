@@ -4,8 +4,11 @@ Counterpart of `fitsnap_tpu/solvers/solver.py`.  The grouped error table
 (ncount/mae/rmse/rsq, unweighted and weighted, `*ALL` plus per group) has
 the same index structure, Group / Weighting / Testing / Subsystem, and the
 same numbers; it is computed with numpy and kept in a small `ErrorTable`
-instead of a pandas DataFrame.
+instead of a pandas DataFrame.  pandas is imported only where a DataFrame
+is asked for: `dump_dataframe` and the DF metric style.
 """
+
+import json
 
 import numpy as np
 
@@ -57,6 +60,65 @@ class ErrorTable:
         for key, v in zip(self.index, self.values):
             lines.append(sep.join(list(key) + self._cells(v, "{:.8f}")))
         return "\n".join(lines) + "\n"
+
+    def to_json(self):
+        """The text of pandas' `DataFrame.to_json()` of the JAX package's
+        table: {column: {str(index tuple): value}}, counts as integers,
+        other values as pandas writes them (`_json_double`), NaN and
+        infinities as null."""
+        keys = [_json_string(str(tuple(k))) for k in self.index]
+        cols = []
+        for j, c in enumerate(self.columns):
+            cells = (str(int(x)) if c.startswith("ncount") else
+                     _json_double(x) for x in self.values[:, j])
+            cols.append(_json_string(c) + ":{" + ",".join(
+                f"{k}:{v}" for k, v in zip(keys, cells)) + "}")
+        return "{" + ",".join(cols) + "}"
+
+    def to_dataframe(self):
+        """The JAX package's pandas DataFrame of this table."""
+        import pandas as pd
+
+        index = pd.MultiIndex.from_tuples(self.index, names=self.index_names)
+        return pd.DataFrame(
+            {c: (self.values[:, j].astype(np.int64) if c.startswith("ncount")
+                 else self.values[:, j])
+             for j, c in enumerate(self.columns)}, index=index)
+
+
+def _json_string(s):
+    """A JSON string as pandas' encoder writes it (ASCII, '/' escaped)."""
+    return json.dumps(s).replace("/", "\\/")
+
+
+def _json_double(x, precision=10):
+    """A float as pandas' `to_json` writes it at its default
+    `double_precision` of 10: NaN and infinities as null, magnitudes above
+    1e16 - 1 or below 1e-15 in printf's %.10g, the rest in fixed point
+    rounded to 10 decimals (half to odd, or up from a zero fraction) with
+    trailing zeros dropped."""
+    x = float(x)
+    if x != x or x in (float("inf"), float("-inf")):
+        return "null"
+    neg = x < 0
+    value = -x if neg else x
+    if value > 1e16 - 1 or (value != 0.0 and value < 1e-15):
+        return f"{x:.{precision}g}"
+    pow10 = 10 ** precision
+    whole = int(value)
+    tmp = (value - whole) * float(pow10)
+    frac = int(tmp)
+    diff = tmp - frac
+    if diff > 0.5 or (diff == 0.5 and (frac == 0 or frac & 1)):
+        frac += 1
+    if frac >= pow10:
+        frac = 0
+        whole += 1
+    if frac:
+        digits = str(frac).rjust(precision, "0").rstrip("0")
+    else:
+        digits = "0"
+    return ("-" if neg else "") + f"{whole}.{digits}"
 
 
 def _group_errors(truths, preds, weights):
@@ -117,7 +179,10 @@ class Solver:
         self.config = config
         self.name = name
         self.fit = None
+        self.fit_sam = None
+        self.cov = None
         self.errors = []
+        self.df = None
         self.linear = linear
 
     def perform_fit(self, a, b, w, fs_dict):
@@ -141,13 +206,32 @@ class Solver:
         fit = self.fit.reshape(num_types, ncoeff)
         fit = np.concatenate([np.zeros((num_types, 1)), fit], axis=1)
         self.fit = fit.reshape(-1)
+        if self.fit_sam is not None:
+            nsam = self.fit_sam.shape[0]
+            fs = self.fit_sam.reshape(nsam, num_types, ncoeff)
+            fs = np.concatenate([np.zeros((nsam, num_types, 1)), fs], axis=2)
+            self.fit_sam = fs.reshape(nsam, -1)
+
+    def dump_dataframe(self, a, b, w, fs_dict):
+        """Pickle the JAX package's per-row DataFrame (A's columns,
+        truths, preds when fitted, weights and fs_dict's per-row lists) to
+        OUTFILE's dataframe_file; it stays in `self.df`."""
+        from pandas import DataFrame
+
+        self.df = DataFrame(a)
+        self.df["truths"] = b.tolist()
+        if self.fit is not None:
+            self.df["preds"] = a @ self.fit
+        self.df["weights"] = w.tolist()
+        for key, val in fs_dict.items():
+            if isinstance(val, list) and len(val) == len(self.df.index):
+                self.df[key] = val
+        self.df.to_pickle(self.config.sections["OUTFILE"].dataframe_file)
 
     def error_analysis(self, a, b, w, fs_dict):
         self.errors = []
         if self.config.sections["EXTRAS"].dump_dataframe:
-            raise NotImplementedError(
-                "dump_dataframe writes a pandas DataFrame, which "
-                'fitsnap_tpu_torch does not use (ROADMAP.md: "Host copies")')
+            self.dump_dataframe(a, b, w, fs_dict)
         if self.fit is None:
             return
         self.errors = error_table(

@@ -12,7 +12,13 @@
   K15 with K15V and K15T (`pair_desc.cu`), each naming the JAX function it
   replaces, built for sm_90a; the chemflag modes of K1-K3 share their
   sources.
-- `FitSnap` fits on the CPU with every linear solver the port registers.
+- `FitSnap` fits on the CPU with every linear solver the port registers:
+  the device ones and the host ones (SVD, RIDGE, LASSO, ARD, ANL, BCS,
+  MCMC, OPT, MERR).
+- With sklearn, pandas and matplotlib blocked, as on the machine with the
+  card, every module imports and `FitSnap` fits on the CPU with the XYZ
+  and VASP scrapers and every solver that needs no sklearn; LASSO and ARD
+  raise ModuleNotFoundError naming sklearn, the DF metric style pandas.
 - `chip_smoke.py` exits non-zero and prints no result without a card.
 """
 
@@ -67,7 +73,20 @@ def test_imports_neither_jax_nor_fitsnap_tpu():
             "fitsnap_tpu_torch.ops.custom_desc",
             "fitsnap_tpu_torch.kernels.custom_kernels",
             "fitsnap_tpu_torch.calculators.custom",
-            "fitsnap_tpu_torch.io.outputs.custom_output"} <= set(mods)
+            "fitsnap_tpu_torch.io.outputs.custom_output",
+            "fitsnap_tpu_torch.scrapers.xyz_scraper",
+            "fitsnap_tpu_torch.scrapers.vasp_scraper",
+            "fitsnap_tpu_torch.scrapers.ase_funcs",
+            "fitsnap_tpu_torch.solvers.linear",
+            "fitsnap_tpu_torch.solvers.merr",
+            "fitsnap_tpu_torch.tools.config_convert",
+            "fitsnap_tpu_torch.tools.group_tools",
+            "fitsnap_tpu_torch.tools.ace_defaults",
+            "fitsnap_tpu_torch.tools.vasp2json",
+            "fitsnap_tpu_torch.tools.potential_tools",
+            "fitsnap_tpu_torch.tools.dataframe_tools",
+            "fitsnap_tpu_torch.tools.nn_tools",
+            "fitsnap_tpu_torch.tools.test_tools"} <= set(mods)
     proc = run_python(f"""
         import importlib, json, sys
         for name in {mods!r}:
@@ -384,6 +403,120 @@ def test_device_solvers_fit_on_cpu(tmp_path, solver):
     ref, *_ = np.linalg.lstsq(aw, fs.w * fs.b, rcond=None)
     resid = np.linalg.norm(aw @ fs.fit - fs.w * fs.b)
     assert resid <= 1.0001 * np.linalg.norm(aw @ ref - fs.w * fs.b) + 1e-12
+
+
+# the host solvers and the class each factory name gives
+HOST_SOLVERS = {"SVD": "SVD", "RIDGE": "Ridge", "LASSO": "Lasso",
+                "ARD": "ARD", "ANL": "ANL", "BCS": "BCS", "MCMC": "MCMC",
+                "OPT": "OPT", "MERR": "MERR"}
+
+
+def host_solver_settings(root, solver):
+    """Six jittered 4-atom bcc cells with seeded truths, fitted at twojmax
+    4 with `solver` (short chains for MCMC and MERR's sampler)."""
+    rng = np.random.default_rng(4)
+    (root / "Cells").mkdir(parents=True, exist_ok=True)
+    for i in range(6):
+        pos, cell = synthetic.supercell(synthetic.BCC, 3.1 + 0.06 * i,
+                                        (1, 1, 2))
+        pos = pos + rng.normal(0.0, 0.08, pos.shape)
+        (root / "Cells" / f"c{i}.json").write_text(synthetic.config_json(
+            pos, cell, energy=-47.0 + i, forces=rng.normal(0, 0.2, (4, 3)),
+            stress=np.diag(rng.normal(0, 1e3, 3))))
+    s = synthetic.ta_settings(root, groups=[])
+    s["BISPECTRUM"]["twojmax"] = 4
+    s["GROUPS"]["Cells"] = "1.0 0.0 1.0 1.0 1e-4"
+    s["SOLVER"] = {"solver": solver, "mcmc_num": 300, "nsam": 5}
+    return s
+
+
+@pytest.mark.parametrize("solver", list(HOST_SOLVERS))
+def test_host_solvers_fit_on_cpu(tmp_path, solver, monkeypatch):
+    """`FitSnap` with each host solver fits on `device="cpu"`: the JAX
+    factory's class, finite coefficients, the same as the class gives on
+    the facade's rows (every solver here is seeded or deterministic)."""
+    from fitsnap_tpu_torch import FitSnap
+
+    monkeypatch.chdir(tmp_path)
+    fs = FitSnap(host_solver_settings(tmp_path / "JSON", solver),
+                 arglist=["--overwrite"], device="cpu")
+    fs.scrape_configs()
+    fs.process_configs()
+    fs.perform_fit()
+    fs.write_output()
+    assert type(fs.solver).__name__ == HOST_SOLVERS[solver]
+    assert fs.fit.shape == (15,) and np.isfinite(fs.fit).all()
+    ref = type(fs.solver)(solver, fs.config)
+    ref.perform_fit(fs.a, fs.b, fs.w, fs.fs_dict)
+    assert np.array_equal(fs.fit, ref.fit)
+    assert (tmp_path / "Ta_metrics.md").exists()
+
+
+def test_blocked_sklearn_pandas_matplotlib(tmp_path):
+    """As on the machine with the card: every module of the port imports,
+    and `FitSnap` fits on the CPU with the XYZ and VASP scrapers and every
+    solver that needs no sklearn (RIDGE falls back to its local normal
+    equations); LASSO and ARD raise naming sklearn, the DF metric style
+    and `dump_dataframe` naming pandas."""
+    from tests.test_torch_scrapers import XYZ_GROUPS, settings
+    from tests.test_torch_scrapers import write_vasp, write_xyz
+
+    write_xyz(tmp_path / "XYZ", 13)
+    write_vasp(tmp_path / "VASP", 14)
+    sets = {"XYZ": settings(tmp_path / "XYZ", "XYZ", XYZ_GROUPS),
+            "VASP": settings(tmp_path / "VASP", "VASP", ["Bulk", "Strained"],
+                             extra={"GROUPS": {"vasp_ignore_incomplete": 1}})}
+    proc = run_python(f"""
+        import importlib, os, sys
+        # one thread a library: the suite runs several workers at once
+        for var in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
+                    "MKL_NUM_THREADS"):
+            os.environ[var] = "1"
+        for name in ("sklearn", "pandas", "matplotlib"):
+            sys.modules[name] = None
+        for name in {all_modules()!r}:
+            importlib.import_module(name)
+        import numpy as np
+        from fitsnap_tpu_torch import FitSnap
+
+        def fit(s, solver, **extra):
+            s = dict(s, SOLVER={{"solver": solver, "mcmc_num": 300,
+                                 "nsam": 5}})
+            for section, kv in extra.items():
+                s[section] = dict(s.get(section, {{}}), **kv)
+            fs = FitSnap(s, arglist=["--overwrite"], device="cpu")
+            fs.scrape_configs()
+            fs.process_configs()
+            fs.perform_fit()
+            fs.write_output()
+            assert np.isfinite(fs.fit).all(), solver
+            return fs
+
+        for kind, s in {sets!r}.items():
+            for solver in ("SVD", "RIDGE", "ANL", "BCS", "MCMC", "OPT",
+                           "MERR"):
+                fit(s, solver)
+            fit(s, "RIDGE", RIDGE={{"local_solver": 1}})
+            for solver in ("LASSO", "ARD"):
+                try:
+                    fit(s, solver)
+                except ModuleNotFoundError as e:
+                    assert "sklearn" in str(e), e
+                else:
+                    raise SystemExit(solver + " fitted without sklearn")
+            for extra in (dict(OUTFILE=dict(s["OUTFILE"],
+                                             metrics_style="DF")),
+                          dict(EXTRAS={{"dump_dataframe": 1}})):
+                try:
+                    fit(s, "SVD", **extra)
+                except ModuleNotFoundError as e:
+                    assert "pandas" in str(e), e
+                else:
+                    raise SystemExit("a DataFrame without pandas")
+        print("ok")
+    """, cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
 
 
 @pytest.mark.parametrize("source,replaces", [
