@@ -282,6 +282,28 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    (`tools/test_tools.TestTools`) on phase 12's precompute NN settings,
    its largest error within the bar of 1e-5.  Each scraper's and each
    solver's seconds are printed.
+20. the native neighbor builder and multi-GPU on the Ta-shaped set of
+   phase 2: (a) `host_neighbors` (native/neighbors.cpp, g++) against
+   `host_neighbors_plain` (numpy) on every config: mask and jidx equal,
+   disp within 1e-12; FitSnap's process seconds with each, in turns
+   (plain, native, native, plain); K4's gather_only mode (the spatial
+   rows' halo) against its plain version at the spatial config's shapes,
+   within 1e-11, timed beside it and `index_add_` (its `kernels` row
+   `pair_scatter_rows@halo`); (b) a NCCL group of one rank
+   (`file://` store in a temporary directory), launch counts set to 0
+   just before and read just after (path dp_nccl1): phase 5's streamed
+   pass, `TpuSVD` on phase 4's rows and 2 epochs of the cached NN fit
+   must equal the same code run just before without a group, bit for
+   bit (AtA, Atb, nrows; coefficients; loss curve and parameters);
+   (c) 2 spawned processes in a gloo group, both on cuda:0, their counts
+   set to 0 at their start and summed (path dp_gloo2): the streamed fit
+   with each rank on its half of every chunk (AtA and Atb within 1e-12
+   relative of (b), nrows equal, each rank's launches of K1-K5, K7, K8
+   and K8r equal to (b)'s: one a chunk), `TpuSVD` (within the larger of
+   1e-10 and 100 cond eps of (b), cond that of the equilibrated normal
+   matrix: the split reorders AtA's sums), the NN loss curve (within
+   1e-10 relative of (b)'s) and the spatial rows of the set's largest
+   config split two ways (within 1e-12 relative of one process's).
 
 Each NN phase's profiler split prints the port's kernels' launches in the
 profiled epoch beside their device ms (the cached epoch's K11T and gather
@@ -457,7 +479,13 @@ PATH_KERNELS = {"fitsnap": FITSNAP_KERNELS,
                 "pas_fitsnap": ("nn_ut_b",),
                 "pas_ace_fitsnap": ("ace_pair_basis", "ace_b_dbdd"),
                 "xyz_fitsnap": FITSNAP_KERNELS,
-                "vasp_fitsnap": FITSNAP_KERNELS}
+                "vasp_fitsnap": FITSNAP_KERNELS,
+                # phase 20: the streamed fit and the cached NN fit (and,
+                # in the gloo world, the spatial rows, K4 and K8r)
+                "dp_nccl1": FITSNAP_KERNELS + STREAM_KERNELS
+                + NN_CACHED_KERNELS,
+                "dp_gloo2": FITSNAP_KERNELS + STREAM_KERNELS
+                + NN_CACHED_KERNELS}
 # paths whose K4 launches are the rows', one a reference call
 ROWS_PATHS = ("fitsnap", "streamed", "ace_fitsnap", "ace_streamed",
               "quadratic_fitsnap", "quadratic_streamed", "chem_fitsnap",
@@ -546,6 +574,15 @@ DIAG_COL_OPS = 2
 # digests of kernels' outputs (to compare builds bit for bit), printed on
 # one line before the kernel table
 DIGESTS = {}
+# phase 20: the gloo world (ranks sharing cuda:0), the epochs of its NN fits,
+# its limits against the NCCL world of one rank, and a rank's time limit
+DP_RANKS = 2
+DP_EPOCHS = 2
+DP_NORMAL_RTOL = 1e-12      # streamed and spatial AtA / Atb
+DP_SVD_RTOL = 1e-10         # TpuSVD coefficients
+DP_LOSS_RTOL = 1e-10        # the NN loss curve
+DP_TIMEOUT = 300
+DISP_ATOL = 1e-12           # native against plain neighbor displacements
 # phase 19: the host solvers that need no sklearn, with their extra
 # settings (MCMC: the chain length of tests/test_solvers.py's MCMC test)
 HOST_SOLVERS = {"RIDGE": {"RIDGE": {"local_solver": 1}}, "ANL": {},
@@ -1809,11 +1846,13 @@ def main_path(ini, a_plain, beta, device, kind="snap"):
 # ---------------------------------------------------------------------------
 
 
-def streamed_path(fs, a_plain, beta, seed, device, kind="snap"):
+def streamed_path(fs, a_plain, beta, seed, device, kind="snap", keep=None):
     """Drive parallel/fit.py on `device` over FitSnap's configs of the
     kind's STREAM_GROUPS, with the SNAP model of the set ("snap",
     "quadratic", "inp") or, through `ace_kernel`, the ACE one ("ace");
-    returns (launch counts, timings, checks)."""
+    returns (launch counts, timings, checks).  `keep` (a dict) receives
+    the pass (`one_pass`) and its normal equations (`result`), for phase
+    20."""
     import torch
     from fitsnap_tpu_torch.calculators.snap import chunk_size
     from fitsnap_tpu_torch.parallel import fit
@@ -1880,6 +1919,8 @@ def streamed_path(fs, a_plain, beta, seed, device, kind="snap"):
     for _ in range(3):
         AtA, Atb, nrows = one_pass()
     t["steady_pass"] = (time.time() - t0) / 3
+    if keep is not None:
+        keep.update(one_pass=one_pass, result=(AtA, Atb, nrows))
     kernel_ms = profile_kernels(one_pass)
     if kernel_ms:
         t["device_ms_per_pass"] = sum(kernel_ms.values())
@@ -3627,6 +3668,392 @@ def host_copies_phase(tmp, ref, a_plain, root, device="cuda"):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the native neighbor builder and multi-GPU over torch.distributed
+# ---------------------------------------------------------------------------
+
+
+def native_check(ini, device):
+    """Phase 20 (a): the native builder's lists against the numpy version's
+    on every config of the Ta set (mask and jidx equal, disp within
+    DISP_ATOL), and FitSnap's process seconds with each, in turns."""
+    from fitsnap_tpu_torch import FitSnap
+    from fitsnap_tpu_torch.calculators import snap as csnap
+    from fitsnap_tpu_torch.ops import neighbors
+
+    fs = FitSnap(str(ini), arglist=["--overwrite"], device=device)
+    fs.scrape_configs()
+    calc = fs.calculator
+    worst, slots = 0.0, 0
+    t0 = time.time()
+    for d in fs.data:
+        pc = calc._pack(d)
+        got = neighbors.host_neighbors(pc.pos, pc.cell, pc.natoms,
+                                       calc.cutoff)
+        want = neighbors.host_neighbors_plain(pc.pos, pc.cell, pc.natoms,
+                                              calc.cutoff)
+        if not (np.array_equal(got[1], want[1])
+                and np.array_equal(got[2], want[2]) and got[3] == want[3]):
+            raise AssertionError(f"native lists differ from the plain "
+                                 f"ones on {d['File']}")
+        worst = max(worst, float(np.abs(got[0] - want[0]).max(initial=0.0)))
+        slots += int(got[2].sum())
+    t_lists = time.time() - t0
+    if not worst <= DISP_ATOL:
+        raise AssertionError(f"native disp differs by {worst:.3e}")
+    seconds = {"native": [], "plain": []}
+    for name in ("plain", "native", "native", "plain"):
+        with contextlib.ExitStack() as stack:
+            if name == "plain":
+                stack.callback(setattr, csnap, "host_neighbors",
+                               csnap.host_neighbors)
+                csnap.host_neighbors = neighbors.host_neighbors_plain
+            fs.process_configs()
+        seconds[name].append(fs.timings["process"])
+    print(f"native lists: {len(fs.data)} configs, {slots} pair slots equal "
+          f"to the plain lists (disp within {worst:.3e}); both builders "
+          f"{t_lists:.2f} s; process s native {seconds['native']} plain "
+          f"{seconds['plain']}", flush=True)
+    return {"native_configs": len(fs.data), "native_disp_max_err": worst,
+            "process_s_native": seconds["native"],
+            "process_s_plain": seconds["plain"]}
+
+
+def dp_streamed(ini, device):
+    """The streamed pass of phase 5 (plan_shift_groups, chunk_size, the
+    accumulating step with device lists) over the whole set on `device`,
+    each rank of a group taking its half of every chunk; returns (AtA, Atb,
+    nrows, chunks)."""
+    from fitsnap_tpu_torch import FitSnap
+    from fitsnap_tpu_torch.calculators.snap import chunk_size
+    from fitsnap_tpu_torch.parallel import fit
+
+    fs = FitSnap(str(ini), arglist=["--overwrite"], device=device)
+    fs.scrape_configs()
+    calc = fs.calculator
+    packed = [calc._pack(d) for d in fs.data]
+    acc, finish, chunks = None, None, 0
+    for g in fit.plan_shift_groups(packed, calc.cutoff):
+        per = chunk_size(g["a_pad"], g["k_pad"], calc.desc_width())
+        if per % DP_RANKS:
+            raise AssertionError(f"a chunk of {per} configs does not split "
+                                 f"over {DP_RANKS} ranks")
+        n = -(-len(g["configs"]) // per)
+        batch = fit.put_batch(fit.pack_batch_pos(
+            g["configs"], g["a_pad"], n * per, g["s_table"], np.float64,
+            chunks=n), device)
+        acc_step, init, finish = fit.build_step_fn(
+            calc.params, calc.numtypes, FLAGS, device,
+            refspec=calc.refspec, accumulate=True,
+            neighbors={"cutoff": calc.cutoff, "k_pad": g["k_pad"]})
+        acc = acc_step(acc or init(), batch)
+        chunks += n
+    return (*finish(acc), chunks)
+
+
+def dp_nn(tmp, device, tag):
+    """The cached NN fit of phase 13 for DP_EPOCHS epochs in its own
+    directory; returns (loss curve, parameters as numpy)."""
+    from fitsnap_tpu_torch import FitSnap
+    from fitsnap_tpu_torch.models.mlp import params_to_numpy
+    from fitsnap_tpu_torch.tools import synthetic
+
+    s = synthetic.nn_settings(Path(tmp) / "JSON", dgrad_mode="cached")
+    s["PYTORCH"]["num_epochs"] = DP_EPOCHS
+    run = Path(tmp) / "dp" / tag
+    run.mkdir(parents=True, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(run)
+    try:
+        fs = FitSnap(s, arglist=["--overwrite"], device=device)
+        fs.scrape_configs()
+        fs.process_configs()
+        fs.perform_fit()
+        fs.write_output()
+    finally:
+        os.chdir(cwd)
+    return np.array(fs.solver.history), params_to_numpy(
+        fs.solver.model.params)
+
+
+def dp_spatial(ini, arrays, device):
+    """build_spatial_rows_fn of the SNAP model on one config's arrays."""
+    from fitsnap_tpu_torch import FitSnap
+    from fitsnap_tpu_torch.parallel import fit
+
+    calc = FitSnap(str(ini), arglist=["--overwrite"], device=device) \
+        .calculator
+    return fit.build_spatial_rows_fn(calc.params, calc.numtypes, FLAGS,
+                                     device)(*arrays)
+
+
+def spatial_arrays(ini):
+    """One config of the Ta set, its largest, as build_spatial_rows_fn's
+    arguments: host lists (the native builder) over an even number of atom
+    slots, its truths and weights."""
+    from fitsnap_tpu_torch import FitSnap
+    from fitsnap_tpu_torch.ops.neighbors import host_neighbors
+
+    fs = FitSnap(str(ini), arglist=["--overwrite"], device="cpu")
+    fs.scrape_configs()
+    calc = fs.calculator
+    pc = max((calc._pack(d) for d in fs.data), key=lambda pc: pc.natoms)
+    a_pad = pc.natoms + pc.natoms % DP_RANKS
+    disp, jidx, mask, _ = host_neighbors(pc.pos, pc.cell, pc.natoms,
+                                         calc.cutoff, a_pad=a_pad)
+    d = pc.data
+    st = np.asarray(d["Stress"])
+    forces = np.zeros((a_pad, 3))
+    forces[:pc.natoms] = d["Forces"]
+    types = np.zeros(a_pad, np.int32)
+    types[:pc.natoms] = pc.types
+    return (disp, jidx, mask, types, pc.natoms, pc.cell, d["Energy"],
+            forces, st[[0, 1, 2, 1, 0, 0], [0, 1, 2, 2, 2, 1]],
+            d["eweight"], d["fweight"], d["vweight"])
+
+
+def halo_check(rows, arrays, width, device):
+    """K4's gather_only mode (the spatial rows' halo) against its plain
+    version at the spatial config's shapes: rank 0's block of a DP_RANKS
+    split, seeded per-pair gradients of `width` columns, the gathers into
+    the next block, with index_add_ of those slots as library call; adds
+    its row to `rows` and returns its relative error."""
+    import torch
+    from fitsnap_tpu_torch.kernels import snap_kernels as sk
+
+    disp, jidx, mask = (torch.as_tensor(np.asarray(x), device=device)
+                        for x in arrays[:3])
+    Ash = disp.shape[0] // DP_RANKS
+    disp, jidx, mask = disp[None, :Ash], jidx[None, :Ash], mask[None, :Ash]
+    local = jidx - Ash
+    into = mask & (local >= 0) & (local < Ash)
+    rev, _ = sk.reverse_table_plain(torch.where(into, local, 0)
+                                    .to(torch.int32), into)
+    K = mask.shape[2]
+    gen = torch.Generator(device="cpu").manual_seed(20)
+    G = (torch.randn((1, Ash, width, K, 3), generator=gen,
+                     dtype=torch.float64).to(device)
+         * mask[:, :, None, :, None]).contiguous()
+    types = torch.zeros((1, Ash), dtype=torch.int32, device=device)
+    args = (G, disp, mask, rev, types, 1)
+    out, _ = sk.pair_scatter_rows(*args, gather_only=True)
+    ref, _ = sk.pair_scatter_rows_plain(*args, gather_only=True)
+    nslots = int(into.sum().item())
+    dest = local[into].long()
+    g_rows = G.permute(0, 1, 3, 2, 4)[into].reshape(-1, width * 3)
+    scat = torch.zeros((Ash, width * 3), dtype=G.dtype, device=device)
+    nbytes = nslots * width * 3 * 8 + rev.numel() * 4 + Ash * 4 \
+        + out.numel() * 8
+    record(rows, "pair_scatter_rows@halo", [out], [ref],
+           (lambda: sk.pair_scatter_rows(*args, gather_only=True), 20),
+           timed(lambda: sk.pair_scatter_rows_plain(*args,
+                                                    gather_only=True), 5),
+           nbytes, nslots * width * 3, None, wrapper="pair_scatter_rows",
+           shape=f"spatial halo, gather_only: 1 x {Ash} x {K}, width "
+                 f"{width}, {nslots} slots into the next block",
+           library=lambda: scat.index_add_(0, dest, g_rows))
+    return rows[-1]["max_rel_err"]
+
+
+def dp_worker(rank, store, tmp, ini, system, arrays, device, results):
+    """Phase 20 (c): one of DP_RANKS gloo ranks, all on `device` (spawned;
+    cuda:0 on the card)."""
+    import torch
+    import torch.distributed as dist
+
+    def sync():
+        if device.startswith("cuda"):
+            torch.cuda.synchronize()
+
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=DP_RANKS)
+        from fitsnap_tpu_torch.solvers.tpu_svd import TpuSVD
+
+        reset_launches()
+        out = {"streamed": dp_streamed(ini, device)}
+        sync()
+        out["streamed_counts"] = launches()
+        out["svd"] = TpuSVD("TPUSVD", None, device).perform_fit(*system)
+        out["nn"] = dp_nn(tmp, device, f"gloo{rank}")
+        out["spatial"] = dp_spatial(ini, arrays, device)
+        sync()
+        out["counts"] = launches()
+        dist.destroy_process_group()
+        results.put((rank, True, out))
+    except BaseException:
+        import traceback
+        results.put((rank, False, traceback.format_exc()))
+
+
+def gloo_ranks(tmp, ini, system, arrays, device):
+    """Start DP_RANKS spawned processes on `device` and collect their
+    results; raises on a failed rank, and stops every process."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    store = Path(tempfile.mkdtemp(dir=tmp)) / "gloo_store"
+    procs = [ctx.Process(target=dp_worker, args=(
+        r, str(store), tmp, ini, system, arrays, device, results))
+        for r in range(DP_RANKS)]
+    for p in procs:
+        p.start()
+    try:
+        out = {}
+        for _ in procs:
+            rank, ok, value = results.get(timeout=DP_TIMEOUT)
+            if not ok:
+                raise AssertionError(f"gloo rank {rank} failed:\n{value}")
+            out[rank] = value
+        for p in procs:
+            p.join(60)
+        return [out[r] for r in range(DP_RANKS)]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+
+
+def normal_cond(a, w, testing):
+    """cond of the equilibrated normal matrix NormalSolver solves for the
+    training rows (over the eigenvalues it keeps)."""
+    aw = w[~testing, None] * a[~testing]
+    ata = aw.T @ aw
+    d = np.sqrt(np.clip(np.diag(ata), 1e-300, None))
+    ev = np.linalg.eigvalsh(ata / d[:, None] / d[None, :])
+    kept = ev[ev > 10 * EPS64 * ev[-1]]
+    return float(kept[-1] / kept[0])
+
+
+def rel_dist(x, ref):
+    x, ref = np.asarray(x, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(x - ref).max() / max(np.abs(ref).max(), 1e-300))
+
+
+def missing_kernels(counts, path):
+    return [k for k in PATH_KERNELS[path] if counts[k] == 0]
+
+
+def distributed_phase(tmp, ini, ref, keep, kernels, device="cuda"):
+    """Phase 20: (a) the native builder, and K4's halo mode (its row added
+    to `kernels`), (b) NCCL with one rank bit for bit against the same
+    code without a group, (c) DP_RANKS gloo ranks on cuda:0 against (b);
+    returns the paths' (counts, timings, checks).
+    With device "cpu" (a rehearsal without the card) (b) takes gloo."""
+    import torch
+    import torch.distributed as dist
+    from fitsnap_tpu_torch.solvers.tpu_svd import TpuSVD
+
+    t_phase = time.time()
+    checks = native_check(ini, device)
+    system = (ref["a"], ref["b"], ref["w"],
+              {"Testing": list(ref["testing"])})
+    arrays = spatial_arrays(ini)
+    checks["halo_gather_rel_err"] = halo_check(kernels, arrays,
+                                               ref["a"].shape[1], device)
+    print(f"K4 gather_only (the spatial halo) against its plain version: "
+          f"{checks['halo_gather_rel_err']:.3e}", flush=True)
+    # the same code without a group
+    svd0 = TpuSVD("TPUSVD", None, device).perform_fit(*system)
+    nn0 = dp_nn(tmp, device, "none")
+    spatial0 = dp_spatial(ini, arrays, device)
+    # (b) NCCL, one rank
+    t0 = time.time()
+    store = Path(tempfile.mkdtemp(dir=tmp)) / "nccl_store"
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        if device == "cuda":
+            torch.cuda.set_device(0)
+        reset_launches()
+        AtA, Atb, nrows = keep["one_pass"]()
+        torch.cuda.synchronize()
+        stream_counts = launches()
+        svd1 = TpuSVD("TPUSVD", None, device).perform_fit(*system)
+        nn1 = dp_nn(tmp, device, "nccl")
+        torch.cuda.synchronize()
+        nccl_counts = launches()
+    finally:
+        dist.destroy_process_group()
+    t_nccl = time.time() - t0
+    AtA0, Atb0, nrows0 = keep["result"]
+    same = {"streamed_ata": np.array_equal(AtA, AtA0),
+            "streamed_atb": np.array_equal(Atb, Atb0),
+            "streamed_nrows": nrows == nrows0,
+            "tpu_svd": np.array_equal(svd1, svd0),
+            "nn_history": np.array_equal(nn1[0], nn0[0]),
+            "nn_params": all(np.array_equal(x, y)
+                             for lx, ly in zip(nn1[1], nn0[1])
+                             for x, y in zip(lx, ly))}
+    print(f"nccl, one rank: bitwise equal to no group: {json.dumps(same)}; "
+          f"{t_nccl:.1f} s", flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"NCCL world 1 differs from no group: {same}")
+    # (c) DP_RANKS gloo ranks sharing cuda:0
+    t0 = time.time()
+    ranks = gloo_ranks(tmp, ini, system, arrays,
+                       "cuda:0" if device == "cuda" else device)
+    t_gloo = time.time() - t0
+    gloo_counts = {k: sum(r["counts"][k] for r in ranks)
+                   for k in ranks[0]["counts"]}
+    err = {}
+    for r, out in enumerate(ranks):
+        a, b, n, chunks = out["streamed"]
+        err[f"streamed_ata_{r}"] = rel_dist(a, AtA)
+        err[f"streamed_atb_{r}"] = rel_dist(b, Atb)
+        err[f"tpu_svd_{r}"] = rel_dist(out["svd"], svd1)
+        curve = out["nn"][0][:, 1:]
+        err[f"nn_loss_{r}"] = float((np.abs(curve - nn1[0][:, 1:])
+                                     / np.abs(nn1[0][:, 1:])).max())
+        err[f"spatial_ata_{r}"] = rel_dist(out["spatial"][0], spatial0[0])
+        err[f"spatial_atb_{r}"] = rel_dist(out["spatial"][1], spatial0[1])
+        if n != nrows or out["spatial"][2] != spatial0[2]:
+            raise AssertionError(f"gloo rank {r}: nrows {n} / "
+                                 f"{out['spatial'][2]}, not {nrows} / "
+                                 f"{spatial0[2]}")
+        # each rank launches once a chunk, on its half of the chunk
+        unequal = {k: (out["streamed_counts"][k], stream_counts[k])
+                   for k in PATH_KERNELS["streamed"]
+                   if out["streamed_counts"][k] != stream_counts[k]}
+        if unequal:
+            raise AssertionError(f"gloo rank {r}'s streamed launches differ "
+                                 f"from the NCCL run's: {unequal}")
+    # a split of the rows reorders AtA's sums, which moves the solve by up
+    # to cond eps: TpuSVD is held to the larger of DP_SVD_RTOL and 100 cond
+    # eps, as phase 19 holds the host solvers
+    cond = normal_cond(ref["a"], ref["w"], ref["testing"])
+    svd_limit = max(DP_SVD_RTOL, 100 * cond * EPS64)
+    limits = {"streamed": DP_NORMAL_RTOL, "spatial": DP_NORMAL_RTOL,
+              "tpu_svd": svd_limit, "nn_loss": DP_LOSS_RTOL}
+    over = {k: v for k, v in err.items()
+            if not v <= next(lim for kind, lim in limits.items()
+                             if k.startswith(kind))}
+    print(f"gloo, {DP_RANKS} ranks on cuda:0: errors against NCCL world 1 "
+          f"(spatial: against no group) {json.dumps(err)}; TpuSVD limit "
+          f"{svd_limit:.3e} (cond {cond:.3e}); streamed "
+          f"launches a rank {json.dumps(ranks[0]['streamed_counts'])}; "
+          f"{t_gloo:.1f} s", flush=True)
+    if over:
+        raise AssertionError(f"gloo ranks beyond their limits: {over}")
+    for path, counts in (("dp_nccl1", nccl_counts),
+                         ("dp_gloo2", gloo_counts)):
+        missing = missing_kernels(counts, path)
+        if missing:
+            raise AssertionError(f"kernels never launched on the {path} "
+                                 f"path: {missing}")
+    checks.update({f"{k}_rel_err": v for k, v in err.items()},
+                  nccl_bitwise=same, streamed_chunks=ranks[0]["streamed"][3],
+                  tpu_svd_cond=cond, tpu_svd_limit=svd_limit)
+    times = {"nccl_s": t_nccl, "gloo_s": t_gloo,
+             "phase_s": time.time() - t_phase}
+    print(f"distributed phase: {times['phase_s']:.1f} s", flush=True)
+    return {"dp_nccl1": (nccl_counts, times, checks),
+            "dp_gloo2": (gloo_counts, times, {})}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3664,6 +4091,7 @@ def main():
         os.chdir(tmp)
         try:
             kernels = []
+            snap_keep = {}
             for kind in ("snap", "ace"):
                 t0 = time.time()
                 ini, fs0, data, a_plain, beta, t_plain = make_dataset(
@@ -3686,9 +4114,11 @@ def main():
                         "rows": config_rows(fs), "counts": fitsnap[0],
                         "cond": fitsnap[2]["cond_weighted_a"],
                         "scrape": fs.timings["scrape"]}
-                    snap_a_plain = a_plain
+                    snap_a_plain, snap_ini = a_plain, ini
                 streamed = streamed_path(fs, a_plain, beta, args.seed,
-                                         "cuda", kind)
+                                         "cuda", kind,
+                                         keep=snap_keep if kind == "snap"
+                                         else None)
                 paths[FITSNAP_PATH[kind]] = fitsnap
                 paths[STREAM_PATH[kind]] = streamed
                 del fs, a_plain
@@ -3801,6 +4231,9 @@ def main():
             # --torchprof and the FD harness on the Ta set of phase 2
             paths.update(host_copies_phase(tmp, snap_ref, snap_a_plain,
                                            root))
+            # the native neighbor builder and multi-GPU on the same set
+            paths.update(distributed_phase(tmp, snap_ini, snap_ref,
+                                           snap_keep, kernels))
         finally:
             os.chdir(cwd)
     seconds = ("pack", "upload", "first_pass", "steady_pass", "solve",

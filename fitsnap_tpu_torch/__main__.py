@@ -2,7 +2,14 @@
 
 Mirrors the reference CLI: scrape -> process -> fit -> output.  The fit runs
 on the CUDA device unless `--device cpu` is given.  `--torchprof DIR`
-writes a torch.profiler Chrome trace of the run into DIR.
+writes a torch.profiler Chrome trace of the run into DIR (rank 0's under
+a process group).
+
+On several cards: `torchrun --nproc_per_node N -m fitsnap_tpu_torch
+input.in`.  Started with torchrun's environment (WORLD_SIZE > 1), the
+entry initializes the default process group from it (NCCL on the cards,
+gloo with `--device cpu`), one process a card (`cuda:LOCAL_RANK`), and
+destroys it at exit, also on an error.
 """
 
 import os
@@ -35,13 +42,30 @@ def stop_profiler(prof, prof_dir):
 
 
 def main():
+    import torch.distributed as dist
+
+    from fitsnap_tpu_torch.config import parse_cmdline
+    from fitsnap_tpu_torch.utils.torchsetup import distributed, make_group
+
+    started = not distributed()
+    make_group(parse_cmdline(sys.argv[1:]).device, init=True)
+    started = started and distributed()
+    try:
+        run()
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def run():
     from fitsnap_tpu_torch.fitsnap import FitSnap
     from fitsnap_tpu_torch.io.screen import screen
     from fitsnap_tpu_torch.utils.graceful import GracefulStop
+    from fitsnap_tpu_torch.utils.torchsetup import writer
 
     fs = FitSnap(arglist=sys.argv[1:])
     prof_dir = fs.config.args.torchprof
-    prof = start_profiler(fs.device) if prof_dir else None
+    prof = start_profiler(fs.device) if prof_dir and writer() else None
     # SIGINT/SIGTERM stop the run at the next stage boundary; completed
     # stages still report their timings, and a finished fit is written out
     try:

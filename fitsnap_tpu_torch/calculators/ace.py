@@ -28,11 +28,13 @@ from fitsnap_tpu_torch.ops.ace import (ace_descriptors_with_jacobian,
 from fitsnap_tpu_torch.ops.refpot import parse_reference, reference_eav
 
 
-def _within_rcut(disp, jidx, types, plan):
+def _within_rcut(disp, jidx, types, plan, jtypes=None):
     """Neighbor elements (C, A, K) and the pair mask |r_ij| <
-    rcut[type_i, type_j] (before the neighbor-list mask)."""
+    rcut[type_i, type_j] (before the neighbor-list mask).  `jtypes` (C,
+    A') are the types jidx indexes, where they are not `types`."""
     C, A, K = jidx.shape
-    jelem = torch.gather(types, 1, jidx.long().reshape(C, A * K))
+    jtypes = types if jtypes is None else jtypes
+    jelem = torch.gather(jtypes, 1, jidx.long().reshape(C, A * K))
     jelem = jelem.reshape(C, A, K)
     rcm = plan_tensors(plan, disp.device).rcut[types.long()[:, :, None],
                                                jelem.long()]
@@ -40,12 +42,13 @@ def _within_rcut(disp, jidx, types, plan):
     return jelem, r2 < rcm * rcm
 
 
-def ace_batch(plan, disp, jidx, mask, types, natoms, plain=False):
+def ace_batch(plan, disp, jidx, mask, types, natoms, plain=False,
+              jtypes=None):
     """B (C, A, W) and dB/dD (C, A, W, K, 3) of a batch (K13, K14), zero on
     padded atoms and on pairs outside the bond cutoffs; with that pair mask
-    (C, A, K).  Arguments as `ace_rows`'."""
+    (C, A, K).  Arguments as `ace_rows`'; `jtypes` as `_within_rcut`'s."""
     C, A, K = mask.shape
-    jelem, inside = _within_rcut(disp, jidx, types, plan)
+    jelem, inside = _within_rcut(disp, jidx, types, plan, jtypes)
     smask = mask & inside
     real = (torch.arange(A, device=disp.device)[None, :]
             < natoms[:, None]).to(disp.dtype)

@@ -87,12 +87,15 @@ def chunk_size(a_pad, k_pad, ncoeff):
                    max(1, (1 << 30) // (4 * g_bytes))))
 
 
-def pair_masks(params, disp, jidx, mask, types):
+def pair_masks(params, disp, jidx, mask, types, jtypes=None):
     """Neighbor elements (C, A, K) int32 and the SNAP pair mask: the pairs
     inside the per-element-pair SNAP cutoff (`mask` holds every pair inside
-    the largest cutoff, the reference potential's too)."""
+    the largest cutoff, the reference potential's too).  `jtypes` (C, A')
+    are the types jidx indexes, where they are not `types` (a block of a
+    config's atoms with global jidx)."""
     C, A, K = mask.shape
-    jelem = torch.gather(types, 1, jidx.long().reshape(C, A * K))
+    jtypes = types if jtypes is None else jtypes
+    jelem = torch.gather(jtypes, 1, jidx.long().reshape(C, A * K))
     jelem = jelem.reshape(C, A, K)
     rcutij = (params.radelem[types][:, :, None]
               + params.radelem[jelem]) * params.rcutfac
@@ -100,12 +103,13 @@ def pair_masks(params, disp, jidx, mask, types):
     return jelem, mask & (r2 < rcutij * rcutij)
 
 
-def _batch_descriptors(params, disp, jidx, mask, types, natoms, plain):
+def _batch_descriptors(params, disp, jidx, mask, types, natoms, plain,
+                       jtypes=None):
     """B (C, A, W) and dB/dD (C, A, W, K, 3) of a batch, zero on padded
     atoms and on pairs outside the SNAP mask; with that mask (C, A, K) and
-    the real-atom mask (C, A) as floats."""
+    the real-atom mask (C, A) as floats.  `jtypes` as for `pair_masks`."""
     C, A, K = mask.shape
-    jelem, smask = pair_masks(params, disp, jidx, mask, types)
+    jelem, smask = pair_masks(params, disp, jidx, mask, types, jtypes)
     real = (torch.arange(A, device=disp.device)[None, :]
             < natoms[:, None]).to(disp.dtype)
     B, G = descriptors_with_jacobian(

@@ -64,6 +64,11 @@ def parse_cmdline(arglist=None):
     parser.add_argument("--device", choices=("cuda", "cpu"), default=None,
                         help="device to compute on (default cuda; cpu only "
                              "when asked for)")
+    parser.add_argument("--devices", type=int, default=None,
+                        help="processes to split the device work over: the "
+                             "size of the torch.distributed group "
+                             "(torchrun --nproc_per_node N); default the "
+                             "group's size")
     parser.add_argument("--torchprof", default=None, metavar="DIR",
                         help="capture a torch.profiler trace of the run "
                              "(CUDA activity on the card) into DIR as a "

@@ -1,4 +1,4 @@
-"""FitSnap facade: scrape -> compute -> fit -> output, on one torch device.
+"""FitSnap facade: scrape -> compute -> fit -> output, on torch devices.
 
 Counterpart of `fitsnap_tpu/fitsnap.py` with the same factories and stage
 methods: `FitSnap(input, arglist, device).scrape_configs()`,
@@ -12,14 +12,21 @@ on LAMMPSPACE descriptors (nonlinear ACE) in its OTF and precompute modes
 and as the custom pairwise NN on LAMMPSCUSTOM, and SNAP, PACE and CUSTOM
 output; any other choice raises NotImplementedError naming its ROADMAP
 item by title.
+
+Under a `torch.distributed` process group (`torchrun --nproc_per_node N -m
+fitsnap_tpu_torch in.in`, or the caller's own group) every rank scrapes and
+processes the whole set, the device solvers split their work over the
+group, and rank 0 alone writes files and screen text.  `--devices N` must
+then equal the group's size; N > 1 without a group raises.
 """
 
+import random
 import time
 
-import numpy as np
-
 from fitsnap_tpu_torch.config import Config
-from fitsnap_tpu_torch.utils.torchsetup import resolve_device, setup_precision
+from fitsnap_tpu_torch.utils.torchsetup import (from_rank_zero, make_group,
+                                                rank_zero_first, save,
+                                                setup_precision, writer)
 
 _LATER = '{} {} is not ported to fitsnap_tpu_torch yet (ROADMAP.md: "{}")'
 
@@ -101,16 +108,32 @@ def _output_factory(config):
                                             "Modules to port"))
 
 
+def check_devices(devices, size):
+    """`--devices` against the size of the process group (1 without
+    one)."""
+    if devices is None or devices == size:
+        return
+    if size == 1 and devices > 1:
+        raise ValueError(
+            f"--devices {devices} needs {devices} processes, one a card, in "
+            f"a torch.distributed group: run `torchrun --nproc_per_node "
+            f"{devices} -m fitsnap_tpu_torch <input>`")
+    raise ValueError(f"--devices {devices} does not match the process "
+                     f"group's {size} processes")
+
+
 class FitSnap:
     """One fit.  `device` is `cuda` unless the caller asks for `cpu`
     (here or with `--device cpu` in `arglist`); without a CUDA device the
-    default raises."""
+    default raises.  Under a process group, `cuda` is `cuda:LOCAL_RANK`."""
 
     def __init__(self, input=None, arglist=None, device=None):
         setup_precision()
         self.config = Config(input, arglist or [])
-        self.device = resolve_device(
+        self.group = make_group(
             device if device is not None else self.config.args.device)
+        check_devices(self.config.args.devices, self.group.size)
+        self.device = self.group.device
         from fitsnap_tpu_torch.io.screen import init_output
         init_output(self.config.args)
         self.scraper = _scraper_factory(self.config)
@@ -127,9 +150,16 @@ class FitSnap:
 
     def scrape_configs(self, delete_scraper: bool = False):
         t0 = time.time()
-        self.scraper.scrape_groups()
-        self.scraper.divvy_up_configs()
-        self.data = self.scraper.scrape_configs()
+        groups = self.config.sections["GROUPS"]
+        if self.group.size > 1 and groups.random_sampling \
+                and not groups.random_seed:
+            # the ranks sample alike: rank 0's draw seeds every rank
+            groups.random_seed = from_rank_zero(random.random(),
+                                                self.device)
+        with rank_zero_first():
+            self.scraper.scrape_groups()
+            self.scraper.divvy_up_configs()
+            self.data = self.scraper.scrape_configs()
         self.timings["scrape"] = time.time() - t0
         if delete_scraper:
             self.scraper = None
@@ -152,11 +182,11 @@ class FitSnap:
         extras = self.config.sections["EXTRAS"]
         outfile = self.config.sections["OUTFILE"]
         if extras.dump_a:
-            np.save(outfile.descriptor_file, self.a)
+            save(outfile.descriptor_file, self.a)
         if extras.dump_b:
-            np.save(outfile.truth_file, self.b)
+            save(outfile.truth_file, self.b)
         if extras.dump_w:
-            np.save(outfile.weights_file, self.w)
+            save(outfile.weights_file, self.w)
         if delete_data:
             self.data = None
 
@@ -178,5 +208,6 @@ class FitSnap:
 
     def write_output(self):
         t0 = time.time()
-        self.output.output(self.solver.fit, self.solver.errors)
+        if writer():
+            self.output.output(self.solver.fit, self.solver.errors)
         self.timings["output"] = time.time() - t0

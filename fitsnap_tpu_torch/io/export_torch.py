@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from fitsnap_tpu_torch.models.mlp import softplus
+from fitsnap_tpu_torch.utils.torchsetup import open_output
 
 
 class Softplus(torch.nn.Module):
@@ -187,7 +188,8 @@ def export_mliap(path, params, mean, std, n_elements):
     nets = build_torch_model(params, mean, std)
     ndesc = params[0][0].shape[1]
     wrapper = MliapWrapper(Elementwise(nets), ndesc, n_elements)
-    torch.save(wrapper, path)
+    with open_output(path, "wb") as f:
+        torch.save(wrapper, f)
     return wrapper
 
 
@@ -198,5 +200,6 @@ def export_pairnn(path, params, mean, std, cutoff, num_radial, num_3body,
     nets = build_torch_model(params, mean, std)
     wrapper = PairNNWrapper(Elementwise(nets), cutoff, num_radial,
                             num_3body, n_elements)
-    torch.save(wrapper, path)
+    with open_output(path, "wb") as f:
+        torch.save(wrapper, f)
     return wrapper

@@ -12,11 +12,21 @@ instead of being silently ignored.
 
 import logging
 
-_state = {"screen": True, "fp": None, "logger": None}
+_state = {"screen": True, "fp": None, "logger": None, "quiet": False}
 
 
 def init_output(args):
-    """Configure the screen/log surface from parsed CLI args."""
+    """Configure the screen/log surface from parsed CLI args.  Under a
+    process group only rank 0 prints, logs and writes a screen file."""
+    from fitsnap_tpu_torch.utils.torchsetup import writer
+
+    if _state["fp"] is not None:
+        _state["fp"].close()
+        _state["fp"] = None
+    _state["quiet"] = not writer()
+    if _state["quiet"]:
+        _state.update(screen=False, logger=None)
+        return
     logger = logging.getLogger("fitsnap_tpu_torch")
     if getattr(args, "log", None):
         # attach a file handler directly: basicConfig is a no-op once any
@@ -26,9 +36,6 @@ def init_output(args):
         logger.addHandler(logging.FileHandler(args.log))
         logger.setLevel(logging.DEBUG)
     _state["logger"] = logger
-    if _state["fp"] is not None:
-        _state["fp"].close()
-        _state["fp"] = None
     s2f = getattr(args, "screen2file", None)
     if s2f:
         _state["fp"] = open(s2f, "a")
@@ -53,6 +60,8 @@ def screen(*args, **kw):
 
 
 def info(msg):
+    if _state["quiet"]:
+        return
     (_state["logger"] or logging.getLogger("fitsnap_tpu_torch")).info(msg)
     if _state["fp"] is not None:
         print(msg, file=_state["fp"])
@@ -60,6 +69,8 @@ def info(msg):
 
 
 def warn(msg):
+    if _state["quiet"]:
+        return
     (_state["logger"] or logging.getLogger("fitsnap_tpu_torch")).warning(msg)
     target = _state["fp"]
     print(f"WARNING: {msg}", **({"file": target} if target else {}))

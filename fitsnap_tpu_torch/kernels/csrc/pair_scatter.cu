@@ -40,6 +40,11 @@
 //      accumulators summed in warp order, written along x.
 // A second kernel sums the virial partials over each config's atoms of
 // type t in a fixed order.  No atomics: the outputs repeat bit for bit.
+//
+// With `gather_only` the own pass (1.) and the virial are skipped: force
+// is minus the gathers alone, a block's contribution to the rows of atoms
+// that live in another block (the spatial rows' halo,
+// parallel/fit.py:_halo_force).
 #include "common.cuh"
 
 namespace {
@@ -71,7 +76,8 @@ __global__ void __launch_bounds__(SC_THREADS)
                         const unsigned char* __restrict__ vmask,
                         const int* __restrict__ rev,
                         const int* __restrict__ types, int A, int X, int K,
-                        int R, int T, int XT, double* __restrict__ force,
+                        int R, int T, int XT, int gather_only,
+                        double* __restrict__ force,
                         double* __restrict__ vpart) {
   extern __shared__ double sm[];
   const int nxt = (X + XT - 1) / XT;
@@ -97,7 +103,7 @@ __global__ void __launch_bounds__(SC_THREADS)
 
   // the own run g[n, x0:x0+nx] is contiguous: copied by cp.async (16
   // bytes where aligned), in flight during the gather below
-  {
+  if (!gather_only) {
     const long long start = (n * X + x0) * run;
     const int len = nx * run;
     if ((reinterpret_cast<unsigned long long>(g + start) & 15) == 0 &&
@@ -168,7 +174,7 @@ __global__ void __launch_bounds__(SC_THREADS)
     const int kl = tid % OWN_LANES;
     double s[3] = {0.0, 0.0, 0.0};
     double v[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-    if (xl < nx) {
+    if (xl < nx && !gather_only) {
       const double* gx = sg + xl * run;
 #pragma unroll 4
       for (int k = kl; k < K; k += OWN_LANES) {
@@ -215,7 +221,7 @@ __global__ void __launch_bounds__(SC_THREADS)
     const double rows = t == tn ? srow[xl * 3 + d] : 0.0;
     force[((n * 3 + d) * T + t) * X + x0 + xl] = rows - scat;
   }
-  for (int e = tid; e < 6 * XT; e += SC_THREADS) {
+  for (int e = tid; e < 6 * XT && !gather_only; e += SC_THREADS) {
     const int xl = e % XT;
     if (xl < nx) vpart[(n * 6 + e / XT) * X + x0 + xl] = svir[e];
   }
@@ -261,11 +267,12 @@ __global__ void __launch_bounds__(VR_WARPS * 32)
 // g (C, A, X, K, 3) f64, disp (C, A, K, 3) f64, vmask (C, A, K) u8,
 // rev (C, A, R) i32, types (C, A) i32; x-tile XT (a power of two, 1 to
 // XT_MAX); scratch vpart (C, A, 6, X) f64.  Writes force
-// (C, A, 3, T, X) and virial (C, 6, T, X).
+// (C, A, 3, T, X) and, unless gather_only, virial (C, 6, T, X).
 extern "C" int pair_scatter_rows(const double* g, const double* disp,
                                  const unsigned char* vmask, const int* rev,
                                  const int* types, int C, int A, int X,
-                                 int K, int R, int T, int XT, double* vpart,
+                                 int K, int R, int T, int XT,
+                                 int gather_only, double* vpart,
                                  double* force, double* virial,
                                  void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -281,9 +288,9 @@ extern "C" int pair_scatter_rows(const double* g, const double* disp,
   if (err) return err;
   scatter_rows_kernel<<<static_cast<unsigned>(natoms * nxt), SC_THREADS,
                         smem, st>>>(g, disp, vmask, rev, types, A, X, K, R,
-                                    T, XT, force, vpart);
+                                    T, XT, gather_only, force, vpart);
   err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
+  if (err || gather_only) return err;
   const long long vblocks = static_cast<long long>(C) * 6 * T *
                             ((X + 31) / 32);
   scatter_virial_kernel<<<static_cast<unsigned>(vblocks), VR_WARPS * 32, 0,

@@ -42,7 +42,7 @@ kl.register("dbdd", "dbdd", [_P] * 14 + [_LL] + [_I] * 7 + [_P] * 3)
 kl.register("quad_chain", "quad_chain", [_P] * 5 + [_LL] + [_I] * 3
             + [_P] * 3)
 kl.register("pair_scatter_rows", "pair_scatter",
-            [_P] * 5 + [_I] * 7 + [_P] * 4)
+            [_P] * 5 + [_I] * 8 + [_P] * 4)
 kl.register("zbl_eav", "zbl_pair",
             [_P] * 6 + [_I] * 5 + [_D, _D] + [_P] * 6)
 kl.register("ref_eav", "zbl_pair",
@@ -595,12 +595,15 @@ quad_chain.launches = 0
 _VIRIAL_PAIRS = ((0, 1, 2, 1, 0, 0), (0, 1, 2, 2, 2, 1))
 
 
-def pair_scatter_rows_plain(g, disp, vmask, rev, types, ntypes):
+def pair_scatter_rows_plain(g, disp, vmask, rev, types, ntypes,
+                            gather_only=False):
     """Plain K4: (force (C, A, 3, T, X), virial (C, 6, T, X)).
 
     g (C, A, X, K, 3) per-pair gradients; disp (C, A, K, 3); vmask
     (C, A, K) pairs that enter the virial; rev (C, A, R) reverse neighbor
     table (flat slots i*K + k, -1 padded); types (C, A) source types.
+    With `gather_only`, (minus the gathers alone, None): no own row sums
+    and no virial.
     """
     C, A, X, K, _ = g.shape
     R = rev.shape[2]
@@ -613,6 +616,8 @@ def pair_scatter_rows_plain(g, disp, vmask, rev, types, ntypes):
     idx = torch.where(rev < 0, A * K, rev).long().reshape(C, A * R, 1)
     scat = torch.gather(flat, 1, idx.expand(C, A * R, width))
     scat = scat.reshape(C, A, R, ntypes, X, 3).sum(2)
+    if gather_only:
+        return (-scat).permute(0, 1, 4, 2, 3).contiguous(), None
     rows = typed.sum(2)
     force = (rows - scat).permute(0, 1, 4, 2, 3)
     dm = disp * vmask[..., None].to(disp.dtype)
@@ -631,10 +636,11 @@ def pair_scatter_tile(X, K):
     return xt
 
 
-def pair_scatter_rows(g, disp, vmask, rev, types, ntypes):
+def pair_scatter_rows(g, disp, vmask, rev, types, ntypes, gather_only=False):
     """K4 on the card; same arguments and outputs as the plain version."""
     if _on_cpu(g, disp, vmask, rev, types):
-        return pair_scatter_rows_plain(g, disp, vmask, rev, types, ntypes)
+        return pair_scatter_rows_plain(g, disp, vmask, rev, types, ntypes,
+                                       gather_only)
     C, A, X, K, _ = g.shape
     R = rev.shape[2]
     _check(g, "g", torch.float64, (C, A, X, K, 3))
@@ -649,9 +655,10 @@ def pair_scatter_rows(g, disp, vmask, rev, types, ntypes):
     vpart = torch.empty((C, A, 6, X), dtype=torch.float64, device=dev)
     _launch("pair_scatter_rows", dev, _ptr(g), _ptr(disp), _ptr(vmask),
             _ptr(rev), _ptr(types), C, A, X, K, R, ntypes,
-            pair_scatter_tile(X, K), _ptr(vpart), _ptr(force), _ptr(virial))
+            pair_scatter_tile(X, K), int(gather_only), _ptr(vpart),
+            _ptr(force), _ptr(virial))
     pair_scatter_rows.launches += 1
-    return force, virial
+    return force, None if gather_only else virial
 
 
 pair_scatter_rows.launches = 0

@@ -17,6 +17,8 @@ import pickle
 import numpy as np
 import torch
 
+from fitsnap_tpu_torch.utils.torchsetup import open_output
+
 
 def init_mlp(layer_sizes, nelements, generator, device):
     """He-initialised per-element MLP stacks: [(W, b), ...] as float64
@@ -104,7 +106,7 @@ def params_to_numpy(params):
 
 def save_params(path, params, meta):
     """The JAX package's pickle: {"params": [(w, b) numpy], "meta": {...}}."""
-    with open(path, "wb") as f:
+    with open_output(path, "wb") as f:
         pickle.dump({"params": params_to_numpy(params), "meta": meta}, f)
 
 

@@ -1,8 +1,11 @@
-"""Padded periodic neighbor lists, built on the host with numpy.
+"""Padded periodic neighbor lists, built on the host.
 
 Counterpart of the host side of `fitsnap_tpu/ops/neighbors.py`.  Cells follow
 the reference's normalization: lattice vectors are the COLUMNS of an
 upper-triangular 3x3 matrix, positions are row vectors wrapped into the cell.
+`host_neighbors` and `count_neighbors` run the native C++ builder
+(`fitsnap_tpu_torch/native`); `host_neighbors_plain` and
+`count_neighbors_plain` are the numpy versions it is held to.
 
 Besides the (A, K) neighbor list this module builds its reverse table: for
 every atom, the flat (i, k) slots whose neighbor it is.  The row-scatter
@@ -11,6 +14,9 @@ sums are deterministic.
 """
 
 import numpy as np
+
+from fitsnap_tpu_torch.native import count_neighbors_native as count_neighbors
+from fitsnap_tpu_torch.native import host_neighbors_native as host_neighbors
 
 
 def required_shifts(cell: np.ndarray, cutoff: float) -> np.ndarray:
@@ -49,13 +55,12 @@ def _candidate_d2(pos, cell, natoms, cutoff):
     return d, d2
 
 
-def host_neighbors(pos, cell, natoms, cutoff, a_pad=None, k_pad=None):
-    """Padded neighbor list for one config.
+def host_neighbors_plain(pos, cell, natoms, cutoff, a_pad=None, k_pad=None):
+    """`host_neighbors` in numpy: the same lists, slot for slot.
 
     Returns (disp (A,K,3), jidx (A,K), mask (A,K), count) with A/K padded if
     given; slots are ordered by image, then neighbor atom, as in the JAX
-    package's numpy neighbor lists.
-    """
+    package's neighbor lists."""
     d, d2 = _candidate_d2(pos, cell, natoms, cutoff)
     hit = d2 < cutoff * cutoff                            # (A, S, A)
     counts = hit.sum(axis=(1, 2))
@@ -76,8 +81,8 @@ def host_neighbors(pos, cell, natoms, cutoff, a_pad=None, k_pad=None):
     return disp, jidx, mask, kmax
 
 
-def count_neighbors(pos, cell, natoms, cutoff) -> int:
-    """Max neighbor count for one config."""
+def count_neighbors_plain(pos, cell, natoms, cutoff) -> int:
+    """`count_neighbors` in numpy."""
     _, d2 = _candidate_d2(pos, cell, natoms, cutoff)
     counts = (d2 < cutoff * cutoff).sum(axis=(1, 2))
     return int(counts.max()) if natoms else 0

@@ -30,6 +30,7 @@ from os import path
 import numpy as np
 
 from fitsnap_tpu_torch.scrapers.base import Scraper
+from fitsnap_tpu_torch.utils.torchsetup import open_output
 
 
 class IncompleteStep(Exception):
@@ -227,7 +228,7 @@ class VaspScraper(Scraper):
                         f"_{unconv_label}" if unconv_label else ""
                     jf = path.join(json_dir, f"{stem}_{n}{label}.json")
                     try:
-                        with open(jf, "w") as fp:
+                        with open_output(jf) as fp:
                             json.dump(_step_to_dataset(
                                 step, key, jf, use_toten), fp,
                                 indent=2, sort_keys=True)

@@ -18,6 +18,7 @@ from os import listdir, path
 import numpy as np
 
 from fitsnap_tpu_torch.scrapers.base import Scraper
+from fitsnap_tpu_torch.utils.torchsetup import open_output
 
 _KEY_VAL = re.compile(
     r"""(?P<key>[A-Za-z_][A-Za-z0-9_-]*)\s*=\s*"""
@@ -109,7 +110,7 @@ class XyzScraper(Scraper):
                 "Do not set both reading and writing of group_scrape")
         if sc.save_group_scrape != "None":
             save_file = path.join(infile_dir, sc.save_group_scrape)
-            open(save_file, "w").close()
+            open_output(save_file).close()
         if sc.read_group_scrape != "None":
             read_file = path.join(infile_dir, sc.read_group_scrape)
             with open(read_file) as fp:
@@ -152,7 +153,7 @@ class XyzScraper(Scraper):
                         for _ in range(n):
                             fp.readline()
             if save_file is not None:
-                with open(save_file, "a") as fp:
+                with open_output(save_file, "a") as fp:
                     fp.write(" ".join([key] + [str(o) for o in offsets])
                              + "\n")
             if groups.random_sampling:

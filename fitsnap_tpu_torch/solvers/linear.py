@@ -15,6 +15,7 @@ inside the methods that use them.
 import numpy as np
 
 from fitsnap_tpu_torch.solvers.solver import Solver
+from fitsnap_tpu_torch.utils.torchsetup import save
 
 
 def _solver_rng(config):
@@ -123,8 +124,8 @@ class ANL(Solver):
         ap = (npt - nbas) / 2.0
         sigmahat = bp / (ap - 1.0)
         self.cov = sigmahat * invptp
-        np.save("covariance.npy", self.cov)
-        np.save("mean.npy", self.fit)
+        save("covariance.npy", self.cov)
+        save("mean.npy", self.fit)
         nsam = self.config.sections["SOLVER"].nsam
         if nsam:
             self.fit_sam = _solver_rng(self.config).multivariate_normal(
@@ -221,7 +222,7 @@ class OPT(Solver):
         res = minimize(distance, x0, method="BFGS", jac=grad,
                        options={"gtol": 1e-13})
         self.fit = res.x
-        np.save("mean.npy", self.fit)
+        save("mean.npy", self.fit)
         return self.fit
 
 

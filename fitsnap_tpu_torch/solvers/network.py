@@ -54,6 +54,18 @@ package's, so both packages follow the same loss trajectory from the same
 initial parameters.  The JAX package's epoch blocks and chunked programs
 only arrange TPU dispatch (they compute the same trajectory), and are not
 copied.
+
+Data parallelism (JAX `--devices`, its "dp" mesh axis): under a process
+group of W ranks every rank holds the whole prepared set, the plan is the
+JAX package's data-parallel plan (a minibatch a multiple of W, the caps at
+least W, sets smaller than a minibatch wrapped), and rank r takes the
+contiguous r-th W-th of each minibatch's indices.  The loss's numerators
+stay local and its normalizers are the whole minibatch's, counted on the
+host from the index plan, so the summed local gradients and losses are
+the single-device gradient and loss of the whole minibatch: a training
+step sums them in one all_reduce, and the validation losses are summed
+once an epoch.  Adam, the best epoch and the scheduler then run alike on
+every rank.  Rank 0 alone writes files.
 """
 
 import time
@@ -74,7 +86,9 @@ from fitsnap_tpu_torch.models.mlp import (PerElementMLP, init_mlp,
 from fitsnap_tpu_torch.ops.snap import _quad_extend, quad_fold
 from fitsnap_tpu_torch.solvers.solver import (NN_COLUMNS, NN_INDEX_NAMES,
                                               PAS_COLUMNS, ErrorTable, Solver)
-from fitsnap_tpu_torch.utils.torchsetup import DTYPE, resolve_device
+from fitsnap_tpu_torch.utils.torchsetup import (DTYPE, all_sum,
+                                                from_rank_zero, open_output,
+                                                resolve_device, share, world)
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 _BATCH_KEYS = ("B", "G", "types", "real", "nat", "jidx", "rev", "e_target",
@@ -678,21 +692,39 @@ class NetworkSolver(Solver):
                 else self._forward_batch_otf if self.otf
                 else self._forward_batch)
 
-    def _loss(self, model, batch, train=False):
-        """Weighted MSE loss of one minibatch (JAX `_loss`, one device); PAS:
-        the weighted per-atom residuals over the real atoms."""
+    def _counts(self, ds, idx):
+        """The normalizers of the loss of minibatch `idx` of bucket `ds`,
+        from the host's atom counts: PAS, its real atoms; else its live
+        configs and their force components; each at least 1."""
+        nat = np.asarray(ds["nat_host"])[np.asarray(idx)]
+        if self.pas:
+            return max(float(nat.sum()), 1.0)
+        return (max(float((nat > 0).sum()), 1.0),
+                max(3.0 * float(nat.sum()), 1.0))
+
+    def _loss(self, model, batch, train=False, counts=None):
+        """Weighted MSE loss of one minibatch (JAX `_loss`); PAS: the
+        weighted per-atom residuals over the real atoms.  `counts`, the
+        normalizers of `_counts`, default to the batch's own; under a
+        process group `batch` is this rank's share and `counts` the whole
+        minibatch's, so the group's sum of these losses is the whole
+        minibatch's loss."""
         net = self.net
         if self.pas:
             pred = self._forward_pas(model, batch, train)
             real = batch["real"].to(pred.dtype)
             res = (pred - batch["pas_target"]) * real
-            return (torch.sum(batch["ew"][:, None] * res ** 2)
-                    / torch.clamp(real.sum(), min=1.0))
+            na = torch.clamp(real.sum(), min=1.0) if counts is None \
+                else counts
+            return torch.sum(batch["ew"][:, None] * res ** 2) / na
         e_pred, f_pred = self._forward()(model, batch, train)
         real = batch["real"].to(e_pred.dtype)
         live = (batch["nat"] > 0).to(e_pred.dtype)
-        nfc = torch.clamp((real.sum(1) * 3 * live).sum(), min=1.0)
-        ne = torch.clamp(live.sum(), min=1.0)
+        if counts is None:
+            ne = torch.clamp(live.sum(), min=1.0)
+            nfc = torch.clamp((real.sum(1) * 3 * live).sum(), min=1.0)
+        else:
+            ne, nfc = counts
         e_res = (e_pred - batch["e_target"]) * live
         f_res = (f_pred - batch["f_target"]) * real[..., None] \
             * live[:, None, None]
@@ -732,7 +764,9 @@ class NetworkSolver(Solver):
                 # the descriptor side needs the true atom types
                 key = "elem" if "elem" in ds else "types"
                 ds[key] = torch.zeros_like(ds[key])
+        W = world()[1]
         seed = 13 if net.manual_seed_flag else int(time.time()) % 2 ** 31
+        seed = int(from_rank_zero(seed, dev))   # every rank's is rank 0's
         if net.layer_sizes[0] == 0:
             # the 'num_desc' placeholder unresolved at config time (ACE,
             # whose width the plan gives): the prepared descriptors' width
@@ -782,18 +816,26 @@ class NetworkSolver(Solver):
             train_sets.append(tr)
             val_sets.append(va)
         def plan_bsz(n, ds):
-            """The minibatch size: min(batch_size, n), and at most
-            CACHED_PAIRS pair slots in the cached mode, OTF_CANDIDATES
-            neighbor candidates in the OTF mode (JAX `_plan_bsz`).  The
-            JAX package's np.resize wrap of a set smaller than the
-            minibatch fires only with more devices than examples."""
+            """The minibatch size (JAX `_plan_bsz`): min(batch_size, n), at
+            most CACHED_PAIRS pair slots in the cached mode and
+            OTF_CANDIDATES neighbor candidates in the OTF mode, but at least
+            W, then a multiple of the W processes."""
+            if W > 1 and bs < W:
+                raise ValueError(
+                    f"batch_size={bs} < devices={W}: data-parallel "
+                    "training needs at least one example per device per "
+                    "minibatch — raise batch_size or lower --devices")
             bsz = min(bs, n)
             a_pad, k_pad = ds["shape"]
             if self.cached:
-                bsz = min(bsz, max(1, CACHED_PAIRS // (a_pad * k_pad)))
+                cap = max(1, CACHED_PAIRS // (a_pad * k_pad))
+                bsz = min(bsz, max(cap, W))
             if self.otf:
                 S = ds["svec_hi"].shape[1]
-                bsz = min(bsz, max(1, OTF_CANDIDATES // (a_pad * S * a_pad)))
+                cap = max(1, OTF_CANDIDATES // (a_pad * S * a_pad))
+                bsz = min(bsz, max(cap, W))
+            if W > 1:
+                bsz = W * max(1, bsz // W)
             return bsz
 
         E = net.num_epochs
@@ -802,6 +844,8 @@ class NetworkSolver(Solver):
             if len(tr) == 0:
                 continue
             bsz = plan_bsz(len(tr), self.buckets[bi])
+            if len(tr) < bsz:          # fewer examples than processes: wrap
+                tr = np.resize(tr, bsz)
             nst = (len(tr) - bsz) // bsz + 1
             train_perms.append(np.stack([
                 (rng.permutation(tr) if net.shuffle_flag else np.asarray(tr))
@@ -812,9 +856,16 @@ class NetworkSolver(Solver):
             if len(va) == 0:
                 continue
             bsz = plan_bsz(len(va), self.buckets[bi])
+            va = np.asarray(va)
+            if len(va) < bsz:
+                va = np.resize(va, bsz)
             nst = (len(va) - bsz) // bsz + 1
-            val_plans.append(np.asarray(va)[:nst * bsz].reshape(nst, bsz))
+            val_plans.append(va[:nst * bsz].reshape(nst, bsz))
             vkeys.append(bi)
+
+        def mine(idx):
+            """This rank's contiguous share of a minibatch's indices."""
+            return idx[share(len(idx), "minibatch examples")]
 
         sched = (float(net.learning_rate), np.inf, 0)
         best_val = np.inf
@@ -829,12 +880,15 @@ class NetworkSolver(Solver):
             tn = 0
             for slot, bi in enumerate(tkeys):
                 losses = []
+                ds = self.buckets[bi]
                 for idx in train_perms[slot][e]:
-                    batch = self._gather(self.buckets[bi], idx)
-                    loss = self._loss(model, batch, train=True)
-                    grads = torch.autograd.grad(loss, leaves)
+                    loss = self._loss(model, self._gather(ds, mine(idx)),
+                                      train=True,
+                                      counts=self._counts(ds, idx))
+                    *grads, loss = all_sum(
+                        *torch.autograd.grad(loss, leaves), loss.detach())
                     adam.step(leaves, grads, lr)
-                    losses.append(loss.detach())
+                    losses.append(loss)
                 tl_sum = tl_sum + torch.stack(losses).sum()
                 tn += len(losses)
             tl = float(tl_sum / max(tn, 1))
@@ -842,11 +896,13 @@ class NetworkSolver(Solver):
                 vl_sum = torch.zeros((), dtype=DTYPE, device=dev)
                 vn = 0
                 for slot, bi in enumerate(vkeys):
-                    vl_b = [self._loss(model,
-                                       self._gather(self.buckets[bi], idx))
+                    ds = self.buckets[bi]
+                    vl_b = [self._loss(model, self._gather(ds, mine(idx)),
+                                       counts=self._counts(ds, idx))
                             for idx in val_plans[slot]]
                     vl_sum = vl_sum + torch.stack(vl_b).sum()
                     vn += len(vl_b)
+                vl_sum, = all_sum(vl_sum)
                 vl = float(vl_sum / max(vn, 1))
             else:
                 vl = tl
@@ -927,7 +983,7 @@ class NetworkSolver(Solver):
                  "the reference never steps its scheduler)")
 
     def _finalize_fit(self, best_opt, net, nelem_net):
-        with open("loss_vs_epochs.dat", "w") as f:
+        with open_output("loss_vs_epochs.dat") as f:
             for e, tl, vl in self.history:
                 f.write(f"{e} {tl:.8e} {vl:.8e}\n")
         mean, std = self.mean.cpu().numpy(), self.std.cpu().numpy()
@@ -982,9 +1038,9 @@ class NetworkSolver(Solver):
         solver.py:210-298 NN dumps, consumed by tools/nn_tools.py)."""
         extras = self.config.sections["EXTRAS"]
         outfile = self.config.sections["OUTFILE"]
-        fhc = open(outfile.perconfig_file, "w") if extras.dump_perconfig \
+        fhc = open_output(outfile.perconfig_file) if extras.dump_perconfig \
             else None
-        fha = open(outfile.peratom_file, "w") if extras.dump_peratom \
+        fha = open_output(outfile.peratom_file) if extras.dump_peratom \
             else None
         if fhc:
             fhc.write("Filename Group Natoms Energy_Truth Energy_Pred "

@@ -12,6 +12,8 @@ import json
 
 import numpy as np
 
+from fitsnap_tpu_torch.utils.torchsetup import open_output
+
 _COLUMNS = ("ncount", "mae", "rmse", "rsq")
 _INDEX_NAMES = ("Group", "Weighting", "Testing", "Subsystem")
 NN_COLUMNS = ("ncount_E", "mae_E", "rmse_E", "ncount_F", "mae_F", "rmse_F")
@@ -226,7 +228,9 @@ class Solver:
         for key, val in fs_dict.items():
             if isinstance(val, list) and len(val) == len(self.df.index):
                 self.df[key] = val
-        self.df.to_pickle(self.config.sections["OUTFILE"].dataframe_file)
+        with open_output(self.config.sections["OUTFILE"].dataframe_file,
+                         "wb") as f:
+            self.df.to_pickle(f)
 
     def error_analysis(self, a, b, w, fs_dict):
         self.errors = []

@@ -529,6 +529,9 @@ def test_k4_matches_plain(cuda, name):
     assert sk.launches()["pair_scatter_rows"] == 2
     assert rel_err(out, ref) <= RTOL
     assert all(torch.equal(x, y) for x, y in zip(out, again))
+    gathers, none = sk.pair_scatter_rows(*args, T, gather_only=True)
+    want, _ = sk.pair_scatter_rows_plain(*args, T, gather_only=True)
+    assert none is None and rel_err([gathers], [want]) <= RTOL
 
 
 def launched(module):

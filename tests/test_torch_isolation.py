@@ -2,6 +2,10 @@
 
 - Every module of the package imports in a fresh interpreter without
   bringing in `jax` or any `fitsnap_tpu` module.
+- The native neighbor builder is the port's own: the loader compiles
+  `fitsnap_tpu_torch/native/neighbors.cpp` into the checkout's `build/`,
+  and a neighbor list loads that library alone, with no `jax` or
+  `fitsnap_tpu` module.
 - `FitSnap` with no device asks for CUDA and raises where there is none;
   `device="cpu"` or `--device cpu` runs on the CPU.
 - Each kernel wrapper takes its plain version for CPU tensors (launching
@@ -86,7 +90,9 @@ def test_imports_neither_jax_nor_fitsnap_tpu():
             "fitsnap_tpu_torch.tools.potential_tools",
             "fitsnap_tpu_torch.tools.dataframe_tools",
             "fitsnap_tpu_torch.tools.nn_tools",
-            "fitsnap_tpu_torch.tools.test_tools"} <= set(mods)
+            "fitsnap_tpu_torch.tools.test_tools",
+            "fitsnap_tpu_torch.native",
+            "fitsnap_tpu_torch.utils.torchsetup"} <= set(mods)
     proc = run_python(f"""
         import importlib, json, sys
         for name in {mods!r}:
@@ -100,6 +106,32 @@ def test_imports_neither_jax_nor_fitsnap_tpu():
     """)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+
+
+def test_native_builder_is_the_ports_own():
+    proc = run_python("""
+        import json, sys
+        import numpy as np
+        from fitsnap_tpu_torch import native
+        from fitsnap_tpu_torch.ops.neighbors import host_neighbors
+        pos = np.array([[0.0, 0.0, 0.0], [1.65, 1.65, 1.65]])
+        out = host_neighbors(pos, np.eye(3) * 3.3, 2, 4.8)
+        with open("/proc/self/maps") as f:
+            libs = sorted({line.split()[-1] for line in f
+                           if "fsnative" in line})
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "fitsnap_tpu" or m.startswith("fitsnap_tpu."))
+        print(json.dumps({"libs": libs, "source": str(native.SOURCE),
+                          "build": str(native.build_dir()), "bad": bad,
+                          "count": out[3]}))
+    """)
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["source"] == str(PACKAGE / "native" / "neighbors.cpp")
+    assert got["libs"] == [got["build"] + "/fsnative.so"]
+    assert got["build"].startswith(str(ROOT / "build" / "fitsnap_tpu_torch"))
+    assert got["bad"] == [] and got["count"] == 26
 
 
 def test_default_device_is_cuda_and_raises_without_one(tmp_path):

@@ -186,3 +186,23 @@ def test_row_scatter_plain_matches_brute_force(batch):
     v6 = v[:, [0, 1, 2, 1, 0, 0], [0, 1, 2, 2, 2, 1]]
     np.testing.assert_allclose(force.numpy(), f, rtol=0, atol=1e-12)
     np.testing.assert_allclose(virial.numpy(), v6, rtol=0, atol=1e-12)
+
+
+def test_row_scatter_gather_only_plain_matches_brute_force(batch):
+    """K4's plain version with `gather_only`: minus the gathers into each
+    atom alone, no own row sums, no virial."""
+    disp, jidx, mask, rev, types, _, _ = batch["args"]
+    C, A, K = mask.shape
+    T, X = 2, 3
+    rng = np.random.default_rng(10)
+    g = rng.normal(size=(C, A, X, K, 3)) * mask.numpy()[:, :, None, :, None]
+    ty = rng.integers(0, T, (C, A)).astype(np.int32)
+    force, virial = sk.pair_scatter_rows(
+        torch.from_numpy(g), disp, mask, rev, torch.from_numpy(ty), T,
+        gather_only=True)
+    f = np.zeros((C, A, 3, T, X))
+    m, ji = mask.numpy(), jidx.numpy()
+    for c, i, k in zip(*np.nonzero(m)):
+        f[c, ji[c, i, k], :, ty[c, i]] -= g[c, i, :, k].T
+    assert virial is None
+    np.testing.assert_allclose(force.numpy(), f, rtol=0, atol=1e-12)
