@@ -304,6 +304,30 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    matrix: the split reorders AtA's sums), the NN loss curve (within
    1e-10 relative of (b)'s) and the spatial rows of the set's largest
    config split two ways (within 1e-12 relative of one process's).
+21. (run after phase 11b, before 12: after the NN phases' epoch profiles
+   the profiler's later traces of this process hold no device time)
+   twojmax 13-16 (`LARGE_TJ`),
+   past K1's window shape and K3's whole y rows, on 28 Ta-shaped configs of
+   the set's shapes (`LARGE_COUNTS`; at twojmax 16 without the cells of 100
+   and 128 atoms, `LARGE_DROP`, and A_plain formed a config a chunk: the
+   plain z-lists take 153 MB an atom there), the SNAP plan of each twojmax
+   built once and shared by its paths (the planning seconds printed apart):
+   K1-K3 against their plain versions at twojmax 13, 14 and 16 on the first
+   2, 4 and 1 Displaced_BCC configs (K1 in its table shape, K3 in its slab
+   shape), K9, K10, K11, K11T (its tiles over two blocks at 16) and K10T at
+   14 and 16 on those chunks' lists, as phase 13's rows, with a seeded
+   dE/dB and force cotangent, K1 in its window and its table shape (both forced) at twojmax
+   6, 8, 10, 11 and 12 on the twojmax-14 chunk's inputs, timed in turns,
+   and the chemflag modes of K1-K3 at twojmax 12 on phase 9's first
+   Displaced_ZB64 chunk; the FitSnap path (as phase 4: A against A_plain to
+   1e-10 per column, beta_true within 100 cond eps) at 14 and 16, the
+   streamed fit (as phase 5) at 14; the NN fits at 16 (`nn_settings` on the
+   cells of 2 and 4 atoms, `LARGE_NN_GROUPS`, 2 epochs): `dgrad_mode =
+   auto` (it must resolve to the cached mode) and OTF, each with its
+   launches, no dB/dD stored (OTF: nor disp or ut) and its loss curve
+   against the same fit with every kernel's plain version on the card
+   (1e-10).  Each path prints its peak device memory
+   (`torch.cuda.max_memory_allocated`).
 
 Each NN phase's profiler split prints the port's kernels' launches in the
 profiled epoch beside their device ms (the cached epoch's K11T and gather
@@ -485,11 +509,18 @@ PATH_KERNELS = {"fitsnap": FITSNAP_KERNELS,
                 "dp_nccl1": FITSNAP_KERNELS + STREAM_KERNELS
                 + NN_CACHED_KERNELS,
                 "dp_gloo2": FITSNAP_KERNELS + STREAM_KERNELS
-                + NN_CACHED_KERNELS}
+                + NN_CACHED_KERNELS,
+                # phase 21
+                "tj14_fitsnap": FITSNAP_KERNELS,
+                "tj16_fitsnap": FITSNAP_KERNELS,
+                "tj14_streamed": FITSNAP_KERNELS + STREAM_KERNELS,
+                "tj16_nn_cached_fitsnap": NN_CACHED_KERNELS,
+                "tj16_nn_otf_fitsnap": NN_CACHED_KERNELS}
 # paths whose K4 launches are the rows', one a reference call
 ROWS_PATHS = ("fitsnap", "streamed", "ace_fitsnap", "ace_streamed",
               "quadratic_fitsnap", "quadratic_streamed", "chem_fitsnap",
-              "chem_streamed", "fe_fitsnap", "xyz_fitsnap", "vasp_fitsnap")
+              "chem_streamed", "fe_fitsnap", "xyz_fitsnap", "vasp_fitsnap",
+              "tj14_fitsnap", "tj16_fitsnap", "tj14_streamed")
 # the plan of K13's lmax-8 row (ranks 1-4, 171 A-slots), on the Ta chunk
 LMAX8_SHAPE = dict(numtypes=1, ranks=[1, 2, 3, 4], nmax=[8, 2, 2, 1],
                    lmax=[0, 8, 3, 2], lmin=[0, 0, 0, 0], nmaxbase=8,
@@ -500,12 +531,16 @@ K13_CONVENTIONS = (("pace_mx", "std"), ("v0_t1", "racah"), ("pace_x", "4pi"))
 # FitSnap and streamed paths of each data set
 FITSNAP_PATH = {"snap": "fitsnap", "ace": "ace_fitsnap",
                 "quadratic": "quadratic_fitsnap", "inp": "chem_fitsnap",
-                "fe": "fe_fitsnap"}
+                "fe": "fe_fitsnap", "tj14": "tj14_fitsnap",
+                "tj16": "tj16_fitsnap"}
 STREAM_PATH = {"snap": "streamed", "ace": "ace_streamed",
-               "quadratic": "quadratic_streamed", "inp": "chem_streamed"}
+               "quadratic": "quadratic_streamed", "inp": "chem_streamed",
+               "tj14": "tj14_streamed"}
 # the groups the streamed fit runs of each set (None: all of them)
 STREAM_GROUPS = {"snap": None, "ace": None, "quadratic": ["Compressed_BCC"],
-                 "inp": None}
+                 "inp": None, "tj14": None}
+# the sets whose fits must recover beta_true (the linear SNAP ones)
+BETA_KINDS = ("snap", "tj14", "tj16")
 FLAGS = {"energy": True, "force": True, "stress": True}
 # the InP_PACE example's shape (two elements, ranks 1-4: 344 labels, 99
 # A-slots, 2,136 product terms) with an inner cutoff on the In-P bond
@@ -583,6 +618,33 @@ DP_SVD_RTOL = 1e-10         # TpuSVD coefficients
 DP_LOSS_RTOL = 1e-10        # the NN loss curve
 DP_TIMEOUT = 300
 DISP_ATOL = 1e-12           # native against plain neighbor displacements
+# phase 21: twojmax 13-16 on the Ta-shaped configs of `LARGE_COUNTS` (28 of
+# the set's shapes): the kernels at these twojmax, the FitSnap path at 14
+# and 16, the streamed fit at 14, the NN fits at 16 (`LARGE_EPOCHS` each),
+# K1's two shapes at twojmax 12 and the chemflag modes of K1-K3 at twojmax
+# 12 on an InP chunk; the paths share one plan a twojmax (`shared_plans`)
+LARGE_TJ = (13, 14, 16)
+LARGE_COUNTS = {"Volume_BCC": 3, "Elastic_BCC": 5, "Elastic_FCC": 3,
+                "Displaced_BCC": 8, "Displaced_FCC": 5, "Compressed_BCC": 2,
+                "Liquid": 2}
+# The plain versions' z-lists gather 4 doubles a z term an atom: 153 MB an
+# atom at twojmax 16 (4.77M terms).  So the set of the last twojmax leaves
+# out the cells of 100 and 128 atoms, its A_plain is formed a config a
+# chunk, its kernel rows take one config, and its NN fits the cells of 2
+# and 4 atoms (the plain fit's evaluation of 32-atom cells asked for 18 GB
+# more than the card had free)
+LARGE_DROP = ("Compressed_BCC", "Liquid")
+LARGE_NN_GROUPS = ("Volume_BCC", "Elastic_BCC", "Elastic_FCC")
+LARGE_CHUNK = {13: 2, 14: 4, 16: 1}   # configs of each kernel chunk
+LARGE_EPOCHS = 2
+WINDOW_TJ = 12   # K1's chemflag rows at twojmax 12 (InP's two channels)
+# twojmax where K1's two shapes are timed in turns on the same inputs
+SHAPE_TJ = (6, 8, 10, 11, 12)
+# the section values one SNAP plan depends on (ops/snap.py make_params)
+PLAN_KEYS = ("twojmax", "numtypes", "wj", "radelem", "rcutfac", "rfac0",
+             "rmin0", "chemflag", "bnormflag", "bzeroflag", "wselfallflag",
+             "quadraticflag", "switchflag", "switchinnerflag", "sinner",
+             "dinner")
 # phase 19: the host solvers that need no sklearn, with their extra
 # settings (MCMC: the chain length of tests/test_solvers.py's MCMC test)
 HOST_SOLVERS = {"RIDGE": {"RIDGE": {"local_solver": 1}}, "ANL": {},
@@ -777,14 +839,31 @@ def record(rows, name, out, ref, kernel, plain_ms, nbytes, flops,
 # ---------------------------------------------------------------------------
 
 
-def make_dataset(tmp, seed, device, kind="snap"):
+@contextlib.contextmanager
+def config_chunks(on=True):
+    """The SNAP calculator's chunks of one config while the block runs (when
+    `on`): the plain path's memory at twojmax 14-16 (`LARGE_DROP`)."""
+    from fitsnap_tpu_torch.calculators import snap as csnap
+
+    size = csnap.chunk_size
+    if on:
+        csnap.chunk_size = lambda *args: 1
+    try:
+        yield
+    finally:
+        csnap.chunk_size = size
+
+
+def make_dataset(tmp, seed, device, kind="snap", twojmax=None):
     """Write the synthetic set with truths A_plain @ beta_true + the
     reference, for the SNAP model (`kind="snap"`, the Ta_Linear_JCP2014
     sections), the ACE one ("ace", the Ta_PACE section), quadratic SNAP
     ("quadratic", the Ta_Quadratic_JCP2018 width) on the Ta-shaped configs,
     the InP_JPCA2020 chemflag model ("inp") on the InP-shaped configs, or
     the SNAP model with the zbl + coul/cut + spin reference ("fe") on the
-    Fe-shaped configs, whose JSON carries Spins and Charges.
+    Fe-shaped configs, whose JSON carries Spins and Charges.  With
+    `twojmax`, the SNAP model at that twojmax on the configs of
+    `LARGE_COUNTS` (phase 21; kind "tj<twojmax>").
 
     Returns (input file, the FitSnap that computed A_plain, its scraped
     data, A_plain, beta_true, seconds of the plain path on the card)."""
@@ -802,16 +881,33 @@ def make_dataset(tmp, seed, device, kind="snap"):
         "inp": ("INP_JSON", synthetic.inp_settings, seed + 8,
                 synthetic.inp_configs),
         "fe": ("FE_JSON", synthetic.fe_settings, seed + 10,
-               synthetic.fe_configs)}[kind]
+               synthetic.fe_configs)}[kind if twojmax is None else "snap"]
+    if twojmax is not None:
+        folder = f"TJ{twojmax}_JSON"
+
+        def settings(root):
+            s = synthetic.ta_settings(root, list(counts))
+            s["BISPECTRUM"]["twojmax"] = twojmax
+            s["OUTFILE"] = {"metrics": f"Ta_tj{twojmax}_metrics.md",
+                            "potential": f"Ta_tj{twojmax}_pot"}
+            return s
+
+        counts = {g: n for g, n in LARGE_COUNTS.items()
+                  if twojmax < max(LARGE_TJ) or g not in LARGE_DROP}
+
+        def configs(seed):
+            return synthetic.ta_configs(seed, counts)
     root = Path(tmp) / folder
     files = synthetic.write_dataset(root, configs(seed))
-    ini = Path(tmp) / f"{kind}.in"
+    ini = Path(tmp) / (f"{kind}.in" if twojmax is None
+                       else f"tj{twojmax}.in")
     synthetic.write_ini(ini, settings(root))
 
     fs0 = FitSnap(str(ini), arglist=["--overwrite"], device=device)
     data = fs0.scrape_configs()
     t0 = time.time()
-    a, b0, _, _ = fs0.calculator.process_configs(data, plain=True)
+    with config_chunks(twojmax is not None):
+        a, b0, _, _ = fs0.calculator.process_configs(data, plain=True)
     torch.cuda.synchronize()
     t_plain = time.time() - t0
     rng = np.random.default_rng(beta_seed)
@@ -886,10 +982,40 @@ def k1_operations(p, npairs):
     return npairs * (600 + 3 * L.shape[0] + 2 * entries + 34 * L.shape[1])
 
 
-def descriptor_checks(rows, p, k1_in, shape=None):
+def k1_row(rows, p, k1_in, shape=None):
+    """K1 (its chemflag mode when the plan has element channels) against
+    its plain version on one chunk's K1 inputs, padding slots exactly 0;
+    the row is named `kernel@shape` when a shape is given.  Its bound: per
+    live pair the prologue (about 600 flops), the monomials
+    (`k1_operations`), the change of basis and its four partials (an FMA an
+    entry) and each column's epilogue; the bytes are its inputs, J and
+    utot.  Returns the plain (J, ut)."""
+    from fitsnap_tpu_torch.kernels import snap_kernels as sk
+
+    N, K = k1_in[2].shape
+    U, nc = p.u_len, p.nchem
+    name = "pair_u_duals" + ("_chem" if nc > 1 else "")
+    k1 = getattr(sk, name)
+    out = k1(*k1_in, p)
+    if not (out[0].permute(1, 2, 0, 3)[~k1_in[2]] == 0).all():
+        raise AssertionError(f"{name}: padding slots not exactly 0")
+    ref = sk.pair_u_duals_plain(*k1_in, p)
+    record(rows, name + (f"@{shape}" if shape else ""), out, ref,
+           (lambda: k1(*k1_in, p), 10),
+           timed(lambda: sk.pair_u_duals_plain(*k1_in, p), 3),
+           N * K * (3 * 8 + 4 + 1) + N * 4 + 3 * N * K * 2 * U * 8
+           + N * nc * 2 * U * 8,
+           k1_operations(p, int(k1_in[2].sum().item())), None,
+           wrapper=name, shape=shape)
+    return ref
+
+
+def descriptor_checks(rows, p, k1_in, shape=None, k2_library=True):
     """K1, K2 and K3 (their chemflag modes when the plan has element
     channels) and K6q (quadraticflag) against their plain versions on one
     chunk's K1 inputs; rows are named `kernel@shape` when a shape is given.
+    K2's library call needs the plan's dense TPU term tables, built anew
+    (about a minute at twojmax 16): `k2_library=False` leaves it out.
     Returns the plain (B, dB/dD) the chunk's rows are built from."""
     import torch
     from fitsnap_tpu_torch.kernels import snap_kernels as sk
@@ -897,7 +1023,6 @@ def descriptor_checks(rows, p, k1_in, shape=None):
     from fitsnap_tpu_torch.ops.cg import build_snap_plan
 
     N, K = k1_in[2].shape
-    npairs = int(k1_in[2].sum().item())
     U, nc, W = p.u_len, p.nchem, p.nb_base
     chem = nc > 1
     sfx = "_chem" if chem else ""
@@ -906,26 +1031,7 @@ def descriptor_checks(rows, p, k1_in, shape=None):
     def name(kernel):
         return kernel + sfx if kernel != "quad_chain" else kernel
 
-    # K1: per live pair the prologue (about 600 flops), the monomials
-    # (`k1_operations`), the change of basis and its four partials (an FMA
-    # an entry) and each column's epilogue; the bytes are its inputs, J
-    # and utot
-    k1 = getattr(sk, "pair_u_duals" + sfx)
-    out = k1(*k1_in, p)
-    ref = sk.pair_u_duals_plain(*k1_in, p)
-    # J is the output before last (the utot sums last)
-    if not (out[-2].permute(1, 2, 0, 3)[~k1_in[2]] == 0).all():
-        raise AssertionError(f"{name('pair_u_duals')}: padding slots not "
-                             f"exactly 0")
-    k1_bytes = N * K * (3 * 8 + 4 + 1) + N * 4 + 3 * N * K * 2 * U * 8 \
-        + N * nc * 2 * U * 8
-    record(rows, name("pair_u_duals") + at, out, ref,
-           (lambda: k1(*k1_in, p), 10),
-           timed(lambda: sk.pair_u_duals_plain(*k1_in, p), 3),
-           k1_bytes, k1_operations(p, npairs), None,
-           wrapper=name("pair_u_duals"), shape=shape)
-    J, ut = ref[-2:]
-    del out, ref
+    J, ut = k1_row(rows, p, k1_in, shape)
 
     # K2 (every ordered channel pair in one launch), with torch.bmm over the
     # TPU path's dense term GEMMs as library call for one channel
@@ -934,7 +1040,10 @@ def descriptor_checks(rows, p, k1_in, shape=None):
     out = k2(ut, p)
     ref = k2_plain(ut, p)
     library = None
-    if not chem:
+    if not k2_library:
+        print(f"{name('zlist')}{at} library call not timed: its dense term "
+              f"tables are the plan's, built anew", flush=True)
+    elif not chem:
         dense = []
         for g in build_snap_plan(p.twojmax).z_dense["groups"]:
             gi1 = torch.as_tensor(g["gi1"], device=ut.device).long()
@@ -1792,7 +1901,7 @@ def main_path(ini, a_plain, beta, device, kind="snap"):
         if head != want or cols != a_plain.shape[1]:
             raise AssertionError(f".snapcoeff header {head} (want {want}) "
                                  f"or width {a_plain.shape[1]} != {cols}")
-    if kind == "snap" or (kind != "ace" and cond <= BETA_COND):
+    if kind in BETA_KINDS or (kind != "ace" and cond <= BETA_COND):
         beta_tol = 100 * cond * EPS64
         beta_err = np.abs(fs.fit - beta).max() / np.abs(beta).max()
         if not (np.isfinite(fs.fit).all() and beta_err <= beta_tol):
@@ -1964,7 +2073,7 @@ def streamed_path(fs, a_plain, beta, seed, device, kind="snap", keep=None):
               "width": int(a_plain.shape[1]), "nrows": nrows,
               "ata_rel_err": float(ata_err), "atb_rel_err": float(atb_err),
               "cond_weighted_a_all": float(cond)}
-    if kind == "snap" or (kind != "ace" and cond <= BETA_COND):
+    if kind in BETA_KINDS or (kind != "ace" and cond <= BETA_COND):
         scale = np.abs(beta).max()
         err_direct = np.abs(x_direct - beta).max() / scale
         err_ref = np.abs(x_ref - beta).max() / scale
@@ -4054,6 +4163,302 @@ def distributed_phase(tmp, ini, ref, keep, kernels, device="cuda"):
             "dp_gloo2": (gloo_counts, times, {})}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: twojmax 13-16
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def shared_plans(cache):
+    """The SNAP calculators' make_params memoized by the section values a
+    plan depends on (`PLAN_KEYS`) while the block runs, so that every path
+    of a twojmax shares one plan; each build's seconds go to
+    cache["seconds"][(twojmax, channels)]."""
+    from fitsnap_tpu_torch.calculators import snap as csnap
+
+    build = csnap.make_params
+
+    def shared(sec, device):
+        key = (tuple(repr(getattr(sec, k, None)) for k in PLAN_KEYS),
+               str(device))
+        if key not in cache:
+            t0 = time.time()
+            cache[key] = build(sec, device)
+            seconds = cache.setdefault("seconds", {})
+            plan = (cache[key].twojmax, cache[key].nchem)
+            seconds[plan] = seconds.get(plan, 0.0) + time.time() - t0
+        return cache[key]
+
+    csnap.make_params = shared
+    try:
+        yield
+    finally:
+        csnap.make_params = build
+
+
+def peak_gb():
+    """The card's peak allocated memory since the last reset, GB."""
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def grid_rows(rows, p, k1_in, jidx, tag):
+    """K9, K10, K11, K11T and K10T against their plain versions on a
+    chunk's SNAP lists (k1_in flat over its C x A atoms, jidx (C, A, K))
+    with a seeded dE/dB and force cotangent, as phase 13's rows: K9 on the
+    lists, K10 on the seeded dE/dB and K2's z-lists of K9's ut, K11 on the
+    plain K10's grid cotangent, K11T on the seeded force cotangent, K10T on
+    the plain K11T's grid cotangent."""
+    import torch
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+    from fitsnap_tpu_torch.kernels import snap_kernels as sk
+    from fitsnap_tpu_torch.ops.snap import nn_tables
+
+    tb = nn_tables(p)
+    n_t, W = tb.n_t, p.ntriples
+    C, A, K = jidx.shape
+    M = C * A
+    shape = [C, A, K]
+    rng = np.random.default_rng(21)
+    ut, _ = k9_row(rows, k1_in, p, tag, shape)
+    z = sk.zlist(ut, p)
+    dEdB = torch.as_tensor(rng.normal(size=(M, W)), device=ut.device)
+    vg = k10_row(rows, dEdB, z, p, tag, shape)
+    pairs = int(k1_in[2].sum().item())
+    pair_in = M * K * (3 * 8 + 4 + 1) + M * 4
+    args = (vg,) + tuple(k1_in)
+    record(rows, f"nn_pair_force{tag}", [nk.nn_pair_force(*args, p)],
+           [nk.nn_pair_force_plain(*args, p)],
+           (lambda: nk.nn_pair_force(*args, p), 10),
+           timed(lambda: nk.nn_pair_force_plain(*args, p), 3),
+           pair_in + M * n_t * n_t * 8 + M * K * 3 * 8,
+           pairs * (8 * n_t * n_t + 600), None, wrapper="nn_pair_force",
+           shape=shape, vector=True)
+    gF = torch.as_tensor(rng.normal(size=(C, A, 3)), device=ut.device)
+    args = (gF, jidx) + tuple(k1_in)
+    out = nk.nn_pair_force_t(*args, p)
+    if not torch.equal(out, nk.nn_pair_force_t(*args, p)):
+        raise AssertionError(f"nn_pair_force_t{tag}: two calls differ")
+    vgc = nk.nn_pair_force_t_plain(*args, p)
+    record(rows, f"nn_pair_force_t{tag}", [out], [vgc],
+           (lambda: nk.nn_pair_force_t(*args, p), 10),
+           timed(lambda: nk.nn_pair_force_t_plain(*args, p), 3),
+           M * 3 * 8 + M * K * 4 + pair_in + M * n_t * n_t * 8,
+           pairs * (4 * n_t * n_t + 600), None, wrapper="nn_pair_force_t",
+           shape=shape, vector=True)
+    args = (vgc,) + tuple(z)
+    record(rows, f"nn_dedu_vg_t{tag}", [nk.nn_dedu_vg_t(*args, p)],
+           [nk.nn_dedu_vg_t_plain(*args, p)],
+           (lambda: nk.nn_dedu_vg_t(*args, p), 10),
+           timed(lambda: nk.nn_dedu_vg_t_plain(*args, p), 3),
+           M * (n_t * n_t + 2 * referenced_z(tb) + W) * 8,
+           M * (2 * tb.lgc_val.numel() + 5 * len(tb.yu_fac)), None,
+           wrapper="nn_dedu_vg_t", shape=shape, vector=True)
+
+
+def k1_shapes(rows, fs, k1_in):
+    """K1 at each twojmax of `SHAPE_TJ` (the Ta section's other values) on
+    a chunk's K1 inputs in its window shape (forced) and its table shape
+    (forced), each against the plain version, then both timed in turns
+    (window, table, table, window); returns {twojmax: (the planner's shape
+    and splits, window ms, table ms)}."""
+    import torch
+    from fitsnap_tpu_torch.calculators import snap as csnap
+    from fitsnap_tpu_torch.kernels import snap_kernels as sk
+
+    N, K = k1_in[2].shape
+    sms = torch.cuda.get_device_properties(
+        k1_in[0].device).multi_processor_count
+    kept = sk.K1_SHAPES, sk.K1_WINDOW_SPLITS
+    out = {}
+    for tj in SHAPE_TJ:
+        sec = SimpleNamespace(**{k: getattr(fs.calculator.sec, k, None)
+                                 for k in PLAN_KEYS})
+        sec.twojmax = [tj]
+        p = csnap.make_params(sec, fs.device)
+        plan = sk.pair_u_plan(p, N, K, sms)
+        ms = {}
+        try:
+            for tag in ("window", "table", "table", "window"):
+                # the window forced at any split count
+                sk.K1_SHAPES, sk.K1_WINDOW_SPLITS = (tag,), 1 << 30
+                if tag not in ms:
+                    k1_row(rows, p, k1_in, f"tj{tj}_{tag}")
+                ms.setdefault(tag, []).append(
+                    timed(lambda: sk.pair_u_duals(*k1_in, p), 10))
+        finally:
+            sk.K1_SHAPES, sk.K1_WINDOW_SPLITS = kept
+        print(f"K1 at twojmax {tj} on {N} atoms x {K} slots: planner "
+              f"{plan}; ms in turns (window, table, table, window): "
+              f"{ms['window'][0]:.4f} {ms['table'][0]:.4f} "
+              f"{ms['table'][1]:.4f} {ms['window'][1]:.4f}", flush=True)
+        out[tj] = (list(plan), ms["window"], ms["table"])
+    return out
+
+
+def large_nn_path(tmp, root, tj, mode, device):
+    """The NN fit at `tj` on phase 21's set (its `LARGE_NN_GROUPS`) in
+    `mode` ("auto", which must
+    resolve to the cached mode, or "otf") for LARGE_EPOCHS epochs: launch
+    counts set to 0 just before and read just after; it fails unless K5,
+    K8, K8r, K2, K9-K11T and the gather launched, K1, K3, K4 and K12's
+    contraction did not, no bucket holds dB/dD (OTF: nor disp or ut), the
+    losses are finite and the same fit with every kernel's plain version
+    on the card has the same loss curve (1e-10).  Returns (the FitSnap,
+    counts, timings, checks)."""
+    import torch
+    from fitsnap_tpu_torch import FitSnap
+    from fitsnap_tpu_torch.tools import synthetic
+
+    tag = f"tj{tj}_{mode}"
+    settings = synthetic.nn_settings(root, list(LARGE_NN_GROUPS),
+                                     dgrad_mode=mode)
+    settings["BISPECTRUM"]["twojmax"] = tj
+    settings["PYTORCH"]["num_epochs"] = LARGE_EPOCHS
+    synthetic.write_ini(Path(tmp) / f"nn_{tag}.in", settings)
+    path = f"tj{tj}_nn_{'otf' if mode == 'otf' else 'cached'}_fitsnap"
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    fs = FitSnap(str(Path(tmp) / f"nn_{tag}.in"), arglist=["--overwrite"],
+                 device=device)
+    fs.scrape_configs()
+    fs.process_configs()
+    fs.perform_fit()
+    fs.write_output()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = launches()
+    sol = fs.solver
+    check_launched(counts, path)
+    stray = {k: counts[k] for k in NN_CACHED_ABSENT if counts[k]}
+    if stray:
+        raise AssertionError(f"the {path} path launched {stray}")
+    stored = [k for b in sol.buckets for k in ("G", "disp", "ut") if k in b]
+    if (mode == "otf" and (stored or not sol.otf)) or (
+            mode != "otf" and (not sol.cached or "G" in stored)):
+        raise AssertionError(f"the {path} path (cached={sol.cached}, "
+                             f"otf={sol.otf}) stored {stored}")
+    hist = np.array(sol.history)
+    print(f"nn loss curve ({tag}; epoch, train, validation): "
+          + json.dumps(hist.tolist()), flush=True)
+    if not np.isfinite(hist).all():
+        raise AssertionError(f"nn {tag}: the losses are not finite")
+    checks = {"configs": len(fs.data), "width": int(sol._snap.nb_base),
+              "buckets": {str(b["shape"]): len(b["groups"])
+                          for b in sol.buckets},
+              "train_loss_first": hist[0, 1], "train_loss_last": hist[-1, 1],
+              "peak_gb": peak_gb()}
+    checks.update(plain_fit_check(fs, tmp, tag))
+    times = dict(fs.timings, wall=wall, epoch_first=sol.epoch_times[0],
+                 epoch_mean_rest=float(np.mean(sol.epoch_times[1:])))
+    return fs, path, (counts, times, checks)
+
+
+def large_twojmax_phase(tmp, seed, device="cuda"):
+    """Phase 21: every SNAP path past twojmax 12 (`LARGE_TJ`: the kernels
+    at the first, FitSnap at the last two, the streamed fit at the second,
+    the NN fits at the last) and the chemflag modes at 12.  Returns
+    (kernel rows, {path: (counts, timings, checks)})."""
+    import torch
+    from fitsnap_tpu_torch import FitSnap
+    from fitsnap_tpu_torch.tools import synthetic
+
+    t_phase = time.time()
+    tj_kern, tj_fit, tj_nn = LARGE_TJ
+    rows, paths, cache, sets = [], {}, {}, {}
+    with shared_plans(cache):
+        # the kernels-only twojmax reads the next one's set
+        for tj in (tj_fit, tj_kern, tj_nn):
+            t0 = time.time()
+            if tj == tj_kern:
+                # kernels alone, on the configs of the next set
+                settings = synthetic.ta_settings(
+                    Path(tmp) / f"TJ{tj_fit}_JSON", list(LARGE_COUNTS))
+                settings["BISPECTRUM"]["twojmax"] = tj
+                synthetic.write_ini(Path(tmp) / f"tj{tj}.in", settings)
+                fs0 = FitSnap(str(Path(tmp) / f"tj{tj}.in"),
+                              arglist=["--overwrite"], device=device)
+                data = fs0.scrape_configs()
+            else:
+                ini, fs0, data, a_plain, beta, _ = make_dataset(
+                    tmp, seed, device, twojmax=tj)
+                sets[tj] = (ini, a_plain, beta)
+            calc = fs0.calculator
+            p = calc.params
+            _, args, k1_in, smask = snap_chunk(
+                calc, data, "Displaced_BCC", LARGE_CHUNK[tj])
+            C, A, K = smask.shape
+            print(f"twojmax {tj}: plan {cache['seconds'][tj, 1]:.2f} s, "
+                  f"U {p.u_len}, width {p.nb_base}; set-up "
+                  f"{time.time() - t0:.2f} s; kernel inputs C={C} A={A} "
+                  f"K={K} pairs={int(smask.sum().item())}", flush=True)
+            torch.cuda.reset_peak_memory_stats()
+            descriptor_checks(rows, p, k1_in, f"tj{tj}", k2_library=False)
+            if tj != tj_kern:
+                grid_rows(rows, p, k1_in, args[1], f"@tj{tj}")
+            if tj == tj_fit:
+                k1_shape_ms = k1_shapes(rows, fs0, k1_in)
+            print(f"twojmax {tj} kernels: peak {peak_gb():.2f} GB",
+                  flush=True)
+            del fs0, data, args, k1_in, smask
+            torch.cuda.empty_cache()
+        # the chemflag modes of K1-K3 at WINDOW_TJ on phase 9's InP set
+        settings = synthetic.inp_settings(Path(tmp) / "INP_JSON")
+        settings["BISPECTRUM"]["twojmax"] = f"{WINDOW_TJ} {WINDOW_TJ}"
+        synthetic.write_ini(Path(tmp) / "inp_large.in", settings)
+        t0 = time.time()
+        fs0 = FitSnap(str(Path(tmp) / "inp_large.in"),
+                      arglist=["--overwrite"], device=device)
+        data = fs0.scrape_configs()
+        _, _, k1_in, smask = snap_chunk(fs0.calculator, data,
+                                        "Displaced_ZB64")
+        C, A, K = smask.shape
+        print(f"InP chemflag twojmax {WINDOW_TJ}: plan "
+              f"{cache['seconds'][WINDOW_TJ, 2]:.2f} s, "
+              f"set-up {time.time() - t0:.2f} s, width "
+              f"{fs0.calculator.params.nb_base}; kernel inputs C={C} A={A} "
+              f"K={K}", flush=True)
+        descriptor_checks(rows, fs0.calculator.params, k1_in,
+                          f"InP_tj{WINDOW_TJ}", k2_library=False)
+        del fs0, data, k1_in, smask
+        torch.cuda.empty_cache()
+
+        # FitSnap at the last two, the streamed fit at the first of them
+        for tj in (tj_fit, tj_nn):
+            ini, a_plain, beta = sets[tj]
+            torch.cuda.reset_peak_memory_stats()
+            fs, *fitsnap = main_path(ini, a_plain, beta, device, f"tj{tj}")
+            fitsnap[2]["peak_gb"] = peak_gb()
+            if tj == tj_fit:
+                fitsnap[2]["k1_shapes"] = k1_shape_ms
+            paths[FITSNAP_PATH[f"tj{tj}"]] = fitsnap
+            if tj == tj_fit:
+                torch.cuda.reset_peak_memory_stats()
+                streamed = streamed_path(fs, a_plain, beta, seed, device,
+                                         f"tj{tj}")
+                streamed[2]["peak_gb"] = peak_gb()
+                paths[STREAM_PATH[f"tj{tj}"]] = streamed
+            del fs, a_plain
+            torch.cuda.empty_cache()
+
+        # the NN fits, cached (auto's pick), then OTF
+        for mode in ("auto", "otf"):
+            fs, path, result = large_nn_path(
+                tmp, Path(tmp) / f"TJ{tj_nn}_JSON", tj_nn, mode, device)
+            paths[path] = result
+            del fs
+            torch.cuda.empty_cache()
+    seconds = cache.get("seconds", {})
+    print(f"phase 21 (twojmax {', '.join(map(str, LARGE_TJ))}): "
+          f"{time.time() - t_phase:.2f} s, of which planning "
+          f"{sum(seconds.values()):.2f} s (" + ", ".join(
+              f"twojmax {tj}, {nc} channel(s): {v:.2f} s"
+              for (tj, nc), v in sorted(seconds.items())) + ")", flush=True)
+    return rows, paths
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4164,6 +4569,13 @@ def main():
             paths[FITSNAP_PATH["fe"]] = fitsnap
             del fs, a_plain, packed
             torch.cuda.empty_cache()
+            # phase 21, twojmax 13-16: the kernels, FitSnap, the streamed
+            # fit and the NN fits (cached and OTF) past twojmax 12; before
+            # the NN phases, after whose epoch profiles the profiler's
+            # traces of this process hold no device time
+            rows, more = large_twojmax_phase(tmp, args.seed)
+            kernels += rows
+            paths.update(more)
             # the NN fit on the Ta set of phase 2
             fs, counts, times, checks = nn_path(tmp, "cuda")
             rows, grad = nn_kernel_checks(fs)

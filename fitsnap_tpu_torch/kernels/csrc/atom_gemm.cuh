@@ -190,3 +190,96 @@ __device__ void ag_run(const AtomGemm& g) {
   }
   __syncthreads();
 }
+
+// The product with L built a slab at a time: `build(i0, i1)` (called by
+// every thread, between barriers) writes L's columns [i0, i1) at L's
+// columns [0, i1 - i0) and their zero flags, and the slabs of `slab`
+// columns (a multiple of 8 AG_DEPTH, L's row stride g.ldl covering it)
+// follow in inner order, once for each sweep of the columns.  The
+// accumulators run on across the slabs, so that every output is the same
+// chain of mma k-steps in inner order as ag_run's: the result equals
+// ag_run's over whole rows, bit for bit.  Ends with a __syncthreads.
+template <int IW, class Build>
+__device__ void ag_run_slabs(const AtomGemm& g, int slab, Build build) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g8 = lane >> 2;
+  const int t4 = lane & 3;
+  const int nks = (g.inner + 7) / 8;
+  const int sks = slab / 8;                  // k-steps of a slab
+  for (int n0 = 0; n0 < g.ncols; n0 += AG_NCOLS) {
+    const int ntl = (min(AG_NCOLS, g.ncols - n0) + 7) / 8;
+    const bool active = warp < ntl;
+    const double* src[AG_JW];
+#pragma unroll
+    for (int j = 0; j < AG_JW; ++j) {
+      const int n = n0 + (warp + 8 * j) * 8 + g8;
+      src[j] = nullptr;
+      if (warp + 8 * j < ntl && n < g.ncols)
+        src[j] = g.R + (n % 3) * g.cstride +
+                 static_cast<long long>(ag_neighbor(g, n)) * g.inner;
+    }
+    double acc[IW][AG_JW][4];
+#pragma unroll
+    for (int i = 0; i < IW; ++i)
+#pragma unroll
+      for (int j = 0; j < AG_JW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0;
+    double buf[AG_DEPTH][AG_JW][2];
+#pragma unroll
+    for (int d = 0; d < AG_DEPTH; ++d) ag_fetch(src, g.inner, t4, d, buf[d]);
+
+    for (int s0 = 0; s0 < nks; s0 += sks) {
+      const int s1 = min(s0 + sks, nks);
+      __syncthreads();                       // the last slab's reads of L
+      build(s0 * 8, min(s1 * 8, g.inner));
+      __syncthreads();
+      if (!active) continue;
+      for (int ks0 = s0; ks0 < s1; ks0 += AG_DEPTH) {
+#pragma unroll
+        for (int d = 0; d < AG_DEPTH; ++d) {
+          const int ks = ks0 + d;
+          if (ks >= s1) break;
+          const double* ls = g.L + (ks - s0) * 8;
+#pragma unroll
+          for (int i = 0; i < IW; ++i) {
+            if (g.nz && !g.nz[i * (g.ldl / 8) + ks - s0]) continue;
+            const double* ap = ls + (16 * i + g8) * g.ldl + t4;
+            const double a[4] = {ap[0], ap[8 * g.ldl], ap[4],
+                                 ap[8 * g.ldl + 4]};
+#pragma unroll
+            for (int j = 0; j < AG_JW; ++j)
+              if (warp + 8 * j < ntl) mma_f64(acc[i][j], a, buf[d][j]);
+          }
+          ag_fetch(src, g.inner, t4, ks + AG_DEPTH, buf[d]);
+        }
+      }
+    }
+    if (!active) continue;
+
+    double* st = g.stage + warp * 128;
+#pragma unroll
+    for (int j = 0; j < AG_JW; ++j) {
+      const int tile = warp + 8 * j;
+      if (tile >= ntl) continue;
+      const int n = n0 + tile * 8 + (lane & 7);
+      const int o = n < g.ncols ? 3 * ag_neighbor(g, n) + n % 3 : -1;
+#pragma unroll
+      for (int i = 0; i < IW; ++i) {
+        __syncwarp();
+        reinterpret_cast<double2*>(st)[g8 * 4 + t4] =
+            make_double2(acc[i][j][0], acc[i][j][1]);
+        reinterpret_cast<double2*>(st)[(g8 + 8) * 4 + t4] =
+            make_double2(acc[i][j][2], acc[i][j][3]);
+        __syncwarp();
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int r = 16 * i + 4 * m + (lane >> 3);
+          if (o >= 0 && r < g.rows) g.out[r * g.ldo + o] = st[32 * m + lane];
+        }
+      }
+    }
+  }
+  __syncthreads();
+}

@@ -65,7 +65,9 @@
 // descriptor's terms dealt to segments of at most `per` (15 at twojmax 6,
 // where a descriptor has up to 505 terms), one a thread, whose partial
 // sums the descriptor adds in order.
-//   K11T (four warps up to twojmax 7, a warp to four output tiles beyond):
+//   K11T (four warps up to twojmax 7, a warp to four output tiles beyond;
+// from twojmax 15, where that passes 1,024 threads, the tiles split over
+// two or more blocks an atom, each repeating (1) and (2)):
 // vgc is the product A B of the n_t x 2L matrix A of the L live pairs'
 // columns T1, Y = h.T1t and the 2L x n_t matrix B of their rows X = s T2 +
 // h.T2t, T2, over k-tiles of FT_PAIRS pairs staged in shared memory; then
@@ -314,7 +316,7 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_pair_force_t_kernel(
     const unsigned char* __restrict__ mask, const int* __restrict__ ielem,
     const double* __restrict__ elem, Scalars s, int A, int K, int n_t,
     int twojmax, const int* __restrict__ pidx, const int* __restrict__ qidx,
-    size_t work_doubles, double* __restrict__ vgc) {
+    size_t work_doubles, int tper, double* __restrict__ vgc) {
   extern __shared__ double sm[];
   const int T = blockDim.x, tid = threadIdx.x;
   const int nt2 = n_t * n_t;
@@ -342,19 +344,23 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_pair_force_t_kernel(
   const int nm = ft_list(disp, jelem, jidx, gF, mask, elem, s, ei, a, first,
                          K, chunk, stage, list, ws, nullptr);
   if (nm == 0) {                                 // a padded atom
-    for (int i = tid; i < nt2; i += T) out[i] = 0.0;
+    if (blockIdx.y == 0)
+      for (int i = tid; i < nt2; i += T) out[i] = 0.0;
     return;
   }
   __syncthreads();
 
-  // warp w owns output tiles w, w + warps, ... (16 x 8 each), in registers
+  // the block's output tiles are tper from blockIdx.y * tper on; warp w
+  // owns its tiles w, w + warps, ... (16 x 8 each), in registers
   const int lane = tid % 32, warp = tid / 32, warps = T / 32;
   const int g = lane / 4, tq = lane % 4;
   double acc[FT_TILES][4];
   int m0[FT_TILES], n0[FT_TILES];                // -1: no tile
   for (int i = 0; i < FT_TILES; ++i) {
-    const int tt = warp + i * warps;
-    m0[i] = tt < sh.tiles ? (tt / (sh.np / 8)) * 16 : -1;
+    const int tt = blockIdx.y * tper + warp + i * warps;
+    m0[i] = warp + i * warps < tper && tt < sh.tiles
+                ? (tt / (sh.np / 8)) * 16
+                : -1;
     n0[i] = (tt % (sh.np / 8)) * 8;
     for (int v = 0; v < 4; ++v) acc[i][v] = 0.0;
   }
@@ -1086,10 +1092,16 @@ extern "C" int nn_pair_force_t(const double* gF, const int* jidx,
                                const int* qidx, double* vgc, void* stream) {
   const int twojmax = grid_twojmax(n_t);
   if (twojmax < 0) return static_cast<int>(cudaErrorInvalidValue);
-  // a warp a FT_TILES output tiles, at least four warps
+  // a warp a FT_TILES output tiles, at least four warps; where that takes
+  // more than 1,024 threads (twojmax 15 and up), the tiles split evenly
+  // over the fewest blocks an atom that keep to 1,024
   const FtShape sh(n_t);
-  const int threads = max(128, (sh.tiles + FT_TILES - 1) / FT_TILES * 32);
-  if (threads > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  int tsplit = 1, tper = sh.tiles, threads = 0;
+  for (;; ++tsplit) {
+    tper = (sh.tiles + tsplit - 1) / tsplit;
+    threads = max(128, (tper + FT_TILES - 1) / FT_TILES * 32);
+    if (threads <= 1024) break;
+  }
   const int chunk = ft_chunk(threads, K);
   const size_t work = static_cast<size_t>(chunk) * (FT_REC + 4 * (twojmax + 2))
                       + 2 * FT_PAIRS * (sh.lda + sh.ldb);
@@ -1100,11 +1112,11 @@ extern "C" int nn_pair_force_t(const double* gF, const int* jidx,
   const int err = fs_allow_smem(kernel, smem);
   if (err) return err;
   if (natoms > 0) {
-    kernel<<<static_cast<unsigned>(natoms), threads, smem,
+    kernel<<<dim3(static_cast<unsigned>(natoms), tsplit), threads, smem,
              static_cast<cudaStream_t>(stream)>>>(
         gF, jidx, disp, jelem, mask, ielem, elem,
         scalars(rcutfac, rfac0, rmin0, switchflag, switchinnerflag), A, K,
-        n_t, twojmax, pidx, qidx, work, vgc);
+        n_t, twojmax, pidx, qidx, work, tper, vgc);
   }
   return static_cast<int>(cudaGetLastError());
 }

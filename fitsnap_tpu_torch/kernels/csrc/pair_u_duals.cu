@@ -58,9 +58,28 @@
 //   * Masked slots get J = 0 rows (zero stores over the split's column
 //     runs, a warp a slot).  utot = the U entries of each column applied to
 //     W (a lane a channel), plus the self term.
-// Any twojmax and any channel count: the host raises the split count until a
-// window fits a block's shared memory.  No atomics: the output repeats bit
-// for bit.
+// The host raises the split count until a window fits a block's shared
+// memory.  Each split repeats its pairs' prologue and monomials, so the
+// host takes this shape only where a window fits within 16 splits (to
+// twojmax 10); past it, and where no window fits (twojmax 13 and up: a
+// level's columns read more monomials than a window of 32 pairs can hold),
+// the table shape (`pair_u_table`) runs instead:
+//   * every monomial ar^p ai^q br^r bi^s is the product of two table
+//     entries, X[p, q] = ar^p ai^q and Y[r, s] = br^r bi^s, over the
+//     (twojmax + 1)(twojmax + 2) / 2 exponent pairs of degree <= twojmax
+//     (153 at twojmax 16): the block keeps the two tables of the tile's
+//     pairs, [pair row][pair] (80 KB at twojmax 16), in place of a window;
+//     all warps form them from warp 0's powers;
+//   * a step's offsets double holds each slot's X row and Y row as 8-bit
+//     indices; a slot's term is c X[row] Y[row'];
+//   * utot is no longer L applied to W: each chunk column's U value of a
+//     lane's pair, weighted, is summed over the tile's pairs by a fixed xor
+//     butterfly (a channel at a time in the chemflag mode) and added into
+//     the block's own copy of the atom's utot in shared memory (set to the
+//     self term first), tile by tile in neighbor order; the split's columns
+//     of it are stored at the end.
+// Any twojmax up to 16 and the chemflag modes run in one shape or the
+// other.  No atomics: the output repeats bit for bit.
 #include <math.h>
 
 #include "common.cuh"
@@ -379,6 +398,289 @@ long long pair_u_duals_smem(const Plan& pl, int twojmax, int nc, int K) {
              (2 * NW * pl.max_wch + pl.max_win + K + TP + 1);
 }
 
+// The table shape.  Row stride of the pair tables X and Y, odd.
+constexpr int TS = TP | 1;
+constexpr int HREC = 3;       // steps' worth of doubles of a chunk's header
+constexpr int PIECE = 64;     // steps of a piece of a warp's stream
+
+// Exponent pairs of degree <= twojmax: the rows of X and of Y.
+__host__ __device__ __forceinline__ int table_rows(int twojmax) {
+  return (twojmax + 1) * (twojmax + 2) / 2;
+}
+
+// Host tables of a table-shape plan (`snap_kernels.pair_u_tables(...,
+// "table")`): each (split, warp) one stream of STEP-double records, the
+// warp's chunks in order, each a header of HREC records (24 ints, as the
+// window shape's, then zeros) and its steps; a header that would cross a
+// PIECE boundary starts at the next one (zero records between), and a
+// stream holds an even number of records.
+struct TablePlan {
+  const double* blob;   // the streams
+  const int* wrec;      // (S * NW + 1,): first record of each stream
+  const int* zr_ptr;    // (S + 1,): column runs of each split
+  const int2* zruns;    // [u0, u1)
+};
+
+__global__ void __launch_bounds__(NW * 32, 1) pair_u_table_kernel(
+    const double* __restrict__ disp, const int* __restrict__ jelem,
+    const unsigned char* __restrict__ mask, const int* __restrict__ ielem,
+    const double* __restrict__ elem, Scalars s, long long natoms, int K,
+    TablePlan pl, int twojmax, int two_u, int nc, int wselfall,
+    const double* __restrict__ selfvec, double* __restrict__ J,
+    double* __restrict__ ut) {
+  extern __shared__ double smem[];
+  const int nrow = table_rows(twojmax);
+  // [nrow][TS] each: X (ar^p ai^q) and Y (br^r bi^s) of the tile's pairs
+  double* X = smem;
+  double* Y = X + nrow * TS;
+  double* pro = Y + nrow * TS;      // [NPRO][TP], as the window shape's
+  double* pw = pro + NPRO * TP;     // [4][twojmax + 1][TP]: the powers
+  double* us = pw + 4 * (twojmax + 1) * TP;          // [nc][two_u] utot
+  double* sbuf = us + ((static_cast<long long>(nc) * two_u + 1) & ~1LL);
+  int* slots = reinterpret_cast<int*>(sbuf + 2 * NW * PIECE * STEP);  // [K]
+  int* tch = slots + K;                              // [TP] pair channels
+  int* cnt = tch + TP;                               // live slots
+
+  const long long a = blockIdx.x;
+  const int sp = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ie = ielem[a];
+  const long long rows = natoms * K;  // J rows of one direction
+
+  // live slots first in slot order, masked ones from the end
+  if (warp == 0) {
+    int nl = 0, nm = 0;
+    for (int k0 = 0; k0 < K; k0 += 32) {
+      const int k = k0 + lane;
+      const bool live = k < K && mask[a * K + k] != 0;
+      const bool dead = k < K && !live;
+      const unsigned bl = __ballot_sync(0xffffffffu, live);
+      const unsigned bd = __ballot_sync(0xffffffffu, dead);
+      const unsigned below = (1u << lane) - 1u;
+      if (live) slots[nl + __popc(bl & below)] = k;
+      if (dead) slots[K - 1 - (nm + __popc(bd & below))] = k;
+      nl += __popc(bl);
+      nm += __popc(bd);
+    }
+    if (lane == 0) cnt[0] = nl;
+  }
+  // the split's columns of utot start at the self term
+  for (int r = pl.zr_ptr[sp]; r < pl.zr_ptr[sp + 1]; ++r) {
+    const int2 run = pl.zruns[r];
+    for (int u = run.x + threadIdx.x; u < run.y; u += blockDim.x)
+      for (int e = 0; e < nc; ++e)
+        us[e * two_u + u] = nc == 1 || wselfall || e == ie ? selfvec[u] : 0.0;
+  }
+  __syncthreads();
+  const int nlive = cnt[0];
+
+  // masked slots: zero rows over the split's columns
+  for (int r = pl.zr_ptr[sp]; r < pl.zr_ptr[sp + 1]; ++r) {
+    const int2 run = pl.zruns[r];
+    for (int mi = warp; mi < K - nlive; mi += NW) {
+      const long long base = a * K + slots[K - 1 - mi];
+      for (int u = run.x + lane; u < run.y; u += 32)
+        for (int c = 0; c < 3; ++c) J[(c * rows + base) * two_u + u] = 0.0;
+    }
+  }
+
+  // the warp's stream, read in pieces of PIECE records into the two halves
+  // of its buffer: the next piece in flight while the warp works on one
+  const int r0 = pl.wrec[sp * NW + warp];
+  const int nrec = pl.wrec[sp * NW + warp + 1] - r0;
+  const int npc = (nrec + PIECE - 1) / PIECE;
+  const double* stream = pl.blob + static_cast<long long>(r0) * STEP;
+  double* sb = sbuf + warp * 2 * PIECE * STEP;
+  auto load = [&](int pc) {
+    const double* src = stream + static_cast<long long>(pc) * PIECE * STEP;
+    double* dst = sb + (pc & 1) * PIECE * STEP;
+    const int n = min(PIECE, nrec - pc * PIECE) * STEP;
+    for (int i = lane; i < (n + 1) / 2; i += 32)
+      cp16(dst + 2 * i, src + 2 * i);
+    cp_commit();
+  };
+  int cur = -1;
+  // record ri of the stream, its piece resident
+  auto at = [&](int ri) -> const double* {
+    const int pc = ri / PIECE;
+    if (pc != cur) {
+      __syncwarp();
+      cur = pc;
+      if (pc + 1 < npc) {
+        load(pc + 1);
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
+      }
+      __syncwarp();
+    }
+    return sb + (pc & 1) * PIECE * STEP + (ri % PIECE) * STEP;
+  };
+  const double* Xl = X + lane;
+  const double* Yl = Y + lane;
+  for (int t0 = 0; t0 < nlive; t0 += TP) {
+    const int np = min(TP, nlive - t0);
+    if (warp == 0) {
+      Dual out[5];
+      int chn = -1;
+      if (lane < np) {
+        const long long pk = a * K + slots[t0 + lane];
+        chn = jelem[pk];
+        prologue(disp[pk * 3], disp[pk * 3 + 1], disp[pk * 3 + 2], true, ie,
+                 chn, elem, s, out);
+      } else {
+        prologue(1.0, 0.0, 0.0, false, ie, 0, elem, s, out);
+      }
+      for (int v = 0; v < 4; ++v) {
+        pro[v * TP + lane] = out[v].v;
+        for (int c = 0; c < 3; ++c)
+          pro[(8 + v * 3 + c) * TP + lane] = out[v].d[c];
+      }
+      pro[4 * TP + lane] = lane < np ? out[4].v : 0.0;
+      for (int c = 0; c < 3; ++c) pro[(5 + c) * TP + lane] = out[4].d[c];
+      tch[lane] = lane < np ? (nc == 1 ? 0 : chn) : -1;
+      for (int v = 0; v < 4; ++v) {
+        double x = 1.0;
+        for (int e = 0; e <= twojmax; ++e) {
+          pw[(v * (twojmax + 1) + e) * TP + lane] = x;
+          x *= out[v].v;
+        }
+      }
+    }
+    if (npc > 0) load(0);
+    cur = -1;
+    __syncthreads();
+    // the tables, a warp a row: X[p, q] = ar^p ai^q, Y[r, s] = br^r bi^s,
+    // rows by first exponent, then second
+    for (int i = warp; i < 2 * nrow; i += NW) {
+      const int tab = i >= nrow;
+      int e0 = 0, e1 = i - tab * nrow;
+      while (e1 > twojmax - e0) {
+        e1 -= twojmax + 1 - e0;
+        ++e0;
+      }
+      const double* p0 = pw + 2 * tab * (twojmax + 1) * TP + lane;
+      const double* p1 = p0 + (twojmax + 1) * TP;
+      (tab ? Y : X)[(i - tab * nrow) * TS + lane] = p0[e0 * TP] * p1[e1 * TP];
+    }
+    const double w = pro[4 * TP + lane];
+    const int my_ch = tch[lane];
+    double wt[3], dv[4][3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      wt[c] = pro[(5 + c) * TP + lane];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) dv[v][c] = pro[(8 + v * 3 + c) * TP + lane];
+    }
+    __syncthreads();
+
+    int ri = 0;
+    while (ri < nrec) {
+      int ends[CW * 5];
+      int col0, ncols;
+      {
+        const int* m = reinterpret_cast<const int*>(at(ri));
+        col0 = m[0];
+        ncols = m[1];
+#pragma unroll
+        for (int i = 0; i < CW * 5; ++i) ends[i] = m[4 + i];
+      }
+      if (ncols == 0) break;             // the stream's padding
+      const int sr = ri + HREC;          // the chunk's first step
+      double jv[3][CW];
+      int st = sr;
+#pragma unroll
+      for (int cc = 0; cc < CW; ++cc) {
+        if (cc >= ncols) break;
+        double col[5];
+#pragma unroll
+        for (int g = 0; g < 5; ++g) {
+          const int st1 = sr + ends[cc * 5 + g];
+          double s0 = 0.0, s1 = 0.0, s2 = 0.0, s3 = 0.0;
+          for (; st < st1; ++st) {
+            const double* r = at(st);
+            const unsigned long long o = __double_as_longlong(r[4]);
+            s0 += r[0] * (Xl[(o & 255) * TS] * Yl[((o >> 8) & 255) * TS]);
+            s1 += r[1] *
+                  (Xl[((o >> 16) & 255) * TS] * Yl[((o >> 24) & 255) * TS]);
+            s2 += r[2] *
+                  (Xl[((o >> 32) & 255) * TS] * Yl[((o >> 40) & 255) * TS]);
+            s3 += r[3] * (Xl[((o >> 48) & 255) * TS] * Yl[(o >> 56) * TS]);
+          }
+          col[g] = (s0 + s1) + (s2 + s3);
+        }
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const double tan = dv[0][c] * col[1] + dv[1][c] * col[2] +
+                             dv[2][c] * col[3] + dv[3][c] * col[4];
+          jv[c][cc] = w * tan + wt[c] * col[0];
+        }
+        // utot: the tile's weighted U values of the column, by channel
+        const double wu = w * col[0];
+        for (int e = 0; e < nc; ++e) {
+          double v = my_ch == e ? wu : 0.0;
+          for (int off = 16; off > 0; off >>= 1)
+            v += __shfl_xor_sync(0xffffffffu, v, off);
+          if (lane == 0) us[e * two_u + col0 + cc] += v;
+        }
+      }
+      // the lane's row segments, 16 bytes a store where aligned
+      if (lane < np) {
+        const long long kk = a * K + slots[t0 + lane];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          double* row = J + (c * rows + kk) * two_u + col0;
+          if ((col0 & 1) == 0) {
+#pragma unroll
+            for (int cc = 0; cc < CW; cc += 2) {
+              if (cc + 1 < ncols)
+                *reinterpret_cast<double2*>(row + cc) =
+                    make_double2(jv[c][cc], jv[c][cc + 1]);
+              else if (cc < ncols)
+                row[cc] = jv[c][cc];
+            }
+          } else {
+            row[0] = jv[c][0];
+#pragma unroll
+            for (int cc = 1; cc < CW; cc += 2) {
+              if (cc + 1 < ncols)
+                *reinterpret_cast<double2*>(row + cc) =
+                    make_double2(jv[c][cc], jv[c][cc + 1]);
+              else if (cc < ncols)
+                row[cc] = jv[c][cc];
+            }
+          }
+        }
+      }
+      // the next header, at the next piece where it would cross one
+      ri = sr + ends[CW * 5 - 1];
+      if (ri % PIECE > PIECE - HREC) ri += PIECE - ri % PIECE;
+    }
+    cp_wait<0>();
+    __syncthreads();
+  }
+
+  // the split's columns of utot
+  for (int r = pl.zr_ptr[sp]; r < pl.zr_ptr[sp + 1]; ++r) {
+    const int2 run = pl.zruns[r];
+    for (int u = run.x + threadIdx.x; u < run.y; u += blockDim.x)
+      for (int e = 0; e < nc; ++e)
+        ut[(a * nc + e) * two_u + u] = us[e * two_u + u];
+  }
+}
+
+// Shared memory of one block of the table shape: the two tables, the
+// tile's prologue and powers, utot, the warps' stream buffers, the slot
+// lists (`snap_kernels.pair_u_smem`).
+long long pair_u_table_smem(int twojmax, int two_u, int nc, int K) {
+  return static_cast<long long>(sizeof(double)) *
+             (2LL * table_rows(twojmax) * TS + NPRO * TP +
+              4LL * (twojmax + 1) * TP +
+              ((static_cast<long long>(nc) * two_u + 1) & ~1LL) +
+              2LL * NW * PIECE * STEP) +
+         static_cast<long long>(sizeof(int)) * (K + TP + 1);
+}
+
 }  // namespace
 
 // disp (N, K, 3) f64, jelem (N, K) i32, mask (N, K) u8, ielem (N,) i32,
@@ -413,6 +715,38 @@ extern "C" int pair_u_duals(
     const dim3 grid(static_cast<unsigned>(natoms),
                     static_cast<unsigned>(nsplit));
     pair_u_duals_kernel<<<grid, NW * 32, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+        disp, jelem, mask, ielem, elem, s, natoms, K, pl, twojmax, two_u, nc,
+        wselfall, selfvec, J, ut);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1's table shape: disp, jelem, mask, ielem, elem, the prologue scalars,
+// natoms, K as `pair_u_duals`'; the streams of `snap_kernels.pair_u_tables
+// (..., "table")` (blob, wrec (nsplit * 8 + 1,) their first records) and
+// each split's column runs (zr_ptr, zruns); twojmax at most 20 (a table
+// row fits 8 bits); two_u, nc, wselfall, selfvec, J, ut as `pair_u_duals`'.
+extern "C" int pair_u_table(
+    const double* disp, const int* jelem, const unsigned char* mask,
+    const int* ielem, const double* elem, double rcutfac, double rfac0,
+    double rmin0, int switchflag, int switchinnerflag, long long natoms,
+    int K, const double* blob, const int* wrec, const int* zr_ptr,
+    const int* zruns, int nsplit, int twojmax, int two_u, int nc,
+    int wselfall, const double* selfvec, double* J, double* ut,
+    void* stream) {
+  const Scalars s{rcutfac, rfac0, rmin0, switchflag, switchinnerflag};
+  const TablePlan pl{blob, wrec, zr_ptr,
+                     reinterpret_cast<const int2*>(zruns)};
+  const long long smem = pair_u_table_smem(twojmax, two_u, nc, K);
+  if (nsplit < 1 || nsplit > 65535 || twojmax > 20 || smem > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = fs_allow_smem(pair_u_table_kernel, smem);
+  if (err) return err;
+  if (natoms > 0) {
+    const dim3 grid(static_cast<unsigned>(natoms),
+                    static_cast<unsigned>(nsplit));
+    pair_u_table_kernel<<<grid, NW * 32, smem,
                           static_cast<cudaStream_t>(stream)>>>(
         disp, jelem, mask, ielem, elem, s, natoms, K, pl, twojmax, two_u, nc,
         wselfall, selfvec, J, ut);

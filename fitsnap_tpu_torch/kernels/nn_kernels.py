@@ -187,6 +187,7 @@ def nn_ut_b(disp, jelem, mask, ielem, p):
     bool).  B holds the base descriptors also under quadraticflag."""
     if _on_cpu(disp, jelem, mask, ielem):
         return nn_ut_b_plain(disp, jelem, mask, ielem, p)
+    sk.check_twojmax(p, "K9")
     tb = ops.nn_tables(p)
     N, K = _check_block(disp, jelem, mask, ielem)
     two_u, W, dev = 2 * p.u_len, p.nb_base, disp.device
@@ -219,6 +220,7 @@ def nn_dedu_vg(dEdB, z_r, z_i, p):
     """K10 on the card; same arguments and output as the plain version."""
     if _on_cpu(dEdB, z_r, z_i):
         return nn_dedu_vg_plain(dEdB, z_r, z_i, p)
+    sk.check_twojmax(p, "K10")
     tb = _one_channel(p, "nn_dedu_vg")
     N, W = dEdB.shape
     _check(dEdB, "dEdB", torch.float64, (N, p.ntriples))
@@ -255,6 +257,7 @@ def nn_dedu_vg_t(vgc, z_r, z_i, p):
     """K10T on the card; same arguments and output as the plain version."""
     if _on_cpu(vgc, z_r, z_i):
         return nn_dedu_vg_t_plain(vgc, z_r, z_i, p)
+    sk.check_twojmax(p, "K10T")
     tb = _one_channel(p, "nn_dedu_vg_t")
     N = vgc.shape[0]
     _check(vgc, "vgc", torch.float64, (N, tb.n_t, tb.n_t))
@@ -285,6 +288,7 @@ def nn_pair_force(vg, disp, jelem, mask, ielem, p):
     """K11 on the card; same arguments and output as the plain version."""
     if _on_cpu(vg, disp, jelem, mask, ielem):
         return nn_pair_force_plain(vg, disp, jelem, mask, ielem, p)
+    sk.check_twojmax(p, "K11")
     tb = _one_channel(p, "nn_pair_force")
     N, K = _check_block(disp, jelem, mask, ielem)
     _check(vg, "vg", torch.float64, (N, tb.n_t, tb.n_t))
@@ -317,6 +321,7 @@ def nn_pair_force_t(gF, jidx, disp, jelem, mask, ielem, p):
     """K11T on the card; same arguments and output as the plain version."""
     if _on_cpu(gF, jidx, disp, jelem, mask, ielem):
         return nn_pair_force_t_plain(gF, jidx, disp, jelem, mask, ielem, p)
+    sk.check_twojmax(p, "K11T")
     tb = _one_channel(p, "nn_pair_force_t")
     N, A, K = jidx.shape
     _check_block(disp, jelem, mask, ielem)

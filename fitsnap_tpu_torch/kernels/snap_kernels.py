@@ -36,9 +36,12 @@ _P, _I, _LL, _D = kl.P, kl.I, kl.LL, kl.D
 kl.register("pair_u_duals", "pair_u_duals",
             [_P] * 5 + [_D] * 3 + [_I, _I, _LL, _I] + [_P] * 7 + [_I] * 8
             + [_P] * 4)
+kl.register("pair_u_table", "pair_u_duals",
+            [_P] * 5 + [_D] * 3 + [_I, _I, _LL, _I] + [_P] * 4 + [_I] * 5
+            + [_P] * 4)
 kl.register("zlist", "zlist", [_P, _LL] + [_I] * 4 + [_P] * 3 + [_I, _P]
             + [_I] * 2 + [_P] * 3)
-kl.register("dbdd", "dbdd", [_P] * 14 + [_LL] + [_I] * 7 + [_P] * 3)
+kl.register("dbdd", "dbdd", [_P] * 15 + [_LL] + [_I] * 8 + [_P] * 3)
 kl.register("quad_chain", "quad_chain", [_P] * 5 + [_LL] + [_I] * 3
             + [_P] * 3)
 kl.register("pair_scatter_rows", "pair_scatter",
@@ -58,6 +61,17 @@ kl.register("normal_contrib", "normal_contrib",
 # ---------------------------------------------------------------------------
 # K1: pair U expansion with tangents, and its neighbor sum
 # ---------------------------------------------------------------------------
+
+
+TWOJMAX_MAX = 16   # the largest twojmax the SNAP kernels take
+
+
+def check_twojmax(p, kernel):
+    """Refuse a plan past `TWOJMAX_MAX` before any of its kernel tables is
+    built (the host plans alone pass 25 GB at twojmax 18)."""
+    if p.twojmax > TWOJMAX_MAX:
+        raise ValueError(f"twojmax {p.twojmax}: {kernel} takes at most "
+                         f"{TWOJMAX_MAX}")
 
 
 def _channels(p, chem, name):
@@ -168,30 +182,55 @@ def _k1_steps(cols, u, n):
     return np.concatenate(coef), np.concatenate(mono), ends
 
 
-def pair_u_tables(p, nsplit):
-    """K1's plan with `nsplit` splits, cached on the plan: the chunks
-    (`_k1_chunks`) cut into `nsplit` contiguous ranges of about equal
-    entries; a split's window lists the monomials its columns read, and
-    warp w of a block takes the split's chunks 8 r + w.  A chunk is a
-    header of 24 ints (first column, columns, two unused, the step ends of
-    its 20 (column, accumulator) runs; accumulators U, dU/dar, dU/dai,
-    dU/dbr, dU/dbi), then its steps of 4 entries (`_k1_steps`): 4
-    coefficients and the 4 window offsets slot * `_k1_row_stride` as
-    uint16 in one double (an empty slot has coefficient 0 and offset 0), 5
-    doubles a step, the chunk padded to an even number of doubles.  Tensors
-    on the plan's device: blob (f64, the chunks), loc (n, 2) i32 (first
-    double and doubles of each chunk) by (split, warp), cw_ptr (nsplit * 8
-    + 1); win_ptr, win_exp (p | q << 8 | r << 16 | s << 24); zr_ptr, zruns
-    (n, 2) each split's column runs [u0, u1); and the sizes of the kernel's
-    buffers: the largest window, chunks of a warp, and doubles of a
-    chunk."""
+def _k1_table_row(e0, e1, twojmax):
+    """Row of exponent pair (e0, e1), e0 + e1 <= twojmax, in K1's pair
+    tables (csrc/pair_u_duals.cu `pair_u_table`): by e0, then e1."""
+    return e0 * (twojmax + 1) - e0 * (e0 - 1) // 2 + e1
+
+
+# csrc/pair_u_duals.cu's table shape: steps' worth of doubles of a chunk's
+# header, and steps of a piece of a warp's stream
+_K1_HREC, _K1_PIECE = 3, 64
+
+
+def pair_u_tables(p, nsplit, shape="window"):
+    """K1's plan with `nsplit` splits in `shape` ("window" or "table"),
+    cached on the plan: the chunks (`_k1_chunks`) cut into `nsplit`
+    contiguous ranges of about equal entries; warp w of a block takes the
+    split's chunks 8 r + w.  A chunk is a header of 24 ints (first column,
+    columns, two unused, the step ends of its 20 (column, accumulator)
+    runs; accumulators U, dU/dar, dU/dai, dU/dbr, dU/dbi), then its steps of
+    4 entries (`_k1_steps`): 4 coefficients and one double of the 4 slots'
+    places, 5 doubles a step (an empty slot has coefficient 0 and place 0).
+
+    The window shape lists the monomials a split's columns read (its
+    window) and a slot's place is its window offset slot *
+    `_k1_row_stride` as uint16; chunks are padded to an even number of
+    doubles, in column order.  Tensors on the plan's device: blob (f64, the
+    chunks), loc (n, 2) i32 (first double and doubles of each chunk) by
+    (split, warp), cw_ptr (nsplit * 8 + 1); win_ptr, win_exp (p | q << 8 |
+    r << 16 | s << 24); and the sizes of the kernel's buffers: the largest
+    window, chunks of a warp, and doubles of a chunk.  None where a window
+    offset passes 16 bits.
+
+    The table shape has no window: a slot's place is the rows of its
+    monomial in the two pair tables (`_k1_table_row` of (p, q) and of (r,
+    s)) as two bytes.  Each (split, warp) has one stream of 5-double
+    records, its chunks in order, a header of 3 records (the 24 ints, then
+    zeros) and its steps; a header that would cross a piece of 64 records
+    starts at the next piece (zero records between), and each stream holds
+    an even number of records: blob (f64, the streams), wrec (nsplit * 8 +
+    1) i32 their first records.
+
+    Both: zr_ptr, zruns (n, 2) each split's column runs [u0, u1)."""
     cols = _k1_columns(p)
-    if nsplit in p.k1:
-        return p.k1[nsplit]
+    if (shape, nsplit) in p.k1:
+        return p.k1[shape, nsplit]
     chunks = _k1_chunks(p)
     if not 1 <= nsplit <= len(chunks):
         raise ValueError(f"pair_u_duals: {nsplit} splits of "
                          f"{len(chunks)} chunks")
+    window = shape == "window"
     per_col = np.diff(cols.e_ptr).reshape(-1, 5).sum(1)
     weight = np.array([per_col[u:u + n].sum() + 16 * n for u, n in chunks],
                       np.float64)
@@ -199,43 +238,74 @@ def pair_u_tables(p, nsplit):
     split = np.minimum((mid * nsplit / weight.sum()).astype(np.int64),
                        nsplit - 1)
     ms = _k1_row_stride(p.nchem)
+    tj = p.twojmax
+    e = cols.exps
+    rows = np.stack([_k1_table_row(e[:, 0], e[:, 1], tj),
+                     _k1_table_row(e[:, 2], e[:, 3], tj)], 1)
     pieces, loc, cw_ptr, win_ptr, win_exp = [], [], [0], [0], []
     zr_ptr, zruns = [0], []
     size = max_win = max_wch = max_len = 0
     for s in range(nsplit):
         mine = [chunks[i] for i in np.nonzero(split == s)[0]]
         ucols = [u + i for u, n in mine for i in range(n)]
-        sel = np.concatenate([np.arange(cols.e_ptr[5 * u],
-                                        cols.e_ptr[5 * u + 5])
-                              for u in ucols] + [np.zeros(0, np.int64)])
-        window = np.unique(cols.mono[sel])
-        slot = np.zeros(cols.exps.shape[0], np.int64)
-        slot[window] = np.arange(len(window))
-        e = cols.exps[window]
-        win_exp.extend(e[:, 0] | e[:, 1] << 8 | e[:, 2] << 16 | e[:, 3] << 24)
-        win_ptr.append(len(win_exp))
-        max_win = max(max_win, len(window))
+        if window:
+            sel = np.concatenate([np.arange(cols.e_ptr[5 * u],
+                                            cols.e_ptr[5 * u + 5])
+                                  for u in ucols] + [np.zeros(0, np.int64)])
+            win = np.unique(cols.mono[sel])
+            slot = np.zeros(e.shape[0], np.int64)
+            slot[win] = np.arange(len(win))
+            we = e[win]
+            win_exp.extend(we[:, 0] | we[:, 1] << 8 | we[:, 2] << 16
+                           | we[:, 3] << 24)
+            win_ptr.append(len(win_exp))
+            max_win = max(max_win, len(win))
         by_warp = [[] for _ in range(_K1_WARPS)]
         for k, (u, n) in enumerate(mine):
             c, m, ends = _k1_steps(cols, u, n)
             head = np.array([u, n, 0, 0, *ends], np.int32)
-            off = np.where(m < 0, 0, slot[np.maximum(m, 0)]) * ms
-            if off.max(initial=0) > 0xffff:
-                raise ValueError(f"pair_u_duals: window offset {off.max()} "
-                                 f"exceeds 16 bits")
             steps = np.zeros((len(c), 5))
             steps[:, :4] = c
-            steps[:, 4] = off.astype(np.uint16).view(np.float64)[:, 0]
-            piece = np.concatenate([head.view(np.float64), steps.reshape(-1),
-                                    np.zeros(len(c) % 2)])
-            by_warp[k % _K1_WARPS].append((size, len(piece)))
-            pieces.append(piece)
-            size += len(piece)
-            max_len = max(max_len, len(piece))
+            if window:
+                off = np.where(m < 0, 0, slot[np.maximum(m, 0)]) * ms
+                if off.max(initial=0) > 0xffff:
+                    p.k1[shape, nsplit] = None
+                    return None
+                steps[:, 4] = off.astype(np.uint16).view(np.float64)[:, 0]
+                piece = np.concatenate([head.view(np.float64),
+                                        steps.reshape(-1),
+                                        np.zeros(len(c) % 2)])
+            else:
+                rr = np.where(m[..., None] < 0, 0, rows[np.maximum(m, 0)])
+                steps[:, 4] = np.ascontiguousarray(
+                    rr.astype(np.uint8).reshape(-1, 8)).view(np.float64)[:, 0]
+                piece = np.concatenate([head.view(np.float64),
+                                        np.zeros(5 * _K1_HREC - 12),
+                                        steps.reshape(-1)])
+            by_warp[k % _K1_WARPS].append(piece)
         for lst in by_warp:
-            loc.extend(lst)
-            cw_ptr.append(len(loc))
-            max_wch = max(max_wch, len(lst))
+            if window:
+                for piece in lst:
+                    loc.append((size, len(piece)))
+                    pieces.append(piece)
+                    size += len(piece)
+                    max_len = max(max_len, len(piece))
+                cw_ptr.append(len(loc))
+                max_wch = max(max_wch, len(lst))
+                continue
+            nrec = 0
+            for piece in lst:
+                gap = nrec % _K1_PIECE
+                if gap > _K1_PIECE - _K1_HREC:
+                    pieces.append(np.zeros(5 * (_K1_PIECE - gap)))
+                    nrec += _K1_PIECE - gap
+                pieces.append(piece)
+                nrec += len(piece) // 5
+            if nrec % 2:
+                pieces.append(np.zeros(5))
+                nrec += 1
+            size += nrec
+            cw_ptr.append(size)
         for u in sorted(ucols):
             if len(zruns) > zr_ptr[-1] and zruns[-1][1] == u:
                 zruns[-1][1] = u + 1
@@ -248,40 +318,96 @@ def pair_u_tables(p, nsplit):
         return torch.as_tensor(x if width is None else x.reshape(-1, width),
                                device=p.device)
 
-    plan = SimpleNamespace(
-        blob=torch.as_tensor(np.concatenate(pieces), device=p.device),
-        loc=t(loc, 2), cw_ptr=t(cw_ptr), win_ptr=t(win_ptr),
-        win_exp=t(win_exp), zr_ptr=t(zr_ptr), zruns=t(zruns, 2),
-        nsplit=nsplit, max_win=max_win, max_wch=max_wch, bufd=max_len,
-        twojmax=p.twojmax)
-    p.k1[nsplit] = plan
+    blob = torch.as_tensor(np.concatenate(pieces), device=p.device)
+    if window:
+        plan = SimpleNamespace(
+            shape=shape, blob=blob, loc=t(loc, 2), cw_ptr=t(cw_ptr),
+            win_ptr=t(win_ptr), win_exp=t(win_exp), zr_ptr=t(zr_ptr),
+            zruns=t(zruns, 2), nsplit=nsplit, max_win=max_win,
+            max_wch=max_wch, bufd=max_len, twojmax=tj)
+    else:
+        plan = SimpleNamespace(
+            shape=shape, blob=blob, wrec=t(cw_ptr), zr_ptr=t(zr_ptr),
+            zruns=t(zruns, 2), nsplit=nsplit, twojmax=tj, two_u=2 * p.u_len)
+    p.k1[shape, nsplit] = plan
     return plan
 
 
 def pair_u_smem(plan, nc, K):
-    """Bytes of shared memory of a K1 block (csrc/pair_u_duals.cu)."""
-    return 8 * ((plan.max_win * _k1_row_stride(nc) + 1) // 2 * 2
-                + _K1_PRO * _K1_TILE + 4 * (plan.twojmax + 1) * _K1_TILE
-                + 2 * _K1_WARPS * plan.bufd) \
-        + 4 * (2 * _K1_WARPS * plan.max_wch + plan.max_win + K
-               + _K1_TILE + 1)
+    """Bytes of shared memory of a K1 block (csrc/pair_u_duals.cu) of
+    `plan`'s shape."""
+    fixed = 8 * (_K1_PRO * _K1_TILE + 4 * (plan.twojmax + 1) * _K1_TILE) \
+        + 4 * (K + _K1_TILE + 1)
+    if plan.shape == "table":
+        rows = (plan.twojmax + 1) * (plan.twojmax + 2) // 2
+        return fixed + 8 * (2 * rows * (_K1_TILE | 1)
+                            + (nc * plan.two_u + 1) // 2 * 2
+                            + 2 * _K1_WARPS * _K1_PIECE * 5)
+    return fixed + 8 * ((plan.max_win * _k1_row_stride(nc) + 1) // 2 * 2
+                        + 2 * _K1_WARPS * plan.bufd) \
+        + 4 * (2 * _K1_WARPS * plan.max_wch + plan.max_win)
 
 
-def pair_u_split_count(p, N, K, sms):
-    """Splits of K1 at N atoms on a card of `sms` SMs: the fewest (a power
-    of two) whose window fits a block's shared memory and that give a block
-    to every other SM (or an eighth of the chunks to a split); raises when
-    no split count fits."""
+def _k1_window_floor(p, K):
+    """Bytes of shared memory that every window plan of `p` needs at K
+    neighbor slots, whatever its split count: the most monomials that one
+    chunk reads and the longest chunk (cached on the plan)."""
+    if "floor" not in p.k1:
+        cols = _k1_columns(p)
+        chunks = _k1_chunks(p)
+        win = max(len(np.unique(cols.mono[cols.e_ptr[5 * u]:
+                                          cols.e_ptr[5 * (u + n)]]))
+                  for u, n in chunks)
+        steps = max(len(_k1_steps(cols, u, n)[0]) for u, n in chunks)
+        p.k1["floor"] = (win, 12 + 5 * steps + steps % 2)
+    win, bufd = p.k1["floor"]
+    return pair_u_smem(SimpleNamespace(shape="window", max_win=win,
+                                       bufd=bufd, max_wch=1,
+                                       twojmax=p.twojmax), p.nchem, K)
+
+
+K1_SHAPES = ("window", "table")   # in the order the planner tries them
+# The most splits at which a window fits that the window shape takes: each
+# split repeats its pairs' prologue and monomials, so that at twojmax 11
+# (128 splits) and 12 (1,024) the table shape is 2.3x and 9.2x faster on
+# the H100, while up to twojmax 10 (at most 4) the window shape is faster
+# (`chip_smoke.py` phase 21, PERF.md)
+K1_WINDOW_SPLITS = 16
+
+
+def pair_u_plan(p, N, K, sms):
+    """(shape, splits) of K1 at N atoms on a card of `sms` SMs: the first
+    of `K1_SHAPES` with a split count that fits a block's shared memory
+    (the window shape skipped where its floor, `_k1_window_floor`, does
+    not, or where it first fits past `K1_WINDOW_SPLITS` splits), and of
+    its split counts (powers of two) the fewest that fits and gives a
+    block to every other SM (or an eighth of the chunks to a split);
+    raises when no shape fits."""
     nchunks = len(_k1_chunks(p))
     counts = [1 << i for i in range(nchunks.bit_length())
               if 1 << i <= nchunks]
-    for s in counts:
-        if pair_u_smem(pair_u_tables(p, s), p.nchem, K) <= _SMEM_LIMIT and (
-                2 * N * s >= sms or 8 * s > nchunks):
-            return s
+    for shape in K1_SHAPES:
+        window = shape == "window"
+        if window and _k1_window_floor(p, K) > _SMEM_LIMIT:
+            continue
+        fitted = False
+        for s in counts:
+            pl = pair_u_tables(p, s, shape)
+            if pl is None or pair_u_smem(pl, p.nchem, K) > _SMEM_LIMIT:
+                continue
+            if window and not fitted and s > K1_WINDOW_SPLITS:
+                break
+            fitted = True
+            if 2 * N * s >= sms or 8 * s > nchunks:
+                return shape, s
     raise ValueError(f"pair_u_duals: no split of the {nchunks} column "
                      f"chunks fits a block's shared memory at K = {K}, "
-                     f"{p.nchem} channel(s)")
+                     f"{p.nchem} channel(s), twojmax {p.twojmax}")
+
+
+def pair_u_split_count(p, N, K, sms):
+    """Splits of K1 at N atoms (`pair_u_plan`)."""
+    return pair_u_plan(p, N, K, sms)[1]
 
 
 def _pair_u_duals_launch(disp, jelem, mask, ielem, p):
@@ -293,18 +419,23 @@ def _pair_u_duals_launch(disp, jelem, mask, ielem, p):
     _check(ielem, "ielem", torch.int32, (N,))
     dev = disp.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    pl = pair_u_tables(p, pair_u_split_count(p, N, K, sms))
+    shape, nsplit = pair_u_plan(p, N, K, sms)
+    pl = pair_u_tables(p, nsplit, shape)
     J = torch.empty((3, N, K, two_u), dtype=torch.float64, device=dev)
     ut = torch.empty((N, p.nchem * two_u), dtype=torch.float64, device=dev)
-    _launch("pair_u_duals", dev,
-            _ptr(disp), _ptr(jelem), _ptr(mask), _ptr(ielem), _ptr(p.elem),
-            p.rcutfac, p.rfac0, p.rmin0, int(p.switchflag),
-            int(p.switchinnerflag), N, K, _ptr(pl.blob), _ptr(pl.loc),
-            _ptr(pl.cw_ptr), _ptr(pl.win_ptr), _ptr(pl.win_exp),
-            _ptr(pl.zr_ptr), _ptr(pl.zruns), pl.nsplit, pl.max_win,
-            pl.max_wch, pl.bufd, p.twojmax, two_u, p.nchem,
-            int(p.wselfallflag),
-            _ptr(p.selfvec), _ptr(J), _ptr(ut))
+    common = (_ptr(disp), _ptr(jelem), _ptr(mask), _ptr(ielem), _ptr(p.elem),
+              p.rcutfac, p.rfac0, p.rmin0, int(p.switchflag),
+              int(p.switchinnerflag), N, K, _ptr(pl.blob))
+    tail = (pl.twojmax, two_u, p.nchem, int(p.wselfallflag), _ptr(p.selfvec),
+            _ptr(J), _ptr(ut))
+    if pl.shape == "window":
+        _launch("pair_u_duals", dev, *common, _ptr(pl.loc), _ptr(pl.cw_ptr),
+                _ptr(pl.win_ptr), _ptr(pl.win_exp), _ptr(pl.zr_ptr),
+                _ptr(pl.zruns), pl.nsplit, pl.max_win, pl.max_wch, pl.bufd,
+                *tail)
+    else:
+        _launch("pair_u_table", dev, *common, _ptr(pl.wrec), _ptr(pl.zr_ptr),
+                _ptr(pl.zruns), pl.nsplit, *tail)
     return J, ut
 
 
@@ -314,6 +445,7 @@ def pair_u_duals(disp, jelem, mask, ielem, p):
     `pair_u_duals_plain`."""
     if _on_cpu(disp, jelem, mask, ielem):
         return pair_u_duals_plain(disp, jelem, mask, ielem, p)
+    check_twojmax(p, "K1")
     _channels(p, False, "pair_u_duals")
     out = _pair_u_duals_launch(disp, jelem, mask, ielem, p)
     pair_u_duals.launches += 1
@@ -326,6 +458,7 @@ def pair_u_duals_chem(disp, jelem, mask, ielem, p):
     `pair_u_duals`."""
     if _on_cpu(disp, jelem, mask, ielem):
         return pair_u_duals_plain(disp, jelem, mask, ielem, p)
+    check_twojmax(p, "K1")
     _channels(p, True, "pair_u_duals_chem")
     out = _pair_u_duals_launch(disp, jelem, mask, ielem, p)
     pair_u_duals_chem.launches += 1
@@ -425,6 +558,7 @@ def zlist(ut, p):
     """K2 on the card: ut (N, 2U) f64 -> (z_r, z_i) (N, nz)."""
     if _on_cpu(ut):
         return zlist_plain(ut, p)
+    check_twojmax(p, "K2")
     _channels(p, False, "zlist")
     zr, zi = _zlist_launch(ut, p)
     zlist.launches += 1
@@ -436,6 +570,7 @@ def zlist_chem(ut, p):
     (N, nchem^2, nz), every ordered channel pair in one launch."""
     if _on_cpu(ut):
         return zlist_chem_plain(ut, p)
+    check_twojmax(p, "K2")
     _channels(p, True, "zlist_chem")
     out = _zlist_launch(ut, p)
     zlist_chem.launches += 1
@@ -450,14 +585,35 @@ zlist_chem.launches = 0
 # K3: dB/dutot, B and the pair jacobian dB/dD
 # ---------------------------------------------------------------------------
 
+def dbdd_plan(p, K=64):
+    """(rows of W per block, blocks per atom, slab) of csrc/dbdd.cu at K
+    neighbor slots.  Whole y rows (slab 0) where 16 of them fit a block:
+    one channel's y rows (2U + pad doubles each) beside the neighbor
+    lists, the zero-block flags and the product's epilogue stage, two
+    blocks an SM where they fit (`launch.row_plan`).  Else rows of 32 and y
+    built in slabs of u columns, the widest multiple of 48 whose rows fit
+    two blocks an SM."""
+    ldl = kl.ag_ldl(2 * p.u_len)
+    fixed = kl.AG_STAGE_BYTES + 4 * (2 * K + 2)
+    if 16 * 8 * ldl + fixed + 2 * ldl // 8 <= _SMEM_LIMIT:
+        return kl.row_plan(p.nb_base, 8 * ldl, fixed + 2 * ldl // 8,
+                           "dbdd") + (0,)
+    slab = 48 * ((kl.SMEM_PAIR - fixed) // (32 * 8) // 48)
+    while slab > 48 and 32 * 8 * kl.ag_ldl(slab) + fixed \
+            + 2 * kl.ag_ldl(slab) // 8 > kl.SMEM_PAIR:
+        slab -= 48
+    if 32 * 8 * kl.ag_ldl(slab) + fixed > _SMEM_LIMIT:
+        raise ValueError(f"dbdd: a slab of 48 columns of 32 rows exceeds a "
+                         f"block's shared memory at K = {K}")
+    tiles = -(-p.nb_base // 32)
+    per = -(-p.nb_base // tiles)
+    return -(-per // 16) * 16, tiles, slab
+
+
 def dbdd_tiles(p, K=64):
     """(rows of W per block, blocks per atom) of csrc/dbdd.cu at K neighbor
-    slots: one channel's y rows (2U + pad doubles each) beside the neighbor
-    lists, the zero-block flags and the product's epilogue stage, two
-    blocks an SM where they fit."""
-    ldl = kl.ag_ldl(2 * p.u_len)
-    return kl.row_plan(p.nb_base, 8 * ldl, kl.AG_STAGE_BYTES
-                       + 4 * (2 * K + 2) + 2 * ldl // 8, "dbdd")
+    slots (`dbdd_plan`)."""
+    return dbdd_plan(p, K)[:2]
 
 
 def dbdd_tables(p):
@@ -474,6 +630,7 @@ def dbdd_tables(p):
     t, u = np.nonzero((fac != 0).any(axis=0))
     i32 = torch.int32
     p.k3 = SimpleNamespace(
+        slabs={},
         tg_ptr=torch.as_tensor(np.searchsorted(t, np.arange(p.ntriples + 1)),
                                dtype=i32, device=p.device),
         tg_u=torch.as_tensor(u, dtype=i32, device=p.device),
@@ -482,6 +639,31 @@ def dbdd_tables(p):
         tg_fac=torch.as_tensor(np.ascontiguousarray(fac[:, t, u].T),
                                device=p.device))
     return p.k3
+
+
+def dbdd_slab_ranges(p, slab):
+    """The target ranges of K3's slab shape at `slab` columns, cached on
+    the plan: for triple t and slab s (columns [s slab, (s + 1) slab) of
+    2U), the targets whose real column u falls in it, then those whose
+    imaginary column U + u does, as (first, end) ranges of t's u-sorted
+    targets: (ntrip, nslab, 4) i32."""
+    tg = dbdd_tables(p)
+    if slab not in tg.slabs:
+        ptr = tg.tg_ptr.cpu().numpy().astype(np.int64)
+        u = tg.tg_u.cpu().numpy()
+        U = p.u_len
+        edges = np.arange(-(-2 * U // slab) + 1) * slab
+        out = np.zeros((p.ntriples, len(edges) - 1, 4), np.int64)
+        for t in range(p.ntriples):
+            ut = u[ptr[t]:ptr[t + 1]]
+            for part in (0, 1):
+                cut = ptr[t] + np.searchsorted(
+                    ut, np.clip(edges - part * U, 0, U))
+                out[t, :, 2 * part] = cut[:-1]
+                out[t, :, 2 * part + 1] = cut[1:]
+        tg.slabs[slab] = torch.as_tensor(out.astype(np.int32),
+                                         device=p.device)
+    return tg.slabs[slab]
 
 
 def dbdd_plain(ut, z_r, z_i, J, p):
@@ -514,17 +696,19 @@ def _dbdd_launch(ut, z_r, z_i, J, jelem, p):
     _check(J, "J", torch.float64, (3, N, K, 2 * U))
     if jelem is not None:
         _check(jelem, "jelem", torch.int32, (N, K))
-    mt, tiles = dbdd_tiles(p, K)
+    mt, tiles, slab = dbdd_plan(p, K)
     tg = dbdd_tables(p)
     dev = ut.device
     bzero = p.bzero if p.bzeroflag else torch.zeros_like(p.bzero)
     B = torch.empty((N, W), dtype=torch.float64, device=dev)
     dBdD = torch.empty((N, W, K, 3), dtype=torch.float64, device=dev)
+    ranges = _ptr(dbdd_slab_ranges(p, slab)) if slab else None
     _launch("dbdd", dev, _ptr(ut), _ptr(z_r), _ptr(z_i), _ptr(J),
             _ptr(jelem) if jelem is not None else None, _ptr(tg.tg_ptr),
-            _ptr(tg.tg_u), _ptr(tg.tg_src), _ptr(tg.tg_fac), _ptr(p.y_src),
-            _ptr(p.y_fac), _ptr(p.blk_chan), _ptr(p.blk_pair), _ptr(bzero),
-            N, K, p.ntriples, U, p.nz, nc, mt, tiles, _ptr(B), _ptr(dBdD))
+            _ptr(tg.tg_u), _ptr(tg.tg_src), _ptr(tg.tg_fac), ranges,
+            _ptr(p.y_src), _ptr(p.y_fac), _ptr(p.blk_chan),
+            _ptr(p.blk_pair), _ptr(bzero), N, K, p.ntriples, U, p.nz, nc, mt,
+            tiles, slab, _ptr(B), _ptr(dBdD))
     return B, dBdD
 
 
@@ -532,6 +716,7 @@ def dbdd(ut, z_r, z_i, J, p):
     """K3 on the card: ut (N, 2U), z_r, z_i (N, nz), J (3, N, K, 2U)."""
     if _on_cpu(ut, z_r, z_i, J):
         return dbdd_plain(ut, z_r, z_i, J, p)
+    check_twojmax(p, "K3")
     _channels(p, False, "dbdd")
     out = _dbdd_launch(ut, z_r, z_i, J, None, p)
     dbdd.launches += 1
@@ -544,6 +729,7 @@ def dbdd_chem(ut, z_r, z_i, J, jelem, p):
     elements, their utot channels)."""
     if _on_cpu(ut, z_r, z_i, J, jelem):
         return dbdd_chem_plain(ut, z_r, z_i, J, jelem, p)
+    check_twojmax(p, "K3")
     _channels(p, True, "dbdd_chem")
     out = _dbdd_launch(ut, z_r, z_i, J, jelem, p)
     dbdd_chem.launches += 1
@@ -568,6 +754,7 @@ def quad_chain(B, dBdD, p):
     """K6q on the card: B (N, W), dBdD (N, W, K, 3) f64, W = nb_base."""
     if _on_cpu(B, dBdD):
         return quad_chain_plain(B, dBdD, p)
+    check_twojmax(p, "K6q")
     N, W, K = dBdD.shape[:3]
     if not p.quadraticflag or W != p.nb_base:
         raise ValueError(f"quad_chain: width {W} is not the plan's base "

@@ -47,10 +47,14 @@ layouts, direct and residual, with a padded and a one-atom config), bit for
 bit from run to run.  K4 with one to three source types at widths 1, 4,
 37 (not a multiple of its x-tile) and 600, bit for bit from run to run.
 quadraticflag and chemflag: K1-K3 with K3 in four W tiles and K6q at
-twojmax 8; K1-K3 past K1's former caps, at twojmax 10 and with five
-chemflag channels at twojmax 2 (J of masked slots and z outputs without
-terms exactly 0, bit for bit from run to run, and
-`descriptors_with_jacobian` against its plain path); the chemflag modes of
+twojmax 8; K1-K3 past K1's former caps, at twojmax 10, 13, 14 and 16
+(K1's table shape, K3's slab shape), with five chemflag channels at
+twojmax 2 and InP's two at twojmax 12 (J and dB/dD of masked slots and z
+outputs without terms exactly 0, bit for bit from run to run, and
+`descriptors_with_jacobian` against its plain path); K1's table shape
+forced at twojmax 6 and 12 and with two channels at 4 and 12, and K3's
+slab shape forced at twojmax 6 and 8 and with two channels at 4, bit for
+bit its whole-row shape; the chemflag modes of
 K1-K3 with two elements at twojmax 4
 (wselfallflag 0 and 1, bnormflag) and, with K6q, quadratic x chemflag at
 twojmax 2.  K3 at the edges of its tiles (W = 5 and 55, K = 13, 19, 21,
@@ -71,7 +75,8 @@ plans; a self image, masked pairs, a padded atom), each once and bit for
 bit from run to run; the force-loss gradient through `NnCachedForce`
 against autograd through the plain versions, 1e-10.  The force gather at
 its edges (rows of 3 x 41 doubles, an atom no one neighbors, R = 1, R = 60
-> 32 and > K, 640 atoms) and K11T at twojmax 6, 8, 10 and 12, with 200
+> 32 and > K, 640 atoms) and K11T at twojmax 6, 8, 10, 12, 13, 14, 15 and
+16 (two blocks an atom from 15), with 200
 slots (more than one round of prologues), 640 atoms and 2 atoms, a masked
 hole before live slots and a masked-in pair past the SNAP cutoff, each
 once, bit for bit from run to run (K11T: the padded atom's grid exactly
@@ -128,6 +133,18 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+_PARAMS = {}
+
+
+def shared_params(spec, device):
+    """make_params of a case's section, built once a run (a twojmax 16
+    plan takes about a minute of host time)."""
+    key = (repr(sorted(spec.items())), str(device))
+    if key not in _PARAMS:
+        _PARAMS[key] = make_params(section(spec), device)
+    return _PARAMS[key]
 
 
 def section(spec):
@@ -246,11 +263,19 @@ def test_flag_kernels_match_plain(cuda, name):
         assert rel_err(out, ref) <= RTOL
 
 
-# K1's lifted caps: 2U = 1,012 columns (twojmax 10, several splits) and five
-# element channels
+# K1's lifted caps: 2U = 1,012 columns (twojmax 10, several splits), five
+# element channels, twojmax 13, 14 and 16 (K1's table shape, K3's slab
+# shape) and InP's two channels at twojmax 12 (K1's table shape)
+TJ10 = dict(twojmax=["10"], numtypes=1, wj=["1.0"], radelem=["0.5"],
+            bzeroflag=1, switchinnerflag=0)
 CAP_CASES = {
-    "tj10": dict(twojmax=["10"], numtypes=1, wj=["1.0"], radelem=["0.5"],
-                 bzeroflag=1, switchinnerflag=0),
+    "tj10": TJ10,
+    "tj13": dict(CASES["tj6"], twojmax=["13"]),
+    "tj14": dict(CASES["tj6"], twojmax=["14"]),
+    "tj16": dict(CASES["tj6"], twojmax=["16"]),
+    "chem2_tj12": dict(twojmax=["12", "12"], numtypes=2, wj=["1.0", "0.93"],
+                       radelem=["0.5", "0.45"], bzeroflag=1,
+                       switchinnerflag=0, chemflag=1, wselfallflag=1),
     "chem5_tj2": dict(twojmax=["2"] * 5, numtypes=5,
                       wj=["1.0", "0.93", "0.8", "0.75", "0.6"],
                       radelem=["0.5", "0.45", "0.4", "0.48", "0.42"],
@@ -260,14 +285,15 @@ CAP_CASES = {
 
 @pytest.mark.parametrize("name", sorted(CAP_CASES))
 def test_k1_caps_lifted_match_plain(cuda, name):
-    """K1, K2 and K3 beyond K1's old caps (twojmax 10; five channels) on 12
-    atoms x 40 slots, each against its plain version on the same inputs;
-    J of masked slots and z outputs without terms exactly 0, a second run
-    bit for bit, and `descriptors_with_jacobian` against `plain=True`."""
+    """K1, K2 and K3 beyond K1's old caps (twojmax 10 and 13-16; five
+    channels; two at twojmax 12) on 12 atoms x 40 slots, each against its
+    plain version on the same inputs; J and dB/dD of masked slots and z
+    outputs without terms exactly 0, a second run bit for bit, and
+    `descriptors_with_jacobian` against `plain=True`."""
     from fitsnap_tpu_torch.ops.snap import descriptors_with_jacobian
 
     spec = CAP_CASES[name]
-    p = make_params(section(spec), cuda)
+    p = shared_params(spec, cuda)
     N, K, nel = 12, 40, spec["numtypes"]
     rng = np.random.default_rng(12)
     d = rng.normal(size=(N, K, 3))
@@ -291,25 +317,104 @@ def test_k1_caps_lifted_match_plain(cuda, name):
     k2 = [k2w(ut, p) for _ in range(2)]
     ref2 = (sk.zlist_chem_plain if chem else sk.zlist_plain)(ut, p)
     if chem:
-        k3 = sk.dbdd_chem(ut, *ref2, J, args[1], p)
+        k3 = [sk.dbdd_chem(ut, *ref2, J, args[1], p) for _ in range(2)]
         ref3 = sk.dbdd_chem_plain(ut, *ref2, J, args[1], p)
     else:
-        k3 = sk.dbdd(ut, *ref2, J, p)
+        k3 = [sk.dbdd(ut, *ref2, J, p) for _ in range(2)]
         ref3 = sk.dbdd_plain(ut, *ref2, J, p)
     torch.cuda.synchronize()
     suffix = "_chem" if chem else ""
     assert {k: v for k, v in sk.launches().items() if v} == {
-        f"pair_u_duals{suffix}": 2, f"zlist{suffix}": 2, f"dbdd{suffix}": 1}
-    for out, ref in ((k1[0], ref1), (k2[0], ref2), (k3, ref3)):
+        f"pair_u_duals{suffix}": 2, f"zlist{suffix}": 2, f"dbdd{suffix}": 2}
+    for out, ref in ((k1[0], ref1), (k2[0], ref2), (k3[0], ref3)):
         assert rel_err(out, ref) <= RTOL
-    for outs in (k1, k2):
+    for outs in (k1, k2, k3):
         assert all(torch.equal(a, b) for a, b in zip(*outs))
     assert (k1[0][0].permute(1, 2, 0, 3)[~args[2]] == 0).all()
+    assert (k3[0][1].permute(0, 2, 1, 3)[~args[2]] == 0).all()
     zero = sk.zlist_tables(p).zo.long()
     assert all((z.reshape(N, -1, p.nz)[..., zero] == 0).all() for z in k2[0])
     out = descriptors_with_jacobian(*args, p)
     ref = descriptors_with_jacobian(*args, p, plain=True)
     assert rel_err(out, ref) <= RTOL
+
+
+def cap_block(p, nel, device, N=12, K=40, seed=12):
+    """K1's inputs on N atoms x K slots (masked pairs, a padded atom)."""
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(N, K, 3))
+    d *= rng.uniform(1.2, 4.4, (N, K, 1)) / np.linalg.norm(d, axis=-1,
+                                                          keepdims=True)
+    mask = rng.uniform(size=(N, K)) < 0.85
+    mask[-1] = False
+    return (torch.as_tensor(d, device=device),
+            torch.as_tensor(rng.integers(0, nel, (N, K)), dtype=torch.int32,
+                            device=device),
+            torch.as_tensor(mask, device=device),
+            torch.as_tensor(rng.integers(0, nel, N), dtype=torch.int32,
+                            device=device))
+
+
+# K1's table shape forced where its planner takes the window (twojmax 6,
+# InP's two channels at 4) and where it takes the table itself (twojmax 12,
+# two channels at 12), and K3's slab shape forced where it takes whole rows
+# (twojmax 6 and 8, two channels at 4)
+FORCED_CASES = {
+    "tj6": CASES["tj6"],
+    "tj8": dict(CASES["tj6"], twojmax=["8"]),
+    "tj12": dict(CASES["tj6"], twojmax=["12"]),
+    "chem2_tj4": dict(CAP_CASES["chem2_tj12"], twojmax=["4", "4"]),
+    "chem2_tj12": CAP_CASES["chem2_tj12"],
+}
+
+
+@pytest.mark.parametrize("name", ["tj6", "tj12", "chem2_tj4", "chem2_tj12"])
+def test_k1_table_shape_matches_plain(cuda, monkeypatch, name):
+    """K1 in its table shape (forced) against its plain version on 12
+    atoms x 40 slots, launched once a call; J of masked slots exactly 0, a
+    second run bit for bit."""
+    spec = FORCED_CASES[name]
+    p = shared_params(spec, cuda)
+    args = cap_block(p, spec["numtypes"], cuda)
+    monkeypatch.setattr(sk, "K1_SHAPES", ("table",))
+    k1w = sk.pair_u_duals_chem if p.nchem > 1 else sk.pair_u_duals
+    sk.reset_launches()
+    out = [k1w(*args, p) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert sk.launches()[k1w.__name__] == 2
+    assert sk.pair_u_plan(p, 12, 40, 132)[0] == "table"
+    assert rel_err(out[0], sk.pair_u_duals_plain(*args, p)) <= RTOL
+    assert all(torch.equal(a, b) for a, b in zip(*out))
+    assert (out[0][0].permute(1, 2, 0, 3)[~args[2]] == 0).all()
+
+
+@pytest.mark.parametrize("name", ["tj6", "tj8", "chem2_tj4"])
+def test_k3_slab_shape_equals_whole_rows(cuda, monkeypatch, name):
+    """K3 in its slab shape (forced: rows of 32, slabs of 48 columns) equals
+    its whole-row shape bit for bit (the same chains of tensor-core steps),
+    and its plain version to 1e-11; dB/dD of masked slots exactly 0."""
+    spec = FORCED_CASES[name]
+    p = shared_params(spec, cuda)
+    args = cap_block(p, spec["numtypes"], cuda)
+    chem = p.nchem > 1
+    J, ut = sk.pair_u_duals_plain(*args, p)
+    z = (sk.zlist_chem_plain if chem else sk.zlist_plain)(ut, p)
+
+    def k3():
+        if chem:
+            return sk.dbdd_chem(ut, *z, J, args[1], p)
+        return sk.dbdd(ut, *z, J, p)
+
+    whole = k3()
+    tiles = -(-p.nb_base // 32)
+    monkeypatch.setattr(sk, "dbdd_plan", lambda p, K=64: (32, tiles, 48))
+    slab = k3()
+    torch.cuda.synchronize()
+    ref = (sk.dbdd_chem_plain(ut, *z, J, args[1], p) if chem
+           else sk.dbdd_plain(ut, *z, J, p))
+    assert rel_err(slab, ref) <= RTOL
+    assert all(torch.equal(a, b) for a, b in zip(slab, whole))
+    assert (slab[1].permute(0, 2, 1, 3)[~args[2]] == 0).all()
 
 
 # K3's tile edges: (section, K, neighbor elements): W = 5 (twojmax 2, one
@@ -671,7 +776,7 @@ def grid_block(spec, device, nconf=2, A=6, K=40):
     neighbor slots, flat (nconf*A, K) as K1's (a self image, masked pairs,
     a padded atom), with neighbor indices jidx (nconf, A, K) inside each
     config and their reverse table rev (nconf, A, R)."""
-    p = make_params(section(spec), device)
+    p = shared_params(spec, device)
     N = nconf * A
     rng = np.random.default_rng(12)
     d = rng.normal(size=(N, K, 3))
@@ -896,9 +1001,10 @@ def test_gather_edges_match_plain(cuda, name):
 
 # K11T at its edges: (CASES-like spec, nconf, A, K).  twojmax 6, 8, 10 and
 # 12 (n_t 28, 45, 66, 91; from twojmax 10 the kernel takes more than 256
-# threads, its second launch shape); twojmax 13 and 14 (n_t 105, 120, the
-# largest grids: K11's shared memory holds fewer records than masked pairs,
-# so its prologues run in several smaller chunks); 200 slots (more than 128
+# threads, its second launch shape); twojmax 13 and 14 (n_t 105, 120:
+# K11's shared memory holds fewer records than masked pairs, so its
+# prologues run in several smaller chunks); twojmax 15 and 16 (n_t 136 and
+# 153, the largest grids: K11T's tiles split over two blocks an atom); 200 slots (more than 128
 # masked pairs: two rounds of prologues); 640 atoms (wide) and 2 (narrow).
 K11T_CASES = {
     "tj6": (CASES["tj6"], 2, 6, 40),
@@ -907,6 +1013,8 @@ K11T_CASES = {
     "tj12": (dict(CASES["tj6"], twojmax=["12"]), 1, 4, 24),
     "tj13_k128": (dict(CASES["tj6"], twojmax=["13"]), 1, 3, 128),
     "tj14_k200": (dict(CASES["tj6"], twojmax=["14"]), 1, 3, 200),
+    "tj15": (dict(CASES["tj6"], twojmax=["15"]), 1, 3, 40),
+    "tj16_k200": (dict(CASES["tj6"], twojmax=["16"]), 1, 3, 200),
     "tj6_k200": (CASES["tj6"], 2, 3, 200),
     "tj6_wide": (CASES["tj6"], 4, 160, 16),
     "tj6_narrow": (CASES["tj6"], 1, 2, 40),

@@ -35,6 +35,7 @@ package's plan (CPU, float64).
 import re
 from functools import lru_cache
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -814,3 +815,330 @@ def test_plain_twins_match_jax(twojmax, nelem, chem):
     z0 = (sk.zlist_chem_plain if chem else sk.zlist_plain)(ut0, p)
     close(z0[0], zr)
     close(z0[1], zi)
+
+
+# ---------------------------------------------------------------------------
+# twojmax 13-16: K1's table shape, K3's slab shape, the wrappers' limit
+# ---------------------------------------------------------------------------
+
+
+def port_section(twojmax):
+    """A one-element BISPECTRUM section (the Ta_Linear_JCP2014 values)."""
+    return SimpleNamespace(
+        twojmax=[str(twojmax)], numtypes=1, wj=["1.0"], radelem=["0.5"],
+        rcutfac=4.67637, rfac0=0.99363, rmin0=0.0, chemflag=0,
+        quadraticflag=0, bnormflag=0, wselfallflag=0, switchflag=1,
+        bzeroflag=1, switchinnerflag=0, sinner=None, dinner=None)
+
+
+@pytest.fixture(scope="module")
+def large_plans():
+    """The port's plans at twojmax 13 and 14, built once (about 6 and 13 s
+    here, and 2.5 and 4.8 GB at their peaks)."""
+    return {tj: tsnap.make_params(port_section(tj), "cpu") for tj in (13, 14)}
+
+
+def table_streams(pl):
+    """A table plan's streams decoded, (split, warp) order: each a list of
+    chunks (first column, columns, [(column of the chunk, accumulator,
+    coefficients (4,), X rows (4,), Y rows (4,)) per step]); checks the
+    layout: a header of 3 records within a piece of 64, zero records
+    between chunks only where a header would cross a piece, an even
+    number of records."""
+    blob = pl.blob.numpy().reshape(-1, 5)
+    wrec = pl.wrec.numpy()
+    streams = []
+    for sw in range(len(wrec) - 1):
+        rec = blob[wrec[sw]:wrec[sw + 1]]
+        assert len(rec) % 2 == 0
+        chunks, ri = [], 0
+        while ri < len(rec):
+            head = np.ascontiguousarray(rec[ri]).view(np.int32)
+            if head[1] == 0:                 # the stream's padding
+                assert ri == len(rec) - 1 and not rec[ri].any()
+                break
+            assert ri % 64 <= 64 - 3
+            words = np.ascontiguousarray(rec[ri:ri + 3].reshape(-1))
+            ints = words[:12].view(np.int32)
+            assert not words[12:].any()
+            u0, n, ends = ints[0], ints[1], ints[4:]
+            assert tuple(ints[2:4]) == (0, 0)
+            st = rec[ri + 3:ri + 3 + ends[-1]]
+            places = np.ascontiguousarray(st[:, 4]).view(np.uint8)
+            places = places.reshape(-1, 8).astype(np.int64)
+            run = np.searchsorted(ends, np.arange(ends[-1]), "right")
+            chunks.append((u0, n, list(zip(run // 5, run % 5, st[:, :4],
+                                           places[:, 0::2],
+                                           places[:, 1::2]))))
+            ri += 3 + ends[-1]
+            if ri % 64 > 64 - 3:
+                assert not rec[ri:ri + 64 - ri % 64].any()
+                ri += 64 - ri % 64
+        streams.append(chunks)
+    return streams
+
+
+def table_rows(exps, twojmax):
+    """Each monomial's rows in the two pair tables."""
+    return np.stack([sk._k1_table_row(exps[:, 0], exps[:, 1], twojmax),
+                     sk._k1_table_row(exps[:, 2], exps[:, 3], twojmax)], 1)
+
+
+def check_table_plan(p, nsplit, L, exps):
+    """The table plan's steps rebuild L and its four partials (from the
+    JAX package's `mono_plan` L and exponents) exactly; every column in
+    one chunk of at most 4, warp w the split's chunks 8 r + w in order."""
+    tj = p.twojmax
+    pl = sk.pair_u_tables(p, nsplit, "table")
+    index = {tuple(e): i for i, e in enumerate(exps)}
+    want = [L]
+    for v in range(4):
+        Lv = np.zeros_like(L)
+        for m, e in enumerate(exps):
+            e = e.copy()
+            e[v] += 1
+            if tuple(e) in index:
+                Lv[m] = e[v] * L[index[tuple(e)]]
+        want.append(Lv)
+    by_rows = {tuple(r): m for m, r in enumerate(table_rows(exps, tj))}
+    n_mono, two_u = L.shape
+    got = np.zeros((5, n_mono, two_u))
+    seen = np.zeros(two_u, int)
+    streams = table_streams(pl)
+    all_chunks = sk._k1_chunks(p)
+    assert len(streams) == nsplit * 8
+    for s in range(nsplit):
+        order = []
+        for w in range(8):
+            for r, (u0, n, steps) in enumerate(streams[s * 8 + w]):
+                order.append((r, w, (u0, n)))
+                assert 1 <= n <= 4 - u0 % 2
+                seen[u0:u0 + n] += 1
+                for cc, acc, coef, xr, yr in steps:
+                    assert cc < n
+                    for q in range(4):
+                        if coef[q] == 0:
+                            assert xr[q] == yr[q] == 0
+                            continue
+                        m = by_rows[xr[q], yr[q]]
+                        assert got[acc, m, u0 + cc] == 0
+                        got[acc, m, u0 + cc] = coef[q]
+        mine = [c for _, _, c in sorted(order)]
+        first = all_chunks.index(mine[0])
+        assert mine == all_chunks[first:first + len(mine)]
+        runs = pl.zruns.numpy()[pl.zr_ptr[s]:pl.zr_ptr[s + 1]]
+        assert sorted(u for _, _, (u0, n) in order
+                      for u in range(u0, u0 + n)) == \
+            [u for a, b in runs for u in range(a, b)]
+    assert (seen == 1).all()
+    assert np.array_equal(got, np.stack(want))
+
+
+@pytest.mark.parametrize("twojmax,nsplit", [(2, 1), (6, 3), (10, 2)])
+def test_k1_table_plan_rebuilds_the_change_of_basis(twojmax, nsplit):
+    _, p = plans(twojmax)
+    exps, _, _, L = jmono.mono_plan(twojmax)
+    check_table_plan(p, nsplit, np.asarray(L), np.asarray(exps))
+
+
+def test_k1_table_plan_rebuilds_the_change_of_basis_tj13(large_plans):
+    p = large_plans[13]
+    exps, _, _, L = jmono.mono_plan(13)
+    check_table_plan(p, sk.pair_u_plan(p, 1024, 64, 132)[1], np.asarray(L),
+                     np.asarray(exps))
+
+
+@pytest.mark.parametrize("twojmax", [13, 14])
+@pytest.mark.parametrize("K", [26, 64, 200])
+def test_k1_k3_plans_past_twojmax_12(large_plans, twojmax, K):
+    """K1 takes its table shape (no window fits) and K3 its slab shape
+    (16 whole y rows do not fit), each within a block's shared memory, at
+    a chunk of 1,024 atoms and of 12 on a card of 132 SMs."""
+    p = large_plans[twojmax]
+    for N in (1024, 12):
+        shape, s = sk.pair_u_plan(p, N, K, 132)
+        assert shape == "table" and (2 * N * s >= 132 or N == 12)
+        assert sk.pair_u_smem(sk.pair_u_tables(p, s, shape), 1, K) \
+            <= sk._SMEM_LIMIT
+    assert sk._k1_window_floor(p, K) > sk._SMEM_LIMIT
+    mt, tiles, slab = sk.dbdd_plan(p, K)
+    assert slab > 0 and slab % 48 == 0 and mt == 32
+    assert (tiles - 1) * 32 < p.nb_base <= tiles * mt
+    ldl = sk.kl.ag_ldl(slab)
+    assert 32 * 8 * ldl + sk.kl.AG_STAGE_BYTES + 4 * (2 * K + 2) \
+        + 2 * ldl // 8 <= sk.kl.SMEM_PAIR
+
+
+def test_k1_takes_the_table_shape_past_16_window_splits():
+    """Twojmax 11's window first fits at 128 splits: the planner takes the
+    table shape, at any chunk; twojmax 10's fits at 4 and keeps it."""
+    p11 = tsnap.make_params(port_section(11), "cpu")
+    _, p10 = plans(10)
+    for N in (1024, 12, 2):
+        assert sk.pair_u_plan(p11, N, 40, 132)[0] == "table"
+        assert sk.pair_u_plan(p10, N, 40, 132)[0] == "window"
+    first = [s for s in (1, 2, 4, 8, 16, 32, 64, 128)
+             if sk.pair_u_smem(sk.pair_u_tables(p11, s), 1, 40)
+             <= sk._SMEM_LIMIT]
+    assert first[0] == 128 > sk.K1_WINDOW_SPLITS
+
+
+def emulate_k1_table(p, args, nsplit):
+    """csrc/pair_u_duals.cu's table shape over `pair_u_tables(...,
+    "table")`: each slot's term c X[row] Y[row'], each run's 4 slot sums in
+    step order, (s0 + s1) + (s2 + s3), J; utot the self term plus each
+    tile of 32 live pairs' weighted U values, tile by tile."""
+    pl = sk.pair_u_tables(p, nsplit, "table")
+    vals, tans = (x.numpy() for x in tsnap._prologue_duals(*args, p))
+    mask = args[2].numpy()
+    N, K = mask.shape
+    nc, two_u, tj = p.nchem, 2 * p.u_len, p.twojmax
+    chan = args[1].numpy() if nc > 1 else np.zeros((N, K), int)
+    pq = [(a, b) for a in range(tj + 1) for b in range(tj + 1 - a)]
+    X = np.stack([vals[0] ** a * vals[1] ** b for a, b in pq])
+    Y = np.stack([vals[2] ** a * vals[3] ** b for a, b in pq])
+    J = np.full((3, N, K, two_u), np.nan)
+    U = np.zeros((N, K, two_u))
+    w = np.where(mask, vals[4], 0.0)
+    for chunks in table_streams(pl):
+        for u0, n, steps in chunks:
+            slot_acc = np.zeros((4, 5, 4, N, K))
+            for cc, acc, coef, xr, yr in steps:
+                for q in range(4):
+                    slot_acc[cc, acc, q] += coef[q] * (X[xr[q]] * Y[yr[q]])
+            for cc in range(n):
+                sa = slot_acc[cc]
+                acc = (sa[:, 0] + sa[:, 1]) + (sa[:, 2] + sa[:, 3])
+                tan = sum(tans[:, v] * acc[1 + v] for v in range(4))
+                J[..., u0 + cc] = np.where(mask, vals[4] * tan
+                                           + tans[:, 4] * acc[0], 0.0)
+                U[..., u0 + cc] = acc[0]
+    ut = tsnap._channel_self(args[3], p, torch.float64).numpy().reshape(
+        N, nc, two_u)
+    for a in range(N):
+        live = np.nonzero(mask[a])[0]
+        for t0 in range(0, len(live), 32):
+            k = live[t0:t0 + 32]
+            for e in range(nc):
+                sel = k[chan[a, k] == e]
+                ut[a, e] = ut[a, e] + (w[a, sel, None] * U[a, sel]).sum(0)
+    return J, ut.reshape(N, -1)
+
+
+@pytest.mark.parametrize("twojmax,nelem,chem,nsplit", [
+    (2, 1, False, 1), (6, 1, False, 3), (2, 3, True, 2), (4, 2, True, 1)])
+def test_k1_table_schedule_matches_plain(twojmax, nelem, chem, nsplit):
+    _, p = plans(twojmax, nelem, chem)
+    args = tuple(torch.from_numpy(x) for x in block(3, nelem))
+    J, ut = emulate_k1_table(p, args, nsplit)
+    J0, ut0 = sk.pair_u_duals_plain(*args, p)
+    close(J, J0)
+    close(ut, ut0)
+    assert (J.transpose(1, 2, 0, 3)[~args[2].numpy()] == 0).all()
+
+
+def emulate_k3_slab(p, ut, zr, zi, J, jelem, slab):
+    """csrc/dbdd.cu's slab shape: B from y layer 0 against utot; per
+    channel and slab, y's columns in the slab from the targets of
+    `dbdd_slab_ranges` (real parts, then imaginary ones), the product
+    summed slab by slab in inner order."""
+    tg = sk.dbdd_tables(p)
+    tg_u = tg.tg_u.numpy()
+    tg_src, tg_fac = tg.tg_src.numpy(), tg.tg_fac.numpy()
+    ranges = sk.dbdd_slab_ranges(p, slab).numpy()
+    N, K = J.shape[1:3]
+    U, W, nc = p.u_len, p.nb_base, p.nchem
+    zr = zr.numpy().reshape(N, nc * nc, p.nz)
+    zi = zi.numpy().reshape(N, nc * nc, p.nz)
+    ut = ut.numpy().reshape(N, nc, 2 * U)
+    J = J.numpy()
+    chan = jelem.numpy() if nc > 1 else np.zeros((N, K), int)
+    blk_chan, blk_pair = p.blk_chan.numpy(), p.blk_pair.numpy()
+    y_src, y_fac = p.y_src.numpy()[0], p.y_fac.numpy()[0]
+    bzero = p.bzero.numpy() if p.bzeroflag else np.zeros(W)
+    B = np.zeros((N, W))
+    dBdD = np.zeros((N, W, K, 3))
+    for w in range(W):
+        blk, t = divmod(w, p.ntriples)
+        ua = ut[:, blk_chan[blk, 0]]
+        zp = blk_pair[blk, 0]
+        f = y_fac[t]
+        B[:, w] = (ua[:, :U] * (f * zr[:, zp, y_src[t]])
+                   + ua[:, U:] * (f * zi[:, zp, y_src[t]])).sum(1) - bzero[w]
+    for ch in range(nc):
+        acc = np.zeros((N, W, K, 3))
+        for s, i0 in enumerate(range(0, 2 * U, slab)):
+            i1 = min(i0 + slab, 2 * U)
+            ys = np.zeros((N, W, i1 - i0))
+            for w in range(W):
+                blk, t = divmod(w, p.ntriples)
+                for part, za in ((0, zr), (1, zi)):
+                    q = np.arange(ranges[t, s, 2 * part],
+                                  ranges[t, s, 2 * part + 1])
+                    col = part * U + tg_u[q]
+                    assert ((col >= i0) & (col < i1)).all()
+                    v = np.zeros((N, len(q)))
+                    for l in range(3):
+                        if blk_chan[blk, l] == ch:
+                            v += tg_fac[q, l] * za[:, blk_pair[blk, l],
+                                                   tg_src[q, l]]
+                    ys[:, w, col - i0] = v
+            acc += np.einsum("awu,caku->awkc", ys, J[..., i0:i1])
+        dBdD += np.where((chan == ch)[:, None, :, None], acc, 0.0)
+    return B, dBdD
+
+
+@pytest.mark.parametrize("twojmax,nelem,chem,slab", [
+    (6, 1, False, 48), (6, 2, True, 48), (4, 3, True, 48)])
+def test_k3_slab_schedule_matches_plain(twojmax, nelem, chem, slab):
+    """The slab shape in slabs narrower than its plans' (several slabs at
+    these widths), one channel and chemflag."""
+    _, p = plans(twojmax, nelem, chem)
+    args = tuple(torch.from_numpy(x) for x in block(4, nelem))
+    J, ut = sk.pair_u_duals_plain(*args, p)
+    z = (sk.zlist_chem_plain if chem else sk.zlist_plain)(ut, p)
+    B, dBdD = emulate_k3_slab(p, ut, *z, J, args[1], slab)
+    if chem:
+        B0, dBdD0 = sk.dbdd_chem_plain(ut, *z, J, args[1], p)
+    else:
+        B0, dBdD0 = sk.dbdd_plain(ut, *z, J, p)
+    close(B, B0)
+    close(dBdD, dBdD0)
+
+
+def test_k1_k3_schedules_match_plain_tj13(large_plans):
+    """The table shape of K1 and the slab shape of K3 at twojmax 13, their
+    plans' own split and slab, on one config of 3 atoms x 8 slots."""
+    p = large_plans[13]
+    args = tuple(torch.from_numpy(x) for x in block(9, 1, A=3, K=8))
+    shape, nsplit = sk.pair_u_plan(p, 3, 8, 132)
+    assert shape == "table"
+    J, ut = emulate_k1_table(p, args, nsplit)
+    J0, ut0 = sk.pair_u_duals_plain(*args, p)
+    close(J, J0)
+    close(ut, ut0)
+    z = sk.zlist_plain(ut0, p)
+    B, dBdD = emulate_k3_slab(p, ut0, *z, J0, args[1], sk.dbdd_plan(p, 8)[2])
+    B0, dBdD0 = sk.dbdd_plain(ut0, *z, J0, p)
+    close(B, B0)
+    close(dBdD, dBdD0)
+
+
+@pytest.mark.parametrize("label,module,name,nargs", [
+    ("K1", sk, "pair_u_duals", 4), ("K1", sk, "pair_u_duals_chem", 4),
+    ("K2", sk, "zlist", 1), ("K2", sk, "zlist_chem", 1),
+    ("K3", sk, "dbdd", 4), ("K3", sk, "dbdd_chem", 5),
+    ("K6q", sk, "quad_chain", 2), ("K9", nk, "nn_ut_b", 4),
+    ("K10", nk, "nn_dedu_vg", 3), ("K10T", nk, "nn_dedu_vg_t", 3),
+    ("K11", nk, "nn_pair_force", 5), ("K11T", nk, "nn_pair_force_t", 6)])
+def test_wrappers_refuse_twojmax_17_first(monkeypatch, label, module, name,
+                                          nargs):
+    """On the card path every SNAP-plan wrapper checks the plan's twojmax
+    before anything else: a stand-in plan with no tables at twojmax 17
+    meets the ValueError that names the limit; 16 passes the check."""
+    monkeypatch.setattr(module, "_on_cpu", lambda *t: False)
+    with pytest.raises(ValueError, match=f"^twojmax 17: {label} takes at "
+                                         f"most 16$"):
+        getattr(module, name)(*[None] * nargs,
+                              SimpleNamespace(twojmax=17, nchem=1))
+    sk.check_twojmax(SimpleNamespace(twojmax=16), label)
