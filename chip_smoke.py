@@ -327,7 +327,27 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    launches, no dB/dD stored (OTF: nor disp or ut) and its loss curve
    against the same fit with every kernel's plain version on the card
    (1e-10).  Each path prints its peak device memory
-   (`torch.cuda.max_memory_allocated`).
+   (`torch.cuda.max_memory_allocated`).  K2's library call at 13, 14 and
+   16 is `torch.bmm` over the dense term tables of the phase's own plans
+   (kept as they are built), timed where they fit half the free memory,
+   their bytes printed either way.
+22. (run after phase 3 and phase 5) the float32 streamed fit: K8, K1 (its
+   window shape), K2, K3 (whole rows, its float32 product on the CUDA
+   cores), K4, K5 (`zbl_eav`) and K7 in their float32 instantiations
+   against their plain float32 versions on phase 3's chunk, its positions
+   packed at float32 (hi/lo) and every later input made from them
+   (1e-5 relative; K8's mask and jidx equal and its disp within 2 ulp,
+   K8r's table equal; every output float32, K7's AtA and Atb float64 and
+   its residual A^T r float32; bounds at 4 bytes a value and the FP32
+   CUDA-core rate); then phase 5's streamed fit on the same set packed at
+   float32 (launch counts set to 0 just before and read after the refined
+   fit and the evaluation: every kernel in its float32 instantiation, none
+   at float64), nrows equal to phase 5's, AtA and Atb within 1e-5 of phase
+   5's float64 ones, the refined float32 fit within 100 cond(w A) 2^-23 of
+   beta_true, the MAE sums within 1e-4 of phase 5's at beta_true spread
+   10%; the device ms of a steady pass at float64 and float32 in turns
+   (64, 32, 32, 64) and the bytes of a chunk's disp and dB/dD at each
+   type.
 
 Each NN phase's profiler split prints the port's kernels' launches in the
 profiled epoch beside their device ms (the cached epoch's K11T and gather
@@ -361,6 +381,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 bandwidth (NVIDIA data sheet)
 L2_BYTES = 50 << 20         # H100 SXM L2 cache (NVIDIA data sheet)
 FP64_FLOPS = 67e12          # H100 SXM FP64 tensor-core peak (NVIDIA data sheet)
 FP64_VECTOR_FLOPS = 34e12   # H100 SXM FP64 off the tensor cores (data sheet)
+FP32_FLOPS = 67e12          # H100 SXM FP32 off the tensor cores (data sheet)
 EXP_OPS = 20                # operations of one f64 exp (a software routine)
 KERNEL_RTOL = 1e-11         # kernel vs plain, relative to the largest |value|
 A_RTOL = 1e-10              # main-path A vs plain A, per column
@@ -368,6 +389,19 @@ RESID_RTOL = 1e-10          # weighted fit residual, relative to |w b|
 NORMAL_RTOL = 1e-10         # streamed AtA / Atb vs the host's from A_plain
 MAE_RTOL = 1e-10            # streamed MAE sums vs the host's
 EPS64 = 2.220446049250313e-16
+# phase 22, the float32 streamed fit: each float32 kernel against its plain
+# float32 version (relative to the largest |value|; float32 sums in other
+# orders), K8's disp in ulps, the normal equations against phase 5's
+# float64 ones, the MAE sums against phase 5's at the same coefficients
+KERNEL_RTOL32 = 1e-5
+K8_ULPS32 = 2
+NORMAL_RTOL32 = 1e-5
+MAE_RTOL32 = 1e-4
+EPS32 = 2.0 ** -23
+# coefficients 10% off beta_true (seeded), where phase 22 compares the MAE
+# sums: there the residuals stand far above float32 rounding, which the
+# sums at the fit's own coefficients (truths A beta_true) are made of
+MAE_SPREAD = 0.1
 
 SOURCES = {
     "pair_u_duals": ("fitsnap_tpu_torch/kernels/csrc/pair_u_duals.cu",
@@ -423,6 +457,11 @@ SOURCES = {
     "pair_desc_jvp": ("fitsnap_tpu_torch/kernels/csrc/pair_desc.cu",
                       "fitsnap_tpu/solvers/network.py:707"),
 }
+# the float32 instantiations of the streamed fit's kernels (phase 22),
+# launches counted apart as "<name>_f32"
+F32_KERNELS = ("pair_u_duals", "zlist", "dbdd", "pair_scatter_rows",
+               "zbl_eav", "normal_contrib", "device_neighbors")
+SOURCES.update({k + "_f32": SOURCES[k] for k in F32_KERNELS})
 FITSNAP_KERNELS = ("pair_u_duals", "zlist", "dbdd", "pair_scatter_rows",
                    "zbl_eav")
 STREAM_KERNELS = ("normal_contrib", "device_neighbors", "reverse_table")
@@ -515,12 +554,16 @@ PATH_KERNELS = {"fitsnap": FITSNAP_KERNELS,
                 "tj16_fitsnap": FITSNAP_KERNELS,
                 "tj14_streamed": FITSNAP_KERNELS + STREAM_KERNELS,
                 "tj16_nn_cached_fitsnap": NN_CACHED_KERNELS,
-                "tj16_nn_otf_fitsnap": NN_CACHED_KERNELS}
+                "tj16_nn_otf_fitsnap": NN_CACHED_KERNELS,
+                # phase 22: every kernel in its float32 instantiation (K8r
+                # reads integers only)
+                "streamed_f32": tuple(k + "_f32" for k in F32_KERNELS)
+                + ("reverse_table",)}
 # paths whose K4 launches are the rows', one a reference call
 ROWS_PATHS = ("fitsnap", "streamed", "ace_fitsnap", "ace_streamed",
               "quadratic_fitsnap", "quadratic_streamed", "chem_fitsnap",
               "chem_streamed", "fe_fitsnap", "xyz_fitsnap", "vasp_fitsnap",
-              "tj14_fitsnap", "tj16_fitsnap", "tj14_streamed")
+              "tj14_fitsnap", "tj16_fitsnap", "tj14_streamed", "streamed_f32")
 # the plan of K13's lmax-8 row (ranks 1-4, 171 A-slots), on the Ta chunk
 LMAX8_SHAPE = dict(numtypes=1, ranks=[1, 2, 3, 4], nmax=[8, 2, 2, 1],
                    lmax=[0, 8, 3, 2], lmin=[0, 0, 0, 0], nmaxbase=8,
@@ -739,9 +782,12 @@ def device_time(fn, reps):
     return sum(kernels.values()) / reps if kernels else None
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, fp32=False):
+    """The least time of the work: its bytes over the HBM rate or its
+    operations over the FP64 tensor cores' rate (float32 work: the FP32
+    CUDA cores'), the larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP64_FLOPS * 1e3
+    t_ops = flops / (FP32_FLOPS if fp32 else FP64_FLOPS) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -780,30 +826,34 @@ def launches():
 
 def check_launched(counts, path):
     """Every kernel of the path launched, and K4 as often as the rows
-    need: once a reference call on a rows path, never on an NN path."""
+    need: once a reference call on a rows path, never on an NN path (on
+    the float32 path, counted in their float32 instantiations)."""
     missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the {path} path: "
                              f"{missing}")
-    k4 = counts["zbl_eav"] * (path in ROWS_PATHS)
-    if counts["pair_scatter_rows"] != k4:
-        raise AssertionError(f"K4 launched {counts['pair_scatter_rows']} "
-                             f"times on the {path} path, not {k4} (the "
-                             f"reference: {counts['zbl_eav']})")
+    sfx = "_f32" if path == "streamed_f32" else ""
+    k4 = counts["zbl_eav" + sfx] * (path in ROWS_PATHS)
+    if counts["pair_scatter_rows" + sfx] != k4:
+        raise AssertionError(f"K4 launched {counts['pair_scatter_rows' + sfx]}"
+                             f" times on the {path} path, not {k4} (the "
+                             f"reference: {counts['zbl_eav' + sfx]})")
 
 
 def record(rows, name, out, ref, kernel, plain_ms, nbytes, flops,
            library_ms, wrapper=None, shape=None, library=None,
-           vector=False):
+           vector=False, fp32=False):
     """Hold a kernel's outputs to its plain version's, time it, and add its
     row to `rows`.  `kernel` is (a call of the wrapper, repetitions to
     time); `wrapper` names the kernel when the row is one of several
     shapes of it; `library`, a call of the library function, is timed
     here, by CUDA events (in place of `library_ms`) and by device time;
     `vector` adds the bound at the FP64 vector rate (work that cannot use
-    the tensor cores)."""
+    the tensor cores); `fp32`: a float32 instantiation (phase 22), held to
+    KERNEL_RTOL32 and bound at the FP32 CUDA-core rate."""
     err_abs, err_rel = rel_err(out, ref)
-    b_ms, b_by = bound_ms(nbytes, flops)
+    b_ms, b_by = bound_ms(nbytes, flops, fp32)
+    rtol = KERNEL_RTOL32 if fp32 else KERNEL_RTOL
     ms = timed(*kernel)
     dev_ms = device_time(*kernel)
     lib_dev_ms = None
@@ -814,9 +864,9 @@ def record(rows, name, out, ref, kernel, plain_ms, nbytes, flops,
           f" ms={ms:.4f} device_ms={dev_ms} plain_ms={plain_ms:.4f}"
           f" bound_ms={b_ms:.4f} ({b_by}) library_ms={library_ms}"
           f" library_device_ms={lib_dev_ms}", flush=True)
-    if not err_rel <= KERNEL_RTOL:
+    if not err_rel <= rtol:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
-                             f"version ({err_rel:.3e} > {KERNEL_RTOL})")
+                             f"version ({err_rel:.3e} > {rtol})")
     wrapper = wrapper or name
     src, replaces = SOURCES[wrapper]
     row = {"name": name, "kernel": wrapper, "route": "cuda", "source": src,
@@ -828,6 +878,8 @@ def record(rows, name, out, ref, kernel, plain_ms, nbytes, flops,
         row["library_device_ms"] = lib_dev_ms
     if shape:
         row["shape"] = shape
+    if fp32:
+        row["dtype"] = "float32"
     if vector:
         row["bound_ms_fp64_vector"] = max(nbytes / HBM_BYTES_PER_S,
                                           flops / FP64_VECTOR_FLOPS) * 1e3
@@ -1010,12 +1062,51 @@ def k1_row(rows, p, k1_in, shape=None):
     return ref
 
 
+def zlist_library(ut, U, groups, name):
+    """K2's library call: torch.bmm over the TPU path's dense term GEMMs
+    (the plan's z_dense groups: M (Tg, P, D^2) a group) on one channel's
+    ut, at ut's type, timed (ms); None where the dense tables with the
+    GEMMs' operands and outputs pass half the card's free memory.  The
+    tables' bytes are printed either way."""
+    import torch
+
+    N, item = ut.shape[0], ut.element_size()
+    table = work = 0
+    for g in groups:
+        Tg, P, DD = np.asarray(g["M"]).shape
+        table += Tg * P * DD * item
+        work += 2 * Tg * N * (P + DD) * item
+    fits = table + work <= torch.cuda.mem_get_info()[0] // 2
+    print(f"{name} library call (torch.bmm, dense term tables): tables "
+          f"{table} bytes, operands and outputs {work} bytes at {N} atoms"
+          + ("" if fits else ": past half the free memory, not timed"),
+          flush=True)
+    if not fits:
+        return None
+    dense = []
+    for g in groups:
+        gi1 = torch.as_tensor(g["gi1"], device=ut.device).long()
+        gi2 = torch.as_tensor(g["gi2"], device=ut.device).long()
+        a_r, a_i = ut[:, :U][:, gi1], ut[:, U:][:, gi1]
+        b_r, b_i = ut[:, :U][:, gi2], ut[:, U:][:, gi2]
+        dense.append(
+            ((a_r * b_r - a_i * b_i).transpose(0, 1).contiguous(),
+             (a_r * b_i + a_i * b_r).transpose(0, 1).contiguous(),
+             torch.as_tensor(g["M"], dtype=ut.dtype, device=ut.device)))
+    ms = timed(lambda: [(torch.bmm(pr, M), torch.bmm(pi, M))
+                        for pr, pi, M in dense], 20)
+    del dense
+    torch.cuda.empty_cache()
+    return ms
+
+
 def descriptor_checks(rows, p, k1_in, shape=None, k2_library=True):
     """K1, K2 and K3 (their chemflag modes when the plan has element
     channels) and K6q (quadraticflag) against their plain versions on one
     chunk's K1 inputs; rows are named `kernel@shape` when a shape is given.
-    K2's library call needs the plan's dense TPU term tables, built anew
-    (about a minute at twojmax 16): `k2_library=False` leaves it out.
+    K2's library call needs the plan's dense TPU term tables: True builds
+    them anew (about a minute at twojmax 16), a list takes the plan's
+    groups (`shared_plans` keeps them), False leaves the call out.
     Returns the plain (B, dB/dD) the chunk's rows are built from."""
     import torch
     from fitsnap_tpu_torch.kernels import snap_kernels as sk
@@ -1040,23 +1131,13 @@ def descriptor_checks(rows, p, k1_in, shape=None, k2_library=True):
     out = k2(ut, p)
     ref = k2_plain(ut, p)
     library = None
-    if not k2_library:
+    if k2_library is False:
         print(f"{name('zlist')}{at} library call not timed: its dense term "
               f"tables are the plan's, built anew", flush=True)
     elif not chem:
-        dense = []
-        for g in build_snap_plan(p.twojmax).z_dense["groups"]:
-            gi1 = torch.as_tensor(g["gi1"], device=ut.device).long()
-            gi2 = torch.as_tensor(g["gi2"], device=ut.device).long()
-            a_r, a_i = ut[:, :U][:, gi1], ut[:, U:][:, gi1]
-            b_r, b_i = ut[:, :U][:, gi2], ut[:, U:][:, gi2]
-            dense.append(
-                ((a_r * b_r - a_i * b_i).transpose(0, 1).contiguous(),
-                 (a_r * b_i + a_i * b_r).transpose(0, 1).contiguous(),
-                 torch.as_tensor(g["M"], device=ut.device)))
-        library = timed(lambda: [(torch.bmm(pr, M), torch.bmm(pi, M))
-                                 for pr, pi, M in dense], 20)
-        del dense
+        groups = build_snap_plan(p.twojmax).z_dense["groups"] \
+            if k2_library is True else k2_library
+        library = zlist_library(ut, U, groups, name("zlist") + at)
     z_ptr = p.z_ptr.cpu().numpy()
     empty = torch.as_tensor(np.nonzero(z_ptr[1:] == z_ptr[:-1])[0],
                             device=ut.device)
@@ -2029,7 +2110,8 @@ def streamed_path(fs, a_plain, beta, seed, device, kind="snap", keep=None):
         AtA, Atb, nrows = one_pass()
     t["steady_pass"] = (time.time() - t0) / 3
     if keep is not None:
-        keep.update(one_pass=one_pass, result=(AtA, Atb, nrows))
+        keep.update(one_pass=one_pass, result=(AtA, Atb, nrows),
+                    evaluate=evaluate)
     kernel_ms = profile_kernels(one_pass)
     if kernel_ms:
         t["device_ms_per_pass"] = sum(kernel_ms.values())
@@ -2149,6 +2231,348 @@ def streamed_path(fs, a_plain, beta, seed, device, kind="snap", keep=None):
                              f"{(cse, cne, csf, cnf)} vs {host}")
     checks.update(energy_mae=se / ne, force_mae=sf / nf,
                   mae_rel_err_at_check=float(mae_err))
+    return counts, t, checks
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the float32 streamed fit
+# ---------------------------------------------------------------------------
+
+
+def ulps32(a, b):
+    """The largest distance between two float32 tensors in ulps of the
+    larger magnitude of each pair."""
+    a, b = a.double(), b.double()
+    ulp = a.abs().maximum(b.abs()).clamp(min=1e-30) * EPS32
+    return ((a - b).abs() / ulp).max().item()
+
+
+def f32_kernel_checks(calc, data, device="cuda"):
+    """Phase 22's kernels: K8, K1 (window shape), K2, K3 (whole rows), K4,
+    K5 (`zbl_eav`) and K7 in their float32 instantiations against their
+    plain float32 versions on phase 3's chunk (the first Compressed_BCC
+    chunk, 8 x 128 x 64), its positions packed at float32 (hi/lo) and every
+    later input made from them by the float32 kernels: KERNEL_RTOL32,
+    K8's mask and jidx and K8r's table exactly and K8's disp within
+    K8_ULPS32; every output at float32 (K7: AtA and Atb float64, A^T r
+    float32).  Bounds: bytes at 4 a float, operations at the FP32
+    CUDA-core rate; library calls as phase 3's, at float32."""
+    import torch
+    from fitsnap_tpu_torch.calculators.snap import pair_masks, snap_rows
+    from fitsnap_tpu_torch.kernels import snap_kernels as sk
+    from fitsnap_tpu_torch.ops import snap as ops
+    from fitsnap_tpu_torch.ops.cg import build_snap_plan
+    from fitsnap_tpu_torch.ops.refpot import zbl_table
+    from fitsnap_tpu_torch.parallel import fit
+
+    f32 = torch.float32
+    packed, args, _, _ = snap_chunk(calc, data, "Compressed_BCC", 8)
+    types = args[4]
+    C, A, K = args[2].shape
+    N, T = C * A, calc.numtypes
+    p = calc.params.cast(f32)
+    U, W = p.u_len, p.nb_base
+    s_table = fit.batch_shift_table([pc.cell for pc in packed], calc.cutoff)
+    batch = [x[0] for x in fit.put_batch(fit.pack_batch_pos(
+        packed, A, C, s_table, np.float32), device)]
+    ph, pl, sh, sl, _, nat32, cell = batch[:7]
+    S = sh.shape[1]
+    rows = []
+
+    def check32(name, out):
+        if not all(x.dtype == f32 for x in out):
+            raise AssertionError(f"{name}: an output is not float32: "
+                                 f"{[x.dtype for x in out]}")
+
+    # K8, and K8r on its lists (K8r's row is phase 3's: integers only)
+    k8_args = (ph, pl, sh, sl, nat32, calc.cutoff, K)
+    out = sk.device_neighbors(*k8_args)
+    ref = sk.device_neighbors_plain(*k8_args)
+    check32("device_neighbors_f32", out[:1])
+    ulps = ulps32(out[0], ref[0])
+    if not (torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])
+            and ulps <= K8_ULPS32):
+        raise AssertionError(f"device_neighbors_f32: mask or jidx differs, "
+                             f"or disp by {ulps} ulps")
+    nbinned, ndist = k8_work(ph.double(), sh.double(), nat32, calc.cutoff)
+    record(rows, "device_neighbors_f32", out[:1], ref[:1],
+           (lambda: sk.device_neighbors(*k8_args), 20),
+           timed(lambda: sk.device_neighbors_plain(*k8_args), 3),
+           C * A * 3 * 4 * 2 + C * S * 3 * 4 * 2 + C * 4
+           + C * A * K * (12 + 4 + 1), 9 * (nbinned + ndist), None,
+           wrapper="device_neighbors_f32", fp32=True)
+    rows[-1]["disp_ulps"] = ulps
+    disp, jidx, mask = out
+    rev, dropped = sk.reverse_table(jidx, mask)
+    rref, dref = sk.reverse_table_plain(jidx, mask)
+    if not (torch.equal(rev, rref) and torch.equal(dropped, dref)
+            and int(dropped.sum().item()) == 0):
+        raise AssertionError("reverse_table on the float32 lists differs "
+                             "from its plain version or dropped entries")
+    print(f"float32 kernel inputs: C={C} A={A} K={K} S={S} listed="
+          f"{int(mask.sum().item())}; device_neighbors_f32 disp within "
+          f"{ulps} ulps of its plain version", flush=True)
+
+    # K1-K3 on the float32 lists, the plan's float32 tables
+    jelem, smask = pair_masks(calc.params, disp, jidx, mask, types)
+    k1_in = (disp.reshape(N, K, 3), jelem.reshape(N, K), smask.reshape(N, K),
+             types.reshape(N))
+    npairs = int(smask.sum().item())
+    out = sk.pair_u_duals(*k1_in, p)
+    check32("pair_u_duals_f32", out)
+    if not (out[0].permute(1, 2, 0, 3)[~k1_in[2]] == 0).all():
+        raise AssertionError("pair_u_duals_f32: padding slots not exactly 0")
+    ref = sk.pair_u_duals_plain(*k1_in, p)
+    record(rows, "pair_u_duals_f32", out, ref,
+           (lambda: sk.pair_u_duals(*k1_in, p), 10),
+           timed(lambda: sk.pair_u_duals_plain(*k1_in, p), 3),
+           N * K * (3 * 4 + 4 + 1) + N * 4 + 3 * N * K * 2 * U * 4
+           + N * 2 * U * 4, k1_operations(p, npairs), None,
+           wrapper="pair_u_duals_f32", fp32=True)
+    J, ut = ref
+    out = sk.zlist(ut, p)
+    ref = sk.zlist_plain(ut, p)
+    check32("zlist_f32", out)
+    library = zlist_library(ut, U, build_snap_plan(p.twojmax)
+                            .z_dense["groups"], "zlist_f32")
+    record(rows, "zlist_f32", out, ref, (lambda: sk.zlist(ut, p), 20),
+           timed(lambda: sk.zlist_plain(ut, p), 5),
+           N * 2 * U * 4 + 2 * N * p.nz * 4, N * p.z_c.shape[0] * 10,
+           library, wrapper="zlist_f32", fp32=True)
+    z_r, z_i = ref
+    out = sk.dbdd(ut, z_r, z_i, J, p)
+    ref = sk.dbdd_plain(ut, z_r, z_i, J, p)
+    check32("dbdd_f32", out)
+    if not (out[1].permute(0, 2, 1, 3)[~k1_in[2]] == 0).all():
+        raise AssertionError("dbdd_f32: padding slots not exactly 0")
+    dbdu = ops._dbdu_ylist(ut, p, (z_r, z_i))
+    record(rows, "dbdd_f32", out, ref,
+           (lambda: sk.dbdd(ut, z_r, z_i, J, p), 10),
+           timed(lambda: sk.dbdd_plain(ut, z_r, z_i, J, p), 3),
+           (N * 2 * U + 2 * N * p.nz + 3 * N * K * 2 * U + N * W
+            + N * W * K * 3) * 4, k3_operations(p, k1_in), None,
+           wrapper="dbdd_f32", fp32=True,
+           library=lambda: torch.einsum("awu,caku->awkc", dbdu, J))
+    B, G = ref
+    del out, dbdu, J, z_r, z_i
+    torch.cuda.empty_cache()
+
+    # K4 on the float32 gradients, index_add_ of the scatter as library
+    real = (torch.arange(A, device=disp.device)[None, :]
+            < nat32[:, None]).to(f32)
+    G = (G.reshape(C, A, W, K, 3) * real[..., None, None, None]).contiguous()
+    k4_args = (G, disp, smask, rev, types, T)
+    out = sk.pair_scatter_rows(*k4_args)
+    ref = sk.pair_scatter_rows_plain(*k4_args)
+    check32("pair_scatter_rows_f32", out)
+    dest = (torch.arange(C, device=disp.device)[:, None, None] * A
+            + jidx.long())[smask]
+    g_rows = G.permute(0, 1, 3, 2, 4)[smask].reshape(-1, W * 3)
+    scat = torch.zeros((N, W * 3), dtype=f32, device=G.device)
+    record(rows, "pair_scatter_rows_f32", out, ref,
+           (lambda: sk.pair_scatter_rows(*k4_args), 20),
+           timed(lambda: sk.pair_scatter_rows_plain(*k4_args), 5),
+           (G.numel() + disp.numel() + C * A * 3 * T * W + C * 6 * T * W)
+           * 4 + smask.numel() + rev.numel() * 4 + types.numel() * 4,
+           npairs * W * (3 * 2 + 6 * 2), None,
+           wrapper="pair_scatter_rows_f32", fp32=True,
+           library=lambda: scat.index_add_(0, dest, g_rows))
+    del G, g_rows, scat, out, ref
+
+    # K5, the whole ZBL reference, on the float32 lists
+    zc = calc.refspec.zbl
+    table = zbl_table(zc, disp.device, f32)
+    k5_args = (disp, jidx, mask, rev, types, table, zc.cut_inner,
+               zc.cut_outer)
+    out, again = sk.zbl_eav(*k5_args), sk.zbl_eav(*k5_args)
+    ref = sk.zbl_eav_plain(*k5_args)
+    check32("zbl_eav_f32", out)
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        raise AssertionError("zbl_eav_f32: two calls differ")
+    nlisted = int(mask.sum().item())
+    record(rows, "zbl_eav_f32", out, ref, (lambda: sk.zbl_eav(*k5_args), 20),
+           timed(lambda: sk.zbl_eav_plain(*k5_args), 5),
+           disp.numel() * 4 + (jidx.numel() + rev.numel() + types.numel())
+           * 4 + mask.numel() + table.numel() * 4 + (C + C * A * 3 + C * 6)
+           * 4, 2 * nlisted * (4 * EXP_OPS + 40), None,
+           wrapper="zbl_eav_f32", fp32=True)
+
+    # K7 on the chunk's float32 rows, with the batch's float32 truths and
+    # weights: direct (AtA, Atb float64) and residual (A^T r float32)
+    rows_in = snap_rows(calc.params, T, calc.refspec, disp, jidx, mask, rev,
+                        types, nat32, cell)
+    check32("the float32 rows", list(rows_in.values()))
+    truths, weights = batch[7:10], batch[10:13]
+    k7_args = (rows_in, truths, weights, nat32, types, T, True, FLAGS)
+    out = sk.normal_contrib(*k7_args)
+    ref = sk.normal_contrib_plain(*k7_args)
+    Wf = ref[1].shape[0]
+    coeff = torch.linspace(-1.0, 1.0, Wf, dtype=torch.float64,
+                           device=types.device)
+    res = sk.normal_contrib(*k7_args, coeff, False)
+    res_ref = sk.normal_contrib_plain(*k7_args, coeff, False)
+    _, res_err = rel_err(res[1:2], res_ref[1:2])
+    print(f"normal_contrib_f32 (width {Wf}): residual mode max_rel_err="
+          f"{res_err:.3e}", flush=True)
+    if not (out[0].dtype == out[1].dtype == torch.float64
+            and res[1].dtype == f32 and res_err <= KERNEL_RTOL32
+            and out[2].item() == ref[2].item()):
+        raise AssertionError(f"normal_contrib_f32: output types "
+                             f"{out[0].dtype} {out[1].dtype} {res[1].dtype}"
+                             f", residual {res_err:.3e} or nrows differ")
+    a_full, _ = sk.full_rows(rows_in, truths, nat32, types, T, True)
+    wrow = sk.row_weights(weights, nat32, A, FLAGS)
+    aw = (a_full.double() * wrow.double()[..., None]).reshape(-1, Wf)
+    record(rows, "normal_contrib_f32", out[:2], ref[:2],
+           (lambda: sk.normal_contrib(*k7_args), 20),
+           timed(lambda: sk.normal_contrib_plain(*k7_args), 5),
+           C * (1 + 3 * A + 6) * (Wf - T) * 4 + 3 * C * (1 + 3 * A + 6) * 4
+           + 3 * C * 4 + C * 4 + C * A * 4 + (Wf * Wf + Wf + 1) * 8,
+           aw.shape[0] * (Wf * (Wf + 1) + 2 * Wf), None,
+           wrapper="normal_contrib_f32", fp32=True,
+           library=lambda: torch.mm(aw.T, aw))
+    rows[-1]["residual_max_rel_err"] = res_err
+    del out, ref, res, res_ref, a_full, aw, rows_in
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def streamed_f32_phase(fs, a_plain, beta, seed, device, keep, checks64):
+    """Phase 22: phase 5's streamed fit on the same Ta-shaped set, packed
+    at float32 (`pack_batch_pos(..., dtype=np.float32)`: hi/lo float32
+    positions), launch counts set to 0 just before and read after the
+    refined fit and the evaluation: every kernel of the path launched in its
+    float32 instantiation and none at float64 (K8r, integers only, as
+    phase 5's).  nrows must equal phase 5's, AtA and Atb phase 5's float64
+    ones to NORMAL_RTOL32 of their largest magnitude, the refined float32
+    fit beta_true within 100 cond(w A) 2^-23, and the MAE sums phase 5's
+    at the same coefficients (beta_true spread by MAE_SPREAD, seeded) to
+    MAE_RTOL32.  Prints the device ms of a steady pass at each type, in
+    turns (float64, float32, float32, float64), and the bytes of a chunk's
+    disp and dB/dD at each type.  Returns (counts, timings, checks)."""
+    import torch
+    from fitsnap_tpu_torch.calculators.snap import chunk_size
+    from fitsnap_tpu_torch.parallel import fit
+
+    calc = fs.calculator
+    reset_launches()
+    t = {}
+    t0 = time.time()
+    packed = [calc._pack(d) for d in fs.data]
+    runs = []
+    for g in fit.plan_shift_groups(packed, calc.cutoff):
+        per = chunk_size(g["a_pad"], g["k_pad"], calc.desc_width())
+        chunks = -(-len(g["configs"]) // per)
+        batch = fit.pack_batch_pos(g["configs"], g["a_pad"], chunks * per,
+                                   g["s_table"], np.float32, chunks=chunks)
+        runs.append(({"cutoff": calc.cutoff, "k_pad": g["k_pad"]},
+                     fit.put_batch(batch, device), (per, g["a_pad"],
+                                                   g["k_pad"])))
+    torch.cuda.synchronize()
+    t["pack_upload"] = time.time() - t0
+    model = (calc.params, calc.numtypes, FLAGS, device)
+    kw = {"refspec": calc.refspec}
+    steps = [fit.build_step_fn(*model, neighbors=nb, accumulate=True, **kw)
+             for nb, _, _ in runs]
+    residuals = [fit.build_residual_fn(*model, neighbors=nb, **kw)
+                 for nb, _, _ in runs]
+    evals = [fit.build_eval_fn(*model, neighbors=nb, **kw)
+             for nb, _, _ in runs]
+
+    def one_pass(_=None):
+        acc = steps[0][1]()
+        for (acc_step, _, _), (_, batch, _) in zip(steps, runs):
+            acc = acc_step(acc, batch)
+        return steps[0][2](acc)
+
+    def residual(x, _=None):
+        return sum(res(x, batch) for res, (_, batch, _) in
+                   zip(residuals, runs))
+
+    def evaluate(x):
+        return np.sum([ev(x, batch) for ev, (_, batch, _) in
+                       zip(evals, runs)], 0)
+
+    t0 = time.time()
+    AtA, Atb, nrows = one_pass()
+    t["first_pass"] = time.time() - t0
+    t0 = time.time()
+    for _ in range(3):
+        AtA, Atb, nrows = one_pass()
+    t["steady_pass"] = (time.time() - t0) / 3
+    t0 = time.time()
+    x_ref, _, _ = fit.fit_refined(one_pass, residual, None, refine_iters=2)
+    t["refine"] = time.time() - t0
+    x_mae = beta * (1.0 + MAE_SPREAD * np.random.default_rng(
+        seed + 22).normal(size=beta.shape))
+    sums32 = evaluate(x_mae)
+    torch.cuda.synchronize()
+    counts = launches()
+
+    check_launched(counts, "streamed_f32")
+    wide = {k: counts[k] for k in F32_KERNELS if counts[k]}
+    if wide:
+        raise AssertionError(f"the float32 streamed fit launched float64 "
+                             f"kernels: {wide}")
+    AtA64, Atb64, nrows64 = keep["result"]
+    if not nrows == nrows64 == checks64["nrows"] == a_plain.shape[0]:
+        raise AssertionError(f"nrows {nrows} != phase 5's {nrows64}")
+    ata_err = np.abs(AtA - AtA64).max() / np.abs(AtA64).max()
+    atb_err = np.abs(Atb - Atb64).max() / np.abs(Atb64).max()
+    if not (ata_err <= NORMAL_RTOL32 and atb_err <= NORMAL_RTOL32):
+        raise AssertionError(f"float32 normal equations differ from phase "
+                             f"5's: AtA {ata_err:.3e}, Atb {atb_err:.3e}")
+    cond = checks64["cond_weighted_a_all"]
+    beta_err = np.abs(x_ref - beta).max() / np.abs(beta).max()
+    beta_tol = 100 * cond * EPS32
+    if not (np.isfinite(x_ref).all() and beta_err <= beta_tol):
+        raise AssertionError(f"the float32 fit misses beta_true: "
+                             f"{beta_err:.3e} > {beta_tol:.3e} (cond "
+                             f"{cond:.3e})")
+    sums64 = keep["evaluate"](x_mae)
+    mae_err = max(abs(sums32[0] - sums64[0]) / sums64[0],
+                  abs(sums32[2] - sums64[2]) / sums64[2])
+    if not (sums32[1] == sums64[1] and sums32[3] == sums64[3]
+            and mae_err <= MAE_RTOL32):
+        raise AssertionError(f"float32 MAE sums {list(sums32)} differ from "
+                             f"phase 5's {list(sums64)}")
+    se, ne, sf, nf = evaluate(x_ref)
+    checks = {"nrows": nrows, "ata_rel_err": float(ata_err),
+              "atb_rel_err": float(atb_err), "cond_weighted_a_all": cond,
+              "beta_refined_rel_err": float(beta_err),
+              "beta_refined_tol": float(beta_tol),
+              "mae_sums_rel_err": float(mae_err),
+              "energy_mae": float(se / ne), "force_mae": float(sf / nf)}
+
+    # a steady pass at each type, in turns, by device time
+    passes = {"float64": [], "float32": []}
+    for tag, fn in (("float64", keep["one_pass"]), ("float32", one_pass),
+                    ("float32", one_pass), ("float64", keep["one_pass"])):
+        kernel_ms = profile_kernels(fn)
+        passes[tag].append(sum(kernel_ms.values()) if kernel_ms else None)
+        if tag == "float32" and kernel_ms:
+            split32 = kernel_ms
+    print(f"{card_line()}: steady streamed pass device ms (float64, "
+          f"float32, float32, float64 in turns): float64 "
+          f"{passes['float64']} float32 {passes['float32']}", flush=True)
+    read = [x for x in passes["float32"] if x is not None]
+    if read:
+        print("streamed pass (float32) device time by kernel (ms): "
+              + json.dumps({k: round(v, 4) for k, v in split32.items()}),
+              flush=True)
+        t["device_ms_per_pass"] = read[-1]
+        t["device_busy_share"] = read[-1] / 1e3 / t["steady_pass"]
+    checks["pass_device_ms"] = passes
+    W = calc.params.nb_base
+    per, a_pad, k_pad = max((r[2] for r in runs), key=lambda r: r[0] * r[1])
+    chunk = {}
+    for tag, item in (("float64", 8), ("float32", 4)):
+        chunk[tag] = {"disp": per * a_pad * k_pad * 3 * item,
+                      "dBdD": per * a_pad * W * k_pad * 3 * item}
+    print(f"a chunk of {per} x {a_pad} x {k_pad} (width {W}): bytes of "
+          f"disp and dB/dD " + json.dumps(chunk), flush=True)
+    checks["chunk_bytes"] = chunk
     return counts, t, checks
 
 
@@ -4175,8 +4599,18 @@ def shared_plans(cache):
     of a twojmax shares one plan; each build's seconds go to
     cache["seconds"][(twojmax, channels)]."""
     from fitsnap_tpu_torch.calculators import snap as csnap
+    from fitsnap_tpu_torch.ops import snap as osnap
 
     build = csnap.make_params
+    plan_build = osnap.build_snap_plan
+
+    def keep_dense(*args, **kw):
+        # the one-channel plans' dense term tables, K2's library call's
+        plan = plan_build(*args, **kw)
+        if not kw.get("chemflag"):
+            cache["z_dense", kw.get("twojmax", args[0] if args else None)] \
+                = plan.z_dense["groups"]
+        return plan
 
     def shared(sec, device):
         key = (tuple(repr(getattr(sec, k, None)) for k in PLAN_KEYS),
@@ -4190,10 +4624,12 @@ def shared_plans(cache):
         return cache[key]
 
     csnap.make_params = shared
+    osnap.build_snap_plan = keep_dense
     try:
         yield
     finally:
         csnap.make_params = build
+        osnap.build_snap_plan = plan_build
 
 
 def peak_gb():
@@ -4395,7 +4831,8 @@ def large_twojmax_phase(tmp, seed, device="cuda"):
                   f"{time.time() - t0:.2f} s; kernel inputs C={C} A={A} "
                   f"K={K} pairs={int(smask.sum().item())}", flush=True)
             torch.cuda.reset_peak_memory_stats()
-            descriptor_checks(rows, p, k1_in, f"tj{tj}", k2_library=False)
+            descriptor_checks(rows, p, k1_in, f"tj{tj}",
+                              k2_library=cache.pop(("z_dense", tj)))
             if tj != tj_kern:
                 grid_rows(rows, p, k1_in, args[1], f"@tj{tj}")
             if tj == tj_fit:
@@ -4508,6 +4945,9 @@ def main():
                 kernels += (kernel_checks(fs0.calculator, data, args.seed)
                             if kind == "snap" else
                             ace_kernel_checks(fs0.calculator, data, args.seed))
+                if kind == "snap":
+                    # phase 22's kernels, on phase 3's chunk at float32
+                    kernels += f32_kernel_checks(fs0.calculator, data)
                 del fs0, data
                 torch.cuda.empty_cache()
                 fs, *fitsnap = main_path(ini, a_plain, beta, "cuda", kind)
@@ -4526,6 +4966,11 @@ def main():
                                          else None)
                 paths[FITSNAP_PATH[kind]] = fitsnap
                 paths[STREAM_PATH[kind]] = streamed
+                if kind == "snap":
+                    # phase 22: the same streamed fit at float32
+                    paths["streamed_f32"] = streamed_f32_phase(
+                        fs, a_plain, beta, args.seed, "cuda", snap_keep,
+                        streamed[2])
                 del fs, a_plain
                 torch.cuda.empty_cache()
             # quadratic SNAP and chemflag: kernels, FitSnap, then the

@@ -94,6 +94,7 @@ def pair_masks(params, disp, jidx, mask, types, jtypes=None):
     are the types jidx indexes, where they are not `types` (a block of a
     config's atoms with global jidx)."""
     C, A, K = mask.shape
+    params = params.cast(disp.dtype)
     jtypes = types if jtypes is None else jtypes
     jelem = torch.gather(jtypes, 1, jidx.long().reshape(C, A * K))
     jelem = jelem.reshape(C, A, K)
@@ -107,8 +108,11 @@ def _batch_descriptors(params, disp, jidx, mask, types, natoms, plain,
                        jtypes=None):
     """B (C, A, W) and dB/dD (C, A, W, K, 3) of a batch, zero on padded
     atoms and on pairs outside the SNAP mask; with that mask (C, A, K) and
-    the real-atom mask (C, A) as floats.  `jtypes` as for `pair_masks`."""
+    the real-atom mask (C, A) as floats.  `jtypes` as for `pair_masks`.
+    Everything is at disp's type, float64 or float32 (the plan's tables
+    at that type, `SnapParams.cast`)."""
     C, A, K = mask.shape
+    params = params.cast(disp.dtype)
     jelem, smask = pair_masks(params, disp, jidx, mask, types, jtypes)
     real = (torch.arange(A, device=disp.device)[None, :]
             < natoms[:, None]).to(disp.dtype)
@@ -126,7 +130,8 @@ def snap_rows(params, numtypes, refspec, disp, jidx, mask, rev, types,
     """Energy columns, force/virial rows and reference values of a batch.
 
     The rows of `FitSnap` (`SnapCalculator.rows`) and of the streamed fit
-    (`parallel/fit.py`).  disp (C, A, K, 3) f64; jidx, mask (C, A, K); rev
+    (`parallel/fit.py`).  disp (C, A, K, 3) f64 or f32 (every row and
+    reference value at its type, the cell's too); jidx, mask (C, A, K); rev
     (C, A, R) int32 reverse neighbor table (flat slots i*K + k); types
     (C, A) int32; natoms (C,); cell (C, 3, 3); spins (C, A, 3) and charges
     (C, A) for the reference potential, or None (`ref_arrays`).  All on one

@@ -61,6 +61,8 @@ def parse_cmdline(arglist=None):
     parser.add_argument("--pscreen", action="store_true", default=False)
     parser.add_argument("--log", default=None)
     parser.add_argument("--screen2file", default=None)
+    parser.add_argument("--dtype", default=None,
+                        help="compute dtype override: float32|float64")
     parser.add_argument("--device", choices=("cuda", "cpu"), default=None,
                         help="device to compute on (default cuda; cpu only "
                              "when asked for)")

@@ -15,6 +15,7 @@ memory.
 """
 
 import math
+from functools import partial
 from types import SimpleNamespace
 
 import numpy as np
@@ -22,6 +23,9 @@ import torch
 
 from fitsnap_tpu_torch.kernels import launch as kl
 from fitsnap_tpu_torch.ops import ace as ops
+
+# float64 only: float32 names its ROADMAP.md queue item
+_check = partial(kl.check, queue=kl.QUEUE_ACE)
 
 _K13_WARPS = 8   # warps a block of csrc/ace_pair_basis.cu where they fit
 _K13_ENTRY = 9   # doubles of an (l, m) entry of its records (ENTRY)
@@ -270,10 +274,10 @@ def ace_pair_basis(disp, jelem, mask, ielem, plan):
     if kl.on_cpu(disp, jelem, mask, ielem):
         return ace_pair_basis_plain(disp, jelem, mask, ielem, plan)
     N, K = mask.shape
-    kl.check(disp, "disp", torch.float64, (N, K, 3))
-    kl.check(jelem, "jelem", torch.int32, (N, K))
-    kl.check(mask, "mask", torch.bool, (N, K))
-    kl.check(ielem, "ielem", torch.int32, (N,))
+    _check(disp, "disp", torch.float64, (N, K, 3))
+    _check(jelem, "jelem", torch.int32, (N, K))
+    _check(mask, "mask", torch.bool, (N, K))
+    _check(ielem, "ielem", torch.int32, (N,))
     nA = plan.nA
     warps, nw_log, rl, smem = k13_shape(plan, K)
     dev = disp.device
@@ -322,9 +326,9 @@ def ace_b_dbdd(A, Jp, ielem, plan):
         return ace_b_dbdd_plain(A, Jp, ielem, plan)
     N, K = Jp.shape[1], Jp.shape[2]
     nA, nl = plan.nA, len(plan.labels)
-    kl.check(A, "A", torch.float64, (N, 2 * nA))
-    kl.check(Jp, "Jp", torch.float64, (3, N, K, 2 * nA))
-    kl.check(ielem, "ielem", torch.int32, (N,))
+    _check(A, "A", torch.float64, (N, 2 * nA))
+    _check(Jp, "Jp", torch.float64, (3, N, K, 2 * nA))
+    _check(ielem, "ielem", torch.int32, (N,))
     dev = A.device
     tabs = _device_tables(plan, dev)
     mt, ntiles, seg = ace_b_dbdd_tiles(plan)

@@ -30,6 +30,12 @@
 // The callers keep IW <= 2 (128 registers a thread) and their shared
 // memory small, so that two blocks share an SM and one block's L build
 // overlaps the other's stream.
+//
+// At float32 (K3's float32 instantiation) the product runs on the CUDA
+// cores instead, in plain float32 FMAs: no tensor-core type keeps
+// float32's 24-bit mantissa (TF32 keeps 11), and the port keeps TF32 off.
+// The operands, the zero flags and the outputs are the same; the layout of
+// the work is not (`ag_run` of `AtomGemmT<float>` below).
 #pragma once
 
 #include "common.cuh"
@@ -63,23 +69,26 @@ __device__ __forceinline__ void cp_async16(double* dst, const double* src) {
                "l"(src));
 }
 
-struct AtomGemm {
-  const double* L;     // shared (16 IW rows, ldl), zero past inner and rows
+template <typename T>
+struct AtomGemmT {
+  const T* L;          // shared (16 IW rows, ldl), zero past inner and rows
   int ldl, rows;
   const unsigned char* nz;  // shared (IW, ldl / 8) or null: 0 where the 16
                             // rows of a row tile are zero over a k-step
-  const double* R;     // global: column (c, k) at R + c cstride + k inner
+  const T* R;          // global: column (c, k) at R + c cstride + k inner
   long long cstride;
   int inner;
   const int* slot;     // shared: neighbor of column n is slot[n / 3]; null:
                        // n / 3
   int ncols;           // columns: 3 x neighbors
-  double* out;         // global: out[r ldo + 3 k + c]
+  T* out;              // global: out[r ldo + 3 k + c]
   long long ldo;
-  double* stage;       // shared (AG_STAGE), 16-byte aligned
+  T* stage;            // shared (AG_STAGE), 16-byte aligned (float64 only)
 };
+using AtomGemm = AtomGemmT<double>;
 
-__device__ __forceinline__ int ag_neighbor(const AtomGemm& g, int n) {
+template <typename T>
+__device__ __forceinline__ int ag_neighbor(const AtomGemmT<T>& g, int n) {
   return g.slot ? g.slot[n / 3] : n / 3;
 }
 
@@ -187,6 +196,62 @@ __device__ void ag_run(const AtomGemm& g) {
         }
       }
     }
+  }
+  __syncthreads();
+}
+
+// The float32 product: one thread a column n (neighbor, direction), its
+// 16 IW outputs in registers, the column's row of R read by k-steps of 8
+// (one 32-byte sector a thread, through L1) and each L row's 8 values of
+// the k-step a shared-memory broadcast (every thread reads the same
+// address); a row tile whose rows are zero over a k-step skips it.  Each
+// output is one fixed chain of FMAs in inner order: the result repeats
+// bit for bit.  Bound on the H100 by the FP32 FMA rate over y's nonzero
+// blocks.  L must be complete (the first __syncthreads orders it); ends
+// with a __syncthreads.
+template <int IW>
+__device__ void ag_run(const AtomGemmT<float>& g) {
+  constexpr int MR = 16 * IW;
+  const int nks = (g.inner + 7) / 8;
+  __syncthreads();
+  for (int n = threadIdx.x; n < g.ncols; n += AG_THREADS) {
+    const float* src = g.R + (n % 3) * g.cstride +
+                       static_cast<long long>(ag_neighbor(g, n)) * g.inner;
+    float acc[MR];
+#pragma unroll
+    for (int r = 0; r < MR; ++r) acc[r] = 0.0f;
+    for (int ks = 0; ks < nks; ++ks) {
+      float b[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int i = ks * 8 + e;
+        b[e] = i < g.inner ? __ldg(src + i) : 0.0f;
+      }
+#pragma unroll
+      for (int it = 0; it < IW; ++it) {
+        if (g.nz && !g.nz[it * (g.ldl / 8) + ks]) continue;
+#pragma unroll
+        for (int r = 0; r < 16; ++r) {
+          const float4* lr = reinterpret_cast<const float4*>(
+              g.L + (16 * it + r) * g.ldl + ks * 8);
+          const float4 l0 = lr[0], l1 = lr[1];
+          float a = acc[16 * it + r];
+          a = fmaf(l0.x, b[0], a);
+          a = fmaf(l0.y, b[1], a);
+          a = fmaf(l0.z, b[2], a);
+          a = fmaf(l0.w, b[3], a);
+          a = fmaf(l1.x, b[4], a);
+          a = fmaf(l1.y, b[5], a);
+          a = fmaf(l1.z, b[6], a);
+          a = fmaf(l1.w, b[7], a);
+          acc[16 * it + r] = a;
+        }
+      }
+    }
+    const int o = 3 * ag_neighbor(g, n) + n % 3;
+#pragma unroll
+    for (int r = 0; r < MR; ++r)
+      if (r < g.rows) g.out[r * g.ldo + o] = acc[r];
   }
   __syncthreads();
 }

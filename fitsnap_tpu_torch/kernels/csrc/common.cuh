@@ -40,3 +40,45 @@ __device__ __forceinline__ void fs_cp_async4(int* dst, const int* src) {
 __device__ __forceinline__ void fs_cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
+
+// The working type of a kernel that has a float32 instantiation beside its
+// float64 one (the streamed linear SNAP fit, kernels/snap_kernels.py): each
+// step of an expression written with these is rounded to nearest on its
+// own, so nvcc never contracts it into an FMA (the TwoSum chains and the
+// squared distances of K8 are written so), at either type.
+__device__ __forceinline__ double fs_add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float fs_add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double fs_sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float fs_sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double fs_mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float fs_mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double fs_div_rn(double a, double b) {
+  return __ddiv_rn(a, b);
+}
+__device__ __forceinline__ float fs_div_rn(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+
+// Asynchronous copy of one element (4 or 8 bytes) from global to shared
+// memory, through L1.
+__device__ __forceinline__ void fs_cp_async_elem(double* dst,
+                                                 const double* src) {
+  fs_cp_async8(dst, src);
+}
+__device__ __forceinline__ void fs_cp_async_elem(float* dst,
+                                                 const float* src) {
+  fs_cp_async4(reinterpret_cast<int*>(dst),
+               reinterpret_cast<const int*>(src));
+}

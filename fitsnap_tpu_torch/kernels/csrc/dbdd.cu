@@ -47,39 +47,44 @@
 // accumulators carried across the slabs in inner order.
 // Padding slots carry J = 0 and come out exactly 0.  No atomics: the
 // output repeats bit for bit.
+// Working types: the whole-row shape also has a float32 instantiation
+// (`dbdd_f32`, the streamed linear SNAP fit at float32: float32 utot,
+// z-lists, J and tables, y rows of float32 in shared memory), whose product
+// is atom_gemm.cuh's float32 FMA path; the slab shape is float64 only.
 #include "atom_gemm.cuh"
 
 namespace {
 
+template <typename T>
 struct Args {
-  const double* ut;          // (N, nc 2U)
-  const double* zr;          // (N, nc^2, nz)
-  const double* zi;
-  const double* J;           // (3, N, K, 2U)
+  const T* ut;               // (N, nc 2U)
+  const T* zr;               // (N, nc^2, nz)
+  const T* zi;
+  const T* J;                // (3, N, K, 2U)
   const int* jelem;          // (N, K), read when nc > 1
   const int* tg_ptr;         // (ntrip + 1,) targets of triple t
   const int* tg_u;           // (nT,) u of each target
   const int* tg_src;         // (nT, 3) z index of each layer
-  const double* tg_fac;      // (nT, 3) factor of each layer (0: none)
+  const T* tg_fac;           // (nT, 3) factor of each layer (0: none)
   const int4* tg_slab;       // slab shape: (ntrip, nslab) target ranges
   const int* y_src;          // (3, ntrip, U): layer 0 forms B
-  const double* y_fac;
+  const T* y_fac;
   const int* blk_chan;       // (nc^3, 3) channel of each layer
   const int* blk_pair;       // (nc^3, 3) z channel pair it reads
-  const double* bzero;       // (W,)
+  const T* bzero;            // (W,)
   int W, ntrip, U, nz, nc, K, MT, ntiles;
   long long N;
 };
 
-template <int IW>
+template <int IW, typename T>
 __global__ void __launch_bounds__(AG_THREADS, 2)
-    dbdd_kernel(Args p, double* __restrict__ B, double* __restrict__ dBdD) {
-  extern __shared__ __align__(16) double smem[];
+    dbdd_kernel(Args<T> p, T* __restrict__ B, T* __restrict__ dBdD) {
+  extern __shared__ __align__(16) unsigned char smem_y[];
   const int two_u = 2 * p.U;
   const int ldl = ag_ldl(two_u);
   const int nks = ldl / 8;                   // k-steps of a y row
-  double* y = smem;                          // [MT][ldl]
-  double* stage = y + p.MT * ldl;            // [AG_STAGE]
+  T* y = reinterpret_cast<T*>(smem_y);       // [MT][ldl]
+  T* stage = y + p.MT * ldl;                 // [AG_STAGE]
   int* slot = reinterpret_cast<int*>(stage + AG_STAGE);  // [K]
   int* none = slot + p.K;                    // [K] neighbors of no channel
   int* count = none + p.K;                   // [2]
@@ -92,16 +97,17 @@ __global__ void __launch_bounds__(AG_THREADS, 2)
   const int w0 = (blockIdx.x % p.ntiles) * per;
   const int rows = min(per, p.W - w0);
   const long long zrow = static_cast<long long>(p.nc) * p.nc * p.nz;
-  const double* za_r = p.zr + a * zrow;
-  const double* za_i = p.zi + a * zrow;
+  const T* za_r = p.zr + a * zrow;
+  const T* za_i = p.zi + a * zrow;
   const int* jel = p.nc > 1 ? p.jelem + a * p.K : nullptr;
 
-  for (int idx = tid; idx < p.MT * ldl / 2; idx += AG_THREADS)
-    reinterpret_cast<double2*>(y)[idx] = make_double2(0.0, 0.0);
+  for (int idx = tid; idx < p.MT * ldl * static_cast<int>(sizeof(T)) / 16;
+       idx += AG_THREADS)
+    reinterpret_cast<uint4*>(y)[idx] = make_uint4(0u, 0u, 0u, 0u);
 
-  AtomGemm g{y, ldl, rows, nzf, p.J + a * p.K * two_u, p.N * p.K * two_u,
-             two_u, slot, 0, dBdD + (a * p.W + w0) * p.K * 3, 3LL * p.K,
-             stage};
+  AtomGemmT<T> g{y, ldl, rows, nzf, p.J + a * p.K * two_u,
+                 p.N * p.K * two_u, two_u, slot, 0,
+                 dBdD + (a * p.W + w0) * p.K * 3, 3LL * p.K, stage};
   for (int ch = 0; ch < p.nc; ++ch) {
     // 1.
     for (int idx = tid; idx < IW * nks; idx += AG_THREADS) nzf[idx] = 0;
@@ -135,18 +141,18 @@ __global__ void __launch_bounds__(AG_THREADS, 2)
       const int blk = w / p.ntrip;
       const int t = w % p.ntrip;
       if (ch == 0) {
-        const double* ua = p.ut + (a * p.nc + p.blk_chan[blk * 3]) * two_u;
+        const T* ua = p.ut + (a * p.nc + p.blk_chan[blk * 3]) * two_u;
         const long long zoff =
             static_cast<long long>(p.blk_pair[blk * 3]) * p.nz;
         // four u a lane at a time: their loads are in flight together
-        double s = 0.0;
+        T s = T(0);
         for (int u0 = lane; u0 < p.U; u0 += 128) {
-          double f[4];
+          T f[4];
           long long src[4];
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
             const int u = min(u0 + 32 * k, p.U - 1);
-            f[k] = u0 + 32 * k < p.U ? p.y_fac[t * p.U + u] : 0.0;
+            f[k] = u0 + 32 * k < p.U ? p.y_fac[t * p.U + u] : T(0);
             src[k] = zoff + p.y_src[t * p.U + u];
           }
 #pragma unroll
@@ -168,18 +174,18 @@ __global__ void __launch_bounds__(AG_THREADS, 2)
         chan[l] = p.blk_chan[blk * 3 + l];
         pair[l] = static_cast<long long>(p.blk_pair[blk * 3 + l]) * p.nz;
       }
-      double* yw = y + r * ldl;
+      T* yw = y + r * ldl;
       const int q1 = p.tg_ptr[t + 1];
       // two targets a lane at a time: their loads are in flight together
       for (int q0 = p.tg_ptr[t] + lane; q0 < q1; q0 += 64) {
-        double yr[2] = {0.0, 0.0}, yi[2] = {0.0, 0.0};
+        T yr[2] = {T(0), T(0)}, yi[2] = {T(0), T(0)};
 #pragma unroll
         for (int k = 0; k < 2; ++k) {
           const int q = min(q0 + 32 * k, q1 - 1);
 #pragma unroll
           for (int l = 0; l < 3; ++l) {
             if (chan[l] != ch) continue;
-            const double f = p.tg_fac[q * 3 + l];
+            const T f = p.tg_fac[q * 3 + l];
             const long long src = pair[l] + p.tg_src[q * 3 + l];
             yr[k] += f * za_r[src];
             yi[k] += f * za_i[src];
@@ -191,8 +197,8 @@ __global__ void __launch_bounds__(AG_THREADS, 2)
           const int u = p.tg_u[q0 + 32 * k];
           yw[u] = yr[k];
           yw[p.U + u] = yi[k];
-          if (yr[k] != 0.0) nzf[r / 16 * nks + u / 8] = 1;
-          if (yi[k] != 0.0) nzf[r / 16 * nks + (p.U + u) / 8] = 1;
+          if (yr[k] != T(0)) nzf[r / 16 * nks + u / 8] = 1;
+          if (yi[k] != T(0)) nzf[r / 16 * nks + (p.U + u) / 8] = 1;
         }
       }
     }
@@ -209,7 +215,7 @@ __global__ void __launch_bounds__(AG_THREADS, 2)
   for (int idx = tid; idx < rows * nbad * 3; idx += AG_THREADS) {
     const int r = idx / (nbad * 3);
     const int k = none[(idx / 3) % nbad];
-    dBdD[((a * p.W + w0 + r) * p.K + k) * 3 + idx % 3] = 0.0;
+    dBdD[((a * p.W + w0 + r) * p.K + k) * 3 + idx % 3] = T(0);
   }
 }
 
@@ -223,8 +229,9 @@ __global__ void __launch_bounds__(AG_THREADS, 2)
 // whole-row shape's bit for bit.
 template <int IW>
 __global__ void __launch_bounds__(AG_THREADS, 2)
-    dbdd_slab_kernel(Args p, int slab, double* __restrict__ B,
+    dbdd_slab_kernel(Args<double> p, int slab, double* __restrict__ B,
                      double* __restrict__ dBdD) {
+  using T = double;
   extern __shared__ __align__(16) double smem[];
   const int two_u = 2 * p.U;
   const int ldl = ag_ldl(slab);
@@ -280,17 +287,17 @@ __global__ void __launch_bounds__(AG_THREADS, 2)
         const int w = w0 + r;
         const int blk = w / p.ntrip;
         const int t = w % p.ntrip;
-        const double* ua = p.ut + (a * p.nc + p.blk_chan[blk * 3]) * two_u;
+        const T* ua = p.ut + (a * p.nc + p.blk_chan[blk * 3]) * two_u;
         const long long zoff =
             static_cast<long long>(p.blk_pair[blk * 3]) * p.nz;
-        double s = 0.0;
+        T s = T(0);
         for (int u0 = lane; u0 < p.U; u0 += 128) {
-          double f[4];
+          T f[4];
           long long src[4];
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
             const int u = min(u0 + 32 * k, p.U - 1);
-            f[k] = u0 + 32 * k < p.U ? p.y_fac[t * p.U + u] : 0.0;
+            f[k] = u0 + 32 * k < p.U ? p.y_fac[t * p.U + u] : T(0);
             src[k] = zoff + p.y_src[t * p.U + u];
           }
 #pragma unroll
@@ -363,7 +370,7 @@ __global__ void __launch_bounds__(AG_THREADS, 2)
 }
 
 template <int IW>
-int launch_slab(const Args& p, int slab, size_t smem, double* B,
+int launch_slab(const Args<double>& p, int slab, size_t smem, double* B,
                 double* dBdD, cudaStream_t stream) {
   const int err = fs_allow_smem(dbdd_slab_kernel<IW>, smem);
   if (err) return err;
@@ -373,15 +380,29 @@ int launch_slab(const Args& p, int slab, size_t smem, double* B,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int IW>
-int launch(const Args& p, size_t smem, double* B, double* dBdD,
+template <int IW, typename T>
+int launch(const Args<T>& p, size_t smem, T* B, T* dBdD,
            cudaStream_t stream) {
-  const int err = fs_allow_smem(dbdd_kernel<IW>, smem);
+  const int err = fs_allow_smem(dbdd_kernel<IW, T>, smem);
   if (err) return err;
   if (p.N > 0)
-    dbdd_kernel<IW><<<static_cast<unsigned>(p.N * p.ntiles), AG_THREADS,
-                      smem, stream>>>(p, B, dBdD);
+    dbdd_kernel<IW, T><<<static_cast<unsigned>(p.N * p.ntiles), AG_THREADS,
+                         smem, stream>>>(p, B, dBdD);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The whole-row shape at either type.
+template <typename T>
+int launch_rows(const Args<T>& p, int MT, T* B, T* dBdD,
+                cudaStream_t stream) {
+  const int ldl = ag_ldl(2 * p.U);
+  const size_t smem = sizeof(T) * (MT * ldl + AG_STAGE) +
+                      sizeof(int) * (2 * static_cast<size_t>(p.K) + 2) +
+                      MT / 16 * (ldl / 8);
+  if (smem > FS_SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
+  if (MT == 16) return launch<1, T>(p, smem, B, dBdD, stream);
+  if (MT == 32) return launch<2, T>(p, smem, B, dBdD, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -404,9 +425,10 @@ extern "C" int dbdd(const double* ut, const double* zr, const double* zi,
                     int U, int nz, int nc, int MT, int ntiles, int slab,
                     double* B, double* dBdD, void* stream) {
   const int W = nc * nc * nc * ntrip;
-  const Args p{ut, zr, zi, J, jelem, tg_ptr, tg_u, tg_src, tg_fac,
-               reinterpret_cast<const int4*>(tg_slab), y_src, y_fac, blk_chan,
-               blk_pair, bzero, W, ntrip, U, nz, nc, K, MT, ntiles, natoms};
+  const Args<double> p{ut, zr, zi, J, jelem, tg_ptr, tg_u, tg_src, tg_fac,
+                       reinterpret_cast<const int4*>(tg_slab), y_src, y_fac,
+                       blk_chan, blk_pair, bzero, W, ntrip, U, nz, nc, K,
+                       MT, ntiles, natoms};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (slab != 0) {
     if (slab < 0 || slab % (8 * AG_DEPTH * 2) != 0 || !tg_slab)
@@ -420,11 +442,25 @@ extern "C" int dbdd(const double* ut, const double* zr, const double* zi,
     if (MT == 32) return launch_slab<2>(p, slab, smem, B, dBdD, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int ldl = ag_ldl(2 * U);
-  const size_t smem = sizeof(double) * (MT * ldl + AG_STAGE) +
-                      sizeof(int) * (2 * static_cast<size_t>(K) + 2) +
-                      MT / 16 * (ldl / 8);
-  if (MT == 16) return launch<1>(p, smem, B, dBdD, s);
-  if (MT == 32) return launch<2>(p, smem, B, dBdD, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_rows(p, MT, B, dBdD, s);
+}
+
+// The float32 instantiation of the whole-row shape: `dbdd`'s arguments
+// with ut, zr, zi, J, tg_fac, y_fac, bzero, B and dBdD f32 (a float32
+// plan's tables), and no slab.
+extern "C" int dbdd_f32(const float* ut, const float* zr, const float* zi,
+                        const float* J, const int* jelem, const int* tg_ptr,
+                        const int* tg_u, const int* tg_src,
+                        const float* tg_fac, const int* tg_slab,
+                        const int* y_src, const float* y_fac,
+                        const int* blk_chan, const int* blk_pair,
+                        const float* bzero, long long natoms, int K,
+                        int ntrip, int U, int nz, int nc, int MT, int ntiles,
+                        int slab, float* B, float* dBdD, void* stream) {
+  if (slab != 0 || tg_slab) return static_cast<int>(cudaErrorInvalidValue);
+  const int W = nc * nc * nc * ntrip;
+  const Args<float> p{ut, zr, zi, J, jelem, tg_ptr, tg_u, tg_src, tg_fac,
+                      nullptr, y_src, y_fac, blk_chan, blk_pair, bzero, W,
+                      ntrip, U, nz, nc, K, MT, ntiles, natoms};
+  return launch_rows(p, MT, B, dBdD, static_cast<cudaStream_t>(stream));
 }

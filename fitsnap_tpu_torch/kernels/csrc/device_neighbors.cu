@@ -122,6 +122,21 @@
 // either kernel: the table is exact and deterministic.  Each block reads
 // its config's 5 B a slot once, from L2 for all but the first: the reads
 // are A K per (config, range), the ranges a config about 2 x SMs / C.
+//
+// Working types.  K8 has a float64 and a float32 instantiation (entry
+// points `device_neighbors` and `device_neighbors_f32`); K8r reads integers
+// only and has one.  At float32 the positions and shifts are the hi/lo
+// float32 pairs that `pack_batch_pos` splits from float64 on the host: the
+// candidates are selected on the hi parts alone (d2 in float32, each step
+// rounded on its own, as the plain version and the JAX function compute
+// it), and a kept slot's displacement is rebuilt from the hi and lo parts
+// by the same TwoSum chain in float32, so that it lands within an ulp or two
+// of the float64 displacement.  The grid, the sorted atoms (16 B each: x,
+// y, z and j's bits), the pair buffers and the bounding-box reductions
+// follow the positions' type.  A float32 grid's side has a wider margin over
+// the cutoff (`K8_BIN_SIDE_F32`, 2^-10 of it: 5e-3 A at a 5 A cutoff), since
+// float32 rounds the query points and the bin coordinates at about 2e-6 A
+// at 50 A coordinates, above the float64 side's margin.
 #include "common.cuh"
 
 #include <math_constants.h>
@@ -135,21 +150,70 @@ constexpr int SEL_MAX_WARPS = 16;            // atoms a block of the select
 constexpr int SEL_STEP = 4;                  // candidates a lane tests a step
 constexpr int BIN_ROUNDS = 4;                // atoms a thread, fused shape
 
+template <typename T>
+__device__ __forceinline__ T fs_inf() {
+  return static_cast<T>(CUDART_INF);
+}
+
 // A config's bin grid over its home atoms: origin (the box's low corner),
 // 1 / side, bins an axis (0: no real atom).
+template <typename T>
 struct Grid {
-  double o[3];
-  double inv;
+  T o[3];
+  T inv;
   int n[3];
   int pad;
 };
-static_assert(sizeof(Grid) == 48, "kernels/snap_kernels.py allocates 48 B");
+static_assert(sizeof(Grid<double>) <= 48 && sizeof(Grid<float>) <= 48,
+              "kernels/snap_kernels.py allocates 48 B a config");
 
-__device__ __forceinline__ void two_sum(double a, double b, double& s,
-                                        double& e) {
-  s = __dadd_rn(a, b);
-  const double bb = __dsub_rn(s, a);
-  e = __dadd_rn(__dsub_rn(a, __dsub_rn(s, bb)), __dsub_rn(b, bb));
+// A sorted atom: x, y, z of pos_hi and j's bits, as two double2 (float64)
+// or one float4 (float32).
+template <typename T>
+struct AtomRec;
+
+template <>
+struct AtomRec<double> {
+  using V = double2;
+  static constexpr int kPer = 2;             // V a record
+  __device__ static void put(V* s, int o, double x, double y, double z,
+                             int j) {
+    s[2 * o] = make_double2(x, y);
+    s[2 * o + 1] =
+        make_double2(z, __longlong_as_double(static_cast<long long>(j)));
+  }
+  __device__ static void get(const V* s, int o, double& x, double& y,
+                             double& z, int& j) {
+    const double2 a = s[2 * o], b = s[2 * o + 1];
+    x = a.x;
+    y = a.y;
+    z = b.x;
+    j = static_cast<int>(__double_as_longlong(b.y));
+  }
+};
+
+template <>
+struct AtomRec<float> {
+  using V = float4;
+  static constexpr int kPer = 1;
+  __device__ static void put(V* s, int o, float x, float y, float z, int j) {
+    s[o] = make_float4(x, y, z, __int_as_float(j));
+  }
+  __device__ static void get(const V* s, int o, float& x, float& y,
+                             float& z, int& j) {
+    const float4 a = s[o];
+    x = a.x;
+    y = a.y;
+    z = a.z;
+    j = __float_as_int(a.w);
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ void two_sum(T a, T b, T& s, T& e) {
+  s = fs_add_rn(a, b);
+  const T bb = fs_sub_rn(s, a);
+  e = fs_add_rn(fs_sub_rn(a, fs_sub_rn(s, bb)), fs_sub_rn(b, bb));
 }
 
 __device__ __forceinline__ unsigned lanes_below(int lane) {
@@ -158,31 +222,32 @@ __device__ __forceinline__ unsigned lanes_below(int lane) {
 
 // The grid of side s (inverse inv) over the box [lo, hi]; returns its
 // number of bins.
-__device__ double grid_of(const double* lo, const double* hi, double s,
-                          double inv, Grid& g) {
+template <typename T>
+__device__ double grid_of(const T* lo, const T* hi, T s, T inv, Grid<T>& g) {
   g.inv = inv;
   double prod = 1.0;
   for (int d = 0; d < 3; ++d) {
     g.o[d] = lo[d];
-    const double n = floor(__dmul_rn(__dsub_rn(hi[d], lo[d]), inv)) + 1.0;
-    g.n[d] = static_cast<int>(fmin(n, 1e9));
-    prod *= n;
+    const T n = floor(fs_mul_rn(fs_sub_rn(hi[d], lo[d]), inv)) + T(1);
+    g.n[d] = static_cast<int>(fmin(static_cast<double>(n), 1e9));
+    prod *= static_cast<double>(n);
   }
   return prod;
 }
 
-// The bin coordinate of x along axis d, as a double (floor of t).
-__device__ __forceinline__ double bin_coord(const Grid& g, int d, double x) {
-  return floor(__dmul_rn(__dsub_rn(x, g.o[d]), g.inv));
+// The bin coordinate of x along axis d, as a T (floor of t).
+template <typename T>
+__device__ __forceinline__ T bin_coord(const Grid<T>& g, int d, T x) {
+  return floor(fs_mul_rn(fs_sub_rn(x, g.o[d]), g.inv));
 }
 
 // The flat bin of a home atom, or -1 for a position that is not a number.
-__device__ __forceinline__ int atom_bin(const Grid& g, double x, double y,
-                                        double z) {
-  const double bx = bin_coord(g, 0, x), by = bin_coord(g, 1, y),
-               bz = bin_coord(g, 2, z);
-  if (!(bx >= 0.0 && bx < g.n[0] && by >= 0.0 && by < g.n[1] &&
-        bz >= 0.0 && bz < g.n[2])) {
+template <typename T>
+__device__ __forceinline__ int atom_bin(const Grid<T>& g, T x, T y, T z) {
+  const T bx = bin_coord(g, 0, x), by = bin_coord(g, 1, y),
+          bz = bin_coord(g, 2, z);
+  if (!(bx >= T(0) && bx < g.n[0] && by >= T(0) && by < g.n[1] &&
+        bz >= T(0) && bz < g.n[2])) {
     return -1;
   }
   return (static_cast<int>(bz) * g.n[1] + static_cast<int>(by)) * g.n[0] +
@@ -191,38 +256,37 @@ __device__ __forceinline__ int atom_bin(const Grid& g, double x, double y,
 
 // The bins [lo, lo + n) along axis d within one of query coordinate x, on
 // the grid; n <= 0 when none is.
-__device__ __forceinline__ void near_bins(const Grid& g, int d, double x,
+template <typename T>
+__device__ __forceinline__ void near_bins(const Grid<T>& g, int d, T x,
                                           int& lo, int& n) {
-  const double b = bin_coord(g, d, x);
-  const double l = fmax(b - 1.0, 0.0);
-  const double h = fmin(b + 1.0, static_cast<double>(g.n[d] - 1));
+  const T b = bin_coord(g, d, x);
+  const T l = fmax(b - T(1), T(0));
+  const T h = fmin(b + T(1), static_cast<T>(g.n[d] - 1));
   lo = static_cast<int>(l);
   n = l <= h ? static_cast<int>(h) - lo + 1 : 0;
 }
 
 // Bin config c's home atoms, block-wide: the grid (into g), the bins'
 // ranges bins[0..nb] (bins[b] the first of bin b, of nb <= H) and the
-// atoms sorted by bin, 32 bytes each: (x, y), (z, j) of pos_hi, j's bits in
-// the second double.  `bins`, `red` (6 x 32) and `wsum` (33) are shared
-// memory, and `cursor` (H ints, kRegs false); `sorted` shared or global.
-// With kRegs the block's atoms (at most BIN_ROUNDS a thread) keep their
-// bins and places in registers from the count to the placement; else a
-// second sweep places them through `cursor`.  The lo parts of the positions
-// are prefetched into L1 for the slots' displacements.
-template <bool kRegs>
-__device__ void bin_atoms(const double* __restrict__ ph,
-                          const double* __restrict__ pl, int na, int A,
-                          int H, double side, double inv_side, Grid& g,
-                          int* bins, int* cursor, double* red, int* wsum,
-                          double2* sorted) {
+// atoms sorted by bin (`AtomRec`).  `bins`, `red` (6 x 32) and `wsum` (33)
+// are shared memory, and `cursor` (H ints, kRegs false); `sorted` shared or
+// global.  With kRegs the block's atoms (at most BIN_ROUNDS a thread) keep
+// their bins and places in registers from the count to the placement; else
+// a second sweep places them through `cursor`.  The lo parts of the
+// positions are prefetched into L1 for the slots' displacements.
+template <typename T, bool kRegs>
+__device__ void bin_atoms(const T* __restrict__ ph, const T* __restrict__ pl,
+                          int na, int A, int H, T side, T inv_side,
+                          Grid<T>& g, int* bins, int* cursor, T* red,
+                          int* wsum, typename AtomRec<T>::V* sorted) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nw = blockDim.x >> 5;
+  const T inf = fs_inf<T>();
   // the home atoms' bounding box (the loads of every slot are issued with
   // that of natoms; padded slots are masked after)
-  double b[6] = {CUDART_INF, CUDART_INF, CUDART_INF,
-                 -CUDART_INF, -CUDART_INF, -CUDART_INF};
+  T b[6] = {inf, inf, inf, -inf, -inf, -inf};
   for (int j = tid; j < A; j += blockDim.x) {
-    double x[3];
+    T x[3];
     for (int d = 0; d < 3; ++d) x[d] = ph[j * 3 + d];
     asm volatile("prefetch.global.L1 [%0];" ::"l"(pl + j * 3));
     if (j < na) {
@@ -244,8 +308,7 @@ __device__ void bin_atoms(const double* __restrict__ ph,
   __syncthreads();
   if (warp == 0) {
     for (int d = 0; d < 6; ++d)
-      b[d] = lane < nw ? red[d * 32 + lane] : (d < 3 ? CUDART_INF
-                                                     : -CUDART_INF);
+      b[d] = lane < nw ? red[d * 32 + lane] : (d < 3 ? inf : -inf);
     for (int off = 16; off > 0; off /= 2) {
       for (int d = 0; d < 3; ++d) {
         b[d] = fmin(b[d], __shfl_xor_sync(0xffffffffu, b[d], off));
@@ -254,22 +317,21 @@ __device__ void bin_atoms(const double* __restrict__ ph,
       }
     }
     if (lane == 0) {
-      Grid gg;
+      Grid<T> gg;
       if (na > 0) {
         if (grid_of(b, b + 3, side, inv_side, gg) > static_cast<double>(H)) {
           // a sparse config: the side that fits the grid in H bins
           int m = 4;
           while ((m + 1) * (m + 1) * (m + 1) <= H) ++m;
-          double ext = 0.0;
+          T ext = T(0);
           for (int d = 0; d < 3; ++d)
-            ext = fmax(ext, __dsub_rn(b[3 + d], b[d]));
-          const double s =
-              fmax(side, __ddiv_rn(ext, static_cast<double>(m) - 1.5));
-          grid_of(b, b + 3, s, __ddiv_rn(1.0, s), gg);
+            ext = fmax(ext, fs_sub_rn(b[3 + d], b[d]));
+          const T s = fmax(side, fs_div_rn(ext, static_cast<T>(m) - T(1.5)));
+          grid_of(b, b + 3, s, fs_div_rn(T(1), s), gg);
         }
       } else {
-        gg.o[0] = gg.o[1] = gg.o[2] = 0.0;
-        gg.inv = 0.0;
+        gg.o[0] = gg.o[1] = gg.o[2] = T(0);
+        gg.inv = T(0);
         gg.n[0] = gg.n[1] = gg.n[2] = 0;
       }
       gg.pad = 0;
@@ -281,12 +343,12 @@ __device__ void bin_atoms(const double* __restrict__ ph,
   // count each bin's atoms (bins[b + 1]), one atomic per bin a warp; its
   // old value is the warp's place within the bin
   int rbin[BIN_ROUNDS], rat[BIN_ROUNDS];
-  double rx[BIN_ROUNDS], ry[BIN_ROUNDS], rz[BIN_ROUNDS];
+  T rx[BIN_ROUNDS], ry[BIN_ROUNDS], rz[BIN_ROUNDS];
 #pragma unroll
   for (int r = 0; r < BIN_ROUNDS; ++r) rbin[r] = -1;
   for (int j0 = warp * 32, r = 0; j0 < na; j0 += blockDim.x, ++r) {
     const int j = j0 + lane;
-    double x = 0.0, y = 0.0, z = 0.0;
+    T x = T(0), y = T(0), z = T(0);
     int bin = -1;
     if (j < na) {
       x = ph[j * 3];
@@ -373,9 +435,7 @@ __device__ void bin_atoms(const double* __restrict__ ph,
       if (rbin[r] >= 0) {
         const int o = bins[rbin[r]] + rat[r];
         const int j = r * blockDim.x + warp * 32 + lane;
-        sorted[2 * o] = make_double2(rx[r], ry[r]);
-        sorted[2 * o + 1] = make_double2(
-            rz[r], __longlong_as_double(static_cast<long long>(j)));
+        AtomRec<T>::put(sorted, o, rx[r], ry[r], rz[r], j);
       }
     }
   } else {
@@ -384,7 +444,7 @@ __device__ void bin_atoms(const double* __restrict__ ph,
     for (int j0 = warp * 32; j0 < na; j0 += blockDim.x) {
       const int j = j0 + lane;
       int bin = -1;
-      double x = 0.0, y = 0.0, z = 0.0;
+      T x = T(0), y = T(0), z = T(0);
       if (j < na) {
         x = ph[j * 3];
         y = ph[j * 3 + 1];
@@ -399,27 +459,25 @@ __device__ void bin_atoms(const double* __restrict__ ph,
       base = __shfl_sync(0xffffffffu, base, leader);
       if (bin >= 0) {
         const int o = base + __popc(peers & lanes_below(lane));
-        sorted[2 * o] = make_double2(x, y);
-        sorted[2 * o + 1] = make_double2(
-            z, __longlong_as_double(static_cast<long long>(j)));
+        AtomRec<T>::put(sorted, o, x, y, z, j);
       }
     }
   }
   __syncthreads();
 }
 
-__device__ __forceinline__ bool key_less(double da, int fa, double db,
-                                         int fb) {
+template <typename T>
+__device__ __forceinline__ bool key_less(T da, int fa, T db, int fb) {
   return da < db || (da == db && fa < fb);
 }
 
 // The rank of each of the buffer's n pairs in (d2, f) order, for lane's
 // pairs u = lane, lane + 32, ...; calls out(rank, d2, f).
-template <typename Out>
-__device__ __forceinline__ void rank_pairs(const double* bd, const int* bf,
-                                           int n, int lane, Out out) {
+template <typename T, typename Out>
+__device__ __forceinline__ void rank_pairs(const T* bd, const int* bf, int n,
+                                           int lane, Out out) {
   for (int u = lane; u < n; u += 32) {
-    const double du = bd[u];
+    const T du = bd[u];
     const int fu = bf[u];
     int rank = 0;
 #pragma unroll 4
@@ -430,9 +488,10 @@ __device__ __forceinline__ void rank_pairs(const double* bd, const int* bf,
 
 // The state of a warp's buffer: its pairs, and the bound (tau_d, tau_f)
 // below which a pair is kept (no bound until the first pruning).
+template <typename T>
 struct Kept {
   int n;
-  double tau_d;
+  T tau_d;
   int tau_f;
 };
 
@@ -440,13 +499,14 @@ struct Kept {
 // smallest, the largest pair kept.  Out of line (it runs only when the
 // buffer overflows), and by value, so that the caller's state stays in
 // registers.
-__device__ __noinline__ Kept prune(double* bd, int* bf, int n, int K,
-                                   int lane) {
+template <typename T>
+__device__ __noinline__ Kept<T> prune(T* bd, int* bf, int n, int K,
+                                      int lane) {
   __syncwarp();
-  double td = CUDART_INF;
+  T td = fs_inf<T>();
   int tf = 0x7fffffff;
   bool found = false;
-  rank_pairs(bd, bf, n, lane, [&](int rank, double d, int f) {
+  rank_pairs(bd, bf, n, lane, [&](int rank, T d, int f) {
     if (rank == K - 1) {
       td = d;
       tf = f;
@@ -455,14 +515,14 @@ __device__ __noinline__ Kept prune(double* bd, int* bf, int n, int K,
   });
   __syncwarp();
   const int src = __ffs(__ballot_sync(0xffffffffu, found)) - 1;
-  const double tau_d = __shfl_sync(0xffffffffu, td, src);
+  const T tau_d = __shfl_sync(0xffffffffu, td, src);
   const int tau_f = __shfl_sync(0xffffffffu, tf, src);
   // stable compaction: a pair moves to a place at or below its own, and
   // every lane reads its pair before any lane writes
   int w = 0;
   for (int base = 0; base < n; base += 32) {
     const int u = base + lane;
-    double d = 0.0;
+    T d = T(0);
     int f = 0;
     if (u < n) {
       d = bd[u];
@@ -497,25 +557,27 @@ __device__ __forceinline__ int last_lane_le(int v, int x) {
 // config's grid, bin ranges and sorted atoms, through a buffer of BUF
 // (d2, f) pairs (bd, bf) and a bitmap of the valid indices below K + m
 // (bits, (2 K + 31) / 32 words).
-__device__ void select_atom(const double* __restrict__ ph,
-                            const double* __restrict__ pl,
-                            const double* __restrict__ sh,
-                            const double* __restrict__ sl,
-                            const double* svs, const unsigned char* homes,
+template <typename T>
+__device__ void select_atom(const T* __restrict__ ph,
+                            const T* __restrict__ pl,
+                            const T* __restrict__ sh,
+                            const T* __restrict__ sl,
+                            const T* svs, const unsigned char* homes,
                             int na, int i,
-                            int A, int S, int K, double cut2, const Grid& g,
-                            const int* start, const double2* sorted,
-                            double* bd, int* bf, int BUF, unsigned* bits,
-                            long long out0, double* __restrict__ disp,
+                            int A, int S, int K, T cut2, const Grid<T>& g,
+                            const int* start,
+                            const typename AtomRec<T>::V* sorted,
+                            T* bd, int* bf, int BUF, unsigned* bits,
+                            long long out0, T* __restrict__ disp,
                             int* __restrict__ jidx,
                             unsigned char* __restrict__ mask) {
   const int lane = threadIdx.x & 31;
   int m = 0;                                 // valid candidates
   int n = 0;                                 // pairs in the buffer
   if (i < na) {
-    const double xi = ph[i * 3], yi = ph[i * 3 + 1], zi = ph[i * 3 + 2];
+    const T xi = ph[i * 3], yi = ph[i * 3 + 1], zi = ph[i * 3 + 2];
     const int nx = g.n[0], ny = g.n[1];
-    double tau_d = CUDART_INF;               // keep pairs below (tau_d, tau_f)
+    T tau_d = fs_inf<T>();                   // keep pairs below (tau_d, tau_f)
     int tau_f = 0x7fffffff;
     for (int s0 = 0; s0 < S; s0 += 32) {
       // lane's shift s: the bins within one of the query point xi - svec_s
@@ -524,15 +586,14 @@ __device__ void select_atom(const double* __restrict__ ph,
       const int s = s0 + lane;
       int x0 = 0, xn = 0, y0 = 0, yn = 0, z0 = 0, zn = 0, home = 0;
       if (s < S) {
-        const double vx = svs[s * 3], vy = svs[s * 3 + 1],
-                     vz = svs[s * 3 + 2];
-        near_bins(g, 0, __dsub_rn(xi, vx), x0, xn);
-        near_bins(g, 1, __dsub_rn(yi, vy), y0, yn);
-        near_bins(g, 2, __dsub_rn(zi, vz), z0, zn);
+        const T vx = svs[s * 3], vy = svs[s * 3 + 1], vz = svs[s * 3 + 2];
+        near_bins(g, 0, fs_sub_rn(xi, vx), x0, xn);
+        near_bins(g, 1, fs_sub_rn(yi, vy), y0, yn);
+        near_bins(g, 2, fs_sub_rn(zi, vz), z0, zn);
         home = homes ? homes[s]
-                     : vx == 0.0 && vy == 0.0 && vz == 0.0 &&
-                           sl[s * 3] == 0.0 && sl[s * 3 + 1] == 0.0 &&
-                           sl[s * 3 + 2] == 0.0;
+                     : vx == T(0) && vy == T(0) && vz == T(0) &&
+                           sl[s * 3] == T(0) && sl[s * 3 + 1] == T(0) &&
+                           sl[s * 3 + 2] == T(0);
       }
       const int rows = xn > 0 && yn > 0 && zn > 0 ? yn * zn : 0;
       int rincl = rows;
@@ -595,29 +656,29 @@ __device__ void select_atom(const double* __restrict__ ph,
                         na - 1);
             tag[q] = __shfl_sync(0xffffffffu, itag, I[q]);
           }
-          double2 pa[SEL_STEP], pb[SEL_STEP];
-          double vx[SEL_STEP], vy[SEL_STEP], vz[SEL_STEP];
+          T ax[SEL_STEP], ay[SEL_STEP], az[SEL_STEP];
+          int aj[SEL_STEP];
+          T vx[SEL_STEP], vy[SEL_STEP], vz[SEL_STEP];
 #pragma unroll
           for (int q = 0; q < SEL_STEP; ++q) {
-            pa[q] = sorted[2 * at[q]];
-            pb[q] = sorted[2 * at[q] + 1];
+            AtomRec<T>::get(sorted, at[q], ax[q], ay[q], az[q], aj[q]);
             const int sq = tag[q] >> 1;
             vx[q] = svs[sq * 3];
             vy[q] = svs[sq * 3 + 1];
             vz[q] = svs[sq * 3 + 2];
           }
-          double d2[SEL_STEP];
+          T d2[SEL_STEP];
           int f[SEL_STEP];
           bool ok[SEL_STEP];
 #pragma unroll
           for (int q = 0; q < SEL_STEP; ++q) {
             // d2 of pos_j + svec_s - pos_i, rounded as the plain version
-            const double dx = __dsub_rn(__dadd_rn(pa[q].x, vx[q]), xi);
-            const double dy = __dsub_rn(__dadd_rn(pa[q].y, vy[q]), yi);
-            const double dz = __dsub_rn(__dadd_rn(pb[q].x, vz[q]), zi);
-            d2[q] = __dadd_rn(__dadd_rn(__dmul_rn(dx, dx), __dmul_rn(dy, dy)),
-                              __dmul_rn(dz, dz));
-            const int j = static_cast<int>(__double_as_longlong(pb[q].y));
+            const T dx = fs_sub_rn(fs_add_rn(ax[q], vx[q]), xi);
+            const T dy = fs_sub_rn(fs_add_rn(ay[q], vy[q]), yi);
+            const T dz = fs_sub_rn(fs_add_rn(az[q], vz[q]), zi);
+            d2[q] = fs_add_rn(fs_add_rn(fs_mul_rn(dx, dx), fs_mul_rn(dy, dy)),
+                              fs_mul_rn(dz, dz));
+            const int j = aj[q];
             f[q] = (tag[q] >> 1) * A + j;
             ok[q] = c0 + q * 32 + lane < ncand && d2[q] < cut2 &&
                     !((tag[q] & 1) && j == i);
@@ -648,7 +709,7 @@ __device__ void select_atom(const double* __restrict__ ph,
               bool keep = ok[q] && key_less(d2[q], f[q], tau_d, tau_f);
               unsigned k1 = __ballot_sync(0xffffffffu, keep);
               if (n + __popc(k1) > BUF) {
-                const Kept kp = prune(bd, bf, n, K, lane);
+                const Kept<T> kp = prune(bd, bf, n, K, lane);
                 n = kp.n;
                 tau_d = kp.tau_d;
                 tau_f = kp.tau_f;
@@ -671,18 +732,18 @@ __device__ void select_atom(const double* __restrict__ ph,
       m += __shfl_xor_sync(0xffffffffu, m, off);
     __syncwarp();
     // valid slots: a pair's slot is its rank in (d2, f) order
-    rank_pairs(bd, bf, n, lane, [&](int rank, double, int f) {
+    rank_pairs(bd, bf, n, lane, [&](int rank, T, int f) {
       if (rank >= K) return;
       const int s = f / A;
       const int j = f - s * A;
       const long long o = out0 + rank;
       for (int x = 0; x < 3; ++x) {
-        double s1, e1, s2, e2;
+        T s1, e1, s2, e2;
         two_sum(sh[s * 3 + x], ph[j * 3 + x], s1, e1);
         two_sum(s1, -ph[i * 3 + x], s2, e2);
-        const double lo = __dsub_rn(__dadd_rn(sl[s * 3 + x], pl[j * 3 + x]),
-                                    pl[i * 3 + x]);
-        disp[o * 3 + x] = __dadd_rn(s2, __dadd_rn(__dadd_rn(e1, e2), lo));
+        const T lo = fs_sub_rn(fs_add_rn(sl[s * 3 + x], pl[j * 3 + x]),
+                               pl[i * 3 + x]);
+        disp[o * 3 + x] = fs_add_rn(s2, fs_add_rn(fs_add_rn(e1, e2), lo));
       }
       jidx[o] = j;
       mask[o] = 1;
@@ -730,9 +791,9 @@ __device__ void select_atom(const double* __restrict__ ph,
         if (((bad_bits >> lane) & 1u) && m + r < K) {
           const long long o = out0 + m + r;
           const int f = (w0 + w) * 32 + lane;
-          disp[o * 3] = 1.0;
-          disp[o * 3 + 1] = 0.0;
-          disp[o * 3 + 2] = 0.0;
+          disp[o * 3] = T(1);
+          disp[o * 3 + 1] = T(0);
+          disp[o * 3 + 2] = T(0);
           jidx[o] = f % A;
           mask[o] = 0;
         }
@@ -743,13 +804,15 @@ __device__ void select_atom(const double* __restrict__ ph,
 }
 
 // The atoms' arrays of config c.
+template <typename T>
 struct ConfigPtrs {
-  const double *ph, *pl, *sh, *sl;
+  const T *ph, *pl, *sh, *sl;
 };
 
-__device__ __forceinline__ ConfigPtrs config_ptrs(
-    const double* pos_hi, const double* pos_lo, const double* svec_hi,
-    const double* svec_lo, long long c, int A, int S) {
+template <typename T>
+__device__ __forceinline__ ConfigPtrs<T> config_ptrs(
+    const T* pos_hi, const T* pos_lo, const T* svec_hi, const T* svec_lo,
+    long long c, int A, int S) {
   return {pos_hi + c * A * 3, pos_lo + c * A * 3, svec_hi + c * S * 3,
           svec_lo + c * S * 3};
 }
@@ -763,19 +826,22 @@ __host__ __device__ __forceinline__ int local_words(int K) {
 // The warp's pair buffer and bitmap: shared memory (gbuf_d null; `smem`
 // holds the warps' d2, then their f, then their bitmaps), else atom ci's in
 // global scratch.
+template <typename T>
 struct Buffers {
-  double* bd;
+  T* bd;
   int* bf;
   unsigned* bits;
 };
 
-__device__ __forceinline__ Buffers buffers(double* smem, double* gbuf_d,
-                                           int* gbuf_f, unsigned* gbits,
-                                           int BUF, int K, long long ci) {
+template <typename T>
+__device__ __forceinline__ Buffers<T> buffers(unsigned char* smem, T* gbuf_d,
+                                              int* gbuf_f, unsigned* gbits,
+                                              int BUF, int K, long long ci) {
   const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
   if (gbuf_d == nullptr) {
-    int* f = reinterpret_cast<int*>(smem + nw * BUF);
-    return {smem + warp * BUF, f + warp * BUF,
+    T* d = reinterpret_cast<T*>(smem);
+    int* f = reinterpret_cast<int*>(d + nw * BUF);
+    return {d + warp * BUF, f + warp * BUF,
             reinterpret_cast<unsigned*>(f + nw * BUF) +
                 warp * local_words(K)};
   }
@@ -785,61 +851,66 @@ __device__ __forceinline__ Buffers buffers(double* smem, double* gbuf_d,
 
 // The dynamic shared bytes of nw warps' pair buffers and bitmaps (0 where
 // they are in global scratch); a multiple of 16 (BUF % 4 == 0).
+template <typename T>
 __host__ __device__ __forceinline__ size_t local_bytes(bool local, int nw,
                                                        int BUF, int K) {
-  return local ? static_cast<size_t>(nw) * (BUF * 12 + local_words(K) * 4)
+  return local ? static_cast<size_t>(nw) *
+                     (BUF * (sizeof(T) + 4) + local_words(K) * 4)
                : 0;
 }
 
 // The fused shape: block (config c, one atom a warp) bins c's home atoms
 // into shared memory, then its warps select one atom each.  Dynamic shared
 // memory: the pair buffers and bitmaps (`local_bytes`; none when gbuf_d
-// holds them), the sorted atoms (A x 32 bytes), the bin ranges (H + 1), the
-// shifts' hi parts and home flags (S x 25 bytes).
+// holds them), the sorted atoms (A x 4 T), the bin ranges (H + 1), the
+// shifts' hi parts and home flags (S x (3 T + 1) bytes).
+template <typename T>
 __global__ void __launch_bounds__(SEL_MAX_WARPS * 32)
-neighbors_fused_kernel(const double* __restrict__ pos_hi,
-                       const double* __restrict__ pos_lo,
-                       const double* __restrict__ svec_hi,
-                       const double* __restrict__ svec_lo,
+neighbors_fused_kernel(const T* __restrict__ pos_hi,
+                       const T* __restrict__ pos_lo,
+                       const T* __restrict__ svec_hi,
+                       const T* __restrict__ svec_lo,
                        const int* __restrict__ natoms, int A, int S, int K,
-                       int H, double cut2, double side, double inv_side,
-                       double* __restrict__ gbuf_d,
+                       int H, T cut2, T side, T inv_side,
+                       T* __restrict__ gbuf_d,
                        int* __restrict__ gbuf_f, unsigned* __restrict__ gbits,
-                       int BUF, double* __restrict__ disp,
+                       int BUF, T* __restrict__ disp,
                        int* __restrict__ jidx,
                        unsigned char* __restrict__ mask) {
-  extern __shared__ double smem[];
-  __shared__ double red[6 * 32];
+  using V = typename AtomRec<T>::V;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ T red[6 * 32];
   __shared__ int wsum[33];
-  __shared__ Grid g;
+  __shared__ Grid<T> g;
   const int nw = blockDim.x >> 5;
   const int per_cfg = (A + nw - 1) / nw;
   const long long c = blockIdx.x / per_cfg;
   const int i = (blockIdx.x - c * per_cfg) * nw + (threadIdx.x >> 5);
-  const ConfigPtrs p = config_ptrs(pos_hi, pos_lo, svec_hi, svec_lo, c, A, S);
+  const ConfigPtrs<T> p =
+      config_ptrs(pos_hi, pos_lo, svec_hi, svec_lo, c, A, S);
   const int na = natoms[c];
-  double2* sorted = reinterpret_cast<double2*>(
-      smem + local_bytes(gbuf_d == nullptr, nw, BUF, K) / 8);
-  int* bins = reinterpret_cast<int*>(sorted + 2 * A);
+  V* sorted = reinterpret_cast<V*>(
+      smem + local_bytes<T>(gbuf_d == nullptr, nw, BUF, K));
+  int* bins = reinterpret_cast<int*>(sorted + AtomRec<T>::kPer * A);
   // the shifts' hi parts and home flags
-  double* svs = reinterpret_cast<double*>(bins + H + 1 + (H + 1) % 2);
+  T* svs = reinterpret_cast<T*>(bins + H + 1 + (H + 1) % 2);
   unsigned char* homes = reinterpret_cast<unsigned char*>(svs + 3 * S);
   {
     for (int s = threadIdx.x; s < S; s += blockDim.x) {
-      const double vx = p.sh[s * 3], vy = p.sh[s * 3 + 1],
-                   vz = p.sh[s * 3 + 2];
+      const T vx = p.sh[s * 3], vy = p.sh[s * 3 + 1], vz = p.sh[s * 3 + 2];
       svs[s * 3] = vx;
       svs[s * 3 + 1] = vy;
       svs[s * 3 + 2] = vz;
-      homes[s] = vx == 0.0 && vy == 0.0 && vz == 0.0 && p.sl[s * 3] == 0.0 &&
-                 p.sl[s * 3 + 1] == 0.0 && p.sl[s * 3 + 2] == 0.0;
+      homes[s] = vx == T(0) && vy == T(0) && vz == T(0) &&
+                 p.sl[s * 3] == T(0) && p.sl[s * 3 + 1] == T(0) &&
+                 p.sl[s * 3 + 2] == T(0);
     }
   }
-  bin_atoms<true>(p.ph, p.pl, na, A, H, side, inv_side, g, bins, nullptr,
-                  red, wsum, sorted);
+  bin_atoms<T, true>(p.ph, p.pl, na, A, H, side, inv_side, g, bins, nullptr,
+                     red, wsum, sorted);
   if (i >= A) return;                        // the whole warp
   const long long ci = c * A + i;
-  const Buffers bu = buffers(smem, gbuf_d, gbuf_f, gbits, BUF, K, ci);
+  const Buffers<T> bu = buffers(smem, gbuf_d, gbuf_f, gbits, BUF, K, ci);
   select_atom(p.ph, p.pl, p.sh, p.sl, svs, homes, na, i, A, S, K, cut2, g,
               bins, sorted, bu.bd, bu.bf, BUF, bu.bits, ci * K, disp, jidx,
               mask);
@@ -847,55 +918,57 @@ neighbors_fused_kernel(const double* __restrict__ pos_hi,
 
 // The split shape (configs too large for the fused shape's shared memory):
 // the bin pass, one block per config, into global scratch (grids, bins
-// (C, H + 1), sorted (C, A, 32 bytes)), then the select pass, one warp per
-// atom.
+// (C, H + 1), sorted (C, A, 4 T)), then the select pass, one warp per atom.
+template <typename T>
 __global__ void __launch_bounds__(BIN_THREADS)
-neighbors_bin_kernel(const double* __restrict__ pos_hi,
-                     const double* __restrict__ pos_lo,
+neighbors_bin_kernel(const T* __restrict__ pos_hi,
+                     const T* __restrict__ pos_lo,
                      const int* __restrict__ natoms, int A, int H,
-                     double side, double inv_side, Grid* __restrict__ grids,
+                     T side, T inv_side, Grid<T>* __restrict__ grids,
                      int* __restrict__ bins_all,
-                     double2* __restrict__ sorted_all) {
+                     typename AtomRec<T>::V* __restrict__ sorted_all) {
   extern __shared__ int bins[];              // [H + 1], then cursor [H]
-  __shared__ double red[6 * 32];
+  __shared__ T red[6 * 32];
   __shared__ int wsum[33];
-  __shared__ Grid g;
+  __shared__ Grid<T> g;
   const long long c = blockIdx.x;
-  bin_atoms<false>(pos_hi + c * A * 3, pos_lo + c * A * 3, natoms[c], A, H,
-                   side, inv_side, g, bins, bins + H + 1, red, wsum,
-                   sorted_all + c * A * 2);
+  bin_atoms<T, false>(pos_hi + c * A * 3, pos_lo + c * A * 3, natoms[c], A,
+                      H, side, inv_side, g, bins, bins + H + 1, red, wsum,
+                      sorted_all + c * A * AtomRec<T>::kPer);
   int* out = bins_all + c * (H + 1);
   for (int h = threadIdx.x; h <= H; h += blockDim.x) out[h] = bins[h];
   if (threadIdx.x == 0) grids[c] = g;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(SEL_MAX_WARPS * 32)
-neighbors_select_kernel(const double* __restrict__ pos_hi,
-                        const double* __restrict__ pos_lo,
-                        const double* __restrict__ svec_hi,
-                        const double* __restrict__ svec_lo,
+neighbors_select_kernel(const T* __restrict__ pos_hi,
+                        const T* __restrict__ pos_lo,
+                        const T* __restrict__ svec_hi,
+                        const T* __restrict__ svec_lo,
                         const int* __restrict__ natoms, long long atoms,
-                        int A, int S, int K, int H, double cut2,
-                        const Grid* __restrict__ grids,
+                        int A, int S, int K, int H, T cut2,
+                        const Grid<T>* __restrict__ grids,
                         const int* __restrict__ bins_all,
-                        const double2* __restrict__ sorted_all,
-                        double* __restrict__ gbuf_d, int* __restrict__ gbuf_f,
+                        const typename AtomRec<T>::V* __restrict__ sorted_all,
+                        T* __restrict__ gbuf_d, int* __restrict__ gbuf_f,
                         unsigned* __restrict__ gbits, int BUF,
-                        double* __restrict__ disp, int* __restrict__ jidx,
+                        T* __restrict__ disp, int* __restrict__ jidx,
                         unsigned char* __restrict__ mask) {
-  extern __shared__ double smem[];           // `local_bytes`
+  extern __shared__ __align__(16) unsigned char smem[];   // `local_bytes`
   const long long ci = static_cast<long long>(blockIdx.x) *
                            (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (ci >= atoms) return;                   // the whole warp
   const long long c = ci / A;
   const int i = static_cast<int>(ci - c * A);
-  const ConfigPtrs p = config_ptrs(pos_hi, pos_lo, svec_hi, svec_lo, c, A, S);
-  const Buffers bu = buffers(smem, gbuf_d, gbuf_f, gbits, BUF, K, ci);
-  const Grid g = grids[c];
+  const ConfigPtrs<T> p =
+      config_ptrs(pos_hi, pos_lo, svec_hi, svec_lo, c, A, S);
+  const Buffers<T> bu = buffers(smem, gbuf_d, gbuf_f, gbits, BUF, K, ci);
+  const Grid<T> g = grids[c];
   select_atom(p.ph, p.pl, p.sh, p.sl, p.sh, nullptr, natoms[c], i, A, S, K,
-              cut2, g,
-              bins_all + c * (H + 1), sorted_all + c * A * 2, bu.bd, bu.bf,
-              BUF, bu.bits, ci * K, disp, jidx, mask);
+              cut2, g, bins_all + c * (H + 1),
+              sorted_all + c * A * AtomRec<T>::kPer, bu.bd, bu.bf, BUF,
+              bu.bits, ci * K, disp, jidx, mask);
 }
 
 constexpr int RV_THREADS = 256;
@@ -1026,6 +1099,76 @@ int sm_count() {
   return n;
 }
 
+template <typename T>
+int neighbors_launch(const T* pos_hi, const T* pos_lo, const T* svec_hi,
+                     const T* svec_lo, const int* natoms, int C, int A, int S,
+                     int K, int H, double cutoff, double side_d,
+                     double inv_side_d, int buf, T* gbuf_d, int* gbuf_f,
+                     unsigned* gbits, void* grids, int* bins, T* sorted,
+                     T* disp, int* jidx, unsigned char* mask, void* stream) {
+  using V = typename AtomRec<T>::V;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long atoms = static_cast<long long>(C) * A;
+  if (atoms == 0 || K == 0) return 0;
+  const bool local = gbuf_d == nullptr;
+  const T side = static_cast<T>(side_d), inv_side = static_cast<T>(inv_side_d);
+  // cutoff^2 as the plain version compares it: the square at float64,
+  // rounded once to the working type
+  const T cut2 = static_cast<T>(cutoff * cutoff);
+  if (static_cast<long long>(S) * A > 0x7fffffffLL || H < 64 ||
+      !(side_d > cutoff) || buf < K + 32 || local != (gbuf_f == nullptr) ||
+      local != (gbits == nullptr) ||
+      (local && buf % 4 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (grids == nullptr) {
+    const int nw = A <= 256 ? SEL_MAX_WARPS / 2 : SEL_MAX_WARPS;
+    // the fused kernel's atoms: at most BIN_ROUNDS a thread, in registers
+    if (A > BIN_ROUNDS * 32 * nw) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const size_t smem =
+        local_bytes<T>(local, nw, buf, K) +
+        static_cast<size_t>(A) * 4 * sizeof(T) +
+        static_cast<size_t>(H + 2) * 4 +
+        static_cast<size_t>(S) * (3 * sizeof(T) + 1);
+    if (smem + 4096 > FS_SMEM_LIMIT) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    // the attribute bounds the dynamic bytes; room for the static ones
+    const int err = fs_allow_smem(neighbors_fused_kernel<T>, smem + 4096);
+    if (err) return err;
+    const long long blocks = static_cast<long long>(C) * ((A + nw - 1) / nw);
+    neighbors_fused_kernel<T><<<static_cast<unsigned>(blocks), nw * 32, smem,
+                                st>>>(
+        pos_hi, pos_lo, svec_hi, svec_lo, natoms, A, S, K, H, cut2, side,
+        inv_side, gbuf_d, gbuf_f, gbits, buf, disp, jidx, mask);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t bin_smem = static_cast<size_t>(2 * H + 1) * sizeof(int);
+  int err = fs_allow_smem(neighbors_bin_kernel<T>, bin_smem);
+  if (err) return err;
+  neighbors_bin_kernel<T><<<C, BIN_THREADS, bin_smem, st>>>(
+      pos_hi, pos_lo, natoms, A, H, side, inv_side,
+      static_cast<Grid<T>*>(grids), bins, reinterpret_cast<V*>(sorted));
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const size_t pairs = local_bytes<T>(local, SEL_MAX_WARPS, buf, K);
+  if (pairs + 4096 > FS_SMEM_LIMIT) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  err = fs_allow_smem(neighbors_select_kernel<T>, pairs + 4096);
+  if (err) return err;
+  const long long blocks = (atoms + SEL_MAX_WARPS - 1) / SEL_MAX_WARPS;
+  neighbors_select_kernel<T><<<static_cast<unsigned>(blocks),
+                               SEL_MAX_WARPS * 32, pairs, st>>>(
+      pos_hi, pos_lo, svec_hi, svec_lo, natoms, atoms, A, S, K, H, cut2,
+      static_cast<const Grid<T>*>(grids), bins,
+      reinterpret_cast<const V*>(sorted), gbuf_d, gbuf_f, gbits, buf, disp,
+      jidx, mask);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // pos_hi, pos_lo (C, A, 3) f64, svec_hi, svec_lo (C, S, 3) f64, natoms (C,)
@@ -1035,7 +1178,7 @@ int sm_count() {
 // gbuf_f and gbits are null, else gbuf_d (C * A, buf) f64, gbuf_f
 // (C * A, buf) i32 and gbits (C * A, (2 K + 31) / 32) i32.  The split shape
 // runs where `grids` is given, with scratch grids (C, 48 bytes), bins
-// (C, H + 1) i32 and sorted (C, A, 32 bytes); else the fused shape.  The
+// (C, H + 1) i32 and sorted (C, A, 4) f64; else the fused shape.  The
 // caller (kernels/snap_kernels.py) chooses the shape and where the buffers
 // live; this refuses only what does not fit a block (shared memory, or the
 // fused kernel's atoms in registers).  Writes disp (C, A, K, 3) f64, jidx
@@ -1049,60 +1192,31 @@ extern "C" int device_neighbors(const double* pos_hi, const double* pos_lo,
                                 int* bins, double* sorted, double* disp,
                                 int* jidx, unsigned char* mask,
                                 void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long atoms = static_cast<long long>(C) * A;
-  if (atoms == 0 || K == 0) return 0;
-  const bool local = gbuf_d == nullptr;
-  if (static_cast<long long>(S) * A > 0x7fffffffLL || H < 64 ||
-      !(side > cutoff) || buf < K + 32 || local != (gbuf_f == nullptr) ||
-      local != (gbits == nullptr) ||
-      (local && buf % 4 != 0)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (grids == nullptr) {
-    const int nw = A <= 256 ? SEL_MAX_WARPS / 2 : SEL_MAX_WARPS;
-    // the fused kernel's atoms: at most BIN_ROUNDS a thread, in registers
-    if (A > BIN_ROUNDS * 32 * nw) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    const size_t smem =
-        local_bytes(local, nw, buf, K) + static_cast<size_t>(A) * 32 +
-        static_cast<size_t>(H + 2) * 4 + static_cast<size_t>(S) * 25;
-    if (smem + 4096 > FS_SMEM_LIMIT) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    // the attribute bounds the dynamic bytes; room for the static ones
-    const int err = fs_allow_smem(neighbors_fused_kernel, smem + 4096);
-    if (err) return err;
-    const long long blocks = static_cast<long long>(C) * ((A + nw - 1) / nw);
-    neighbors_fused_kernel<<<static_cast<unsigned>(blocks), nw * 32, smem,
-                             st>>>(
-        pos_hi, pos_lo, svec_hi, svec_lo, natoms, A, S, K, H, cutoff * cutoff,
-        side, inv_side, gbuf_d, gbuf_f, gbits, buf, disp, jidx, mask);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const size_t bin_smem = static_cast<size_t>(2 * H + 1) * sizeof(int);
-  int err = fs_allow_smem(neighbors_bin_kernel, bin_smem);
-  if (err) return err;
-  neighbors_bin_kernel<<<C, BIN_THREADS, bin_smem, st>>>(
-      pos_hi, pos_lo, natoms, A, H, side, inv_side,
-      static_cast<Grid*>(grids), bins, reinterpret_cast<double2*>(sorted));
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  const size_t pairs = local_bytes(local, SEL_MAX_WARPS, buf, K);
-  if (pairs + 4096 > FS_SMEM_LIMIT) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  err = fs_allow_smem(neighbors_select_kernel, pairs + 4096);
-  if (err) return err;
-  const long long blocks = (atoms + SEL_MAX_WARPS - 1) / SEL_MAX_WARPS;
-  neighbors_select_kernel<<<static_cast<unsigned>(blocks),
-                            SEL_MAX_WARPS * 32, pairs, st>>>(
-      pos_hi, pos_lo, svec_hi, svec_lo, natoms, atoms, A, S, K, H,
-      cutoff * cutoff, static_cast<const Grid*>(grids), bins,
-      reinterpret_cast<const double2*>(sorted), gbuf_d, gbuf_f, gbits, buf,
-      disp, jidx, mask);
-  return static_cast<int>(cudaGetLastError());
+  return neighbors_launch<double>(pos_hi, pos_lo, svec_hi, svec_lo, natoms,
+                                  C, A, S, K, H, cutoff, side, inv_side, buf,
+                                  gbuf_d, gbuf_f, gbits, grids, bins, sorted,
+                                  disp, jidx, mask, stream);
+}
+
+// The float32 instantiation: `device_neighbors`' arguments with every f64
+// array f32 (the hi/lo float32 parts of the positions and shifts, the
+// scratch gbuf_d, grids (still 48 bytes a config) and sorted, and disp);
+// cutoff, side and inv_side stay doubles, rounded to float32 here (cutoff^2
+// squared first).
+extern "C" int device_neighbors_f32(const float* pos_hi, const float* pos_lo,
+                                    const float* svec_hi,
+                                    const float* svec_lo, const int* natoms,
+                                    int C, int A, int S, int K, int H,
+                                    double cutoff, double side,
+                                    double inv_side, int buf, float* gbuf_d,
+                                    int* gbuf_f, unsigned* gbits, void* grids,
+                                    int* bins, float* sorted, float* disp,
+                                    int* jidx, unsigned char* mask,
+                                    void* stream) {
+  return neighbors_launch<float>(pos_hi, pos_lo, svec_hi, svec_lo, natoms, C,
+                                 A, S, K, H, cutoff, side, inv_side, buf,
+                                 gbuf_d, gbuf_f, gbits, grids, bins, sorted,
+                                 disp, jidx, mask, stream);
 }
 
 // jidx (C, A, K) i32, mask (C, A, K) u8.  Writes rev (C, A, R) i32 and adds

@@ -45,6 +45,18 @@
 //      sums the slabs' partials in slab order and writes the same.
 // Without AtA (the residual pass) only the tiles of the last column run.
 // No atomics: the output repeats bit for bit from run to run.
+//
+// Float32 rows (`normal_contrib_f32`, the JAX package's accelerator
+// regime, fitsnap_tpu/parallel/fit.py:323-363): pass 1 reads float32 row
+// tensors, truths and weights and forms each entry at float32 in the JAX
+// order (a / n and (E - Eref) / n and the weight at float32), then widens
+// it: Aw holds float64 and the Gram runs on the FP64 tensor cores as
+// above, so AtA and Atb come out float64.  In the residual mode the JAX
+// pass runs at the rows' type: r = b - a . coeff is formed at float64
+// (float32 rows, float64 coeff) and rounded to float32, then weighted;
+// so pass 1 writes the unweighted rows and each row's weight, the residual
+// kernel rounds r and applies the weight, and Atb (A^T r) is written as
+// float32 (summed at float64 on the way, then rounded once).
 #include "atom_gemm.cuh"  // mma_f64, cp_async16
 
 namespace {
@@ -59,19 +71,20 @@ constexpr int ROW_THREADS = 256;
 constexpr int SR = 8;            // tile rows of one reduce block
 constexpr int RED_THREADS = 256;
 
+template <typename F>
 struct RowArgs {
-  const double* e_cols;          // (C, Wr)
-  const double* force_rows;      // (C, A, 3, Wr)
-  const double* virial_rows;     // (C, 6, Wr)
-  const double* ref_e;           // (C,)
-  const double* ref_f;           // (C, A, 3)
-  const double* ref_v;           // (C, 6)
-  const double* energy;          // (C,)
-  const double* forces;          // (C, A, 3)
-  const double* stress6;         // (C, 6)
-  const double* ew;              // (C,)
-  const double* fw;
-  const double* vw;
+  const F* e_cols;               // (C, Wr)
+  const F* force_rows;           // (C, A, 3, Wr)
+  const F* virial_rows;          // (C, 6, Wr)
+  const F* ref_e;                // (C,)
+  const F* ref_f;                // (C, A, 3)
+  const F* ref_v;                // (C, 6)
+  const F* energy;               // (C,)
+  const F* forces;               // (C, A, 3)
+  const F* stress6;              // (C, 6)
+  const F* ew;                   // (C,)
+  const F* fw;
+  const F* vw;
   const int* natoms;             // (C,)
   const int* types;              // (C, A)
   int C, A, T, Wr, W, const_cols, fe, ff, fs;
@@ -87,7 +100,8 @@ struct ColMap {
   ColKind kind;
 };
 
-__device__ __forceinline__ ColMap col_map(const RowArgs& p, int col) {
+template <typename F>
+__device__ __forceinline__ ColMap col_map(const RowArgs<F>& p, int col) {
   if (col == p.W) return ColMap{0, 0, RHS};
   if (col > p.W) return ColMap{0, 0, PAD};
   ColMap m{col, 0, RAW};
@@ -105,8 +119,9 @@ __device__ __forceinline__ ColMap col_map(const RowArgs& p, int col) {
 }
 
 // The raw row r of config c (r = 0 energy, 1..3A force, then virial).
-__device__ __forceinline__ const double* raw_row(const RowArgs& p, int c,
-                                                 int r) {
+template <typename F>
+__device__ __forceinline__ const F* raw_row(const RowArgs<F>& p, int c,
+                                            int r) {
   const int A = p.A;
   if (r == 0) return p.e_cols + static_cast<long long>(c) * p.Wr;
   if (r <= 3 * A)
@@ -117,10 +132,15 @@ __device__ __forceinline__ const double* raw_row(const RowArgs& p, int c,
 }
 
 // Pass 1: Aw (rows, ldw), one thread per entry; zeros in the
-// padding (rows of g >= C (7 + 3A), columns past W); and nrows.
-__global__ void contrib_rows_kernel(RowArgs p, long long rows, int ldw,
+// padding (rows of g >= C (7 + 3A), columns past W); and nrows.  Each
+// entry at T, then widened.  With `rw` (the float32 residual mode) the
+// entries are unweighted and the column-0 thread of each row writes its
+// weight to rw[g].
+template <typename F>
+__global__ void contrib_rows_kernel(RowArgs<F> p, long long rows, int ldw,
                                     double* __restrict__ aw,
-                                    double* __restrict__ nrows) {
+                                    double* __restrict__ nrows,
+                                    F* __restrict__ rw) {
   const long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   const int A = p.A;
@@ -142,18 +162,20 @@ __global__ void contrib_rows_kernel(RowArgs p, long long rows, int ldw,
     const int c = g / nrow;
     const int r = g - c * nrow;
     const int na = p.natoms[c];
-    const double live = na > 0 ? 1.0 : 0.0;
-    const double nat = static_cast<double>(na > 1 ? na : 1);
-    double w;
+    const F live = na > 0 ? F(1) : F(0);
+    const F nat = static_cast<F>(na > 1 ? na : 1);
+    F w;
     if (r == 0) {
-      w = p.fe ? p.ew[c] * live : 0.0;
+      w = p.fe ? p.ew[c] * live : F(0);
     } else if (r <= 3 * A) {
-      w = (p.ff && (r - 1) / 3 < na) ? p.fw[c] * live : 0.0;
+      w = (p.ff && (r - 1) / 3 < na) ? p.fw[c] * live : F(0);
     } else {
-      w = p.fs ? p.vw[c] * live : 0.0;
+      w = p.fs ? p.vw[c] * live : F(0);
     }
+    if (rw != nullptr && col == 0) rw[g] = w;
+    const double wd = rw != nullptr ? 1.0 : static_cast<double>(w);
     if (m.kind == RHS) {
-      double b;
+      F b;
       if (r == 0) {
         b = (p.energy[c] - p.ref_e[c]) / nat;
       } else if (r <= 3 * A) {
@@ -163,27 +185,31 @@ __global__ void contrib_rows_kernel(RowArgs p, long long rows, int ldw,
         const long long q = static_cast<long long>(c) * 6 + r - 1 - 3 * A;
         b = p.stress6[q] - p.ref_v[q];
       }
-      v = w * b;
+      v = wd * static_cast<double>(b);
     } else if (m.kind == LEAD) {
       // the type's fraction on the energy row (an exact count), else 0
       if (r == 0) {
         int n = 0;
         for (int i = 0; i < na; ++i) n += p.types[c * A + i] == m.type;
-        v = n / nat * w;
+        v = static_cast<double>(static_cast<F>(n) / nat) * wd;
       }
     } else {
-      const double x = raw_row(p, c, r)[m.raw];
-      v = (r == 0 ? x / nat : x) * w;
+      const F x = raw_row(p, c, r)[m.raw];
+      v = static_cast<double>(r == 0 ? x / nat : x) * wd;
     }
   }
   aw[e] = v;
 }
 
 // The residual mode: w b - (w a) . coeff in Aw's last column, one warp
-// per row, lanes strided over the columns, then a fixed butterfly.
+// per row, lanes strided over the columns, then a fixed butterfly.  With
+// `rw` (float32 rows, unweighted in Aw): r = b - a . coeff rounded to
+// float32, then the row's weight rw[g] applied to a and to r.
+template <typename F>
 __global__ void contrib_resid_kernel(const double* __restrict__ coeff,
                                      long long rows, int ldw, int W,
-                                     double* __restrict__ aw) {
+                                     double* __restrict__ aw,
+                                     const F* __restrict__ rw) {
   const int lane = threadIdx.x & 31;
   const long long g =
       static_cast<long long>(blockIdx.x) * RESID_WARPS + (threadIdx.x >> 5);
@@ -193,7 +219,15 @@ __global__ void contrib_resid_kernel(const double* __restrict__ coeff,
   for (int col = lane; col < W; col += 32) dot += row[col] * coeff[col];
   for (int off = 16; off > 0; off >>= 1)
     dot += __shfl_xor_sync(0xffffffffu, dot, off);
-  if (lane == 0) row[W] -= dot;
+  if (rw == nullptr) {
+    if (lane == 0) row[W] -= dot;
+    return;
+  }
+  const double w = static_cast<double>(rw[g]);
+  const F r = static_cast<F>(row[W] - dot);
+  __syncwarp();
+  for (int col = lane; col < W; col += 32) row[col] *= w;
+  if (lane == 0) row[W] = w * static_cast<double>(r);
 }
 
 // The (ti, tj) of output tile u: the upper triangle in row order, or with
@@ -213,16 +247,18 @@ __device__ __forceinline__ void tile_of(int u, int nT, bool only_last,
   tj = ti + u;
 }
 
-// Entry (row, cl) of tile (ti, tj) into AtA (and its mirror) or Atb.
+// Entry (row, cl) of tile (ti, tj) into AtA (and its mirror) or Atb (of
+// type BT: float in the float32 residual mode, else double).
+template <typename BT>
 __device__ __forceinline__ void put(int W, int with_ata, int ti, int tj,
                                     int row, int cl, double v,
                                     double* __restrict__ ata,
-                                    double* __restrict__ atb) {
+                                    BT* __restrict__ atb) {
   const int pr = ti * TB + row;
   const int qc = tj * TB + cl;
   if (pr >= W) return;
   if (qc == W) {
-    atb[pr] = v;
+    atb[pr] = static_cast<BT>(v);
   } else if (qc < W && with_ata) {
     ata[static_cast<long long>(pr) * W + qc] = v;
     if (ti != tj) ata[static_cast<long long>(qc) * W + pr] = v;
@@ -232,11 +268,12 @@ __device__ __forceinline__ void put(int W, int with_ata, int ti, int tj,
 // Pass 2: one (upper tile, slab) per block, blockIdx.x = tile * nslab +
 // slab, over the slab's per rows of Aw.  With one slab the tile goes to
 // ata / atb, else its partial (TB, TB) to partial[blockIdx.x].
+template <typename BT>
 __global__ void __launch_bounds__(GRAM_THREADS)
     contrib_gram_kernel(const double* __restrict__ aw, int ldw, int per,
                         int nslab, int W, int with_ata,
                         double* __restrict__ partial,
-                        double* __restrict__ ata, double* __restrict__ atb) {
+                        double* __restrict__ ata, BT* __restrict__ atb) {
   extern __shared__ double ring[];      // [STAGES][2][KC][LD]
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -333,10 +370,11 @@ __global__ void __launch_bounds__(GRAM_THREADS)
 // Pass 3 (more than one slab): slabs summed in order for SR rows of one
 // tile, then written as the one-slab gram does.  blockIdx.x = tile *
 // (TB / SR) + strip.
+template <typename BT>
 __global__ void __launch_bounds__(RED_THREADS)
     contrib_reduce_kernel(const double* __restrict__ partial, int nslab,
                           int W, int with_ata, double* __restrict__ ata,
-                          double* __restrict__ atb) {
+                          BT* __restrict__ atb) {
   constexpr int PER = SR * TB / RED_THREADS;   // entries per thread
   const int nT = (W + 1 + TB - 1) / TB;
   const int u = blockIdx.x / (TB / SR);
@@ -369,6 +407,49 @@ __global__ void __launch_bounds__(RED_THREADS)
   }
 }
 
+template <typename F, typename BT>
+int contrib_launch(const RowArgs<F>& p, const double* coeff, int with_ata,
+                   int tile, int ntiles, int nslab, int slab_rows, double* aw,
+                   double* partial, double* ata, BT* atb, double* nrows,
+                   F* rw, cudaStream_t st) {
+  const int C = p.C, A = p.A, W = p.W;
+  const int nT = (W + 1 + TB - 1) / TB;
+  const long long rows = static_cast<long long>(nslab) * slab_rows;
+  if (tile != TB || nslab < 1 || slab_rows % KC != 0 ||
+      rows < static_cast<long long>(C) * (7 + 3 * A) ||
+      ntiles != (with_ata ? nT * (nT + 1) / 2 : nT))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ldw = nT * TB;
+  if (rows * ldw >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (rows * ldw + ROW_THREADS - 1) / ROW_THREADS;
+  contrib_rows_kernel<F><<<static_cast<unsigned>(blocks > 0 ? blocks : 1),
+                           ROW_THREADS, 0, st>>>(p, rows, ldw, aw, nrows, rw);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const long long real = static_cast<long long>(C) * (7 + 3 * A);
+  if (coeff != nullptr && real > 0) {
+    contrib_resid_kernel<F><<<static_cast<unsigned>(
+                                  (real + RESID_WARPS - 1) / RESID_WARPS),
+                              RESID_WARPS * 32, 0, st>>>(coeff, real, ldw, W,
+                                                         aw, rw);
+    err = static_cast<int>(cudaGetLastError());
+    if (err) return err;
+  }
+  const size_t smem = sizeof(double) * STAGES * 2 * KC * LD;
+  err = fs_allow_smem(contrib_gram_kernel<BT>, smem);
+  if (err) return err;
+  contrib_gram_kernel<BT><<<static_cast<unsigned>(ntiles) * nslab,
+                            GRAM_THREADS, smem, st>>>(
+      aw, ldw, slab_rows, nslab, W, with_ata, partial, ata, atb);
+  err = static_cast<int>(cudaGetLastError());
+  if (err || nslab == 1) return err;
+  contrib_reduce_kernel<BT><<<static_cast<unsigned>(ntiles) * (TB / SR),
+                              RED_THREADS, 0, st>>>(partial, nslab, W,
+                                                    with_ata, ata, atb);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Row tensors of the rows function, truths, weights and atom counts as in
@@ -388,43 +469,39 @@ extern "C" int normal_contrib(
     int W, int const_cols, int fe, int ff, int fs, int with_ata, int tile,
     int ntiles, int nslab, int slab_rows, double* aw, double* partial,
     double* ata, double* atb, double* nrows, void* stream) {
+  const RowArgs<double> p{e_cols, force_rows, virial_rows, ref_e, ref_f,
+                          ref_v, energy, forces, stress6, ew, fw, vw,
+                          natoms, types, C, A, T, Wr, W, const_cols, fe, ff,
+                          fs};
+  return contrib_launch<double, double>(
+      p, coeff, with_ata, tile, ntiles, nslab, slab_rows, aw, partial, ata,
+      atb, nrows, nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// Float32 rows: `normal_contrib`'s arguments with the twelve row, truth and
+// weight arrays f32 (coeff stays f64).  The direct mode writes ata and atb
+// as f64; the residual mode (coeff given) writes atb as f32 and needs the
+// scratch rw (nslab * slab_rows,) f32, each row's weight.
+extern "C" int normal_contrib_f32(
+    const float* e_cols, const float* force_rows, const float* virial_rows,
+    const float* ref_e, const float* ref_f, const float* ref_v,
+    const float* energy, const float* forces, const float* stress6,
+    const float* ew, const float* fw, const float* vw, const int* natoms,
+    const int* types, const double* coeff, int C, int A, int T, int Wr,
+    int W, int const_cols, int fe, int ff, int fs, int with_ata, int tile,
+    int ntiles, int nslab, int slab_rows, double* aw, double* partial,
+    double* ata, void* atb, double* nrows, float* rw, void* stream) {
+  const RowArgs<float> p{e_cols, force_rows, virial_rows, ref_e, ref_f,
+                         ref_v, energy, forces, stress6, ew, fw, vw, natoms,
+                         types, C, A, T, Wr, W, const_cols, fe, ff, fs};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nT = (W + 1 + TB - 1) / TB;
-  const long long rows = static_cast<long long>(nslab) * slab_rows;
-  if (tile != TB || nslab < 1 || slab_rows % KC != 0 ||
-      rows < static_cast<long long>(C) * (7 + 3 * A) ||
-      ntiles != (with_ata ? nT * (nT + 1) / 2 : nT))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const RowArgs p{e_cols, force_rows, virial_rows, ref_e, ref_f, ref_v,
-                  energy, forces, stress6, ew, fw, vw, natoms, types,
-                  C, A, T, Wr, W, const_cols, fe, ff, fs};
-  const int ldw = nT * TB;
-  if (rows * ldw >= (1LL << 31))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (rows * ldw + ROW_THREADS - 1) / ROW_THREADS;
-  contrib_rows_kernel<<<static_cast<unsigned>(blocks > 0 ? blocks : 1),
-                        ROW_THREADS, 0, st>>>(p, rows, ldw, aw, nrows);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  const long long real = static_cast<long long>(C) * (7 + 3 * A);
-  if (coeff != nullptr && real > 0) {
-    contrib_resid_kernel<<<static_cast<unsigned>(
-                               (real + RESID_WARPS - 1) / RESID_WARPS),
-                           RESID_WARPS * 32, 0, st>>>(coeff, real, ldw, W,
-                                                     aw);
-    err = static_cast<int>(cudaGetLastError());
-    if (err) return err;
+  if (coeff == nullptr) {
+    return contrib_launch<float, double>(
+        p, coeff, with_ata, tile, ntiles, nslab, slab_rows, aw, partial, ata,
+        static_cast<double*>(atb), nrows, nullptr, st);
   }
-  const size_t smem = sizeof(double) * STAGES * 2 * KC * LD;
-  err = fs_allow_smem(contrib_gram_kernel, smem);
-  if (err) return err;
-  contrib_gram_kernel<<<static_cast<unsigned>(ntiles) * nslab, GRAM_THREADS,
-                        smem, st>>>(aw, ldw, slab_rows, nslab, W, with_ata,
-                                    partial, ata, atb);
-  err = static_cast<int>(cudaGetLastError());
-  if (err || nslab == 1) return err;
-  contrib_reduce_kernel<<<static_cast<unsigned>(ntiles) * (TB / SR),
-                          RED_THREADS, 0, st>>>(partial, nslab, W, with_ata,
-                                                ata, atb);
-  return static_cast<int>(cudaGetLastError());
+  if (rw == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return contrib_launch<float, float>(
+      p, coeff, with_ata, tile, ntiles, nslab, slab_rows, aw, partial, ata,
+      static_cast<float*>(atb), nrows, rw, st);
 }

@@ -45,6 +45,10 @@
 // is minus the gathers alone, a block's contribution to the rows of atoms
 // that live in another block (the spatial rows' halo,
 // parallel/fit.py:_halo_force).
+//
+// Working types: a float32 instantiation (`pair_scatter_rows_f32`, the
+// streamed linear SNAP fit at float32) takes float32 g and disp and sums in
+// float32, in the same fixed orders (no atomics either).
 #include "common.cuh"
 
 namespace {
@@ -57,29 +61,34 @@ constexpr int SB = 4;                // gather slots in flight per warp
 constexpr int VR_WARPS = 8;          // warps of a virial block
 constexpr int OWN_LANES = 16;        // lanes along k of one x (half-warp)
 
-// Asynchronous copy of `bytes` (8 or 16) from global to shared memory.
-__device__ __forceinline__ void cp_async(double* dst, const double* src,
-                                         int bytes) {
+// Asynchronous copy of 16 bytes from global to shared memory.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if (bytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-                 "l"(src));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
-                 "l"(src));
-  }
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
 }
 
+// The bytes of the shared arrays of the working type F, rounded to 8 so
+// that the slot offsets (long long) after them are aligned.
+template <typename F>
+__host__ __device__ __forceinline__ size_t scatter_fbytes(int K, int XT,
+                                                          int T) {
+  return (sizeof(F) * (3 * K * (XT + 1) + SC_WARPS * T * 3 * XT + 9 * XT) +
+          7) & ~static_cast<size_t>(7);
+}
+
+template <typename F>
 __global__ void __launch_bounds__(SC_THREADS)
-    scatter_rows_kernel(const double* __restrict__ g,
-                        const double* __restrict__ disp,
+    scatter_rows_kernel(const F* __restrict__ g,
+                        const F* __restrict__ disp,
                         const unsigned char* __restrict__ vmask,
                         const int* __restrict__ rev,
                         const int* __restrict__ types, int A, int X, int K,
                         int R, int T, int XT, int gather_only,
-                        double* __restrict__ force,
-                        double* __restrict__ vpart) {
-  extern __shared__ double sm[];
+                        F* __restrict__ force,
+                        F* __restrict__ vpart) {
+  extern __shared__ __align__(16) unsigned char sm_raw[];
+  F* sm = reinterpret_cast<F*>(sm_raw);
   const int nxt = (X + XT - 1) / XT;
   const long long b = blockIdx.x;
   const long long c = b / (static_cast<long long>(nxt) * A);
@@ -91,36 +100,38 @@ __global__ void __launch_bounds__(SC_THREADS)
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int ne = 3 * XT;                 // (x, d) entries of the tile
-  const int run = 3 * K;                 // doubles of one x's (k, d) run
+  const int run = 3 * K;                 // values of one x's (k, d) run
 
-  double* sg = sm;                       // [XT][3K] the atom's own g
-  double* sd = sg + XT * run;            // [K][3] masked displacements
-  double* sacc = sd + run;               // [warp][T][ne] gather sums
-  double* srow = sacc + SC_WARPS * T * ne;  // [XT][3] row sums
-  double* svir = srow + ne;              // [6][XT] virial products
-  long long* soff = reinterpret_cast<long long*>(svir + 6 * XT);  // [R]
+  F* sg = sm;                            // [XT][3K] the atom's own g
+  F* sd = sg + XT * run;                 // [K][3] masked displacements
+  F* sacc = sd + run;                    // [warp][T][ne] gather sums
+  F* srow = sacc + SC_WARPS * T * ne;    // [XT][3] row sums
+  F* svir = srow + ne;                   // [6][XT] virial products
+  long long* soff = reinterpret_cast<long long*>(
+      sm_raw + scatter_fbytes<F>(K, XT, T));                      // [R]
   int* stype = reinterpret_cast<int*>(soff + R);                  // [R]
 
   // the own run g[n, x0:x0+nx] is contiguous: copied by cp.async (16
   // bytes where aligned), in flight during the gather below
   if (!gather_only) {
+    constexpr int V16 = 16 / sizeof(F);   // values of a 16-byte copy
     const long long start = (n * X + x0) * run;
     const int len = nx * run;
     if ((reinterpret_cast<unsigned long long>(g + start) & 15) == 0 &&
-        (len & 1) == 0) {
-      for (int m = tid; m < len / 2; m += SC_THREADS)
-        cp_async(sg + 2 * m, g + start + 2 * m, 16);
+        len % V16 == 0) {
+      for (int m = tid; m < len / V16; m += SC_THREADS)
+        cp_async16(sg + V16 * m, g + start + V16 * m);
     } else {
       for (int m = tid; m < len; m += SC_THREADS)
-        cp_async(sg + m, g + start + m, 8);
+        fs_cp_async_elem(sg + m, g + start + m);
     }
     asm volatile("cp.async.commit_group;\n" ::);
   }
   for (int e = tid; e < run; e += SC_THREADS) {
     const long long pk = n * K + e / 3;
-    sd[e] = vmask[pk] ? disp[pk * 3 + e % 3] : 0.0;
+    sd[e] = vmask[pk] ? disp[pk * 3 + e % 3] : F(0);
   }
-  for (int e = tid; e < SC_WARPS * T * ne; e += SC_THREADS) sacc[e] = 0.0;
+  for (int e = tid; e < SC_WARPS * T * ne; e += SC_THREADS) sacc[e] = F(0);
   for (int r = tid; r < R; r += SC_THREADS) {
     const int slot = rev[n * R + r];
     if (slot >= 0) {
@@ -143,22 +154,22 @@ __global__ void __launch_bounds__(SC_THREADS)
     live[j] = e < 3 * nx;
     eo[j] = (e / 3) * run + e % 3;
   }
-  double* acc = sacc + warp * T * ne;
+  F* acc = sacc + warp * T * ne;
   for (int r0 = warp; r0 < R; r0 += SB * SC_WARPS) {
     long long off[SB];
-    double val[SB][EJ_MAX];
+    F val[SB][EJ_MAX];
 #pragma unroll
     for (int u = 0; u < SB; ++u) {
       const int r = r0 + u * SC_WARPS;
       off[u] = r < R ? soff[r] : -1;
 #pragma unroll
       for (int j = 0; j < EJ_MAX; ++j)
-        val[u][j] = off[u] >= 0 && live[j] ? g[off[u] + eo[j]] : 0.0;
+        val[u][j] = off[u] >= 0 && live[j] ? g[off[u] + eo[j]] : F(0);
     }
 #pragma unroll
     for (int u = 0; u < SB; ++u) {
       if (off[u] < 0) continue;
-      double* at = acc + stype[r0 + u * SC_WARPS] * ne;
+      F* at = acc + stype[r0 + u * SC_WARPS] * ne;
 #pragma unroll
       for (int j = 0; j < EJ_MAX; ++j)
         if (live[j]) at[lane + 32 * j] += val[u][j];
@@ -172,14 +183,14 @@ __global__ void __launch_bounds__(SC_THREADS)
   for (int xl0 = 0; xl0 < XT; xl0 += 2 * SC_WARPS) {
     const int xl = xl0 + tid / OWN_LANES;
     const int kl = tid % OWN_LANES;
-    double s[3] = {0.0, 0.0, 0.0};
-    double v[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+    F s[3] = {F(0), F(0), F(0)};
+    F v[6] = {F(0), F(0), F(0), F(0), F(0), F(0)};
     if (xl < nx && !gather_only) {
-      const double* gx = sg + xl * run;
+      const F* gx = sg + xl * run;
 #pragma unroll 4
       for (int k = kl; k < K; k += OWN_LANES) {
-        const double g0 = gx[k * 3], g1 = gx[k * 3 + 1], g2 = gx[k * 3 + 2];
-        const double d0 = sd[k * 3], d1 = sd[k * 3 + 1], d2 = sd[k * 3 + 2];
+        const F g0 = gx[k * 3], g1 = gx[k * 3 + 1], g2 = gx[k * 3 + 2];
+        const F d0 = sd[k * 3], d1 = sd[k * 3 + 1], d2 = sd[k * 3 + 2];
         s[0] += g0;
         s[1] += g1;
         s[2] += g2;
@@ -215,10 +226,10 @@ __global__ void __launch_bounds__(SC_THREADS)
     const int t = (e / XT) % T;
     const int d = e / (XT * T);
     if (xl >= nx) continue;
-    double scat = 0.0;
+    F scat = F(0);
     for (int w = 0; w < SC_WARPS; ++w)
       scat += sacc[(w * T + t) * ne + xl * 3 + d];
-    const double rows = t == tn ? srow[xl * 3 + d] : 0.0;
+    const F rows = t == tn ? srow[xl * 3 + d] : F(0);
     force[((n * 3 + d) * T + t) * X + x0 + xl] = rows - scat;
   }
   for (int e = tid; e < 6 * XT && !gather_only; e += SC_THREADS) {
@@ -231,11 +242,12 @@ __global__ void __launch_bounds__(SC_THREADS)
 // vpart[n, v, x]: one block per (c, v, t, 32 columns x); warp w sums the
 // atoms w, w + VR_WARPS, ... in order, then the warps' sums add in warp
 // order.
+template <typename F>
 __global__ void __launch_bounds__(VR_WARPS * 32)
-    scatter_virial_kernel(const double* __restrict__ vpart,
+    scatter_virial_kernel(const F* __restrict__ vpart,
                           const int* __restrict__ types, int A, int X,
-                          int T, double* __restrict__ virial) {
-  __shared__ double part[VR_WARPS][32];
+                          int T, F* __restrict__ virial) {
+  __shared__ F part[VR_WARPS][32];
   const int nxb = (X + 31) / 32;
   const long long b = blockIdx.x;
   const int xb = static_cast<int>(b % nxb);
@@ -245,7 +257,7 @@ __global__ void __launch_bounds__(VR_WARPS * 32)
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int x = xb * 32 + lane;
-  double acc = 0.0;
+  F acc = F(0);
   if (x < X) {
 #pragma unroll 4
     for (int i = warp; i < A; i += VR_WARPS) {
@@ -256,10 +268,37 @@ __global__ void __launch_bounds__(VR_WARPS * 32)
   part[warp][lane] = acc;
   __syncthreads();
   if (warp == 0 && x < X) {
-    double sum = 0.0;
+    F sum = F(0);
     for (int w = 0; w < VR_WARPS; ++w) sum += part[w][lane];
     virial[((c * 6 + v) * T + t) * X + x] = -sum;
   }
+}
+
+template <typename F>
+int scatter_launch(const F* g, const F* disp, const unsigned char* vmask,
+                   const int* rev, const int* types, int C, int A, int X,
+                   int K, int R, int T, int XT, int gather_only, F* vpart,
+                   F* force, F* virial, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (XT < 1 || XT > XT_MAX || (XT & (XT - 1)) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long natoms = static_cast<long long>(C) * A;
+  if (natoms == 0 || X == 0) return 0;
+  const long long nxt = (X + XT - 1) / XT;
+  const size_t smem = scatter_fbytes<F>(K, XT, T) +
+                      (sizeof(long long) + sizeof(int)) * R;
+  int err = fs_allow_smem(scatter_rows_kernel<F>, smem);
+  if (err) return err;
+  scatter_rows_kernel<F><<<static_cast<unsigned>(natoms * nxt), SC_THREADS,
+                           smem, st>>>(g, disp, vmask, rev, types, A, X, K,
+                                       R, T, XT, gather_only, force, vpart);
+  err = static_cast<int>(cudaGetLastError());
+  if (err || gather_only) return err;
+  const long long vblocks = static_cast<long long>(C) * 6 * T *
+                            ((X + 31) / 32);
+  scatter_virial_kernel<F><<<static_cast<unsigned>(vblocks), VR_WARPS * 32,
+                             0, st>>>(vpart, types, A, X, T, virial);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -275,25 +314,20 @@ extern "C" int pair_scatter_rows(const double* g, const double* disp,
                                  int gather_only, double* vpart,
                                  double* force, double* virial,
                                  void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (XT < 1 || XT > XT_MAX || (XT & (XT - 1)) != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long natoms = static_cast<long long>(C) * A;
-  if (natoms == 0 || X == 0) return 0;
-  const long long nxt = (X + XT - 1) / XT;
-  const size_t smem = sizeof(double) * (3 * K * (XT + 1) +
-                                        SC_WARPS * T * 3 * XT + 9 * XT) +
-                      (sizeof(long long) + sizeof(int)) * R;
-  int err = fs_allow_smem(scatter_rows_kernel, smem);
-  if (err) return err;
-  scatter_rows_kernel<<<static_cast<unsigned>(natoms * nxt), SC_THREADS,
-                        smem, st>>>(g, disp, vmask, rev, types, A, X, K, R,
-                                    T, XT, gather_only, force, vpart);
-  err = static_cast<int>(cudaGetLastError());
-  if (err || gather_only) return err;
-  const long long vblocks = static_cast<long long>(C) * 6 * T *
-                            ((X + 31) / 32);
-  scatter_virial_kernel<<<static_cast<unsigned>(vblocks), VR_WARPS * 32, 0,
-                          st>>>(vpart, types, A, X, T, virial);
-  return static_cast<int>(cudaGetLastError());
+  return scatter_launch<double>(g, disp, vmask, rev, types, C, A, X, K, R, T,
+                                XT, gather_only, vpart, force, virial,
+                                stream);
+}
+
+// The float32 instantiation: g, disp, vpart, force and virial f32.
+extern "C" int pair_scatter_rows_f32(const float* g, const float* disp,
+                                     const unsigned char* vmask,
+                                     const int* rev, const int* types, int C,
+                                     int A, int X, int K, int R, int T,
+                                     int XT, int gather_only, float* vpart,
+                                     float* force, float* virial,
+                                     void* stream) {
+  return scatter_launch<float>(g, disp, vmask, rev, types, C, A, X, K, R, T,
+                               XT, gather_only, vpart, force, virial,
+                               stream);
 }

@@ -80,6 +80,12 @@
 //     of it are stored at the end.
 // Any twojmax up to 16 and the chemflag modes run in one shape or the
 // other.  No atomics: the output repeats bit for bit.
+// Working types: the window shape also has a float32 instantiation
+// (`pair_u_duals_f32`, the streamed linear SNAP fit at float32), whose
+// plan holds float32 coefficients, each rounded once from the float64
+// change of basis (a step is then 24 bytes: 4 floats, the offsets), and
+// which computes the prologue, the monomials, W, J and utot in float32.
+// The table shape runs at float64 only.
 #include <math.h>
 
 #include "common.cuh"
@@ -90,27 +96,39 @@ namespace {
 constexpr int NW = 8;         // warps of a block
 constexpr int TP = 32;        // pairs of a tile, one a lane
 constexpr int CW = 4;         // most columns of a chunk
-constexpr int NPRO = 20;      // prologue doubles a pair (see below)
-constexpr int STEP = 5;       // doubles of a step: 4 coefficients, 4 offsets
-constexpr int HDR = 12;       // doubles of a chunk's header (24 ints)
+constexpr int NPRO = 20;      // prologue values a pair (see below)
+constexpr int STEP = 5;       // doubles of a table-shape step (see there)
+
+// The window shape's step and header in units of the working type T: a
+// step is 4 coefficients and the 4 uint16 window offsets (8 bytes: one
+// double, two floats), a header 96 bytes.
+template <typename T>
+__host__ __device__ constexpr int step_units() {
+  return 4 + 8 / static_cast<int>(sizeof(T));
+}
+template <typename T>
+__host__ __device__ constexpr int hdr_units() {
+  return 96 / static_cast<int>(sizeof(T));
+}
 
 // Host tables of one split plan (`snap_kernels.pair_u_tables`).
+template <typename T>
 struct Plan {
-  const double* blob;   // chunks: a header of 24 ints (first column,
+  const T* blob;        // chunks: a header of 24 ints (first column,
                         // columns, two unused, then the step ends of the
                         // 4 x 5 (column, accumulator) runs, accumulators
-                        // U, dU/dar, dU/dai, dU/dbr, dU/dbi), then steps of
-                        // STEP doubles (coefficients c[4], then the window
-                        // offsets, slot * row stride, as 4 uint16), padded
-                        // to an even number of doubles
-  const int2* loc;      // (nchunks,): first double and doubles of a chunk,
+                        // U, dU/dar, dU/dai, dU/dbr, dU/dbi), then steps
+                        // (coefficients c[4] at T, then the window offsets,
+                        // slot * row stride, as 4 uint16), padded to 16
+                        // bytes
+  const int2* loc;      // (nchunks,): first unit and units of a chunk,
                         // by (split, warp)
   const int* cw_ptr;    // (S * NW + 1,): chunks of (split, warp)
   const int* win_ptr;   // (S + 1,): window slots of each split
   const int* win_exp;   // exponents p | q << 8 | r << 16 | s << 24
   const int* zr_ptr;    // (S + 1,): column runs of each split
   const int2* zruns;    // [u0, u1)
-  int max_win, max_wch, bufd;  // sizes of the shared buffers
+  int max_win, max_wch, bufd;  // sizes of the shared buffers (bufd in T)
 };
 
 // Row stride of the window: the tile's pairs, W's channels, odd.
@@ -118,14 +136,17 @@ __host__ __device__ __forceinline__ int row_stride(int nc) {
   return (TP + nc) | 1;
 }
 
-// Doubles of the window, even so that the buffers after it are 16-byte
-// aligned.
+// Values of the window, a multiple of 16 bytes so that the buffers after
+// it are 16-byte aligned.
+template <typename T>
 __host__ __device__ __forceinline__ long long window_size(int max_win,
                                                          int nc) {
-  return (static_cast<long long>(max_win) * row_stride(nc) + 1) & ~1LL;
+  constexpr long long q = 16 / sizeof(T);
+  return (static_cast<long long>(max_win) * row_stride(nc) + q - 1) &
+         ~(q - 1);
 }
 
-__device__ __forceinline__ void cp16(double* dst, const double* src) {
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
                "l"(src));
@@ -142,13 +163,15 @@ __device__ __forceinline__ void cp_wait() {
 
 // Sum of steps [st, st1) applied to the window column x (the lane's pair,
 // or a channel of W): 4 chains, (s0 + s1) + (s2 + s3).
-__device__ __forceinline__ double run_sum(const double* b, int st, int st1,
-                                          const double* x) {
-  double s0 = 0.0, s1 = 0.0, s2 = 0.0, s3 = 0.0;
+template <typename T>
+__device__ __forceinline__ T run_sum(const T* b, int st, int st1,
+                                     const T* x) {
+  T s0 = T(0), s1 = T(0), s2 = T(0), s3 = T(0);
 #pragma unroll 2
   for (; st < st1; ++st) {
-    const double* r = b + st * STEP;
-    const unsigned long long o = __double_as_longlong(r[4]);
+    const T* r = b + st * step_units<T>();
+    const unsigned long long o =
+        *reinterpret_cast<const unsigned long long*>(r + 4);
     s0 += r[0] * x[o & 0xffff];
     s1 += r[1] * x[(o >> 16) & 0xffff];
     s2 += r[2] * x[(o >> 32) & 0xffff];
@@ -157,22 +180,32 @@ __device__ __forceinline__ double run_sum(const double* b, int st, int st1,
   return (s0 + s1) + (s2 + s3);
 }
 
+// Two consecutive values of a J row, one 8- (float) or 16-byte (double)
+// store; the caller keeps the first at an even column.
+__device__ __forceinline__ void store2(double* p, double a, double b) {
+  *reinterpret_cast<double2*>(p) = make_double2(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(NW * 32, 2) pair_u_duals_kernel(
-    const double* __restrict__ disp, const int* __restrict__ jelem,
+    const T* __restrict__ disp, const int* __restrict__ jelem,
     const unsigned char* __restrict__ mask, const int* __restrict__ ielem,
-    const double* __restrict__ elem, Scalars s, long long natoms, int K,
-    Plan pl, int twojmax, int two_u, int nc, int wselfall,
-    const double* __restrict__ selfvec, double* __restrict__ J,
-    double* __restrict__ ut) {
-  extern __shared__ double smem[];
+    const T* __restrict__ elem, Scalars s, long long natoms, int K,
+    Plan<T> pl, int twojmax, int two_u, int nc, int wselfall,
+    const T* __restrict__ selfvec, T* __restrict__ J, T* __restrict__ ut) {
+  extern __shared__ __align__(16) unsigned char smem_w[];
+  constexpr int HU = hdr_units<T>();
   const int ms = row_stride(nc);
   // [max_win][ms]: the tile's pairs' monomials, then W's channels
-  double* M = smem;
-  double* W = M + TP;
+  T* M = reinterpret_cast<T*>(smem_w);
+  T* W = M + TP;
   // [NPRO][TP]: ar, ai, br, bi; w; dw/dx_c (3); dv/dx_c (v * 3 + c, 12)
-  double* pro = M + window_size(pl.max_win, nc);
-  double* pw = pro + NPRO * TP;     // [4][twojmax + 1][TP]: the powers
-  double* sbuf = pw + 4 * (twojmax + 1) * TP;        // [NW][2][bufd]
+  T* pro = M + window_size<T>(pl.max_win, nc);
+  T* pw = pro + NPRO * TP;          // [4][twojmax + 1][TP]: the powers
+  T* sbuf = pw + 4 * (twojmax + 1) * TP;             // [NW][2][bufd]
   int2* sloc = reinterpret_cast<int2*>(sbuf + 2 * NW * pl.bufd);
   int* swin = reinterpret_cast<int*>(sloc + NW * pl.max_wch);  // [max_win]
   int* slots = swin + pl.max_win;                    // [K]
@@ -206,7 +239,7 @@ __global__ void __launch_bounds__(NW * 32, 2) pair_u_duals_kernel(
   const int nwin = pl.win_ptr[sp + 1] - w0;
   for (int i = threadIdx.x; i < nwin; i += blockDim.x) {
     swin[i] = pl.win_exp[w0 + i];
-    for (int e = 0; e < nc; ++e) W[i * ms + e] = 0.0;
+    for (int e = 0; e < nc; ++e) W[i * ms + e] = T(0);
   }
   const int c0 = pl.cw_ptr[sp * NW + warp];
   const int nch = pl.cw_ptr[sp * NW + warp + 1] - c0;
@@ -221,24 +254,26 @@ __global__ void __launch_bounds__(NW * 32, 2) pair_u_duals_kernel(
     for (int mi = warp; mi < K - nlive; mi += NW) {
       const long long base = a * K + slots[K - 1 - mi];
       for (int u = run.x + lane; u < run.y; u += 32)
-        for (int c = 0; c < 3; ++c) J[(c * rows + base) * two_u + u] = 0.0;
+        for (int c = 0; c < 3; ++c) J[(c * rows + base) * two_u + u] = T(0);
     }
   }
 
-  double* buf = sbuf + warp * 2 * pl.bufd;
+  T* buf = sbuf + warp * 2 * pl.bufd;
+  constexpr int V16 = 16 / sizeof(T);    // values of a 16-byte copy
   // chunk k of the warp into buffer half k & 1
   auto fetch = [&](int k) {
     const int2 l = loc[k];
-    const double* src = pl.blob + l.x;
-    double* dst = buf + (k & 1) * pl.bufd;
-    for (int i = lane; i < l.y / 2; i += 32) cp16(dst + 2 * i, src + 2 * i);
+    const T* src = pl.blob + l.x;
+    T* dst = buf + (k & 1) * pl.bufd;
+    for (int i = lane; i < l.y / V16; i += 32)
+      cp16(dst + V16 * i, src + V16 * i);
     cp_commit();
   };
-  const double* Ml = M + lane;
+  const T* Ml = M + lane;
   for (int t0 = 0; t0 < nlive; t0 += TP) {
     const int np = min(TP, nlive - t0);
     if (warp == 0) {
-      Dual out[5];
+      DualT<T> out[5];
       int chn = -1;
       if (lane < np) {
         const long long pk = a * K + slots[t0 + lane];
@@ -246,7 +281,7 @@ __global__ void __launch_bounds__(NW * 32, 2) pair_u_duals_kernel(
         prologue(disp[pk * 3], disp[pk * 3 + 1], disp[pk * 3 + 2], true, ie,
                  chn, elem, s, out);
       } else {
-        prologue(1.0, 0.0, 0.0, false, ie, 0, elem, s, out);
+        prologue(T(1), T(0), T(0), false, ie, 0, elem, s, out);
       }
       for (int v = 0; v < 4; ++v) {
         pro[v * TP + lane] = out[v].v;
@@ -257,7 +292,7 @@ __global__ void __launch_bounds__(NW * 32, 2) pair_u_duals_kernel(
       for (int c = 0; c < 3; ++c) pro[(5 + c) * TP + lane] = out[4].d[c];
       tch[lane] = nc == 1 ? 0 : chn;
       for (int v = 0; v < 4; ++v) {
-        double x = 1.0;
+        T x = T(1);
         for (int e = 0; e <= twojmax; ++e) {
           pw[(v * (twojmax + 1) + e) * TP + lane] = x;
           x *= out[v].v;
@@ -265,8 +300,8 @@ __global__ void __launch_bounds__(NW * 32, 2) pair_u_duals_kernel(
       }
     }
     __syncthreads();
-    const double w = pro[4 * TP + lane];
-    double wt[3], dv[4][3];
+    const T w = pro[4 * TP + lane];
+    T wt[3], dv[4][3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       wt[c] = pro[(5 + c) * TP + lane];
@@ -274,10 +309,10 @@ __global__ void __launch_bounds__(NW * 32, 2) pair_u_duals_kernel(
       for (int v = 0; v < 4; ++v) dv[v][c] = pro[(8 + v * 3 + c) * TP + lane];
     }
     {
-      const double* pl0 = pw + lane;
-      const double* pl1 = pl0 + (twojmax + 1) * TP;
-      const double* pl2 = pl1 + (twojmax + 1) * TP;
-      const double* pl3 = pl2 + (twojmax + 1) * TP;
+      const T* pl0 = pw + lane;
+      const T* pl1 = pl0 + (twojmax + 1) * TP;
+      const T* pl2 = pl1 + (twojmax + 1) * TP;
+      const T* pl3 = pl2 + (twojmax + 1) * TP;
       for (int i = warp; i < nwin; i += NW) {
         const int e = swin[i];
         M[i * ms + lane] = pl0[(e & 255) * TP] * pl1[((e >> 8) & 255) * TP] *
@@ -287,10 +322,10 @@ __global__ void __launch_bounds__(NW * 32, 2) pair_u_duals_kernel(
     __syncthreads();
     // W += the tile's pairs, in neighbor order, a thread a monomial
     for (int i = threadIdx.x; i < nwin; i += blockDim.x) {
-      const double* mi = M + i * ms;
-      double* wi = W + i * ms;
+      const T* mi = M + i * ms;
+      T* wi = W + i * ms;
       if (nc == 1) {
-        double v = wi[0];
+        T v = wi[0];
         for (int p = 0; p < np; ++p) v += pro[4 * TP + p] * mi[p];
         wi[0] = v;
       } else {
@@ -310,16 +345,16 @@ __global__ void __launch_bounds__(NW * 32, 2) pair_u_duals_kernel(
         cp_wait<0>();
       }
       __syncwarp();
-      const double* hb = buf + (k & 1) * pl.bufd;
+      const T* hb = buf + (k & 1) * pl.bufd;
       const int* m = reinterpret_cast<const int*>(hb);
-      const double* b = hb + HDR;
+      const T* b = hb + HU;
       const int col0 = m[0], ncols = m[1];
-      double jv[3][CW];
+      T jv[3][CW];
       int st = 0;
 #pragma unroll
       for (int cc = 0; cc < CW; ++cc) {
         if (cc >= ncols) break;
-        double col[5];
+        T col[5];
 #pragma unroll
         for (int g = 0; g < 5; ++g) {
           const int st1 = m[4 + cc * 5 + g];
@@ -328,23 +363,22 @@ __global__ void __launch_bounds__(NW * 32, 2) pair_u_duals_kernel(
         }
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          const double tan = dv[0][c] * col[1] + dv[1][c] * col[2] +
-                             dv[2][c] * col[3] + dv[3][c] * col[4];
+          const T tan = dv[0][c] * col[1] + dv[1][c] * col[2] +
+                        dv[2][c] * col[3] + dv[3][c] * col[4];
           jv[c][cc] = w * tan + wt[c] * col[0];
         }
       }
-      // the lane's row segments, 16 bytes a store where aligned
+      // the lane's row segments, two values a store where aligned
       if (lane < np) {
         const long long kk = a * K + slots[t0 + lane];
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          double* row = J + (c * rows + kk) * two_u + col0;
+          T* row = J + (c * rows + kk) * two_u + col0;
           if ((col0 & 1) == 0) {
 #pragma unroll
             for (int cc = 0; cc < CW; cc += 2) {
               if (cc + 1 < ncols)
-                *reinterpret_cast<double2*>(row + cc) =
-                    make_double2(jv[c][cc], jv[c][cc + 1]);
+                store2(row + cc, jv[c][cc], jv[c][cc + 1]);
               else if (cc < ncols)
                 row[cc] = jv[c][cc];
             }
@@ -353,8 +387,7 @@ __global__ void __launch_bounds__(NW * 32, 2) pair_u_duals_kernel(
 #pragma unroll
             for (int cc = 1; cc < CW; cc += 2) {
               if (cc + 1 < ncols)
-                *reinterpret_cast<double2*>(row + cc) =
-                    make_double2(jv[c][cc], jv[c][cc + 1]);
+                store2(row + cc, jv[c][cc], jv[c][cc + 1]);
               else if (cc < ncols)
                 row[cc] = jv[c][cc];
             }
@@ -371,7 +404,7 @@ __global__ void __launch_bounds__(NW * 32, 2) pair_u_duals_kernel(
     fetch(k);
     cp_wait<0>();
     __syncwarp();
-    const double* hb = buf + (k & 1) * pl.bufd;
+    const T* hb = buf + (k & 1) * pl.bufd;
     const int* m = reinterpret_cast<const int*>(hb);
     for (int cc = 0; cc < m[1]; ++cc) {
       const int u = m[0] + cc;
@@ -379,8 +412,8 @@ __global__ void __launch_bounds__(NW * 32, 2) pair_u_duals_kernel(
       for (int e = lane; e < nc; e += 32) {
         const bool self = nc == 1 || wselfall || e == ie;
         ut[(a * nc + e) * two_u + u] =
-            run_sum(hb + HDR, st, m[4 + cc * 5], W + e) +
-            (self ? selfvec[u] : 0.0);
+            run_sum(hb + HU, st, m[4 + cc * 5], W + e) +
+            (self ? selfvec[u] : T(0));
       }
     }
     __syncwarp();
@@ -390,12 +423,49 @@ __global__ void __launch_bounds__(NW * 32, 2) pair_u_duals_kernel(
 // Shared memory of one block: the window, the tile's prologue and powers,
 // the warps' double buffers, the warps' chunk locations, the window's
 // exponents, the slot lists (`snap_kernels.pair_u_smem`).
-long long pair_u_duals_smem(const Plan& pl, int twojmax, int nc, int K) {
-  return static_cast<long long>(sizeof(double)) *
-             (window_size(pl.max_win, nc) + NPRO * TP +
+template <typename T>
+long long pair_u_duals_smem(const Plan<T>& pl, int twojmax, int nc, int K) {
+  return static_cast<long long>(sizeof(T)) *
+             (window_size<T>(pl.max_win, nc) + NPRO * TP +
               4LL * (twojmax + 1) * TP + 2LL * NW * pl.bufd) +
          static_cast<long long>(sizeof(int)) *
              (2 * NW * pl.max_wch + pl.max_win + K + TP + 1);
+}
+
+template <typename T>
+int pair_u_duals_launch(const T* disp, const int* jelem,
+                        const unsigned char* mask, const int* ielem,
+                        const T* elem, double rcutfac, double rfac0,
+                        double rmin0, int switchflag, int switchinnerflag,
+                        long long natoms, int K, const T* blob, const int* loc,
+                        const int* cw_ptr, const int* win_ptr,
+                        const int* win_exp, const int* zr_ptr,
+                        const int* zruns, int nsplit, int max_win,
+                        int max_wch, int bufd, int twojmax, int two_u, int nc,
+                        int wselfall, const T* selfvec, T* J, T* ut,
+                        void* stream) {
+  const Scalars s{rcutfac, rfac0, rmin0, switchflag, switchinnerflag};
+  const Plan<T> pl{blob,    reinterpret_cast<const int2*>(loc),
+                   cw_ptr,  win_ptr,
+                   win_exp, zr_ptr,
+                   reinterpret_cast<const int2*>(zruns),
+                   max_win, max_wch,
+                   bufd};
+  const long long smem = pair_u_duals_smem(pl, twojmax, nc, K);
+  if (nsplit < 1 || nsplit > 65535 || (bufd * sizeof(T)) % 16 ||
+      smem > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = fs_allow_smem(pair_u_duals_kernel<T>, smem);
+  if (err) return err;
+  if (natoms > 0) {
+    const dim3 grid(static_cast<unsigned>(natoms),
+                    static_cast<unsigned>(nsplit));
+    pair_u_duals_kernel<T><<<grid, NW * 32, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+        disp, jelem, mask, ielem, elem, s, natoms, K, pl, twojmax, two_u, nc,
+        wselfall, selfvec, J, ut);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The table shape.  Row stride of the pair tables X and Y, odd.
@@ -699,27 +769,30 @@ extern "C" int pair_u_duals(
     int twojmax, int two_u, int nc, int wselfall, const double* selfvec,
     double* J,
     double* ut, void* stream) {
-  const Scalars s{rcutfac, rfac0, rmin0, switchflag, switchinnerflag};
-  const Plan pl{blob,    reinterpret_cast<const int2*>(loc),
-                cw_ptr,  win_ptr,
-                win_exp, zr_ptr,
-                reinterpret_cast<const int2*>(zruns),
-                max_win, max_wch,
-                bufd};
-  const long long smem = pair_u_duals_smem(pl, twojmax, nc, K);
-  if (nsplit < 1 || nsplit > 65535 || bufd % 2 || smem > 232448)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int err = fs_allow_smem(pair_u_duals_kernel, smem);
-  if (err) return err;
-  if (natoms > 0) {
-    const dim3 grid(static_cast<unsigned>(natoms),
-                    static_cast<unsigned>(nsplit));
-    pair_u_duals_kernel<<<grid, NW * 32, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-        disp, jelem, mask, ielem, elem, s, natoms, K, pl, twojmax, two_u, nc,
-        wselfall, selfvec, J, ut);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return pair_u_duals_launch<double>(
+      disp, jelem, mask, ielem, elem, rcutfac, rfac0, rmin0, switchflag,
+      switchinnerflag, natoms, K, blob, loc, cw_ptr, win_ptr, win_exp, zr_ptr,
+      zruns, nsplit, max_win, max_wch, bufd, twojmax, two_u, nc, wselfall,
+      selfvec, J, ut, stream);
+}
+
+// The float32 instantiation of the window shape: `pair_u_duals`' arguments
+// with disp, elem, selfvec, J, ut and the plan's blob f32 (its steps 24
+// bytes: 4 float coefficients, then the offsets; bufd in floats).
+extern "C" int pair_u_duals_f32(
+    const float* disp, const int* jelem, const unsigned char* mask,
+    const int* ielem, const float* elem, double rcutfac, double rfac0,
+    double rmin0, int switchflag, int switchinnerflag, long long natoms,
+    int K, const float* blob, const int* loc, const int* cw_ptr,
+    const int* win_ptr, const int* win_exp, const int* zr_ptr,
+    const int* zruns, int nsplit, int max_win, int max_wch, int bufd,
+    int twojmax, int two_u, int nc, int wselfall, const float* selfvec,
+    float* J, float* ut, void* stream) {
+  return pair_u_duals_launch<float>(
+      disp, jelem, mask, ielem, elem, rcutfac, rfac0, rmin0, switchflag,
+      switchinnerflag, natoms, K, blob, loc, cw_ptr, win_ptr, win_exp, zr_ptr,
+      zruns, nsplit, max_win, max_wch, bufd, twojmax, two_u, nc, wselfall,
+      selfvec, J, ut, stream);
 }
 
 // K1's table shape: disp, jelem, mask, ielem, elem, the prologue scalars,

@@ -57,6 +57,11 @@
 // floating-point atomics: the outputs repeat bit for bit.  One template
 // gives both entry points: zbl_eav's instantiation holds none of
 // ref_eav's loads or branches.
+//
+// Working types: zbl_eav also has a float32 instantiation (`zbl_eav_f32`,
+// the streamed linear SNAP fit at float32): float32 displacements, table
+// (rounded once from the float64 one), constants and cutoffs, and float32
+// sums in the same fixed orders; ref_eav is float64 only.
 #include "common.cuh"
 
 namespace {
@@ -85,7 +90,8 @@ __device__ __forceinline__ double bethe_slater(double r, double a, double g,
   return 4.0 * a * x2 * (1.0 - g * x2) * exp(-x2);
 }
 
-__device__ __forceinline__ double warp_sum(double v) {
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -94,23 +100,24 @@ __device__ __forceinline__ double warp_sum(double v) {
 
 // EXTRA: ref_eav (charges, spins and their scalars read; either of the
 // two arrays may be null); else zbl_eav.
-template <bool EXTRA>
+template <bool EXTRA, typename F>
 __global__ void __launch_bounds__(THREADS)
-    ref_eav_kernel(const double* __restrict__ disp,
+    ref_eav_kernel(const F* __restrict__ disp,
                    const int* __restrict__ jidx,
                    const unsigned char* __restrict__ mask,
                    const int* __restrict__ rev,
                    const int* __restrict__ types,
-                   const double* __restrict__ table,
+                   const F* __restrict__ table,
                    const double* __restrict__ charges,
                    const double* __restrict__ spins,
                    const double* __restrict__ extra, int A, int K, int R,
-                   int T, int bpc, double cut_inner, double cut_outer,
-                   double* __restrict__ part, unsigned* __restrict__ ticket,
-                   double* __restrict__ energy, double* __restrict__ force,
-                   double* __restrict__ virial) {
-  __shared__ double red[WARPS][NPART];
-  __shared__ double fsum[WARPS][6];       // own and reverse sums of g
+                   int T, int bpc, F cut_inner, F cut_outer,
+                   F* __restrict__ part, unsigned* __restrict__ ticket,
+                   F* __restrict__ energy, F* __restrict__ force,
+                   F* __restrict__ virial) {
+  static_assert(!EXTRA || sizeof(F) == 8, "ref_eav runs at float64 only");
+  __shared__ F red[WARPS][NPART];
+  __shared__ F fsum[WARPS][6];            // own and reverse sums of g
   __shared__ bool last;
   const int c = blockIdx.x / bpc;             // config
   const int b = blockIdx.x - c * bpc;         // block of the config
@@ -119,8 +126,8 @@ __global__ void __launch_bounds__(THREADS)
   const int i = b * ATOMS + warp / WPA;       // atom of the config
   const int L = lane + 32 * (warp % WPA);     // the atom's lane
   const long long first = static_cast<long long>(c) * A;
-  double es = 0.0, v[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-  double fo[3] = {0.0, 0.0, 0.0}, fr[3] = {0.0, 0.0, 0.0};
+  F es = F(0), v[6] = {F(0), F(0), F(0), F(0), F(0), F(0)};
+  F fo[3] = {F(0), F(0), F(0)}, fr[3] = {F(0), F(0), F(0)};
   if (i < A) {
     const long long n = first + i;
     const int ti = types[n];
@@ -157,13 +164,13 @@ __global__ void __launch_bounds__(THREADS)
           }
         }
       }
-      double d[G][3];
+      F d[G][3];
       int pt[G];
       double qo[G], so[G][3];            // ref_eav: the other atom's q, s
 #pragma unroll
       for (int u = 0; u < G; ++u) {      // 2. mask, displacement, type pair
         pt[u] = -1;
-        d[u][0] = d[u][1] = d[u][2] = 0.0;
+        d[u][0] = d[u][1] = d[u][2] = F(0);
         if constexpr (EXTRA) qo[u] = so[u][0] = so[u][1] = so[u][2] = 0.0;
         if (s[u] >= 0 && mask[s[u]]) {
           d[u][0] = disp[3 * s[u]];
@@ -185,31 +192,32 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int u = 0; u < G; ++u) {      // 3. e and e', then the sums
         if (pt[u] < 0) continue;
-        const double* p = table + 6 * pt[u];
-        const double dx = d[u][0], dy = d[u][1], dz = d[u][2];
-        const double r = sqrt(dx * dx + dy * dy + dz * dz);
-        const bool zon = p[5] != 0.0 && r < cut_outer;
+        const F* p = table + 6 * pt[u];
+        const F dx = d[u][0], dy = d[u][1], dz = d[u][2];
+        const F r = sqrt(dx * dx + dy * dy + dz * dz);
+        const bool zon = p[5] != F(0) && r < cut_outer;
         if (!EXTRA && !zon) continue;
-        const double rinv = 1.0 / r;
-        double e = 0.0, de = 0.0;
+        const F rinv = F(1) / r;
+        F e = F(0), de = F(0);
         if (zon) {
-          const double pre = p[0];
-          const double ainv = 1.0 / p[1];
-          const double xa = r * ainv;
-          double phi = 0.0, dphi = 0.0;
+          const F pre = p[0];
+          const F ainv = F(1) / p[1];
+          const F xa = r * ainv;
+          F phi = F(0), dphi = F(0);
 #pragma unroll
           for (int m = 0; m < 4; ++m) {
-            const double ex = exp(-kD[m] * xa);
-            phi += kC[m] * ex;
-            dphi -= kC[m] * kD[m] * ex;
+            const F c = static_cast<F>(kC[m]), dm = static_cast<F>(kD[m]);
+            const F ex = exp(-dm * xa);
+            phi += c * ex;
+            dphi -= c * dm * ex;
           }
           dphi *= ainv;
           e = pre * rinv * phi + p[4];
           de = pre * rinv * (dphi - phi * rinv);
           if (r > cut_inner) {
-            const double t = r - cut_inner;
+            const F t = r - cut_inner;
             e += t * t * t * (p[2] + p[3] * t);
-            de += t * t * (3.0 * p[2] + 4.0 * p[3] * t);
+            de += t * t * (F(3) * p[2] + F(4) * p[3] * t);
           }
         }
         if constexpr (EXTRA) {
@@ -225,8 +233,8 @@ __global__ void __launch_bounds__(THREADS)
                  bethe_slater(r, x.ak, x.gk, x.dk) * (dot * dot - x.off);
           }
         }
-        const double f = 0.5 * de * rinv;
-        const double gx = f * dx, gy = f * dy, gz = f * dz;
+        const F f = F(0.5) * de * rinv;
+        const F gx = f * dx, gy = f * dy, gz = f * dz;
         if (g0 + u < uo) {
           es += e;
           fo[0] += gx;
@@ -266,7 +274,7 @@ __global__ void __launch_bounds__(THREADS)
   }
   __syncthreads();
   if (warp % WPA == 0 && lane < 3 && i < A) {
-    double so = 0.0, sr = 0.0;
+    F so = F(0), sr = F(0);
 #pragma unroll
     for (int h = 0; h < WPA; ++h) {
       so += fsum[warp + h][lane];
@@ -275,7 +283,7 @@ __global__ void __launch_bounds__(THREADS)
     force[3 * (first + i) + lane] = so - sr;
   }
   if (threadIdx.x < NPART) {
-    double t = 0.0;
+    F t = F(0);
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) t += red[w][threadIdx.x];
     part[static_cast<long long>(blockIdx.x) * NPART + threadIdx.x] = t;
@@ -287,14 +295,14 @@ __global__ void __launch_bounds__(THREADS)
   __syncthreads();
   if (!last) return;
   // the last block of config c: its blocks' partials in block order
-  const double* pc = part + static_cast<long long>(c) * bpc * NPART;
+  const F* pc = part + static_cast<long long>(c) * bpc * NPART;
   for (int d = warp; d < NPART; d += WARPS) {
-    double t = 0.0;
+    F t = F(0);
     for (int q = lane; q < bpc; q += 32) t += __ldcg(pc + q * NPART + d);
     t = warp_sum(t);
     if (lane == 0) {
       if (d == 0)
-        energy[c] = 0.5 * t;
+        energy[c] = F(0.5) * t;
       else
         virial[6 * c + d - 1] = t;
     }
@@ -302,22 +310,23 @@ __global__ void __launch_bounds__(THREADS)
   if (threadIdx.x == 0) ticket[c] = 0u;
 }
 
-template <bool EXTRA>
-static int launch(const double* disp, const int* jidx,
+template <bool EXTRA, typename F>
+static int launch(const F* disp, const int* jidx,
                   const unsigned char* mask, const int* rev, const int* types,
-                  const double* table, const double* charges,
+                  const F* table, const double* charges,
                   const double* spins, const double* extra, int C, int A,
                   int K, int R, int T, double cut_inner, double cut_outer,
-                  double* part, unsigned* ticket, double* energy,
-                  double* force, double* virial, void* stream) {
+                  F* part, unsigned* ticket, F* energy,
+                  F* force, F* virial, void* stream) {
   const int bpc = (A + ATOMS - 1) / ATOMS;
   const long long blocks = static_cast<long long>(C) * bpc;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   if (blocks > 0) {
-    ref_eav_kernel<EXTRA><<<static_cast<unsigned>(blocks), THREADS, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+    ref_eav_kernel<EXTRA, F><<<static_cast<unsigned>(blocks), THREADS, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
         disp, jidx, mask, rev, types, table, charges, spins, extra, A, K, R,
-        T, bpc, cut_inner, cut_outer, part, ticket, energy, force, virial);
+        T, bpc, static_cast<F>(cut_inner), static_cast<F>(cut_outer), part,
+        ticket, energy, force, virial);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -336,9 +345,25 @@ extern "C" int zbl_eav(const double* disp, const int* jidx,
                        double cut_outer, double* part, unsigned* ticket,
                        double* energy, double* force, double* virial,
                        void* stream) {
-  return launch<false>(disp, jidx, mask, rev, types, table, nullptr, nullptr,
-                       nullptr, C, A, K, R, T, cut_inner, cut_outer, part,
-                       ticket, energy, force, virial, stream);
+  return launch<false, double>(disp, jidx, mask, rev, types, table, nullptr,
+                               nullptr, nullptr, C, A, K, R, T, cut_inner,
+                               cut_outer, part, ticket, energy, force, virial,
+                               stream);
+}
+
+// The float32 instantiation of zbl_eav: disp, table, part, energy, force
+// and virial f32; the cutoffs rounded to float32 here.
+extern "C" int zbl_eav_f32(const float* disp, const int* jidx,
+                           const unsigned char* mask, const int* rev,
+                           const int* types, const float* table, int C,
+                           int A, int K, int R, int T, double cut_inner,
+                           double cut_outer, float* part, unsigned* ticket,
+                           float* energy, float* force, float* virial,
+                           void* stream) {
+  return launch<false, float>(disp, jidx, mask, rev, types, table, nullptr,
+                              nullptr, nullptr, C, A, K, R, T, cut_inner,
+                              cut_outer, part, ticket, energy, force, virial,
+                              stream);
 }
 
 // zbl_eav's arguments (a table of inactive rows where there is no zbl)
@@ -352,7 +377,8 @@ extern "C" int ref_eav(const double* disp, const int* jidx,
                        int T, double cut_inner, double cut_outer,
                        double* part, unsigned* ticket, double* energy,
                        double* force, double* virial, void* stream) {
-  return launch<true>(disp, jidx, mask, rev, types, table, charges, spins,
-                      extra, C, A, K, R, T, cut_inner, cut_outer, part,
-                      ticket, energy, force, virial, stream);
+  return launch<true, double>(disp, jidx, mask, rev, types, table, charges,
+                              spins, extra, C, A, K, R, T, cut_inner,
+                              cut_outer, part, ticket, energy, force, virial,
+                              stream);
 }

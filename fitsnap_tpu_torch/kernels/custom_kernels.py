@@ -16,17 +16,19 @@ launch adds one to the wrapper's `launches` count.  Shapes: disp (..., K,
 """
 
 import math
+from functools import partial
 
 import torch
 
 from fitsnap_tpu_torch.kernels import launch as kl
-from fitsnap_tpu_torch.kernels.launch import (check as _check,
-                                              launch as _launch,
+from fitsnap_tpu_torch.kernels.launch import (launch as _launch,
                                               on_cpu as _on_cpu, ptr as _ptr)
 from fitsnap_tpu_torch.kernels.nn_kernels import nn_pair_gather
 from fitsnap_tpu_torch.ops import custom_desc as ops
 
 _P, _I, _LL, _D = kl.P, kl.I, kl.LL, kl.D
+# float64 only: float32 names its ROADMAP.md queue item
+_check = partial(kl.check, queue=kl.QUEUE_NN)
 _SHAPE = [_LL, _I, _I, _I, _D]       # atoms, K, R, M, cutoff
 kl.register("pair_desc", "pair_desc", [_P] * 3 + _SHAPE + [_P] * 3)
 kl.register("pair_desc_vjp", "pair_desc", [_P] * 5 + _SHAPE + [_P] * 2)

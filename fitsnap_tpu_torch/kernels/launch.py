@@ -6,6 +6,14 @@ calls `launch` with the tensors' device and the arguments; every entry
 point takes the CUDA stream last and returns a CUDA error code.  `on_cpu`
 decides between a wrapper's kernel and its plain version, `check` guards
 the inputs' dtype, shape and layout before a launch.
+
+Working types: every kernel runs at float64.  The kernels of the streamed
+linear SNAP fit (K1 in its window shape, K2, K3 in whole rows, K4, K5's
+`zbl_eav`, K7, K8) also have a float32 instantiation, an entry point
+named with `_f32`; their wrappers take the inputs' one float type
+(`float_type`).  Every other mode refuses float32 with the `ROADMAP.md`
+queue item that ports it (`check`'s `queue`, the `QUEUE_*` titles), and
+none of them falls back to float64 or to its plain version.
 """
 
 import ctypes
@@ -24,6 +32,16 @@ SMEM_PAIR = 233472 // 2 - 1024   # bytes a block can use, two blocks an SM
 AG_STAGE_BYTES = 8 * 128 * 8     # csrc/atom_gemm.cuh's epilogue stage
 
 _ENTRY = {}           # entry point -> (library, argtypes)
+
+FLOAT_TYPES = (torch.float64, torch.float32)
+# the ROADMAP.md section 1 queue items that port float32 to the modes past
+# the streamed linear SNAP fit
+QUEUE_NN = "The NN solver at float32"
+QUEUE_ACE = "ACE at float32"
+QUEUE_CHEM = ("Chemflag, quadraticflag and the coul/cut and spin references "
+              "at float32")
+QUEUE_LARGE = "Twojmax 13-16 at float32"
+QUEUE_SPATIAL = "build_spatial_rows_fn at float32"
 
 
 def ag_ldl(inner):
@@ -77,8 +95,46 @@ def on_cpu(*tensors):
     return False
 
 
-def check(t, name, dtype, shape):
+def f32_refusal(name, queue):
+    """The TypeError of a float32 input to a mode without a float32
+    kernel: it names the ROADMAP.md queue item `queue` that ports it."""
+    return TypeError(f"{name}: float32 is not ported for this mode yet "
+                     f"(ROADMAP.md section 1, queue item \"{queue}\"); "
+                     f"pass float64")
+
+
+def float_type(name, *tensors):
+    """The one float type of a wrapper's float inputs: float64, or float32
+    for the kernels with a float32 instantiation; raises TypeError on any
+    other type and on a mix."""
+    types = {t.dtype for t in tensors}
+    if len(types) != 1 or next(iter(types)) not in FLOAT_TYPES:
+        raise TypeError(f"{name}: the float inputs must be all float64 or "
+                        f"all float32, got {sorted(map(str, types))}")
+    return types.pop()
+
+
+def entry(name, dtype):
+    """The entry point of `name`'s instantiation at `dtype`."""
+    return name + "_f32" if dtype == torch.float32 else name
+
+
+def count(wrapper, dtype):
+    """Add one launch at `dtype` to `wrapper`'s counts (`launches`, and
+    `launches_f32` for a float32 launch)."""
+    wrapper.launches += 1
+    if dtype == torch.float32:
+        wrapper.launches_f32 += 1
+
+
+def check(t, name, dtype, shape, queue=None):
+    """Refuse a tensor that is not of `dtype` and `shape` or not
+    contiguous; a float32 tensor where float64 is expected names the queue
+    item `queue` that ports it, where given."""
     if t.dtype != dtype:
+        if queue is not None and t.dtype == torch.float32 \
+                and dtype == torch.float64:
+            raise f32_refusal(name, queue)
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "

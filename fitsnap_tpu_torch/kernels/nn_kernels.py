@@ -20,16 +20,19 @@ tensors on a CUDA device, and raises for anything else.  Every launch adds
 one to the wrapper's `launches` count.
 """
 
+from functools import partial
+
 import torch
 
 from fitsnap_tpu_torch.kernels import launch as kl
 from fitsnap_tpu_torch.kernels import snap_kernels as sk
-from fitsnap_tpu_torch.kernels.launch import (check as _check,
-                                              launch as _launch,
+from fitsnap_tpu_torch.kernels.launch import (launch as _launch,
                                               on_cpu as _on_cpu, ptr as _ptr)
 from fitsnap_tpu_torch.ops import snap as ops
 
 _P, _I, _LL, _D = kl.P, kl.I, kl.LL, kl.D
+# float64 only: float32 names its ROADMAP.md queue item
+_check = partial(kl.check, queue=kl.QUEUE_NN)
 kl.register("nn_force", "nn_force", [_P] * 2 + [_I] * 4 + [_P] * 2)
 kl.register("nn_pair_gather", "nn_force", [_P] * 2 + [_I] * 4 + [_P] * 2)
 kl.register("nn_force_t", "nn_force", [_P] * 3 + [_I] * 4 + [_P] * 2)

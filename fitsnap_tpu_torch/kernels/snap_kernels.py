@@ -33,29 +33,36 @@ from fitsnap_tpu_torch.ops import snap as ops
 from fitsnap_tpu_torch.ops.mono import mono_blocks, mono_plan
 
 _P, _I, _LL, _D = kl.P, kl.I, kl.LL, kl.D
-kl.register("pair_u_duals", "pair_u_duals",
-            [_P] * 5 + [_D] * 3 + [_I, _I, _LL, _I] + [_P] * 7 + [_I] * 8
-            + [_P] * 4)
+for _name in ("pair_u_duals", "pair_u_duals_f32"):
+    kl.register(_name, "pair_u_duals",
+                [_P] * 5 + [_D] * 3 + [_I, _I, _LL, _I] + [_P] * 7 + [_I] * 8
+                + [_P] * 4)
 kl.register("pair_u_table", "pair_u_duals",
             [_P] * 5 + [_D] * 3 + [_I, _I, _LL, _I] + [_P] * 4 + [_I] * 5
             + [_P] * 4)
-kl.register("zlist", "zlist", [_P, _LL] + [_I] * 4 + [_P] * 3 + [_I, _P]
-            + [_I] * 2 + [_P] * 3)
-kl.register("dbdd", "dbdd", [_P] * 15 + [_LL] + [_I] * 8 + [_P] * 3)
+for _name in ("zlist", "zlist_f32"):
+    kl.register(_name, "zlist", [_P, _LL] + [_I] * 4 + [_P] * 3 + [_I, _P]
+                + [_I] * 2 + [_P] * 3)
+for _name in ("dbdd", "dbdd_f32"):
+    kl.register(_name, "dbdd", [_P] * 15 + [_LL] + [_I] * 8 + [_P] * 3)
 kl.register("quad_chain", "quad_chain", [_P] * 5 + [_LL] + [_I] * 3
             + [_P] * 3)
-kl.register("pair_scatter_rows", "pair_scatter",
-            [_P] * 5 + [_I] * 8 + [_P] * 4)
-kl.register("zbl_eav", "zbl_pair",
-            [_P] * 6 + [_I] * 5 + [_D, _D] + [_P] * 6)
+for _name in ("pair_scatter_rows", "pair_scatter_rows_f32"):
+    kl.register(_name, "pair_scatter", [_P] * 5 + [_I] * 8 + [_P] * 4)
+for _name in ("zbl_eav", "zbl_eav_f32"):
+    kl.register(_name, "zbl_pair",
+                [_P] * 6 + [_I] * 5 + [_D, _D] + [_P] * 6)
 kl.register("ref_eav", "zbl_pair",
             [_P] * 9 + [_I] * 5 + [_D, _D] + [_P] * 6)
-kl.register("device_neighbors", "device_neighbors",
-            [_P] * 5 + [_I] * 5 + [_D] * 3 + [_I] + [_P] * 10)
+for _name in ("device_neighbors", "device_neighbors_f32"):
+    kl.register(_name, "device_neighbors",
+                [_P] * 5 + [_I] * 5 + [_D] * 3 + [_I] + [_P] * 10)
 kl.register("reverse_table", "device_neighbors",
             [_P, _P] + [_I] * 4 + [_P] * 3)
 kl.register("normal_contrib", "normal_contrib",
             [_P] * 15 + [_I] * 14 + [_P] * 6)
+kl.register("normal_contrib_f32", "normal_contrib",
+            [_P] * 15 + [_I] * 14 + [_P] * 7)
 
 
 # ---------------------------------------------------------------------------
@@ -205,9 +212,12 @@ def pair_u_tables(p, nsplit, shape="window"):
 
     The window shape lists the monomials a split's columns read (its
     window) and a slot's place is its window offset slot *
-    `_k1_row_stride` as uint16; chunks are padded to an even number of
-    doubles, in column order.  Tensors on the plan's device: blob (f64, the
-    chunks), loc (n, 2) i32 (first double and doubles of each chunk) by
+    `_k1_row_stride` as uint16; chunks are padded to 16 bytes, in column
+    order.  At the plan's type (`p.dtype`): a float32 plan's steps are 4
+    float32 coefficients (each rounded once from the float64 change of
+    basis) and the offsets, 6 floats, its header 24 floats.  Tensors on the
+    plan's device: blob (the chunks), loc (n, 2) i32 (first value and
+    values of each chunk) by
     (split, warp), cw_ptr (nsplit * 8 + 1); win_ptr, win_exp (p | q << 8 |
     r << 16 | s << 24); and the sizes of the kernel's buffers: the largest
     window, chunks of a warp, and doubles of a chunk.  None where a window
@@ -231,6 +241,9 @@ def pair_u_tables(p, nsplit, shape="window"):
         raise ValueError(f"pair_u_duals: {nsplit} splits of "
                          f"{len(chunks)} chunks")
     window = shape == "window"
+    f32 = p.dtype == torch.float32
+    if f32 and not window:
+        raise kl.f32_refusal("pair_u_duals (table shape)", kl.QUEUE_LARGE)
     per_col = np.diff(cols.e_ptr).reshape(-1, 5).sum(1)
     weight = np.array([per_col[u:u + n].sum() + 16 * n for u, n in chunks],
                       np.float64)
@@ -271,10 +284,20 @@ def pair_u_tables(p, nsplit, shape="window"):
                 if off.max(initial=0) > 0xffff:
                     p.k1[shape, nsplit] = None
                     return None
-                steps[:, 4] = off.astype(np.uint16).view(np.float64)[:, 0]
-                piece = np.concatenate([head.view(np.float64),
-                                        steps.reshape(-1),
-                                        np.zeros(len(c) % 2)])
+                off = off.astype(np.uint16)
+                if f32:
+                    st32 = np.zeros((len(c), 6), np.float32)
+                    st32[:, :4] = c
+                    st32[:, 4:] = off.view(np.float32)
+                    piece = np.concatenate([head.view(np.float32),
+                                            st32.reshape(-1)])
+                    piece = np.concatenate([piece, np.zeros(
+                        -len(piece) % 4, np.float32)])
+                else:
+                    steps[:, 4] = off.view(np.float64)[:, 0]
+                    piece = np.concatenate([head.view(np.float64),
+                                            steps.reshape(-1),
+                                            np.zeros(len(c) % 2)])
             else:
                 rr = np.where(m[..., None] < 0, 0, rows[np.maximum(m, 0)])
                 steps[:, 4] = np.ascontiguousarray(
@@ -324,7 +347,8 @@ def pair_u_tables(p, nsplit, shape="window"):
             shape=shape, blob=blob, loc=t(loc, 2), cw_ptr=t(cw_ptr),
             win_ptr=t(win_ptr), win_exp=t(win_exp), zr_ptr=t(zr_ptr),
             zruns=t(zruns, 2), nsplit=nsplit, max_win=max_win,
-            max_wch=max_wch, bufd=max_len, twojmax=tj)
+            max_wch=max_wch, bufd=max_len, twojmax=tj,
+            itemsize=blob.element_size())
     else:
         plan = SimpleNamespace(
             shape=shape, blob=blob, wrec=t(cw_ptr), zr_ptr=t(zr_ptr),
@@ -335,15 +359,17 @@ def pair_u_tables(p, nsplit, shape="window"):
 
 def pair_u_smem(plan, nc, K):
     """Bytes of shared memory of a K1 block (csrc/pair_u_duals.cu) of
-    `plan`'s shape."""
-    fixed = 8 * (_K1_PRO * _K1_TILE + 4 * (plan.twojmax + 1) * _K1_TILE) \
+    `plan`'s shape (a window plan at its `itemsize`, 8 or 4)."""
+    b = 8 if plan.shape == "table" else plan.itemsize
+    fixed = b * (_K1_PRO * _K1_TILE + 4 * (plan.twojmax + 1) * _K1_TILE) \
         + 4 * (K + _K1_TILE + 1)
     if plan.shape == "table":
         rows = (plan.twojmax + 1) * (plan.twojmax + 2) // 2
         return fixed + 8 * (2 * rows * (_K1_TILE | 1)
                             + (nc * plan.two_u + 1) // 2 * 2
                             + 2 * _K1_WARPS * _K1_PIECE * 5)
-    return fixed + 8 * ((plan.max_win * _k1_row_stride(nc) + 1) // 2 * 2
+    q = 16 // b                      # values of 16 bytes
+    return fixed + b * (-(-plan.max_win * _k1_row_stride(nc) // q) * q
                         + 2 * _K1_WARPS * plan.bufd) \
         + 4 * (2 * _K1_WARPS * plan.max_wch + plan.max_win)
 
@@ -359,11 +385,16 @@ def _k1_window_floor(p, K):
                                           cols.e_ptr[5 * (u + n)]]))
                   for u, n in chunks)
         steps = max(len(_k1_steps(cols, u, n)[0]) for u, n in chunks)
-        p.k1["floor"] = (win, 12 + 5 * steps + steps % 2)
+        if p.dtype == torch.float32:
+            bufd = -(-(24 + 6 * steps) // 4) * 4
+        else:
+            bufd = 12 + 5 * steps + steps % 2
+        p.k1["floor"] = (win, bufd)
     win, bufd = p.k1["floor"]
-    return pair_u_smem(SimpleNamespace(shape="window", max_win=win,
-                                       bufd=bufd, max_wch=1,
-                                       twojmax=p.twojmax), p.nchem, K)
+    return pair_u_smem(SimpleNamespace(
+        shape="window", max_win=win, bufd=bufd, max_wch=1,
+        twojmax=p.twojmax,
+        itemsize=4 if p.dtype == torch.float32 else 8), p.nchem, K)
 
 
 K1_SHAPES = ("window", "table")   # in the order the planner tries them
@@ -382,11 +413,13 @@ def pair_u_plan(p, N, K, sms):
     not, or where it first fits past `K1_WINDOW_SPLITS` splits), and of
     its split counts (powers of two) the fewest that fits and gives a
     block to every other SM (or an eighth of the chunks to a split);
-    raises when no shape fits."""
+    raises when no shape fits.  A float32 plan has the window shape alone,
+    at any split count that fits (the table shape is float64 only)."""
     nchunks = len(_k1_chunks(p))
     counts = [1 << i for i in range(nchunks.bit_length())
               if 1 << i <= nchunks]
-    for shape in K1_SHAPES:
+    f32 = p.dtype == torch.float32
+    for shape in ("window",) if f32 else K1_SHAPES:
         window = shape == "window"
         if window and _k1_window_floor(p, K) > _SMEM_LIMIT:
             continue
@@ -395,11 +428,14 @@ def pair_u_plan(p, N, K, sms):
             pl = pair_u_tables(p, s, shape)
             if pl is None or pair_u_smem(pl, p.nchem, K) > _SMEM_LIMIT:
                 continue
-            if window and not fitted and s > K1_WINDOW_SPLITS:
+            if window and not fitted and s > K1_WINDOW_SPLITS and not f32:
                 break
             fitted = True
             if 2 * N * s >= sms or 8 * s > nchunks:
                 return shape, s
+    if f32:
+        raise kl.f32_refusal(f"pair_u_duals at twojmax {p.twojmax} (no "
+                             f"window fits)", kl.QUEUE_LARGE)
     raise ValueError(f"pair_u_duals: no split of the {nchunks} column "
                      f"chunks fits a block's shared memory at K = {K}, "
                      f"{p.nchem} channel(s), twojmax {p.twojmax}")
@@ -410,10 +446,19 @@ def pair_u_split_count(p, N, K, sms):
     return pair_u_plan(p, N, K, sms)[1]
 
 
+def _plan_type(p, dt, name):
+    """Refuse a plan whose tables are not at the inputs' type `dt`."""
+    if p.dtype != dt:
+        raise TypeError(f"{name}: the plan's tables are {p.dtype} and the "
+                        f"inputs {dt}: pass p.cast({dt})")
+
+
 def _pair_u_duals_launch(disp, jelem, mask, ielem, p):
     N, K = mask.shape
     two_u = 2 * p.u_len
-    _check(disp, "disp", torch.float64, (N, K, 3))
+    dt = kl.float_type("pair_u_duals", disp)
+    _plan_type(p, dt, "pair_u_duals")
+    _check(disp, "disp", dt, (N, K, 3))
     _check(jelem, "jelem", torch.int32, (N, K))
     _check(mask, "mask", torch.bool, (N, K))
     _check(ielem, "ielem", torch.int32, (N,))
@@ -421,15 +466,16 @@ def _pair_u_duals_launch(disp, jelem, mask, ielem, p):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     shape, nsplit = pair_u_plan(p, N, K, sms)
     pl = pair_u_tables(p, nsplit, shape)
-    J = torch.empty((3, N, K, two_u), dtype=torch.float64, device=dev)
-    ut = torch.empty((N, p.nchem * two_u), dtype=torch.float64, device=dev)
+    J = torch.empty((3, N, K, two_u), dtype=dt, device=dev)
+    ut = torch.empty((N, p.nchem * two_u), dtype=dt, device=dev)
     common = (_ptr(disp), _ptr(jelem), _ptr(mask), _ptr(ielem), _ptr(p.elem),
               p.rcutfac, p.rfac0, p.rmin0, int(p.switchflag),
               int(p.switchinnerflag), N, K, _ptr(pl.blob))
     tail = (pl.twojmax, two_u, p.nchem, int(p.wselfallflag), _ptr(p.selfvec),
             _ptr(J), _ptr(ut))
     if pl.shape == "window":
-        _launch("pair_u_duals", dev, *common, _ptr(pl.loc), _ptr(pl.cw_ptr),
+        _launch(kl.entry("pair_u_duals", dt), dev, *common, _ptr(pl.loc),
+                _ptr(pl.cw_ptr),
                 _ptr(pl.win_ptr), _ptr(pl.win_exp), _ptr(pl.zr_ptr),
                 _ptr(pl.zruns), pl.nsplit, pl.max_win, pl.max_wch, pl.bufd,
                 *tail)
@@ -440,15 +486,16 @@ def _pair_u_duals_launch(disp, jelem, mask, ielem, p):
 
 
 def pair_u_duals(disp, jelem, mask, ielem, p):
-    """K1 on the card, one channel: disp (N, K, 3) f64, jelem (N, K) i32,
-    mask (N, K) bool, ielem (N,) i32.  Same outputs as
-    `pair_u_duals_plain`."""
+    """K1 on the card, one channel: disp (N, K, 3) f64 or f32 (with the
+    plan at its type, `p.cast`; float32 runs the window shape, to twojmax
+    12), jelem (N, K) i32, mask (N, K) bool, ielem (N,) i32.  Same outputs
+    as `pair_u_duals_plain`, at disp's type."""
     if _on_cpu(disp, jelem, mask, ielem):
         return pair_u_duals_plain(disp, jelem, mask, ielem, p)
     check_twojmax(p, "K1")
     _channels(p, False, "pair_u_duals")
     out = _pair_u_duals_launch(disp, jelem, mask, ielem, p)
-    pair_u_duals.launches += 1
+    kl.count(pair_u_duals, disp.dtype)
     return out
 
 
@@ -460,6 +507,7 @@ def pair_u_duals_chem(disp, jelem, mask, ielem, p):
         return pair_u_duals_plain(disp, jelem, mask, ielem, p)
     check_twojmax(p, "K1")
     _channels(p, True, "pair_u_duals_chem")
+    _check(disp, "disp", torch.float64, disp.shape, queue=kl.QUEUE_CHEM)
     out = _pair_u_duals_launch(disp, jelem, mask, ielem, p)
     pair_u_duals_chem.launches += 1
     return out
@@ -494,8 +542,9 @@ def zlist_tables(p):
     output a lane (-1 past the end): grp_out (G * 32); each group's terms
     lane-interleaved, term q of lane l at record first + 32 q + l, padded
     with zero terms to the group's count: rec (R, 4) i32 (the coefficient's
-    two words, i1, i2), grp (G, 2) (first record, count); zo the outputs
-    without terms, in order."""
+    two words, i1, i2; a float32 plan's coefficient as its float32 bits in
+    the first word, the second 0), grp (G, 2) (first record, count); zo
+    the outputs without terms, in order."""
     if p.k2 is not None:
         return p.k2
     out = p.z_out.cpu().numpy()
@@ -521,7 +570,11 @@ def zlist_tables(p):
     terms = np.concatenate(terms)
     pad = terms < 0
     rec = np.zeros((terms.size, 2), np.int64)
-    rec[:, 0] = np.where(pad, 0.0, coef[terms]).view(np.int64)
+    if p.dtype == torch.float32:
+        rec[:, 0] = np.where(pad, 0.0, coef[terms]).astype(np.float32) \
+            .view(np.int32).astype(np.int64) & 0xffffffff
+    else:
+        rec[:, 0] = np.where(pad, 0.0, coef[terms]).view(np.int64)
     rec[:, 1] = (np.where(pad, 0, i1[terms]).astype(np.int64)
                  | np.where(pad, 0, i2[terms]).astype(np.int64) << 32)
 
@@ -539,29 +592,32 @@ def zlist_tables(p):
 
 def _zlist_launch(ut, p):
     N, nc = ut.shape[0], p.nchem
-    _check(ut, "ut", torch.float64, (N, nc * 2 * p.u_len))
+    dt = kl.float_type("zlist", ut)
+    _plan_type(p, dt, "zlist")
+    _check(ut, "ut", dt, (N, nc * 2 * p.u_len))
     tb = zlist_tables(p)
     ab = max(1, _K2_COMBOS // (nc * nc))
     G = tb.grp.shape[0]
     sms = torch.cuda.get_device_properties(ut.device).multi_processor_count
     nseg = max(1, min(G // _K2_WARPS, -(-4 * sms // -(-N // ab))))
-    zr = torch.empty((N, nc * nc, p.nz), dtype=torch.float64,
-                     device=ut.device)
+    zr = torch.empty((N, nc * nc, p.nz), dtype=dt, device=ut.device)
     zi = torch.empty_like(zr)
-    _launch("zlist", ut.device, _ptr(ut), N, 2 * p.u_len, nc, ab, nseg,
+    _launch(kl.entry("zlist", dt), ut.device, _ptr(ut), N, 2 * p.u_len, nc,
+            ab, nseg,
             _ptr(tb.rec), _ptr(tb.grp), _ptr(tb.grp_out), G, _ptr(tb.zo),
             tb.zo.shape[0], p.nz, _ptr(zr), _ptr(zi))
     return zr, zi
 
 
 def zlist(ut, p):
-    """K2 on the card: ut (N, 2U) f64 -> (z_r, z_i) (N, nz)."""
+    """K2 on the card: ut (N, 2U) f64 or f32 (the plan at its type) ->
+    (z_r, z_i) (N, nz) at ut's type."""
     if _on_cpu(ut):
         return zlist_plain(ut, p)
     check_twojmax(p, "K2")
     _channels(p, False, "zlist")
     zr, zi = _zlist_launch(ut, p)
-    zlist.launches += 1
+    kl.count(zlist, ut.dtype)
     return zr[:, 0], zi[:, 0]
 
 
@@ -572,6 +628,7 @@ def zlist_chem(ut, p):
         return zlist_chem_plain(ut, p)
     check_twojmax(p, "K2")
     _channels(p, True, "zlist_chem")
+    _check(ut, "ut", torch.float64, ut.shape, queue=kl.QUEUE_CHEM)
     out = _zlist_launch(ut, p)
     zlist_chem.launches += 1
     return out
@@ -592,12 +649,17 @@ def dbdd_plan(p, K=64):
     lists, the zero-block flags and the product's epilogue stage, two
     blocks an SM where they fit (`launch.row_plan`).  Else rows of 32 and y
     built in slabs of u columns, the widest multiple of 48 whose rows fit
-    two blocks an SM."""
+    two blocks an SM.  A float32 plan's rows are float32 (whole rows to
+    twojmax 12; no slab shape at float32)."""
     ldl = kl.ag_ldl(2 * p.u_len)
-    fixed = kl.AG_STAGE_BYTES + 4 * (2 * K + 2)
-    if 16 * 8 * ldl + fixed + 2 * ldl // 8 <= _SMEM_LIMIT:
-        return kl.row_plan(p.nb_base, 8 * ldl, fixed + 2 * ldl // 8,
+    b = p.dtype.itemsize
+    fixed = kl.AG_STAGE_BYTES * b // 8 + 4 * (2 * K + 2)
+    if 16 * b * ldl + fixed + 2 * ldl // 8 <= _SMEM_LIMIT:
+        return kl.row_plan(p.nb_base, b * ldl, fixed + 2 * ldl // 8,
                            "dbdd") + (0,)
+    if p.dtype == torch.float32:
+        raise kl.f32_refusal(f"dbdd at twojmax {p.twojmax} (slab shape)",
+                             kl.QUEUE_LARGE)
     slab = 48 * ((kl.SMEM_PAIR - fixed) // (32 * 8) // 48)
     while slab > 48 and 32 * 8 * kl.ag_ldl(slab) + fixed \
             + 2 * kl.ag_ldl(slab) // 8 > kl.SMEM_PAIR:
@@ -689,21 +751,24 @@ def dbdd_chem_plain(ut, z_r, z_i, J, jelem, p):
 def _dbdd_launch(ut, z_r, z_i, J, jelem, p):
     N, K = J.shape[1], J.shape[2]
     U, W, nc = p.u_len, p.nb_base, p.nchem
-    _check(ut, "ut", torch.float64, (N, nc * 2 * U))
+    dt = kl.float_type("dbdd", ut, z_r, z_i, J)
+    _plan_type(p, dt, "dbdd")
+    _check(ut, "ut", dt, (N, nc * 2 * U))
     zshape = (N, nc * nc, p.nz) if nc > 1 else (N, p.nz)
-    _check(z_r, "z_r", torch.float64, zshape)
-    _check(z_i, "z_i", torch.float64, zshape)
-    _check(J, "J", torch.float64, (3, N, K, 2 * U))
+    _check(z_r, "z_r", dt, zshape)
+    _check(z_i, "z_i", dt, zshape)
+    _check(J, "J", dt, (3, N, K, 2 * U))
     if jelem is not None:
         _check(jelem, "jelem", torch.int32, (N, K))
     mt, tiles, slab = dbdd_plan(p, K)
     tg = dbdd_tables(p)
     dev = ut.device
     bzero = p.bzero if p.bzeroflag else torch.zeros_like(p.bzero)
-    B = torch.empty((N, W), dtype=torch.float64, device=dev)
-    dBdD = torch.empty((N, W, K, 3), dtype=torch.float64, device=dev)
+    B = torch.empty((N, W), dtype=dt, device=dev)
+    dBdD = torch.empty((N, W, K, 3), dtype=dt, device=dev)
     ranges = _ptr(dbdd_slab_ranges(p, slab)) if slab else None
-    _launch("dbdd", dev, _ptr(ut), _ptr(z_r), _ptr(z_i), _ptr(J),
+    _launch(kl.entry("dbdd", dt), dev, _ptr(ut), _ptr(z_r), _ptr(z_i),
+            _ptr(J),
             _ptr(jelem) if jelem is not None else None, _ptr(tg.tg_ptr),
             _ptr(tg.tg_u), _ptr(tg.tg_src), _ptr(tg.tg_fac), ranges,
             _ptr(p.y_src), _ptr(p.y_fac), _ptr(p.blk_chan),
@@ -713,13 +778,15 @@ def _dbdd_launch(ut, z_r, z_i, J, jelem, p):
 
 
 def dbdd(ut, z_r, z_i, J, p):
-    """K3 on the card: ut (N, 2U), z_r, z_i (N, nz), J (3, N, K, 2U)."""
+    """K3 on the card: ut (N, 2U), z_r, z_i (N, nz), J (3, N, K, 2U), all
+    f64 or all f32 (the plan at their type; float32 in whole rows, to
+    twojmax 12)."""
     if _on_cpu(ut, z_r, z_i, J):
         return dbdd_plain(ut, z_r, z_i, J, p)
     check_twojmax(p, "K3")
     _channels(p, False, "dbdd")
     out = _dbdd_launch(ut, z_r, z_i, J, None, p)
-    dbdd.launches += 1
+    kl.count(dbdd, ut.dtype)
     return out
 
 
@@ -731,6 +798,7 @@ def dbdd_chem(ut, z_r, z_i, J, jelem, p):
         return dbdd_chem_plain(ut, z_r, z_i, J, jelem, p)
     check_twojmax(p, "K3")
     _channels(p, True, "dbdd_chem")
+    _check(ut, "ut", torch.float64, ut.shape, queue=kl.QUEUE_CHEM)
     out = _dbdd_launch(ut, z_r, z_i, J, jelem, p)
     dbdd_chem.launches += 1
     return out
@@ -759,8 +827,8 @@ def quad_chain(B, dBdD, p):
     if not p.quadraticflag or W != p.nb_base:
         raise ValueError(f"quad_chain: width {W} is not the plan's base "
                          f"width {p.nb_base} with quadraticflag")
-    _check(B, "B", torch.float64, (N, W))
-    _check(dBdD, "dBdD", torch.float64, (N, W, K, 3))
+    _check(B, "B", torch.float64, (N, W), queue=kl.QUEUE_CHEM)
+    _check(dBdD, "dBdD", torch.float64, (N, W, K, 3), queue=kl.QUEUE_CHEM)
     nq = p.iq1.shape[0]
     dev = B.device
     Bx = torch.empty((N, W + nq), dtype=torch.float64, device=dev)
@@ -824,27 +892,31 @@ def pair_scatter_tile(X, K):
 
 
 def pair_scatter_rows(g, disp, vmask, rev, types, ntypes, gather_only=False):
-    """K4 on the card; same arguments and outputs as the plain version."""
+    """K4 on the card; same arguments and outputs as the plain version, g
+    and disp both f64 or both f32 (the outputs at their type; the halo's
+    `gather_only` at float64 only)."""
     if _on_cpu(g, disp, vmask, rev, types):
         return pair_scatter_rows_plain(g, disp, vmask, rev, types, ntypes,
                                        gather_only)
     C, A, X, K, _ = g.shape
     R = rev.shape[2]
-    _check(g, "g", torch.float64, (C, A, X, K, 3))
-    _check(disp, "disp", torch.float64, (C, A, K, 3))
+    dt = kl.float_type("pair_scatter_rows", g, disp)
+    if gather_only:
+        _check(g, "g", torch.float64, g.shape, queue=kl.QUEUE_SPATIAL)
+    _check(g, "g", dt, (C, A, X, K, 3))
+    _check(disp, "disp", dt, (C, A, K, 3))
     _check(vmask, "vmask", torch.bool, (C, A, K))
     _check(rev, "rev", torch.int32, (C, A, R))
     _check(types, "types", torch.int32, (C, A))
     dev = g.device
-    force = torch.empty((C, A, 3, ntypes, X), dtype=torch.float64,
-                        device=dev)
-    virial = torch.empty((C, 6, ntypes, X), dtype=torch.float64, device=dev)
-    vpart = torch.empty((C, A, 6, X), dtype=torch.float64, device=dev)
-    _launch("pair_scatter_rows", dev, _ptr(g), _ptr(disp), _ptr(vmask),
-            _ptr(rev), _ptr(types), C, A, X, K, R, ntypes,
+    force = torch.empty((C, A, 3, ntypes, X), dtype=dt, device=dev)
+    virial = torch.empty((C, 6, ntypes, X), dtype=dt, device=dev)
+    vpart = torch.empty((C, A, 6, X), dtype=dt, device=dev)
+    _launch(kl.entry("pair_scatter_rows", dt), dev, _ptr(g), _ptr(disp),
+            _ptr(vmask), _ptr(rev), _ptr(types), C, A, X, K, R, ntypes,
             pair_scatter_tile(X, K), int(gather_only), _ptr(vpart),
             _ptr(force), _ptr(virial))
-    pair_scatter_rows.launches += 1
+    kl.count(pair_scatter_rows, dt)
     return force, None if gather_only else virial
 
 
@@ -957,20 +1029,24 @@ def _zbl_tickets(device, C):
 def zbl_eav(disp, jidx, mask, rev, types, table, cut_inner, cut_outer,
             charges=None, spins=None, extra=None):
     """K5 on the card; same arguments and outputs as the plain version.
-    Without `extra` it launches the ZBL-only entry point (zbl_eav), with it
-    the whole reference (ref_eav)."""
+    Without `extra` it launches the ZBL-only entry point (zbl_eav, at
+    float64 or float32: disp and table at one type, the outputs at it),
+    with it the whole reference (ref_eav, float64 only)."""
     if _on_cpu(disp, jidx, mask, rev, types, table,
                *(x for x in (charges, spins, extra) if x is not None)):
         return zbl_eav_plain(disp, jidx, mask, rev, types, table,
                              cut_inner, cut_outer, charges, spins, extra)
     C, A, K = mask.shape
     R, T = rev.shape[2], table.shape[0]
-    _check(disp, "disp", torch.float64, (C, A, K, 3))
+    dt = kl.float_type("zbl_eav", disp, table)
+    if extra is not None:
+        _check(disp, "disp", torch.float64, disp.shape, queue=kl.QUEUE_CHEM)
+    _check(disp, "disp", dt, (C, A, K, 3))
     _check(jidx, "jidx", torch.int32, (C, A, K))
     _check(mask, "mask", torch.bool, (C, A, K))
     _check(rev, "rev", torch.int32, (C, A, R))
     _check(types, "types", torch.int32, (C, A))
-    _check(table, "table", torch.float64, (T, T, 6))
+    _check(table, "table", dt, (T, T, 6))
     if extra is None and (charges is not None or spins is not None):
         raise ValueError("zbl_eav: charges and spins need `extra`")
     if extra is not None:
@@ -984,22 +1060,22 @@ def zbl_eav(disp, jidx, mask, rev, types, table, cut_inner, cut_outer,
         return (disp.new_zeros(C), disp.new_zeros((C, A, 3)),
                 disp.new_zeros((C, 6)))
     bpc = -(-A // ZBL_ATOMS)
-    part = torch.empty((C * bpc, 7), dtype=torch.float64, device=dev)
-    energy = torch.empty((C,), dtype=torch.float64, device=dev)
-    force = torch.empty((C, A, 3), dtype=torch.float64, device=dev)
-    virial = torch.empty((C, 6), dtype=torch.float64, device=dev)
+    part = torch.empty((C * bpc, 7), dtype=dt, device=dev)
+    energy = torch.empty((C,), dtype=dt, device=dev)
+    force = torch.empty((C, A, 3), dtype=dt, device=dev)
+    virial = torch.empty((C, 6), dtype=dt, device=dev)
     head = (_ptr(disp), _ptr(jidx), _ptr(mask), _ptr(rev), _ptr(types),
             _ptr(table))
     tail = (C, A, K, R, T, float(cut_inner), float(cut_outer), _ptr(part),
             _ptr(_zbl_tickets(dev, C)), _ptr(energy), _ptr(force),
             _ptr(virial))
     if extra is None:
-        _launch("zbl_eav", dev, *head, *tail)
+        _launch(kl.entry("zbl_eav", dt), dev, *head, *tail)
     else:
         _launch("ref_eav", dev, *head,
                 *(None if x is None else _ptr(x)
                   for x in (charges, spins)), _ptr(extra), *tail)
-    zbl_eav.launches += 1
+    kl.count(zbl_eav, dt)
     return energy, force, virial
 
 
@@ -1074,6 +1150,7 @@ def device_neighbors_plain(pos_hi, pos_lo, svec_hi, svec_lo, natoms, cutoff,
 # point runs the shape and buffers it is given, and refuses only what does
 # not fit a block.
 K8_BIN_SIDE = 1.0 + 2.0 ** -20
+K8_BIN_SIDE_F32 = 1.0 + 2.0 ** -10   # the float32 grid's (csrc: the margin)
 K8_BUF = 256
 K8_FUSED_ATOMS = 1024
 K8_FUSED_SHIFTS = 512
@@ -1089,26 +1166,31 @@ def k8_bins(A):
     return max(64, min(2 * A + 64, 16384))
 
 
-def k8_grid(pos_hi, natoms, cutoff, H):
+def k8_grid(pos_hi, natoms, cutoff, H, dtype=np.float64):
     """K8's bin grid of one config, op for op as its bin pass computes it:
     (origin (3,), 1 / side, bins an axis (3,) int) over the home atoms
-    pos_hi[:natoms] (numpy, float64; each operation rounds as the kernel's
-    __dsub_rn / __dmul_rn / __ddiv_rn do)."""
-    p = np.asarray(pos_hi, np.float64)[:natoms]
+    pos_hi[:natoms] (numpy at `dtype`, the positions' type: float64 with
+    side cutoff K8_BIN_SIDE, float32 with K8_BIN_SIDE_F32; each operation
+    rounds as the kernel's __dsub_rn / __dmul_rn / __ddiv_rn, or their
+    float32 twins, do)."""
+    dt = np.dtype(dtype).type
+    p = np.asarray(pos_hi, dt)[:natoms]
     lo, hi = p.min(0), p.max(0)
 
-    def bins(side):
-        inv = 1.0 / side
-        return inv, np.floor((hi - lo) * inv) + 1.0
+    def bins(inv):
+        return np.floor((hi - lo) * inv) + dt(1.0)
 
-    side = cutoff * K8_BIN_SIDE
-    inv, n = bins(side)
-    if np.prod(n) > H:
+    # the wrapper's side and 1 / side, at float64, rounded to the type
+    side = cutoff * (K8_BIN_SIDE_F32 if dt is np.float32 else K8_BIN_SIDE)
+    side, inv = dt(side), dt(1.0 / side)
+    n = bins(inv)
+    if np.prod(n.astype(np.float64)) > H:
         m = 4
         while (m + 1) ** 3 <= H:
             m += 1
-        side = max(side, (hi - lo).max() / (m - 1.5))
-        inv, n = bins(side)
+        side = max(side, (hi - lo).max() / (dt(m) - dt(1.5)))
+        inv = dt(1.0) / side
+        n = bins(inv)
     return lo, inv, n.astype(np.int64)
 
 
@@ -1116,7 +1198,7 @@ def k8_bin_coords(points, grid):
     """The bin coordinates (..., 3) float of points (..., 3) on a
     `k8_grid`, as K8 computes them: floor((x - origin) * (1 / side))."""
     origin, inv, _ = grid
-    return np.floor((np.asarray(points, np.float64) - origin) * inv)
+    return np.floor((np.asarray(points, origin.dtype) - origin) * inv)
 
 
 def k8_near_bins(points, grid):
@@ -1130,27 +1212,31 @@ def k8_near_bins(points, grid):
 def device_neighbors(pos_hi, pos_lo, svec_hi, svec_lo, natoms, cutoff,
                      k_pad):
     """K8 on the card; same arguments and outputs as the plain version
-    (natoms int32).  One launch for A <= K8_FUSED_ATOMS and S <=
-    K8_FUSED_SHIFTS, else two (the bin pass, then the select pass).  The
-    scratch comes from here: the split shape's grids, bin ranges and
-    sorted atoms, and for k_pad above K8_BUF / 2 each atom's buffer of
-    pairs and bitmap of valid indices."""
+    (natoms int32), at float64 or float32 (the hi/lo float32 pairs of
+    `pack_batch_pos(..., dtype=np.float32)`; disp comes out float32).  One
+    launch for A <= K8_FUSED_ATOMS and S <= K8_FUSED_SHIFTS, else two (the
+    bin pass, then the select pass).  The scratch comes from here, at the
+    positions' type: the split shape's grids, bin ranges and sorted atoms,
+    and for k_pad above K8_BUF / 2 each atom's buffer of pairs and bitmap
+    of valid indices."""
     C, A, S = _neighbor_args(pos_hi, svec_hi, k_pad)
     if _on_cpu(pos_hi, pos_lo, svec_hi, svec_lo, natoms):
         return device_neighbors_plain(pos_hi, pos_lo, svec_hi, svec_lo,
                                       natoms, cutoff, k_pad)
+    dt = kl.float_type("device_neighbors", pos_hi, pos_lo, svec_hi, svec_lo)
     for t, name, shape in ((pos_hi, "pos_hi", (C, A, 3)),
                            (pos_lo, "pos_lo", (C, A, 3)),
                            (svec_hi, "svec_hi", (C, S, 3)),
                            (svec_lo, "svec_lo", (C, S, 3))):
-        _check(t, name, torch.float64, shape)
+        _check(t, name, dt, shape)
     _check(natoms, "natoms", torch.int32, (C,))
     if S * A > 2 ** 31 - 1:
         raise ValueError(f"device_neighbors: {S} x {A} candidates exceed "
                          f"the int32 flat index of a slot")
     dev = pos_hi.device
     H = k8_bins(A)
-    side = float(cutoff) * K8_BIN_SIDE
+    side = float(cutoff) * (K8_BIN_SIDE_F32 if dt == torch.float32
+                            else K8_BIN_SIDE)
 
     def scratch(shape, dtype):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -1158,24 +1244,25 @@ def device_neighbors(pos_hi, pos_lo, svec_hi, svec_lo, natoms, cutoff,
     buf, gbuf_d, gbuf_f, gbits = K8_BUF, None, None, None
     if k_pad > K8_BUF // 2:
         buf = -(-(2 * k_pad + 128) // 32) * 32
-        gbuf_d = scratch((C * A, buf), torch.float64)
+        gbuf_d = scratch((C * A, buf), dt)
         gbuf_f = scratch((C * A, buf), torch.int32)
         gbits = scratch((C * A, (2 * k_pad + 31) // 32), torch.int32)
     grids = bins = srt = None
     if A > K8_FUSED_ATOMS or S > K8_FUSED_SHIFTS:
-        grids = scratch((C, 6), torch.float64)
+        # 48 bytes a config's grid, 4 values an atom of the sorted atoms
+        grids = scratch((C, 48 // dt.itemsize), dt)
         bins = scratch((C, H + 1), torch.int32)
-        srt = scratch((C, A, 4), torch.float64)
-    disp = scratch((C, A, k_pad, 3), torch.float64)
+        srt = scratch((C, A, 4), dt)
+    disp = scratch((C, A, k_pad, 3), dt)
     jidx = scratch((C, A, k_pad), torch.int32)
     mask = scratch((C, A, k_pad), torch.bool)
     opt = [None if t is None else _ptr(t)
            for t in (gbuf_d, gbuf_f, gbits, grids, bins, srt)]
-    _launch("device_neighbors", dev, _ptr(pos_hi), _ptr(pos_lo),
-            _ptr(svec_hi), _ptr(svec_lo), _ptr(natoms), C, A, S, k_pad, H,
-            float(cutoff), side, 1.0 / side, buf, *opt, _ptr(disp),
-            _ptr(jidx), _ptr(mask))
-    device_neighbors.launches += 1
+    _launch(kl.entry("device_neighbors", dt), dev, _ptr(pos_hi),
+            _ptr(pos_lo), _ptr(svec_hi), _ptr(svec_lo), _ptr(natoms), C, A,
+            S, k_pad, H, float(cutoff), side, 1.0 / side, buf, *opt,
+            _ptr(disp), _ptr(jidx), _ptr(mask))
+    kl.count(device_neighbors, dt)
     return disp, jidx, mask
 
 
@@ -1317,25 +1404,33 @@ def row_weights(weights, natoms, num_atoms, flags):
 def normal_contrib_plain(rows, truths, weights, natoms, types, numtypes,
                          const_cols, flags, coeff=None, with_ata=True,
                          layout="snap"):
-    """Plain K7: (AtA (W, W), Atb (W,), nrows ()) of a batch, float64.
+    """Plain K7: (AtA (W, W), Atb (W,), nrows ()) of a batch.
 
     rows, truths, const_cols, layout: as for `full_rows`; weights, flags:
-    as for `row_weights`.  With `coeff`, b is replaced by the residual
-    b - a . coeff.
+    as for `row_weights`; all float64, or all float32 (the JAX package's
+    accelerator rows, `parallel/fit.py:323-363` there).  The rows, truths
+    and weights are formed at their type and widened only then: AtA and
+    Atb come out float64.  With `coeff` (float64), b is replaced by the
+    residual b - a . coeff, formed at float64 and rounded to the rows'
+    type, and Atb comes out at the rows' type (AtA zero), as the JAX
+    refinement pass computes it; nrows is float64.
     """
     a, b = full_rows(rows, truths, natoms, types, numtypes, const_cols,
                      layout)
     A = types.shape[1]
     w = row_weights(weights, natoms, A, flags)
-    if coeff is not None:
-        b = b - a @ coeff
+    if coeff is None:
+        a, b, w = (x.to(torch.float64) for x in (a, b, w))
+    else:
+        b = (b.to(coeff.dtype) - a.to(coeff.dtype) @ coeff).to(a.dtype)
     aw = a * w[..., None]
     bw = b * w
     W = a.shape[2]
     AtA = torch.einsum("crp,crq->pq", aw, aw) if with_ata \
         else a.new_zeros((W, W))
     ones = torch.ones_like(weights[0])
-    nrows = row_weights((ones, ones, ones), natoms, A, flags).sum()
+    nrows = row_weights((ones, ones, ones), natoms, A, flags) \
+        .to(torch.float64).sum()
     return AtA, torch.einsum("crp,cr->p", aw, bw), nrows
 
 
@@ -1343,7 +1438,8 @@ def normal_contrib(rows, truths, weights, natoms, types, numtypes,
                    const_cols, flags, coeff=None, with_ata=True,
                    layout="snap"):
     """K7 on the card; same arguments and outputs as the plain version
-    (natoms and types int32)."""
+    (natoms and types int32): the rows, truths and weights all float64 or
+    all float32 (coeff float64)."""
     tensors = [rows[k] for k in ("e_cols", "force_rows", "virial_rows",
                                  "ref_e", "ref_f", "ref_v")]
     tensors += list(truths) + list(weights) + [natoms, types]
@@ -1364,8 +1460,9 @@ def normal_contrib(rows, truths, weights, natoms, types, numtypes,
     names = ("e_cols", "force_rows", "virial_rows", "ref_e", "ref_f",
              "ref_v", "energy", "forces", "stress6", "eweight", "fweight",
              "vweight")
+    dt = kl.float_type("normal_contrib", *tensors[:12])
     for t, name, shape in zip(tensors, names, shapes):
-        _check(t, name, torch.float64, shape)
+        _check(t, name, dt, shape)
     _check(natoms, "natoms", torch.int32, (C,))
     _check(types, "types", torch.int32, (C, A))
     if coeff is not None:
@@ -1383,19 +1480,29 @@ def normal_contrib(rows, truths, weights, natoms, types, numtypes,
     # the slabs' partial tiles (with one slab the tiles go out directly)
     partial = torch.empty((ntiles * nslab if nslab > 1 else 0, _NC_TILE,
                            _NC_TILE), dtype=torch.float64, device=dev)
-    # without AtA the kernel writes Atb only, and AtA is zero
+    # without AtA the kernel writes Atb only, and AtA is zero; float32 rows'
+    # residual mode writes A^T r at float32 (the rows' type), and needs
+    # each row's weight as scratch
+    bt = dt if coeff is not None else torch.float64
     AtA = (torch.empty if with_ata else torch.zeros)(
-        (W, W), dtype=torch.float64, device=dev)
-    Atb = torch.empty((W,), dtype=torch.float64, device=dev)
+        (W, W), dtype=bt, device=dev)
+    Atb = torch.empty((W,), dtype=bt, device=dev)
     nrows = torch.empty((), dtype=torch.float64, device=dev)
-    _launch("normal_contrib", dev, *[_ptr(t) for t in tensors[:14]],
+    extra = []
+    if dt == torch.float32:
+        extra = [_ptr(torch.empty((nslab * slab_rows,), dtype=dt,
+                                  device=dev)) if coeff is not None
+                 else None]
+    _launch(kl.entry("normal_contrib", dt), dev,
+            *[_ptr(t) for t in tensors[:14]],
             _ptr(coeff) if coeff is not None else None, C, A, T, Wr, W,
             0 if not const_cols else (2 if layout == "ace" else 1),
             int(bool(flags["energy"])),
             int(bool(flags["force"])), int(bool(flags["stress"])),
             int(bool(with_ata)), _NC_TILE, ntiles, nslab, slab_rows,
-            _ptr(aw), _ptr(partial), _ptr(AtA), _ptr(Atb), _ptr(nrows))
-    normal_contrib.launches += 1
+            _ptr(aw), _ptr(partial), _ptr(AtA), _ptr(Atb), _ptr(nrows),
+            *extra)
+    kl.count(normal_contrib, dt)
     return AtA, Atb, nrows
 
 
@@ -1404,14 +1511,28 @@ normal_contrib.launches = 0
 KERNELS = (pair_u_duals, zlist, dbdd, pair_scatter_rows, zbl_eav,
            normal_contrib, device_neighbors, reverse_table, pair_u_duals_chem,
            zlist_chem, dbdd_chem, quad_chain)
+# the kernels with a float32 instantiation: their float32 launches also
+# count apart (`launches_f32`), reported as "<name>_f32" by `launches`
+F32_KERNELS = (pair_u_duals, zlist, dbdd, pair_scatter_rows, zbl_eav,
+               normal_contrib, device_neighbors)
+for _k in F32_KERNELS:
+    _k.launches_f32 = 0
 
 
 def reset_launches():
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch counts to 0."""
     for k in KERNELS:
         k.launches = 0
+    for k in F32_KERNELS:
+        k.launches_f32 = 0
 
 
 def launches():
-    """{kernel name: launches since the last reset}."""
-    return {k.__name__: k.launches for k in KERNELS}
+    """{kernel name: float64 launches since the last reset}, and
+    {"<name>_f32": float32 launches} of the kernels with a float32
+    instantiation."""
+    out = {k.__name__: k.launches for k in KERNELS}
+    for k in F32_KERNELS:
+        out[k.__name__] -= k.launches_f32
+        out[k.__name__ + "_f32"] = k.launches_f32
+    return out

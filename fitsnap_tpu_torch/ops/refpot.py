@@ -99,14 +99,15 @@ def build_zbl(cut_inner, cut_outer, pair_z, ntypes):
     return ZblParams(cut_inner, cut_outer, zi, zj, sw3, sw4, sw5, active)
 
 
-def zbl_table(p: ZblParams, device):
-    """(T, T, 6) float64 rows (pre, a, sw3, sw4, sw5, active) per type pair:
-    the prefactor qqr2e Zi Zj, the screening length and the switching
-    coefficients that K5 reads."""
+def zbl_table(p: ZblParams, device, dtype=torch.float64):
+    """(T, T, 6) rows (pre, a, sw3, sw4, sw5, active) per type pair: the
+    prefactor qqr2e Zi Zj, the screening length and the switching
+    coefficients that K5 reads, formed at float64 and rounded once to
+    `dtype`, the displacements' type."""
     a = _A0 / np.where(p.active, p.zi ** _PZBL + p.zj ** _PZBL, 1.0)
     table = np.stack([_QQR2E * p.zi * p.zj, a, p.sw3, p.sw4, p.sw5,
                       p.active.astype(np.float64)], -1)
-    return torch.as_tensor(table, dtype=torch.float64, device=device)
+    return torch.as_tensor(table, dtype=dtype, device=device)
 
 
 @dataclass(frozen=True)
@@ -228,8 +229,8 @@ def _is_num(s):
         return False
 
 
-def extra_table(spec: RefSpec, device):
-    """(9,) float64: the scalars K5 reads beside the ZBL table (csrc/
+def extra_table(spec: RefSpec, device, dtype=torch.float64):
+    """(9,) at `dtype`: the scalars K5 reads beside the ZBL table (csrc/
     zbl_pair.cu `Extra`): coul/cut's cutoff, then the spin term's cutoff,
     a, g, d of J, a, g, d of K, and its offset (1 or 0); zero where the
     style is absent."""
@@ -237,7 +238,7 @@ def extra_table(spec: RefSpec, device):
     sp = spec.spin
     vals = ([sp.rc, sp.aj, sp.gj, sp.dj, sp.ak, sp.gk, sp.dk,
              1.0 if sp.offset else 0.0] if sp is not None else [0.0] * 8)
-    return torch.tensor([rcq] + vals, dtype=torch.float64, device=device)
+    return torch.tensor([rcq] + vals, dtype=dtype, device=device)
 
 
 def reference_eav(disp, jidx, mask, rev, types, spec: RefSpec, plain=False,
@@ -252,7 +253,9 @@ def reference_eav(disp, jidx, mask, rev, types, spec: RefSpec, plain=False,
     optional (C, A) per-atom charges, which coul/cut requires.  Returns
     energy (C,), forces (C, A, 3) and virial (C, 6) ordered (xx, yy, zz,
     yz, xz, xy), W_ab = -sum D_a dE/dD_b; the spin term adds to the energy
-    alone.  `plain=True` runs the plain version of K5 on any device.
+    alone.  Everything at disp's type (float64, or float32 for ZBL alone:
+    the coul/cut and spin terms have no float32 kernel yet).  `plain=True`
+    runs the plain version of K5 on any device.
     """
     C, A = mask.shape[:2]
     if spec.coul is not None and charges is None:
@@ -265,7 +268,7 @@ def reference_eav(disp, jidx, mask, rev, types, spec: RefSpec, plain=False,
                 disp.new_zeros((C, 6)))
     zbl = sk.zbl_eav_plain if plain else sk.zbl_eav
     if spec.zbl is not None:
-        table = zbl_table(spec.zbl, disp.device)
+        table = zbl_table(spec.zbl, disp.device, disp.dtype)
         cuts = (spec.zbl.cut_inner, spec.zbl.cut_outer)
     else:
         # no zbl: a table of inactive type pairs
@@ -275,4 +278,5 @@ def reference_eav(disp, jidx, mask, rev, types, spec: RefSpec, plain=False,
         return zbl(disp, jidx, mask, rev, types, table, *cuts)
     return zbl(disp, jidx, mask, rev, types, table, *cuts,
                charges=charges if spec.coul is not None else None,
-               spins=spins, extra=extra_table(spec, disp.device))
+               spins=spins, extra=extra_table(spec, disp.device,
+                                              disp.dtype))

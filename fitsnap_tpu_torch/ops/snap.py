@@ -16,7 +16,7 @@ fall to these plain versions only for CPU tensors.
 """
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Optional
 
 import numpy as np
@@ -92,6 +92,36 @@ class SnapParams:
     k1: Optional[dict] = None
     k2: Optional[object] = None
     k3: Optional[object] = None
+    # the type of the float tables, and the copies at other types (`cast`)
+    dtype: torch.dtype = torch.float64
+    casts: Optional[dict] = None
+
+    def cast(self, dtype):
+        """The plan at `dtype`, the rows' type: itself at its own type,
+        else (float32 from the float64 plan) a copy whose float tables are
+        each rounded once from the float64 values, as the JAX package's
+        `jnp.asarray(x, float32)` rounds its host tables, kept on this plan
+        (one copy a type; the plan lives on one device).  The copy builds
+        its kernels' host plans (`k1`, `k2`, `k3`) anew from its own
+        tables at first use."""
+        if dtype == self.dtype:
+            return self
+        if self.dtype != torch.float64 or dtype != torch.float32:
+            raise TypeError(f"SnapParams: no {dtype} copy of a {self.dtype} "
+                            f"plan (float32 copies of the float64 plan)")
+        if self.casts is None:
+            self.casts = {}
+        if dtype not in self.casts:
+            vals = {}
+            for f in fields(self):
+                v = getattr(self, f.name)
+                if torch.is_tensor(v) and v.is_floating_point():
+                    v = v.to(dtype)
+                vals[f.name] = v
+            vals.update(dtype=dtype, nn=None, k1=None, k2=None, k3=None,
+                        casts=None)
+            self.casts[dtype] = SnapParams(**vals)
+        return self.casts[dtype]
 
 
 def z_term_list(z_groups, D):
@@ -567,10 +597,12 @@ def descriptors_with_jacobian(disp, jelem, mask, ielem, p: SnapParams,
     the quadratic columns: the pair tangents are contracted at the base
     width first, so the (A, W, 2U) quadratic dB/dutot never exists.
     `plain=True` runs the plain versions on any device (the reference the
-    kernels are checked against).
+    kernels are checked against).  At disp's type: float64, or float32 with
+    the plan's float32 tables (`SnapParams.cast`).
     """
     from fitsnap_tpu_torch.kernels import snap_kernels as sk
 
+    p = p.cast(disp.dtype)
     if p.nchem == 1:
         k1, k2, k3, k6 = ((sk.pair_u_duals_plain, sk.zlist_plain,
                            sk.dbdd_plain, sk.quad_chain_plain) if plain else

@@ -44,6 +44,7 @@ from fitsnap_tpu_torch.calculators.ace import ace_batch, ace_rows
 from fitsnap_tpu_torch.calculators.snap import (_A_BUCKETS, _K_BUCKETS,
                                                 TOBAR, _batch_descriptors,
                                                 _pad_to, snap_rows)
+from fitsnap_tpu_torch.kernels import launch as kl
 from fitsnap_tpu_torch.kernels import snap_kernels as sk
 from fitsnap_tpu_torch.kernels.snap_kernels import device_neighbors
 from fitsnap_tpu_torch.kernels.snap_kernels import two_sum as _two_sum
@@ -216,21 +217,40 @@ def _model(params, numtypes, kernel, const_mode):
     return m
 
 
-def _put(x, device):
-    t = torch.as_tensor(x, device=device)
-    if t.is_floating_point() and t.dtype != torch.float64:
+def _float_dtype(x):
+    """The torch type of a float array or tensor, else None."""
+    if torch.is_tensor(x):
+        return x.dtype if x.is_floating_point() else None
+    x = np.asarray(x)
+    return torch.from_numpy(np.empty(0, x.dtype)).dtype \
+        if x.dtype.kind == "f" else None
+
+
+def _batch_type(batch):
+    """The one float type of a batch's float arrays: float64 (the
+    packers' default) or float32 (the JAX package's accelerator type:
+    float32 rows from hi/lo float32 positions, normal equations still at
+    float64).  Any other type, or a mix, is refused."""
+    types = {d for d in map(_float_dtype, batch) if d is not None}
+    if len(types) != 1 or next(iter(types)) not in kl.FLOAT_TYPES:
         raise TypeError(
-            f"the streamed fit runs at float64 and was given {t.dtype}: "
-            f"pack with dtype=np.float64 (float32 rows with hi/lo positions "
-            f"are not ported yet, ROADMAP.md)")
-    return t
+            f"the streamed fit runs at float64 or float32, every float "
+            f"array of a batch at one of them; this batch has "
+            f"{sorted(map(str, types))}: pack with dtype=np.float64 or "
+            f"np.float32")
+    return types.pop()
+
+
+def _put(x, device):
+    return torch.as_tensor(x, device=device)
 
 
 def put_batch(batch, device=None):
-    """The batch tuple of `pack_batch_pos` / `pack_batch` (float64) as
-    tensors on `device`, uploaded once; the step, residual and evaluation
-    functions take either form."""
+    """The batch tuple of `pack_batch_pos` / `pack_batch` (float64 or
+    float32) as tensors on `device`, uploaded once; the step, residual and
+    evaluation functions take either form."""
     device = resolve_device(device)
+    _batch_type(batch)
     return tuple(_put(x, device) for x in batch)
 
 
@@ -313,6 +333,10 @@ def build_step_fn(params, numtypes, flags, device=None, refspec=None,
     `kernel`, `const_mode`: SNAP by default, or `ace_kernel(plan)` with
     its constant columns (`_model`).
 
+    A float32 batch (`pack_batch_pos(..., dtype=np.float32)`) makes
+    float32 rows, from K8 to K7's input; K7 widens them, and the
+    accumulators stay float64 at either type.
+
     Returns fn(batch) -> (AtA (W*W,), Atb (W,), nrows) as host float64.
     With `accumulate=True`, returns (acc_step, init, finish):
     `acc = acc_step(acc, batch)` adds the batch's contribution into a
@@ -327,6 +351,7 @@ def build_step_fn(params, numtypes, flags, device=None, refspec=None,
 
     def acc_step(acc, batch):
         AtA, Atb, nrows, dropped = acc
+        _batch_type(batch)
         for rows, types, natoms, truths, weights in _chunk_rows(
                 m, refspec, batch, neighbors, device, dropped):
             a, b, n = sk.normal_contrib(rows, truths, weights, natoms, types,
@@ -358,16 +383,20 @@ def build_step_fn(params, numtypes, flags, device=None, refspec=None,
 
 def build_residual_fn(params, numtypes, flags, device=None, refspec=None,
                       kernel=None, const_mode=None, neighbors=None):
-    """Refinement pass: fn(coeff, batch) -> A^T W^2 (b - A coeff) (W,), host
-    float64, summed over the process group.  One or two after the direct
+    """Refinement pass: fn(coeff, batch) -> A^T W^2 (b - A coeff) (W,) on
+    the host, summed over the process group.  One or two after the direct
     solve of the normal equations recover the accuracy of a solve on the
-    rows themselves."""
+    rows themselves.  At the batch's type, as the JAX pass: a float32
+    batch's residuals are formed at float64 against the float64 coeff and
+    rounded to float32, and A^T r is float32 (float64 for a float64
+    batch)."""
     m = _model(params, numtypes, kernel, const_mode)
     device = resolve_device(device)
 
     def res(coeff, batch):
         coeff = torch.as_tensor(np.asarray(coeff, np.float64), device=device)
-        Atr = torch.zeros(coeff.shape, dtype=torch.float64, device=device)
+        Atr = torch.zeros(coeff.shape, dtype=_batch_type(batch),
+                          device=device)
         dropped = _dropped_counter(device)
         for rows, types, natoms, truths, weights in _chunk_rows(
                 m, refspec, batch, neighbors, device, dropped):
@@ -426,17 +455,20 @@ def build_eval_fn(params, numtypes, flags, device=None, refspec=None,
     """Evaluation: fn(coeff, batch) -> (sum_abs_e_res, n_e, sum_abs_f_res,
     n_f), the unweighted energy/force MAE sums of a fit in the reference's
     metric convention (energies per atom, `solver.py:108`), summed on the
-    device and over the process group.  `flags` is accepted for the JAX signature and unused, as
-    there.  `kernel`, `const_mode` as for `build_step_fn` (the JAX
-    function is SNAP-only)."""
+    device and over the process group, at the batch's type (coeff is
+    rounded to it, as the JAX package's callers pass it).  `flags` is
+    accepted for the JAX signature and unused, as there.  `kernel`,
+    `const_mode` as for `build_step_fn` (the JAX function is SNAP-only)."""
     model = _model(params, numtypes, kernel, const_mode)
     device = resolve_device(device)
     # unit weights on the energy and force rows: the 0/1 mask of real rows
     counted = {"energy": True, "force": True, "stress": False}
 
     def evaluate(coeff, batch):
-        coeff = torch.as_tensor(np.asarray(coeff, np.float64), device=device)
-        sums = torch.zeros((4,), dtype=torch.float64, device=device)
+        dt = _batch_type(batch)
+        coeff = torch.as_tensor(np.asarray(coeff, np.float64),
+                                device=device).to(dt)
+        sums = torch.zeros((4,), dtype=dt, device=device)
         dropped = _dropped_counter(device)
         for rows, types, natoms, truths, weights in _chunk_rows(
                 model, refspec, batch, neighbors, device, dropped):
@@ -518,6 +550,10 @@ def build_spatial_rows_fn(params, numtypes, flags, device=None, kernel=None,
 
     def rows(disp, jidx, mask, types, natoms, cell, energy, forces,
              stress6, eweight, fweight, vweight):
+        if _batch_type((disp, cell, energy, forces, stress6)) \
+                == torch.float32:
+            raise kl.f32_refusal("build_spatial_rows_fn",
+                                    kl.QUEUE_SPATIAL)
         rank, size = world()
         types = _put(types, device).to(torch.int32)
         A = types.shape[0]
@@ -599,11 +635,13 @@ def pack_batch_pos(packed_configs, a_pad, n_pad, s_table, dtype=np.float64,
     """Positions-based batch tuple for the on-device-neighbor step.
 
     ~50x less host->device data than `pack_batch` (no disp/jidx/mask).
-    Positions and image-shift vectors ship as hi/lo float pairs (the lo
-    parts are 0 at float64, the port's working type; the streamed functions
-    refuse the JAX package's float32 batches).  Returns (pos_hi,
-    pos_lo, svec_hi, svec_lo, types, natoms, cell, energy, forces, stress6,
-    ew, fw, vw).
+    Positions and image-shift vectors ship as hi/lo pairs split from
+    float64 on the host: at float64 (the default) the lo parts are 0; at
+    float32 (the JAX package's accelerator type) they carry what the hi
+    parts round off, and K8 rebuilds each displacement from both by a
+    TwoSum chain.  Truths, weights and cells come at `dtype` too.  Returns
+    (pos_hi, pos_lo, svec_hi, svec_lo, types, natoms, cell, energy, forces,
+    stress6, ew, fw, vw).
     """
     n = n_pad
     S = len(s_table)

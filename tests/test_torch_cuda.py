@@ -98,6 +98,17 @@ shape (more atoms than SMs: 160 atoms of 512 slots, 4 x 64 atoms of 64
 slots, with 23, 1 and 2 columns): dead slots exactly 0, bit for bit from
 run to run; the loss gradient through `PairDescForce` against double
 autograd through the plain descriptors, 1e-10.
+The float32 instantiations of the streamed linear SNAP fit (`-k f32`):
+K1-K3 at twojmax 4, 6, 10 and 12, K8 and K8r on the K8 batch's hi/lo
+float32 parts in both launch shapes, on 30 atoms at 40-50 A coordinates
+(also within 1e-6 A of the float64 host lists) and on twelve of K8's
+edges (both buffers pruned, the split shape), K4 at widths
+1, 30 and 31, K5 and K7 (direct and residual) on the K8 batch: 1e-5
+relative (float32 sums in other orders), K8's mask and jidx and K8r's
+table exactly, K8's disp within 2 ulp, every output float32 (K7's direct
+mode float64); and the float32 refusals of the modes without a float32
+kernel (the chemflag modes, K6q, ref_eav, K4's halo) with their ROADMAP.md
+queue item, and of float16 and mixed float inputs.
 """
 
 from types import SimpleNamespace
@@ -1920,3 +1931,289 @@ def test_pair_desc_force_gradient_matches_plain_autograd(cuda):
                             "pair_desc_jvp": 1}
     assert launched(nk) == {"nn_pair_gather": 1}
     assert rel_err(out, plain_grads()) <= 1e-10
+
+
+# ---------------------------------------------------------------------------
+# float32: the streamed linear SNAP fit's instantiations of K1 (window
+# shape), K2, K3 (whole rows), K4, K5 (zbl_eav), K7 and K8 against their
+# plain versions at float32 on the card: 1e-5 relative to each output's
+# largest magnitude (float32 sums in other orders), K8's mask and jidx and
+# K8r's table exactly and K8's disp within 2 ulp (the same rounded steps as
+# the plain version); the modes outside the slice refuse float32 with their
+# ROADMAP.md queue item, and float16 or mixed inputs are refused.
+# ---------------------------------------------------------------------------
+
+F32 = torch.float32
+RTOL32 = 1e-5
+
+
+def ulps32(a, b):
+    """The largest distance between two float32 tensors, in ulps of the
+    larger magnitude of each pair."""
+    a, b = a.double(), b.double()
+    ulp = torch.maximum(a.abs(), b.abs()).clamp(min=1e-30) * 2.0 ** -23
+    return ((a - b).abs() / ulp).max().item()
+
+
+def split32(x):
+    """hi/lo float32 parts of a float64 array (as `pack_batch_pos`)."""
+    hi = np.asarray(x, np.float32)
+    return hi, np.asarray(x - hi.astype(np.float64), np.float32)
+
+
+F32_CASES = dict(CASES, tj10=TJ10, tj12=dict(CASES["tj6"], twojmax=["12"]))
+
+
+@pytest.mark.parametrize("name", sorted(F32_CASES))
+def test_f32_k1_k3_match_plain(cuda, name):
+    """K1-K3 at float32 on test_k1_k3_match_plain's block, the plan's
+    float32 tables (`SnapParams.cast`), at twojmax 4, 6, 10 and 12 (the
+    float32 window shape and whole rows reach 12): outputs float32, 1e-5,
+    and the float32 launch counts."""
+    spec = F32_CASES[name]
+    p = shared_params(spec, cuda).cast(F32)
+    N, K = 16, 40
+    rng = np.random.default_rng(4)
+    d = rng.normal(size=(N, K, 3))
+    d *= rng.uniform(1.2, 4.9, (N, K, 1)) / np.linalg.norm(d, axis=-1,
+                                                          keepdims=True)
+    mask = rng.uniform(size=(N, K)) < 0.85
+    mask[-1] = False
+    nel = spec["numtypes"]
+    args = (torch.as_tensor(d, dtype=F32, device=cuda),
+            torch.as_tensor(rng.integers(0, nel, (N, K)), dtype=torch.int32,
+                            device=cuda),
+            torch.as_tensor(mask, device=cuda),
+            torch.as_tensor(rng.integers(0, nel, N), dtype=torch.int32,
+                            device=cuda))
+    sk.reset_launches()
+    k1 = sk.pair_u_duals(*args, p)
+    ref1 = sk.pair_u_duals_plain(*args, p)
+    J, ut = ref1
+    k2 = sk.zlist(ut, p)
+    ref2 = sk.zlist_plain(ut, p)
+    k3 = sk.dbdd(ut, *ref2, J, p)
+    ref3 = sk.dbdd_plain(ut, *ref2, J, p)
+    torch.cuda.synchronize()
+    counts = sk.launches()
+    assert counts["pair_u_duals_f32"] == counts["zlist_f32"] \
+        == counts["dbdd_f32"] == 1
+    for out, ref in ((k1, ref1), (k2, ref2), (k3, ref3)):
+        assert all(x.dtype == F32 for x in out)
+        assert rel_err(out, ref) <= RTOL32
+    assert not k1[0][:, -1].any()          # the atom with every slot masked
+
+
+@pytest.mark.parametrize("shape", ["fused", "split"])
+def test_f32_k8_k8r_match_plain(cuda, monkeypatch, shape):
+    """K8 at float32 (hi/lo parts of the K8 batch) in both launch shapes:
+    mask and jidx equal, disp within 2 ulp; K8r's table exactly."""
+    if shape == "split":
+        monkeypatch.setattr(sk, "K8_FUSED_ATOMS", 0)
+    pos, _, svec, _, natoms, cut, K = streamed_batch(cuda)
+    ph, pl = (torch.as_tensor(x, device=cuda)
+              for x in split32(pos.cpu().numpy()))
+    sh, sl = (torch.as_tensor(x, device=cuda)
+              for x in split32(svec.cpu().numpy()))
+    args = (ph, pl, sh, sl, natoms, cut, K)
+    sk.reset_launches()
+    disp, jidx, mask = sk.device_neighbors(*args)
+    ref = sk.device_neighbors_plain(*args)
+    rev, dropped = sk.reverse_table(jidx, mask)
+    rref, dref = sk.reverse_table_plain(*ref[1:])
+    torch.cuda.synchronize()
+    assert sk.launches()["device_neighbors_f32"] == 1
+    assert disp.dtype == F32
+    assert torch.equal(mask, ref[2]) and torch.equal(jidx, ref[1])
+    assert ulps32(disp, ref[0]) <= 2
+    assert torch.equal(rev, rref) and torch.equal(dropped, dref)
+
+
+def test_f32_k8_at_50_angstrom(cuda):
+    """K8 at float32 on 30 atoms at 40-50 A coordinates (the JAX test's
+    case): mask and jidx equal to its plain version, disp within 2 ulp of
+    it and within 1e-6 A of the float64 host lists."""
+    rng = np.random.default_rng(7)
+    cell = np.triu(rng.uniform(4, 11, (3, 3)))
+    cell[0, 1] *= 0.3
+    cell[0, 2] *= 0.3
+    cell[1, 2] *= 0.3
+    pos = rng.uniform(0, 1, (30, 3)) @ cell.T + 40.0
+    cut, na = 5.0, 30
+    dh, _, mh, kh = host_neighbors(pos, cell, na, cut)
+    sv = shift_table(required_shifts(cell, cut)).astype(np.float64) @ cell.T
+    args = tuple(torch.as_tensor(x, device=cuda)[None]
+                 for x in split32(pos) + split32(sv))
+    args += (torch.tensor([na], dtype=torch.int32, device=cuda), cut, kh)
+    disp, jidx, mask = sk.device_neighbors(*args)
+    ref = sk.device_neighbors_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(mask, ref[2]) and torch.equal(jidx, ref[1])
+    assert ulps32(disp, ref[0]) <= 2
+    dp, mp = disp[0].double().cpu().numpy(), mask[0].cpu().numpy()
+    for a in range(na):
+        hs = np.array(sorted(map(tuple, dh[a][mh[a]])))
+        ds = np.array(sorted(map(tuple, dp[a][mp[a]])))
+        assert hs.shape == ds.shape and np.abs(hs - ds).max() <= 1e-6
+
+
+@pytest.mark.parametrize("name", ["two_atom_s343", "bcc_ties", "truncation",
+                                  "empty", "padded", "self_image",
+                                  "a160_s125", "prune", "wide_prune",
+                                  "a768_s27_split", "prune_split",
+                                  "wide_prune_split"])
+def test_f32_k8_edges_match_plain(cuda, name, monkeypatch):
+    """K8 at float32 on the K8_CASES edges (ties, truncation, S = 343, an
+    empty config, padded atoms, a self image, the pruned buffer in shared
+    memory and in global scratch, the split shape), the hi/lo float32
+    parts of their positions: mask and jidx equal, disp within 2 ulp, bit
+    for bit from run to run."""
+    if name.endswith("_split"):
+        monkeypatch.setattr(sk, "K8_FUSED_ATOMS", 0)
+        name = name.removesuffix("_split")
+    pos, _, svec, _, natoms, cut, K = k8_case(name, cuda)
+    args = tuple(torch.as_tensor(x, device=cuda) for x in
+                 split32(pos.cpu().numpy()) + split32(svec.cpu().numpy()))
+    args += (natoms, cut, K)
+    sk.reset_launches()
+    disp, jidx, mask = sk.device_neighbors(*args)
+    ref = sk.device_neighbors_plain(*args)
+    again = sk.device_neighbors(*args)
+    torch.cuda.synchronize()
+    assert sk.launches()["device_neighbors_f32"] == 2
+    assert torch.equal(mask, ref[2]) and torch.equal(jidx, ref[1])
+    assert ulps32(disp, ref[0]) <= 2
+    assert all(torch.equal(x, y) for x, y in zip((disp, jidx, mask), again))
+
+
+@pytest.mark.parametrize("name", ["x1_t1", "x30_t1", "x31_t2"])
+def test_f32_k4_matches_plain(cuda, name):
+    """K4 at float32 at the SNAP widths (and 1, the reference's), on two
+    periodic cells (self images repeated in the reverse table)."""
+    X, T = {"x1_t1": (1, 1), "x30_t1": (30, 1), "x31_t2": (31, 2)}[name]
+    rng = np.random.default_rng(3)
+    cfgs = []
+    for na, edge in ((2, 3.3), (5, 5.0)):
+        pos = rng.uniform(0, edge, (na, 3))
+        disp, jidx, mask, kmax = host_neighbors(pos, np.eye(3) * edge, na,
+                                                4.8)
+        cfgs.append((disp, mask, kmax, reverse_neighbors(jidx, mask, na),
+                     na))
+    C, A = 2, 6
+    K = max(c[2] for c in cfgs)
+    R = max(c[3].shape[1] for c in cfgs)
+    disp = np.zeros((C, A, K, 3))
+    msk = np.zeros((C, A, K), bool)
+    rev = np.full((C, A, R), -1, np.int32)
+    types = np.zeros((C, A), np.int32)
+    for c, (dsp, m, km, rv, na) in enumerate(cfgs):
+        disp[c, :na, :km] = dsp
+        msk[c, :na, :km] = m
+        rev[c, :na, :rv.shape[1]] = np.where(rv < 0, -1,
+                                             rv // km * K + rv % km)
+        types[c, :na] = rng.integers(0, T, na)
+    g = rng.normal(size=(C, A, X, K, 3)) * msk[:, :, None, :, None]
+    args = [torch.as_tensor(x, device=cuda)
+            for x in (g.astype(np.float32), disp.astype(np.float32), msk,
+                      rev, types)]
+    sk.reset_launches()
+    out = sk.pair_scatter_rows(*args, T)
+    ref = sk.pair_scatter_rows_plain(*args, T)
+    torch.cuda.synchronize()
+    assert sk.launches()["pair_scatter_rows_f32"] == 1
+    assert all(x.dtype == F32 for x in out)
+    assert rel_err(out, ref) <= RTOL32
+
+
+def test_f32_k5_k7_match_plain(cuda):
+    """K5 (zbl_eav) and K7 at float32 on test_k5_k7_match_plain's batch:
+    K5's outputs float32 within 1e-5; K7's direct mode float64 (AtA, Atb)
+    and its residual mode float32 (A^T r), each within 1e-5 of the plain
+    version's float32 rows widened in the JAX order."""
+    pos, _, svec, _, natoms, cut, K = streamed_batch(cuda)
+    ph, pl = (torch.as_tensor(x, device=cuda)
+              for x in split32(pos.cpu().numpy()))
+    sh, sl = (torch.as_tensor(x, device=cuda)
+              for x in split32(svec.cpu().numpy()))
+    disp, jidx, mask = sk.device_neighbors_plain(ph, pl, sh, sl, natoms, cut,
+                                                 K)
+    rev = sk.reverse_table_plain(jidx, mask)[0]
+    C, A = natoms.shape[0], pos.shape[1]
+    types = torch.as_tensor([[0, 1, 0, 0, 0]] * C, dtype=torch.int32,
+                            device=cuda)
+    zbl = build_zbl(4.0, 4.8, {(0, 0): (73, 73), (0, 1): (73, 41)}, 2)
+    table = zbl_table(zbl, cuda, F32)
+    k5_args = (disp, jidx, mask, rev, types, table, 4.0, 4.8)
+    sk.reset_launches()
+    out = sk.zbl_eav(*k5_args)
+    ref = sk.zbl_eav_plain(*k5_args)
+    torch.cuda.synchronize()
+    assert sk.launches()["zbl_eav_f32"] == 1
+    assert all(x.dtype == F32 for x in out)
+    assert rel_err(out, ref) <= RTOL32 and ref[0][:2].abs().min() > 0
+
+    rng = np.random.default_rng(2)
+    T, Wr = 2, 6
+
+    def dev(*shape):
+        return torch.as_tensor(rng.normal(size=shape), dtype=F32,
+                               device=cuda)
+
+    rows = {"e_cols": dev(C, T * Wr), "force_rows": dev(C, A, 3, T * Wr),
+            "virial_rows": dev(C, 6, T * Wr), "ref_e": dev(C),
+            "ref_f": dev(C, A, 3), "ref_v": dev(C, 6)}
+    truths = (dev(C), dev(C, A, 3), dev(C, 6))
+    weights = (dev(C).abs(), dev(C).abs(), dev(C).abs())
+    coeff = dev(T * Wr + T).double()
+    flags = {"energy": 1, "force": 1, "stress": 1}
+    for c in (None, coeff):
+        sk.reset_launches()
+        out = sk.normal_contrib(rows, truths, weights, natoms, types, T,
+                                True, flags, c, c is None)
+        ref = sk.normal_contrib_plain(rows, truths, weights, natoms, types,
+                                      T, True, flags, c, c is None)
+        torch.cuda.synchronize()
+        assert sk.launches()["normal_contrib_f32"] == 1
+        assert out[1].dtype == (torch.float64 if c is None else F32)
+        assert rel_err(out[1:2], ref[1:2]) <= RTOL32
+        if c is None:
+            assert out[0].dtype == torch.float64
+            assert rel_err(out[:1], ref[:1]) <= RTOL32
+        assert out[2].item() == ref[2].item()
+
+
+def test_f32_off_path_modes_are_refused(cuda):
+    """float32 where the card has a float64 kernel only (the chemflag
+    modes, K6q, ref_eav, K4's halo mode) names its ROADMAP.md queue item;
+    float16 and mixed float inputs are refused; nothing falls back to a
+    plain version or to float64."""
+    chem = make_params(section(dict(FLAG_CASES["chem_tj4_wself0"])), cuda)
+    N, K = 4, 8
+    d = torch.full((N, K, 3), 1.5, dtype=F32, device=cuda)
+    ints = torch.zeros((N, K), dtype=torch.int32, device=cuda)
+    m = torch.ones((N, K), dtype=torch.bool, device=cuda)
+    ie = torch.zeros((N,), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="ROADMAP.md"):
+        sk.pair_u_duals_chem(d, ints, m, ie, chem.cast(F32))
+    quad = make_params(section(dict(FLAG_CASES["quadratic_tj8"])), cuda)
+    W = quad.nb_base
+    with pytest.raises(TypeError, match="ROADMAP.md"):
+        sk.quad_chain(torch.zeros((N, W), dtype=F32, device=cuda),
+                      torch.zeros((N, W, K, 3), dtype=F32, device=cuda),
+                      quad.cast(F32))
+    C, A = 1, N
+    jidx = torch.zeros((C, A, K), dtype=torch.int32, device=cuda)
+    mask = torch.ones((C, A, K), dtype=torch.bool, device=cuda)
+    disp = torch.full((C, A, K, 3), 1.5, dtype=F32, device=cuda)
+    types = torch.zeros((C, A), dtype=torch.int32, device=cuda)
+    table = torch.zeros((1, 1, 6), dtype=F32, device=cuda)
+    with pytest.raises(TypeError, match="ROADMAP.md"):
+        sk.zbl_eav(disp, jidx, mask, jidx, types, table, 4.0, 4.8,
+                   extra=torch.zeros(9, dtype=torch.float64, device=cuda))
+    g = torch.zeros((C, A, 1, K, 3), dtype=F32, device=cuda)
+    with pytest.raises(TypeError, match="ROADMAP.md"):
+        sk.pair_scatter_rows(g, disp, mask, jidx, types, 1, gather_only=True)
+    with pytest.raises(TypeError, match="all float64 or all float32"):
+        sk.pair_scatter_rows(g.double(), disp, mask, jidx, types, 1)
+    with pytest.raises(TypeError, match="all float64 or all float32"):
+        sk.pair_scatter_rows(g.half(), disp.half(), mask, jidx, types, 1)

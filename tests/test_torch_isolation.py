@@ -212,11 +212,14 @@ def test_wrappers_take_plain_version_on_cpu():
     out = sk.pair_scatter_rows(*args)
     ref = sk.pair_scatter_rows_plain(*args)
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    f32 = ("pair_u_duals", "zlist", "dbdd", "pair_scatter_rows", "zbl_eav",
+           "normal_contrib", "device_neighbors")
     assert set(sk.launches()) == {"pair_u_duals", "zlist", "dbdd",
                                   "pair_scatter_rows", "zbl_eav",
                                   "normal_contrib", "device_neighbors",
                                   "reverse_table", "pair_u_duals_chem",
-                                  "zlist_chem", "dbdd_chem", "quad_chain"}
+                                  "zlist_chem", "dbdd_chem", "quad_chain"} \
+        | {k + "_f32" for k in f32}
     assert set(sk.launches().values()) == {0}
 
 

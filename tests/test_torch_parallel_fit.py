@@ -33,8 +33,8 @@ CPU):
   the model's width, AtA and Atb within 1e-12 relative, nrows exact;
 - `TpuSVD` and `TfSVD`: coefficients within 1e-10 on a seeded weighted
   system;
-- a float32 batch (the packers default to float64) is refused by
-  `put_batch` and the step.
+- a float16 batch, or one of mixed float types, is refused by
+  `put_batch` and the step (float32 runs: tests/test_torch_float32.py).
 
 The packages sum in different orders, hence relative tolerances at a few
 hundred ulps; the coefficients carry the condition number of the system.
@@ -725,10 +725,13 @@ def test_truncated_reverse_table_is_refused():
         fit._check_dropped(dropped)
 
 
+@pytest.mark.parametrize("kind", ["float16", "mixed"])
 @pytest.mark.parametrize("packer", ["pack_batch_pos", "pack_batch"])
-def test_float32_batch_is_refused(stream, packer):
-    """The packers default to float64; a float32 batch (the JAX package's
-    default) is refused, not widened from its rounded values."""
+def test_float16_or_mixed_batch_is_refused(stream, packer, kind):
+    """The packers default to float64, and the streamed fit takes float64
+    or float32 (tests/test_torch_float32.py); a float16 batch, or one whose
+    float arrays mix types, is refused by `put_batch` and the step, not
+    widened or rounded."""
     calc, nb = stream["calc"], stream["nb"]
     cfgs = stream["groups"][0]["configs"]
     a_pad, k_pad, s_table = (stream["groups"][0][k]
@@ -740,15 +743,20 @@ def test_float32_batch_is_refused(stream, packer):
         return fit.pack_batch(cfgs, a_pad, k_pad, 6, *dtype)
 
     assert all(x.dtype == np.float64 for x in pack() if x.dtype.kind == "f")
-    f32 = pack(np.float32)
-    with pytest.raises(TypeError, match="float64"):
-        fit.put_batch(f32, "cpu")
+    if kind == "float16":
+        bad = pack(np.float16)
+    else:
+        bad = list(pack(np.float32))
+        bad[-1] = bad[-1].astype(np.float64)     # vw at float64
+        bad = tuple(bad)
+    with pytest.raises(TypeError, match="float64 or float32"):
+        fit.put_batch(bad, "cpu")
     step = fit.build_step_fn(calc.params, 1, FLAGS, device="cpu",
                              refspec=calc.refspec,
                              neighbors=nb if packer == "pack_batch_pos"
                              else None)
-    with pytest.raises(TypeError, match="float64"):
-        step(f32)
+    with pytest.raises(TypeError, match="float64 or float32"):
+        step(bad)
 
 
 def test_ace_and_const_mode_raise():
