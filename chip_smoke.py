@@ -343,9 +343,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    float32 (launch counts set to 0 just before and read after the refined
    fit and the evaluation: every kernel in its float32 instantiation, none
    at float64), nrows equal to phase 5's, AtA and Atb within 1e-5 of phase
-   5's float64 ones, the refined float32 fit within 100 cond(w A) 2^-23 of
-   beta_true, the MAE sums within 1e-4 of phase 5's at beta_true spread
-   10%; the device ms of a steady pass at float64 and float32 in turns
+   5's float64 ones, the refined float32 fit within 100 cond(w A) 2^-23
+   and 1e-3 of beta_true, the MAE sums within 1e-4 of phase 5's at
+   beta_true spread 10%; the device ms of a steady pass at float64 and float32 in turns
    (64, 32, 32, 64) and the bytes of a chunk's disp and dB/dD at each
    type.
 
@@ -398,6 +398,8 @@ K8_ULPS32 = 2
 NORMAL_RTOL32 = 1e-5
 MAE_RTOL32 = 1e-4
 EPS32 = 2.0 ** -23
+BETA_RTOL32 = 1e-3          # the float32 fit from beta_true, beside the cond
+                            # bound (measured 1.36e-4)
 # coefficients 10% off beta_true (seeded), where phase 22 compares the MAE
 # sums: there the residuals stand far above float32 rounding, which the
 # sums at the fit's own coefficients (truths A beta_true) are made of
@@ -410,6 +412,15 @@ SOURCES = {
               "fitsnap_tpu/ops/snap.py:1061"),
     "dbdd": ("fitsnap_tpu_torch/kernels/csrc/dbdd.cu",
              "fitsnap_tpu/ops/snap.py:823"),
+    # the shapes of K1 and K3 past twojmax 12, by entry point
+    "pair_u_recur": ("fitsnap_tpu_torch/kernels/csrc/pair_u_duals.cu",
+                     "fitsnap_tpu/ops/snap.py:667"),
+    "pair_u_table": ("fitsnap_tpu_torch/kernels/csrc/pair_u_duals.cu",
+                     "fitsnap_tpu/ops/snap.py:667"),
+    "dbdd_level": ("fitsnap_tpu_torch/kernels/csrc/dbdd.cu",
+                   "fitsnap_tpu/ops/snap.py:823"),
+    "dbdd_slab": ("fitsnap_tpu_torch/kernels/csrc/dbdd.cu",
+                  "fitsnap_tpu/ops/snap.py:823"),
     "pair_scatter_rows": ("fitsnap_tpu_torch/kernels/csrc/pair_scatter.cu",
                           "fitsnap_tpu/calculators/snap.py:326"),
     "zbl_eav": ("fitsnap_tpu_torch/kernels/csrc/zbl_pair.cu",
@@ -465,6 +476,8 @@ SOURCES.update({k + "_f32": SOURCES[k] for k in F32_KERNELS})
 FITSNAP_KERNELS = ("pair_u_duals", "zlist", "dbdd", "pair_scatter_rows",
                    "zbl_eav")
 STREAM_KERNELS = ("normal_contrib", "device_neighbors", "reverse_table")
+# the entry points of K1's and K3's shapes past twojmax 12
+LARGE_SHAPES = ("pair_u_recur", "dbdd_level")
 ACE_KERNELS = ("ace_pair_basis", "ace_b_dbdd", "pair_scatter_rows",
                "zbl_eav")
 QUAD_KERNELS = FITSNAP_KERNELS + ("quad_chain",)
@@ -549,10 +562,12 @@ PATH_KERNELS = {"fitsnap": FITSNAP_KERNELS,
                 + NN_CACHED_KERNELS,
                 "dp_gloo2": FITSNAP_KERNELS + STREAM_KERNELS
                 + NN_CACHED_KERNELS,
-                # phase 21
-                "tj14_fitsnap": FITSNAP_KERNELS,
-                "tj16_fitsnap": FITSNAP_KERNELS,
-                "tj14_streamed": FITSNAP_KERNELS + STREAM_KERNELS,
+                # phase 21 (K1 in its recursion shape, K3 in its level
+                # shape)
+                "tj14_fitsnap": FITSNAP_KERNELS + LARGE_SHAPES,
+                "tj16_fitsnap": FITSNAP_KERNELS + LARGE_SHAPES,
+                "tj14_streamed": FITSNAP_KERNELS + STREAM_KERNELS
+                + LARGE_SHAPES,
                 "tj16_nn_cached_fitsnap": NN_CACHED_KERNELS,
                 "tj16_nn_otf_fitsnap": NN_CACHED_KERNELS,
                 # phase 22: every kernel in its float32 instantiation (K8r
@@ -820,8 +835,8 @@ def launches():
     from fitsnap_tpu_torch.kernels import nn_kernels as nk
     from fitsnap_tpu_torch.kernels import snap_kernels as sk
 
-    return dict(sk.launches(), **ak.launches(), **nk.launches(),
-                **ck.launches())
+    return dict(sk.launches(), **sk.shape_launches(), **ak.launches(),
+                **nk.launches(), **ck.launches())
 
 
 def check_launched(counts, path):
@@ -1019,13 +1034,21 @@ def k3_operations(p, k1_in):
     return flops
 
 
-def k1_operations(p, npairs):
+def k1_operations(p, npairs, shape="window"):
     """K1's FP64 operations on `npairs` live pairs: a prologue (about 600),
     the monomials of degree <= twojmax (3 multiplies each), 2 an entry of
     the change of basis L and of its four partials L_v (L_v has a nonzero
     for each nonzero of L in a monomial holding the variable v), and 34 a
-    column (the three tangents, J and w U)."""
+    column (the three tangents, J and w U).  The recursion shape instead:
+    the prologue, 52 an entry of each level's half rows in each of the
+    three passes (conj(a) x and conj(b) y with one tangent, 20 each, and
+    their combination, 12), 18 a U column (J's two parts in three
+    directions) and 2 an entry for utot."""
     from fitsnap_tpu_torch.ops.mono import mono_plan
+
+    if shape == "recursion":
+        half = sum((j // 2 + 1) * (j + 1) for j in range(p.twojmax + 1))
+        return npairs * (600 + 3 * 52 * half + 18 * p.u_len + 2 * half)
 
     exps, _, _, L = mono_plan(p.twojmax)
     nz = L != 0
@@ -1052,13 +1075,20 @@ def k1_row(rows, p, k1_in, shape=None):
     if not (out[0].permute(1, 2, 0, 3)[~k1_in[2]] == 0).all():
         raise AssertionError(f"{name}: padding slots not exactly 0")
     ref = sk.pair_u_duals_plain(*k1_in, p)
+    import torch
+
+    sms = torch.cuda.get_device_properties(
+        k1_in[0].device).multi_processor_count
+    k1_shape = sk.pair_u_plan(p, N, K, sms)[0]
+    entry = {"recursion": "pair_u_recur", "table": "pair_u_table"}.get(
+        k1_shape, name)
     record(rows, name + (f"@{shape}" if shape else ""), out, ref,
            (lambda: k1(*k1_in, p), 10),
            timed(lambda: sk.pair_u_duals_plain(*k1_in, p), 3),
            N * K * (3 * 8 + 4 + 1) + N * 4 + 3 * N * K * 2 * U * 8
            + N * nc * 2 * U * 8,
-           k1_operations(p, int(k1_in[2].sum().item())), None,
-           wrapper=name, shape=shape)
+           k1_operations(p, int(k1_in[2].sum().item()), k1_shape), None,
+           wrapper=entry, shape=shape)
     return ref
 
 
@@ -1100,6 +1130,28 @@ def zlist_library(ut, U, groups, name):
     return ms
 
 
+def zlist_sub_row(rows, p, ut, groups, at):
+    """K2 and its library call on the chunk's first atoms where the whole
+    chunk's dense GEMMs pass half the free memory: the first N / 2^i atoms
+    (whole configs: the chunk's atoms are config-major) at which they fit,
+    a row `zlist<at>_<n>atoms` of its own."""
+    from fitsnap_tpu_torch.kernels import snap_kernels as sk
+
+    n = ut.shape[0]
+    while n > 1:
+        n //= 2
+        sub = ut[:n].contiguous()
+        library = zlist_library(sub, p.u_len, groups, f"zlist{at}_{n}atoms")
+        if library is not None:
+            record(rows, f"zlist{at}_{n}atoms", sk.zlist(sub, p),
+                   sk.zlist_plain(sub, p), (lambda: sk.zlist(sub, p), 20),
+                   timed(lambda: sk.zlist_plain(sub, p), 5),
+                   n * 2 * p.u_len * 8 + 2 * n * p.nz * 8,
+                   n * p.z_c.shape[0] * 10, library, wrapper="zlist",
+                   shape=f"{at[1:]}_{n}atoms")
+            return
+
+
 def descriptor_checks(rows, p, k1_in, shape=None, k2_library=True):
     """K1, K2 and K3 (their chemflag modes when the plan has element
     channels) and K6q (quadraticflag) against their plain versions on one
@@ -1138,6 +1190,8 @@ def descriptor_checks(rows, p, k1_in, shape=None, k2_library=True):
         groups = build_snap_plan(p.twojmax).z_dense["groups"] \
             if k2_library is True else k2_library
         library = zlist_library(ut, U, groups, name("zlist") + at)
+        if library is None:
+            zlist_sub_row(rows, p, ut, groups, at)
     z_ptr = p.z_ptr.cpu().numpy()
     empty = torch.as_tensor(np.nonzero(z_ptr[1:] == z_ptr[:-1])[0],
                             device=ut.device)
@@ -1192,8 +1246,10 @@ def descriptor_checks(rows, p, k1_in, shape=None, k2_library=True):
     k3_flops = k3_operations(p, k1_in)
     k3_bytes = (N * nc * 2 * U + 2 * N * nc * nc * p.nz + 3 * N * K * 2 * U
                 + N * W + N * W * K * 3) * 8 + (N * K * 4 if chem else 0)
+    entry = {"level": "dbdd_level", "slab": "dbdd_slab"}.get(
+        sk.dbdd_shape(p, K), name("dbdd"))
     record(rows, name("dbdd") + at, out, ref, (k3, 10), timed(k3_plain, 3),
-           k3_bytes, k3_flops, None, wrapper=name("dbdd"), shape=shape,
+           k3_bytes, k3_flops, None, wrapper=entry, shape=shape,
            library=library)
     B, G = ref
     del out, dbdu, J
@@ -2446,8 +2502,8 @@ def streamed_f32_phase(fs, a_plain, beta, seed, device, keep, checks64):
     float32 instantiation and none at float64 (K8r, integers only, as
     phase 5's).  nrows must equal phase 5's, AtA and Atb phase 5's float64
     ones to NORMAL_RTOL32 of their largest magnitude, the refined float32
-    fit beta_true within 100 cond(w A) 2^-23, and the MAE sums phase 5's
-    at the same coefficients (beta_true spread by MAE_SPREAD, seeded) to
+    fit beta_true within 100 cond(w A) 2^-23 and BETA_RTOL32, and the MAE
+    sums phase 5's at the same coefficients (beta_true spread by MAE_SPREAD, seeded) to
     MAE_RTOL32.  Prints the device ms of a steady pass at each type, in
     turns (float64, float32, float32, float64), and the bytes of a chunk's
     disp and dB/dD at each type.  Returns (counts, timings, checks)."""
@@ -2526,10 +2582,11 @@ def streamed_f32_phase(fs, a_plain, beta, seed, device, keep, checks64):
     cond = checks64["cond_weighted_a_all"]
     beta_err = np.abs(x_ref - beta).max() / np.abs(beta).max()
     beta_tol = 100 * cond * EPS32
-    if not (np.isfinite(x_ref).all() and beta_err <= beta_tol):
+    if not (np.isfinite(x_ref).all() and beta_err <= beta_tol
+            and beta_err <= BETA_RTOL32):
         raise AssertionError(f"the float32 fit misses beta_true: "
-                             f"{beta_err:.3e} > {beta_tol:.3e} (cond "
-                             f"{cond:.3e})")
+                             f"{beta_err:.3e} > {beta_tol:.3e} or "
+                             f"{BETA_RTOL32} (cond {cond:.3e})")
     sums64 = keep["evaluate"](x_mae)
     mae_err = max(abs(sums32[0] - sums64[0]) / sums64[0],
                   abs(sums32[2] - sums64[2]) / sums64[2])
@@ -2542,6 +2599,7 @@ def streamed_f32_phase(fs, a_plain, beta, seed, device, keep, checks64):
               "atb_rel_err": float(atb_err), "cond_weighted_a_all": cond,
               "beta_refined_rel_err": float(beta_err),
               "beta_refined_tol": float(beta_tol),
+              "beta_refined_rtol": BETA_RTOL32,
               "mae_sums_rel_err": float(mae_err),
               "energy_mae": float(se / ne), "force_mae": float(sf / nf)}
 
@@ -4693,12 +4751,21 @@ def grid_rows(rows, p, k1_in, jidx, tag):
            wrapper="nn_dedu_vg_t", shape=shape, vector=True)
 
 
+def turns(order, run):
+    """`run(tag)` for each tag of `order` and then in reverse (the
+    measurement in turns: a, b, b, a); {tag: [results in order]}."""
+    out = {}
+    for tag in list(order) + list(order)[::-1]:
+        out.setdefault(tag, []).append(run(tag))
+    return out
+
+
 def k1_shapes(rows, fs, k1_in):
     """K1 at each twojmax of `SHAPE_TJ` (the Ta section's other values) on
-    a chunk's K1 inputs in its window shape (forced) and its table shape
-    (forced), each against the plain version, then both timed in turns
-    (window, table, table, window); returns {twojmax: (the planner's shape
-    and splits, window ms, table ms)}."""
+    a chunk's K1 inputs in each of its shapes (`K1_SHAPES`, each forced),
+    each against the plain version, then timed in turns (window,
+    recursion, ..., recursion, window); returns {twojmax: (the planner's
+    shape and splits, {shape: ms in turns})}."""
     import torch
     from fitsnap_tpu_torch.calculators import snap as csnap
     from fitsnap_tpu_torch.kernels import snap_kernels as sk
@@ -4714,23 +4781,110 @@ def k1_shapes(rows, fs, k1_in):
         sec.twojmax = [tj]
         p = csnap.make_params(sec, fs.device)
         plan = sk.pair_u_plan(p, N, K, sms)
-        ms = {}
+
+        def run(tag):
+            # the shape forced (the window at any split count)
+            sk.K1_SHAPES, sk.K1_WINDOW_SPLITS = (tag,), 1 << 30
+            if not any(r["name"] == f"pair_u_duals@tj{tj}_{tag}"
+                       for r in rows):
+                k1_row(rows, p, k1_in, f"tj{tj}_{tag}")
+            return timed(lambda: sk.pair_u_duals(*k1_in, p), 10)
+
         try:
-            for tag in ("window", "table", "table", "window"):
-                # the window forced at any split count
-                sk.K1_SHAPES, sk.K1_WINDOW_SPLITS = (tag,), 1 << 30
-                if tag not in ms:
-                    k1_row(rows, p, k1_in, f"tj{tj}_{tag}")
-                ms.setdefault(tag, []).append(
-                    timed(lambda: sk.pair_u_duals(*k1_in, p), 10))
+            ms = turns(kept[0], run)
         finally:
             sk.K1_SHAPES, sk.K1_WINDOW_SPLITS = kept
         print(f"K1 at twojmax {tj} on {N} atoms x {K} slots: planner "
-              f"{plan}; ms in turns (window, table, table, window): "
-              f"{ms['window'][0]:.4f} {ms['table'][0]:.4f} "
-              f"{ms['table'][1]:.4f} {ms['window'][1]:.4f}", flush=True)
-        out[tj] = (list(plan), ms["window"], ms["table"])
+              f"{plan}; ms in turns: " + json.dumps(
+                  {k: [round(x, 4) for x in v] for k, v in ms.items()}),
+              flush=True)
+        out[tj] = (list(plan), ms)
     return out
+
+
+def large_shape_turns(rows, p, k1_in, tag):
+    """K1 and K3 at a chunk past twojmax 12 in the shapes the planners do
+    not take there (K1's table shape, where the tree has it; K3's slab
+    shape), each forced, against the plain version as a row
+    `kernel@<tag>_<shape>`, and each kernel's shapes timed in turns with
+    the planner's (CUDA events); returns {kernel: {shape: ms}}."""
+    from fitsnap_tpu_torch.kernels import snap_kernels as sk
+
+    out = {}
+    kept = sk.K1_SHAPES
+    k1_shape = sk.pair_u_plan(p, *k1_in[2].shape, 132)[0]
+    others = [s for s in kept if s not in ("window", k1_shape)]
+    if others:
+        def run1(shape):
+            sk.K1_SHAPES = (shape,)
+            if shape != k1_shape and not any(
+                    r["name"] == f"pair_u_duals@{tag}_{shape}" for r in rows):
+                k1_row(rows, p, k1_in, f"{tag}_{shape}")
+            return timed(lambda: sk.pair_u_duals(*k1_in, p), 10)
+
+        try:
+            out["pair_u_duals"] = turns([k1_shape] + others, run1)
+        finally:
+            sk.K1_SHAPES = kept
+    J, ut = sk.pair_u_duals_plain(*k1_in, p)
+    z = sk.zlist_plain(ut, p)
+    kept3 = sk.K3_SHAPES
+    k3_shape = sk.dbdd_shape(p, k1_in[2].shape[1])
+    N, K = k1_in[2].shape
+    U, W = p.u_len, p.nb_base
+
+    def run3(shape):
+        sk.K3_SHAPES = (shape,)
+        if shape != k3_shape and not any(
+                r["name"] == f"dbdd@{tag}_{shape}" for r in rows):
+            record(rows, f"dbdd@{tag}_{shape}", sk.dbdd(ut, *z, J, p),
+                   sk.dbdd_plain(ut, *z, J, p),
+                   (lambda: sk.dbdd(ut, *z, J, p), 10),
+                   timed(lambda: sk.dbdd_plain(ut, *z, J, p), 3),
+                   (N * 2 * U + 2 * N * p.nz + 3 * N * K * 2 * U + N * W
+                    + N * W * K * 3) * 8, k3_operations(p, k1_in), None,
+                   wrapper={"level": "dbdd_level", "slab": "dbdd_slab"}.get(
+                       sk.dbdd_shape(p, K), "dbdd"), shape=f"{tag}_{shape}")
+        return timed(lambda: sk.dbdd(ut, *z, J, p), 10)
+
+    try:
+        out["dbdd"] = turns([k3_shape] + [s for s in kept3
+                                          if s != k3_shape], run3)
+    finally:
+        sk.K3_SHAPES = kept3
+    print(f"{tag}: K1 and K3 ms in turns (planner's shape first): "
+          + json.dumps({k: {s: [round(x, 4) for x in v]
+                            for s, v in d.items()} for k, d in out.items()}),
+          flush=True)
+    return out
+
+
+def pass_shape_turns(one_pass, tag):
+    """The device ms of a steady streamed pass with K1 and K3 in their
+    planners' shapes ("new") and in the shapes they took before the
+    recursion and level shapes ("old": K1's table shape, where the tree
+    has it, and K3's slab shape), in turns (new, old, old, new)."""
+    from fitsnap_tpu_torch.kernels import snap_kernels as sk
+
+    kept = sk.K1_SHAPES, sk.K3_SHAPES
+    old = (("table",) if "table" in kept[0] else kept[0], ("slab",))
+
+    def run(tag):
+        sk.K1_SHAPES, sk.K3_SHAPES = old if tag == "old" else kept
+        try:
+            kernel_ms = profile_kernels(one_pass)
+        finally:
+            sk.K1_SHAPES, sk.K3_SHAPES = kept
+        return (round(sum(kernel_ms.values()), 4) if kernel_ms else None,
+                {k: round(v, 4) for k, v in kernel_ms.items()})
+
+    out = turns(("new", "old"), run)
+    print(f"{card_line()}: streamed pass at {tag}, device ms in turns (new "
+          f"shapes, old, old, new; old: K1 {old[0][0]}, K3 slab): new "
+          f"{[x[0] for x in out['new']]} old {[x[0] for x in out['old']]}; "
+          f"split (new, then old): {json.dumps(out['new'][0][1])} "
+          f"{json.dumps(out['old'][0][1])}", flush=True)
+    return {k: [x[0] for x in v] for k, v in out.items()}
 
 
 def large_nn_path(tmp, root, tj, mode, device):
@@ -4803,7 +4957,7 @@ def large_twojmax_phase(tmp, seed, device="cuda"):
 
     t_phase = time.time()
     tj_kern, tj_fit, tj_nn = LARGE_TJ
-    rows, paths, cache, sets = [], {}, {}, {}
+    rows, paths, cache, sets, shape_ms = [], {}, {}, {}, {}
     with shared_plans(cache):
         # the kernels-only twojmax reads the next one's set
         for tj in (tj_fit, tj_kern, tj_nn):
@@ -4833,6 +4987,7 @@ def large_twojmax_phase(tmp, seed, device="cuda"):
             torch.cuda.reset_peak_memory_stats()
             descriptor_checks(rows, p, k1_in, f"tj{tj}",
                               k2_library=cache.pop(("z_dense", tj)))
+            shape_ms[tj] = large_shape_turns(rows, p, k1_in, f"tj{tj}")
             if tj != tj_kern:
                 grid_rows(rows, p, k1_in, args[1], f"@tj{tj}")
             if tj == tj_fit:
@@ -4868,14 +5023,18 @@ def large_twojmax_phase(tmp, seed, device="cuda"):
             torch.cuda.reset_peak_memory_stats()
             fs, *fitsnap = main_path(ini, a_plain, beta, device, f"tj{tj}")
             fitsnap[2]["peak_gb"] = peak_gb()
+            fitsnap[2]["large_shapes"] = shape_ms
             if tj == tj_fit:
                 fitsnap[2]["k1_shapes"] = k1_shape_ms
             paths[FITSNAP_PATH[f"tj{tj}"]] = fitsnap
             if tj == tj_fit:
                 torch.cuda.reset_peak_memory_stats()
+                keep = {}
                 streamed = streamed_path(fs, a_plain, beta, seed, device,
-                                         f"tj{tj}")
+                                         f"tj{tj}", keep=keep)
                 streamed[2]["peak_gb"] = peak_gb()
+                streamed[2]["pass_shapes"] = pass_shape_turns(
+                    keep["one_pass"], f"tj{tj}")
                 paths[STREAM_PATH[f"tj{tj}"]] = streamed
             del fs, a_plain
             torch.cuda.empty_cache()

@@ -751,6 +751,306 @@ long long pair_u_table_smem(int twojmax, int two_u, int nc, int K) {
          static_cast<long long>(sizeof(int)) * (K + TP + 1);
 }
 
+// The recursion shape.  U^j from U^{j-1} by the two-term recursion of
+// LAMMPS (fitsnap_tpu/ops/snap.py `compute_ulist_duals`):
+//   U^j[mb, ma] = ca conj(a) U^{j-1}[mb, ma] - cb conj(b) U^{j-1}[mb, ma-1],
+//   ca = sqrt((j - ma) / (j - mb)), cb = sqrt(ma / (j - mb)),
+// for the half rows 2 mb <= j, the rest by symmetry,
+//   U^j[mb, ma] = (-1)^(ma + mb) conj(U^j[j - mb, j - ma]);
+// a pair's tangent along one displacement axis rides the same recursion by
+// the product rule.
+//   * A block is (atom, split); a split is a range of levels [j0, j1) (the
+//     host's cut of the levels into equal shares of J's columns): it runs
+//     the recursion from level 0 and writes the columns of its own levels
+//     only, so that the splits of an atom share nothing.
+//   * A warp takes one live pair (slot order, RW pairs a round), a lane one
+//     column ma; the lane keeps its column of level j - 1's half rows in
+//     registers (P[mb], the value and one tangent), the neighbour column ma
+//     - 1 comes by __shfl_up_sync, and the row j / 2 of an even level, which
+//     reads level j - 1's row past its half, by a shuffle from the mirrored
+//     lane.  The three tangents run as three passes of the recursion (one
+//     direction each: half the registers of carrying all three at once),
+//     each storing its direction's J as each level is done, a lane a column,
+//     the rows past the half by shuffles from the mirrored lane.
+//   * utot: in the first pass, each warp stages its pair's weighted half
+//     rows of the level, and after a barrier the block adds the RW warps'
+//     values in warp order (the live slots' order) into its copy of the
+//     atom's utot (set to the self term first; a channel each in the
+//     chemflag mode); the rows past the half are completed by symmetry when
+//     utot is stored.
+//   * Masked slots get J = 0 over the split's columns.
+// Bound on the H100: bytes (J's stores), against about 10^5 flops a pair at
+// twojmax 14.  No atomics: the output repeats bit for bit, whatever the
+// split count.
+constexpr int RW = 4;         // warps of a recursion block, a pair each
+
+__host__ __device__ __forceinline__ int level_offset(int j) {
+  return j * (j + 1) * (2 * j + 1) / 6;
+}
+
+// Doubles of a warp's staged level (real parts, then imaginary ones): the
+// largest level's half rows.
+__host__ __device__ __forceinline__ int recur_stage(int twojmax) {
+  return 2 * (twojmax / 2 + 1) * (twojmax + 1);
+}
+
+template <int MB>
+__global__ void __launch_bounds__(RW * 32, 3) pair_u_recur_kernel(
+    const double* __restrict__ disp, const int* __restrict__ jelem,
+    const unsigned char* __restrict__ mask, const int* __restrict__ ielem,
+    const double* __restrict__ elem, Scalars s, long long natoms, int K,
+    const double* __restrict__ rt_g, const int* __restrict__ lv, int twojmax,
+    int two_u, int nc, int wselfall, const double* __restrict__ selfvec,
+    double* __restrict__ J, double* __restrict__ ut) {
+  extern __shared__ __align__(16) double smem[];
+  const int tj = twojmax, U = two_u / 2, hs = recur_stage(tj);
+  double* us = smem;                          // [nc][two_u] utot
+  double* stg = us + static_cast<long long>(nc) * two_u;  // [2][RW][hs]
+  double* rt = stg + 2 * RW * hs;             // [(tj + 1)^2] sqrt(p / q)
+  int* slots = reinterpret_cast<int*>(rt + (tj + 1) * (tj + 1));  // [K]
+  int* wch = slots + K;                       // [RW] channel of a warp's pair
+  int* cnt = wch + RW;                        // live slots
+
+  const long long a = blockIdx.x;
+  const int j0 = lv[blockIdx.y], j1 = lv[blockIdx.y + 1];
+  const int c0 = level_offset(j0), c1 = level_offset(j1);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ie = ielem[a];
+  const long long rows = natoms * K;  // J rows of one direction
+
+  // live slots first in slot order, masked ones from the end
+  if (warp == 0) {
+    int nl = 0, nm = 0;
+    for (int k0 = 0; k0 < K; k0 += 32) {
+      const int k = k0 + lane;
+      const bool live = k < K && mask[a * K + k] != 0;
+      const bool dead = k < K && !live;
+      const unsigned bl = __ballot_sync(0xffffffffu, live);
+      const unsigned bd = __ballot_sync(0xffffffffu, dead);
+      const unsigned below = (1u << lane) - 1u;
+      if (live) slots[nl + __popc(bl & below)] = k;
+      if (dead) slots[K - 1 - (nm + __popc(bd & below))] = k;
+      nl += __popc(bl);
+      nm += __popc(bd);
+    }
+    if (lane == 0) cnt[0] = nl;
+  }
+  // the split's columns of utot start at the self term
+  for (int e = 0; e < nc; ++e) {
+    const bool self = nc == 1 || wselfall || e == ie;
+    for (int u = c0 + threadIdx.x; u < c1; u += blockDim.x) {
+      us[e * two_u + u] = self ? selfvec[u] : 0.0;
+      us[e * two_u + U + u] = self ? selfvec[U + u] : 0.0;
+    }
+  }
+  for (int i = threadIdx.x; i < (tj + 1) * (tj + 1); i += blockDim.x)
+    rt[i] = rt_g[i];
+  __syncthreads();
+  const int nlive = cnt[0];
+
+  // masked slots: zero rows over the split's columns
+  for (int mi = warp; mi < K - nlive; mi += RW) {
+    const long long base = a * K + slots[K - 1 - mi];
+    for (int c = 0; c < 3; ++c) {
+      double* row = J + (c * rows + base) * two_u;
+      for (int u = c0 + lane; u < c1; u += 32) row[u] = row[U + u] = 0.0;
+    }
+  }
+
+  for (int r0 = 0; r0 < nlive; r0 += RW) {
+    __syncthreads();                    // the last round's sums are done
+    const int pi = r0 + warp;
+    const bool has = pi < nlive;
+    Dual pro[5];
+    long long kk = 0;
+    int ch = -1;
+    if (has) {
+      kk = a * K + slots[pi];
+      const int je = jelem[kk];
+      ch = nc == 1 ? 0 : (je >= 0 && je < nc ? je : -1);
+      prologue(disp[kk * 3], disp[kk * 3 + 1], disp[kk * 3 + 2], true, ie, je,
+               elem, s, pro);
+    } else {
+      prologue(1.0, 0.0, 0.0, false, ie, 0, elem, s, pro);
+    }
+    if (lane == 0) wch[warp] = ch;
+    for (int c = 0; c < 3; ++c) {
+      const double ar = pro[0].v, ai = pro[1].v, br = pro[2].v, bi = pro[3].v;
+      const double dar = pro[0].d[c], dai = pro[1].d[c];
+      const double dbr = pro[2].d[c], dbi = pro[3].d[c];
+      const double w = pro[4].v, dw = pro[4].d[c];
+      double* Jc = J + (c * rows + kk) * two_u;
+      // the lane's column of the level's half rows: value and tangent, real
+      // and imaginary
+      double P[MB][4];
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) P[mb][e] = 0.0;
+      if (lane == 0) P[0][0] = 1.0;
+      for (int j = 0; j < j1; ++j) {
+        if (j > 0) {
+          // rows from the last down, so that a row's mirror source (the row
+          // below it) is still level j - 1's
+#pragma unroll
+          for (int mb = MB - 1; mb >= 0; --mb) {
+            if (2 * mb > j) continue;
+            double x[4], y[4];
+            if (mb > 0 && 2 * mb == j) {
+              // row j / 2 of level j - 1: (-1)^(ma + mb) conj of its row
+              // j / 2 - 1 at column j - 1 - ma, and at j - ma for ma - 1
+              const double* src = P[mb > 0 ? mb - 1 : 0];
+              const int lx = j - 1 - lane, ly = j - lane;
+              double vx[4], vy[4];
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                vx[e] = __shfl_sync(0xffffffffu, src[e], lx & 31);
+                vy[e] = __shfl_sync(0xffffffffu, src[e], ly & 31);
+              }
+              const double sx = (lane + mb) & 1 ? -1.0 : 1.0;
+              const bool okx = lx >= 0, oky = lane >= 1 && ly >= 0;
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const double f = e & 1 ? -sx : sx;   // conj: imaginary -
+                x[e] = okx ? f * vx[e] : 0.0;
+                y[e] = oky ? -f * vy[e] : 0.0;     // ma - 1: the other sign
+              }
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                x[e] = P[mb][e];
+                const double v = __shfl_up_sync(0xffffffffu, P[mb][e], 1);
+                y[e] = lane >= 1 ? v : 0.0;
+              }
+            }
+            if (lane <= j) {
+              const double ca = rt[(j - lane) * (tj + 1) + j - mb];
+              const double cb = rt[lane * (tj + 1) + j - mb];
+              // conj(a) x and conj(b) y, with their tangents
+              const double tar = ar * x[0] + ai * x[1];
+              const double tai = ar * x[1] - ai * x[0];
+              const double dtar = dar * x[0] + ar * x[2] + dai * x[1] +
+                                  ai * x[3];
+              const double dtai = dar * x[1] + ar * x[3] - dai * x[0] -
+                                  ai * x[2];
+              const double tbr = br * y[0] + bi * y[1];
+              const double tbi = br * y[1] - bi * y[0];
+              const double dtbr = dbr * y[0] + br * y[2] + dbi * y[1] +
+                                  bi * y[3];
+              const double dtbi = dbr * y[1] + br * y[3] - dbi * y[0] -
+                                  bi * y[2];
+              P[mb][0] = ca * tar - cb * tbr;
+              P[mb][1] = ca * tai - cb * tbi;
+              P[mb][2] = ca * dtar - cb * dtbr;
+              P[mb][3] = ca * dtai - cb * dtbi;
+            }
+          }
+        }
+        if (j < j0) continue;
+        // level j's columns of J: the half rows from the lane's registers,
+        // row j - r from row r at the mirrored lane j - ma
+        const int off = level_offset(j), n1 = j + 1;
+        const bool mine = has && lane <= j;
+        double* sb = stg + ((j & 1) * RW + warp) * hs;
+#pragma unroll
+        for (int r = 0; r < MB; ++r) {
+          if (2 * r > j) continue;
+          const int col = off + r * n1 + lane;
+          if (mine) {
+            Jc[col] = w * P[r][2] + dw * P[r][0];
+            Jc[U + col] = w * P[r][3] + dw * P[r][1];
+          }
+          if (c == 0 && lane <= j) {
+            sb[r * n1 + lane] = w * P[r][0];
+            sb[hs / 2 + r * n1 + lane] = w * P[r][1];
+          }
+          if (2 * r < j) {
+            double v[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              v[e] = __shfl_sync(0xffffffffu, P[r][e], (j - lane) & 31);
+            if (mine) {
+              const double sg = (lane + j - r) & 1 ? -1.0 : 1.0;
+              const int mc = off + (j - r) * n1 + lane;
+              Jc[mc] = w * (sg * v[2]) + dw * (sg * v[0]);
+              Jc[U + mc] = w * (-sg * v[3]) + dw * (-sg * v[1]);
+            }
+          }
+        }
+        if (c == 0) {
+          // the block adds the warps' pairs in warp (slot) order
+          __syncthreads();
+          const int nent = (j / 2 + 1) * n1;
+          const double* sl = stg + (j & 1) * RW * hs;
+          for (int e = threadIdx.x; e < 2 * nent; e += blockDim.x) {
+            const int part = e >= nent;
+            const int idx = e - part * nent;
+            const int col = part * U + off + idx;
+            for (int q = 0; q < RW; ++q) {
+              const int e2 = wch[q];
+              if (e2 >= 0) us[e2 * two_u + col] += sl[q * hs + part * hs / 2 + idx];
+            }
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // the split's columns of utot, the rows past the half by symmetry
+  for (int e = 0; e < nc; ++e) {
+    const double* ue = us + e * two_u;
+    double* uo = ut + (a * nc + e) * two_u;
+    for (int u = c0 + threadIdx.x; u < c1; u += blockDim.x) {
+      int j = j0;
+      while (level_offset(j + 1) <= u) ++j;
+      const int n1 = j + 1, idx = u - level_offset(j);
+      const int mb = idx / n1, ma = idx % n1;
+      if (2 * mb <= j) {
+        uo[u] = ue[u];
+        uo[U + u] = ue[U + u];
+      } else {
+        const int src = level_offset(j) + (j - mb) * n1 + j - ma;
+        const double sg = (ma + mb) & 1 ? -1.0 : 1.0;
+        uo[u] = sg * ue[src];
+        uo[U + u] = -sg * ue[U + src];
+      }
+    }
+  }
+}
+
+// Shared memory of one block of the recursion shape: utot, the warps'
+// staged levels (two buffers), the coefficient table, the slot lists
+// (`snap_kernels.pair_u_recur_smem`).
+long long pair_u_recur_smem(int twojmax, int two_u, int nc, int K) {
+  return static_cast<long long>(sizeof(double)) *
+             (static_cast<long long>(nc) * two_u +
+              2LL * RW * recur_stage(twojmax) +
+              (twojmax + 1) * (twojmax + 1)) +
+         static_cast<long long>(sizeof(int)) * (K + RW + 1);
+}
+
+template <int MB>
+int pair_u_recur_launch(const double* disp, const int* jelem,
+                        const unsigned char* mask, const int* ielem,
+                        const double* elem, const Scalars& s,
+                        long long natoms, int K, const double* rt,
+                        const int* lv, int nsplit, int twojmax, int two_u,
+                        int nc, int wselfall, const double* selfvec,
+                        double* J, double* ut, long long smem,
+                        cudaStream_t stream) {
+  const int err = fs_allow_smem(pair_u_recur_kernel<MB>, smem);
+  if (err) return err;
+  if (natoms > 0) {
+    const dim3 grid(static_cast<unsigned>(natoms),
+                    static_cast<unsigned>(nsplit));
+    pair_u_recur_kernel<MB><<<grid, RW * 32, smem, stream>>>(
+        disp, jelem, mask, ielem, elem, s, natoms, K, rt, lv, twojmax, two_u,
+        nc, wselfall, selfvec, J, ut);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // disp (N, K, 3) f64, jelem (N, K) i32, mask (N, K) u8, ielem (N,) i32,
@@ -825,4 +1125,36 @@ extern "C" int pair_u_table(
         wselfall, selfvec, J, ut);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K1's recursion shape: disp, jelem, mask, ielem, elem, the prologue
+// scalars, natoms, K as `pair_u_duals`'; rt ((twojmax + 1)^2,) f64 with
+// sqrt(p / q) at p (twojmax + 1) + q (0 where p = 0 or q = 0); lv (nsplit +
+// 1,) i32 each split's first level (0, ..., twojmax + 1); twojmax at most
+// 16; two_u, nc, wselfall, selfvec, J, ut as `pair_u_duals`'
+// (`snap_kernels.pair_u_recur_plan`).
+extern "C" int pair_u_recur(
+    const double* disp, const int* jelem, const unsigned char* mask,
+    const int* ielem, const double* elem, double rcutfac, double rfac0,
+    double rmin0, int switchflag, int switchinnerflag, long long natoms,
+    int K, const double* rt, const int* lv, int nsplit, int twojmax,
+    int two_u, int nc, int wselfall, const double* selfvec, double* J,
+    double* ut, void* stream) {
+  const Scalars s{rcutfac, rfac0, rmin0, switchflag, switchinnerflag};
+  const long long smem = pair_u_recur_smem(twojmax, two_u, nc, K);
+  if (nsplit < 1 || nsplit > twojmax + 1 || twojmax < 0 || twojmax > 16 ||
+      smem > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // the fewest registers of half rows that hold twojmax / 2 + 1
+  const int mb = twojmax / 2 + 1;
+#define FS_RECUR(M)                                                          \
+  return pair_u_recur_launch<M>(disp, jelem, mask, ielem, elem, s, natoms,  \
+                                K, rt, lv, nsplit, twojmax, two_u, nc,      \
+                                wselfall, selfvec, J, ut, smem, st)
+  if (mb <= 4) FS_RECUR(4);
+  if (mb <= 6) FS_RECUR(6);
+  if (mb <= 8) FS_RECUR(8);
+  FS_RECUR(9);
+#undef FS_RECUR
 }

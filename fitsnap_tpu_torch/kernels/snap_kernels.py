@@ -40,11 +40,15 @@ for _name in ("pair_u_duals", "pair_u_duals_f32"):
 kl.register("pair_u_table", "pair_u_duals",
             [_P] * 5 + [_D] * 3 + [_I, _I, _LL, _I] + [_P] * 4 + [_I] * 5
             + [_P] * 4)
+kl.register("pair_u_recur", "pair_u_duals",
+            [_P] * 5 + [_D] * 3 + [_I, _I, _LL, _I] + [_P] * 2 + [_I] * 5
+            + [_P] * 4)
 for _name in ("zlist", "zlist_f32"):
     kl.register(_name, "zlist", [_P, _LL] + [_I] * 4 + [_P] * 3 + [_I, _P]
                 + [_I] * 2 + [_P] * 3)
 for _name in ("dbdd", "dbdd_f32"):
     kl.register(_name, "dbdd", [_P] * 15 + [_LL] + [_I] * 8 + [_P] * 3)
+kl.register("dbdd_level", "dbdd", [_P] * 12 + [_LL] + [_I] * 8 + [_P] * 3)
 kl.register("quad_chain", "quad_chain", [_P] * 5 + [_LL] + [_I] * 3
             + [_P] * 3)
 for _name in ("pair_scatter_rows", "pair_scatter_rows_f32"):
@@ -113,7 +117,7 @@ def _k1_columns(p):
     accumulator) its nonzeros (monomial, coefficient) in monomial order,
     accumulators U = L M and dU/dv = L_v M (v = ar, ai, br, bi) with
     L_v[m, u] = (e_v(m) + 1) L[m + e_v, u]; e_ptr (2U * 5 + 1) their CSR."""
-    if p.k1 is not None:
+    if p.k1 is not None and "columns" in p.k1:
         return p.k1["columns"]
     exps, _, _, L = mono_plan(p.twojmax)
     exps = np.asarray(exps)
@@ -133,7 +137,7 @@ def _k1_columns(p):
         exps=exps, blocks=mono_blocks(p.twojmax)[0], mono=mono,
         coef=stack[col, acc, mono],
         e_ptr=np.concatenate([[0], np.cumsum(counts)]))
-    p.k1 = {"columns": cols}
+    p.k1 = dict(p.k1 or {}, columns=cols)
     return cols
 
 
@@ -360,6 +364,10 @@ def pair_u_tables(p, nsplit, shape="window"):
 def pair_u_smem(plan, nc, K):
     """Bytes of shared memory of a K1 block (csrc/pair_u_duals.cu) of
     `plan`'s shape (a window plan at its `itemsize`, 8 or 4)."""
+    if plan.shape == "recursion":
+        tj = plan.twojmax
+        return 8 * (nc * plan.two_u + 2 * _K1_RW * _k1_recur_stage(tj)
+                    + (tj + 1) ** 2) + 4 * (K + _K1_RW + 1)
     b = 8 if plan.shape == "table" else plan.itemsize
     fixed = b * (_K1_PRO * _K1_TILE + 4 * (plan.twojmax + 1) * _K1_TILE) \
         + 4 * (K + _K1_TILE + 1)
@@ -397,13 +405,65 @@ def _k1_window_floor(p, K):
         itemsize=4 if p.dtype == torch.float32 else 8), p.nchem, K)
 
 
-K1_SHAPES = ("window", "table")   # in the order the planner tries them
+K1_SHAPES = ("window", "recursion", "table")   # in the planner's order
 # The most splits at which a window fits that the window shape takes: each
 # split repeats its pairs' prologue and monomials, so that at twojmax 11
 # (128 splits) and 12 (1,024) the table shape is 2.3x and 9.2x faster on
 # the H100, while up to twojmax 10 (at most 4) the window shape is faster
 # (`chip_smoke.py` phase 21, PERF.md)
 K1_WINDOW_SPLITS = 16
+# csrc/pair_u_duals.cu's recursion shape: warps of a block (a pair each)
+_K1_RW = 4
+# the most level splits of the recursion shape
+K1_RECUR_SPLITS = 8
+
+
+def _k1_recur_stage(twojmax):
+    """Doubles of a warp's staged level in the recursion shape: the largest
+    level's half rows, real and imaginary."""
+    return 2 * (twojmax // 2 + 1) * (twojmax + 1)
+
+
+def pair_u_recur_plan(p, nsplit):
+    """K1's recursion shape with `nsplit` level splits, cached on the plan:
+    rt ((twojmax + 1)^2,) f64, sqrt(p / q) at p (twojmax + 1) + q (0 where
+    p or q is 0: the recursion's coefficients, as `cg.rootpq_tables` forms
+    them); lv (nsplit + 1,) i32 each split's first level, the levels cut
+    into shares of about equal columns ((j + 1)^2 a level)."""
+    if p.k1 is None:
+        p.k1 = {}
+    if ("recursion", nsplit) in p.k1:
+        return p.k1["recursion", nsplit]
+    tj = p.twojmax
+    if not 1 <= nsplit <= tj + 1:
+        raise ValueError(f"pair_u_duals: {nsplit} splits of {tj + 1} "
+                         f"levels")
+    if p.dtype == torch.float32:
+        raise kl.f32_refusal("pair_u_duals (recursion shape)",
+                             kl.QUEUE_LARGE)
+    pq = np.arange(tj + 1, dtype=np.float64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        rt = np.sqrt(pq[:, None] / pq[None, :])
+    rt[:, 0] = 0.0
+    lv = _k1_level_cuts(tj, nsplit)
+    plan = SimpleNamespace(
+        shape="recursion", nsplit=nsplit, twojmax=tj, two_u=2 * p.u_len,
+        rt=torch.as_tensor(rt.reshape(-1), device=p.device),
+        lv=torch.as_tensor(np.asarray(lv, np.int32), device=p.device))
+    p.k1["recursion", nsplit] = plan
+    return plan
+
+
+def _k1_level_cuts(twojmax, nsplit):
+    """First level of each of `nsplit` splits and twojmax + 1: the levels
+    in order, cut where the running count of columns ((j + 1)^2 a level)
+    comes nearest each share; every split holds a level at least."""
+    cum = np.cumsum((np.arange(twojmax + 1) + 1) ** 2)
+    cuts = [0]
+    for s in range(1, nsplit):
+        j = int(np.abs(cum - cum[-1] * s / nsplit).argmin()) + 1
+        cuts.append(min(max(j, cuts[-1] + 1), twojmax + 1 - (nsplit - s)))
+    return cuts + [twojmax + 1]
 
 
 def pair_u_plan(p, N, K, sms):
@@ -412,14 +472,25 @@ def pair_u_plan(p, N, K, sms):
     (the window shape skipped where its floor, `_k1_window_floor`, does
     not, or where it first fits past `K1_WINDOW_SPLITS` splits), and of
     its split counts (powers of two) the fewest that fits and gives a
-    block to every other SM (or an eighth of the chunks to a split);
-    raises when no shape fits.  A float32 plan has the window shape alone,
-    at any split count that fits (the table shape is float64 only)."""
+    block to every other SM (or an eighth of the chunks to a split); the
+    recursion shape's splits are of levels, the fewest (to
+    `K1_RECUR_SPLITS`) that give two blocks to every SM.  Raises when no
+    shape fits.  A float32 plan has the window shape alone, at any split
+    count that fits (the other shapes are float64 only)."""
     nchunks = len(_k1_chunks(p))
     counts = [1 << i for i in range(nchunks.bit_length())
               if 1 << i <= nchunks]
     f32 = p.dtype == torch.float32
     for shape in ("window",) if f32 else K1_SHAPES:
+        if shape == "recursion":
+            s = 1
+            while s < min(K1_RECUR_SPLITS, p.twojmax + 1) and N * s < 2 * sms:
+                s *= 2
+            s = min(s, p.twojmax + 1)
+            if pair_u_smem(pair_u_recur_plan(p, s), p.nchem, K) \
+                    <= _SMEM_LIMIT:
+                return shape, s
+            continue
         window = shape == "window"
         if window and _k1_window_floor(p, K) > _SMEM_LIMIT:
             continue
@@ -465,14 +536,21 @@ def _pair_u_duals_launch(disp, jelem, mask, ielem, p):
     dev = disp.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     shape, nsplit = pair_u_plan(p, N, K, sms)
-    pl = pair_u_tables(p, nsplit, shape)
+    pl = (pair_u_recur_plan(p, nsplit) if shape == "recursion"
+          else pair_u_tables(p, nsplit, shape))
     J = torch.empty((3, N, K, two_u), dtype=dt, device=dev)
     ut = torch.empty((N, p.nchem * two_u), dtype=dt, device=dev)
     common = (_ptr(disp), _ptr(jelem), _ptr(mask), _ptr(ielem), _ptr(p.elem),
               p.rcutfac, p.rfac0, p.rmin0, int(p.switchflag),
-              int(p.switchinnerflag), N, K, _ptr(pl.blob))
+              int(p.switchinnerflag), N, K)
     tail = (pl.twojmax, two_u, p.nchem, int(p.wselfallflag), _ptr(p.selfvec),
             _ptr(J), _ptr(ut))
+    if pl.shape == "recursion":
+        _launch("pair_u_recur", dev, *common, _ptr(pl.rt), _ptr(pl.lv),
+                pl.nsplit, *tail)
+        SHAPE_LAUNCHES["pair_u_recur"] += 1
+        return J, ut
+    common += (_ptr(pl.blob),)
     if pl.shape == "window":
         _launch(kl.entry("pair_u_duals", dt), dev, *common, _ptr(pl.loc),
                 _ptr(pl.cw_ptr),
@@ -482,6 +560,7 @@ def _pair_u_duals_launch(disp, jelem, mask, ielem, p):
     else:
         _launch("pair_u_table", dev, *common, _ptr(pl.wrec), _ptr(pl.zr_ptr),
                 _ptr(pl.zruns), pl.nsplit, *tail)
+        SHAPE_LAUNCHES["pair_u_table"] += 1
     return J, ut
 
 
@@ -642,6 +721,11 @@ zlist_chem.launches = 0
 # K3: dB/dutot, B and the pair jacobian dB/dD
 # ---------------------------------------------------------------------------
 
+# K3's shapes past whole rows, in the planner's order: the level shape
+# (one channel) and the slab shape (csrc/dbdd.cu)
+K3_SHAPES = ("level", "slab")
+
+
 def dbdd_plan(p, K=64):
     """(rows of W per block, blocks per atom, slab) of csrc/dbdd.cu at K
     neighbor slots.  Whole y rows (slab 0) where 16 of them fit a block:
@@ -649,7 +733,8 @@ def dbdd_plan(p, K=64):
     lists, the zero-block flags and the product's epilogue stage, two
     blocks an SM where they fit (`launch.row_plan`).  Else rows of 32 and y
     built in slabs of u columns, the widest multiple of 48 whose rows fit
-    two blocks an SM.  A float32 plan's rows are float32 (whole rows to
+    two blocks an SM (one channel runs the level shape there instead,
+    `dbdd_shape`).  A float32 plan's rows are float32 (whole rows to
     twojmax 12; no slab shape at float32)."""
     ldl = kl.ag_ldl(2 * p.u_len)
     b = p.dtype.itemsize
@@ -672,6 +757,160 @@ def dbdd_plan(p, K=64):
     return -(-per // 16) * 16, tiles, slab
 
 
+def dbdd_shape(p, K=64):
+    """K3's shape at K neighbor slots: "rows" where whole y rows fit
+    (`dbdd_plan`), else the first of `K3_SHAPES` that takes the plan (the
+    level shape one channel only)."""
+    if dbdd_plan(p, K)[2] == 0:
+        return "rows"
+    for shape in K3_SHAPES:
+        if shape == "slab" or p.nchem == 1:
+            return shape
+    raise ValueError(f"dbdd: no shape of {K3_SHAPES} takes {p.nchem} "
+                     f"channels past whole rows")
+
+
+# csrc/dbdd.cu's level shape: columns of a level in a chunk, rows of a
+# group (4 row tiles of 16), the y buffer's row stride, the threads the
+# records are dealt to, J chunks in shared memory and a stage row's stride;
+# a block's slots at the most (96 columns)
+_K3_CH, _K3_GROUP, _K3_LDY, _K3_REC = 16, 64, 36, 256
+_K3_STAGES, _K3_LDJ, _K3_SLOTS = 4, 52, 32
+
+
+def dbdd_level_tiles(K):
+    """(KB, CT) of K3's level shape at K neighbor slots: the slots in CT
+    tiles of KB, as few tiles as keep a tile within 32 slots."""
+    ct = -(-K // _K3_SLOTS)
+    return -(-K // ct), ct
+
+
+def dbdd_level_smem(KB, nch=0, nrows=0, W=0):
+    """Bytes of shared memory of a level-shape block of KB slots: the J
+    stages (3 KB rows, padded to whole n-tiles of 8, of two parts), two
+    y buffers, the tile's J row offsets, and the plan's chunk table, row
+    lists and B's row pointers (`dbdd_levels`: nch chunks, nrows rows, W
+    rows of B)."""
+    return 8 * (_K3_STAGES * -(-3 * KB // 8) * 8 * _K3_LDJ
+                + 2 * _K3_GROUP * _K3_LDY + 3 * _K3_SLOTS) \
+        + 4 * (8 * nch + nrows + W + 1)
+
+
+def dbdd_levels(p):
+    """K3's level plan, cached on the plan (one channel): the rows of each
+    level (the triples whose targets, `dbdd_tables`, fall in it) in groups
+    of at most 64, each group's level columns in chunks of 16, and for
+    each chunk the records that build its y tile (the group's rows padded
+    to 16 x the chunk's columns padded to 8; real part at column c, the
+    imaginary one at c + the padded width).
+
+    - chunk (nch, 8) i32: first row of the group in `rows`, row tiles of
+      16, the chunk's first column (level offset + c0), columns L, first
+      record, record rows m, 1 where the group's level ends (its sums go
+      into dB/dD), 0;
+    - rows i32: each group's rows, w | 1 << 30 at the row's first group in
+      chunk order (written there, added later), -1 padding;
+    - rec (n, 4) i32: record r = m * 256 + thread of a chunk (from its
+      first) is (pos | set << 30, z index, the two words of its factor f):
+      y[pos] (=, where set, else +=) f z_r[index], y[pos + padded width]
+      the same with z_i; index -1 writes 0 (a position without target);
+      pos -1 a record that does nothing; a target's records (its nonzero
+      layers in layer order, or one zero record) on one thread in order,
+      the targets dealt to the threads in turn;
+    - b_ptr (W + 1), b_u, b_src i32, b_fac f64: each row's layer-0 terms
+      (targets with a nonzero layer-0 factor), B's."""
+    tg = dbdd_tables(p)
+    if getattr(tg, "levels", None) is not None:
+        return tg.levels
+    if p.nchem != 1:
+        raise ValueError("dbdd_levels: the level shape takes one channel")
+    ptr = tg.tg_ptr.cpu().numpy().astype(np.int64)
+    tu = tg.tg_u.cpu().numpy().astype(np.int64)
+    tsrc = tg.tg_src.cpu().numpy().astype(np.int64)
+    tfac = tg.tg_fac.cpu().numpy().astype(np.float64)
+    W, U, tj = p.nb_base, p.u_len, p.twojmax
+    t_of = np.repeat(np.arange(W), np.diff(ptr))
+    off = np.array([j * (j + 1) * (2 * j + 1) // 6 for j in range(tj + 2)])
+    lev = np.searchsorted(off, tu, "right") - 1
+    chunks, rows = [], []
+    recs, facs, nrec = [], [], 0
+    seen = np.zeros(W, bool)
+    for j in range(tj + 1):
+        at = np.nonzero(lev == j)[0]
+        R = np.unique(t_of[at])
+        n = (j + 1) ** 2
+        for g0 in range(0, len(R), _K3_GROUP):
+            Rg = R[g0:g0 + _K3_GROUP]
+            nrt = -(-len(Rg) // 16)
+            rbase = len(rows)
+            rows.extend(int(t) | (0 if seen[t] else 1 << 30) for t in Rg)
+            rows.extend([-1] * (nrt * 16 - len(Rg)))
+            seen[Rg] = True
+            rr_of = np.full(W, -1)
+            rr_of[Rg] = np.arange(len(Rg))
+            mine = at[rr_of[t_of[at]] >= 0]
+            for c0 in range(0, n, _K3_CH):
+                L = min(_K3_CH, n - c0)
+                lp8 = -(-L // 8) * 8
+                sel = mine[(tu[mine] - off[j] >= c0)
+                           & (tu[mine] - off[j] < c0 + L)]
+                # the tile's positions, row-major: each target's layers
+                npos = nrt * 16 * lp8
+                lay_src = np.full((npos, 3), -1)
+                lay_fac = np.zeros((npos, 3))
+                q = rr_of[t_of[sel]] * lp8 + (tu[sel] - off[j] - c0)
+                lay_src[q] = tsrc[sel]
+                lay_fac[q] = tfac[sel]
+                live = lay_fac != 0
+                cnt = np.maximum(live.sum(1), 1)
+                # dealt in turn: position q on thread q % 256, in order
+                th = np.arange(npos) % _K3_REC
+                slot = np.arange(npos) // _K3_REC
+                per = np.zeros((-(-npos // _K3_REC), _K3_REC), np.int64)
+                per[slot, th] = cnt
+                start = np.cumsum(per, 0) - per
+                m = int(per.sum(0).max())
+                rx = np.full((m, _K3_REC), -1, np.int64)
+                ry = np.full((m, _K3_REC), -1, np.int64)
+                rf = np.zeros((m, _K3_REC))
+                pos = (q_all := np.arange(npos)) // lp8 * _K3_LDY \
+                    + q_all % lp8
+                k = np.zeros(npos, np.int64)
+                for layer in range(3):
+                    use = live[:, layer] | ((layer == 0) & ~live.any(1))
+                    qq = np.nonzero(use)[0]
+                    mm = start[slot[qq], th[qq]] + k[qq]
+                    rx[mm, th[qq]] = pos[qq] | np.where(k[qq] == 0, 1 << 30,
+                                                        0)
+                    ry[mm, th[qq]] = np.where(live[qq, layer],
+                                              lay_src[qq, layer], -1)
+                    rf[mm, th[qq]] = np.where(live[qq, layer],
+                                              lay_fac[qq, layer], 0.0)
+                    k[qq] += 1
+                chunks.append([rbase, nrt, off[j] + c0, L, nrec, m,
+                               int(c0 + L >= n), 0])
+                recs.append(np.stack([rx.reshape(-1), ry.reshape(-1)], 1))
+                facs.append(rf.reshape(-1))
+                nrec += m * _K3_REC
+    b0 = tfac[:, 0] != 0
+    counts = np.bincount(t_of[b0], minlength=W)
+
+    def t(x, dtype=torch.int32):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                               device=p.device)
+
+    rec = np.concatenate([np.concatenate(recs).astype(np.int32),
+                          np.concatenate(facs).view(np.int32).reshape(-1, 2)],
+                         1)
+    tg.levels = SimpleNamespace(
+        chunk=t(np.asarray(chunks, np.int64)), rows=t(np.asarray(rows)),
+        rec=t(rec),
+        b_ptr=t(np.concatenate([[0], np.cumsum(counts)])),
+        b_u=t(tu[b0]), b_src=t(tsrc[b0, 0]),
+        b_fac=t(tfac[b0, 0], torch.float64), nch=len(chunks))
+    return tg.levels
+
+
 def dbdd_tiles(p, K=64):
     """(rows of W per block, blocks per atom) of csrc/dbdd.cu at K neighbor
     slots (`dbdd_plan`)."""
@@ -692,7 +931,7 @@ def dbdd_tables(p):
     t, u = np.nonzero((fac != 0).any(axis=0))
     i32 = torch.int32
     p.k3 = SimpleNamespace(
-        slabs={},
+        slabs={}, levels=None,
         tg_ptr=torch.as_tensor(np.searchsorted(t, np.arange(p.ntriples + 1)),
                                dtype=i32, device=p.device),
         tg_u=torch.as_tensor(u, dtype=i32, device=p.device),
@@ -760,12 +999,22 @@ def _dbdd_launch(ut, z_r, z_i, J, jelem, p):
     _check(J, "J", dt, (3, N, K, 2 * U))
     if jelem is not None:
         _check(jelem, "jelem", torch.int32, (N, K))
-    mt, tiles, slab = dbdd_plan(p, K)
-    tg = dbdd_tables(p)
     dev = ut.device
     bzero = p.bzero if p.bzeroflag else torch.zeros_like(p.bzero)
     B = torch.empty((N, W), dtype=dt, device=dev)
     dBdD = torch.empty((N, W, K, 3), dtype=dt, device=dev)
+    if dbdd_shape(p, K) == "level":
+        lv = dbdd_levels(p)
+        KB, CT = dbdd_level_tiles(K)
+        _launch("dbdd_level", dev, _ptr(ut), _ptr(z_r), _ptr(z_i), _ptr(J),
+                _ptr(lv.chunk), _ptr(lv.rows), _ptr(lv.rec),
+                _ptr(lv.b_ptr), _ptr(lv.b_u), _ptr(lv.b_src),
+                _ptr(lv.b_fac), _ptr(bzero), N, K, W, U, p.nz, lv.nch,
+                lv.rows.numel(), KB, CT, _ptr(B), _ptr(dBdD))
+        SHAPE_LAUNCHES["dbdd_level"] += 1
+        return B, dBdD
+    mt, tiles, slab = dbdd_plan(p, K)
+    tg = dbdd_tables(p)
     ranges = _ptr(dbdd_slab_ranges(p, slab)) if slab else None
     _launch(kl.entry("dbdd", dt), dev, _ptr(ut), _ptr(z_r), _ptr(z_i),
             _ptr(J),
@@ -774,6 +1023,8 @@ def _dbdd_launch(ut, z_r, z_i, J, jelem, p):
             _ptr(p.y_src), _ptr(p.y_fac), _ptr(p.blk_chan),
             _ptr(p.blk_pair), _ptr(bzero), N, K, p.ntriples, U, p.nz, nc, mt,
             tiles, slab, _ptr(B), _ptr(dBdD))
+    if slab:
+        SHAPE_LAUNCHES["dbdd_slab"] += 1
     return B, dBdD
 
 
@@ -1519,12 +1770,27 @@ for _k in F32_KERNELS:
     _k.launches_f32 = 0
 
 
+# launches of the shapes of K1 and K3 past twojmax 12, by entry point
+# (inside their wrappers' counts): K1's recursion and table shapes, K3's
+# level and slab shapes
+SHAPE_LAUNCHES = dict.fromkeys(("pair_u_recur", "pair_u_table", "dbdd_level",
+                                "dbdd_slab"), 0)
+
+
 def reset_launches():
     """Set every kernel's launch counts to 0."""
     for k in KERNELS:
         k.launches = 0
     for k in F32_KERNELS:
         k.launches_f32 = 0
+    for k in SHAPE_LAUNCHES:
+        SHAPE_LAUNCHES[k] = 0
+
+
+def shape_launches():
+    """{entry point: launches since the last reset} of K1's and K3's
+    shapes past twojmax 12 (`SHAPE_LAUNCHES`)."""
+    return dict(SHAPE_LAUNCHES)
 
 
 def launches():

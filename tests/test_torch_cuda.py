@@ -419,6 +419,7 @@ def test_k3_slab_shape_equals_whole_rows(cuda, monkeypatch, name):
     whole = k3()
     tiles = -(-p.nb_base // 32)
     monkeypatch.setattr(sk, "dbdd_plan", lambda p, K=64: (32, tiles, 48))
+    monkeypatch.setattr(sk, "K3_SHAPES", ("slab",))
     slab = k3()
     torch.cuda.synchronize()
     ref = (sk.dbdd_chem_plain(ut, *z, J, args[1], p) if chem
@@ -426,6 +427,62 @@ def test_k3_slab_shape_equals_whole_rows(cuda, monkeypatch, name):
     assert rel_err(slab, ref) <= RTOL
     assert all(torch.equal(a, b) for a, b in zip(slab, whole))
     assert (slab[1].permute(0, 2, 1, 3)[~args[2]] == 0).all()
+
+
+@pytest.mark.parametrize("name", ["tj6", "tj12", "chem2_tj4", "chem2_tj12"])
+def test_k1_recursion_shape_matches_plain(cuda, monkeypatch, name):
+    """K1 in its recursion shape (forced) against its plain version on 12
+    atoms x 40 slots, launched once a call; J of masked slots exactly 0, a
+    second run bit for bit, and the same bits at one level split as at
+    the planner's."""
+    spec = FORCED_CASES[name]
+    p = shared_params(spec, cuda)
+    args = cap_block(p, spec["numtypes"], cuda)
+    monkeypatch.setattr(sk, "K1_SHAPES", ("recursion",))
+    k1w = sk.pair_u_duals_chem if p.nchem > 1 else sk.pair_u_duals
+    sk.reset_launches()
+    out = [k1w(*args, p) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert sk.launches()[k1w.__name__] == 2
+    shape, nsplit = sk.pair_u_plan(p, 12, 40, 132)
+    assert shape == "recursion" and nsplit > 1
+    assert rel_err(out[0], sk.pair_u_duals_plain(*args, p)) <= RTOL
+    assert all(torch.equal(a, b) for a, b in zip(*out))
+    assert (out[0][0].permute(1, 2, 0, 3)[~args[2]] == 0).all()
+    monkeypatch.setattr(sk, "K1_RECUR_SPLITS", 1)
+    one = k1w(*args, p)
+    assert all(torch.equal(a, b) for a, b in zip(one, out[0]))
+
+
+# K3's level shape forced at slot tiles of every kind: (section, K): one
+# tile of 13 slots (39 columns), two of 20 (K = 40), two of 32 (K = 64:
+# two n-tiles for some warps) and seven of 29 (K = 200)
+LEVEL_CASES = {
+    "tj6_K13": (CASES["tj6"], 13),
+    "tj8_K40": (FORCED_CASES["tj8"], 40),
+    "tj6_K64": (CASES["tj6"], 64),
+    "tj6_K200": (CASES["tj6"], 200),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LEVEL_CASES))
+def test_k3_level_shape_matches_plain(cuda, monkeypatch, name):
+    """K3 in its level shape (forced) against its plain version to 1e-11 on
+    12 atoms x K slots; dB/dD of masked slots exactly 0; a second run bit
+    for bit."""
+    spec, K = LEVEL_CASES[name]
+    p = shared_params(spec, cuda)
+    args = cap_block(p, 1, cuda, K=K)
+    J, ut = sk.pair_u_duals_plain(*args, p)
+    z = sk.zlist_plain(ut, p)
+    monkeypatch.setattr(sk, "dbdd_shape", lambda p, K=64: "level")
+    sk.reset_launches()
+    out = [sk.dbdd(ut, *z, J, p) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert sk.launches()["dbdd"] == 2
+    assert rel_err(out[0], sk.dbdd_plain(ut, *z, J, p)) <= RTOL
+    assert all(torch.equal(a, b) for a, b in zip(*out))
+    assert (out[0][1].permute(0, 2, 1, 3)[~args[2]] == 0).all()
 
 
 # K3's tile edges: (section, K, neighbor elements): W = 5 (twojmax 2, one

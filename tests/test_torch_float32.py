@@ -287,6 +287,11 @@ def test_normal_equations_match_jax(f32):
     assert rel(Atb, f32["step64"][1]) <= 1e-5
 
 
+# a float32 fit's distance from a float64 or JAX fit, relative, beside the
+# cond bound (which passes 1 at cond 9.4e4)
+BETA_RTOL32 = 1e-3
+
+
 def cond_w(AtA):
     """cond of the weighted rows with unit-norm columns: the square root of
     the equilibrated normal matrix's (the system NormalSolver solves)."""
@@ -299,12 +304,15 @@ def cond_w(AtA):
 @pytest.mark.parametrize("other", ["jfit", "fit64"])
 def test_fit_refined_within_float32_bound(f32, other):
     """The refined float32 coefficients within 100 cond(A_w) 2^-23 of JAX's
-    float32 fit and of the port's float64 fit (relative, in norm)."""
+    float32 fit and of the port's float64 fit (relative, in norm), and
+    within BETA_RTOL32 of each (measured: 7.0e-5 and 6.2e-5)."""
     x = np.asarray(f32["fit"][0], np.float64)
     y = np.asarray(f32[other][0], np.float64)
     bound = 100.0 * cond_w(f32["step64"][0]) * 2.0 ** -23
+    err = np.linalg.norm(x - y) / np.linalg.norm(y)
     assert np.isfinite(x).all()
-    assert np.linalg.norm(x - y) / np.linalg.norm(y) <= bound
+    assert err <= bound
+    assert err <= BETA_RTOL32
     assert f32["fit"][2] == f32[other][2]
 
 

@@ -1142,3 +1142,334 @@ def test_wrappers_refuse_twojmax_17_first(monkeypatch, label, module, name,
         getattr(module, name)(*[None] * nargs,
                               SimpleNamespace(twojmax=17, nchem=1))
     sk.check_twojmax(SimpleNamespace(twojmax=16), label)
+
+
+# ---------------------------------------------------------------------------
+# K1's recursion shape and K3's level shape
+# ---------------------------------------------------------------------------
+
+
+def light_k1_params(twojmax):
+    """The fields of a one-element plan that K1 and its plain version read
+    (the Ta_Linear_JCP2014 section's values), without the z and y tables:
+    the port's whole plan at twojmax 16 takes about a minute and 14 GB."""
+    from fitsnap_tpu_torch.ops.mono import mono_plan
+
+    exps, parent, var, L = mono_plan(twojmax)
+    deg = np.asarray(exps).sum(1)
+    U = sum((j + 1) ** 2 for j in range(twojmax + 1))
+    selfvec = np.zeros(2 * U)
+    for j in range(twojmax + 1):
+        off = j * (j + 1) * (2 * j + 1) // 6
+        selfvec[off + np.arange(j + 1) * (j + 2)] = 1.0
+    f64 = torch.float64
+    return SimpleNamespace(
+        twojmax=twojmax, u_len=U, rcutfac=4.67637, rfac0=0.99363, rmin0=0.0,
+        switchflag=True, switchinnerflag=False, sinner=None, dinner=None,
+        radelem=torch.tensor([0.5], dtype=f64),
+        wj=torch.tensor([1.0], dtype=f64),
+        elem=torch.tensor([[0.5, 1.0, 0.0, 0.0]], dtype=f64), nchem=1,
+        wselfallflag=False, selfvec=torch.as_tensor(selfvec),
+        mono_parent=torch.as_tensor(parent, dtype=torch.int32),
+        mono_var=torch.as_tensor(var, dtype=torch.int32),
+        mono_levels=tuple(int(x) for x in np.searchsorted(
+            deg, np.arange(twojmax + 2))),
+        L=torch.as_tensor(L), device=torch.device("cpu"), dtype=f64, k1=None)
+
+
+def emulate_k1_recursion(p, args, nsplit):
+    """csrc/pair_u_duals.cu's recursion shape over `pair_u_recur_plan`, in
+    its order of operations: for each split and pass c (one displacement
+    axis), the half rows of each level from the last row down (row j / 2
+    of an even level from the mirror of level j - 1's row j / 2 - 1), J
+    of the split's levels (the rows past the half from the mirrored
+    column); utot the self term plus the live pairs' weighted half rows in
+    slot order, by channel, the rest by symmetry."""
+    pl = sk.pair_u_recur_plan(p, nsplit)
+    tj, U, nc = p.twojmax, p.u_len, p.nchem
+    rt = pl.rt.numpy().reshape(tj + 1, tj + 1)
+    lv = pl.lv.numpy()
+    vals, tans = (x.numpy() for x in tsnap._prologue_duals(*args, p))
+    mask = args[2].numpy()
+    jel = args[1].numpy()
+    N, K = mask.shape
+    off = [j * (j + 1) * (2 * j + 1) // 6 for j in range(tj + 2)]
+    conj = np.array([1.0, -1.0, 1.0, -1.0])[:, None, None]
+    J = np.full((3, N, K, 2 * U), np.nan)
+    ut = np.full((N, nc, 2 * U), np.nan)
+    selfv = tsnap._channel_self(args[3], p, torch.float64).numpy()
+    ar, ai, br, bi, w = vals
+    for s in range(nsplit):
+        j0, j1 = lv[s], lv[s + 1]
+        half = {}
+        for c in range(3):
+            dar, dai, dbr, dbi, dw = tans[c]
+            P = np.zeros((tj // 2 + 1, tj + 1, 4, N, K))  # [mb, ma, part]
+            P[0, 0, 0] = 1.0
+            for j in range(j1):
+                for mb in range(j // 2, -1, -1) if j else ():
+                    x = np.zeros((j + 1, 4, N, K))
+                    y = np.zeros((j + 1, 4, N, K))
+                    if 2 * mb == j:
+                        for ma in range(j + 1):
+                            sx = -1.0 if (ma + mb) % 2 else 1.0
+                            if ma < j:
+                                x[ma] = sx * conj * P[mb - 1, j - 1 - ma]
+                            if ma > 0:
+                                y[ma] = -sx * conj * P[mb - 1, j - ma]
+                    else:
+                        x[:j] = P[mb, :j]
+                        y[1:] = P[mb, :j]
+                    ma = np.arange(j + 1)
+                    ca = rt[j - ma, j - mb][:, None, None]
+                    cb = rt[ma, j - mb][:, None, None]
+                    x0, x1, x2, x3 = x.transpose(1, 0, 2, 3)
+                    y0, y1, y2, y3 = y.transpose(1, 0, 2, 3)
+                    P[mb, :j + 1] = np.stack([
+                        ca * (ar * x0 + ai * x1) - cb * (br * y0 + bi * y1),
+                        ca * (ar * x1 - ai * x0) - cb * (br * y1 - bi * y0),
+                        ca * (dar * x0 + ar * x2 + dai * x1 + ai * x3)
+                        - cb * (dbr * y0 + br * y2 + dbi * y1 + bi * y3),
+                        ca * (dar * x1 + ar * x3 - dai * x0 - ai * x2)
+                        - cb * (dbr * y1 + br * y3 - dbi * y0 - bi * y2)],
+                        1)
+                if j < j0:
+                    continue
+                for mb in range(j + 1):
+                    for ma in range(j + 1):
+                        col = off[j] + mb * (j + 1) + ma
+                        if 2 * mb <= j:
+                            v = P[mb, ma]
+                            if c == 0:
+                                half[col] = (w * v[0], w * v[1])
+                        else:
+                            sg = -1.0 if (ma + mb) % 2 else 1.0
+                            v = sg * conj * P[j - mb, j - ma]
+                        J[c, ..., col] = np.where(mask, w * v[2] + dw * v[0],
+                                                  0.0)
+                        J[c, ..., U + col] = np.where(
+                            mask, w * v[3] + dw * v[1], 0.0)
+        us = selfv.copy()
+        for a in range(N):
+            for k in np.nonzero(mask[a])[0]:
+                e = 0 if nc == 1 else jel[a, k]
+                if 0 <= e < nc:
+                    for col, (vr, vi) in half.items():
+                        us[a, e, col] += vr[a, k]
+                        us[a, e, U + col] += vi[a, k]
+        for j in range(j0, j1):
+            for mb in range(j + 1):
+                for ma in range(j + 1):
+                    col = off[j] + mb * (j + 1) + ma
+                    if 2 * mb <= j:
+                        src, sg = col, 1.0
+                    else:
+                        src = off[j] + (j - mb) * (j + 1) + j - ma
+                        sg = -1.0 if (ma + mb) % 2 else 1.0
+                    ut[..., col] = sg * us[..., src]
+                    ut[..., U + col] = -sg * us[..., U + src] if src != col \
+                        else us[..., U + src]
+    return J, ut.reshape(N, -1)
+
+
+@pytest.mark.parametrize("twojmax,nelem,chem,wself,nsplit", [
+    (2, 1, False, False, 1), (6, 1, False, False, 3), (8, 1, False, False, 2),
+    (4, 2, True, False, 2), (4, 2, True, True, 1), (3, 3, True, True, 4)])
+def test_k1_recursion_schedule_matches_jax(twojmax, nelem, chem, wself,
+                                           nsplit):
+    """The recursion shape's schedule against the JAX package's recursion,
+    `compute_ulist_duals` on the same prologue values and tangents, with J
+    = w dU + dw U and utot by `_utot_from_wu`: one channel and chemflag
+    (wselfallflag 0 and 1), one to four level splits."""
+    jp, p = plans(twojmax, nelem, chem, wself)
+    x = block(5, nelem, A=4, K=12)
+    args = tuple(torch.from_numpy(v) for v in x)
+    J, ut = emulate_k1_recursion(p, args, nsplit)
+    vals, tans = (v.numpy() for v in tsnap._prologue_duals(*args, p))
+    duals = [(jnp.asarray(vals[v]), jnp.asarray(tans[:, v])) for v in range(4)]
+    u = jsnap.compute_ulist_duals(duals[:2], duals[2:], twojmax)
+    up = jsnap.flatten_ulist([(r[0], i[0]) for r, i in u])
+    utan = jsnap.flatten_ulist([(r[1], i[1]) for r, i in u])
+    U0 = np.concatenate([np.asarray(up[0]), np.asarray(up[1])], -1)
+    Ut = np.concatenate([np.asarray(utan[0]), np.asarray(utan[1])], -1)
+    w, wt = vals[4], tans[:, 4]
+    Jref = w[None, ..., None] * Ut + wt[..., None] * U0[None]
+    Jref = np.where(x[2][None, ..., None], Jref, 0.0)
+    utref = jsnap._utot_from_wu(jnp.asarray(w[..., None] * U0),
+                                jnp.asarray(x[1]), jnp.asarray(x[3]), jp)
+    close(J, Jref)
+    close(ut, np.asarray(utref))
+
+
+@pytest.mark.parametrize("twojmax", [13, 14, 16])
+def test_k1_recursion_schedule_matches_plain_large(large_plans, twojmax):
+    """The recursion shape at twojmax 13, 14 and 16, the planner's split at
+    a chunk of 3 atoms, against the plain version (the monomial form) on 3
+    atoms x 6 slots."""
+    p = large_plans[twojmax] if twojmax in large_plans \
+        else light_k1_params(twojmax)
+    args = tuple(torch.from_numpy(x) for x in block(9, 1, A=3, K=6))
+    shape, nsplit = sk.pair_u_plan(p, 3, 6, 132)
+    assert shape == "recursion" and nsplit == sk.K1_RECUR_SPLITS
+    J, ut = emulate_k1_recursion(p, args, nsplit)
+    J0, ut0 = sk.pair_u_duals_plain(*args, p)
+    close(J, J0)
+    close(ut, ut0)
+    assert (J.transpose(1, 2, 0, 3)[~args[2].numpy()] == 0).all()
+
+
+def test_k1_recursion_plan_levels_and_caps():
+    """The recursion plan's coefficients are `rootpq_tables`' (the JAX
+    package's), its splits cover the levels in order, a level at least
+    each, and at twojmax 13-16 its shared memory takes 13, 10, 8 and 7
+    channels at K = 64 (the table shape took 8, 6, 5 and 4)."""
+    from fitsnap_tpu.ops.cg import rootpq_tables
+
+    for tj in (6, 13, 16):
+        p = light_k1_params(tj)
+        rt = sk.pair_u_recur_plan(p, 1).rt.numpy().reshape(tj + 1, tj + 1)
+        for j, (ca, cb) in enumerate(rootpq_tables(tj), start=1):
+            for mb in range(j // 2 + 1):
+                ma = np.arange(j + 1)
+                assert np.array_equal(rt[j - ma, j - mb], ca[mb])
+                assert np.array_equal(rt[ma, j - mb], cb[mb])
+        for s in range(1, tj + 2):
+            lv = sk.pair_u_recur_plan(p, s).lv.numpy()
+            assert lv[0] == 0 and lv[-1] == tj + 1 and len(lv) == s + 1
+            assert (np.diff(lv) >= 1).all()
+    for tj, cap in ((13, 13), (14, 10), (15, 8), (16, 7)):
+        pl = sk.pair_u_recur_plan(light_k1_params(tj), 1)
+        assert sk.pair_u_smem(pl, cap, 64) <= sk._SMEM_LIMIT \
+            < sk.pair_u_smem(pl, cap + 1, 64)
+
+
+def emulate_k3_level(p, ut, zr, zi, J):
+    """csrc/dbdd.cu's level shape over `dbdd_levels`, in torch: B from each
+    row's layer-0 terms; per chunk, y's tile from the records (each
+    thread's in order: set, then add), the group's product over the
+    chunk's real and imaginary columns, the group's sums written into dB/dD
+    at a row's first group and added at its later ones, in chunk order."""
+    lv = sk.dbdd_levels(p)
+    N, K = J.shape[1:3]
+    U, W, LDY = p.u_len, p.nb_base, sk._K3_LDY
+    bzero = p.bzero if p.bzeroflag else torch.zeros_like(p.bzero)
+    bp = lv.b_ptr.long()
+    B = torch.stack([
+        (ut[:, lv.b_u[bp[w]:bp[w + 1]].long()]
+         * (lv.b_fac[bp[w]:bp[w + 1]] * zr[:, lv.b_src[bp[w]:bp[w + 1]].long()])
+         + ut[:, U + lv.b_u[bp[w]:bp[w + 1]].long()]
+         * (lv.b_fac[bp[w]:bp[w + 1]]
+            * zi[:, lv.b_src[bp[w]:bp[w + 1]].long()])).sum(1) - bzero[w]
+        for w in range(W)], 1)
+    out = torch.full((N, W, 3 * K), float("nan"), dtype=J.dtype)
+    Jn = J.permute(1, 2, 0, 3).reshape(N, 3 * K, 2 * U)   # column 3k + c
+    rows, rec = lv.rows.tolist(), lv.rec[:, :2].long()
+    rfac = torch.from_numpy(lv.rec[:, 2:].numpy().copy().view(np.float64)[:, 0])
+    acc = 0
+    for rb, nrt, g, L, r0, m, flush, _ in lv.chunk.tolist():
+        lp8 = -(-L // 8) * 8
+        y = torch.zeros((N, 16 * nrt * LDY), dtype=J.dtype)
+        rr = rec[r0:r0 + m * 256].reshape(m, 256, 2).transpose(0, 1)
+        ff = rfac[r0:r0 + m * 256].reshape(m, 256).transpose(0, 1)
+        for th in range(256):
+            for (x, src), f in zip(rr[th].tolist(), ff[th].tolist()):
+                if x < 0:
+                    continue
+                pos = x & 0x3fffffff
+                v = (f * zr[:, src], f * zi[:, src]) if src >= 0 else (0, 0)
+                for part in (0, 1):
+                    if x >> 30:
+                        y[:, pos + part * lp8] = v[part]
+                    else:
+                        y[:, pos + part * lp8] += v[part]
+        y = y.reshape(N, 16 * nrt, LDY)
+        ya = torch.cat([y[..., :L], y[..., lp8:lp8 + L]], -1)
+        jb = torch.cat([Jn[..., g:g + L], Jn[..., U + g:U + g + L]], -1)
+        acc = acc + torch.einsum("ari,ani->arn", ya, jb)
+        if flush:
+            for i, e in enumerate(rows[rb:rb + 16 * nrt]):
+                if e >= 0:
+                    w = e & 0x3fffffff
+                    out[:, w] = acc[:, i] if e >> 30 else out[:, w] + acc[:, i]
+            acc = 0
+    return B, out.reshape(N, W, K, 3)
+
+
+def check_level_plan(p):
+    """Every row of W in a group of each level its targets touch and no
+    other, first at its lowest level; at most 64 rows a group; the chunks
+    in level order covering each level's columns once, 16 at most."""
+    lv = sk.dbdd_levels(p)
+    tg = sk.dbdd_tables(p)
+    ptr, tu = tg.tg_ptr.numpy(), tg.tg_u.numpy()
+    off = [j * (j + 1) * (2 * j + 1) // 6 for j in range(p.twojmax + 2)]
+    lev = np.searchsorted(off, tu, "right") - 1
+    t_of = np.repeat(np.arange(p.nb_base), np.diff(ptr))
+    rows = lv.rows.numpy()
+    seen, cols = {}, []
+    for rb, nrt, g, L, _, _, flush, _ in lv.chunk.tolist():
+        j = int(np.searchsorted(off, g, "right")) - 1
+        assert 1 <= L <= 16 and g + L <= off[j + 1] and nrt <= 4
+        cols.append((j, rb, g, L))
+        if flush:
+            group = rows[rb:rb + 16 * nrt]
+            for e in group[group >= 0]:
+                w = e & 0x3fffffff
+                assert bool(e >> 30) == (w not in seen)
+                seen.setdefault(w, []).append(j)
+    for w in range(p.nb_base):
+        assert seen[w] == sorted(set(lev[t_of == w]))
+    for j in range(p.twojmax + 1):
+        for rb in sorted({rb for jj, rb, _, _ in cols if jj == j}):
+            gs = sorted((g, L) for jj, b, g, L in cols if jj == j and b == rb)
+            assert [g for g, _ in gs] == list(range(off[j], off[j + 1], 16))
+            assert sum(L for _, L in gs) == (j + 1) ** 2
+
+
+@pytest.mark.parametrize("twojmax", [13, 14])
+def test_k3_level_schedule_matches_plain_large(large_plans, twojmax):
+    """K3's level shape at twojmax 13 and 14: its plan's layout, and its
+    schedule against the plain version (1e-12) on 2 atoms x 5 slots."""
+    p = large_plans[twojmax]
+    assert sk.dbdd_shape(p, 64) == "level"
+    check_level_plan(p)
+    args = tuple(torch.from_numpy(x) for x in block(11, 1, A=2, K=5))
+    J, ut = sk.pair_u_duals_plain(*args, p)
+    z = sk.zlist_plain(ut, p)
+    B, dBdD = emulate_k3_level(p, ut, *z, J)
+    B0, dBdD0 = sk.dbdd_plain(ut, *z, J, p)
+    close(B, B0)
+    close(dBdD, dBdD0)
+
+
+@pytest.mark.parametrize("twojmax", [2, 6])
+def test_k3_level_schedule_matches_jax(twojmax):
+    """K3's level schedule at twojmax 2 and 6 (the plan takes whole rows
+    there; the level plan is built all the same) against the JAX
+    package's `_dbdu_ylist` and its contraction (einsum("awu,caku->awkc"))
+    and B (bzeroflag on), on JAX's own J, utot and z-lists."""
+    jp, p = plans(twojmax)
+    check_level_plan(p)
+    x = block(6, 1, A=4, K=12)
+
+    def reference(disp, jelem, mask, ielem):
+        wu, J = jsnap._pair_wu_duals(disp, jelem, mask, ielem, jp)
+        ut = jsnap._utot_from_wu(wu, jelem, ielem, jp)
+        zcat = jsnap._compute_zcat(ut, jp.plan)
+        dbdu = jsnap._dbdu_ylist(ut, jp.plan, zcat)
+        # Bbase of `descriptors_with_jacobian` (ops/snap.py:956-964)
+        U = jp.plan.u_len
+        src0 = jnp.asarray(jp.plan.y_src[0])
+        fac0 = jnp.asarray(jp.plan.y_fac[0])
+        B = (jnp.einsum("au,atu->at", ut[:, :U], fac0 * zcat[0][:, src0])
+             + jnp.einsum("au,atu->at", ut[:, U:], fac0 * zcat[1][:, src0])
+             - jnp.asarray(jp.plan.bzero))
+        return (J, ut, zcat[0], zcat[1], B,
+                jnp.einsum("awu,caku->awkc", dbdu, J))
+
+    J, ut, zr, zi, B0, dBdD0 = (torch.from_numpy(np.array(v)) for v in
+                                jax.jit(reference)(*(jnp.asarray(v)
+                                                     for v in x)))
+    B, dBdD = emulate_k3_level(p, ut, zr, zi, J)
+    close(B, B0)
+    close(dBdD, dBdD0)
