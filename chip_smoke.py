@@ -313,14 +313,18 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    plain z-lists take 153 MB an atom there), the SNAP plan of each twojmax
    built once and shared by its paths (the planning seconds printed apart):
    K1-K3 against their plain versions at twojmax 13, 14 and 16 on the first
-   2, 4 and 1 Displaced_BCC configs (K1 in its table shape, K3 in its slab
-   shape), K9, K10, K11, K11T (its tiles over two blocks at 16) and K10T at
+   2, 4 and 1 Displaced_BCC configs (K1 in its recursion shape, K3 in its
+   level shape; rows named by their entry points, `pair_u_recur` and
+   `dbdd_level`, whose launches the FitSnap and streamed paths at 14 and
+   16 must show), K3's slab shape forced there too and the two timed in
+   turns, K9, K10, K11, K11T (its tiles over two blocks at 16) and K10T at
    14 and 16 on those chunks' lists, as phase 13's rows, with a seeded
-   dE/dB and force cotangent, K1 in its window and its table shape (both forced) at twojmax
-   6, 8, 10, 11 and 12 on the twojmax-14 chunk's inputs, timed in turns,
-   and the chemflag modes of K1-K3 at twojmax 12 on phase 9's first
-   Displaced_ZB64 chunk; the FitSnap path (as phase 4: A against A_plain to
-   1e-10 per column, beta_true within 100 cond eps) at 14 and 16, the
+   dE/dB and force cotangent, K1 in its window and its recursion shape
+   (both forced) at twojmax 6, 8, 10, 11 and 12 on the twojmax-14 chunk's
+   inputs, timed in turns, and the chemflag modes of K1-K3 at twojmax 12
+   on phase 9's first Displaced_ZB64 chunk; the FitSnap path (as phase 4:
+   A against A_plain to 1e-10 per column, beta_true within 100 cond eps)
+   at 14 and 16, the
    streamed fit (as phase 5) at 14; the NN fits at 16 (`nn_settings` on the
    cells of 2 and 4 atoms, `LARGE_NN_GROUPS`, 2 epochs): `dgrad_mode =
    auto` (it must resolve to the cached mode) and OTF, each with its
@@ -330,7 +334,10 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    (`torch.cuda.max_memory_allocated`).  K2's library call at 13, 14 and
    16 is `torch.bmm` over the dense term tables of the phase's own plans
    (kept as they are built), timed where they fit half the free memory,
-   their bytes printed either way.
+   their bytes printed either way, and where they do not, timed beside K2
+   on the chunk's first atoms at which they fit (a row of its own,
+   `zlist@tj14_<n>atoms`).  The streamed pass at 14 is profiled with K3
+   in its level and its slab shape in turns.
 22. (run after phase 3 and phase 5) the float32 streamed fit: K8, K1 (its
    window shape), K2, K3 (whole rows, its float32 product on the CUDA
    cores), K4, K5 (`zbl_eav`) and K7 in their float32 instantiations
@@ -345,9 +352,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    at float64), nrows equal to phase 5's, AtA and Atb within 1e-5 of phase
    5's float64 ones, the refined float32 fit within 100 cond(w A) 2^-23
    and 1e-3 of beta_true, the MAE sums within 1e-4 of phase 5's at
-   beta_true spread 10%; the device ms of a steady pass at float64 and float32 in turns
-   (64, 32, 32, 64) and the bytes of a chunk's disp and dB/dD at each
-   type.
+   beta_true spread 10%; the device ms of a steady pass at float64 and
+   float32 in turns (64, 32, 32, 64) and the bytes of a chunk's disp and
+   dB/dD at each type.
 
 Each NN phase's profiler split prints the port's kernels' launches in the
 profiled epoch beside their device ms (the cached epoch's K11T and gather
@@ -414,8 +421,6 @@ SOURCES = {
              "fitsnap_tpu/ops/snap.py:823"),
     # the shapes of K1 and K3 past twojmax 12, by entry point
     "pair_u_recur": ("fitsnap_tpu_torch/kernels/csrc/pair_u_duals.cu",
-                     "fitsnap_tpu/ops/snap.py:667"),
-    "pair_u_table": ("fitsnap_tpu_torch/kernels/csrc/pair_u_duals.cu",
                      "fitsnap_tpu/ops/snap.py:667"),
     "dbdd_level": ("fitsnap_tpu_torch/kernels/csrc/dbdd.cu",
                    "fitsnap_tpu/ops/snap.py:823"),
@@ -1080,8 +1085,7 @@ def k1_row(rows, p, k1_in, shape=None):
     sms = torch.cuda.get_device_properties(
         k1_in[0].device).multi_processor_count
     k1_shape = sk.pair_u_plan(p, N, K, sms)[0]
-    entry = {"recursion": "pair_u_recur", "table": "pair_u_table"}.get(
-        k1_shape, name)
+    entry = "pair_u_recur" if k1_shape == "recursion" and nc == 1 else name
     record(rows, name + (f"@{shape}" if shape else ""), out, ref,
            (lambda: k1(*k1_in, p), 10),
            timed(lambda: sk.pair_u_duals_plain(*k1_in, p), 3),
@@ -2503,8 +2507,8 @@ def streamed_f32_phase(fs, a_plain, beta, seed, device, keep, checks64):
     phase 5's).  nrows must equal phase 5's, AtA and Atb phase 5's float64
     ones to NORMAL_RTOL32 of their largest magnitude, the refined float32
     fit beta_true within 100 cond(w A) 2^-23 and BETA_RTOL32, and the MAE
-    sums phase 5's at the same coefficients (beta_true spread by MAE_SPREAD, seeded) to
-    MAE_RTOL32.  Prints the device ms of a steady pass at each type, in
+    sums phase 5's at the same coefficients (beta_true spread by
+    MAE_SPREAD, seeded) to MAE_RTOL32.  Prints the device ms of a steady pass at each type, in
     turns (float64, float32, float32, float64), and the bytes of a chunk's
     disp and dB/dD at each type.  Returns (counts, timings, checks)."""
     import torch
@@ -4802,40 +4806,23 @@ def k1_shapes(rows, fs, k1_in):
     return out
 
 
-def large_shape_turns(rows, p, k1_in, tag):
-    """K1 and K3 at a chunk past twojmax 12 in the shapes the planners do
-    not take there (K1's table shape, where the tree has it; K3's slab
-    shape), each forced, against the plain version as a row
-    `kernel@<tag>_<shape>`, and each kernel's shapes timed in turns with
-    the planner's (CUDA events); returns {kernel: {shape: ms}}."""
+def k3_shape_turns(rows, p, k1_in, tag):
+    """K3 at a chunk past twojmax 12 in its slab shape (forced; the
+    planner takes the level shape with one channel) against the plain
+    version as a row `dbdd@<tag>_slab`, then both shapes timed in turns
+    (level, slab, slab, level; CUDA events); returns {shape: [ms]}."""
     from fitsnap_tpu_torch.kernels import snap_kernels as sk
 
-    out = {}
-    kept = sk.K1_SHAPES
-    k1_shape = sk.pair_u_plan(p, *k1_in[2].shape, 132)[0]
-    others = [s for s in kept if s not in ("window", k1_shape)]
-    if others:
-        def run1(shape):
-            sk.K1_SHAPES = (shape,)
-            if shape != k1_shape and not any(
-                    r["name"] == f"pair_u_duals@{tag}_{shape}" for r in rows):
-                k1_row(rows, p, k1_in, f"{tag}_{shape}")
-            return timed(lambda: sk.pair_u_duals(*k1_in, p), 10)
-
-        try:
-            out["pair_u_duals"] = turns([k1_shape] + others, run1)
-        finally:
-            sk.K1_SHAPES = kept
     J, ut = sk.pair_u_duals_plain(*k1_in, p)
     z = sk.zlist_plain(ut, p)
-    kept3 = sk.K3_SHAPES
-    k3_shape = sk.dbdd_shape(p, k1_in[2].shape[1])
+    kept = sk.K3_SHAPES
     N, K = k1_in[2].shape
     U, W = p.u_len, p.nb_base
+    shape0 = sk.dbdd_shape(p, K)
 
-    def run3(shape):
+    def run(shape):
         sk.K3_SHAPES = (shape,)
-        if shape != k3_shape and not any(
+        if shape != shape0 and not any(
                 r["name"] == f"dbdd@{tag}_{shape}" for r in rows):
             record(rows, f"dbdd@{tag}_{shape}", sk.dbdd(ut, *z, J, p),
                    sk.dbdd_plain(ut, *z, J, p),
@@ -4843,46 +4830,41 @@ def large_shape_turns(rows, p, k1_in, tag):
                    timed(lambda: sk.dbdd_plain(ut, *z, J, p), 3),
                    (N * 2 * U + 2 * N * p.nz + 3 * N * K * 2 * U + N * W
                     + N * W * K * 3) * 8, k3_operations(p, k1_in), None,
-                   wrapper={"level": "dbdd_level", "slab": "dbdd_slab"}.get(
-                       sk.dbdd_shape(p, K), "dbdd"), shape=f"{tag}_{shape}")
+                   wrapper=f"dbdd_{shape}", shape=f"{tag}_{shape}")
         return timed(lambda: sk.dbdd(ut, *z, J, p), 10)
 
     try:
-        out["dbdd"] = turns([k3_shape] + [s for s in kept3
-                                          if s != k3_shape], run3)
+        out = turns([shape0] + [s for s in kept if s != shape0], run)
     finally:
-        sk.K3_SHAPES = kept3
-    print(f"{tag}: K1 and K3 ms in turns (planner's shape first): "
-          + json.dumps({k: {s: [round(x, 4) for x in v]
-                            for s, v in d.items()} for k, d in out.items()}),
+        sk.K3_SHAPES = kept
+    print(f"{tag}: K3 ms in turns (the planner's shape first): "
+          + json.dumps({s: [round(x, 4) for x in v] for s, v in out.items()}),
           flush=True)
     return out
 
 
 def pass_shape_turns(one_pass, tag):
-    """The device ms of a steady streamed pass with K1 and K3 in their
-    planners' shapes ("new") and in the shapes they took before the
-    recursion and level shapes ("old": K1's table shape, where the tree
-    has it, and K3's slab shape), in turns (new, old, old, new)."""
+    """The device ms of a steady streamed pass with K3 in its planner's
+    shape ("new": the level shape) and in the slab shape it took before
+    ("old"), in turns (new, old, old, new)."""
     from fitsnap_tpu_torch.kernels import snap_kernels as sk
 
-    kept = sk.K1_SHAPES, sk.K3_SHAPES
-    old = (("table",) if "table" in kept[0] else kept[0], ("slab",))
+    kept = sk.K3_SHAPES
 
     def run(tag):
-        sk.K1_SHAPES, sk.K3_SHAPES = old if tag == "old" else kept
+        sk.K3_SHAPES = ("slab",) if tag == "old" else kept
         try:
             kernel_ms = profile_kernels(one_pass)
         finally:
-            sk.K1_SHAPES, sk.K3_SHAPES = kept
+            sk.K3_SHAPES = kept
         return (round(sum(kernel_ms.values()), 4) if kernel_ms else None,
                 {k: round(v, 4) for k, v in kernel_ms.items()})
 
     out = turns(("new", "old"), run)
-    print(f"{card_line()}: streamed pass at {tag}, device ms in turns (new "
-          f"shapes, old, old, new; old: K1 {old[0][0]}, K3 slab): new "
-          f"{[x[0] for x in out['new']]} old {[x[0] for x in out['old']]}; "
-          f"split (new, then old): {json.dumps(out['new'][0][1])} "
+    print(f"{card_line()}: streamed pass at {tag}, device ms in turns (K3 "
+          f"level, slab, slab, level): level "
+          f"{[x[0] for x in out['new']]} slab {[x[0] for x in out['old']]}; "
+          f"split (level, then slab): {json.dumps(out['new'][0][1])} "
           f"{json.dumps(out['old'][0][1])}", flush=True)
     return {k: [x[0] for x in v] for k, v in out.items()}
 
@@ -4987,7 +4969,7 @@ def large_twojmax_phase(tmp, seed, device="cuda"):
             torch.cuda.reset_peak_memory_stats()
             descriptor_checks(rows, p, k1_in, f"tj{tj}",
                               k2_library=cache.pop(("z_dense", tj)))
-            shape_ms[tj] = large_shape_turns(rows, p, k1_in, f"tj{tj}")
+            shape_ms[tj] = k3_shape_turns(rows, p, k1_in, f"tj{tj}")
             if tj != tj_kern:
                 grid_rows(rows, p, k1_in, args[1], f"@tj{tj}")
             if tj == tj_fit:

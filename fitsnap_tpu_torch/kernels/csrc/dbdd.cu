@@ -419,9 +419,9 @@ int launch_rows(const Args<T>& p, int MT, T* B, T* dBdD,
 //     16-byte asynchronous copies (cp.async, every thread a share, one
 //     commit group a chunk), from the even column at or below the chunk's
 //     first (the part's shift), LV_STAGES - 1 chunks in flight beyond the
-//     one in use.  (One bulk copy of the copy engine a column row and part,
-//     192 a chunk, measured 0.87 ms of the shape's 2.0 at twojmax 14; its
-//     tiled tensor copies raised an illegal instruction on the card.)
+//     one in use.  (The copy engine's bulk copies, one a column row and
+//     part, 192 a chunk, were this shape's largest cost on the H100, and
+//     its tiled tensor copies raised an illegal instruction there.)
 //   * y of a chunk (the group's rows x 32 inner) is built into one of two
 //     buffers from the host's records (position, z index, factor; each
 //     target's nonzero layers in layer order, on one thread), while the
@@ -438,9 +438,8 @@ int launch_rows(const Args<T>& p, int MT, T* B, T* dBdD,
 //   * B (the first tile's block): a warp a row over the row's layer-0
 //     terms, row w + 8 i in chunk iteration i, its loads issued early in
 //     the iteration and summed (a fixed butterfly) at its end.
-//   * The chunk table and the groups' row lists are staged in shared
-//     memory first (read from device memory at each chunk, they cost a
-//     third of the shape's time at twojmax 14).
+//   * The chunk table, the groups' row lists, B's row pointers and the
+//     tile's J row offsets are staged in shared memory first.
 // Padding slots carry J = 0 and come out exactly 0.  The output repeats bit
 // for bit.
 constexpr int LV_STAGES = 4;    // J chunks in shared memory
@@ -850,9 +849,9 @@ extern "C" int dbdd_f32(const float* ut, const float* zr, const float* zi,
 // K3's level shape (one channel): ut (N, 2U), zr, zi (N, nz), J (3, N, K,
 // 2U) f64; the level plan of `snap_kernels.dbdd_levels` (chunk (nch, 8),
 // rows (nrows,), rec (n, 4) i32 (a record's factor in its last two words),
-// B's layer-0 terms b_ptr (W + 1), b_u, b_src i32, b_fac f64); bzero (W,) f64; KB neighbor slots a block
-// (3 KB at most 128) in CT slot tiles, KB (CT - 1) < K <= KB CT.  Writes B
-// (N, W) and dBdD (N, W, K, 3).
+// B's layer-0 terms b_ptr (W + 1), b_u, b_src i32, b_fac f64); bzero (W,)
+// f64; KB neighbor slots a block (at most 32) in CT slot tiles, KB (CT -
+// 1) < K <= KB CT.  Writes B (N, W) and dBdD (N, W, K, 3).
 extern "C" int dbdd_level(const double* ut, const double* zr,
                           const double* zi, const double* J,
                           const int* chunk, const int* rows, const int* rec,

@@ -37,9 +37,6 @@ for _name in ("pair_u_duals", "pair_u_duals_f32"):
     kl.register(_name, "pair_u_duals",
                 [_P] * 5 + [_D] * 3 + [_I, _I, _LL, _I] + [_P] * 7 + [_I] * 8
                 + [_P] * 4)
-kl.register("pair_u_table", "pair_u_duals",
-            [_P] * 5 + [_D] * 3 + [_I, _I, _LL, _I] + [_P] * 4 + [_I] * 5
-            + [_P] * 4)
 kl.register("pair_u_recur", "pair_u_duals",
             [_P] * 5 + [_D] * 3 + [_I, _I, _LL, _I] + [_P] * 2 + [_I] * 5
             + [_P] * 4)
@@ -193,61 +190,36 @@ def _k1_steps(cols, u, n):
     return np.concatenate(coef), np.concatenate(mono), ends
 
 
-def _k1_table_row(e0, e1, twojmax):
-    """Row of exponent pair (e0, e1), e0 + e1 <= twojmax, in K1's pair
-    tables (csrc/pair_u_duals.cu `pair_u_table`): by e0, then e1."""
-    return e0 * (twojmax + 1) - e0 * (e0 - 1) // 2 + e1
+def pair_u_tables(p, nsplit):
+    """K1's window-shape plan with `nsplit` splits, cached on the plan: the
+    chunks (`_k1_chunks`) cut into `nsplit` contiguous ranges of about
+    equal entries; warp w of a block takes the split's chunks 8 r + w.  A
+    chunk is a header of 24 ints (first column, columns, two unused, the
+    step ends of its 20 (column, accumulator) runs; accumulators U,
+    dU/dar, dU/dai, dU/dbr, dU/dbi), then its steps of 4 entries
+    (`_k1_steps`): 4 coefficients and one double of the 4 slots' places,
+    5 doubles a step (an empty slot has coefficient 0 and place 0).
 
-
-# csrc/pair_u_duals.cu's table shape: steps' worth of doubles of a chunk's
-# header, and steps of a piece of a warp's stream
-_K1_HREC, _K1_PIECE = 3, 64
-
-
-def pair_u_tables(p, nsplit, shape="window"):
-    """K1's plan with `nsplit` splits in `shape` ("window" or "table"),
-    cached on the plan: the chunks (`_k1_chunks`) cut into `nsplit`
-    contiguous ranges of about equal entries; warp w of a block takes the
-    split's chunks 8 r + w.  A chunk is a header of 24 ints (first column,
-    columns, two unused, the step ends of its 20 (column, accumulator)
-    runs; accumulators U, dU/dar, dU/dai, dU/dbr, dU/dbi), then its steps of
-    4 entries (`_k1_steps`): 4 coefficients and one double of the 4 slots'
-    places, 5 doubles a step (an empty slot has coefficient 0 and place 0).
-
-    The window shape lists the monomials a split's columns read (its
-    window) and a slot's place is its window offset slot *
-    `_k1_row_stride` as uint16; chunks are padded to 16 bytes, in column
-    order.  At the plan's type (`p.dtype`): a float32 plan's steps are 4
-    float32 coefficients (each rounded once from the float64 change of
-    basis) and the offsets, 6 floats, its header 24 floats.  Tensors on the
-    plan's device: blob (the chunks), loc (n, 2) i32 (first value and
-    values of each chunk) by
+    Each split lists the monomials its columns read (its window) and a
+    slot's place is its window offset slot * `_k1_row_stride` as uint16;
+    chunks are padded to 16 bytes, in column order.  At the plan's type
+    (`p.dtype`): a float32 plan's steps are 4 float32 coefficients (each
+    rounded once from the float64 change of basis) and the offsets, 6
+    floats, its header 24 floats.  Tensors on the plan's device: blob (the
+    chunks), loc (n, 2) i32 (first value and values of each chunk) by
     (split, warp), cw_ptr (nsplit * 8 + 1); win_ptr, win_exp (p | q << 8 |
-    r << 16 | s << 24); and the sizes of the kernel's buffers: the largest
-    window, chunks of a warp, and doubles of a chunk.  None where a window
-    offset passes 16 bits.
-
-    The table shape has no window: a slot's place is the rows of its
-    monomial in the two pair tables (`_k1_table_row` of (p, q) and of (r,
-    s)) as two bytes.  Each (split, warp) has one stream of 5-double
-    records, its chunks in order, a header of 3 records (the 24 ints, then
-    zeros) and its steps; a header that would cross a piece of 64 records
-    starts at the next piece (zero records between), and each stream holds
-    an even number of records: blob (f64, the streams), wrec (nsplit * 8 +
-    1) i32 their first records.
-
-    Both: zr_ptr, zruns (n, 2) each split's column runs [u0, u1)."""
+    r << 16 | s << 24); zr_ptr, zruns (n, 2) each split's column runs [u0,
+    u1); and the sizes of the kernel's buffers: the largest window, chunks
+    of a warp, and doubles of a chunk.  None where a window offset passes
+    16 bits."""
     cols = _k1_columns(p)
-    if (shape, nsplit) in p.k1:
-        return p.k1[shape, nsplit]
+    if ("window", nsplit) in p.k1:
+        return p.k1["window", nsplit]
     chunks = _k1_chunks(p)
     if not 1 <= nsplit <= len(chunks):
         raise ValueError(f"pair_u_duals: {nsplit} splits of "
                          f"{len(chunks)} chunks")
-    window = shape == "window"
     f32 = p.dtype == torch.float32
-    if f32 and not window:
-        raise kl.f32_refusal("pair_u_duals (table shape)", kl.QUEUE_LARGE)
     per_col = np.diff(cols.e_ptr).reshape(-1, 5).sum(1)
     weight = np.array([per_col[u:u + n].sum() + 16 * n for u, n in chunks],
                       np.float64)
@@ -255,84 +227,57 @@ def pair_u_tables(p, nsplit, shape="window"):
     split = np.minimum((mid * nsplit / weight.sum()).astype(np.int64),
                        nsplit - 1)
     ms = _k1_row_stride(p.nchem)
-    tj = p.twojmax
     e = cols.exps
-    rows = np.stack([_k1_table_row(e[:, 0], e[:, 1], tj),
-                     _k1_table_row(e[:, 2], e[:, 3], tj)], 1)
     pieces, loc, cw_ptr, win_ptr, win_exp = [], [], [0], [0], []
     zr_ptr, zruns = [0], []
     size = max_win = max_wch = max_len = 0
     for s in range(nsplit):
         mine = [chunks[i] for i in np.nonzero(split == s)[0]]
         ucols = [u + i for u, n in mine for i in range(n)]
-        if window:
-            sel = np.concatenate([np.arange(cols.e_ptr[5 * u],
-                                            cols.e_ptr[5 * u + 5])
-                                  for u in ucols] + [np.zeros(0, np.int64)])
-            win = np.unique(cols.mono[sel])
-            slot = np.zeros(e.shape[0], np.int64)
-            slot[win] = np.arange(len(win))
-            we = e[win]
-            win_exp.extend(we[:, 0] | we[:, 1] << 8 | we[:, 2] << 16
-                           | we[:, 3] << 24)
-            win_ptr.append(len(win_exp))
-            max_win = max(max_win, len(win))
+        sel = np.concatenate([np.arange(cols.e_ptr[5 * u],
+                                        cols.e_ptr[5 * u + 5])
+                              for u in ucols] + [np.zeros(0, np.int64)])
+        win = np.unique(cols.mono[sel])
+        slot = np.zeros(e.shape[0], np.int64)
+        slot[win] = np.arange(len(win))
+        we = e[win]
+        win_exp.extend(we[:, 0] | we[:, 1] << 8 | we[:, 2] << 16
+                       | we[:, 3] << 24)
+        win_ptr.append(len(win_exp))
+        max_win = max(max_win, len(win))
         by_warp = [[] for _ in range(_K1_WARPS)]
         for k, (u, n) in enumerate(mine):
             c, m, ends = _k1_steps(cols, u, n)
             head = np.array([u, n, 0, 0, *ends], np.int32)
-            steps = np.zeros((len(c), 5))
-            steps[:, :4] = c
-            if window:
-                off = np.where(m < 0, 0, slot[np.maximum(m, 0)]) * ms
-                if off.max(initial=0) > 0xffff:
-                    p.k1[shape, nsplit] = None
-                    return None
-                off = off.astype(np.uint16)
-                if f32:
-                    st32 = np.zeros((len(c), 6), np.float32)
-                    st32[:, :4] = c
-                    st32[:, 4:] = off.view(np.float32)
-                    piece = np.concatenate([head.view(np.float32),
-                                            st32.reshape(-1)])
-                    piece = np.concatenate([piece, np.zeros(
-                        -len(piece) % 4, np.float32)])
-                else:
-                    steps[:, 4] = off.view(np.float64)[:, 0]
-                    piece = np.concatenate([head.view(np.float64),
-                                            steps.reshape(-1),
-                                            np.zeros(len(c) % 2)])
+            off = np.where(m < 0, 0, slot[np.maximum(m, 0)]) * ms
+            if off.max(initial=0) > 0xffff:
+                p.k1["window", nsplit] = None
+                return None
+            off = off.astype(np.uint16)
+            if f32:
+                st32 = np.zeros((len(c), 6), np.float32)
+                st32[:, :4] = c
+                st32[:, 4:] = off.view(np.float32)
+                piece = np.concatenate([head.view(np.float32),
+                                        st32.reshape(-1)])
+                piece = np.concatenate([piece, np.zeros(
+                    -len(piece) % 4, np.float32)])
             else:
-                rr = np.where(m[..., None] < 0, 0, rows[np.maximum(m, 0)])
-                steps[:, 4] = np.ascontiguousarray(
-                    rr.astype(np.uint8).reshape(-1, 8)).view(np.float64)[:, 0]
+                steps = np.zeros((len(c), 5))
+                steps[:, :4] = c
+                steps[:, 4] = off.view(np.float64)[:, 0]
                 piece = np.concatenate([head.view(np.float64),
-                                        np.zeros(5 * _K1_HREC - 12),
-                                        steps.reshape(-1)])
+                                        steps.reshape(-1),
+                                        np.zeros(len(c) % 2)])
             by_warp[k % _K1_WARPS].append(piece)
         for lst in by_warp:
-            if window:
-                for piece in lst:
-                    loc.append((size, len(piece)))
-                    pieces.append(piece)
-                    size += len(piece)
-                    max_len = max(max_len, len(piece))
-                cw_ptr.append(len(loc))
-                max_wch = max(max_wch, len(lst))
-                continue
-            nrec = 0
             for piece in lst:
-                gap = nrec % _K1_PIECE
-                if gap > _K1_PIECE - _K1_HREC:
-                    pieces.append(np.zeros(5 * (_K1_PIECE - gap)))
-                    nrec += _K1_PIECE - gap
+                loc.append((size, len(piece)))
                 pieces.append(piece)
-                nrec += len(piece) // 5
-            if nrec % 2:
-                pieces.append(np.zeros(5))
-                nrec += 1
-            size += nrec
-            cw_ptr.append(size)
+                size += len(piece)
+                max_len = max(max_len, len(piece))
+            cw_ptr.append(len(loc))
+            max_wch = max(max_wch, len(lst))
         for u in sorted(ucols):
             if len(zruns) > zr_ptr[-1] and zruns[-1][1] == u:
                 zruns[-1][1] = u + 1
@@ -346,18 +291,12 @@ def pair_u_tables(p, nsplit, shape="window"):
                                device=p.device)
 
     blob = torch.as_tensor(np.concatenate(pieces), device=p.device)
-    if window:
-        plan = SimpleNamespace(
-            shape=shape, blob=blob, loc=t(loc, 2), cw_ptr=t(cw_ptr),
-            win_ptr=t(win_ptr), win_exp=t(win_exp), zr_ptr=t(zr_ptr),
-            zruns=t(zruns, 2), nsplit=nsplit, max_win=max_win,
-            max_wch=max_wch, bufd=max_len, twojmax=tj,
-            itemsize=blob.element_size())
-    else:
-        plan = SimpleNamespace(
-            shape=shape, blob=blob, wrec=t(cw_ptr), zr_ptr=t(zr_ptr),
-            zruns=t(zruns, 2), nsplit=nsplit, twojmax=tj, two_u=2 * p.u_len)
-    p.k1[shape, nsplit] = plan
+    plan = SimpleNamespace(
+        shape="window", blob=blob, loc=t(loc, 2), cw_ptr=t(cw_ptr),
+        win_ptr=t(win_ptr), win_exp=t(win_exp), zr_ptr=t(zr_ptr),
+        zruns=t(zruns, 2), nsplit=nsplit, max_win=max_win, max_wch=max_wch,
+        bufd=max_len, twojmax=p.twojmax, itemsize=blob.element_size())
+    p.k1["window", nsplit] = plan
     return plan
 
 
@@ -368,14 +307,9 @@ def pair_u_smem(plan, nc, K):
         tj = plan.twojmax
         return 8 * (nc * plan.two_u + 2 * _K1_RW * _k1_recur_stage(tj)
                     + (tj + 1) ** 2) + 4 * (K + _K1_RW + 1)
-    b = 8 if plan.shape == "table" else plan.itemsize
+    b = plan.itemsize
     fixed = b * (_K1_PRO * _K1_TILE + 4 * (plan.twojmax + 1) * _K1_TILE) \
         + 4 * (K + _K1_TILE + 1)
-    if plan.shape == "table":
-        rows = (plan.twojmax + 1) * (plan.twojmax + 2) // 2
-        return fixed + 8 * (2 * rows * (_K1_TILE | 1)
-                            + (nc * plan.two_u + 1) // 2 * 2
-                            + 2 * _K1_WARPS * _K1_PIECE * 5)
     q = 16 // b                      # values of 16 bytes
     return fixed + b * (-(-plan.max_win * _k1_row_stride(nc) // q) * q
                         + 2 * _K1_WARPS * plan.bufd) \
@@ -405,12 +339,12 @@ def _k1_window_floor(p, K):
         itemsize=4 if p.dtype == torch.float32 else 8), p.nchem, K)
 
 
-K1_SHAPES = ("window", "recursion", "table")   # in the planner's order
+K1_SHAPES = ("window", "recursion")   # in the planner's order
 # The most splits at which a window fits that the window shape takes: each
-# split repeats its pairs' prologue and monomials, so that at twojmax 11
-# (128 splits) and 12 (1,024) the table shape is 2.3x and 9.2x faster on
-# the H100, while up to twojmax 10 (at most 4) the window shape is faster
-# (`chip_smoke.py` phase 21, PERF.md)
+# split repeats its pairs' prologue and monomials, so that past 16 splits
+# (twojmax 11 and up) the recursion shape is faster on the H100, while up
+# to twojmax 10 (at most 4 splits) the window shape is (`chip_smoke.py`
+# phase 21, PERF.md)
 K1_WINDOW_SPLITS = 16
 # csrc/pair_u_duals.cu's recursion shape: warps of a block (a pair each)
 _K1_RW = 4
@@ -476,7 +410,7 @@ def pair_u_plan(p, N, K, sms):
     recursion shape's splits are of levels, the fewest (to
     `K1_RECUR_SPLITS`) that give two blocks to every SM.  Raises when no
     shape fits.  A float32 plan has the window shape alone, at any split
-    count that fits (the other shapes are float64 only)."""
+    count that fits (the recursion shape is float64 only)."""
     nchunks = len(_k1_chunks(p))
     counts = [1 << i for i in range(nchunks.bit_length())
               if 1 << i <= nchunks]
@@ -491,15 +425,14 @@ def pair_u_plan(p, N, K, sms):
                     <= _SMEM_LIMIT:
                 return shape, s
             continue
-        window = shape == "window"
-        if window and _k1_window_floor(p, K) > _SMEM_LIMIT:
+        if _k1_window_floor(p, K) > _SMEM_LIMIT:
             continue
         fitted = False
         for s in counts:
-            pl = pair_u_tables(p, s, shape)
+            pl = pair_u_tables(p, s)
             if pl is None or pair_u_smem(pl, p.nchem, K) > _SMEM_LIMIT:
                 continue
-            if window and not fitted and s > K1_WINDOW_SPLITS and not f32:
+            if not fitted and s > K1_WINDOW_SPLITS and not f32:
                 break
             fitted = True
             if 2 * N * s >= sms or 8 * s > nchunks:
@@ -507,9 +440,9 @@ def pair_u_plan(p, N, K, sms):
     if f32:
         raise kl.f32_refusal(f"pair_u_duals at twojmax {p.twojmax} (no "
                              f"window fits)", kl.QUEUE_LARGE)
-    raise ValueError(f"pair_u_duals: no split of the {nchunks} column "
-                     f"chunks fits a block's shared memory at K = {K}, "
-                     f"{p.nchem} channel(s), twojmax {p.twojmax}")
+    raise ValueError(f"pair_u_duals: neither shape fits a block's shared "
+                     f"memory at K = {K}, {p.nchem} channel(s), twojmax "
+                     f"{p.twojmax}")
 
 
 def pair_u_split_count(p, N, K, sms):
@@ -537,7 +470,7 @@ def _pair_u_duals_launch(disp, jelem, mask, ielem, p):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     shape, nsplit = pair_u_plan(p, N, K, sms)
     pl = (pair_u_recur_plan(p, nsplit) if shape == "recursion"
-          else pair_u_tables(p, nsplit, shape))
+          else pair_u_tables(p, nsplit))
     J = torch.empty((3, N, K, two_u), dtype=dt, device=dev)
     ut = torch.empty((N, p.nchem * two_u), dtype=dt, device=dev)
     common = (_ptr(disp), _ptr(jelem), _ptr(mask), _ptr(ielem), _ptr(p.elem),
@@ -550,17 +483,10 @@ def _pair_u_duals_launch(disp, jelem, mask, ielem, p):
                 pl.nsplit, *tail)
         SHAPE_LAUNCHES["pair_u_recur"] += 1
         return J, ut
-    common += (_ptr(pl.blob),)
-    if pl.shape == "window":
-        _launch(kl.entry("pair_u_duals", dt), dev, *common, _ptr(pl.loc),
-                _ptr(pl.cw_ptr),
-                _ptr(pl.win_ptr), _ptr(pl.win_exp), _ptr(pl.zr_ptr),
-                _ptr(pl.zruns), pl.nsplit, pl.max_win, pl.max_wch, pl.bufd,
-                *tail)
-    else:
-        _launch("pair_u_table", dev, *common, _ptr(pl.wrec), _ptr(pl.zr_ptr),
-                _ptr(pl.zruns), pl.nsplit, *tail)
-        SHAPE_LAUNCHES["pair_u_table"] += 1
+    _launch(kl.entry("pair_u_duals", dt), dev, *common, _ptr(pl.blob),
+            _ptr(pl.loc), _ptr(pl.cw_ptr), _ptr(pl.win_ptr),
+            _ptr(pl.win_exp), _ptr(pl.zr_ptr), _ptr(pl.zruns), pl.nsplit,
+            pl.max_win, pl.max_wch, pl.bufd, *tail)
     return J, ut
 
 
@@ -820,7 +746,7 @@ def dbdd_levels(p):
     - b_ptr (W + 1), b_u, b_src i32, b_fac f64: each row's layer-0 terms
       (targets with a nonzero layer-0 factor), B's."""
     tg = dbdd_tables(p)
-    if getattr(tg, "levels", None) is not None:
+    if tg.levels is not None:
         return tg.levels
     if p.nchem != 1:
         raise ValueError("dbdd_levels: the level shape takes one channel")
@@ -828,7 +754,7 @@ def dbdd_levels(p):
     tu = tg.tg_u.cpu().numpy().astype(np.int64)
     tsrc = tg.tg_src.cpu().numpy().astype(np.int64)
     tfac = tg.tg_fac.cpu().numpy().astype(np.float64)
-    W, U, tj = p.nb_base, p.u_len, p.twojmax
+    W, tj = p.nb_base, p.twojmax
     t_of = np.repeat(np.arange(W), np.diff(ptr))
     off = np.array([j * (j + 1) * (2 * j + 1) // 6 for j in range(tj + 2)])
     lev = np.searchsorted(off, tu, "right") - 1
@@ -873,8 +799,8 @@ def dbdd_levels(p):
                 rx = np.full((m, _K3_REC), -1, np.int64)
                 ry = np.full((m, _K3_REC), -1, np.int64)
                 rf = np.zeros((m, _K3_REC))
-                pos = (q_all := np.arange(npos)) // lp8 * _K3_LDY \
-                    + q_all % lp8
+                pos = np.arange(npos) // lp8 * _K3_LDY \
+                    + np.arange(npos) % lp8
                 k = np.zeros(npos, np.int64)
                 for layer in range(3):
                     use = live[:, layer] | ((layer == 0) & ~live.any(1))
@@ -1771,10 +1697,10 @@ for _k in F32_KERNELS:
 
 
 # launches of the shapes of K1 and K3 past twojmax 12, by entry point
-# (inside their wrappers' counts): K1's recursion and table shapes, K3's
-# level and slab shapes
-SHAPE_LAUNCHES = dict.fromkeys(("pair_u_recur", "pair_u_table", "dbdd_level",
-                                "dbdd_slab"), 0)
+# (inside their wrappers' counts): K1's recursion shape, K3's level and
+# slab shapes
+SHAPE_LAUNCHES = dict.fromkeys(("pair_u_recur", "dbdd_level", "dbdd_slab"),
+                               0)
 
 
 def reset_launches():

@@ -48,11 +48,13 @@ bit from run to run.  K4 with one to three source types at widths 1, 4,
 37 (not a multiple of its x-tile) and 600, bit for bit from run to run.
 quadraticflag and chemflag: K1-K3 with K3 in four W tiles and K6q at
 twojmax 8; K1-K3 past K1's former caps, at twojmax 10, 13, 14 and 16
-(K1's table shape, K3's slab shape), with five chemflag channels at
+(K1's recursion shape, K3's level shape), with five chemflag channels at
 twojmax 2 and InP's two at twojmax 12 (J and dB/dD of masked slots and z
 outputs without terms exactly 0, bit for bit from run to run, and
-`descriptors_with_jacobian` against its plain path); K1's table shape
-forced at twojmax 6 and 12 and with two channels at 4 and 12, and K3's
+`descriptors_with_jacobian` against its plain path); K1's recursion shape
+forced at twojmax 6 and 12 and with two channels at 4 and 12 (the same
+bits at one level split as at the planner's), K3's level shape forced at
+twojmax 6 and 8 with K = 13, 40, 64 and 200 (its slot tiles), and K3's
 slab shape forced at twojmax 6 and 8 and with two channels at 4, bit for
 bit its whole-row shape; the chemflag modes of
 K1-K3 with two elements at twojmax 4
@@ -275,8 +277,8 @@ def test_flag_kernels_match_plain(cuda, name):
 
 
 # K1's lifted caps: 2U = 1,012 columns (twojmax 10, several splits), five
-# element channels, twojmax 13, 14 and 16 (K1's table shape, K3's slab
-# shape) and InP's two channels at twojmax 12 (K1's table shape)
+# element channels, twojmax 13, 14 and 16 (K1's recursion shape, K3's level
+# shape) and InP's two channels at twojmax 12 (K1's recursion shape)
 TJ10 = dict(twojmax=["10"], numtypes=1, wj=["1.0"], radelem=["0.5"],
             bzeroflag=1, switchinnerflag=0)
 CAP_CASES = {
@@ -366,10 +368,10 @@ def cap_block(p, nel, device, N=12, K=40, seed=12):
                             device=device))
 
 
-# K1's table shape forced where its planner takes the window (twojmax 6,
-# InP's two channels at 4) and where it takes the table itself (twojmax 12,
-# two channels at 12), and K3's slab shape forced where it takes whole rows
-# (twojmax 6 and 8, two channels at 4)
+# K1's recursion shape forced where its planner takes the window (twojmax
+# 6, InP's two channels at 4) and where it takes the recursion itself
+# (twojmax 12, two channels at 12), and K3's slab shape forced where it
+# takes whole rows (twojmax 6 and 8, two channels at 4)
 FORCED_CASES = {
     "tj6": CASES["tj6"],
     "tj8": dict(CASES["tj6"], twojmax=["8"]),
@@ -377,26 +379,6 @@ FORCED_CASES = {
     "chem2_tj4": dict(CAP_CASES["chem2_tj12"], twojmax=["4", "4"]),
     "chem2_tj12": CAP_CASES["chem2_tj12"],
 }
-
-
-@pytest.mark.parametrize("name", ["tj6", "tj12", "chem2_tj4", "chem2_tj12"])
-def test_k1_table_shape_matches_plain(cuda, monkeypatch, name):
-    """K1 in its table shape (forced) against its plain version on 12
-    atoms x 40 slots, launched once a call; J of masked slots exactly 0, a
-    second run bit for bit."""
-    spec = FORCED_CASES[name]
-    p = shared_params(spec, cuda)
-    args = cap_block(p, spec["numtypes"], cuda)
-    monkeypatch.setattr(sk, "K1_SHAPES", ("table",))
-    k1w = sk.pair_u_duals_chem if p.nchem > 1 else sk.pair_u_duals
-    sk.reset_launches()
-    out = [k1w(*args, p) for _ in range(2)]
-    torch.cuda.synchronize()
-    assert sk.launches()[k1w.__name__] == 2
-    assert sk.pair_u_plan(p, 12, 40, 132)[0] == "table"
-    assert rel_err(out[0], sk.pair_u_duals_plain(*args, p)) <= RTOL
-    assert all(torch.equal(a, b) for a, b in zip(*out))
-    assert (out[0][0].permute(1, 2, 0, 3)[~args[2]] == 0).all()
 
 
 @pytest.mark.parametrize("name", ["tj6", "tj8", "chem2_tj4"])

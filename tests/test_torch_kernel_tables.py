@@ -30,6 +30,16 @@ package's plan (CPU, float64).
   1e-12; and K9, K10 and K10T
   launch with their schedules' `threads`, whose narrow launch bounds hold
   four blocks of the schedules' block an SM.
+- Past twojmax 12: K1's recursion shape, its schedule run in numpy in the
+  kernel's order (csrc/pair_u_duals.cu `pair_u_recur`), against the JAX
+  package's `compute_ulist_duals` and `_utot_from_wu` at twojmax 2-8 (one
+  channel and chemflag, wselfallflag 0 and 1, one to four level splits)
+  and against the plain version at twojmax 13, 14 and 16, its coefficients
+  against `rootpq_tables`, its splits and channel caps; K3's level shape,
+  its plan's layout and its schedule in torch (csrc/dbdd.cu `dbdd_level`)
+  against the plain version at twojmax 13 and 14 and against JAX's
+  `_dbdu_ylist` and contraction at twojmax 2 and 6; K3's slab shape; the
+  planners' choices; every SNAP wrapper's twojmax limit.
 """
 
 import re
@@ -818,7 +828,7 @@ def test_plain_twins_match_jax(twojmax, nelem, chem):
 
 
 # ---------------------------------------------------------------------------
-# twojmax 13-16: K1's table shape, K3's slab shape, the wrappers' limit
+# twojmax 13-16: the planners, K3's slab shape, the wrappers' limit
 # ---------------------------------------------------------------------------
 
 
@@ -838,129 +848,27 @@ def large_plans():
     return {tj: tsnap.make_params(port_section(tj), "cpu") for tj in (13, 14)}
 
 
-def table_streams(pl):
-    """A table plan's streams decoded, (split, warp) order: each a list of
-    chunks (first column, columns, [(column of the chunk, accumulator,
-    coefficients (4,), X rows (4,), Y rows (4,)) per step]); checks the
-    layout: a header of 3 records within a piece of 64, zero records
-    between chunks only where a header would cross a piece, an even
-    number of records."""
-    blob = pl.blob.numpy().reshape(-1, 5)
-    wrec = pl.wrec.numpy()
-    streams = []
-    for sw in range(len(wrec) - 1):
-        rec = blob[wrec[sw]:wrec[sw + 1]]
-        assert len(rec) % 2 == 0
-        chunks, ri = [], 0
-        while ri < len(rec):
-            head = np.ascontiguousarray(rec[ri]).view(np.int32)
-            if head[1] == 0:                 # the stream's padding
-                assert ri == len(rec) - 1 and not rec[ri].any()
-                break
-            assert ri % 64 <= 64 - 3
-            words = np.ascontiguousarray(rec[ri:ri + 3].reshape(-1))
-            ints = words[:12].view(np.int32)
-            assert not words[12:].any()
-            u0, n, ends = ints[0], ints[1], ints[4:]
-            assert tuple(ints[2:4]) == (0, 0)
-            st = rec[ri + 3:ri + 3 + ends[-1]]
-            places = np.ascontiguousarray(st[:, 4]).view(np.uint8)
-            places = places.reshape(-1, 8).astype(np.int64)
-            run = np.searchsorted(ends, np.arange(ends[-1]), "right")
-            chunks.append((u0, n, list(zip(run // 5, run % 5, st[:, :4],
-                                           places[:, 0::2],
-                                           places[:, 1::2]))))
-            ri += 3 + ends[-1]
-            if ri % 64 > 64 - 3:
-                assert not rec[ri:ri + 64 - ri % 64].any()
-                ri += 64 - ri % 64
-        streams.append(chunks)
-    return streams
-
-
-def table_rows(exps, twojmax):
-    """Each monomial's rows in the two pair tables."""
-    return np.stack([sk._k1_table_row(exps[:, 0], exps[:, 1], twojmax),
-                     sk._k1_table_row(exps[:, 2], exps[:, 3], twojmax)], 1)
-
-
-def check_table_plan(p, nsplit, L, exps):
-    """The table plan's steps rebuild L and its four partials (from the
-    JAX package's `mono_plan` L and exponents) exactly; every column in
-    one chunk of at most 4, warp w the split's chunks 8 r + w in order."""
-    tj = p.twojmax
-    pl = sk.pair_u_tables(p, nsplit, "table")
-    index = {tuple(e): i for i, e in enumerate(exps)}
-    want = [L]
-    for v in range(4):
-        Lv = np.zeros_like(L)
-        for m, e in enumerate(exps):
-            e = e.copy()
-            e[v] += 1
-            if tuple(e) in index:
-                Lv[m] = e[v] * L[index[tuple(e)]]
-        want.append(Lv)
-    by_rows = {tuple(r): m for m, r in enumerate(table_rows(exps, tj))}
-    n_mono, two_u = L.shape
-    got = np.zeros((5, n_mono, two_u))
-    seen = np.zeros(two_u, int)
-    streams = table_streams(pl)
-    all_chunks = sk._k1_chunks(p)
-    assert len(streams) == nsplit * 8
-    for s in range(nsplit):
-        order = []
-        for w in range(8):
-            for r, (u0, n, steps) in enumerate(streams[s * 8 + w]):
-                order.append((r, w, (u0, n)))
-                assert 1 <= n <= 4 - u0 % 2
-                seen[u0:u0 + n] += 1
-                for cc, acc, coef, xr, yr in steps:
-                    assert cc < n
-                    for q in range(4):
-                        if coef[q] == 0:
-                            assert xr[q] == yr[q] == 0
-                            continue
-                        m = by_rows[xr[q], yr[q]]
-                        assert got[acc, m, u0 + cc] == 0
-                        got[acc, m, u0 + cc] = coef[q]
-        mine = [c for _, _, c in sorted(order)]
-        first = all_chunks.index(mine[0])
-        assert mine == all_chunks[first:first + len(mine)]
-        runs = pl.zruns.numpy()[pl.zr_ptr[s]:pl.zr_ptr[s + 1]]
-        assert sorted(u for _, _, (u0, n) in order
-                      for u in range(u0, u0 + n)) == \
-            [u for a, b in runs for u in range(a, b)]
-    assert (seen == 1).all()
-    assert np.array_equal(got, np.stack(want))
-
-
-@pytest.mark.parametrize("twojmax,nsplit", [(2, 1), (6, 3), (10, 2)])
-def test_k1_table_plan_rebuilds_the_change_of_basis(twojmax, nsplit):
-    _, p = plans(twojmax)
-    exps, _, _, L = jmono.mono_plan(twojmax)
-    check_table_plan(p, nsplit, np.asarray(L), np.asarray(exps))
-
-
-def test_k1_table_plan_rebuilds_the_change_of_basis_tj13(large_plans):
-    p = large_plans[13]
-    exps, _, _, L = jmono.mono_plan(13)
-    check_table_plan(p, sk.pair_u_plan(p, 1024, 64, 132)[1], np.asarray(L),
-                     np.asarray(exps))
-
-
 @pytest.mark.parametrize("twojmax", [13, 14])
 @pytest.mark.parametrize("K", [26, 64, 200])
 def test_k1_k3_plans_past_twojmax_12(large_plans, twojmax, K):
-    """K1 takes its table shape (no window fits) and K3 its slab shape
-    (16 whole y rows do not fit), each within a block's shared memory, at
-    a chunk of 1,024 atoms and of 12 on a card of 132 SMs."""
+    """K1 takes its recursion shape (no window fits) and K3 its level
+    shape (16 whole y rows do not fit; one channel), each within a block's
+    shared memory, at a chunk of 1,024 atoms and of 12 on a card of 132
+    SMs; K3's slab plan (the chemflag modes' shape there) fits two blocks
+    an SM."""
     p = large_plans[twojmax]
     for N in (1024, 12):
         shape, s = sk.pair_u_plan(p, N, K, 132)
-        assert shape == "table" and (2 * N * s >= 132 or N == 12)
-        assert sk.pair_u_smem(sk.pair_u_tables(p, s, shape), 1, K) \
+        assert shape == "recursion" and (N * s >= 264 or s == 8)
+        assert sk.pair_u_smem(sk.pair_u_recur_plan(p, s), 1, K) \
             <= sk._SMEM_LIMIT
     assert sk._k1_window_floor(p, K) > sk._SMEM_LIMIT
+    assert sk.dbdd_shape(p, K) == "level"
+    lv = sk.dbdd_levels(p)
+    KB, CT = sk.dbdd_level_tiles(K)
+    assert KB <= 32 and KB * (CT - 1) < K <= KB * CT
+    assert sk.dbdd_level_smem(KB, lv.nch, lv.rows.numel(), p.nb_base) \
+        <= sk._SMEM_LIMIT
     mt, tiles, slab = sk.dbdd_plan(p, K)
     assert slab > 0 and slab % 48 == 0 and mt == 32
     assert (tiles - 1) * 32 < p.nb_base <= tiles * mt
@@ -969,72 +877,18 @@ def test_k1_k3_plans_past_twojmax_12(large_plans, twojmax, K):
         + 2 * ldl // 8 <= sk.kl.SMEM_PAIR
 
 
-def test_k1_takes_the_table_shape_past_16_window_splits():
+def test_k1_takes_the_recursion_shape_past_16_window_splits():
     """Twojmax 11's window first fits at 128 splits: the planner takes the
-    table shape, at any chunk; twojmax 10's fits at 4 and keeps it."""
+    recursion shape, at any chunk; twojmax 10's fits at 4 and keeps it."""
     p11 = tsnap.make_params(port_section(11), "cpu")
     _, p10 = plans(10)
     for N in (1024, 12, 2):
-        assert sk.pair_u_plan(p11, N, 40, 132)[0] == "table"
+        assert sk.pair_u_plan(p11, N, 40, 132)[0] == "recursion"
         assert sk.pair_u_plan(p10, N, 40, 132)[0] == "window"
     first = [s for s in (1, 2, 4, 8, 16, 32, 64, 128)
              if sk.pair_u_smem(sk.pair_u_tables(p11, s), 1, 40)
              <= sk._SMEM_LIMIT]
     assert first[0] == 128 > sk.K1_WINDOW_SPLITS
-
-
-def emulate_k1_table(p, args, nsplit):
-    """csrc/pair_u_duals.cu's table shape over `pair_u_tables(...,
-    "table")`: each slot's term c X[row] Y[row'], each run's 4 slot sums in
-    step order, (s0 + s1) + (s2 + s3), J; utot the self term plus each
-    tile of 32 live pairs' weighted U values, tile by tile."""
-    pl = sk.pair_u_tables(p, nsplit, "table")
-    vals, tans = (x.numpy() for x in tsnap._prologue_duals(*args, p))
-    mask = args[2].numpy()
-    N, K = mask.shape
-    nc, two_u, tj = p.nchem, 2 * p.u_len, p.twojmax
-    chan = args[1].numpy() if nc > 1 else np.zeros((N, K), int)
-    pq = [(a, b) for a in range(tj + 1) for b in range(tj + 1 - a)]
-    X = np.stack([vals[0] ** a * vals[1] ** b for a, b in pq])
-    Y = np.stack([vals[2] ** a * vals[3] ** b for a, b in pq])
-    J = np.full((3, N, K, two_u), np.nan)
-    U = np.zeros((N, K, two_u))
-    w = np.where(mask, vals[4], 0.0)
-    for chunks in table_streams(pl):
-        for u0, n, steps in chunks:
-            slot_acc = np.zeros((4, 5, 4, N, K))
-            for cc, acc, coef, xr, yr in steps:
-                for q in range(4):
-                    slot_acc[cc, acc, q] += coef[q] * (X[xr[q]] * Y[yr[q]])
-            for cc in range(n):
-                sa = slot_acc[cc]
-                acc = (sa[:, 0] + sa[:, 1]) + (sa[:, 2] + sa[:, 3])
-                tan = sum(tans[:, v] * acc[1 + v] for v in range(4))
-                J[..., u0 + cc] = np.where(mask, vals[4] * tan
-                                           + tans[:, 4] * acc[0], 0.0)
-                U[..., u0 + cc] = acc[0]
-    ut = tsnap._channel_self(args[3], p, torch.float64).numpy().reshape(
-        N, nc, two_u)
-    for a in range(N):
-        live = np.nonzero(mask[a])[0]
-        for t0 in range(0, len(live), 32):
-            k = live[t0:t0 + 32]
-            for e in range(nc):
-                sel = k[chan[a, k] == e]
-                ut[a, e] = ut[a, e] + (w[a, sel, None] * U[a, sel]).sum(0)
-    return J, ut.reshape(N, -1)
-
-
-@pytest.mark.parametrize("twojmax,nelem,chem,nsplit", [
-    (2, 1, False, 1), (6, 1, False, 3), (2, 3, True, 2), (4, 2, True, 1)])
-def test_k1_table_schedule_matches_plain(twojmax, nelem, chem, nsplit):
-    _, p = plans(twojmax, nelem, chem)
-    args = tuple(torch.from_numpy(x) for x in block(3, nelem))
-    J, ut = emulate_k1_table(p, args, nsplit)
-    J0, ut0 = sk.pair_u_duals_plain(*args, p)
-    close(J, J0)
-    close(ut, ut0)
-    assert (J.transpose(1, 2, 0, 3)[~args[2].numpy()] == 0).all()
 
 
 def emulate_k3_slab(p, ut, zr, zi, J, jelem, slab):
@@ -1107,13 +961,14 @@ def test_k3_slab_schedule_matches_plain(twojmax, nelem, chem, slab):
 
 
 def test_k1_k3_schedules_match_plain_tj13(large_plans):
-    """The table shape of K1 and the slab shape of K3 at twojmax 13, their
-    plans' own split and slab, on one config of 3 atoms x 8 slots."""
+    """The recursion shape of K1 and the slab shape of K3 at twojmax 13,
+    their plans' own split and slab, on one config of 3 atoms x 8
+    slots."""
     p = large_plans[13]
     args = tuple(torch.from_numpy(x) for x in block(9, 1, A=3, K=8))
     shape, nsplit = sk.pair_u_plan(p, 3, 8, 132)
-    assert shape == "table"
-    J, ut = emulate_k1_table(p, args, nsplit)
+    assert shape == "recursion"
+    J, ut = emulate_k1_recursion(p, args, nsplit)
     J0, ut0 = sk.pair_u_duals_plain(*args, p)
     close(J, J0)
     close(ut, ut0)
@@ -1322,7 +1177,7 @@ def test_k1_recursion_plan_levels_and_caps():
     """The recursion plan's coefficients are `rootpq_tables`' (the JAX
     package's), its splits cover the levels in order, a level at least
     each, and at twojmax 13-16 its shared memory takes 13, 10, 8 and 7
-    channels at K = 64 (the table shape took 8, 6, 5 and 4)."""
+    channels at K = 64 (K1's shapes before it took 8, 6, 5 and 4)."""
     from fitsnap_tpu.ops.cg import rootpq_tables
 
     for tj in (6, 13, 16):
@@ -1354,17 +1209,19 @@ def emulate_k3_level(p, ut, zr, zi, J):
     U, W, LDY = p.u_len, p.nb_base, sk._K3_LDY
     bzero = p.bzero if p.bzeroflag else torch.zeros_like(p.bzero)
     bp = lv.b_ptr.long()
-    B = torch.stack([
-        (ut[:, lv.b_u[bp[w]:bp[w + 1]].long()]
-         * (lv.b_fac[bp[w]:bp[w + 1]] * zr[:, lv.b_src[bp[w]:bp[w + 1]].long()])
-         + ut[:, U + lv.b_u[bp[w]:bp[w + 1]].long()]
-         * (lv.b_fac[bp[w]:bp[w + 1]]
-            * zi[:, lv.b_src[bp[w]:bp[w + 1]].long()])).sum(1) - bzero[w]
-        for w in range(W)], 1)
+
+    def b_row(w):
+        q = slice(bp[w], bp[w + 1])
+        u, src, f = lv.b_u[q].long(), lv.b_src[q].long(), lv.b_fac[q]
+        return (ut[:, u] * (f * zr[:, src])
+                + ut[:, U + u] * (f * zi[:, src])).sum(1) - bzero[w]
+
+    B = torch.stack([b_row(w) for w in range(W)], 1)
     out = torch.full((N, W, 3 * K), float("nan"), dtype=J.dtype)
     Jn = J.permute(1, 2, 0, 3).reshape(N, 3 * K, 2 * U)   # column 3k + c
     rows, rec = lv.rows.tolist(), lv.rec[:, :2].long()
-    rfac = torch.from_numpy(lv.rec[:, 2:].numpy().copy().view(np.float64)[:, 0])
+    rfac = torch.from_numpy(lv.rec[:, 2:].numpy().copy().view(np.float64))
+    rfac = rfac[:, 0]
     acc = 0
     for rb, nrt, g, L, r0, m, flush, _ in lv.chunk.tolist():
         lp8 = -(-L // 8) * 8
