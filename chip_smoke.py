@@ -355,6 +355,27 @@ Run from the root of a checkout on a machine with an NVIDIA H100.  Phases:
    beta_true spread 10%; the device ms of a steady pass at float64 and
    float32 in turns (64, 32, 32, 64) and the bytes of a chunk's disp and
    dB/dD at each type.
+23. (run after phase 14) the float32 NN fits: phase 13's cached fit and
+   phase 14's OTF fit with `--dtype float32` (the same set, settings,
+   epochs and seeded initial parameters, drawn at float64 and rounded):
+   launch counts set to 0, FitSnap(device="cuda") -> scrape -> process ->
+   perform_fit -> write_output, the counts read just after.  Each fails
+   unless the float32 instantiations of K2, K5 (`zbl_eav`), K8, K9, K10,
+   K10T, K11, K11T and the gather launched and none of their float64 ones,
+   K8r launched and K1, K3, K4 and K12 did not; every float tensor of the
+   buckets, the standardization and the model is float32 (the buckets'
+   bytes by type printed beside the float64 fit's); the train loss fell;
+   every epoch's train loss is within 1e-3 relative of phase 13's or 14's;
+   the trained model's energies and forces on a minibatch of 4 of the
+   largest bucket are within 1e-4 of the float64 path's on the same
+   configs at its parameters widened; the `.pt` and metrics are written.
+   Then K9, K10, K10T, K11, K11T and the gather at float32 against their
+   plain float32 versions on minibatches of 4 x 128 x 64 and 4 x 8 x 64 of
+   the cached fit (1e-4, twice bit for bit, digests printed; bounds at 4
+   bytes a value and the FP32 CUDA-core rate), each timed against its
+   float64 instance on phase 13's same configs in turns (the device ms of
+   one profiler trace of both); and one profiled epoch of each mode at
+   each type in turns (its device ms).  The phase's seconds are printed.
 
 Each NN phase's profiler split prints the port's kernels' launches in the
 profiled epoch beside their device ms (the cached epoch's K11T and gather
@@ -477,7 +498,12 @@ SOURCES = {
 # launches counted apart as "<name>_f32"
 F32_KERNELS = ("pair_u_duals", "zlist", "dbdd", "pair_scatter_rows",
                "zbl_eav", "normal_contrib", "device_neighbors")
-SOURCES.update({k + "_f32": SOURCES[k] for k in F32_KERNELS})
+# the float32 instantiations of the NN solver's cached and OTF kernels
+# (phase 23)
+F32_NN_KERNELS = ("nn_ut_b", "nn_dedu_vg", "nn_dedu_vg_t", "nn_pair_force",
+                  "nn_pair_force_t", "nn_pair_gather")
+SOURCES.update({k + "_f32": SOURCES[k] for k in F32_KERNELS
+                + F32_NN_KERNELS})
 FITSNAP_KERNELS = ("pair_u_duals", "zlist", "dbdd", "pair_scatter_rows",
                    "zbl_eav")
 STREAM_KERNELS = ("normal_contrib", "device_neighbors", "reverse_table")
@@ -506,6 +532,20 @@ NN_OTF_CHEM_KERNELS = ("zbl_eav", "device_neighbors", "reverse_table",
 # K8 and K8r), K12 / K12T, K5 in the prep
 ACE_NN_KERNELS = ("ace_pair_basis", "ace_b_dbdd", "zbl_eav", "nn_force",
                   "nn_force_t")
+# phase 23: the float32 cached and OTF fits launch every kernel of phases
+# 13 and 14 in its float32 instantiation (K8r reads integers only) and
+# none at float64, nor K1, K3, K4 or K12
+NN_F32_KERNELS = tuple(k + "_f32" for k in ("zbl_eav", "device_neighbors",
+                                            "zlist") + F32_NN_KERNELS) \
+    + ("reverse_table",)
+NN_F32_ABSENT = ("zbl_eav", "device_neighbors", "zlist") + F32_NN_KERNELS \
+    + ("pair_u_duals", "pair_u_duals_f32", "dbdd", "dbdd_f32",
+       "pair_scatter_rows_f32", "nn_force", "nn_force_t")
+NN_F32_PATH = {"cached": "nn_cached_f32_fitsnap",
+               "otf": "nn_otf_f32_fitsnap"}
+KERNEL_RTOL_NN32 = 1e-4     # phase 23's kernels vs their float32 twins
+LOSS_RTOL32 = 1e-3          # phase 23's loss curves vs phases 13 and 14
+MODEL_RTOL32 = 1e-4         # its trained model vs the float64 path
 NN_PATH = {"precompute": "nn_fitsnap", "cached": "nn_cached_fitsnap",
            "custom": "custom_fitsnap", "otf": "nn_otf_fitsnap",
            "otf_quadratic": "nn_otf_quadratic_fitsnap",
@@ -578,7 +618,9 @@ PATH_KERNELS = {"fitsnap": FITSNAP_KERNELS,
                 # phase 22: every kernel in its float32 instantiation (K8r
                 # reads integers only)
                 "streamed_f32": tuple(k + "_f32" for k in F32_KERNELS)
-                + ("reverse_table",)}
+                + ("reverse_table",),
+                "nn_cached_f32_fitsnap": NN_F32_KERNELS,
+                "nn_otf_f32_fitsnap": NN_F32_KERNELS}
 # paths whose K4 launches are the rows', one a reference call
 ROWS_PATHS = ("fitsnap", "streamed", "ace_fitsnap", "ace_streamed",
               "quadratic_fitsnap", "quadratic_streamed", "chem_fitsnap",
@@ -862,20 +904,22 @@ def check_launched(counts, path):
 
 def record(rows, name, out, ref, kernel, plain_ms, nbytes, flops,
            library_ms, wrapper=None, shape=None, library=None,
-           vector=False, fp32=False):
+           vector=False, fp32=False, rtol=None, trace=True):
     """Hold a kernel's outputs to its plain version's, time it, and add its
     row to `rows`.  `kernel` is (a call of the wrapper, repetitions to
     time); `wrapper` names the kernel when the row is one of several
     shapes of it; `library`, a call of the library function, is timed
     here, by CUDA events (in place of `library_ms`) and by device time;
     `vector` adds the bound at the FP64 vector rate (work that cannot use
-    the tensor cores); `fp32`: a float32 instantiation (phase 22), held to
-    KERNEL_RTOL32 and bound at the FP32 CUDA-core rate."""
+    the tensor cores); `fp32`: a float32 instantiation (phases 22 and 23),
+    held to KERNEL_RTOL32 (or `rtol`) and bound at the FP32 CUDA-core
+    rate; `trace=False` leaves the row's device ms to the caller (phase
+    23's trace in turns)."""
     err_abs, err_rel = rel_err(out, ref)
     b_ms, b_by = bound_ms(nbytes, flops, fp32)
-    rtol = KERNEL_RTOL32 if fp32 else KERNEL_RTOL
+    rtol = rtol or (KERNEL_RTOL32 if fp32 else KERNEL_RTOL)
     ms = timed(*kernel)
-    dev_ms = device_time(*kernel)
+    dev_ms = device_time(*kernel) if trace else None
     lib_dev_ms = None
     if library:
         library_ms = timed(library, 20)
@@ -2643,13 +2687,14 @@ def streamed_f32_phase(fs, a_plain, beta, seed, device, keep, checks64):
 # ---------------------------------------------------------------------------
 
 
-def nn_path(tmp, device, mode="precompute"):
+def nn_path(tmp, device, mode="precompute", dtype=None):
     """Drive the NN fit through FitSnap on the card on the Ta set of phase
     2 in `mode` (precompute, cached, otf, otf_quadratic: quadraticflag, or
     custom: the pairwise NN), on the InP-shaped set of phase 9
     (otf_chem), nonlinear ACE on the ACE set of phase 6 (ace:
     precompute, ace_otf: OTF), or a PAS fit of `PAS_SETS[mode]` (pas_chem,
-    pas, pas_ace); returns (the FitSnap, launch counts, timings,
+    pas, pas_ace); `dtype` "float32" (phase 23, cached and otf) passes
+    `--dtype float32`; returns (the FitSnap, launch counts, timings,
     checks)."""
     import torch
     from fitsnap_tpu_torch import FitSnap
@@ -2684,9 +2729,11 @@ def nn_path(tmp, device, mode="precompute"):
     synthetic.write_ini(ini, settings)
     for name in files:
         Path(name).unlink(missing_ok=True)
+    path = NN_PATH[mode] if dtype is None else NN_F32_PATH[mode]
     reset_launches()
     t0 = time.time()
-    fs = FitSnap(str(ini), arglist=["--overwrite"], device=device)
+    fs = FitSnap(str(ini), arglist=["--overwrite"]
+                 + (["--dtype", dtype] if dtype else []), device=device)
     fs.scrape_configs()
     fs.process_configs()
     fs.perform_fit()
@@ -2699,13 +2746,13 @@ def nn_path(tmp, device, mode="precompute"):
     if mode in PAS_SETS and p is not None and p.nchem > 1:
         # the plan has element channels: each K9 launch was in that mode
         counts["nn_ut_b_chem"], counts["nn_ut_b"] = counts["nn_ut_b"], 0
-    check_launched(counts, NN_PATH[mode])
-    absent = NN_ABSENT.get(mode, ())
+    check_launched(counts, path)
+    absent = NN_ABSENT.get(mode, ()) if dtype is None else NN_F32_ABSENT
     if mode in PAS_SETS:
         absent = [k for k in counts if k not in PATH_KERNELS[NN_PATH[mode]]]
     stray = {k: counts[k] for k in absent if counts[k]}
     if stray:
-        raise AssertionError(f"the {NN_PATH[mode]} path launched {stray}")
+        raise AssertionError(f"the {path} path launched {stray}")
     if mode in PAS_SETS:
         from fitsnap_tpu_torch.solvers.network import _BATCH_KEYS_PAS
         kept = {k for b in sol.buckets for k, v in b.items()
@@ -2722,9 +2769,10 @@ def nn_path(tmp, device, mode="precompute"):
                              f"{stored}")
 
     hist = np.array(sol.history)
-    print(f"nn loss curve ({mode}; epoch, train, validation): "
+    tag = mode if dtype is None else f"{mode}, {dtype}"
+    print(f"nn loss curve ({tag}; epoch, train, validation): "
           + json.dumps(hist.tolist()), flush=True)
-    print(f"nn seconds per epoch ({mode}): " + json.dumps(sol.epoch_times),
+    print(f"nn seconds per epoch ({tag}): " + json.dumps(sol.epoch_times),
           flush=True)
     if not (np.isfinite(hist).all() and hist[-1, 1] < hist[0, 1]):
         raise AssertionError(f"NN train loss did not fall: {hist[:, 1]}")
@@ -2739,6 +2787,7 @@ def nn_path(tmp, device, mode="precompute"):
                           for b in sol.buckets},
               "train_loss_first": hist[0, 1], "train_loss_last": hist[-1, 1],
               "val_loss_last": hist[-1, 2],
+              "history": hist.tolist(),
               "g_bytes": sum(b["G"].numel() * 8 for b in sol.buckets
                              if "G" in b),
               "cached_bytes": sum(b[k].numel() * b[k].element_size()
@@ -3906,6 +3955,318 @@ def custom_export_check(fs):
         raise AssertionError(f"the exported pairwise .pt disagrees: "
                              f"{err:.3e}")
     return {"pt_rel_err": float(err)}
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the float32 cached and OTF NN fits
+# ---------------------------------------------------------------------------
+
+
+def bucket_bytes(sol):
+    """{dtype: bytes} of the tensors an NN solver's buckets keep."""
+    import torch
+
+    out = {}
+    for b in sol.buckets:
+        for v in b.values():
+            if torch.is_tensor(v):
+                k = str(v.dtype).removeprefix("torch.")
+                out[k] = out.get(k, 0) + v.numel() * v.element_size()
+    return out
+
+
+def f32_model_check(sol, sol64):
+    """The float32 model's energies and forces on a minibatch of 4 of the
+    largest bucket against the float64 path's on the same configs, its
+    parameters and standardization widened to float64; returns the largest
+    difference relative to the float64 outputs' largest magnitude."""
+    import torch
+    from fitsnap_tpu_torch.models.mlp import PerElementMLP
+
+    bi = int(np.argmax([np.prod(b["shape"]) for b in sol64.buckets]))
+    if [b["shape"] for b in sol.buckets] != [b["shape"] for b in
+                                            sol64.buckets]:
+        raise AssertionError("the float32 and float64 fits planned other "
+                             "buckets")
+    idx = np.arange(min(4, len(sol64.buckets[bi]["groups"])))
+    e32, f32 = sol._forward()(sol.model, sol._gather(sol.buckets[bi], idx))
+    saved = sol64.mean, sol64.std
+    sol64.mean, sol64.std = sol.mean.double(), sol.std.double()
+    try:
+        e64, f64 = sol64._forward()(
+            PerElementMLP([(w.double(), b.double())
+                           for w, b in sol.model.params]),
+            sol64._gather(sol64.buckets[bi], idx))
+    finally:
+        sol64.mean, sol64.std = saved
+    if e32.dtype != torch.float32 or f32.dtype != torch.float32:
+        raise AssertionError("the float32 model's outputs are not float32")
+    return rel_err([e32.double(), f32.double()], [e64, f64])[1]
+
+
+def f32_kernel_row(rows, name, calls, nbytes, flops, shape, tag, turns,
+                   library=None):
+    """A float32 kernel against its float32 plain version (1e-4), two calls
+    bit for bit, timed by CUDA events (`record`); its float32 and float64
+    calls on rotating copies of the same configs are added to `turns`,
+    whose trace (`kernel_turns`) gives the row's device ms.  `calls` =
+    (kernel32, plain32, kernel64, args32, args64): the kernels take the
+    args and return a list of tensors."""
+    import torch
+
+    k32, p32, k64, a32, a64 = calls
+    out, again = k32(*a32), k32(*a32)
+    if not all(torch.equal(x, y) for x, y in zip(out, again)):
+        raise AssertionError(f"{name}: two calls differ")
+    if not all(x.dtype == torch.float32 for x in out):
+        raise AssertionError(f"{name}: outputs not float32")
+    DIGESTS[name + tag] = digest(out)
+    # the rotating copies made (and their copy kernels finished) before any
+    # trace
+    r32, r64 = rotating(k32, a32), rotating(k64, a64)
+    torch.cuda.synchronize()
+    record(rows, name + tag, out, p32(*a32), (r32, 20),
+           timed(rotating(p32, a32), 5), nbytes, flops, None,
+           wrapper=name, shape=shape, fp32=True, rtol=KERNEL_RTOL_NN32,
+           library=library, trace=False)
+    turns.append((rows[-1], r32, r64))
+
+
+# the profiler's names of the six float32 NN kernels' functions (each a
+# template on the working type: "<float" or "<double" follows the name)
+NN_F32_FN = {"nn_ut_b_f32": "nn_ut_b_kernel",
+             "nn_dedu_vg_f32": "nn_dedu_vg_kernel",
+             "nn_dedu_vg_t_f32": "nn_dedu_vg_t_kernel",
+             "nn_pair_force_f32": "nn_pair_force_kernel",
+             "nn_pair_force_t_f32": "nn_pair_force_t_kernel",
+             "nn_pair_gather_f32": "nn_gather_kernel"}
+
+
+def kernel_turns(turns, reps=20):
+    """The float32 and float64 instances of each kernel of `turns` (row,
+    float32 call, float64 call) in turns in one torch.profiler trace (each
+    call `reps` times, float32 then float64, the whole sequence twice);
+    each row gets the mean device ms a call of its kernel's function at
+    each type, told apart by the template's type: `device_ms` the float32
+    one, `f64_device_ms` the float64 one (a 20-call trace late in this
+    script can miss kernels; this long one holds both types)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _, r32, r64 in turns:
+        r32(), r64()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            for _, r32, r64 in turns:
+                for fn in (r32, r64):
+                    for _ in range(reps):
+                        fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            times[e.key] = times.get(e.key, 0.0) \
+                + e.self_device_time_total / 1e3
+    for row, _, _ in turns:
+        fn = NN_F32_FN[row["kernel"]]
+        out = {}
+        for key, ctype in (("f32", "float"), ("f64", "double")):
+            ms = sum(v for k, v in times.items()
+                     if re.search(rf"\b{fn}<{ctype}\b", k))
+            out[key] = ms / (2 * reps) if times else None
+        row["device_ms"], row["f64_device_ms"] = out["f32"], out["f64"]
+        print(f"{row['name']}: device ms a call in turns float32 "
+              f"{out['f32']} float64 {out['f64']}", flush=True)
+
+
+def nn_f32_kernel_rows(sol, sol64):
+    """K9, K10, K10T, K11, K11T and the gather at float32 against their
+    float32 plain versions on minibatches of 4 at the cached mode's largest
+    (4 x 128 x 64) and smallest (4 x 8 x 64) buckets of the float32 fit,
+    beside their float64 instances on the float64 fit's same configs; the
+    inputs of each from the plain versions' outputs, as in phase 13."""
+    import torch
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+    from fitsnap_tpu_torch.kernels import snap_kernels as sk
+    from fitsnap_tpu_torch.ops.snap import nn_tables
+
+    rows = []
+    for pick in (np.argmax, np.argmin):
+        ins, turns = {}, []
+        tag = ""
+        for key, s in (("f32", sol), ("f64", sol64)):
+            batch, dEdB, block = nn_cached_batch(s, pick=pick)
+            p = s._snap.cast(block[0].dtype)
+            N, A, K = batch["jidx"].shape
+            z = sk.zlist_plain(batch["ut"].reshape(N * A, -1), p)
+            vg = nk.nn_dedu_vg_plain(dEdB, *z, p)
+            g = nk.nn_pair_force_plain(vg, *block, p)
+            F = nk.nn_pair_gather_plain(g.reshape(N, A, K, 3), batch["rev"])
+            gF = ((F - batch["f_target"])
+                  * batch["real"][..., None].to(F.dtype)).contiguous()
+            vgc = nk.nn_pair_force_t_plain(gF, batch["jidx"], *block, p)
+            ins[key] = dict(p=p, block=block, z=z, dEdB=dEdB, vg=vg,
+                            g=g.reshape(N, A, K, 3), gF=gF, vgc=vgc,
+                            jidx=batch["jidx"], rev=batch["rev"],
+                            mask=batch["mask"])
+        p = ins["f32"]["p"]
+        tb = nn_tables(p)
+        block, rev = ins["f32"]["block"], ins["f32"]["rev"]
+        N, A, K = ins["f32"]["jidx"].shape
+        M, n_t, W, U = N * A, tb.n_t, p.ntriples, p.u_len
+        pairs = int(block[2].sum().item())
+        pair_in = M * K * (3 * 4 + 4 + 1) + M * 4
+        nzr = referenced_z(tb)
+        shape = [N, A, K]
+        if pick is np.argmin:
+            tag = f"@{(A, K)}"
+        print(f"nn float32 kernel inputs: N={N} A={A} K={K} W={W} 2U={2 * U}"
+              f" n_t={n_t} live pairs={pairs}", flush=True)
+
+        def calls(kernel, plain, args):
+            """The float32 and float64 calls of a wrapper on the
+            arguments named in `args`, each with its type's plan."""
+            def a(key):
+                d = ins[key]
+                return tuple(x for n in args for x in (
+                    d[n] if isinstance(d[n], tuple) else (d[n],)))
+
+            def wrap(f, key):
+                q = ins[key]["p"]
+
+                def run(*xs):
+                    out = f(*xs, q)
+                    return list(out) if isinstance(out, tuple) else [out]
+                return run
+            return (wrap(kernel, "f32"), wrap(plain, "f32"),
+                    wrap(kernel, "f64"), a("f32"), a("f64"))
+
+        f32_kernel_row(
+            rows, "nn_ut_b_f32",
+            calls(nk.nn_ut_b, nk.nn_ut_b_plain, ("block",)),
+            pair_in + M * (2 * U + W) * 4,
+            pairs * (2 * n_t * n_t + 3 * n_t + 4 * (p.twojmax + 1)
+                     + 4 * EXP_OPS + 20)
+            + M * (2 * tb.lgc_val.numel() + 12 * len(tb.bt_c)),
+            shape, tag, turns)
+        f32_kernel_row(
+            rows, "nn_dedu_vg_f32",
+            calls(nk.nn_dedu_vg, nk.nn_dedu_vg_plain, ("dEdB", "z")),
+            M * (W + 2 * nzr + n_t * n_t) * 4,
+            M * (5 * len(tb.yu_fac) + 2 * tb.lgr_val.numel()),
+            shape, tag, turns)
+        f32_kernel_row(
+            rows, "nn_pair_force_f32",
+            calls(nk.nn_pair_force, nk.nn_pair_force_plain, ("vg", "block")),
+            pair_in + M * n_t * n_t * 4 + M * K * 3 * 4,
+            pairs * (8 * n_t * n_t + 600), shape, tag, turns)
+        g32, g64 = ins["f32"]["g"], ins["f64"]["g"]
+        mask = ins["f32"]["mask"]
+        if pick is np.argmin:
+            # seeded pair gradients on the live slots: the trained model's
+            # forces on the bucket's symmetric cells cancel to rounding
+            seeded = torch.as_tensor(np.random.default_rng(0).normal(
+                size=tuple(g64.shape)), device=g64.device) \
+                * mask[..., None].to(g64.dtype)
+            g32, g64 = seeded.to(torch.float32), seeded
+        dest = (torch.arange(N, device=g32.device)[:, None, None] * A
+                + ins["f32"]["jidx"].long())[mask]
+        scat = torch.zeros((N * A, 3), dtype=g32.dtype, device=g32.device)
+        f32_kernel_row(
+            rows, "nn_pair_gather_f32",
+            (lambda g, r: [nk.nn_pair_gather(g, r)],
+             lambda g, r: [nk.nn_pair_gather_plain(g, r)],
+             lambda g, r: [nk.nn_pair_gather(g, r)],
+             (g32, rev), (g64, ins["f64"]["rev"])),
+            N * A * K * 3 * 4 + rev.numel() * 4 + N * A * 3 * 4,
+            N * A * 3 * (K + rev.shape[2]), shape, tag, turns,
+            library=rotating(lambda d, gr: scat.index_add_(0, d, gr),
+                             (dest, g32[mask])))
+        f32_kernel_row(
+            rows, "nn_pair_force_t_f32",
+            calls(nk.nn_pair_force_t, nk.nn_pair_force_t_plain,
+                  ("gF", "jidx", "block")),
+            M * 3 * 4 + M * K * 4 + pair_in + M * n_t * n_t * 4,
+            pairs * (4 * n_t * n_t + 600), shape, tag, turns)
+        f32_kernel_row(
+            rows, "nn_dedu_vg_t_f32",
+            calls(nk.nn_dedu_vg_t, nk.nn_dedu_vg_t_plain, ("vgc", "z")),
+            M * (n_t * n_t + 2 * nzr + W) * 4,
+            M * (2 * tb.lgc_val.numel() + 5 * len(tb.yu_fac)),
+            shape, tag, turns)
+        kernel_turns(turns)
+    return rows
+
+
+def epoch_turns(pairs):
+    """One profiled epoch of each (tag, FitSnap) of `pairs` (float64, then
+    float32) in turns: {tag: device ms of the epoch}.  Wall seconds an
+    epoch are the fits' own (`nn seconds per epoch`)."""
+    out = {}
+    for tag, fs in pairs:
+        net = fs.solver.net
+        epochs, net.num_epochs = net.num_epochs, 1
+        try:
+            kernels = profile_kernels(fs.solver.perform_fit)
+        finally:
+            net.num_epochs = epochs
+        out[tag] = sum(kernels.values()) if kernels else None
+    print("nn epochs in turns (device ms): " + json.dumps(out), flush=True)
+    return out
+
+
+def nn_f32_phase(tmp, keep):
+    """Phase 23: the cached and OTF fits of phases 13 and 14 at float32
+    (`--dtype float32`), each against its float64 fit in `keep` ({mode:
+    (FitSnap, checks)}); the six float32 kernels against their plain
+    versions, timed beside their float64 instances in one trace; an epoch
+    of each mode at each type in turns.  Returns (kernel rows, {path: (counts, times,
+    checks)})."""
+    import torch
+
+    t_phase = time.time()
+    paths, fits = {}, {}
+    for mode in ("cached", "otf"):
+        fs64, checks64 = keep[mode]
+        fs, counts, times, checks = nn_path(tmp, "cuda", mode, "float32")
+        sol, sol64 = fs.solver, fs64.solver
+        floats = sorted({f"{k}: {v.dtype}" for b in sol.buckets
+                         for k, v in b.items() if torch.is_tensor(v)
+                         and v.is_floating_point()
+                         and v.dtype != torch.float32})
+        kept = [sol.mean, sol.std] + list(sol.model.parameters())
+        if floats or any(t.dtype != torch.float32 for t in kept):
+            raise AssertionError(f"the float32 {mode} fit keeps other floats: "
+                                 f"{floats}")
+        h32 = np.array(checks["history"])[:, 1]
+        h64 = np.array(checks64["history"])[:, 1]
+        gap = float(np.max(np.abs(h32 - h64) / np.abs(h64)))
+        model_err = f32_model_check(sol, sol64)
+        by_type = {"float32": bucket_bytes(sol),
+                   "float64": bucket_bytes(sol64)}
+        print(f"nn {mode} float32: buckets' bytes by type "
+              f"{json.dumps(by_type)}; train loss vs the float64 fit's, "
+              f"largest relative gap {gap:.3e} (limit {LOSS_RTOL32}); the "
+              f"model vs the float64 path at its parameters widened "
+              f"{model_err:.3e} (limit {MODEL_RTOL32})", flush=True)
+        if not (gap <= LOSS_RTOL32 and model_err <= MODEL_RTOL32):
+            raise AssertionError(f"the float32 {mode} fit is off its float64 "
+                                 f"fit: loss {gap:.3e}, model {model_err:.3e}")
+        checks.update(loss_gap_f64=gap, model_rel_err_f64=model_err,
+                      bucket_bytes=by_type)
+        paths[NN_F32_PATH[mode]] = (counts, times, checks)
+        fits[mode] = fs
+    rows = nn_f32_kernel_rows(fits["cached"].solver, keep["cached"][0].solver)
+    for mode in ("cached", "otf"):
+        paths[NN_F32_PATH[mode]][2]["epoch_turns"] = epoch_turns(
+            [(f"{mode} float64", keep[mode][0]),
+             (f"{mode} float32", fits[mode])])
+    print(f"phase 23 (float32 NN fits): {time.time() - t_phase:.1f} s",
+          flush=True)
+    return rows, paths
 
 
 # ---------------------------------------------------------------------------
@@ -5172,7 +5533,8 @@ def main():
             paths["nn_fitsnap"] = (counts, times, checks)
             del fs
             torch.cuda.empty_cache()
-            # the NN fit in the cached mode on the same set
+            # the NN fit in the cached mode on the same set (kept for
+            # phase 23)
             fs, counts, times, checks = nn_path(tmp, "cuda", "cached")
             rows, grad = nn_cached_kernel_checks(fs)
             kernels += rows
@@ -5180,10 +5542,10 @@ def main():
                           **fd_check(fs, nn_cached_eval, "nn cached"))
             checks.update(nn_epoch_profile(fs, times["epoch_mean_rest"]))
             paths["nn_cached_fitsnap"] = (counts, times, checks)
-            del fs
-            torch.cuda.empty_cache()
-            # the NN fit in the OTF mode: linear SNAP and quadraticflag on
-            # the same set, chemflag on the InP-shaped set of phase 9
+            nn_keep = {"cached": (fs, checks)}
+            # the NN fit in the OTF mode: linear SNAP (kept for phase 23)
+            # and quadraticflag on the same set, chemflag on the
+            # InP-shaped set of phase 9
             for mode in ("otf", "otf_quadratic", "otf_chem"):
                 fs, counts, times, checks = nn_path(tmp, "cuda", mode)
                 groups = (("Displaced_ZB64", "Antisite_ZB64")
@@ -5193,6 +5555,13 @@ def main():
                     fs, nn_otf_eval, f"nn {mode}", groups))
                 checks.update(nn_epoch_profile(fs, times["epoch_mean_rest"]))
                 paths[NN_PATH[mode]] = (counts, times, checks)
+                if mode == "otf":
+                    # phase 23: the float32 cached and OTF fits
+                    nn_keep["otf"] = (fs, checks)
+                    rows, more = nn_f32_phase(tmp, nn_keep)
+                    kernels += rows
+                    paths.update(more)
+                    del nn_keep
                 del fs
                 torch.cuda.empty_cache()
             # nonlinear ACE (Ta_PACE) on the ACE set: precompute, then OTF

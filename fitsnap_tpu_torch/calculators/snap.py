@@ -17,6 +17,7 @@ Row semantics (`calculators/lammps_snap.py:391-556` of the reference):
   b           = truth - reference potential value
 """
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -47,22 +48,25 @@ NN_PROGRAMS = 4   # shape buckets the NN solver coalesces a data set into
 
 
 def coalesce_shape_buckets(buckets):
-    """Merge (a_pad, k_pad) shape buckets into <= NN_PROGRAMS covering
-    shapes, greedily picking the merge that adds the least padded work
+    """Merge (a_pad, k_pad) shape buckets into at most
+    FITSNAP_TPU_NN_PROGRAMS (default NN_PROGRAMS, 4) covering shapes,
+    greedily picking the merge that adds the least padded work
     (n * a_pad * k_pad proxy).
 
-    The JAX package's function (`calculators/snap.py:47`) with its default
-    cap of 4 as a constant: the buckets decide which configs share an NN
-    minibatch, so the two packages must form the same index lists.
+    The JAX package's function (`calculators/snap.py:47`) with its
+    default cap, read as there: the buckets decide which configs share an
+    NN minibatch, so the two packages must form the same index lists.
     Returns the same {(a_pad, k_pad): [config indices]} mapping.
     """
+    max_programs = int(os.environ.get("FITSNAP_TPU_NN_PROGRAMS",
+                                      str(NN_PROGRAMS)))
     items = [{"a": a, "k": k, "idxs": list(v)}
              for (a, k), v in sorted(buckets.items())]
 
     def cost(it, a=None, k=None):
         return len(it["idxs"]) * (a or it["a"]) * (k or it["k"])
 
-    while len(items) > NN_PROGRAMS:
+    while len(items) > max_programs:
         best = None
         for i, s in enumerate(items):
             for j, d in enumerate(items):
@@ -204,6 +208,9 @@ def nn_kit(params):
           never stored);
       force(vg (C*A, n_t, n_t), disp, pair, types) -> dE/ddisp (C, A, K,
           3): K11.
+
+    Each role computes at its float inputs' type, float64 or float32, on
+    the plan at that type (`SnapParams.cast`).
     """
     def pair(disp, jidx, mask, types):
         return pair_masks(params, disp, jidx, mask, types)
@@ -216,17 +223,18 @@ def nn_kit(params):
     def utb(disp, jidx, mask, types, natoms):
         C, A, _ = mask.shape
         ut, B = nk.nn_ut_b(*flat(disp, pair(disp, jidx, mask, types), types),
-                           params)
+                           params.cast(disp.dtype))
         real = (torch.arange(A, device=disp.device)[None, :]
                 < natoms[:, None]).to(B.dtype)
         return ut.reshape(C, A, -1), B.reshape(C, A, -1) * real[..., None]
 
     def dEdu_vg(dEdB, ut):
-        return nk.nn_dedu_vg(dEdB, *sk.zlist(ut, params), params)
+        p = params.cast(dEdB.dtype)
+        return nk.nn_dedu_vg(dEdB, *sk.zlist(ut, p), p)
 
     def force(vg, disp, pair_, types):
         return nk.nn_pair_force(vg, *flat(disp, pair_, types),
-                                params).reshape(disp.shape)
+                                params.cast(vg.dtype)).reshape(disp.shape)
 
     return {"utb": utb, "dEdu_vg": dEdu_vg, "pair": pair, "force": force}
 
@@ -235,8 +243,9 @@ def nn_desc(params, disp, jidx, mask, types, natoms):
     """Per-atom descriptors B (C, A, W) of a batch, zero on padded atoms:
     JAX `SnapCalculator.nn_desc_fn` on the pair grid (K9's B, over the
     element channels under chemflag, with the quadratic columns appended
-    under quadraticflag)."""
+    under quadraticflag), at disp's type (the plan at that type)."""
     C, A, K = mask.shape
+    params = params.cast(disp.dtype)
     jelem, smask = pair_masks(params, disp, jidx, mask, types)
     _, B = nk.nn_ut_b(disp.reshape(C * A, K, 3), jelem.reshape(C * A, K),
                       smask.reshape(C * A, K), types.reshape(C * A), params)

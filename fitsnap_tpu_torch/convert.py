@@ -66,13 +66,14 @@ def coeffs_from_numpy(coeffs, device="cpu") -> torch.Tensor:
                            device=torch.device(device))
 
 
-def mlp_params_from_numpy(params, device="cpu"):
+def mlp_params_from_numpy(params, device="cpu", dtype=torch.float64):
     """MLP parameters [(W (nelem, nin, nout), b (nelem, nout)), ...] given
     as numpy arrays (a JAX MLP's, `[(np.asarray(w), np.asarray(b)) ...]`)
-    as float64 tensors on `device`, the port's layout."""
+    as `dtype` tensors on `device` (each value rounded once from its
+    float64 value), the port's layout."""
     dev = torch.device(device)
-    return [(torch.as_tensor(np.asarray(w, np.float64), device=dev),
-             torch.as_tensor(np.asarray(b, np.float64), device=dev))
+    return [tuple(torch.as_tensor(np.asarray(x, np.float64), device=dev)
+                  .to(dtype) for x in (w, b))
             for w, b in params]
 
 

@@ -23,10 +23,13 @@ then equal the group's size; N > 1 without a group raises.
 import random
 import time
 
+import torch
+
 from fitsnap_tpu_torch.config import Config
 from fitsnap_tpu_torch.utils.torchsetup import (from_rank_zero, make_group,
                                                 rank_zero_first, save,
-                                                setup_precision, writer)
+                                                setup_precision, working_type,
+                                                writer)
 
 _LATER = '{} {} is not ported to fitsnap_tpu_torch yet (ROADMAP.md: "{}")'
 
@@ -60,6 +63,7 @@ def _calculator_factory(config, device):
                                             "Modules to port"))
 
 
+_NN_SOLVERS = ("PYTORCH", "NETWORK", "JAX")
 # the host solvers, numpy (and scipy or sklearn inside their methods)
 _HOST_SOLVERS = {
     "SVD": "svd:SVD",
@@ -72,6 +76,24 @@ _HOST_SOLVERS = {
     "OPT": "linear:OPT",
     "MERR": "merr:MERR",
 }
+
+
+def refuse_float32(config):
+    """`--dtype float32` where the fit takes float32, else raise before
+    anything is built: a linear solver names the two paths that take
+    float32, the NN solver the ROADMAP.md queue item of its mode
+    (`solvers/network.refuse_float32`)."""
+    if working_type(config.args) != torch.float32:
+        return
+    name = config.sections["SOLVER"].solver.upper()
+    if name in _NN_SOLVERS:
+        from fitsnap_tpu_torch.solvers.network import refuse_float32 as nn
+        return nn(config)
+    raise TypeError(
+        f"--dtype float32: solver {name} fits at float64.  float32 takes "
+        "the NN solver's cached and OTF modes of linear SNAP networks "
+        "(solver PYTORCH) and the streamed fit through its packers "
+        "(parallel/fit.py pack_batch_pos(..., np.float32))")
 
 
 def _solver_factory(config, device):
@@ -87,7 +109,7 @@ def _solver_factory(config, device):
     if name in ("TPUSVD", "SCALAPACK"):
         from fitsnap_tpu_torch.solvers.tpu_svd import TpuSVD
         return TpuSVD(name, config, device)
-    if name in ("PYTORCH", "NETWORK", "JAX"):
+    if name in _NN_SOLVERS:
         from fitsnap_tpu_torch.solvers.network import NetworkSolver
         return NetworkSolver(name, config, device)
     raise NotImplementedError(f"solver {name}")
@@ -130,6 +152,7 @@ class FitSnap:
     def __init__(self, input=None, arglist=None, device=None):
         setup_precision()
         self.config = Config(input, arglist or [])
+        refuse_float32(self.config)
         self.group = make_group(
             device if device is not None else self.config.args.device)
         check_devices(self.config.args.devices, self.group.size)

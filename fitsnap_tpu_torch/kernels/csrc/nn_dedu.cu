@@ -57,6 +57,13 @@
 // slower with its larger block), Lg read from L2 (faster at 4 x 128 x 64,
 // slower at 4 x 8 x 64), vg gathered in shared memory and stored coalesced
 // (slower).
+//
+// Float32 (the `_f32` entry points, the NN solver's float32 cached and OTF
+// modes): both kernels are templates on the working type T, with the same
+// schedules, staging and order of sums at T: z from K2's float32 output,
+// the y factors and Lg from the float32 plan (each rounded once from
+// float64), every sum float32.  The staged shape's shared memory halves,
+// so it reaches further up in twojmax.
 #include "common.cuh"
 
 namespace {
@@ -78,96 +85,99 @@ constexpr int NARROW_BLOCKS = 3;
 
 // The compact z entries of atom a (zra, zia its rows), K10's and K10T's
 // gathers: ZR indices a round, loaded before their copies.
-__device__ __forceinline__ void stage_z(const double* __restrict__ zra,
-                                        const double* __restrict__ zia,
+template <typename T>
+__device__ __forceinline__ void stage_z(const T* __restrict__ zra,
+                                        const T* __restrict__ zia,
                                         int nzr,
                                         const int* __restrict__ yz_src,
-                                        double* zc) {
-  const int T = blockDim.x;
-  for (int i0 = threadIdx.x; i0 < nzr; i0 += ZR * T) {
+                                        T* zc) {
+  const int nth = blockDim.x;
+  for (int i0 = threadIdx.x; i0 < nzr; i0 += ZR * nth) {
     int src[ZR];
 #pragma unroll
     for (int r = 0; r < ZR; ++r)
-      src[r] = i0 + r * T < nzr ? yz_src[i0 + r * T] : -1;
+      src[r] = i0 + r * nth < nzr ? yz_src[i0 + r * nth] : -1;
 #pragma unroll
     for (int r = 0; r < ZR; ++r) {
       if (src[r] < 0) continue;
-      fs_cp_async8(zc + i0 + r * T, zra + src[r]);
-      fs_cp_async8(zc + nzr + i0 + r * T, zia + src[r]);
+      fs_cp_async_elem(zc + i0 + r * nth, zra + src[r]);
+      fs_cp_async_elem(zc + nzr + i0 + r * nth, zia + src[r]);
     }
   }
 }
 
-// Shared doubles of K10's block: dE/dB, du, the slots' partial sums (real
-// and imaginary) and, in the staged shape, the referenced z entries and
-// the Lg row table (nlg values and, as ints, nlg columns, nlr + 1 row
-// starts and the nlr rows).
+// Shared values (at the working type) of K10's block: dE/dB, du, the
+// slots' partial sums (real and imaginary) and, in the staged shape, the
+// referenced z entries and the Lg row table (nlg values and, as ints, nlg
+// columns, nlr + 1 row starts and the nlr rows; `ipv` ints a value).
 __host__ __device__ inline size_t k10_doubles(int W, int two_u, int stride,
                                               int nzr, int nlg, int nlr,
-                                              bool staged) {
+                                              bool staged, int ipv = 2) {
   const size_t base = static_cast<size_t>(W) + two_u + 2 * stride;
-  return staged ? base + 2 * nzr + nlg + (nlg + 2 * nlr + 2) / 2 : base;
+  return staged ? base + 2 * nzr + nlg + (nlg + 2 * nlr + ipv) / ipv : base;
 }
 
-template <bool STAGED, int MAXT, int MINB>
+template <typename T, bool STAGED, int MAXT, int MINB>
 __global__ void __launch_bounds__(MAXT, MINB) nn_dedu_vg_kernel(
-    const double* __restrict__ dedb, const double* __restrict__ zr,
-    const double* __restrict__ zi, int W, int nz, int two_u, int nt2,
+    const T* __restrict__ dedb, const T* __restrict__ zr,
+    const T* __restrict__ zi, int W, int nz, int two_u, int nt2,
     int nlr, int nlg, const int* __restrict__ lgr_row,
     const int* __restrict__ lgr_ptr, const int* __restrict__ lgr_col,
-    const double* __restrict__ lgr_val, int nzr,
+    const T* __restrict__ lgr_val, int nzr,
     const int* __restrict__ yz_src, int per, int stride, int key_bits,
-    const int* __restrict__ yc_key, const double* __restrict__ yc_fac,
-    const int* __restrict__ yc_seg, double* __restrict__ vg) {
-  extern __shared__ double sm[];
-  const int T = blockDim.x, tid = threadIdx.x;
+    const int* __restrict__ yc_key, const T* __restrict__ yc_fac,
+    const int* __restrict__ yc_seg, T* __restrict__ vg) {
+  extern __shared__ __align__(16) unsigned char smem_k10[];
+  T* sm = reinterpret_cast<T*>(smem_k10);
+  const int nth = blockDim.x, tid = threadIdx.x;
   const int U = two_u / 2;
-  double* sd = sm;                   // [W] this atom's dE/dB
-  double* du = sd + W;               // [2U] dE/dutot
-  double* part = du + two_u;         // [2][stride] the slots' partial sums
-  double* zc = part + 2 * stride;    // staged: [2][nzr] z entries
-  double* lv = zc + 2 * nzr;         // staged: [nlg] Lg by row
+  T* sd = sm;                        // [W] this atom's dE/dB
+  T* du = sd + W;                    // [2U] dE/dutot
+  T* part = du + two_u;              // [2][stride] the slots' partial sums
+  T* zc = part + 2 * stride;         // staged: [2][nzr] z entries
+  T* lv = zc + 2 * nzr;              // staged: [nlg] Lg by row
   int* lc = reinterpret_cast<int*>(lv + nlg);    // staged: [nlg]
   int* lp = lc + nlg;                            // staged: [nlr + 1]
   int* lr = lp + nlr + 1;                        // staged: [nlr]
   const long long a = blockIdx.x;
-  const double* zra = zr + a * nz;
-  const double* zia = zi + a * nz;
+  const T* zra = zr + a * nz;
+  const T* zia = zi + a * nz;
 
   // this thread's first K10_REGS y entries and its column's segments, then
   // the copies: the atom's dE/dB and (staged) its referenced z entries and
   // the Lg rows, all in flight at once; vg zeroed meanwhile (most of its
   // rows are: Lg's empty ones)
   int key[K10_REGS];
-  double fac[K10_REGS];
+  T fac[K10_REGS];
 #pragma unroll
   for (int j = 0; j < K10_REGS; ++j) {
     key[j] = j < per ? yc_key[j * stride + tid] : 0;
-    fac[j] = j < per ? yc_fac[j * stride + tid] : 0.0;
+    fac[j] = j < per ? yc_fac[j * stride + tid] : T(0);
   }
   const int s0 = tid < U ? yc_seg[tid] : 0;
   const int s1 = tid < U ? yc_seg[tid + 1] : 0;
-  for (int i = tid; i < W; i += T) fs_cp_async8(sd + i, dedb + a * W + i);
+  for (int i = tid; i < W; i += nth)
+    fs_cp_async_elem(sd + i, dedb + a * W + i);
   if (STAGED) {
-    for (int i = tid; i < nlg; i += T) {
-      fs_cp_async8(lv + i, lgr_val + i);
+    for (int i = tid; i < nlg; i += nth) {
+      fs_cp_async_elem(lv + i, lgr_val + i);
       fs_cp_async4(lc + i, lgr_col + i);
     }
-    for (int i = tid; i <= nlr; i += T) {
+    for (int i = tid; i <= nlr; i += nth) {
       fs_cp_async4(lp + i, lgr_ptr + i);
       if (i < nlr) fs_cp_async4(lr + i, lgr_row + i);
     }
     stage_z(zra, zia, nzr, yz_src, zc);
   }
-  for (int de = tid; de < nt2; de += T) vg[a * nt2 + de] = 0.0;
+  for (int de = tid; de < nt2; de += nth) vg[a * nt2 + de] = T(0);
   fs_cp_async_wait_all();
   __syncthreads();
 
   // the y entries: slot s sums its segment's `per` entries (zero factors
   // past its end) in order, real and imaginary parts apart
   const int mask = (1 << key_bits) - 1;
-  auto entry = [&](int kk, double f, double& r, double& im) {
-    const double w = sd[kk & mask] * f;
+  auto entry = [&](int kk, T f, T& r, T& im) {
+    const T w = sd[kk & mask] * f;
     const int z = kk >> key_bits;
     if (STAGED) {
       r += w * zc[z];
@@ -178,8 +188,8 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_dedu_vg_kernel(
       im += w * zia[src];
     }
   };
-  for (int sl = tid; sl < stride; sl += T) {
-    double r = 0.0, im = 0.0;
+  for (int sl = tid; sl < stride; sl += nth) {
+    T r = T(0), im = T(0);
     if (sl == tid) {
 #pragma unroll
       for (int j = 0; j < K10_REGS; ++j) entry(key[j], fac[j], r, im);
@@ -195,10 +205,10 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_dedu_vg_kernel(
   __syncthreads();
 
   // a U column: its segments' sums in order
-  for (int u = tid; u < U; u += T) {
+  for (int u = tid; u < U; u += nth) {
     const int q0 = u == tid ? s0 : yc_seg[u];
     const int q1 = u == tid ? s1 : yc_seg[u + 1];
-    double r = 0.0, im = 0.0;
+    T r = T(0), im = T(0);
     for (int q = q0; q < q1; ++q) {
       r += part[q];
       im += part[stride + q];
@@ -213,67 +223,71 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_dedu_vg_kernel(
   const int* rr = STAGED ? lr : lgr_row;
   const int* rp = STAGED ? lp : lgr_ptr;
   const int* rc = STAGED ? lc : lgr_col;
-  const double* rv = STAGED ? lv : lgr_val;
-  for (int r = tid; r < nlr; r += T) {
-    double acc = 0.0;
+  const T* rv = STAGED ? lv : lgr_val;
+  for (int r = tid; r < nlr; r += nth) {
+    T acc = T(0);
     for (int q = rp[r]; q < rp[r + 1]; ++q) acc += du[rc[q]] * rv[q];
     vg[a * nt2 + rr[r]] = acc;
   }
 }
 
-// K10T.  Shared doubles of K10T's block: the atom's vgc, du and the threads'
-// partial sums and, in the staged shape, its referenced z entries and the
-// Lg table (nlg values and, as ints, nlg rows and 2U + 1 column starts).
+// K10T.  Shared values (at the working type) of K10T's block: the atom's
+// vgc, du and the threads' partial sums and, in the staged shape, its
+// referenced z entries and the Lg table (nlg values and, as ints, nlg rows
+// and 2U + 1 column starts; `ipv` ints a value).
 __host__ __device__ inline size_t k10t_doubles(int nt2, int two_u,
                                                int threads, int nzr, int nlg,
-                                               bool staged) {
+                                               bool staged, int ipv = 2) {
   const size_t base = static_cast<size_t>(nt2) + two_u + threads;
-  return staged ? base + 2 * nzr + nlg + (nlg + two_u + 2) / 2 : base;
+  return staged ? base + 2 * nzr + nlg + (nlg + two_u + ipv) / ipv : base;
 }
 
-template <bool STAGED, int MAXT, int MINB>
+template <typename T, bool STAGED, int MAXT, int MINB>
 __global__ void __launch_bounds__(MAXT, MINB) nn_dedu_vg_t_kernel(
-    const double* __restrict__ vgc, const double* __restrict__ zr,
-    const double* __restrict__ zi, int W, int nz, int two_u, int nlg,
+    const T* __restrict__ vgc, const T* __restrict__ zr,
+    const T* __restrict__ zi, int W, int nz, int two_u, int nlg,
     const int* __restrict__ lgc_ptr, const int* __restrict__ lgc_row,
-    const double* __restrict__ lgc_val, int nt2, int nzr,
+    const T* __restrict__ lgc_val, int nt2, int nzr,
     const int* __restrict__ yz_src, int per, int key_bits,
     const int* __restrict__ ys_key,
-    const double* __restrict__ ys_fac, const int* __restrict__ ys_seg,
-    double* __restrict__ out) {
-  extern __shared__ double sm[];
-  const int T = blockDim.x, tid = threadIdx.x;
+    const T* __restrict__ ys_fac, const int* __restrict__ ys_seg,
+    T* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_k10t[];
+  T* sm = reinterpret_cast<T*>(smem_k10t);
+  const int nth = blockDim.x, tid = threadIdx.x;
   const int U = two_u / 2;
-  double* sv = sm;                   // [nt2] the grid cotangent
-  double* du = sv + nt2;             // [2U] its image on utot
-  double* part = du + two_u;         // [T] the threads' partial sums
-  double* zc = part + T;             // staged: [2][nzr] z entries
-  double* lv = zc + 2 * nzr;         // staged: [nlg] Lg by column
+  T* sv = sm;                        // [nt2] the grid cotangent
+  T* du = sv + nt2;                  // [2U] its image on utot
+  T* part = du + two_u;              // [threads] the threads' partial sums
+  T* zc = part + nth;                // staged: [2][nzr] z entries
+  T* lv = zc + 2 * nzr;              // staged: [nlg] Lg by column
   int* lr = reinterpret_cast<int*>(lv + nlg);    // staged: [nlg]
   int* lp = lr + nlg;                            // staged: [2U + 1]
   const long long a = blockIdx.x;
-  const double* zra = zr + a * nz;
-  const double* zia = zi + a * nz;
+  const T* zra = zr + a * nz;
+  const T* zia = zi + a * nz;
 
   // this thread's first K10T_REGS y entries and its descriptor's segments,
   // then the copies: the atom's vgc and (staged) its referenced z entries
   // and Lg, all in flight at once
   int key[K10T_REGS];
-  double fac[K10T_REGS];
+  T fac[K10T_REGS];
 #pragma unroll
   for (int j = 0; j < K10T_REGS; ++j) {
-    key[j] = j < per ? ys_key[j * T + tid] : 0;
-    fac[j] = j < per ? ys_fac[j * T + tid] : 0.0;
+    key[j] = j < per ? ys_key[j * nth + tid] : 0;
+    fac[j] = j < per ? ys_fac[j * nth + tid] : T(0);
   }
   const int s0 = tid < W ? ys_seg[tid] : 0;
   const int s1 = tid < W ? ys_seg[tid + 1] : 0;
-  for (int i = tid; i < nt2; i += T) fs_cp_async8(sv + i, vgc + a * nt2 + i);
+  for (int i = tid; i < nt2; i += nth)
+    fs_cp_async_elem(sv + i, vgc + a * nt2 + i);
   if (STAGED) {
-    for (int i = tid; i < nlg; i += T) {
-      fs_cp_async8(lv + i, lgc_val + i);
+    for (int i = tid; i < nlg; i += nth) {
+      fs_cp_async_elem(lv + i, lgc_val + i);
       fs_cp_async4(lr + i, lgc_row + i);
     }
-    for (int i = tid; i <= two_u; i += T) fs_cp_async4(lp + i, lgc_ptr + i);
+    for (int i = tid; i <= two_u; i += nth)
+      fs_cp_async4(lp + i, lgc_ptr + i);
     stage_z(zra, zia, nzr, yz_src, zc);
   }
   fs_cp_async_wait_all();
@@ -282,9 +296,9 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_dedu_vg_t_kernel(
   // du = vgc . Lg, a thread a column
   const int* cp = STAGED ? lp : lgc_ptr;
   const int* cr = STAGED ? lr : lgc_row;
-  const double* cv = STAGED ? lv : lgc_val;
-  for (int u = tid; u < two_u; u += T) {
-    double acc = 0.0;
+  const T* cv = STAGED ? lv : lgc_val;
+  for (int u = tid; u < two_u; u += nth) {
+    T acc = T(0);
     for (int q = cp[u]; q < cp[u + 1]; ++q) acc += sv[cr[q]] * cv[q];
     du[u] = acc;
   }
@@ -292,10 +306,10 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_dedu_vg_t_kernel(
 
   // the y entries: thread i sums its segment's `per` entries (zero factors
   // past its end) in order
-  auto entry = [&](int kk, double f) {
+  auto entry = [&](int kk, T f) {
     const int u = kk & ((1 << key_bits) - 1);
     const int z = kk >> key_bits;
-    double r, im;
+    T r, im;
     if (STAGED) {
       r = zc[z];
       im = zc[nzr + z];
@@ -306,20 +320,90 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_dedu_vg_t_kernel(
     }
     return f * (r * du[u] + im * du[U + u]);
   };
-  double acc = 0.0;
+  T acc = T(0);
 #pragma unroll
   for (int j = 0; j < K10T_REGS; ++j) acc += entry(key[j], fac[j]);
   for (int j = K10T_REGS; j < per; ++j)
-    acc += entry(ys_key[j * T + tid], ys_fac[j * T + tid]);
+    acc += entry(ys_key[j * nth + tid], ys_fac[j * nth + tid]);
   part[tid] = acc;
   __syncthreads();
 
   // a descriptor: its segments' sums in order
   if (tid < W) {
-    double s = 0.0;
+    T s = T(0);
     for (int q = s0; q < s1; ++q) s += part[q];
     out[a * W + tid] = s;
   }
+}
+
+template <typename T>
+int nn_dedu_vg_launch(const T* dedb, const T* zr, const T* zi,
+                      long long natoms, int W, int nz, int two_u, int nt2,
+                      int nlr, int nlg, const int* lgr_row,
+                      const int* lgr_ptr, const int* lgr_col,
+                      const T* lgr_val, int nzr, const int* yz_src,
+                      int threads, int per, int stride, int key_bits,
+                      const int* yc_key, const T* yc_fac, const int* yc_seg,
+                      T* vg, void* stream) {
+  if (threads % 32 != 0 || threads > 1024 || stride < threads
+      || key_bits < 1 || key_bits > 30 || W > 1 << key_bits)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the staged shape while the atom's z entries and Lg fit a block, else
+  // both read from L2
+  const int ipv = sizeof(T) / sizeof(int);
+  const bool staged = k10_doubles(W, two_u, stride, nzr, nlg, nlr, true, ipv)
+                      * sizeof(T) <= FS_SMEM_LIMIT;
+  const size_t smem = sizeof(T) * k10_doubles(W, two_u, stride, nzr, nlg,
+                                              nlr, staged, ipv);
+  const auto kernel =
+      !staged ? nn_dedu_vg_kernel<T, false, 1024, 1>
+      : threads <= NARROW_THREADS
+          ? nn_dedu_vg_kernel<T, true, NARROW_THREADS, NARROW_BLOCKS>
+          : nn_dedu_vg_kernel<T, true, 1024, 1>;
+  const int err = fs_allow_smem(kernel, smem);
+  if (err) return err;
+  if (natoms > 0) {
+    kernel<<<static_cast<unsigned>(natoms), threads, smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        dedb, zr, zi, W, nz, two_u, nt2, nlr, nlg, lgr_row, lgr_ptr, lgr_col,
+        lgr_val, nzr, yz_src, per, stride, key_bits, yc_key, yc_fac, yc_seg,
+        vg);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int nn_dedu_vg_t_launch(const T* vgc, const T* zr, const T* zi,
+                        long long natoms, int W, int nz, int two_u, int nlg,
+                        const int* lgc_ptr, const int* lgc_row,
+                        const T* lgc_val, int nt2, int nzr,
+                        const int* yz_src, int threads, int per,
+                        int key_bits, const int* ys_key, const T* ys_fac,
+                        const int* ys_seg, T* out, void* stream) {
+  if (threads % 32 != 0 || threads > 1024 || threads < W
+      || key_bits < 1 || key_bits > 30 || two_u / 2 > 1 << key_bits)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the staged shape while the atom's z entries and Lg fit a block, else
+  // both read from L2
+  const int ipv = sizeof(T) / sizeof(int);
+  const bool staged = k10t_doubles(nt2, two_u, threads, nzr, nlg, true, ipv)
+                      * sizeof(T) <= FS_SMEM_LIMIT;
+  const size_t smem = sizeof(T) * k10t_doubles(nt2, two_u, threads, nzr, nlg,
+                                               staged, ipv);
+  const auto kernel =
+      !staged ? nn_dedu_vg_t_kernel<T, false, 1024, 1>
+      : threads <= NARROW_THREADS
+          ? nn_dedu_vg_t_kernel<T, true, NARROW_THREADS, NARROW_BLOCKS>
+          : nn_dedu_vg_t_kernel<T, true, 1024, 1>;
+  const int err = fs_allow_smem(kernel, smem);
+  if (err) return err;
+  if (natoms > 0) {
+    kernel<<<static_cast<unsigned>(natoms), threads, smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        vgc, zr, zi, W, nz, two_u, nlg, lgc_ptr, lgc_row, lgc_val, nt2, nzr,
+        yz_src, per, key_bits, ys_key, ys_fac, ys_seg, out);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -340,30 +424,27 @@ extern "C" int nn_dedu_vg(const double* dedb, const double* zr,
                           int stride, int key_bits, const int* yc_key,
                           const double* yc_fac, const int* yc_seg,
                           double* vg, void* stream) {
-  if (threads % 32 != 0 || threads > 1024 || stride < threads
-      || key_bits < 1 || key_bits > 30 || W > 1 << key_bits)
-    return static_cast<int>(cudaErrorInvalidValue);
-  // the staged shape while the atom's z entries and Lg fit a block, else
-  // both read from L2
-  const bool staged = k10_doubles(W, two_u, stride, nzr, nlg, nlr, true)
-                      * sizeof(double) <= FS_SMEM_LIMIT;
-  const size_t smem = sizeof(double)
-                      * k10_doubles(W, two_u, stride, nzr, nlg, nlr, staged);
-  const auto kernel =
-      !staged ? nn_dedu_vg_kernel<false, 1024, 1>
-      : threads <= NARROW_THREADS
-          ? nn_dedu_vg_kernel<true, NARROW_THREADS, NARROW_BLOCKS>
-          : nn_dedu_vg_kernel<true, 1024, 1>;
-  const int err = fs_allow_smem(kernel, smem);
-  if (err) return err;
-  if (natoms > 0) {
-    kernel<<<static_cast<unsigned>(natoms), threads, smem,
-             static_cast<cudaStream_t>(stream)>>>(
-        dedb, zr, zi, W, nz, two_u, nt2, nlr, nlg, lgr_row, lgr_ptr, lgr_col,
-        lgr_val, nzr, yz_src, per, stride, key_bits, yc_key, yc_fac, yc_seg,
-        vg);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return nn_dedu_vg_launch<double>(
+      dedb, zr, zi, natoms, W, nz, two_u, nt2, nlr, nlg, lgr_row, lgr_ptr,
+      lgr_col, lgr_val, nzr, yz_src, threads, per, stride, key_bits, yc_key,
+      yc_fac, yc_seg, vg, stream);
+}
+
+// The float32 instantiation: dedb, zr, zi, lgr_val, yc_fac and vg f32 (a
+// float32 plan's tables).
+extern "C" int nn_dedu_vg_f32(const float* dedb, const float* zr,
+                              const float* zi, long long natoms, int W,
+                              int nz, int two_u, int nt2, int nlr, int nlg,
+                              const int* lgr_row, const int* lgr_ptr,
+                              const int* lgr_col, const float* lgr_val,
+                              int nzr, const int* yz_src, int threads,
+                              int per, int stride, int key_bits,
+                              const int* yc_key, const float* yc_fac,
+                              const int* yc_seg, float* vg, void* stream) {
+  return nn_dedu_vg_launch<float>(
+      dedb, zr, zi, natoms, W, nz, two_u, nt2, nlr, nlg, lgr_row, lgr_ptr,
+      lgr_col, lgr_val, nzr, yz_src, threads, per, stride, key_bits, yc_key,
+      yc_fac, yc_seg, vg, stream);
 }
 
 // vgc (N, n_t^2) f64, zr, zi (N, nz) f64; Lg by U column (nlg entries:
@@ -380,27 +461,24 @@ extern "C" int nn_dedu_vg_t(const double* vgc, const double* zr,
                             int per, int key_bits, const int* ys_key,
                             const double* ys_fac, const int* ys_seg,
                             double* out, void* stream) {
-  if (threads % 32 != 0 || threads > 1024 || threads < W
-      || key_bits < 1 || key_bits > 30 || two_u / 2 > 1 << key_bits)
-    return static_cast<int>(cudaErrorInvalidValue);
-  // the staged shape while the atom's z entries and Lg fit a block, else
-  // both read from L2
-  const bool staged = k10t_doubles(nt2, two_u, threads, nzr, nlg, true)
-                      * sizeof(double) <= FS_SMEM_LIMIT;
-  const size_t smem = sizeof(double)
-                      * k10t_doubles(nt2, two_u, threads, nzr, nlg, staged);
-  const auto kernel =
-      !staged ? nn_dedu_vg_t_kernel<false, 1024, 1>
-      : threads <= NARROW_THREADS
-          ? nn_dedu_vg_t_kernel<true, NARROW_THREADS, NARROW_BLOCKS>
-          : nn_dedu_vg_t_kernel<true, 1024, 1>;
-  const int err = fs_allow_smem(kernel, smem);
-  if (err) return err;
-  if (natoms > 0) {
-    kernel<<<static_cast<unsigned>(natoms), threads, smem,
-             static_cast<cudaStream_t>(stream)>>>(
-        vgc, zr, zi, W, nz, two_u, nlg, lgc_ptr, lgc_row, lgc_val, nt2, nzr,
-        yz_src, per, key_bits, ys_key, ys_fac, ys_seg, out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return nn_dedu_vg_t_launch<double>(
+      vgc, zr, zi, natoms, W, nz, two_u, nlg, lgc_ptr, lgc_row, lgc_val, nt2,
+      nzr, yz_src, threads, per, key_bits, ys_key, ys_fac, ys_seg, out,
+      stream);
+}
+
+// The float32 instantiation: vgc, zr, zi, lgc_val, ys_fac and out f32.
+extern "C" int nn_dedu_vg_t_f32(const float* vgc, const float* zr,
+                                const float* zi, long long natoms, int W,
+                                int nz, int two_u, int nlg,
+                                const int* lgc_ptr, const int* lgc_row,
+                                const float* lgc_val, int nt2, int nzr,
+                                const int* yz_src, int threads, int per,
+                                int key_bits, const int* ys_key,
+                                const float* ys_fac, const int* ys_seg,
+                                float* out, void* stream) {
+  return nn_dedu_vg_t_launch<float>(
+      vgc, zr, zi, natoms, W, nz, two_u, nlg, lgc_ptr, lgc_row, lgc_val, nt2,
+      nzr, yz_src, threads, per, key_bits, ys_key, ys_fac, ys_seg, out,
+      stream);
 }

@@ -58,6 +58,13 @@
 // own row): rev with the own row, then the sources' g.  Each lane subtracts
 // its scatter sums from its own sums; the warp adds the three components
 // with an xor butterfly, a fixed tree.
+//
+// The gather at float32 (`nn_pair_gather_f32`, the NN solver's float32
+// cached and OTF modes) is the same kernel at float: where the own row is
+// 16-byte aligned (3K a multiple of 4 and g aligned) each lane reads it as
+// float4 loads, four floats a load, 128 floats a warp's pass, and adds each
+// float to its component's sum (float j of load v is component (v + j) mod
+// 3); else one float a load as at float64.  Sums float32, a fixed order.
 #include "common.cuh"
 
 namespace {
@@ -145,41 +152,56 @@ nn_fpair_kernel(const double* __restrict__ dedb, const double* __restrict__ G,
   }
 }
 
+template <typename T, bool VEC4>
 __global__ void __launch_bounds__(GATHER_WARPS * 32) nn_gather_kernel(
-    const double* __restrict__ g, const int* __restrict__ rev,
-    long long atoms, int A, int K, int R, double* __restrict__ force) {
+    const T* __restrict__ g, const int* __restrict__ rev,
+    long long atoms, int A, int K, int R, T* __restrict__ force) {
   const long long m = blockIdx.x * static_cast<long long>(GATHER_WARPS)
                       + threadIdx.x / 32;        // n * A + local atom
   if (m >= atoms) return;                        // the whole warp
   const int lane = threadIdx.x % 32;
   const int n = 3 * K;
-  const double* row = g + m * n;
+  const T* row = g + m * n;
   // the slots whose neighbor is m, flat a * K + k within m's config; the
   // first 32 are read before the own row, so that both loads are in flight
   const int* rv = rev + m * R;
   int slot = lane < R ? rv[lane] : -1;
   // own sums: row[i], i = lane + 32 j, has component (lane + 2 j) % 3, so
   // o[0], o[1], o[2] take components lane % 3, (lane + 2) % 3, (lane + 1) % 3
-  double o[3] = {0.0, 0.0, 0.0};
-  for (int i = lane; i < n; i += 96) {
-    o[0] += row[i];
-    if (i + 32 < n) o[1] += row[i + 32];
-    if (i + 64 < n) o[2] += row[i + 64];
+  // (VEC4: o[c] takes component c itself)
+  T o[3] = {T(0), T(0), T(0)};
+  if constexpr (VEC4) {
+    // float4 v holds floats 4 v .. 4 v + 3, components (v + j) % 3
+    const float4* r4 = reinterpret_cast<const float4*>(row);
+    for (int v = lane; v < n / 4; v += 32) {
+      const float4 x = r4[v];
+      const int c = v % 3;
+      const float a0 = x.x + x.w, a1 = x.y, a2 = x.z;
+      o[c] += a0;
+      o[c == 2 ? 0 : c + 1] += a1;
+      o[c == 0 ? 2 : c - 1] += a2;
+    }
+  } else {
+    for (int i = lane; i < n; i += 96) {
+      o[0] += row[i];
+      if (i + 32 < n) o[1] += row[i + 32];
+      if (i + 64 < n) o[2] += row[i + 64];
+    }
   }
-  const double* cfg = g + (m / A) * A * n;
-  double sc[3] = {0.0, 0.0, 0.0};
+  const T* cfg = g + (m / A) * A * n;
+  T sc[3] = {T(0), T(0), T(0)};
   for (int r = lane; r < R; r += 32) {
     if (r > lane) slot = rv[r];
     if (slot >= 0) {
-      const double* src = cfg + 3LL * slot;
+      const T* src = cfg + 3LL * slot;
       for (int c = 0; c < 3; ++c) sc[c] += src[c];
     }
   }
   const int c0 = lane % 3;
-  double v[3];
+  T v[3];
   for (int c = 0; c < 3; ++c) {
     // o[j] holds component (c0 + 2 j) % 3: j = 2 (c - c0) mod 3
-    const int j = (2 * (c - c0) + 6) % 3;
+    const int j = VEC4 ? c : (2 * (c - c0) + 6) % 3;
     v[c] = (j == 0 ? o[0] : j == 1 ? o[1] : o[2]) - sc[c];
   }
   for (int off = 16; off > 0; off /= 2)
@@ -241,9 +263,30 @@ extern "C" int nn_pair_gather(const double* g, const int* rev, int N, int A,
   if (atoms > 0) {
     const unsigned blocks =
         static_cast<unsigned>((atoms + GATHER_WARPS - 1) / GATHER_WARPS);
-    nn_gather_kernel<<<blocks, GATHER_WARPS * 32, 0,
-                       static_cast<cudaStream_t>(stream)>>>(g, rev, atoms, A,
-                                                            K, R, force);
+    nn_gather_kernel<double, false><<<blocks, GATHER_WARPS * 32, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
+        g, rev, atoms, A, K, R, force);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float32 instantiation: g and force f32; float4 loads of the own rows
+// where 3K is a multiple of 4 and g is 16-byte aligned.
+extern "C" int nn_pair_gather_f32(const float* g, const int* rev, int N,
+                                  int A, int K, int R, float* force,
+                                  void* stream) {
+  const long long atoms = static_cast<long long>(N) * A;
+  if (atoms > 0) {
+    const unsigned blocks =
+        static_cast<unsigned>((atoms + GATHER_WARPS - 1) / GATHER_WARPS);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if ((3 * K) % 4 == 0 && reinterpret_cast<size_t>(g) % 16 == 0) {
+      nn_gather_kernel<float, true><<<blocks, GATHER_WARPS * 32, 0, st>>>(
+          g, rev, atoms, A, K, R, force);
+    } else {
+      nn_gather_kernel<float, false><<<blocks, GATHER_WARPS * 32, 0, st>>>(
+          g, rev, atoms, A, K, R, force);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -96,6 +96,22 @@
 // then run more chunks).  Every slot is written once: masked-out, dead and
 // padded slots exactly 0.  No atomics, and every output a fixed chain of
 // tensor-core steps and sums in neighbor order: a run repeats bit for bit.
+//
+// Float32 (the `_f32` entry points, the NN solver's float32 cached and OTF
+// modes): every kernel is a template on the working type T, with the same
+// list, prologue (at T: the scalars rounded to T once, as the JAX package's
+// weakly typed Python floats are) and records.  No tensor-core type keeps
+// float32's 24-bit mantissa (TF32 keeps 11; TF32 stays off), so the
+// products run on the CUDA cores in plain float32 FMAs over the same
+// operands: K9 and K11T stage the same k-tiles (at, bk) and each thread
+// owns grid entries (d, e), accumulated over the tile's k-rows in k order
+// (K9 in its grids wg, K11T in a grid of its own in shared memory); K11
+// takes a thread a live pair, its rows X = [T1; dT1/dar; dT1/dai] over the
+// grid's first factor staged beside its record, and forms Q_r[e] = sum_d
+// X_r[d] vg[d, e] in d order (vg read as a broadcast), then the dot
+// products with T2, dT2/dbr and dT2/dbi in e order.  Sums stay float32.
+#include <type_traits>
+
 #include "atom_gemm.cuh"
 #include "common.cuh"
 #include "prologue.cuh"
@@ -138,20 +154,21 @@ constexpr int FT_STAGE = 10;
 
 // Reads a masked pair pk's staged inputs; ei is its atom's row of elem.
 // Without gF (K11) gh is 0 and jidx is not read.
+template <typename T>
 __device__ __forceinline__ void ft_load(
-    const double* __restrict__ disp, const int* __restrict__ jelem,
-    const int* __restrict__ jidx, const double* __restrict__ gF,
-    const double* __restrict__ elem, const Scalars& s, const double ei[4],
-    long long a, long long first, long long pk, double st[FT_STAGE]) {
+    const T* __restrict__ disp, const int* __restrict__ jelem,
+    const int* __restrict__ jidx, const T* __restrict__ gF,
+    const T* __restrict__ elem, const Scalars& s, const T ei[4],
+    long long a, long long first, long long pk, T st[FT_STAGE]) {
   const int je = jelem[pk];
   const long long j = gF != nullptr ? first + jidx[pk] : 0;
   for (int c = 0; c < 3; ++c) st[c] = disp[pk * 3 + c];
-  st[3] = (ei[0] + elem[je * 4]) * s.rcutfac;
+  st[3] = (ei[0] + elem[je * 4]) * static_cast<T>(s.rcutfac);
   st[4] = elem[je * 4 + 1];
-  st[5] = s.switchinnerflag ? 0.5 * (ei[2] + elem[je * 4 + 2]) : 0.0;
-  st[6] = s.switchinnerflag ? 0.5 * (ei[3] + elem[je * 4 + 3]) : 0.0;
+  st[5] = s.switchinnerflag ? T(0.5) * (ei[2] + elem[je * 4 + 2]) : T(0);
+  st[6] = s.switchinnerflag ? T(0.5) * (ei[3] + elem[je * 4 + 3]) : T(0);
   for (int c = 0; c < 3; ++c)
-    st[7 + c] = gF != nullptr ? gF[a * 3 + c] - gF[j * 3 + c] : 0.0;
+    st[7 + c] = gF != nullptr ? gF[a * 3 + c] - gF[j * 3 + c] : T(0);
 }
 
 // The masked slots of atom a in neighbor order: thread t counts slots
@@ -160,20 +177,21 @@ __device__ __forceinline__ void ft_load(
 // first slot read ahead, in the shadow of the mask's load and the scan).
 // With `g` (K11's pair gradients) an unmasked slot's output is set to 0 on
 // the way.  Returns the number of masked slots, in every thread.
-__device__ int ft_list(const double* __restrict__ disp,
+template <typename T>
+__device__ int ft_list(const T* __restrict__ disp,
                        const int* __restrict__ jelem,
                        const int* __restrict__ jidx,
-                       const double* __restrict__ gF,
+                       const T* __restrict__ gF,
                        const unsigned char* __restrict__ mask,
-                       const double* __restrict__ elem, const Scalars& s,
-                       const double ei[4], long long a, long long first,
-                       int K, int chunk, double* stage, int* list, int* ws,
-                       double* __restrict__ g) {
-  const int T = blockDim.x;
-  const int per = (K + T - 1) / T;
+                       const T* __restrict__ elem, const Scalars& s,
+                       const T ei[4], long long a, long long first,
+                       int K, int chunk, T* stage, int* list, int* ws,
+                       T* __restrict__ g) {
+  const int nth = blockDim.x;
+  const int per = (K + nth - 1) / nth;
   const int k0 = min(K, static_cast<int>(threadIdx.x) * per);
   const int k1 = min(K, k0 + per);
-  double ahead[FT_STAGE];
+  T ahead[FT_STAGE];
   if (k0 < k1)
     ft_load(disp, jelem, jidx, gF, elem, s, ei, a, first, a * K + k0, ahead);
   int cnt = 0;
@@ -183,12 +201,12 @@ __device__ int ft_list(const double* __restrict__ disp,
   for (int k = k0; k < k1; ++k) {
     if (mask[a * K + k] == 0) {
       if (g != nullptr)
-        for (int c = 0; c < 3; ++c) g[(a * K + k) * 3 + c] = 0.0;
+        for (int c = 0; c < 3; ++c) g[(a * K + k) * 3 + c] = T(0);
       continue;
     }
     list[pos] = k;
     if (pos < chunk) {
-      double* st = stage + pos * FT_STAGE;
+      T* st = stage + pos * FT_STAGE;
       if (k == k0) {
         for (int v = 0; v < FT_STAGE; ++v) st[v] = ahead[v];
       } else {
@@ -204,66 +222,68 @@ __device__ int ft_list(const double* __restrict__ disp,
 // ai, br, bi, w) of `prologue` (prologue.cuh) and, with TAN (K11, K11T),
 // their tangents along the three displacement axes in closed form, sharing
 // 1 / r, 1 / tan and one rsqrt where the dual numbers divide about twenty
-// times; K9 takes the values alone (t unused).
-template <bool TAN = true>
-__device__ void prologue_t(const double st[FT_STAGE], const Scalars& s,
-                           double v[5], double t[5][3]) {
-  const double dx = st[0], dy = st[1], dz = st[2], rcutij = st[3];
-  const double r = sqrt(dx * dx + dy * dy + dz * dz);
-  const double span = rcutij - s.rmin0;
-  const double kth = s.rfac0 * M_PI / span;      // d theta0 / dr
-  const double tn = tan((r - s.rmin0) * kth);
-  const double itn = 1.0 / tn;
-  const double z0 = r * itn;
-  const double r0inv = rsqrt(r * r + z0 * z0);
+// times; K9 takes the values alone (t unused).  At T = float the scalars
+// (and their products with pi, formed at float64) are rounded to float once.
+template <bool TAN = true, typename T>
+__device__ void prologue_t(const T st[FT_STAGE], const Scalars& s, T v[5],
+                           T t[5][3]) {
+  const T pi = static_cast<T>(M_PI), half_pi = static_cast<T>(0.5 * M_PI);
+  const T rmin0 = static_cast<T>(s.rmin0);
+  const T dx = st[0], dy = st[1], dz = st[2], rcutij = st[3];
+  const T r = sqrt(dx * dx + dy * dy + dz * dz);
+  const T span = rcutij - rmin0;
+  const T kth = static_cast<T>(s.rfac0 * M_PI) / span;   // d theta0 / dr
+  const T tn = tan((r - rmin0) * kth);
+  const T itn = T(1) / tn;
+  const T z0 = r * itn;
+  const T r0inv = rsqrt(r * r + z0 * z0);
   v[0] = r0inv * z0;
   v[1] = -(r0inv * dz);
   v[2] = r0inv * dy;
   v[3] = -(r0inv * dx);
-  double sf = 1.0, dsf = 0.0;                    // dsf: d sfac / dr
-  if (s.switchflag && r > s.rmin0) {
+  T sf = T(1), dsf = T(0);                       // dsf: d sfac / dr
+  if (s.switchflag && r > rmin0) {
     if (r > rcutij) {
-      sf = 0.0;
+      sf = T(0);
     } else {
-      const double rscale = M_PI / span;
-      double sn, cs;
-      sincos((r - s.rmin0) * rscale, &sn, &cs);
-      sf = 0.5 * (cs + 1.0);
-      if (TAN) dsf = -0.5 * sn * rscale;
+      const T rscale = pi / span;
+      T sn, cs;
+      sincos((r - rmin0) * rscale, &sn, &cs);
+      sf = T(0.5) * (cs + T(1));
+      if (TAN) dsf = T(-0.5) * sn * rscale;
     }
   }
   if (s.switchinnerflag) {
-    const double sin_ij = st[5], din_ij = st[6];
-    double inner = 1.0, dinner = 0.0;
+    const T sin_ij = st[5], din_ij = st[6];
+    T inner = T(1), dinner = T(0);
     if (r <= sin_ij - din_ij) {
-      inner = 0.0;
+      inner = T(0);
     } else if (r < sin_ij + din_ij) {
-      const double karg = 0.5 * M_PI / din_ij;
-      const double arg = (r - sin_ij) * karg;
-      double sn, cs;
-      sincos(fmin(fmax(arg, -0.5 * M_PI), 0.5 * M_PI) + 0.5 * M_PI, &sn,
-             &cs);
-      inner = 0.5 * (1.0 - cs);
-      if (TAN) dinner = fabs(arg) > 0.5 * M_PI ? 0.0 : 0.5 * sn * karg;
+      const T karg = half_pi / din_ij;
+      const T arg = (r - sin_ij) * karg;
+      T sn, cs;
+      sincos(fmin(fmax(arg, -half_pi), half_pi) + half_pi, &sn, &cs);
+      inner = T(0.5) * (T(1) - cs);
+      if (TAN) dinner = fabs(arg) > half_pi ? T(0) : T(0.5) * sn * karg;
     }
     if (TAN) dsf = dsf * inner + sf * dinner;
     sf *= inner;
   }
-  const double wj = st[4];
+  const T wj = st[4];
   v[4] = sf * wj;
   if (!TAN) return;
-  const double dd[3] = {dx, dy, dz};
-  const double rinv = 1.0 / r;
-  const double r0i3 = r0inv * r0inv * r0inv;
+  const T dd[3] = {dx, dy, dz};
+  const T rinv = T(1) / r;
+  const T r0i3 = r0inv * r0inv * r0inv;
   for (int c = 0; c < 3; ++c) {
-    const double dr = dd[c] * rinv;
-    const double dtn = (1.0 + tn * tn) * kth * dr;
-    const double dz0 = (dr - z0 * dtn) * itn;
-    const double dr0 = -r0i3 * (r * dr + z0 * dz0);
+    const T dr = dd[c] * rinv;
+    const T dtn = (T(1) + tn * tn) * kth * dr;
+    const T dz0 = (dr - z0 * dtn) * itn;
+    const T dr0 = -r0i3 * (r * dr + z0 * dz0);
     t[0][c] = dr0 * z0 + r0inv * dz0;
-    t[1][c] = -(dr0 * dz + (c == 2 ? r0inv : 0.0));
-    t[2][c] = dr0 * dy + (c == 1 ? r0inv : 0.0);
-    t[3][c] = -(dr0 * dx + (c == 0 ? r0inv : 0.0));
+    t[1][c] = -(dr0 * dz + (c == 2 ? r0inv : T(0)));
+    t[2][c] = dr0 * dy + (c == 1 ? r0inv : T(0));
+    t[3][c] = -(dr0 * dx + (c == 0 ? r0inv : T(0)));
     t[4][c] = dsf * dr * wj;
   }
 }
@@ -304,61 +324,82 @@ inline int grid_twojmax(int n_t) {
 
 // A pair adds exactly nothing unless its weight or a weight tangent is
 // nonzero (it is masked in but past the SNAP cutoff, or switched off).
-__device__ __forceinline__ bool ft_alive(const double v[5],
-                                         const double t[5][3]) {
-  return v[4] != 0.0 || t[4][0] != 0.0 || t[4][1] != 0.0 || t[4][2] != 0.0;
+template <typename T>
+__device__ __forceinline__ bool ft_alive(const T v[5], const T t[5][3]) {
+  return v[4] != T(0) || t[4][0] != T(0) || t[4][1] != T(0)
+         || t[4][2] != T(0);
 }
 
-template <int MAXT, int MINB>
+// The 2-vector of a working type (K9's ut as (re, im) pairs).
+template <typename T> struct Pair2;
+template <> struct Pair2<double> { using type = double2; };
+template <> struct Pair2<float> { using type = float2; };
+
+// The float32 products' plain FMA (fmaf at float, fma at double).
+__device__ __forceinline__ float fs_fma(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fs_fma(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
+template <typename T, int MAXT, int MINB>
 __global__ void __launch_bounds__(MAXT, MINB) nn_pair_force_t_kernel(
-    const double* __restrict__ gF, const int* __restrict__ jidx,
-    const double* __restrict__ disp, const int* __restrict__ jelem,
+    const T* __restrict__ gF, const int* __restrict__ jidx,
+    const T* __restrict__ disp, const int* __restrict__ jelem,
     const unsigned char* __restrict__ mask, const int* __restrict__ ielem,
-    const double* __restrict__ elem, Scalars s, int A, int K, int n_t,
+    const T* __restrict__ elem, Scalars s, int A, int K, int n_t,
     int twojmax, const int* __restrict__ pidx, const int* __restrict__ qidx,
-    size_t work_doubles, int tper, double* __restrict__ vgc) {
-  extern __shared__ double sm[];
-  const int T = blockDim.x, tid = threadIdx.x;
+    size_t work_doubles, int tper, T* __restrict__ vgc) {
+  extern __shared__ __align__(16) unsigned char smem_ft[];
+  T* sm = reinterpret_cast<T*>(smem_ft);
+  constexpr bool F64 = std::is_same<T, double>::value;
+  const int nth = blockDim.x, tid = threadIdx.x;
   const int nt2 = n_t * n_t;
   const int np1 = twojmax + 2;
   const int rec_len = FT_REC + 4 * np1;
-  const int chunk = ft_chunk(T, K);
+  const int chunk = ft_chunk(nth, K);
   const FtShape sh(n_t);
-  double* rec = sm;                              // [chunk][rec_len]
+  T* rec = sm;                                   // [chunk][rec_len]
   // a k-tile of the product vgc = A B: k-rows 2 j, 2 j + 1 of pair j are
   // T1, Y in at (A transposed, [2 FT_PAIRS][lda]) and X, T2 in bk
-  // ([2 FT_PAIRS][ldb])
-  double* at = rec + chunk * rec_len;
-  double* bk = at + 2 * FT_PAIRS * sh.lda;
-  double* stage = sm + work_doubles;             // [chunk][FT_STAGE]
+  // ([2 FT_PAIRS][ldb]); at float32 the grid's sums follow ([nt2])
+  T* at = rec + chunk * rec_len;
+  T* bk = at + 2 * FT_PAIRS * sh.lda;
+  T* vs = bk + 2 * FT_PAIRS * sh.ldb;
+  T* stage = sm + work_doubles;                  // [chunk][FT_STAGE]
   int* list = reinterpret_cast<int*>(stage + chunk * FT_STAGE);  // [K]
   int* ws = list + K;                                      // [33]
   const long long a = blockIdx.x;
   const long long first = (a / A) * A;
-  double* out = vgc + a * nt2;
+  T* out = vgc + a * nt2;
 
   // the masked slots in neighbor order, the first chunk's inputs staged
   const int ie = ielem[a];
-  double ei[4];
+  T ei[4];
   for (int c = 0; c < 4; ++c) ei[c] = elem[ie * 4 + c];
   const int nm = ft_list(disp, jelem, jidx, gF, mask, elem, s, ei, a, first,
-                         K, chunk, stage, list, ws, nullptr);
+                         K, chunk, stage, list, ws, static_cast<T*>(nullptr));
   if (nm == 0) {                                 // a padded atom
     if (blockIdx.y == 0)
-      for (int i = tid; i < nt2; i += T) out[i] = 0.0;
+      for (int i = tid; i < nt2; i += nth) out[i] = T(0);
     return;
   }
+  if (!F64)
+    for (int i = tid; i < nt2; i += nth) vs[i] = T(0);
   __syncthreads();
 
   // the block's output tiles are tper from blockIdx.y * tper on; warp w
-  // owns its tiles w, w + warps, ... (16 x 8 each), in registers
-  const int lane = tid % 32, warp = tid / 32, warps = T / 32;
+  // owns its tiles w, w + warps, ... (16 x 8 each), in registers (float64;
+  // at float32 one block an atom, thread t owns the grid entries t, t +
+  // threads, ..., kept in vs)
+  const int lane = tid % 32, warp = tid / 32, warps = nth / 32;
   const int g = lane / 4, tq = lane % 4;
   double acc[FT_TILES][4];
   int m0[FT_TILES], n0[FT_TILES];                // -1: no tile
   for (int i = 0; i < FT_TILES; ++i) {
     const int tt = blockIdx.y * tper + warp + i * warps;
-    m0[i] = warp + i * warps < tper && tt < sh.tiles
+    m0[i] = F64 && warp + i * warps < tper && tt < sh.tiles
                 ? (tt / (sh.np / 8)) * 16
                 : -1;
     n0[i] = (tt % (sh.np / 8)) * 8;
@@ -370,21 +411,21 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_pair_force_t_kernel(
     // weight or weight tangent: the others add exactly nothing) are
     // written in neighbor order
     bool alive = false;
-    double ab[4], r5[FT_REC];
+    T ab[4], r5[FT_REC];
     if (tid < min(chunk, nm - c0)) {
-      double st[FT_STAGE];
+      T st[FT_STAGE];
       if (c0 == 0) {
         for (int u = 0; u < FT_STAGE; ++u) st[u] = stage[tid * FT_STAGE + u];
       } else {
         ft_load(disp, jelem, jidx, gF, elem, s, ei, a, first,
                 a * K + list[c0 + tid], st);
       }
-      double v[5], t[5][3];
+      T v[5], t[5][3];
       prologue_t(st, s, v, t);
       alive = ft_alive(v, t);
       if (alive) {
-        double h[3];
-        r5[0] = 0.0;
+        T h[3];
+        r5[0] = T(0);
         for (int c = 0; c < 3; ++c) {
           r5[0] += st[7 + c] * t[4][c];
           h[c] = st[7 + c] * v[4];
@@ -398,12 +439,12 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_pair_force_t_kernel(
     int nl;
     const int slot = block_scan(alive ? 1 : 0, ws, nl);
     if (alive) {
-      double* rr = rec + slot * rec_len;
+      T* rr = rec + slot * rec_len;
       for (int v = 0; v < FT_REC; ++v) rr[v] = r5[v];
-      double* pw = rr + FT_REC;
+      T* pw = rr + FT_REC;
       for (int v = 0; v < 4; ++v) {
-        double x = 1.0;
-        pw[v * np1] = 0.0;
+        T x = T(1);
+        pw[v * np1] = T(0);
         for (int n = 0; n <= twojmax; ++n) {
           pw[v * np1 + n + 1] = x;
           x *= ab[v];
@@ -419,15 +460,15 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_pair_force_t_kernel(
       for (int d = lane; d < max(sh.mp, sh.np); d += 32) {
         const bool in = d < n_t;
         const int p = in ? pidx[d] : 0, q = in ? qidx[d] : 0;
-        const double pd = p, qd = q;
+        const T pd = p, qd = q;
         for (int j = warp; j < FT_PAIRS; j += warps) {
-          double t1 = 0.0, y = 0.0, x = 0.0, t2 = 0.0;
+          T t1 = T(0), y = T(0), x = T(0), t2 = T(0);
           if (in && j < npr) {
-            const double* rr = rec + (p0 + j) * rec_len;
-            const double* pa = rr + FT_REC;
-            const double* pai = pa + np1;
-            const double* pb = pai + np1;
-            const double* pbi = pb + np1;
+            const T* rr = rec + (p0 + j) * rec_len;
+            const T* pa = rr + FT_REC;
+            const T* pai = pa + np1;
+            const T* pb = pai + np1;
+            const T* pbi = pb + np1;
             t1 = pa[p + 1] * pai[q + 1];
             t2 = pb[p + 1] * pbi[q + 1];
             y = pd * pa[p] * pai[q + 1] * rr[1]
@@ -446,26 +487,42 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_pair_force_t_kernel(
         }
       }
       __syncthreads();
-      // vgc += A B over the tile's k-steps of 8 (4 pairs), in k order
-      const int ksteps = (2 * npr + 7) / 8;
-      for (int ks = 0; ks < ksteps; ++ks) {
-        const double* ak = at + (8 * ks + tq) * sh.lda + g;
-        const double* bq = bk + (8 * ks + tq) * sh.ldb + g;
-        for (int i = 0; i < FT_TILES; ++i) {
-          if (m0[i] < 0) break;
-          double fa[4], fb[2];
-          for (int h = 0; h < 2; ++h) {
-            fa[2 * h] = ak[4 * h * sh.lda + m0[i]];
-            fa[2 * h + 1] = ak[4 * h * sh.lda + m0[i] + 8];
-            fb[h] = bq[4 * h * sh.ldb + n0[i]];
+      if constexpr (F64) {
+        // vgc += A B over the tile's k-steps of 8 (4 pairs), in k order
+        const int ksteps = (2 * npr + 7) / 8;
+        for (int ks = 0; ks < ksteps; ++ks) {
+          const double* ak = at + (8 * ks + tq) * sh.lda + g;
+          const double* bq = bk + (8 * ks + tq) * sh.ldb + g;
+          for (int i = 0; i < FT_TILES; ++i) {
+            if (m0[i] < 0) break;
+            double fa[4], fb[2];
+            for (int h = 0; h < 2; ++h) {
+              fa[2 * h] = ak[4 * h * sh.lda + m0[i]];
+              fa[2 * h + 1] = ak[4 * h * sh.lda + m0[i] + 8];
+              fb[h] = bq[4 * h * sh.ldb + n0[i]];
+            }
+            mma_f64(acc[i], fa, fb);
           }
-          mma_f64(acc[i], fa, fb);
+        }
+      } else {
+        // vgc[d, e] += sum over the tile's k-rows of at[., d] bk[., e], in
+        // k order, a thread its entries
+        for (int i = tid; i < nt2; i += nth) {
+          const int d = i / n_t, e = i - d * n_t;
+          T sum = vs[i];
+          for (int kr = 0; kr < 2 * npr; ++kr)
+            sum = fs_fma(at[kr * sh.lda + d], bk[kr * sh.ldb + e], sum);
+          vs[i] = sum;
         }
       }
       __syncthreads();
     }
   }
   // the tiles (zero where no pair is live)
+  if constexpr (!F64) {
+    for (int i = tid; i < nt2; i += nth) out[i] = vs[i];
+    return;
+  }
   for (int i = 0; i < FT_TILES; ++i) {
     if (m0[i] < 0) break;
     for (int h = 0; h < 2; ++h) {
@@ -492,26 +549,38 @@ __host__ __device__ __forceinline__ int ff_rec_len(int twojmax) {
   return n + (20 - n % 16) % 16;
 }
 
-template <int THREADS, int MINB>
+// At float32 a record also holds the pair's rows X (3 n_t: T1, dT1/dar,
+// dT1/dai over the grid's first factor), its length odd so that a warp's
+// pairs read different banks.
+template <typename T>
+__host__ __device__ __forceinline__ int ff_rec_len_t(int twojmax, int n_t) {
+  if (std::is_same<T, double>::value) return ff_rec_len(twojmax);
+  const int n = ff_rec_len(twojmax) + 3 * n_t;
+  return n | 1;
+}
+
+template <typename T, int THREADS, int MINB>
 __global__ void __launch_bounds__(THREADS, MINB) nn_pair_force_kernel(
-    const double* __restrict__ vg, const double* __restrict__ disp,
+    const T* __restrict__ vg, const T* __restrict__ disp,
     const int* __restrict__ jelem, const unsigned char* __restrict__ mask,
-    const int* __restrict__ ielem, const double* __restrict__ elem,
+    const int* __restrict__ ielem, const T* __restrict__ elem,
     Scalars s, int K, int n_t, int twojmax, const int* __restrict__ pidx,
     const int* __restrict__ qidx, int chunk, size_t work_doubles,
-    double* __restrict__ g) {
-  extern __shared__ double sm[];
-  const int T = blockDim.x, tid = threadIdx.x;
+    T* __restrict__ g) {
+  extern __shared__ __align__(16) unsigned char smem_ff[];
+  T* sm = reinterpret_cast<T*>(smem_ff);
+  constexpr bool F64 = std::is_same<T, double>::value;
+  const int nth = blockDim.x, tid = threadIdx.x;
   const int np1 = twojmax + 2;
-  const int rec_len = ff_rec_len(twojmax);
+  const int rec_len = ff_rec_len_t<T>(twojmax, n_t);
   const FtShape sh(n_t);
   const int ld = sh.ldb;
-  double* svg = sm;                              // [np][ld]
-  double* rec = svg + sh.np * ld;                // [chunk][rec_len]
+  T* svg = sm;                                   // [np][ld]
+  T* rec = svg + sh.np * ld;                     // [chunk][rec_len]
   // [chunk][FT_STAGE]: read before the second scan, the records after it
-  double* stage = rec;
-  double* zero = rec + chunk * rec_len;          // [np1] zeros
-  double* rs = zero + np1;                       // [warps][16][3] row sums
+  T* stage = rec;
+  T* zero = rec + chunk * rec_len;               // [np1] zeros
+  T* rs = zero + np1;                            // [warps][16][3] row sums
   int* pq = reinterpret_cast<int*>(sm + work_doubles);         // [np]
   int* lslot = pq + sh.np;                       // [chunk] live pairs' slots
   int* list = lslot + chunk;                     // [K]
@@ -521,61 +590,62 @@ __global__ void __launch_bounds__(THREADS, MINB) nn_pair_force_kernel(
   // vg by asynchronous copies, zero padded to np x np, in flight through
   // the scan and the prologues; the exponents (p | q << 8; (0, 0) in the
   // padding) are loaded here and stored after the scan
-  const double* va = vg + a * n_t * n_t;
-  for (int i = tid; i < n_t * n_t; i += T)
-    fs_cp_async8(svg + (i / n_t) * ld + i % n_t, va + i);
-  for (int i = tid; i < sh.np * ld; i += T) {
+  const T* va = vg + a * n_t * n_t;
+  for (int i = tid; i < n_t * n_t; i += nth)
+    fs_cp_async_elem(svg + (i / n_t) * ld + i % n_t, va + i);
+  for (int i = tid; i < sh.np * ld; i += nth) {
     const int d = i / ld, e = i - d * ld;
-    if (d >= n_t || e >= n_t) svg[i] = 0.0;
+    if (d >= n_t || e >= n_t) svg[i] = T(0);
   }
-  for (int i = tid; i < np1; i += T) zero[i] = 0.0;
+  for (int i = tid; i < np1; i += nth) zero[i] = T(0);
   const int pqv = tid < n_t ? pidx[tid] | qidx[tid] << 8 : 0;
 
   // the masked slots in neighbor order (the others' outputs set to 0), the
   // first chunk's inputs staged
   const int ie = ielem[a];
-  double ei[4];
+  T ei[4];
   for (int c = 0; c < 4; ++c) ei[c] = elem[ie * 4 + c];
-  const int nm = ft_list(disp, jelem, nullptr, nullptr, mask, elem, s, ei, a,
-                         0, K, chunk, stage, list, ws, g);
+  const int nm = ft_list(disp, jelem, nullptr, static_cast<const T*>(nullptr),
+                         mask, elem, s, ei, a, 0, K, chunk, stage, list, ws,
+                         g);
   if (nm == 0) {                                 // a padded atom
     fs_cp_async_wait_all();
     return;
   }
-  for (int d = tid; d < sh.np; d += T)
+  for (int d = tid; d < sh.np; d += nth)
     pq[d] = d == tid ? pqv : d < n_t ? pidx[d] | qidx[d] << 8 : 0;
   __syncthreads();
 
-  const int lane = tid % 32, warp = tid / 32, warps = T / 32;
+  const int lane = tid % 32, warp = tid / 32, warps = nth / 32;
   const int gq = lane / 4, tq = lane % 4;
   const int ntiles = sh.np / 8;                  // also the k-steps
   const int gsize = (ntiles + (ntiles + FF_NG - 1) / FF_NG - 1)
                     / ((ntiles + FF_NG - 1) / FF_NG);
-  double* wrs = rs + warp * 48;
+  T* wrs = rs + warp * 48;
   for (int c0 = 0; c0 < nm; c0 += chunk) {
     // one masked pair a thread: its prologue (a dead pair's output 0),
     // then the live ones' records in neighbor order
     bool alive = false;
     int k = 0;
-    double v[5], t[5][3];
+    T v[5], t[5][3];
     if (tid < min(chunk, nm - c0)) {
-      double st[FT_STAGE];
+      T st[FT_STAGE];
       k = list[c0 + tid];
       if (c0 == 0) {
         for (int u = 0; u < FT_STAGE; ++u) st[u] = stage[tid * FT_STAGE + u];
       } else {
-        ft_load(disp, jelem, nullptr, nullptr, elem, s, ei, a, 0, a * K + k,
-                st);
+        ft_load(disp, jelem, nullptr, static_cast<const T*>(nullptr), elem,
+                s, ei, a, 0, a * K + k, st);
       }
       prologue_t(st, s, v, t);
       alive = ft_alive(v, t);
       if (!alive)
-        for (int c = 0; c < 3; ++c) g[(a * K + k) * 3 + c] = 0.0;
+        for (int c = 0; c < 3; ++c) g[(a * K + k) * 3 + c] = T(0);
     }
     int nl;
     const int slot = block_scan(alive ? 1 : 0, ws, nl);
     if (alive) {
-      double* rr = rec + slot * rec_len;
+      T* rr = rec + slot * rec_len;
       rr[0] = v[4];
       for (int c = 0; c < 3; ++c) {
         rr[1 + c] = t[4][c];
@@ -583,104 +653,151 @@ __global__ void __launch_bounds__(THREADS, MINB) nn_pair_force_kernel(
       }
       // the power tables (as K11T's) and their derivatives, the four
       // running products side by side
-      double* pw = rr + FF_REC;
-      double x[4] = {1.0, 1.0, 1.0, 1.0}, dn = 1.0;
-      for (int u = 0; u < 8; ++u) pw[u * np1] = 0.0;
-      for (int n = 0; n <= twojmax; ++n, dn += 1.0) {
+      T* pw = rr + FF_REC;
+      T x[4] = {T(1), T(1), T(1), T(1)}, dn = T(1);
+      for (int u = 0; u < 8; ++u) pw[u * np1] = T(0);
+      for (int n = 0; n <= twojmax; ++n, dn += T(1)) {
         for (int u = 0; u < 4; ++u) {
           pw[u * np1 + n + 1] = x[u];
           pw[(4 + u) * np1 + n + 1] = dn * x[u];
           x[u] *= v[u];
         }
       }
+      if (!F64) {
+        // float32: the rows X over the grid's first factor, from the
+        // tables just written (this thread's own)
+        T* xs = rr + ff_rec_len(twojmax);
+        for (int d = 0; d < n_t; ++d) {
+          const int p = pidx[d], q = qidx[d];
+          xs[d] = pw[p + 1] * pw[np1 + q + 1];
+          xs[n_t + d] = pw[4 * np1 + p] * pw[np1 + q + 1];
+          xs[2 * n_t + d] = pw[p + 1] * pw[5 * np1 + q];
+        }
+      }
       lslot[slot] = k;
     }
     if (c0 == 0) fs_cp_async_wait_all();
     __syncthreads();
+    if constexpr (!F64) {
+      // float32, a thread a live pair: Q_r[e] = sum_d X_r[d] vg[d, e] in d
+      // order (vg a broadcast), then the dot products with T2, E1 =
+      // dT2/dbr and E2 = dT2/dbi in e order; g_c = w st_c + wt_c sp as
+      // below
+      for (int j = tid; j < nl; j += nth) {
+        const T* rr = rec + j * rec_len;
+        const T* pw = rr + FF_REC;
+        const T* xs = rr + ff_rec_len(twojmax);
+        T S[5] = {T(0), T(0), T(0), T(0), T(0)};  // Q0.T2 Q0.E1 Q0.E2
+        for (int e = 0; e < n_t; ++e) {           // Q1.T2 Q2.T2
+          T q0 = T(0), q1 = T(0), q2 = T(0);
+          for (int d = 0; d < n_t; ++d) {
+            const T w = svg[d * ld + e];
+            q0 = fs_fma(xs[d], w, q0);
+            q1 = fs_fma(xs[n_t + d], w, q1);
+            q2 = fs_fma(xs[2 * n_t + d], w, q2);
+          }
+          const int p = pq[e] & 255, q = pq[e] >> 8;
+          const T t2 = pw[2 * np1 + p + 1] * pw[3 * np1 + q + 1];
+          const T e1 = pw[6 * np1 + p] * pw[3 * np1 + q + 1];
+          const T e2 = pw[2 * np1 + p + 1] * pw[7 * np1 + q];
+          S[0] = fs_fma(q0, t2, S[0]);
+          S[1] = fs_fma(q0, e1, S[1]);
+          S[2] = fs_fma(q0, e2, S[2]);
+          S[3] = fs_fma(q1, t2, S[3]);
+          S[4] = fs_fma(q2, t2, S[4]);
+        }
+        for (int c = 0; c < 3; ++c) {
+          const T st = rr[4 + c] * S[3] + rr[7 + c] * S[4]
+                       + rr[10 + c] * S[1] + rr[13 + c] * S[2];
+          g[(a * K + lslot[j]) * 3 + c] = rr[0] * st + rr[1 + c] * S[0];
+        }
+      }
+    } else {
 
-    // m-tile mt: rows 3 i + kind of its FF_PAIRS live pairs 5 mt + i, the
-    // pair's T1 (kind 0), dT1/dar (1) and dT1/dai (2) over the grid's first
-    // factor (each entry X[p] Y[q] of two of its tables), row 15 zero.
-    // Lane (gq, tq) owns rows gq and gq + 8.  Q = X vg on the FP64 tensor
-    // cores, gsize n-tiles at once, then each row's dot products with T2,
-    // E1 = dT2/dbr and E2 = dT2/dbi over the lane's columns, summed over
-    // the row's four lanes by an xor butterfly; per pair sp = Q_0 . T2 and
-    // st_c = dar_c Q_1 . T2 + dai_c Q_2 . T2 + dbr_c Q_0 . E1
-    // + dbi_c Q_0 . E2
-    for (int mt = warp; FF_PAIRS * mt < nl; mt += warps) {
-      const double* xr[2];
-      const double* yr[2];
-      const double* tb[2];
-      for (int h = 0; h < 2; ++h) {
-        const int row = gq + 8 * h, j = FF_PAIRS * mt + row / 3;
-        const int kind = row % 3;
-        const double* pw =
-            rec + min(j, nl - 1) * rec_len + FF_REC;   // Pa Pai Pb Pbi Da ..
-        const bool on = row < 3 * FF_PAIRS && j < nl;
-        xr[h] = !on ? zero : kind == 1 ? pw + 4 * np1 : pw + 1;
-        yr[h] = kind == 2 ? pw + 5 * np1 : pw + np1 + 1;
-        tb[h] = pw + 2 * np1;
-      }
-      double S[2][3] = {{0.0, 0.0, 0.0}, {0.0, 0.0, 0.0}};
-      for (int n0 = 0; n0 < ntiles; n0 += gsize) {
-        double acc[FF_NG][4];
-#pragma unroll
-        for (int i = 0; i < FF_NG; ++i)
-          for (int u = 0; u < 4; ++u) acc[i][u] = 0.0;
-        for (int ks = 0; ks < ntiles; ++ks) {
-          double fa[4];
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int e = pq[8 * ks + tq + 4 * h];
-            const int p = e & 255, q = e >> 8;
-            fa[2 * h] = xr[0][p] * yr[0][q];
-            fa[2 * h + 1] = xr[1][p] * yr[1][q];
-          }
-          const double* bq = svg + (8 * ks + tq) * ld + gq;
-#pragma unroll
-          for (int i = 0; i < FF_NG; ++i) {
-            if (i < gsize && n0 + i < ntiles) {
-              const double fb[2] = {bq[8 * (n0 + i)],
-                                    bq[4 * ld + 8 * (n0 + i)]};
-              mma_f64(acc[i], fa, fb);
-            }
-          }
+      // m-tile mt: rows 3 i + kind of its FF_PAIRS live pairs 5 mt + i, the
+      // pair's T1 (kind 0), dT1/dar (1) and dT1/dai (2) over the grid's first
+      // factor (each entry X[p] Y[q] of two of its tables), row 15 zero.
+      // Lane (gq, tq) owns rows gq and gq + 8.  Q = X vg on the FP64 tensor
+      // cores, gsize n-tiles at once, then each row's dot products with T2,
+      // E1 = dT2/dbr and E2 = dT2/dbi over the lane's columns, summed over
+      // the row's four lanes by an xor butterfly; per pair sp = Q_0 . T2 and
+      // st_c = dar_c Q_1 . T2 + dai_c Q_2 . T2 + dbr_c Q_0 . E1
+      // + dbi_c Q_0 . E2
+      for (int mt = warp; FF_PAIRS * mt < nl; mt += warps) {
+        const double* xr[2];
+        const double* yr[2];
+        const double* tb[2];
+        for (int h = 0; h < 2; ++h) {
+          const int row = gq + 8 * h, j = FF_PAIRS * mt + row / 3;
+          const int kind = row % 3;
+          const double* pw =
+              rec + min(j, nl - 1) * rec_len + FF_REC;   // Pa Pai Pb Pbi Da ..
+          const bool on = row < 3 * FF_PAIRS && j < nl;
+          xr[h] = !on ? zero : kind == 1 ? pw + 4 * np1 : pw + 1;
+          yr[h] = kind == 2 ? pw + 5 * np1 : pw + np1 + 1;
+          tb[h] = pw + 2 * np1;
         }
-#pragma unroll
-        for (int i = 0; i < FF_NG; ++i) {
-          if (!(i < gsize && n0 + i < ntiles)) continue;
-          for (int cc = 0; cc < 2; ++cc) {
-            const int e = pq[8 * (n0 + i) + 2 * tq + cc];
-            const int p = e & 255, q = e >> 8;
-#pragma unroll
+        double S[2][3] = {{0.0, 0.0, 0.0}, {0.0, 0.0, 0.0}};
+        for (int n0 = 0; n0 < ntiles; n0 += gsize) {
+          double acc[FF_NG][4];
+  #pragma unroll
+          for (int i = 0; i < FF_NG; ++i)
+            for (int u = 0; u < 4; ++u) acc[i][u] = 0.0;
+          for (int ks = 0; ks < ntiles; ++ks) {
+            double fa[4];
+  #pragma unroll
             for (int h = 0; h < 2; ++h) {
-              const double* pb = tb[h];            // Pb, Pbi, .., Db, Dbi
-              const double r = acc[i][2 * h + cc];
-              S[h][0] += r * (pb[p + 1] * pb[np1 + q + 1]);
-              S[h][1] += r * (pb[4 * np1 + p] * pb[np1 + q + 1]);
-              S[h][2] += r * (pb[p + 1] * pb[5 * np1 + q]);
+              const int e = pq[8 * ks + tq + 4 * h];
+              const int p = e & 255, q = e >> 8;
+              fa[2 * h] = xr[0][p] * yr[0][q];
+              fa[2 * h + 1] = xr[1][p] * yr[1][q];
+            }
+            const double* bq = svg + (8 * ks + tq) * ld + gq;
+  #pragma unroll
+            for (int i = 0; i < FF_NG; ++i) {
+              if (i < gsize && n0 + i < ntiles) {
+                const double fb[2] = {bq[8 * (n0 + i)],
+                                      bq[4 * ld + 8 * (n0 + i)]};
+                mma_f64(acc[i], fa, fb);
+              }
+            }
+          }
+  #pragma unroll
+          for (int i = 0; i < FF_NG; ++i) {
+            if (!(i < gsize && n0 + i < ntiles)) continue;
+            for (int cc = 0; cc < 2; ++cc) {
+              const int e = pq[8 * (n0 + i) + 2 * tq + cc];
+              const int p = e & 255, q = e >> 8;
+  #pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const double* pb = tb[h];            // Pb, Pbi, .., Db, Dbi
+                const double r = acc[i][2 * h + cc];
+                S[h][0] += r * (pb[p + 1] * pb[np1 + q + 1]);
+                S[h][1] += r * (pb[4 * np1 + p] * pb[np1 + q + 1]);
+                S[h][2] += r * (pb[p + 1] * pb[5 * np1 + q]);
+              }
             }
           }
         }
-      }
-      for (int h = 0; h < 2; ++h) {
-        for (int u = 0; u < 3; ++u) {
-          S[h][u] += __shfl_xor_sync(0xffffffffu, S[h][u], 1);
-          S[h][u] += __shfl_xor_sync(0xffffffffu, S[h][u], 2);
-          if (tq == 0) wrs[(gq + 8 * h) * 3 + u] = S[h][u];
+        for (int h = 0; h < 2; ++h) {
+          for (int u = 0; u < 3; ++u) {
+            S[h][u] += __shfl_xor_sync(0xffffffffu, S[h][u], 1);
+            S[h][u] += __shfl_xor_sync(0xffffffffu, S[h][u], 2);
+            if (tq == 0) wrs[(gq + 8 * h) * 3 + u] = S[h][u];
+          }
         }
+        __syncwarp();
+        const int j = FF_PAIRS * mt + lane / 3;
+        if (lane < 3 * FF_PAIRS && j < nl) {       // g_c = w st_c + wt_c sp
+          const int c = lane % 3;
+          const double* rw = wrs + 9 * (lane / 3);
+          const double* rr = rec + j * rec_len;
+          const double st = rr[4 + c] * rw[3] + rr[7 + c] * rw[6]
+                            + rr[10 + c] * rw[1] + rr[13 + c] * rw[2];
+          g[(a * K + lslot[j]) * 3 + c] = rr[0] * st + rr[1 + c] * rw[0];
+        }
+        __syncwarp();
       }
-      __syncwarp();
-      const int j = FF_PAIRS * mt + lane / 3;
-      if (lane < 3 * FF_PAIRS && j < nl) {       // g_c = w st_c + wt_c sp
-        const int c = lane % 3;
-        const double* rw = wrs + 9 * (lane / 3);
-        const double* rr = rec + j * rec_len;
-        const double st = rr[4 + c] * rw[3] + rr[7 + c] * rw[6]
-                          + rr[10 + c] * rw[1] + rr[13 + c] * rw[2];
-        g[(a * K + lslot[j]) * 3 + c] = rr[0] * st + rr[1 + c] * rw[0];
-      }
-      __syncwarp();
     }
     __syncthreads();
   }
@@ -719,35 +836,38 @@ constexpr int K9_BATCH = 4;        // B terms a thread loads at once
 constexpr int K9_NARROW_THREADS = 256;
 constexpr int K9_NARROW_BLOCKS = 4;
 
-template <int MAXT, int MINB, int TILES>
+template <typename T, int MAXT, int MINB, int TILES>
 __global__ void __launch_bounds__(MAXT, MINB) nn_ut_b_kernel(
-    const double* __restrict__ disp, const int* __restrict__ jelem,
+    const T* __restrict__ disp, const int* __restrict__ jelem,
     const unsigned char* __restrict__ mask, const int* __restrict__ ielem,
-    const double* __restrict__ elem, Scalars s, int K, int n_t, int twojmax,
+    const T* __restrict__ elem, Scalars s, int K, int n_t, int twojmax,
     const int* __restrict__ pidx, const int* __restrict__ qidx,
     const int* __restrict__ lgc_ptr, const int* __restrict__ lgc_row,
-    const double* __restrict__ lgc_val, int two_u,
-    const double* __restrict__ selfvec, int nchem, int self_all, int per,
+    const T* __restrict__ lgc_val, int two_u,
+    const T* __restrict__ selfvec, int nchem, int self_all, int per,
     int stride,
-    const long long* __restrict__ bs_key, const double* __restrict__ bs_fac,
-    const int* __restrict__ bs_seg, int W, const double* __restrict__ bzero,
-    int chunk, int kp, size_t work_doubles, double* __restrict__ ut,
-    double* __restrict__ B) {
-  extern __shared__ double sm[];
-  const int T = blockDim.x, tid = threadIdx.x;
+    const long long* __restrict__ bs_key, const T* __restrict__ bs_fac,
+    const int* __restrict__ bs_seg, int W, const T* __restrict__ bzero,
+    int chunk, int kp, size_t work_doubles, T* __restrict__ ut,
+    T* __restrict__ B) {
+  extern __shared__ __align__(16) unsigned char smem_k9[];
+  T* sm = reinterpret_cast<T*>(smem_k9);
+  using T2 = typename Pair2<T>::type;
+  constexpr bool F64 = std::is_same<T, double>::value;
+  const int nth = blockDim.x, tid = threadIdx.x;
   const int U = two_u / 2;
   const int nt2 = n_t * n_t;
   const int np1 = twojmax + 1;
   const int rec_len = k9_rec_len(twojmax);
   const FtShape sh(n_t);
-  double* wg = sm;                               // [nchem][n_t][n_t]
-  double* work = sm + k9_wg(n_t, nchem);
-  double* rec = work;                            // [chunk][rec_len]
-  double* at = rec + chunk * rec_len;            // [kp][lda]: A transposed
-  double* bk = at + kp * sh.lda;                 // [kp][ldb]
-  double2* su = reinterpret_cast<double2*>(work);  // terms: [nchem U] ut
-  double* part = work + nchem * two_u;           // terms: [stride]
-  double* stage = sm + work_doubles;             // [chunk][FT_STAGE]
+  T* wg = sm;                                    // [nchem][n_t][n_t]
+  T* work = sm + k9_wg(n_t, nchem);
+  T* rec = work;                                 // [chunk][rec_len]
+  T* at = rec + chunk * rec_len;                 // [kp][lda]: A transposed
+  T* bk = at + kp * sh.lda;                      // [kp][ldb]
+  T2* su = reinterpret_cast<T2*>(work);          // terms: [nchem U] ut
+  T* part = work + nchem * two_u;                // terms: [stride]
+  T* stage = sm + work_doubles;                  // [chunk][FT_STAGE]
   int* pq = reinterpret_cast<int*>(stage + chunk * FT_STAGE);  // [np]
   int* list = pq + sh.np;                        // [K]
   int* ws = list + K;                            // [33]
@@ -756,23 +876,25 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_ut_b_kernel(
 
   // the grids zeroed and the exponents (p | q << 8; (0, 0) in the padding)
   // staged, in the shadow of the scan
-  for (int i = tid; i < nchem * nt2; i += T) wg[i] = 0.0;
-  for (int d = tid; d < sh.np; d += T)
+  for (int i = tid; i < nchem * nt2; i += nth) wg[i] = T(0);
+  for (int d = tid; d < sh.np; d += nth)
     pq[d] = d < n_t ? pidx[d] | qidx[d] << 8 : 0;
 
   // the masked slots in neighbor order, the first chunk's inputs staged; a
   // padded atom (no masked slot) keeps every wg 0: its ut is the self term
   const int ie = ielem[a];
-  double ei[4];
+  T ei[4];
   for (int c = 0; c < 4; ++c) ei[c] = elem[ie * 4 + c];
-  const int nm = ft_list(disp, jelem, nullptr, nullptr, mask, elem, s, ei, a,
-                         0, K, chunk, stage, list, ws, nullptr);
+  const int nm = ft_list(disp, jelem, nullptr, static_cast<const T*>(nullptr),
+                         mask, elem, s, ei, a, 0, K, chunk, stage, list, ws,
+                         static_cast<T*>(nullptr));
   __syncthreads();
 
   // round r: warp w owns output tiles w + (r TILES + i) warps (16 x 8
   // each) of a channel's grid, accumulated in registers over the chunk's
-  // k-tiles of that channel's pairs and kept in wg between chunks
-  const int lane = tid % 32, warp = tid / 32, warps = T / 32;
+  // k-tiles of that channel's pairs and kept in wg between chunks (float32:
+  // thread t owns the grid entries t, t + threads, ..., summed in wg)
+  const int lane = tid % 32, warp = tid / 32, warps = nth / 32;
   const int g = lane / 4, tq = lane % 4;
   const int rounds = (sh.tiles + warps * TILES - 1) / (warps * TILES);
   const int width = max(sh.mp, sh.np);
@@ -782,17 +904,17 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_ut_b_kernel(
     // (the neighbor's element), each channel's in neighbor order
     bool alive = false;
     int ch = 0;
-    double v[5];
+    T v[5];
     if (tid < min(chunk, nm - c0)) {
-      double st[FT_STAGE];
+      T st[FT_STAGE];
       if (c0 == 0) {
         for (int u = 0; u < FT_STAGE; ++u) st[u] = stage[tid * FT_STAGE + u];
       } else {
-        ft_load(disp, jelem, nullptr, nullptr, elem, s, ei, a, 0,
-                a * K + list[c0 + tid], st);
+        ft_load(disp, jelem, nullptr, static_cast<const T*>(nullptr), elem,
+                s, ei, a, 0, a * K + list[c0 + tid], st);
       }
-      prologue_t<false>(st, s, v, nullptr);
-      alive = v[4] != 0.0;
+      prologue_t<false>(st, s, v, static_cast<T(*)[3]>(nullptr));
+      alive = v[4] != T(0);
       if (nchem > 1) ch = jelem[a * K + list[c0 + tid]];
     }
     // channel ec's live pairs of the chunk at records [cb[ec], cb[ec + 1])
@@ -802,9 +924,9 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_ut_b_kernel(
       int nc;
       const int slot = nl + block_scan(mine ? 1 : 0, ws, nc);
       if (mine) {
-        double* rr = rec + slot * rec_len;
+        T* rr = rec + slot * rec_len;
         rr[0] = v[4];
-        double x[4] = {1.0, 1.0, 1.0, 1.0};
+        T x[4] = {T(1), T(1), T(1), T(1)};
         for (int n = 0; n < np1; ++n) {
           for (int u = 0; u < 4; ++u) {
             rr[1 + u * np1 + n] = x[u];
@@ -821,70 +943,96 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_ut_b_kernel(
     for (int ec = 0; ec < nchem; ++ec) {
       const int lo = cb[ec], nlc = cb[ec + 1] - lo;
       if (nlc == 0) continue;
-      double* wgc = wg + ec * nt2;
-      for (int r = 0; r < rounds; ++r) {
-        double acc[TILES][4];
-        int m0[TILES], n0[TILES];                // -1: no tile
-#pragma unroll
-        for (int i = 0; i < TILES; ++i) {
-          const int tt = warp + (r * TILES + i) * warps;
-          m0[i] = tt < sh.tiles ? (tt / (sh.np / 8)) * 16 : -1;
-          n0[i] = (tt % (sh.np / 8)) * 8;
-          for (int h = 0; h < 2; ++h) {
-            const int row = m0[i] + g + 8 * h;
-            for (int c = 0; c < 2; ++c) {
-              const int col = n0[i] + 2 * tq + c;
-              acc[i][2 * h + c] = m0[i] >= 0 && row < n_t && col < n_t
-                                      ? wgc[row * n_t + col] : 0.0;
-            }
-          }
-        }
+      T* wgc = wg + ec * nt2;
+      if constexpr (!F64) {
+        // float32: the k-tiles of the channel's pairs, then wg[d, e] +=
+        // sum over the tile's pairs of (w T1)[d] T2[e] in pair order, a
+        // thread its entries
         for (int p0 = 0; p0 < nlc; p0 += kp) {
-          // the k-tile: pair j's column w T1 and row T2 from its tables,
-          // zero past the channel's live pairs and past n_t
           const int npr = min(kp, nlc - p0);
-          for (int i = tid; i < kp * width; i += T) {
-            const int j = i / width, d = i - j * width;
-            double t1 = 0.0, t2 = 0.0;
-            if (j < npr && d < n_t) {
-              const double* rr = rec + (lo + p0 + j) * rec_len;
-              const int e = pq[d];
-              const int pp = e & 255, qq = e >> 8;
-              t1 = rr[0] * (rr[1 + pp] * rr[1 + np1 + qq]);
-              t2 = rr[1 + 2 * np1 + pp] * rr[1 + 3 * np1 + qq];
-            }
-            if (d < sh.mp) at[j * sh.lda + d] = t1;
-            if (d < sh.np) bk[j * sh.ldb + d] = t2;
+          for (int i = tid; i < npr * n_t; i += nth) {
+            const int j = i / n_t, d = i - j * n_t;
+            const T* rr = rec + (lo + p0 + j) * rec_len;
+            const int e = pq[d];
+            const int pp = e & 255, qq = e >> 8;
+            at[j * sh.lda + d] = rr[0] * (rr[1 + pp] * rr[1 + np1 + qq]);
+            bk[j * sh.ldb + d] = rr[1 + 2 * np1 + pp] * rr[1 + 3 * np1 + qq];
           }
           __syncthreads();
-          // wg += A B over the tile's k-steps of 8 pairs, in pair order
-          const int ksteps = (npr + 7) / 8;
-          for (int ks = 0; ks < ksteps; ++ks) {
-            const double* ak = at + (8 * ks + tq) * sh.lda + g;
-            const double* bq = bk + (8 * ks + tq) * sh.ldb + g;
-#pragma unroll
-            for (int i = 0; i < TILES; ++i) {
-              if (m0[i] < 0) break;
-              double fa[4], fb[2];
-              for (int h = 0; h < 2; ++h) {
-                fa[2 * h] = ak[4 * h * sh.lda + m0[i]];
-                fa[2 * h + 1] = ak[4 * h * sh.lda + m0[i] + 8];
-                fb[h] = bq[4 * h * sh.ldb + n0[i]];
-              }
-              mma_f64(acc[i], fa, fb);
-            }
+          for (int i = tid; i < nt2; i += nth) {
+            const int d = i / n_t, e = i - d * n_t;
+            T sum = wgc[i];
+            for (int j = 0; j < npr; ++j)
+              sum = fs_fma(at[j * sh.lda + d], bk[j * sh.ldb + e], sum);
+            wgc[i] = sum;
           }
           __syncthreads();
         }
+      } else {
+        for (int r = 0; r < rounds; ++r) {
+          double acc[TILES][4];
+          int m0[TILES], n0[TILES];                // -1: no tile
 #pragma unroll
-        for (int i = 0; i < TILES; ++i) {
-          if (m0[i] < 0) break;
-          for (int h = 0; h < 2; ++h) {
-            const int row = m0[i] + g + 8 * h;
-            for (int c = 0; c < 2; ++c) {
-              const int col = n0[i] + 2 * tq + c;
-              if (row < n_t && col < n_t)
-                wgc[row * n_t + col] = acc[i][2 * h + c];
+          for (int i = 0; i < TILES; ++i) {
+            const int tt = warp + (r * TILES + i) * warps;
+            m0[i] = tt < sh.tiles ? (tt / (sh.np / 8)) * 16 : -1;
+            n0[i] = (tt % (sh.np / 8)) * 8;
+            for (int h = 0; h < 2; ++h) {
+              const int row = m0[i] + g + 8 * h;
+              for (int c = 0; c < 2; ++c) {
+                const int col = n0[i] + 2 * tq + c;
+                acc[i][2 * h + c] = m0[i] >= 0 && row < n_t && col < n_t
+                                        ? wgc[row * n_t + col] : 0.0;
+              }
+            }
+          }
+          for (int p0 = 0; p0 < nlc; p0 += kp) {
+            // the k-tile: pair j's column w T1 and row T2 from its tables,
+            // zero past the channel's live pairs and past n_t
+            const int npr = min(kp, nlc - p0);
+            for (int i = tid; i < kp * width; i += nth) {
+              const int j = i / width, d = i - j * width;
+              double t1 = 0.0, t2 = 0.0;
+              if (j < npr && d < n_t) {
+                const double* rr = rec + (lo + p0 + j) * rec_len;
+                const int e = pq[d];
+                const int pp = e & 255, qq = e >> 8;
+                t1 = rr[0] * (rr[1 + pp] * rr[1 + np1 + qq]);
+                t2 = rr[1 + 2 * np1 + pp] * rr[1 + 3 * np1 + qq];
+              }
+              if (d < sh.mp) at[j * sh.lda + d] = t1;
+              if (d < sh.np) bk[j * sh.ldb + d] = t2;
+            }
+            __syncthreads();
+            // wg += A B over the tile's k-steps of 8 pairs, in pair order
+            const int ksteps = (npr + 7) / 8;
+            for (int ks = 0; ks < ksteps; ++ks) {
+              const double* ak = at + (8 * ks + tq) * sh.lda + g;
+              const double* bq = bk + (8 * ks + tq) * sh.ldb + g;
+#pragma unroll
+              for (int i = 0; i < TILES; ++i) {
+                if (m0[i] < 0) break;
+                double fa[4], fb[2];
+                for (int h = 0; h < 2; ++h) {
+                  fa[2 * h] = ak[4 * h * sh.lda + m0[i]];
+                  fa[2 * h + 1] = ak[4 * h * sh.lda + m0[i] + 8];
+                  fb[h] = bq[4 * h * sh.ldb + n0[i]];
+                }
+                mma_f64(acc[i], fa, fb);
+              }
+            }
+            __syncthreads();
+          }
+#pragma unroll
+          for (int i = 0; i < TILES; ++i) {
+            if (m0[i] < 0) break;
+            for (int h = 0; h < 2; ++h) {
+              const int row = m0[i] + g + 8 * h;
+              for (int c = 0; c < 2; ++c) {
+                const int col = n0[i] + 2 * tq + c;
+                if (row < n_t && col < n_t)
+                  wgc[row * n_t + col] = acc[i][2 * h + c];
+              }
             }
           }
         }
@@ -897,13 +1045,13 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_ut_b_kernel(
   // term in every channel under self_all, else in the atom's own), written
   // as the plain version lays ut out: every channel's real parts, then
   // every channel's imaginary parts; kept as (re, im) pairs for the B terms
-  double* sud = reinterpret_cast<double*>(su);
+  T* sud = reinterpret_cast<T*>(su);
   const int cu = nchem * U;
-  for (int i = tid; i < nchem * two_u; i += T) {
+  for (int i = tid; i < nchem * two_u; i += nth) {
     const int ec = i / two_u, u = i - ec * two_u;
-    const double* wgc = wg + ec * nt2;
+    const T* wgc = wg + ec * nt2;
     const int q0 = lgc_ptr[u], q1 = lgc_ptr[u + 1];
-    double acc = 0.0;
+    T acc = T(0);
     for (int q = q0; q < q1; ++q) acc += wgc[lgc_row[q]] * lgc_val[q];
     if (self_all || ec == ie) acc += selfvec[u];
     const int im = u < U ? 0 : 1;
@@ -915,27 +1063,27 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_ut_b_kernel(
 
   // the B terms: slot s sums its segment's `per` terms in order,
   // K9_BATCH loaded at a time
-  for (int sl = tid; sl < stride; sl += T) {
-    double acc = 0.0;
+  for (int sl = tid; sl < stride; sl += nth) {
+    T acc = T(0);
     for (int j0 = 0; j0 < per; j0 += K9_BATCH) {
       long long kk[K9_BATCH];
-      double cc[K9_BATCH];
+      T cc[K9_BATCH];
 #pragma unroll
       for (int r = 0; r < K9_BATCH; ++r) {
         const bool in = j0 + r < per;
         kk[r] = in ? bs_key[(j0 + r) * static_cast<long long>(stride) + sl]
                    : 0;
         cc[r] = in ? bs_fac[(j0 + r) * static_cast<long long>(stride) + sl]
-                   : 0.0;
+                   : T(0);
       }
 #pragma unroll
       for (int r = 0; r < K9_BATCH; ++r) {
         if (j0 + r >= per) break;
-        const double2 x = su[kk[r] & 0xffff];
-        const double2 y = su[(kk[r] >> 16) & 0xffff];
-        const double2 z = su[kk[r] >> 32];
-        const double ab_r = x.x * y.x - x.y * y.y;
-        const double ab_i = x.x * y.y + x.y * y.x;
+        const T2 x = su[kk[r] & 0xffff];
+        const T2 y = su[(kk[r] >> 16) & 0xffff];
+        const T2 z = su[kk[r] >> 32];
+        const T ab_r = x.x * y.x - x.y * y.y;
+        const T ab_i = x.x * y.y + x.y * y.x;
         acc += (ab_r * z.x + ab_i * z.y) * cc[r];
       }
     }
@@ -944,8 +1092,8 @@ __global__ void __launch_bounds__(MAXT, MINB) nn_ut_b_kernel(
   __syncthreads();
 
   // a descriptor: its segments' sums in order, less bzero
-  for (int t = tid; t < W; t += T) {
-    double acc = 0.0;
+  for (int t = tid; t < W; t += nth) {
+    T acc = T(0);
     for (int q = bs_seg[t]; q < bs_seg[t + 1]; ++q) acc += part[q];
     if (bzero != nullptr) acc -= bzero[t];
     B[a * W + t] = acc;
@@ -961,6 +1109,152 @@ Scalars scalars(double rcutfac, double rfac0, double rmin0, int switchflag,
   s.switchflag = switchflag;
   s.switchinnerflag = switchinnerflag;
   return s;
+}
+
+template <typename T>
+int nn_ut_b_launch(const T* disp, const int* jelem, const unsigned char* mask,
+                   const int* ielem, const T* elem, double rcutfac,
+                   double rfac0, double rmin0, int switchflag,
+                   int switchinnerflag, long long natoms, int K, int n_t,
+                   const int* pidx, const int* qidx, const int* lgc_ptr,
+                   const int* lgc_row, const T* lgc_val, int two_u,
+                   const T* selfvec, int nchem, int self_all, int threads,
+                   int per, int stride, const long long* bs_key,
+                   const T* bs_fac, const int* bs_seg, int W, const T* bzero,
+                   T* ut, T* B, void* stream) {
+  const int twojmax = grid_twojmax(n_t);
+  if (twojmax < 0 || threads % 32 != 0 || threads > 1024 || stride < threads
+      || nchem < 1 || static_cast<long long>(nchem) * (two_u / 2) > 1 << 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FtShape sh(n_t);
+  const size_t ints = static_cast<size_t>(sh.np) + K + 33 + nchem + 1;
+  auto bytes = [&](int chunk, int kp) {
+    return (k9_wg(n_t, nchem)
+            + k9_work(sh, twojmax, chunk, kp, two_u, nchem, stride)
+            + static_cast<size_t>(chunk) * FT_STAGE) * sizeof(T)
+           + ints * sizeof(int);
+  };
+  // the widest k-tile beside a full chunk, else k-tiles of 8 pairs and the
+  // chunk that fits
+  const int full = ft_chunk(threads, K);
+  int kp = K9_PAIRS;
+  while (kp > 8 && bytes(full, kp) > FS_SMEM_LIMIT) kp -= 8;
+  int chunk = full;
+  while (chunk > 1 && bytes(chunk, kp) > FS_SMEM_LIMIT) --chunk;
+  if (bytes(chunk, kp) > FS_SMEM_LIMIT)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t work = k9_wg(n_t, nchem)
+                      + k9_work(sh, twojmax, chunk, kp, two_u, nchem, stride);
+  const auto kernel =
+      threads <= K9_NARROW_THREADS
+          ? nn_ut_b_kernel<T, K9_NARROW_THREADS, K9_NARROW_BLOCKS, 1>
+          : nn_ut_b_kernel<T, 1024, 1, FT_TILES>;
+  const int err = fs_allow_smem(kernel, bytes(chunk, kp));
+  if (err) return err;
+  if (natoms > 0) {
+    kernel<<<static_cast<unsigned>(natoms), threads, bytes(chunk, kp),
+             static_cast<cudaStream_t>(stream)>>>(
+        disp, jelem, mask, ielem, elem,
+        scalars(rcutfac, rfac0, rmin0, switchflag, switchinnerflag), K, n_t,
+        twojmax, pidx, qidx, lgc_ptr, lgc_row, lgc_val, two_u, selfvec, nchem,
+        self_all, per, stride, bs_key, bs_fac, bs_seg,
+        W, bzero, chunk, kp, work, ut, B);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int nn_pair_force_launch(const T* vg, const T* disp, const int* jelem,
+                         const unsigned char* mask, const int* ielem,
+                         const T* elem, double rcutfac, double rfac0,
+                         double rmin0, int switchflag, int switchinnerflag,
+                         long long natoms, int K, int n_t, const int* pidx,
+                         const int* qidx, T* g, void* stream) {
+  const int twojmax = grid_twojmax(n_t);
+  if (twojmax < 0) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const bool wide = natoms <= 2LL * sms;
+  const int threads = wide ? 256 : 128;
+  const FtShape sh(n_t);
+  // the chunk's records take the shared memory that vg and the rest leave,
+  // so that a large grid runs more, smaller chunks
+  const int rec_len = ff_rec_len_t<T>(twojmax, n_t);
+  const size_t fixed = static_cast<size_t>(sh.np) * sh.ldb + (twojmax + 2)
+                       + threads / 32 * 48;
+  const long long fixed_bytes = static_cast<long long>(
+      fixed * sizeof(T) + (sh.np + K + 33) * sizeof(int));
+  const long long room = (static_cast<long long>(FS_SMEM_LIMIT) - fixed_bytes)
+                         / static_cast<long long>(rec_len * sizeof(T)
+                                                  + sizeof(int));
+  const int chunk = static_cast<int>(
+      room < ft_chunk(threads, K) ? room : ft_chunk(threads, K));
+  if (chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t work = fixed + static_cast<size_t>(chunk) * rec_len;
+  const size_t smem = work * sizeof(T)
+                      + (sh.np + chunk + K + 33) * sizeof(int);
+  const auto kernel = wide ? nn_pair_force_kernel<T, 256, 2>
+                           : nn_pair_force_kernel<T, 128, 4>;
+  const int err = fs_allow_smem(kernel, smem);
+  if (err) return err;
+  if (natoms > 0) {
+    kernel<<<static_cast<unsigned>(natoms), threads, smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        vg, disp, jelem, mask, ielem, elem,
+        scalars(rcutfac, rfac0, rmin0, switchflag, switchinnerflag), K, n_t,
+        twojmax, pidx, qidx, chunk, work, g);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int nn_pair_force_t_launch(const T* gF, const int* jidx, const T* disp,
+                           const int* jelem, const unsigned char* mask,
+                           const int* ielem, const T* elem, double rcutfac,
+                           double rfac0, double rmin0, int switchflag,
+                           int switchinnerflag, long long natoms, int A,
+                           int K, int n_t, const int* pidx, const int* qidx,
+                           T* vgc, void* stream) {
+  const int twojmax = grid_twojmax(n_t);
+  if (twojmax < 0) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr bool F64 = std::is_same<T, double>::value;
+  // a warp a FT_TILES output tiles, at least four warps; where that takes
+  // more than 1,024 threads (twojmax 15 and up), the tiles split evenly
+  // over the fewest blocks an atom that keep to 1,024 (float32: one block
+  // an atom, its threads sharing the grid's entries)
+  const FtShape sh(n_t);
+  int tsplit = 1, tper = sh.tiles, threads = 0;
+  for (;; ++tsplit) {
+    tper = (sh.tiles + tsplit - 1) / tsplit;
+    threads = max(128, (tper + FT_TILES - 1) / FT_TILES * 32);
+    if (threads <= 1024) break;
+    if (!F64) {
+      tsplit = 1;
+      tper = sh.tiles;
+      threads = 1024;
+      break;
+    }
+  }
+  const int chunk = ft_chunk(threads, K);
+  const size_t work = static_cast<size_t>(chunk) * (FT_REC + 4 * (twojmax + 2))
+                      + 2 * FT_PAIRS * (sh.lda + sh.ldb)
+                      + (F64 ? 0 : static_cast<size_t>(n_t) * n_t);
+  const size_t smem = (work + static_cast<size_t>(chunk) * FT_STAGE)
+                      * sizeof(T) + (K + 33) * sizeof(int);
+  if (smem > FS_SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = threads > 256 ? nn_pair_force_t_kernel<T, 1024, 1>
+                                    : nn_pair_force_t_kernel<T, 256, 2>;
+  const int err = fs_allow_smem(kernel, smem);
+  if (err) return err;
+  if (natoms > 0) {
+    kernel<<<dim3(static_cast<unsigned>(natoms), tsplit), threads, smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        gF, jidx, disp, jelem, mask, ielem, elem,
+        scalars(rcutfac, rfac0, rmin0, switchflag, switchinnerflag), A, K,
+        n_t, twojmax, pidx, qidx, work, tper, vgc);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -990,45 +1284,33 @@ extern "C" int nn_ut_b(const double* disp, const int* jelem,
                        const double* bs_fac, const int* bs_seg, int W,
                        const double* bzero, double* ut, double* B,
                        void* stream) {
-  const int twojmax = grid_twojmax(n_t);
-  if (twojmax < 0 || threads % 32 != 0 || threads > 1024 || stride < threads
-      || nchem < 1 || static_cast<long long>(nchem) * (two_u / 2) > 1 << 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const FtShape sh(n_t);
-  const size_t ints = static_cast<size_t>(sh.np) + K + 33 + nchem + 1;
-  auto bytes = [&](int chunk, int kp) {
-    return (k9_wg(n_t, nchem)
-            + k9_work(sh, twojmax, chunk, kp, two_u, nchem, stride)
-            + static_cast<size_t>(chunk) * FT_STAGE) * sizeof(double)
-           + ints * sizeof(int);
-  };
-  // the widest k-tile beside a full chunk, else k-tiles of 8 pairs and the
-  // chunk that fits
-  const int full = ft_chunk(threads, K);
-  int kp = K9_PAIRS;
-  while (kp > 8 && bytes(full, kp) > FS_SMEM_LIMIT) kp -= 8;
-  int chunk = full;
-  while (chunk > 1 && bytes(chunk, kp) > FS_SMEM_LIMIT) --chunk;
-  if (bytes(chunk, kp) > FS_SMEM_LIMIT)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t work = k9_wg(n_t, nchem)
-                      + k9_work(sh, twojmax, chunk, kp, two_u, nchem, stride);
-  const auto kernel =
-      threads <= K9_NARROW_THREADS
-          ? nn_ut_b_kernel<K9_NARROW_THREADS, K9_NARROW_BLOCKS, 1>
-          : nn_ut_b_kernel<1024, 1, FT_TILES>;
-  const int err = fs_allow_smem(kernel, bytes(chunk, kp));
-  if (err) return err;
-  if (natoms > 0) {
-    kernel<<<static_cast<unsigned>(natoms), threads, bytes(chunk, kp),
-             static_cast<cudaStream_t>(stream)>>>(
-        disp, jelem, mask, ielem, elem,
-        scalars(rcutfac, rfac0, rmin0, switchflag, switchinnerflag), K, n_t,
-        twojmax, pidx, qidx, lgc_ptr, lgc_row, lgc_val, two_u, selfvec, nchem,
-        self_all, per, stride, bs_key, bs_fac, bs_seg,
-        W, bzero, chunk, kp, work, ut, B);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return nn_ut_b_launch<double>(
+      disp, jelem, mask, ielem, elem, rcutfac, rfac0, rmin0, switchflag,
+      switchinnerflag, natoms, K, n_t, pidx, qidx, lgc_ptr, lgc_row, lgc_val,
+      two_u, selfvec, nchem, self_all, threads, per, stride, bs_key, bs_fac,
+      bs_seg, W, bzero, ut, B, stream);
+}
+
+// The float32 instantiation: disp, elem, lgc_val, selfvec, bs_fac, bzero,
+// ut and B f32 (a float32 plan's tables), the scalars f64 (rounded to f32
+// in the prologue).
+extern "C" int nn_ut_b_f32(const float* disp, const int* jelem,
+                           const unsigned char* mask, const int* ielem,
+                           const float* elem, double rcutfac, double rfac0,
+                           double rmin0, int switchflag, int switchinnerflag,
+                           long long natoms, int K, int n_t, const int* pidx,
+                           const int* qidx, const int* lgc_ptr,
+                           const int* lgc_row, const float* lgc_val,
+                           int two_u, const float* selfvec, int nchem,
+                           int self_all, int threads, int per, int stride,
+                           const long long* bs_key, const float* bs_fac,
+                           const int* bs_seg, int W, const float* bzero,
+                           float* ut, float* B, void* stream) {
+  return nn_ut_b_launch<float>(
+      disp, jelem, mask, ielem, elem, rcutfac, rfac0, rmin0, switchflag,
+      switchinnerflag, natoms, K, n_t, pidx, qidx, lgc_ptr, lgc_row, lgc_val,
+      two_u, selfvec, nchem, self_all, threads, per, stride, bs_key, bs_fac,
+      bs_seg, W, bzero, ut, B, stream);
 }
 
 // vg (N, n_t, n_t) f64 and the pairs as nn_ut_b's.  Writes g (N, K, 3).
@@ -1042,42 +1324,23 @@ extern "C" int nn_pair_force(const double* vg, const double* disp,
                              long long natoms, int K, int n_t,
                              const int* pidx, const int* qidx, double* g,
                              void* stream) {
-  const int twojmax = grid_twojmax(n_t);
-  if (twojmax < 0) return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const bool wide = natoms <= 2LL * sms;
-  const int threads = wide ? 256 : 128;
-  const FtShape sh(n_t);
-  // the chunk's records take the shared memory that vg and the rest leave,
-  // so that a large grid runs more, smaller chunks
-  const int rec_len = ff_rec_len(twojmax);
-  const size_t fixed = static_cast<size_t>(sh.np) * sh.ldb + (twojmax + 2)
-                       + threads / 32 * 48;
-  const long long fixed_bytes = static_cast<long long>(
-      fixed * sizeof(double) + (sh.np + K + 33) * sizeof(int));
-  const long long room = (static_cast<long long>(FS_SMEM_LIMIT) - fixed_bytes)
-                         / static_cast<long long>(rec_len * sizeof(double)
-                                                  + sizeof(int));
-  const int chunk = static_cast<int>(
-      room < ft_chunk(threads, K) ? room : ft_chunk(threads, K));
-  if (chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t work = fixed + static_cast<size_t>(chunk) * rec_len;
-  const size_t smem = work * sizeof(double)
-                      + (sh.np + chunk + K + 33) * sizeof(int);
-  const auto kernel = wide ? nn_pair_force_kernel<256, 2>
-                           : nn_pair_force_kernel<128, 4>;
-  const int err = fs_allow_smem(kernel, smem);
-  if (err) return err;
-  if (natoms > 0) {
-    kernel<<<static_cast<unsigned>(natoms), threads, smem,
-             static_cast<cudaStream_t>(stream)>>>(
-        vg, disp, jelem, mask, ielem, elem,
-        scalars(rcutfac, rfac0, rmin0, switchflag, switchinnerflag), K, n_t,
-        twojmax, pidx, qidx, chunk, work, g);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return nn_pair_force_launch<double>(
+      vg, disp, jelem, mask, ielem, elem, rcutfac, rfac0, rmin0, switchflag,
+      switchinnerflag, natoms, K, n_t, pidx, qidx, g, stream);
+}
+
+// The float32 instantiation: vg, disp, elem and g f32.
+extern "C" int nn_pair_force_f32(const float* vg, const float* disp,
+                                 const int* jelem, const unsigned char* mask,
+                                 const int* ielem, const float* elem,
+                                 double rcutfac, double rfac0, double rmin0,
+                                 int switchflag, int switchinnerflag,
+                                 long long natoms, int K, int n_t,
+                                 const int* pidx, const int* qidx, float* g,
+                                 void* stream) {
+  return nn_pair_force_launch<float>(
+      vg, disp, jelem, mask, ielem, elem, rcutfac, rfac0, rmin0, switchflag,
+      switchinnerflag, natoms, K, n_t, pidx, qidx, g, stream);
 }
 
 // gF (N, 3) f64 (N = configs x A atoms), jidx (N, K) i32 (atom index within
@@ -1090,33 +1353,25 @@ extern "C" int nn_pair_force_t(const double* gF, const int* jidx,
                                int switchinnerflag, long long natoms, int A,
                                int K, int n_t, const int* pidx,
                                const int* qidx, double* vgc, void* stream) {
-  const int twojmax = grid_twojmax(n_t);
-  if (twojmax < 0) return static_cast<int>(cudaErrorInvalidValue);
-  // a warp a FT_TILES output tiles, at least four warps; where that takes
-  // more than 1,024 threads (twojmax 15 and up), the tiles split evenly
-  // over the fewest blocks an atom that keep to 1,024
-  const FtShape sh(n_t);
-  int tsplit = 1, tper = sh.tiles, threads = 0;
-  for (;; ++tsplit) {
-    tper = (sh.tiles + tsplit - 1) / tsplit;
-    threads = max(128, (tper + FT_TILES - 1) / FT_TILES * 32);
-    if (threads <= 1024) break;
-  }
-  const int chunk = ft_chunk(threads, K);
-  const size_t work = static_cast<size_t>(chunk) * (FT_REC + 4 * (twojmax + 2))
-                      + 2 * FT_PAIRS * (sh.lda + sh.ldb);
-  const size_t smem = (work + static_cast<size_t>(chunk) * FT_STAGE)
-                      * sizeof(double) + (K + 33) * sizeof(int);
-  const auto kernel = threads > 256 ? nn_pair_force_t_kernel<1024, 1>
-                                    : nn_pair_force_t_kernel<256, 2>;
-  const int err = fs_allow_smem(kernel, smem);
-  if (err) return err;
-  if (natoms > 0) {
-    kernel<<<dim3(static_cast<unsigned>(natoms), tsplit), threads, smem,
-             static_cast<cudaStream_t>(stream)>>>(
-        gF, jidx, disp, jelem, mask, ielem, elem,
-        scalars(rcutfac, rfac0, rmin0, switchflag, switchinnerflag), A, K,
-        n_t, twojmax, pidx, qidx, work, tper, vgc);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return nn_pair_force_t_launch<double>(
+      gF, jidx, disp, jelem, mask, ielem, elem, rcutfac, rfac0, rmin0,
+      switchflag, switchinnerflag, natoms, A, K, n_t, pidx, qidx, vgc,
+      stream);
+}
+
+// The float32 instantiation: gF, disp, elem and vgc f32.
+extern "C" int nn_pair_force_t_f32(const float* gF, const int* jidx,
+                                   const float* disp, const int* jelem,
+                                   const unsigned char* mask,
+                                   const int* ielem, const float* elem,
+                                   double rcutfac, double rfac0,
+                                   double rmin0, int switchflag,
+                                   int switchinnerflag, long long natoms,
+                                   int A, int K, int n_t, const int* pidx,
+                                   const int* qidx, float* vgc,
+                                   void* stream) {
+  return nn_pair_force_t_launch<float>(
+      gF, jidx, disp, jelem, mask, ielem, elem, rcutfac, rfac0, rmin0,
+      switchflag, switchinnerflag, natoms, A, K, n_t, pidx, qidx, vgc,
+      stream);
 }

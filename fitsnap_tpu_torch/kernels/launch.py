@@ -9,11 +9,15 @@ the inputs' dtype, shape and layout before a launch.
 
 Working types: every kernel runs at float64.  The kernels of the streamed
 linear SNAP fit (K1 in its window shape, K2, K3 in whole rows, K4, K5's
-`zbl_eav`, K7, K8) also have a float32 instantiation, an entry point
-named with `_f32`; their wrappers take the inputs' one float type
+`zbl_eav`, K7, K8) and those of the NN solver's cached and OTF modes of
+linear SNAP networks (K9, K10, K10T, K11, K11T and the force gather, up
+to twojmax 12) also have a float32 instantiation, an entry point named
+with `_f32`; their wrappers take the inputs' one float type
 (`float_type`).  Every other mode refuses float32 with the `ROADMAP.md`
-queue item that ports it (`check`'s `queue`, the `QUEUE_*` titles), and
-none of them falls back to float64 or to its plain version.
+queue item that ports it (`check`'s `queue`, the `QUEUE_*` titles; the NN
+solver's precompute, pairwise and PAS modes, K12, K12T and K15-K15T:
+`QUEUE_NN`), and none of them falls back to float64 or to its plain
+version.
 """
 
 import ctypes

@@ -18,6 +18,13 @@ backward: K11T, then K10T on the z-lists the forward formed).  Each wrapper
 takes its plain version for tensors on the CPU, launches its kernel for
 tensors on a CUDA device, and raises for anything else.  Every launch adds
 one to the wrapper's `launches` count.
+
+Working types: K9, K10, K10T, K11, K11T and the gather take float64 or
+float32 inputs (`kl.float_type`; the plan at their type,
+`SnapParams.cast`), each type its own entry point (`_f32`), launches
+counted apart (`launches()["<name>_f32"]`).  At float32 they take one
+element channel up to twojmax F32_TWOJMAX (the linear SNAP networks'
+cached and OTF modes); K12 and K12T refuse float32 with QUEUE_NN.
 """
 
 from functools import partial
@@ -31,22 +38,47 @@ from fitsnap_tpu_torch.kernels.launch import (launch as _launch,
 from fitsnap_tpu_torch.ops import snap as ops
 
 _P, _I, _LL, _D = kl.P, kl.I, kl.LL, kl.D
-# float64 only: float32 names its ROADMAP.md queue item
+# K12 and K12T: float64 only, float32 names its ROADMAP.md queue item
 _check = partial(kl.check, queue=kl.QUEUE_NN)
+# the largest twojmax of the float32 entry points (that of K1's window
+# shape, which the float32 streamed fit takes)
+F32_TWOJMAX = 12
 kl.register("nn_force", "nn_force", [_P] * 2 + [_I] * 4 + [_P] * 2)
-kl.register("nn_pair_gather", "nn_force", [_P] * 2 + [_I] * 4 + [_P] * 2)
 kl.register("nn_force_t", "nn_force", [_P] * 3 + [_I] * 4 + [_P] * 2)
 _PAIRS = [_D] * 3 + [_I] * 2 + [_LL]    # prologue scalars, pair count
-kl.register("nn_ut_b", "nn_grid", [_P] * 5 + _PAIRS + [_I] * 2 + [_P] * 5
-            + [_I] + [_P] + [_I] * 5 + [_P] * 3 + [_I] + [_P] * 4)
-kl.register("nn_pair_force", "nn_grid", [_P] * 6 + _PAIRS + [_I] * 2
-            + [_P] * 4)
-kl.register("nn_pair_force_t", "nn_grid", [_P] * 7 + _PAIRS + [_I] * 3
-            + [_P] * 4)
-kl.register("nn_dedu_vg", "nn_dedu", [_P] * 3 + [_LL] + [_I] * 6 + [_P] * 4
-            + [_I] + [_P] + [_I] * 4 + [_P] * 5)
-kl.register("nn_dedu_vg_t", "nn_dedu", [_P] * 3 + [_LL] + [_I] * 4
-            + [_P] * 3 + [_I] * 2 + [_P] + [_I] * 3 + [_P] * 5)
+for _sfx in ("", "_f32"):
+    kl.register("nn_pair_gather" + _sfx, "nn_force",
+                [_P] * 2 + [_I] * 4 + [_P] * 2)
+    kl.register("nn_ut_b" + _sfx, "nn_grid",
+                [_P] * 5 + _PAIRS + [_I] * 2 + [_P] * 5 + [_I] + [_P]
+                + [_I] * 5 + [_P] * 3 + [_I] + [_P] * 4)
+    kl.register("nn_pair_force" + _sfx, "nn_grid",
+                [_P] * 6 + _PAIRS + [_I] * 2 + [_P] * 4)
+    kl.register("nn_pair_force_t" + _sfx, "nn_grid",
+                [_P] * 7 + _PAIRS + [_I] * 3 + [_P] * 4)
+    kl.register("nn_dedu_vg" + _sfx, "nn_dedu",
+                [_P] * 3 + [_LL] + [_I] * 6 + [_P] * 4 + [_I] + [_P]
+                + [_I] * 4 + [_P] * 5)
+    kl.register("nn_dedu_vg_t" + _sfx, "nn_dedu",
+                [_P] * 3 + [_LL] + [_I] * 4 + [_P] * 3 + [_I] * 2 + [_P]
+                + [_I] * 3 + [_P] * 5)
+
+
+def _working_type(name, p, *tensors):
+    """The float type of a pair-grid wrapper's inputs (`kl.float_type`),
+    with the plan at that type; float32 takes one element channel up to
+    twojmax F32_TWOJMAX, else names the ROADMAP.md queue item that ports
+    it."""
+    dt = kl.float_type(name, *tensors)
+    sk._plan_type(p, dt, name)
+    if dt == torch.float32:
+        if p.nchem != 1:
+            raise kl.f32_refusal(f"{name} with {p.nchem} element channels",
+                                 kl.QUEUE_CHEM)
+        if p.twojmax > F32_TWOJMAX:
+            raise kl.f32_refusal(f"{name} at twojmax {p.twojmax}",
+                                 kl.QUEUE_LARGE)
+    return dt
 
 
 # ---------------------------------------------------------------------------
@@ -93,16 +125,17 @@ def _check_pairs(G, jidx_or_rev, name):
 
 def nn_pair_gather(g, rev):
     """The force gather on the card; same arguments and output as the plain
-    version."""
+    version, g f64 or f32 (the forces at its type)."""
     if _on_cpu(g, rev):
         return nn_pair_gather_plain(g, rev)
     N, A, K, _ = g.shape
-    _check(g, "g", torch.float64, (N, A, K, 3))
-    _check(rev, "rev", torch.int32, (N, A, rev.shape[2]))
-    force = torch.empty((N, A, 3), dtype=torch.float64, device=g.device)
-    _launch("nn_pair_gather", g.device, _ptr(g), _ptr(rev), N, A, K,
-            rev.shape[2], _ptr(force))
-    nn_pair_gather.launches += 1
+    dt = kl.float_type("nn_pair_gather", g)
+    kl.check(g, "g", dt, (N, A, K, 3))
+    kl.check(rev, "rev", torch.int32, (N, A, rev.shape[2]))
+    force = torch.empty((N, A, 3), dtype=dt, device=g.device)
+    _launch(kl.entry("nn_pair_gather", dt), g.device, _ptr(g), _ptr(rev), N,
+            A, K, rev.shape[2], _ptr(force))
+    kl.count(nn_pair_gather, dt)
     return force
 
 
@@ -163,12 +196,12 @@ def _one_channel(p, name):
     return ops.nn_tables(p)
 
 
-def _check_block(disp, jelem, mask, ielem):
+def _check_block(disp, jelem, mask, ielem, dt):
     N, K = mask.shape
-    _check(disp, "disp", torch.float64, (N, K, 3))
-    _check(jelem, "jelem", torch.int32, (N, K))
-    _check(mask, "mask", torch.bool, (N, K))
-    _check(ielem, "ielem", torch.int32, (N,))
+    kl.check(disp, "disp", dt, (N, K, 3))
+    kl.check(jelem, "jelem", torch.int32, (N, K))
+    kl.check(mask, "mask", torch.bool, (N, K))
+    kl.check(ielem, "ielem", torch.int32, (N,))
     return N, K
 
 
@@ -185,26 +218,29 @@ def nn_ut_b_plain(disp, jelem, mask, ielem, p):
 
 
 def nn_ut_b(disp, jelem, mask, ielem, p):
-    """K9 on the card, in one element channel or (chemflag) several; same
-    arguments and outputs as the plain version (jelem, ielem int32, mask
+    """K9 on the card, in one element channel or (chemflag, float64)
+    several; same arguments and outputs as the plain version (disp f64 or
+    f32, the plan and the outputs at its type; jelem, ielem int32, mask
     bool).  B holds the base descriptors also under quadraticflag."""
     if _on_cpu(disp, jelem, mask, ielem):
         return nn_ut_b_plain(disp, jelem, mask, ielem, p)
     sk.check_twojmax(p, "K9")
+    dt = _working_type("nn_ut_b", p, disp)
     tb = ops.nn_tables(p)
-    N, K = _check_block(disp, jelem, mask, ielem)
+    N, K = _check_block(disp, jelem, mask, ielem, dt)
     two_u, W, dev = 2 * p.u_len, p.nb_base, disp.device
-    ut = torch.empty((N, p.nchem * two_u), dtype=torch.float64, device=dev)
-    B = torch.empty((N, W), dtype=torch.float64, device=dev)
+    ut = torch.empty((N, p.nchem * two_u), dtype=dt, device=dev)
+    B = torch.empty((N, W), dtype=dt, device=dev)
     bs = tb.bterm
-    _launch("nn_ut_b", dev, _ptr(disp), _ptr(jelem), _ptr(mask), _ptr(ielem),
-            *_prologue_args(p), N, K, tb.n_t, _ptr(tb.pidx), _ptr(tb.qidx),
+    _launch(kl.entry("nn_ut_b", dt), dev, _ptr(disp), _ptr(jelem),
+            _ptr(mask), _ptr(ielem), *_prologue_args(p), N, K, tb.n_t,
+            _ptr(tb.pidx), _ptr(tb.qidx),
             _ptr(tb.lgc_ptr), _ptr(tb.lgc_row), _ptr(tb.lgc_val), two_u,
             _ptr(p.selfvec), p.nchem, int(p.nchem == 1 or p.wselfallflag),
             bs.threads, bs.per, bs.stride, _ptr(bs.key), _ptr(bs.fac),
             _ptr(bs.seg), W, _ptr(p.bzero) if p.bzeroflag else None,
             _ptr(ut), _ptr(B))
-    nn_ut_b.launches += 1
+    kl.count(nn_ut_b, dt)
     return ut, B
 
 
@@ -214,30 +250,32 @@ def nn_dedu_vg_plain(dEdB, z_r, z_i, p):
     return ops.nn_vg(ops.nn_dEdu(dEdB, None, p, (z_r, z_i)), p)
 
 
-def _check_z(z_r, z_i, N, p):
-    _check(z_r, "z_r", torch.float64, (N, p.nz))
-    _check(z_i, "z_i", torch.float64, (N, p.nz))
+def _check_z(z_r, z_i, N, p, dt):
+    kl.check(z_r, "z_r", dt, (N, p.nz))
+    kl.check(z_i, "z_i", dt, (N, p.nz))
 
 
 def nn_dedu_vg(dEdB, z_r, z_i, p):
-    """K10 on the card; same arguments and output as the plain version."""
+    """K10 on the card; same arguments and output as the plain version
+    (f64 or f32, the plan at their type)."""
     if _on_cpu(dEdB, z_r, z_i):
         return nn_dedu_vg_plain(dEdB, z_r, z_i, p)
     sk.check_twojmax(p, "K10")
+    dt = _working_type("nn_dedu_vg", p, dEdB, z_r, z_i)
     tb = _one_channel(p, "nn_dedu_vg")
     N, W = dEdB.shape
-    _check(dEdB, "dEdB", torch.float64, (N, p.ntriples))
-    _check_z(z_r, z_i, N, p)
-    vg = torch.empty((N, tb.n_t, tb.n_t), dtype=torch.float64,
-                     device=dEdB.device)
+    kl.check(dEdB, "dEdB", dt, (N, p.ntriples))
+    _check_z(z_r, z_i, N, p, dt)
+    vg = torch.empty((N, tb.n_t, tb.n_t), dtype=dt, device=dEdB.device)
     yc = tb.ycol
-    _launch("nn_dedu_vg", dEdB.device, _ptr(dEdB), _ptr(z_r), _ptr(z_i), N,
-            W, p.nz, 2 * p.u_len, tb.n_t ** 2, tb.lgr_row.numel(),
+    _launch(kl.entry("nn_dedu_vg", dt), dEdB.device, _ptr(dEdB), _ptr(z_r),
+            _ptr(z_i), N, W, p.nz, 2 * p.u_len, tb.n_t ** 2,
+            tb.lgr_row.numel(),
             tb.lgr_val.numel(), _ptr(tb.lgr_row), _ptr(tb.lgr_ptr),
             _ptr(tb.lgr_col), _ptr(tb.lgr_val),
             tb.yz_src.numel(), _ptr(tb.yz_src), yc.threads, yc.per, yc.stride,
             tb.key_bits, _ptr(yc.key), _ptr(yc.fac), _ptr(yc.seg), _ptr(vg))
-    nn_dedu_vg.launches += 1
+    kl.count(nn_dedu_vg, dt)
     return vg
 
 
@@ -257,26 +295,27 @@ def nn_dedu_vg_t_plain(vgc, z_r, z_i, p):
 
 
 def nn_dedu_vg_t(vgc, z_r, z_i, p):
-    """K10T on the card; same arguments and output as the plain version."""
+    """K10T on the card; same arguments and output as the plain version
+    (f64 or f32, the plan at their type)."""
     if _on_cpu(vgc, z_r, z_i):
         return nn_dedu_vg_t_plain(vgc, z_r, z_i, p)
     sk.check_twojmax(p, "K10T")
+    dt = _working_type("nn_dedu_vg_t", p, vgc, z_r, z_i)
     tb = _one_channel(p, "nn_dedu_vg_t")
     N = vgc.shape[0]
-    _check(vgc, "vgc", torch.float64, (N, tb.n_t, tb.n_t))
-    _check_z(z_r, z_i, N, p)
-    out = torch.empty((N, p.ntriples), dtype=torch.float64,
-                      device=vgc.device)
+    kl.check(vgc, "vgc", dt, (N, tb.n_t, tb.n_t))
+    _check_z(z_r, z_i, N, p, dt)
+    out = torch.empty((N, p.ntriples), dtype=dt, device=vgc.device)
     ys = tb.ydesc
     if ys.stride != ys.threads:
         raise ValueError(f"nn_dedu_vg_t: {p.ntriples} descriptors exceed a "
                          f"block (one slot a thread)")
-    _launch("nn_dedu_vg_t", vgc.device, _ptr(vgc), _ptr(z_r), _ptr(z_i), N,
-            p.ntriples, p.nz, 2 * p.u_len, tb.lgc_val.numel(),
+    _launch(kl.entry("nn_dedu_vg_t", dt), vgc.device, _ptr(vgc), _ptr(z_r),
+            _ptr(z_i), N, p.ntriples, p.nz, 2 * p.u_len, tb.lgc_val.numel(),
             _ptr(tb.lgc_ptr), _ptr(tb.lgc_row), _ptr(tb.lgc_val), tb.n_t ** 2,
             tb.yz_src.numel(), _ptr(tb.yz_src), ys.threads, ys.per,
             tb.key_bits, _ptr(ys.key), _ptr(ys.fac), _ptr(ys.seg), _ptr(out))
-    nn_dedu_vg_t.launches += 1
+    kl.count(nn_dedu_vg_t, dt)
     return out
 
 
@@ -288,18 +327,21 @@ def nn_pair_force_plain(vg, disp, jelem, mask, ielem, p):
 
 
 def nn_pair_force(vg, disp, jelem, mask, ielem, p):
-    """K11 on the card; same arguments and output as the plain version."""
+    """K11 on the card; same arguments and output as the plain version
+    (vg and disp f64 or f32, the plan at their type)."""
     if _on_cpu(vg, disp, jelem, mask, ielem):
         return nn_pair_force_plain(vg, disp, jelem, mask, ielem, p)
     sk.check_twojmax(p, "K11")
+    dt = _working_type("nn_pair_force", p, vg, disp)
     tb = _one_channel(p, "nn_pair_force")
-    N, K = _check_block(disp, jelem, mask, ielem)
-    _check(vg, "vg", torch.float64, (N, tb.n_t, tb.n_t))
-    g = torch.empty((N, K, 3), dtype=torch.float64, device=disp.device)
-    _launch("nn_pair_force", disp.device, _ptr(vg), _ptr(disp), _ptr(jelem),
-            _ptr(mask), _ptr(ielem), *_prologue_args(p), N, K, tb.n_t,
-            _ptr(tb.pidx), _ptr(tb.qidx), _ptr(g))
-    nn_pair_force.launches += 1
+    N, K = _check_block(disp, jelem, mask, ielem, dt)
+    kl.check(vg, "vg", dt, (N, tb.n_t, tb.n_t))
+    g = torch.empty((N, K, 3), dtype=dt, device=disp.device)
+    _launch(kl.entry("nn_pair_force", dt), disp.device, _ptr(vg),
+            _ptr(disp), _ptr(jelem), _ptr(mask), _ptr(ielem),
+            *_prologue_args(p), N, K, tb.n_t, _ptr(tb.pidx), _ptr(tb.qidx),
+            _ptr(g))
+    kl.count(nn_pair_force, dt)
     return g
 
 
@@ -321,22 +363,24 @@ def nn_pair_force_t_plain(gF, jidx, disp, jelem, mask, ielem, p):
 
 
 def nn_pair_force_t(gF, jidx, disp, jelem, mask, ielem, p):
-    """K11T on the card; same arguments and output as the plain version."""
+    """K11T on the card; same arguments and output as the plain version
+    (gF and disp f64 or f32, the plan at their type)."""
     if _on_cpu(gF, jidx, disp, jelem, mask, ielem):
         return nn_pair_force_t_plain(gF, jidx, disp, jelem, mask, ielem, p)
     sk.check_twojmax(p, "K11T")
+    dt = _working_type("nn_pair_force_t", p, gF, disp)
     tb = _one_channel(p, "nn_pair_force_t")
     N, A, K = jidx.shape
-    _check_block(disp, jelem, mask, ielem)
-    _check(jidx, "jidx", torch.int32, (N, A, K))
-    _check(gF, "gF", torch.float64, (N, A, 3))
-    _check(mask, "mask", torch.bool, (N * A, K))
-    vgc = torch.empty((N * A, tb.n_t, tb.n_t), dtype=torch.float64,
-                      device=disp.device)
-    _launch("nn_pair_force_t", disp.device, _ptr(gF), _ptr(jidx), _ptr(disp),
-            _ptr(jelem), _ptr(mask), _ptr(ielem), *_prologue_args(p), N * A,
-            A, K, tb.n_t, _ptr(tb.pidx), _ptr(tb.qidx), _ptr(vgc))
-    nn_pair_force_t.launches += 1
+    _check_block(disp, jelem, mask, ielem, dt)
+    kl.check(jidx, "jidx", torch.int32, (N, A, K))
+    kl.check(gF, "gF", dt, (N, A, 3))
+    kl.check(mask, "mask", torch.bool, (N * A, K))
+    vgc = torch.empty((N * A, tb.n_t, tb.n_t), dtype=dt, device=disp.device)
+    _launch(kl.entry("nn_pair_force_t", dt), disp.device, _ptr(gF),
+            _ptr(jidx), _ptr(disp), _ptr(jelem), _ptr(mask), _ptr(ielem),
+            *_prologue_args(p), N * A, A, K, tb.n_t, _ptr(tb.pidx),
+            _ptr(tb.qidx), _ptr(vgc))
+    kl.count(nn_pair_force_t, dt)
     return vgc
 
 
@@ -351,6 +395,7 @@ class NnCachedForce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, dEdB, ut, disp, jidx, jelem, mask, ielem, rev, p):
         N, A, K = jidx.shape
+        p = p.cast(dEdB.dtype)
         z_r, z_i = sk.zlist(ut, p)
         vg = nn_dedu_vg(dEdB.contiguous(), z_r, z_i, p)
         g = nn_pair_force(vg, disp, jelem, mask, ielem, p)
@@ -369,16 +414,30 @@ class NnCachedForce(torch.autograd.Function):
 
 KERNELS = (nn_force, nn_force_t, nn_pair_gather, nn_ut_b, nn_dedu_vg,
            nn_dedu_vg_t, nn_pair_force, nn_pair_force_t)
+# the kernels with a float32 instantiation: their float32 launches also
+# count apart (`launches_f32`), reported as "<name>_f32" by `launches`
+F32_KERNELS = (nn_pair_gather, nn_ut_b, nn_dedu_vg, nn_dedu_vg_t,
+               nn_pair_force, nn_pair_force_t)
 for _k in KERNELS:
     _k.launches = 0
+for _k in F32_KERNELS:
+    _k.launches_f32 = 0
 
 
 def reset_launches():
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch counts to 0."""
     for k in KERNELS:
         k.launches = 0
+    for k in F32_KERNELS:
+        k.launches_f32 = 0
 
 
 def launches():
-    """{kernel name: launches since the last reset}."""
-    return {k.__name__: k.launches for k in KERNELS}
+    """{kernel name: float64 launches since the last reset}, and
+    {"<name>_f32": float32 launches} of the kernels with a float32
+    instantiation."""
+    out = {k.__name__: k.launches for k in KERNELS}
+    for k in F32_KERNELS:
+        out[k.__name__] -= k.launches_f32
+        out[k.__name__ + "_f32"] = k.launches_f32
+    return out

@@ -20,9 +20,11 @@ import torch
 from fitsnap_tpu_torch.utils.torchsetup import open_output
 
 
-def init_mlp(layer_sizes, nelements, generator, device):
-    """He-initialised per-element MLP stacks: [(W, b), ...] as float64
-    tensors on `device`.
+def init_mlp(layer_sizes, nelements, generator, device,
+             dtype=torch.float64):
+    """He-initialised per-element MLP stacks: [(W, b), ...] as `dtype`
+    tensors on `device`, drawn at float64 and rounded once to `dtype`, so
+    that one seed gives the same parameters at both types up to rounding.
 
     The output layer's W is zero, so the model starts at its bias (set to
     the mean target by the solver)."""
@@ -35,7 +37,7 @@ def init_mlp(layer_sizes, nelements, generator, device):
             w = torch.randn((nelements, nin, nout), generator=generator,
                             dtype=torch.float64) * np.sqrt(2.0 / nin)
         b = torch.zeros((nelements, nout), dtype=torch.float64)
-        params.append((w.to(device), b.to(device)))
+        params.append((w.to(device, dtype), b.to(device, dtype)))
     return params
 
 
@@ -79,7 +81,7 @@ def atom_energies(params, x, elem):
 
 class PerElementMLP(torch.nn.Module):
     """The model as a module: `layers` holds W0, b0, W1, b1, ... in the
-    JAX package's leaf order."""
+    JAX package's leaf order, at the parameters' own type."""
 
     def __init__(self, params):
         super().__init__()
@@ -105,9 +107,12 @@ def params_to_numpy(params):
 
 
 def save_params(path, params, meta):
-    """The JAX package's pickle: {"params": [(w, b) numpy], "meta": {...}}."""
+    """The JAX package's pickle: {"params": [(w, b) numpy], "meta": {...}},
+    the parameters at their own type, as the JAX package saves them."""
+    flat = [(w.detach().cpu().numpy(), b.detach().cpu().numpy())
+            for w, b in params]
     with open_output(path, "wb") as f:
-        pickle.dump({"params": params_to_numpy(params), "meta": meta}, f)
+        pickle.dump({"params": flat, "meta": meta}, f)
 
 
 def load_params(path):

@@ -649,7 +649,7 @@ class Dealt:
     threads: int
     stride: int
     key: torch.Tensor       # (per * stride,) int32 or int64
-    fac: torch.Tensor       # (per * stride,) f64
+    fac: torch.Tensor       # (per * stride,) at the plan's type
     seg: torch.Tensor       # (groups + 1,) int32
 
 
@@ -676,7 +676,7 @@ class NnTables:
     n_t: int
     pidx: torch.Tensor      # (n_t,) int32
     qidx: torch.Tensor      # (n_t,) int32
-    Lg2: torch.Tensor       # (n_t^2, 2U) f64
+    Lg2: torch.Tensor       # (n_t^2, 2U) at the plan's type
     lgc_ptr: torch.Tensor   # (2U+1,) int32: Lg2 by column
     lgc_row: torch.Tensor
     lgc_val: torch.Tensor
@@ -798,12 +798,14 @@ def deal(ptr, keys, fac, order=None, block=DEAL_BLOCK):
 
 
 def nn_tables(p: SnapParams) -> NnTables:
-    """The pair-grid tables of `p`, built once and kept on it."""
+    """The pair-grid tables of `p`, built once and kept on it; their float
+    tables at the plan's type, each rounded once from its float64 values
+    (as the JAX package's `jnp.asarray(x, dtype)`)."""
     if p.nn is not None:
         return p.nn
     from fitsnap_tpu_torch.ops.mono import grid_plan
 
-    dev, f64, i32 = p.device, torch.float64, torch.int32
+    dev, ft, i32 = p.device, p.dtype, torch.int32
 
     def t(x, dtype=i32):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
@@ -812,7 +814,7 @@ def nn_tables(p: SnapParams) -> NnTables:
         per, threads, stride, key, val, seg = deal(ptr, keys, fac, order,
                                                    block)
         return Dealt(per=per, threads=threads, stride=stride,
-                     key=t(key, dtype), fac=t(val, f64), seg=t(seg))
+                     key=t(key, dtype), fac=t(val, ft), seg=t(seg))
 
     pidx, qidx, Lg = grid_plan(p.twojmax)
     n_t = len(pidx)
@@ -862,11 +864,11 @@ def nn_tables(p: SnapParams) -> NnTables:
     bterm = dealt(ptr, bt[1] | bt[2] << 16 | bt[3] << 32, c_s,
                   dtype=torch.int64, block=K9_BLOCK)
     p.nn = NnTables(
-        n_t=n_t, pidx=t(pidx), qidx=t(qidx), Lg2=t(Lg2, f64),
-        lgc_ptr=t(lgc[0]), lgc_row=t(lgc[1]), lgc_val=t(lgc[2], f64),
+        n_t=n_t, pidx=t(pidx), qidx=t(qidx), Lg2=t(Lg2, ft),
+        lgc_ptr=t(lgc[0]), lgc_row=t(lgc[1]), lgc_val=t(lgc[2], ft),
         lgr_row=t(lgr_row), lgr_ptr=t(lgr[0]), lgr_col=t(lgr[1]),
-        lgr_val=t(lgr[2], f64),
-        yblocks=[(c0, c1, t(ts, torch.long), t(src, torch.long), t(fac, f64))
+        lgr_val=t(lgr[2], ft),
+        yblocks=[(c0, c1, t(ts, torch.long), t(src, torch.long), t(fac, ft))
                  for c0, c1, ts, src, fac in blocks],
         yu_ptr=yu[0], yu_t=yu[1], yu_src=yu[2], yu_fac=yu[3],
         yt_ptr=yt[0], yt_u=yt[1], yt_src=yt[2], yt_fac=yt[3],

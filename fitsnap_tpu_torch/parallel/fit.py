@@ -34,6 +34,7 @@ runs on `cuda` unless the caller asks for the CPU, where the kernels'
 plain versions run.
 """
 
+import os
 from functools import partial
 from types import SimpleNamespace
 
@@ -99,7 +100,7 @@ def plan_shift_groups(packed, cutoff):
 _COST_UNITS_PER_S = 1.0e8   # padding-work proxy units per second (as in JAX)
 
 
-def plan_pos_buckets(packed, cutoff, max_programs=10, program_cost=6.0):
+def plan_pos_buckets(packed, cutoff, max_programs=10, program_cost=None):
     """Shape plan for the positions/device-neighbor path on large datasets.
 
     `plan_shift_groups` pads every config in a shift group to the group max
@@ -109,12 +110,16 @@ def plan_pos_buckets(packed, cutoff, max_programs=10, program_cost=6.0):
     choosing the merge with the least added padding work at each step.
 
     Merging continues while the cheapest merge costs less padding work than
-    `program_cost` seconds (the JAX package's default, which prices one
-    compiled XLA program; kept so that both plan the same groups), and in
-    any case until at most `max_programs` shapes remain.
+    `program_cost` seconds (by default FITSNAP_TPU_PROGRAM_COST, else 6.0:
+    the JAX package's, which prices one compiled XLA program; kept so that
+    both plan the same groups), and in any case until at most
+    `max_programs` shapes remain.
 
     Returns the same group dicts as `plan_shift_groups`.
     """
+    if program_cost is None:
+        program_cost = float(os.environ.get("FITSNAP_TPU_PROGRAM_COST",
+                                            "6.0"))
     groups = {}
     for pc in packed:
         nvec = np.asarray(required_shifts(pc.cell, cutoff))

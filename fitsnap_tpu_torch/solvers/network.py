@@ -68,6 +68,7 @@ once an epoch.  Adam, the best epoch and the scheduler then run alike on
 every rank.  Rank 0 alone writes files.
 """
 
+import os
 import time
 
 import numpy as np
@@ -75,11 +76,13 @@ import torch
 
 from fitsnap_tpu_torch.convert import mlp_params_from_numpy
 from fitsnap_tpu_torch.io.screen import info, screen, warn
+from fitsnap_tpu_torch.kernels import launch as kl
 from fitsnap_tpu_torch.kernels.custom_kernels import (PairDescForce,
                                                       pair_desc,
                                                       pair_desc_vjp)
-from fitsnap_tpu_torch.kernels.nn_kernels import (NnCachedForce, NnForce,
-                                                  nn_force, nn_pair_gather)
+from fitsnap_tpu_torch.kernels.nn_kernels import (F32_TWOJMAX, NnCachedForce,
+                                                  NnForce, nn_force,
+                                                  nn_pair_gather)
 from fitsnap_tpu_torch.models.mlp import (PerElementMLP, init_mlp,
                                           load_params, params_to_numpy,
                                           save_params)
@@ -88,7 +91,8 @@ from fitsnap_tpu_torch.solvers.solver import (NN_COLUMNS, NN_INDEX_NAMES,
                                               PAS_COLUMNS, ErrorTable, Solver)
 from fitsnap_tpu_torch.utils.torchsetup import (DTYPE, all_sum,
                                                 from_rank_zero, open_output,
-                                                resolve_device, share, world)
+                                                resolve_device, share,
+                                                working_type, world)
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 _BATCH_KEYS = ("B", "G", "types", "real", "nat", "jidx", "rev", "e_target",
@@ -108,15 +112,53 @@ _BATCH_KEYS_PW = ("disp", "jidx", "mask", "rev", "types", "real", "nat",
                   "e_target", "f_target", "ew", "fw")
 # the PAS buckets: descriptors and per-atom targets, no forces
 _BATCH_KEYS_PAS = ("B", "types", "real", "nat", "pas_target", "ew")
-# dgrad_mode = auto (the JAX package's defaults): the cached mode while its
-# neighbor and per-atom cache stays within NEIGH_LIMIT bytes, else the
-# stored dB/dD within G_LIMIT, else the OTF mode
+# The plan's defaults, each read from its variable of the JAX package where
+# that package reads it (`plan_var`).  dgrad_mode = auto: the cached mode
+# while its neighbor and per-atom cache stays within NEIGH_LIMIT bytes
+# (FITSNAP_TPU_NN_NEIGH_LIMIT), else the stored dB/dD within G_LIMIT
+# (FITSNAP_TPU_NN_G_LIMIT), else the OTF mode
 NEIGH_LIMIT = 4 << 30
 G_LIMIT = 2 << 30
-MAX_PROGRAMS = 10           # plan_pos_buckets' cap on the cached buckets
-CACHED_PAIRS = 390_000      # the cached mode's pair slots per minibatch
+MAX_PROGRAMS = 10           # plan_pos_buckets' cap (_NN_MAX_PROGRAMS)
+CACHED_PAIRS = 390_000      # the cached mode's pair slots a step (_NN_PAIRS)
+ATOMS_PER_BATCH = 0         # atoms a minibatch grows to, 0: off (_NN_ATOMS_..)
+APB_PAIRS = 390_000         # pair slots a step under ATOMS_PER_BATCH
 OTF_CANDIDATES = 1 << 25    # the OTF mode's (A, S, A) candidates per minibatch
 PAIR_CHUNK = 1 << 20        # pair slots per K15 call of the pairwise stats
+
+
+def plan_var(name, default, parse=int):
+    """Plan variable FITSNAP_TPU_<name> of the environment, parsed as the
+    JAX package parses it, else `default`."""
+    return parse(os.environ.get("FITSNAP_TPU_" + name, str(default)))
+
+
+def refuse_float32(config, mode=None, dtype=torch.float32):
+    """At float32 the NN solver takes the cached and OTF modes of linear
+    SNAP networks up to twojmax F32_TWOJMAX alone: raise, naming the
+    ROADMAP.md queue item that ports it, for anything else, from the
+    configuration alone (`mode`, by default the section's dgrad_mode:
+    "auto" passes until it is resolved)."""
+    if dtype != torch.float32:
+        return
+    mode = _net_section(config).dgrad_mode if mode is None else mode
+    sections = config.sections
+    bs = sections.get("BISPECTRUM")
+    if "CUSTOM" in sections or sections["CALCULATOR"].per_atom_scalar:
+        what, queue = ("the pairwise NN" if "CUSTOM" in sections else "PAS",
+                       kl.QUEUE_NN)
+    elif sections["CALCULATOR"].calculator.upper() != "LAMMPSSNAP":
+        what, queue = "nonlinear ACE", kl.QUEUE_ACE
+    elif bs.chemflag or bs.quadraticflag:
+        what, queue = "chemflag and quadraticflag networks", kl.QUEUE_CHEM
+    elif max(int(x) for x in bs.twojmax) > F32_TWOJMAX:
+        what, queue = f"twojmax {max(int(x) for x in bs.twojmax)}", \
+            kl.QUEUE_LARGE
+    elif mode not in ("auto", "cached", "otf"):
+        what, queue = f"dgrad_mode {mode}", kl.QUEUE_NN
+    else:
+        return
+    raise kl.f32_refusal(f"--dtype float32: {what}", queue)
 
 
 def pas_chunk(calculator, a_pad, k_pad):
@@ -132,10 +174,12 @@ def pas_chunk(calculator, a_pad, k_pad):
 
 def _real_sums(B, real):
     """The standardization's sums of a bucket's descriptors B (n, A, W) over
-    its real atoms (n, A): (sum B, sum B^2) (W,) on the host, and the
-    count."""
+    its real atoms (n, A): (sum B, sum B^2) (W,), summed at B's type and
+    widened to float64 on the host (the buckets add at float64, as in the
+    JAX package), and the count."""
     Bm = B * real[..., None]
-    return (Bm.sum((0, 1)).cpu().numpy(), (Bm * Bm).sum((0, 1)).cpu().numpy(),
+    return (Bm.sum((0, 1)).cpu().numpy().astype(np.float64),
+            (Bm * Bm).sum((0, 1)).cpu().numpy().astype(np.float64),
             int(real.sum()))
 
 
@@ -237,11 +281,11 @@ class Adam:
                 "this fit's optimizer (shape mismatch)")
         n = len(self.mu)
         self.count = int(np.asarray(stored[0]))
-        dev = self.mu[0].device
-        self.mu = [torch.as_tensor(np.asarray(a, np.float64), device=dev)
-                   for a in stored[1:1 + n]]
-        self.nu = [torch.as_tensor(np.asarray(a, np.float64), device=dev)
-                   for a in stored[1 + n:]]
+        # at the parameters' type, whatever type the state was saved at
+        self.mu = [torch.as_tensor(np.asarray(a), device=m.device)
+                   .to(m.dtype) for a, m in zip(stored[1:1 + n], self.mu)]
+        self.nu = [torch.as_tensor(np.asarray(a), device=v.device)
+                   .to(v.dtype) for a, v in zip(stored[1 + n:], self.nu)]
 
 
 class NetworkSolver(Solver):
@@ -260,6 +304,10 @@ class NetworkSolver(Solver):
         self.model = None
         self.cached = False     # dgrad_mode resolved to cached
         self.otf = False        # dgrad_mode resolved to otf
+        # the working type (`--dtype`): float64, or float32 for the cached
+        # and OTF modes of linear SNAP networks (`refuse_float32`, which
+        # `FitSnap` calls before it builds anything)
+        self.dtype = working_type(config.args)
         self._kit = None        # calculators/snap.nn_kit of the fit
         self._snap = None       # its SnapParams (None for ACE)
         self._dense = None      # the OTF minibatch's B and dB/dD, no kit
@@ -287,28 +335,32 @@ class NetworkSolver(Solver):
         from fitsnap_tpu_torch.parallel.fit import plan_pos_buckets
 
         self.cached = self.otf = False
+        mode = self.net.dgrad_mode
         if self.pairwise:
             return self._prepare_pairwise(calculator, data)
         if self.pas:
             return self._prepare_pas(calculator, data)
-        mode = self.net.dgrad_mode
         if mode in ("auto", "cached", "otf"):
             packed = [calculator._pack(d) for d in data]
-            pos_groups = plan_pos_buckets(packed, calculator.cutoff,
-                                          max_programs=MAX_PROGRAMS)
+            pos_groups = plan_pos_buckets(
+                packed, calculator.cutoff,
+                max_programs=plan_var("NN_MAX_PROGRAMS", MAX_PROGRAMS))
             kit = calculator.nn_analytic()
             if mode == "auto":
-                # pairs: disp + jidx + mask; atoms: the cached ut and B
+                # pairs: disp + jidx + mask; atoms: the cached ut and B; at
+                # the working type's size
+                itemsz = self.dtype.itemsize
                 neigh_bytes = sum(
                     len(g["configs"]) * g["a_pad"]
                     * (min(g["k_pad"], g["a_pad"] * len(g["s_table"]))
-                       * (3 * 8 + 5) + 2600) for g in pos_groups)
+                       * (3 * itemsz + 5) + 2600) for g in pos_groups)
                 g_bytes = sum(len(g["configs"]) * g["a_pad"] * g["k_pad"]
-                              * calculator.get_width() * 3 * 8
+                              * calculator.get_width() * 3 * itemsz
                               for g in pos_groups)
-                if kit is not None and neigh_bytes <= NEIGH_LIMIT:
+                if kit is not None and neigh_bytes <= plan_var(
+                        "NN_NEIGH_LIMIT", NEIGH_LIMIT):
                     mode = "cached"
-                elif g_bytes <= G_LIMIT:
+                elif g_bytes <= plan_var("NN_G_LIMIT", G_LIMIT):
                     mode = "precompute"
                 else:
                     mode = "otf"
@@ -320,6 +372,7 @@ class NetworkSolver(Solver):
                      "descriptor config (chem/quadratic/non-SNAP); "
                      "falling back to otf")
                 mode = "otf"
+        refuse_float32(self.config, mode, self.dtype)
         self.cached, self.otf = mode == "cached", mode == "otf"
         if self.cached or self.otf:
             # SNAP's model, or None for ACE
@@ -373,18 +426,21 @@ class NetworkSolver(Solver):
         return self.buckets
 
     def _standardize(self, sum_b, sumsq_b, count):
+        """mean and std of the descriptors from their float64 sums, at the
+        working type."""
         mean = sum_b / count
         var = sumsq_b / count - mean ** 2
         std = np.sqrt(np.clip(var, 0, None))
         std[std < 1e-8] = 1.0
-        self.mean = torch.as_tensor(mean, dtype=DTYPE, device=self.device)
-        self.std = torch.as_tensor(std, dtype=DTYPE, device=self.device)
+        self.mean = torch.as_tensor(mean, device=self.device).to(self.dtype)
+        self.std = torch.as_tensor(std, device=self.device).to(self.dtype)
 
     def _prepare_pos(self, calculator, pos_groups):
         """The cached and OTF modes' buckets (JAX `_prepare_otf`, with
         `cache=True` in the cached mode) on one device.  Per bucket of
-        `plan_pos_buckets` the positions go to the device (`pack_batch_pos`,
-        float64), and per chunk of configs K8 builds the neighbor lists, K8r
+        `plan_pos_buckets` the positions go to the device (`pack_batch_pos`
+        at the working type: float32 as hi/lo parts, with the truths and
+        weights), and per chunk of configs K8 builds the neighbor lists, K8r
         their reverse table, the descriptor pass B (cached: K9's ut and B;
         OTF: `nn_desc`, K9 with the quadratic columns, or under chemflag
         K1-K3's chemflag modes and for ACE K13 and K14, whose dB/dD is
@@ -410,7 +466,10 @@ class NetworkSolver(Solver):
             k_pad = int(min(g["k_pad"], a_pad * S))
             ph, pl, sh, sl, types, nat, _, e_t, f_t, _, ew, fw, _ = (
                 torch.from_numpy(x[0]).to(dev)
-                for x in pack_batch_pos(cfgs, a_pad, n, s_table))
+                for x in pack_batch_pos(
+                    cfgs, a_pad, n, s_table,
+                    np.float32 if self.dtype == torch.float32
+                    else np.float64))
             # bound the (A, S, A) neighbor-candidate transient (and the
             # chunk's dB/dD on the dense route)
             chunk = int(min(32, max(1, (1 << 26) // (a_pad * S * a_pad)), n))
@@ -772,7 +831,8 @@ class NetworkSolver(Solver):
             # whose width the plan gives): the prepared descriptors' width
             net.layer_sizes[0] = int(self.mean.shape[0])
         params = init_mlp(net.layer_sizes, nelem_net,
-                          torch.Generator().manual_seed(seed), dev)
+                          torch.Generator().manual_seed(seed), dev,
+                          self.dtype)
         warm_start = net.save_state_input and net.save_state_input != "None"
         warm_opt = None
         if warm_start:
@@ -816,10 +876,13 @@ class NetworkSolver(Solver):
             train_sets.append(tr)
             val_sets.append(va)
         def plan_bsz(n, ds):
-            """The minibatch size (JAX `_plan_bsz`): min(batch_size, n), at
-            most CACHED_PAIRS pair slots in the cached mode and
-            OTF_CANDIDATES neighbor candidates in the OTF mode, but at least
-            W, then a multiple of the W processes."""
+            """The minibatch size (JAX `_plan_bsz`, in its order):
+            min(batch_size, n); with ATOMS_PER_BATCH, grown to that many
+            atom slots and then held to APB_PAIRS pair slots (the PAS
+            buckets keep no slots); at most OTF_CANDIDATES neighbor
+            candidates in the OTF mode and CACHED_PAIRS pair slots in the
+            cached mode, but at least W; then a multiple of the W
+            processes."""
             if W > 1 and bs < W:
                 raise ValueError(
                     f"batch_size={bs} < devices={W}: data-parallel "
@@ -827,12 +890,18 @@ class NetworkSolver(Solver):
                     "minibatch — raise batch_size or lower --devices")
             bsz = min(bs, n)
             a_pad, k_pad = ds["shape"]
-            if self.cached:
-                cap = max(1, CACHED_PAIRS // (a_pad * k_pad))
-                bsz = min(bsz, max(cap, W))
+            apb = plan_var("NN_ATOMS_PER_BATCH", ATOMS_PER_BATCH)
+            if apb:
+                bsz = min(n, max(bsz, apb // max(a_pad, 1)))
+                if not self.pas:
+                    bsz = min(bsz, max(1, APB_PAIRS // (a_pad * k_pad)))
             if self.otf:
                 S = ds["svec_hi"].shape[1]
                 cap = max(1, OTF_CANDIDATES // (a_pad * S * a_pad))
+                bsz = min(bsz, max(cap, W))
+            if self.cached:
+                cap = max(1, plan_var("NN_PAIRS", CACHED_PAIRS)
+                          // (a_pad * k_pad))
                 bsz = min(bsz, max(cap, W))
             if W > 1:
                 bsz = W * max(1, bsz // W)
@@ -954,7 +1023,8 @@ class NetworkSolver(Solver):
                 f"{meta['multi_element_option']}, this fit uses "
                 f"{net.multi_element_option}")
 
-        params = mlp_params_from_numpy(loaded, self.device)
+        # the saved state at this fit's type, as the JAX package casts it
+        params = mlp_params_from_numpy(loaded, self.device, self.dtype)
         # the saved weights were trained against the saving fit's
         # descriptor standardization: restore it
         if meta.get("mean") is not None and self.mean is not None:
@@ -964,7 +1034,7 @@ class NetworkSolver(Solver):
                     f"save_state_input {net.save_state_input!r} has "
                     f"descriptor mean of width {m.shape}, this fit "
                     f"computes {tuple(self.mean.shape)}")
-            self.mean, self.std = (torch.as_tensor(x, dtype=DTYPE,
+            self.mean, self.std = (torch.as_tensor(x, dtype=self.dtype,
                                                    device=self.device)
                                    for x in (m, s))
         return params, meta.get("opt_state")

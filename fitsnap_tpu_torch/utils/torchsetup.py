@@ -5,9 +5,11 @@
   CUDA device is present raises; nothing falls back to the CPU.
 - Precision: TF32 is off for matmuls and cuDNN, so float32 products on the
   card keep full float32 precision.
-- Dtype: the linear SNAP path runs at float64 on the card as on the CPU (the
-  H100 has native FP64), so there is no counterpart of the TPU path's hi/lo
-  float32 pairs.
+- Dtype: every path runs at float64 by default, on the card as on the CPU
+  (the H100 has native FP64).  `--dtype float32` (`working_type`) trains
+  the NN solver's cached and OTF modes of linear SNAP networks at float32,
+  the JAX package's type on its accelerator; the streamed fit takes float32
+  through its packers (`pack_batch_pos(..., np.float32)`).
 - Process group: one process per card, as `torchrun --nproc_per_node N -m
   fitsnap_tpu_torch in.in` starts them, or the caller's own
   `torch.distributed.init_process_group` in library mode.  Whenever the
@@ -32,6 +34,16 @@ import torch
 import torch.distributed as dist
 
 DTYPE = torch.float64
+WORKING_TYPES = {None: torch.float64, "float64": torch.float64,
+                 "float32": torch.float32}
+
+
+def working_type(args):
+    """The torch type of the command line's `--dtype`: float64 without the
+    flag or with `float64`, float32 with `float32`; raises on any other."""
+    if args.dtype not in WORKING_TYPES:
+        raise ValueError(f"--dtype {args.dtype}: takes float32 or float64")
+    return WORKING_TYPES[args.dtype]
 
 
 def resolve_device(device=None) -> torch.device:

@@ -110,7 +110,14 @@ relative (float32 sums in other orders), K8's mask and jidx and K8r's
 table exactly, K8's disp within 2 ulp, every output float32 (K7's direct
 mode float64); and the float32 refusals of the modes without a float32
 kernel (the chemflag modes, K6q, ref_eav, K4's halo) with their ROADMAP.md
-queue item, and of float16 and mixed float inputs.
+queue item, and of float16 and mixed float inputs.  The float32
+instantiations of the NN solver's cached and OTF modes (`-k "f32_k9 or
+f32_gather or f32_nn"`): K9, K10, K10T, K11, K11T and the force gather at
+twojmax 4 (two elements), 6, 8 and 12 against their float32 plain
+versions, 1e-4, launched once each as "<name>_f32", bit for bit from run
+to run; the gather with float4 and single-float row loads; the loss
+gradient through NnCachedForce at float32 (1e-4); and the refusals at
+twojmax 13, with element channels, and of K12 and K12T at float32.
 """
 
 from types import SimpleNamespace
@@ -2256,3 +2263,204 @@ def test_f32_off_path_modes_are_refused(cuda):
         sk.pair_scatter_rows(g.double(), disp, mask, jidx, types, 1)
     with pytest.raises(TypeError, match="all float64 or all float32"):
         sk.pair_scatter_rows(g.half(), disp.half(), mask, jidx, types, 1)
+
+
+# ---------------------------------------------------------------------------
+# float32: the NN solver's cached and OTF modes' instantiations of K9, K10,
+# K10T, K11, K11T and the force gather against their plain versions at
+# float32 on the card, at twojmax 4 (two elements, bzeroflag, the inner
+# switching function), 6, 8 and 12: 1e-4 relative to each output's largest
+# magnitude (float32 sums in other orders; the JAX kit's own float32 runs
+# stand 8e-6 from its float64 forces), each launched once as "<name>_f32",
+# bit for bit from run to run; the loss gradient through NnCachedForce at
+# float32 against autograd through the plain versions at float32, 1e-4;
+# and the refusals: twojmax 13, element channels, K12 and K12T.
+# ---------------------------------------------------------------------------
+
+RTOL_NN32 = 1e-4
+F32_NN_CASES = {"tj4_two_elements": CASES["tj4_two_elements"],
+                "tj6": CASES["tj6"], "tj8": dict(CASES["tj6"], twojmax=["8"]),
+                "tj12": dict(CASES["tj6"], twojmax=["12"])}
+
+
+def grid_block32(spec, device):
+    """`grid_block` at float32: the plan's float32 copy and the block's
+    displacements rounded once."""
+    p, block, jidx, rev = grid_block(spec, device)
+    return p.cast(F32), (block[0].to(F32),) + block[1:], jidx, rev
+
+
+@pytest.mark.parametrize("name", sorted(F32_NN_CASES))
+def test_f32_k9_k10_k11_match_plain(cuda, name):
+    """K9, K10, K10T, K11, K11T and the force gather at float32 against
+    their plain versions at float32, each launched once in its float32
+    instantiation, outputs float32, bit for bit from run to run."""
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+    from fitsnap_tpu_torch.ops.snap import nn_tables
+
+    p, block, jidx, rev = grid_block32(F32_NN_CASES[name], cuda)
+    N, K = block[2].shape
+    n_t = nn_tables(p).n_t
+    nconf, A = jidx.shape[:2]
+    rng = np.random.default_rng(13)
+
+    def t(*shape):
+        return torch.as_tensor(rng.normal(size=shape), dtype=F32,
+                               device=cuda)
+
+    ut = nk.nn_ut_b_plain(*block, p)[0]
+    z = sk.zlist_plain(ut, p)
+    assert ut.dtype == z[0].dtype == F32
+    dEdB, vgc, vg, gF = (t(N, p.ntriples), t(N, n_t, n_t), t(N, n_t, n_t),
+                         t(nconf, A, 3))
+    g = t(nconf, A, K, 3)
+    calls = {
+        "nn_ut_b": (lambda: nk.nn_ut_b(*block, p),
+                    lambda: nk.nn_ut_b_plain(*block, p)),
+        "nn_dedu_vg": (lambda: [nk.nn_dedu_vg(dEdB, *z, p)],
+                       lambda: [nk.nn_dedu_vg_plain(dEdB, *z, p)]),
+        "nn_dedu_vg_t": (lambda: [nk.nn_dedu_vg_t(vgc, *z, p)],
+                         lambda: [nk.nn_dedu_vg_t_plain(vgc, *z, p)]),
+        "nn_pair_force": (lambda: [nk.nn_pair_force(vg, *block, p)],
+                          lambda: [nk.nn_pair_force_plain(vg, *block, p)]),
+        "nn_pair_force_t": (
+            lambda: [nk.nn_pair_force_t(gF, jidx, *block, p)],
+            lambda: [nk.nn_pair_force_t_plain(gF, jidx, *block, p)]),
+        "nn_pair_gather": (lambda: [nk.nn_pair_gather(g, rev)],
+                           lambda: [nk.nn_pair_gather_plain(g, rev)]),
+    }
+    nk.reset_launches()
+    outs = {k: kernel() for k, (kernel, _) in calls.items()}
+    torch.cuda.synchronize()
+    assert launched(nk) == {k + "_f32": 1 for k in calls}
+    for k, (kernel, plain) in calls.items():
+        ref = plain()
+        assert all(x.dtype == F32 for x in outs[k]) and all(
+            x.dtype == F32 for x in ref), k
+        assert rel_err(outs[k], ref) <= RTOL_NN32, k
+        assert all(torch.equal(a, b) for a, b in zip(outs[k], kernel())), k
+
+
+@pytest.mark.parametrize("shape", [(2, 6, 40), (3, 7, 41)])
+def test_f32_gather_matches_plain(cuda, shape):
+    """The force gather at float32 with its own rows as float4 loads (3K a
+    multiple of 4) and as single floats (3 x 41, not 16-byte aligned), on
+    the lists of `gather_block`'s k41 case drawn at this shape."""
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+
+    nconf, A, K = shape
+    rng = np.random.default_rng(15)
+    mask = rng.uniform(size=(nconf, A, K)) < 0.8
+    jidx = rng.integers(0, A, (nconf, A, K))
+    slots = [[np.flatnonzero((jidx[c] == m).ravel() & mask[c].ravel())
+              for m in range(A)] for c in range(nconf)]
+    R = max(len(x) for row in slots for x in row)
+    rev = np.full((nconf, A, R), -1)
+    for c, row in enumerate(slots):
+        for m, x in enumerate(row):
+            rev[c, m, :len(x)] = x
+    g = torch.as_tensor(rng.normal(size=(nconf, A, K, 3)) * mask[..., None],
+                        dtype=F32, device=cuda)
+    rev = torch.as_tensor(rev, dtype=torch.int32, device=cuda)
+    nk.reset_launches()
+    out = nk.nn_pair_gather(g, rev)
+    torch.cuda.synchronize()
+    assert launched(nk) == {"nn_pair_gather_f32": 1}
+    assert out.dtype == F32
+    assert rel_err([out], [nk.nn_pair_gather_plain(g, rev)]) <= RTOL_NN32
+    assert torch.equal(out, nk.nn_pair_gather(g, rev))
+
+
+def test_f32_nn_cached_force_gradient_matches_plain_autograd(cuda):
+    """The gradient of a force loss through NnCachedForce at float32 (K2,
+    K10, K11, the gather; backward K11T, K10T, all `_f32`) against
+    autograd through the plain versions at float32."""
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+    from fitsnap_tpu_torch.models.mlp import atom_energies
+
+    p64, block, jidx, rev = grid_block(CASES["tj6"], cuda)
+    p = p64.cast(F32)
+    block = (block[0].to(F32),) + block[1:]
+    nconf, A, K = jidx.shape
+    N, W = nconf * A, p.ntriples
+    ut = nk.nn_ut_b_plain(*block, p)[0]
+    rng = np.random.default_rng(14)
+    x0 = torch.as_tensor(rng.normal(size=(N, W)), dtype=F32, device=cuda)
+    target = torch.as_tensor(rng.normal(size=(nconf, A, 3)), dtype=F32,
+                             device=cuda)
+    params = [(torch.as_tensor(rng.normal(size=(1, a, b)) / np.sqrt(a),
+                               dtype=F32, device=cuda).requires_grad_(True),
+               torch.as_tensor(rng.normal(size=(1, b)), dtype=F32,
+                               device=cuda).requires_grad_(True))
+              for a, b in ((W, 5), (5, 1))]
+    leaves = [t for wb in params for t in wb]
+
+    def grads(force):
+        x = x0.clone().requires_grad_(True)
+        e = atom_energies(params, x, torch.zeros(N, dtype=torch.int32,
+                                                 device=cuda)).sum()
+        dedx, = torch.autograd.grad(e, x, create_graph=True)
+        loss = ((force(dedx) - target) ** 2).sum() + e ** 2
+        return torch.autograd.grad(loss, leaves)
+
+    def plain(d):
+        vg = nk.nn_dedu_vg_plain(d, *sk.zlist_plain(ut, p), p)
+        g = nk.nn_pair_force_plain(vg, *block, p)
+        return nk.nn_pair_gather_plain(g.reshape(nconf, A, K, 3), rev)
+
+    sk.reset_launches()
+    nk.reset_launches()
+    # the float64 plan given: NnCachedForce takes its float32 copy
+    out = grads(lambda d: nk.NnCachedForce.apply(d, ut, block[0], jidx,
+                                                 *block[1:], rev, p64))
+    torch.cuda.synchronize()
+    assert launched(sk) == {"zlist_f32": 1}
+    assert launched(nk) == {"nn_dedu_vg_f32": 1, "nn_pair_force_f32": 1,
+                            "nn_pair_gather_f32": 1,
+                            "nn_pair_force_t_f32": 1, "nn_dedu_vg_t_f32": 1}
+    assert all(g.dtype == F32 for g in out)
+    assert rel_err(out, grads(plain)) <= RTOL_NN32
+
+
+def test_f32_nn_refusals(cuda):
+    """float32 past the NN slice names its ROADMAP.md queue item and runs
+    nothing: the pair-grid kernels at twojmax 13 ("Twojmax 13-16 at
+    float32"), K9 with element channels (chemflag), K12 and K12T (the
+    precompute mode); a float32 plan with float64 inputs, and mixed types,
+    are refused too."""
+    from fitsnap_tpu_torch.kernels import launch as kl
+    from fitsnap_tpu_torch.kernels import nn_kernels as nk
+    from fitsnap_tpu_torch.ops.snap import nn_tables
+
+    p13, block, jidx, _ = grid_block32(dict(CASES["tj6"], twojmax=["13"]),
+                                       cuda)
+    N, K = block[2].shape
+    nk.reset_launches()
+    with pytest.raises(TypeError, match=kl.QUEUE_LARGE):
+        nk.nn_ut_b(*block, p13)
+    vg = torch.zeros((N, 105, 105), dtype=F32, device=cuda)
+    with pytest.raises(TypeError, match=kl.QUEUE_LARGE):
+        nk.nn_pair_force(vg, *block, p13)
+    gF = torch.zeros(tuple(jidx.shape[:2]) + (3,), dtype=F32, device=cuda)
+    with pytest.raises(TypeError, match=kl.QUEUE_LARGE):
+        nk.nn_pair_force_t(gF, jidx, *block, p13)
+    chem, cblock, _, _ = grid_block32(CHEM_CASES["tj4_chem2"], cuda)
+    with pytest.raises(TypeError, match=kl.QUEUE_CHEM):
+        nk.nn_ut_b(*cblock, chem)
+    p, block, _, rev = grid_block32(CASES["tj6"], cuda)
+    with pytest.raises(TypeError, match="pass p.cast"):
+        nk.nn_ut_b(block[0].double(), *block[1:], p)
+    n_t = nn_tables(p).n_t
+    with pytest.raises(TypeError, match="all float64 or all float32"):
+        nk.nn_pair_force(torch.zeros((N, n_t, n_t), device=cuda,
+                                     dtype=torch.float64), *block, p)
+    batch = nn_batch(cuda)
+    dEdB, G, bjidx, brev = (x.to(F32) if x.is_floating_point() else x
+                            for x in batch[:4])
+    with pytest.raises(TypeError, match=kl.QUEUE_NN):
+        nk.nn_force(dEdB, G, bjidx, brev)
+    with pytest.raises(TypeError, match=kl.QUEUE_NN):
+        nk.nn_force_t(torch.zeros(tuple(dEdB.shape[:2]) + (3,), dtype=F32,
+                                  device=cuda), G, bjidx)
+    torch.cuda.synchronize()
+    assert launched(nk) == {}

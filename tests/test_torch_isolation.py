@@ -387,17 +387,18 @@ def _nn_kernel_calls(device):
                                   "nn_pair_force", "nn_pair_force_t"])
 def test_nn_wrappers_plain_on_cpu_and_raise_on_meta(name):
     """K12, K12T, the force gather, K9, K10, K10T, K11 and K11T run their
-    plain version for CPU tensors without counting a launch, and refuse a
-    `meta` tensor."""
+    plain version for CPU tensors without counting a launch (at either
+    type: the float32 instantiations count apart as "<name>_f32"), and
+    refuse a `meta` tensor."""
     from fitsnap_tpu_torch.kernels import nn_kernels as nk
 
     nk.reset_launches()
     out = _nn_kernel_calls("cpu")[name]()
     assert torch.isfinite(out).all()
+    f32 = ["nn_pair_gather", "nn_ut_b", "nn_dedu_vg", "nn_dedu_vg_t",
+           "nn_pair_force", "nn_pair_force_t"]
     assert nk.launches() == dict.fromkeys(
-        ["nn_force", "nn_force_t", "nn_pair_gather", "nn_ut_b",
-         "nn_dedu_vg", "nn_dedu_vg_t", "nn_pair_force", "nn_pair_force_t"],
-        0)
+        ["nn_force", "nn_force_t"] + f32 + [k + "_f32" for k in f32], 0)
     with pytest.raises(ValueError, match="no kernel for device"):
         _nn_kernel_calls("meta")[name]()
 

@@ -725,13 +725,19 @@ def test_k9_schedule_matches_plain(twojmax, nelem, chem, wself, bnorm,
 
 def _entry_args(source, name):
     """The parameter names of csrc/<source>.cu's entry point `name` and the
-    body of its launch."""
+    body of its launch (where the entry point forwards its parameters to
+    its template on the working type, `<name>_launch<double>`, that
+    template's body)."""
     src = (Path(nk.__file__).parent / "csrc" / f"{source}.cu").read_text()
     m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)\s*\{(.*?)\n\}",
                   src, re.S)
     names = [a.strip().rsplit(" ", 1)[-1].lstrip("*")
              for a in m.group(1).split(",")]
-    return names, m.group(2)
+    body = m.group(2)
+    if re.search(rf"return {name}_launch<double>\(", body):
+        body = re.search(r"int " + name + r"_launch\(([^)]*)\)\s*\{(.*?)\n\}",
+                         src, re.S).group(2)
+    return names, body
 
 
 def _launched_args(monkeypatch, call):
